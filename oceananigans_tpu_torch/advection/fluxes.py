@@ -1,0 +1,103 @@
+"""Advective flux divergences for momentum (flux form).
+
+Counterpart of ``oceananigans_tpu/advection/fluxes.py`` (momentum terms, no
+slab trimming): the advecting velocity is the scheme's symmetric
+interpolation of A·q, the advected quantity the upwind reconstruction
+selected by the advecting velocity's sign.
+
+``zbc``: halo-free z-boundary mode (the z-compact layout). The dict gives each
+velocity's z-mirror parity (even for u/v, odd-face for w); the flux deltas
+need no fix-ups because boundary-face fluxes vanish and the out-of-range
+shift zero-fill reproduces exactly that.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..operators.operators import (LOC_CCF, LOC_CFC, LOC_FCC, _delta_c,
+                                   _delta_f)
+
+X, Y, Z = 0, 1, 2
+
+
+def _transports(grid, u, v, w):
+    return (grid.Ax(LOC_FCC) * u, grid.Ay(LOC_CFC) * v, grid.Az(LOC_CCF) * w)
+
+
+def _sum_terms(terms, like, V):
+    if not terms:
+        return torch.zeros_like(like)
+    total = terms[0]
+    for t in terms[1:]:
+        total = total + t
+    return total / V
+
+
+def div_Uu(grid, scheme, u, v, w, zbc=None, only_axis=None):
+    """∇·(𝐯 u) at fcc."""
+    if scheme is None:
+        return torch.zeros_like(u)
+    Ax_u, Ay_v, Az_w = _transports(grid, u, v, w)
+    terms = []
+    if not grid.is_flat(X) and only_axis in (None, X):
+        ut = scheme.symmetric(grid, Ax_u, X, 1)                # fcc → ccc
+        uhat = scheme.biased_by(grid, u, X, 1, ut)
+        terms.append(_delta_f(grid, ut * uhat, X))             # ccc → fcc
+    if not grid.is_flat(Y) and only_axis in (None, Y):
+        vt = scheme.symmetric(grid, Ay_v, X, 0)                # cfc → ffc
+        uhat = scheme.biased_by(grid, u, Y, 0, vt)
+        terms.append(_delta_c(grid, vt * uhat, Y))             # ffc → fcc
+    if not grid.is_flat(Z) and only_axis in (None, Z):
+        wt = scheme.symmetric(grid, Az_w, X, 0)                # ccf → fcf
+        uhat = scheme.biased_by(grid, u, Z, 0, wt,
+                                zbc=zbc["u"] if zbc else None)
+        terms.append(_delta_c(grid, wt * uhat, Z))             # fcf → fcc
+    return _sum_terms(terms, u, grid.V(LOC_FCC))
+
+
+def div_Uv(grid, scheme, u, v, w, zbc=None, only_axis=None):
+    """∇·(𝐯 v) at cfc."""
+    if scheme is None:
+        return torch.zeros_like(v)
+    Ax_u, Ay_v, Az_w = _transports(grid, u, v, w)
+    terms = []
+    if not grid.is_flat(X) and only_axis in (None, X):
+        ut = scheme.symmetric(grid, Ax_u, Y, 0)                # fcc → ffc
+        vhat = scheme.biased_by(grid, v, X, 0, ut)
+        terms.append(_delta_c(grid, ut * vhat, X))             # ffc → cfc
+    if not grid.is_flat(Y) and only_axis in (None, Y):
+        vt = scheme.symmetric(grid, Ay_v, Y, 1)                # cfc → ccc
+        vhat = scheme.biased_by(grid, v, Y, 1, vt)
+        terms.append(_delta_f(grid, vt * vhat, Y))             # ccc → cfc
+    if not grid.is_flat(Z) and only_axis in (None, Z):
+        wt = scheme.symmetric(grid, Az_w, Y, 0)                # ccf → cff
+        vhat = scheme.biased_by(grid, v, Z, 0, wt,
+                                zbc=zbc["v"] if zbc else None)
+        terms.append(_delta_c(grid, wt * vhat, Z))             # cff → cfc
+    return _sum_terms(terms, v, grid.V(LOC_CFC))
+
+
+def div_Uw(grid, scheme, u, v, w, zbc=None, only_axis=None):
+    """∇·(𝐯 w) at ccf."""
+    if scheme is None:
+        return torch.zeros_like(w)
+    Ax_u, Ay_v, Az_w = _transports(grid, u, v, w)
+    zw = zbc["w"] if zbc else None
+    terms = []
+    if not grid.is_flat(X) and only_axis in (None, X):
+        # the advected quantity is w, the z-interpolated advecting velocity u
+        ut = scheme.symmetric(grid, Ax_u, Z, 0,
+                              zbc=zbc["u"] if zbc else None)   # fcc → fcf
+        what = scheme.biased_by(grid, w, X, 0, ut)
+        terms.append(_delta_c(grid, ut * what, X))             # fcf → ccf
+    if not grid.is_flat(Y) and only_axis in (None, Y):
+        vt = scheme.symmetric(grid, Ay_v, Z, 0,
+                              zbc=zbc["v"] if zbc else None)   # cfc → cff
+        what = scheme.biased_by(grid, w, Y, 0, vt)
+        terms.append(_delta_c(grid, vt * what, Y))             # cff → ccf
+    if not grid.is_flat(Z) and only_axis in (None, Z):
+        wt = scheme.symmetric(grid, Az_w, Z, 1, zbc=zw)        # ccf → ccc
+        what = scheme.biased_by(grid, w, Z, 1, wt, zbc=zw)
+        terms.append(_delta_f(grid, wt * what, Z))             # ccc → ccf
+    return _sum_terms(terms, w, grid.V(LOC_CCF))

@@ -1,0 +1,147 @@
+"""Reconstruction coefficient machinery for Centered / UpwindBiased / WENO.
+
+Counterpart of ``oceananigans_tpu/advection/reconstruction.py`` (uniform
+spacing). Every coefficient is derived at scheme-construction time with
+numpy polynomial algebra, in float64:
+
+* ENO reconstruction coefficients via the primitive-function trick;
+* optimal ("linear") WENO weights by matching the union-stencil
+  reconstruction;
+* Jiang–Shu smoothness indicators as quadratic forms β_s = uᵀ B_s u, factored
+  into sums of squared linear stencils.
+
+Stencil/shift conventions: reconstruction happens at the interface between
+cell L0 and R0. With base offset β (0 for center→face output, 1 for
+face→center output), left-biased stencil s covers the cells at shifts
+β-1-s … β-1-s+k-1; the right-biased stencil is its mirror across the
+interface (shift ↦ 2β-1-shift).
+"""
+
+from __future__ import annotations
+
+import functools
+from fractions import Fraction
+
+import numpy as np
+from numpy.polynomial import Polynomial
+
+from ..operators.shifts import shift, shift_zbc
+
+
+def _rationalize(x):
+    """Snap a nearly-rational float to its exact rational value."""
+    return float(Fraction(x).limit_denominator(10**6))
+
+
+@functools.lru_cache(maxsize=None)
+def _basis_polys(k):
+    """Reconstruction basis polynomials p_j(ξ) for a stencil of k cells, where
+    cell m occupies [m, m+1] in stencil-local coordinates."""
+    polys = []
+    xs = np.arange(k + 1, dtype=np.float64)
+    for j in range(k):
+        coef = np.polynomial.polynomial.polyfit(xs, (xs > j).astype(np.float64),
+                                                deg=k)
+        polys.append(Polynomial(coef).deriv())
+    return polys
+
+
+@functools.lru_cache(maxsize=None)
+def eno_coefficients(k, s):
+    """c[j] with p(interface) = Σ_j c[j] ū_j for left-biased stencil s."""
+    polys = _basis_polys(k)
+    return tuple(_rationalize(p(s + 1.0)) for p in polys)
+
+
+@functools.lru_cache(maxsize=None)
+def optimal_weights(k):
+    """Optimal linear weights γ_s reproducing the (2k-1)-order union-stencil
+    reconstruction from the k ENO stencils."""
+    full = eno_coefficients(2 * k - 1, k - 1)
+    A = np.zeros((2 * k - 1, k))
+    for s in range(k):
+        c = eno_coefficients(k, s)
+        for j in range(k):
+            A[k - 1 - s + j, s] = c[j]
+    gamma, *_ = np.linalg.lstsq(A, np.asarray(full), rcond=None)
+    assert np.all(gamma > 0) and abs(gamma.sum() - 1) < 1e-10, gamma
+    return tuple(_rationalize(g) for g in gamma)
+
+
+@functools.lru_cache(maxsize=None)
+def smoothness_matrix(k, s):
+    """Symmetric matrix B with β_s = Σ_{j,l} B[j,l] u_j u_l (Jiang–Shu)."""
+    polys = _basis_polys(k)
+    B = np.zeros((k, k))
+    for d in range(1, k):
+        ders = [p.deriv(d) for p in polys]
+        for j in range(k):
+            for l in range(k):
+                integ = (ders[j] * ders[l]).integ()
+                B[j, l] += integ(s + 1.0) - integ(float(s))
+    return B
+
+
+@functools.lru_cache(maxsize=None)
+def smoothness_factors(k, s):
+    """Factor the PSD smoothness quadratic form B = Σ_m w_m w_mᵀ so that
+    β = Σ_m (w_mᵀ u)²."""
+    lam, V = np.linalg.eigh(smoothness_matrix(k, s))
+    return tuple(tuple(float(x) for x in np.sqrt(lam[m]) * V[:, m])
+                 for m in range(k) if lam[m] > 1e-12)
+
+
+# -- stencil evaluation on padded tensors --------------------------------------
+
+class _ShiftCache:
+    """Cache shifted views of one tensor so each distinct offset is built
+    once. ``zbc`` activates halo-free boundary-aware reads."""
+
+    def __init__(self, a, axis, zbc=None):
+        self.a, self.axis, self.zbc = a, axis, zbc
+        self.cache = {}
+
+    def __call__(self, off):
+        if off not in self.cache:
+            if self.zbc is not None:
+                self.cache[off] = shift_zbc(self.a, off, self.axis, self.zbc)
+            else:
+                self.cache[off] = shift(self.a, off, self.axis)
+        return self.cache[off]
+
+
+def left_shifts(k, s, beta):
+    """Padded-array shifts of the cells of left-biased stencil s."""
+    return tuple(beta - 1 - s + j for j in range(k))
+
+
+def mirror(shifts, beta):
+    """Right-biased stencil = mirror across the interface."""
+    return tuple(2 * beta - 1 - o for o in shifts)
+
+
+def stencil_value(sc, shifts, coeffs):
+    out = None
+    for off, c in zip(shifts, coeffs):
+        term = c * sc(off)
+        out = term if out is None else out + term
+    return out
+
+
+def smoothness_value(sc, shifts, factors, compute_dtype=None):
+    """β = Σ_m (w_mᵀ u)² from shifted reads, optionally in a lower-precision
+    ``compute_dtype`` (the reference's WENO FT2 = Float32 inner weights)."""
+    vals = [sc(o) for o in shifts]
+    if compute_dtype is not None:
+        vals = [v.to(compute_dtype) for v in vals]
+    beta = None
+    for w in factors:
+        lin = None
+        for c, v in zip(w, vals):
+            if abs(c) < 1e-14:
+                continue
+            term = c * v
+            lin = term if lin is None else lin + term
+        sq = lin * lin
+        beta = sq if beta is None else beta + sq
+    return beta

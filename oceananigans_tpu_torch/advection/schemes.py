@@ -1,0 +1,339 @@
+"""Advection schemes: Centered, UpwindBiased, WENO.
+
+Counterpart of ``oceananigans_tpu/advection/schemes.py`` on regular grids.
+Each scheme exposes, over padded tensors,
+
+    symmetric(grid, a, axis, beta)            # face value, no bias
+    biased_by(grid, a, axis, beta, q)         # upwind value selected by sign(q)
+
+``beta`` is 0 for center→face output, 1 for face→center output. An upwind or
+WENO scheme carries a lower-order centered scheme for the *advecting*
+velocity, and near the walls of a Bounded direction every scheme cascades to
+its buffer scheme (WENO5 → WENO3 → UpwindBiased(1); Centered(4) →
+Centered(2)), with masks on the global index. WENO computes its smoothness
+indicators in ``smoothness_dtype`` (float32 by default), whatever the field
+dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..defaults import as_torch_dtype
+from .reconstruction import (_ShiftCache, eno_coefficients, left_shifts,
+                             mirror, optimal_weights, smoothness_factors,
+                             smoothness_value, stencil_value)
+from ..operators.shifts import shift, shift_zbc
+
+
+class _SelectedShiftCache:
+    """Shift reader returning ``where(pos, a[o], a[mirror(o)])`` — the
+    upwind-selected cell for offset ``o``. ``zbc`` activates halo-free
+    boundary-aware reads."""
+
+    def __init__(self, a, axis, pos, beta, zbc=None):
+        self.a, self.axis, self.pos, self.beta = a, axis, pos, beta
+        self.zbc = zbc
+        self.cache = {}
+
+    def _shift(self, off):
+        if self.zbc is not None:
+            return shift_zbc(self.a, off, self.axis, self.zbc)
+        return shift(self.a, off, self.axis)
+
+    def __call__(self, off):
+        if off not in self.cache:
+            l = self._shift(off)
+            r = self._shift(2 * self.beta - 1 - off)
+            self.cache[off] = torch.where(self.pos, l, r)
+        return self.cache[off]
+
+
+# WENO regularization (reference: weno_interpolants.jl `const ϵ = 1f-8`)
+WENO_EPSILON = 1e-8
+
+# Saturation of r = τ/(β+ε) before squaring (keeps the float32 smoothness
+# arithmetic finite for metric-weighted operands).
+WENO_R_MAX = 1e12
+
+# Global smoothness indicator τ coefficients per buffer k (Don & Borges 2013):
+# τ = |Σ_s t_s β_s| with β ordered from the downwind-most stencil (s=0).
+TAU_COEFFS = {
+    2: (1, -1),
+    3: (1, 0, -1),
+    4: (1, 3, -3, -1),
+    5: (1, 2, -6, 2, 1),
+    6: (1, 36, 135, -135, -36, -1),
+}
+
+
+def _axis_bounded(grid, axis):
+    """Whether ``axis`` is a Bounded direction the near-wall order cascade
+    applies to."""
+    from ..grids.topology import BOUNDED
+    return not grid.is_flat(axis) and grid.topology[axis] == BOUNDED
+
+
+def cascade_mask(grid, axis, beta, R, shape, device):
+    """True where the order-R scheme applies along a Bounded ``axis``: faces
+    i ∈ [R+1, N+1−R] and centers i ∈ [R, N+1−R] (1-based), i.e. padded slots
+    [H+R−β, H+N−R]."""
+    H, N = grid.H[axis], grid.N[axis]
+    i0 = H + R - beta
+    i1 = H + N - R
+    view = [1, 1, 1]
+    view[axis] = shape[axis]
+    iota = torch.arange(shape[axis], device=device).reshape(view)
+    return (iota >= i0) & (iota <= i1)
+
+
+def _cascade_select(grid, axis, beta, R, hi, lo):
+    return torch.where(cascade_mask(grid, axis, beta, R, hi.shape, hi.device),
+                       hi, lo)
+
+
+class AdvectionScheme:
+    required_halo = 1
+
+    def _fp(self):
+        return (type(self).__name__, self.order)
+
+    def __hash__(self):
+        return hash(self._fp())
+
+    def __eq__(self, other):
+        return isinstance(other, AdvectionScheme) and self._fp() == other._fp()
+
+    def __repr__(self):
+        return f"{type(self).__name__}(order={self.order})"
+
+    def buffer_scheme(self):
+        """The lower-order scheme evaluated inside the boundary buffer of a
+        Bounded direction; None = evaluated unconditionally."""
+        return None
+
+    def _cascade(self, grid, axis, beta, hi, lo_eval):
+        bs = self.buffer_scheme()
+        if bs is None or not _axis_bounded(grid, axis):
+            return hi
+        return _cascade_select(grid, axis, beta, self.buffer, hi, lo_eval(bs))
+
+    def biased_by(self, grid, a, axis, beta, q, zbc=None):
+        hi = self._biased_by_plain(grid, a, axis, beta, q, zbc=zbc)
+        return self._cascade(grid, axis, beta, hi,
+                             lambda bs: bs.biased_by(grid, a, axis, beta, q,
+                                                     zbc=zbc))
+
+    def _biased_by_plain(self, grid, a, axis, beta, q, zbc=None):
+        """Upwind reconstruction selected by the sign of ``q``: select each
+        stencil cell first — ``where(q > 0, a[shift], a[mirror(shift)])`` —
+        then reconstruct once with the left-biased coefficients (the mirror
+        stencils share coefficients and smoothness factors)."""
+        if grid.is_flat(axis):
+            return a
+        sel = _SelectedShiftCache(a, axis, q > 0, beta, zbc)
+        return self._biased(grid, sel, axis, beta)
+
+
+class Centered(AdvectionScheme):
+    """Symmetric reconstruction of even order."""
+
+    def __init__(self, order=2):
+        if order % 2 != 0:
+            raise ValueError("Centered order must be even")
+        self.order = order
+        self.buffer = order // 2
+        self.required_halo = self.buffer
+        self._coeffs = eno_coefficients(order, self.buffer - 1)
+
+    def buffer_scheme(self):
+        if self.order <= 2:
+            return None
+        if not hasattr(self, "_buffer_scheme"):
+            self._buffer_scheme = Centered(order=self.order - 2)
+        return self._buffer_scheme
+
+    def _symmetric_plain(self, grid, a, axis, beta, zbc=None):
+        if grid.is_flat(axis):
+            return a
+        sc = _ShiftCache(a, axis, zbc)
+        shifts = left_shifts(self.order, self.buffer - 1, beta)
+        return stencil_value(sc, shifts, self._coeffs)
+
+    def symmetric(self, grid, a, axis, beta, zbc=None):
+        hi = self._symmetric_plain(grid, a, axis, beta, zbc)
+        if grid.is_flat(axis):
+            return hi
+        return self._cascade(grid, axis, beta, hi,
+                             lambda bs: bs.symmetric(grid, a, axis, beta,
+                                                     zbc=zbc))
+
+    def _biased(self, grid, sc, axis, beta):
+        shifts = left_shifts(self.order, self.buffer - 1, beta)
+        return stencil_value(sc, shifts, self._coeffs)
+
+
+class UpwindBiased(AdvectionScheme):
+    """Odd-order upwind-biased reconstruction."""
+
+    def __init__(self, order=3):
+        if order % 2 != 1:
+            raise ValueError("UpwindBiased order must be odd")
+        self.order = order
+        self.buffer = (order + 1) // 2
+        self.required_halo = self.buffer
+        self._s = self.buffer - 1
+        self._coeffs = eno_coefficients(order, self._s)
+        self.advecting_velocity_scheme = Centered(order=max(order - 1, 2))
+
+    def buffer_scheme(self):
+        if self.order <= 1:
+            return None
+        if not hasattr(self, "_buffer_scheme"):
+            self._buffer_scheme = UpwindBiased(order=self.order - 2)
+        return self._buffer_scheme
+
+    def symmetric(self, grid, a, axis, beta, zbc=None):
+        # the cascade mask uses THIS scheme's buffer and chain
+        hi = self.advecting_velocity_scheme._symmetric_plain(
+            grid, a, axis, beta, zbc)
+        if grid.is_flat(axis):
+            return hi
+        return self._cascade(grid, axis, beta, hi,
+                             lambda bs: bs.symmetric(grid, a, axis, beta,
+                                                     zbc=zbc))
+
+    def _biased(self, grid, sc, axis, beta):
+        if grid.is_flat(axis):
+            return sc(0)
+        return stencil_value(sc, left_shifts(self.order, self._s, beta),
+                             self._coeffs)
+
+
+class WENO(AdvectionScheme):
+    """Weighted ENO of odd order 3–11 with WENO-Z nonlinear weights
+
+        α_s = γ_s · (1 + (τ / (β_s + ε))²),   τ = |Σ_s t_s β_s|
+
+    with the smoothness arithmetic in ``smoothness_dtype``."""
+
+    def __init__(self, order=5, smoothness_dtype=torch.float32, bounds=None):
+        if order % 2 != 1:
+            raise ValueError("WENO order must be odd (3, 5, 7, 9, 11)")
+        if bounds is not None:
+            raise NotImplementedError(
+                "bounds-preserving WENO is not ported yet: ROADMAP.md "
+                "queue 1 item 15 (the long tail)")
+        self.order = order
+        self.buffer = k = (order + 1) // 2
+        self.required_halo = self.buffer
+        self.smoothness_dtype = as_torch_dtype(smoothness_dtype)
+        self.bounds = None
+        self._gammas = optimal_weights(k)
+        self._coeffs = [eno_coefficients(k, s) for s in range(k)]
+        self._sfactors = [smoothness_factors(k, s) for s in range(k)]
+        self.advecting_velocity_scheme = Centered(order=order - 1)
+
+    def buffer_scheme(self):
+        if not hasattr(self, "_buffer_scheme"):
+            if self.order > 3:
+                self._buffer_scheme = WENO(
+                    order=self.order - 2,
+                    smoothness_dtype=self.smoothness_dtype)
+            else:
+                self._buffer_scheme = UpwindBiased(order=1)
+        return self._buffer_scheme
+
+    def _fp(self):
+        return (type(self).__name__, self.order, str(self.smoothness_dtype))
+
+    def __repr__(self):
+        return (f"WENO(order={self.order}, "
+                f"smoothness_dtype={self.smoothness_dtype})")
+
+    def symmetric(self, grid, a, axis, beta, zbc=None):
+        hi = self.advecting_velocity_scheme._symmetric_plain(
+            grid, a, axis, beta, zbc)
+        if grid.is_flat(axis):
+            return hi
+        return self._cascade(grid, axis, beta, hi,
+                             lambda bs: bs.symmetric(grid, a, axis, beta,
+                                                     zbc=zbc))
+
+    def _biased(self, grid, sc, axis, beta):
+        if grid.is_flat(axis):
+            return sc(0)
+        k = self.buffer
+        out_dtype = sc(0).dtype
+        sdt = self.smoothness_dtype
+        ps, betas = [], []
+        for s in range(k):
+            shifts = left_shifts(k, s, beta)
+            ps.append(stencil_value(sc, shifts, self._coeffs[s]))
+            betas.append(smoothness_value(sc, shifts, self._sfactors[s],
+                                          compute_dtype=sdt))
+        tau = None
+        for t, b in zip(TAU_COEFFS[k], betas):
+            if t == 0:
+                continue
+            term = t * b
+            tau = term if tau is None else tau + term
+        tau = torch.abs(tau)
+        num = den = None
+        for s in range(k):
+            r = tau / (betas[s] + WENO_EPSILON)
+            r = torch.clamp(r, max=WENO_R_MAX)
+            alpha = (self._gammas[s] * (1.0 + r * r)).to(out_dtype)
+            nterm = alpha * ps[s]
+            num = nterm if num is None else num + nterm
+            den = alpha if den is None else den + alpha
+        return num / den
+
+
+def adapt_advection_order(advection, grid):
+    """Shrink the advection order per direction to fit small grids (a scheme
+    of buffer B needs N ≥ B points; otherwise Centered drops to order 2N,
+    upwind/WENO to 2N-1). Returns a FluxFormAdvection when any direction
+    changed."""
+    if advection is None or not isinstance(advection, AdvectionScheme):
+        return advection
+
+    def adapt_one(scheme, N):
+        if N >= scheme.buffer:
+            return scheme
+        if isinstance(scheme, Centered):
+            return Centered(order=max(2, 2 * N))
+        if isinstance(scheme, WENO) and 2 * N - 1 >= 3:
+            return WENO(order=2 * N - 1,
+                        smoothness_dtype=scheme.smoothness_dtype)
+        if isinstance(scheme, (WENO, UpwindBiased)):
+            return UpwindBiased(order=max(1, 2 * N - 1))
+        return scheme
+
+    per_axis = (advection.schemes if isinstance(advection, FluxFormAdvection)
+                else (advection,) * 3)
+    new = tuple(s if grid.is_flat(ax) else adapt_one(s, grid.N[ax])
+                for ax, s in enumerate(per_axis))
+    if all(n is o for n, o in zip(new, per_axis)):
+        return advection
+    return FluxFormAdvection(*new)
+
+
+class FluxFormAdvection(AdvectionScheme):
+    """A different scheme per direction."""
+
+    def __init__(self, x, y=None, z=None):
+        self.schemes = (x, y if y is not None else x,
+                        z if z is not None else x)
+        self.order = max(s.order for s in self.schemes)
+        self.required_halo = max(s.required_halo for s in self.schemes)
+        self.bounds = None
+
+    def _fp(self):
+        return ("FluxFormAdvection",) + tuple(s._fp() for s in self.schemes)
+
+    def symmetric(self, grid, a, axis, beta, zbc=None):
+        return self.schemes[axis].symmetric(grid, a, axis, beta, zbc)
+
+    def biased_by(self, grid, a, axis, beta, q, zbc=None):
+        return self.schemes[axis].biased_by(grid, a, axis, beta, q, zbc)

@@ -1,0 +1,65 @@
+// Shared layout helpers for the port's CUDA kernels.
+//
+// Every prognostic field is a padded (Nx + 2Hx, Ny + 2Hy, Nz) array with z
+// contiguous: the z-compact layout, with no z halo (the bounded-z boundary
+// conditions are applied inside the stencil reads). Interior cell (I, J, k)
+// lives at padded (I + Hx, J + Hy, k). Interior-shaped arrays (tendencies,
+// the divergence) are (Nx, Ny, Nz), also z contiguous.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace oc {
+
+struct Geom {
+  int Nx, Ny, Nz, Hx, Hy;
+
+  __host__ __device__ __forceinline__ int PY() const { return Ny + 2 * Hy; }
+
+  // linear offset of padded (i, j, k)
+  __device__ __forceinline__ long long at(int i, int j, int k) const {
+    return ((long long)i * PY() + j) * Nz + k;
+  }
+
+  __host__ __device__ __forceinline__ long long interior_cells() const {
+    return (long long)Nx * Ny * Nz;
+  }
+
+  // interior linear index n -> (I, J, k)
+  __device__ __forceinline__ void split(long long n, int& I, int& J, int& k) const {
+    k = (int)(n % Nz);
+    long long c = n / Nz;
+    J = (int)(c % Ny);
+    I = (int)(c / Ny);
+  }
+};
+
+// Store `val` at padded (I + Hx, J + Hy, k) and at each periodic image of
+// that cell in the x and y halos (corners included), so the array comes out
+// with valid periodic halos without a separate fill pass. Needs Nx >= Hx and
+// Ny >= Hy.
+template <typename T>
+__device__ __forceinline__ void store_with_images(T* a, const Geom& g, int I, int J,
+                                                  int k, T val) {
+  int xs[3], ys[3];
+  int nx = 0, ny = 0;
+  xs[nx++] = I + g.Hx;
+  if (I < g.Hx) xs[nx++] = I + g.Hx + g.Nx;
+  if (I >= g.Nx - g.Hx) xs[nx++] = I + g.Hx - g.Nx;
+  ys[ny++] = J + g.Hy;
+  if (J < g.Hy) ys[ny++] = J + g.Hy + g.Ny;
+  if (J >= g.Ny - g.Hy) ys[ny++] = J + g.Hy - g.Ny;
+  for (int a_ = 0; a_ < nx; ++a_)
+    for (int b_ = 0; b_ < ny; ++b_) a[g.at(xs[a_], ys[b_], k)] = val;
+}
+
+inline unsigned int blocks_for(long long n, int threads) {
+  return (unsigned int)((n + threads - 1) / threads);
+}
+
+}  // namespace oc
+
+// Field dtype codes shared with the Python wrappers.
+#define OC_FLOAT32 0
+#define OC_FLOAT64 1

@@ -1,0 +1,50 @@
+"""Global defaults: the dtype and device policy of the PyTorch port.
+
+Counterpart of ``oceananigans_tpu/defaults.py``. Every grid and model takes an
+explicit ``dtype=`` and ``device=``; these are only the values used when the
+caller passes none. Nothing here looks for an accelerator: the default device
+is the CPU until the caller names another one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class Defaults:
+    # Default element type for grids and fields. float64 is the reference
+    # choice for parity runs; float32 is the speed choice on the GPU.
+    FloatType: torch.dtype = torch.float32
+
+    # Default device for grids and fields.
+    device: str = "cpu"
+
+
+defaults = Defaults()
+
+
+_TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
+                 np.dtype(np.float64): torch.float64}
+
+
+def as_torch_dtype(dtype):
+    """Normalize a torch, numpy or numpy-compatible float type to a torch
+    dtype; ``None`` gives the default."""
+    if dtype is None:
+        return defaults.FloatType
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    try:
+        return _TORCH_DTYPES[np.dtype(dtype)]
+    except (KeyError, TypeError):
+        raise ValueError(f"unsupported floating-point type {dtype!r}") from None
+
+
+def numpy_dtype(dtype):
+    """The numpy scalar type of a torch float dtype."""
+    return {torch.float32: np.float32, torch.float64: np.float64}[
+        as_torch_dtype(dtype)]

@@ -1,0 +1,232 @@
+"""RectilinearGrid: Cartesian grid with regular spacing in every direction.
+
+Counterpart of ``oceananigans_tpu/grids/rectilinear.py``, regular spacing
+only: a stretched axis (face array or callable) raises. Coordinates and
+metrics are numpy float64, as in the JAX package; the grid also carries the
+``dtype`` and ``device`` of the fields built on it.
+
+    RectilinearGrid(size=(64, 64, 64), extent=(1.0, 2.0, 3.0),
+                    dtype=torch.float32, device="cuda")      # z in (-Lz, 0)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..defaults import as_torch_dtype, defaults
+from . import topology as topo
+from .base import AbstractGrid
+
+_AXES = ("x", "y", "z")
+
+STRETCHED_ITEM = "ROADMAP.md queue 1 item 11 (non-uniform and immersed NH)"
+
+
+class _Coordinate:
+    """One direction's regular discretization, with padded coordinate and
+    spacing arrays covering the halo region."""
+
+    __slots__ = ("N", "H", "topology", "regular", "delta", "origin",
+                 "xF", "xC", "dC", "dF", "_fp")
+
+    def __init__(self, N, H, topology, interval=None):
+        self.N = int(N)
+        self.H = int(H)
+        self.topology = topology
+        self.regular = True
+
+        if topology == topo.FLAT:
+            self.delta = 1.0
+            self.origin = 0.0
+            self.xF = np.zeros(2)
+            self.xC = np.full(1, 0.5)
+            self.dC = np.ones(1)
+            self.dF = np.ones(2)
+            self._fp = (N, H, topology)
+            return
+
+        Npad = self.N + 2 * self.H
+        a, b = float(interval[0]), float(interval[1])
+        self.delta = (b - a) / self.N
+        self.origin = a
+        # padded faces: indices -H .. N+H (length Npad + 1)
+        idx = np.arange(-self.H, self.N + self.H + 1, dtype=np.float64)
+        xF = a + idx * self.delta
+        self.xF = xF
+        self.xC = 0.5 * (xF[:-1] + xF[1:])
+        self.dC = np.diff(xF)
+        dF = np.empty(Npad + 1)
+        dF[1:-1] = np.diff(self.xC)
+        dF[0] = dF[1]
+        dF[-1] = dF[-2]
+        self.dF = dF
+        self._fp = (self.N, self.H, topology, self.delta, self.origin)
+
+    def spacing(self, loc):
+        return self.delta
+
+    def coord(self, loc):
+        """Padded coordinates at 'c' or 'f' (length Npad)."""
+        return self.xC if loc == topo.CENTER else self.xF[:-1]
+
+    @property
+    def extent(self):
+        if self.topology == topo.FLAT:
+            return 0.0
+        return float(self.xF[self.N + self.H] - self.xF[self.H])
+
+
+def _is_interval(spec):
+    return (isinstance(spec, tuple) and len(spec) == 2
+            and np.isscalar(spec[0]) and np.isscalar(spec[1]))
+
+
+class RectilinearGrid(AbstractGrid):
+    def __init__(self, size=None, extent=None, x=None, y=None, z=None,
+                 topology=None, halo=None, dtype=None, device=None):
+        if topology is None:
+            topology = (topo.PERIODIC, topo.PERIODIC, topo.BOUNDED)
+        self.topology = topo.validate_topology(topology)
+        self.dtype = as_torch_dtype(dtype)
+        self.device = torch.device(device if device is not None
+                                   else defaults.device)
+
+        nonflat = [i for i in range(3) if self.topology[i] != topo.FLAT]
+        if size is None:
+            raise ValueError("RectilinearGrid requires `size`")
+        if np.isscalar(size):
+            size = (size,)
+        size = tuple(int(s) for s in size)
+        if len(size) == 3:
+            N = list(size)
+            for i in range(3):
+                if self.topology[i] == topo.FLAT and N[i] != 1:
+                    raise ValueError(f"size must be 1 along flat dimension {i}")
+        elif len(size) == len(nonflat):
+            N = [1, 1, 1]
+            for i, s in zip(nonflat, size):
+                N[i] = s
+        else:
+            raise ValueError(f"size {size} incompatible with topology {self.topology}")
+
+        if halo is None:
+            halo = tuple(3 if self.topology[i] != topo.FLAT else 0 for i in range(3))
+        elif np.isscalar(halo):
+            halo = tuple(int(halo) if self.topology[i] != topo.FLAT else 0
+                         for i in range(3))
+        else:
+            halo = tuple(halo)
+            if len(halo) == len(nonflat) and len(nonflat) != 3:
+                full = [0, 0, 0]
+                for i, h in zip(nonflat, halo):
+                    full[i] = h
+                halo = tuple(full)
+        self.N = tuple(N)
+        self.H = tuple(int(h) for h in halo)
+
+        specs = {"x": x, "y": y, "z": z}
+        if extent is not None:
+            if any(v is not None for v in specs.values()):
+                raise ValueError("pass either `extent` or `x`/`y`/`z`, not both")
+            if np.isscalar(extent):
+                extent = (extent,)
+            if len(extent) != len(nonflat):
+                raise ValueError("extent length must match number of non-flat dims")
+            Ls = dict(zip([_AXES[i] for i in nonflat], extent))
+            for ax, L in Ls.items():
+                specs[ax] = (-L, 0.0) if ax == "z" else (0.0, L)
+
+        self._coords = []
+        for i, ax in enumerate(_AXES):
+            spec = specs[ax]
+            if self.topology[i] == topo.FLAT:
+                self._coords.append(_Coordinate(1, 0, topo.FLAT))
+                continue
+            if spec is None:
+                raise ValueError(f"missing coordinate spec for non-flat direction {ax}")
+            if not _is_interval(spec):
+                raise NotImplementedError(
+                    f"stretched {ax} coordinates are not ported yet: "
+                    f"{STRETCHED_ITEM}")
+            self._coords.append(_Coordinate(self.N[i], self.H[i],
+                                            self.topology[i], interval=spec))
+
+    # -- regularity queries ---------------------------------------------------
+
+    @property
+    def all_regular(self):
+        return True
+
+    # -- metrics --------------------------------------------------------------
+
+    def dx(self, loc):
+        return self._coords[0].spacing(loc[0])
+
+    def dy(self, loc):
+        return self._coords[1].spacing(loc[1])
+
+    def dz(self, loc):
+        return self._coords[2].spacing(loc[2])
+
+    # -- coordinates / nodes --------------------------------------------------
+
+    def coord_padded(self, axis, loc):
+        """Padded 1D coordinate array along ``axis`` at location ``loc``."""
+        return self._coords[axis].coord(loc)
+
+    def nodes1d(self, axis, loc):
+        """Interior coordinates along ``axis``: N values at centers, N+1 at
+        faces when Bounded."""
+        c = self._coords[axis]
+        n, h = self.N[axis], self.H[axis]
+        if loc == topo.FACE and self.topology[axis] == topo.BOUNDED:
+            return c.xF[h:h + n + 1]
+        return c.coord(loc)[h:h + n]
+
+    @property
+    def extent(self):
+        return tuple(c.extent for c in self._coords)
+
+    def minimum_spacing(self, axis):
+        c = self._coords[axis]
+        if c.topology == topo.FLAT:
+            return np.inf
+        return c.delta
+
+    def _rebuild(self, halo, dtype, device):
+        specs = {}
+        for i, ax in enumerate(_AXES):
+            c = self._coords[i]
+            specs[ax] = (None if c.topology == topo.FLAT
+                         else (c.origin, c.origin + c.extent))
+        return RectilinearGrid(size=self.N, x=specs["x"], y=specs["y"],
+                               z=specs["z"], topology=self.topology,
+                               halo=halo, dtype=dtype, device=device)
+
+    def with_halo(self, halo):
+        """This grid with a new halo size."""
+        if tuple(halo) == self.H:
+            return self
+        return self._rebuild(halo, self.dtype, self.device)
+
+    def to(self, device=None, dtype=None):
+        """This grid with fields on another device and/or of another dtype."""
+        device = self.device if device is None else torch.device(device)
+        dtype = self.dtype if dtype is None else as_torch_dtype(dtype)
+        if device == self.device and dtype == self.dtype:
+            return self
+        return self._rebuild(self.H, dtype, device)
+
+    # -- hashing --------------------------------------------------------------
+
+    def _fingerprint(self):
+        return ("RectilinearGrid", self.N, self.H, self.topology,
+                str(self.dtype), str(self.device),
+                tuple(c._fp for c in self._coords))
+
+    def __repr__(self):
+        topo_s = "×".join(t.capitalize() for t in self.topology)
+        return (f"RectilinearGrid(size={self.N}, halo={self.H}, "
+                f"topology=({topo_s}), extent={self.extent}, "
+                f"dtype={self.dtype}, device={self.device})")

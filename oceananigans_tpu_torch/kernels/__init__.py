@@ -1,0 +1,38 @@
+"""Hand-written CUDA kernels of the port, with their plain PyTorch versions.
+
+Each wrapper takes its plain version for CPU tensors and launches its kernel
+for CUDA tensors; it counts its launches in a ``launches`` attribute, and
+each plain version counts the calls it served on CUDA tensors in
+``cuda_calls``. The kernels build at first use (``build.py``).
+"""
+
+from .fused_advection import (fused_advection_update,
+                              fused_advection_update_plain)
+from .fused_projection import (fused_correct, fused_correct_plain,
+                               fused_divergence, fused_divergence_plain)
+from .halo_fill import periodic_halo_fill, periodic_halo_fill_plain
+
+KERNELS = (fused_advection_update, fused_divergence, fused_correct,
+           periodic_halo_fill)
+PLAINS = (fused_advection_update_plain, fused_divergence_plain,
+          fused_correct_plain, periodic_halo_fill_plain)
+
+
+def reset_counters():
+    for fn in KERNELS:
+        fn.launches = 0
+    for fn in PLAINS:
+        fn.cuda_calls = 0
+
+
+def counters():
+    """{kernel name: launches} and {plain name: calls on CUDA tensors}."""
+    return ({fn.__name__: fn.launches for fn in KERNELS},
+            {fn.__name__: fn.cuda_calls for fn in PLAINS})
+
+
+__all__ = ["fused_advection_update", "fused_advection_update_plain",
+           "fused_divergence", "fused_divergence_plain", "fused_correct",
+           "fused_correct_plain", "periodic_halo_fill",
+           "periodic_halo_fill_plain", "KERNELS",
+           "PLAINS", "reset_counters", "counters"]

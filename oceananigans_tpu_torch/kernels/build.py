@@ -1,0 +1,138 @@
+"""Build and load the port's CUDA kernels.
+
+All ``csrc/*.cu`` sources compile with one ``nvcc`` call into a shared
+library with a plain C interface, loaded with ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o _build/liboceananigans_kernels_<hash>.so csrc/*.cu
+
+The build happens at first use (never at import), from the package's own
+sources, into ``oceananigans_tpu_torch/_build/``. The file name carries a hash
+of the sources and flags, so an edited source rebuilds and an unchanged one
+is reused. ``nvcc`` is looked up in ``$CUDA_HOME/bin``, then
+``/usr/local/cuda/bin``, then ``PATH``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None        # wall time of this process's build, or 0.0 if reused
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+D = ctypes.c_double
+
+# C entry points: name -> argtypes. Every entry returns the launch's
+# cudaGetLastError() as an int.
+SIGNATURES = {
+    "oc_halo_fill": [P, I, I, I, I, I, I, I, P],
+    "oc_fused_divergence": [I, P, P, P, P, I, I, I, I, I, D, D, D, D, P],
+    "oc_fused_correct": [I, P, P, P, P, P, P, P, I, I, I, I, I,
+                         D, D, D, D, P],
+    "oc_fused_advection_update": [I, I, P, P, P, P, P, P, P, P, P, P, P, P,
+                                  P, I, I, I, I, I, D, D, D, D, D, D, D,
+                                  D, D, D, P, I, I, I, P],
+}
+
+
+def find_nvcc():
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.exists():
+            return str(c)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                           "(set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def _source_hash(sources):
+    h = hashlib.sha256()
+    for f in sources + sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build():
+    """Compile the kernels if no library for the current sources exists;
+    return the library's path."""
+    global build_seconds
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    out = BUILD_DIR / f"liboceananigans_kernels_{_source_hash(sources)}.so"
+    if out.exists():
+        if build_seconds is None:
+            build_seconds = 0.0
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = ([find_nvcc()] + list(NVCC_FLAGS) + ["-o", str(tmp)]
+           + [str(s) for s in sources])
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
+                           + proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def library():
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = load(build())
+    return _lib
+
+
+def check(rc, lib):
+    """Raise if a C entry of ``lib`` reported a CUDA error for its launch."""
+    if rc != 0:
+        msg = lib.oc_error_string(rc).decode()
+        raise RuntimeError(f"CUDA kernel launch failed: {msg} (error {rc})")
+
+
+def stream_of(t):
+    """PyTorch's current CUDA stream on the tensor's device, as a pointer."""
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def load(path):
+    """Load a kernel library and declare its C entry points."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.oc_error_string.argtypes = [ctypes.c_int]
+    lib.oc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def ptr(t):
+    return ctypes.c_void_p(t.data_ptr()) if t is not None else ctypes.c_void_p(0)

@@ -1,0 +1,180 @@
+"""WENO flux-form momentum advection fused with the RK3 stage update.
+
+Replaces the TPU kernel ``oceananigans_tpu/kernels/fused_advection.py``
+``_build_update_group`` (via ``build_fused_advection_update``), for u, v, w
+without tracers, in the z-compact layout (no z halo; the z boundary
+conditions are applied inside the stencil reads):
+
+    G   = -∇·(𝐯 q)                  for q = u, v, w     (interior-shaped)
+    new = q + γΔt·G + ζΔt·G⁻         (ζΔt·G⁻ only when G⁻ is given; padded,
+                                     with valid periodic x/y halos)
+
+With ``p`` and ``corr_dt`` (the previous stage's deferred pressure
+correction), G is the tendency of the corrected fields q* − corr_dt·∂p (w's
+bottom face pinned to 0), while ``new`` adds the increment to the
+uncorrected q*, as the TPU kernel does.
+
+Bound on the H100: arithmetic. Each output cell evaluates six WENO-5
+reconstructions, each with four divisions, about 600 floating-point
+operations per component, against 16 B per component of compulsory memory
+traffic in float32. Design (``csrc/fused_advection.cu``): one thread per
+(component, cell), z fastest across threads, the component uniform per
+block; each thread recomputes the two face fluxes it needs per axis, and the
+stencil reads go through L1/L2. Division is exact. The kernel covers WENO(5)
+with its near-wall cascade; other schemes take no kernel yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..advection import WENO, Centered, UpwindBiased, div_Uu, div_Uv, div_Uw
+from ..advection.schemes import WENO_EPSILON, WENO_R_MAX
+from ..operators.shifts import shift
+from . import build
+from .fused_projection import (_DTYPE_CODES, _metrics, check_fast_layout,
+                               check_tensors, scalar_product)
+from .halo_fill import periodic_halo_fill_plain
+
+ZBC = {"u": "even", "v": "even", "w": "odd_face"}
+
+OTHER_SCHEMES_ITEM = ("ROADMAP.md queue 2, kernel #1 (schemes other than "
+                      "WENO(5) in the CUDA advection kernel)")
+
+
+def corrected_velocities(grid, u, v, w, p, corr_dt):
+    """q* − corr_dt·∂p on the whole padded tensors, w's bottom face pinned;
+    the factors corr_dt·(1/Δ) are rounded in the field dtype."""
+    m = _metrics(grid)
+    cx, cy, cz = (scalar_product(u.dtype, corr_dt, 1.0 / m[d])
+                  for d in ("dx", "dy", "dz"))
+    uc = u - cx * (p - shift(p, -1, 0))
+    vc = v - cy * (p - shift(p, -1, 1))
+    wc = w - cz * (p - shift(p, -1, 2))
+    wc[..., 0] = 0
+    return uc, vc, wc
+
+
+def fused_advection_update_plain(grid, scheme, u, v, w, Gm, gamma_dt, zeta_dt,
+                                 p=None, corr_dt=None):
+    """Plain PyTorch version: the port's flux functions on the whole padded
+    tensors, then the stage update and the periodic halo wrap."""
+    if u.is_cuda:
+        fused_advection_update_plain.cuda_calls += 1
+    qs = (u, v, w)
+    if p is not None:
+        u, v, w = corrected_velocities(grid, u, v, w, p, corr_dt)
+    ints = grid.interior_slices
+    G = [-div(grid, scheme, u, v, w, zbc=ZBC)[ints]
+         for div in (div_Uu, div_Uv, div_Uw)]
+    new = {}
+    for k, name in enumerate("uvw"):
+        inc = float(gamma_dt) * G[k]
+        if Gm is not None:
+            inc = inc + float(zeta_dt) * Gm[k]
+        out = torch.empty_like(qs[k])
+        out[ints] = qs[k][ints] + inc
+        new[name] = out
+    periodic_halo_fill_plain(grid, list(new.values()))
+    return G, new
+
+
+fused_advection_update_plain.cuda_calls = 0
+
+
+# -- the CUDA kernel -----------------------------------------------------------
+
+def _padded_factors(factors, k):
+    """k×k smoothness factor rows, missing rows zero and |c| < 1e-14 zeroed
+    (the plain evaluation skips those terms)."""
+    rows = [list(f) for f in factors] + [[0.0] * k] * (k - len(factors))
+    return [0.0 if abs(c) < 1e-14 else c for row in rows for c in row]
+
+
+_tables = {}
+
+
+def coefficient_table(scheme):
+    """The kernel's coefficient table (``Tab`` in csrc/fused_advection.cu) as
+    a ctypes float64 array, for WENO(5) and its cascade."""
+    if not (isinstance(scheme, WENO) and scheme.order == 5):
+        raise NotImplementedError(
+            f"no CUDA advection kernel for {scheme!r}: {OTHER_SCHEMES_ITEM}")
+    key = scheme._fp()
+    if key not in _tables:
+        w3 = scheme.buffer_scheme()
+        c4 = scheme.advecting_velocity_scheme
+        c2 = c4.buffer_scheme()
+        assert isinstance(w3, WENO) and w3.order == 3
+        assert isinstance(w3.buffer_scheme(), UpwindBiased)
+        assert isinstance(c4, Centered) and c4.order == 4
+        assert isinstance(c2, Centered) and c2.order == 2
+        assert w3.advecting_velocity_scheme._coeffs == c2._coeffs
+        vals = list(c4._coeffs) + list(c2._coeffs)
+        vals += [c for s in range(3) for c in scheme._coeffs[s]]
+        vals += [c for s in range(3)
+                 for c in _padded_factors(scheme._sfactors[s], 3)]
+        vals += list(scheme._gammas)
+        vals += [c for s in range(2) for c in w3._coeffs[s]]
+        vals += [c for s in range(2)
+                 for c in _padded_factors(w3._sfactors[s], 2)]
+        vals += list(w3._gammas)
+        vals += [WENO_EPSILON, WENO_R_MAX]
+        _tables[key] = (ctypes.c_double * len(vals))(*vals)
+    return _tables[key]
+
+
+def fused_advection_update(grid, scheme, u, v, w, Gm, gamma_dt, zeta_dt,
+                           p=None, corr_dt=None):
+    """Advection + RK3 stage update. Returns ``(G, new)``: ``G`` a list of
+    the three interior-shaped tendencies (pass back as the next stage's
+    ``Gm``), ``new`` a dict of padded u, v, w with valid periodic x/y halos.
+    ``Gm=None`` is the first-stage variant (ζ = 0); ``p``/``corr_dt`` apply
+    the deferred correction. Scalars are values in the field dtype. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    if u.device.type == "cpu":
+        return fused_advection_update_plain(grid, scheme, u, v, w, Gm,
+                                            gamma_dt, zeta_dt, p, corr_dt)
+    check_fast_layout(grid)
+    table = coefficient_table(scheme)   # raises for schemes with no kernel
+    has_corr = p is not None
+    if has_corr and corr_dt is None:
+        raise ValueError("the corrected variant needs p and corr_dt")
+    req = scheme.required_halo + (1 if has_corr else 0)
+    if min(grid.H[0], grid.H[1]) < req:
+        raise ValueError(f"the kernel needs Hx, Hy >= {req}")
+    ins = (u, v, w) + ((p,) if has_corr else ())
+    check_tensors(grid, ins, grid.padded_shape)
+    if Gm is not None:
+        check_tensors(grid, tuple(Gm), grid.N)
+        if Gm[0].device != u.device:
+            raise ValueError("Gm must be on the fields' device")
+    sdt = scheme.smoothness_dtype
+    if sdt not in _DTYPE_CODES:
+        raise TypeError(f"unsupported smoothness dtype {sdt}")
+    m = _metrics(grid)
+    Nx, Ny, Nz = grid.N
+    Hx, Hy, _ = grid.H
+    G = [torch.empty(grid.N, dtype=u.dtype, device=u.device) for _ in range(3)]
+    outs = [torch.empty_like(u) for _ in range(3)]
+    gm = list(Gm) if Gm is not None else [None] * 3
+    with torch.cuda.device(u.device):
+        lib = build.library()
+        build.check(lib.oc_fused_advection_update(
+            _DTYPE_CODES[u.dtype], _DTYPE_CODES[sdt],
+            build.ptr(u), build.ptr(v), build.ptr(w), build.ptr(p),
+            *[build.ptr(g) for g in gm], *[build.ptr(g) for g in G],
+            *[build.ptr(o) for o in outs], Nx, Ny, Nz, Hx, Hy,
+            float(gamma_dt), float(zeta_dt) if Gm is not None else 0.0,
+            float(corr_dt) if has_corr else 0.0,
+            m["Ax"], m["Ay"], m["Az"], m["V"],
+            1.0 / m["dx"], 1.0 / m["dy"], 1.0 / m["dz"],
+            table, len(table), int(Gm is not None), int(has_corr),
+            build.stream_of(u)), lib)
+    fused_advection_update.launches += 1
+    return G, dict(zip("uvw", outs))
+
+
+fused_advection_update.launches = 0

@@ -1,0 +1,88 @@
+"""The port's momentum flux divergences against the JAX package's, at
+(8, 8, 16) on random float64 fields, in the z-compact layout (no z halo, z
+boundary conditions inside the stencil reads) and in the padded layout.
+
+Bounds, relative to max|G|:
+- WENO with float64 smoothness on both sides, and the linear schemes:
+  1e-12. Both sides evaluate the same stencils in float64; only the
+  association of a few sums differs, which is roundoff.
+- WENO with the default float32 smoothness: 1e-6. The smoothness
+  indicators β are rounded to float32 on both sides; a one-ulp difference
+  in one β (from float64 roundoff upstream of the cast) moves a nonlinear
+  weight by about 2·2⁻²⁴ relative through (τ/(β+ε))², which bounds the
+  change of the reconstruction well below 1e-6 of max|G|."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from oceananigans_tpu.advection import (Centered as JCentered,
+                                        UpwindBiased as JUpwind,
+                                        WENO as JWENO)
+from oceananigans_tpu.advection.fluxes import div_Uu as j_div_Uu
+from oceananigans_tpu.advection.fluxes import div_Uv as j_div_Uv
+from oceananigans_tpu.advection.fluxes import div_Uw as j_div_Uw
+from oceananigans_tpu.grids import RectilinearGrid as JGrid
+from oceananigans_tpu_torch.advection import (Centered, UpwindBiased, WENO,
+                                              div_Uu, div_Uv, div_Uw)
+from oceananigans_tpu_torch.grids import RectilinearGrid as TGrid
+
+torch.set_num_threads(1)
+
+N = (8, 8, 16)
+ZBC = {"u": "even", "v": "even", "w": "odd_face"}
+LAYOUTS = {"compact": (4, 4, 0), "padded": (3, 3, 3)}
+
+SCHEMES = {
+    "weno5_f64": (lambda: JWENO(5, smoothness_dtype=jnp.float64),
+                  lambda: WENO(5, smoothness_dtype=torch.float64), 1e-12),
+    "weno5_f32": (lambda: JWENO(5), lambda: WENO(5), 1e-6),
+    "weno3_f64": (lambda: JWENO(3, smoothness_dtype=jnp.float64),
+                  lambda: WENO(3, smoothness_dtype=torch.float64), 1e-12),
+    "upwind3": (lambda: JUpwind(3), lambda: UpwindBiased(3), 1e-12),
+    "centered4": (lambda: JCentered(4), lambda: Centered(4), 1e-12),
+}
+
+
+def _fields(shape, seed):
+    rng = np.random.default_rng(seed)
+    arrays = [0.1 * rng.standard_normal(shape) for _ in range(3)]
+    return ([jnp.asarray(a) for a in arrays],
+            [torch.as_tensor(a) for a in arrays])
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("scheme", sorted(SCHEMES))
+def test_momentum_flux_divergences(layout, scheme):
+    halo = LAYOUTS[layout]
+    jg = JGrid(size=N, extent=(1.0, 1.0, 1.0), halo=halo, dtype=np.float64)
+    tg = TGrid(size=N, extent=(1.0, 1.0, 1.0), halo=halo, dtype=torch.float64)
+    jmake, tmake, tol = SCHEMES[scheme]
+    js, ts = jmake(), tmake()
+    zbc = ZBC if layout == "compact" else None
+    (ju, jv, jw), (tu, tv, tw) = _fields(jg.padded_shape, seed=7)
+    ints = jg.interior_slices
+    for jdiv, tdiv in ((j_div_Uu, div_Uu), (j_div_Uv, div_Uv),
+                       (j_div_Uw, div_Uw)):
+        want = np.asarray(jdiv(jg, js, ju, jv, jw, zbc=zbc))[ints]
+        got = tdiv(tg, ts, tu, tv, tw, zbc=zbc)[ints].numpy()
+        err = np.max(np.abs(got - want)) / np.max(np.abs(want))
+        assert err <= tol, (jdiv.__name__, err)
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_single_axis_terms(axis):
+    """``only_axis`` evaluates one directional term; float64 smoothness,
+    bound 1e-12 relative."""
+    halo = LAYOUTS["compact"]
+    jg = JGrid(size=N, extent=(1.0, 1.0, 1.0), halo=halo, dtype=np.float64)
+    tg = TGrid(size=N, extent=(1.0, 1.0, 1.0), halo=halo, dtype=torch.float64)
+    js = JWENO(5, smoothness_dtype=jnp.float64)
+    ts = WENO(5, smoothness_dtype=torch.float64)
+    (ju, jv, jw), (tu, tv, tw) = _fields(jg.padded_shape, seed=8)
+    ints = jg.interior_slices
+    want = np.asarray(j_div_Uw(jg, js, ju, jv, jw, zbc=ZBC,
+                               only_axis=axis))[ints]
+    got = div_Uw(tg, ts, tu, tv, tw, zbc=ZBC, only_axis=axis)[ints].numpy()
+    assert np.max(np.abs(got - want)) <= 1e-12 * np.max(np.abs(want))

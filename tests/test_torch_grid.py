@@ -1,0 +1,73 @@
+"""The port's RectilinearGrid against the JAX package's.
+
+Coordinates, spacings, areas and volumes are float64 numpy on both sides,
+computed by the same formulas, so they agree to 1e-14 (absolute, on
+coordinates of order 1-10)."""
+
+import numpy as np
+import pytest
+import torch
+
+from oceananigans_tpu.grids import RectilinearGrid as JGrid
+from oceananigans_tpu_torch.grids import RectilinearGrid as TGrid
+
+torch.set_num_threads(1)
+
+TOL = 1e-14
+
+CONFIGS = [
+    dict(size=(8, 6, 4), extent=(1.0, 2.0, 3.0)),
+    dict(size=(16, 16, 128), extent=(1.0, 1.0, 1.0), halo=(4, 8, 0)),
+    dict(size=(5, 7, 9), x=(-1.0, 2.0), y=(0.5, 4.0), z=(-10.0, -2.0),
+         halo=(4, 4, 2)),
+    dict(size=(6, 4), extent=(2.0, 1.5),
+         topology=("periodic", "flat", "bounded")),
+]
+LOCS = [("c", "c", "c"), ("f", "c", "c"), ("c", "f", "c"), ("c", "c", "f"),
+        ("f", "f", "c")]
+
+
+def _close(a, b):
+    return np.max(np.abs(np.asarray(a, np.float64)
+                         - np.asarray(b, np.float64))) <= TOL
+
+
+@pytest.mark.parametrize("cfg", CONFIGS)
+def test_shapes_and_coordinates(cfg):
+    j = JGrid(dtype=np.float64, **cfg)
+    t = TGrid(dtype=torch.float64, **cfg)
+    assert t.N == j.N and t.H == j.H and t.topology == j.topology
+    assert t.padded_shape == j.padded_shape
+    assert t.interior_slices == j.interior_slices
+    assert _close(t.extent, j.extent)
+    for axis in range(3):
+        assert t.minimum_spacing(axis) == j.minimum_spacing(axis)
+        for loc in ("c", "f"):
+            assert _close(t.coord_padded(axis, loc), j.coord_padded(axis, loc))
+            assert _close(t.nodes1d(axis, loc), j.nodes1d(axis, loc))
+
+
+@pytest.mark.parametrize("cfg", CONFIGS)
+@pytest.mark.parametrize("loc", LOCS)
+def test_metrics(cfg, loc):
+    j = JGrid(dtype=np.float64, **cfg)
+    t = TGrid(dtype=torch.float64, **cfg)
+    for name in ("dx", "dy", "dz", "Ax", "Ay", "Az", "V"):
+        assert _close(getattr(t, name)(loc), getattr(j, name)(loc)), name
+
+
+def test_with_halo_and_device_dtype():
+    t = TGrid(size=(8, 8, 16), extent=(1.0, 1.0, 1.0), dtype=torch.float64)
+    j = JGrid(size=(8, 8, 16), extent=(1.0, 1.0, 1.0), dtype=np.float64)
+    t4, j4 = t.with_halo((4, 4, 0)), j.with_halo((4, 4, 0))
+    assert t4.padded_shape == j4.padded_shape
+    assert _close(t4.coord_padded(0, "f"), j4.coord_padded(0, "f"))
+    assert t4.dtype == torch.float64 and t4.device == torch.device("cpu")
+    t32 = t4.to(dtype=np.float32)
+    assert t32.dtype == torch.float32 and t32.H == (4, 4, 0)
+
+
+def test_stretched_axis_raises():
+    faces = np.linspace(-1.0, 0.0, 9) ** 3
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TGrid(size=(4, 4, 8), x=(0.0, 1.0), y=(0.0, 1.0), z=faces)

@@ -1,0 +1,42 @@
+"""The port stands without JAX: importing it loads no ``jax`` module, and no
+source file of the package imports ``jax``, the JAX package or ``triton``;
+importing it builds no kernel."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PACKAGE = REPO / "oceananigans_tpu_torch"
+SOURCES = sorted(PACKAGE.rglob("*.py"))
+FORBIDDEN = ("jax", "jaxlib", "oceananigans_tpu", "triton")
+
+
+def test_import_loads_no_jax():
+    code = ("import oceananigans_tpu_torch, oceananigans_tpu_torch.models, "
+            "oceananigans_tpu_torch.kernels, sys; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'oceananigans_tpu', 'triton')]; "
+            "assert not bad, bad; "
+            "from oceananigans_tpu_torch.kernels import build; "
+            "assert build._lib is None")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                   check=True, timeout=120)
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_source_imports_no_jax(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots = [node.module.split(".")[0]]
+        else:
+            continue
+        assert not set(roots) & set(FORBIDDEN), (path.name, roots)
