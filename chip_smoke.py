@@ -7,15 +7,27 @@ Phases (each raises on failure; nothing is caught):
 1. Device: require a CUDA card; print its name and `nvidia-smi`'s name and
    power limit.
 2. Build: compile the port's CUDA kernels from the checkout's sources.
-3. Kernels against their plain PyTorch versions on the card: each of the four
-   kernels in float64 at 32³ and in float32 at the flagship's shapes (padded
-   264x264x256, H = (4, 4, 0)), with the bound and its reason; CUDA-event
-   times of kernel and plain version at the flagship's shapes.
-4. Main path: NonhydrostaticModel on a 256³ grid, WENO(5), float32, RK3,
-   set(u=, v=) from a seeded generator, warm-up steps and timed steps. Every
-   kernel's launch counter must rise and no plain version may run on CUDA
-   tensors; fields must be finite and the velocity divergence at roundoff.
-5. Whole step, kernel path against plain path: 3 steps at 32³ in float64.
+3. Kernels against their plain PyTorch versions on the card, with the bound
+   and its reason, and CUDA-event times of kernel and plain version at the
+   main paths' shapes:
+   - the flagship's four kernels in float64 at 32³ and in float32 at the
+     flagship's shapes (padded 264x264x256, H = (4, 4, 0));
+   - the convection path's kernels: the advection tendency (float64 at 32³,
+     float32 at 256³, H = (3, 3, 3)), the bounded-z fill (center and z-face
+     fields under Flux, Value and Gradient) and the periodic wrap on fields
+     with z halos.
+4. Flagship path: NonhydrostaticModel on a 256³ grid, WENO(5), float32,
+   RK3, set(u=, v=) from a seeded generator, warm-up steps and timed steps.
+   Its kernels' launch counters must rise and no plain version may run on
+   CUDA tensors; fields must be finite and the velocity divergence at
+   roundoff.
+5. Convection path: Rayleigh–Bénard convection at 256³ (BuoyancyTracer,
+   ScalarDiffusivity, Value conditions on b; the padded layout), float32,
+   the same checks, and the phase shares of the step from CUDA events.
+6. The two nonhydrostatic goldens of tests/test_regression.py, rebuilt in
+   the port, in float64 through the kernels, against tests/data/*.npz.
+7. Whole step, kernel path against plain path: 3 steps at 32³ in float64 of
+   the flagship and of the convection configuration.
 
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. The script exits non-zero, without that line,
@@ -27,7 +39,7 @@ import statistics
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import torch
@@ -54,6 +66,9 @@ def build_phase():
     build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {build.build_seconds:.1f} s)")
+    for line in build.compile_log.splitlines():
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
+            print("  " + line.strip())
 
 
 def cuda_ms(fn, reps=10, warmup=2):
@@ -186,6 +201,184 @@ def kernels_phase():
     return out
 
 
+# -- bounds ---------------------------------------------------------------------
+# The least time the card could take for a kernel's work: the larger of the
+# bytes it must move (each input read once, each output written once) over
+# 3.35 TB/s and its floating-point operations over 67 TFLOP/s (float32
+# outside the tensor cores), the H100 SXM's published peaks at 700 W.
+
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+# Floating-point operations counted from the CUDA sources (an FMA counts 2):
+# a WENO-5 reconstruction is 3 stencils x (5 for the value + 21 for the
+# smoothness indicator) + 2 for τ + 3 x 9 for the weights + 1 division =
+# 108; a Centered(4) interpolation of A·q is 4 products + 4 products + 3
+# sums = 11; a face flux adds 1 product. A momentum component-cell takes six
+# face fluxes plus 3 differences, 2 sums, a division and a sign: 6 x (11 +
+# 108 + 1) + 7 = 727. A tracer component-cell reads the face velocity (1
+# product for A·u): 6 x (1 + 108 + 1) + 7 = 667. The near-wall cells with
+# lower orders (6 of 256 z levels) are counted at the full cost.
+WENO_MOMENTUM_FLOP = 6 * (11 + 108 + 1) + 7
+WENO_TRACER_FLOP = 6 * (1 + 108 + 1) + 7
+UPDATE_FLOP = 4          # γΔt·G + ζΔt·G⁻ added to q
+
+
+def bound(nbytes, flop):
+    """(bound_ms, bound_by) for a kernel's compulsory bytes and operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flop = flop / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_flop else (t_flop, "operations")
+
+
+def flagship_bounds(N, H, esize):
+    """Bounds of the flagship's four kernels at interior N, halo H."""
+    cells = N[0] * N[1] * N[2]
+    padded = (N[0] + 2 * H[0]) * (N[1] + 2 * H[1]) * N[2]
+    halo = (2 * H[0] * (N[1] + 2 * H[1]) + 2 * N[0] * H[1]) * N[2]
+    return {
+        # corrected, G⁻ variant: read u, v, w, p padded and G⁻; write G, new
+        "fused_advection_update": bound(
+            esize * (4 * padded + 3 * cells + 3 * cells + 3 * padded),
+            3 * cells * (WENO_MOMENTUM_FLOP + UPDATE_FLOP)),
+        # read u, v, w padded, write rhs; 3 differences, 3 products, 2 sums,
+        # 1 product per cell
+        "fused_divergence": bound(esize * (3 * padded + cells), 9 * cells),
+        # read p, u, v, w, write u, v, w (padded); 3 x (difference, product,
+        # difference) per cell
+        "fused_correct": bound(esize * 7 * padded, 9 * cells),
+        # 4 fields: read and write every halo element once
+        "periodic_halo_fill": bound(esize * 4 * 2 * halo, 0),
+    }
+
+
+def convection_bounds(N, H, esize, n_tracers=1):
+    """Bounds of the convection path's kernels at interior N, halo H."""
+    cells = N[0] * N[1] * N[2]
+    PX, PY, PZ = (n + 2 * h for n, h in zip(N, H))
+    padded = PX * PY * PZ
+    nf = 3 + n_tracers
+    wrap = (2 * H[0] * PY + 2 * N[0] * H[1]) * PZ
+    zfix = 2 * H[2] * PX * PY
+    return {
+        "fused_advection_tendency": bound(
+            esize * nf * (padded + cells),
+            cells * (3 * WENO_MOMENTUM_FLOP + n_tracers * WENO_TRACER_FLOP)),
+        "bounded_z_fill": bound(esize * nf * 2 * zfix, 0),
+        "periodic_halo_fill_z": bound(esize * nf * 2 * wrap, 0),
+    }
+
+
+def convection_kernel_inputs(N, dtype, seed):
+    """u, v, w, b on an H = (3, 3, 3) grid, halos filled by the plain
+    versions (default conditions for u, v, w; b's Value conditions)."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch.kernels import ZFill
+    grid = ot.RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0), halo=(3, 3, 3),
+                              dtype=dtype, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    fields = [0.1 * torch.randn(grid.padded_shape, generator=gen, dtype=dtype,
+                                device="cuda") for _ in range(4)]
+    specs = [ZFill(False, (0, 0.0), (0, 0.0)), ZFill(False, (0, 0.0), (0, 0.0)),
+             ZFill(True, (1, 0.0), (1, 0.0)), ZFill(False, (2, 0.5), (2, -0.5))]
+    return grid, fields, specs
+
+
+def convection_kernels_phase():
+    """The convection path's kernels against their plain versions. Bounds:
+    - advection tendency: float64 at 32³, 1e-12 relative to max|plain| (FMA
+      contraction and another association order), for WENO(5) with float64
+      smoothness and for Centered(2); float32 at 256³ with the default
+      float32 smoothness, 2e-5 relative (the reasons of the update kernel's
+      bound).
+    - bounded-z fill: copied slots exact; extrapolated (Value, Gradient)
+      slots within 1e-13 relative in float64 and 1e-6 in float32 (a few
+      roundings: FMA contraction, and PyTorch multiplies by the reciprocal
+      of a scalar divisor on the card).
+    - periodic wrap on fields with z halos: exact.
+    Returns {kernel: dict(max_abs_err, ms, plain_ms)} at the main path's
+    shapes (256³ float32, H = (3, 3, 3), u, v, w and b)."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+    from oceananigans_tpu_torch.kernels import ZFill
+
+    out = {}
+    # every (location, bottom, top) combination the fill takes, per dtype
+    cases = [ZFill(face, (cb, vb), (ct, vt))
+             for face in (False, True)
+             for (cb, vb), (ct, vt) in (((0, 0.0), (0, 0.0)),
+                                        ((2, 0.5), (2, -0.5)),
+                                        ((3, -0.25), (0, 0.3)),
+                                        ((1, 0.0), (3, 0.7)))]
+    for N, dtype, schemes, tols in (
+            ((32, 32, 32), torch.float64,
+             (ot.WENO(5, smoothness_dtype=torch.float64), ot.Centered(2)),
+             dict(adv=1e-12, fill=1e-13)),
+            ((256, 256, 256), torch.float32, (ot.WENO(5),),
+             dict(adv=2e-5, fill=1e-6))):
+        main = N[0] == 256
+        grid, fields, specs = convection_kernel_inputs(N, dtype, seed=2)
+        K.bounded_z_fill_plain(grid, fields, specs)
+        K.periodic_halo_fill_plain(grid, fields)
+        worst_adv = 0.0
+        for scheme in schemes:
+            Gk = K.fused_advection_tendency(grid, scheme, fields)
+            Gp = K.fused_advection_tendency_plain(grid, scheme, fields)
+            err, rel = max_err(list(Gk), list(Gp))
+            print(f"  fused_advection_tendency {N} {dtype} {scheme!r}: "
+                  f"max abs {err:.3e}, rel {rel:.3e}")
+            assert rel <= tols["adv"], ("fused_advection_tendency", N, rel)
+            worst_adv = max(worst_adv, err)
+        worst_fill = 0.0
+        base = torch.randn(grid.padded_shape, dtype=dtype, device="cuda")
+        for spec in cases:
+            a, b = base.clone(), base.clone()
+            K.bounded_z_fill(grid, [a], [spec])
+            K.bounded_z_fill_plain(grid, [b], [spec])
+            err, rel = max_err(a, b)
+            # z-face fields and Flux/Open sides only copy or reflect
+            extrapolates = not spec.face and (spec.bottom[0] >= 2
+                                              or spec.top[0] >= 2)
+            limit = tols["fill"] if extrapolates else 0.0
+            print(f"  bounded_z_fill {N} {dtype} {spec}: max abs {err:.3e}, "
+                  f"rel {rel:.3e} (bound {limit:g})")
+            assert rel <= limit, ("bounded_z_fill", N, spec, rel)
+            worst_fill = max(worst_fill, err)
+        a = torch.randn(grid.padded_shape, dtype=dtype, device="cuda")
+        b = a.clone()
+        K.periodic_halo_fill(grid, [a])
+        K.periodic_halo_fill_plain(grid, [b])
+        err_wrap = (a - b).abs().max().item()
+        print(f"  periodic_halo_fill (z halos) {N} {dtype}: max abs "
+              f"{err_wrap:.3e}")
+        assert err_wrap == 0.0, ("periodic_halo_fill with z halos", err_wrap)
+        torch.cuda.synchronize()
+        if not main:
+            continue
+        scheme = schemes[0]
+        copies = [f.clone() for f in fields]
+        timings = {
+            "fused_advection_tendency": (
+                lambda: K.fused_advection_tendency(grid, scheme, fields),
+                lambda: K.fused_advection_tendency_plain(grid, scheme, fields),
+                worst_adv),
+            "bounded_z_fill": (
+                lambda: K.bounded_z_fill(grid, copies, specs),
+                lambda: K.bounded_z_fill_plain(grid, copies, specs),
+                worst_fill),
+            "periodic_halo_fill_z": (
+                lambda: K.periodic_halo_fill(grid, copies),
+                lambda: K.periodic_halo_fill_plain(grid, copies), err_wrap),
+        }
+        for name, (kfn, pfn, err) in timings.items():
+            ms = cuda_ms(kfn)
+            plain_ms = cuda_ms(pfn, reps=5)
+            out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            print(f"  time {name} at {grid.padded_shape} (4 fields): kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return out
+
+
 def bench_model(n, dtype, device, seed=0):
     """The flagship configuration (bench.py's recipe) on the port."""
     import oceananigans_tpu_torch as ot
@@ -201,7 +394,69 @@ def bench_model(n, dtype, device, seed=0):
     return model
 
 
-def main_path_phase(card):
+def convection_model(N, dtype, device, smoothness=torch.float32, seed=0):
+    """Rayleigh–Bénard convection, the convection path's configuration
+    (tests/test_regression.py rayleigh_benard_model at full width): extent
+    1x1x1, WENO(5), BuoyancyTracer, ScalarDiffusivity(ν = κ = 1e-4, Rayleigh
+    number 1e8), b = 0.5 on the bottom and -0.5 on the top, b = -z - 0.5 and
+    u = 1e-3·N(0, 1) from np.random.default_rng(seed)."""
+    import oceananigans_tpu_torch as ot
+    grid = ot.RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0), dtype=dtype,
+                              device=device)
+    b_bcs = ot.FieldBoundaryConditions(top=ot.ValueBoundaryCondition(-0.5),
+                                       bottom=ot.ValueBoundaryCondition(0.5))
+    model = ot.NonhydrostaticModel(
+        grid, advection=ot.WENO(5, smoothness_dtype=smoothness),
+        buoyancy=ot.BuoyancyTracer(), tracers=("b",),
+        closure=ot.ScalarDiffusivity(nu=1e-4, kappa={"b": 1e-4}),
+        boundary_conditions={"b": b_bcs})
+    model.set(b=lambda x, y, z: -z - 0.5, enforce_incompressibility=False)
+    rng = np.random.default_rng(seed)
+    model.set(u=1e-3 * rng.standard_normal(N))
+    return model
+
+
+def thermal_bubble_model(dtype, device):
+    """tests/test_regression.py thermal_bubble_model in the port: a warm
+    bubble in a 100 m box, Centered(2), BuoyancyTracer, ScalarDiffusivity;
+    Δt = 1, 10 steps."""
+    import oceananigans_tpu_torch as ot
+    grid = ot.RectilinearGrid(size=(16, 16, 16), extent=(100.0, 100.0, 100.0),
+                              dtype=dtype, device=device)
+    model = ot.NonhydrostaticModel(
+        grid, advection=ot.Centered(2), buoyancy=ot.BuoyancyTracer(),
+        tracers=("b",),
+        closure=ot.ScalarDiffusivity(nu=4e-2, kappa={"b": 4e-2}))
+    model.set(b=lambda x, y, z: 0.01 * np.exp(
+        -((x - 50) ** 2 + (y - 50) ** 2 + (z + 75) ** 2) / 200.0))
+    return model, 1.0, 10
+
+
+def rayleigh_benard_model(dtype, device):
+    """tests/test_regression.py rayleigh_benard_model in the port: 16x16x8,
+    WENO(5) with float64 smoothness, Value conditions on b; Δt = 0.05, 10
+    steps."""
+    import oceananigans_tpu_torch as ot
+    grid = ot.RectilinearGrid(size=(16, 16, 8), extent=(1.0, 1.0, 1.0),
+                              dtype=dtype, device=device)
+    b_bcs = ot.FieldBoundaryConditions(top=ot.ValueBoundaryCondition(-0.5),
+                                       bottom=ot.ValueBoundaryCondition(0.5))
+    model = ot.NonhydrostaticModel(
+        grid, advection=ot.WENO(5, smoothness_dtype=torch.float64),
+        buoyancy=ot.BuoyancyTracer(), tracers=("b",),
+        closure=ot.ScalarDiffusivity(nu=1e-2, kappa={"b": 1e-2}),
+        boundary_conditions={"b": b_bcs})
+    rng = np.random.default_rng(42)
+    model.set(b=lambda x, y, z: -z - 0.5, enforce_incompressibility=False)
+    model.set(u=1e-3 * rng.standard_normal((16, 16, 8)))
+    return model, 0.05, 10
+
+
+GOLDENS = {"thermal_bubble": thermal_bubble_model,
+           "rayleigh_benard": rayleigh_benard_model}
+
+
+def flagship_path_phase(card):
     from oceananigans_tpu_torch import kernels as K
     n, dt = 256, 1e-4
     K.reset_counters()
@@ -216,9 +471,10 @@ def main_path_phase(card):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches, plain_cuda = K.counters()
-    print(f"main path launches: {launches}; plain calls on CUDA: {plain_cuda}")
-    for name, count in launches.items():
-        assert count > 0, f"kernel {name} never launched on the main path"
+    print(f"flagship path launches: {launches}; plain calls on CUDA: "
+          f"{plain_cuda}")
+    for name in FLAGSHIP_KERNELS:
+        assert launches[name] > 0, f"kernel {name} never launched on the path"
     for name, count in plain_cuda.items():
         assert count == 0, f"plain {name} ran on CUDA tensors"
     u, v, w = (model.state["fields"][c] for c in "uvw")
@@ -231,7 +487,7 @@ def main_path_phase(card):
     print(f"max|div u|·Δx/max|u| after {model.iteration} steps: {div_rel:.3e}")
     assert div_rel < 1e-4, ("divergence not at roundoff", div_rel)
     step_ms = statistics.median(times) * 1e3
-    print(f"main path: 256^3 WENO5 float32 RK3 step median {step_ms:.3f} ms "
+    print(f"flagship path: 256^3 WENO5 float32 RK3 step median {step_ms:.3f} ms "
           f"over {len(times)} steps (min {min(times) * 1e3:.3f}, max "
           f"{max(times) * 1e3:.3f}), {n ** 3 / (step_ms / 1e3):.4e} "
           f"cell-updates/s [{card}]")
@@ -242,6 +498,161 @@ def main_path_phase(card):
     return launches, step_ms
 
 
+FLAGSHIP_KERNELS = ("fused_advection_update", "fused_divergence",
+                    "fused_correct", "periodic_halo_fill")
+CONVECTION_KERNELS = ("fused_advection_tendency", "bounded_z_fill",
+                      "periodic_halo_fill")
+
+
+class PhaseTimer:
+    """CUDA events around calls of wrapped functions, summed per phase after
+    a synchronize (events are recorded on the stream; no host waits). A call
+    made while another wrapped phase runs is also counted under
+    "<phase>@<outer phase>"."""
+
+    def __init__(self):
+        self.events = {}
+        self.active = []
+
+    def wrap(self, phase, fn):
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            labels = [phase] + [f"{phase}@{outer}" for outer in self.active]
+            self.active.append(phase)
+            start.record()
+            try:
+                out = fn(*args, **kw)
+            finally:
+                end.record()
+                self.active.pop()
+            for label in labels:
+                self.events.setdefault(label, []).append((start, end))
+            return out
+        return timed
+
+    def totals(self):
+        torch.cuda.synchronize()
+        return {phase: sum(s.elapsed_time(e) for s, e in pairs)
+                for phase, pairs in self.events.items()}
+
+
+def convection_phase_shares(model, dt, steps, card):
+    """Per-step CUDA-event times of the convection step's phases: the
+    advection kernel, the halo fills (wrap + bounded z), buoyancy + closure +
+    boundary fluxes (the rest of the tendencies), the projection (its
+    divergence, solve and correction, its fills excluded), and the rest
+    (stage updates, allocations, host gaps)."""
+    import oceananigans_tpu_torch.models.nonhydrostatic as nh
+    timer = PhaseTimer()
+    saved = (nh.fused_advection_tendency, nh.fill_all_halo_regions)
+    nh.fused_advection_tendency = timer.wrap("advection", saved[0])
+    nh.fill_all_halo_regions = timer.wrap("fills", saved[1])
+    model._tendencies = timer.wrap("tendencies", model._tendencies)
+    model._project = timer.wrap("projection", model._project)
+    model.time_step = timer.wrap("step", model.time_step)
+    try:
+        for _ in range(steps):
+            model.time_step(dt)
+        t = {k: v / steps for k, v in timer.totals().items()}
+    finally:
+        nh.fused_advection_tendency, nh.fill_all_halo_regions = saved
+        for name in ("_tendencies", "_project", "time_step"):
+            delattr(model, name)
+    shares = {
+        "advection kernel": t["advection"],
+        "halo fills": t["fills"],
+        "buoyancy + closure + boundary fluxes":
+            t["tendencies"] - t["advection"],
+        "projection (divergence, solve, correction)":
+            t["projection"] - t["fills@projection"],
+    }
+    shares["rest (updates, allocations, host gaps)"] = \
+        t["step"] - sum(shares.values())
+    print(f"convection step phases, ms per step over {steps} steps "
+          f"(CUDA events) [{card}]:")
+    for phase, ms in shares.items():
+        print(f"  {phase}: {ms:.4f} ms ({100 * ms / t['step']:.1f}%)")
+    print(f"  step: {t['step']:.4f} ms")
+    return shares
+
+
+def convection_path_phase(card):
+    """The convection path at 256³ float32: counters reset just before the
+    model is built and read just after the timed steps."""
+    from oceananigans_tpu_torch import kernels as K
+    n, dt = 256, 1e-3
+    K.reset_counters()
+    model = convection_model((n, n, n), torch.float32, "cuda")
+    for _ in range(3):
+        model.time_step(dt)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        model.time_step(dt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches, plain_cuda = K.counters()
+    print(f"convection path launches over set() and {model.iteration} steps: "
+          f"{launches}; plain calls on CUDA: {plain_cuda}")
+    for name in CONVECTION_KERNELS:
+        assert launches[name] > 0, f"kernel {name} never launched on the path"
+    for name, count in plain_cuda.items():
+        assert count == 0, f"plain {name} ran on CUDA tensors"
+    fields = model.state["fields"]
+    for name in ("u", "v", "w", "b"):
+        assert torch.isfinite(fields[name]).all().item(), f"{name} not finite"
+    ints = model.grid.interior_slices
+    u, v, w = (fields[c] for c in "uvw")
+    model._fill_all(dict(u=u, v=v, w=w))
+    from oceananigans_tpu_torch.models.nonhydrostatic import \
+        _interior_divergence
+    div = _interior_divergence(model.grid, u, v, w)
+    umax = max(a[ints].abs().max().item() for a in (u, v, w))
+    div_rel = div.abs().max().item() * model.grid.dx(("c", "c", "c")) / umax
+    print(f"convection: max|div u|·Δx/max|u| after {model.iteration} steps: "
+          f"{div_rel:.3e}; max|u| {umax:.3e}")
+    assert div_rel < 1e-4, ("divergence not at roundoff", div_rel)
+    step_ms = statistics.median(times) * 1e3
+    print(f"convection path: 256^3 Rayleigh-Benard WENO5 float32 RK3 step "
+          f"median {step_ms:.3f} ms over {len(times)} steps (min "
+          f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
+          f"{n ** 3 / (step_ms / 1e3):.4e} cell-updates/s [{card}]")
+    print(f"peak device memory: "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    per_step = {k: launches[k] / model.iteration for k in CONVECTION_KERNELS}
+    print(f"launches per step (set() included): {per_step}")
+    convection_phase_shares(model, dt, 3, card)
+    return launches, step_ms
+
+
+def goldens_phase():
+    """tests/test_regression.py's thermal bubble and Rayleigh–Bénard goldens
+    in float64 through the kernels; bound 1e-9 relative to max|golden|, the
+    golden's own."""
+    import os
+    from oceananigans_tpu_torch import kernels as K
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data")
+    for name, make in GOLDENS.items():
+        before = K.counters()[0]
+        model, dt, steps = make(torch.float64, "cuda")
+        for _ in range(steps):
+            model.time_step(dt)
+        after = K.counters()[0]
+        assert after["fused_advection_tendency"] > \
+            before["fused_advection_tendency"], name
+        with np.load(os.path.join(data, f"regression_{name}.npz")) as ref:
+            for field in ref.files:
+                got = model.field(field).interior.cpu().numpy()
+                want = ref[field]
+                err = np.abs(got - want).max() / max(np.abs(want).max(),
+                                                      1e-12)
+                print(f"  golden {name} {field}: rel {err:.3e}")
+                assert err < 1e-9, ("golden", name, field, err)
+
+
 @contextmanager
 def plain_kernels():
     """Route the model's kernel calls to the plain versions."""
@@ -249,10 +660,13 @@ def plain_kernels():
     import oceananigans_tpu_torch.models.nonhydrostatic as nh
     from oceananigans_tpu_torch import kernels as K
     swaps = [(nh, "fused_advection_update", K.fused_advection_update_plain),
+             (nh, "fused_advection_tendency",
+              K.fused_advection_tendency_plain),
              (nh, "fused_divergence", K.fused_divergence_plain),
              (nh, "fused_correct", K.fused_correct_plain),
              (nh, "periodic_halo_fill", K.periodic_halo_fill_plain),
-             (hf, "periodic_halo_fill", K.periodic_halo_fill_plain)]
+             (hf, "periodic_halo_fill", K.periodic_halo_fill_plain),
+             (hf, "bounded_z_fill", K.bounded_z_fill_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -265,11 +679,12 @@ def plain_kernels():
 
 def whole_step_phase():
     """3 steps at 32³ float64 (float64 WENO smoothness) through the kernels
-    and through the plain versions; bound 1e-12 relative to max|field|."""
+    and through the plain versions, for the flagship and for the convection
+    configuration; bound 1e-12 relative to max|field|."""
     import oceananigans_tpu_torch as ot
     from oceananigans_tpu_torch.models import NonhydrostaticModel
 
-    def run():
+    def flagship():
         rng = np.random.default_rng(0)
         n = 32
         grid = ot.RectilinearGrid(size=(n, n, n), extent=(1.0, 1.0, 1.0),
@@ -278,17 +693,31 @@ def whole_step_phase():
             5, smoothness_dtype=torch.float64))
         m.set(u=0.1 * rng.standard_normal((n, n, n)),
               v=0.1 * rng.standard_normal((n, n, n)))
-        for _ in range(3):
-            m.time_step(1e-3)
         return m
 
-    mk = run()
-    with plain_kernels():
-        mp = run()
-    for name in ("u", "v", "w", "p"):
-        err, rel = max_err(mk.field(name).data, mp.field(name).data)
-        print(f"  whole step {name}: max abs {err:.3e}, rel {rel:.3e}")
-        assert rel <= 1e-12, ("whole step", name, rel)
+    def convection():
+        m = convection_model((32, 32, 32), torch.float64, "cuda",
+                             smoothness=torch.float64)
+        # a stronger start than 1e-3 noise, so that 3 steps exercise advection
+        rng = np.random.default_rng(1)
+        m.set(v=0.1 * rng.standard_normal((32, 32, 32)))
+        return m
+
+    for label, make, names in (("flagship", flagship, "uvwp"),
+                               ("convection", convection, "uvwbp")):
+        runs = []
+        for plain in (False, True):
+            with plain_kernels() if plain else nullcontext():
+                m = make()
+                for _ in range(3):
+                    m.time_step(1e-3)
+            runs.append(m)
+        for name in names:
+            err, rel = max_err(runs[0].field(name).interior,
+                               runs[1].field(name).interior)
+            print(f"  whole step {label} {name}: max abs {err:.3e}, "
+                  f"rel {rel:.3e}")
+            assert rel <= 1e-12, ("whole step", label, name, rel)
 
 
 KERNEL_SOURCES = {
@@ -304,6 +733,12 @@ KERNEL_SOURCES = {
     "periodic_halo_fill": (
         "oceananigans_tpu_torch/csrc/halo_fill.cu",
         "oceananigans_tpu/kernels/pallas_fill.py:265"),
+    "fused_advection_tendency": (
+        "oceananigans_tpu_torch/csrc/advection_tendency.cu",
+        "oceananigans_tpu/kernels/fused_advection.py:149"),
+    "bounded_z_fill": (
+        "oceananigans_tpu_torch/csrc/halo_fill.cu",
+        "oceananigans_tpu/kernels/pallas_fill.py:87"),
 }
 
 
@@ -312,14 +747,30 @@ def main():
     build_phase()
     print("kernels against plain versions:")
     measured = kernels_phase()
-    launches, _ = main_path_phase(card)
+    measured.update(convection_kernels_phase())
+    bounds = flagship_bounds((256, 256, 256), (4, 4, 0), 4)
+    bounds.update(convection_bounds((256, 256, 256), (3, 3, 3), 4))
+    flagship_launches, _ = flagship_path_phase(card)
+    convection_launches, _ = convection_path_phase(card)
+    print("goldens on the card:")
+    goldens_phase()
     print("whole step, kernels against plain versions:")
     whole_step_phase()
     rows = []
     for kname, (source, replaces) in KERNEL_SOURCES.items():
+        # the wrap's own row is at the flagship's shapes; its launches are
+        # those of the flagship path, where it replaces get_batched_fill
+        launches = (flagship_launches if kname in FLAGSHIP_KERNELS
+                    else convection_launches)[kname]
+        bound_ms, bound_by = bounds[kname]
         rows.append(dict(name=kname, route="cuda", source=source,
-                         replaces=replaces, launches=launches[kname],
-                         **measured[kname]))
+                         replaces=replaces, launches=launches,
+                         **measured[kname], bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None))
+    wrap_z = dict(measured["periodic_halo_fill_z"],
+                  launches=convection_launches["periodic_halo_fill"])
+    print(f"periodic_halo_fill on the convection path (z halos, 4 fields of "
+          f"262^3): {wrap_z}, bound {bounds['periodic_halo_fill_z']}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

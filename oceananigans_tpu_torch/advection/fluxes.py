@@ -1,22 +1,24 @@
-"""Advective flux divergences for momentum (flux form).
+"""Advective flux divergences for tracers and momentum (flux form).
 
-Counterpart of ``oceananigans_tpu/advection/fluxes.py`` (momentum terms, no
-slab trimming): the advecting velocity is the scheme's symmetric
-interpolation of A·q, the advected quantity the upwind reconstruction
-selected by the advecting velocity's sign.
+Counterpart of ``oceananigans_tpu/advection/fluxes.py`` (no slab trimming,
+no bounds-preserving branch): the advecting velocity is the scheme's
+symmetric interpolation of A·q (the face velocity itself for tracers), the
+advected quantity the upwind reconstruction selected by the advecting
+velocity's sign.
 
 ``zbc``: halo-free z-boundary mode (the z-compact layout). The dict gives each
 velocity's z-mirror parity (even for u/v, odd-face for w); the flux deltas
 need no fix-ups because boundary-face fluxes vanish and the out-of-range
-shift zero-fill reproduces exactly that.
+shift zero-fill reproduces exactly that. With ``zbc=None`` (the padded
+layout) every stencil reads the z halos as they were filled.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..operators.operators import (LOC_CCF, LOC_CFC, LOC_FCC, _delta_c,
-                                   _delta_f)
+from ..operators.operators import (LOC_CCC, LOC_CCF, LOC_CFC, LOC_FCC,
+                                   _delta_c, _delta_f)
 
 X, Y, Z = 0, 1, 2
 
@@ -32,6 +34,24 @@ def _sum_terms(terms, like, V):
     for t in terms[1:]:
         total = total + t
     return total / V
+
+
+def div_Uc(grid, scheme, u, v, w, c, zbc=None):
+    """Tracer advective flux divergence ∇·(𝐯 c) at ccc."""
+    if scheme is None:
+        return torch.zeros_like(c)
+    total = None
+    for axis, vel, A in ((X, u, grid.Ax(LOC_FCC)), (Y, v, grid.Ay(LOC_CFC)),
+                         (Z, w, grid.Az(LOC_CCF))):
+        if grid.is_flat(axis):
+            continue
+        kind = zbc["c"] if (zbc is not None and axis == Z) else None
+        chat = scheme.biased_by(grid, c, axis, 0, vel, zbc=kind)
+        term = _delta_c(grid, A * vel * chat, axis)
+        total = term if total is None else total + term
+    if total is None:
+        return torch.zeros_like(c)
+    return total / grid.V(LOC_CCC)
 
 
 def div_Uu(grid, scheme, u, v, w, zbc=None, only_axis=None):

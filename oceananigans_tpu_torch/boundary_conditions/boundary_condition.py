@@ -1,16 +1,21 @@
-"""Boundary condition types: the default regularization the flagship needs.
+"""Boundary condition types and their regularization.
 
-Counterpart of ``oceananigans_tpu/boundary_conditions/boundary_condition.py``,
-cut to the defaults that a field gets from its grid's topology: periodic on
-periodic sides, impenetrable (Open, value 0) for a wall-normal velocity on a
-bounded side, no-flux for everything else on a bounded side. User-supplied
-conditions (Value, Gradient, Flux with a condition, Open with a scheme) are
-not ported yet and raise.
+Counterpart of ``oceananigans_tpu/boundary_conditions/boundary_condition.py``.
+A field's conditions default from its grid's topology: periodic on periodic
+sides, impenetrable (Open, value 0) for a wall-normal velocity on a bounded
+side, no-flux for everything else on a bounded side. On the bottom and top
+of a bounded z the user may set ``ValueBoundaryCondition``,
+``GradientBoundaryCondition`` or ``FluxBoundaryCondition`` with a scalar (or
+no) condition. Conditions on bounded x/y sides, callable or array
+conditions, field dependencies and Open conditions with a value or a scheme
+are not ported yet and raise.
 """
 
 from __future__ import annotations
 
-from ..grids.topology import FACE, FLAT, PERIODIC
+import numpy as np
+
+from ..grids.topology import BOUNDED, FACE, FLAT, PERIODIC
 
 PERIODIC_BC = "periodic"
 FLUX = "flux"
@@ -50,6 +55,14 @@ def FluxBoundaryCondition(condition=None):
     return BoundaryCondition(FLUX, condition)
 
 
+def ValueBoundaryCondition(condition=None):
+    return BoundaryCondition(VALUE, condition)
+
+
+def GradientBoundaryCondition(condition=None):
+    return BoundaryCondition(GRADIENT, condition)
+
+
 def ImpenetrableBoundaryCondition():
     """No-penetration: wall-normal velocity face pinned to zero."""
     return BoundaryCondition(OPEN, None)
@@ -72,6 +85,12 @@ class FieldBoundaryConditions:
         self.west, self.east = west, east
         self.south, self.north = south, north
         self.bottom, self.top = bottom, top
+
+    def side(self, name):
+        return getattr(self, name)
+
+    def pair(self, axis):
+        return (self.side(_SIDES[2 * axis]), self.side(_SIDES[2 * axis + 1]))
 
     def _fp(self):
         return tuple(getattr(self, s)._fp() if getattr(self, s) is not None
@@ -107,9 +126,44 @@ def default_bcs(grid, loc):
         for side, (axis, _) in SIDE_AXIS.items()})
 
 
-def regularize_field_boundary_conditions(bcs, grid, loc):
-    """The topology defaults; any user-supplied condition raises."""
-    if bcs is not None and bcs != default_bcs(grid, loc):
+def _check_user_bc(bc, side, axis, grid):
+    """Raise unless ``bc`` is a condition the port takes on this side."""
+    topo = grid.topology[axis]
+    if topo == PERIODIC:
+        if bc.classification != PERIODIC_BC:
+            raise ValueError(f"cannot set {bc.classification} BC on {side} "
+                             "of a periodic direction")
+        return
+    if topo == FLAT:
+        raise ValueError(f"cannot set a BC on {side} of a flat direction")
+    if axis != 2 or topo != BOUNDED:
         raise NotImplementedError(
-            f"user boundary conditions are not ported yet: {USER_BCS_ITEM}")
-    return default_bcs(grid, loc)
+            f"{bc.classification} BC on the bounded {side} side: bounded x/y "
+            f"fills are not ported yet: {USER_BCS_ITEM}")
+    cond = bc.condition
+    if cond is not None and (callable(cond) or not np.isscalar(cond)):
+        raise NotImplementedError(
+            f"{side} {bc.classification} BC with a non-scalar condition "
+            f"{cond!r}: only scalar conditions are ported: {USER_BCS_ITEM}")
+    if bc.classification == OPEN and cond is not None:
+        raise NotImplementedError(
+            f"{side} Open BC with a value: only the impenetrable (None) Open "
+            f"condition is ported: {USER_BCS_ITEM}")
+    if bc.classification not in (FLUX, VALUE, GRADIENT, OPEN):
+        raise ValueError(f"unknown classification {bc.classification!r}")
+
+
+def regularize_field_boundary_conditions(bcs, grid, loc):
+    """Fill missing sides with the topology defaults; user conditions are
+    checked against what the port takes (see the module docstring)."""
+    if bcs is None:
+        return default_bcs(grid, loc)
+    kw = {}
+    for side, (axis, _) in SIDE_AXIS.items():
+        user = bcs.side(side)
+        if user is None:
+            kw[side] = default_bc(grid.topology[axis], loc[axis])
+        else:
+            _check_user_bc(user, side, axis, grid)
+            kw[side] = user
+    return FieldBoundaryConditions(**kw)

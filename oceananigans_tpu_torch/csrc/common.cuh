@@ -1,10 +1,11 @@
 // Shared layout helpers for the port's CUDA kernels.
 //
-// Every prognostic field is a padded (Nx + 2Hx, Ny + 2Hy, Nz) array with z
-// contiguous: the z-compact layout, with no z halo (the bounded-z boundary
-// conditions are applied inside the stencil reads). Interior cell (I, J, k)
-// lives at padded (I + Hx, J + Hy, k). Interior-shaped arrays (tendencies,
-// the divergence) are (Nx, Ny, Nz), also z contiguous.
+// Every field is a padded (Nx + 2Hx, Ny + 2Hy, Nz + 2Hz) array with z
+// contiguous. In the z-compact layout Hz = 0 (the bounded-z boundary
+// conditions are applied inside the stencil reads); in the padded layout the
+// z halos hold them. Interior cell (I, J, k) lives at padded
+// (I + Hx, J + Hy, k + Hz). Interior-shaped arrays (tendencies, the
+// divergence) are (Nx, Ny, Nz), also z contiguous.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -14,12 +15,15 @@ namespace oc {
 
 struct Geom {
   int Nx, Ny, Nz, Hx, Hy;
+  int Hz;  // 0 in the z-compact layout (aggregate initialisation leaves it 0)
 
+  __host__ __device__ __forceinline__ int PX() const { return Nx + 2 * Hx; }
   __host__ __device__ __forceinline__ int PY() const { return Ny + 2 * Hy; }
+  __host__ __device__ __forceinline__ int PZ() const { return Nz + 2 * Hz; }
 
-  // linear offset of padded (i, j, k)
+  // linear offset of padded (i, j, k); k is the padded z index
   __device__ __forceinline__ long long at(int i, int j, int k) const {
-    return ((long long)i * PY() + j) * Nz + k;
+    return ((long long)i * PY() + j) * PZ() + k;
   }
 
   __host__ __device__ __forceinline__ long long interior_cells() const {

@@ -1,25 +1,47 @@
-// Batched periodic halo fill, in place.
+// Halo fills, in place: the batched periodic x/y wrap and the bounded-z fill.
 //
-// Replaces the TPU kernel oceananigans_tpu/kernels/pallas_fill.py
+// oc_halo_fill replaces the TPU kernel oceananigans_tpu/kernels/pallas_fill.py
 // _build_batched (via get_batched_fill), and the wrap half of _build (via
 // get_pallas_fill): strip DMAs that wrap x, then wrap y over the full x
 // extent, so that corners carry the x-wrapped columns. Done in that order,
 // every halo slot (i, j) ends up holding the interior cell (wrap_x(i),
 // wrap_y(j)); this kernel writes exactly that, in one pass over the halo
-// slots of all fields of a batch. It reads interior cells only and writes
-// halo cells only, so the in-place update has no race.
+// slots of all fields of a batch, over the full padded z (z halos included).
+// It reads interior x/y cells only and writes halo cells only, so the
+// in-place update has no race.
 //
-// Bound: pure data movement, (2Hx·PY + 2Nx·Hy)·Nz elements read and written
-// per field; at 264x264x256 float32 that is about 4.3 MB each way per field,
-// a few microseconds of HBM time, so launch latency dominates. Design: one
-// launch for the whole batch (blockIdx.y = field), one thread per halo
-// element with z fastest across threads, so both the read and the write of a
-// warp are contiguous.
+// oc_bounded_z_fill replaces the z-fix half of _build (pallas_fill.py:139-201,
+// the pallas_call at :233), whose semantics are those of _fill_axis
+// (boundary_conditions/fill_halos.py:161-278) along a bounded z: per field, a
+// location (center or face in z) and a (classification, scalar value) pair
+// for the bottom and for the top. Center fields: Flux/Open mirror the
+// interior, Value/Gradient extrapolate linearly from the boundary cell.
+// z-face fields: Open/Value pin the boundary face and reflect oddly about
+// it, Flux/Gradient reflect evenly and leave the face as it is. It runs after
+// the wrap over the full padded x and y, so the corner columns carry wrapped
+// values, as the x -> y -> z order of the reference gives.
+//
+// Bound: pure data movement, launch latency dominates. The wrap moves
+// (2Hx·PY + 2Nx·Hy)·PZ elements each way per field, the z-fill about
+// 2Hz·PX·PY (about 2 MB per float32 field at 262³). Design: one launch for a
+// whole batch of fields (blockIdx.y = field), one thread per halo element with
+// z fastest across threads. The z-fill reads interior z slots only and
+// writes halo and boundary-face slots only, so its in-place update has no
+// race either. Copies are exact; an extrapolated slot may differ from the
+// plain PyTorch version by rounding (FMA contraction, and PyTorch's division
+// by a scalar multiplies by its reciprocal on the card).
 #include "common.cuh"
 
 namespace {
 
 constexpr int kMaxFields = 16;
+constexpr int kMaxHz = 8;
+
+// Boundary classifications, as kernels/halo_fill.py numbers them.
+constexpr int kFlux = 0;
+constexpr int kOpen = 1;
+constexpr int kValue = 2;
+constexpr int kGradient = 3;
 
 struct FieldPtrs {
   void* p[kMaxFields];
@@ -28,10 +50,11 @@ struct FieldPtrs {
 template <typename T>
 __global__ void halo_wrap_kernel(FieldPtrs ptrs, oc::Geom g, long long n_halo_cols) {
   T* a = (T*)ptrs.p[blockIdx.y];
+  const int PZ = g.PZ();
   long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= n_halo_cols * g.Nz) return;
-  const int k = (int)(n % g.Nz);
-  long long c = n / g.Nz;
+  if (n >= n_halo_cols * PZ) return;
+  const int k = (int)(n % PZ);
+  long long c = n / PZ;
   const int PY = g.PY();
   const long long xstrip = (long long)g.Hx * PY;   // columns in one x strip
   const long long ystrip = (long long)g.Nx * g.Hy; // columns in one y strip
@@ -53,6 +76,71 @@ __global__ void halo_wrap_kernel(FieldPtrs ptrs, oc::Geom g, long long n_halo_co
   a[g.at(i, j, k)] = a[g.at(si, sj, k)];
 }
 
+struct ZSpec {
+  int face;            // 1 for a z-face field (w), 0 for a center field
+  int cls_b, cls_t;    // bottom / top classification
+  double v_b, v_t;     // bottom / top scalar condition (0 for none)
+};
+
+struct ZFill {
+  void* p[kMaxFields];
+  ZSpec spec[kMaxFields];
+  double half_b, half_t;            // half the boundary-cell spacing
+  double dist_b[kMaxHz];            // z_C[Hz] - z_C[s], bottom halo slot s
+  double dist_t[kMaxHz];            // z_C[Hz+Nz+m] - z_C[Hz+Nz-1]
+};
+
+// Jobs per column: 2Hz + 1. Job s < Hz is bottom slot s; job Hz + m is slot
+// Hz + Nz + m (top halo for centers; for faces m = 0 is the top boundary
+// face); job 2Hz is the bottom boundary face of a z-face field.
+template <typename T>
+__global__ void bounded_z_kernel(const __grid_constant__ ZFill P, oc::Geom g) {
+  const ZSpec s = P.spec[blockIdx.y];
+  const int H = g.Hz, N = g.Nz, jobs = 2 * H + 1;
+  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= (long long)g.PX() * g.PY() * jobs) return;
+  const int job = (int)(n % jobs);
+  T* c = (T*)P.p[blockIdx.y] + (n / jobs) * g.PZ();
+  const bool pin_b = s.cls_b == kOpen || s.cls_b == kValue;
+  const bool pin_t = s.cls_t == kOpen || s.cls_t == kValue;
+  if (!s.face) {
+    if (job == 2 * H) return;
+    if (job < H) {
+      if (s.cls_b == kFlux || s.cls_b == kOpen) {
+        c[job] = c[2 * H - 1 - job];
+      } else {
+        const T c1 = c[H];
+        const T grad = s.cls_b == kGradient ? (T)s.v_b : (c1 - (T)s.v_b) / (T)P.half_b;
+        c[job] = c1 - grad * (T)P.dist_b[job];
+      }
+    } else {
+      const int m = job - H;
+      if (s.cls_t == kFlux || s.cls_t == kOpen) {
+        c[H + N + m] = c[H + N - 1 - m];
+      } else {
+        const T cN = c[H + N - 1];
+        const T grad = s.cls_t == kGradient ? (T)s.v_t : ((T)s.v_t - cN) / (T)P.half_t;
+        c[H + N + m] = cN + grad * (T)P.dist_t[m];
+      }
+    }
+    return;
+  }
+  if (job < H) {
+    const T r = c[2 * H - job];
+    c[job] = pin_b ? (T)(2.0 * s.v_b) - r : r;
+  } else if (job == 2 * H) {
+    if (pin_b) c[H] = (T)s.v_b;
+  } else {
+    const int m = job - H;
+    if (m == 0) {
+      if (pin_t) c[H + N] = (T)s.v_t;
+    } else {
+      const T r = c[H + N - m];
+      c[H + N + m] = pin_t ? (T)(2.0 * s.v_t) - r : r;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -61,23 +149,62 @@ const char* oc_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Fill the periodic x/y halos of `nf` padded arrays of one shape in place.
-// `ptrs` is a host array of nf device pointers; elem_size is 4 or 8.
+// Fill the periodic x/y halos of `nf` padded arrays of one shape in place,
+// over the full padded z. `ptrs` is a host array of nf device pointers;
+// elem_size is 4 or 8.
 int oc_halo_fill(void* const* ptrs, int nf, int elem_size, int Nx, int Ny, int Nz,
-                 int Hx, int Hy, void* stream) {
+                 int Hx, int Hy, int Hz, void* stream) {
   if (nf < 1 || nf > kMaxFields) return (int)cudaErrorInvalidValue;
   FieldPtrs fp;
   for (int f = 0; f < kMaxFields; ++f) fp.p[f] = f < nf ? ptrs[f] : nullptr;
-  oc::Geom g{Nx, Ny, Nz, Hx, Hy};
+  oc::Geom g{Nx, Ny, Nz, Hx, Hy, Hz};
   long long cols = 2LL * Hx * g.PY() + 2LL * Nx * Hy;
   if (cols == 0) return (int)cudaSuccess;
   const int threads = 256;
-  dim3 grid(oc::blocks_for(cols * Nz, threads), nf);
+  dim3 grid(oc::blocks_for(cols * g.PZ(), threads), nf);
   cudaStream_t s = (cudaStream_t)stream;
   if (elem_size == 4)
     halo_wrap_kernel<float><<<grid, threads, 0, s>>>(fp, g, cols);
   else if (elem_size == 8)
     halo_wrap_kernel<double><<<grid, threads, 0, s>>>(fp, g, cols);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// Fill the bounded-z halos of `nf` padded arrays in place. Per field f:
+// face[f], cls_b[f], cls_t[f] (0 Flux, 1 Open, 2 Value, 3 Gradient) and the
+// scalar conditions v_b[f], v_t[f]. half_b, half_t, dist_b[Hz], dist_t[Hz]
+// are the grid's z distances (float64, from its center coordinates).
+int oc_bounded_z_fill(void* const* ptrs, int nf, int elem_size, const int* face,
+                      const int* cls_b, const int* cls_t, const double* v_b,
+                      const double* v_t, int Nx, int Ny, int Nz, int Hx, int Hy,
+                      int Hz, double half_b, double half_t, const double* dist_b,
+                      const double* dist_t, void* stream) {
+  if (nf < 1 || nf > kMaxFields || Hz < 1 || Hz > kMaxHz || Nz < Hz + 1)
+    return (int)cudaErrorInvalidValue;
+  ZFill P;
+  for (int f = 0; f < kMaxFields; ++f) {
+    const bool on = f < nf;
+    P.p[f] = on ? ptrs[f] : nullptr;
+    P.spec[f] = ZSpec{on ? face[f] : 0, on ? cls_b[f] : 0, on ? cls_t[f] : 0,
+                      on ? v_b[f] : 0.0, on ? v_t[f] : 0.0};
+  }
+  P.half_b = half_b;
+  P.half_t = half_t;
+  for (int m = 0; m < kMaxHz; ++m) {
+    P.dist_b[m] = m < Hz ? dist_b[m] : 0.0;
+    P.dist_t[m] = m < Hz ? dist_t[m] : 0.0;
+  }
+  oc::Geom g{Nx, Ny, Nz, Hx, Hy, Hz};
+  const long long n = (long long)g.PX() * g.PY() * (2 * Hz + 1);
+  const int threads = 256;
+  dim3 grid(oc::blocks_for(n, threads), nf);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (elem_size == 4)
+    bounded_z_kernel<float><<<grid, threads, 0, s>>>(P, g);
+  else if (elem_size == 8)
+    bounded_z_kernel<double><<<grid, threads, 0, s>>>(P, g);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -1,0 +1,108 @@
+// WENO reconstructions and the coefficient table shared by the advection
+// kernels (fused_advection.cu, advection_tendency.cu).
+//
+// Every stencil coefficient comes from the Python scheme objects
+// (kernels/fused_advection.py coefficient_table) through a table passed by
+// value, so the kernels hold no constants of their own. The reconstructions
+// follow oceananigans_tpu/advection/schemes.py WENO._biased: WENO-Z weights
+// α = γ(1 + (τ/(β+ε))²) with τ/(β+ε) saturated, the smoothness indicators β
+// in the smoothness type S, the stencil values and the weighted sum in the
+// field type T.
+#pragma once
+
+#include "common.cuh"
+
+namespace oc {
+
+// Coefficient table, filled from a flat float64 array in this order.
+template <typename R>
+struct Tab {
+  R c4[4];          // Centered(4) symmetric, cells at offsets β-2 .. β+1
+  R c2[2];          // Centered(2) symmetric, cells at offsets β-1, β
+  R w5c[3][3];      // WENO-5 stencil s, cell j (offset β-1-s+j)
+  R w5f[3][3][3];   // WENO-5 smoothness factor m of stencil s, cell j
+  R w5g[3];         // WENO-5 optimal weights
+  R w3c[2][2];      // WENO-3 stencils
+  R w3f[2][2][2];   // WENO-3 smoothness factors
+  R w3g[2];         // WENO-3 optimal weights
+  R eps;            // ε in α = γ(1 + (τ/(β+ε))²)
+  R rmax;           // saturation of τ/(β+ε)
+};
+
+constexpr int kTabSize = 4 + 2 + 9 + 27 + 3 + 4 + 8 + 2 + 2;
+
+template <typename R>
+Tab<R> make_tab(const double* v) {
+  Tab<R> t;
+  R* dst = reinterpret_cast<R*>(&t);
+  for (int n = 0; n < kTabSize; ++n) dst[n] = (R)v[n];
+  return t;
+}
+
+__device__ __forceinline__ float absval(float x) { return fabsf(x); }
+__device__ __forceinline__ double absval(double x) { return fabs(x); }
+
+// WENO-5 on the upwind-selected cells q[0..4] (left-biased orientation:
+// offsets β-3 .. β+1, mirrored when the advecting velocity is not > 0).
+template <typename T, typename S>
+__device__ __forceinline__ T weno5(const T* q, const Tab<T>& tt, const Tab<S>& ts) {
+  T ps[3];
+  S b[3];
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    const T* c = q + 2 - s;
+    ps[s] = tt.w5c[s][0] * c[0] + tt.w5c[s][1] * c[1] + tt.w5c[s][2] * c[2];
+    const S v0 = (S)c[0], v1 = (S)c[1], v2 = (S)c[2];
+    S beta = S(0);
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      const S lin = ts.w5f[s][m][0] * v0 + ts.w5f[s][m][1] * v1 + ts.w5f[s][m][2] * v2;
+      beta = beta + lin * lin;
+    }
+    b[s] = beta;
+  }
+  const S tau = absval(b[0] - b[2]);
+  T num = T(0), den = T(0);
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    S r = tau / (b[s] + ts.eps);
+    r = r > ts.rmax ? ts.rmax : r;
+    const T alpha = (T)(ts.w5g[s] * (S(1) + r * r));
+    num = num + alpha * ps[s];
+    den = den + alpha;
+  }
+  return num / den;
+}
+
+// WENO-3 on q[0..2] (offsets β-2 .. β).
+template <typename T, typename S>
+__device__ __forceinline__ T weno3(const T* q, const Tab<T>& tt, const Tab<S>& ts) {
+  T ps[2];
+  S b[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const T* c = q + 1 - s;
+    ps[s] = tt.w3c[s][0] * c[0] + tt.w3c[s][1] * c[1];
+    const S v0 = (S)c[0], v1 = (S)c[1];
+    S beta = S(0);
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const S lin = ts.w3f[s][m][0] * v0 + ts.w3f[s][m][1] * v1;
+      beta = beta + lin * lin;
+    }
+    b[s] = beta;
+  }
+  const S tau = absval(b[0] - b[1]);
+  T num = T(0), den = T(0);
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    S r = tau / (b[s] + ts.eps);
+    r = r > ts.rmax ? ts.rmax : r;
+    const T alpha = (T)(ts.w3g[s] * (S(1) + r * r));
+    num = num + alpha * ps[s];
+    den = den + alpha;
+  }
+  return num / den;
+}
+
+}  // namespace oc

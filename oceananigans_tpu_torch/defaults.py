@@ -2,8 +2,9 @@
 
 Counterpart of ``oceananigans_tpu/defaults.py``. Every grid and model takes an
 explicit ``dtype=`` and ``device=``; these are only the values used when the
-caller passes none. Nothing here looks for an accelerator: the default device
-is the CPU until the caller names another one.
+caller passes none. The default device is the CUDA card: a grid built without
+``device=`` on a machine with no card raises (``resolve_device``) instead of
+falling back to the CPU; tests and CPU runs pass ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ class Defaults:
     FloatType: torch.dtype = torch.float32
 
     # Default device for grids and fields.
-    device: str = "cpu"
+    device: str = "cuda"
 
 
 defaults = Defaults()
@@ -48,3 +49,15 @@ def numpy_dtype(dtype):
     """The numpy scalar type of a torch float dtype."""
     return {torch.float32: np.float32, torch.float64: np.float64}[
         as_torch_dtype(dtype)]
+
+
+def resolve_device(device):
+    """The torch device for ``device`` (``None`` gives the default). A CUDA
+    device on a machine without one raises: nothing falls back to the CPU."""
+    dev = torch.device(device if device is not None else defaults.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested (the default is "
+            f"{defaults.device!r}) but no CUDA device is available; pass "
+            "device=\"cpu\" to run on the CPU")
+    return dev

@@ -6,7 +6,9 @@ metrics are numpy float64, as in the JAX package; the grid also carries the
 ``dtype`` and ``device`` of the fields built on it.
 
     RectilinearGrid(size=(64, 64, 64), extent=(1.0, 2.0, 3.0),
-                    dtype=torch.float32, device="cuda")      # z in (-Lz, 0)
+                    dtype=torch.float32)      # z in (-Lz, 0), on the card
+
+``device`` defaults to ``"cuda"``; without a card, pass ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..defaults import as_torch_dtype, defaults
+from ..defaults import as_torch_dtype, resolve_device
 from . import topology as topo
 from .base import AbstractGrid
 
@@ -89,8 +91,7 @@ class RectilinearGrid(AbstractGrid):
             topology = (topo.PERIODIC, topo.PERIODIC, topo.BOUNDED)
         self.topology = topo.validate_topology(topology)
         self.dtype = as_torch_dtype(dtype)
-        self.device = torch.device(device if device is not None
-                                   else defaults.device)
+        self.device = resolve_device(device)
 
         nonflat = [i for i in range(3) if self.topology[i] != topo.FLAT]
         if size is None:

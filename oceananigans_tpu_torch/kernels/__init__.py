@@ -6,16 +6,20 @@ each plain version counts the calls it served on CUDA tensors in
 ``cuda_calls``. The kernels build at first use (``build.py``).
 """
 
-from .fused_advection import (fused_advection_update,
+from .fused_advection import (fused_advection_tendency,
+                              fused_advection_tendency_plain,
+                              fused_advection_update,
                               fused_advection_update_plain)
 from .fused_projection import (fused_correct, fused_correct_plain,
                                fused_divergence, fused_divergence_plain)
-from .halo_fill import periodic_halo_fill, periodic_halo_fill_plain
+from .halo_fill import (ZFill, bounded_z_fill, bounded_z_fill_plain,
+                        periodic_halo_fill, periodic_halo_fill_plain)
 
 KERNELS = (fused_advection_update, fused_divergence, fused_correct,
-           periodic_halo_fill)
+           periodic_halo_fill, fused_advection_tendency, bounded_z_fill)
 PLAINS = (fused_advection_update_plain, fused_divergence_plain,
-          fused_correct_plain, periodic_halo_fill_plain)
+          fused_correct_plain, periodic_halo_fill_plain,
+          fused_advection_tendency_plain, bounded_z_fill_plain)
 
 
 def reset_counters():
@@ -32,7 +36,9 @@ def counters():
 
 
 __all__ = ["fused_advection_update", "fused_advection_update_plain",
+           "fused_advection_tendency", "fused_advection_tendency_plain",
            "fused_divergence", "fused_divergence_plain", "fused_correct",
            "fused_correct_plain", "periodic_halo_fill",
-           "periodic_halo_fill_plain", "KERNELS",
-           "PLAINS", "reset_counters", "counters"]
+           "periodic_halo_fill_plain", "bounded_z_fill",
+           "bounded_z_fill_plain", "ZFill", "KERNELS", "PLAINS",
+           "reset_counters", "counters"]

@@ -1,16 +1,21 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with one ``nvcc`` call into a shared
-library with a plain C interface, loaded with ``ctypes``:
+Each ``csrc/*.cu`` source compiles to an object with its own ``nvcc``
+process, all started together, and one more ``nvcc`` links the objects into
+a shared library with a plain C interface, loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o _build/liboceananigans_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu   # each
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o _build/liboceananigans_kernels_<hash>.so *.o
 
 The build happens at first use (never at import), from the package's own
 sources, into ``oceananigans_tpu_torch/_build/``. The file name carries a hash
 of the sources and flags, so an edited source rebuilds and an unchanged one
 is reused. ``nvcc`` is looked up in ``$CUDA_HOME/bin``, then
-``/usr/local/cuda/bin``, then ``PATH``.
+``/usr/local/cuda/bin``, then ``PATH``. ``compile_log`` keeps what the
+compilers printed (``-Xptxas -v``: registers, spills, shared memory per
+kernel).
 """
 
 from __future__ import annotations
@@ -29,11 +34,12 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
 build_seconds = None        # wall time of this process's build, or 0.0 if reused
+compile_log = ""            # the compilers' output of this process's build
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -42,7 +48,11 @@ D = ctypes.c_double
 # C entry points: name -> argtypes. Every entry returns the launch's
 # cudaGetLastError() as an int.
 SIGNATURES = {
-    "oc_halo_fill": [P, I, I, I, I, I, I, I, P],
+    "oc_halo_fill": [P, I, I, I, I, I, I, I, I, P],
+    "oc_bounded_z_fill": [P, I, I, P, P, P, P, P, I, I, I, I, I, I, D, D, P,
+                          P, P],
+    "oc_advection_tendency": [I, I, I, P, I, P, I, I, I, I, I, I, D, D, D, D,
+                              P, I, P],
     "oc_fused_divergence": [I, P, P, P, P, I, I, I, I, I, D, D, D, D, P],
     "oc_fused_correct": [I, P, P, P, P, P, P, P, I, I, I, I, I,
                          D, D, D, D, P],
@@ -76,27 +86,45 @@ def _source_hash(sources):
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; wait for every one; return their
+    output, raising if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, text in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n" + text)
+    return outs
+
+
 def build():
     """Compile the kernels if no library for the current sources exists;
     return the library's path."""
-    global build_seconds
+    global build_seconds, compile_log
     sources = sorted(CSRC_DIR.glob("*.cu"))
-    out = BUILD_DIR / f"liboceananigans_kernels_{_source_hash(sources)}.so"
+    key = _source_hash(sources)
+    out = BUILD_DIR / f"liboceananigans_kernels_{key}.so"
     if out.exists():
         if build_seconds is None:
             build_seconds = 0.0
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = ([find_nvcc()] + list(NVCC_FLAGS) + ["-o", str(tmp)]
-           + [str(s) for s in sources])
+    objdir = BUILD_DIR / f"obj_{key}_{os.getpid()}"
+    objdir.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    objs = [objdir / (s.stem + ".o") for s in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
-                           + proc.stdout + proc.stderr)
+    logs = _run_all([[nvcc] + list(NVCC_FLAGS) + ["-c", "-o", str(o), str(s)]
+                     for s, o in zip(sources, objs)])
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    logs += _run_all([[nvcc] + list(NVCC_FLAGS[:2]) + ["-shared", "-o",
+                                                       str(tmp)]
+                      + [str(o) for o in objs]])
     os.replace(tmp, out)
+    shutil.rmtree(objdir, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
+    compile_log = "".join(logs)
     return out
 
 

@@ -1,9 +1,11 @@
-"""WENO flux-form momentum advection fused with the RK3 stage update.
+"""Flux-form advection kernels: the fused RK3 stage update and the
+tendency-only form.
 
-Replaces the TPU kernel ``oceananigans_tpu/kernels/fused_advection.py``
-``_build_update_group`` (via ``build_fused_advection_update``), for u, v, w
-without tracers, in the z-compact layout (no z halo; the z boundary
-conditions are applied inside the stencil reads):
+``fused_advection_update`` replaces the TPU kernel
+``oceananigans_tpu/kernels/fused_advection.py`` ``_build_update_group`` (via
+``build_fused_advection_update``), for u, v, w without tracers, in the
+z-compact layout (no z halo; the z boundary conditions are applied inside
+the stencil reads):
 
     G   = -∇·(𝐯 q)                  for q = u, v, w     (interior-shaped)
     new = q + γΔt·G + ζΔt·G⁻         (ζΔt·G⁻ only when G⁻ is given; padded,
@@ -22,6 +24,15 @@ traffic in float32. Design (``csrc/fused_advection.cu``): one thread per
 block; each thread recomputes the two face fluxes it needs per axis, and the
 stencil reads go through L1/L2. Division is exact. The kernel covers WENO(5)
 with its near-wall cascade; other schemes take no kernel yet.
+
+``fused_advection_tendency`` replaces ``build_fused_advection`` (the
+tendency-only megakernel of the padded layout): ``G = -∇·(𝐯q)`` for u, v, w
+and each tracer, from padded fields whose halos (z included) were filled
+beforehand, as one (3 + n_tracers, Nx, Ny, Nz) tensor. There is no stage
+update: the model adds buoyancy, closure and boundary fluxes to G and
+updates in PyTorch. Its CUDA kernel (``csrc/advection_tendency.cu``) has the
+same design and bound as the update kernel, and covers WENO(5) and
+Centered(2) through the same coefficient table.
 """
 
 from __future__ import annotations
@@ -30,7 +41,8 @@ import ctypes
 
 import torch
 
-from ..advection import WENO, Centered, UpwindBiased, div_Uu, div_Uv, div_Uw
+from ..advection import (WENO, Centered, UpwindBiased, div_Uc, div_Uu,
+                         div_Uv, div_Uw)
 from ..advection.schemes import WENO_EPSILON, WENO_R_MAX
 from ..operators.shifts import shift
 from . import build
@@ -40,8 +52,15 @@ from .halo_fill import periodic_halo_fill_plain
 
 ZBC = {"u": "even", "v": "even", "w": "odd_face"}
 
-OTHER_SCHEMES_ITEM = ("ROADMAP.md queue 2, kernel #1 (schemes other than "
-                      "WENO(5) in the CUDA advection kernel)")
+OTHER_SCHEMES_ITEM = ("ROADMAP.md queue 2, kernels #1 and #6 (schemes other "
+                      "than WENO(5) and Centered(2) in the CUDA advection "
+                      "kernels)")
+
+# Scheme codes of csrc/advection_tendency.cu.
+WENO5, CENTERED2 = 0, 1
+
+# Entries of the coefficient table (kTabSize in csrc/reconstruction.cuh).
+TAB_SIZE = 4 + 2 + 9 + 27 + 3 + 4 + 8 + 2 + 2
 
 
 def corrected_velocities(grid, u, v, w, p, corr_dt):
@@ -96,14 +115,29 @@ def _padded_factors(factors, k):
 _tables = {}
 
 
+def scheme_code(scheme):
+    """WENO5 or CENTERED2 for the schemes the kernels take; raises for any
+    other."""
+    if isinstance(scheme, WENO) and scheme.order == 5:
+        return WENO5
+    if isinstance(scheme, Centered) and scheme.order == 2:
+        return CENTERED2
+    raise NotImplementedError(
+        f"no CUDA advection kernel for {scheme!r}: {OTHER_SCHEMES_ITEM}")
+
+
 def coefficient_table(scheme):
-    """The kernel's coefficient table (``Tab`` in csrc/fused_advection.cu) as
-    a ctypes float64 array, for WENO(5) and its cascade."""
-    if not (isinstance(scheme, WENO) and scheme.order == 5):
-        raise NotImplementedError(
-            f"no CUDA advection kernel for {scheme!r}: {OTHER_SCHEMES_ITEM}")
+    """The kernels' coefficient table (``Tab`` in csrc/reconstruction.cuh)
+    as a ctypes float64 array: WENO(5) with its cascade, or Centered(2) in
+    the c2 slot (every other entry 0)."""
+    code = scheme_code(scheme)
     key = scheme._fp()
-    if key not in _tables:
+    if key in _tables:
+        return _tables[key]
+    if code == CENTERED2:
+        vals = [0.0] * TAB_SIZE
+        vals[4:6] = scheme._coeffs
+    else:
         w3 = scheme.buffer_scheme()
         c4 = scheme.advecting_velocity_scheme
         c2 = c4.buffer_scheme()
@@ -122,7 +156,8 @@ def coefficient_table(scheme):
                  for c in _padded_factors(w3._sfactors[s], 2)]
         vals += list(w3._gammas)
         vals += [WENO_EPSILON, WENO_R_MAX]
-        _tables[key] = (ctypes.c_double * len(vals))(*vals)
+    assert len(vals) == TAB_SIZE
+    _tables[key] = (ctypes.c_double * len(vals))(*vals)
     return _tables[key]
 
 
@@ -138,7 +173,10 @@ def fused_advection_update(grid, scheme, u, v, w, Gm, gamma_dt, zeta_dt,
         return fused_advection_update_plain(grid, scheme, u, v, w, Gm,
                                             gamma_dt, zeta_dt, p, corr_dt)
     check_fast_layout(grid)
-    table = coefficient_table(scheme)   # raises for schemes with no kernel
+    if scheme_code(scheme) != WENO5:
+        raise NotImplementedError(
+            f"no CUDA update kernel for {scheme!r}: {OTHER_SCHEMES_ITEM}")
+    table = coefficient_table(scheme)
     has_corr = p is not None
     if has_corr and corr_dt is None:
         raise ValueError("the corrected variant needs p and corr_dt")
@@ -178,3 +216,68 @@ def fused_advection_update(grid, scheme, u, v, w, Gm, gamma_dt, zeta_dt,
 
 
 fused_advection_update.launches = 0
+
+
+# -- tendency only (padded layout) ---------------------------------------------
+
+MAX_COMPONENTS = 3 + 8
+
+
+def fused_advection_tendency_plain(grid, scheme, fields):
+    """Plain PyTorch version: the port's flux functions on the padded
+    tensors (halos read as they are), interiors stacked."""
+    if fields[0].is_cuda:
+        fused_advection_tendency_plain.cuda_calls += 1
+    u, v, w = fields[:3]
+    ints = grid.interior_slices
+    G = [-div(grid, scheme, u, v, w)[ints] for div in (div_Uu, div_Uv, div_Uw)]
+    G += [-div_Uc(grid, scheme, u, v, w, c)[ints] for c in fields[3:]]
+    return torch.stack(G)
+
+
+fused_advection_tendency_plain.cuda_calls = 0
+
+
+def fused_advection_tendency(grid, scheme, fields):
+    """``G = -∇·(𝐯q)`` at every interior cell for ``fields`` = [u, v, w,
+    tracers...], padded tensors with filled halos (z included). Returns one
+    (len(fields), Nx, Ny, Nz) tensor. CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
+    fields = list(fields)
+    if fields[0].device.type == "cpu":
+        return fused_advection_tendency_plain(grid, scheme, fields)
+    from ..grids.topology import BOUNDED, PERIODIC
+    if grid.topology != (PERIODIC, PERIODIC, BOUNDED):
+        raise NotImplementedError(
+            "the tendency kernel takes periodic x/y and a bounded z: "
+            "ROADMAP.md queue 1 item 11 (other configurations)")
+    code = scheme_code(scheme)
+    if not 3 <= len(fields) <= MAX_COMPONENTS:
+        raise ValueError(f"the tendency kernel takes u, v, w and at most "
+                         f"{MAX_COMPONENTS - 3} tracers")
+    Hx, Hy, Hz = grid.H
+    if min(Hx, Hy) < scheme.required_halo or Hz < 1:
+        raise ValueError(f"the tendency kernel needs Hx, Hy >= "
+                         f"{scheme.required_halo} and Hz >= 1")
+    check_tensors(grid, fields, grid.padded_shape)
+    sdt = getattr(scheme, "smoothness_dtype", fields[0].dtype)
+    if sdt not in _DTYPE_CODES:
+        raise TypeError(f"unsupported smoothness dtype {sdt}")
+    table = coefficient_table(scheme)
+    m = _metrics(grid)
+    Nx, Ny, Nz = grid.N
+    nc = len(fields)
+    G = torch.empty((nc, Nx, Ny, Nz), dtype=fields[0].dtype,
+                    device=fields[0].device)
+    ptrs = (ctypes.c_void_p * nc)(*[f.data_ptr() for f in fields])
+    with torch.cuda.device(G.device):
+        lib = build.library()
+        build.check(lib.oc_advection_tendency(
+            code, _DTYPE_CODES[G.dtype], _DTYPE_CODES[sdt], ptrs, nc,
+            build.ptr(G), Nx, Ny, Nz, Hx, Hy, Hz, m["Ax"], m["Ay"], m["Az"],
+            m["V"], table, len(table), build.stream_of(G)), lib)
+    fused_advection_tendency.launches += 1
+    return G
+
+
+fused_advection_tendency.launches = 0

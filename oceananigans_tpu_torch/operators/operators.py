@@ -2,8 +2,9 @@
 
 Counterpart of ``oceananigans_tpu/operators/operators.py``: the differences,
 interpolations, metric-aware derivatives and the divergence that the
-pressure projection uses. Arakawa C conventions: face ``i`` is the LEFT face
-of cell ``i``, so ``δxᶠ(c)[i] = c[i] - c[i-1]`` and ``δxᶜ(f)[i] = f[i+1] - f[i]``.
+pressure projection, buoyancy and the closures use. Arakawa C conventions:
+face ``i`` is the LEFT face of cell ``i``, so ``δxᶠ(c)[i] = c[i] - c[i-1]``
+and ``δxᶜ(f)[i] = f[i+1] - f[i]``.
 Flat directions give exact zeros (differences) or the identity
 (interpolations).
 """
@@ -66,8 +67,26 @@ def _interp_c(grid, a, axis):
     return 0.5 * (shift(a, +1, axis) + a)
 
 
+def ix_f(grid, c): return _interp_f(grid, c, X)
+def ix_c(grid, f): return _interp_c(grid, f, X)
+def iy_f(grid, c): return _interp_f(grid, c, Y)
+def iy_c(grid, f): return _interp_c(grid, f, Y)
+def iz_f(grid, c): return _interp_f(grid, c, Z)
+def iz_c(grid, f): return _interp_c(grid, f, Z)
+
+
 def interp(grid, a, axis, out_loc_axis):
     return _interp_f(grid, a, axis) if out_loc_axis == FACE else _interp_c(grid, a, axis)
+
+
+def interp_to(grid, a, from_loc, to_loc):
+    """Interpolate ``a`` from ``from_loc`` to ``to_loc`` with 2-point means
+    along each direction that moves."""
+    out = a
+    for axis in range(3):
+        if from_loc[axis] != to_loc[axis]:
+            out = interp(grid, out, axis, to_loc[axis])
+    return out
 
 
 # -- metric-aware derivatives ∂ ------------------------------------------------

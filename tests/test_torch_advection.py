@@ -57,7 +57,8 @@ def _fields(shape, seed):
 def test_momentum_flux_divergences(layout, scheme):
     halo = LAYOUTS[layout]
     jg = JGrid(size=N, extent=(1.0, 1.0, 1.0), halo=halo, dtype=np.float64)
-    tg = TGrid(size=N, extent=(1.0, 1.0, 1.0), halo=halo, dtype=torch.float64)
+    tg = TGrid(size=N, extent=(1.0, 1.0, 1.0), halo=halo, dtype=torch.float64,
+               device="cpu")
     jmake, tmake, tol = SCHEMES[scheme]
     js, ts = jmake(), tmake()
     zbc = ZBC if layout == "compact" else None
@@ -77,7 +78,8 @@ def test_single_axis_terms(axis):
     bound 1e-12 relative."""
     halo = LAYOUTS["compact"]
     jg = JGrid(size=N, extent=(1.0, 1.0, 1.0), halo=halo, dtype=np.float64)
-    tg = TGrid(size=N, extent=(1.0, 1.0, 1.0), halo=halo, dtype=torch.float64)
+    tg = TGrid(size=N, extent=(1.0, 1.0, 1.0), halo=halo, dtype=torch.float64,
+               device="cpu")
     js = JWENO(5, smoothness_dtype=jnp.float64)
     ts = WENO(5, smoothness_dtype=torch.float64)
     (ju, jv, jw), (tu, tv, tw) = _fields(jg.padded_shape, seed=8)

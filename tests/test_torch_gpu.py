@@ -10,7 +10,9 @@ The file imports no JAX, so it also runs on a machine without it:
 Float64 fields with float64 WENO smoothness at (16, 16, 32); bound 1e-12
 relative to max|plain|: the kernels evaluate the same stencils with FMA
 contraction and in another association order, which is roundoff. The halo
-fill copies, so it must agree exactly."""
+fills copy, so they must agree exactly, except the bounded-z fill's
+Value/Gradient extrapolation: 1e-13 relative (FMA contraction, and PyTorch
+multiplies by the reciprocal of a scalar divisor on the card)."""
 
 import pytest
 import torch
@@ -78,3 +80,55 @@ def test_periodic_halo_fill(inputs):
     K.periodic_halo_fill(grid, [a])
     K.periodic_halo_fill_plain(grid, [b])
     assert torch.equal(a, b)
+
+
+# -- the convection path's kernels (padded layout, H = (3, 3, 3)) -------------
+
+@pytest.fixture(scope="module")
+def zinputs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    grid = ot.RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0), halo=(3, 3, 3),
+                              dtype=torch.float64, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    fields = [0.1 * torch.randn(grid.padded_shape, generator=gen,
+                                dtype=torch.float64, device="cuda")
+              for _ in range(4)]
+    return grid, fields
+
+
+@pytest.mark.parametrize("scheme", ["weno5", "centered2"])
+def test_fused_advection_tendency(zinputs, scheme):
+    grid, fields = zinputs
+    s = (ot.WENO(5, smoothness_dtype=torch.float64) if scheme == "weno5"
+         else ot.Centered(2))
+    _close(list(K.fused_advection_tendency(grid, s, fields)),
+           list(K.fused_advection_tendency_plain(grid, s, fields)))
+
+
+ZCASES = [K.ZFill(face, bottom, top) for face in (False, True)
+          for bottom, top in (((0, 0.0), (0, 0.0)), ((2, 0.5), (2, -0.5)),
+                              ((3, -0.25), (1, 0.0)))]
+
+
+@pytest.mark.parametrize("spec", ZCASES, ids=str)
+def test_bounded_z_fill(zinputs, spec):
+    grid, fields = zinputs
+    a = fields[0].clone()
+    b = a.clone()
+    K.bounded_z_fill(grid, [a], [spec])
+    K.bounded_z_fill_plain(grid, [b], [spec])
+    extrapolates = not spec.face and (spec.bottom[0] >= 2 or spec.top[0] >= 2)
+    if extrapolates:
+        assert (a - b).abs().max().item() <= 1e-13 * b.abs().max().item()
+    else:
+        assert torch.equal(a, b)
+
+
+def test_periodic_halo_fill_z_halos(zinputs):
+    grid, fields = zinputs
+    a = [f.clone() for f in fields]
+    b = [f.clone() for f in fields]
+    K.periodic_halo_fill(grid, a)
+    K.periodic_halo_fill_plain(grid, b)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))

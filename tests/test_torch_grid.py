@@ -35,7 +35,7 @@ def _close(a, b):
 @pytest.mark.parametrize("cfg", CONFIGS)
 def test_shapes_and_coordinates(cfg):
     j = JGrid(dtype=np.float64, **cfg)
-    t = TGrid(dtype=torch.float64, **cfg)
+    t = TGrid(dtype=torch.float64, device="cpu", **cfg)
     assert t.N == j.N and t.H == j.H and t.topology == j.topology
     assert t.padded_shape == j.padded_shape
     assert t.interior_slices == j.interior_slices
@@ -51,13 +51,14 @@ def test_shapes_and_coordinates(cfg):
 @pytest.mark.parametrize("loc", LOCS)
 def test_metrics(cfg, loc):
     j = JGrid(dtype=np.float64, **cfg)
-    t = TGrid(dtype=torch.float64, **cfg)
+    t = TGrid(dtype=torch.float64, device="cpu", **cfg)
     for name in ("dx", "dy", "dz", "Ax", "Ay", "Az", "V"):
         assert _close(getattr(t, name)(loc), getattr(j, name)(loc)), name
 
 
 def test_with_halo_and_device_dtype():
-    t = TGrid(size=(8, 8, 16), extent=(1.0, 1.0, 1.0), dtype=torch.float64)
+    t = TGrid(size=(8, 8, 16), extent=(1.0, 1.0, 1.0), dtype=torch.float64,
+              device="cpu")
     j = JGrid(size=(8, 8, 16), extent=(1.0, 1.0, 1.0), dtype=np.float64)
     t4, j4 = t.with_halo((4, 4, 0)), j.with_halo((4, 4, 0))
     assert t4.padded_shape == j4.padded_shape
@@ -70,4 +71,26 @@ def test_with_halo_and_device_dtype():
 def test_stretched_axis_raises():
     faces = np.linspace(-1.0, 0.0, 9) ** 3
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TGrid(size=(4, 4, 8), x=(0.0, 1.0), y=(0.0, 1.0), z=faces)
+        TGrid(size=(4, 4, 8), x=(0.0, 1.0), y=(0.0, 1.0), z=faces,
+              device="cpu")
+
+
+def test_default_device_is_cuda():
+    from oceananigans_tpu_torch.defaults import defaults
+    assert defaults.device == "cuda"
+
+
+def test_default_device_without_card_raises():
+    """A grid built without ``device=`` lives on the card; with no card it
+    raises and names ``device="cpu"``, as does moving a model to the card.
+    Nothing falls back to the CPU."""
+    from oceananigans_tpu_torch.models import NonhydrostaticModel
+    if torch.cuda.is_available():
+        assert TGrid(size=(4, 4, 8), extent=(1.0, 1.0, 1.0)).device.type \
+            == "cuda"
+        return
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TGrid(size=(4, 4, 8), extent=(1.0, 1.0, 1.0))
+    cpu_grid = TGrid(size=(4, 4, 8), extent=(1.0, 1.0, 1.0), device="cpu")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        NonhydrostaticModel(cpu_grid, device="cuda")

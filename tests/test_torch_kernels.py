@@ -39,7 +39,7 @@ LOCS = (("f", "c", "c"), ("c", "f", "c"), ("c", "c", "f"))
 def setup():
     jgrid = JGrid(size=N, extent=(1.0, 1.0, 1.0), halo=JH, dtype=np.float64)
     tgrid = ot.RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0), halo=TH,
-                               dtype=torch.float64)
+                               dtype=torch.float64, device="cpu")
     rng = np.random.default_rng(11)
     interiors = [0.1 * rng.standard_normal(N) for _ in range(3)]
     interiors.append(1e-2 * rng.standard_normal(N))          # p

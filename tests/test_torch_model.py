@@ -64,7 +64,7 @@ def _jax_run(N, smoothness, steps=3):
 def _port(N, smoothness, **kw):
     u0, v0 = _initial(N)
     grid = ot.RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0),
-                              dtype=torch.float64)
+                              dtype=torch.float64, device="cpu")
     m = NonhydrostaticModel(grid, advection=ot.WENO(
         5, smoothness_dtype=smoothness), **kw)
     m.set(u=u0, v=v0)
@@ -171,7 +171,7 @@ def test_halos_and_invariants():
 
 def test_unported_options_raise():
     grid = ot.RectilinearGrid(size=(8, 8, 8), extent=(1.0, 1.0, 1.0),
-                              dtype=torch.float64)
+                              dtype=torch.float64, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NonhydrostaticModel(grid, advection=ot.WENO(5), tracers=("b",))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -179,6 +179,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NonhydrostaticModel(grid, timestepper="QuasiAdamsBashforth2")
     bounded = ot.RectilinearGrid(size=(8, 8, 8), extent=(1.0, 1.0, 1.0),
-                                 topology=("bounded", "periodic", "bounded"))
+                                 topology=("bounded", "periodic", "bounded"),
+                                 device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NonhydrostaticModel(bounded)

@@ -1,6 +1,7 @@
 """The port stands without JAX: importing it loads no ``jax`` module, and no
-source file of the package imports ``jax``, the JAX package or ``triton``;
-importing it builds no kernel."""
+source file of the package (nor ``chip_smoke.py``, which drives it on the
+card) imports ``jax``, the JAX package or ``triton``; importing it builds no
+kernel."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "oceananigans_tpu_torch"
-SOURCES = sorted(PACKAGE.rglob("*.py"))
+SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "oceananigans_tpu", "triton")
 
 

@@ -53,7 +53,7 @@ LOCS = [("f", "c", "c"), ("c", "f", "c"), ("c", "c", "f"), ("c", "c", "c")]
 
 @pytest.mark.parametrize("loc", LOCS)
 def test_derivatives(loc):
-    j, t = JGrid(dtype=np.float64, **GRID), TGrid(dtype=torch.float64, **GRID)
+    j, t = JGrid(dtype=np.float64, **GRID), TGrid(dtype=torch.float64, device="cpu", **GRID)
     ja, ta = _pair(np.random.default_rng(3), j.padded_shape)
     for name in ("ddx", "ddy", "ddz"):
         assert _close(getattr(jops, name)(j, ja, loc),
@@ -61,7 +61,7 @@ def test_derivatives(loc):
 
 
 def test_div_ccc():
-    j, t = JGrid(dtype=np.float64, **GRID), TGrid(dtype=torch.float64, **GRID)
+    j, t = JGrid(dtype=np.float64, **GRID), TGrid(dtype=torch.float64, device="cpu", **GRID)
     rng = np.random.default_rng(4)
     (ju, tu), (jv, tv), (jw, tw) = (_pair(rng, j.padded_shape) for _ in range(3))
     assert _close(jops.div_ccc(j, ju, jv, jw), tops.div_ccc(t, tu, tv, tw))
@@ -69,9 +69,23 @@ def test_div_ccc():
 
 @pytest.mark.parametrize("axis", [0, 1, 2])
 def test_differences_and_interpolations(axis):
-    j, t = JGrid(dtype=np.float64, **GRID), TGrid(dtype=torch.float64, **GRID)
+    j, t = JGrid(dtype=np.float64, **GRID), TGrid(dtype=torch.float64, device="cpu", **GRID)
     ja, ta = _pair(np.random.default_rng(5), j.padded_shape)
     for out in ("c", "f"):
         assert _close(jops.delta(j, ja, axis, out), tops.delta(t, ta, axis, out))
         assert _close(jops.interp(j, ja, axis, out),
                       tops.interp(t, ta, axis, out))
+
+
+@pytest.mark.parametrize("to_loc", [("f", "c", "c"), ("c", "c", "f"),
+                                    ("f", "f", "c"), ("c", "f", "f")])
+def test_interpolations(to_loc):
+    """``interp_to`` from cell centers, and the one-axis ``ix/iy/iz_f``."""
+    j, t = JGrid(dtype=np.float64, **GRID), TGrid(dtype=torch.float64,
+                                                  device="cpu", **GRID)
+    ja, ta = _pair(np.random.default_rng(9), j.padded_shape)
+    ccc = ("c", "c", "c")
+    assert _close(jops.interp_to(j, ja, ccc, to_loc),
+                  tops.interp_to(t, ta, ccc, to_loc))
+    for name in ("ix_f", "iy_f", "iz_f"):
+        assert _close(getattr(jops, name)(j, ja), getattr(tops, name)(t, ta))

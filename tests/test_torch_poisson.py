@@ -47,7 +47,7 @@ def test_solve_matches_jax(N):
     want = np.asarray(JSolver(JGrid(size=N, extent=EXTENT, halo=(4, 4, 0),
                                     dtype=np.float64)).solve(jnp.asarray(b)))
     grid = ot.RectilinearGrid(size=N, extent=EXTENT, halo=(4, 4, 0),
-                              dtype=torch.float64)
+                              dtype=torch.float64, device="cpu")
     got = FFTPoissonSolver(grid).solve(torch.as_tensor(b)).numpy()
     assert np.max(np.abs(got - want)) <= 1e-12 * np.max(np.abs(want))
 
@@ -56,7 +56,7 @@ def test_solve_matches_jax(N):
 def test_residual(N):
     b = np.random.default_rng(4).standard_normal(N)
     grid = ot.RectilinearGrid(size=N, extent=EXTENT, halo=(4, 4, 0),
-                              dtype=torch.float64)
+                              dtype=torch.float64, device="cpu")
     phi = FFTPoissonSolver(grid).solve(torch.as_tensor(b)).numpy()
     res = _laplacian(phi, EXTENT) - (b - b.mean())
     assert np.max(np.abs(res)) <= 1e-10 * np.max(np.abs(b))
