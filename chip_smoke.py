@@ -26,8 +26,20 @@ Phases (each raises on failure; nothing is caught):
    the same checks, and the phase shares of the step from CUDA events.
 6. The two nonhydrostatic goldens of tests/test_regression.py, rebuilt in
    the port, in float64 through the kernels, against tests/data/*.npz.
-7. Whole step, kernel path against plain path: 3 steps at 32³ in float64 of
-   the flagship and of the convection configuration.
+7. Shallow-water kernels against their plain versions: the fused
+   shallow-water stage at 256² in float64 (WENO(5) and Centered(2), FPlane,
+   bathymetry, a tracer; the first-stage and the G⁻ variants) and at 4096²
+   in float32, the wrap on three 16392² fields; CUDA-event times at the
+   shallow-water path's shapes.
+8. Shallow-water path: ShallowWaterModel on a 16384² periodic grid,
+   WENO(5), float32, RK3, Δt = 1e-5, h, uh, vh from a seeded generator
+   (bench_extra.py's shallow-water row): warm-up and timed steps, launch
+   counters (the kernel and the wrap three times per step, no plain version
+   on CUDA tensors), finite fields, mass conservation, peak memory and the
+   phase shares of the step from CUDA events.
+9. Whole step, kernel path against plain path: 3 steps at 32³ in float64 of
+   the flagship and of the convection configuration, and at 128² of shallow
+   water.
 
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. The script exits non-zero, without that line,
@@ -266,6 +278,42 @@ def convection_bounds(N, H, esize, n_tracers=1):
             cells * (3 * WENO_MOMENTUM_FLOP + n_tracers * WENO_TRACER_FLOP)),
         "bounded_z_fill": bound(esize * nf * 2 * zfix, 0),
         "periodic_halo_fill_z": bound(esize * nf * 2 * wrap, 0),
+    }
+
+
+# The fused shallow-water stage, per interior cell: the operations the
+# function needs, each face flux and each derived velocity counted once (the
+# kernel recomputes both, about twice as many). A momentum component has two
+# face fluxes per cell, one per axis, each a Centered(4) interpolation of a
+# transport (4 products + 3 sums = 7), a metric product, a WENO-5
+# reconstruction (108) and the flux product: 117; one velocity u = uh/ℑx(h)
+# (a sum, a product, a division: 3); then 2 differences, a sum and a division
+# (4), the gravity head (4 products, a difference, a division, a difference:
+# 7), the bathymetry term (a sum, 3 products, 2 differences, a division: 7)
+# and the Coriolis term (3 sums, 4 products, a sum: 8): 2 x 117 + 3 + 26 =
+# 263. h: 4 products, 2 differences, a sum, 2 divisions, a negation, a
+# product = 11. A tracer: the divergence of U (8) and two fluxes of
+# (1 + 108 + 1) plus 6: 234.
+SW_MOMENTUM_FLOP = 2 * (7 + 1 + 108 + 1) + 3 + 26
+SW_H_FLOP = 11
+SW_TRACER_FLOP = 8 + 2 * (1 + 108 + 1) + 6
+
+
+def sw_bounds(n, H, esize, n_tracers=0):
+    """Bounds of the shallow-water path's kernels at interior n², halo H:
+    the stage's G⁻ variant (stages 2 and 3) and the wrap of its fields."""
+    nf = 3 + n_tracers
+    cells = n * n
+    PX, PY = n + 2 * H[0], n + 2 * H[1]
+    padded = PX * PY
+    wrap = 2 * H[0] * PY + 2 * n * H[1]
+    return {
+        # read the fields, hB and G⁻; write G and the new fields
+        "fused_sw_update": bound(
+            esize * ((nf + 1) * padded + 2 * nf * cells + nf * padded),
+            cells * (2 * SW_MOMENTUM_FLOP + SW_H_FLOP
+                     + n_tracers * SW_TRACER_FLOP + nf * UPDATE_FLOP)),
+        "periodic_halo_fill_sw": bound(esize * nf * 2 * wrap, 0),
     }
 
 
@@ -658,8 +706,10 @@ def plain_kernels():
     """Route the model's kernel calls to the plain versions."""
     import oceananigans_tpu_torch.kernels.halo_fill as hf
     import oceananigans_tpu_torch.models.nonhydrostatic as nh
+    import oceananigans_tpu_torch.models.shallow_water as sw
     from oceananigans_tpu_torch import kernels as K
-    swaps = [(nh, "fused_advection_update", K.fused_advection_update_plain),
+    swaps = [(sw, "fused_sw_update", K.fused_sw_update_plain),
+             (nh, "fused_advection_update", K.fused_advection_update_plain),
              (nh, "fused_advection_tendency",
               K.fused_advection_tendency_plain),
              (nh, "fused_divergence", K.fused_divergence_plain),
@@ -678,9 +728,10 @@ def plain_kernels():
 
 
 def whole_step_phase():
-    """3 steps at 32³ float64 (float64 WENO smoothness) through the kernels
-    and through the plain versions, for the flagship and for the convection
-    configuration; bound 1e-12 relative to max|field|."""
+    """3 steps in float64 (float64 WENO smoothness) through the kernels and
+    through the plain versions: the flagship and the convection
+    configuration at 32³, shallow water at 128² (FPlane(0.3), bathymetry, a
+    tracer); bound 1e-12 relative to max|field|."""
     import oceananigans_tpu_torch as ot
     from oceananigans_tpu_torch.models import NonhydrostaticModel
 
@@ -703,14 +754,26 @@ def whole_step_phase():
         m.set(v=0.1 * rng.standard_normal((32, 32, 32)))
         return m
 
-    for label, make, names in (("flagship", flagship, "uvwp"),
-                               ("convection", convection, "uvwbp")):
+    def shallow_water():
+        n = 128
+        rng = np.random.default_rng(5)
+        m = sw_model(n, torch.float64, "cuda", scheme=ot.WENO(
+            5, smoothness_dtype=torch.float64), coriolis=ot.FPlane(f=0.3),
+            bathymetry=0.05 * rng.standard_normal((n, n)), tracers=("c",))
+        m.set(c=rng.random((n, n)))
+        assert m.fused
+        return m
+
+    for label, make, names, dt in (
+            ("flagship", flagship, "uvwp", 1e-3),
+            ("convection", convection, "uvwbp", 1e-3),
+            ("shallow water", shallow_water, ("uh", "vh", "h", "c"), 1e-4)):
         runs = []
         for plain in (False, True):
             with plain_kernels() if plain else nullcontext():
                 m = make()
                 for _ in range(3):
-                    m.time_step(1e-3)
+                    m.time_step(dt)
             runs.append(m)
         for name in names:
             err, rel = max_err(runs[0].field(name).interior,
@@ -718,6 +781,233 @@ def whole_step_phase():
             print(f"  whole step {label} {name}: max abs {err:.3e}, "
                   f"rel {rel:.3e}")
             assert rel <= 1e-12, ("whole step", label, name, rel)
+
+
+# -- shallow water --------------------------------------------------------------
+
+SW_TOPOLOGY = ("periodic", "periodic", "flat")
+SW_NAMES = ("uh", "vh", "h")
+SW_KERNELS = ("fused_sw_update", "periodic_halo_fill")
+
+
+def sw_kernel_inputs(n, dtype, tracers, seed):
+    """Padded uh, vh, h (h about 1), the tracers and a bathymetry on an
+    n² grid with H = (4, 4, 0), halos wrapped, and a G⁻ tensor."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch.kernels import periodic_halo_fill
+    grid = ot.RectilinearGrid(size=(n, n), extent=(1.0, 1.0), halo=(4, 4, 0),
+                              topology=SW_TOPOLOGY, dtype=dtype, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(shape, scale, offset=0.0):
+        return offset + scale * torch.randn(shape, generator=gen, dtype=dtype,
+                                            device="cuda")
+
+    shape = grid.padded_shape
+    fields = dict(uh=randn(shape, 0.01), vh=randn(shape, 0.01),
+                  h=randn(shape, 0.01, 1.0))
+    fields.update({name: randn(shape, 1.0) for name in tracers})
+    hB = randn(shape, 0.01)
+    periodic_halo_fill(grid, list(fields.values()) + [hB])
+    Gm = randn((len(fields),) + grid.N, 1.0)
+    return grid, fields, hB, Gm
+
+
+def worst_rel(got, want):
+    """(max abs difference, the largest of each pair's difference over its
+    own max|want|) across paired tensors."""
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    rel = max((g - w).abs().max().item() / w.abs().max().item()
+              for g, w in zip(got, want))
+    return err, rel
+
+
+def sw_kernels_phase(n_main):
+    """The shallow-water path's kernels against their plain versions.
+    Bounds, each tensor relative to its own max|plain|:
+    - the fused stage in float64 at 256² (WENO(5) with float64 smoothness,
+      and Centered(2); FPlane(0.3), bathymetry, one tracer): 1e-12, FMA
+      contraction and another association order;
+    - in float32 at 4096² and at n_main² (WENO(5) with its default float32
+      smoothness, no tracer; at n_main² the timed inputs: f = 0, the G⁻
+      variant): 1e-5, float32 rounding with FMA contraction, where a one-ulp
+      change of a float32 smoothness indicator moves a nonlinear weight by a
+      few ulp;
+    - the wrap of three 16392² fields: exact (it copies).
+    Returns {kernel: dict(max_abs_err, ms, plain_ms)} at the path's shapes
+    (n_main², float32, the G⁻ variant of the stage)."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+
+    out = {}
+    for n, dtype, schemes, tracers, tol in (
+            (256, torch.float64,
+             (ot.WENO(5, smoothness_dtype=torch.float64), ot.Centered(2)),
+             ("c",), 1e-12),
+            (4096, torch.float32, (ot.WENO(5),), (), 1e-5)):
+        grid, fields, hB, Gm = sw_kernel_inputs(n, dtype, tracers, seed=3)
+        names = SW_NAMES + tracers
+        ints = grid.interior_slices
+        for scheme in schemes:
+            for gm in (None, Gm):
+                args = (grid, scheme, 9.81, 0.3, hB, names, fields, gm, 2e-5,
+                        -1e-5)
+                Gk, nk = K.fused_sw_update(*args)
+                Gp, np_ = K.fused_sw_update_plain(*args)
+                err, rel = worst_rel(
+                    list(Gk) + [nk[c][ints] for c in names],
+                    list(Gp) + [np_[c][ints] for c in names])
+                print(f"  fused_sw_update {n}^2 {dtype} {scheme!r} "
+                      f"Gm={gm is not None}: max abs {err:.3e}, rel {rel:.3e}")
+                assert rel <= tol, ("fused_sw_update", n, scheme, rel)
+        del grid, fields, hB, Gm, Gk, nk, Gp, np_
+        torch.cuda.synchronize()
+
+    grid, fields, hB, Gm = sw_kernel_inputs(n_main, torch.float32, (), seed=4)
+    scheme = ot.WENO(5)
+    args = (grid, scheme, 9.81, 0.0, hB, SW_NAMES, fields, Gm, 2e-5, -1e-5)
+    ms = cuda_ms(lambda: K.fused_sw_update(*args))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    plain_ms = cuda_ms(lambda: K.fused_sw_update_plain(*args), reps=3,
+                       warmup=1)
+    plain_peak = torch.cuda.max_memory_allocated() - base
+    # the check at the path's shape, on the timed inputs (bound 1e-5, as at
+    # 4096²); the two outputs fit beside the plain version's temporaries
+    Gk, nk = K.fused_sw_update(*args)
+    Gp, np_ = K.fused_sw_update_plain(*args)
+    ints = grid.interior_slices
+    err, rel = worst_rel(list(Gk) + [nk[c][ints] for c in SW_NAMES],
+                         list(Gp) + [np_[c][ints] for c in SW_NAMES])
+    print(f"  fused_sw_update {n_main}^2 {torch.float32} {scheme!r} Gm=True "
+          f"f=0: max abs {err:.3e}, rel {rel:.3e}")
+    assert rel <= 1e-5, ("fused_sw_update", n_main, scheme, rel)
+    del Gk, nk, Gp, np_
+    torch.cuda.empty_cache()
+    out["fused_sw_update"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    print(f"  time fused_sw_update (G⁻ variant) at {grid.padded_shape}: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (plain peak "
+          f"{plain_peak / 2 ** 30:.2f} GiB above its inputs)")
+    a = [fields[c] for c in SW_NAMES]
+    b = [t.clone() for t in a]
+    K.periodic_halo_fill(grid, a)
+    K.periodic_halo_fill_plain(grid, b)
+    err_wrap = max((x - y).abs().max().item() for x, y in zip(a, b))
+    print(f"  periodic_halo_fill 3 fields of {grid.padded_shape}: max abs "
+          f"{err_wrap:.3e}")
+    assert err_wrap == 0.0, ("periodic_halo_fill at 16392^2", err_wrap)
+    ms = cuda_ms(lambda: K.periodic_halo_fill(grid, a))
+    plain_ms = cuda_ms(lambda: K.periodic_halo_fill_plain(grid, b), reps=5)
+    out["periodic_halo_fill_sw"] = dict(max_abs_err=err_wrap, ms=ms,
+                                        plain_ms=plain_ms)
+    print(f"  time periodic_halo_fill (3 fields) at {grid.padded_shape}: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return out
+
+
+def sw_model(n, dtype, device, seed=0, scheme=None, coriolis=None,
+             bathymetry=0.0, tracers=()):
+    """The shallow-water row of bench_extra.py (:179-207) on the port: an
+    n² periodic grid of extent 1x1, WENO(5), g = 9.81, h = 1 + 0.01·N(0, 1),
+    uh and vh 0.01·N(0, 1) from np.random.default_rng(seed)."""
+    import oceananigans_tpu_torch as ot
+    grid = ot.RectilinearGrid(size=(n, n), extent=(1.0, 1.0),
+                              topology=SW_TOPOLOGY, dtype=dtype, device=device)
+    model = ot.ShallowWaterModel(
+        grid, advection=scheme if scheme is not None else ot.WENO(5),
+        gravitational_acceleration=9.81, coriolis=coriolis,
+        bathymetry=bathymetry, tracers=tracers)
+    rng = np.random.default_rng(seed)
+    model.set(h=1.0 + 0.01 * rng.standard_normal((n, n)))
+    model.set(uh=0.01 * rng.standard_normal((n, n)))
+    model.set(vh=0.01 * rng.standard_normal((n, n)))
+    return model
+
+
+def sw_phase_shares(model, dt, steps, card):
+    """Per-step CUDA-event times of the shallow-water step: the fused stage
+    kernel, the halo fills, and the rest (host gaps, allocations)."""
+    import oceananigans_tpu_torch.models.shallow_water as sw
+    timer = PhaseTimer()
+    saved = (sw.fused_sw_update, sw.fill_all_halo_regions)
+    sw.fused_sw_update = timer.wrap("kernel", saved[0])
+    sw.fill_all_halo_regions = timer.wrap("fills", saved[1])
+    model.time_step = timer.wrap("step", model.time_step)
+    try:
+        for _ in range(steps):
+            model.time_step(dt)
+        t = {k: v / steps for k, v in timer.totals().items()}
+    finally:
+        sw.fused_sw_update, sw.fill_all_halo_regions = saved
+        del model.time_step
+    shares = {"fused_sw_update": t["kernel"], "halo fills": t["fills"]}
+    shares["rest (host gaps, allocations)"] = \
+        t["step"] - sum(shares.values())
+    print(f"shallow-water step phases, ms per step over {steps} steps "
+          f"(CUDA events) [{card}]:")
+    for phase, ms in shares.items():
+        print(f"  {phase}: {ms:.4f} ms ({100 * ms / t['step']:.2f}%)")
+    print(f"  step: {t['step']:.4f} ms")
+    return shares
+
+
+def sw_path_phase(card, n):
+    """The shallow-water path at n² float32: counters reset after set() and
+    read just after the timed steps."""
+    from oceananigans_tpu_torch import kernels as K
+    dt = 1e-5
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = sw_model(n, torch.float32, "cuda")
+    torch.cuda.synchronize()
+    print(f"shallow water: model and set() at {n}^2: "
+          f"{time.perf_counter() - t0:.1f} s")
+    ints = model.grid.interior_slices
+    mass0 = model.state["fields"]["h"][ints].double().sum().item()
+    K.reset_counters()
+    for _ in range(3):
+        model.time_step(dt)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        model.time_step(dt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches, plain_cuda = K.counters()
+    steps = model.iteration
+    print(f"shallow-water path launches over {steps} steps: {launches}; "
+          f"plain calls on CUDA: {plain_cuda}")
+    for name in SW_KERNELS:
+        assert launches[name] == 3 * steps, (name, launches[name], steps)
+    for name, count in plain_cuda.items():
+        assert count == 0, f"plain {name} ran on CUDA tensors"
+    peak = torch.cuda.max_memory_allocated()
+    for name in SW_NAMES:
+        a = model.field(name).interior
+        assert a.shape == (n, n, 1), (name, a.shape)
+        assert torch.isfinite(a).all().item(), f"{name} is not finite"
+    mass = model.state["fields"]["h"][ints].double().sum().item()
+    drift = abs(mass - mass0) / mass0
+    # each stage rounds every h to float32, at most half an ulp (6e-8
+    # relative at h ≈ 1); unbiased, the N² roundings of a stage move Σh/Σh₀
+    # by about 3.4e-8/N, and 39 stages by √39 times that, 1.3e-11 at 16384².
+    # The bound leaves a margin of about 80 over that estimate; a tendency
+    # of h that is not conservative by more than 1e-9 relative fails it.
+    print(f"shallow water: |Σh − Σh₀|/Σh₀ after {steps} steps: {drift:.3e} "
+          f"(bound 1e-9)")
+    assert drift < 1e-9, ("mass not conserved", drift)
+    step_ms = statistics.median(times) * 1e3
+    print(f"shallow-water path: {n}^2 WENO5 float32 RK3 step median "
+          f"{step_ms:.3f} ms over {len(times)} steps (min "
+          f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
+          f"{n * n / (step_ms / 1e3):.4e} cell-updates/s [{card}]")
+    print(f"peak device memory (model, set() and steps): "
+          f"{peak / 2 ** 30:.2f} GiB")
+    sw_phase_shares(model, dt, 3, card)
+    return launches, step_ms
 
 
 KERNEL_SOURCES = {
@@ -739,6 +1029,9 @@ KERNEL_SOURCES = {
     "bounded_z_fill": (
         "oceananigans_tpu_torch/csrc/halo_fill.cu",
         "oceananigans_tpu/kernels/pallas_fill.py:87"),
+    "fused_sw_update": (
+        "oceananigans_tpu_torch/csrc/fused_shallow_water.cu",
+        "oceananigans_tpu/kernels/fused_shallow_water.py:43"),
 }
 
 
@@ -752,6 +1045,11 @@ def main():
     bounds.update(convection_bounds((256, 256, 256), (3, 3, 3), 4))
     flagship_launches, _ = flagship_path_phase(card)
     convection_launches, _ = convection_path_phase(card)
+    print("shallow-water kernels against plain versions:")
+    n_sw = 16384
+    measured.update(sw_kernels_phase(n_sw))
+    bounds.update(sw_bounds(n_sw, (4, 4, 0), 4))
+    sw_launches, _ = sw_path_phase(card, n_sw)
     print("goldens on the card:")
     goldens_phase()
     print("whole step, kernels against plain versions:")
@@ -761,6 +1059,7 @@ def main():
         # the wrap's own row is at the flagship's shapes; its launches are
         # those of the flagship path, where it replaces get_batched_fill
         launches = (flagship_launches if kname in FLAGSHIP_KERNELS
+                    else sw_launches if kname == "fused_sw_update"
                     else convection_launches)[kname]
         bound_ms, bound_by = bounds[kname]
         rows.append(dict(name=kname, route="cuda", source=source,
@@ -771,6 +1070,10 @@ def main():
                   launches=convection_launches["periodic_halo_fill"])
     print(f"periodic_halo_fill on the convection path (z halos, 4 fields of "
           f"262^3): {wrap_z}, bound {bounds['periodic_halo_fill_z']}")
+    wrap_sw = dict(measured["periodic_halo_fill_sw"],
+                   launches=sw_launches["periodic_halo_fill"])
+    print(f"periodic_halo_fill on the shallow-water path (3 fields of "
+          f"16392^2): {wrap_sw}, bound {bounds['periodic_halo_fill_sw']}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -23,6 +23,10 @@ from ..operators.operators import (LOC_CCC, LOC_CCF, LOC_CFC, LOC_FCC,
 X, Y, Z = 0, 1, 2
 
 
+def _biased_by(scheme, grid, a, axis, beta, q, zbc=None):
+    return scheme.biased_by(grid, a, axis, beta, q, zbc=zbc)
+
+
 def _transports(grid, u, v, w):
     return (grid.Ax(LOC_FCC) * u, grid.Ay(LOC_CFC) * v, grid.Az(LOC_CCF) * w)
 

@@ -5,6 +5,7 @@ Each scheme exposes, over padded tensors,
 
     symmetric(grid, a, axis, beta)            # face value, no bias
     biased_by(grid, a, axis, beta, q)         # upwind value selected by sign(q)
+    biased_pair(grid, a, axis, beta)          # (left-, right-biased) values
 
 ``beta`` is 0 for center→face output, 1 for face→center output. An upwind or
 WENO scheme carries a lower-order centered scheme for the *advecting*
@@ -47,6 +48,20 @@ class _SelectedShiftCache:
             r = self._shift(2 * self.beta - 1 - off)
             self.cache[off] = torch.where(self.pos, l, r)
         return self.cache[off]
+
+
+class _MirroredShiftCache(_ShiftCache):
+    """Shift reader of the right-biased stencils: offset ``o`` reads
+    ``a[mirror(o)] = a[2β-1-o]``, so a left-biased evaluation through it is
+    the right-biased reconstruction (the mirror stencils share coefficients
+    and smoothness factors)."""
+
+    def __init__(self, a, axis, beta, zbc=None):
+        super().__init__(a, axis, zbc)
+        self.beta = beta
+
+    def __call__(self, off):
+        return super().__call__(2 * self.beta - 1 - off)
 
 
 # WENO regularization (reference: weno_interpolants.jl `const ϵ = 1f-8`)
@@ -124,6 +139,21 @@ class AdvectionScheme:
                              lambda bs: bs.biased_by(grid, a, axis, beta, q,
                                                      zbc=zbc))
 
+    def biased_pair(self, grid, a, axis, beta, zbc=None):
+        """(left, right) biased reconstructions; near the walls of a Bounded
+        direction each side cascades to the buffer scheme's."""
+        if grid.is_flat(axis):
+            return a, a
+        l = self._biased(grid, _ShiftCache(a, axis, zbc), axis, beta)
+        r = self._biased(grid, _MirroredShiftCache(a, axis, beta, zbc), axis,
+                         beta)
+        bs = self.buffer_scheme()
+        if bs is None or not _axis_bounded(grid, axis):
+            return l, r
+        ll, lr = bs.biased_pair(grid, a, axis, beta, zbc=zbc)
+        return (_cascade_select(grid, axis, beta, self.buffer, l, ll),
+                _cascade_select(grid, axis, beta, self.buffer, r, lr))
+
     def _biased_by_plain(self, grid, a, axis, beta, q, zbc=None):
         """Upwind reconstruction selected by the sign of ``q``: select each
         stencil cell first — ``where(q > 0, a[shift], a[mirror(shift)])`` —
@@ -171,6 +201,11 @@ class Centered(AdvectionScheme):
     def _biased(self, grid, sc, axis, beta):
         shifts = left_shifts(self.order, self.buffer - 1, beta)
         return stencil_value(sc, shifts, self._coeffs)
+
+    def biased_pair(self, grid, a, axis, beta, zbc=None):
+        # no bias: both sides get the symmetric value
+        s = self.symmetric(grid, a, axis, beta, zbc)
+        return s, s
 
 
 class UpwindBiased(AdvectionScheme):
@@ -337,3 +372,6 @@ class FluxFormAdvection(AdvectionScheme):
 
     def biased_by(self, grid, a, axis, beta, q, zbc=None):
         return self.schemes[axis].biased_by(grid, a, axis, beta, q, zbc)
+
+    def biased_pair(self, grid, a, axis, beta, zbc=None):
+        return self.schemes[axis].biased_pair(grid, a, axis, beta, zbc)

@@ -1,0 +1,165 @@
+"""Coriolis forces.
+
+Counterpart of ``oceananigans_tpu/coriolis.py`` for ``FPlane``,
+``ConstantCartesianCoriolis`` and ``BetaPlane``. Each object is static
+configuration; ``x_f_cross_U`` / ``y_f_cross_U`` / ``z_f_cross_U`` take padded
+(u, v, w) tensors and return the components of f×U at the (f,c,c) / (c,f,c) /
+(c,c,f) locations, built from 4-point means of the staggered transverse
+velocities (the energy-conserving discretization). The tendency assembly
+subtracts them.
+
+``NonTraditionalBetaPlane`` and ``HydrostaticSphericalCoriolis`` raise: they
+belong to the hydrostatic slice.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .defaults import defaults
+from .operators.operators import ix_c, ix_f, iy_c, iy_f, iz_c, iz_f
+
+HYDROSTATIC_ITEM = "ROADMAP.md queue 1 item 13 (hydrostatic)"
+
+
+def _v_at_fcc(grid, v):
+    # (c,f,c) → (f,c,c): interp x to face, y to center
+    return ix_f(grid, iy_c(grid, v))
+
+
+def _u_at_cfc(grid, u):
+    return iy_f(grid, ix_c(grid, u))
+
+
+def _w_at_fcc(grid, w):
+    return ix_f(grid, iz_c(grid, w))
+
+
+def _u_at_ccf(grid, u):
+    return iz_f(grid, ix_c(grid, u))
+
+
+def _w_at_cfc(grid, w):
+    return iy_f(grid, iz_c(grid, w))
+
+
+def _v_at_ccf(grid, v):
+    return iz_f(grid, iy_c(grid, v))
+
+
+class FPlane:
+    """f-plane: f×U = (-f v, f u, 0)."""
+
+    def __init__(self, f=None, rotation_rate=None, latitude=None):
+        if f is None:
+            rr = defaults.rotation_rate if rotation_rate is None else rotation_rate
+            if latitude is None:
+                raise ValueError("provide f or latitude")
+            f = 2 * rr * np.sin(np.deg2rad(latitude))
+        self.f = float(f)
+
+    def _fp(self):
+        return ("FPlane", self.f)
+
+    def __hash__(self):
+        return hash(self._fp())
+
+    def __eq__(self, o):
+        return hasattr(o, "_fp") and self._fp() == o._fp()
+
+    def x_f_cross_U(self, grid, u, v, w):
+        return -self.f * _v_at_fcc(grid, v)
+
+    def y_f_cross_U(self, grid, u, v, w):
+        return self.f * _u_at_cfc(grid, u)
+
+    def z_f_cross_U(self, grid, u, v, w):
+        return torch.zeros_like(w)
+
+
+class ConstantCartesianCoriolis:
+    """Rotation axis in an arbitrary direction: f×U with f = (fx, fy, fz)."""
+
+    def __init__(self, fx=0.0, fy=0.0, fz=0.0, f=None, rotation_axis=None):
+        if f is not None:
+            ax = np.asarray(rotation_axis if rotation_axis is not None
+                            else (0, 0, 1.0), float)
+            ax = ax / np.linalg.norm(ax)
+            fx, fy, fz = f * ax
+        self.fx, self.fy, self.fz = float(fx), float(fy), float(fz)
+
+    def _fp(self):
+        return ("ConstantCartesianCoriolis", self.fx, self.fy, self.fz)
+
+    __hash__ = FPlane.__hash__
+    __eq__ = FPlane.__eq__
+
+    def x_f_cross_U(self, grid, u, v, w):
+        return self.fy * _w_at_fcc(grid, w) - self.fz * _v_at_fcc(grid, v)
+
+    def y_f_cross_U(self, grid, u, v, w):
+        return self.fz * _u_at_cfc(grid, u) - self.fx * _w_at_cfc(grid, w)
+
+    def z_f_cross_U(self, grid, u, v, w):
+        return self.fx * _v_at_ccf(grid, v) - self.fy * _u_at_ccf(grid, u)
+
+
+class BetaPlane:
+    """f = f₀ + βy."""
+
+    def __init__(self, f0=None, beta=None, rotation_rate=None, latitude=None,
+                 radius=None):
+        if f0 is None or beta is None:
+            rr = defaults.rotation_rate if rotation_rate is None else rotation_rate
+            R = defaults.planet_radius if radius is None else radius
+            phi = np.deg2rad(latitude)
+            f0 = 2 * rr * np.sin(phi)
+            beta = 2 * rr * np.cos(phi) / R
+        self.f0, self.beta = float(f0), float(beta)
+
+    def _fp(self):
+        return ("BetaPlane", self.f0, self.beta)
+
+    __hash__ = FPlane.__hash__
+    __eq__ = FPlane.__eq__
+
+    def _f_at(self, grid, yloc, like):
+        y = grid.coord_padded(1, yloc).reshape(1, -1, 1)
+        return torch.as_tensor(self.f0 + self.beta * y, dtype=like.dtype,
+                               device=like.device)
+
+    def x_f_cross_U(self, grid, u, v, w):
+        return -self._f_at(grid, "c", v) * _v_at_fcc(grid, v)
+
+    def y_f_cross_U(self, grid, u, v, w):
+        return self._f_at(grid, "f", u) * _u_at_cfc(grid, u)
+
+    def z_f_cross_U(self, grid, u, v, w):
+        return torch.zeros_like(w)
+
+
+def constant_f(coriolis):
+    """The constant vertical f of ``coriolis`` for a horizontal flow (w = 0):
+    0 for None, f for ``FPlane``, fz for ``ConstantCartesianCoriolis`` (its x
+    and y rows reduce to fz's when w = 0); None when f varies in space."""
+    if coriolis is None:
+        return 0.0
+    if isinstance(coriolis, FPlane):
+        return coriolis.f
+    if isinstance(coriolis, ConstantCartesianCoriolis):
+        return coriolis.fz
+    return None
+
+
+class NonTraditionalBetaPlane:
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"NonTraditionalBetaPlane is not ported yet: {HYDROSTATIC_ITEM}")
+
+
+class HydrostaticSphericalCoriolis:
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"HydrostaticSphericalCoriolis is not ported yet: "
+            f"{HYDROSTATIC_ITEM}")

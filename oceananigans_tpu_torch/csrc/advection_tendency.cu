@@ -41,8 +41,8 @@ using oc::make_tab;
 using oc::Tab;
 
 constexpr int kMaxComponents = 3 + 8;   // u, v, w and up to 8 tracers
-constexpr int kWeno5 = 0;
-constexpr int kCentered2 = 1;
+using oc::kCentered2;
+using oc::kWeno5;
 
 template <typename T, typename S>
 struct Params {
@@ -65,11 +65,7 @@ __device__ __forceinline__ T rd(const Params<T, S>& P, const T* f, int i, int j,
 // Symmetric interpolation along a periodic axis; `a(o)` reads A·q at offset o.
 template <int SCH, typename T, typename S, typename Read>
 __device__ __forceinline__ T interp(const Params<T, S>& P, int beta, Read a) {
-  if constexpr (SCH == kCentered2)
-    return P.tt.c2[0] * a(beta - 1) + P.tt.c2[1] * a(beta);
-  else
-    return P.tt.c4[0] * a(beta - 2) + P.tt.c4[1] * a(beta - 1)
-         + P.tt.c4[2] * a(beta) + P.tt.c4[3] * a(beta + 1);
+  return oc::symmetric<SCH>(P.tt, beta, a);
 }
 
 // Symmetric interpolation along the bounded z at index kk; `a(kz)` reads A·q
@@ -85,26 +81,11 @@ __device__ __forceinline__ T interp_z(const Params<T, S>& P, int kk, int beta, R
   return P.tt.c2[0] * a(kk + beta - 1) + P.tt.c2[1] * a(kk + beta);
 }
 
-// Centered(2) "upwind" value: the selected cells in the left-biased order,
-// as the reference's selected-shift evaluation forms them.
-template <typename T, typename S>
-__device__ __forceinline__ T centered2(const Params<T, S>& P, bool pos, T lo, T hi) {
-  return P.tt.c2[0] * (pos ? lo : hi) + P.tt.c2[1] * (pos ? hi : lo);
-}
-
 // Upwind reconstruction along a periodic axis; `q(o)` reads the advected
 // field at offset o from the reconstruction point.
 template <int SCH, typename T, typename S, typename Read>
 __device__ __forceinline__ T recon(const Params<T, S>& P, int beta, T vel, Read q) {
-  const bool pos = vel > T(0);
-  if constexpr (SCH == kCentered2) {
-    return centered2(P, pos, q(beta - 1), q(beta));
-  } else {
-    T c[5];
-#pragma unroll
-    for (int n = 0; n < 5; ++n) c[n] = pos ? q(beta - 3 + n) : q(beta + 2 - n);
-    return oc::weno5(c, P.tt, P.ts);
-  }
+  return oc::upwind<SCH>(P.tt, P.ts, beta, vel, q);
 }
 
 // Upwind reconstruction along the bounded z at index kk; `q(kz)` reads at
@@ -114,7 +95,7 @@ template <int SCH, typename T, typename S, typename Read>
 __device__ __forceinline__ T recon_z(const Params<T, S>& P, int kk, int beta, T vel, Read q) {
   const bool pos = vel > T(0);
   if constexpr (SCH == kCentered2) {
-    return centered2(P, pos, q(kk + beta - 1), q(kk + beta));
+    return oc::centered2(P.tt, pos, q(kk + beta - 1), q(kk + beta));
   } else {
     const int N = P.g.Nz;
     T c[5];

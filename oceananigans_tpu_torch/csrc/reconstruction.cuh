@@ -1,5 +1,6 @@
-// WENO reconstructions and the coefficient table shared by the advection
-// kernels (fused_advection.cu, advection_tendency.cu).
+// WENO reconstructions, the coefficient table and the periodic-axis
+// interpolation and upwind reconstruction shared by the advection kernels
+// (fused_advection.cu, advection_tendency.cu, fused_shallow_water.cu).
 //
 // Every stencil coefficient comes from the Python scheme objects
 // (kernels/fused_advection.py coefficient_table) through a table passed by
@@ -103,6 +104,45 @@ __device__ __forceinline__ T weno3(const T* q, const Tab<T>& tt, const Tab<S>& t
     den = den + alpha;
   }
   return num / den;
+}
+
+// Scheme codes, as kernels/fused_advection.py numbers them.
+constexpr int kWeno5 = 0;
+constexpr int kCentered2 = 1;
+
+// Symmetric interpolation along a periodic axis (the scheme's advecting-
+// velocity stencil: Centered(4) for WENO(5), Centered(2) for itself);
+// `a(o)` reads the interpolated quantity at offset o.
+template <int SCH, typename T, typename Read>
+__device__ __forceinline__ T symmetric(const Tab<T>& tt, int beta, Read a) {
+  if constexpr (SCH == kCentered2)
+    return tt.c2[0] * a(beta - 1) + tt.c2[1] * a(beta);
+  else
+    return tt.c4[0] * a(beta - 2) + tt.c4[1] * a(beta - 1) + tt.c4[2] * a(beta)
+         + tt.c4[3] * a(beta + 1);
+}
+
+// Centered(2) "upwind" value: the selected cells in the left-biased order,
+// as the reference's selected-shift evaluation forms them.
+template <typename T>
+__device__ __forceinline__ T centered2(const Tab<T>& tt, bool pos, T lo, T hi) {
+  return tt.c2[0] * (pos ? lo : hi) + tt.c2[1] * (pos ? hi : lo);
+}
+
+// Upwind reconstruction along a periodic axis, selected by vel > 0; `q(o)`
+// reads the advected field at offset o from the reconstruction point.
+template <int SCH, typename T, typename S, typename Read>
+__device__ __forceinline__ T upwind(const Tab<T>& tt, const Tab<S>& ts, int beta, T vel,
+                                    Read q) {
+  const bool pos = vel > T(0);
+  if constexpr (SCH == kCentered2) {
+    return centered2(tt, pos, q(beta - 1), q(beta));
+  } else {
+    T c[5];
+#pragma unroll
+    for (int n = 0; n < 5; ++n) c[n] = pos ? q(beta - 3 + n) : q(beta + 2 - n);
+    return weno5(c, tt, ts);
+  }
 }
 
 }  // namespace oc

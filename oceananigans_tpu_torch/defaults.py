@@ -24,6 +24,15 @@ class Defaults:
     # Default device for grids and fields.
     device: str = "cuda"
 
+    # Mean gravitational acceleration at Earth's surface [m/s²].
+    gravitational_acceleration: float = 9.80665
+
+    # Earth radius [m].
+    planet_radius: float = 6_371_000.0
+
+    # Earth rotation rate [s⁻¹].
+    rotation_rate: float = 7.292115e-5
+
 
 defaults = Defaults()
 

@@ -59,6 +59,8 @@ SIGNATURES = {
     "oc_fused_advection_update": [I, I, P, P, P, P, P, P, P, P, P, P, P, P,
                                   P, I, I, I, I, I, D, D, D, D, D, D, D,
                                   D, D, D, P, I, I, I, P],
+    "oc_fused_sw_update": [I, I, I, P, P, I, P, P, P, I, I, I, I,
+                           D, D, D, D, D, D, D, D, D, D, P, I, P],
 }
 
 

@@ -392,6 +392,27 @@ def _interior_divergence(grid, u, v, w):
     return ((terms[0] + terms[1]) + terms[2]) / grid.V(LOC_CCC)
 
 
+def padded_from_jax(grid, arr):
+    """A padded tensor of ``grid`` (halos zero) holding the interior of a
+    numpy array padded in another layout; the halo widths are read off the
+    array's shape."""
+    arr = np.asarray(arr)
+    N = grid.N
+    sl = []
+    for axis in range(3):
+        extra = arr.shape[axis] - N[axis]
+        if extra < 0 or extra % 2:
+            raise ValueError(f"array of shape {arr.shape} is not a padded "
+                             f"layout of interior {N}")
+        h = extra // 2
+        sl.append(slice(h, h + N[axis]))
+    kw = dict(dtype=grid.dtype, device=grid.device)
+    out = torch.zeros(grid.padded_shape, **kw)
+    out[grid.interior_slices] = torch.as_tensor(
+        np.ascontiguousarray(arr[tuple(sl)]), **kw)
+    return out
+
+
 def state_from_jax(jax_state_numpy, model):
     """Load a JAX model's state into ``model``.
 
@@ -400,30 +421,9 @@ def state_from_jax(jax_state_numpy, model):
     ``pressure`` and ``clock``. The JAX arrays may use another halo layout;
     their halo widths are read off their shapes, the interiors are written
     into the port's padded tensors, and the halos are refilled."""
-    grid = model.grid
-    N = grid.N
-    kw = dict(dtype=grid.dtype, device=grid.device)
-
-    def interior_of(arr):
-        arr = np.asarray(arr)
-        sl = []
-        for axis in range(3):
-            extra = arr.shape[axis] - N[axis]
-            if extra < 0 or extra % 2:
-                raise ValueError(f"array of shape {arr.shape} is not a padded "
-                                 f"layout of interior {N}")
-            h = extra // 2
-            sl.append(slice(h, h + N[axis]))
-        return torch.as_tensor(np.ascontiguousarray(arr[tuple(sl)]), **kw)
-
-    def padded(arr):
-        out = torch.zeros(grid.padded_shape, **kw)
-        out[grid.interior_slices] = interior_of(arr)
-        return out
-
-    fields = {n: padded(jax_state_numpy["fields"][n])
+    fields = {n: padded_from_jax(model.grid, jax_state_numpy["fields"][n])
               for n in model.prognostic_names}
-    pressure = padded(jax_state_numpy["pressure"])
+    pressure = padded_from_jax(model.grid, jax_state_numpy["pressure"])
     model._fill_all({**fields, "p": pressure})
     jc = jax_state_numpy["clock"]
     nt = model._nt

@@ -13,10 +13,12 @@ from __future__ import annotations
 
 import torch
 
-from ..grids.topology import FACE, LOC_CCC, LOC_CCF, LOC_CFC, LOC_FCC
+from ..grids.topology import CENTER, FACE, LOC_CCC, LOC_CCF, LOC_CFC, LOC_FCC
 from .shifts import shift
 
 X, Y, Z = 0, 1, 2
+
+LOC_FFC = (FACE, FACE, CENTER)
 
 
 def _metric(m, like):
@@ -112,3 +114,20 @@ def div_ccc(grid, u, v, w):
             + dy_c(grid, _metric(grid.Ay(LOC_CFC), v) * v)
             + dz_c(grid, _metric(grid.Az(LOC_CCF), w) * w)) \
         / _metric(grid.V(LOC_CCC), u)
+
+
+def div_xy_ccc(grid, u, v):
+    """Horizontal divergence V⁻¹ [δxᶜ(Ax u) + δyᶜ(Ay v)]."""
+    return (dx_c(grid, _metric(grid.Ax(LOC_FCC), u) * u)
+            + dy_c(grid, _metric(grid.Ay(LOC_CFC), v) * v)) \
+        / _metric(grid.V(LOC_CCC), u)
+
+
+# -- vorticity -----------------------------------------------------------------
+# vertical vorticity at ffc by the circulation theorem:
+# ζ = (δxᶠ(Δyᶜᶠᶜ v) - δyᶠ(Δxᶠᶜᶜ u)) / Az_ffc
+
+def zeta3_ffc(grid, u, v):
+    return (dx_f(grid, _metric(grid.dy(LOC_CFC), v) * v)
+            - dy_f(grid, _metric(grid.dx(LOC_FCC), u) * u)) \
+        / _metric(grid.Az(LOC_FFC), u)

@@ -1,3 +1,5 @@
-from .steppers import RK3_GAMMAS, RK3_ZETAS, RungeKutta3TimeStepper
+from .steppers import (RK3_GAMMAS, RK3_ZETAS, RungeKutta3TimeStepper,
+                       stage_update)
 
-__all__ = ["RK3_GAMMAS", "RK3_ZETAS", "RungeKutta3TimeStepper"]
+__all__ = ["RK3_GAMMAS", "RK3_ZETAS", "RungeKutta3TimeStepper",
+           "stage_update"]

@@ -7,8 +7,26 @@ Uᵐ⁺¹ = Uᵐ + Δt(γᵐGᵐ + ζᵐGᵐ⁻¹) with a pressure correction pe
 
 from __future__ import annotations
 
+import torch
+
 RK3_GAMMAS = (8.0 / 15.0, 5.0 / 12.0, 3.0 / 4.0)
 RK3_ZETAS = (0.0, -17.0 / 60.0, -5.0 / 12.0)
+
+
+def stage_update(grid, names, fields, G, Gm, gamma_dt, zeta_dt):
+    """One RK3 substep on padded fields: ``new = q + γΔt·G + ζΔt·G⁻`` at
+    the interiors (ζΔt·G⁻ only when ``Gm`` is given). ``G`` and ``Gm`` stack
+    the interiors of the fields in the order of ``names``. Returns
+    ``{name: new padded tensor}``, halos left unwritten."""
+    ints = grid.interior_slices
+    new = {}
+    for k, name in enumerate(names):
+        inc = float(gamma_dt) * G[k]
+        if Gm is not None:
+            inc = inc + float(zeta_dt) * Gm[k]
+        new[name] = torch.empty_like(fields[name])
+        new[name][ints] = fields[name][ints] + inc
+    return new
 
 
 class RungeKutta3TimeStepper:

@@ -88,3 +88,24 @@ def test_single_axis_terms(axis):
                                only_axis=axis))[ints]
     got = div_Uw(tg, ts, tu, tv, tw, zbc=ZBC, only_axis=axis)[ints].numpy()
     assert np.max(np.abs(got - want)) <= 1e-12 * np.max(np.abs(want))
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("beta", [0, 1])
+@pytest.mark.parametrize("scheme", ["weno5_f64", "weno3_f64", "upwind3",
+                                    "centered4"])
+def test_biased_pair(scheme, beta, axis):
+    """Left- and right-biased reconstructions on the padded layout (z is
+    bounded, so the near-wall cascade applies along it); bound as above."""
+    halo = LAYOUTS["padded"]
+    jg = JGrid(size=N, extent=(1.0, 1.0, 1.0), halo=halo, dtype=np.float64)
+    tg = TGrid(size=N, extent=(1.0, 1.0, 1.0), halo=halo, dtype=torch.float64,
+               device="cpu")
+    jmake, tmake, tol = SCHEMES[scheme]
+    (ja, _, _), (ta, _, _) = _fields(jg.padded_shape, seed=9)
+    ints = jg.interior_slices
+    for want, got in zip(jmake().biased_pair(jg, ja, axis, beta),
+                         tmake().biased_pair(tg, ta, axis, beta)):
+        want = np.asarray(want)[ints]
+        got = got[ints].numpy()
+        assert np.max(np.abs(got - want)) <= tol * np.max(np.abs(want))

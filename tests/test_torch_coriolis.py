@@ -1,0 +1,65 @@
+"""The port's Coriolis forces against the JAX package's, on random float64
+padded fields at (6, 5, 8) with H = 3.
+
+Both sides form the same 4-point means and products in float64, so they
+agree to 1e-14 absolute on fields of order 1."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from oceananigans_tpu import coriolis as jcor
+from oceananigans_tpu.grids import RectilinearGrid as JGrid
+from oceananigans_tpu_torch import coriolis as tcor
+from oceananigans_tpu_torch.grids import RectilinearGrid as TGrid
+
+torch.set_num_threads(1)
+
+TOL = 1e-14
+GRID = dict(size=(6, 5, 8), extent=(1.0, 2.0, 0.5), halo=(3, 3, 3))
+
+CASES = {
+    "fplane": dict(f=0.3),
+    "fplane_latitude": dict(latitude=45.0),
+    "cartesian": dict(fx=0.1, fy=-0.2, fz=0.3),
+    "cartesian_axis": dict(f=1e-4, rotation_axis=(0.0, 1.0, 1.0)),
+    "beta": dict(f0=0.3, beta=0.1),
+    "beta_latitude": dict(latitude=30.0),
+}
+CLASSES = {"fplane": "FPlane", "fplane_latitude": "FPlane",
+           "cartesian": "ConstantCartesianCoriolis",
+           "cartesian_axis": "ConstantCartesianCoriolis",
+           "beta": "BetaPlane", "beta_latitude": "BetaPlane"}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_f_cross_U(case):
+    cls, kw = CLASSES[case], CASES[case]
+    jc, tc = getattr(jcor, cls)(**kw), getattr(tcor, cls)(**kw)
+    assert jc._fp() == tc._fp()
+    jg = JGrid(dtype=np.float64, **GRID)
+    tg = TGrid(dtype=torch.float64, device="cpu", **GRID)
+    rng = np.random.default_rng(1)
+    arrays = [rng.standard_normal(jg.padded_shape) for _ in range(3)]
+    ju, jv, jw = (jnp.asarray(a) for a in arrays)
+    tu, tv, tw = (torch.as_tensor(a) for a in arrays)
+    for name in ("x_f_cross_U", "y_f_cross_U", "z_f_cross_U"):
+        want = np.asarray(getattr(jc, name)(jg, ju, jv, jw))
+        got = getattr(tc, name)(tg, tu, tv, tw).numpy()
+        assert np.max(np.abs(got - want)) <= TOL, (case, name)
+
+
+def test_constant_f():
+    assert tcor.constant_f(None) == 0.0
+    assert tcor.constant_f(tcor.FPlane(f=0.3)) == 0.3
+    assert tcor.constant_f(tcor.ConstantCartesianCoriolis(
+        fx=0.1, fy=0.2, fz=0.4)) == 0.4
+    assert tcor.constant_f(tcor.BetaPlane(f0=0.3, beta=0.1)) is None
+
+
+@pytest.mark.parametrize("cls", ["NonTraditionalBetaPlane",
+                                 "HydrostaticSphericalCoriolis"])
+def test_hydrostatic_coriolis_raises(cls):
+    with pytest.raises(NotImplementedError, match="item 13"):
+        getattr(tcor, cls)(latitude=45.0)

@@ -132,3 +132,52 @@ def test_periodic_halo_fill_z_halos(zinputs):
     K.periodic_halo_fill(grid, a)
     K.periodic_halo_fill_plain(grid, b)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# -- the shallow-water stage (2D, z flat, H = (4, 4, 0)) -------------------------
+
+SW_N = (24, 20)
+
+
+@pytest.fixture(scope="module")
+def sw_inputs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    grid = ot.RectilinearGrid(size=SW_N, extent=(10.0, 8.0), halo=(4, 4, 0),
+                              topology=("periodic", "periodic", "flat"),
+                              dtype=torch.float64, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def randn(shape, scale, offset=0.0):
+        return offset + scale * torch.randn(shape, generator=gen,
+                                            dtype=torch.float64, device="cuda")
+
+    shape = grid.padded_shape
+    fields = dict(uh=randn(shape, 0.1), vh=randn(shape, 0.1),
+                  h=randn(shape, 0.05, 1.0), c=randn(shape, 1.0))
+    hB = randn(shape, 0.05)
+    K.periodic_halo_fill(grid, list(fields.values()) + [hB])
+    Gm = randn((4,) + tuple(grid.N), 1.0)
+    return grid, fields, hB, Gm
+
+
+@pytest.mark.parametrize("with_gm", [False, True])
+@pytest.mark.parametrize("scheme", ["weno5", "centered2"])
+def test_fused_sw_update(sw_inputs, scheme, with_gm):
+    grid, fields, hB, Gm = sw_inputs
+    s = (ot.WENO(5, smoothness_dtype=torch.float64) if scheme == "weno5"
+         else ot.Centered(2))
+    args = (grid, s, 9.81, 0.3, hB, ("uh", "vh", "h", "c"), fields,
+            Gm if with_gm else None, 2e-3, -1e-3)
+    Gk, nk = K.fused_sw_update(*args)
+    Gp, np_ = K.fused_sw_update_plain(*args)
+    ints = grid.interior_slices
+    _close(list(Gk) + [nk[n][ints] for n in nk],
+           list(Gp) + [np_[n][ints] for n in np_])
+
+
+def test_fused_sw_update_other_scheme_raises(sw_inputs):
+    grid, fields, hB, _ = sw_inputs
+    with pytest.raises(NotImplementedError, match="queue 2"):
+        K.fused_sw_update(grid, ot.WENO(3), 9.81, 0.0, hB,
+                          ("uh", "vh", "h", "c"), fields, None, 1e-3, 0.0)

@@ -89,3 +89,20 @@ def test_interpolations(to_loc):
                   tops.interp_to(t, ta, ccc, to_loc))
     for name in ("ix_f", "iy_f", "iz_f"):
         assert _close(getattr(jops, name)(j, ja), getattr(tops, name)(t, ta))
+
+
+def test_div_xy_ccc():
+    j, t = JGrid(dtype=np.float64, **GRID), TGrid(dtype=torch.float64,
+                                                  device="cpu", **GRID)
+    rng = np.random.default_rng(6)
+    (ju, tu), (jv, tv) = (_pair(rng, j.padded_shape) for _ in range(2))
+    assert _close(jops.div_xy_ccc(j, ju, jv), tops.div_xy_ccc(t, tu, tv))
+
+
+def test_zeta3_ffc():
+    j, t = JGrid(dtype=np.float64, **GRID), TGrid(dtype=torch.float64,
+                                                  device="cpu", **GRID)
+    rng = np.random.default_rng(7)
+    (ju, tu), (jv, tv) = (_pair(rng, j.padded_shape) for _ in range(2))
+    assert jops.LOC_FFC == tops.LOC_FFC
+    assert _close(jops.zeta3_ffc(j, ju, jv), tops.zeta3_ffc(t, tu, tv))
