@@ -24,8 +24,9 @@ Phases (each raises on failure; nothing is caught):
 5. Convection path: Rayleigh–Bénard convection at 256³ (BuoyancyTracer,
    ScalarDiffusivity, Value conditions on b; the padded layout), float32,
    the same checks, and the phase shares of the step from CUDA events.
-6. The two nonhydrostatic goldens of tests/test_regression.py, rebuilt in
-   the port, in float64 through the kernels, against tests/data/*.npz.
+6. The goldens of tests/test_regression.py (thermal bubble, Rayleigh–Bénard
+   and hydrostatic turbulence), rebuilt in the port, in float64 through the
+   kernels, against tests/data/*.npz.
 7. Shallow-water kernels against their plain versions: the fused
    shallow-water stage at 256² in float64 (WENO(5) and Centered(2), FPlane,
    bathymetry, a tracer; the first-stage and the G⁻ variants) and at 4096²
@@ -37,15 +38,27 @@ Phases (each raises on failure; nothing is caught):
    counters (the kernel and the wrap three times per step, no plain version
    on CUDA tensors), finite fields, mass conservation, peak memory and the
    phase shares of the step from CUDA events.
-9. Whole step, kernel path against plain path: 3 steps at 32³ in float64 of
-   the flagship and of the convection configuration, and at 128² of shallow
-   water.
+9. Hydrostatic kernel against its plain version: the fused vector-invariant
+   tendency in float64 at 16x12x8 lat-lon (bounded and periodic x; three
+   vector-invariant configurations, with and without ph) and in float32 at
+   512x256x32 on the hydro_row state; CUDA-event times of kernel and plain
+   version.
+10. Hydrostatic path: HydrostaticFreeSurfaceModel with bench_extra.py's
+   hydro_row at 512x256x32 lat-lon, float32 (WENOVectorInvariant,
+   HydrostaticSphericalCoriolis, SplitExplicitFreeSurface(substeps=30), T,
+   quasi-AB2, Δt = 120 s): warm-up and timed steps, launch counters (the
+   kernel once per step, no plain version on CUDA tensors), finite fields,
+   peak memory and the phase shares of the step from CUDA events.
+11. Whole step, kernel path against plain path: 3 steps in float64 of the
+   flagship and of the convection configuration at 32³, of shallow water at
+   128² and of the hydro_row at 16x12x8.
 
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. The script exits non-zero, without that line,
 when no CUDA card is available.
 """
 
+import functools
 import json
 import statistics
 import subprocess
@@ -222,17 +235,20 @@ def kernels_phase():
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
-# Floating-point operations counted from the CUDA sources (an FMA counts 2):
-# a WENO-5 reconstruction is 3 stencils x (5 for the value + 21 for the
-# smoothness indicator) + 2 for τ + 3 x 9 for the weights + 1 division =
-# 108; a Centered(4) interpolation of A·q is 4 products + 4 products + 3
-# sums = 11; a face flux adds 1 product. A momentum component-cell takes six
-# face fluxes plus 3 differences, 2 sums, a division and a sign: 6 x (11 +
-# 108 + 1) + 7 = 727. A tracer component-cell reads the face velocity (1
-# product for A·u): 6 x (1 + 108 + 1) + 7 = 667. The near-wall cells with
-# lower orders (6 of 256 z levels) are counted at the full cost.
-WENO_MOMENTUM_FLOP = 6 * (11 + 108 + 1) + 7
-WENO_TRACER_FLOP = 6 * (1 + 108 + 1) + 7
+# Floating-point operations the function needs (an FMA counts 2), each face
+# flux counted once: a face is shared by the two cells beside it, so a cell
+# owns three face fluxes per component, one per axis. A WENO-5
+# reconstruction is 3 stencils x (5 for the value + 21 for the smoothness
+# indicator) + 2 for τ + 3 x 9 for the weights + 1 division = 108; a
+# Centered(4) interpolation of A·q is 4 products + 4 products + 3 sums = 11;
+# a face flux adds 1 product. A momentum component-cell takes three face
+# fluxes plus 3 differences, 2 sums, a division and a sign: 3 x (11 + 108 +
+# 1) + 7 = 367. A tracer component-cell reads the face velocity (1 product
+# for A·u): 3 x (1 + 108 + 1) + 7 = 337. The near-wall cells with lower
+# orders (6 of 256 z levels) are counted at the full cost. The kernels
+# compute every face flux twice, once for each cell beside it.
+WENO_MOMENTUM_FLOP = 3 * (11 + 108 + 1) + 7
+WENO_TRACER_FLOP = 3 * (1 + 108 + 1) + 7
 UPDATE_FLOP = 4          # γΔt·G + ζΔt·G⁻ added to q
 
 
@@ -501,7 +517,33 @@ def rayleigh_benard_model(dtype, device):
 
 
 GOLDENS = {"thermal_bubble": thermal_bubble_model,
-           "rayleigh_benard": rayleigh_benard_model}
+           "rayleigh_benard": rayleigh_benard_model,
+           "hydrostatic_turbulence": lambda dtype, device:
+           hydrostatic_turbulence_model(dtype, device)}
+GOLDEN_KERNELS = {"thermal_bubble": "fused_advection_tendency",
+                  "rayleigh_benard": "fused_advection_tendency",
+                  "hydrostatic_turbulence": "fused_vi_tendency"}
+
+
+def hydrostatic_turbulence_model(dtype, device):
+    """tests/test_regression.py hydrostatic_turbulence_model in the port: a
+    16x12x4 lat-lon strip (0-60°E, 15-75°N, 90 m), VectorInvariant(),
+    HydrostaticSphericalCoriolis(), SplitExplicitFreeSurface(substeps=8),
+    T; Δt = 600 s, 10 steps."""
+    import oceananigans_tpu_torch as ot
+    grid = ot.LatitudeLongitudeGrid(size=(16, 12, 4), longitude=(0, 60),
+                                    latitude=(15, 75), z=(-90.0, 0.0),
+                                    dtype=dtype, device=device)
+    model = ot.HydrostaticFreeSurfaceModel(
+        grid, momentum_advection=ot.VectorInvariant(),
+        coriolis=ot.HydrostaticSphericalCoriolis(),
+        free_surface=ot.SplitExplicitFreeSurface(substeps=8), tracers=("T",))
+    assert model.uses_kernel
+    rng = np.random.default_rng(7)
+    model.set(u=0.1 * rng.standard_normal((16, 12, 4)),
+              v=0.1 * rng.standard_normal((16, 12, 4)),
+              T=lambda lam, phi, z: 10 + 5e-3 * z)
+    return model, 600.0, 10
 
 
 def flagship_path_phase(card):
@@ -563,6 +605,9 @@ class PhaseTimer:
         self.active = []
 
     def wrap(self, phase, fn):
+        # functools.wraps copies fn's attributes (its launch counter), so a
+        # function patched in its own module still finds its counter
+        @functools.wraps(fn)
         def timed(*args, **kw):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -676,9 +721,9 @@ def convection_path_phase(card):
 
 
 def goldens_phase():
-    """tests/test_regression.py's thermal bubble and Rayleigh–Bénard goldens
-    in float64 through the kernels; bound 1e-9 relative to max|golden|, the
-    golden's own."""
+    """tests/test_regression.py's thermal bubble, Rayleigh–Bénard and
+    hydrostatic-turbulence goldens in float64 through the kernels; bound
+    1e-9 relative to max|golden|, the golden's own."""
     import os
     from oceananigans_tpu_torch import kernels as K
     data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
@@ -689,8 +734,8 @@ def goldens_phase():
         for _ in range(steps):
             model.time_step(dt)
         after = K.counters()[0]
-        assert after["fused_advection_tendency"] > \
-            before["fused_advection_tendency"], name
+        kname = GOLDEN_KERNELS[name]
+        assert after[kname] > before[kname], name
         with np.load(os.path.join(data, f"regression_{name}.npz")) as ref:
             for field in ref.files:
                 got = model.field(field).interior.cpu().numpy()
@@ -705,10 +750,12 @@ def goldens_phase():
 def plain_kernels():
     """Route the model's kernel calls to the plain versions."""
     import oceananigans_tpu_torch.kernels.halo_fill as hf
+    import oceananigans_tpu_torch.models.hydrostatic as hs
     import oceananigans_tpu_torch.models.nonhydrostatic as nh
     import oceananigans_tpu_torch.models.shallow_water as sw
     from oceananigans_tpu_torch import kernels as K
     swaps = [(sw, "fused_sw_update", K.fused_sw_update_plain),
+             (hs, "fused_vi_tendency", K.fused_vi_tendency_plain),
              (nh, "fused_advection_update", K.fused_advection_update_plain),
              (nh, "fused_advection_tendency",
               K.fused_advection_tendency_plain),
@@ -731,7 +778,8 @@ def whole_step_phase():
     """3 steps in float64 (float64 WENO smoothness) through the kernels and
     through the plain versions: the flagship and the convection
     configuration at 32³, shallow water at 128² (FPlane(0.3), bathymetry, a
-    tracer); bound 1e-12 relative to max|field|."""
+    tracer), the hydro_row at 16x12x8 (v added to u's noise); bound 1e-12
+    relative to max|field|."""
     import oceananigans_tpu_torch as ot
     from oceananigans_tpu_torch.models import NonhydrostaticModel
 
@@ -764,10 +812,19 @@ def whole_step_phase():
         assert m.fused
         return m
 
+    def hydrostatic():
+        n = (16, 12, 8)
+        m = hydro_model(n, torch.float64, "cuda", smoothness=torch.float64)
+        m.set(v=0.05 * np.random.default_rng(2).standard_normal(n))
+        assert m.uses_kernel
+        return m
+
     for label, make, names, dt in (
             ("flagship", flagship, "uvwp", 1e-3),
             ("convection", convection, "uvwbp", 1e-3),
-            ("shallow water", shallow_water, ("uh", "vh", "h", "c"), 1e-4)):
+            ("shallow water", shallow_water, ("uh", "vh", "h", "c"), 1e-4),
+            ("hydrostatic", hydrostatic, ("u", "v", "T", "eta", "w"),
+             120.0)):
         runs = []
         for plain in (False, True):
             with plain_kernels() if plain else nullcontext():
@@ -1010,6 +1067,402 @@ def sw_path_phase(card, n):
     return launches, step_ms
 
 
+# -- hydrostatic ------------------------------------------------------------------
+
+HYDRO_N = (512, 256, 32)
+HYDRO_KERNELS = ("fused_vi_tendency", "bounded_z_fill")
+
+
+def weno_flop(K, n_smooth):
+    """Operations of one WENO reconstruction of buffer K (WENO-(2K-1)) whose
+    smoothness is summed over ``n_smooth`` arrays (0: the field itself), as
+    the port's tables give them: K stencil values of K products and K-1
+    sums; per array and stencil, each Jiang–Shu factor m of K products, K-1
+    sums and a square, summed (the factor counts of
+    advection/reconstruction.py smoothness_factors: K-1 or K); τ over the
+    nonzero coefficients, its magnitude; per stencil ε, the division, the
+    saturation, the square, 1 +, γ·, the product with the value and two
+    sums (9), and the final division."""
+    from oceananigans_tpu_torch.advection.reconstruction import \
+        smoothness_factors
+    from oceananigans_tpu_torch.advection.schemes import TAU_COEFFS
+    arrays = max(n_smooth, 1)
+    values = K * (2 * K - 1)
+    smooth = 0
+    for st in range(K):
+        m = len(smoothness_factors(K, st))
+        smooth += arrays * (m * 2 * K + (m - 1)) + (arrays - 1)
+    tau = 2 * (sum(1 for t in TAU_COEFFS[K] if t) - 1) + 1
+    return values + smooth + tau + 9 * K + 1
+
+
+# The fused hydrostatic tendency, per interior cell, for the hydro_row
+# configuration (WENO-9 vorticity with the velocity stencil, WENO-5
+# vertical, divergence and Bernoulli schemes, spherical energy-conserving
+# Coriolis, one Centered(2) tracer, no ph): each derived field, face flux
+# and reconstruction once.
+# - derived fields: ζ (2 products, 2 differences, a difference, a division:
+#   6), û and v̂ (a product, two means of 2 operations, a division: 6 each),
+#   ℑy u and ℑx v (2 each), u²/2 and v²/2 (2 each), their four differences
+#   (4), ℑx u and ℑy v (2 each), δx(Ax u) and δy(Ay v) (2 each), and
+#   δx(Ax u) + δy(Ay v) (1): 39;
+# - per momentum component: the vorticity reconstruction (WENO-9 over two
+#   smoothness arrays) with its product and sign (2); the Bernoulli head: a
+#   Centered(4) cross term (7), a WENO-5 with one smoothness array, a sum, a
+#   division and a sign (3); the vertical term: Φᵟ (Centered(4), WENO-5 with
+#   one smoothness array, a sum, a product: 7 + 2), one z face flux (A·w 1,
+#   the Centered(4) ŵ 7, a WENO-5, the product 1), its difference, the sum
+#   and the division (3); Coriolis (ℑx(Δx v) 3, the product with f, ℑy 2, a
+#   division, a sign: 7); the three sums of the phases (3);
+# - the tracer: three face fluxes of (A·u 1, a selected Centered(2) 3, the
+#   product 1), three differences, two sums, a division and a sign: 22.
+VI_DERIVED_FLOP = 39
+VI_TRACER_FLOP = 3 * 5 + 3 + 2 + 2
+VI_SCRATCH = 13      # derived fields this design keeps for the hydro_row
+
+
+def vi_momentum_flop():
+    return ((weno_flop(5, 2) + 2) + (7 + weno_flop(3, 1) + 3)
+            + (7 + weno_flop(3, 1) + 2 + 1 + 7 + weno_flop(3, 0) + 1 + 3)
+            + 7 + 3)
+
+
+def hydro_bounds(N, H, esize, n_tracers=1):
+    """Bounds of the hydrostatic path's kernels at interior N, halo H. The
+    fused VI tendency: read u, v, w and the tracers padded, write Gu, Gv and
+    the Gc (the interiors); the operations above. Its scratch is a cost of
+    this design, not of the function, so it is left out of the bound and
+    given apart as ``vi_scratch_ms`` (each derived field written and read
+    once). The bounded-z fill of u, v, T and w: read and write each z-halo
+    element once."""
+    cells = N[0] * N[1] * N[2]
+    PX, PY, PZ = (n + 2 * h for n, h in zip(N, H))
+    padded = PX * PY * PZ
+    nbytes = esize * ((3 + n_tracers) * padded + (2 + n_tracers) * cells)
+    flop = cells * (VI_DERIVED_FLOP + 2 * vi_momentum_flop()
+                    + n_tracers * VI_TRACER_FLOP)
+    zfix = 2 * H[2] * PX * PY
+    return {"fused_vi_tendency": bound(nbytes, flop),
+            "bounded_z_fill_hydro": bound(esize * (3 + n_tracers) * 2 * zfix,
+                                          0),
+            "vi_scratch_ms": bound(esize * 2 * VI_SCRATCH * padded, 0)[0]}
+
+
+def hydro_model(N, dtype, device, seed=0, smoothness=torch.float32,
+                substeps=30, fused_tendencies="auto"):
+    """bench_extra.py's hydro_row on the port: a lat-lon grid of 60° x 60°
+    (15°N-75°N), 1800 m deep, WENOVectorInvariant(), HydrostaticSpherical-
+    Coriolis(), SplitExplicitFreeSurface(substeps=30), tracer T, quasi-AB2;
+    u = 0.05·N(0, 1) from np.random.default_rng(seed), T = 12 + 8e-3 z +
+    2e-2 φ."""
+    import oceananigans_tpu_torch as ot
+    grid = ot.LatitudeLongitudeGrid(size=N, longitude=(0, 60),
+                                    latitude=(15, 75), z=(-1800.0, 0.0),
+                                    dtype=dtype, device=device)
+    model = ot.HydrostaticFreeSurfaceModel(
+        grid, momentum_advection=ot.WENOVectorInvariant(
+            smoothness_dtype=smoothness),
+        coriolis=ot.HydrostaticSphericalCoriolis(),
+        free_surface=ot.SplitExplicitFreeSurface(substeps=substeps),
+        tracers=("T",), fused_tendencies=fused_tendencies)
+    rng = np.random.default_rng(seed)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    model.set(u=0.05 * rng.standard_normal(N).astype(npdt),
+              T=lambda lam, phi, z: 12 + 8e-3 * z + 2e-2 * phi)
+    return model
+
+
+def hydro_kernel_inputs(lon, seed, grid=None, tracers=("c",)):
+    """u, v, w, ph and ``tracers`` on ``grid`` (default: a 16x12x8 float64
+    lat-lon grid over ``lon`` with H = 6), halos filled with the default
+    conditions."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch.boundary_conditions import (
+        fill_halo_regions, regularize_field_boundary_conditions)
+    if grid is None:
+        grid = ot.LatitudeLongitudeGrid(size=(16, 12, 8), longitude=lon,
+                                        latitude=(15, 75), z=(-1800.0, 0.0),
+                                        halo=(6, 6, 6), dtype=torch.float64,
+                                        device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    locs = {"u": ("f", "c", "c"), "v": ("c", "f", "c"), "w": ("c", "c", "f"),
+            "ph": ("c", "c", "c")}
+    locs.update({n: ("c", "c", "c") for n in tracers})
+    f = {}
+    for name, loc in locs.items():
+        a = torch.randn(grid.padded_shape, generator=gen, dtype=torch.float64,
+                        device="cuda") * (0.1 if name in "uvw" else 1.0)
+        f[name] = fill_halo_regions(a, grid, loc,
+                                    regularize_field_boundary_conditions(
+                                        None, grid, loc))
+    return grid, f
+
+
+def hydro_vi_cases():
+    """(label, grid, vi, tracer scheme, tracer names, coriolis, with ph) of
+    the float64 checks: the three VI configurations on the bounded-x
+    (0-60°) and periodic-x (0-360°) lat-lon grids with the default
+    spherical Coriolis; every other Coriolis branch; three tracers; a
+    regular RectilinearGrid (constant metric rows) bounded and periodic in
+    x. Every WENO has float64 smoothness."""
+    import oceananigans_tpu_torch as ot
+    f64 = torch.float64
+    vis = {
+        "WENOVectorInvariant()": (
+            lambda: ot.WENOVectorInvariant(smoothness_dtype=f64),
+            lambda: ot.WENO(5, smoothness_dtype=f64), False),
+        "WENOVectorInvariant(order=5), BuoyancyTracer": (
+            lambda: ot.WENOVectorInvariant(order=5, smoothness_dtype=f64),
+            lambda: ot.Centered(2), True),
+        "VectorInvariant()": (ot.VectorInvariant, lambda: ot.Centered(2),
+                              False),
+    }
+    hsc = ot.HydrostaticSphericalCoriolis
+    cases = []
+    for lon in ((0.0, 60.0), (0.0, 360.0)):
+        for label, (mvi, mts, with_ph) in vis.items():
+            cases.append((f"lon {lon} {label}", lon, None, mvi(), mts(),
+                          ("c",), hsc(), with_ph))
+    corio = {"no Coriolis": lambda: None,
+             "FPlane": lambda: ot.FPlane(f=1e-4),
+             "spherical enstrophy-conserving":
+                 lambda: hsc(scheme="enstrophy_conserving")}
+    for cname, make in corio.items():
+        for label in ("WENOVectorInvariant()", "VectorInvariant()"):
+            mvi, mts, _ = vis[label]
+            cases.append((f"{label} {cname}, ph", (0.0, 60.0), None, mvi(),
+                          mts(), ("c",), make(), True))
+    for label in ("WENOVectorInvariant()",
+                  "WENOVectorInvariant(order=5), BuoyancyTracer"):
+        mvi, mts, _ = vis[label]
+        cases.append((f"{label} 3 tracers", (0.0, 60.0), None, mvi(), mts(),
+                      ("T", "S", "c"), hsc(), False))
+    for topo in (("bounded", "bounded", "bounded"),
+                 ("periodic", "bounded", "bounded")):
+        for label, (mvi, mts, _) in vis.items():
+            grid = ot.RectilinearGrid(size=(16, 12, 8),
+                                      extent=(4e5, 2.4e5, 1800.0),
+                                      halo=(6, 6, 6), topology=topo,
+                                      dtype=f64, device="cuda")
+            cases.append((f"RectilinearGrid {topo[0]} x {label} FPlane, ph",
+                          None, grid, mvi(), mts(), ("c",),
+                          ot.FPlane(f=1e-4), True))
+    return cases
+
+
+def hydro_kernels_phase():
+    """The hydrostatic path's kernels against their plain versions. Bounds,
+    each output relative to its own max|plain|:
+    - fused VI tendency, float64 at 16x12x8 (``hydro_vi_cases``): 1e-12
+      (FMA contraction and another association order);
+    - fused VI tendency, float32 at the path's own shapes (the hydro_row
+      state after set() and one step's fills, w from continuity): 2e-5,
+      float32 rounding with FMA contraction where a one-ulp change of a
+      float32 smoothness ratio τ/(β+ε), squared, moves a nonlinear weight by
+      a few ulp (the JAX packed test holds its float32 kernel to 2e-5);
+    - the wrap with one periodic axis (x on the 0-360° lat-lon grid, y on a
+      bounded-x RectilinearGrid), 3-D and 2-D surface fields: exact;
+    - the bounded-z fill at the path's shapes, halo and specs (u, v, T, w
+      of the hydro_row, z halos overwritten first): exact where it copies or
+      reflects, 1e-6 relative where it extrapolates in float32 (no side of
+      the hydro_row does).
+    Returns ({kernel: dict(max_abs_err, ms, plain_ms)}, the model)."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+    from oceananigans_tpu_torch.boundary_conditions.fill_halos import \
+        z_fill_spec
+    for label, lon, grid, vi, ts, names, coriolis, with_ph in \
+            hydro_vi_cases():
+        grid, f = hydro_kernel_inputs(lon, seed=5, grid=grid, tracers=names)
+        args = (grid, vi, ts, names, coriolis, f["u"], f["v"], f["w"],
+                {n: f[n] for n in names}, f["ph"] if with_ph else None)
+        Gk = K.fused_vi_tendency(*args)
+        Gp = K.fused_vi_tendency_plain(*args)
+        err, rel = worst_rel([Gk[0], Gk[1]] + [Gk[2][n] for n in names],
+                             [Gp[0], Gp[1]] + [Gp[2][n] for n in names])
+        print(f"  fused_vi_tendency 16x12x8 float64 {label}: max abs "
+              f"{err:.3e}, rel {rel:.3e}")
+        assert rel <= 1e-12, ("fused_vi_tendency", label, rel)
+    one_axis = {
+        "periodic x, bounded y (lat-lon 0-360°)": ot.LatitudeLongitudeGrid(
+            size=(16, 12, 8), longitude=(0.0, 360.0), latitude=(15, 75),
+            z=(-1800.0, 0.0), halo=(6, 6, 6), dtype=torch.float64,
+            device="cuda"),
+        "bounded x, periodic y (RectilinearGrid)": ot.RectilinearGrid(
+            size=(16, 12, 8), extent=(1.0, 1.0, 1.0), halo=(6, 6, 6),
+            topology=("bounded", "periodic", "bounded"), dtype=torch.float64,
+            device="cuda")}
+    for label, grid in one_axis.items():
+        for shape in (grid.padded_shape, grid.padded_shape[:2] + (1,)):
+            a = torch.randn(shape, dtype=torch.float64, device="cuda")
+            b = a.clone()
+            K.periodic_halo_fill(grid, [a])
+            K.periodic_halo_fill_plain(grid, [b])
+            err = (a - b).abs().max().item()
+            print(f"  periodic_halo_fill {label} {tuple(shape)}: max abs "
+                  f"{err:.3e}")
+            assert err == 0.0, ("periodic_halo_fill one axis", label, err)
+    torch.cuda.synchronize()
+    # the path's own inputs: the hydro_row state after set(), its fills,
+    # w from continuity
+    model = hydro_model(HYDRO_N, torch.float32, "cuda")
+    fields = model._fill_all(dict(model.state["fields"]))
+    w = model._w_from_continuity(fields["u"], fields["v"])
+    args = (model.grid, model.momentum_advection, model.tracer_advection,
+            ("T",), model.coriolis, fields["u"], fields["v"], w,
+            {"T": fields["T"]}, None)
+    Gk = K.fused_vi_tendency(*args)
+    Gp = K.fused_vi_tendency_plain(*args)
+    err, rel = worst_rel([Gk[0], Gk[1], Gk[2]["T"]],
+                         [Gp[0], Gp[1], Gp[2]["T"]])
+    print(f"  fused_vi_tendency {HYDRO_N} float32 (hydro_row after set()): "
+          f"max abs {err:.3e}, rel {rel:.3e} (bound 2e-5)")
+    assert rel <= 2e-5, ("fused_vi_tendency float32", rel)
+    del Gk, Gp
+    ms = cuda_ms(lambda: K.fused_vi_tendency(*args))
+    plain_ms = cuda_ms(lambda: K.fused_vi_tendency_plain(*args), reps=5)
+    print(f"  time fused_vi_tendency at {model.grid.padded_shape}: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+    out = {"fused_vi_tendency": dict(max_abs_err=err, ms=ms,
+                                     plain_ms=plain_ms)}
+    # the bounded-z fill as the path calls it: u, v, T and w, the model's
+    # halo and z specs, the z halos overwritten with noise first
+    grid = model.grid
+    Hz, Nz = grid.H[2], grid.N[2]
+    names = ("u", "v", "T", "w")
+    base = [fields[n] if n != "w" else w for n in names]
+    specs = [z_fill_spec(model.loc(n), model.bcs[n]) for n in names]
+    noisy = []
+    for a in base:
+        a = a.clone()
+        for sl in (slice(0, Hz), slice(Hz + Nz, 2 * Hz + Nz)):
+            a[:, :, sl] = torch.randn_like(a[:, :, sl])
+        noisy.append(a)
+    got, want = [a.clone() for a in noisy], [a.clone() for a in noisy]
+    K.bounded_z_fill(grid, got, specs)
+    K.bounded_z_fill_plain(grid, want, specs)
+    worst = 0.0
+    for name, spec, a, b in zip(names, specs, got, want):
+        # v is zero after set(): relative to 1 then
+        err = (a - b).abs().max().item()
+        rel = err / (b.abs().max().item() or 1.0)
+        extrapolates = not spec.face and (spec.bottom[0] >= 2
+                                          or spec.top[0] >= 2)
+        limit = 1e-6 if extrapolates else 0.0
+        print(f"  bounded_z_fill {grid.padded_shape} float32 {name} {spec}: "
+              f"max abs {err:.3e}, rel {rel:.3e} (bound {limit:g})")
+        assert rel <= limit, ("bounded_z_fill hydro", name, spec, rel)
+        worst = max(worst, err)
+    ms = cuda_ms(lambda: K.bounded_z_fill(grid, got, specs))
+    plain_ms = cuda_ms(lambda: K.bounded_z_fill_plain(grid, want, specs),
+                       reps=5)
+    print(f"  time bounded_z_fill at {grid.padded_shape} (u, v, T, w): "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    out["bounded_z_fill_hydro"] = dict(max_abs_err=worst, ms=ms,
+                                       plain_ms=plain_ms)
+    return out, model
+
+
+def hydro_phase_shares(model, dt, steps, card):
+    """Per-step CUDA-event times of the hydrostatic step: the fused
+    tendency kernel, the bounded x/y fills (outside the substep loop), the
+    z fills, the split-explicit substep loop (its 2-D fills included), w
+    from continuity (its fills excluded), and the rest."""
+    import oceananigans_tpu_torch.boundary_conditions.fill_halos as fh
+    import oceananigans_tpu_torch.kernels.halo_fill as hf
+    import oceananigans_tpu_torch.models.hydrostatic as hs
+    timer = PhaseTimer()
+    saved = (hs.fused_vi_tendency, fh.fill_bounded_axis, hf.bounded_z_fill)
+    hs.fused_vi_tendency = timer.wrap("kernel", saved[0])
+    fh.fill_bounded_axis = timer.wrap("xy", saved[1])
+    hf.bounded_z_fill = timer.wrap("z", saved[2])
+    fs = model.free_surface
+    fs.substep = timer.wrap("substep", fs.substep)
+    model._w_from_continuity = timer.wrap("w", model._w_from_continuity)
+    model.time_step = timer.wrap("step", model.time_step)
+    try:
+        for _ in range(steps):
+            model.time_step(dt)
+        t = {k: v / steps for k, v in timer.totals().items()}
+    finally:
+        hs.fused_vi_tendency, fh.fill_bounded_axis, hf.bounded_z_fill = saved
+        del fs.substep
+        for name in ("_w_from_continuity", "time_step"):
+            delattr(model, name)
+    g = t.get
+    shares = {
+        "fused_vi_tendency kernel": g("kernel", 0.0),
+        "bounded x/y fills (outside the substep loop)":
+            g("xy", 0.0) - g("xy@substep", 0.0),
+        "bounded z fills": g("z", 0.0),
+        "split-explicit substep loop (its 2-D fills included)":
+            g("substep", 0.0),
+        "w from continuity (its fills excluded)":
+            g("w", 0.0) - g("xy@w", 0.0) - g("z@w", 0.0),
+    }
+    shares["rest (hydrostatic pressure, AB2, corrector, allocations, "
+           "host gaps)"] = t["step"] - sum(shares.values())
+    print(f"hydrostatic step phases, ms per step over {steps} steps (CUDA "
+          f"events) [{card}]:")
+    for phase, ms in shares.items():
+        print(f"  {phase}: {ms:.4f} ms ({100 * ms / t['step']:.1f}%)")
+    print(f"  (x/y fills inside the substep loop: "
+          f"{g('xy@substep', 0.0):.4f} ms)")
+    print(f"  step: {t['step']:.4f} ms")
+    return shares
+
+
+def hydro_path_phase(card, model):
+    """The hydro_row at 512x256x32 float32 (``model`` as set()): counters
+    reset just before the steps and read just after; 3 warm-up and 12 timed
+    steps of Δt = 120 s."""
+    from oceananigans_tpu_torch import kernels as K
+    dt = 120.0
+    assert model.uses_kernel, "the hydrostatic model does not take the kernel"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_counters()
+    for _ in range(3):
+        model.time_step(dt)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(12):
+        t0 = time.perf_counter()
+        model.time_step(dt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches, plain_cuda = K.counters()
+    steps = model.iteration
+    print(f"hydrostatic path launches over {steps} steps: {launches}; plain "
+          f"calls on CUDA: {plain_cuda}")
+    assert launches["fused_vi_tendency"] == steps, \
+        ("fused_vi_tendency launches", launches["fused_vi_tendency"], steps)
+    assert launches["bounded_z_fill"] > 0
+    for name, count in plain_cuda.items():
+        assert count == 0, f"plain {name} ran on CUDA tensors"
+    peak = torch.cuda.max_memory_allocated()
+    for name in model.prognostic_names + ("w",):
+        a = model.field(name).interior
+        assert torch.isfinite(a).all().item(), f"{name} is not finite"
+    u = model.field("u").interior
+    eta = model.field("eta").interior
+    assert u.shape == (513, 256, 32) and eta.shape == (512, 256, 1)
+    print(f"hydrostatic: max|u| {u.abs().max().item():.4e}, max|η| "
+          f"{eta.abs().max().item():.4e} after {steps} steps")
+    n = HYDRO_N[0] * HYDRO_N[1] * HYDRO_N[2]
+    step_ms = statistics.median(times) * 1e3
+    print(f"hydrostatic path: {HYDRO_N[0]}x{HYDRO_N[1]}x{HYDRO_N[2]} lat-lon "
+          f"WENO-VI split-explicit(30) float32 QAB2 step median "
+          f"{step_ms:.3f} ms over {len(times)} steps (min "
+          f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
+          f"{n / (step_ms / 1e3):.4e} cell-updates/s [{card}]")
+    print(f"peak device memory (steps): {peak / 2 ** 30:.2f} GiB")
+    per_step = {k: launches[k] / steps for k in HYDRO_KERNELS}
+    print(f"launches per step: {per_step}")
+    hydro_phase_shares(model, dt, 3, card)
+    return launches, step_ms
+
+
 KERNEL_SOURCES = {
     "fused_advection_update": (
         "oceananigans_tpu_torch/csrc/fused_advection.cu",
@@ -1032,6 +1485,9 @@ KERNEL_SOURCES = {
     "fused_sw_update": (
         "oceananigans_tpu_torch/csrc/fused_shallow_water.cu",
         "oceananigans_tpu/kernels/fused_shallow_water.py:43"),
+    "fused_vi_tendency": (
+        "oceananigans_tpu_torch/csrc/fused_vector_invariant.cu",
+        "oceananigans_tpu/kernels/fused_vector_invariant.py:262"),
 }
 
 
@@ -1050,6 +1506,15 @@ def main():
     measured.update(sw_kernels_phase(n_sw))
     bounds.update(sw_bounds(n_sw, (4, 4, 0), 4))
     sw_launches, _ = sw_path_phase(card, n_sw)
+    torch.cuda.empty_cache()
+    print("hydrostatic kernels against plain versions:")
+    measured_vi, hmodel = hydro_kernels_phase()
+    measured.update(measured_vi)
+    hydro_H = hmodel.grid.H
+    bounds.update(hydro_bounds(HYDRO_N, hydro_H, 4))
+    hydro_launches, _ = hydro_path_phase(card, hmodel)
+    del hmodel
+    torch.cuda.empty_cache()
     print("goldens on the card:")
     goldens_phase()
     print("whole step, kernels against plain versions:")
@@ -1060,6 +1525,7 @@ def main():
         # those of the flagship path, where it replaces get_batched_fill
         launches = (flagship_launches if kname in FLAGSHIP_KERNELS
                     else sw_launches if kname == "fused_sw_update"
+                    else hydro_launches if kname == "fused_vi_tendency"
                     else convection_launches)[kname]
         bound_ms, bound_by = bounds[kname]
         rows.append(dict(name=kname, route="cuda", source=source,
@@ -1074,6 +1540,14 @@ def main():
                    launches=sw_launches["periodic_halo_fill"])
     print(f"periodic_halo_fill on the shallow-water path (3 fields of "
           f"16392^2): {wrap_sw}, bound {bounds['periodic_halo_fill_sw']}")
+    fill_hydro = dict(measured["bounded_z_fill_hydro"],
+                      launches=hydro_launches["bounded_z_fill"])
+    print(f"bounded_z_fill on the hydrostatic path (u, v, T, w of "
+          f"{HYDRO_N}, Hz = {hydro_H[2]}): {fill_hydro}, bound "
+          f"{bounds['bounded_z_fill_hydro']}")
+    print(f"fused_vi_tendency design scratch ({VI_SCRATCH} derived fields "
+          f"written and read once, not in its bound): "
+          f"{bounds['vi_scratch_ms']:.4f} ms at 3.35 TB/s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

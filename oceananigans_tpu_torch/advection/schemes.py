@@ -7,13 +7,18 @@ Each scheme exposes, over padded tensors,
     biased_by(grid, a, axis, beta, q)         # upwind value selected by sign(q)
     biased_pair(grid, a, axis, beta)          # (left-, right-biased) values
 
+``smooth`` (on ``biased_by`` and ``biased_pair``) lists arrays whose summed
+Jiang–Shu indicators replace the reconstructed variable's own: the
+reference's VelocityStencil, which the WENO vector-invariant vorticity uses;
+linear schemes ignore it.
+
 ``beta`` is 0 for center→face output, 1 for face→center output. An upwind or
 WENO scheme carries a lower-order centered scheme for the *advecting*
 velocity, and near the walls of a Bounded direction every scheme cascades to
-its buffer scheme (WENO5 → WENO3 → UpwindBiased(1); Centered(4) →
-Centered(2)), with masks on the global index. WENO computes its smoothness
-indicators in ``smoothness_dtype`` (float32 by default), whatever the field
-dtype.
+its buffer scheme (WENO9 → WENO7 → WENO5 → WENO3 → UpwindBiased(1);
+Centered(4) → Centered(2)), with masks on the global index. WENO computes
+its smoothness indicators in ``smoothness_dtype`` (float32 by default),
+whatever the field dtype.
 """
 
 from __future__ import annotations
@@ -133,36 +138,45 @@ class AdvectionScheme:
             return hi
         return _cascade_select(grid, axis, beta, self.buffer, hi, lo_eval(bs))
 
-    def biased_by(self, grid, a, axis, beta, q, zbc=None):
-        hi = self._biased_by_plain(grid, a, axis, beta, q, zbc=zbc)
+    def biased_by(self, grid, a, axis, beta, q, smooth=None, zbc=None):
+        hi = self._biased_by_plain(grid, a, axis, beta, q, smooth=smooth,
+                                   zbc=zbc)
         return self._cascade(grid, axis, beta, hi,
                              lambda bs: bs.biased_by(grid, a, axis, beta, q,
-                                                     zbc=zbc))
+                                                     smooth=smooth, zbc=zbc))
 
-    def biased_pair(self, grid, a, axis, beta, zbc=None):
+    def biased_pair(self, grid, a, axis, beta, smooth=None, zbc=None):
         """(left, right) biased reconstructions; near the walls of a Bounded
         direction each side cascades to the buffer scheme's."""
         if grid.is_flat(axis):
             return a, a
-        l = self._biased(grid, _ShiftCache(a, axis, zbc), axis, beta)
+        l = self._biased(grid, _ShiftCache(a, axis, zbc), axis, beta,
+                         None if smooth is None else
+                         [_ShiftCache(s, axis, zbc) for s in smooth])
         r = self._biased(grid, _MirroredShiftCache(a, axis, beta, zbc), axis,
-                         beta)
+                         beta, None if smooth is None else
+                         [_MirroredShiftCache(s, axis, beta, zbc)
+                          for s in smooth])
         bs = self.buffer_scheme()
         if bs is None or not _axis_bounded(grid, axis):
             return l, r
-        ll, lr = bs.biased_pair(grid, a, axis, beta, zbc=zbc)
+        ll, lr = bs.biased_pair(grid, a, axis, beta, smooth=smooth, zbc=zbc)
         return (_cascade_select(grid, axis, beta, self.buffer, l, ll),
                 _cascade_select(grid, axis, beta, self.buffer, r, lr))
 
-    def _biased_by_plain(self, grid, a, axis, beta, q, zbc=None):
+    def _biased_by_plain(self, grid, a, axis, beta, q, smooth=None,
+                         zbc=None):
         """Upwind reconstruction selected by the sign of ``q``: select each
         stencil cell first — ``where(q > 0, a[shift], a[mirror(shift)])`` —
         then reconstruct once with the left-biased coefficients (the mirror
         stencils share coefficients and smoothness factors)."""
         if grid.is_flat(axis):
             return a
-        sel = _SelectedShiftCache(a, axis, q > 0, beta, zbc)
-        return self._biased(grid, sel, axis, beta)
+        pos = q > 0
+        sel = _SelectedShiftCache(a, axis, pos, beta, zbc)
+        scs = (None if smooth is None else
+               [_SelectedShiftCache(s, axis, pos, beta, zbc) for s in smooth])
+        return self._biased(grid, sel, axis, beta, scs)
 
 
 class Centered(AdvectionScheme):
@@ -198,11 +212,11 @@ class Centered(AdvectionScheme):
                              lambda bs: bs.symmetric(grid, a, axis, beta,
                                                      zbc=zbc))
 
-    def _biased(self, grid, sc, axis, beta):
+    def _biased(self, grid, sc, axis, beta, smooth=None):
         shifts = left_shifts(self.order, self.buffer - 1, beta)
         return stencil_value(sc, shifts, self._coeffs)
 
-    def biased_pair(self, grid, a, axis, beta, zbc=None):
+    def biased_pair(self, grid, a, axis, beta, smooth=None, zbc=None):
         # no bias: both sides get the symmetric value
         s = self.symmetric(grid, a, axis, beta, zbc)
         return s, s
@@ -238,7 +252,7 @@ class UpwindBiased(AdvectionScheme):
                              lambda bs: bs.symmetric(grid, a, axis, beta,
                                                      zbc=zbc))
 
-    def _biased(self, grid, sc, axis, beta):
+    def _biased(self, grid, sc, axis, beta, smooth=None):
         if grid.is_flat(axis):
             return sc(0)
         return stencil_value(sc, left_shifts(self.order, self._s, beta),
@@ -295,7 +309,7 @@ class WENO(AdvectionScheme):
                              lambda bs: bs.symmetric(grid, a, axis, beta,
                                                      zbc=zbc))
 
-    def _biased(self, grid, sc, axis, beta):
+    def _biased(self, grid, sc, axis, beta, smooth=None):
         if grid.is_flat(axis):
             return sc(0)
         k = self.buffer
@@ -305,8 +319,12 @@ class WENO(AdvectionScheme):
         for s in range(k):
             shifts = left_shifts(k, s, beta)
             ps.append(stencil_value(sc, shifts, self._coeffs[s]))
-            betas.append(smoothness_value(sc, shifts, self._sfactors[s],
-                                          compute_dtype=sdt))
+            b = None
+            for scm in (sc,) if smooth is None else smooth:
+                bm = smoothness_value(scm, shifts, self._sfactors[s],
+                                      compute_dtype=sdt)
+                b = bm if b is None else b + bm
+            betas.append(b)
         tau = None
         for t, b in zip(TAU_COEFFS[k], betas):
             if t == 0:
@@ -370,8 +388,10 @@ class FluxFormAdvection(AdvectionScheme):
     def symmetric(self, grid, a, axis, beta, zbc=None):
         return self.schemes[axis].symmetric(grid, a, axis, beta, zbc)
 
-    def biased_by(self, grid, a, axis, beta, q, zbc=None):
-        return self.schemes[axis].biased_by(grid, a, axis, beta, q, zbc)
+    def biased_by(self, grid, a, axis, beta, q, smooth=None, zbc=None):
+        return self.schemes[axis].biased_by(grid, a, axis, beta, q,
+                                            smooth=smooth, zbc=zbc)
 
-    def biased_pair(self, grid, a, axis, beta, zbc=None):
-        return self.schemes[axis].biased_pair(grid, a, axis, beta, zbc)
+    def biased_pair(self, grid, a, axis, beta, smooth=None, zbc=None):
+        return self.schemes[axis].biased_pair(grid, a, axis, beta,
+                                              smooth=smooth, zbc=zbc)

@@ -1,33 +1,59 @@
-"""Vector-invariant (rotational form) momentum advection, conserving forms.
+"""Vector-invariant (rotational form) momentum advection.
 
-Counterpart of ``oceananigans_tpu/advection/vector_invariant.py`` for the
-MITgcm-style conserving discretizations: the horizontal momentum advection
-is a vertical-vorticity flux plus a kinetic-energy (Bernoulli head)
-gradient,
+Counterpart of ``oceananigans_tpu/advection/vector_invariant.py`` on static
+grids (no moving-grid term). The horizontal momentum advection splits into a
+vertical-vorticity flux, a kinetic-energy (Bernoulli head) gradient and
+vertical advection:
 
-    u: -(ζ v̂) + ∂x K      (at fcc)
-    v: +(ζ û) + ∂y K      (at cfc)
+    u: -(ζ v̂) + ∂x K + [w ∂z u]      (at fcc)
+    v: +(ζ û) + ∂y K + [w ∂z v]      (at cfc)
 
-with the ``ENSTROPHY`` or ``ENERGY`` conserving vorticity flux and the
-energy-conserving K = (ℑx(u²) + ℑy(v²))/2. The shallow-water model's
-vector-invariant formulation uses these terms. Upwinded or WENO vorticity,
-vertical advection or kinetic-energy schemes, the multi-dimensional stencil
-and ``WENOVectorInvariant`` belong to the hydrostatic slice and raise.
+The vorticity flux is ``ENSTROPHY`` or ``ENERGY`` conserving, or an upwind
+(WENO) reconstruction of ζ along the transport direction, whose smoothness
+is measured on the velocities interpolated to the vorticity nodes
+(``VELOCITY_STENCIL``) or on ζ itself. With upwind vertical and
+kinetic-energy schemes the vertical term is a flux divergence plus an
+upwinded horizontal-divergence flux Φᵟ, and the kinetic-energy gradient is
+split into a self-upwinded part and a centered cross part
+(``ONLY_SELF``; ``CROSS_AND_SELF`` upwinds the whole divergence).
+``WENOVectorInvariant()`` is WENO-9 vorticity with the velocity stencil and
+WENO-5 vertical advection, divergence flux and kinetic-energy gradient, with
+``ONLY_SELF``. The multi-dimensional stencil is not ported yet and raises.
 """
 
 from __future__ import annotations
 
-from ..operators.operators import (LOC_CFC, LOC_FCC, ddx, ddy, ix_c, ix_f,
-                                   iy_c, iy_f, zeta3_ffc)
+import torch
+
+from ..operators.operators import (LOC_CFC, LOC_FCC, X, Y, Z,
+                                   _metric, ddx, ddy, ddz, dx_c, dx_f, dy_c,
+                                   dy_f, dz_c, ix_c, ix_f, iy_c, iy_f, iz_c,
+                                   zeta3_ffc)
+from .schemes import AdvectionScheme, Centered, WENO
 
 ENERGY = "energy_conserving"
 ENSTROPHY = "enstrophy_conserving"
 
 VELOCITY_STENCIL = "velocity"
-ONLY_SELF = "only_self"
+DEFAULT_STENCIL = "default"
 
-UPWINDED_ITEM = ("ROADMAP.md queue 1 item 13 (hydrostatic: upwinded and WENO "
-                 "vector-invariant schemes)")
+ONLY_SELF = "only_self"
+CROSS_AND_SELF = "cross_and_self"
+
+LOC_FCF = ("f", "c", "f")
+LOC_CFF = ("c", "f", "f")
+LOC_CCF = ("c", "c", "f")
+
+MULTI_D_ITEM = ("ROADMAP.md queue 1 item 13 (hydrostatic: the "
+                "multi-dimensional vector-invariant stencil)")
+
+
+def _sym(scheme, grid, a, axis, beta):
+    """Symmetric interpolation by a possibly-upwind scheme's centered
+    counterpart; a conserving sentinel takes the 2-point mean."""
+    if scheme is None or not isinstance(scheme, AdvectionScheme):
+        scheme = Centered(2)
+    return scheme.symmetric(grid, a, axis, beta)
 
 
 class VectorInvariant:
@@ -41,28 +67,47 @@ class VectorInvariant:
         if multi_dimensional_stencil:
             raise NotImplementedError(
                 f"the multi-dimensional stencil is not ported yet: "
-                f"{UPWINDED_ITEM}")
-        if divergence_scheme is None:
-            divergence_scheme = vertical_advection_scheme
-        if kinetic_energy_gradient_scheme is None:
-            kinetic_energy_gradient_scheme = divergence_scheme
+                f"{MULTI_D_ITEM}")
         for nm, s in (("vorticity_scheme", vorticity_scheme),
                       ("vertical_advection_scheme", vertical_advection_scheme),
                       ("divergence_scheme", divergence_scheme),
                       ("kinetic_energy_gradient_scheme",
                        kinetic_energy_gradient_scheme)):
-            if s not in (ENERGY, ENSTROPHY):
-                raise NotImplementedError(
-                    f"{nm}={s!r}: only the conserving forms (ENERGY, "
-                    f"ENSTROPHY) are ported: {UPWINDED_ITEM}")
+            if s is not None and not isinstance(s, AdvectionScheme) \
+                    and s not in (ENERGY, ENSTROPHY):
+                raise ValueError(
+                    f"{nm} must be ENERGY/ENSTROPHY or an AdvectionScheme "
+                    f"(UpwindBiased/WENO), got {s!r}")
+        if upwinding not in (ONLY_SELF, CROSS_AND_SELF):
+            raise ValueError(f"unknown upwinding {upwinding!r}")
+        self.multi_dimensional_stencil = False
         self.vorticity_scheme = vorticity_scheme
-        self.required_halo = 1
-        self._config = (vorticity_scheme, vorticity_stencil,
-                        vertical_advection_scheme, divergence_scheme,
-                        kinetic_energy_gradient_scheme, upwinding, False)
+        self.vorticity_stencil = vorticity_stencil
+        self.vertical_advection_scheme = vertical_advection_scheme
+        if divergence_scheme is None:
+            divergence_scheme = vertical_advection_scheme
+        if kinetic_energy_gradient_scheme is None:
+            kinetic_energy_gradient_scheme = divergence_scheme
+        self.divergence_scheme = divergence_scheme
+        self.kinetic_energy_gradient_scheme = kinetic_energy_gradient_scheme
+        self.upwinding = upwinding
+        halos = [1]
+        for s in (vorticity_scheme, vertical_advection_scheme,
+                  divergence_scheme, kinetic_energy_gradient_scheme):
+            if isinstance(s, AdvectionScheme):
+                halos.append(s.required_halo)
+        h = max(halos)
+        # ζ needs one halo of its own, so an upwind scheme needs one more
+        self.required_halo = h if h == 1 else h + 1
 
     def _fp(self):
-        return ("VectorInvariant",) + self._config
+        def fp(s):
+            return s._fp() if isinstance(s, AdvectionScheme) else s
+        return ("VectorInvariant", fp(self.vorticity_scheme),
+                self.vorticity_stencil, fp(self.vertical_advection_scheme),
+                fp(self.divergence_scheme),
+                fp(self.kinetic_energy_gradient_scheme), self.upwinding,
+                False)
 
     def __hash__(self):
         return hash(self._fp())
@@ -73,25 +118,140 @@ class VectorInvariant:
     def __repr__(self):
         return f"VectorInvariant({self.vorticity_scheme})"
 
+    # -- horizontal (vorticity) term ------------------------------------------
+
     def _horizontal(self, grid, u, v):
-        """The vorticity flux terms at fcc and cfc."""
+        """The vorticity flux terms (to be subtracted) at fcc and cfc."""
         zeta = zeta3_ffc(grid, u, v)
-        dx_cfc, dx_fcc = grid.dx(LOC_CFC), grid.dx(LOC_FCC)
-        dy_fcc, dy_cfc = grid.dy(LOC_FCC), grid.dy(LOC_CFC)
-        if self.vorticity_scheme == ENSTROPHY:
-            vhat = ix_f(grid, iy_c(grid, dx_cfc * v)) / dx_fcc
-            uhat = iy_f(grid, ix_c(grid, dy_fcc * u)) / dy_cfc
+        dx_cfc = _metric(grid.dx(LOC_CFC), v)
+        dx_fcc = _metric(grid.dx(LOC_FCC), u)
+        dy_fcc = _metric(grid.dy(LOC_FCC), u)
+        dy_cfc = _metric(grid.dy(LOC_CFC), v)
+        vhat = ix_f(grid, iy_c(grid, dx_cfc * v)) / dx_fcc   # fcc
+        uhat = iy_f(grid, ix_c(grid, dy_fcc * u)) / dy_cfc   # cfc
+        vs = self.vorticity_scheme
+        if vs == ENSTROPHY:
             return -iy_c(grid, zeta) * vhat, +ix_c(grid, zeta) * uhat
-        adv_u = -iy_c(grid, zeta * ix_f(grid, dx_cfc * v)) / dx_fcc
-        adv_v = +ix_c(grid, zeta * iy_f(grid, dy_fcc * u)) / dy_cfc
+        if vs == ENERGY:
+            adv_u = -iy_c(grid, zeta * ix_f(grid, dx_cfc * v)) / dx_fcc
+            adv_v = +ix_c(grid, zeta * iy_f(grid, dy_fcc * u)) / dy_cfc
+            return adv_u, adv_v
+        smooth = None
+        if self.vorticity_stencil == VELOCITY_STENCIL and isinstance(vs, WENO):
+            smooth = [iy_f(grid, u), ix_f(grid, v)]   # both at ffc
+        adv_u = -vhat * vs.biased_by(grid, zeta, Y, 1, vhat, smooth=smooth)
+        adv_v = +uhat * vs.biased_by(grid, zeta, X, 1, uhat, smooth=smooth)
         return adv_u, adv_v
 
+    # -- Bernoulli head (kinetic-energy gradient) -----------------------------
+
     def _bernoulli(self, grid, u, v):
-        """∂x K and ∂y K with K = (ℑx(u²) + ℑy(v²))/2."""
-        K = 0.5 * (ix_c(grid, u * u) + iy_c(grid, v * v))
-        return ddx(grid, K, LOC_FCC), ddy(grid, K, LOC_CFC)
+        ks = self.kinetic_energy_gradient_scheme
+        if not isinstance(ks, AdvectionScheme):
+            K = 0.5 * (ix_c(grid, u * u) + iy_c(grid, v * v))
+            return ddx(grid, K, LOC_FCC), ddy(grid, K, LOC_CFC)
+        # self-upwinded: δx(u²/2) reconstructed along x by the sign of u,
+        # the cross δx(v²/2) interpolated symmetrically, and the mirror for v
+        cross = self.upwinding_cross_scheme
+        du2 = dx_c(grid, 0.5 * u * u)     # ccc
+        dv2 = dy_c(grid, 0.5 * v * v)     # ccc
+        du2y = dy_f(grid, 0.5 * u * u)    # ffc
+        dv2x = dx_f(grid, 0.5 * v * v)    # ffc
+        dKvs = _sym(cross, grid, dv2x, Y, 1)                   # ffc → fcc
+        dKur = ks.biased_by(grid, du2, X, 0, u, smooth=[ix_c(grid, u)])
+        bern_u = (dKur + dKvs) / _metric(grid.dx(LOC_FCC), u)
+        dKus = _sym(cross, grid, du2y, X, 1)                   # ffc → cfc
+        dKvr = ks.biased_by(grid, dv2, Y, 0, v, smooth=[iy_c(grid, v)])
+        bern_v = (dKvr + dKus) / _metric(grid.dy(LOC_CFC), v)
+        return bern_u, bern_v
+
+    @property
+    def upwinding_cross_scheme(self):
+        ds = self.divergence_scheme
+        if isinstance(ds, AdvectionScheme):
+            return getattr(ds, "advecting_velocity_scheme", ds)
+        return Centered(2)
+
+    # -- vertical advection + divergence flux ---------------------------------
+
+    def _vertical(self, grid, u, v, w):
+        vas = self.vertical_advection_scheme
+        if grid.is_flat(Z):
+            if not isinstance(vas, AdvectionScheme):
+                return torch.zeros_like(u), torch.zeros_like(v)
+            adv_u, adv_v = self._divergence_flux(grid, u, v)
+            return (adv_u / _metric(grid.V(LOC_FCC), u),
+                    adv_v / _metric(grid.V(LOC_CFC), v))
+        Az_w = _metric(grid.Az(LOC_CCF), w) * w
+        if not isinstance(vas, AdvectionScheme):
+            # energy conserving: ℑz(ℑx(Az w) ∂z u) / Az
+            adv_u = iz_c(grid, ix_f(grid, Az_w) * ddz(grid, u, LOC_FCF)) \
+                / _metric(grid.Az(LOC_FCC), u)
+            adv_v = iz_c(grid, iy_f(grid, Az_w) * ddz(grid, v, LOC_CFF)) \
+                / _metric(grid.Az(LOC_CFC), v)
+            return adv_u, adv_v
+        # upwind: (Φᵟ + δz(Az ŵ û)) / V
+        phi_u, phi_v = self._divergence_flux(grid, u, v)
+        what_u = _sym(vas, grid, Az_w, X, 0)     # ccf → fcf
+        az_u = dz_c(grid, what_u * vas.biased_by(grid, u, Z, 0, what_u))
+        what_v = _sym(vas, grid, Az_w, Y, 0)     # ccf → cff
+        az_v = dz_c(grid, what_v * vas.biased_by(grid, v, Z, 0, what_v))
+        return ((phi_u + az_u) / _metric(grid.V(LOC_FCC), u),
+                (phi_v + az_v) / _metric(grid.V(LOC_CFC), v))
+
+    def _divergence_flux(self, grid, u, v):
+        """The upwinded horizontal-divergence flux Φᵟ at fcc and cfc."""
+        ds = self.divergence_scheme
+        cross = self.upwinding_cross_scheme
+        dU = dx_c(grid, _metric(grid.Ax(LOC_FCC), u) * u)    # ccc
+        dV = dy_c(grid, _metric(grid.Ay(LOC_CFC), v) * v)    # ccc
+        if self.upwinding == CROSS_AND_SELF:
+            div = dU + dV
+            return (u * ds.biased_by(grid, div, X, 0, u),
+                    v * ds.biased_by(grid, div, Y, 0, v))
+        div_smooth = [dU + dV]
+        dvs = _sym(cross, grid, dV, X, 0)
+        phi_u = u * (dvs + ds.biased_by(grid, dU, X, 0, u, smooth=div_smooth))
+        dus = _sym(cross, grid, dU, Y, 0)
+        phi_v = v * (dus + ds.biased_by(grid, dV, Y, 0, v, smooth=div_smooth))
+        return phi_u, phi_v
+
+    # -- assembly --------------------------------------------------------------
+
+    def momentum_tendencies(self, grid, u, v, w):
+        """(U·∇u, U·∇v): the advection terms to be subtracted from the
+        tendencies."""
+        h_u, h_v = self._horizontal(grid, u, v)
+        b_u, b_v = self._bernoulli(grid, u, v)
+        z_u, z_v = self._vertical(grid, u, v, w)
+        return h_u + b_u + z_u, h_v + b_v + z_v
 
 
-def WENOVectorInvariant(*args, **kwargs):
-    raise NotImplementedError(
-        f"WENOVectorInvariant is not ported yet: {UPWINDED_ITEM}")
+def WENOVectorInvariant(order=None, vorticity_order=None, vertical_order=None,
+                        divergence_order=None,
+                        kinetic_energy_gradient_order=None,
+                        vorticity_stencil=VELOCITY_STENCIL,
+                        upwinding=ONLY_SELF, multi_dimensional_stencil=False,
+                        **weno_kw):
+    """WENO-9 vorticity (velocity stencil) and WENO-5 vertical, divergence
+    and kinetic-energy schemes with ``ONLY_SELF`` by default; ``order`` sets
+    all four. ``weno_kw`` (e.g. ``smoothness_dtype``) goes to every WENO."""
+    if order is None:
+        vorticity_order = vorticity_order or 9
+        vertical_order = vertical_order or 5
+        divergence_order = divergence_order or 5
+        kinetic_energy_gradient_order = kinetic_energy_gradient_order or 5
+    else:
+        vorticity_order = vorticity_order or order
+        vertical_order = vertical_order or order
+        divergence_order = divergence_order or order
+        kinetic_energy_gradient_order = kinetic_energy_gradient_order or order
+    return VectorInvariant(
+        vorticity_scheme=WENO(vorticity_order, **weno_kw),
+        vorticity_stencil=vorticity_stencil,
+        vertical_advection_scheme=WENO(vertical_order, **weno_kw),
+        divergence_scheme=WENO(divergence_order, **weno_kw),
+        kinetic_energy_gradient_scheme=WENO(kinetic_energy_gradient_order,
+                                            **weno_kw),
+        upwinding=upwinding,
+        multi_dimensional_stencil=multi_dimensional_stencil)

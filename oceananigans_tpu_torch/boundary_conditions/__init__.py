@@ -4,14 +4,16 @@ from .boundary_condition import (
     ImpenetrableBoundaryCondition, regularize_field_boundary_conditions,
     default_bcs,
 )
-from .fill_halos import (apply_flux_bcs, fill_all_halo_regions,
-                         fill_halo_regions)
+from .fill_halos import (apply_flux_bcs, apply_flux_bcs_padded,
+                         fill_all_halo_regions, fill_halo_regions,
+                         fill_surface_halo_regions)
 
 __all__ = [
     "BoundaryCondition", "FieldBoundaryConditions",
     "PeriodicBoundaryCondition", "FluxBoundaryCondition",
     "ValueBoundaryCondition", "GradientBoundaryCondition",
     "ImpenetrableBoundaryCondition", "regularize_field_boundary_conditions",
-    "default_bcs", "apply_flux_bcs", "fill_all_halo_regions",
-    "fill_halo_regions",
+    "default_bcs", "apply_flux_bcs", "apply_flux_bcs_padded",
+    "fill_all_halo_regions", "fill_halo_regions",
+    "fill_surface_halo_regions",
 ]

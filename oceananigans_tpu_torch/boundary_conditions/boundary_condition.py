@@ -3,10 +3,9 @@
 Counterpart of ``oceananigans_tpu/boundary_conditions/boundary_condition.py``.
 A field's conditions default from its grid's topology: periodic on periodic
 sides, impenetrable (Open, value 0) for a wall-normal velocity on a bounded
-side, no-flux for everything else on a bounded side. On the bottom and top
-of a bounded z the user may set ``ValueBoundaryCondition``,
-``GradientBoundaryCondition`` or ``FluxBoundaryCondition`` with a scalar (or
-no) condition. Conditions on bounded x/y sides, callable or array
+side, no-flux for everything else on a bounded side. On any bounded side the
+user may set ``ValueBoundaryCondition``, ``GradientBoundaryCondition`` or
+``FluxBoundaryCondition`` with a scalar (or no) condition. Callable or array
 conditions, field dependencies and Open conditions with a value or a scheme
 are not ported yet and raise.
 """
@@ -136,10 +135,6 @@ def _check_user_bc(bc, side, axis, grid):
         return
     if topo == FLAT:
         raise ValueError(f"cannot set a BC on {side} of a flat direction")
-    if axis != 2 or topo != BOUNDED:
-        raise NotImplementedError(
-            f"{bc.classification} BC on the bounded {side} side: bounded x/y "
-            f"fills are not ported yet: {USER_BCS_ITEM}")
     cond = bc.condition
     if cond is not None and (callable(cond) or not np.isscalar(cond)):
         raise NotImplementedError(

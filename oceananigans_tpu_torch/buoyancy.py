@@ -26,6 +26,10 @@ class BuoyancyTracer:
     def __eq__(self, o):
         return hasattr(o, "_fp") and self._fp() == o._fp()
 
+    def buoyancy_ccc(self, grid, tracers):
+        """Buoyancy at cell centers (the hydrostatic pressure integrand)."""
+        return tracers["b"]
+
     def z_buoyancy(self, grid, tracers):
         """Buoyancy at (c, c, f) for the Gw tendency (padded)."""
         return iz_f(grid, tracers["b"])

@@ -1,15 +1,15 @@
 """Coriolis forces.
 
 Counterpart of ``oceananigans_tpu/coriolis.py`` for ``FPlane``,
-``ConstantCartesianCoriolis`` and ``BetaPlane``. Each object is static
+``ConstantCartesianCoriolis``, ``BetaPlane`` and, on a lat-lon grid,
+``HydrostaticSphericalCoriolis``. Each object is static
 configuration; ``x_f_cross_U`` / ``y_f_cross_U`` / ``z_f_cross_U`` take padded
 (u, v, w) tensors and return the components of f×U at the (f,c,c) / (c,f,c) /
 (c,c,f) locations, built from 4-point means of the staggered transverse
 velocities (the energy-conserving discretization). The tendency assembly
 subtracts them.
 
-``NonTraditionalBetaPlane`` and ``HydrostaticSphericalCoriolis`` raise: they
-belong to the hydrostatic slice.
+``NonTraditionalBetaPlane`` raises: it is not ported yet.
 """
 
 from __future__ import annotations
@@ -20,7 +20,8 @@ import torch
 from .defaults import defaults
 from .operators.operators import ix_c, ix_f, iy_c, iy_f, iz_c, iz_f
 
-HYDROSTATIC_ITEM = "ROADMAP.md queue 1 item 13 (hydrostatic)"
+HYDROSTATIC_ITEM = ("ROADMAP.md queue 1 item 13 (hydrostatic: the "
+                    "non-traditional β-plane)")
 
 
 def _v_at_fcc(grid, v):
@@ -159,7 +160,57 @@ class NonTraditionalBetaPlane:
 
 
 class HydrostaticSphericalCoriolis:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"HydrostaticSphericalCoriolis is not ported yet: "
-            f"{HYDROSTATIC_ITEM}")
+    """f = 2Ω sin(φ) on a spherical grid with a 1-D latitude, at the (f, f)
+    nodes, in the metric-weighted Sadourny forms: ``energy_conserving`` (the
+    default) takes the f-flux of the transport, ℑy(f ℑx(Δx v))/Δx;
+    ``enstrophy_conserving`` takes ℑy(f) ℑx(ℑy(Δx v))/Δx."""
+
+    def __init__(self, rotation_rate=None, scheme="energy_conserving"):
+        self.rotation_rate = (defaults.rotation_rate if rotation_rate is None
+                              else float(rotation_rate))
+        if scheme not in ("energy_conserving", "enstrophy_conserving"):
+            raise ValueError(scheme)
+        self.scheme = scheme
+
+    def _fp(self):
+        return ("HydrostaticSphericalCoriolis", self.rotation_rate,
+                self.scheme)
+
+    __hash__ = FPlane.__hash__
+    __eq__ = FPlane.__eq__
+
+    def f_ffc_numpy(self, grid):
+        """f at the (f, f) nodes, float64, (1, Ny + 2Hy, 1)."""
+        phi = grid.coord_padded(1, "f").reshape(1, -1, 1)
+        return 2 * self.rotation_rate * np.sin(np.deg2rad(
+            np.clip(phi, -90, 90)))
+
+    def _f_ffc(self, grid, like):
+        return torch.as_tensor(self.f_ffc_numpy(grid), dtype=like.dtype,
+                               device=like.device)
+
+    def x_f_cross_U(self, grid, u, v, w):
+        from .grids.topology import LOC_CFC, LOC_FCC
+        from .operators.operators import _metric
+        f = self._f_ffc(grid, v)
+        dx_cfc = _metric(grid.dx(LOC_CFC), v)
+        dx_fcc = _metric(grid.dx(LOC_FCC), v)
+        if self.scheme == "energy_conserving":
+            return -iy_c(grid, f * ix_f(grid, dx_cfc * v)) / dx_fcc
+        return -iy_c(grid, f) * ix_f(grid, iy_c(grid, dx_cfc * v)) / dx_fcc
+
+    def y_f_cross_U(self, grid, u, v, w):
+        from .grids.topology import LOC_CFC, LOC_FCC
+        from .operators.operators import _metric
+        f = self._f_ffc(grid, u)
+        # f is zonally uniform, (1, Ny + 2Hy, 1): its own x interpolation
+        # is skipped (an x shift of a size-1 axis would zero it); the energy
+        # form's outer ℑx acts on the product, which varies in x
+        dy_fcc = _metric(grid.dy(LOC_FCC), u)
+        dy_cfc = _metric(grid.dy(LOC_CFC), u)
+        if self.scheme == "energy_conserving":
+            return ix_c(grid, f * iy_f(grid, dy_fcc * u)) / dy_cfc
+        return f * iy_f(grid, ix_c(grid, dy_fcc * u)) / dy_cfc
+
+    def z_f_cross_U(self, grid, u, v, w):
+        return torch.zeros_like(w)

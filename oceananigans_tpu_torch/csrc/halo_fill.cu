@@ -3,12 +3,16 @@
 // oc_halo_fill replaces the TPU kernel oceananigans_tpu/kernels/pallas_fill.py
 // _build_batched (via get_batched_fill), and the wrap half of _build (via
 // get_pallas_fill): strip DMAs that wrap x, then wrap y over the full x
-// extent, so that corners carry the x-wrapped columns. Done in that order,
+// extent, so that corners carry the x-wrapped columns, each axis only where
+// its flag says it is periodic (pallas_fill.py:272-273). With both flags,
 // every halo slot (i, j) ends up holding the interior cell (wrap_x(i),
-// wrap_y(j)); this kernel writes exactly that, in one pass over the halo
-// slots of all fields of a batch, over the full padded z (z halos included).
-// It reads interior x/y cells only and writes halo cells only, so the
-// in-place update has no race.
+// wrap_y(j)); with x alone, the x-halo columns copy the wrapped columns over
+// the full y extent (y halos as they stand); with y alone, the y-halo rows
+// copy the wrapped rows over the full x extent (x halos as they stand, filled
+// beforehand by the bounded x fill). One pass over the halo slots of all
+// fields of a batch, over the full padded z (z halos included). Every slot is
+// read from slots the pass does not write, so the in-place update has no
+// race.
 //
 // oc_bounded_z_fill replaces the z-fix half of _build (pallas_fill.py:139-201,
 // the pallas_call at :233), whose semantics are those of _fill_axis
@@ -47,8 +51,12 @@ struct FieldPtrs {
   void* p[kMaxFields];
 };
 
+// Strips: with wrap_x, the two x-halo strips over the full y extent; with
+// wrap_y, the two y-halo strips over the interior x (wrap_x) or the full x
+// extent (no wrap_x). A slot takes the wrapped index along each wrapped axis.
 template <typename T>
-__global__ void halo_wrap_kernel(FieldPtrs ptrs, oc::Geom g, long long n_halo_cols) {
+__global__ void halo_wrap_kernel(FieldPtrs ptrs, oc::Geom g, int wrap_x, int wrap_y,
+                                 long long n_halo_cols) {
   T* a = (T*)ptrs.p[blockIdx.y];
   const int PZ = g.PZ();
   long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -56,23 +64,26 @@ __global__ void halo_wrap_kernel(FieldPtrs ptrs, oc::Geom g, long long n_halo_co
   const int k = (int)(n % PZ);
   long long c = n / PZ;
   const int PY = g.PY();
-  const long long xstrip = (long long)g.Hx * PY;   // columns in one x strip
-  const long long ystrip = (long long)g.Nx * g.Hy; // columns in one y strip
+  const long long xstrip = wrap_x ? (long long)g.Hx * PY : 0;  // columns in one x strip
+  const int ywidth = wrap_x ? g.Nx : g.PX();                     // x extent of a y strip
+  const int yx0 = wrap_x ? g.Hx : 0;
+  const long long ystrip = (long long)ywidth * g.Hy;             // columns in one y strip
   int i, j;
   if (c < xstrip) {                    // left x strip, full y extent
     i = (int)(c / PY); j = (int)(c % PY);
   } else if (c < 2 * xstrip) {         // right x strip, full y extent
     c -= xstrip;
     i = g.Hx + g.Nx + (int)(c / PY); j = (int)(c % PY);
-  } else if (c < 2 * xstrip + ystrip) { // bottom y strip, interior x
+  } else if (c < 2 * xstrip + ystrip) { // bottom y strip
     c -= 2 * xstrip;
-    i = g.Hx + (int)(c / g.Hy); j = (int)(c % g.Hy);
-  } else {                             // top y strip, interior x
+    i = yx0 + (int)(c / g.Hy); j = (int)(c % g.Hy);
+  } else {                             // top y strip
     c -= 2 * xstrip + ystrip;
-    i = g.Hx + (int)(c / g.Hy); j = g.Hy + g.Ny + (int)(c % g.Hy);
+    i = yx0 + (int)(c / g.Hy); j = g.Hy + g.Ny + (int)(c % g.Hy);
   }
-  int si = i < g.Hx ? i + g.Nx : (i >= g.Hx + g.Nx ? i - g.Nx : i);
-  int sj = j < g.Hy ? j + g.Ny : (j >= g.Hy + g.Ny ? j - g.Ny : j);
+  int si = i, sj = j;
+  if (wrap_x) si = i < g.Hx ? i + g.Nx : (i >= g.Hx + g.Nx ? i - g.Nx : i);
+  if (wrap_y) sj = j < g.Hy ? j + g.Ny : (j >= g.Hy + g.Ny ? j - g.Ny : j);
   a[g.at(i, j, k)] = a[g.at(si, sj, k)];
 }
 
@@ -150,23 +161,24 @@ const char* oc_error_string(int code) {
 }
 
 // Fill the periodic x/y halos of `nf` padded arrays of one shape in place,
-// over the full padded z. `ptrs` is a host array of nf device pointers;
-// elem_size is 4 or 8.
+// over the full padded z; wrap_x / wrap_y (0 or 1) say which axes wrap.
+// `ptrs` is a host array of nf device pointers; elem_size is 4 or 8.
 int oc_halo_fill(void* const* ptrs, int nf, int elem_size, int Nx, int Ny, int Nz,
-                 int Hx, int Hy, int Hz, void* stream) {
+                 int Hx, int Hy, int Hz, int wrap_x, int wrap_y, void* stream) {
   if (nf < 1 || nf > kMaxFields) return (int)cudaErrorInvalidValue;
   FieldPtrs fp;
   for (int f = 0; f < kMaxFields; ++f) fp.p[f] = f < nf ? ptrs[f] : nullptr;
   oc::Geom g{Nx, Ny, Nz, Hx, Hy, Hz};
-  long long cols = 2LL * Hx * g.PY() + 2LL * Nx * Hy;
+  long long cols = (wrap_x ? 2LL * Hx * g.PY() : 0)
+                 + (wrap_y ? 2LL * (wrap_x ? Nx : g.PX()) * Hy : 0);
   if (cols == 0) return (int)cudaSuccess;
   const int threads = 256;
   dim3 grid(oc::blocks_for(cols * g.PZ(), threads), nf);
   cudaStream_t s = (cudaStream_t)stream;
   if (elem_size == 4)
-    halo_wrap_kernel<float><<<grid, threads, 0, s>>>(fp, g, cols);
+    halo_wrap_kernel<float><<<grid, threads, 0, s>>>(fp, g, wrap_x, wrap_y, cols);
   else if (elem_size == 8)
-    halo_wrap_kernel<double><<<grid, threads, 0, s>>>(fp, g, cols);
+    halo_wrap_kernel<double><<<grid, threads, 0, s>>>(fp, g, wrap_x, wrap_y, cols);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -32,9 +32,14 @@ class Field:
     def interior_slices(self):
         """Per-axis interior slices of THIS field: N points per direction,
         N+1 for a Face location in a Bounded direction (the boundary face
-        lives in the first halo slot; it is absent on a halo-free axis)."""
+        lives in the first halo slot; it is absent on a halo-free axis), the
+        one slot of a size-1 axis."""
         sls = []
         for axis in range(3):
+            if self.data.shape[axis] == 1:
+                # a reduced (surface) field: its size-1 axis has no halo
+                sls.append(slice(0, 1))
+                continue
             n, h = self.grid.N[axis], self.grid.H[axis]
             extra = 1 if (self.loc[axis] == FACE
                           and self.grid.topology[axis] == BOUNDED) else 0

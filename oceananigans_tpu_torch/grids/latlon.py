@@ -1,0 +1,268 @@
+"""LatitudeLongitudeGrid: a spherical-shell grid with exact spherical metrics.
+
+Counterpart of ``oceananigans_tpu/grids/latlon.py`` with regular longitude,
+latitude and z:
+
+    Δx(λ-loc, φ-loc) = R cos(φ) Δλ          (varies with latitude)
+    Δy               = R Δφ
+    Az               = R² Δλ (sin φ⁺ - sin φ⁻)   (exact cell area)
+
+Longitude λ and latitude φ are in degrees, z in meters. The metrics are
+computed in numpy float64 exactly as the JAX grid computes them, then held as
+tensors of the grid's dtype on its device: a metric that varies with
+latitude is a (1, Ny + 2Hy, 1) tensor, a constant one a Python float. No
+metric varies along x.
+
+The default topology is that of the JAX grid: bounded latitude, and a
+longitude that is periodic when it spans 360° and bounded otherwise.
+Stretched coordinates (face arrays) and grids whose latitude touches a pole
+(the polar halo rows) are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..defaults import as_torch_dtype, defaults, resolve_device
+from . import topology as topo
+from .base import AbstractGrid
+from .rectilinear import _Coordinate, _is_interval
+
+DEG = np.pi / 180.0
+
+STRETCHED_ITEM = ("ROADMAP.md queue 1 item 13 (hydrostatic: stretched "
+                  "lat-lon coordinates)")
+POLAR_ITEM = "ROADMAP.md queue 1 item 13 (hydrostatic: polar caps)"
+
+
+class LatitudeLongitudeGrid(AbstractGrid):
+    def __init__(self, size=None, longitude=None, latitude=None, z=None,
+                 radius=None, topology=None, halo=None, dtype=None,
+                 device=None):
+        self.radius = float(radius if radius is not None
+                            else defaults.planet_radius)
+        self.dtype = as_torch_dtype(dtype)
+        self.device = resolve_device(device)
+        if topology is None:
+            lon_span = None
+            if isinstance(longitude, tuple):
+                lon_span = longitude[1] - longitude[0]
+            tx = topo.PERIODIC if (lon_span is not None
+                                   and np.isclose(lon_span, 360)) \
+                else topo.BOUNDED
+            tz = topo.BOUNDED if z is not None else topo.FLAT
+            topology = (tx, topo.BOUNDED, tz)
+        self.topology = topo.validate_topology(topology)
+
+        nonflat = [i for i in range(3) if self.topology[i] != topo.FLAT]
+        size = tuple(int(s) for s in (size if not np.isscalar(size)
+                                      else (size,)))
+        if len(size) == len(nonflat) and len(size) != 3:
+            N = [1, 1, 1]
+            for i, s in zip(nonflat, size):
+                N[i] = s
+        else:
+            N = list(size)
+        self.N = tuple(N)
+
+        if halo is None:
+            halo = tuple(3 if self.topology[i] != topo.FLAT else 0
+                         for i in range(3))
+        elif np.isscalar(halo):
+            halo = tuple(int(halo) if self.topology[i] != topo.FLAT else 0
+                         for i in range(3))
+        else:
+            halo = tuple(int(h) for h in halo)
+            if len(halo) != 3:
+                if len(halo) != len(nonflat):
+                    raise ValueError(
+                        f"halo must have 3 or {len(nonflat)} entries")
+                full = [0, 0, 0]
+                for i, h in zip(nonflat, halo):
+                    full[i] = h
+                halo = tuple(full)
+        self.H = tuple(halo)
+
+        def build(axis, spec):
+            if self.topology[axis] == topo.FLAT:
+                return _Coordinate(1, 0, topo.FLAT)
+            if not _is_interval(spec):
+                raise NotImplementedError(
+                    f"stretched coordinate {spec!r} along axis {axis} is not "
+                    f"ported yet: {STRETCHED_ITEM}")
+            return _Coordinate(self.N[axis], self.H[axis],
+                               self.topology[axis], interval=spec)
+
+        self._lam = build(0, longitude)
+        self._phi = build(1, latitude)
+        self._zc = build(2, z)
+        self._coords = [self._lam, self._phi, self._zc]
+
+        phi_f = np.asarray(self._phi.coord(topo.FACE))
+        H1, N1 = self.H[1], self.N[1]
+        if np.any(np.abs(phi_f[H1:H1 + N1 + 1]) > 90 + 1e-9):
+            raise ValueError("latitude extent exceeds ±90°")
+        if self.topology[1] == topo.BOUNDED and (
+                np.isclose(phi_f[H1], -90.0)
+                or np.isclose(phi_f[H1 + N1], 90.0)):
+            raise NotImplementedError(
+                f"a latitude range that touches a pole is not ported yet: "
+                f"{POLAR_ITEM}")
+        self._cache = {}
+
+    # -- coordinates (degrees for λ and φ) ------------------------------------
+
+    def coord_padded(self, axis, loc):
+        return self._coords[axis].coord(loc)
+
+    def nodes1d(self, axis, loc):
+        c = self._coords[axis]
+        n, h = self.N[axis], self.H[axis]
+        if loc == topo.FACE and self.topology[axis] == topo.BOUNDED:
+            return c.xF[h:h + n + 1]
+        return c.coord(loc)[h:h + n]
+
+    def xnodes(self, loc="c"):
+        return self.nodes1d(0, loc)
+
+    def ynodes(self, loc="c"):
+        return self.nodes1d(1, loc)
+
+    def znodes(self, loc="c"):
+        return self.nodes1d(2, loc)
+
+    lambda_nodes = xnodes
+    phi_nodes = ynodes
+
+    def nodes(self, loc=topo.LOC_CCC):
+        return tuple(self.nodes1d(i, loc[i]) for i in range(3))
+
+    @property
+    def extent(self):
+        return tuple(c.extent for c in self._coords)
+
+    def regular(self, axis):
+        return True
+
+    @property
+    def all_regular(self):
+        return False   # Δx varies with latitude: no FFT along y
+
+    # -- metrics, float64 numpy as the JAX grid forms them ---------------------
+
+    def _cosphi(self, yloc):
+        phi = self._phi.coord(yloc)
+        cos = np.cos(np.clip(phi, -90.0, 90.0) * DEG)
+        return np.maximum(cos, 1e-12).reshape(1, -1, 1)
+
+    def metric_numpy(self, name, loc):
+        """The float64 value of metric ``name`` (dx, dy, dz, Ax, Ay, Az, V)
+        at ``loc``: a float, or a (1, Ny + 2Hy, 1) array."""
+        if name == "dx":
+            return self.radius * self._cosphi(loc[1]) * (
+                self._lam.spacing(loc[0]) * DEG)
+        if name == "dy":
+            return self.radius * (self._phi.spacing(loc[1]) * DEG)
+        if name == "dz":
+            return self._zc.spacing(loc[2])
+        if name == "Ax":
+            return self.metric_numpy("dy", loc) * self.metric_numpy("dz", loc)
+        if name == "Ay":
+            return self.metric_numpy("dx", loc) * self.metric_numpy("dz", loc)
+        if name == "Az":
+            npad = self.N[1] + 2 * self.H[1]
+            if loc[1] == topo.CENTER:
+                phi_minus = self._phi.xF[:npad]
+                phi_plus = self._phi.xF[1:npad + 1]
+            else:
+                xC = self._phi.xC
+                phi_minus = np.empty(npad)
+                phi_minus[1:] = xC[:npad - 1]
+                phi_minus[0] = xC[0] - (xC[1] - xC[0])
+                phi_plus = xC[:npad]
+            sin_d = np.sin(np.clip(phi_plus, -90, 90) * DEG) \
+                - np.sin(np.clip(phi_minus, -90, 90) * DEG)
+            sin_d = np.maximum(sin_d, 1e-15)
+            return (self.radius ** 2 * (self._lam.spacing(loc[0]) * DEG)
+                    * sin_d.reshape(1, -1, 1))
+        if name == "V":
+            return self.metric_numpy("Az", loc) * np.asarray(
+                self.metric_numpy("dz", loc))
+        raise ValueError(f"unknown metric {name!r}")
+
+    def _metric(self, name, loc):
+        key = (name, tuple(loc))
+        if key not in self._cache:
+            m = self.metric_numpy(name, loc)
+            self._cache[key] = (float(m) if np.ndim(m) == 0 else
+                                torch.as_tensor(m, dtype=self.dtype,
+                                                device=self.device))
+        return self._cache[key]
+
+    def dx(self, loc):
+        return self._metric("dx", loc)
+
+    def dy(self, loc):
+        return self._metric("dy", loc)
+
+    def dz(self, loc):
+        return self._metric("dz", loc)
+
+    def Ax(self, loc):
+        return self._metric("Ax", loc)
+
+    def Ay(self, loc):
+        return self._metric("Ay", loc)
+
+    def Az(self, loc):
+        return self._metric("Az", loc)
+
+    def V(self, loc):
+        return self._metric("V", loc)
+
+    def minimum_spacing(self, axis):
+        if self.is_flat(axis):
+            return np.inf
+        if axis == 0:
+            h, n = self.H[1], self.N[1]
+            return float(np.min(self.metric_numpy("dx", topo.LOC_CCC)
+                                [:, h:h + n, :]))
+        return float((self.metric_numpy("dy", topo.LOC_CCC), self.metric_numpy(
+            "dz", topo.LOC_CCC))[axis - 1])
+
+    # -- copies ---------------------------------------------------------------
+
+    def _rebuild(self, halo, dtype, device):
+        def spec(c):
+            return (None if c.topology == topo.FLAT
+                    else (c.origin, c.origin + c.extent))
+
+        return LatitudeLongitudeGrid(
+            size=self.N, longitude=spec(self._lam), latitude=spec(self._phi),
+            z=spec(self._zc), radius=self.radius, topology=self.topology,
+            halo=halo, dtype=dtype, device=device)
+
+    def with_halo(self, halo):
+        if tuple(halo) == self.H:
+            return self
+        return self._rebuild(halo, self.dtype, self.device)
+
+    def to(self, device=None, dtype=None):
+        device = self.device if device is None else torch.device(device)
+        dtype = self.dtype if dtype is None else as_torch_dtype(dtype)
+        if device == self.device and dtype == self.dtype:
+            return self
+        return self._rebuild(self.H, dtype, device)
+
+    def _fingerprint(self):
+        return ("LatitudeLongitudeGrid", self.N, self.H, self.topology,
+                self.radius, str(self.dtype), str(self.device),
+                tuple(c._fp for c in self._coords))
+
+    def __repr__(self):
+        return (f"LatitudeLongitudeGrid(size={self.N}, halo={self.H}, "
+                f"longitude=({self._lam.origin:g}, "
+                f"{self._lam.origin + self._lam.extent:g}), latitude=("
+                f"{self._phi.origin:g}, {self._phi.origin + self._phi.extent:g}"
+                f"), dtype={self.dtype}, device={self.device})")

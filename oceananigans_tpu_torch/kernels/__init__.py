@@ -13,16 +13,18 @@ from .fused_advection import (fused_advection_tendency,
 from .fused_projection import (fused_correct, fused_correct_plain,
                                fused_divergence, fused_divergence_plain)
 from .fused_shallow_water import fused_sw_update, fused_sw_update_plain
+from .fused_vector_invariant import (fused_vi_tendency,
+                                     fused_vi_tendency_plain)
 from .halo_fill import (ZFill, bounded_z_fill, bounded_z_fill_plain,
                         periodic_halo_fill, periodic_halo_fill_plain)
 
 KERNELS = (fused_advection_update, fused_divergence, fused_correct,
            periodic_halo_fill, fused_advection_tendency, bounded_z_fill,
-           fused_sw_update)
+           fused_sw_update, fused_vi_tendency)
 PLAINS = (fused_advection_update_plain, fused_divergence_plain,
           fused_correct_plain, periodic_halo_fill_plain,
           fused_advection_tendency_plain, bounded_z_fill_plain,
-          fused_sw_update_plain)
+          fused_sw_update_plain, fused_vi_tendency_plain)
 
 
 def reset_counters():
@@ -44,5 +46,6 @@ __all__ = ["fused_advection_update", "fused_advection_update_plain",
            "fused_correct_plain", "periodic_halo_fill",
            "periodic_halo_fill_plain", "bounded_z_fill",
            "bounded_z_fill_plain", "fused_sw_update", "fused_sw_update_plain",
+           "fused_vi_tendency", "fused_vi_tendency_plain",
            "ZFill", "KERNELS", "PLAINS",
            "reset_counters", "counters"]

@@ -48,7 +48,7 @@ D = ctypes.c_double
 # C entry points: name -> argtypes. Every entry returns the launch's
 # cudaGetLastError() as an int.
 SIGNATURES = {
-    "oc_halo_fill": [P, I, I, I, I, I, I, I, I, P],
+    "oc_halo_fill": [P, I, I, I, I, I, I, I, I, I, I, P],
     "oc_bounded_z_fill": [P, I, I, P, P, P, P, P, I, I, I, I, I, I, D, D, P,
                           P, P],
     "oc_advection_tendency": [I, I, I, P, I, P, I, I, I, I, I, I, D, D, D, D,
@@ -61,6 +61,8 @@ SIGNATURES = {
                                   D, D, D, P, I, I, I, P],
     "oc_fused_sw_update": [I, I, I, P, P, I, P, P, P, I, I, I, I,
                            D, D, D, D, D, D, D, D, D, D, P, I, P],
+    "oc_vi_set_tables": [P, I],
+    "oc_fused_vi_tendency": [I, I, P, P, P, P, P, D, D, P],
 }
 
 

@@ -4,7 +4,8 @@
 ``oceananigans_tpu/kernels/pallas_fill.py`` ``_build_batched`` (via
 ``get_batched_fill``) and the wrap half of ``_build`` (via
 ``get_pallas_fill``): periodic x, then periodic y over the full x extent, so
-that corners carry the x-wrapped columns, over the full padded z.
+that corners carry the x-wrapped columns, over the full padded z; like the
+TPU kernel's per-axis flags, only the axes the grid makes periodic wrap.
 
 ``bounded_z_fill`` replaces the z-fix half of ``_build``: the bounded-z fill
 of ``_fill_axis`` (``boundary_conditions/fill_halos.py``) for a batch of
@@ -52,10 +53,10 @@ def _geometry(grid):
     return Nx, Ny, Nz, Hx, Hy, Hz
 
 
-def _check_batch(grid, fields):
+def _check_batch(grid, fields, shape=None):
     if not 1 <= len(fields) <= MAX_FIELDS:
         raise ValueError(f"a fill batch takes 1 to {MAX_FIELDS} fields")
-    shape = grid.padded_shape
+    shape = grid.padded_shape if shape is None else shape
     dev, dt = fields[0].device, fields[0].dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"unsupported dtype {dt}")
@@ -76,17 +77,34 @@ def _on_cpu(fields):
 
 # -- periodic wrap ------------------------------------------------------------
 
+def wrap_axes(grid):
+    """(wrap_x, wrap_y): which of x and y are periodic with a halo."""
+    from ..grids.topology import PERIODIC
+    return tuple(grid.topology[a] == PERIODIC and grid.H[a] > 0
+                 for a in (0, 1))
+
+
+def _z_extent(grid, a):
+    """(Nz, Hz) of a padded tensor: the grid's, or (1, 0) for a 2-D
+    (Nx + 2Hx, Ny + 2Hy, 1) surface field on a grid with a z halo."""
+    if a.shape[2] == 1 and grid.padded_shape[2] != 1:
+        return 1, 0
+    return grid.N[2], grid.H[2]
+
+
 def periodic_halo_fill_plain(grid, fields):
-    """Plain PyTorch version: wrap x, then wrap y over the full x extent
-    (every z slot, z halos included)."""
+    """Plain PyTorch version: wrap x (over the full y extent), then wrap y
+    over the full x extent, each axis only if it is periodic (every z slot,
+    z halos included)."""
     Nx, Ny, _, Hx, Hy, _ = _geometry(grid)
+    wx, wy = wrap_axes(grid)
     for a in fields:
         if a.is_cuda:
             periodic_halo_fill_plain.cuda_calls += 1
-        if Hx:
+        if wx:
             a[:Hx] = a[Nx:Nx + Hx]
             a[Hx + Nx:] = a[Hx:2 * Hx]
-        if Hy:
+        if wy:
             a[:, :Hy] = a[:, Ny:Ny + Hy]
             a[:, Hy + Ny:] = a[:, Hy:2 * Hy]
     return fields
@@ -96,23 +114,29 @@ periodic_halo_fill_plain.cuda_calls = 0
 
 
 def periodic_halo_fill(grid, fields):
-    """Fill the periodic x/y halos of padded tensors in place; returns them.
+    """Fill the periodic x/y halos of padded tensors in place (the axes the
+    grid's topology makes periodic); returns them. The tensors are the
+    grid's padded shape, or all 2-D surface fields (Nx + 2Hx, Ny + 2Hy, 1).
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     fields = list(fields)
-    if not fields:
+    wx, wy = wrap_axes(grid)
+    if not fields or not (wx or wy):
         return fields
     if _on_cpu(fields):
         return periodic_halo_fill_plain(grid, fields)
-    _check_batch(grid, fields)
-    Nx, Ny, Nz, Hx, Hy, Hz = _geometry(grid)
-    if Nx < Hx or Ny < Hy:
+    Nz, Hz = _z_extent(grid, fields[0])
+    shape = grid.padded_shape[:2] + (Nz + 2 * Hz,)
+    _check_batch(grid, fields, shape)
+    Nx, Ny, _, Hx, Hy, _ = _geometry(grid)
+    if (wx and Nx < Hx) or (wy and Ny < Hy):
         raise ValueError("the periodic wrap needs N >= H along x and y")
     ptrs = (ctypes.c_void_p * len(fields))(*[a.data_ptr() for a in fields])
     with torch.cuda.device(fields[0].device):
         lib = build.library()
         build.check(lib.oc_halo_fill(ptrs, len(fields),
                                      fields[0].element_size(), Nx, Ny, Nz,
-                                     Hx, Hy, Hz, build.stream_of(fields[0])),
+                                     Hx, Hy, Hz, int(wx), int(wy),
+                                     build.stream_of(fields[0])),
                     lib)
     periodic_halo_fill.launches += 1
     return fields

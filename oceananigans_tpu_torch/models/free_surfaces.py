@@ -1,0 +1,176 @@
+"""Free surfaces of the HydrostaticFreeSurfaceModel.
+
+Counterpart of ``oceananigans_tpu/models/free_surfaces.py``:
+
+- ``ExplicitFreeSurface``: ∂t η = -∇·U, with -g∇η in the momentum
+  tendencies;
+- ``SplitExplicitFreeSurface`` with a fixed substep count
+  (``FixedSubstepNumber``): forward-backward substeps of (η, U, V) with Δτ
+  spanning (t, t + 2Δt), Shchepetkin's averaging-shape weights, the slow
+  forcing Gᵁ = ∫G_u dz, and a filtered (η, U, V) returned for the barotropic
+  corrector.
+
+The substep loop is a Python loop of small 2-D PyTorch operations (the JAX
+package unrolls it at trace time, or scans it above 64 substeps). The halos
+of (η, U, V) are refilled every substep on a grid with a bounded x or y, and
+every ⌊H/2⌋ substeps on a doubly periodic one (a fill keeps ±1 stencils
+valid for H/2 substeps there), as in JAX.
+
+``ImplicitFreeSurface`` and the CFL-based ``FixedTimeStepSize`` substepping
+(``SplitExplicitFreeSurface(cfl=...)``) are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..defaults import defaults
+from ..grids.topology import LOC_CCC, LOC_CFC, LOC_FCC, PERIODIC
+from ..operators.operators import _metric, dx_c, dx_f, dy_c, dy_f
+
+IMPLICIT_ITEM = ("ROADMAP.md queue 1 item 13 (hydrostatic: the implicit free "
+                 "surface, FFT and PCG)")
+FIXED_DT_ITEM = ("ROADMAP.md queue 1 item 13 (hydrostatic: FixedTimeStepSize "
+                 "split-explicit substepping)")
+
+
+def averaging_shape_function(tau, p=2, q=4, r=0.18927):
+    """Shchepetkin & McWilliams (2005) minimal-dispersion averaging kernel."""
+    tau0 = (p + 2) * (p + q + 2) / (p + 1) / (p + q + 1)
+    return (tau / tau0) ** p * (1 - (tau / tau0) ** q) - r * (tau / tau0)
+
+
+def weights_from_substeps(substeps, kernel=averaging_shape_function):
+    """The fractional substep size and the normalized averaging weights,
+    truncated where the kernel goes non-positive at the tail."""
+    tau_f = np.linspace(0.0, 2.0, substeps + 1)
+    dtau = tau_f[1] - tau_f[0]
+    w = np.array([kernel(t) for t in tau_f[1:]])
+    idx = len(w)
+    while idx > 1 and w[idx - 1] <= 0:
+        idx -= 1
+    w = w[:idx]
+    w = w / w.sum()
+    return float(dtau), w
+
+
+class ExplicitFreeSurface:
+    def __init__(self, gravitational_acceleration=None):
+        self.g = (defaults.gravitational_acceleration
+                  if gravitational_acceleration is None
+                  else float(gravitational_acceleration))
+
+    def _fp(self):
+        return ("ExplicitFreeSurface", self.g)
+
+    def __hash__(self):
+        return hash(self._fp())
+
+    def __eq__(self, o):
+        return hasattr(o, "_fp") and self._fp() == o._fp()
+
+
+class ImplicitFreeSurface:
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"ImplicitFreeSurface is not ported yet: {IMPLICIT_ITEM}")
+
+
+class FixedSubstepNumber:
+    """Split-explicit substepping with a fixed substep count."""
+
+    def __init__(self, substeps, averaging_kernel=averaging_shape_function):
+        self.substeps = int(substeps)
+        self.fractional_step, self.weights = weights_from_substeps(
+            self.substeps, averaging_kernel)
+
+    def settings(self, dt):
+        return self.fractional_step, self.weights
+
+    def _fp(self):
+        return ("FixedSubstepNumber", self.substeps)
+
+
+class FixedTimeStepSize:
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"FixedTimeStepSize is not ported yet: {FIXED_DT_ITEM}")
+
+
+class SplitExplicitFreeSurface:
+    """``substeps=N`` (30 by default) takes ``FixedSubstepNumber``; ``cfl=``
+    would take ``FixedTimeStepSize`` and raises."""
+
+    def __init__(self, gravitational_acceleration=None, substeps=None,
+                 cfl=None, averaging_kernel=averaging_shape_function):
+        self.g = (defaults.gravitational_acceleration
+                  if gravitational_acceleration is None
+                  else float(gravitational_acceleration))
+        if cfl is not None and substeps is not None:
+            raise ValueError("give either substeps= or cfl=, not both")
+        if cfl is not None:
+            FixedTimeStepSize(cfl)
+        self.substepping = FixedSubstepNumber(
+            30 if substeps is None else substeps, averaging_kernel)
+
+    @property
+    def substeps(self):
+        return self.substepping.substeps
+
+    @property
+    def weights(self):
+        return self.substepping.weights
+
+    @property
+    def fractional_step(self):
+        return self.substepping.fractional_step
+
+    def settings(self, dt):
+        return self.substepping.settings(dt)
+
+    def _fp(self):
+        return ("SplitExplicitFreeSurface", self.g, self.substepping._fp())
+
+    __hash__ = ExplicitFreeSurface.__hash__
+    __eq__ = ExplicitFreeSurface.__eq__
+
+    def substep(self, grid, H_fc, H_cf, eta, U0, V0, GU, GV, dt, fill_eta,
+                fill_U, fill_V):
+        """Run the barotropic substep loop on 2-D (Nx + 2Hx, Ny + 2Hy, 1)
+        tensors: ``eta`` the free surface, ``U0``/``V0`` the starting
+        transports, ``GU``/``GV`` the depth-integrated slow tendencies,
+        ``H_fc``/``H_cf`` the column depths. ``fill_*`` refresh the 2-D
+        halos in place. Returns the filtered (η, U, V)."""
+        g = self.g
+        frac, weights = self.settings(dt)
+        dtau = frac * dt
+        dy_fc = _metric(grid.dy(LOC_FCC), eta)
+        dx_cf = _metric(grid.dx(LOC_CFC), eta)
+        az_cc = _metric(grid.Az(LOC_CCC), eta)
+        dx_fc = _metric(grid.dx(LOC_FCC), eta)
+        dy_cf = _metric(grid.dy(LOC_CFC), eta)
+        halos = [grid.H[ax] for ax in (0, 1) if not grid.is_flat(ax)]
+        all_periodic = all(grid.topology[ax] == PERIODIC
+                           for ax in (0, 1) if not grid.is_flat(ax))
+        K = max(1, min(halos) // 2) if (all_periodic and halos) else 1
+        if K > 1:
+            # the constant forcing's halos must be ring-valid too
+            GU = fill_U(GU.clone())
+            GV = fill_V(GV.clone())
+        U, V = U0, V0
+        eta_f = U_f = V_f = None
+        for m, w in enumerate(weights):
+            if m % K == 0:
+                eta, U, V = fill_eta(eta), fill_U(U), fill_V(V)
+            w = float(w)
+            div = (dx_c(grid, dy_fc * U) + dy_c(grid, dx_cf * V)) / az_cc
+            eta = eta - dtau * div
+            U = U + dtau * (-g * H_fc * dx_f(grid, eta) / dx_fc + GU)
+            V = V + dtau * (-g * H_cf * dy_f(grid, eta) / dy_cf + GV)
+            if eta_f is None:
+                eta_f, U_f, V_f = w * eta, w * U, w * V
+            else:
+                eta_f = eta_f + w * eta
+                U_f = U_f + w * U
+                V_f = V_f + w * V
+        return eta_f, U_f, V_f

@@ -1,5 +1,6 @@
-from .steppers import (RK3_GAMMAS, RK3_ZETAS, RungeKutta3TimeStepper,
-                       stage_update)
+from .steppers import (RK3_GAMMAS, RK3_ZETAS,
+                       QuasiAdamsBashforth2TimeStepper,
+                       RungeKutta3TimeStepper, stage_update)
 
-__all__ = ["RK3_GAMMAS", "RK3_ZETAS", "RungeKutta3TimeStepper",
-           "stage_update"]
+__all__ = ["RK3_GAMMAS", "RK3_ZETAS", "QuasiAdamsBashforth2TimeStepper",
+           "RungeKutta3TimeStepper", "stage_update"]

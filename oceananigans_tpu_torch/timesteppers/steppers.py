@@ -1,8 +1,11 @@
-"""Time steppers: 3rd-order Runge-Kutta (Le & Moin 1991).
+"""Time steppers: 3rd-order Runge-Kutta (Le & Moin 1991) and
+quasi-Adams-Bashforth-2.
 
-Counterpart of ``oceananigans_tpu/timesteppers/steppers.py`` (RK3 only):
-γ¹=8/15, γ²=5/12, γ³=3/4, ζ²=-17/60, ζ³=-5/12; substep
-Uᵐ⁺¹ = Uᵐ + Δt(γᵐGᵐ + ζᵐGᵐ⁻¹) with a pressure correction per substep.
+Counterpart of ``oceananigans_tpu/timesteppers/steppers.py`` (without the
+split RK3): RK3 with γ¹=8/15, γ²=5/12, γ³=3/4, ζ²=-17/60, ζ³=-5/12, substep
+Uᵐ⁺¹ = Uᵐ + Δt(γᵐGᵐ + ζᵐGᵐ⁻¹) with a pressure correction per substep; QAB2
+with Uⁿ⁺¹ = Uⁿ + Δt[(3/2+χ)Gⁿ - (1/2+χ)Gⁿ⁻¹], χ = 0.1 by default and
+χ = -1/2 (forward Euler) on the first step and after Δt changes.
 """
 
 from __future__ import annotations
@@ -31,3 +34,17 @@ def stage_update(grid, names, fields, G, Gm, gamma_dt, zeta_dt):
 
 class RungeKutta3TimeStepper:
     name = "RungeKutta3"
+
+
+class QuasiAdamsBashforth2TimeStepper:
+    name = "QuasiAdamsBashforth2"
+
+    def __init__(self, chi=0.1):
+        self.chi = float(chi)
+
+    def coefficients(self, euler):
+        """(3/2 + χ, 1/2 + χ, whether G⁻ enters) for one step; ``euler``
+        takes χ = -1/2 and drops G⁻, as the JAX step's ``not_euler`` factor
+        does."""
+        chi = -0.5 if euler else self.chi
+        return 1.5 + chi, 0.5 + chi, 0.0 if euler else 1.0

@@ -109,3 +109,45 @@ def test_biased_pair(scheme, beta, axis):
         want = np.asarray(want)[ints]
         got = got[ints].numpy()
         assert np.max(np.abs(got - want)) <= tol * np.max(np.abs(want))
+
+
+# -- WENO(7/9), smooth= and the bounded x/y cascade --------------------------------
+
+@pytest.mark.parametrize("smooth", [False, True], ids=["own", "smooth"])
+@pytest.mark.parametrize("beta", [0, 1])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("order", [7, 9])
+def test_weno_high_order_biased_by(order, axis, beta, smooth):
+    """WENO(7) and WENO(9) ``biased_by`` and ``biased_pair`` along a bounded
+    x or y (the 9 → 7 → 5 → 3 → 1 cascade near the walls), with the
+    smoothness summed over two other arrays (``smooth=``, the velocity
+    stencil) or from the field itself, against JAX: 1e-13 relative. One
+    array is metric-scaled (about 1e5) so that r = τ/(β+ε) reaches its 1e12
+    saturation in some cells."""
+    from oceananigans_tpu.grids.latlon import LatitudeLongitudeGrid as JLL
+    from oceananigans_tpu_torch.grids import LatitudeLongitudeGrid as TLL
+    cfg = dict(size=(14, 12, 3), longitude=(0, 60), latitude=(15, 75),
+               z=(-10.0, 0.0), halo=(6, 6, 3))
+    jg = JLL(dtype=np.float64, **cfg)
+    tg = TLL(dtype=torch.float64, device="cpu", **cfg)
+    rng = np.random.default_rng(order + axis)
+    a, q, s1, s2 = (rng.standard_normal(jg.padded_shape) for _ in range(4))
+    s2 = 1e5 * s2
+    s2[:, :, 1] = 0.0          # a smooth plane: β = 0 there
+    js = JWENO(order, smoothness_dtype=jnp.float64)
+    ts = WENO(order, smoothness_dtype=torch.float64)
+    jsm = [jnp.asarray(s1), jnp.asarray(s2)] if smooth else None
+    tsm = [torch.as_tensor(s1), torch.as_tensor(s2)] if smooth else None
+    want = js.biased_by(jg, jnp.asarray(a), axis, beta, jnp.asarray(q),
+                        smooth=jsm)
+    got = ts.biased_by(tg, torch.as_tensor(a), axis, beta,
+                       torch.as_tensor(q), smooth=tsm)
+    sl = tuple(slice(h, h + n + 1) for h, n in zip(tg.H, tg.N))
+    scale = np.abs(np.asarray(want)[sl]).max()
+    assert np.abs(got.numpy()[sl] - np.asarray(want)[sl]).max() / scale \
+        < 1e-13
+    jl, jr = js.biased_pair(jg, jnp.asarray(a), axis, beta, smooth=jsm)
+    tl, tr = ts.biased_pair(tg, torch.as_tensor(a), axis, beta, smooth=tsm)
+    for j, t in ((jl, tl), (jr, tr)):
+        assert np.abs(t.numpy()[sl] - np.asarray(j)[sl]).max() / scale \
+            < 1e-13

@@ -61,5 +61,34 @@ def test_constant_f():
 @pytest.mark.parametrize("cls", ["NonTraditionalBetaPlane",
                                  "HydrostaticSphericalCoriolis"])
 def test_hydrostatic_coriolis_raises(cls):
+    """The non-traditional β-plane is not ported; the spherical Coriolis is,
+    and refuses a scheme it does not have, as the JAX one does."""
+    if cls == "HydrostaticSphericalCoriolis":
+        with pytest.raises(ValueError):
+            tcor.HydrostaticSphericalCoriolis(scheme="active_weighted")
+        return
     with pytest.raises(NotImplementedError, match="item 13"):
         getattr(tcor, cls)(latitude=45.0)
+
+
+@pytest.mark.parametrize("scheme", ["energy_conserving",
+                                    "enstrophy_conserving"])
+def test_hydrostatic_spherical_coriolis(scheme):
+    """HydrostaticSphericalCoriolis on a lat-lon grid, f at the (f, f)
+    nodes, in both Sadourny forms: 1e-14 relative to max|f×U|."""
+    from oceananigans_tpu.grids.latlon import LatitudeLongitudeGrid as JLL
+    from oceananigans_tpu_torch.grids import LatitudeLongitudeGrid as TLL
+    cfg = dict(size=(10, 8, 4), longitude=(0, 60), latitude=(15, 75),
+               z=(-100.0, 0.0), halo=(3, 3, 3))
+    jg = JLL(dtype=np.float64, **cfg)
+    tg = TLL(dtype=torch.float64, device="cpu", **cfg)
+    jc = jcor.HydrostaticSphericalCoriolis(scheme=scheme)
+    tc = tcor.HydrostaticSphericalCoriolis(scheme=scheme)
+    assert jc._fp() == tc._fp()
+    rng = np.random.default_rng(2)
+    arrays = [rng.standard_normal(jg.padded_shape) for _ in range(3)]
+    for name in ("x_f_cross_U", "y_f_cross_U", "z_f_cross_U"):
+        want = np.asarray(getattr(jc, name)(jg, *map(jnp.asarray, arrays)))
+        got = getattr(tc, name)(tg, *map(torch.as_tensor, arrays)).numpy()
+        scale = max(np.abs(want).max(), 1e-300)
+        assert np.max(np.abs(got - want)) / scale <= TOL, (scheme, name)

@@ -7,7 +7,11 @@ The file imports no JAX, so it also runs on a machine without it:
 
 (``--noconftest`` skips ``tests/conftest.py``, which configures JAX.)
 
-Float64 fields with float64 WENO smoothness at (16, 16, 32); bound 1e-12
+Float64 fields with float64 WENO smoothness at (16, 16, 32) (the fused
+hydrostatic tendency at 16x12x8 lat-lon, bounded and periodic x, with and
+without ph, for WENOVectorInvariant(), WENOVectorInvariant(order=5) and
+VectorInvariant(); every Coriolis branch; three tracers; a bounded
+RectilinearGrid); bound 1e-12
 relative to max|plain|: the kernels evaluate the same stencils with FMA
 contraction and in another association order, which is roundoff. The halo
 fills copy, so they must agree exactly, except the bounded-z fill's
@@ -181,3 +185,149 @@ def test_fused_sw_update_other_scheme_raises(sw_inputs):
     with pytest.raises(NotImplementedError, match="queue 2"):
         K.fused_sw_update(grid, ot.WENO(3), 9.81, 0.0, hB,
                           ("uh", "vh", "h", "c"), fields, None, 1e-3, 0.0)
+
+
+# -- the fused hydrostatic tendency -------------------------------------------------
+
+VI_N = (16, 12, 8)
+
+
+def _latlon(lon):
+    return ot.LatitudeLongitudeGrid(size=VI_N, longitude=lon,
+                                    latitude=(15, 75), z=(-1800.0, 0.0),
+                                    halo=(6, 6, 6), dtype=torch.float64,
+                                    device="cuda")
+
+
+def _vi_inputs(lon, grid=None, tracers=("T",)):
+    """Random u, v, w, ph and ``tracers`` on ``grid`` (default: the 16x12x8
+    lat-lon grid over ``lon``), halos filled with the default conditions."""
+    from oceananigans_tpu_torch.boundary_conditions import (
+        fill_halo_regions, regularize_field_boundary_conditions)
+    grid = _latlon(lon) if grid is None else grid
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    locs = {"u": ("f", "c", "c"), "v": ("c", "f", "c"),
+            "w": ("c", "c", "f"), "ph": ("c", "c", "c")}
+    locs.update({n: ("c", "c", "c") for n in tracers})
+    fields = {}
+    for name, loc in locs.items():
+        a = torch.randn(grid.padded_shape, generator=gen, dtype=torch.float64,
+                        device="cuda") * (0.1 if name in "uvw" else 1.0)
+        fields[name] = fill_halo_regions(
+            a, grid, loc, regularize_field_boundary_conditions(None, grid,
+                                                               loc))
+    return grid, fields
+
+
+def _vi_compare(grid, f, vi, ts, names, coriolis, with_ph):
+    args = (grid, vi, ts, names, coriolis, f["u"], f["v"], f["w"],
+            {n: f[n] for n in names}, f["ph"] if with_ph else None)
+    Gu, Gv, Gc = K.fused_vi_tendency(*args)
+    Pu, Pv, Pc = K.fused_vi_tendency_plain(*args)
+    torch.cuda.synchronize()
+    _close([Gu, Gv] + [Gc[n] for n in names],
+           [Pu, Pv] + [Pc[n] for n in names])
+
+
+VI_CONFIGS = {
+    "weno_vi": lambda: (ot.WENOVectorInvariant(
+        smoothness_dtype=torch.float64), ot.WENO(
+        5, smoothness_dtype=torch.float64)),
+    "weno5_vi": lambda: (ot.WENOVectorInvariant(
+        order=5, smoothness_dtype=torch.float64), ot.Centered(2)),
+    "vector_invariant": lambda: (ot.VectorInvariant(), ot.Centered(2)),
+}
+
+
+@pytest.mark.parametrize("with_ph", [False, True], ids=["no_ph", "ph"])
+@pytest.mark.parametrize("lon", [(0.0, 60.0), (0.0, 360.0)],
+                         ids=["bounded_x", "periodic_x"])
+@pytest.mark.parametrize("config", sorted(VI_CONFIGS))
+def test_fused_vi_tendency(config, lon, with_ph):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    grid, f = _vi_inputs(lon)
+    vi, ts = VI_CONFIGS[config]()
+    _vi_compare(grid, f, vi, ts, ("T",), ot.HydrostaticSphericalCoriolis(),
+                with_ph)
+
+
+VI_CORIOLIS = {
+    "none": lambda: None,
+    "fplane": lambda: ot.FPlane(f=1e-4),
+    "spherical_enstrophy": lambda: ot.HydrostaticSphericalCoriolis(
+        scheme="enstrophy_conserving"),
+}
+
+
+@pytest.mark.parametrize("coriolis", sorted(VI_CORIOLIS))
+@pytest.mark.parametrize("config", ["weno_vi", "vector_invariant"])
+def test_fused_vi_tendency_coriolis(config, coriolis):
+    """The Coriolis branches the energy-conserving spherical default does
+    not take, on the bounded-x grid with ph."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    grid, f = _vi_inputs((0.0, 60.0))
+    vi, ts = VI_CONFIGS[config]()
+    _vi_compare(grid, f, vi, ts, ("T",), VI_CORIOLIS[coriolis](), True)
+
+
+@pytest.mark.parametrize("config", ["weno_vi", "weno5_vi"])
+def test_fused_vi_tendency_three_tracers(config):
+    """Three tracers (WENO(5) and Centered(2) tracer schemes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    names = ("T", "S", "c")
+    grid, f = _vi_inputs((0.0, 60.0), tracers=names)
+    vi, ts = VI_CONFIGS[config]()
+    _vi_compare(grid, f, vi, ts, names, ot.HydrostaticSphericalCoriolis(),
+                False)
+
+
+@pytest.mark.parametrize("topology", [("bounded", "bounded", "bounded"),
+                                      ("periodic", "bounded", "bounded")],
+                         ids=["bounded_xy", "periodic_x"])
+@pytest.mark.parametrize("config", sorted(VI_CONFIGS))
+def test_fused_vi_tendency_rectilinear(config, topology):
+    """A regular RectilinearGrid (its metric rows are constants), f-plane."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    grid = ot.RectilinearGrid(size=VI_N, extent=(4e5, 2.4e5, 1800.0),
+                              halo=(6, 6, 6), topology=topology,
+                              dtype=torch.float64, device="cuda")
+    grid, f = _vi_inputs(None, grid=grid)
+    vi, ts = VI_CONFIGS[config]()
+    _vi_compare(grid, f, vi, ts, ("T",), ot.FPlane(f=1e-4), True)
+
+
+@pytest.mark.parametrize("surface", [False, True], ids=["3d", "surface"])
+@pytest.mark.parametrize("grid_kind", ["periodic_x_latlon",
+                                       "periodic_y_rectilinear"])
+def test_periodic_halo_fill_one_axis(grid_kind, surface):
+    """The wrap with one periodic axis (wrap_x xor wrap_y) leaves the other
+    axis's halos alone, as its plain version does: exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    if grid_kind == "periodic_x_latlon":
+        grid = _latlon((0.0, 360.0))
+    else:
+        grid = ot.RectilinearGrid(size=VI_N, extent=(1.0, 1.0, 1.0),
+                                  halo=(6, 6, 6),
+                                  topology=("bounded", "periodic", "bounded"),
+                                  dtype=torch.float64, device="cuda")
+    shape = grid.padded_shape[:2] + (1,) if surface else grid.padded_shape
+    a = torch.randn(shape, dtype=torch.float64, device="cuda")
+    b = a.clone()
+    K.periodic_halo_fill(grid, [a])
+    K.periodic_halo_fill_plain(grid, [b])
+    assert torch.equal(a, b)
+
+
+def test_fused_vi_tendency_uncovered_raises():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    grid, f = _vi_inputs((0.0, 60.0))
+    with pytest.raises(NotImplementedError, match="fused VI kernel"):
+        K.fused_vi_tendency(grid, ot.VectorInvariant(), ot.Centered(4),
+                            ("T",), None, f["u"], f["v"], f["w"],
+                            {"T": f["T"]}, None)

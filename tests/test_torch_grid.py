@@ -94,3 +94,42 @@ def test_default_device_without_card_raises():
     cpu_grid = TGrid(size=(4, 4, 8), extent=(1.0, 1.0, 1.0), device="cpu")
     with pytest.raises(RuntimeError, match='device="cpu"'):
         NonhydrostaticModel(cpu_grid, device="cuda")
+
+
+# -- LatitudeLongitudeGrid ------------------------------------------------------
+
+LATLON = [
+    dict(size=(16, 12, 8), longitude=(0, 60), latitude=(15, 75),
+         z=(-1800.0, 0.0), halo=(6, 6, 6)),
+    dict(size=(24, 10, 4), longitude=(0, 360), latitude=(-60, 60),
+         z=(-90.0, 0.0)),
+]
+
+
+@pytest.mark.parametrize("cfg", LATLON, ids=["bounded_x", "periodic_x"])
+def test_latlon_metrics(cfg):
+    """Topology, coordinates, the exact spherical metrics dx, dy, dz, Ax,
+    Ay, Az and V at every location, and the minimum spacings, against the
+    JAX LatitudeLongitudeGrid: exact (the same float64 formulas)."""
+    from oceananigans_tpu.grids.latlon import LatitudeLongitudeGrid as JLL
+    from oceananigans_tpu_torch.grids import LatitudeLongitudeGrid as TLL
+    j = JLL(dtype=np.float64, **cfg)
+    t = TLL(dtype=torch.float64, device="cpu", **cfg)
+    assert t.topology == j.topology and t.padded_shape == j.padded_shape
+    for axis in range(3):
+        for loc in "cf":
+            np.testing.assert_array_equal(t.coord_padded(axis, loc),
+                                          j.coord_padded(axis, loc))
+            np.testing.assert_array_equal(t.nodes1d(axis, loc),
+                                          j.nodes1d(axis, loc))
+        assert t.minimum_spacing(axis) == j.minimum_spacing(axis)
+    for loc in LOCS:
+        for name in ("dx", "dy", "dz", "Ax", "Ay", "Az", "V"):
+            want = np.asarray(getattr(j, name)(loc), np.float64)
+            got = getattr(t, name)(loc)
+            got = got.numpy() if isinstance(got, torch.Tensor) else got
+            np.testing.assert_array_equal(np.broadcast_to(got, want.shape),
+                                          want, err_msg=f"{name}{loc}")
+    t4 = t.with_halo((4, 4, 2))
+    assert t4.H == (4, 4, 2) and t4.extent == t.extent
+    assert t.to(dtype=np.float32).dx(("f", "c", "c")).dtype == torch.float32

@@ -19,7 +19,11 @@ FORBIDDEN = ("jax", "jaxlib", "oceananigans_tpu", "triton")
 
 def test_import_loads_no_jax():
     code = ("import oceananigans_tpu_torch, oceananigans_tpu_torch.models, "
-            "oceananigans_tpu_torch.kernels, sys; "
+            "oceananigans_tpu_torch.kernels, "
+            "oceananigans_tpu_torch.models.hydrostatic, "
+            "oceananigans_tpu_torch.models.free_surfaces, "
+            "oceananigans_tpu_torch.grids.latlon, "
+            "oceananigans_tpu_torch.kernels.fused_vector_invariant, sys; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'oceananigans_tpu', 'triton')]; "
             "assert not bad, bad; "

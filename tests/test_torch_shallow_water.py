@@ -361,14 +361,17 @@ def test_grids_refused():
 
 
 def test_upwinded_vector_invariant_raises():
+    """The upwinded vector-invariant forms are ported (the hydrostatic
+    slice); the multi-dimensional stencil still raises, in both
+    constructors."""
     from oceananigans_tpu_torch.advection.vector_invariant import (
         VectorInvariant, WENOVectorInvariant)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        VectorInvariant(vorticity_scheme=ot.WENO(5))
+    assert VectorInvariant(vorticity_scheme=ot.WENO(5)).required_halo == 4
+    assert WENOVectorInvariant().required_halo == 6
     with pytest.raises(NotImplementedError, match="item 13"):
         VectorInvariant(multi_dimensional_stencil=True)
     with pytest.raises(NotImplementedError, match="item 13"):
-        WENOVectorInvariant()
+        WENOVectorInvariant(multi_dimensional_stencil=True)
 
 
 @pytest.mark.parametrize("vorticity", ["enstrophy_conserving",
