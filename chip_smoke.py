@@ -52,6 +52,22 @@ Phases (each raises on failure; nothing is caught):
 11. Whole step, kernel path against plain path: 3 steps in float64 of the
    flagship and of the convection configuration at 32³, of shallow water at
    128² and of the hydro_row at 16x12x8.
+12. Mesh pieces against their plain versions, on Distributed(Partition(2,
+   2)) naming the card four times: the halo exchange at both sharded paths'
+   shapes (exact), over distinct cards when more than one is visible (peer
+   copies; otherwise the script says that route did not run), and the
+   float64 sharded stages at small size (shallow water 128² with bathymetry
+   and a tracer, the convection tendency at 32³), kernel route against
+   plain route.
+13. Sharded shallow-water path: the 16384² step on that mesh, from the
+   serial path's initial state (kept on the host): launch counters (the
+   sharded stage 3, #8 12 and the exchange 6 times per step, no plain
+   version on CUDA tensors), finite fields, mass conservation, peak memory,
+   phase shares, the fields against the serial model's after the same 16
+   steps, and the sharded stage against its plain route in float32.
+14. Sharded convection path: the 256³ step on that mesh, with the same
+   checks (the sharded tendency 3, #6 12 and the exchange 6 times per step),
+   the divergence at roundoff.
 
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. The script exits non-zero, without that line,
@@ -104,6 +120,25 @@ def cuda_ms(fn, reps=10, warmup=2):
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, reps=10, warmup=2, sleep_cycles=4_000_000):
+    """Median CUDA-event time of one call of ``fn`` in milliseconds with the
+    card kept busy ahead of it (a spin of about 2 ms), so that the events
+    time the call's device work and not the host's time to launch it."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
         start.record()
         fn()
         end.record()
@@ -458,12 +493,14 @@ def bench_model(n, dtype, device, seed=0):
     return model
 
 
-def convection_model(N, dtype, device, smoothness=torch.float32, seed=0):
+def convection_model(N, dtype, device, smoothness=torch.float32, seed=0,
+                     architecture=None, state=None):
     """Rayleigh–Bénard convection, the convection path's configuration
     (tests/test_regression.py rayleigh_benard_model at full width): extent
     1x1x1, WENO(5), BuoyancyTracer, ScalarDiffusivity(ν = κ = 1e-4, Rayleigh
     number 1e8), b = 0.5 on the bottom and -0.5 on the top, b = -z - 0.5 and
-    u = 1e-3·N(0, 1) from np.random.default_rng(seed)."""
+    u = 1e-3·N(0, 1) from np.random.default_rng(seed); or, given ``state``
+    (a model state on the host), that state instead of set()."""
     import oceananigans_tpu_torch as ot
     grid = ot.RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0), dtype=dtype,
                               device=device)
@@ -473,11 +510,24 @@ def convection_model(N, dtype, device, smoothness=torch.float32, seed=0):
         grid, advection=ot.WENO(5, smoothness_dtype=smoothness),
         buoyancy=ot.BuoyancyTracer(), tracers=("b",),
         closure=ot.ScalarDiffusivity(nu=1e-4, kappa={"b": 1e-4}),
-        boundary_conditions={"b": b_bcs})
+        boundary_conditions={"b": b_bcs}, architecture=architecture)
+    if state is not None:
+        model.state = to_device(state, grid.device)
+        return model
     model.set(b=lambda x, y, z: -z - 0.5, enforce_incompressibility=False)
     rng = np.random.default_rng(seed)
     model.set(u=1e-3 * rng.standard_normal(N))
     return model
+
+
+def to_device(state, device):
+    """A copy of a model state (nested dicts of tensors and scalars) with its
+    tensors on ``device``."""
+    if isinstance(state, torch.Tensor):
+        return state.to(device, copy=True)
+    if isinstance(state, dict):
+        return {k: to_device(v, device) for k, v in state.items()}
+    return state
 
 
 def thermal_bubble_model(dtype, device):
@@ -677,6 +727,7 @@ def convection_path_phase(card):
     n, dt = 256, 1e-3
     K.reset_counters()
     model = convection_model((n, n, n), torch.float32, "cuda")
+    state0 = to_device(model.state, "cpu")
     for _ in range(3):
         model.time_step(dt)
     torch.cuda.synchronize()
@@ -717,7 +768,7 @@ def convection_path_phase(card):
     per_step = {k: launches[k] / model.iteration for k in CONVECTION_KERNELS}
     print(f"launches per step (set() included): {per_step}")
     convection_phase_shares(model, dt, 3, card)
-    return launches, step_ms
+    return launches, step_ms, model, state0
 
 
 def goldens_phase():
@@ -964,17 +1015,21 @@ def sw_kernels_phase(n_main):
 
 
 def sw_model(n, dtype, device, seed=0, scheme=None, coriolis=None,
-             bathymetry=0.0, tracers=()):
+             bathymetry=0.0, tracers=(), architecture=None, state=None):
     """The shallow-water row of bench_extra.py (:179-207) on the port: an
     n² periodic grid of extent 1x1, WENO(5), g = 9.81, h = 1 + 0.01·N(0, 1),
-    uh and vh 0.01·N(0, 1) from np.random.default_rng(seed)."""
+    uh and vh 0.01·N(0, 1) from np.random.default_rng(seed); or, given
+    ``state`` (a model state on the host), that state instead of set()."""
     import oceananigans_tpu_torch as ot
     grid = ot.RectilinearGrid(size=(n, n), extent=(1.0, 1.0),
                               topology=SW_TOPOLOGY, dtype=dtype, device=device)
     model = ot.ShallowWaterModel(
         grid, advection=scheme if scheme is not None else ot.WENO(5),
         gravitational_acceleration=9.81, coriolis=coriolis,
-        bathymetry=bathymetry, tracers=tracers)
+        bathymetry=bathymetry, tracers=tracers, architecture=architecture)
+    if state is not None:
+        model.state = to_device(state, grid.device)
+        return model
     rng = np.random.default_rng(seed)
     model.set(h=1.0 + 0.01 * rng.standard_normal((n, n)))
     model.set(uh=0.01 * rng.standard_normal((n, n)))
@@ -1023,6 +1078,7 @@ def sw_path_phase(card, n):
           f"{time.perf_counter() - t0:.1f} s")
     ints = model.grid.interior_slices
     mass0 = model.state["fields"]["h"][ints].double().sum().item()
+    state0 = to_device(model.state, "cpu")
     K.reset_counters()
     for _ in range(3):
         model.time_step(dt)
@@ -1064,7 +1120,7 @@ def sw_path_phase(card, n):
     print(f"peak device memory (model, set() and steps): "
           f"{peak / 2 ** 30:.2f} GiB")
     sw_phase_shares(model, dt, 3, card)
-    return launches, step_ms
+    return launches, step_ms, model, state0
 
 
 # -- hydrostatic ------------------------------------------------------------------
@@ -1463,6 +1519,379 @@ def hydro_path_phase(card, model):
     return launches, step_ms
 
 
+# -- the mesh-sharded paths: a 2x2 mesh of the one card ---------------------------
+
+MESH_SHAPE = (2, 2)
+
+
+def card_mesh():
+    """Distributed(Partition(2, 2)) over cuda:0 named four times: four blocks
+    on one card, their strips moved by the exchange kernel."""
+    import oceananigans_tpu_torch as ot
+    return ot.Distributed(ot.Partition(*MESH_SHAPE),
+                          devices=[torch.device("cuda", 0)] * 4)
+
+
+def exchange_bound(block_shape, halo, n_fields, n_blocks, esize):
+    """The exchange reads and writes each halo element of every block once:
+    per block-field two x strips (Hx·PY·PZ) and two y strips (PX·Hy·PZ)."""
+    PX, PY, PZ = block_shape
+    strips = 2 * halo[0] * PY * PZ + 2 * PX * halo[1] * PZ
+    return bound(esize * 2 * strips * n_fields * n_blocks, 0)
+
+
+def random_blocks(shape, nl, halo, z, nf, dtype, seed, devices=None):
+    """A (Sx, Sy) nested list of nf random locally padded blocks each."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bshape = (nl[0] + 2 * halo[0], nl[1] + 2 * halo[1], z)
+    return [[[torch.randn(bshape, generator=gen, dtype=dtype,
+                          device="cuda").to(devices[i * shape[1] + j]
+                                            if devices else "cuda")
+              for _ in range(nf)] for j in range(shape[1])]
+            for i in range(shape[0])]
+
+
+def exchange_check(mesh, blocks, halo, nl):
+    """The exchange of ``blocks`` against the plain version on copies: the
+    largest difference (the routes copy, so it must be 0) and the copies."""
+    from oceananigans_tpu_torch.parallel import (halo_exchange_local,
+                                                 halo_exchange_plain)
+    copies = [[[a.clone() for a in b] for b in row] for row in blocks]
+    halo_exchange_local(blocks, mesh, halo, nl)
+    halo_exchange_plain(copies, mesh, halo, nl)
+    err = max((a - c).abs().max().item()
+              for row, crow in zip(blocks, copies) for b, cb in zip(row, crow)
+              for a, c in zip(b, cb))
+    return err, copies
+
+
+def mesh_kernels_phase(n_sw, n_conv):
+    """The mesh paths' new pieces against their plain versions:
+    - the exchange (``halo_exchange_local``: the kernel for blocks on one
+      card) against ``halo_exchange_plain`` at both paths' shapes: four
+      blocks of 8200²x1 (uh, vh, h; H = (4, 4, 0)) and of 134x134x262 (u, v,
+      w, b; H = (3, 3, 3), exchanged (3, 3, 0)), float32: exact (copies);
+    - over distinct devices when more than one card is visible (peer copies);
+    - the float64 sharded stages at small size, kernel route against plain
+      route: shallow water at 128² (WENO(5) with float64 smoothness,
+      FPlane(0.3), an array bathymetry, a tracer; both stage variants) and
+      the convection tendency at 32³ (WENO(5) with float64 smoothness and
+      Centered(2)); bound 1e-12 relative to each output's max|plain| (the
+      per-shard kernels' FMA contraction and association order).
+    Returns {name: dict(max_abs_err, ms, plain_ms)} of the exchange at the
+    two paths' shapes (one call: the x and the y launch), timed as device
+    work: the call's host work (the strip tables, about 0.4 ms) exceeds its
+    device work, and on the paths it overlaps the kernels queued ahead."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+    from oceananigans_tpu_torch.parallel import (halo_exchange_local,
+                                                 halo_exchange_plain)
+    mesh = card_mesh().mesh
+    out = {}
+    for name, n, halo, z, nf in (
+            ("mesh_halo_exchange", n_sw, (4, 4, 0), 1, 3),
+            ("mesh_halo_exchange_conv", n_conv, (3, 3, 0), n_conv + 6, 4)):
+        nl = (n // 2, n // 2)
+        blocks = random_blocks(MESH_SHAPE, nl, halo, z, nf, torch.float32, 12)
+        err, copies = exchange_check(mesh, blocks, halo, nl)
+        shape = tuple(blocks[0][0][0].shape)
+        print(f"  halo exchange, 2x2 blocks of {shape} x {nf} fields, halo "
+              f"{halo}: max abs {err:.3e} (bound 0)")
+        assert err == 0.0, ("halo exchange", shape, err)
+        kernel = lambda: halo_exchange_local(blocks, mesh, halo, nl)
+        plain = lambda: halo_exchange_plain(copies, mesh, halo, nl)
+        call_ms, plain_call_ms = cuda_ms(kernel), cuda_ms(plain, reps=5)
+        ms, plain_ms = device_ms(kernel), device_ms(plain, reps=5)
+        print(f"  time halo exchange at {shape} x {nf} x 4 blocks, device "
+              f"work (card busy ahead): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms; whole call from an idle card (host "
+              f"launch work included): kernel {call_ms:.4f} ms, plain "
+              f"{plain_call_ms:.4f} ms")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        del blocks, copies
+        torch.cuda.empty_cache()
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        devices = [torch.device("cuda", k % n_cards) for k in range(4)]
+        peer = ot.Distributed(ot.Partition(*MESH_SHAPE), devices=devices).mesh
+        blocks = random_blocks(MESH_SHAPE, (64, 64), (3, 3, 0), 16, 2,
+                               torch.float64, 13, devices)
+        err, _ = exchange_check(peer, blocks, (3, 3, 0), (64, 64))
+        print(f"  halo exchange over {n_cards} cards (peer copies between "
+              f"them): max abs {err:.3e} (bound 0)")
+        assert err == 0.0, ("peer-copy exchange", err)
+    else:
+        print("  the peer-copy route (strips between distinct cards) did not "
+              "run: one card is visible")
+    # the float64 sharded stages at small size
+    grid, fields, hB, Gm = sw_kernel_inputs(128, torch.float64, ("c",), seed=14)
+    names = SW_NAMES + ("c",)
+    args = (grid, ot.WENO(5, smoothness_dtype=torch.float64), 9.81, 0.3, hB,
+            names, mesh)
+    stage = K.build_sharded_fused_sw_update(*args)
+    plain = K.build_sharded_fused_sw_update_plain(*args)
+    gms = [Gm[:, i * 64:(i + 1) * 64, j * 64:(j + 1) * 64].contiguous()
+           for i in range(2) for j in range(2)]
+    ints = grid.interior_slices
+    for gm in (None, gms):
+        Gk, nk = stage(fields, gm, 2e-5, -1e-5)
+        Gp, np_ = plain(fields, gm, 2e-5, -1e-5)
+        err, rel = worst_rel(Gk + [nk[c][ints] for c in names],
+                             Gp + [np_[c][ints] for c in names])
+        print(f"  sharded shallow-water stage 128^2 float64 on 2x2, "
+              f"Gm={gm is not None}: max abs {err:.3e}, rel {rel:.3e}")
+        assert rel <= 1e-12, ("sharded shallow-water stage", rel)
+    grid, cfields, specs = convection_kernel_inputs((32, 32, 32),
+                                                    torch.float64, seed=15)
+    K.bounded_z_fill_plain(grid, cfields, specs)
+    K.periodic_halo_fill_plain(grid, cfields)
+    for scheme in (ot.WENO(5, smoothness_dtype=torch.float64), ot.Centered(2)):
+        Gk = K.build_sharded_fused_advection(grid, scheme, mesh)(cfields)
+        Gp = K.build_sharded_fused_advection_plain(grid, scheme, mesh)(cfields)
+        err, rel = worst_rel(list(Gk), list(Gp))
+        print(f"  sharded advection tendency 32^3 float64 on 2x2 {scheme!r}: "
+              f"max abs {err:.3e}, rel {rel:.3e}")
+        assert rel <= 1e-12, ("sharded advection tendency", scheme, rel)
+    torch.cuda.synchronize()
+    return out
+
+
+def mesh_phase_shares(model, dt, steps, card, label, kernel_module,
+                      kernel_name, fill_module, stage_name):
+    """Per-step CUDA-event times of a sharded step: the per-shard kernel,
+    the cut into blocks, the exchange, the rest of the sharded stage
+    (stitching the interiors back), the global-view fills, and the rest of
+    the step."""
+    import oceananigans_tpu_torch.parallel.halo_exchange as hx
+    timer = PhaseTimer()
+    saved = [(kernel_module, kernel_name), (hx, "scatter_blocks"),
+             (hx, "halo_exchange_local"), (fill_module, "fill_all_halo_regions")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
+    for (mod, name, fn), phase in zip(saved, ("kernel", "cut", "exchange",
+                                              "fills")):
+        setattr(mod, name, timer.wrap(phase, fn))
+    stage = getattr(model, stage_name)
+    setattr(model, stage_name, timer.wrap("stage", stage))
+    model.time_step = timer.wrap("step", model.time_step)
+    try:
+        for _ in range(steps):
+            model.time_step(dt)
+        t = {k: v / steps for k, v in timer.totals().items()}
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        setattr(model, stage_name, stage)
+        del model.time_step
+    g = t.get
+    shares = {
+        "per-shard kernel (4 launches per stage)": g("kernel", 0.0),
+        "cut into blocks": g("cut", 0.0),
+        "halo exchange (2 launches per stage)": g("exchange", 0.0),
+        "stitch the interiors back, host gaps of the stage":
+            g("stage", 0.0) - g("kernel", 0.0) - g("cut", 0.0)
+            - g("exchange", 0.0),
+        "global-view halo fills": g("fills", 0.0),
+    }
+    shares["rest of the step"] = t["step"] - sum(shares.values())
+    print(f"{label} step phases, ms per step over {steps} steps (CUDA "
+          f"events) [{card}]:")
+    for phase, ms in shares.items():
+        print(f"  {phase}: {ms:.4f} ms ({100 * ms / t['step']:.2f}%)")
+    print(f"  step: {t['step']:.4f} ms")
+    return shares
+
+
+def timed_steps(model, dt, warmup=3, timed=10):
+    for _ in range(warmup):
+        model.time_step(dt)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        model.time_step(dt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def check_mesh_launches(launches, plain_cuda, expect):
+    for name, count in expect.items():
+        assert launches[name] == count, (name, launches[name], count)
+    for name, count in plain_cuda.items():
+        assert count == 0, f"plain {name} ran on CUDA tensors"
+
+
+def against_serial(label, sharded, serial, names, bound_rel):
+    """The worst difference of the sharded model's fields from the serial
+    model's after the same steps, each relative to its max|serial|."""
+    worst_abs, worst = 0.0, 0.0
+    for name in names:
+        a, b = sharded.field(name).interior, serial.field(name).interior
+        err = (a - b).abs().max().item()
+        rel = err / b.abs().max().item()
+        print(f"  {label} sharded against serial after {sharded.iteration} "
+              f"steps, {name}: max abs {err:.3e}, rel {rel:.3e}")
+        worst_abs, worst = max(worst_abs, err), max(worst, rel)
+    print(f"{label}: sharded against serial, worst relative difference "
+          f"{worst:.3e} (bound {bound_rel:g}); "
+          f"{'bit for bit' if worst_abs == 0.0 else 'not bit for bit'}")
+    assert worst <= bound_rel, (label, "sharded against serial", worst)
+
+
+def sharded_sw_path_phase(card, n, serial, state0):
+    """The shallow-water path at n² float32 on the 2x2 mesh of the card, from
+    the serial path's initial state: counters reset after the model is built
+    and read after 3 warm-up and 10 timed steps; then the phase shares (3
+    steps), the fields against the serial model's after the same 16 steps
+    (bound 0: the shards take the global spacing, and with no bathymetry
+    every cell sees the serial operands), and the sharded stage against its
+    plain route on the final state (float32, bound 1e-5 relative, as #8)."""
+    import oceananigans_tpu_torch.kernels.fused_shallow_water as fsw
+    import oceananigans_tpu_torch.models.shallow_water as sw
+    from oceananigans_tpu_torch import kernels as K
+    dt = 1e-5
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = sw_model(n, torch.float32, "cuda", architecture=card_mesh(),
+                     state=state0)
+    assert model._sharded is not None
+    ints = model.grid.interior_slices
+    mass0 = model.state["fields"]["h"][ints].double().sum().item()
+    K.reset_counters()
+    times = timed_steps(model, dt)
+    launches, plain_cuda = K.counters()
+    steps = model.iteration
+    print(f"sharded shallow-water path launches over {steps} steps: "
+          f"{launches}; plain calls on CUDA: {plain_cuda}")
+    stages = 3 * steps
+    check_mesh_launches(launches, plain_cuda, {
+        "build_sharded_fused_sw_update": stages, "fused_sw_update": 4 * stages,
+        "mesh_halo_exchange": 2 * stages, "periodic_halo_fill": stages})
+    peak = torch.cuda.max_memory_allocated() - base
+    for name in SW_NAMES:
+        a = model.field(name).interior
+        assert a.shape == (n, n, 1), (name, a.shape)
+        assert torch.isfinite(a).all().item(), f"{name} is not finite"
+    mass = model.state["fields"]["h"][ints].double().sum().item()
+    drift = abs(mass - mass0) / mass0
+    print(f"sharded shallow water: |Σh − Σh₀|/Σh₀ after {steps} steps: "
+          f"{drift:.3e} (bound 1e-9)")
+    assert drift < 1e-9, ("mass not conserved", drift)
+    step_ms = statistics.median(times) * 1e3
+    print(f"sharded shallow-water path: {n}^2 WENO5 float32 RK3 on a 2x2 "
+          f"mesh of one card, step median {step_ms:.3f} ms over {len(times)} "
+          f"steps (min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
+          f"{n * n / (step_ms / 1e3):.4e} cell-updates/s [{card}]")
+    print(f"peak device memory (sharded model and steps, above the "
+          f"{base / 2 ** 30:.2f} GiB held before): {peak / 2 ** 30:.2f} GiB")
+    mesh_phase_shares(model, dt, 3, card, "sharded shallow-water", fsw,
+                      "fused_sw_update", sw, "_sharded")
+    against_serial("shallow water", model, serial, SW_NAMES, 0.0)
+    # the stage against its plain route on the final state
+    fields = model._fill_all(dict(model.state["fields"]))
+    args = (model.grid, model.advection, model.g, 0.0, model.bathymetry,
+            SW_NAMES, model.architecture.mesh)
+    stage = K.build_sharded_fused_sw_update(*args)
+    plain = K.build_sharded_fused_sw_update_plain(*args)
+    Gm = stage(fields, None, 2e-5, 0.0)[0]
+    run = (fields, Gm, 2e-5, -1e-5)
+    Gk, nk = stage(*run)
+    Gp, np_ = plain(*run)
+    err, rel = worst_rel(Gk + [nk[c][ints] for c in SW_NAMES],
+                         Gp + [np_[c][ints] for c in SW_NAMES])
+    print(f"  sharded shallow-water stage {n}^2 float32 on 2x2 (G⁻ variant):"
+          f" max abs {err:.3e}, rel {rel:.3e} (bound 1e-5)")
+    assert rel <= 1e-5, ("sharded shallow-water stage float32", rel)
+    del Gk, nk, Gp, np_
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: stage(*run), reps=5)
+    plain_ms = cuda_ms(lambda: plain(*run), reps=3, warmup=1)
+    print(f"  time sharded shallow-water stage (G⁻ variant) at {n}^2 on 2x2:"
+          f" kernel route {ms:.4f} ms, plain route {plain_ms:.4f} ms")
+    return launches, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def sharded_convection_path_phase(card, n, serial, state0):
+    """The convection path at n³ float32 on the 2x2 mesh of the card, from
+    the serial path's initial state: counters reset after the model is built
+    and read after 3 warm-up and 10 timed steps; finite fields, the
+    divergence at roundoff; the phase shares (3 steps); the fields against
+    the serial model's after the same 16 steps (bound 1e-5 relative); the
+    sharded tendency against its plain route on #6's float32 check inputs
+    at n³ (bound 2e-5 relative to max|plain|, as #6)."""
+    import oceananigans_tpu_torch as ot
+    import oceananigans_tpu_torch.kernels.fused_advection as fa
+    import oceananigans_tpu_torch.models.nonhydrostatic as nh
+    from oceananigans_tpu_torch import kernels as K
+    from oceananigans_tpu_torch.models.nonhydrostatic import \
+        _interior_divergence
+    dt = 1e-3
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = convection_model((n, n, n), torch.float32, "cuda",
+                             architecture=card_mesh(), state=state0)
+    assert model._sharded_advection is not None
+    K.reset_counters()
+    times = timed_steps(model, dt)
+    launches, plain_cuda = K.counters()
+    steps = model.iteration
+    print(f"sharded convection path launches over {steps} steps: {launches}; "
+          f"plain calls on CUDA: {plain_cuda}")
+    stages = 3 * steps
+    check_mesh_launches(launches, plain_cuda, {
+        "build_sharded_fused_advection": stages,
+        "fused_advection_tendency": 4 * stages,
+        "mesh_halo_exchange": 2 * stages})
+    assert launches["bounded_z_fill"] > 0 and launches["periodic_halo_fill"] > 0
+    peak = torch.cuda.max_memory_allocated() - base
+    fields = model.state["fields"]
+    for name in ("u", "v", "w", "b"):
+        assert torch.isfinite(fields[name]).all().item(), f"{name} not finite"
+    ints = model.grid.interior_slices
+    u, v, w = (fields[c] for c in "uvw")
+    model._fill_all(dict(u=u, v=v, w=w))
+    div = _interior_divergence(model.grid, u, v, w)
+    umax = max(a[ints].abs().max().item() for a in (u, v, w))
+    div_rel = div.abs().max().item() * model.grid.dx(("c", "c", "c")) / umax
+    print(f"sharded convection: max|div u|·Δx/max|u| after {steps} steps: "
+          f"{div_rel:.3e}")
+    assert div_rel < 1e-4, ("divergence not at roundoff", div_rel)
+    step_ms = statistics.median(times) * 1e3
+    print(f"sharded convection path: {n}^3 Rayleigh-Benard WENO5 float32 RK3 "
+          f"on a 2x2 mesh of one card, step median {step_ms:.3f} ms over "
+          f"{len(times)} steps (min {min(times) * 1e3:.3f}, max "
+          f"{max(times) * 1e3:.3f}), {n ** 3 / (step_ms / 1e3):.4e} "
+          f"cell-updates/s [{card}]")
+    print(f"peak device memory (sharded model and steps, above the "
+          f"{base / 2 ** 30:.2f} GiB held before): {peak / 2 ** 30:.2f} GiB")
+    mesh_phase_shares(model, dt, 3, card, "sharded convection", fa,
+                      "fused_advection_tendency", nh, "_sharded_advection")
+    against_serial("convection", model, serial, ("u", "v", "w", "b"), 1e-5)
+    # the inputs of #6's own float32 check: on the path's state the b
+    # tendency is the small difference of fluxes about 100 times larger, so
+    # a bound relative to max|G| there would measure that cancellation
+    grid, q, specs = convection_kernel_inputs((n, n, n), torch.float32, seed=2)
+    K.bounded_z_fill_plain(grid, q, specs)
+    K.periodic_halo_fill_plain(grid, q)
+    mesh = model.architecture.mesh
+    del model, serial
+    torch.cuda.empty_cache()
+    stage = K.build_sharded_fused_advection(grid, ot.WENO(5), mesh)
+    plain = K.build_sharded_fused_advection_plain(grid, ot.WENO(5), mesh)
+    err, rel = max_err(list(stage(q)), list(plain(q)))
+    print(f"  sharded advection tendency {n}^3 float32 on 2x2 (u, v, w, b = "
+          f"0.1·N(0, 1)): max abs {err:.3e}, rel {rel:.3e} (bound 2e-5)")
+    assert rel <= 2e-5, ("sharded advection tendency float32", rel)
+    ms = cuda_ms(lambda: stage(q))
+    plain_ms = cuda_ms(lambda: plain(q), reps=5)
+    print(f"  time sharded advection tendency at {n}^3 on 2x2: kernel route "
+          f"{ms:.4f} ms, plain route {plain_ms:.4f} ms")
+    return launches, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
 KERNEL_SOURCES = {
     "fused_advection_update": (
         "oceananigans_tpu_torch/csrc/fused_advection.cu",
@@ -1488,6 +1917,15 @@ KERNEL_SOURCES = {
     "fused_vi_tendency": (
         "oceananigans_tpu_torch/csrc/fused_vector_invariant.cu",
         "oceananigans_tpu/kernels/fused_vector_invariant.py:262"),
+    "build_sharded_fused_advection": (
+        "oceananigans_tpu_torch/kernels/fused_advection.py",
+        "oceananigans_tpu/kernels/fused_advection.py:795"),
+    "build_sharded_fused_sw_update": (
+        "oceananigans_tpu_torch/kernels/fused_shallow_water.py",
+        "oceananigans_tpu/kernels/fused_shallow_water.py:214"),
+    "mesh_halo_exchange": (
+        "oceananigans_tpu_torch/csrc/halo_exchange.cu",
+        "oceananigans_tpu/parallel/halo_exchange.py:25"),
 }
 
 
@@ -1500,13 +1938,32 @@ def main():
     bounds = flagship_bounds((256, 256, 256), (4, 4, 0), 4)
     bounds.update(convection_bounds((256, 256, 256), (3, 3, 3), 4))
     flagship_launches, _ = flagship_path_phase(card)
-    convection_launches, _ = convection_path_phase(card)
+    convection_launches, _, conv_serial, conv_state0 = \
+        convection_path_phase(card)
     print("shallow-water kernels against plain versions:")
     n_sw = 16384
     measured.update(sw_kernels_phase(n_sw))
     bounds.update(sw_bounds(n_sw, (4, 4, 0), 4))
-    sw_launches, _ = sw_path_phase(card, n_sw)
+    sw_launches, _, sw_serial, sw_state0 = sw_path_phase(card, n_sw)
     torch.cuda.empty_cache()
+    print("mesh pieces against plain versions (2x2 mesh of one card):")
+    measured.update(mesh_kernels_phase(n_sw, 256))
+    torch.cuda.empty_cache()
+    sharded_sw_launches, measured["build_sharded_fused_sw_update"] = \
+        sharded_sw_path_phase(card, n_sw, sw_serial, sw_state0)
+    del sw_serial, sw_state0
+    torch.cuda.empty_cache()
+    sharded_conv_launches, measured["build_sharded_fused_advection"] = \
+        sharded_convection_path_phase(card, 256, conv_serial, conv_state0)
+    del conv_serial, conv_state0
+    torch.cuda.empty_cache()
+    bounds["build_sharded_fused_sw_update"] = bounds["fused_sw_update"]
+    bounds["build_sharded_fused_advection"] = \
+        bounds["fused_advection_tendency"]
+    bounds["mesh_halo_exchange"] = exchange_bound(
+        (n_sw // 2 + 8, n_sw // 2 + 8, 1), (4, 4), 3, 4, 4)
+    bounds["mesh_halo_exchange_conv"] = exchange_bound(
+        (128 + 6, 128 + 6, 262), (3, 3), 4, 4, 4)
     print("hydrostatic kernels against plain versions:")
     measured_vi, hmodel = hydro_kernels_phase()
     measured.update(measured_vi)
@@ -1526,6 +1983,10 @@ def main():
         launches = (flagship_launches if kname in FLAGSHIP_KERNELS
                     else sw_launches if kname == "fused_sw_update"
                     else hydro_launches if kname == "fused_vi_tendency"
+                    else sharded_sw_launches if kname in (
+                        "build_sharded_fused_sw_update", "mesh_halo_exchange")
+                    else sharded_conv_launches
+                    if kname == "build_sharded_fused_advection"
                     else convection_launches)[kname]
         bound_ms, bound_by = bounds[kname]
         rows.append(dict(name=kname, route="cuda", source=source,
@@ -1545,6 +2006,14 @@ def main():
     print(f"bounded_z_fill on the hydrostatic path (u, v, T, w of "
           f"{HYDRO_N}, Hz = {hydro_H[2]}): {fill_hydro}, bound "
           f"{bounds['bounded_z_fill_hydro']}")
+    exchange_conv = dict(measured["mesh_halo_exchange_conv"],
+                         launches=sharded_conv_launches["mesh_halo_exchange"])
+    print(f"mesh_halo_exchange on the sharded convection path (u, v, w, b in "
+          f"4 blocks of 134x134x262, halo (3, 3)): {exchange_conv}, bound "
+          f"{bounds['mesh_halo_exchange_conv']}")
+    print(f"per-shard launches on the sharded paths: fused_sw_update "
+          f"{sharded_sw_launches['fused_sw_update']}, fused_advection_tendency "
+          f"{sharded_conv_launches['fused_advection_tendency']}")
     print(f"fused_vi_tendency design scratch ({VI_SCRATCH} derived fields "
           f"written and read once, not in its bound): "
           f"{bounds['vi_scratch_ms']:.4f} ms at 3.35 TB/s")

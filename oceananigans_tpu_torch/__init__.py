@@ -34,6 +34,8 @@ Layer map:
     timesteppers/          RK3 coefficients, quasi-AB2
     models/                NonhydrostaticModel, ShallowWaterModel,
                            HydrostaticFreeSurfaceModel, free surfaces
+    parallel/              device meshes (Distributed, Partition) and the
+                           halo exchange between shards
     kernels/, csrc/        CUDA kernels and their plain versions
 """
 
@@ -52,6 +54,7 @@ from .coriolis import (BetaPlane, ConstantCartesianCoriolis, FPlane,
                        HydrostaticSphericalCoriolis)
 from .closures import ScalarDiffusivity
 from .fields import Field
+from .parallel import CPU, GPU, Distributed, Partition
 from .models import (ConservativeFormulation, ExplicitFreeSurface,
                      HydrostaticFreeSurfaceModel, NonhydrostaticModel,
                      ShallowWaterModel, SplitExplicitFreeSurface,
@@ -68,4 +71,5 @@ __all__ = ["defaults", "RectilinearGrid", "LatitudeLongitudeGrid",
            "VectorInvariant", "WENOVectorInvariant", "FPlane",
            "ConstantCartesianCoriolis", "BetaPlane",
            "HydrostaticSphericalCoriolis", "HydrostaticFreeSurfaceModel",
-           "SplitExplicitFreeSurface", "ExplicitFreeSurface"]
+           "SplitExplicitFreeSurface", "ExplicitFreeSurface", "CPU", "GPU",
+           "Distributed", "Partition"]

@@ -13,6 +13,8 @@ metrics are numpy float64, as in the JAX package; the grid also carries the
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
@@ -32,7 +34,7 @@ class _Coordinate:
     __slots__ = ("N", "H", "topology", "regular", "delta", "origin",
                  "xF", "xC", "dC", "dF", "_fp")
 
-    def __init__(self, N, H, topology, interval=None):
+    def __init__(self, N, H, topology, interval=None, delta=None):
         self.N = int(N)
         self.H = int(H)
         self.topology = topology
@@ -50,7 +52,7 @@ class _Coordinate:
 
         Npad = self.N + 2 * self.H
         a, b = float(interval[0]), float(interval[1])
-        self.delta = (b - a) / self.N
+        self.delta = (b - a) / self.N if delta is None else float(delta)
         self.origin = a
         # padded faces: indices -H .. N+H (length Npad + 1)
         idx = np.arange(-self.H, self.N + self.H + 1, dtype=np.float64)
@@ -210,6 +212,22 @@ class RectilinearGrid(AbstractGrid):
         if tuple(halo) == self.H:
             return self
         return self._rebuild(halo, self.dtype, self.device)
+
+    def local_grid(self, size, device=None):
+        """One shard's grid: ``size`` = (nx, ny, nz) interior cells with this
+        grid's halo, topology, dtype and spacing, on ``device`` (default:
+        this grid's). The spacing is copied, not re-derived from an extent,
+        so the shard's metrics equal this grid's exactly; its coordinates
+        start at this grid's origin (the sharded stages read only metrics)."""
+        local = copy.copy(self)
+        local.N = tuple(int(n) for n in size)
+        local.device = self.device if device is None else torch.device(device)
+        local._coords = [
+            c if c.topology == topo.FLAT else _Coordinate(
+                n, c.H, c.topology, (c.origin, c.origin + n * c.delta),
+                delta=c.delta)
+            for c, n in zip(self._coords, local.N)]
+        return local
 
     def to(self, device=None, dtype=None):
         """This grid with fields on another device and/or of another dtype."""

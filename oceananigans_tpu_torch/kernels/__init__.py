@@ -3,16 +3,24 @@
 Each wrapper takes its plain version for CPU tensors and launches its kernel
 for CUDA tensors; it counts its launches in a ``launches`` attribute, and
 each plain version counts the calls it served on CUDA tensors in
-``cuda_calls``. The kernels build at first use (``build.py``).
+``cuda_calls``. The sharded stages (``build_sharded_*``) count the calls of
+the stages they built, and the halo exchange between shards lives in
+``parallel/halo_exchange.py``. The kernels build at first use
+(``build.py``).
 """
 
-from .fused_advection import (fused_advection_tendency,
+from ..parallel.halo_exchange import halo_exchange_plain, mesh_halo_exchange
+from .fused_advection import (build_sharded_fused_advection,
+                              build_sharded_fused_advection_plain,
+                              fused_advection_tendency,
                               fused_advection_tendency_plain,
                               fused_advection_update,
                               fused_advection_update_plain)
 from .fused_projection import (fused_correct, fused_correct_plain,
                                fused_divergence, fused_divergence_plain)
-from .fused_shallow_water import fused_sw_update, fused_sw_update_plain
+from .fused_shallow_water import (build_sharded_fused_sw_update,
+                                  build_sharded_fused_sw_update_plain,
+                                  fused_sw_update, fused_sw_update_plain)
 from .fused_vector_invariant import (fused_vi_tendency,
                                      fused_vi_tendency_plain)
 from .halo_fill import (ZFill, bounded_z_fill, bounded_z_fill_plain,
@@ -20,11 +28,14 @@ from .halo_fill import (ZFill, bounded_z_fill, bounded_z_fill_plain,
 
 KERNELS = (fused_advection_update, fused_divergence, fused_correct,
            periodic_halo_fill, fused_advection_tendency, bounded_z_fill,
-           fused_sw_update, fused_vi_tendency)
+           fused_sw_update, fused_vi_tendency, mesh_halo_exchange,
+           build_sharded_fused_sw_update, build_sharded_fused_advection)
 PLAINS = (fused_advection_update_plain, fused_divergence_plain,
           fused_correct_plain, periodic_halo_fill_plain,
           fused_advection_tendency_plain, bounded_z_fill_plain,
-          fused_sw_update_plain, fused_vi_tendency_plain)
+          fused_sw_update_plain, fused_vi_tendency_plain, halo_exchange_plain,
+          build_sharded_fused_sw_update_plain,
+          build_sharded_fused_advection_plain)
 
 
 def reset_counters():
@@ -47,5 +58,10 @@ __all__ = ["fused_advection_update", "fused_advection_update_plain",
            "periodic_halo_fill_plain", "bounded_z_fill",
            "bounded_z_fill_plain", "fused_sw_update", "fused_sw_update_plain",
            "fused_vi_tendency", "fused_vi_tendency_plain",
+           "mesh_halo_exchange", "halo_exchange_plain",
+           "build_sharded_fused_sw_update",
+           "build_sharded_fused_sw_update_plain",
+           "build_sharded_fused_advection",
+           "build_sharded_fused_advection_plain",
            "ZFill", "KERNELS", "PLAINS",
            "reset_counters", "counters"]

@@ -63,6 +63,7 @@ SIGNATURES = {
                            D, D, D, D, D, D, D, D, D, D, P, I, P],
     "oc_vi_set_tables": [P, I],
     "oc_fused_vi_tendency": [I, I, P, P, P, P, P, D, D, P],
+    "oc_mesh_halo_exchange": [P, P, P, I, I, I, I, I, I, I, I, P],
 }
 
 

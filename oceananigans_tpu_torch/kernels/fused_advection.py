@@ -33,6 +33,10 @@ update: the model adds buoyancy, closure and boundary fluxes to G and
 updates in PyTorch. Its CUDA kernel (``csrc/advection_tendency.cu``) has the
 same design and bound as the update kernel, and covers WENO(5) and
 Centered(2) through the same coefficient table.
+
+``build_sharded_fused_advection`` replaces ``build_sharded_fused_advection``
+(#7): the tendency kernel once per shard of a device mesh, on blocks whose
+halos come from the mesh's halo exchange.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from ..advection import (WENO, Centered, UpwindBiased, div_Uc, div_Uu,
                          div_Uv, div_Uw)
 from ..advection.schemes import WENO_EPSILON, WENO_R_MAX
 from ..operators.shifts import shift
+from ..parallel import halo_exchange as hx
 from . import build
 from .fused_projection import (_DTYPE_CODES, _metrics, check_fast_layout,
                                check_tensors, scalar_product)
@@ -281,3 +286,71 @@ def fused_advection_tendency(grid, scheme, fields):
 
 
 fused_advection_tendency.launches = 0
+
+
+# -- tendency only, under a device mesh ------------------------------------------
+
+def build_sharded_fused_advection(grid, scheme, mesh):
+    """The tendency-only advection under an (x, y) device mesh: replaces the
+    TPU kernel ``oceananigans_tpu/kernels/fused_advection.py``
+    ``build_sharded_fused_advection`` (#7, a ``shard_map`` around #6), on the
+    padded layout.
+
+    Returns ``sharded(fields) -> G``: for ``fields`` = [u, v, w, tracers...],
+    global padded tensors with filled halos (z included), it cuts the
+    interiors into the mesh's (nlx, nly) blocks, each padded by (Hx, Hy) and
+    carrying the full padded z, on its shard's device, fills the blocks' x
+    and y halos from their neighbours (``parallel.halo_exchange_local``),
+    runs ``fused_advection_tendency`` (#6) once per shard on the shard's
+    grid, and returns the interiors stitched into one (nf, Nx, Ny, Nz)
+    tensor on the grid's device, as ``fused_advection_tendency`` does. The
+    shards' grids take the global spacing exactly
+    (``RectilinearGrid.local_grid``) and the exchanged halos of periodic x
+    and y are the global wrap's values, so the result equals the serial
+    kernel's bit for bit. Counts its calls on CUDA tensors in
+    ``launches``."""
+    return _build_sharded_tendency(grid, scheme, mesh, plain=False)
+
+
+build_sharded_fused_advection.launches = 0
+
+
+def build_sharded_fused_advection_plain(grid, scheme, mesh):
+    """Plain PyTorch version: the same blocks through ``halo_exchange_plain``
+    and ``fused_advection_tendency_plain``. Counts its calls on CUDA tensors
+    in ``cuda_calls``."""
+    return _build_sharded_tendency(grid, scheme, mesh, plain=True)
+
+
+build_sharded_fused_advection_plain.cuda_calls = 0
+
+
+def _build_sharded_tendency(grid, scheme, mesh, plain):
+    # the routes are looked up at each call, so that a caller can wrap them
+    (nlx, nly), periodic, lgrids = hx.shard_grids(grid, mesh, grid.N[2])
+    Hx, Hy, _ = grid.H
+    Sx, Sy = mesh.devices.shape
+    shards = [(i, j) for i in range(Sx) for j in range(Sy)]
+
+    def sharded(fields):
+        fields = list(fields)
+        if fields[0].is_cuda:
+            if plain:
+                build_sharded_fused_advection_plain.cuda_calls += 1
+            else:
+                build_sharded_fused_advection.launches += 1
+        exchange = hx.halo_exchange_plain if plain else hx.halo_exchange_local
+        kernel = fused_advection_tendency_plain if plain \
+            else fused_advection_tendency
+        blocks = exchange(hx.scatter_blocks(grid, mesh, fields), mesh,
+                          (Hx, Hy, 0), (nlx, nly, grid.padded_shape[2]),
+                          periodic)
+        G = torch.empty((len(fields),) + grid.N, dtype=fields[0].dtype,
+                        device=fields[0].device)
+        for i, j in shards:
+            Gs = kernel(lgrids[mesh.devices[i, j]], scheme, blocks[i][j])
+            blocks[i][j] = None
+            G[:, i * nlx:(i + 1) * nlx, j * nly:(j + 1) * nly] = Gs
+        return G
+
+    return sharded

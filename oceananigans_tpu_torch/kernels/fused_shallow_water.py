@@ -26,6 +26,10 @@ axis and every velocity they select (about 1,100 operations per cell), and
 reads its stencil through L1/L2.
 Division is exact. Schemes: WENO(5) and Centered(2); any other scheme raises
 on the card.
+
+``build_sharded_fused_sw_update`` replaces ``build_sharded_fused_sw_update``
+(#9): the stage once per shard of a device mesh, on blocks whose halos come
+from the mesh's halo exchange.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import torch
 from ..advection.shallow_water import conservative_tendencies
 from ..coriolis import FPlane, constant_f
 from ..grids.topology import PERIODIC
+from ..parallel import halo_exchange as hx
 from ..timesteppers import stage_update
 from . import build
 from .fused_advection import coefficient_table, scheme_code
@@ -131,3 +136,89 @@ def fused_sw_update(grid, scheme, g, f, hB, names, fields, Gm, gamma_dt,
 
 
 fused_sw_update.launches = 0
+
+
+# -- under a device mesh -------------------------------------------------------
+
+def build_sharded_fused_sw_update(grid, scheme, g, f, hB, names, mesh):
+    """The fused stage under an (x, y) device mesh: replaces the TPU kernel
+    ``oceananigans_tpu/kernels/fused_shallow_water.py``
+    ``build_sharded_fused_sw_update`` (#9, a ``shard_map`` around #8).
+
+    Returns ``fused_update(fields, Gm, gamma_dt, zeta_dt) -> (G, new)``.
+    Each call cuts the interiors of the global padded ``fields`` into the
+    mesh's (nlx, nly) blocks, each padded by (Hx, Hy) on its shard's device,
+    fills the blocks' halos from their neighbours
+    (``parallel.halo_exchange_local``: two launches of the exchange kernel
+    for blocks on one card) and runs ``fused_sw_update`` (#8) once per shard
+    on the shard's grid. ``G`` is the list of per-shard (nf, nlx, nly, 1)
+    tensors, in the mesh's row-major order, kept on their devices and handed
+    back as the next stage's ``Gm``; ``new`` holds global padded tensors on
+    the grid's device with the interiors written and the halos left for the
+    next wrap.
+
+    ``hB`` is the global padded bathymetry. As in the JAX package, its
+    blocks take their halos from the exchange, built once here: periodic
+    images at the global edges, where the serial model reads the halos
+    ``set_on_padded`` left (zero for an array). So the sharded stage equals
+    the serial one only where hB's halos are periodic images, e.g. with no
+    bathymetry (ROADMAP.md queue 3). The shards' grids take the global Δx
+    and Δy exactly (``RectilinearGrid.local_grid``), so every block cell
+    sees the operands and metrics the serial kernel sees at that cell: with
+    periodic hB halos the sharded stage equals the serial stage bit for
+    bit. Counts its calls on CUDA tensors in ``launches``."""
+    return _build_sharded(grid, scheme, g, f, hB, names, mesh, plain=False)
+
+
+build_sharded_fused_sw_update.launches = 0
+
+
+def build_sharded_fused_sw_update_plain(grid, scheme, g, f, hB, names, mesh):
+    """Plain PyTorch version: the same blocks through ``halo_exchange_plain``
+    and ``fused_sw_update_plain``. Counts its calls on CUDA tensors in
+    ``cuda_calls``."""
+    return _build_sharded(grid, scheme, g, f, hB, names, mesh, plain=True)
+
+
+build_sharded_fused_sw_update_plain.cuda_calls = 0
+
+
+def _build_sharded(grid, scheme, g, f, hB, names, mesh, plain):
+    # the routes are looked up at each call, so that a caller can wrap them
+    names = tuple(names)
+    (nlx, nly), periodic, lgrids = hx.shard_grids(grid, mesh, 1)
+    Hx, Hy, _ = grid.H
+    Sx, Sy = mesh.devices.shape
+    shards = [(i, j) for i in range(Sx) for j in range(Sy)]
+    halo, local_n = (Hx, Hy, 0), (nlx, nly, 1)
+
+    def exchange(blocks):
+        fn = hx.halo_exchange_plain if plain else hx.halo_exchange_local
+        return fn(blocks, mesh, halo, local_n, periodic)
+
+    hb = exchange(hx.scatter_blocks(grid, mesh, [hB]))
+
+    def fused_update(fields, Gm, gamma_dt, zeta_dt):
+        q = [fields[n] for n in names]
+        if q[0].is_cuda:
+            if plain:
+                build_sharded_fused_sw_update_plain.cuda_calls += 1
+            else:
+                build_sharded_fused_sw_update.launches += 1
+        blocks = exchange(hx.scatter_blocks(grid, mesh, q))
+        kernel = fused_sw_update_plain if plain else fused_sw_update
+        new = {n: torch.empty_like(a) for n, a in zip(names, q)}
+        G = []
+        for s, (i, j) in enumerate(shards):
+            dev = mesh.devices[i, j]
+            Gs, news = kernel(lgrids[dev], scheme, g, f, hb[i][j][0], names,
+                              dict(zip(names, blocks[i][j])),
+                              None if Gm is None else Gm[s], gamma_dt, zeta_dt)
+            blocks[i][j] = None           # this shard's inputs are done
+            gx, gy = hx.block_slices(grid, mesh, i, j)
+            for n in names:
+                new[n][gx, gy] = news[n][Hx:Hx + nlx, Hy:Hy + nly]
+            G.append(Gs)
+        return G, new
+
+    return fused_update

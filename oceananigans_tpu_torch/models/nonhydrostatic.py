@@ -28,6 +28,16 @@ TPU's Nz % 128 gate, Hy-to-8 rounding and lane tail):
   plain PyTorch divergence, the solve, the pressure fill, a plain PyTorch
   correction (the JAX package computes these in XLA too).
 
+With ``architecture=Distributed(...)`` (the padded layout only) the state
+stays global-view on the mesh's first device (the grid's device) and the
+advective tendencies come from the sharded tendency kernel
+(``build_sharded_fused_advection``: per-shard blocks with the full padded z,
+their x/y halos exchanged, one launch of the tendency kernel per shard);
+everything else in the step runs on the global view, as in the JAX package.
+On the z-compact layout the JAX package runs the sharded kernel with the
+mirrored-z variant of the tendency kernel, which the port lacks: a z-compact
+model under a mesh raises.
+
 The model updates tensors in place where the JAX package returned new
 arrays: the halo fills write into the padded tensors they are given, and the
 padded projection corrects the stage's new velocities in place.
@@ -49,8 +59,10 @@ from ..defaults import numpy_dtype
 from ..fields import Field, set_on_padded
 from ..grids.topology import (BOUNDED, LOC_CCC, LOC_CCF, LOC_CFC, LOC_FCC,
                               PERIODIC)
-from ..kernels import (fused_advection_tendency, fused_advection_update,
+from ..kernels import (build_sharded_fused_advection,
+                       fused_advection_tendency, fused_advection_update,
                        fused_correct, fused_divergence, periodic_halo_fill)
+from ..parallel.distributed import regularize_architecture
 from ..solvers.fft_poisson import FFTPoissonSolver
 from ..timesteppers import RK3_GAMMAS, RK3_ZETAS, RungeKutta3TimeStepper
 
@@ -72,6 +84,11 @@ COMPACT_TRACERS_ITEM = (
     "JAX package runs kernel #1 with tracers: add a closure or a z boundary "
     "condition to take the padded layout)")
 PHYSICS_ITEM = "ROADMAP.md queue 1 item 9 (the rest of NH physics)"
+SHARDED_COMPACT_ITEM = (
+    "ROADMAP.md queue 1 item 8 (the z-compact layout under a mesh, where the "
+    "JAX package runs the sharded kernel #7 with the mirrored-z variant of "
+    "kernel #6: add a closure or a z boundary condition to take the padded "
+    "layout)")
 
 
 class NonhydrostaticModel:
@@ -80,8 +97,8 @@ class NonhydrostaticModel:
                  boundary_conditions=None, timestepper="RungeKutta3",
                  pressure_solver=None, background_fields=None,
                  stokes_drift=None, biogeochemistry=None, particles=None,
-                 auxiliary_fields=None, fuse_correction=True, device=None,
-                 dtype=None):
+                 auxiliary_fields=None, fuse_correction=True,
+                 architecture=None, device=None, dtype=None):
         given = dict(coriolis=coriolis, forcing=forcing,
                      stokes_drift=stokes_drift,
                      background_fields=background_fields,
@@ -113,6 +130,9 @@ class NonhydrostaticModel:
                 f"{PHYSICS_ITEM}")
         if device is not None or dtype is not None:
             grid = grid.to(device=device, dtype=dtype)
+        self.architecture = regularize_architecture(architecture)
+        if self.architecture is not None:
+            self.architecture.place(grid)
         self.timestepper = RungeKutta3TimeStepper()
         if isinstance(tracers, str):
             tracers = (tracers,)
@@ -131,6 +151,10 @@ class NonhydrostaticModel:
         user_zbcs = any(getattr(b, side, None) is not None
                         for b in bcs_in.values() for side in ("bottom", "top"))
         self._z_compact = closure is None and not user_zbcs
+        if self._z_compact and self.architecture is not None:
+            raise NotImplementedError(
+                f"a z-compact model (no closure, no z boundary condition) "
+                f"under a device mesh is not ported yet: {SHARDED_COMPACT_ITEM}")
         if self._z_compact and tracers:
             raise NotImplementedError(
                 f"tracers {tracers} without a closure or a z boundary "
@@ -166,6 +190,10 @@ class NonhydrostaticModel:
         self.bcs["p"] = regularize_field_boundary_conditions(
             None, self.grid, LOC_CCC)
         self.pressure_solver = FFTPoissonSolver(self.grid)
+        self._sharded_advection = None
+        if self.architecture is not None:
+            self._sharded_advection = build_sharded_fused_advection(
+                self.grid, self.advection, self.architecture.mesh)
 
         nt = numpy_dtype(self.grid.dtype)
         self._nt = nt
@@ -279,12 +307,14 @@ class NonhydrostaticModel:
 
     def _tendencies(self, fields):
         """The interior-shaped tendencies of every prognostic field:
-        advection (the tendency kernel), buoyancy, closure, boundary
-        fluxes, in the JAX package's order."""
+        advection (the tendency kernel, sharded under a mesh), buoyancy,
+        closure, boundary fluxes, in the JAX package's order."""
         grid = self.grid
         names = self.prognostic_names
-        Gall = fused_advection_tendency(grid, self.advection,
-                                        [fields[n] for n in names])
+        q = [fields[n] for n in names]
+        Gall = (fused_advection_tendency(grid, self.advection, q)
+                if self._sharded_advection is None
+                else self._sharded_advection(q))
         G = dict(zip(names, Gall.unbind(0)))
         ints = grid.interior_slices
         if self.buoyancy is not None:

@@ -20,6 +20,15 @@ kernel for the whole tendency and the stage update. Otherwise (the
 vector-invariant formulation, ``BetaPlane``, ``fused=False``) the tendencies
 are plain PyTorch. Closure, forcing and user boundary conditions raise.
 
+With ``architecture=Distributed(...)`` the state stays global-view on the
+mesh's first device (the grid's device) and each stage runs the sharded
+fused stage (``build_sharded_fused_sw_update``): per-shard blocks, their
+halos exchanged, one launch of the kernel per shard. As in the JAX package,
+the bathymetry's blocks take exchanged (periodic) halos there, so with an
+array bathymetry the sharded step differs from the serial one near the
+global edges (ROADMAP.md queue 3). A configuration the fused stage does not
+take raises under a mesh.
+
 Against the JAX model: the TPU roundings of the halo (Hx to 8, the padded y
 to 128) are dropped; the halo is the scheme's reach plus one, as the JAX
 model's rule gives. As in the JAX model, the bathymetry's halos stay as
@@ -46,8 +55,10 @@ from ..defaults import defaults, numpy_dtype
 from ..fields import Field, set_on_padded
 from ..grids.topology import FLAT, LOC_CCC, LOC_CFC, LOC_FCC, PERIODIC
 from ..kernels import fused_sw_update
-from ..kernels.fused_shallow_water import sw_eligible
+from ..kernels.fused_shallow_water import (build_sharded_fused_sw_update,
+                                           sw_eligible)
 from ..operators.operators import ddx, ddy, div_xy_ccc, ix_f, iy_f
+from ..parallel.distributed import regularize_architecture
 from ..timesteppers import RK3_GAMMAS, RK3_ZETAS, stage_update
 from .nonhydrostatic import padded_from_jax
 
@@ -56,6 +67,9 @@ VECTOR_INVARIANT = "vector_invariant"
 
 REST_ITEM = ("ROADMAP.md queue 1 item 17 (the rest of shallow water: "
              "closure, forcing, boundary conditions and bounded x/y)")
+MESH_ITEM = ("ROADMAP.md queue 1 item 16 (the GSPMD-only sharded paths: "
+             "under a mesh the JAX package partitions this configuration's "
+             "plain step with XLA)")
 
 
 def ConservativeFormulation():
@@ -70,7 +84,8 @@ class ShallowWaterModel:
     def __init__(self, grid, gravitational_acceleration=None, advection=None,
                  coriolis=None, bathymetry=0.0, tracers=(), forcing=None,
                  boundary_conditions=None, formulation=CONSERVATIVE,
-                 closure=None, fused="auto", device=None, dtype=None):
+                 closure=None, fused="auto", architecture=None, device=None,
+                 dtype=None):
         for name, value in (("closure", closure), ("forcing", forcing),
                             ("boundary_conditions", boundary_conditions)):
             if value:
@@ -85,6 +100,9 @@ class ShallowWaterModel:
             raise ValueError(formulation)
         if device is not None or dtype is not None:
             grid = grid.to(device=device, dtype=dtype)
+        self.architecture = regularize_architecture(architecture)
+        if self.architecture is not None:
+            self.architecture.place(grid)
         self.g = (defaults.gravitational_acceleration
                   if gravitational_acceleration is None
                   else float(gravitational_acceleration))
@@ -105,6 +123,11 @@ class ShallowWaterModel:
             raise ValueError("model configuration is not eligible for the "
                              "fused shallow-water kernel")
         self.fused = fused in (True, "auto") and eligible
+        if self.architecture is not None and not self.fused:
+            raise NotImplementedError(
+                "under a device mesh the port runs only the fused "
+                f"shallow-water stage, which this configuration does not "
+                f"take: {MESH_ITEM}")
         if isinstance(tracers, str):
             tracers = (tracers,)
         self.tracer_names = tuple(tracers)
@@ -116,6 +139,9 @@ class ShallowWaterModel:
         self.bcs = {name: regularize_field_boundary_conditions(
             None, self.grid, loc) for name, loc in self._locs.items()}
         self.bathymetry = set_on_padded(self.grid, LOC_CCC, bathymetry)
+        self._sharded = None
+        if self.architecture is not None:
+            self._build_sharded()
         self._nt = numpy_dtype(self.grid.dtype)
         self.state = dict(
             fields={n: torch.zeros(self.grid.padded_shape,
@@ -203,6 +229,14 @@ class ShallowWaterModel:
             grid, self.advection, uh, vh, self.tracer_names, fields))
         return G
 
+    def _build_sharded(self):
+        """The sharded stage for the current bathymetry (its blocks' halos
+        are exchanged once, here)."""
+        self._sharded = build_sharded_fused_sw_update(
+            self.grid, self.advection, self.g, constant_f(self.coriolis),
+            self.bathymetry, self.prognostic_names, self.architecture.mesh)
+        self._sharded_bathymetry = self.bathymetry
+
     def _fill_all(self, fields):
         """Fill the periodic halos of ``fields`` ({name: padded tensor}) in
         place, one wrap launch for all of them."""
@@ -223,10 +257,16 @@ class ShallowWaterModel:
         time = clock["time"]
         ints = self.grid.interior_slices
         f = constant_f(self.coriolis)
+        if self._sharded is not None \
+                and self._sharded_bathymetry is not self.bathymetry:
+            self._build_sharded()
         Gm = None
         for gamma, zeta in zip(RK3_GAMMAS, RK3_ZETAS):
             self._fill_all(fields)
-            if self.fused:
+            if self._sharded is not None:
+                Gm, fields = self._sharded(fields, Gm, nt(gamma) * dt,
+                                           nt(zeta) * dt)
+            elif self.fused:
                 Gm, fields = fused_sw_update(
                     self.grid, self.advection, self.g, f, self.bathymetry,
                     names, fields, Gm, nt(gamma) * dt, nt(zeta) * dt)

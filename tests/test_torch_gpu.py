@@ -16,7 +16,10 @@ relative to max|plain|: the kernels evaluate the same stencils with FMA
 contraction and in another association order, which is roundoff. The halo
 fills copy, so they must agree exactly, except the bounded-z fill's
 Value/Gradient extrapolation: 1e-13 relative (FMA contraction, and PyTorch
-multiplies by the reciprocal of a scalar divisor on the card)."""
+multiplies by the reciprocal of a scalar divisor on the card). The mesh halo
+exchange copies (exact); the sharded stages on a 2x2 mesh of the card equal
+the serial kernels exactly (the same kernel on the same operands per cell)
+and match their plain routes to 1e-12."""
 
 import pytest
 import torch
@@ -331,3 +334,105 @@ def test_fused_vi_tendency_uncovered_raises():
         K.fused_vi_tendency(grid, ot.VectorInvariant(), ot.Centered(4),
                             ("T",), None, f["u"], f["v"], f["w"],
                             {"T": f["T"]}, None)
+
+
+# -- the mesh halo exchange and the sharded stages --------------------------------
+#
+# "card": a 2x2 mesh naming cuda:0 four times (the exchange kernel moves every
+# strip); "cards": the shards spread over the visible cards (peer copies move
+# the strips between cards), which needs two or more.
+
+def _card_mesh(x=2, y=2, spread="card"):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    n = torch.cuda.device_count() if spread == "cards" else 1
+    if spread == "cards" and n < 2:
+        pytest.skip("the peer-copy route needs two or more cards")
+    return ot.Distributed(ot.Partition(x, y), devices=[
+        torch.device("cuda", k % n) for k in range(x * y)])
+
+
+def _on(t, dev):
+    return t.to(dev).contiguous()
+
+
+@pytest.mark.parametrize("spread", ["card", "cards"])
+@pytest.mark.parametrize("shape,halo,z", [((2, 2), (4, 4, 0), 1),
+                                          ((2, 2), (3, 3, 3), 14),
+                                          ((1, 2), (2, 3, 0), 5)])
+def test_mesh_halo_exchange(shape, halo, z, spread):
+    """The CUDA routes against the plain version on blocks of two fields:
+    exact (they copy); on one card two launches, one per axis."""
+    from oceananigans_tpu_torch.parallel import (halo_exchange_local,
+                                                 halo_exchange_plain)
+    arch = _card_mesh(*shape, spread=spread)
+    devs = arch.mesh.devices
+    nl = (8, 6)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    blocks = [[[_on(torch.randn((nl[0] + 2 * halo[0], nl[1] + 2 * halo[1], z),
+                                generator=gen, dtype=torch.float64,
+                                device="cuda"), devs[i, j])
+                for _ in range(2)] for j in range(shape[1])]
+              for i in range(shape[0])]
+    copies = [[[_on(a, "cuda:0") for a in b] for b in row] for row in blocks]
+    before = K.mesh_halo_exchange.launches
+    halo_exchange_local(blocks, arch.mesh, halo, nl)
+    if spread == "card":
+        assert K.mesh_halo_exchange.launches == before + 2
+    halo_exchange_plain(copies, ot.Distributed(
+        ot.Partition(*shape), devices=["cuda:0"] * len(devs.ravel())).mesh,
+        halo, nl)
+    for row, crow in zip(blocks, copies):
+        for b, c in zip(row, crow):
+            for a, a2 in zip(b, c):
+                assert torch.equal(_on(a, "cuda:0"), a2)
+
+
+@pytest.mark.parametrize("spread", ["card", "cards"])
+def test_sharded_sw_stage(sw_inputs, spread):
+    """The sharded stage on a 2x2 mesh equals the serial stage on the same
+    inputs (hB's halos wrapped, as the exchange gives them), and its kernel
+    route matches its plain route."""
+    grid, fields, hB, Gm = sw_inputs
+    arch = _card_mesh(spread=spread)
+    devs = arch.mesh.devices.ravel()
+    names = ("uh", "vh", "h", "c")
+    s = ot.WENO(5, smoothness_dtype=torch.float64)
+    args = (grid, s, 9.81, 0.3, hB, names)
+    stage = K.build_sharded_fused_sw_update(*args, arch.mesh)
+    plain = K.build_sharded_fused_sw_update_plain(*args, arch.mesh)
+    G0, new0 = K.fused_sw_update(*args, fields, None, 2e-3, -1e-3)
+    launches = K.fused_sw_update.launches
+    G1, new1 = stage(fields, None, 2e-3, -1e-3)
+    assert K.fused_sw_update.launches == launches + 4
+    assert [g.device for g in G1] == list(devs)
+    nlx, nly = grid.N[0] // 2, grid.N[1] // 2
+    G1 = [_on(g, grid.device) for g in G1]
+    G1 = torch.cat([torch.cat(G1[2 * i:2 * i + 2], dim=2) for i in range(2)],
+                   dim=1)
+    ints = grid.interior_slices
+    assert torch.equal(G1, G0)
+    for n in names:
+        assert torch.equal(new1[n][ints], new0[n][ints])
+    Gs = [_on(Gm[:, :nlx, :nly], d) for d in devs]
+    Gk, nk = stage(fields, Gs, 2e-3, -1e-3)
+    Gp, np_ = plain(fields, Gs, 2e-3, -1e-3)
+    _close(Gk + [nk[n][ints] for n in names],
+           Gp + [np_[n][ints] for n in names])
+
+
+@pytest.mark.parametrize("spread", ["card", "cards"])
+def test_sharded_advection_stage(zinputs, spread):
+    """The sharded tendency stage equals the serial kernel and matches its
+    plain route."""
+    grid, fields = zinputs
+    arch = _card_mesh(spread=spread)
+    fields = K.periodic_halo_fill(grid, [f.clone() for f in fields])
+    s = ot.WENO(5, smoothness_dtype=torch.float64)
+    stage = K.build_sharded_fused_advection(grid, s, arch.mesh)
+    plain = K.build_sharded_fused_advection_plain(grid, s, arch.mesh)
+    launches = K.fused_advection_tendency.launches
+    G = stage(fields)
+    assert K.fused_advection_tendency.launches == launches + 4
+    assert torch.equal(G, K.fused_advection_tendency(grid, s, fields))
+    _close([G], [plain(fields)])

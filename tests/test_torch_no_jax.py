@@ -23,7 +23,10 @@ def test_import_loads_no_jax():
             "oceananigans_tpu_torch.models.hydrostatic, "
             "oceananigans_tpu_torch.models.free_surfaces, "
             "oceananigans_tpu_torch.grids.latlon, "
-            "oceananigans_tpu_torch.kernels.fused_vector_invariant, sys; "
+            "oceananigans_tpu_torch.kernels.fused_vector_invariant, "
+            "oceananigans_tpu_torch.parallel, "
+            "oceananigans_tpu_torch.parallel.distributed, "
+            "oceananigans_tpu_torch.parallel.halo_exchange, sys; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'oceananigans_tpu', 'triton')]; "
             "assert not bad, bad; "
