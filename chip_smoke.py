@@ -67,7 +67,24 @@ Phases (each raises on failure; nothing is caught):
    steps, and the sharded stage against its plain route in float32.
 14. Sharded convection path: the 256³ step on that mesh, with the same
    checks (the sharded tendency 3, #6 12 and the exchange 6 times per step),
-   the divergence at roundoff.
+   the divergence at roundoff, and the sharded tendency against its plain
+   route on the path's own state, bound relative to the size of the flux
+   differences (the term scale).
+15. The z-compact kernels with 12 tracers and the lifted caps against their
+   plain versions in float64: #1 (WENO(5) and Centered(2), with and without
+   G⁻ and the correction), #6 z-compact, #7 on z-compact blocks, #6 padded,
+   #8 at 256², fills of 20 fields; a 12-tracer launch against 12 one-tracer
+   launches (bit for bit).
+16. Tracer-scaling path (bench_extra.py's row): 256³ float32, Centered(2)
+   and WENO(5), each with 0 and 12 tracers: median step, the 12/0 ratio,
+   launches per step, peak memory, phase shares, the divergence and tracer
+   conservation; #1 over 15 components on the path's state in float32.
+17. Buoyant z-compact path (tests/test_z_compact.py's model at 256³): the
+   tendency route with #6 z-compact, the same checks and Σb conserved; #6
+   z-compact on the path's state in float32.
+18. The same path on the 2x2 mesh of the card from its initial state: #7
+   on z-compact blocks, equal to the serial path after the same steps (bound
+   0), and the sharded tendency against its plain route on the path's state.
 
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. The script exits non-zero, without that line,
@@ -599,6 +616,9 @@ def hydrostatic_turbulence_model(dtype, device):
 def flagship_path_phase(card):
     from oceananigans_tpu_torch import kernels as K
     n, dt = 256, 1e-4
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     K.reset_counters()
     model = bench_model(n, torch.float32, "cuda")
     for _ in range(3):
@@ -631,6 +651,8 @@ def flagship_path_phase(card):
           f"over {len(times)} steps (min {min(times) * 1e3:.3f}, max "
           f"{max(times) * 1e3:.3f}), {n ** 3 / (step_ms / 1e3):.4e} "
           f"cell-updates/s [{card}]")
+    print(f"flagship peak device memory (model, set() and steps): "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
     rhs = K.fused_divergence(model.grid, u, v, w, 1.0)
     solve_ms = cuda_ms(lambda: model.pressure_solver.solve(rhs))
     print(f"pressure solve (torch.fft + DCT matmul) at 256^3: "
@@ -828,9 +850,11 @@ def plain_kernels():
 def whole_step_phase():
     """3 steps in float64 (float64 WENO smoothness) through the kernels and
     through the plain versions: the flagship and the convection
-    configuration at 32³, shallow water at 128² (FPlane(0.3), bathymetry, a
-    tracer), the hydro_row at 16x12x8 (v added to u's noise); bound 1e-12
-    relative to max|field|."""
+    configuration at 32³, the z-compact routes at 32³ (WENO(5) with two
+    tracers on the fused route; the buoyant model on the tendency route),
+    shallow water at 128² (FPlane(0.3), bathymetry, a tracer), the hydro_row
+    at 16x12x8 (v added to u's noise); bound 1e-12 relative to
+    max|field|."""
     import oceananigans_tpu_torch as ot
     from oceananigans_tpu_torch.models import NonhydrostaticModel
 
@@ -863,6 +887,24 @@ def whole_step_phase():
         assert m.fused
         return m
 
+    def tracers_compact():
+        rng = np.random.default_rng(3)
+        n = (32, 32, 32)
+        grid = ot.RectilinearGrid(size=n, extent=(1.0, 1.0, 1.0),
+                                  dtype=torch.float64, device="cuda")
+        m = NonhydrostaticModel(grid, advection=ot.WENO(
+            5, smoothness_dtype=torch.float64), tracers=("a", "c"))
+        m.set(u=0.1 * rng.standard_normal(n), v=0.1 * rng.standard_normal(n),
+              a=rng.random(n), c=rng.random(n))
+        assert m._fused_update
+        return m
+
+    def buoyant_compact():
+        m = buoyant_model((32, 32, 32), torch.float64, "cuda",
+                          smoothness=torch.float64)
+        assert not m._fused_update and m.grid.H[2] == 0
+        return m
+
     def hydrostatic():
         n = (16, 12, 8)
         m = hydro_model(n, torch.float64, "cuda", smoothness=torch.float64)
@@ -873,6 +915,8 @@ def whole_step_phase():
     for label, make, names, dt in (
             ("flagship", flagship, "uvwp", 1e-3),
             ("convection", convection, "uvwbp", 1e-3),
+            ("tracers z-compact", tracers_compact, "uvwacp", 1e-3),
+            ("buoyant z-compact", buoyant_compact, "uvwbp", 1e-3),
             ("shallow water", shallow_water, ("uh", "vh", "h", "c"), 1e-4),
             ("hydrostatic", hydrostatic, ("u", "v", "T", "eta", "w"),
              120.0)):
@@ -1819,8 +1863,10 @@ def sharded_convection_path_phase(card, n, serial, state0):
     and read after 3 warm-up and 10 timed steps; finite fields, the
     divergence at roundoff; the phase shares (3 steps); the fields against
     the serial model's after the same 16 steps (bound 1e-5 relative); the
-    sharded tendency against its plain route on #6's float32 check inputs
-    at n³ (bound 2e-5 relative to max|plain|, as #6)."""
+    sharded tendency against its plain route on the path's own state (bound
+    2e-5 of each component's term scale: the b tendency cancels its flux
+    differences about 100-fold, so a bound relative to max|G| would measure
+    that cancellation)."""
     import oceananigans_tpu_torch as ot
     import oceananigans_tpu_torch.kernels.fused_advection as fa
     import oceananigans_tpu_torch.models.nonhydrostatic as nh
@@ -1870,25 +1916,587 @@ def sharded_convection_path_phase(card, n, serial, state0):
     mesh_phase_shares(model, dt, 3, card, "sharded convection", fa,
                       "fused_advection_tendency", nh, "_sharded_advection")
     against_serial("convection", model, serial, ("u", "v", "w", "b"), 1e-5)
-    # the inputs of #6's own float32 check: on the path's state the b
-    # tendency is the small difference of fluxes about 100 times larger, so
-    # a bound relative to max|G| there would measure that cancellation
-    grid, q, specs = convection_kernel_inputs((n, n, n), torch.float32, seed=2)
-    K.bounded_z_fill_plain(grid, q, specs)
-    K.periodic_halo_fill_plain(grid, q)
-    mesh = model.architecture.mesh
-    del model, serial
-    torch.cuda.empty_cache()
-    stage = K.build_sharded_fused_advection(grid, ot.WENO(5), mesh)
-    plain = K.build_sharded_fused_advection_plain(grid, ot.WENO(5), mesh)
-    err, rel = max_err(list(stage(q)), list(plain(q)))
-    print(f"  sharded advection tendency {n}^3 float32 on 2x2 (u, v, w, b = "
-          f"0.1·N(0, 1)): max abs {err:.3e}, rel {rel:.3e} (bound 2e-5)")
+    del serial
+    fields = model._fill_all(dict(model.state["fields"]))
+    q = [fields[c] for c in model.prognostic_names]
+    grid, scheme, mesh = model.grid, model.advection, model.architecture.mesh
+    stage = K.build_sharded_fused_advection(grid, scheme, mesh)
+    plain = K.build_sharded_fused_advection_plain(grid, scheme, mesh)
+    err, rel = scaled_err(list(stage(q)), list(plain(q)),
+                          term_scales(grid, scheme, q))
+    print(f"  sharded advection tendency {n}^3 float32 on 2x2 on the path's "
+          f"state (u, v, w, b): max abs {err:.3e}, {rel:.3e} of the term "
+          f"scale (bound 2e-5)")
     assert rel <= 2e-5, ("sharded advection tendency float32", rel)
     ms = cuda_ms(lambda: stage(q))
     plain_ms = cuda_ms(lambda: plain(q), reps=5)
     print(f"  time sharded advection tendency at {n}^3 on 2x2: kernel route "
           f"{ms:.4f} ms, plain route {plain_ms:.4f} ms")
+    return launches, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+# -- tracers and buoyancy on the z-compact layout -----------------------------------
+
+N_TRACERS = 12
+TRACER_KERNELS = ("fused_advection_update", "fused_divergence",
+                  "fused_correct", "periodic_halo_fill")
+BUOYANT_KERNELS = ("fused_advection_tendency", "periodic_halo_fill",
+                   "fused_divergence", "fused_correct")
+
+
+def advection_flop(weno, n_momentum, n_tracers):
+    """Operations of the advective tendency per interior cell, each face flux
+    counted once (see WENO_MOMENTUM_FLOP), with a WENO-5 reconstruction
+    counted by weno_flop(3, 0) for WENO(5) and a selected Centered(2) value
+    (2 products, a sum) for Centered(2); the advecting velocity of momentum
+    a Centered(4) (11) or Centered(2) (3) interpolation of A·q."""
+    recon = weno_flop(3, 0) if weno else 3
+    interp = 11 if weno else 3
+    return (n_momentum * (3 * (interp + recon + 1) + 7)
+            + n_tracers * (3 * (1 + recon + 1) + 7))
+
+
+def compact_bounds(N, H, esize, n_tracers):
+    """Bounds at interior N, halo H = (Hx, Hy, 0), of #1's corrected G⁻
+    variant over u, v, w and n_tracers tracers (WENO(5)), and of the
+    z-compact #6 (and #7) over u, v, w and n_tracers tracers."""
+    cells = N[0] * N[1] * N[2]
+    padded = (N[0] + 2 * H[0]) * (N[1] + 2 * H[1]) * N[2]
+    nc = 3 + n_tracers
+    return {
+        # read u, v, w, p and the tracers (padded) and G⁻; write G and new;
+        # the correction of u, v, w: 3 x (difference, product, difference)
+        "fused_advection_update_tracers": bound(
+            esize * ((nc + 1) * padded + 2 * nc * cells + nc * padded),
+            cells * (advection_flop(True, 3, n_tracers) + 9
+                     + nc * UPDATE_FLOP)),
+        "fused_advection_tendency_compact": bound(
+            esize * nc * (padded + cells),
+            cells * advection_flop(True, 3, n_tracers)),
+    }
+
+
+def term_scales(grid, scheme, fields):
+    """Per component of ``fields`` = [u, v, w, tracers...] (padded, halos
+    filled), the largest of its three directional flux differences,
+    max|δ(F)|/V over the interior: the size of the terms whose sum is G. A
+    tendency can cancel these terms (on the convection path the b tendency
+    is about 100 times smaller than its terms), so the float32 checks hold
+    the kernels' rounding to a bound relative to the terms, not to max|G|."""
+    from oceananigans_tpu_torch.advection import (div_Uc, div_Uu, div_Uv,
+                                                  div_Uw)
+    from oceananigans_tpu_torch.kernels.fused_advection import ZBC
+    zbc = ZBC if grid.H[2] == 0 else None
+    u, v, w = fields[:3]
+    ints = grid.interior_slices
+    zero = torch.zeros_like(u)
+    scales = [max(div(grid, scheme, u, v, w, zbc=zbc, only_axis=ax)[ints]
+                  .abs().max().item() for ax in range(3))
+              for div in (div_Uu, div_Uv, div_Uw)]
+    for c in fields[3:]:
+        scales.append(max(
+            div_Uc(grid, scheme, *vel, c, zbc=zbc)[ints].abs().max().item()
+            for vel in ((u, zero, zero), (zero, v, zero), (zero, zero, w))))
+    return scales
+
+
+def scaled_err(got, want, scales):
+    """(max abs difference, the largest difference over its component's
+    term scale)."""
+    diffs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+    return max(diffs), max(d / s for d, s in zip(diffs, scales))
+
+
+def tracer_kernel_inputs(N, dtype, n_tracers, seed):
+    """u, v, w (0.1·N(0, 1), w's bottom face 0), p (1e-3·N(0, 1)) and
+    n_tracers tracers uniform on [0, 1) on a z-compact grid with H = (4, 4,
+    0), halos wrapped, and G⁻ for the 3 + n_tracers components."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch.kernels import periodic_halo_fill
+    grid = ot.RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0), halo=(4, 4, 0),
+                              dtype=dtype, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = grid.padded_shape
+    u, v, w, p = (s * torch.randn(shape, generator=gen, dtype=dtype,
+                                  device="cuda") for s in (0.1, 0.1, 0.1, 1e-3))
+    w[..., 0] = 0
+    tracers = {f"c{i}": torch.rand(shape, generator=gen, dtype=dtype,
+                                   device="cuda") for i in range(n_tracers)}
+    periodic_halo_fill(grid, [u, v, w, p] + list(tracers.values()))
+    Gm = [torch.randn(N, generator=gen, dtype=dtype, device="cuda")
+          for _ in range(3 + n_tracers)]
+    return grid, (u, v, w), p, tracers, Gm
+
+
+def tracer_kernels_phase():
+    """The kernels of the z-compact routes with 12 tracers, and the lifted
+    caps, against their plain versions in float64 at small size, bound 1e-12
+    relative to each tensor's own max|plain| (FMA contraction and another
+    association order):
+    - #1 (fused_advection_update) over u, v, w and 12 tracers at 32x32x48,
+      WENO(5) with float64 smoothness and Centered(2), with and without G⁻
+      and the deferred correction;
+    - #6 z-compact (mirrored z reads) with 12 tracers, both schemes;
+    - #7 on z-compact blocks of the 2x2 mesh of the card, 12 tracers: equal
+      to the serial #6 (bound 0) and within 1e-12 of its plain route;
+    - a launch over 12 tracers equals 12 one-tracer launches (bound 0), for
+      #1 and #6;
+    - #6 padded with 12 tracers at 32³ (H = (3, 3, 3)), #8 with 12 tracers at
+      256², and the wrap and bounded-z fill of 20 fields (the wrap exact,
+      the z fill as the convection path's bound)."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+    from oceananigans_tpu_torch.kernels import ZFill
+    mesh = card_mesh().mesh
+    N = (32, 32, 48)
+    grid, (u, v, w), p, tracers, Gm = tracer_kernel_inputs(
+        N, torch.float64, N_TRACERS, seed=20)
+    for scheme in (ot.WENO(5, smoothness_dtype=torch.float64), ot.Centered(2)):
+        for gm in (None, Gm):
+            for pp in (None, p):
+                args = (grid, scheme, u, v, w, gm, 0.1, -0.05, pp,
+                        0.07 if pp is not None else None)
+                Gk, nk = K.fused_advection_update(*args, tracers=tracers)
+                Gp, np_ = K.fused_advection_update_plain(*args,
+                                                         tracers=tracers)
+                err, rel = worst_rel(Gk + list(nk.values()),
+                                     Gp + list(np_.values()))
+                print(f"  fused_advection_update {N} float64 {scheme!r} "
+                      f"{N_TRACERS} tracers Gm={gm is not None} "
+                      f"corr={pp is not None}: max abs {err:.3e}, rel "
+                      f"{rel:.3e}")
+                assert rel <= 1e-12, ("fused_advection_update tracers", rel)
+        args = (grid, scheme, u, v, w, Gm, 0.1, -0.05, p, 0.07)
+        Gk, nk = K.fused_advection_update(*args, tracers=tracers)
+        for k, (name, c) in enumerate(tracers.items()):
+            G1, n1 = K.fused_advection_update(
+                *args[:5], Gm[:3] + [Gm[3 + k]], *args[6:], tracers={name: c})
+            assert torch.equal(G1[3], Gk[3 + k]), ("#1 batching", name)
+            assert torch.equal(n1[name], nk[name]), ("#1 batching", name)
+        fields = [u, v, w] + list(tracers.values())
+        Gk = K.fused_advection_tendency(grid, scheme, fields)
+        err, rel = worst_rel(list(Gk), list(
+            K.fused_advection_tendency_plain(grid, scheme, fields)))
+        print(f"  fused_advection_tendency z-compact {N} float64 {scheme!r} "
+              f"{N_TRACERS} tracers: max abs {err:.3e}, rel {rel:.3e}")
+        assert rel <= 1e-12, ("z-compact tendency", scheme, rel)
+        for k, c in enumerate(fields[3:]):
+            G1 = K.fused_advection_tendency(grid, scheme, [u, v, w, c])
+            assert torch.equal(G1[3], Gk[3 + k]), ("#6 batching", k)
+        Gs = K.build_sharded_fused_advection(grid, scheme, mesh)(fields)
+        assert torch.equal(Gs, Gk), ("z-compact #7 against serial #6", scheme)
+        err, rel = worst_rel(list(Gs), list(
+            K.build_sharded_fused_advection_plain(grid, scheme, mesh)(fields)))
+        print(f"  sharded advection tendency z-compact {N} float64 on 2x2 "
+              f"{scheme!r}: equal to serial; against plain route max abs "
+              f"{err:.3e}, rel {rel:.3e}")
+        assert rel <= 1e-12, ("z-compact sharded tendency", scheme, rel)
+    print(f"  a launch over {N_TRACERS} tracers equals {N_TRACERS} one-tracer "
+          f"launches bit for bit (#1 and #6, both schemes)")
+    # the padded #6 with 12 tracers
+    pgrid, pfields, specs = convection_kernel_inputs((32, 32, 32),
+                                                     torch.float64, seed=21)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    pfields += [torch.rand(pgrid.padded_shape, generator=gen,
+                           dtype=torch.float64, device="cuda")
+                for _ in range(N_TRACERS - 1)]
+    specs += [ZFill(False, (0, 0.0), (0, 0.0))] * (N_TRACERS - 1)
+    K.bounded_z_fill_plain(pgrid, pfields, specs)
+    K.periodic_halo_fill_plain(pgrid, pfields)
+    scheme = ot.WENO(5, smoothness_dtype=torch.float64)
+    err, rel = worst_rel(
+        list(K.fused_advection_tendency(pgrid, scheme, pfields)),
+        list(K.fused_advection_tendency_plain(pgrid, scheme, pfields)))
+    print(f"  fused_advection_tendency padded (32, 32, 32) float64 "
+          f"{N_TRACERS} tracers: max abs {err:.3e}, rel {rel:.3e}")
+    assert rel <= 1e-12, ("padded tendency, 12 tracers", rel)
+    # #8 with 12 tracers
+    names = SW_NAMES + tuple(f"c{i}" for i in range(N_TRACERS))
+    sgrid, sfields, hB, sGm = sw_kernel_inputs(256, torch.float64, names[3:],
+                                               seed=22)
+    ints = sgrid.interior_slices
+    for gm in (None, sGm):
+        args = (sgrid, scheme, 9.81, 0.3, hB, names, sfields, gm, 2e-5, -1e-5)
+        Gk, nk = K.fused_sw_update(*args)
+        Gp, np_ = K.fused_sw_update_plain(*args)
+        err, rel = worst_rel(list(Gk) + [nk[c][ints] for c in names],
+                             list(Gp) + [np_[c][ints] for c in names])
+        print(f"  fused_sw_update 256^2 float64 {N_TRACERS} tracers "
+              f"Gm={gm is not None}: max abs {err:.3e}, rel {rel:.3e}")
+        assert rel <= 1e-12, ("fused_sw_update, 12 tracers", rel)
+    # a fill of 20 fields
+    base = [torch.randn(pgrid.padded_shape, generator=gen, dtype=torch.float64,
+                        device="cuda") for _ in range(20)]
+    a, b = [x.clone() for x in base], [x.clone() for x in base]
+    K.periodic_halo_fill(pgrid, a)
+    K.periodic_halo_fill_plain(pgrid, b)
+    err_wrap = max((x - y).abs().max().item() for x, y in zip(a, b))
+    zspecs = [ZFill(k % 2 == 1, ((0, 0.0), (2, 0.5), (3, -0.25))[k % 3],
+                    ((0, 0.0), (1, 0.0), (2, -0.5))[k % 3]) for k in range(20)]
+    K.bounded_z_fill(pgrid, a, zspecs)
+    K.bounded_z_fill_plain(pgrid, b, zspecs)
+    _, rel_z = worst_rel(a, b)
+    print(f"  periodic_halo_fill of 20 fields: max abs {err_wrap:.3e} (bound "
+          f"0); bounded_z_fill of 20 fields: rel {rel_z:.3e} (bound 1e-13)")
+    assert err_wrap == 0.0 and rel_z <= 1e-13, ("fills of 20", err_wrap, rel_z)
+    torch.cuda.synchronize()
+
+
+def compact_phase_shares(model, dt, steps, card, label):
+    """Per-step CUDA-event times of a z-compact step: the advection kernel
+    (#1 with the stage update on the fused route, #6 on the tendency route),
+    buoyancy (the rest of the tendencies), the halo fills, the divergence,
+    the solve, the correction, and the rest (stage updates, allocations,
+    host gaps)."""
+    import oceananigans_tpu_torch.models.nonhydrostatic as nh
+    timer = PhaseTimer()
+    swaps = [("advection", "fused_advection_update"),
+             ("advection", "fused_advection_tendency"),
+             ("fills", "fill_all_halo_regions"), ("fills", "periodic_halo_fill"),
+             ("divergence", "fused_divergence"), ("correction", "fused_correct")]
+    saved = [(name, getattr(nh, name)) for _, name in swaps]
+    for (phase, name), (_, fn) in zip(swaps, saved):
+        setattr(nh, name, timer.wrap(phase, fn))
+    solver = model.pressure_solver
+    solver.solve = timer.wrap("solve", solver.solve)
+    model._tendencies = timer.wrap("tendencies", model._tendencies)
+    model.time_step = timer.wrap("step", model.time_step)
+    try:
+        for _ in range(steps):
+            model.time_step(dt)
+        t = {k: v / steps for k, v in timer.totals().items()}
+    finally:
+        for name, fn in saved:
+            setattr(nh, name, fn)
+        del solver.solve, model._tendencies, model.time_step
+    g = t.get
+    shares = {
+        "advection kernel": g("advection", 0.0),
+        "buoyancy (rest of the tendencies)":
+            g("tendencies", 0.0) - g("advection@tendencies", 0.0),
+        "halo fills": g("fills", 0.0),
+        "divergence": g("divergence", 0.0),
+        "solve (torch.fft + DCT matmul)": g("solve", 0.0),
+        "correction": g("correction", 0.0),
+    }
+    shares["rest (updates, allocations, host gaps)"] = \
+        t["step"] - sum(shares.values())
+    print(f"{label} step phases, ms per step over {steps} steps (CUDA "
+          f"events) [{card}]:")
+    for phase, ms in shares.items():
+        print(f"  {phase}: {ms:.4f} ms ({100 * ms / t['step']:.1f}%)")
+    print(f"  step: {t['step']:.4f} ms")
+    return shares
+
+
+def tracer_model(n, scheme, n_tracers, dtype, device, seed=0):
+    """bench_extra.py's tracer-scaling row (:297-322) on the port: an n³ grid
+    of extent 1x1x1, periodic x and y, bounded z, ``scheme`` for momentum
+    and tracers, no closure and no buoyancy (the z-compact fused route);
+    u = 0.1·N(0, 1) and each tracer uniform on [0, 1) from
+    np.random.default_rng(seed)."""
+    import oceananigans_tpu_torch as ot
+    grid = ot.RectilinearGrid(size=(n, n, n), extent=(1.0, 1.0, 1.0),
+                              topology=("periodic", "periodic", "bounded"),
+                              dtype=dtype, device=device)
+    names = tuple(f"c{i}" for i in range(n_tracers))
+    model = ot.NonhydrostaticModel(grid, advection=scheme, tracers=names)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    rng = np.random.default_rng(seed)
+    model.set(u=0.1 * rng.standard_normal((n, n, n)).astype(npdt),
+              **{c: rng.random((n, n, n), dtype=npdt) for c in names})
+    return model
+
+
+def tracer_sums(model):
+    """{tracer: (Σc, Σ|c|)} over the interior, summed in float64."""
+    out = {}
+    for name in model.tracer_names:
+        a = model.field(name).interior.double()
+        out[name] = (a.sum().item(), a.abs().sum().item())
+    return out
+
+
+def check_conserved(label, model, sums0, bound_rel=1e-6):
+    """|Σc − Σc₀| / Σ|c₀| of every tracer: flux-form advection with zero
+    boundary-face fluxes conserves Σc up to the float32 rounding of each
+    stored value (unbiased, about 3e-8·√cells relative per stage)."""
+    worst = 0.0
+    for name, (s0, a0) in sums0.items():
+        s = model.field(name).interior.double().sum().item()
+        worst = max(worst, abs(s - s0) / a0)
+    print(f"  {label}: worst |Σc − Σc₀|/Σ|c₀| over {len(sums0)} tracers after "
+          f"{model.iteration} steps: {worst:.3e} (bound {bound_rel:g})")
+    assert worst <= bound_rel, (label, "tracer not conserved", worst)
+
+
+def check_divergence(label, model):
+    """max|∇·u|·Δx/max|u| of a z-compact model's state (the divergence
+    kernel's plain version on the wrapped velocities)."""
+    from oceananigans_tpu_torch import kernels as K
+    u, v, w = (model.state["fields"][c] for c in "uvw")
+    calls = K.fused_divergence_plain.cuda_calls
+    div = K.fused_divergence_plain(model.grid, u, v, w, 1.0)
+    # a check of the state, not a call of the path: keep the count clean
+    K.fused_divergence_plain.cuda_calls = calls
+    ints = model.grid.interior_slices
+    umax = max(a[ints].abs().max().item() for a in (u, v, w))
+    div_rel = div.abs().max().item() * model.grid.dx(("c", "c", "c")) / umax
+    print(f"  {label}: max|div u|·Δx/max|u| after {model.iteration} steps: "
+          f"{div_rel:.3e}")
+    assert div_rel < 1e-4, (label, "divergence not at roundoff", div_rel)
+
+
+def tracer_path_phase(card):
+    """The tracer-scaling path at 256³ float32: Centered(2) and WENO(5), each
+    with 0 and 12 tracers, Δt = 1e-4, 3 warm-up and 10 timed steps per run;
+    counters reset just before the first model is built and read after the
+    last run. Per run: the median step, the launches per step of #1-#4
+    (set() included), the peak memory, the phase shares (3 more steps),
+    finite fields, the divergence and tracer conservation. Then, on the
+    WENO(5) 12-tracer run's state, #1 over 15 components against its plain
+    version (the corrected G⁻ variant; bound 2e-5 of each component's term
+    scale for G, 2e-5 relative for new) and its CUDA-event times."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+    n, dt = 256, 1e-4
+    steps_ms = {}
+    K.reset_counters()
+    keep = None
+    for label, make in (("Centered(2)", lambda: ot.Centered(2)),
+                        ("WENO(5)", lambda: ot.WENO(5))):
+        for ntr in (0, N_TRACERS):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = K.counters()[0]
+            model = tracer_model(n, make(), ntr, torch.float32, "cuda")
+            assert model._fused_update and model.grid.H[2] == 0
+            sums0 = tracer_sums(model)
+            times = timed_steps(model, dt)
+            after = K.counters()[0]
+            peak = torch.cuda.max_memory_allocated()
+            run = f"tracer path {label} {ntr} tracers"
+            for name in model.prognostic_names:
+                assert torch.isfinite(model.field(name).interior).all().item(), \
+                    (run, name)
+            check_divergence(run, model)
+            if ntr:
+                check_conserved(run, model, sums0)
+            step_ms = statistics.median(times) * 1e3
+            steps_ms[(label, ntr)] = step_ms
+            per_step = {k: (after[k] - before[k]) / model.iteration
+                        for k in TRACER_KERNELS}
+            print(f"{run}: 256^3 float32 RK3 step median {step_ms:.3f} ms "
+                  f"over {len(times)} steps (min {min(times) * 1e3:.3f}, max "
+                  f"{max(times) * 1e3:.3f}); launches per step (set() "
+                  f"included) {per_step}; peak device memory "
+                  f"{peak / 2 ** 30:.2f} GiB [{card}]")
+            compact_phase_shares(model, dt, 3, card, run)
+            if label == "WENO(5)" and ntr:
+                keep = model
+            del model
+    for label in ("Centered(2)", "WENO(5)"):
+        ratio = steps_ms[(label, N_TRACERS)] / steps_ms[(label, 0)]
+        print(f"tracer scaling {label}: {N_TRACERS} tracers "
+              f"{steps_ms[(label, N_TRACERS)]:.3f} ms / 0 tracers "
+              f"{steps_ms[(label, 0)]:.3f} ms = {ratio:.3f} [{card}]")
+    launches, plain_cuda = K.counters()
+    print(f"tracer path launches over its four runs: {launches}; plain calls "
+          f"on CUDA: {plain_cuda}")
+    for name in TRACER_KERNELS:
+        assert launches[name] > 0, f"kernel {name} never launched on the path"
+    for name, count in plain_cuda.items():
+        assert count == 0, f"plain {name} ran on CUDA tensors"
+    # #1 on the path's own state: the corrected G⁻ variant over 15 components
+    model = keep
+    grid, scheme = model.grid, model.advection
+    f = model.state["fields"]
+    p = model.state["pressure"]
+    tracers = {c: f[c] for c in model.tracer_names}
+    Gm, _ = K.fused_advection_update(grid, scheme, f["u"], f["v"], f["w"],
+                                     None, 2e-5, 0.0, tracers=tracers)
+    args = (grid, scheme, f["u"], f["v"], f["w"], Gm, 8e-5, -5e-5, p, 2e-5)
+    Gk, nk = K.fused_advection_update(*args, tracers=tracers)
+    Gp, np_ = K.fused_advection_update_plain(*args, tracers=tracers)
+    q = [f["u"], f["v"], f["w"]] + list(tracers.values())
+    from oceananigans_tpu_torch.kernels.fused_advection import \
+        corrected_velocities
+    scales = term_scales(grid, scheme, list(corrected_velocities(
+        grid, f["u"], f["v"], f["w"], p, 2e-5)) + q[3:])
+    err, rel = scaled_err(Gk, Gp, scales)
+    err_new, rel_new = worst_rel(list(nk.values()), list(np_.values()))
+    print(f"  fused_advection_update 256^3 float32 WENO(5) {N_TRACERS} "
+          f"tracers on the path's state (corrected, G⁻): G max abs "
+          f"{err:.3e}, {rel:.3e} of the term scale (bound 2e-5); new max abs "
+          f"{err_new:.3e}, rel {rel_new:.3e} (bound 2e-5)")
+    assert rel <= 2e-5 and rel_new <= 2e-5, ("#1 float32 tracers", rel,
+                                             rel_new)
+    del Gk, nk, Gp, np_
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: K.fused_advection_update(*args, tracers=tracers),
+                 reps=5)
+    plain_ms = cuda_ms(lambda: K.fused_advection_update_plain(
+        *args, tracers=tracers), reps=3, warmup=1)
+    print(f"  time fused_advection_update (corrected, G⁻) over u, v, w and "
+          f"{N_TRACERS} tracers at {grid.padded_shape}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms [{card}]")
+    return launches, dict(max_abs_err=max(err, err_new), ms=ms,
+                          plain_ms=plain_ms)
+
+
+def buoyant_model(N, dtype, device, smoothness=torch.float32, seed=42,
+                  architecture=None, state=None):
+    """tests/test_z_compact.py's model (:22-29) at N: extent 1x1x1, WENO(5),
+    BuoyancyTracer and its tracer b, no closure and no z condition (the
+    z-compact layout, tendency route); u, v 0.1·N(0, 1) and b 0.01·N(0, 1)
+    from np.random.default_rng(seed); or, given ``state`` (a model state on
+    the host), that state instead of set()."""
+    import oceananigans_tpu_torch as ot
+    grid = ot.RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0), dtype=dtype,
+                              device=device)
+    model = ot.NonhydrostaticModel(
+        grid, advection=ot.WENO(5, smoothness_dtype=smoothness),
+        buoyancy=ot.BuoyancyTracer(), architecture=architecture)
+    if state is not None:
+        model.state = to_device(state, grid.device)
+        return model
+    rng = np.random.default_rng(seed)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    model.set(u=0.1 * rng.standard_normal(N).astype(npdt),
+              v=0.1 * rng.standard_normal(N).astype(npdt),
+              b=0.01 * rng.standard_normal(N).astype(npdt))
+    return model
+
+
+def buoyant_path_phase(card):
+    """The buoyant z-compact path at 256³ float32, Δt = 1e-3: counters reset
+    just before the model is built and read after 3 warm-up and 10 timed
+    steps; finite fields, the divergence, Σb conserved, peak memory, phase
+    shares (3 more steps); then the z-compact #6 against its plain version
+    on the path's state (u, v, w, b with wrapped halos; bound 2e-5 of each
+    component's term scale) and its CUDA-event times."""
+    from oceananigans_tpu_torch import kernels as K
+    n, dt = 256, 1e-3
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_counters()
+    model = buoyant_model((n, n, n), torch.float32, "cuda")
+    assert not model._fused_update and model.grid.H[2] == 0
+    state0 = to_device(model.state, "cpu")
+    sums0 = tracer_sums(model)
+    times = timed_steps(model, dt)
+    launches, plain_cuda = K.counters()
+    steps = model.iteration
+    print(f"buoyant z-compact path launches over set() and {steps} steps: "
+          f"{launches}; plain calls on CUDA: {plain_cuda}")
+    for name in BUOYANT_KERNELS:
+        assert launches[name] > 0, f"kernel {name} never launched on the path"
+    assert launches["fused_advection_update"] == 0
+    for name, count in plain_cuda.items():
+        assert count == 0, f"plain {name} ran on CUDA tensors"
+    peak = torch.cuda.max_memory_allocated()
+    for name in model.prognostic_names:
+        assert torch.isfinite(model.field(name).interior).all().item(), name
+    check_divergence("buoyant z-compact", model)
+    check_conserved("buoyant z-compact", model, sums0)
+    step_ms = statistics.median(times) * 1e3
+    per_step = {k: launches[k] / steps for k in BUOYANT_KERNELS}
+    print(f"buoyant z-compact path: 256^3 WENO5 BuoyancyTracer float32 RK3 "
+          f"step median {step_ms:.3f} ms over {len(times)} steps (min "
+          f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
+          f"{n ** 3 / (step_ms / 1e3):.4e} cell-updates/s; launches per step "
+          f"(set() included) {per_step}; peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB [{card}]")
+    compact_phase_shares(model, dt, 3, card, "buoyant z-compact")
+    fields = model._fill_all(dict(model.state["fields"]))
+    q = [fields[c] for c in model.prognostic_names]
+    grid, scheme = model.grid, model.advection
+    Gk = K.fused_advection_tendency(grid, scheme, q)
+    Gp = K.fused_advection_tendency_plain(grid, scheme, q)
+    err, rel = scaled_err(list(Gk), list(Gp), term_scales(grid, scheme, q))
+    print(f"  fused_advection_tendency z-compact 256^3 float32 on the path's "
+          f"state (u, v, w, b): max abs {err:.3e}, {rel:.3e} of the term "
+          f"scale (bound 2e-5)")
+    assert rel <= 2e-5, ("z-compact #6 float32", rel)
+    del Gk, Gp
+    ms = cuda_ms(lambda: K.fused_advection_tendency(grid, scheme, q))
+    plain_ms = cuda_ms(lambda: K.fused_advection_tendency_plain(
+        grid, scheme, q), reps=5)
+    print(f"  time fused_advection_tendency z-compact at {grid.padded_shape} "
+          f"(4 fields): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
+    return launches, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms), \
+        model, state0
+
+
+def sharded_buoyant_path_phase(card, n, serial, state0):
+    """The buoyant z-compact path on the 2x2 mesh of the card, from the
+    serial path's initial state: counters reset after the model is built
+    and read after 3 warm-up and 10 timed steps (the sharded tendency 3, #6
+    12 and the exchange 6 times per step, no plain version on CUDA
+    tensors); finite fields, the divergence, Σb conserved, phase shares (3
+    steps); the fields against the serial model's after the same 16 steps,
+    bound 0 (#7 equals #6 bit for bit, and the rest of the step runs the
+    serial step's code on the global view); the sharded tendency against
+    its plain route on the path's state (bound 2e-5 of each component's
+    term scale) and its times."""
+    import oceananigans_tpu_torch.kernels.fused_advection as fa
+    import oceananigans_tpu_torch.models.nonhydrostatic as nh
+    from oceananigans_tpu_torch import kernels as K
+    dt = 1e-3
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = buoyant_model((n, n, n), torch.float32, "cuda",
+                          architecture=card_mesh(), state=state0)
+    assert model._sharded_advection is not None and model.grid.H[2] == 0
+    sums0 = tracer_sums(model)
+    K.reset_counters()
+    times = timed_steps(model, dt)
+    launches, plain_cuda = K.counters()
+    steps = model.iteration
+    print(f"sharded buoyant z-compact path launches over {steps} steps: "
+          f"{launches}; plain calls on CUDA: {plain_cuda}")
+    stages = 3 * steps
+    check_mesh_launches(launches, plain_cuda, {
+        "build_sharded_fused_advection": stages,
+        "fused_advection_tendency": 4 * stages,
+        "mesh_halo_exchange": 2 * stages})
+    for name in ("periodic_halo_fill", "fused_divergence", "fused_correct"):
+        assert launches[name] > 0, name
+    peak = torch.cuda.max_memory_allocated() - base
+    for name in model.prognostic_names:
+        assert torch.isfinite(model.field(name).interior).all().item(), name
+    check_divergence("sharded buoyant z-compact", model)
+    check_conserved("sharded buoyant z-compact", model, sums0)
+    step_ms = statistics.median(times) * 1e3
+    print(f"sharded buoyant z-compact path: {n}^3 WENO5 float32 RK3 on a 2x2 "
+          f"mesh of one card, step median {step_ms:.3f} ms over {len(times)} "
+          f"steps (min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
+          f"{n ** 3 / (step_ms / 1e3):.4e} cell-updates/s [{card}]")
+    print(f"peak device memory (sharded model and steps, above the "
+          f"{base / 2 ** 30:.2f} GiB held before): {peak / 2 ** 30:.2f} GiB")
+    mesh_phase_shares(model, dt, 3, card, "sharded buoyant z-compact", fa,
+                      "fused_advection_tendency", nh, "_sharded_advection")
+    against_serial("buoyant z-compact", model, serial, ("u", "v", "w", "b"),
+                   0.0)
+    fields = model._fill_all(dict(model.state["fields"]))
+    q = [fields[c] for c in model.prognostic_names]
+    grid, scheme, mesh = model.grid, model.advection, model.architecture.mesh
+    del serial
+    stage = K.build_sharded_fused_advection(grid, scheme, mesh)
+    plain = K.build_sharded_fused_advection_plain(grid, scheme, mesh)
+    err, rel = scaled_err(list(stage(q)), list(plain(q)),
+                          term_scales(grid, scheme, q))
+    print(f"  sharded advection tendency z-compact {n}^3 float32 on 2x2 on "
+          f"the path's state: max abs {err:.3e}, {rel:.3e} of the term scale "
+          f"(bound 2e-5)")
+    assert rel <= 2e-5, ("z-compact sharded tendency float32", rel)
+    ms = cuda_ms(lambda: stage(q))
+    plain_ms = cuda_ms(lambda: plain(q), reps=5)
+    print(f"  time sharded advection tendency z-compact at {n}^3 on 2x2: "
+          f"kernel route {ms:.4f} ms, plain route {plain_ms:.4f} ms [{card}]")
     return launches, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
@@ -1926,7 +2534,22 @@ KERNEL_SOURCES = {
     "mesh_halo_exchange": (
         "oceananigans_tpu_torch/csrc/halo_exchange.cu",
         "oceananigans_tpu/parallel/halo_exchange.py:25"),
+    "fused_advection_update_tracers": (
+        "oceananigans_tpu_torch/csrc/fused_advection.cu",
+        "oceananigans_tpu/kernels/fused_advection.py:269"),
+    "fused_advection_tendency_compact": (
+        "oceananigans_tpu_torch/csrc/advection_tendency.cu",
+        "oceananigans_tpu/kernels/fused_advection.py:149"),
+    "build_sharded_fused_advection_compact": (
+        "oceananigans_tpu_torch/kernels/fused_advection.py",
+        "oceananigans_tpu/kernels/fused_advection.py:795"),
 }
+
+# the variant rows of a kernel: its counter's name
+COUNTER = {"fused_advection_update_tracers": "fused_advection_update",
+           "fused_advection_tendency_compact": "fused_advection_tendency",
+           "build_sharded_fused_advection_compact":
+               "build_sharded_fused_advection"}
 
 
 def main():
@@ -1957,6 +2580,25 @@ def main():
         sharded_convection_path_phase(card, 256, conv_serial, conv_state0)
     del conv_serial, conv_state0
     torch.cuda.empty_cache()
+    print("z-compact kernels with tracers, and the lifted caps, against plain "
+          "versions:")
+    tracer_kernels_phase()
+    torch.cuda.empty_cache()
+    tracer_launches, measured["fused_advection_update_tracers"] = \
+        tracer_path_phase(card)
+    torch.cuda.empty_cache()
+    buoyant_launches, measured["fused_advection_tendency_compact"], \
+        b_serial, b_state0 = buoyant_path_phase(card)
+    torch.cuda.empty_cache()
+    sharded_b_launches, measured["build_sharded_fused_advection_compact"] = \
+        sharded_buoyant_path_phase(card, 256, b_serial, b_state0)
+    del b_serial, b_state0
+    torch.cuda.empty_cache()
+    bounds.update(compact_bounds((256, 256, 256), (4, 4, 0), 4, N_TRACERS))
+    bounds["fused_advection_tendency_compact"] = compact_bounds(
+        (256, 256, 256), (4, 4, 0), 4, 1)["fused_advection_tendency_compact"]
+    bounds["build_sharded_fused_advection_compact"] = \
+        bounds["fused_advection_tendency_compact"]
     bounds["build_sharded_fused_sw_update"] = bounds["fused_sw_update"]
     bounds["build_sharded_fused_advection"] = \
         bounds["fused_advection_tendency"]
@@ -1987,7 +2629,13 @@ def main():
                         "build_sharded_fused_sw_update", "mesh_halo_exchange")
                     else sharded_conv_launches
                     if kname == "build_sharded_fused_advection"
-                    else convection_launches)[kname]
+                    else tracer_launches
+                    if kname == "fused_advection_update_tracers"
+                    else buoyant_launches
+                    if kname == "fused_advection_tendency_compact"
+                    else sharded_b_launches
+                    if kname == "build_sharded_fused_advection_compact"
+                    else convection_launches)[COUNTER.get(kname, kname)]
         bound_ms, bound_by = bounds[kname]
         rows.append(dict(name=kname, route="cuda", source=source,
                          replaces=replaces, launches=launches,
@@ -2013,7 +2661,9 @@ def main():
           f"{bounds['mesh_halo_exchange_conv']}")
     print(f"per-shard launches on the sharded paths: fused_sw_update "
           f"{sharded_sw_launches['fused_sw_update']}, fused_advection_tendency "
-          f"{sharded_conv_launches['fused_advection_tendency']}")
+          f"{sharded_conv_launches['fused_advection_tendency']} (convection), "
+          f"{sharded_b_launches['fused_advection_tendency']} (buoyant "
+          f"z-compact)")
     print(f"fused_vi_tendency design scratch ({VI_SCRATCH} derived fields "
           f"written and read once, not in its bound): "
           f"{bounds['vi_scratch_ms']:.4f} ms at 3.35 TB/s")

@@ -31,5 +31,8 @@ class BuoyancyTracer:
         return tracers["b"]
 
     def z_buoyancy(self, grid, tracers):
-        """Buoyancy at (c, c, f) for the Gw tendency (padded)."""
+        """Buoyancy at (c, c, f) for the Gw tendency (padded). On the
+        z-compact layout (no z halo) the bottom face reads a zero below the
+        first cell, as the JAX package's does; the model pins w's bottom
+        face after each update, which discards that value."""
         return iz_f(grid, tracers["b"])

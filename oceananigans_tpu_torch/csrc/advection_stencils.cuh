@@ -1,0 +1,296 @@
+// Flux-form advection stencils shared by the advection kernels
+// (advection_tendency.cu, fused_advection.cu): G = -∇·(𝐯q) at one cell for
+// u at (f, c, c), v at (c, f, c), w at (c, c, f) and a tracer at (c, c, c),
+// written once against a read policy that says where the stencil's values
+// come from.
+//
+// The stencils are those of oceananigans_tpu/advection/fluxes.py div_Uu /
+// div_Uv / div_Uw / div_Uc: advecting velocities by the scheme's symmetric
+// interpolation of A·q (the face velocity itself for tracers), advected
+// values by the upwind-selected reconstruction. Along the bounded z the order
+// cascades near the walls on the global z index, as the TPU kernels' tile
+// grid keeps z global (WENO5 → WENO3 → UpwindBiased(1) for the advected
+// value, Centered(4) → Centered(2) for the advecting velocity). Schemes:
+// WENO(5) and Centered(2) (SCH, a compile-time choice); every coefficient
+// comes from the table of kernels/fused_advection.py coefficient_table.
+//
+// Read policies (R):
+// - PaddedRead: padded fields whose halos, z included, were filled
+//   beforehand; every read takes the halo values as they are.
+// - CompactRead: the z-compact layout (no z halo). z reads outside [0, Nz)
+//   go through the boundary mirrors the z halo would have carried (the
+//   oceananigans_tpu/operators/shifts.py shift_zbc kinds): even for u, v and
+//   tracers, a[-1-m] = a[m], a[N+m] = a[N-1-m]; odd about the faces for w,
+//   a[-m] = -a[m], a[N] = 0, a[N+m] = -a[N-m]. The fluxes through the
+//   boundary faces are zero (R::kWalls). With kCorr (the deferred
+//   correction of the previous RK3 stage) every velocity read is corrected
+//   on the fly from the pressure p, q = q* − Δt_prev·∂p, with w's bottom
+//   face pinned to 0. kCorr is a compile-time choice, so that a read is a
+//   plain load, or the loads and the correction, with no branch around it.
+#pragma once
+
+#include "common.cuh"
+#include "reconstruction.cuh"
+
+namespace oc {
+
+// ---- read policies ------------------------------------------------------------
+// u, v, w, c: reads at padded (i, j) and z index 0 <= k < Nz (PaddedRead also
+// takes its z halo); the _z variants take any z index a z stencil reaches.
+
+template <typename T>
+struct PaddedRead {
+  static constexpr bool kWalls = false;
+  const T* vel[3];   // u, v, w: padded, halos filled
+  Geom g;            // Hz >= 1
+
+  __device__ __forceinline__ T c(const T* a, int i, int j, int k) const {
+    return a[g.at(i, j, k + g.Hz)];
+  }
+  __device__ __forceinline__ T u(int i, int j, int k) const { return c(vel[0], i, j, k); }
+  __device__ __forceinline__ T v(int i, int j, int k) const { return c(vel[1], i, j, k); }
+  __device__ __forceinline__ T w(int i, int j, int k) const { return c(vel[2], i, j, k); }
+  __device__ __forceinline__ T u_z(int i, int j, int k) const { return u(i, j, k); }
+  __device__ __forceinline__ T v_z(int i, int j, int k) const { return v(i, j, k); }
+  __device__ __forceinline__ T w_z(int i, int j, int k) const { return w(i, j, k); }
+  __device__ __forceinline__ T c_z(const T* a, int i, int j, int k) const { return c(a, i, j, k); }
+};
+
+template <typename T, bool kCorr>
+struct CompactRead {
+  static constexpr bool kWalls = true;
+  const T* vel[3];   // u*, v*, w*: padded in x and y, no z halo
+  const T* p;        // padded pressure of the deferred correction (kCorr)
+  T cx, cy, cz;      // Δt_prev/Δx, Δt_prev/Δy, Δt_prev/Δz (kCorr)
+  Geom g;            // Hz = 0
+
+  __device__ __forceinline__ T c(const T* a, int i, int j, int k) const {
+    return a[g.at(i, j, k)];
+  }
+  __device__ __forceinline__ T u(int i, int j, int k) const {
+    const long long at = g.at(i, j, k);
+    if constexpr (kCorr)
+      return vel[0][at] - cx * (p[at] - p[g.at(i - 1, j, k)]);
+    else
+      return vel[0][at];
+  }
+  __device__ __forceinline__ T v(int i, int j, int k) const {
+    const long long at = g.at(i, j, k);
+    if constexpr (kCorr)
+      return vel[1][at] - cy * (p[at] - p[g.at(i, j - 1, k)]);
+    else
+      return vel[1][at];
+  }
+  __device__ __forceinline__ T w(int i, int j, int k) const {
+    const long long at = g.at(i, j, k);
+    if constexpr (kCorr) {
+      if (k == 0) return T(0);
+      return vel[2][at] - cz * (p[at] - p[at - 1]);
+    } else {
+      return vel[2][at];
+    }
+  }
+  __device__ __forceinline__ int even(int k) const {
+    return k < 0 ? -k - 1 : (k >= g.Nz ? 2 * g.Nz - 1 - k : k);
+  }
+  __device__ __forceinline__ T u_z(int i, int j, int k) const { return u(i, j, even(k)); }
+  __device__ __forceinline__ T v_z(int i, int j, int k) const { return v(i, j, even(k)); }
+  __device__ __forceinline__ T w_z(int i, int j, int k) const {
+    const int N = g.Nz;
+    if (k < 0) return -k < N ? -w(i, j, -k) : T(0);
+    if (k >= N) return k == N ? T(0) : -w(i, j, 2 * N - k);
+    return w(i, j, k);
+  }
+  __device__ __forceinline__ T c_z(const T* a, int i, int j, int k) const {
+    return c(a, i, j, even(k));
+  }
+};
+
+// A read policy with the scalars every stencil takes.
+template <typename T, typename S, typename R>
+struct Stencil {
+  R rd;
+  T Ax, Ay, Az, V;   // face areas and cell volume (regular grid)
+  Tab<T> tt;         // stencil coefficients in the field type
+  Tab<S> ts;         // smoothness factors, weights, ε, saturation
+};
+
+// ---- bounded-z interpolation and reconstruction ----------------------------------
+
+// Symmetric interpolation along z at index kk; `a(kz)` reads A·q at absolute
+// z index kz. WENO(5) cascades Centered(4) → Centered(2) outside [3-β, N-3].
+template <int SCH, typename T, typename S, typename R, typename Read>
+__device__ __forceinline__ T interp_z(const Stencil<T, S, R>& P, int kk, int beta, Read a) {
+  if constexpr (SCH == kWeno5) {
+    if (kk >= 3 - beta && kk <= P.rd.g.Nz - 3)
+      return P.tt.c4[0] * a(kk + beta - 2) + P.tt.c4[1] * a(kk + beta - 1)
+           + P.tt.c4[2] * a(kk + beta) + P.tt.c4[3] * a(kk + beta + 1);
+  }
+  return P.tt.c2[0] * a(kk + beta - 1) + P.tt.c2[1] * a(kk + beta);
+}
+
+// Upwind reconstruction along z at index kk; `q(kz)` reads at absolute z
+// index kz. WENO(5): WENO-5 on [3-β, N-3], WENO-3 on [2-β, N-2],
+// UpwindBiased(1) elsewhere.
+template <int SCH, typename T, typename S, typename R, typename Read>
+__device__ __forceinline__ T recon_z(const Stencil<T, S, R>& P, int kk, int beta, T vel,
+                                     Read q) {
+  const bool pos = vel > T(0);
+  if constexpr (SCH == kCentered2) {
+    return centered2(P.tt, pos, q(kk + beta - 1), q(kk + beta));
+  } else {
+    const int N = P.rd.g.Nz;
+    T c[5];
+    if (kk >= 3 - beta && kk <= N - 3) {
+#pragma unroll
+      for (int n = 0; n < 5; ++n) c[n] = pos ? q(kk + beta - 3 + n) : q(kk + beta + 2 - n);
+      return weno5(c, P.tt, P.ts);
+    }
+    if (kk >= 2 - beta && kk <= N - 2) {
+#pragma unroll
+      for (int n = 1; n < 4; ++n) c[n] = pos ? q(kk + beta - 3 + n) : q(kk + beta + 2 - n);
+      return weno3(c + 1, P.tt, P.ts);
+    }
+    return pos ? q(kk + beta - 1) : q(kk + beta);
+  }
+}
+
+// ---- tendencies ------------------------------------------------------------------
+
+// G_u at padded (i, j), z index k: -∇·(𝐯u) at (f, c, c).
+template <int SCH, typename T, typename S, typename R>
+__device__ T tendency_u(const Stencil<T, S, R>& P, int i, int j, int k) {
+  const R& r = P.rd;
+  T F[2];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {          // x: centers i-1, i
+    const int c = i - 1 + m;
+    const T ut = symmetric<SCH>(P.tt, 1, [&](int o) { return P.Ax * r.u(c + o, j, k); });
+    F[m] = ut * upwind<SCH>(P.tt, P.ts, 1, ut, [&](int o) { return r.u(c + o, j, k); });
+  }
+  const T tx = F[1] - F[0];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {          // y: (f, f, c) faces j, j+1
+    const int jj = j + m;
+    const T vt = symmetric<SCH>(P.tt, 0, [&](int o) { return P.Ay * r.v(i + o, jj, k); });
+    F[m] = vt * upwind<SCH>(P.tt, P.ts, 0, vt, [&](int o) { return r.u(i, jj + o, k); });
+  }
+  const T ty = F[1] - F[0];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {          // z: (f, c, f) faces k, k+1
+    const int kk = k + m;
+    if (R::kWalls && kk == r.g.Nz) { F[m] = T(0); continue; }
+    const T wt = symmetric<SCH>(P.tt, 0, [&](int o) { return P.Az * r.w(i + o, j, kk); });
+    F[m] = wt * recon_z<SCH>(P, kk, 0, wt, [&](int kz) { return r.u_z(i, j, kz); });
+  }
+  const T tz = F[1] - F[0];
+  return -(((tx + ty) + tz) / P.V);
+}
+
+// G_v: -∇·(𝐯v) at (c, f, c).
+template <int SCH, typename T, typename S, typename R>
+__device__ T tendency_v(const Stencil<T, S, R>& P, int i, int j, int k) {
+  const R& r = P.rd;
+  T F[2];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {          // x: (f, f, c) faces i, i+1
+    const int ii = i + m;
+    const T ut = symmetric<SCH>(P.tt, 0, [&](int o) { return P.Ax * r.u(ii, j + o, k); });
+    F[m] = ut * upwind<SCH>(P.tt, P.ts, 0, ut, [&](int o) { return r.v(ii + o, j, k); });
+  }
+  const T tx = F[1] - F[0];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {          // y: centers j-1, j
+    const int c = j - 1 + m;
+    const T vt = symmetric<SCH>(P.tt, 1, [&](int o) { return P.Ay * r.v(i, c + o, k); });
+    F[m] = vt * upwind<SCH>(P.tt, P.ts, 1, vt, [&](int o) { return r.v(i, c + o, k); });
+  }
+  const T ty = F[1] - F[0];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {          // z: (c, f, f) faces k, k+1
+    const int kk = k + m;
+    if (R::kWalls && kk == r.g.Nz) { F[m] = T(0); continue; }
+    const T wt = symmetric<SCH>(P.tt, 0, [&](int o) { return P.Az * r.w(i, j + o, kk); });
+    F[m] = wt * recon_z<SCH>(P, kk, 0, wt, [&](int kz) { return r.v_z(i, j, kz); });
+  }
+  const T tz = F[1] - F[0];
+  return -(((tx + ty) + tz) / P.V);
+}
+
+// G_w: -∇·(𝐯w) at (c, c, f).
+template <int SCH, typename T, typename S, typename R>
+__device__ T tendency_w(const Stencil<T, S, R>& P, int i, int j, int k) {
+  const R& r = P.rd;
+  T F[2];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {          // x: (f, c, f) faces i, i+1; u in z
+    const int ii = i + m;
+    const T ut = interp_z<SCH>(P, k, 0, [&](int kz) { return P.Ax * r.u_z(ii, j, kz); });
+    F[m] = ut * upwind<SCH>(P.tt, P.ts, 0, ut, [&](int o) { return r.w(ii + o, j, k); });
+  }
+  const T tx = F[1] - F[0];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {          // y: (c, f, f) faces j, j+1; v in z
+    const int jj = j + m;
+    const T vt = interp_z<SCH>(P, k, 0, [&](int kz) { return P.Ay * r.v_z(i, jj, kz); });
+    F[m] = vt * upwind<SCH>(P.tt, P.ts, 0, vt, [&](int o) { return r.w(i, jj + o, k); });
+  }
+  const T ty = F[1] - F[0];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {          // z: centers k-1, k; none below the bottom face
+    const int kk = k - 1 + m;
+    if (R::kWalls && kk < 0) { F[m] = T(0); continue; }
+    const T wt = interp_z<SCH>(P, kk, 1, [&](int kz) { return P.Az * r.w_z(i, j, kz); });
+    F[m] = wt * recon_z<SCH>(P, kk, 1, wt, [&](int kz) { return r.w_z(i, j, kz); });
+  }
+  const T tz = F[1] - F[0];
+  return -(((tx + ty) + tz) / P.V);
+}
+
+// G_c: -∇·(𝐯c) at (c, c, c) for the tracer `a`; the advecting velocity is
+// the face velocity.
+template <int SCH, typename T, typename S, typename R>
+__device__ T tendency_c(const Stencil<T, S, R>& P, const T* a, int i, int j, int k) {
+  const R& r = P.rd;
+  T F[2];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {          // x: faces i, i+1
+    const int ii = i + m;
+    const T vel = r.u(ii, j, k);
+    F[m] = (P.Ax * vel) * upwind<SCH>(P.tt, P.ts, 0, vel, [&](int o) { return r.c(a, ii + o, j, k); });
+  }
+  const T tx = F[1] - F[0];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {          // y: faces j, j+1
+    const int jj = j + m;
+    const T vel = r.v(i, jj, k);
+    F[m] = (P.Ay * vel) * upwind<SCH>(P.tt, P.ts, 0, vel, [&](int o) { return r.c(a, i, jj + o, k); });
+  }
+  const T ty = F[1] - F[0];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {          // z: faces k, k+1
+    const int kk = k + m;
+    if (R::kWalls && kk == r.g.Nz) { F[m] = T(0); continue; }
+    const T vel = r.w(i, j, kk);
+    F[m] = (P.Az * vel) * recon_z<SCH>(P, kk, 0, vel, [&](int kz) { return r.c_z(a, i, j, kz); });
+  }
+  const T tz = F[1] - F[0];
+  return -(((tx + ty) + tz) / P.V);
+}
+
+// G of component `comp` (0 u, 1 v, 2 w, 3 and up the tracer `a`).
+template <int SCH, typename T, typename S, typename R>
+__device__ __forceinline__ T tendency(const Stencil<T, S, R>& P, int comp, const T* a, int i,
+                                      int j, int k) {
+  if (comp == 0) return tendency_u<SCH>(P, i, j, k);
+  if (comp == 1) return tendency_v<SCH>(P, i, j, k);
+  if (comp == 2) return tendency_w<SCH>(P, i, j, k);
+  return tendency_c<SCH>(P, a, i, j, k);
+}
+
+// Components one launch takes (kernels/build.py BATCH): the
+// per-component pointers ride in the kernel's parameter block, so a call
+// with more components launches once per batch of at most kBatch.
+constexpr int kBatch = 32;
+
+}  // namespace oc

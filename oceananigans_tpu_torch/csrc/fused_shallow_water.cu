@@ -36,7 +36,10 @@
 // 1,100 operations per cell), and the stencil reads go through L1/L2.
 // `new` goes to separate padded buffers (neighbours still read q); its halo
 // slots are left for the next stage's wrap. Offsets are 64-bit. Divisions
-// are exact.
+// are exact. A launch takes at most kBatch fields (their pointers ride in
+// the parameter block); kernels/fused_shallow_water.py launches once per
+// batch, and every field's result depends only on its own values and uh, vh,
+// h, so the batching does not change a bit of it.
 #include "common.cuh"
 #include "reconstruction.cuh"
 
@@ -48,15 +51,17 @@ using oc::kWeno5;
 using oc::make_tab;
 using oc::Tab;
 
-constexpr int kMaxFields = 3 + 8;   // uh, vh, h and up to 8 tracers
+constexpr int kBatch = 32;   // fields per launch (kernels/build.py BATCH)
 
 template <typename T, typename S>
 struct Params {
-  const T* q[kMaxFields];   // uh, vh, h, tracers: padded, halos filled
-  T* out[kMaxFields];       // new: padded, interiors written
+  const T* prog[3];         // uh, vh, h: padded, halos filled
+  const T* q[kBatch];       // the batch's fields (of uh, vh, h, tracers)
+  T* out[kBatch];           // the batch's new fields: padded, interiors written
+  int first;                // field index of q[0]
   const T* hB;              // bathymetry, padded, halos filled
   const T* Gm;              // (nf, Nx, Ny) previous-stage tendencies or null
-  T* G;                     // (nf, Nx, Ny) out
+  T* G;                     // (nf, Nx, Ny) out, all fields
   oc::Geom g;               // Nz = 1, Hz = 0
   T dx, dy, Ax, Ay, Az, V;  // spacings, face areas, cell volume (regular grid)
   T half_g, g_acc, f;       // g/2, g, Coriolis parameter (0: none)
@@ -73,27 +78,27 @@ __device__ __forceinline__ T rd(const Params<T, S>& P, const T* a, int i, int j)
 // u = uh / ℑx(h) at (f, c) and v = vh / ℑy(h) at (c, f).
 template <typename T, typename S>
 __device__ __forceinline__ T vel_u(const Params<T, S>& P, int i, int j) {
-  const T* h = P.q[2];
-  return rd(P, P.q[0], i, j) / (T(0.5) * (rd(P, h, i, j) + rd(P, h, i - 1, j)));
+  const T* h = P.prog[2];
+  return rd(P, P.prog[0], i, j) / (T(0.5) * (rd(P, h, i, j) + rd(P, h, i - 1, j)));
 }
 
 template <typename T, typename S>
 __device__ __forceinline__ T vel_v(const Params<T, S>& P, int i, int j) {
-  const T* h = P.q[2];
-  return rd(P, P.q[1], i, j) / (T(0.5) * (rd(P, h, i, j) + rd(P, h, i, j - 1)));
+  const T* h = P.prog[2];
+  return rd(P, P.prog[1], i, j) / (T(0.5) * (rd(P, h, i, j) + rd(P, h, i, j - 1)));
 }
 
 // g h²/2 at (c, c).
 template <typename T, typename S>
 __device__ __forceinline__ T head(const Params<T, S>& P, int i, int j) {
-  const T h = rd(P, P.q[2], i, j);
+  const T h = rd(P, P.prog[2], i, j);
   return (P.half_g * h) * h;
 }
 
 // G_uh at padded (i, j).
 template <int SCH, typename T, typename S>
 __device__ T tendency_uh(const Params<T, S>& P, int i, int j) {
-  const T *uh = P.q[0], *vh = P.q[1], *h = P.q[2];
+  const T *uh = P.prog[0], *vh = P.prog[1], *h = P.prog[2];
   T F[2];
 #pragma unroll
   for (int m = 0; m < 2; ++m) {          // x: centers i-1, i
@@ -126,7 +131,7 @@ __device__ T tendency_uh(const Params<T, S>& P, int i, int j) {
 // G_vh at padded (i, j).
 template <int SCH, typename T, typename S>
 __device__ T tendency_vh(const Params<T, S>& P, int i, int j) {
-  const T *uh = P.q[0], *vh = P.q[1], *h = P.q[2];
+  const T *uh = P.prog[0], *vh = P.prog[1], *h = P.prog[2];
   T F[2];
 #pragma unroll
   for (int m = 0; m < 2; ++m) {          // x: (f, f) faces i, i+1
@@ -159,7 +164,7 @@ __device__ T tendency_vh(const Params<T, S>& P, int i, int j) {
 // G_h at padded (i, j).
 template <typename T, typename S>
 __device__ T tendency_h(const Params<T, S>& P, int i, int j) {
-  const T *uh = P.q[0], *vh = P.q[1];
+  const T *uh = P.prog[0], *vh = P.prog[1];
   const T dU = P.Ax * rd(P, uh, i + 1, j) - P.Ax * rd(P, uh, i, j);
   const T dV = P.Ay * rd(P, vh, i, j + 1) - P.Ay * rd(P, vh, i, j);
   return ((-((dU + dV) / P.V)) * P.V) / P.Az;
@@ -168,7 +173,7 @@ __device__ T tendency_h(const Params<T, S>& P, int i, int j) {
 // G_c at padded (i, j): advective form, -∇·(𝐔c) + c ∇·𝐔.
 template <int SCH, typename T, typename S>
 __device__ T tendency_c(const Params<T, S>& P, const T* c, int i, int j) {
-  const T *uh = P.q[0], *vh = P.q[1];
+  const T *uh = P.prog[0], *vh = P.prog[1];
   const T dU = P.dy * rd(P, uh, i + 1, j) - P.dy * rd(P, uh, i, j);
   const T dV = P.dx * rd(P, vh, i, j + 1) - P.dx * rd(P, vh, i, j);
   const T divU = (dU + dV) / P.Az;
@@ -200,7 +205,7 @@ sw_update_kernel(const __grid_constant__ Params<T, S> P) {
   if (n >= cells) return;
   const int I = (int)(n / P.g.Ny), J = (int)(n % P.g.Ny);
   const int i = I + P.g.Hx, j = J + P.g.Hy;
-  const int comp = blockIdx.y;
+  const int b = blockIdx.y, comp = P.first + b;
   T G;
   if (comp == 0)
     G = tendency_uh<SCH>(P, i, j);
@@ -209,18 +214,19 @@ sw_update_kernel(const __grid_constant__ Params<T, S> P) {
   else if (comp == 2)
     G = tendency_h(P, i, j);
   else
-    G = tendency_c<SCH>(P, P.q[comp], i, j);
+    G = tendency_c<SCH>(P, P.q[b], i, j);
   const long long at = comp * cells + n;
   P.G[at] = G;
   T inc = P.gamma_dt * G;
   if (P.Gm != nullptr) inc = inc + P.zeta_dt * P.Gm[at];
-  P.out[comp][P.g.at(i, j, 0)] = rd(P, P.q[comp], i, j) + inc;
+  P.out[b][P.g.at(i, j, 0)] = rd(P, P.q[b], i, j) + inc;
 }
 
 struct Args {
-  const void* const* q;
+  const void* const* prog;   // uh, vh, h
+  const void* const* q;      // the batch's fields
   void* const* out;
-  int nf;
+  int nb, first;
   const void* hB;
   const void* Gm;
   void* G;
@@ -233,10 +239,12 @@ struct Args {
 template <int SCH, typename T, typename S>
 int launch(const Args& a) {
   Params<T, S> P;
-  for (int c = 0; c < kMaxFields; ++c) {
-    P.q[c] = c < a.nf ? (const T*)a.q[c] : nullptr;
-    P.out[c] = c < a.nf ? (T*)a.out[c] : nullptr;
+  for (int d = 0; d < 3; ++d) P.prog[d] = (const T*)a.prog[d];
+  for (int c = 0; c < kBatch; ++c) {
+    P.q[c] = c < a.nb ? (const T*)a.q[c] : nullptr;
+    P.out[c] = c < a.nb ? (T*)a.out[c] : nullptr;
   }
+  P.first = a.first;
   P.hB = (const T*)a.hB;
   P.Gm = (const T*)a.Gm;
   P.G = (T*)a.G;
@@ -255,7 +263,7 @@ int launch(const Args& a) {
   P.tt = make_tab<T>(a.coefs);
   P.ts = make_tab<S>(a.coefs);
   const int threads = 256;
-  dim3 grid(oc::blocks_for(a.g.interior_cells(), threads), a.nf);
+  dim3 grid(oc::blocks_for(a.g.interior_cells(), threads), a.nb);
   sw_update_kernel<SCH, T, S><<<grid, threads, 0, a.stream>>>(P);
   return (int)cudaGetLastError();
 }
@@ -279,19 +287,23 @@ int dispatch(int dtype, int sdtype, const Args& a) {
 extern "C" {
 
 // scheme: 0 WENO(5), 1 Centered(2). dtype / sdtype: OC_FLOAT32 or OC_FLOAT64
-// for the fields and for the WENO smoothness arithmetic. q, out: host arrays
-// of nf device pointers (uh, vh, h, tracers; padded inputs and outputs); hB:
-// padded bathymetry; Gm: device (nf, Nx, Ny) or null for the first stage;
-// G: device (nf, Nx, Ny) output; coefs: the host table of Tab (kTabSize
-// float64 values); f: the constant Coriolis parameter, 0 for none.
-int oc_fused_sw_update(int scheme, int dtype, int sdtype, const void* const* q,
-                       void* const* out, int nf, const void* hB, const void* Gm,
+// for the fields and for the WENO smoothness arithmetic. prog: host array of
+// the uh, vh, h device pointers; q, out: host arrays of the batch's nb device
+// pointers (fields first .. first+nb-1 of uh, vh, h, tracers; padded inputs
+// and outputs); hB: padded bathymetry; Gm: device (nf, Nx, Ny) of all fields
+// or null for the first stage; G: device (nf, Nx, Ny) output of all fields;
+// coefs: the host table of Tab (kTabSize float64 values); f: the constant
+// Coriolis parameter, 0 for none.
+int oc_fused_sw_update(int scheme, int dtype, int sdtype, const void* const* prog,
+                       const void* const* q, void* const* out, int nb, int first,
+                       const void* hB, const void* Gm,
                        void* G, int Nx, int Ny, int Hx, int Hy, double dx, double dy,
                        double Ax, double Ay, double Az, double V, double g_acc,
                        double f, double gamma_dt, double zeta_dt, const double* coefs,
                        int ncoefs, void* stream) {
-  if (ncoefs != kTabSize || nf < 3 || nf > kMaxFields) return (int)cudaErrorInvalidValue;
-  Args a{q, out, nf, hB, Gm, G, oc::Geom{Nx, Ny, 1, Hx, Hy, 0}, dx, dy, Ax, Ay, Az, V,
+  if (ncoefs != kTabSize || nb < 1 || nb > kBatch || first < 0)
+    return (int)cudaErrorInvalidValue;
+  Args a{prog, q, out, nb, first, hB, Gm, G, oc::Geom{Nx, Ny, 1, Hx, Hy, 0}, dx, dy, Ax, Ay, Az, V,
          g_acc, f, gamma_dt, zeta_dt, coefs, (cudaStream_t)stream};
   if (scheme == kWeno5) return dispatch<kWeno5>(dtype, sdtype, a);
   if (scheme == kCentered2) return dispatch<kCentered2>(dtype, sdtype, a);

@@ -28,8 +28,11 @@
 // Bound: pure data movement, launch latency dominates. The wrap moves
 // (2Hx·PY + 2Nx·Hy)·PZ elements each way per field, the z-fill about
 // 2Hz·PX·PY (about 2 MB per float32 field at 262³). Design: one launch for a
-// whole batch of fields (blockIdx.y = field), one thread per halo element with
-// z fastest across threads. The z-fill reads interior z slots only and
+// batch of fields (blockIdx.y = field), one thread per halo element with z
+// fastest across threads. A launch takes at most kMaxFields fields (their
+// pointers and conditions ride in the parameter block); kernels/halo_fill.py
+// launches once per batch of that size, and each field's fill is independent
+// of the others', so the batching changes no value. The z-fill reads interior z slots only and
 // writes halo and boundary-face slots only, so its in-place update has no
 // race either. Copies are exact; an extrapolated slot may differ from the
 // plain PyTorch version by rounding (FMA contraction, and PyTorch's division
@@ -38,7 +41,7 @@
 
 namespace {
 
-constexpr int kMaxFields = 16;
+constexpr int kMaxFields = 32;   // fields per launch (kernels/build.py BATCH)
 constexpr int kMaxHz = 8;
 
 // Boundary classifications, as kernels/halo_fill.py numbers them.

@@ -51,15 +51,15 @@ SIGNATURES = {
     "oc_halo_fill": [P, I, I, I, I, I, I, I, I, I, I, P],
     "oc_bounded_z_fill": [P, I, I, P, P, P, P, P, I, I, I, I, I, I, D, D, P,
                           P, P],
-    "oc_advection_tendency": [I, I, I, P, I, P, I, I, I, I, I, I, D, D, D, D,
-                              P, I, P],
+    "oc_advection_tendency": [I, I, I, P, P, I, I, P, I, I, I, I, I, I,
+                              D, D, D, D, P, I, P],
     "oc_fused_divergence": [I, P, P, P, P, I, I, I, I, I, D, D, D, D, P],
     "oc_fused_correct": [I, P, P, P, P, P, P, P, I, I, I, I, I,
                          D, D, D, D, P],
-    "oc_fused_advection_update": [I, I, P, P, P, P, P, P, P, P, P, P, P, P,
-                                  P, I, I, I, I, I, D, D, D, D, D, D, D,
-                                  D, D, D, P, I, I, I, P],
-    "oc_fused_sw_update": [I, I, I, P, P, I, P, P, P, I, I, I, I,
+    "oc_fused_advection_update": [I, I, I, P, P, P, P, P, P, I, I, I, I, I,
+                                  I, I, D, D, D, D, D, D, D, D, D, D, P, I,
+                                  P],
+    "oc_fused_sw_update": [I, I, I, P, P, P, I, I, P, P, P, I, I, I, I,
                            D, D, D, D, D, D, D, D, D, D, P, I, P],
     "oc_vi_set_tables": [P, I],
     "oc_fused_vi_tendency": [I, I, P, P, P, P, P, D, D, P],
@@ -169,3 +169,20 @@ def load(path):
 
 def ptr(t):
     return ctypes.c_void_p(t.data_ptr()) if t is not None else ctypes.c_void_p(0)
+
+
+# Fields one launch of a batched kernel takes: their pointers ride in the
+# kernel's parameter block (kBatch in csrc/advection_stencils.cuh and
+# csrc/fused_shallow_water.cu, kMaxFields in csrc/halo_fill.cu). A call with
+# more fields launches once per batch.
+BATCH = 32
+
+
+def batches(n):
+    """(first, stop) of each launch's fields, for n fields."""
+    return [(a, min(n, a + BATCH)) for a in range(0, n, BATCH)]
+
+
+def pointers(tensors):
+    """A host array of the tensors' device pointers."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])

@@ -3,40 +3,48 @@ tendency-only form.
 
 ``fused_advection_update`` replaces the TPU kernel
 ``oceananigans_tpu/kernels/fused_advection.py`` ``_build_update_group`` (via
-``build_fused_advection_update``), for u, v, w without tracers, in the
+``build_fused_advection_update``), for u, v, w and the tracers, in the
 z-compact layout (no z halo; the z boundary conditions are applied inside
 the stencil reads):
 
-    G   = -∇·(𝐯 q)                  for q = u, v, w     (interior-shaped)
-    new = q + γΔt·G + ζΔt·G⁻         (ζΔt·G⁻ only when G⁻ is given; padded,
-                                     with valid periodic x/y halos)
+    G   = -∇·(𝐯 q)            for q = u, v, w, tracers  (interior-shaped)
+    new = q + γΔt·G + ζΔt·G⁻   (ζΔt·G⁻ only when G⁻ is given; padded, with
+                               valid periodic x/y halos)
 
 With ``p`` and ``corr_dt`` (the previous stage's deferred pressure
 correction), G is the tendency of the corrected fields q* − corr_dt·∂p (w's
-bottom face pinned to 0), while ``new`` adds the increment to the
-uncorrected q*, as the TPU kernel does.
+bottom face pinned to 0) and the tracers are advected by the corrected
+velocities, while ``new`` adds the increment to the uncorrected q* (the
+tracers are never corrected), as the TPU kernel does.
 
 Bound on the H100: arithmetic. Each output cell evaluates six WENO-5
 reconstructions, each with four divisions, about 600 floating-point
 operations per component, against 16 B per component of compulsory memory
-traffic in float32. Design (``csrc/fused_advection.cu``): one thread per
-(component, cell), z fastest across threads, the component uniform per
-block; each thread recomputes the two face fluxes it needs per axis, and the
-stencil reads go through L1/L2. Division is exact. The kernel covers WENO(5)
-with its near-wall cascade; other schemes take no kernel yet.
+traffic in float32. Design (``csrc/fused_advection.cu``, stencils in
+``csrc/advection_stencils.cuh``): one thread per (component, cell), z
+fastest across threads, the component uniform per block; each thread
+recomputes the two face fluxes it needs per axis, and the stencil reads go
+through L1/L2. Division is exact. Schemes: WENO(5) with its near-wall
+cascade and Centered(2); any other raises on the card.
 
-``fused_advection_tendency`` replaces ``build_fused_advection`` (the
-tendency-only megakernel of the padded layout): ``G = -∇·(𝐯q)`` for u, v, w
-and each tracer, from padded fields whose halos (z included) were filled
-beforehand, as one (3 + n_tracers, Nx, Ny, Nz) tensor. There is no stage
-update: the model adds buoyancy, closure and boundary fluxes to G and
-updates in PyTorch. Its CUDA kernel (``csrc/advection_tendency.cu``) has the
-same design and bound as the update kernel, and covers WENO(5) and
-Centered(2) through the same coefficient table.
+``fused_advection_tendency`` replaces ``build_fused_advection``: ``G =
+-∇·(𝐯q)`` for u, v, w and each tracer as one (3 + n_tracers, Nx, Ny, Nz)
+tensor, with no stage update (the model adds buoyancy, closure and boundary
+fluxes to G and updates in PyTorch). As in the TPU kernel, the layout
+follows the grid's z halo: padded fields whose halos (z included) were
+filled beforehand, or the z-compact layout (``H[2] == 0``: filled x/y halos,
+the z boundary mirrors inside the reads, zero boundary-face fluxes). Its
+CUDA kernel (``csrc/advection_tendency.cu``) shares the update kernel's
+stencils, design and bound.
+
+Both kernels take any number of components: the per-component pointers ride
+in the kernel's parameter block, at most ``build.BATCH`` a launch, and a
+call with more launches once per batch. Every component's result depends only on its
+own field and u, v, w (and p), so the batching changes no bit of it.
 
 ``build_sharded_fused_advection`` replaces ``build_sharded_fused_advection``
 (#7): the tendency kernel once per shard of a device mesh, on blocks whose
-halos come from the mesh's halo exchange.
+x/y halos come from the mesh's halo exchange, in either layout.
 """
 
 from __future__ import annotations
@@ -55,7 +63,7 @@ from .fused_projection import (_DTYPE_CODES, _metrics, check_fast_layout,
                                check_tensors, scalar_product)
 from .halo_fill import periodic_halo_fill_plain
 
-ZBC = {"u": "even", "v": "even", "w": "odd_face"}
+ZBC = {"u": "even", "v": "even", "w": "odd_face", "c": "even"}
 
 OTHER_SCHEMES_ITEM = ("ROADMAP.md queue 2, kernels #1 and #6 (schemes other "
                       "than WENO(5) and Centered(2) in the CUDA advection "
@@ -66,7 +74,6 @@ WENO5, CENTERED2 = 0, 1
 
 # Entries of the coefficient table (kTabSize in csrc/reconstruction.cuh).
 TAB_SIZE = 4 + 2 + 9 + 27 + 3 + 4 + 8 + 2 + 2
-
 
 def corrected_velocities(grid, u, v, w, p, corr_dt):
     """q* − corr_dt·∂p on the whole padded tensors, w's bottom face pinned;
@@ -82,19 +89,23 @@ def corrected_velocities(grid, u, v, w, p, corr_dt):
 
 
 def fused_advection_update_plain(grid, scheme, u, v, w, Gm, gamma_dt, zeta_dt,
-                                 p=None, corr_dt=None):
+                                 p=None, corr_dt=None, tracers=None):
     """Plain PyTorch version: the port's flux functions on the whole padded
     tensors, then the stage update and the periodic halo wrap."""
     if u.is_cuda:
         fused_advection_update_plain.cuda_calls += 1
-    qs = (u, v, w)
+    tracers = dict(tracers or {})
+    qs = [u, v, w] + list(tracers.values())
+    names = ("u", "v", "w") + tuple(tracers)
     if p is not None:
         u, v, w = corrected_velocities(grid, u, v, w, p, corr_dt)
     ints = grid.interior_slices
     G = [-div(grid, scheme, u, v, w, zbc=ZBC)[ints]
          for div in (div_Uu, div_Uv, div_Uw)]
+    G += [-div_Uc(grid, scheme, u, v, w, c, zbc=ZBC)[ints]
+          for c in tracers.values()]
     new = {}
-    for k, name in enumerate("uvw"):
+    for k, name in enumerate(names):
         inc = float(gamma_dt) * G[k]
         if Gm is not None:
             inc = inc + float(zeta_dt) * Gm[k]
@@ -167,20 +178,21 @@ def coefficient_table(scheme):
 
 
 def fused_advection_update(grid, scheme, u, v, w, Gm, gamma_dt, zeta_dt,
-                           p=None, corr_dt=None):
-    """Advection + RK3 stage update. Returns ``(G, new)``: ``G`` a list of
-    the three interior-shaped tendencies (pass back as the next stage's
-    ``Gm``), ``new`` a dict of padded u, v, w with valid periodic x/y halos.
-    ``Gm=None`` is the first-stage variant (ζ = 0); ``p``/``corr_dt`` apply
-    the deferred correction. Scalars are values in the field dtype. CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+                           p=None, corr_dt=None, tracers=None):
+    """Advection + RK3 stage update of u, v, w and the ``tracers`` ({name:
+    padded tensor}). Returns ``(G, new)``: ``G`` a list of the 3 + n
+    interior-shaped tendencies (pass back as the next stage's ``Gm``),
+    ``new`` a dict of the padded u, v, w and tracers with valid periodic x/y
+    halos. ``Gm=None`` is the first-stage variant (ζ = 0); ``p``/``corr_dt``
+    apply the deferred correction. Scalars are values in the field dtype.
+    CPU tensors take the plain version; CUDA tensors launch the kernel, once
+    per ``build.BATCH`` components."""
     if u.device.type == "cpu":
         return fused_advection_update_plain(grid, scheme, u, v, w, Gm,
-                                            gamma_dt, zeta_dt, p, corr_dt)
+                                            gamma_dt, zeta_dt, p, corr_dt,
+                                            tracers)
     check_fast_layout(grid)
-    if scheme_code(scheme) != WENO5:
-        raise NotImplementedError(
-            f"no CUDA update kernel for {scheme!r}: {OTHER_SCHEMES_ITEM}")
+    code = scheme_code(scheme)
     table = coefficient_table(scheme)
     has_corr = p is not None
     if has_corr and corr_dt is None:
@@ -188,55 +200,63 @@ def fused_advection_update(grid, scheme, u, v, w, Gm, gamma_dt, zeta_dt,
     req = scheme.required_halo + (1 if has_corr else 0)
     if min(grid.H[0], grid.H[1]) < req:
         raise ValueError(f"the kernel needs Hx, Hy >= {req}")
-    ins = (u, v, w) + ((p,) if has_corr else ())
-    check_tensors(grid, ins, grid.padded_shape)
+    tracers = dict(tracers or {})
+    qs = [u, v, w] + list(tracers.values())
+    nc = len(qs)
+    check_tensors(grid, qs + ([p] if has_corr else []), grid.padded_shape)
     if Gm is not None:
-        check_tensors(grid, tuple(Gm), grid.N)
+        Gm = list(Gm)
+        if len(Gm) != nc:
+            raise ValueError(f"Gm holds {len(Gm)} tendencies for {nc} fields")
+        check_tensors(grid, Gm, grid.N)
         if Gm[0].device != u.device:
             raise ValueError("Gm must be on the fields' device")
-    sdt = scheme.smoothness_dtype
+    sdt = getattr(scheme, "smoothness_dtype", u.dtype)
     if sdt not in _DTYPE_CODES:
         raise TypeError(f"unsupported smoothness dtype {sdt}")
     m = _metrics(grid)
     Nx, Ny, Nz = grid.N
     Hx, Hy, _ = grid.H
-    G = [torch.empty(grid.N, dtype=u.dtype, device=u.device) for _ in range(3)]
-    outs = [torch.empty_like(u) for _ in range(3)]
-    gm = list(Gm) if Gm is not None else [None] * 3
+    G = list(torch.empty((nc,) + grid.N, dtype=u.dtype,
+                         device=u.device).unbind(0))
+    outs = [torch.empty_like(q) for q in qs]
+    vel = build.pointers([u, v, w])
     with torch.cuda.device(u.device):
         lib = build.library()
-        build.check(lib.oc_fused_advection_update(
-            _DTYPE_CODES[u.dtype], _DTYPE_CODES[sdt],
-            build.ptr(u), build.ptr(v), build.ptr(w), build.ptr(p),
-            *[build.ptr(g) for g in gm], *[build.ptr(g) for g in G],
-            *[build.ptr(o) for o in outs], Nx, Ny, Nz, Hx, Hy,
-            float(gamma_dt), float(zeta_dt) if Gm is not None else 0.0,
-            float(corr_dt) if has_corr else 0.0,
-            m["Ax"], m["Ay"], m["Az"], m["V"],
-            1.0 / m["dx"], 1.0 / m["dy"], 1.0 / m["dz"],
-            table, len(table), int(Gm is not None), int(has_corr),
-            build.stream_of(u)), lib)
-    fused_advection_update.launches += 1
-    return G, dict(zip("uvw", outs))
+        for a, b in build.batches(nc):
+            build.check(lib.oc_fused_advection_update(
+                code, _DTYPE_CODES[u.dtype], _DTYPE_CODES[sdt], vel,
+                build.ptr(p), build.pointers(qs[a:b]),
+                build.pointers(Gm[a:b]) if Gm is not None else None,
+                build.pointers(G[a:b]), build.pointers(outs[a:b]), b - a, a,
+                Nx, Ny, Nz, Hx, Hy,
+                float(gamma_dt), float(zeta_dt) if Gm is not None else 0.0,
+                float(corr_dt) if has_corr else 0.0,
+                m["Ax"], m["Ay"], m["Az"], m["V"],
+                1.0 / m["dx"], 1.0 / m["dy"], 1.0 / m["dz"],
+                table, len(table), build.stream_of(u)), lib)
+            fused_advection_update.launches += 1
+    return G, dict(zip(("u", "v", "w") + tuple(tracers), outs))
 
 
 fused_advection_update.launches = 0
 
 
-# -- tendency only (padded layout) ---------------------------------------------
-
-MAX_COMPONENTS = 3 + 8
-
+# -- tendency only ---------------------------------------------------------------
 
 def fused_advection_tendency_plain(grid, scheme, fields):
     """Plain PyTorch version: the port's flux functions on the padded
-    tensors (halos read as they are), interiors stacked."""
+    tensors (halos read as they are; with no z halo, through the z boundary
+    mirrors), interiors stacked."""
     if fields[0].is_cuda:
         fused_advection_tendency_plain.cuda_calls += 1
     u, v, w = fields[:3]
+    zbc = ZBC if grid.H[2] == 0 else None
     ints = grid.interior_slices
-    G = [-div(grid, scheme, u, v, w)[ints] for div in (div_Uu, div_Uv, div_Uw)]
-    G += [-div_Uc(grid, scheme, u, v, w, c)[ints] for c in fields[3:]]
+    G = [-div(grid, scheme, u, v, w, zbc=zbc)[ints]
+         for div in (div_Uu, div_Uv, div_Uw)]
+    G += [-div_Uc(grid, scheme, u, v, w, c, zbc=zbc)[ints]
+          for c in fields[3:]]
     return torch.stack(G)
 
 
@@ -245,9 +265,10 @@ fused_advection_tendency_plain.cuda_calls = 0
 
 def fused_advection_tendency(grid, scheme, fields):
     """``G = -∇·(𝐯q)`` at every interior cell for ``fields`` = [u, v, w,
-    tracers...], padded tensors with filled halos (z included). Returns one
-    (len(fields), Nx, Ny, Nz) tensor. CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
+    tracers...], padded tensors with filled halos (z included; with
+    ``grid.H[2] == 0`` the z-compact layout). Returns one (len(fields), Nx,
+    Ny, Nz) tensor. CPU tensors take the plain version; CUDA tensors launch
+    the kernel, once per ``build.BATCH`` components."""
     fields = list(fields)
     if fields[0].device.type == "cpu":
         return fused_advection_tendency_plain(grid, scheme, fields)
@@ -257,13 +278,12 @@ def fused_advection_tendency(grid, scheme, fields):
             "the tendency kernel takes periodic x/y and a bounded z: "
             "ROADMAP.md queue 1 item 11 (other configurations)")
     code = scheme_code(scheme)
-    if not 3 <= len(fields) <= MAX_COMPONENTS:
-        raise ValueError(f"the tendency kernel takes u, v, w and at most "
-                         f"{MAX_COMPONENTS - 3} tracers")
+    if len(fields) < 3:
+        raise ValueError("the tendency kernel takes u, v, w and the tracers")
     Hx, Hy, Hz = grid.H
-    if min(Hx, Hy) < scheme.required_halo or Hz < 1:
+    if min(Hx, Hy) < scheme.required_halo:
         raise ValueError(f"the tendency kernel needs Hx, Hy >= "
-                         f"{scheme.required_halo} and Hz >= 1")
+                         f"{scheme.required_halo}")
     check_tensors(grid, fields, grid.padded_shape)
     sdt = getattr(scheme, "smoothness_dtype", fields[0].dtype)
     if sdt not in _DTYPE_CODES:
@@ -274,14 +294,16 @@ def fused_advection_tendency(grid, scheme, fields):
     nc = len(fields)
     G = torch.empty((nc, Nx, Ny, Nz), dtype=fields[0].dtype,
                     device=fields[0].device)
-    ptrs = (ctypes.c_void_p * nc)(*[f.data_ptr() for f in fields])
+    vel = build.pointers(fields[:3])
     with torch.cuda.device(G.device):
         lib = build.library()
-        build.check(lib.oc_advection_tendency(
-            code, _DTYPE_CODES[G.dtype], _DTYPE_CODES[sdt], ptrs, nc,
-            build.ptr(G), Nx, Ny, Nz, Hx, Hy, Hz, m["Ax"], m["Ay"], m["Az"],
-            m["V"], table, len(table), build.stream_of(G)), lib)
-    fused_advection_tendency.launches += 1
+        for a, b in build.batches(nc):
+            build.check(lib.oc_advection_tendency(
+                code, _DTYPE_CODES[G.dtype], _DTYPE_CODES[sdt], vel,
+                build.pointers(fields[a:b]), b - a, a, build.ptr(G[a]), Nx,
+                Ny, Nz, Hx, Hy, Hz, m["Ax"], m["Ay"], m["Az"], m["V"], table,
+                len(table), build.stream_of(G)), lib)
+            fused_advection_tendency.launches += 1
     return G
 
 
@@ -294,16 +316,17 @@ def build_sharded_fused_advection(grid, scheme, mesh):
     """The tendency-only advection under an (x, y) device mesh: replaces the
     TPU kernel ``oceananigans_tpu/kernels/fused_advection.py``
     ``build_sharded_fused_advection`` (#7, a ``shard_map`` around #6), on the
-    padded layout.
+    padded layout or the z-compact one (``grid.H[2] == 0``).
 
     Returns ``sharded(fields) -> G``: for ``fields`` = [u, v, w, tracers...],
-    global padded tensors with filled halos (z included), it cuts the
-    interiors into the mesh's (nlx, nly) blocks, each padded by (Hx, Hy) and
-    carrying the full padded z, on its shard's device, fills the blocks' x
-    and y halos from their neighbours (``parallel.halo_exchange_local``),
-    runs ``fused_advection_tendency`` (#6) once per shard on the shard's
-    grid, and returns the interiors stitched into one (nf, Nx, Ny, Nz)
-    tensor on the grid's device, as ``fused_advection_tendency`` does. The
+    global padded tensors with filled halos (z included, if any), it cuts
+    the interiors into the mesh's (nlx, nly) blocks, each padded by (Hx, Hy)
+    and carrying the full padded z, on its shard's device, fills the blocks'
+    x and y halos from their neighbours (``parallel.halo_exchange_local``),
+    runs ``fused_advection_tendency`` (#6, in the grid's layout) once per
+    shard on the shard's grid, and returns the interiors stitched into one
+    (nf, Nx, Ny, Nz) tensor on the grid's device, as
+    ``fused_advection_tendency`` does. The
     shards' grids take the global spacing exactly
     (``RectilinearGrid.local_grid``) and the exchanged halos of periodic x
     and y are the global wrap's values, so the result equals the serial

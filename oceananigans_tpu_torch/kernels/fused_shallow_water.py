@@ -25,7 +25,10 @@ component uniform per block; each thread recomputes its two face fluxes per
 axis and every velocity they select (about 1,100 operations per cell), and
 reads its stencil through L1/L2.
 Division is exact. Schemes: WENO(5) and Centered(2); any other scheme raises
-on the card.
+on the card. A launch takes at most ``build.BATCH`` fields (their pointers
+ride in the kernel's parameter block); more fields take one launch per batch, and
+since every field's result depends only on its own values and uh, vh, h,
+the batching changes no bit of it.
 
 ``build_sharded_fused_sw_update`` replaces ``build_sharded_fused_sw_update``
 (#9): the stage once per shard of a device mesh, on blocks whose halos come
@@ -33,8 +36,6 @@ from the mesh's halo exchange.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -47,7 +48,6 @@ from . import build
 from .fused_advection import coefficient_table, scheme_code
 from .fused_projection import _DTYPE_CODES, _metrics, check_tensors
 
-MAX_FIELDS = 3 + 8          # uh, vh, h and up to 8 tracers
 PROGNOSTIC = ("uh", "vh", "h")
 
 
@@ -90,7 +90,8 @@ def fused_sw_update(grid, scheme, g, f, hB, names, fields, Gm, gamma_dt,
     the gravitational acceleration and ``f`` the constant Coriolis parameter
     (0 for none). ``Gm`` is the previous stage's G, or None on the first
     stage. Scalars are values in the field dtype. Returns ``(G, new)``. CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    tensors take the plain version; CUDA tensors launch the kernel, once per
+    ``build.BATCH`` fields."""
     names = tuple(names)
     q = [fields[n] for n in names]
     if q[0].device.type == "cpu":
@@ -101,9 +102,9 @@ def fused_sw_update(grid, scheme, g, f, hB, names, fields, Gm, gamma_dt,
         raise ValueError("the fused shallow-water stage takes a regular grid "
                          "with periodic x/y and a flat z")
     nf = len(names)
-    if names[:3] != PROGNOSTIC or not 3 <= nf <= MAX_FIELDS:
-        raise ValueError(f"the fused shallow-water stage takes uh, vh, h and "
-                         f"at most {MAX_FIELDS - 3} tracers, in that order")
+    if names[:3] != PROGNOSTIC:
+        raise ValueError("the fused shallow-water stage takes uh, vh, h and "
+                         "the tracers, in that order")
     req = scheme.required_halo + 1
     if min(grid.H[0], grid.H[1]) < req:
         raise ValueError(f"the kernel needs Hx, Hy >= {req}")
@@ -120,18 +121,19 @@ def fused_sw_update(grid, scheme, g, f, hB, names, fields, Gm, gamma_dt,
     m = _metrics(grid)
     G = torch.empty((nf, Nx, Ny, 1), dtype=q[0].dtype, device=q[0].device)
     outs = [torch.empty_like(a) for a in q]
-    ins = (ctypes.c_void_p * nf)(*[a.data_ptr() for a in q])
-    news = (ctypes.c_void_p * nf)(*[a.data_ptr() for a in outs])
+    prog = build.pointers(q[:3])
     with torch.cuda.device(G.device):
         lib = build.library()
-        build.check(lib.oc_fused_sw_update(
-            code, _DTYPE_CODES[G.dtype], _DTYPE_CODES[sdt], ins, news, nf,
-            build.ptr(hB), build.ptr(Gm), build.ptr(G), Nx, Ny, grid.H[0],
-            grid.H[1], m["dx"], m["dy"], m["Ax"], m["Ay"], m["Az"], m["V"],
-            float(g), float(f), float(gamma_dt),
-            float(zeta_dt) if Gm is not None else 0.0, table, len(table),
-            build.stream_of(G)), lib)
-    fused_sw_update.launches += 1
+        for a, b in build.batches(nf):
+            build.check(lib.oc_fused_sw_update(
+                code, _DTYPE_CODES[G.dtype], _DTYPE_CODES[sdt], prog,
+                build.pointers(q[a:b]), build.pointers(outs[a:b]), b - a, a,
+                build.ptr(hB), build.ptr(Gm), build.ptr(G), Nx, Ny,
+                grid.H[0], grid.H[1], m["dx"], m["dy"], m["Ax"], m["Ay"],
+                m["Az"], m["V"], float(g), float(f), float(gamma_dt),
+                float(zeta_dt) if Gm is not None else 0.0, table, len(table),
+                build.stream_of(G)), lib)
+            fused_sw_update.launches += 1
     return G, dict(zip(names, outs))
 
 

@@ -14,10 +14,11 @@ per side (``ZFill``). It runs after the wrap, over the full padded x and y,
 so corner columns carry wrapped values (the reference's x → y → z order).
 
 Bound on the H100: data movement only, a few MB per field, so launch latency
-dominates. Design (``csrc/halo_fill.cu``): one launch for a whole batch of
-fields, one thread per halo element, z fastest across threads; every slot is
-written from the interior cells it images, so the in-place update has no
-race.
+dominates. Design (``csrc/halo_fill.cu``): one launch for a batch of up to
+``build.BATCH`` fields (their pointers ride in the kernel's parameter block;
+more fields take one launch per batch, and no field's fill reads another's),
+one thread per halo element, z fastest across threads; every slot is written
+from the interior cells it images, so the in-place update has no race.
 
 The fills update the tensors in place (as the TPU kernels alias their
 outputs to their inputs) and return them.
@@ -32,7 +33,6 @@ import torch
 
 from . import build
 
-MAX_FIELDS = 16
 MAX_HZ = 8
 
 # Boundary classifications as csrc/halo_fill.cu numbers them.
@@ -54,8 +54,6 @@ def _geometry(grid):
 
 
 def _check_batch(grid, fields, shape=None):
-    if not 1 <= len(fields) <= MAX_FIELDS:
-        raise ValueError(f"a fill batch takes 1 to {MAX_FIELDS} fields")
     shape = grid.padded_shape if shape is None else shape
     dev, dt = fields[0].device, fields[0].dtype
     if dt not in (torch.float32, torch.float64):
@@ -130,15 +128,16 @@ def periodic_halo_fill(grid, fields):
     Nx, Ny, _, Hx, Hy, _ = _geometry(grid)
     if (wx and Nx < Hx) or (wy and Ny < Hy):
         raise ValueError("the periodic wrap needs N >= H along x and y")
-    ptrs = (ctypes.c_void_p * len(fields))(*[a.data_ptr() for a in fields])
     with torch.cuda.device(fields[0].device):
         lib = build.library()
-        build.check(lib.oc_halo_fill(ptrs, len(fields),
-                                     fields[0].element_size(), Nx, Ny, Nz,
-                                     Hx, Hy, Hz, int(wx), int(wy),
-                                     build.stream_of(fields[0])),
-                    lib)
-    periodic_halo_fill.launches += 1
+        for a, b in build.batches(len(fields)):
+            batch = fields[a:b]
+            build.check(lib.oc_halo_fill(build.pointers(batch), len(batch),
+                                         fields[0].element_size(), Nx, Ny, Nz,
+                                         Hx, Hy, Hz, int(wx), int(wy),
+                                         build.stream_of(fields[0])),
+                        lib)
+            periodic_halo_fill.launches += 1
     return fields
 
 
@@ -221,23 +220,23 @@ def bounded_z_fill(grid, fields, specs):
     if _on_cpu(fields):
         return bounded_z_fill_plain(grid, fields, specs)
     _check_batch(grid, fields)
-    nf = len(fields)
     half_b, half_t, dist_b, dist_t = z_distances(grid)
-    ints = lambda xs: (ctypes.c_int * nf)(*xs)
+    ints = lambda xs: (ctypes.c_int * len(xs))(*xs)
     dbls = lambda xs: (ctypes.c_double * len(xs))(*xs)
-    ptrs = (ctypes.c_void_p * nf)(*[a.data_ptr() for a in fields])
     with torch.cuda.device(fields[0].device):
         lib = build.library()
-        build.check(lib.oc_bounded_z_fill(
-            ptrs, nf, fields[0].element_size(),
-            ints([int(s.face) for s in specs]),
-            ints([s.bottom[0] for s in specs]),
-            ints([s.top[0] for s in specs]),
-            dbls([float(s.bottom[1]) for s in specs]),
-            dbls([float(s.top[1]) for s in specs]),
-            Nx, Ny, Nz, Hx, Hy, Hz, half_b, half_t, dbls(dist_b),
-            dbls(dist_t), build.stream_of(fields[0])), lib)
-    bounded_z_fill.launches += 1
+        for a, b in build.batches(len(fields)):
+            batch, bspecs = fields[a:b], specs[a:b]
+            build.check(lib.oc_bounded_z_fill(
+                build.pointers(batch), len(batch), fields[0].element_size(),
+                ints([int(s.face) for s in bspecs]),
+                ints([s.bottom[0] for s in bspecs]),
+                ints([s.top[0] for s in bspecs]),
+                dbls([float(s.bottom[1]) for s in bspecs]),
+                dbls([float(s.top[1]) for s in bspecs]),
+                Nx, Ny, Nz, Hx, Hy, Hz, half_b, half_t, dbls(dist_b),
+                dbls(dist_t), build.stream_of(fields[0])), lib)
+            bounded_z_fill.launches += 1
     return fields
 
 

@@ -7,19 +7,25 @@ scalar Value/Gradient/Flux conditions on the z sides, RK3 and the FFT/DCT
 pressure projection. Coriolis, forcing, other closures and timesteppers
 raise ``NotImplementedError`` naming their ROADMAP item.
 
-The layout follows the JAX package's choice (its ``__init__``, without the
-TPU's Nz % 128 gate, Hy-to-8 rounding and lane tail):
+The layout and the step follow the JAX package's choice (its ``__init__``
+and ``_build_step``, without the TPU's Nz % 128 gate, Hy-to-8 rounding, lane
+tail and tile picks):
 
 - **z-compact** when there is no closure and no user z boundary condition:
   no z halo (the z boundary conditions live inside the stencil reads) and
   ``Hx = Hy = required_halo + 1`` (one ring for the deferred correction).
-  Each RK3 stage runs the fused advection + stage-update kernel, the
-  divergence kernel, the FFT/DCT solve and the halo-fill kernel on the new
-  pressure. With ``fuse_correction`` (the default, as in the JAX package)
-  stages 1 and 2 only solve for p, and the next stage's update kernel
-  applies the correction while it reads the velocities; stage 3 projects
-  with the correction kernel. Tracers on this layout (where the JAX package
-  runs kernel #1 with tracers) are not ported yet and raise.
+  Without buoyancy and without a mesh, advection is the only tendency, and
+  each RK3 stage runs the fused advection + stage-update kernel over u, v, w
+  and the tracers, the divergence kernel, the FFT/DCT solve and the
+  halo-fill kernel on the new pressure. With ``fuse_correction`` (the
+  default, as in the JAX package) stages 1 and 2 only solve for p, and the
+  next stage's update kernel applies the correction while it reads the
+  velocities (the tracers are advected by the corrected velocities); stage
+  3 projects with the correction kernel. With buoyancy, or under a mesh,
+  each stage takes the tendency route below on this layout: the wrap of all
+  fields, the z-compact tendency kernel, buoyancy, the update, w's bottom
+  face pinned to 0, and the projection by the divergence kernel, the solve
+  and the correction kernel.
 - **padded** otherwise: every halo ``H = max(grid.H, required_halo)``, z
   included. Each RK3 stage fills all halos (one periodic-wrap launch and one
   bounded-z launch for all fields), computes the advective tendencies of
@@ -28,15 +34,13 @@ TPU's Nz % 128 gate, Hy-to-8 rounding and lane tail):
   plain PyTorch divergence, the solve, the pressure fill, a plain PyTorch
   correction (the JAX package computes these in XLA too).
 
-With ``architecture=Distributed(...)`` (the padded layout only) the state
-stays global-view on the mesh's first device (the grid's device) and the
-advective tendencies come from the sharded tendency kernel
-(``build_sharded_fused_advection``: per-shard blocks with the full padded z,
-their x/y halos exchanged, one launch of the tendency kernel per shard);
-everything else in the step runs on the global view, as in the JAX package.
-On the z-compact layout the JAX package runs the sharded kernel with the
-mirrored-z variant of the tendency kernel, which the port lacks: a z-compact
-model under a mesh raises.
+With ``architecture=Distributed(...)`` the state stays global-view on the
+mesh's first device (the grid's device) and the advective tendencies come
+from the sharded tendency kernel (``build_sharded_fused_advection``:
+per-shard blocks with the full padded z, their x/y halos exchanged, one
+launch of the tendency kernel per shard, in the grid's layout); everything
+else in the step runs on the global view exactly as in the serial tendency
+route, so the sharded model equals the serial one with that route.
 
 The model updates tensors in place where the JAX package returned new
 arrays: the halo fills write into the padded tensors they are given, and the
@@ -79,16 +83,7 @@ _NOT_PORTED = {
     "auxiliary_fields": "ROADMAP.md queue 1 item 15 (the long tail)",
 }
 
-COMPACT_TRACERS_ITEM = (
-    "ROADMAP.md queue 1 item 8 (tracers on the z-compact layout, where the "
-    "JAX package runs kernel #1 with tracers: add a closure or a z boundary "
-    "condition to take the padded layout)")
 PHYSICS_ITEM = "ROADMAP.md queue 1 item 9 (the rest of NH physics)"
-SHARDED_COMPACT_ITEM = (
-    "ROADMAP.md queue 1 item 8 (the z-compact layout under a mesh, where the "
-    "JAX package runs the sharded kernel #7 with the mirrored-z variant of "
-    "kernel #6: add a closure or a z boundary condition to take the padded "
-    "layout)")
 
 
 class NonhydrostaticModel:
@@ -151,15 +146,10 @@ class NonhydrostaticModel:
         user_zbcs = any(getattr(b, side, None) is not None
                         for b in bcs_in.values() for side in ("bottom", "top"))
         self._z_compact = closure is None and not user_zbcs
-        if self._z_compact and self.architecture is not None:
-            raise NotImplementedError(
-                f"a z-compact model (no closure, no z boundary condition) "
-                f"under a device mesh is not ported yet: {SHARDED_COMPACT_ITEM}")
-        if self._z_compact and tracers:
-            raise NotImplementedError(
-                f"tracers {tracers} without a closure or a z boundary "
-                f"condition are not ported yet: {COMPACT_TRACERS_ITEM}")
-        self.fuse_correction = bool(fuse_correction) and self._z_compact
+        # advection is the only tendency: the fused update route
+        self._fused_update = (self._z_compact and buoyancy is None
+                              and self.architecture is None)
+        self.fuse_correction = bool(fuse_correction) and self._fused_update
 
         if advection is None:
             advection = Centered(order=2)
@@ -281,12 +271,14 @@ class NonhydrostaticModel:
             self._fill_all({"p": p})
         return p
 
-    def _project(self, u, v, w, dtt):
+    def _project(self, u, v, w, dtt, halos_valid=False):
         """Pressure projection: the divergence and correction kernels in the
-        z-compact layout (velocities with valid halos, new tensors out); in
-        the padded layout a fill of u, v, w, the plain PyTorch divergence and
-        correction (in place) around the solve."""
+        z-compact layout (a fill of u, v, w first unless ``halos_valid``; new
+        tensors out); in the padded layout a fill of u, v, w, the plain
+        PyTorch divergence and correction (in place) around the solve."""
         if self._z_compact:
+            if not halos_valid:
+                self._fill_all(dict(u=u, v=v, w=w))
             rhs = fused_divergence(self.grid, u, v, w, self._nt(1.0) / dtt)
             p = self._solve_padded(rhs)
             u, v, w = fused_correct(self.grid, p, u, v, w, dtt)
@@ -333,11 +325,11 @@ class NonhydrostaticModel:
 
     def time_step(self, dt):
         """Advance the model state by one Δt with RK3."""
-        if self._z_compact:
+        if self._fused_update:
             return self._step_compact(dt)
-        return self._step_padded(dt)
+        return self._step_tendencies(dt)
 
-    def _step_padded(self, dt):
+    def _step_tendencies(self, dt):
         nt = self._nt
         dt = nt(dt)
         fields = dict(self.state["fields"])
@@ -356,7 +348,11 @@ class NonhydrostaticModel:
                     inc = inc + zeta * Gm[name]
                 new[name] = q.clone()
                 new[name][ints] = q[ints] + float(dt) * inc
+            if self._z_compact:
+                # w's bottom boundary face (the padded layout's fill pins it)
+                new["w"][..., 0] = 0
             u, v, w, p = self._project(new["u"], new["v"], new["w"], stage_dt)
+            new.update(u=u, v=v, w=w)
             fields = new
             Gm = G
             time = time + stage_dt
@@ -380,7 +376,8 @@ class NonhydrostaticModel:
             kw = {} if pend is None else dict(p=pend[0], corr_dt=pend[1])
             Gm, new = fused_advection_update(
                 self.grid, self.advection, fields["u"], fields["v"],
-                fields["w"], Gm, nt(gamma) * dt, nt(zeta) * dt, **kw)
+                fields["w"], Gm, nt(gamma) * dt, nt(zeta) * dt, **kw,
+                tracers={n: fields[n] for n in self.tracer_names})
             if self.fuse_correction and m < 2:
                 rhs = fused_divergence(self.grid, new["u"], new["v"],
                                        new["w"], nt(1.0) / stage_dt)
@@ -388,8 +385,8 @@ class NonhydrostaticModel:
                 pend = (p, stage_dt)
             else:
                 u, v, w, p = self._project(new["u"], new["v"], new["w"],
-                                           stage_dt)
-                new = dict(u=u, v=v, w=w)
+                                           stage_dt, halos_valid=True)
+                new.update(u=u, v=v, w=w)
                 pend = None
             fields = new
             time = time + stage_dt

@@ -324,8 +324,6 @@ UNPORTED = {
     "coriolis": dict(coriolis=object()),
     "ab2": dict(timestepper="QuasiAdamsBashforth2"),
     "smagorinsky": dict(closure=_Smagorinsky(), tracers=("b",)),
-    "passive_tracer_z_compact": dict(tracers=("c",)),
-    "buoyancy_z_compact": dict(buoyancy=ot.BuoyancyTracer()),
 }
 
 
@@ -334,6 +332,29 @@ def test_unported_options_raise(case):
     grid = _tgrid((8, 8, 8), (3, 3, 3))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NonhydrostaticModel(grid, advection=ot.WENO(5), **UNPORTED[case])
+
+
+COMPACT = {
+    "passive_tracer_z_compact": dict(tracers=("c",)),
+    "buoyancy_z_compact": dict(buoyancy=ot.BuoyancyTracer()),
+}
+
+
+@pytest.mark.parametrize("case", sorted(COMPACT))
+def test_compact_configurations_step(case):
+    """Tracers and buoyancy without a closure or a z condition take the
+    z-compact layout (no z halo) and step: the passive tracer by the fused
+    update route, the buoyant model by the tendency route."""
+    grid = _tgrid((8, 8, 8), (3, 3, 3))
+    model = NonhydrostaticModel(grid, advection=ot.WENO(5), **COMPACT[case])
+    assert model.grid.H[2] == 0
+    assert model._fused_update == ("tracers" in COMPACT[case])
+    rng = np.random.default_rng(9)
+    model.set(u=0.1 * rng.standard_normal((8, 8, 8)),
+              **{n: rng.random((8, 8, 8)) for n in model.tracer_names})
+    model.time_step(1e-2)
+    for name in model.prognostic_names:
+        assert torch.isfinite(model.field(name).interior).all(), name
 
 
 def test_kernel_scheme_tables():

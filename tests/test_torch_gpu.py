@@ -436,3 +436,203 @@ def test_sharded_advection_stage(zinputs, spread):
     assert K.fused_advection_tendency.launches == launches + 4
     assert torch.equal(G, K.fused_advection_tendency(grid, s, fields))
     _close([G], [plain(fields)])
+
+
+# -- tracers on the z-compact layout, and no caps on field counts ------------------
+#
+# 12 tracers (#1, #6 in both layouts, #7, #8) and a fill of 20 fields: each
+# against its plain version; a launch over 12 tracers equals 12 one-tracer
+# launches bit for bit (every component's result depends only on its own
+# field and u, v, w, p).
+
+NT = 12
+SCHEMES = {"weno5": lambda: ot.WENO(5, smoothness_dtype=torch.float64),
+           "centered2": lambda: ot.Centered(2)}
+
+
+@pytest.fixture(scope="module")
+def tracer_inputs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    grid = ot.RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0), halo=(4, 4, 0),
+                              dtype=torch.float64, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    fields = [0.1 * torch.randn(grid.padded_shape, generator=gen,
+                                dtype=torch.float64, device="cuda")
+              for _ in range(4)]
+    fields[2][..., 0] = 0
+    tracers = {f"c{i}": torch.rand(grid.padded_shape, generator=gen,
+                                   dtype=torch.float64, device="cuda")
+               for i in range(NT)}
+    K.periodic_halo_fill(grid, fields + list(tracers.values()))
+    Gm = [torch.randn(N, generator=gen, dtype=torch.float64, device="cuda")
+          for _ in range(3 + NT)]
+    return grid, fields, tracers, Gm
+
+
+@pytest.mark.parametrize("with_gm", [False, True])
+@pytest.mark.parametrize("with_corr", [False, True])
+@pytest.mark.parametrize("scheme", sorted(SCHEMES))
+def test_fused_advection_update_tracers(tracer_inputs, scheme, with_corr,
+                                        with_gm):
+    grid, (u, v, w, p), tracers, Gm = tracer_inputs
+    args = (grid, SCHEMES[scheme](), u, v, w, Gm if with_gm else None, 0.1,
+            -0.05, p if with_corr else None, 0.07 if with_corr else None)
+    Gk, nk = K.fused_advection_update(*args, tracers=tracers)
+    Gp, np_ = K.fused_advection_update_plain(*args, tracers=tracers)
+    assert list(nk) == ["u", "v", "w"] + list(tracers)
+    _close(Gk + list(nk.values()), Gp + list(np_.values()))
+    # the 12-tracer launch against one launch per tracer
+    for k, (name, c) in enumerate(tracers.items()):
+        gm1 = None if not with_gm else Gm[:3] + [Gm[3 + k]]
+        G1, n1 = K.fused_advection_update(*args[:5], gm1, *args[6:],
+                                          tracers={name: c})
+        assert torch.equal(G1[3], Gk[3 + k]) and torch.equal(n1[name],
+                                                             nk[name])
+
+
+@pytest.mark.parametrize("scheme", sorted(SCHEMES))
+def test_fused_advection_tendency_compact_tracers(tracer_inputs, scheme):
+    grid, (u, v, w, _), tracers, _ = tracer_inputs
+    fields = [u, v, w] + list(tracers.values())
+    s = SCHEMES[scheme]()
+    Gk = K.fused_advection_tendency(grid, s, fields)
+    _close(list(Gk), list(K.fused_advection_tendency_plain(grid, s, fields)))
+    for k, c in enumerate(fields[3:]):
+        assert torch.equal(K.fused_advection_tendency(grid, s, [u, v, w, c])[3],
+                           Gk[3 + k])
+
+
+def test_fused_advection_tendency_padded_tracers(zinputs):
+    grid, fields = zinputs
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    fields = fields[:3] + [torch.rand(grid.padded_shape, generator=gen,
+                                      dtype=torch.float64, device="cuda")
+                           for _ in range(NT)]
+    s = ot.WENO(5, smoothness_dtype=torch.float64)
+    _close(list(K.fused_advection_tendency(grid, s, fields)),
+           list(K.fused_advection_tendency_plain(grid, s, fields)))
+
+
+@pytest.mark.parametrize("spread", ["card", "cards"])
+def test_sharded_advection_stage_compact(tracer_inputs, spread):
+    """#7 on z-compact blocks with 12 tracers: equals the serial z-compact
+    #6 exactly and matches its plain route."""
+    grid, (u, v, w, _), tracers, _ = tracer_inputs
+    arch = _card_mesh(spread=spread)
+    fields = [u, v, w] + list(tracers.values())
+    s = ot.WENO(5, smoothness_dtype=torch.float64)
+    G = K.build_sharded_fused_advection(grid, s, arch.mesh)(fields)
+    assert torch.equal(G, K.fused_advection_tendency(grid, s, fields))
+    _close([G], [K.build_sharded_fused_advection_plain(grid, s,
+                                                       arch.mesh)(fields)])
+
+
+def test_fused_sw_update_tracers(sw_inputs):
+    grid, fields, hB, _ = sw_inputs
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    fields = dict(fields)
+    names = ("uh", "vh", "h") + tuple(f"c{i}" for i in range(NT))
+    for n in names[3:]:
+        fields[n] = torch.rand(grid.padded_shape, generator=gen,
+                               dtype=torch.float64, device="cuda")
+    K.periodic_halo_fill(grid, [fields[n] for n in names])
+    Gm = torch.randn((len(names),) + tuple(grid.N), generator=gen,
+                     dtype=torch.float64, device="cuda")
+    s = ot.WENO(5, smoothness_dtype=torch.float64)
+    for gm in (None, Gm):
+        args = (grid, s, 9.81, 0.3, hB, names, fields, gm, 2e-3, -1e-3)
+        Gk, nk = K.fused_sw_update(*args)
+        Gp, np_ = K.fused_sw_update_plain(*args)
+        ints = grid.interior_slices
+        _close(list(Gk) + [nk[n][ints] for n in names],
+               list(Gp) + [np_[n][ints] for n in names])
+
+
+def test_fill_batches(zinputs):
+    """The wrap and the bounded-z fill of 20 fields (one launch takes 32 at
+    most; the batch of 20 in one launch, 40 in two)."""
+    grid = zinputs[0]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for n in (20, 40):
+        a = [torch.randn(grid.padded_shape, generator=gen,
+                         dtype=torch.float64, device="cuda") for _ in range(n)]
+        b = [x.clone() for x in a]
+        before = K.periodic_halo_fill.launches
+        K.periodic_halo_fill(grid, a)
+        assert K.periodic_halo_fill.launches == before + (1 if n <= 32 else 2)
+        K.periodic_halo_fill_plain(grid, b)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        specs = [ZCASES[k % len(ZCASES)] for k in range(n)]
+        K.bounded_z_fill(grid, a, specs)
+        K.bounded_z_fill_plain(grid, b, specs)
+        for x, y in zip(a, b):
+            assert (x - y).abs().max().item() <= 1e-13 * y.abs().max().item()
+
+
+@pytest.mark.parametrize("case", ["z_compact", "closure"])
+def test_twelve_tracer_model_steps(case):
+    """A 12-tracer model steps on the card through the kernels and matches
+    its plain route: the z-compact fused update (no closure) and the padded
+    tendency route (a closure); 2 steps, bound 1e-12 relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import contextlib
+    import oceananigans_tpu_torch.kernels.halo_fill as hf
+    import oceananigans_tpu_torch.models.nonhydrostatic as nh
+    names = tuple(f"c{i}" for i in range(NT))
+    n = (16, 16, 16)
+
+    def run(plain):
+        grid = ot.RectilinearGrid(size=n, extent=(1.0, 1.0, 1.0),
+                                  dtype=torch.float64, device="cuda")
+        kw = dict(closure=ot.ScalarDiffusivity(nu=1e-3, kappa=1e-3)) \
+            if case == "closure" else {}
+        m = ot.NonhydrostaticModel(
+            grid, advection=ot.WENO(5, smoothness_dtype=torch.float64),
+            tracers=names, **kw)
+        gen = torch.Generator().manual_seed(12)
+        m.set(u=0.1 * torch.randn(n, generator=gen, dtype=torch.float64),
+              v=0.1 * torch.randn(n, generator=gen, dtype=torch.float64),
+              **{c: torch.rand(n, generator=gen, dtype=torch.float64)
+                 for c in names})
+        with contextlib.ExitStack() as stack:
+            if plain:
+                for mod, name, fn in (
+                        (nh, "fused_advection_update",
+                         K.fused_advection_update_plain),
+                        (nh, "fused_advection_tendency",
+                         K.fused_advection_tendency_plain),
+                        (nh, "fused_divergence", K.fused_divergence_plain),
+                        (nh, "fused_correct", K.fused_correct_plain),
+                        (nh, "periodic_halo_fill", K.periodic_halo_fill_plain),
+                        (hf, "periodic_halo_fill", K.periodic_halo_fill_plain),
+                        (hf, "bounded_z_fill", K.bounded_z_fill_plain)):
+                    stack.enter_context(_patched(mod, name, fn))
+            for _ in range(2):
+                m.time_step(1e-3)
+        return m
+
+    K.reset_counters()
+    kern = run(False)
+    launches = K.counters()[0]
+    key = ("fused_advection_update" if case == "z_compact"
+           else "fused_advection_tendency")
+    assert launches[key] > 0
+    plain = run(True)
+    for name in ("u", "v", "w") + names:
+        _close([kern.field(name).interior], [plain.field(name).interior])
+
+
+def _patched(mod, name, fn):
+    import contextlib
+
+    @contextlib.contextmanager
+    def swap():
+        saved = getattr(mod, name)
+        setattr(mod, name, fn)
+        try:
+            yield
+        finally:
+            setattr(mod, name, saved)
+    return swap()

@@ -173,8 +173,6 @@ def test_unported_options_raise():
     grid = ot.RectilinearGrid(size=(8, 8, 8), extent=(1.0, 1.0, 1.0),
                               dtype=torch.float64, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NonhydrostaticModel(grid, advection=ot.WENO(5), tracers=("b",))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         NonhydrostaticModel(grid, advection=ot.WENO(5), coriolis=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NonhydrostaticModel(grid, timestepper="QuasiAdamsBashforth2")

@@ -24,7 +24,10 @@ Float64 fields from numpy seeds. Bounds, relative to max|reference|:
   1e-12 of max|uh|, about 2.9e-3 in uh after one step (ROADMAP.md queue 3);
 - the sharded convection model (16×16×8 on 2×2, Rayleigh–Bénard physics)
   against the JAX sharded model: 1e-10 after 3 steps, and exactly the
-  port's serial step.
+  port's serial step;
+- the sharded buoyant z-compact model (16×16×128 on 2×2, WENO(5),
+  BuoyancyTracer, no closure) against the JAX sharded model: 1e-10 after 3
+  steps, and exactly the port's serial step.
 """
 
 import jax
@@ -455,8 +458,47 @@ def test_sharded_advection_equals_serial_kernel():
 
 
 def test_compact_model_under_a_mesh_raises():
-    grid = ot.RectilinearGrid(size=NH_N, extent=(1.0, 1.0, 1.0),
-                              dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ot.NonhydrostaticModel(grid, advection=ot.WENO(5),
-                               architecture=_cpu_mesh())
+    """A buoyant z-compact model (no closure, no z condition) under a 2x2
+    mesh steps: from the JAX sharded model's initial state, 3
+    steps of the port's sharded model (the z-compact #7 around #6 with
+    mirrored z reads) match the JAX sharded model within 1e-10 and equal
+    the port's serial z-compact steps exactly."""
+    N, dt = (16, 16, 128), 1e-3
+    arch = jpar.Distributed(jpar.Partition(2, 2))
+    jm = JNHModel(grid=JGrid(size=N, extent=(1.0, 1.0, 1.0),
+                             dtype=np.float64),
+                  advection=JWENO(5, smoothness_dtype=jnp.float64),
+                  buoyancy=JBuoyancyTracer(), architecture=arch)
+    assert jm._z_compact and jm._fused_advection is not None
+    assert jm._fused_update is None
+    rng = np.random.default_rng(2)
+    jm.set(u=0.1 * rng.standard_normal(N), v=0.1 * rng.standard_normal(N),
+           b=0.01 * rng.standard_normal(N))
+    jm.state = arch.shard(jm.state)
+    start = _numpy_state(jm)
+    for _ in range(3):
+        jm.time_step(dt)
+    end = _numpy_state(jm)
+
+    def port(mesh):
+        grid = ot.RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0),
+                                  dtype=torch.float64, device="cpu")
+        m = ot.NonhydrostaticModel(
+            grid, advection=ot.WENO(5, smoothness_dtype=torch.float64),
+            buoyancy=ot.BuoyancyTracer(), architecture=mesh)
+        return state_from_jax(start, m)
+
+    sharded, serial = port(_cpu_mesh()), port(None)
+    assert sharded.grid.H[2] == 0 and sharded._sharded_advection is not None
+    for _ in range(3):
+        sharded.time_step(dt)
+        serial.time_step(dt)
+    ints = sharded.grid.interior_slices
+    for name in ("u", "v", "w", "b"):
+        a = end["fields"][name]
+        h = [(a.shape[ax] - N[ax]) // 2 for ax in range(3)]
+        want = a[h[0]:h[0] + N[0], h[1]:h[1] + N[1], h[2]:h[2] + N[2]]
+        got = sharded.state["fields"][name][ints].numpy()
+        assert _rel(got, want) <= 1e-10, name
+        assert torch.equal(sharded.state["fields"][name][ints],
+                           serial.state["fields"][name][ints]), name
