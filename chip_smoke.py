@@ -85,6 +85,18 @@ Phases (each raises on failure; nothing is caught):
 18. The same path on the 2x2 mesh of the card from its initial state: #7
    on z-compact blocks, equal to the serial path after the same steps (bound
    0), and the sharded tendency against its plain route on the path's state.
+19. bfloat16 WENO smoothness (float32 fields): #6 padded at 256³ and #8 at
+   256² with tracers against their plain versions, the bound held to a
+   tenth of the bf16-vs-float32 difference; then bench_extra.py's
+   weno5_bf16smooth tracer row (256³, 0 and 12 tracers, right after the
+   WENO(5) row, from its initial state): median step, the 12/0 ratio, #1's
+   share, peak memory, tracer drift, the divergence, the difference from
+   the float32-smoothness run after the same steps, and #1 (3 and 15
+   components) and the z-compact #6 on the row's states.
+20. The vector-unit probes (#12): each probe kernel against its plain
+   version, then the three entry points of oceananigans_tpu_torch/tools as
+   a user runs them (the microbench and the mix also on a slab that fills
+   every SM), with the card's float32 peak from its SM count and clock.
 
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. The script exits non-zero, without that line,
@@ -2232,13 +2244,11 @@ def check_conserved(label, model, sums0, bound_rel=1e-6):
 
 def check_divergence(label, model):
     """max|∇·u|·Δx/max|u| of a z-compact model's state (the divergence
-    kernel's plain version on the wrapped velocities)."""
+    kernel's plain version on host copies of the wrapped velocities: a
+    check of the state, not a call of the path on the card)."""
     from oceananigans_tpu_torch import kernels as K
-    u, v, w = (model.state["fields"][c] for c in "uvw")
-    calls = K.fused_divergence_plain.cuda_calls
+    u, v, w = (model.state["fields"][c].cpu() for c in "uvw")
     div = K.fused_divergence_plain(model.grid, u, v, w, 1.0)
-    # a check of the state, not a call of the path: keep the count clean
-    K.fused_divergence_plain.cuda_calls = calls
     ints = model.grid.interior_slices
     umax = max(a[ints].abs().max().item() for a in (u, v, w))
     div_rel = div.abs().max().item() * model.grid.dx(("c", "c", "c")) / umax
@@ -2253,7 +2263,9 @@ def tracer_path_phase(card):
     counters reset just before the first model is built and read after the
     last run. Per run: the median step, the launches per step of #1-#4
     (set() included), the peak memory, the phase shares (3 more steps),
-    finite fields, the divergence and tracer conservation. Then, on the
+    finite fields, the divergence and tracer conservation; the WENO(5)
+    runs' interiors after their 16 steps are returned on the host, for the
+    bfloat16 row's comparison. Then, on the
     WENO(5) 12-tracer run's state, #1 over 15 components against its plain
     version (the corrected G⁻ variant; bound 2e-5 of each component's term
     scale for G, 2e-5 relative for new) and its CUDA-event times."""
@@ -2261,6 +2273,7 @@ def tracer_path_phase(card):
     from oceananigans_tpu_torch import kernels as K
     n, dt = 256, 1e-4
     steps_ms = {}
+    weno_states = {}
     K.reset_counters()
     keep = None
     for label, make in (("Centered(2)", lambda: ot.Centered(2)),
@@ -2293,8 +2306,12 @@ def tracer_path_phase(card):
                   f"included) {per_step}; peak device memory "
                   f"{peak / 2 ** 30:.2f} GiB [{card}]")
             compact_phase_shares(model, dt, 3, card, run)
-            if label == "WENO(5)" and ntr:
-                keep = model
+            if label == "WENO(5)":
+                weno_states[ntr] = (model.iteration, {
+                    c: model.field(c).interior.cpu()
+                    for c in model.prognostic_names})
+                if ntr:
+                    keep = model
             del model
     for label in ("Centered(2)", "WENO(5)"):
         ratio = steps_ms[(label, N_TRACERS)] / steps_ms[(label, 0)]
@@ -2342,7 +2359,7 @@ def tracer_path_phase(card):
           f"{N_TRACERS} tracers at {grid.padded_shape}: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms [{card}]")
     return launches, dict(max_abs_err=max(err, err_new), ms=ms,
-                          plain_ms=plain_ms)
+                          plain_ms=plain_ms), weno_states
 
 
 def buoyant_model(N, dtype, device, smoothness=torch.float32, seed=42,
@@ -2500,6 +2517,369 @@ def sharded_buoyant_path_phase(card, n, serial, state0):
     return launches, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
+# -- bfloat16 WENO smoothness (#1, #6, #8) ------------------------------------------
+
+def bf16_check(label, got, want, want_f32, scales, rel, separated):
+    """Kernel against plain version, both with bfloat16 smoothness: for each
+    component, max|kernel − plain| ≤ rel × its scale (float32 roundoff of
+    the stencils and fluxes: the smoothness operands are the same, and both
+    round each smoothness operation to bfloat16). For the components in
+    ``separated`` (those a WENO reconstruction enters) that bound must also
+    be at most a tenth of max|plain − plain with float32 smoothness|, so the
+    check can tell the two smoothness dtypes apart. Returns (max abs
+    difference, the smallest such separation over the bound)."""
+    worst, used, margin = 0.0, 0.0, float("inf")
+    for n, (g, w, w32, s) in enumerate(zip(got, want, want_f32, scales)):
+        err = (g - w).abs().max().item()
+        bound = rel * s
+        if n in separated:
+            sep = (w - w32).abs().max().item()
+            assert bound <= 0.1 * sep, (label, n, "bound cannot tell bf16 "
+                                        "from float32", bound, sep)
+            margin = min(margin, sep / bound)
+        assert err <= bound, (label, n, err, bound)
+        worst, used = max(worst, err), max(used, err / bound)
+    print(f"  {label}: max abs {worst:.3e}, at most {used:.3f} of the bound "
+          f"({rel:g} of each component's scale); bf16-vs-float32 difference "
+          f"at least {margin:.1f} times the bound")
+    return worst
+
+
+def bf16_kernels_phase():
+    """#6 padded and #8 with bfloat16 smoothness against their plain
+    versions on float32 inputs at the paths' shapes: #6 on the convection
+    kernel check's 256³ inputs (H = (3, 3, 3), halos filled), bound 2e-5 of
+    each component's max|plain|; #8 at 256² with two tracers and G⁻ (uh,
+    vh 0.1·N(0, 1), h 1 + 1e-4·N(0, 1), tracers N(0, 1)), bound 1e-5 of each
+    component's max|plain| for G and 1e-5 relative for the new fields. (#1
+    and the z-compact #6 are held on the tracer row's states.)"""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+    bf, f32 = (ot.WENO(5, smoothness_dtype=torch.bfloat16),
+               ot.WENO(5, smoothness_dtype=torch.float32))
+    grid, fields, specs = convection_kernel_inputs((256, 256, 256),
+                                                   torch.float32, seed=2)
+    K.bounded_z_fill_plain(grid, fields, specs)
+    K.periodic_halo_fill_plain(grid, fields)
+    Gp = list(K.fused_advection_tendency_plain(grid, bf, fields))
+    err6 = bf16_check(
+        "fused_advection_tendency padded 256^3 u, v, w, b bf16 smoothness",
+        list(K.fused_advection_tendency(grid, bf, fields)), Gp,
+        list(K.fused_advection_tendency_plain(grid, f32, fields)),
+        [g.abs().max().item() for g in Gp], 2e-5, range(4))
+    del grid, fields, Gp
+    torch.cuda.empty_cache()
+    # a nearly flat h, so that the advection the smoothness enters, and not
+    # the head gradient, sets the size of the momentum tendencies
+    names = SW_NAMES + ("c0", "c1")
+    sgrid = ot.RectilinearGrid(size=(256, 256), extent=(1.0, 1.0),
+                               halo=(4, 4, 0), topology=SW_TOPOLOGY,
+                               dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    sfields = {c: o + sc * torch.randn(sgrid.padded_shape, generator=gen,
+                                       device="cuda")
+               for c, sc, o in zip(names, (0.1, 0.1, 1e-4, 1.0, 1.0),
+                                   (0.0, 0.0, 1.0, 0.0, 0.0))}
+    hB = 1e-4 * torch.randn(sgrid.padded_shape, generator=gen, device="cuda")
+    K.periodic_halo_fill(sgrid, list(sfields.values()) + [hB])
+    sGm = torch.randn((len(names),) + sgrid.N, generator=gen, device="cuda")
+    ints = sgrid.interior_slices
+
+    def sw(fn, scheme):
+        return fn(sgrid, scheme, 9.81, 0.3, hB, names, sfields, sGm, 2e-5,
+                  -1e-5)
+
+    Gk, nk = sw(K.fused_sw_update, bf)
+    Gp, np_ = sw(K.fused_sw_update_plain, bf)
+    G32, _ = sw(K.fused_sw_update_plain, f32)
+    err8 = bf16_check("fused_sw_update 256^2 float32, 2 tracers, bf16 "
+                      "smoothness (G)", list(Gk), list(Gp), list(G32),
+                      [g.abs().max().item() for g in Gp], 1e-5, (0, 1, 3, 4))
+    err_new, rel_new = worst_rel([nk[c][ints] for c in names],
+                                 [np_[c][ints] for c in names])
+    print(f"  fused_sw_update bf16 smoothness, new fields: max abs "
+          f"{err_new:.3e}, rel {rel_new:.3e} (bound 1e-5)")
+    assert rel_new <= 1e-5, ("#8 bf16 new", rel_new)
+    torch.cuda.synchronize()
+    return {"fused_advection_tendency_bf16": dict(max_abs_err=err6),
+            "fused_sw_update_bf16": dict(max_abs_err=max(err8, err_new))}
+
+
+def bf16_tracer_path_phase(card, weno_states):
+    """bench_extra.py's weno5_bf16smooth tracer row: 256³ float32, WENO(5,
+    smoothness_dtype=bfloat16), 0 and 12 tracers, Δt = 1e-4, 3 warm-up and
+    10 timed steps and 3 more for the phase shares, from the same initial
+    state as the WENO(5) row; for each run the counters are reset just
+    before its model is built and read after its phase shares, before the
+    checks on its state, and the path's launches are the two runs' sum. Per
+    run: the median step, launches per step, #1's share of the step, peak
+    memory, finite fields, the divergence, tracer drift (bound 1e-6), and
+    each field's largest difference from the float32-smoothness run after
+    the same 16 steps. On each run's final state, #1 against its plain
+    version, the G⁻ variant without and with the path's own pressure (the
+    corrected variant): G bound 2e-5 of each component's term scale, held
+    to a tenth of the bf16-vs-float32 difference, new 2e-5 relative; on the
+    12-tracer state also the z-compact #6 (the same bounds); then #1's
+    CUDA-event times (corrected, G⁻, 15 components)."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+    n, dt = 256, 1e-4
+    steps_ms, out = {}, {}
+    launches = dict.fromkeys(K.counters()[0], 0)
+    plain_cuda = dict.fromkeys(K.counters()[1], 0)
+    for ntr in (0, N_TRACERS):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_counters()
+        model = tracer_model(n, ot.WENO(5, smoothness_dtype=torch.bfloat16),
+                             ntr, torch.float32, "cuda")
+        assert model._fused_update and model.grid.H[2] == 0
+        sums0 = tracer_sums(model)
+        times = timed_steps(model, dt)
+        after = K.counters()[0]
+        peak = torch.cuda.max_memory_allocated()
+        run = f"bf16-smoothness tracer path WENO(5) {ntr} tracers"
+        for name in model.prognostic_names:
+            assert torch.isfinite(model.field(name).interior).all().item(), \
+                (run, name)
+        check_divergence(run, model)
+        if ntr:
+            check_conserved(run, model, sums0)
+        step_ms = statistics.median(times) * 1e3
+        steps_ms[ntr] = step_ms
+        per_step = {k: after[k] / model.iteration for k in TRACER_KERNELS}
+        print(f"{run}: 256^3 float32 RK3 step median {step_ms:.3f} ms over "
+              f"{len(times)} steps (min {min(times) * 1e3:.3f}, max "
+              f"{max(times) * 1e3:.3f}); launches per step (set() included) "
+              f"{per_step}; peak device memory {peak / 2 ** 30:.2f} GiB "
+              f"[{card}]")
+        shares = compact_phase_shares(model, dt, 3, card, run)
+        print(f"  {run}: #1's share of the step "
+              f"{100 * shares['advection kernel'] / sum(shares.values()):.1f}%")
+        for total, count in zip((launches, plain_cuda), K.counters()):
+            for k, c in count.items():
+                total[k] += c
+        steps, f32 = weno_states[ntr]
+        assert model.iteration == steps, (model.iteration, steps)
+        diffs = {c: (model.field(c).interior.cpu() - f32[c]).abs().max()
+                 .item() for c in model.prognostic_names}
+        print(f"  {run}: bf16-vs-float32 smoothness, max|difference| per "
+              f"field after {steps} steps: "
+              + ", ".join(f"{c} {d:.3e}" for c, d in diffs.items()))
+        out[ntr] = bf16_state_checks(model, ntr, card)
+        del model, f32
+        weno_states[ntr] = None
+    ratio = steps_ms[N_TRACERS] / steps_ms[0]
+    print(f"tracer scaling WENO(5) bf16 smoothness: {N_TRACERS} tracers "
+          f"{steps_ms[N_TRACERS]:.3f} ms / 0 tracers {steps_ms[0]:.3f} ms = "
+          f"{ratio:.3f} [{card}]")
+    print(f"bf16 tracer path launches over its two runs: {launches}; plain "
+          f"calls on CUDA: {plain_cuda}")
+    for name in TRACER_KERNELS:
+        assert launches[name] > 0, f"kernel {name} never launched on the path"
+    for name, count in plain_cuda.items():
+        assert count == 0, f"plain {name} ran on CUDA tensors"
+    return launches, dict(max_abs_err=max(o["max_abs_err"]
+                                          for o in out.values()),
+                          ms=out[N_TRACERS]["ms"],
+                          plain_ms=out[N_TRACERS]["plain_ms"])
+
+
+def bf16_state_checks(model, ntr, card):
+    """#1 (and, with tracers, the z-compact #6) with bfloat16 smoothness
+    against their plain versions on a tracer-row model's state, #1 without
+    and with the model's pressure; #1's times on the 12-tracer state (see
+    bf16_tracer_path_phase)."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+    grid, bf = model.grid, model.advection
+    f32 = ot.WENO(5, smoothness_dtype=torch.float32)
+    f = model.state["fields"]
+    tracers = {c: f[c] for c in model.tracer_names}
+    q = [f["u"], f["v"], f["w"]] + list(tracers.values())
+    nc = len(q)
+    p = model.state["pressure"]
+    Gm, _ = K.fused_advection_update(grid, bf, f["u"], f["v"], f["w"], None,
+                                     2e-5, 0.0, tracers=tracers)
+    scales = term_scales(grid, f32, q)
+    res = dict(max_abs_err=0.0)
+    for label, corr in (("G⁻", (None, None)), ("corrected, G⁻", (p, 2e-5))):
+        def update(fn, scheme):
+            return fn(grid, scheme, f["u"], f["v"], f["w"], Gm, 8e-5, -5e-5,
+                      *corr, tracers=tracers)
+
+        Gk, nk = update(K.fused_advection_update, bf)
+        Gp, np_ = update(K.fused_advection_update_plain, bf)
+        G32, _ = update(K.fused_advection_update_plain, f32)
+        err = bf16_check(f"fused_advection_update 256^3 float32 bf16 "
+                         f"smoothness {nc} components on the path's state "
+                         f"({label}) G", Gk, Gp, G32, scales, 2e-5,
+                         range(nc))
+        err_new, rel_new = worst_rel(list(nk.values()), list(np_.values()))
+        print(f"  fused_advection_update bf16 smoothness {nc} components "
+              f"({label}), new: max abs {err_new:.3e}, rel {rel_new:.3e} "
+              f"(bound 2e-5)")
+        assert rel_new <= 2e-5, ("#1 bf16 new", label, rel_new)
+        res["max_abs_err"] = max(res["max_abs_err"], err, err_new)
+        del Gk, nk, Gp, np_, G32
+    if ntr:
+        err6 = bf16_check(
+            f"fused_advection_tendency z-compact 256^3 bf16 smoothness {nc} "
+            f"components on the path's state",
+            list(K.fused_advection_tendency(grid, bf, q)),
+            list(K.fused_advection_tendency_plain(grid, bf, q)),
+            list(K.fused_advection_tendency_plain(grid, f32, q)), scales,
+            2e-5, range(nc))
+        res["max_abs_err"] = max(res["max_abs_err"], err6)
+        torch.cuda.empty_cache()
+        args = (grid, bf, f["u"], f["v"], f["w"], Gm, 8e-5, -5e-5, p, 2e-5)
+        res["ms"] = cuda_ms(lambda: K.fused_advection_update(
+            *args, tracers=tracers), reps=5)
+        res["plain_ms"] = cuda_ms(lambda: K.fused_advection_update_plain(
+            *args, tracers=tracers), reps=3, warmup=1)
+        print(f"  time fused_advection_update bf16 smoothness (corrected, "
+              f"G⁻) over u, v, w and {ntr} tracers at {grid.padded_shape}: "
+              f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms "
+              f"[{card}]")
+    torch.cuda.synchronize()
+    return res
+
+
+# -- the vector-unit probes (#12) ----------------------------------------------------
+
+PROBE_KERNELS = ("weno_microbench", "vpu_mix", "bf16_smoothness")
+PROBE_REL = 1e-5
+
+
+def probe_kernels_phase(card):
+    """Each probe kernel against its plain version on the scripts' 256×256
+    slab of default_rng(0) normals (0.01 times it for the FMA chain, whose
+    powers of the slab stay finite over the passes only there), with the
+    fold-back factor 1.0 and 3 passes, bound 1e-5 relative to max|plain| (float32 roundoff of FMA
+    contraction; the approximate reciprocal's ~1 ulp in the weights); the
+    repro in bfloat16 also at most a tenth of its bf16-vs-float32
+    difference. Then CUDA-event times of kernel and plain version at the
+    entry points' settings: weno_microbench at K = 32 and 200 passes,
+    vpu_mix summed over its five bodies at 2000 passes each, and the repro
+    in bfloat16."""
+    from oceananigans_tpu_torch.kernels import vpu_probes as V
+    from oceananigans_tpu_torch.tools import probe_common as pc
+    dev = torch.device("cuda")
+    x, x001 = pc.slab(V.SLAB, dev), pc.slab(V.SLAB, dev, 0.01)
+    errs = {name: 0.0 for name in PROBE_KERNELS}
+
+    def check(name, label, got, want):
+        assert torch.isfinite(want).all().item(), label
+        err, rel = max_err(got, want)
+        print(f"  {name} {label}: max abs {err:.3e}, rel {rel:.3e} (bound "
+              f"{PROBE_REL:g})")
+        assert rel <= PROBE_REL, (name, label, rel)
+        errs[name] = max(errs[name], err)
+
+    for k in V.MICROBENCH_K:
+        check("weno_microbench", f"K={k}, 3 passes, fold 1.0",
+              V.weno_microbench(x, k, 3, 1.0),
+              V.weno_microbench_plain(x, k, 3, 1.0))
+    for body in V.BODIES:
+        xb = x001 if body == "fma_chain" else x
+        check("vpu_mix", f"{body}, 3 passes, fold 1.0",
+              V.vpu_mix(xb, body, 3, 1.0), V.vpu_mix_plain(xb, body, 3, 1.0))
+    for dtype in (torch.bfloat16, torch.float32):
+        want = V.bf16_smoothness_plain(x, dtype)
+        check("bf16_smoothness", f"{dtype}", V.bf16_smoothness(x, dtype),
+              want)
+        if dtype == torch.bfloat16:
+            sep = (want - V.bf16_smoothness_plain(x, torch.float32)).abs() \
+                .max().item()
+            assert PROBE_REL * want.abs().max().item() <= 0.1 * sep, sep
+    torch.cuda.synchronize()
+    out = {}
+    out["weno_microbench"] = dict(
+        ms=cuda_ms(lambda: V.weno_microbench(x, 32), reps=5),
+        plain_ms=cuda_ms(lambda: V.weno_microbench_plain(x, 32), reps=1,
+                         warmup=0))
+    out["vpu_mix"] = dict(
+        ms=sum(cuda_ms(lambda: V.vpu_mix(x, b), reps=5) for b in V.BODIES),
+        plain_ms=sum(cuda_ms(lambda: V.vpu_mix_plain(x, b), reps=1, warmup=0)
+                     for b in V.BODIES))
+    out["bf16_smoothness"] = dict(
+        ms=cuda_ms(lambda: V.bf16_smoothness(x)),
+        plain_ms=cuda_ms(lambda: V.bf16_smoothness_plain(x), reps=5))
+    for name, t in out.items():
+        t["max_abs_err"] = errs[name]
+        print(f"  time {name}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms [{card}]")
+    return out
+
+
+def probe_bounds(peak_tflops):
+    """Bounds of the probe rows at the timed settings, the operations over
+    the card's float32 peak (SMs × 128 × 2 × its maximum SM clock): the
+    microbench at K = 32 ((87 + 3) per body), the mix summed over its bodies
+    ((flop + 7) a pass), the repro (87 per element); the slab read and
+    written once."""
+    from oceananigans_tpu_torch.kernels import vpu_probes as V
+    cells = V.SLAB[0] * V.SLAB[1]
+
+    def b(nbytes, flop):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_flop = flop / (peak_tflops * 1e12) * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_flop \
+            else (t_flop, "operations")
+
+    return {
+        "weno_microbench": b(8 * cells, cells * V.MICROBENCH_REPS * 32
+                             * (V.WENO_FLOP + V.DERIVE_FLOP)),
+        "vpu_mix": b(8 * cells * len(V.BODIES), sum(
+            cells * V.MIX_REPS * (f + V.MIX_LOOP_FLOP)
+            for _, f, _ in V.BODIES.values())),
+        "bf16_smoothness": b(8 * cells, cells * V.WENO_FLOP),
+    }
+
+
+def probe_path_phase(card):
+    """The three probe entry points (oceananigans_tpu_torch/tools), as a
+    user runs them, on the card: the microbench and the mix on the scripts'
+    256×256 slab and on a slab that fills every SM (--slab full), the repro
+    on its slab. Counters reset just before and read just after; every
+    probe kernel must have launched and no plain version run on CUDA
+    tensors. Prints each entry point's JSON lines; returns the launches and
+    the card's float32 peak."""
+    from oceananigans_tpu_torch import kernels as K
+    from oceananigans_tpu_torch.tools import (probe_common, repro_bf16_smoothness,
+                                              vpu_mix_probe, weno_vpu_microbench)
+    dev = torch.device("cuda")
+    full = probe_common.slab_shape("full", dev)
+    K.reset_counters()
+    micro = [weno_vpu_microbench.run(dev), weno_vpu_microbench.run(dev, full)]
+    mix = vpu_mix_probe.run(dev) + vpu_mix_probe.run(dev, full)
+    repro = repro_bf16_smoothness.run(dev)
+    launches, plain_cuda = K.counters()
+    for line in micro + mix + [repro]:
+        print(json.dumps(line))
+    peak = micro[0]["fma_peak"]
+    print(f"card float32 peak: {peak['sms']} SMs x {peak['fp32_lanes_per_sm']} "
+          f"lanes x 2 x {peak['max_sm_clock_mhz']:.0f} MHz = "
+          f"{peak['tflops']:.3f} Tflop/s (the bounds' table: "
+          f"{FP32_FLOP_PER_S / 1e12:.0f}) [{card}]")
+    for m in micro:
+        print(f"weno5 body marginal rate on a {m['slab']} slab: "
+              f"{m['value']:.3f} Tflop/s = {m['fraction_of_fma_peak']:.3f} of "
+              f"peak; ms at K = {m['k_points']}: {m['ms_points']}; fit "
+              f"residuals {m['fit_residual_ms']} ms")
+    # the plain version's difference on the CPU, where tests/test_torch_bf16.py
+    # holds it to the JAX repro run without excess precision
+    assert abs(repro["max_abs_bf16_vs_float32"] - 0.0354) < 0.005, repro
+    print(f"probe launches: { {k: launches[k] for k in PROBE_KERNELS} }; "
+          f"plain calls on CUDA: {plain_cuda}")
+    for name in PROBE_KERNELS:
+        assert launches[name] > 0, f"kernel {name} never launched on the path"
+    for name, count in plain_cuda.items():
+        assert count == 0, f"plain {name} ran on CUDA tensors"
+    return launches, peak
+
+
 KERNEL_SOURCES = {
     "fused_advection_update": (
         "oceananigans_tpu_torch/csrc/fused_advection.cu",
@@ -2543,13 +2923,26 @@ KERNEL_SOURCES = {
     "build_sharded_fused_advection_compact": (
         "oceananigans_tpu_torch/kernels/fused_advection.py",
         "oceananigans_tpu/kernels/fused_advection.py:795"),
+    "fused_advection_update_bf16": (
+        "oceananigans_tpu_torch/csrc/fused_advection.cu",
+        "oceananigans_tpu/kernels/fused_advection.py:269"),
+    "weno_microbench": (
+        "oceananigans_tpu_torch/csrc/vpu_probes.cu",
+        "scripts/weno_vpu_microbench.py:77"),
+    "vpu_mix": (
+        "oceananigans_tpu_torch/csrc/vpu_probes.cu",
+        "scripts/vpu_mix_probe.py:100"),
+    "bf16_smoothness": (
+        "oceananigans_tpu_torch/csrc/vpu_probes.cu",
+        "scripts/repro_bf16_smoothness.py:38"),
 }
 
 # the variant rows of a kernel: its counter's name
 COUNTER = {"fused_advection_update_tracers": "fused_advection_update",
            "fused_advection_tendency_compact": "fused_advection_tendency",
            "build_sharded_fused_advection_compact":
-               "build_sharded_fused_advection"}
+               "build_sharded_fused_advection",
+           "fused_advection_update_bf16": "fused_advection_update"}
 
 
 def main():
@@ -2584,8 +2977,16 @@ def main():
           "versions:")
     tracer_kernels_phase()
     torch.cuda.empty_cache()
-    tracer_launches, measured["fused_advection_update_tracers"] = \
-        tracer_path_phase(card)
+    tracer_launches, measured["fused_advection_update_tracers"], \
+        weno_states = tracer_path_phase(card)
+    torch.cuda.empty_cache()
+    print("bfloat16 WENO smoothness: kernels against plain versions, and the "
+          "256^3 weno5_bf16smooth tracer row:")
+    measured.update(bf16_kernels_phase())
+    torch.cuda.empty_cache()
+    bf16_launches, measured["fused_advection_update_bf16"] = \
+        bf16_tracer_path_phase(card, weno_states)
+    del weno_states
     torch.cuda.empty_cache()
     buoyant_launches, measured["fused_advection_tendency_compact"], \
         b_serial, b_state0 = buoyant_path_phase(card)
@@ -2618,6 +3019,13 @@ def main():
     goldens_phase()
     print("whole step, kernels against plain versions:")
     whole_step_phase()
+    print("vector-unit probes (#12) against plain versions:")
+    measured.update(probe_kernels_phase(card))
+    print("vector-unit probes (#12), the entry points:")
+    probe_launches, peak = probe_path_phase(card)
+    bounds.update(probe_bounds(peak["tflops"]))
+    bounds["fused_advection_update_bf16"] = \
+        bounds["fused_advection_update_tracers"]
     rows = []
     for kname, (source, replaces) in KERNEL_SOURCES.items():
         # the wrap's own row is at the flagship's shapes; its launches are
@@ -2635,6 +3043,9 @@ def main():
                     if kname == "fused_advection_tendency_compact"
                     else sharded_b_launches
                     if kname == "build_sharded_fused_advection_compact"
+                    else bf16_launches
+                    if kname == "fused_advection_update_bf16"
+                    else probe_launches if kname in PROBE_KERNELS
                     else convection_launches)[COUNTER.get(kname, kname)]
         bound_ms, bound_by = bounds[kname]
         rows.append(dict(name=kname, route="cuda", source=source,
@@ -2664,6 +3075,10 @@ def main():
           f"{sharded_conv_launches['fused_advection_tendency']} (convection), "
           f"{sharded_b_launches['fused_advection_tendency']} (buoyant "
           f"z-compact)")
+    print(f"bfloat16 smoothness, the other kernels against their plain "
+          f"versions (max abs): #6 padded "
+          f"{measured['fused_advection_tendency_bf16']['max_abs_err']:.3e}, "
+          f"#8 {measured['fused_sw_update_bf16']['max_abs_err']:.3e}")
     print(f"fused_vi_tendency design scratch ({VI_SCRATCH} derived fields "
           f"written and read once, not in its bound): "
           f"{bounds['vi_scratch_ms']:.4f} ms at 3.35 TB/s")

@@ -23,6 +23,7 @@ import functools
 from fractions import Fraction
 
 import numpy as np
+import torch
 from numpy.polynomial import Polynomial
 
 from ..operators.shifts import shift, shift_zbc
@@ -128,19 +129,35 @@ def stencil_value(sc, shifts, coeffs):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def typed_constants(values, dtype):
+    """``values`` (a tuple of floats, or of such tuples) as 0-d CPU tensors
+    of ``dtype``. The JAX package's constants are weakly typed Python
+    floats, which JAX rounds to the dtype of the array they meet before the
+    operation; PyTorch computes a bfloat16 operation with a Python float in
+    float32 and the float unrounded. A 0-d tensor of the array's dtype gives
+    JAX's rounding in PyTorch, and for float32 and float64 the same bits as
+    the Python float."""
+    if isinstance(values[0], tuple):
+        return tuple(typed_constants(v, dtype) for v in values)
+    return tuple(torch.tensor(v, dtype=dtype) for v in values)
+
+
 def smoothness_value(sc, shifts, factors, compute_dtype=None):
     """β = Σ_m (w_mᵀ u)² from shifted reads, optionally in a lower-precision
-    ``compute_dtype`` (the reference's WENO FT2 = Float32 inner weights)."""
+    ``compute_dtype`` (the reference's WENO FT2 = Float32 inner weights).
+    The factors meet the values in the values' dtype, as in JAX."""
     vals = [sc(o) for o in shifts]
     if compute_dtype is not None:
         vals = [v.to(compute_dtype) for v in vals]
+    typed = typed_constants(factors, vals[0].dtype)
     beta = None
-    for w in factors:
+    for w, tw in zip(factors, typed):
         lin = None
-        for c, v in zip(w, vals):
+        for c, tc, v in zip(w, tw, vals):
             if abs(c) < 1e-14:
                 continue
-            term = c * v
+            term = tc * v
             lin = term if lin is None else lin + term
         sq = lin * lin
         beta = sq if beta is None else beta + sq

@@ -28,7 +28,7 @@ import torch
 from ..defaults import as_torch_dtype
 from .reconstruction import (_ShiftCache, eno_coefficients, left_shifts,
                              mirror, optimal_weights, smoothness_factors,
-                             smoothness_value, stencil_value)
+                             smoothness_value, stencil_value, typed_constants)
 from ..operators.shifts import shift, shift_zbc
 
 
@@ -325,18 +325,22 @@ class WENO(AdvectionScheme):
                                       compute_dtype=sdt)
                 b = bm if b is None else b + bm
             betas.append(b)
+        # the constants in the smoothness dtype, as JAX rounds them
+        taus, (eps, rmax), gammas = (typed_constants(c, betas[0].dtype) for c in
+                                     (TAU_COEFFS[k], (WENO_EPSILON, WENO_R_MAX),
+                                      self._gammas))
         tau = None
-        for t, b in zip(TAU_COEFFS[k], betas):
+        for t, tt, b in zip(TAU_COEFFS[k], taus, betas):
             if t == 0:
                 continue
-            term = t * b
+            term = tt * b
             tau = term if tau is None else tau + term
         tau = torch.abs(tau)
         num = den = None
         for s in range(k):
-            r = tau / (betas[s] + WENO_EPSILON)
-            r = torch.clamp(r, max=WENO_R_MAX)
-            alpha = (self._gammas[s] * (1.0 + r * r)).to(out_dtype)
+            r = tau / (betas[s] + eps)
+            r = torch.clamp(r, max=rmax.item())   # exact in r's dtype
+            alpha = (gammas[s] * (1.0 + r * r)).to(out_dtype)
             nterm = alpha * ps[s]
             num = nterm if num is None else num + nterm
             den = alpha if den is None else den + alpha

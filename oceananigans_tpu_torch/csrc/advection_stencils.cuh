@@ -27,7 +27,14 @@
 //   on the fly from the pressure p, q = q* − Δt_prev·∂p, with w's bottom
 //   face pinned to 0. kCorr is a compile-time choice, so that a read is a
 //   plain load, or the loads and the correction, with no branch around it.
+//   kRn (float32 fields only) rounds the correction's product and difference
+//   apart, as the plain version does, where nvcc would contract them into
+//   one FMA: the bfloat16-smoothness instantiation takes it, since a
+//   corrected velocity one ulp away can move a bfloat16 rounding of the
+//   smoothness downstream.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "reconstruction.cuh"
@@ -56,8 +63,9 @@ struct PaddedRead {
   __device__ __forceinline__ T c_z(const T* a, int i, int j, int k) const { return c(a, i, j, k); }
 };
 
-template <typename T, bool kCorr>
+template <typename T, bool kCorr, bool kRn = false>
 struct CompactRead {
+  static_assert(!kRn || std::is_same<T, float>::value, "kRn takes float32 fields");
   static constexpr bool kWalls = true;
   const T* vel[3];   // u*, v*, w*: padded in x and y, no z halo
   const T* p;        // padded pressure of the deferred correction (kCorr)
@@ -67,17 +75,24 @@ struct CompactRead {
   __device__ __forceinline__ T c(const T* a, int i, int j, int k) const {
     return a[g.at(i, j, k)];
   }
+  // q* − f·(p[at] − p[below])
+  __device__ __forceinline__ T corrected(T q, T f, long long at, long long below) const {
+    if constexpr (kRn)
+      return __fsub_rn(q, __fmul_rn(f, __fsub_rn(p[at], p[below])));
+    else
+      return q - f * (p[at] - p[below]);
+  }
   __device__ __forceinline__ T u(int i, int j, int k) const {
     const long long at = g.at(i, j, k);
     if constexpr (kCorr)
-      return vel[0][at] - cx * (p[at] - p[g.at(i - 1, j, k)]);
+      return corrected(vel[0][at], cx, at, g.at(i - 1, j, k));
     else
       return vel[0][at];
   }
   __device__ __forceinline__ T v(int i, int j, int k) const {
     const long long at = g.at(i, j, k);
     if constexpr (kCorr)
-      return vel[1][at] - cy * (p[at] - p[g.at(i, j - 1, k)]);
+      return corrected(vel[1][at], cy, at, g.at(i, j - 1, k));
     else
       return vel[1][at];
   }
@@ -85,7 +100,7 @@ struct CompactRead {
     const long long at = g.at(i, j, k);
     if constexpr (kCorr) {
       if (k == 0) return T(0);
-      return vel[2][at] - cz * (p[at] - p[at - 1]);
+      return corrected(vel[2][at], cz, at, at - 1);
     } else {
       return vel[2][at];
     }

@@ -8,8 +8,10 @@
 // divergence) are (Nx, Ny, Nz), also z contiguous.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace oc {
 
@@ -62,8 +64,56 @@ inline unsigned int blocks_for(long long n, int threads) {
   return (unsigned int)((n + threads - 1) / threads);
 }
 
+// bfloat16 arithmetic rounded as the plain PyTorch versions and XLA (without
+// excess precision) round it: every operation computes in float32 from the
+// bfloat16 operands and rounds its result to bfloat16, to nearest even. The
+// _rn intrinsics keep nvcc from contracting a product and a sum across a
+// rounding. Native bf16 instructions (__hfma, bf16x2) round once where the
+// plain version rounds twice, so they are not used here.
+struct bf16 {
+  unsigned short bits;
+
+  bf16() = default;
+  __device__ __forceinline__ explicit bf16(float x)
+      : bits(__bfloat16_as_ushort(__float2bfloat16_rn(x))) {}
+  __device__ __forceinline__ explicit operator float() const {
+    return __uint_as_float((unsigned int)bits << 16);
+  }
+
+  // a float64 value that is a bfloat16 value (the coefficient tables' entries
+  // arrive rounded), or the bfloat16 nearest its float32 rounding
+  static bf16 from_host(double v) {
+    const float f = (float)v;
+    uint32_t u;
+    memcpy(&u, &f, sizeof u);
+    bf16 b;
+    b.bits = (unsigned short)((u + 0x7FFFu + ((u >> 16) & 1u)) >> 16);
+    return b;
+  }
+};
+
+__device__ __forceinline__ bf16 operator+(bf16 a, bf16 b) {
+  return bf16(__fadd_rn(float(a), float(b)));
+}
+__device__ __forceinline__ bf16 operator-(bf16 a, bf16 b) {
+  return bf16(__fsub_rn(float(a), float(b)));
+}
+__device__ __forceinline__ bf16 operator*(bf16 a, bf16 b) {
+  return bf16(__fmul_rn(float(a), float(b)));
+}
+__device__ __forceinline__ bf16 operator/(bf16 a, bf16 b) {
+  return bf16(__fdiv_rn(float(a), float(b)));
+}
+__device__ __forceinline__ bool operator>(bf16 a, bf16 b) { return float(a) > float(b); }
+
+__device__ __forceinline__ float absval(float x) { return fabsf(x); }
+__device__ __forceinline__ double absval(double x) { return fabs(x); }
+__device__ __forceinline__ bf16 absval(bf16 x) { return bf16(fabsf(float(x))); }
+
 }  // namespace oc
 
-// Field dtype codes shared with the Python wrappers.
+// Dtype codes shared with the Python wrappers: fields take the first two,
+// the WENO smoothness arithmetic all three.
 #define OC_FLOAT32 0
 #define OC_FLOAT64 1
+#define OC_BFLOAT16 2

@@ -47,9 +47,14 @@ using oc::kCentered2;
 using oc::kTabSize;
 using oc::kWeno5;
 
+// The read policy: bfloat16 smoothness rounds the correction as the plain
+// version does (CompactRead's kRn).
+template <typename T, typename S, bool C>
+using Read = oc::CompactRead<T, C, std::is_same<S, oc::bf16>::value>;
+
 template <typename T, typename S, bool C>
 struct Params {
-  oc::Stencil<T, S, oc::CompactRead<T, C>> st;   // u*, v*, w* (p, Δt_prev/Δ)
+  oc::Stencil<T, S, Read<T, S, C>> st;   // u*, v*, w* (p, Δt_prev/Δ)
   const T* q[kBatch];    // the batch's fields q* (padded, uncorrected)
   const T* gm[kBatch];   // previous-stage tendencies (interior), or null
   T* G[kBatch];          // tendencies out (interior)
@@ -92,7 +97,7 @@ struct Args {
 template <int SCH, typename T, typename S, bool C>
 int launch_variant(const Args& a) {
   Params<T, S, C> P;
-  oc::CompactRead<T, C>& rd = P.st.rd;
+  Read<T, S, C>& rd = P.st.rd;
   for (int d = 0; d < 3; ++d) rd.vel[d] = (const T*)a.vel[d];
   rd.p = (const T*)a.p;
   const T c_dt = (T)a.cdt;
@@ -139,6 +144,7 @@ int dispatch(int dtype, int sdtype, const Args& a) {
   if (dtype == OC_FLOAT32 && sdtype == OC_FLOAT64) return launch<SCH, float, double>(a);
   if (dtype == OC_FLOAT64 && sdtype == OC_FLOAT32) return launch<SCH, double, float>(a);
   if (dtype == OC_FLOAT64 && sdtype == OC_FLOAT64) return launch<SCH, double, double>(a);
+  if (dtype == OC_FLOAT32 && sdtype == OC_BFLOAT16) return launch<SCH, float, oc::bf16>(a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -146,8 +152,9 @@ int dispatch(int dtype, int sdtype, const Args& a) {
 
 extern "C" {
 
-// scheme: 0 WENO(5), 1 Centered(2). dtype / sdtype: OC_FLOAT32 or OC_FLOAT64
-// for the fields and for the WENO smoothness arithmetic. vel: host array of
+// scheme: 0 WENO(5), 1 Centered(2). dtype: OC_FLOAT32 or OC_FLOAT64 for the
+// fields; sdtype: OC_FLOAT32, OC_FLOAT64 or (with float32 fields) OC_BFLOAT16
+// for the WENO smoothness arithmetic. vel: host array of
 // the u*, v*, w* device pointers; p: the padded pressure, or null for no
 // correction. q, G, out: host arrays of the batch's nb device pointers
 // (components first .. first+nb-1 of u, v, w, tracers...); gm: such an array

@@ -279,6 +279,7 @@ int dispatch(int dtype, int sdtype, const Args& a) {
   if (dtype == OC_FLOAT32 && sdtype == OC_FLOAT64) return launch<SCH, float, double>(a);
   if (dtype == OC_FLOAT64 && sdtype == OC_FLOAT32) return launch<SCH, double, float>(a);
   if (dtype == OC_FLOAT64 && sdtype == OC_FLOAT64) return launch<SCH, double, double>(a);
+  if (dtype == OC_FLOAT32 && sdtype == OC_BFLOAT16) return launch<SCH, float, oc::bf16>(a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -286,8 +287,9 @@ int dispatch(int dtype, int sdtype, const Args& a) {
 
 extern "C" {
 
-// scheme: 0 WENO(5), 1 Centered(2). dtype / sdtype: OC_FLOAT32 or OC_FLOAT64
-// for the fields and for the WENO smoothness arithmetic. prog: host array of
+// scheme: 0 WENO(5), 1 Centered(2). dtype: OC_FLOAT32 or OC_FLOAT64 for the
+// fields; sdtype: OC_FLOAT32, OC_FLOAT64 or (with float32 fields) OC_BFLOAT16
+// for the WENO smoothness arithmetic. prog: host array of
 // the uh, vh, h device pointers; q, out: host arrays of the batch's nb device
 // pointers (fields first .. first+nb-1 of uh, vh, h, tracers; padded inputs
 // and outputs); hB: padded bathymetry; Gm: device (nf, Nx, Ny) of all fields

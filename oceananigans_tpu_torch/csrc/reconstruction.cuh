@@ -8,7 +8,10 @@
 // follow oceananigans_tpu/advection/schemes.py WENO._biased: WENO-Z weights
 // α = γ(1 + (τ/(β+ε))²) with τ/(β+ε) saturated, the smoothness indicators β
 // in the smoothness type S, the stencil values and the weighted sum in the
-// field type T.
+// field type T. S is float or double, or bf16 (common.cuh) with float fields:
+// then every smoothness operation rounds to bfloat16 as the plain version
+// does, and τ/(β+ε) is an exact division in bfloat16 (the JAX TPU kernels
+// take it in float32 with the approximate reciprocal instead).
 #pragma once
 
 #include "common.cuh"
@@ -40,8 +43,17 @@ Tab<R> make_tab(const double* v) {
   return t;
 }
 
-__device__ __forceinline__ float absval(float x) { return fabsf(x); }
-__device__ __forceinline__ double absval(double x) { return fabs(x); }
+// The bfloat16 smoothness table: its entries arrive rounded to bfloat16 (by
+// kernels/fused_advection.py coefficient_table, as PyTorch and JAX round a
+// constant that meets a bfloat16 array), so the conversion is exact.
+template <>
+inline Tab<bf16> make_tab<bf16>(const double* v) {
+  Tab<bf16> t;
+  bf16* dst = reinterpret_cast<bf16*>(&t);
+  for (int n = 0; n < kTabSize; ++n) dst[n] = bf16::from_host(v[n]);
+  return t;
+}
+
 
 // WENO-5 on the upwind-selected cells q[0..4] (left-biased orientation:
 // offsets β-3 .. β+1, mirrored when the advecting velocity is not > 0).

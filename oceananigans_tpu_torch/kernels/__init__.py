@@ -3,7 +3,8 @@
 Each wrapper takes its plain version for CPU tensors and launches its kernel
 for CUDA tensors; it counts its launches in a ``launches`` attribute, and
 each plain version counts the calls it served on CUDA tensors in
-``cuda_calls``. The sharded stages (``build_sharded_*``) count the calls of
+``cuda_calls``. ``vpu_probes`` holds the vector-unit probes, which run
+no model. The sharded stages (``build_sharded_*``) count the calls of
 the stages they built, and the halo exchange between shards lives in
 ``parallel/halo_exchange.py``. The kernels build at first use
 (``build.py``).
@@ -25,17 +26,21 @@ from .fused_vector_invariant import (fused_vi_tendency,
                                      fused_vi_tendency_plain)
 from .halo_fill import (ZFill, bounded_z_fill, bounded_z_fill_plain,
                         periodic_halo_fill, periodic_halo_fill_plain)
+from .vpu_probes import (bf16_smoothness, bf16_smoothness_plain, vpu_mix,
+                         vpu_mix_plain, weno_microbench, weno_microbench_plain)
 
 KERNELS = (fused_advection_update, fused_divergence, fused_correct,
            periodic_halo_fill, fused_advection_tendency, bounded_z_fill,
            fused_sw_update, fused_vi_tendency, mesh_halo_exchange,
-           build_sharded_fused_sw_update, build_sharded_fused_advection)
+           build_sharded_fused_sw_update, build_sharded_fused_advection,
+           weno_microbench, vpu_mix, bf16_smoothness)
 PLAINS = (fused_advection_update_plain, fused_divergence_plain,
           fused_correct_plain, periodic_halo_fill_plain,
           fused_advection_tendency_plain, bounded_z_fill_plain,
           fused_sw_update_plain, fused_vi_tendency_plain, halo_exchange_plain,
           build_sharded_fused_sw_update_plain,
-          build_sharded_fused_advection_plain)
+          build_sharded_fused_advection_plain, weno_microbench_plain,
+          vpu_mix_plain, bf16_smoothness_plain)
 
 
 def reset_counters():
@@ -63,5 +68,7 @@ __all__ = ["fused_advection_update", "fused_advection_update_plain",
            "build_sharded_fused_sw_update_plain",
            "build_sharded_fused_advection",
            "build_sharded_fused_advection_plain",
+           "weno_microbench", "weno_microbench_plain", "vpu_mix",
+           "vpu_mix_plain", "bf16_smoothness", "bf16_smoothness_plain",
            "ZFill", "KERNELS", "PLAINS",
            "reset_counters", "counters"]

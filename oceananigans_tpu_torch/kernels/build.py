@@ -64,6 +64,9 @@ SIGNATURES = {
     "oc_vi_set_tables": [P, I],
     "oc_fused_vi_tendency": [I, I, P, P, P, P, P, D, D, P],
     "oc_mesh_halo_exchange": [P, P, P, I, I, I, I, I, I, I, I, P],
+    "oc_weno_microbench": [I, P, P, I, I, D, P],
+    "oc_vpu_mix": [I, P, P, I, I, D, P],
+    "oc_bf16_smoothness": [I, P, P, I, I, P],
 }
 
 

@@ -25,7 +25,10 @@ traffic in float32. Design (``csrc/fused_advection.cu``, stencils in
 fastest across threads, the component uniform per block; each thread
 recomputes the two face fluxes it needs per axis, and the stencil reads go
 through L1/L2. Division is exact. Schemes: WENO(5) with its near-wall
-cascade and Centered(2); any other raises on the card.
+cascade and Centered(2); any other raises on the card. The WENO smoothness
+arithmetic runs in float32 or float64, or with float32 fields in bfloat16,
+rounded operation by operation as the plain version rounds it
+(``smoothness_code``).
 
 ``fused_advection_tendency`` replaces ``build_fused_advection``: ``G =
 -∇·(𝐯q)`` for u, v, w and each tracer as one (3 + n_tracers, Nx, Ny, Nz)
@@ -55,6 +58,7 @@ import torch
 
 from ..advection import (WENO, Centered, UpwindBiased, div_Uc, div_Uu,
                          div_Uv, div_Uw)
+from ..advection.reconstruction import typed_constants
 from ..advection.schemes import WENO_EPSILON, WENO_R_MAX
 from ..operators.shifts import shift
 from ..parallel import halo_exchange as hx
@@ -74,6 +78,11 @@ WENO5, CENTERED2 = 0, 1
 
 # Entries of the coefficient table (kTabSize in csrc/reconstruction.cuh).
 TAB_SIZE = 4 + 2 + 9 + 27 + 3 + 4 + 8 + 2 + 2
+
+# Codes of the WENO smoothness dtype (OC_FLOAT32, OC_FLOAT64, OC_BFLOAT16 in
+# csrc/common.cuh). The fields' dtype takes fused_projection._DTYPE_CODES,
+# which has no bfloat16.
+_SMOOTHNESS_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 def corrected_velocities(grid, u, v, w, p, corr_dt):
     """q* − corr_dt·∂p on the whole padded tensors, w's bottom face pinned;
@@ -142,10 +151,29 @@ def scheme_code(scheme):
         f"no CUDA advection kernel for {scheme!r}: {OTHER_SCHEMES_ITEM}")
 
 
+def smoothness_code(scheme, dtype):
+    """The kernels' code for the scheme's smoothness dtype with fields of
+    ``dtype`` (a scheme without one computes in the field dtype); raises
+    TypeError for a pair no kernel was built for."""
+    sdt = getattr(scheme, "smoothness_dtype", dtype)
+    if sdt not in _SMOOTHNESS_CODES:
+        raise TypeError(f"unsupported smoothness dtype {sdt}")
+    if sdt == torch.bfloat16 and dtype != torch.float32:
+        raise TypeError(
+            f"bfloat16 smoothness takes float32 fields on the card, not "
+            f"{dtype}: the kernels are built for that one pair (the plain "
+            f"version takes any)")
+    return _SMOOTHNESS_CODES[sdt]
+
+
 def coefficient_table(scheme):
     """The kernels' coefficient table (``Tab`` in csrc/reconstruction.cuh)
     as a ctypes float64 array: WENO(5) with its cascade, or Centered(2) in
-    the c2 slot (every other entry 0)."""
+    the c2 slot (every other entry 0). With bfloat16 smoothness the entries
+    that meet the smoothness arithmetic (factors, optimal weights, ε, the
+    saturation) are rounded to bfloat16 here, as the plain version rounds
+    them (``advection.reconstruction.typed_constants``); the stencil
+    coefficients, read in the field type, are not."""
     code = scheme_code(scheme)
     key = scheme._fp()
     if key in _tables:
@@ -162,16 +190,23 @@ def coefficient_table(scheme):
         assert isinstance(c4, Centered) and c4.order == 4
         assert isinstance(c2, Centered) and c2.order == 2
         assert w3.advecting_velocity_scheme._coeffs == c2._coeffs
+        sdt = scheme.smoothness_dtype
+
+        def smooth(vals):
+            if sdt != torch.bfloat16:
+                return list(vals)
+            return [t.item() for t in typed_constants(tuple(vals), sdt)]
+
         vals = list(c4._coeffs) + list(c2._coeffs)
         vals += [c for s in range(3) for c in scheme._coeffs[s]]
-        vals += [c for s in range(3)
-                 for c in _padded_factors(scheme._sfactors[s], 3)]
-        vals += list(scheme._gammas)
+        vals += smooth(c for s in range(3)
+                       for c in _padded_factors(scheme._sfactors[s], 3))
+        vals += smooth(scheme._gammas)
         vals += [c for s in range(2) for c in w3._coeffs[s]]
-        vals += [c for s in range(2)
-                 for c in _padded_factors(w3._sfactors[s], 2)]
-        vals += list(w3._gammas)
-        vals += [WENO_EPSILON, WENO_R_MAX]
+        vals += smooth(c for s in range(2)
+                       for c in _padded_factors(w3._sfactors[s], 2))
+        vals += smooth(w3._gammas)
+        vals += smooth((WENO_EPSILON, WENO_R_MAX))
     assert len(vals) == TAB_SIZE
     _tables[key] = (ctypes.c_double * len(vals))(*vals)
     return _tables[key]
@@ -211,9 +246,7 @@ def fused_advection_update(grid, scheme, u, v, w, Gm, gamma_dt, zeta_dt,
         check_tensors(grid, Gm, grid.N)
         if Gm[0].device != u.device:
             raise ValueError("Gm must be on the fields' device")
-    sdt = getattr(scheme, "smoothness_dtype", u.dtype)
-    if sdt not in _DTYPE_CODES:
-        raise TypeError(f"unsupported smoothness dtype {sdt}")
+    scode = smoothness_code(scheme, u.dtype)
     m = _metrics(grid)
     Nx, Ny, Nz = grid.N
     Hx, Hy, _ = grid.H
@@ -225,8 +258,7 @@ def fused_advection_update(grid, scheme, u, v, w, Gm, gamma_dt, zeta_dt,
         lib = build.library()
         for a, b in build.batches(nc):
             build.check(lib.oc_fused_advection_update(
-                code, _DTYPE_CODES[u.dtype], _DTYPE_CODES[sdt], vel,
-                build.ptr(p), build.pointers(qs[a:b]),
+                code, _DTYPE_CODES[u.dtype], scode, vel, build.ptr(p), build.pointers(qs[a:b]),
                 build.pointers(Gm[a:b]) if Gm is not None else None,
                 build.pointers(G[a:b]), build.pointers(outs[a:b]), b - a, a,
                 Nx, Ny, Nz, Hx, Hy,
@@ -285,9 +317,7 @@ def fused_advection_tendency(grid, scheme, fields):
         raise ValueError(f"the tendency kernel needs Hx, Hy >= "
                          f"{scheme.required_halo}")
     check_tensors(grid, fields, grid.padded_shape)
-    sdt = getattr(scheme, "smoothness_dtype", fields[0].dtype)
-    if sdt not in _DTYPE_CODES:
-        raise TypeError(f"unsupported smoothness dtype {sdt}")
+    scode = smoothness_code(scheme, fields[0].dtype)
     table = coefficient_table(scheme)
     m = _metrics(grid)
     Nx, Ny, Nz = grid.N
@@ -299,7 +329,7 @@ def fused_advection_tendency(grid, scheme, fields):
         lib = build.library()
         for a, b in build.batches(nc):
             build.check(lib.oc_advection_tendency(
-                code, _DTYPE_CODES[G.dtype], _DTYPE_CODES[sdt], vel,
+                code, _DTYPE_CODES[G.dtype], scode, vel,
                 build.pointers(fields[a:b]), b - a, a, build.ptr(G[a]), Nx,
                 Ny, Nz, Hx, Hy, Hz, m["Ax"], m["Ay"], m["Az"], m["V"], table,
                 len(table), build.stream_of(G)), lib)

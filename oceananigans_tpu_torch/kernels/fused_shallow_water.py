@@ -24,7 +24,8 @@ one thread per (component, interior cell), y fastest across threads, the
 component uniform per block; each thread recomputes its two face fluxes per
 axis and every velocity they select (about 1,100 operations per cell), and
 reads its stencil through L1/L2.
-Division is exact. Schemes: WENO(5) and Centered(2); any other scheme raises
+Division is exact. Schemes: WENO(5) and Centered(2), the WENO smoothness in
+float32, float64 or (with float32 fields) bfloat16; any other scheme raises
 on the card. A launch takes at most ``build.BATCH`` fields (their pointers
 ride in the kernel's parameter block); more fields take one launch per batch, and
 since every field's result depends only on its own values and uh, vh, h,
@@ -45,7 +46,7 @@ from ..grids.topology import PERIODIC
 from ..parallel import halo_exchange as hx
 from ..timesteppers import stage_update
 from . import build
-from .fused_advection import coefficient_table, scheme_code
+from .fused_advection import coefficient_table, scheme_code, smoothness_code
 from .fused_projection import _DTYPE_CODES, _metrics, check_tensors
 
 PROGNOSTIC = ("uh", "vh", "h")
@@ -114,9 +115,7 @@ def fused_sw_update(grid, scheme, g, f, hB, names, fields, Gm, gamma_dt,
         check_tensors(grid, [Gm], (nf, Nx, Ny, 1))
         if Gm.device != q[0].device:
             raise ValueError("Gm must be on the fields' device")
-    sdt = getattr(scheme, "smoothness_dtype", q[0].dtype)
-    if sdt not in _DTYPE_CODES:
-        raise TypeError(f"unsupported smoothness dtype {sdt}")
+    scode = smoothness_code(scheme, q[0].dtype)
     table = coefficient_table(scheme)
     m = _metrics(grid)
     G = torch.empty((nf, Nx, Ny, 1), dtype=q[0].dtype, device=q[0].device)
@@ -126,7 +125,7 @@ def fused_sw_update(grid, scheme, g, f, hB, names, fields, Gm, gamma_dt,
         lib = build.library()
         for a, b in build.batches(nf):
             build.check(lib.oc_fused_sw_update(
-                code, _DTYPE_CODES[G.dtype], _DTYPE_CODES[sdt], prog,
+                code, _DTYPE_CODES[G.dtype], scode, prog,
                 build.pointers(q[a:b]), build.pointers(outs[a:b]), b - a, a,
                 build.ptr(hB), build.ptr(Gm), build.ptr(G), Nx, Ny,
                 grid.H[0], grid.H[1], m["dx"], m["dy"], m["Ax"], m["Ay"],

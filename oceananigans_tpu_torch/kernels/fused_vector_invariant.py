@@ -156,6 +156,8 @@ def vi_config(grid, vi, tracer_scheme, n_tracers, coriolis):
         cor = None
     if len(smooth) > 1:
         why.append("the WENO schemes differ in smoothness dtype")
+    elif smooth and not smooth <= set(_DTYPE_CODES):
+        why.append(f"smoothness dtype {next(iter(smooth))}")
     if grid.dtype not in _DTYPE_CODES:
         why.append(f"dtype {grid.dtype}")
     if why:

@@ -636,3 +636,177 @@ def _patched(mod, name, fn):
         finally:
             setattr(mod, name, saved)
     return swap()
+
+
+# -- bfloat16 WENO smoothness in #1, #6 and #8 ---------------------------------------
+#
+# Float32 fields with bfloat16 smoothness, each kernel against its plain
+# version on the same inputs. The smoothness arithmetic rounds each
+# operation to bfloat16 in both (the same operands, so the same bits); what
+# differs is the float32 stencil and flux arithmetic (FMA contraction, another
+# association order): bound 1e-5 relative to max|plain| per tensor. The
+# check must tell bfloat16 from float32 smoothness, so for each tendency
+# that a WENO reconstruction enters (not h's, and not the updated fields,
+# where Δt scales the difference down) the bound is also held to at most a
+# tenth of the plain version's bf16-vs-float32 difference on the same
+# inputs. The deferred correction is checked with p = 0 and with a random
+# p: with bfloat16 smoothness the kernel rounds the correction's product
+# and difference apart, as the plain version does, so the corrected
+# velocities are the same bits and the same bound holds.
+
+BF16_REL = 1e-5
+
+
+def _bf16_close(got, want, want_f32, separated):
+    """``separated``: the indices of the tendencies a WENO reconstruction
+    enters."""
+    for n, (a, b, c) in enumerate(zip(got, want, want_f32)):
+        bound = BF16_REL * b.abs().max().item()
+        if n in separated:
+            assert bound <= 0.1 * (b - c).abs().max().item(), ("loose", n)
+        assert (a - b).abs().max().item() <= bound, n
+
+
+@pytest.fixture(scope="module")
+def bf16_inputs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    out = {}
+    for layout, halo in (("compact", (4, 4, 0)), ("padded", (3, 3, 3))):
+        grid = ot.RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0), halo=halo,
+                                  dtype=torch.float32, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        f = [0.1 * torch.randn(grid.padded_shape, generator=gen,
+                               device="cuda") for _ in range(3)]
+        f += [torch.rand(grid.padded_shape, generator=gen, device="cuda")
+              for _ in range(2)]
+        if layout == "compact":
+            f[2][..., 0] = 0
+        K.periodic_halo_fill(grid, f)
+        Gm = [torch.randn(N, generator=gen, device="cuda") for _ in range(5)]
+        out[layout] = (grid, f, Gm)
+        if layout == "compact":
+            p = torch.randn(grid.padded_shape, generator=gen, device="cuda")
+            K.periodic_halo_fill(grid, [p])
+            out["p"] = p
+    return out
+
+
+def _smooth(dtype):
+    return ot.WENO(5, smoothness_dtype=dtype)
+
+
+@pytest.mark.parametrize("with_gm", [False, True])
+@pytest.mark.parametrize("corr", [None, "p=0", "p"])
+def test_fused_advection_update_bf16(bf16_inputs, with_gm, corr):
+    grid, f, Gm = bf16_inputs["compact"]
+    tracers = {"c0": f[3], "c1": f[4]}
+    p = {None: None, "p=0": torch.zeros_like(f[0]),
+         "p": bf16_inputs["p"]}[corr]
+
+    def run(fn, dtype):
+        G, new = fn(grid, _smooth(dtype), *f[:3], Gm if with_gm else None,
+                    1e-3, -5e-4, p, None if p is None else 7e-4,
+                    tracers=tracers)
+        return list(G) + list(new.values())
+
+    _bf16_close(run(K.fused_advection_update, torch.bfloat16),
+                run(K.fused_advection_update_plain, torch.bfloat16),
+                run(K.fused_advection_update_plain, torch.float32), range(5))
+
+
+@pytest.mark.parametrize("layout", ["compact", "padded"])
+def test_fused_advection_tendency_bf16(bf16_inputs, layout):
+    grid, f, _ = bf16_inputs[layout]
+    _bf16_close(
+        list(K.fused_advection_tendency(grid, _smooth(torch.bfloat16), f)),
+        list(K.fused_advection_tendency_plain(grid, _smooth(torch.bfloat16),
+                                              f)),
+        list(K.fused_advection_tendency_plain(grid, _smooth(torch.float32),
+                                              f)), range(5))
+
+
+def test_fused_sw_update_bf16():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    grid = ot.RectilinearGrid(size=SW_N, extent=(10.0, 8.0), halo=(4, 4, 0),
+                              topology=("periodic", "periodic", "flat"),
+                              dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    shape = grid.padded_shape
+    # a nearly flat h: the advection, not the head gradient, sets the size
+    # of the momentum tendencies
+    fields = {n: o + s * torch.randn(shape, generator=gen, device="cuda")
+              for n, s, o in (("uh", 0.1, 0.0), ("vh", 0.1, 0.0),
+                              ("h", 1e-4, 1.0), ("c", 1.0, 0.0))}
+    hB = 1e-4 * torch.randn(shape, generator=gen, device="cuda")
+    K.periodic_halo_fill(grid, list(fields.values()) + [hB])
+    ints = grid.interior_slices
+
+    def run(fn, dtype):
+        G, new = fn(grid, _smooth(dtype), 9.81, 0.3, hB, tuple(fields),
+                    fields, None, 2e-3, 0.0)
+        return list(G) + [new[n][ints] for n in new]
+
+    _bf16_close(run(K.fused_sw_update, torch.bfloat16),
+                run(K.fused_sw_update_plain, torch.bfloat16),
+                run(K.fused_sw_update_plain, torch.float32), (0, 1, 3))
+
+
+def test_bf16_smoothness_float64_fields_raises(inputs):
+    grid, u, v, w, _, _ = inputs
+    with pytest.raises(TypeError, match="float32 fields"):
+        K.fused_advection_update(grid, _smooth(torch.bfloat16), u, v, w,
+                                 None, 0.1, 0.0)
+
+
+# -- the vector-unit probes (#12) ------------------------------------------------------
+#
+# Each probe kernel against its plain version on numpy's default_rng(0)
+# normals, with the fold-back factor 1.0 and 3 passes (the timed runs'
+# 1e-20 leaves the slab equal to its input); the FMA chain on 0.01 times the
+# slab, where its powers of the slab stay finite over the passes. Bound 1e-5 relative to
+# max|plain|: float32 roundoff of FMA contraction, and the approximate
+# reciprocal's ~1 ulp in the weights (its plain version divides exactly).
+# The repro's bfloat16 smoothness rounds as its plain version does, so the
+# same bound holds, at most a tenth of its bf16-vs-float32 difference.
+
+PROBE_REL = 1e-5
+
+
+def _probe_slab(shape, scale=1.0):
+    import numpy as np
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x = np.random.default_rng(0).normal(size=shape).astype(np.float32)
+    return torch.as_tensor(scale * x).cuda()
+
+
+def _probe_close(got, want):
+    assert torch.isfinite(want).all()
+    assert (got - want).abs().max().item() <= PROBE_REL * want.abs().max().item()
+
+
+@pytest.mark.parametrize("k", [8, 16, 32])
+def test_weno_microbench(k):
+    x = _probe_slab((64, 64))
+    _probe_close(K.weno_microbench(x, k, reps=3, fold=1.0),
+                 K.weno_microbench_plain(x, k, reps=3, fold=1.0))
+
+
+@pytest.mark.parametrize("body", ["fma_chain", "weno_nodiv", "weno_true",
+                                  "weno_recip", "weno_approx_recip"])
+def test_vpu_mix(body):
+    x = _probe_slab((64, 64), 0.01 if body == "fma_chain" else 1.0)
+    _probe_close(K.vpu_mix(x, body, reps=3, fold=1.0),
+                 K.vpu_mix_plain(x, body, reps=3, fold=1.0))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_bf16_smoothness_probe(dtype):
+    x = _probe_slab((256, 256))
+    want = K.bf16_smoothness_plain(x, getattr(torch, dtype))
+    _probe_close(K.bf16_smoothness(x, getattr(torch, dtype)), want)
+    if dtype == "bfloat16":
+        diff = (want - K.bf16_smoothness_plain(x, torch.float32)).abs().max()
+        assert PROBE_REL * want.abs().max().item() <= 0.1 * diff.item()

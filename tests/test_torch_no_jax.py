@@ -26,7 +26,11 @@ def test_import_loads_no_jax():
             "oceananigans_tpu_torch.kernels.fused_vector_invariant, "
             "oceananigans_tpu_torch.parallel, "
             "oceananigans_tpu_torch.parallel.distributed, "
-            "oceananigans_tpu_torch.parallel.halo_exchange, sys; "
+            "oceananigans_tpu_torch.parallel.halo_exchange, "
+            "oceananigans_tpu_torch.kernels.vpu_probes, "
+            "oceananigans_tpu_torch.tools.weno_vpu_microbench, "
+            "oceananigans_tpu_torch.tools.vpu_mix_probe, "
+            "oceananigans_tpu_torch.tools.repro_bf16_smoothness, sys; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'oceananigans_tpu', 'triton')]; "
             "assert not bad, bad; "
