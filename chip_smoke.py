@@ -6,12 +6,19 @@ Phases (each raises on failure; nothing is caught):
 
 1. Device: require a CUDA card; print its name and `nvidia-smi`'s name and
    power limit.
-2. Build: compile the port's CUDA kernels from the checkout's sources.
+2. Build: compile the port's CUDA kernels from the checkout's sources; for
+   the block-tiled kernels (#1, #8) each instantiation's registers and
+   spills from ptxas, and each launch plan's tile, shared memory per block
+   and blocks per SM (the runtime's occupancy query).
 3. Kernels against their plain PyTorch versions on the card, with the bound
    and its reason, and CUDA-event times of kernel and plain version at the
    main paths' shapes:
    - the flagship's four kernels in float64 at 32³ and in float32 at the
-     flagship's shapes (padded 264x264x256, H = (4, 4, 0));
+     flagship's shapes (padded 264x264x256, H = (4, 4, 0)); #1 timed in its
+     corrected G⁻ variant (RK3 stages 2-3) and its uncorrected first-stage
+     variant;
+   - #1 in float64 at the tile edges: interiors (37, 29, 19) and (12, 10,
+     5), with 3 and 40 components, each of the four variants;
    - the convection path's kernels: the advection tendency (float64 at 32³,
      float32 at 256³, H = (3, 3, 3)), the bounded-z fill (center and z-face
      fields under Flux, Value and Gradient) and the periodic wrap on fields
@@ -20,7 +27,8 @@ Phases (each raises on failure; nothing is caught):
    RK3, set(u=, v=) from a seeded generator, warm-up steps and timed steps.
    Its kernels' launch counters must rise and no plain version may run on
    CUDA tensors; fields must be finite and the velocity divergence at
-   roundoff.
+   roundoff. Then the device's busy share over 3 more steps
+   (torch.profiler).
 5. Convection path: Rayleigh–Bénard convection at 256³ (BuoyancyTracer,
    ScalarDiffusivity, Value conditions on b; the padded layout), float32,
    the same checks, and the phase shares of the step from CUDA events.
@@ -31,7 +39,8 @@ Phases (each raises on failure; nothing is caught):
    shallow-water stage at 256² in float64 (WENO(5) and Centered(2), FPlane,
    bathymetry, a tracer; the first-stage and the G⁻ variants) and at 4096²
    in float32, the wrap on three 16392² fields; CUDA-event times at the
-   shallow-water path's shapes.
+   shallow-water path's shapes; the stage in float64 at the tile edges
+   (interiors (45, 61) and (9, 130), 0 and 33 tracers, f = 0 and 0.3).
 8. Shallow-water path: ShallowWaterModel on a 16384² periodic grid,
    WENO(5), float32, RK3, Δt = 1e-5, h, uh, vh from a seeded generator
    (bench_extra.py's shallow-water row): warm-up and timed steps, launch
@@ -64,7 +73,9 @@ Phases (each raises on failure; nothing is caught):
    sharded stage 3, #8 12 and the exchange 6 times per step, no plain
    version on CUDA tensors), finite fields, mass conservation, peak memory,
    phase shares, the fields against the serial model's after the same 16
-   steps, and the sharded stage against its plain route in float32.
+   steps, and the sharded stage against its plain route in float32; then
+   the device's busy share over 3 more steps of the serial model
+   (torch.profiler).
 14. Sharded convection path: the 256³ step on that mesh, with the same
    checks (the sharded tendency 3, #6 12 and the exchange 6 times per step),
    the divergence at roundoff, and the sharded tendency against its plain
@@ -139,6 +150,143 @@ def build_phase():
     for line in build.compile_log.splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print("  " + line.strip())
+    tiled_kernels_report()
+
+
+def ptxas_entries(log, marks):
+    """{kernel name: (registers, spill stores, spill loads)} of the entries
+    of ptxas's -v report whose mangled name holds one of ``marks``."""
+    out, name, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            if not any(m in name for m in marks):
+                name = None
+            spills = (0, 0)
+        elif name and "spill stores" in line:
+            w = line.replace(",", "").split()
+            spills = (int(w[w.index("spill") - 2]),
+                      int(w[w.index("loads") - 3]))
+        elif name and "Used" in line and "registers" in line:
+            w = line.replace(",", "").split()
+            out[name] = (int(w[w.index("Used") + 1]), *spills)
+            name = None
+    return out
+
+
+def demangle(names):
+    """Demangled names by c++filt where it is installed, else the names."""
+    try:
+        r = subprocess.run(["c++filt"], input="\n".join(names),
+                           capture_output=True, text=True, check=True)
+        return dict(zip(names, r.stdout.splitlines()))
+    except (OSError, subprocess.CalledProcessError):
+        return {n: n for n in names}
+
+
+def tiled_kernels_report():
+    """Registers and spills of each instantiation of the block-tiled #1 and
+    #8 (ptxas -v), and for each launch plan of the paths the tile, the
+    dynamic shared memory per block and the blocks an SM holds at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    import ctypes
+
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch.kernels import build
+    from oceananigans_tpu_torch.kernels import fused_advection as fa
+    from oceananigans_tpu_torch.kernels import fused_shallow_water as fsw
+    entries = ptxas_entries(build.compile_log, ("advection_update_kernel",
+                                                "sw_update_kernel"))
+    names = demangle(list(entries))
+    print("block-tiled kernels, ptxas (registers, spill stores / loads in "
+          "bytes):")
+    for mangled, (regs, st, ld) in entries.items():
+        print(f"  {names[mangled][:110]}: {regs} registers, spills {st} / "
+              f"{ld} B")
+    lib = build.library()
+    codes = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+    print("block-tiled kernels, launch plans (dynamic shared memory per "
+          "block, blocks per SM):")
+    for label, N, dt, sdt, nc in (
+            ("#1 flagship 256^3 float32, 3 components", (256, 256, 256),
+             torch.float32, torch.float32, 3),
+            ("#1 256^3 float32, 15 components", (256, 256, 256),
+             torch.float32, torch.float32, 15),
+            ("#1 256^3 float32 bf16 smoothness, 15 components",
+             (256, 256, 256), torch.float32, torch.bfloat16, 15),
+            ("#1 32^3 float64, 15 components", (32, 32, 32), torch.float64,
+             torch.float64, 15)):
+        grid = ot.RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0),
+                                  halo=(4, 4, 0), dtype=dt, device="cuda")
+        plan = fa.launch_plan(grid, ot.WENO(5, smoothness_dtype=sdt), dt, nc)
+        for a, b, smem in plan["launches"]:
+            for corr in (0, 1):
+                per_sm = ctypes.c_int(0)
+                build.check(lib.oc_fused_advection_update_blocks_per_sm(
+                    0, codes[dt], codes[sdt], corr, int(b > 3),
+                    *plan["tile"], plan["threads"], smem,
+                    ctypes.byref(per_sm)), lib)
+                print(f"  {label} (components {a}-{b - 1}, "
+                      f"{'corrected' if corr else 'uncorrected'}): tile "
+                      f"{plan['tile']}, {plan['threads']} threads, "
+                      f"{plan['blocks']} blocks, {smem} B shared, "
+                      f"{per_sm.value} blocks per SM")
+    for label, n, dt, sdt in (
+            ("#8 16384^2 float32", 16384, torch.float32, torch.float32),
+            ("#8 256^2 float64", 256, torch.float64, torch.float64)):
+        grid = ot.RectilinearGrid(size=(n, n), extent=(1.0, 1.0),
+                                  halo=(4, 4, 0), topology=SW_TOPOLOGY,
+                                  dtype=dt, device="cuda")
+        plan = fsw.launch_plan(grid, ot.WENO(5), dt, 3)
+        per_sm = ctypes.c_int(0)
+        build.check(lib.oc_fused_sw_update_blocks_per_sm(
+            0, codes[dt], codes[sdt], *plan["tile"], plan["threads"],
+            plan["smem"], ctypes.byref(per_sm)), lib)
+        print(f"  {label}: tile {plan['tile']}, {plan['threads']} threads, "
+              f"{plan['blocks']} blocks, {plan['smem']} B shared, "
+              f"{per_sm.value} blocks per SM")
+
+
+def busy_share(label, model, dt, steps, step_ms, card):
+    """The device's busy share over ``steps`` steady steps of ``model``: the
+    union of the device activities' intervals on the card's timeline
+    (torch.profiler), per step, over the median step time measured without
+    the profiler (``step_ms``), and over the host-clock window of the
+    profiled steps (which the profiler's host work lengthens). Returns the
+    first share, or None (and says so) if the profiler shows no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            model.time_step(dt)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        print(f"{label}: torch.profiler shows no device time; the phase "
+              f"shares (CUDA events) stand for the busy share [{card}]")
+        return None
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    busy_ms = busy / 1e3 / steps
+    share = busy_ms / step_ms
+    print(f"{label}: device busy {busy_ms:.4f} ms per step over {steps} "
+          f"steps ({len(spans)} device activities, torch.profiler): "
+          f"{share:.4f} of the {step_ms:.3f} ms median step, "
+          f"{busy_ms * steps / wall_ms:.4f} of the profiled window "
+          f"({wall_ms / steps:.3f} ms per step under the profiler) [{card}]")
+    return share
 
 
 def cuda_ms(fn, reps=10, warmup=2):
@@ -287,7 +435,54 @@ def kernels_phase():
             out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
             print(f"  time {name} at {grid.padded_shape}: kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms")
+        # the uncorrected first-stage variant beside the corrected one
+        stage1 = (grid, scheme, u, v, w, None, gdt, zdt)
+        ms = cuda_ms(lambda: K.fused_advection_update(*stage1))
+        plain_ms = cuda_ms(lambda: K.fused_advection_update_plain(*stage1),
+                           reps=5)
+        print(f"  time fused_advection_update (uncorrected, first stage) at "
+              f"{grid.padded_shape}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms (corrected G⁻ variant "
+              f"{out['fused_advection_update']['ms']:.4f} ms)")
+    advection_tile_edge_checks()
     return out
+
+
+ADVECTION_TILE_EDGES = ((37, 29, 19), (12, 10, 5))
+SW_TILE_EDGES = (45, 61), (9, 130)
+
+
+def advection_tile_edge_checks():
+    """#1 against its plain version in float64 (WENO(5), float64
+    smoothness) on interiors its 8x8x8 float64 tiles do not divide, one
+    with an Nz so small that the WENO-5, WENO-3 and upwind cascade fills the
+    column; 3 and 40 components (the 40 in two launches); all four
+    variants. Bound 1e-12 relative to each tensor's own max|plain|."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+    scheme = ot.WENO(5, smoothness_dtype=torch.float64)
+    for N in ADVECTION_TILE_EDGES:
+        for ntr in (0, 37):
+            grid, (u, v, w), p, tracers, Gm = tracer_kernel_inputs(
+                N, torch.float64, ntr, seed=30)
+            worst = 0.0
+            for gm in (None, Gm):
+                for pp in (None, p):
+                    args = (grid, scheme, u, v, w, gm, 0.1, -0.05, pp,
+                            0.07 if pp is not None else None)
+                    Gk, nk = K.fused_advection_update(*args, tracers=tracers)
+                    Gp, np_ = K.fused_advection_update_plain(
+                        *args, tracers=tracers)
+                    err, rel = worst_rel(Gk + list(nk.values()),
+                                         Gp + list(np_.values()))
+                    assert rel <= 1e-12, ("fused_advection_update tile edges",
+                                          N, ntr, gm is not None,
+                                          pp is not None, rel)
+                    worst = max(worst, rel)
+            print(f"  fused_advection_update tile edges {N} float64, "
+                  f"{3 + ntr} components, four variants: worst rel "
+                  f"{worst:.3e}")
+    torch.cuda.synchronize()
 
 
 # -- bounds ---------------------------------------------------------------------
@@ -309,8 +504,10 @@ FP32_FLOP_PER_S = 67e12
 # fluxes plus 3 differences, 2 sums, a division and a sign: 3 x (11 + 108 +
 # 1) + 7 = 367. A tracer component-cell reads the face velocity (1 product
 # for A·u): 3 x (1 + 108 + 1) + 7 = 337. The near-wall cells with lower
-# orders (6 of 256 z levels) are counted at the full cost. The kernels
-# compute every face flux twice, once for each cell beside it.
+# orders (6 of 256 z levels) are counted at the full cost. The tendency
+# kernel (#6) computes every face flux twice, once for each cell beside it;
+# the block-tiled #1 and #8 compute each once, and the faces on a tile's
+# edge once more in the neighbouring block.
 WENO_MOMENTUM_FLOP = 3 * (11 + 108 + 1) + 7
 WENO_TRACER_FLOP = 3 * (1 + 108 + 1) + 7
 UPDATE_FLOP = 4          # γΔt·G + ζΔt·G⁻ added to q
@@ -669,6 +866,7 @@ def flagship_path_phase(card):
     solve_ms = cuda_ms(lambda: model.pressure_solver.solve(rhs))
     print(f"pressure solve (torch.fft + DCT matmul) at 256^3: "
           f"{solve_ms:.4f} ms [{card}]")
+    busy_share("flagship path", model, dt, 3, step_ms, card)
     return launches, step_ms
 
 
@@ -1067,7 +1265,58 @@ def sw_kernels_phase(n_main):
                                         plain_ms=plain_ms)
     print(f"  time periodic_halo_fill (3 fields) at {grid.padded_shape}: "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    del grid, fields, hB, Gm, a, b
+    torch.cuda.empty_cache()
+    sw_tile_edge_checks()
     return out
+
+
+def sw_tile_edge_checks():
+    """#8 against its plain version in float64 (WENO(5), float64
+    smoothness, bathymetry) on interiors its 16x32 float64 tiles do not
+    divide, with 0 and 33 tracers (the 36 fields in two launches), f = 0
+    and 0.3, the first-stage and G⁻ variants. Bound 1e-12 relative to each
+    tensor's own max|plain|."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+    from oceananigans_tpu_torch.kernels import periodic_halo_fill
+    scheme = ot.WENO(5, smoothness_dtype=torch.float64)
+    for n in SW_TILE_EDGES:
+        for ntr in (0, 33):
+            grid = ot.RectilinearGrid(size=n, extent=(1.0, 1.0),
+                                      halo=(4, 4, 0), topology=SW_TOPOLOGY,
+                                      dtype=torch.float64, device="cuda")
+            gen = torch.Generator(device="cuda").manual_seed(31)
+            shape = grid.padded_shape
+
+            def randn(shp, scale, offset=0.0):
+                return offset + scale * torch.randn(
+                    shp, generator=gen, dtype=torch.float64, device="cuda")
+
+            fields = dict(uh=randn(shape, 0.1), vh=randn(shape, 0.1),
+                          h=randn(shape, 0.05, 1.0))
+            fields.update({f"c{i}": randn(shape, 1.0) for i in range(ntr)})
+            hB = randn(shape, 0.05)
+            periodic_halo_fill(grid, list(fields.values()) + [hB])
+            Gm = randn((len(fields),) + grid.N, 1.0)
+            names = tuple(fields)
+            ints = grid.interior_slices
+            worst = 0.0
+            for f in (0.0, 0.3):
+                for gm in (None, Gm):
+                    args = (grid, scheme, 9.81, f, hB, names, fields, gm,
+                            2e-3, -1e-3)
+                    Gk, nk = K.fused_sw_update(*args)
+                    Gp, np_ = K.fused_sw_update_plain(*args)
+                    err, rel = worst_rel(
+                        list(Gk) + [nk[c][ints] for c in names],
+                        list(Gp) + [np_[c][ints] for c in names])
+                    assert rel <= 1e-12, ("fused_sw_update tile edges", n,
+                                          ntr, f, gm is not None, rel)
+                    worst = max(worst, rel)
+            print(f"  fused_sw_update tile edges {n} float64, {ntr} tracers,"
+                  f" f = 0 and 0.3, both variants: worst rel {worst:.3e}")
+    torch.cuda.synchronize()
 
 
 def sw_model(n, dtype, device, seed=0, scheme=None, coriolis=None,
@@ -2960,13 +3209,17 @@ def main():
     n_sw = 16384
     measured.update(sw_kernels_phase(n_sw))
     bounds.update(sw_bounds(n_sw, (4, 4, 0), 4))
-    sw_launches, _, sw_serial, sw_state0 = sw_path_phase(card, n_sw)
+    sw_launches, sw_step_ms, sw_serial, sw_state0 = sw_path_phase(card,
+                                                                   n_sw)
     torch.cuda.empty_cache()
     print("mesh pieces against plain versions (2x2 mesh of one card):")
     measured.update(mesh_kernels_phase(n_sw, 256))
     torch.cuda.empty_cache()
     sharded_sw_launches, measured["build_sharded_fused_sw_update"] = \
         sharded_sw_path_phase(card, n_sw, sw_serial, sw_state0)
+    # the serial model's steady steps, after the sharded path compared
+    # with it
+    busy_share("shallow-water path", sw_serial, 1e-5, 3, sw_step_ms, card)
     del sw_serial, sw_state0
     torch.cuda.empty_cache()
     sharded_conv_launches, measured["build_sharded_fused_advection"] = \

@@ -2,7 +2,8 @@
 // (advection_tendency.cu, fused_advection.cu): G = -∇·(𝐯q) at one cell for
 // u at (f, c, c), v at (c, f, c), w at (c, c, f) and a tracer at (c, c, c),
 // written once against a read policy that says where the stencil's values
-// come from.
+// come from; and the same stencils one face flux at a time (face_flux_x/y/z,
+// the block-tiled fused_advection.cu).
 //
 // The stencils are those of oceananigans_tpu/advection/fluxes.py div_Uu /
 // div_Uv / div_Uw / div_Uc: advecting velocities by the scheme's symmetric
@@ -32,6 +33,11 @@
 //   one FMA: the bfloat16-smoothness instantiation takes it, since a
 //   corrected velocity one ulp away can move a bfloat16 rounding of the
 //   smoothness downstream.
+// - SharedRead: a block's tile in shared memory (fused_advection.cu). Its
+//   boxes hold u, v, w and the advected tracer over the tile plus the
+//   stencil's reach, staged through CompactRead (corrected, z mirrors), so
+//   a read, at padded (i, j) and z index k, is one shared-memory load of
+//   the value CompactRead's u_z, v_z, w_z or c_z gives there.
 #pragma once
 
 #include <type_traits>
@@ -119,6 +125,31 @@ struct CompactRead {
   __device__ __forceinline__ T c_z(const T* a, int i, int j, int k) const {
     return c(a, i, j, even(k));
   }
+};
+
+template <typename T>
+struct SharedRead {
+  static constexpr bool kWalls = true;
+  const T* vel[3];   // the staged u, v, w boxes
+  int ox, oy, oz;    // padded x, padded y and z index of a box's first cell
+  int sx, sy;        // box strides along x and y; z is contiguous
+  int cz, csx, csy;  // a tracer box's: first z index and strides
+
+  __device__ __forceinline__ int at(int i, int j, int k) const {
+    return (i - ox) * sx + (j - oy) * sy + (k - oz);
+  }
+  __device__ __forceinline__ int at_c(int i, int j, int k) const {
+    return (i - ox) * csx + (j - oy) * csy + (k - cz);
+  }
+  __device__ __forceinline__ T u(int i, int j, int k) const { return vel[0][at(i, j, k)]; }
+  __device__ __forceinline__ T v(int i, int j, int k) const { return vel[1][at(i, j, k)]; }
+  __device__ __forceinline__ T w(int i, int j, int k) const { return vel[2][at(i, j, k)]; }
+  __device__ __forceinline__ T u_z(int i, int j, int k) const { return u(i, j, k); }
+  __device__ __forceinline__ T v_z(int i, int j, int k) const { return v(i, j, k); }
+  __device__ __forceinline__ T w_z(int i, int j, int k) const { return w(i, j, k); }
+  // a: the staged box of the advected tracer
+  __device__ __forceinline__ T c(const T* a, int i, int j, int k) const { return a[at_c(i, j, k)]; }
+  __device__ __forceinline__ T c_z(const T* a, int i, int j, int k) const { return c(a, i, j, k); }
 };
 
 // A read policy with the scalars every stencil takes.
@@ -301,6 +332,79 @@ __device__ __forceinline__ T tendency(const Stencil<T, S, R>& P, int comp, const
   if (comp == 1) return tendency_v<SCH>(P, i, j, k);
   if (comp == 2) return tendency_w<SCH>(P, i, j, k);
   return tendency_c<SCH>(P, a, i, j, k);
+}
+
+// ---- face fluxes, each once ---------------------------------------------------------
+//
+// The flux of -∇·(𝐯q) through one face, the expression tendency_u, _v, _w
+// and _c form for it (their F[m]), for component `comp` (0 u, 1 v, 2 w, 3
+// and up the tracer whose values `a` points to, read as r.c(a, ...)). P
+// gives the metrics, the tables and Nz; Q the reads. Positions are padded x,
+// padded y and the z index of the face or centre the flux goes through:
+//   x: u at the centre i, v at the (f, f, c) face i, w at the (f, c, f) face
+//      i, a tracer at the face i;
+//   y: u at the (f, f, c) face j, v at the centre j, w at the (c, f, f)
+//      face j, a tracer at the face j;
+//   z: u at the (f, c, f) face k, v at the (c, f, f) face k, w at the
+//      centre k, a tracer at the face k; zero through the top wall (k = Nz)
+//      and, for w, below the bottom face (k < 0).
+template <int SCH, typename T, typename S, typename R, typename Q>
+__device__ __forceinline__ T face_flux_x(const Stencil<T, S, R>& P, const Q& r, int comp,
+                                         const T* a, int i, int j, int k) {
+  if (comp == 0) {
+    const T ut = symmetric<SCH>(P.tt, 1, [&](int o) { return P.Ax * r.u(i + o, j, k); });
+    return ut * upwind<SCH>(P.tt, P.ts, 1, ut, [&](int o) { return r.u(i + o, j, k); });
+  }
+  if (comp == 1) {
+    const T ut = symmetric<SCH>(P.tt, 0, [&](int o) { return P.Ax * r.u(i, j + o, k); });
+    return ut * upwind<SCH>(P.tt, P.ts, 0, ut, [&](int o) { return r.v(i + o, j, k); });
+  }
+  if (comp == 2) {
+    const T ut = interp_z<SCH>(P, k, 0, [&](int kz) { return P.Ax * r.u_z(i, j, kz); });
+    return ut * upwind<SCH>(P.tt, P.ts, 0, ut, [&](int o) { return r.w(i + o, j, k); });
+  }
+  const T vel = r.u(i, j, k);
+  return (P.Ax * vel) * upwind<SCH>(P.tt, P.ts, 0, vel, [&](int o) { return r.c(a, i + o, j, k); });
+}
+
+template <int SCH, typename T, typename S, typename R, typename Q>
+__device__ __forceinline__ T face_flux_y(const Stencil<T, S, R>& P, const Q& r, int comp,
+                                         const T* a, int i, int j, int k) {
+  if (comp == 0) {
+    const T vt = symmetric<SCH>(P.tt, 0, [&](int o) { return P.Ay * r.v(i + o, j, k); });
+    return vt * upwind<SCH>(P.tt, P.ts, 0, vt, [&](int o) { return r.u(i, j + o, k); });
+  }
+  if (comp == 1) {
+    const T vt = symmetric<SCH>(P.tt, 1, [&](int o) { return P.Ay * r.v(i, j + o, k); });
+    return vt * upwind<SCH>(P.tt, P.ts, 1, vt, [&](int o) { return r.v(i, j + o, k); });
+  }
+  if (comp == 2) {
+    const T vt = interp_z<SCH>(P, k, 0, [&](int kz) { return P.Ay * r.v_z(i, j, kz); });
+    return vt * upwind<SCH>(P.tt, P.ts, 0, vt, [&](int o) { return r.w(i, j + o, k); });
+  }
+  const T vel = r.v(i, j, k);
+  return (P.Ay * vel) * upwind<SCH>(P.tt, P.ts, 0, vel, [&](int o) { return r.c(a, i, j + o, k); });
+}
+
+template <int SCH, typename T, typename S, typename R, typename Q>
+__device__ __forceinline__ T face_flux_z(const Stencil<T, S, R>& P, const Q& r, int comp,
+                                         const T* a, int i, int j, int k) {
+  if (comp == 2) {
+    if (Q::kWalls && k < 0) return T(0);
+    const T wt = interp_z<SCH>(P, k, 1, [&](int kz) { return P.Az * r.w_z(i, j, kz); });
+    return wt * recon_z<SCH>(P, k, 1, wt, [&](int kz) { return r.w_z(i, j, kz); });
+  }
+  if (Q::kWalls && k == P.rd.g.Nz) return T(0);
+  if (comp == 0) {
+    const T wt = symmetric<SCH>(P.tt, 0, [&](int o) { return P.Az * r.w(i + o, j, k); });
+    return wt * recon_z<SCH>(P, k, 0, wt, [&](int kz) { return r.u_z(i, j, kz); });
+  }
+  if (comp == 1) {
+    const T wt = symmetric<SCH>(P.tt, 0, [&](int o) { return P.Az * r.w(i, j + o, k); });
+    return wt * recon_z<SCH>(P, k, 0, wt, [&](int kz) { return r.v_z(i, j, kz); });
+  }
+  const T vel = r.w(i, j, k);
+  return (P.Az * vel) * recon_z<SCH>(P, k, 0, vel, [&](int kz) { return r.c_z(a, i, j, kz); });
 }
 
 // Components one launch takes (kernels/build.py BATCH): the

@@ -1,8 +1,8 @@
 // Conservative shallow-water tendency and RK3 stage update, 2D (z flat).
 //
 // Replaces oceananigans_tpu/kernels/fused_shallow_water.py
-// build_fused_sw_update (the pallas_call at :169). For the prognostic fields
-// uh, vh, h and each tracer c (padded (Nx+2Hx, Ny+2Hy, 1) arrays whose
+// build_fused_sw_update (:43; the pallas_call at :169). For the prognostic
+// fields uh, vh, h and each tracer c (padded (Nx+2Hx, Ny+2Hy, 1) arrays whose
 // periodic halos were filled beforehand) it computes, at every interior
 // cell, what oceananigans_tpu/models/shallow_water.py conservative_tendencies
 // computes:
@@ -17,31 +17,55 @@
 // kernels: advecting transports by the scheme's symmetric interpolation of
 // uh or vh (Centered(4) for WENO(5)), advected velocities u = uh/ℑx(h) and
 // v = vh/ℑy(h) by the upwind reconstruction selected by the transport's
-// sign. The advected velocity is a derived field: every selected cell of u
-// is formed from uh and two values of h before the reconstruction sees it,
-// which is why the model's halo is the scheme's reach plus one. Tracers take
-// the face transport itself as the advecting velocity. f is the constant
-// Coriolis parameter (FPlane, or ConstantCartesianCoriolis's fz); 0 skips the
-// term. Schemes: WENO(5) and Centered(2), a compile-time choice fed by the
-// coefficient table of kernels/fused_advection.py coefficient_table.
+// sign. Tracers take the face transport itself as the advecting velocity. f
+// is the constant Coriolis parameter (FPlane, or ConstantCartesianCoriolis's
+// fz); 0 skips the term. Schemes: WENO(5) and Centered(2), a compile-time
+// choice fed by the coefficient table of kernels/fused_advection.py
+// coefficient_table.
 //
 // Bound: the compulsory traffic, 40-52 B per interior cell and stage in
-// float32 for uh, vh and h, binds it; the function needs about 550
-// floating-point operations per cell (each face flux and each derived
-// velocity once), about half as long at the float32 rate. Design: the
-// simplest correct form, as advection_tendency.cu: one thread per
-// (component, interior cell), y fastest across threads (y is contiguous),
-// the component uniform per block (blockIdx.y); each thread recomputes the
-// two face fluxes it needs per axis and every velocity they select (about
-// 1,100 operations per cell), and the stencil reads go through L1/L2.
-// `new` goes to separate padded buffers (neighbours still read q); its halo
-// slots are left for the next stage's wrap. Offsets are 64-bit. Divisions
-// are exact. A launch takes at most kBatch fields (their pointers ride in
-// the parameter block); kernels/fused_shallow_water.py launches once per
-// batch, and every field's result depends only on its own values and uh, vh,
-// h, so the batching does not change a bit of it.
+// float32 for uh, vh and h (4.17 ms at 16392² and 3.35 TB/s); the function
+// needs about 550 floating-point operations per cell, and at the card's own
+// rate for the WENO-5 body with exact divisions (22.7 Tflop/s, the #12
+// probe on a slab that fills every SM) those take about 6.7 ms at 16384²,
+// so in practice the arithmetic binds. No tensor cores: the WENO weights
+// are nonlinear in the data, and nothing here is a product wgmma could take.
+//
+// Design: one block owns a TX × TY tile of interior cells (y fastest across
+// threads, y is contiguous) and works through it in phases separated by
+// __syncthreads() (tiles.cuh):
+//   staging  uh, vh, h and hB over the tile plus a ring of R = reach + 1
+//            cells (4 for WENO(5)), 16-byte loads where the window is
+//            aligned; plain loads through registers, no cp.async or TMA:
+//            the staging is a small share of a kernel that the arithmetic
+//            binds, and plain copies keep every phase a loop that a block
+//            of any thread count runs the same way;
+//   A        u = uh/ℑx(h), v = vh/ℑy(h) once on every cell a flux of the
+//            tile selects (the tile plus the reach), and ½gh² once;
+//   B        each face flux once: uh's x-fluxes at TX + 1 centres and its
+//            y-fluxes at TY + 1 (f, f) faces, vh's the same way;
+//   C        per cell: the flux differences, the gravity head, the
+//            bathymetry and Coriolis terms, G and the stage update;
+//   tracers  each tracer of the launch in turn: stage it, its face fluxes
+//            with the face transports as velocity, its update; uh and vh
+//            stay resident.
+// Every face flux goes through one code path wherever it lies in the tile,
+// so a tile edge contracts no FMA differently from the tile's inside, and
+// the stage on a mesh's blocks equals the serial stage bit for bit. The
+// expressions are those of the plain version; divisions are exact. The tile,
+// the block count and the dynamic shared memory come from
+// kernels/fused_shallow_water.py launch_plan; the C entry recomputes and
+// checks them. At float32 a 32 × 32 tile with 256 threads takes 64.8 KB of
+// shared memory (three blocks an SM); float64 takes a 16 × 32 tile (73.4
+// KB). Registers and spills: `-Xptxas -v` (chip_smoke.py prints them).
+// `new` goes to separate padded buffers; its halo slots are left for the
+// next stage's wrap. A launch takes at most kBatch fields (their pointers
+// ride in the parameter block); kernels/fused_shallow_water.py launches once
+// per batch, and every field's result depends only on its own values and
+// uh, vh, h, so the batching does not change a bit of it.
 #include "common.cuh"
 #include "reconstruction.cuh"
+#include "tiles.cuh"
 
 namespace {
 
@@ -51,14 +75,57 @@ using oc::kWeno5;
 using oc::make_tab;
 using oc::Tab;
 
-constexpr int kBatch = 32;   // fields per launch (kernels/build.py BATCH)
+constexpr int kBatch = 32;     // fields per launch (kernels/build.py BATCH)
+constexpr int kThreads = 256;  // the most threads a block takes
+
+// the stencil's reach: cells a face flux reads on either side
+template <int SCH>
+constexpr int kReach = SCH == kWeno5 ? 3 : 1;
+
+// Element offsets of a block's shared arrays for a TX × TY tile and a
+// stencil reach r (ring R = r + 1); kernels/fused_shallow_water.py
+// smem_bytes computes the same total.
+struct Layout {
+  int W, Wd, Wh;        // strides: staged TY + 2R, derived TY + 2r, head and y-fluxes TY + 1
+  int uh, vh, h, hB, c; // staged (TX + 2R) × W
+  int u, v;             // derived (TX + 2r) × Wd
+  int hd;               // ½gh², (TX + 1) × Wh from (-1, -1)
+  int fx0, fx1;         // x-fluxes (TX + 1) × TY
+  int fy0, fy1;         // y-fluxes TX × Wh
+  int total;
+
+  __host__ __device__ Layout(int TX, int TY, int r) {
+    const int R = r + 1;
+    W = TY + 2 * R;
+    Wd = TY + 2 * r;
+    Wh = TY + 1;
+    const int staged = oc::align_elems((TX + 2 * R) * W);
+    const int derived = oc::align_elems((TX + 2 * r) * Wd);
+    const int fx = oc::align_elems((TX + 1) * TY);
+    const int fy = oc::align_elems(TX * Wh);
+    int o = 0;
+    uh = o; o += staged;
+    vh = o; o += staged;
+    h = o; o += staged;
+    hB = o; o += staged;
+    c = o; o += staged;
+    u = o; o += derived;
+    v = o; o += derived;
+    hd = o; o += oc::align_elems((TX + 1) * Wh);
+    fx0 = o; o += fx;
+    fx1 = o; o += fx;
+    fy0 = o; o += fy;
+    fy1 = o; o += fy;
+    total = o;
+  }
+};
 
 template <typename T, typename S>
 struct Params {
   const T* prog[3];         // uh, vh, h: padded, halos filled
   const T* q[kBatch];       // the batch's fields (of uh, vh, h, tracers)
   T* out[kBatch];           // the batch's new fields: padded, interiors written
-  int first;                // field index of q[0]
+  int nb, first;            // fields first .. first + nb - 1
   const T* hB;              // bathymetry, padded, halos filled
   const T* Gm;              // (nf, Nx, Ny) previous-stage tendencies or null
   T* G;                     // (nf, Nx, Ny) out, all fields
@@ -68,158 +135,165 @@ struct Params {
   T gamma_dt, zeta_dt;
   Tab<T> tt;                // stencil coefficients in the field type
   Tab<S> ts;                // smoothness factors, weights, ε, saturation
+  int TX, TY, tiles_y;      // the tile and the number of tiles along y
 };
 
-template <typename T, typename S>
-__device__ __forceinline__ T rd(const Params<T, S>& P, const T* a, int i, int j) {
-  return a[P.g.at(i, j, 0)];
-}
-
-// u = uh / ℑx(h) at (f, c) and v = vh / ℑy(h) at (c, f).
-template <typename T, typename S>
-__device__ __forceinline__ T vel_u(const Params<T, S>& P, int i, int j) {
-  const T* h = P.prog[2];
-  return rd(P, P.prog[0], i, j) / (T(0.5) * (rd(P, h, i, j) + rd(P, h, i - 1, j)));
-}
-
-template <typename T, typename S>
-__device__ __forceinline__ T vel_v(const Params<T, S>& P, int i, int j) {
-  const T* h = P.prog[2];
-  return rd(P, P.prog[1], i, j) / (T(0.5) * (rd(P, h, i, j) + rd(P, h, i, j - 1)));
-}
-
-// g h²/2 at (c, c).
-template <typename T, typename S>
-__device__ __forceinline__ T head(const Params<T, S>& P, int i, int j) {
-  const T h = rd(P, P.prog[2], i, j);
-  return (P.half_g * h) * h;
-}
-
-// G_uh at padded (i, j).
 template <int SCH, typename T, typename S>
-__device__ T tendency_uh(const Params<T, S>& P, int i, int j) {
-  const T *uh = P.prog[0], *vh = P.prog[1], *h = P.prog[2];
-  T F[2];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {          // x: centers i-1, i
-    const int c = i - 1 + m;
-    const T ut = oc::symmetric<SCH>(P.tt, 1, [&](int o) { return rd(P, uh, c + o, j); });
-    F[m] = (P.dy * ut)
-         * oc::upwind<SCH>(P.tt, P.ts, 1, ut, [&](int o) { return vel_u(P, c + o, j); });
-  }
-  const T fx = F[1] - F[0];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {          // y: (f, f) faces j, j+1
-    const int jj = j + m;
-    const T vt = oc::symmetric<SCH>(P.tt, 0, [&](int o) { return rd(P, vh, i + o, jj); });
-    F[m] = (P.dx * vt)
-         * oc::upwind<SCH>(P.tt, P.ts, 0, vt, [&](int o) { return vel_u(P, i, jj + o); });
-  }
-  const T fy = F[1] - F[0];
-  const T div = (fx + fy) / P.Az;
-  const T hx = T(0.5) * (rd(P, h, i, j) + rd(P, h, i - 1, j));
-  const T dhB = (rd(P, P.hB, i, j) - rd(P, P.hB, i - 1, j)) / P.dx;
-  T G = (-div - (head(P, i, j) - head(P, i - 1, j)) / P.dx) - (P.g_acc * hx) * dhB;
-  if (P.f != T(0)) {
-    const T vc0 = T(0.5) * (rd(P, vh, i, j + 1) + rd(P, vh, i, j));
-    const T vc1 = T(0.5) * (rd(P, vh, i - 1, j + 1) + rd(P, vh, i - 1, j));
-    G = G + P.f * (T(0.5) * (vc0 + vc1));
-  }
-  return G;
-}
-
-// G_vh at padded (i, j).
-template <int SCH, typename T, typename S>
-__device__ T tendency_vh(const Params<T, S>& P, int i, int j) {
-  const T *uh = P.prog[0], *vh = P.prog[1], *h = P.prog[2];
-  T F[2];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {          // x: (f, f) faces i, i+1
-    const int ii = i + m;
-    const T ut = oc::symmetric<SCH>(P.tt, 0, [&](int o) { return rd(P, uh, ii, j + o); });
-    F[m] = (P.dy * ut)
-         * oc::upwind<SCH>(P.tt, P.ts, 0, ut, [&](int o) { return vel_v(P, ii + o, j); });
-  }
-  const T fx = F[1] - F[0];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {          // y: centers j-1, j
-    const int c = j - 1 + m;
-    const T vt = oc::symmetric<SCH>(P.tt, 1, [&](int o) { return rd(P, vh, i, c + o); });
-    F[m] = (P.dx * vt)
-         * oc::upwind<SCH>(P.tt, P.ts, 1, vt, [&](int o) { return vel_v(P, i, c + o); });
-  }
-  const T fy = F[1] - F[0];
-  const T div = (fx + fy) / P.Az;
-  const T hy = T(0.5) * (rd(P, h, i, j) + rd(P, h, i, j - 1));
-  const T dhB = (rd(P, P.hB, i, j) - rd(P, P.hB, i, j - 1)) / P.dy;
-  T G = (-div - (head(P, i, j) - head(P, i, j - 1)) / P.dy) - (P.g_acc * hy) * dhB;
-  if (P.f != T(0)) {
-    const T uc0 = T(0.5) * (rd(P, uh, i + 1, j) + rd(P, uh, i, j));
-    const T uc1 = T(0.5) * (rd(P, uh, i + 1, j - 1) + rd(P, uh, i, j - 1));
-    G = G - P.f * (T(0.5) * (uc0 + uc1));
-  }
-  return G;
-}
-
-// G_h at padded (i, j).
-template <typename T, typename S>
-__device__ T tendency_h(const Params<T, S>& P, int i, int j) {
-  const T *uh = P.prog[0], *vh = P.prog[1];
-  const T dU = P.Ax * rd(P, uh, i + 1, j) - P.Ax * rd(P, uh, i, j);
-  const T dV = P.Ay * rd(P, vh, i, j + 1) - P.Ay * rd(P, vh, i, j);
-  return ((-((dU + dV) / P.V)) * P.V) / P.Az;
-}
-
-// G_c at padded (i, j): advective form, -∇·(𝐔c) + c ∇·𝐔.
-template <int SCH, typename T, typename S>
-__device__ T tendency_c(const Params<T, S>& P, const T* c, int i, int j) {
-  const T *uh = P.prog[0], *vh = P.prog[1];
-  const T dU = P.dy * rd(P, uh, i + 1, j) - P.dy * rd(P, uh, i, j);
-  const T dV = P.dx * rd(P, vh, i, j + 1) - P.dx * rd(P, vh, i, j);
-  const T divU = (dU + dV) / P.Az;
-  T F[2];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {          // x: faces i, i+1
-    const int ii = i + m;
-    const T vel = rd(P, uh, ii, j);
-    F[m] = (P.dy * vel)
-         * oc::upwind<SCH>(P.tt, P.ts, 0, vel, [&](int o) { return rd(P, c, ii + o, j); });
-  }
-  const T fx = F[1] - F[0];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {          // y: faces j, j+1
-    const int jj = j + m;
-    const T vel = rd(P, vh, i, jj);
-    F[m] = (P.dx * vel)
-         * oc::upwind<SCH>(P.tt, P.ts, 0, vel, [&](int o) { return rd(P, c, i, jj + o); });
-  }
-  const T fy = F[1] - F[0];
-  return -((fx + fy) / P.Az) + rd(P, c, i, j) * divU;
-}
-
-template <int SCH, typename T, typename S>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kThreads)
 sw_update_kernel(const __grid_constant__ Params<T, S> P) {
-  const long long cells = P.g.interior_cells();
-  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= cells) return;
-  const int I = (int)(n / P.g.Ny), J = (int)(n % P.g.Ny);
-  const int i = I + P.g.Hx, j = J + P.g.Hy;
-  const int b = blockIdx.y, comp = P.first + b;
-  T G;
-  if (comp == 0)
-    G = tendency_uh<SCH>(P, i, j);
-  else if (comp == 1)
-    G = tendency_vh<SCH>(P, i, j);
-  else if (comp == 2)
-    G = tendency_h(P, i, j);
-  else
-    G = tendency_c<SCH>(P, P.q[b], i, j);
-  const long long at = comp * cells + n;
-  P.G[at] = G;
-  T inc = P.gamma_dt * G;
-  if (P.Gm != nullptr) inc = inc + P.zeta_dt * P.Gm[at];
-  P.out[b][P.g.at(i, j, 0)] = rd(P, P.q[b], i, j) + inc;
+  constexpr int r = kReach<SCH>, R = r + 1;
+  extern __shared__ __align__(16) unsigned char oc_smem[];
+  T* const sm = reinterpret_cast<T*>(oc_smem);
+  const Layout L(P.TX, P.TY, r);
+  const oc::Geom& g = P.g;
+  const int bx = blockIdx.x / P.tiles_y, by = blockIdx.x - bx * P.tiles_y;
+  const int x0 = bx * P.TX, y0 = by * P.TY;   // the tile's first interior cell
+  const int ex = oc::imin(P.TX, g.Nx - x0), ey = oc::imin(P.TY, g.Ny - y0);
+  const int TY = P.TY, W = L.W, Wd = L.Wd, Wh = L.Wh;
+  const int PY = g.PY();
+  const int last = P.first + P.nb;
+
+  // reads at tile-relative (a, b): staged a, b in [-R, e + R), derived in
+  // [-r, e + r), ½gh² in [-1, e)
+  const T *s_uh = sm + L.uh, *s_vh = sm + L.vh, *s_h = sm + L.h, *s_hB = sm + L.hB;
+  const T *s_c = sm + L.c, *s_u = sm + L.u, *s_v = sm + L.v, *s_hd = sm + L.hd;
+  T *fx0 = sm + L.fx0, *fx1 = sm + L.fx1, *fy0 = sm + L.fy0, *fy1 = sm + L.fy1;
+  auto st = [&](const T* s, int a, int b) { return s[(a + R) * W + (b + R)]; };
+  auto UH = [&](int a, int b) { return st(s_uh, a, b); };
+  auto VH = [&](int a, int b) { return st(s_vh, a, b); };
+  auto H = [&](int a, int b) { return st(s_h, a, b); };
+  auto HB = [&](int a, int b) { return st(s_hB, a, b); };
+  auto C = [&](int a, int b) { return st(s_c, a, b); };
+  auto U = [&](int a, int b) { return s_u[(a + r) * Wd + (b + r)]; };
+  auto Vv = [&](int a, int b) { return s_v[(a + r) * Wd + (b + r)]; };
+  auto HD = [&](int a, int b) { return s_hd[(a + 1) * Wh + (b + 1)]; };
+
+  // staging: the tile and its ring
+  const long long org = (long long)(x0 + g.Hx - R) * PY + (y0 + g.Hy - R);
+  const int rows = ex + 2 * R, width = ey + 2 * R;
+  oc::stage_rows(sm + L.uh, W, P.prog[0] + org, PY, rows, width);
+  oc::stage_rows(sm + L.vh, W, P.prog[1] + org, PY, rows, width);
+  oc::stage_rows(sm + L.h, W, P.prog[2] + org, PY, rows, width);
+  oc::stage_rows(sm + L.hB, W, P.hB + org, PY, rows, width);
+  __syncthreads();
+
+  const int nxf = (ex + 1) * ey, nyf = ex * (ey + 1);
+  if (P.first <= 1) {   // uh or vh in this launch
+    // A: the derived velocities and ½gh², once each
+    const int dw = ey + 2 * r;
+    oc::for_rect((ex + 2 * r) * dw, dw, [&](int a, int b) {
+      a -= r;
+      b -= r;
+      sm[L.u + (a + r) * Wd + (b + r)] = UH(a, b) / (T(0.5) * (H(a, b) + H(a - 1, b)));
+      sm[L.v + (a + r) * Wd + (b + r)] = VH(a, b) / (T(0.5) * (H(a, b) + H(a, b - 1)));
+    });
+    oc::for_rect((ex + 1) * (ey + 1), ey + 1, [&](int a, int b) {
+      const T h = H(a - 1, b - 1);
+      sm[L.hd + a * Wh + b] = (P.half_g * h) * h;
+    });
+    __syncthreads();
+    // B: each face flux of uh and vh once
+    oc::for_rect(nxf, ey, [&](int a, int b) {
+      const int c = a - 1;                         // uh: the centre c
+      T t = oc::symmetric<SCH>(P.tt, 1, [&](int o) { return UH(c + o, b); });
+      fx0[a * TY + b] =
+          (P.dy * t) * oc::upwind<SCH>(P.tt, P.ts, 1, t, [&](int o) { return U(c + o, b); });
+      t = oc::symmetric<SCH>(P.tt, 0, [&](int o) { return UH(a, b + o); });   // vh: face a
+      fx1[a * TY + b] =
+          (P.dy * t) * oc::upwind<SCH>(P.tt, P.ts, 0, t, [&](int o) { return Vv(a + o, b); });
+    });
+    oc::for_rect(nyf, ey + 1, [&](int a, int b) {
+      T t = oc::symmetric<SCH>(P.tt, 0, [&](int o) { return VH(a + o, b); });  // uh: face b
+      fy0[a * Wh + b] =
+          (P.dx * t) * oc::upwind<SCH>(P.tt, P.ts, 0, t, [&](int o) { return U(a, b + o); });
+      const int c = b - 1;                         // vh: the centre c
+      t = oc::symmetric<SCH>(P.tt, 1, [&](int o) { return VH(a, c + o); });
+      fy1[a * Wh + b] =
+          (P.dx * t) * oc::upwind<SCH>(P.tt, P.ts, 1, t, [&](int o) { return Vv(a, c + o); });
+    });
+    __syncthreads();
+  }
+
+  const long long cells = g.interior_cells();
+  auto store = [&](int comp, long long at, long long pad, T q, T G) {
+    P.G[comp * cells + at] = G;
+    T inc = P.gamma_dt * G;
+    if (P.Gm != nullptr) inc = inc + P.zeta_dt * P.Gm[comp * cells + at];
+    P.out[comp - P.first][pad] = q + inc;
+  };
+
+  // C: uh, vh and h
+  const int stop = oc::imin(last, 3);
+  if (P.first < stop) {
+    oc::for_rect(ex * ey, ey, [&](int a, int b) {
+      const long long at = (long long)(x0 + a) * g.Ny + (y0 + b);
+      const long long pad = g.at(x0 + a + g.Hx, y0 + b + g.Hy, 0);
+      for (int comp = P.first; comp < stop; ++comp) {
+        T G, q;
+        if (comp == 0) {
+          const T fx = fx0[(a + 1) * TY + b] - fx0[a * TY + b];
+          const T fy = fy0[a * Wh + b + 1] - fy0[a * Wh + b];
+          const T div = (fx + fy) / P.Az;
+          const T hx = T(0.5) * (H(a, b) + H(a - 1, b));
+          const T dhB = (HB(a, b) - HB(a - 1, b)) / P.dx;
+          G = (-div - (HD(a, b) - HD(a - 1, b)) / P.dx) - (P.g_acc * hx) * dhB;
+          if (P.f != T(0)) {
+            const T vc0 = T(0.5) * (VH(a, b + 1) + VH(a, b));
+            const T vc1 = T(0.5) * (VH(a - 1, b + 1) + VH(a - 1, b));
+            G = G + P.f * (T(0.5) * (vc0 + vc1));
+          }
+          q = UH(a, b);
+        } else if (comp == 1) {
+          const T fx = fx1[(a + 1) * TY + b] - fx1[a * TY + b];
+          const T fy = fy1[a * Wh + b + 1] - fy1[a * Wh + b];
+          const T div = (fx + fy) / P.Az;
+          const T hy = T(0.5) * (H(a, b) + H(a, b - 1));
+          const T dhB = (HB(a, b) - HB(a, b - 1)) / P.dy;
+          G = (-div - (HD(a, b) - HD(a, b - 1)) / P.dy) - (P.g_acc * hy) * dhB;
+          if (P.f != T(0)) {
+            const T uc0 = T(0.5) * (UH(a + 1, b) + UH(a, b));
+            const T uc1 = T(0.5) * (UH(a + 1, b - 1) + UH(a, b - 1));
+            G = G - P.f * (T(0.5) * (uc0 + uc1));
+          }
+          q = VH(a, b);
+        } else {
+          const T dU = P.Ax * UH(a + 1, b) - P.Ax * UH(a, b);
+          const T dV = P.Ay * VH(a, b + 1) - P.Ay * VH(a, b);
+          G = ((-((dU + dV) / P.V)) * P.V) / P.Az;
+          q = H(a, b);
+        }
+        store(comp, at, pad, q, G);
+      }
+    });
+  }
+
+  // tracers: stage, face fluxes, update, one tracer at a time
+  for (int comp = P.first > 3 ? P.first : 3; comp < last; ++comp) {
+    __syncthreads();   // the previous phase has read s_c and the flux arrays
+    oc::stage_rows(sm + L.c, W, P.q[comp - P.first] + org, PY, rows, width);
+    __syncthreads();
+    oc::for_rect(nxf, ey, [&](int a, int b) {
+      const T vel = UH(a, b);
+      fx0[a * TY + b] =
+          (P.dy * vel) * oc::upwind<SCH>(P.tt, P.ts, 0, vel, [&](int o) { return C(a + o, b); });
+    });
+    oc::for_rect(nyf, ey + 1, [&](int a, int b) {
+      const T vel = VH(a, b);
+      fy0[a * Wh + b] =
+          (P.dx * vel) * oc::upwind<SCH>(P.tt, P.ts, 0, vel, [&](int o) { return C(a, b + o); });
+    });
+    __syncthreads();
+    oc::for_rect(ex * ey, ey, [&](int a, int b) {
+      const T dU = P.dy * UH(a + 1, b) - P.dy * UH(a, b);
+      const T dV = P.dx * VH(a, b + 1) - P.dx * VH(a, b);
+      const T divU = (dU + dV) / P.Az;
+      const T fx = fx0[(a + 1) * TY + b] - fx0[a * TY + b];
+      const T fy = fy0[a * Wh + b + 1] - fy0[a * Wh + b];
+      const T G = -((fx + fy) / P.Az) + C(a, b) * divU;
+      store(comp, (long long)(x0 + a) * g.Ny + (y0 + b),
+            g.at(x0 + a + g.Hx, y0 + b + g.Hy, 0), C(a, b), G);
+    });
+  }
 }
 
 struct Args {
@@ -233,17 +307,32 @@ struct Args {
   oc::Geom g;
   double dx, dy, Ax, Ay, Az, V, g_acc, f, gamma_dt, zeta_dt;
   const double* coefs;
+  int TX, TY, threads, blocks, smem;   // the launch plan
   cudaStream_t stream;
+  int* per_sm;   // non-null: report the blocks an SM holds instead of launching
 };
 
 template <int SCH, typename T, typename S>
 int launch(const Args& a) {
+  constexpr int R = kReach<SCH> + 1;
+  const long long want = (long long)Layout(a.TX, a.TY, kReach<SCH>).total * sizeof(T);
+  const int tiles_y = oc::ceil_div(a.g.Ny, a.TY);
+  if (a.smem != want || a.smem > oc::kMaxSmemBytes || a.g.Hx < R || a.g.Hy < R ||
+      a.blocks != oc::ceil_div(a.g.Nx, a.TX) * tiles_y)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      sw_update_kernel<SCH, T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+  if (e != cudaSuccess) return (int)e;
+  if (a.per_sm != nullptr)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        a.per_sm, sw_update_kernel<SCH, T, S>, a.threads, a.smem);
   Params<T, S> P;
   for (int d = 0; d < 3; ++d) P.prog[d] = (const T*)a.prog[d];
   for (int c = 0; c < kBatch; ++c) {
     P.q[c] = c < a.nb ? (const T*)a.q[c] : nullptr;
     P.out[c] = c < a.nb ? (T*)a.out[c] : nullptr;
   }
+  P.nb = a.nb;
   P.first = a.first;
   P.hB = (const T*)a.hB;
   P.Gm = (const T*)a.Gm;
@@ -262,9 +351,10 @@ int launch(const Args& a) {
   P.zeta_dt = (T)a.zeta_dt;
   P.tt = make_tab<T>(a.coefs);
   P.ts = make_tab<S>(a.coefs);
-  const int threads = 256;
-  dim3 grid(oc::blocks_for(a.g.interior_cells(), threads), a.nb);
-  sw_update_kernel<SCH, T, S><<<grid, threads, 0, a.stream>>>(P);
+  P.TX = a.TX;
+  P.TY = a.TY;
+  P.tiles_y = tiles_y;
+  sw_update_kernel<SCH, T, S><<<a.blocks, a.threads, a.smem, a.stream>>>(P);
   return (int)cudaGetLastError();
 }
 
@@ -295,18 +385,43 @@ extern "C" {
 // and outputs); hB: padded bathymetry; Gm: device (nf, Nx, Ny) of all fields
 // or null for the first stage; G: device (nf, Nx, Ny) output of all fields;
 // coefs: the host table of Tab (kTabSize float64 values); f: the constant
-// Coriolis parameter, 0 for none.
+// Coriolis parameter, 0 for none. TX, TY, threads, blocks, smem: the launch
+// plan of kernels/fused_shallow_water.py launch_plan (the tile, the threads
+// a block, ceil(Nx/TX)·ceil(Ny/TY) blocks and the dynamic shared memory in
+// bytes), refused unless they agree with the tile's layout.
 int oc_fused_sw_update(int scheme, int dtype, int sdtype, const void* const* prog,
                        const void* const* q, void* const* out, int nb, int first,
                        const void* hB, const void* Gm,
                        void* G, int Nx, int Ny, int Hx, int Hy, double dx, double dy,
                        double Ax, double Ay, double Az, double V, double g_acc,
                        double f, double gamma_dt, double zeta_dt, const double* coefs,
-                       int ncoefs, void* stream) {
-  if (ncoefs != kTabSize || nb < 1 || nb > kBatch || first < 0)
+                       int ncoefs, int TX, int TY, int threads, int blocks, int smem,
+                       void* stream) {
+  if (ncoefs != kTabSize || nb < 1 || nb > kBatch || first < 0 || TX < 1 || TY < 1 ||
+      threads < 32 || threads > kThreads || threads % 32 != 0)
     return (int)cudaErrorInvalidValue;
-  Args a{prog, q, out, nb, first, hB, Gm, G, oc::Geom{Nx, Ny, 1, Hx, Hy, 0}, dx, dy, Ax, Ay, Az, V,
-         g_acc, f, gamma_dt, zeta_dt, coefs, (cudaStream_t)stream};
+  Args a{prog, q, out, nb, first, hB, Gm, G, oc::Geom{Nx, Ny, 1, Hx, Hy, 0}, dx, dy, Ax, Ay,
+         Az, V, g_acc, f, gamma_dt, zeta_dt, coefs, TX, TY, threads, blocks, smem,
+         (cudaStream_t)stream, nullptr};
+  if (scheme == kWeno5) return dispatch<kWeno5>(dtype, sdtype, a);
+  if (scheme == kCentered2) return dispatch<kCentered2>(dtype, sdtype, a);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The blocks of the launch plan's shape that one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *per_sm.
+int oc_fused_sw_update_blocks_per_sm(int scheme, int dtype, int sdtype, int TX, int TY,
+                                     int threads, int smem, int* per_sm) {
+  const int H = (scheme == kWeno5 ? 3 : 1) + 1;
+  Args a{};
+  a.nb = 1;
+  a.g = oc::Geom{TX, TY, 1, H, H, 0};
+  a.TX = TX;
+  a.TY = TY;
+  a.threads = threads;
+  a.blocks = 1;
+  a.smem = smem;
+  a.per_sm = per_sm;
   if (scheme == kWeno5) return dispatch<kWeno5>(dtype, sdtype, a);
   if (scheme == kCentered2) return dispatch<kCentered2>(dtype, sdtype, a);
   return (int)cudaErrorInvalidValue;

@@ -58,9 +58,13 @@ SIGNATURES = {
                          D, D, D, D, P],
     "oc_fused_advection_update": [I, I, I, P, P, P, P, P, P, I, I, I, I, I,
                                   I, I, D, D, D, D, D, D, D, D, D, D, P, I,
-                                  P],
+                                  I, I, I, I, I, I, P],
     "oc_fused_sw_update": [I, I, I, P, P, P, I, I, P, P, P, I, I, I, I,
-                           D, D, D, D, D, D, D, D, D, D, P, I, P],
+                           D, D, D, D, D, D, D, D, D, D, P, I, I, I, I, I, I,
+                           P],
+    "oc_fused_advection_update_blocks_per_sm": [I, I, I, I, I, I, I, I, I, I,
+                                                P],
+    "oc_fused_sw_update_blocks_per_sm": [I, I, I, I, I, I, I, P],
     "oc_vi_set_tables": [P, I],
     "oc_fused_vi_tendency": [I, I, P, P, P, P, P, D, D, P],
     "oc_mesh_halo_exchange": [P, P, P, I, I, I, I, I, I, I, I, P],

@@ -17,18 +17,21 @@ bottom face pinned to 0) and the tracers are advected by the corrected
 velocities, while ``new`` adds the increment to the uncorrected q* (the
 tracers are never corrected), as the TPU kernel does.
 
-Bound on the H100: arithmetic. Each output cell evaluates six WENO-5
-reconstructions, each with four divisions, about 600 floating-point
-operations per component, against 16 B per component of compulsory memory
-traffic in float32. Design (``csrc/fused_advection.cu``, stencils in
-``csrc/advection_stencils.cuh``): one thread per (component, cell), z
-fastest across threads, the component uniform per block; each thread
-recomputes the two face fluxes it needs per axis, and the stencil reads go
-through L1/L2. Division is exact. Schemes: WENO(5) with its near-wall
-cascade and Centered(2); any other raises on the card. The WENO smoothness
-arithmetic runs in float32 or float64, or with float32 fields in bfloat16,
-rounded operation by operation as the plain version rounds it
-(``smoothness_code``).
+Bound on the H100: over u, v, w, arithmetic (about 370 floating-point
+operations per component and cell, each face flux once, against 16 B of
+compulsory traffic per component in float32); with tracers, the bytes.
+Design (``csrc/fused_advection.cu``, face fluxes in
+``csrc/advection_stencils.cuh``): one block per TX × TY × TZ tile of
+interior cells, z fastest across threads; the block stages the corrected
+u, v, w over the tile plus the stencil's reach into shared memory once,
+then for each component of the launch (u, v, w, the tracers, each tracer
+staged in turn) forms each face flux once and each cell's update, with the
+velocities resident throughout. ``launch_plan`` gives the tile, the block
+count and the shared memory; the C entry checks them. Division is exact.
+Schemes: WENO(5) with its near-wall cascade and Centered(2); any other
+raises on the card. The WENO smoothness arithmetic runs in float32 or
+float64, or with float32 fields in bfloat16, rounded operation by
+operation as the plain version rounds it (``smoothness_code``).
 
 ``fused_advection_tendency`` replaces ``build_fused_advection``: ``G =
 -∇·(𝐯q)`` for u, v, w and each tracer as one (3 + n_tracers, Nx, Ny, Nz)
@@ -38,7 +41,8 @@ follows the grid's z halo: padded fields whose halos (z included) were
 filled beforehand, or the z-compact layout (``H[2] == 0``: filled x/y halos,
 the z boundary mirrors inside the reads, zero boundary-face fluxes). Its
 CUDA kernel (``csrc/advection_tendency.cu``) shares the update kernel's
-stencils, design and bound.
+stencils; it takes one thread per (component, cell), each recomputing the
+two face fluxes it needs per axis, with the stencil reads through L1/L2.
 
 Both kernels take any number of components: the per-component pointers ride
 in the kernel's parameter block, at most ``build.BATCH`` a launch, and a
@@ -83,6 +87,62 @@ TAB_SIZE = 4 + 2 + 9 + 27 + 3 + 4 + 8 + 2 + 2
 # csrc/common.cuh). The fields' dtype takes fused_projection._DTYPE_CODES,
 # which has no bfloat16.
 _SMOOTHNESS_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+
+# Threads a block of the update kernel (csrc/fused_advection.cu kThreads is
+# the most it takes, and a thread updates at most kCells = CELLS_PER_THREAD
+# cells) and the tile of interior cells a block owns, by the fields' element
+# size: at float32 a 16 x 8 x 8 tile takes 104.7 KB of shared memory with
+# tracers (two blocks an SM) and 65.3 KB without (three), at float64 an
+# 8 x 8 x 8 tile 129.9 KB.
+UPDATE_THREADS = 256
+UPDATE_TILES = {4: (16, 8, 8), 8: (8, 8, 8)}
+CELLS_PER_THREAD = 4
+
+
+def _align(n):
+    """Elements rounded up to a multiple of four (csrc/tiles.cuh
+    align_elems)."""
+    return (n + 3) // 4 * 4
+
+
+# A tracer box's rows run TRACER_Z cells past the tile each way along z
+# (csrc/fused_advection.cu kTracerZ), so that they are 16-byte aligned.
+TRACER_Z = 4
+
+
+def smem_bytes(tile, reach, esize, tracers):
+    """Dynamic shared memory of one block of the update kernel
+    (csrc/fused_advection.cu Layout): u, v, w over the tile plus the reach,
+    when the launch holds a tracer two tracer boxes (one filling while the
+    other is read; TRACER_Z cells past the tile along z), and the x-, y- and
+    z-flux arrays."""
+    TX, TY, TZ = tile
+    box = _align((TX + 2 * reach) * (TY + 2 * reach) * (TZ + 2 * reach))
+    cbox = _align((TX + 2 * reach) * (TY + 2 * reach) * (TZ + 2 * TRACER_Z))
+    fluxes = (_align((TX + 1) * TY * TZ) + _align(TX * (TY + 1) * TZ)
+              + _align(TX * TY * (TZ + 1)))
+    return esize * (3 * box + (2 * cbox if tracers else 0) + fluxes)
+
+
+def launch_plan(grid, scheme, dtype, n_components):
+    """The launches of ``fused_advection_update`` for ``n_components``
+    components (u, v, w, then the tracers) of ``dtype`` on ``grid``: a dict
+    with ``tile`` (TX, TY, TZ), ``tiles`` (along x, y and z; block n owns
+    tile (tx, ty, tz) with n = (tx·tiles_y + ty)·tiles_z + tz, cells
+    [TX·tx, min(TX·(tx + 1), Nx)) and likewise along y and z), ``blocks``,
+    ``threads`` and ``launches``, one (first, stop, smem) per batch of
+    components (the shared memory in bytes: a batch holding a tracer stages
+    it)."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    tile = UPDATE_TILES[esize]
+    tiles = tuple(-(-n // t) for n, t in zip(grid.N, tile))
+    reach = scheme.required_halo
+    return dict(tile=tile, tiles=tiles,
+                blocks=tiles[0] * tiles[1] * tiles[2],
+                threads=UPDATE_THREADS,
+                launches=[(a, b, smem_bytes(tile, reach, esize, b > 3))
+                          for a, b in build.batches(n_components)])
+
 
 def corrected_velocities(grid, u, v, w, p, corr_dt):
     """q* − corr_dt·∂p on the whole padded tensors, w's bottom face pinned;
@@ -254,9 +314,10 @@ def fused_advection_update(grid, scheme, u, v, w, Gm, gamma_dt, zeta_dt,
                          device=u.device).unbind(0))
     outs = [torch.empty_like(q) for q in qs]
     vel = build.pointers([u, v, w])
+    plan = launch_plan(grid, scheme, u.dtype, nc)
     with torch.cuda.device(u.device):
         lib = build.library()
-        for a, b in build.batches(nc):
+        for a, b, smem in plan["launches"]:
             build.check(lib.oc_fused_advection_update(
                 code, _DTYPE_CODES[u.dtype], scode, vel, build.ptr(p), build.pointers(qs[a:b]),
                 build.pointers(Gm[a:b]) if Gm is not None else None,
@@ -266,7 +327,8 @@ def fused_advection_update(grid, scheme, u, v, w, Gm, gamma_dt, zeta_dt,
                 float(corr_dt) if has_corr else 0.0,
                 m["Ax"], m["Ay"], m["Az"], m["V"],
                 1.0 / m["dx"], 1.0 / m["dy"], 1.0 / m["dz"],
-                table, len(table), build.stream_of(u)), lib)
+                table, len(table), *plan["tile"], plan["threads"],
+                plan["blocks"], smem, build.stream_of(u)), lib)
             fused_advection_update.launches += 1
     return G, dict(zip(("u", "v", "w") + tuple(tracers), outs))
 

@@ -15,21 +15,23 @@ G is one interior-shaped (nf, Nx, Ny, 1) tensor, handed on as the next
 stage's G⁻; ``new`` holds padded tensors whose halo slots are left for the
 next stage's wrap.
 
-Bound on the H100: memory traffic. The function reads each field, hB and
-G⁻ once and writes G and the new fields, 40-52 B per interior cell and stage
-in float32; it needs about 550 floating-point operations per cell (each face
-flux and each derived velocity u = uh/ℑx(h) once), which take about half as
-long at the card's float32 rate. Design (``csrc/fused_shallow_water.cu``):
-one thread per (component, interior cell), y fastest across threads, the
-component uniform per block; each thread recomputes its two face fluxes per
-axis and every velocity they select (about 1,100 operations per cell), and
-reads its stencil through L1/L2.
-Division is exact. Schemes: WENO(5) and Centered(2), the WENO smoothness in
-float32, float64 or (with float32 fields) bfloat16; any other scheme raises
-on the card. A launch takes at most ``build.BATCH`` fields (their pointers
-ride in the kernel's parameter block); more fields take one launch per batch, and
-since every field's result depends only on its own values and uh, vh, h,
-the batching changes no bit of it.
+Bound on the H100: the function reads each field, hB and G⁻ once and
+writes G and the new fields, 40-52 B per interior cell and stage in
+float32; it needs about 550 floating-point operations per cell (each face
+flux and each derived velocity u = uh/ℑx(h) once), and at the card's own
+rate for the WENO-5 body with exact divisions those take longer than the
+bytes. Design (``csrc/fused_shallow_water.cu``): one block per TX × TY tile
+of interior cells, y fastest across threads; the block stages uh, vh, h and
+hB with a ring of the scheme's reach plus one into shared memory, forms each
+derived velocity and ½gh² once, each face flux once, then each cell's
+update, and walks the launch's tracers with uh and vh resident.
+``launch_plan`` gives the tile, the block count and the shared memory; the
+C entry checks them. Division is exact. Schemes: WENO(5) and Centered(2),
+the WENO smoothness in float32, float64 or (with float32 fields) bfloat16;
+any other scheme raises on the card. A launch takes at most ``build.BATCH``
+fields (their pointers ride in the kernel's parameter block); more fields
+take one launch per batch, and since every field's result depends only on
+its own values and uh, vh, h, the batching changes no bit of it.
 
 ``build_sharded_fused_sw_update`` replaces ``build_sharded_fused_sw_update``
 (#9): the stage once per shard of a device mesh, on blocks whose halos come
@@ -50,6 +52,50 @@ from .fused_advection import coefficient_table, scheme_code, smoothness_code
 from .fused_projection import _DTYPE_CODES, _metrics, check_tensors
 
 PROGNOSTIC = ("uh", "vh", "h")
+
+# Threads a block (csrc/fused_shallow_water.cu kThreads is the most it takes)
+# and the tile of interior cells a block owns, by the fields' element size:
+# at float32 a 32 x 32 tile takes 64.8 KB of shared memory (three blocks an
+# SM), at float64 a 16 x 32 tile 73.4 KB.
+THREADS = 256
+TILES = {4: (32, 32), 8: (16, 32)}
+
+
+def _align(n):
+    """Elements rounded up to a multiple of four (csrc/tiles.cuh
+    align_elems)."""
+    return (n + 3) // 4 * 4
+
+
+def smem_bytes(tile, reach, esize):
+    """Dynamic shared memory of one block (csrc/fused_shallow_water.cu
+    Layout): five staged fields (uh, vh, h, hB, a tracer) over the tile and
+    a ring of reach + 1, u and v over the tile and the reach, ½gh², and two
+    x- and two y-flux arrays."""
+    TX, TY = tile
+    R = reach + 1
+    staged = _align((TX + 2 * R) * (TY + 2 * R))
+    derived = _align((TX + 2 * reach) * (TY + 2 * reach))
+    head = _align((TX + 1) * (TY + 1))
+    fx, fy = _align((TX + 1) * TY), _align(TX * (TY + 1))
+    return esize * (5 * staged + 2 * derived + head + 2 * fx + 2 * fy)
+
+
+def launch_plan(grid, scheme, dtype, n_fields):
+    """The launches of ``fused_sw_update`` for ``n_fields`` fields of
+    ``dtype`` on ``grid``: a dict with ``tile`` (TX, TY), ``tiles`` (along x
+    and y; block n owns tile (n // tiles_y, n % tiles_y), cells
+    [TX·tx, min(TX·(tx + 1), Nx)) × [TY·ty, min(TY·(ty + 1), Ny))),
+    ``blocks``, ``threads``, ``smem`` (bytes) and ``batches``, the (first,
+    stop) fields of each launch."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    tile = TILES[esize]
+    Nx, Ny = grid.N[0], grid.N[1]
+    tiles = (-(-Nx // tile[0]), -(-Ny // tile[1]))
+    return dict(tile=tile, tiles=tiles, blocks=tiles[0] * tiles[1],
+                threads=THREADS,
+                smem=smem_bytes(tile, scheme.required_halo, esize),
+                batches=build.batches(n_fields))
 
 
 def sw_eligible(grid, formulation="conservative", coriolis=None):
@@ -121,9 +167,10 @@ def fused_sw_update(grid, scheme, g, f, hB, names, fields, Gm, gamma_dt,
     G = torch.empty((nf, Nx, Ny, 1), dtype=q[0].dtype, device=q[0].device)
     outs = [torch.empty_like(a) for a in q]
     prog = build.pointers(q[:3])
+    plan = launch_plan(grid, scheme, G.dtype, nf)
     with torch.cuda.device(G.device):
         lib = build.library()
-        for a, b in build.batches(nf):
+        for a, b in plan["batches"]:
             build.check(lib.oc_fused_sw_update(
                 code, _DTYPE_CODES[G.dtype], scode, prog,
                 build.pointers(q[a:b]), build.pointers(outs[a:b]), b - a, a,
@@ -131,6 +178,7 @@ def fused_sw_update(grid, scheme, g, f, hB, names, fields, Gm, gamma_dt,
                 grid.H[0], grid.H[1], m["dx"], m["dy"], m["Ax"], m["Ay"],
                 m["Az"], m["V"], float(g), float(f), float(gamma_dt),
                 float(zeta_dt) if Gm is not None else 0.0, table, len(table),
+                *plan["tile"], plan["threads"], plan["blocks"], plan["smem"],
                 build.stream_of(G)), lib)
             fused_sw_update.launches += 1
     return G, dict(zip(names, outs))

@@ -810,3 +810,172 @@ def test_bf16_smoothness_probe(dtype):
     if dtype == "bfloat16":
         diff = (want - K.bf16_smoothness_plain(x, torch.float32)).abs().max()
         assert PROBE_REL * want.abs().max().item() <= 0.1 * diff.item()
+
+
+# -- the block-tiled #1 and #8 at the tile edges -------------------------------------
+#
+# Interiors that the kernels' tiles (#1: 8x8x16 at float32, 8x8x8 at
+# float64; #8: 32x32 at float32, 16x32 at float64) do not divide, an Nz so
+# small that the WENO-5, WENO-3 and upwind cascade fills the column, and
+# component counts on both sides of a launch's batch of 32: each kernel
+# against its plain version at the bounds above (float64: 1e-12 relative;
+# bfloat16 smoothness with float32 fields: 1e-5 relative, held to a tenth of
+# the bf16-vs-float32 difference for the tendencies a reconstruction
+# enters). #1 always advects u, v and w, so its component counts are 3 plus
+# 0, 1, 12 and 37 tracers.
+
+TILE_N = [(37, 29, 19), (12, 10, 5)]
+TILE_TRACERS = [0, 1, 12, 37]
+
+
+def _tile_adv_inputs(N, dtype, ntr, seed):
+    grid = ot.RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0), halo=(4, 4, 0),
+                              dtype=dtype, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f = [0.1 * torch.randn(grid.padded_shape, generator=gen, dtype=dtype,
+                           device="cuda") for _ in range(4)]
+    f[2][..., 0] = 0
+    tracers = {f"c{i}": torch.rand(grid.padded_shape, generator=gen,
+                                   dtype=dtype, device="cuda")
+               for i in range(ntr)}
+    K.periodic_halo_fill(grid, f + list(tracers.values()))
+    Gm = [torch.randn(N, generator=gen, dtype=dtype, device="cuda")
+          for _ in range(3 + ntr)]
+    return grid, f, tracers, Gm
+
+
+@pytest.mark.parametrize("with_gm", [False, True], ids=["no_gm", "gm"])
+@pytest.mark.parametrize("with_corr", [False, True], ids=["stage1", "corr"])
+@pytest.mark.parametrize("ntr", TILE_TRACERS)
+@pytest.mark.parametrize("n", TILE_N, ids=str)
+@pytest.mark.parametrize("smooth", ["float64", "bf16"])
+def test_fused_advection_update_tile_edges(smooth, n, ntr, with_corr,
+                                           with_gm):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dtype = torch.float64 if smooth == "float64" else torch.float32
+    grid, (u, v, w, p), tracers, Gm = _tile_adv_inputs(n, dtype, ntr, 21)
+
+    def run(fn, sdt):
+        G, new = fn(grid, ot.WENO(5, smoothness_dtype=sdt), u, v, w,
+                    Gm if with_gm else None, 1e-3, -5e-4,
+                    p if with_corr else None, 7e-4 if with_corr else None,
+                    tracers=tracers)
+        return list(G) + list(new.values())
+
+    launches = K.fused_advection_update.launches
+    got = run(K.fused_advection_update, torch.float64 if smooth == "float64"
+              else torch.bfloat16)
+    assert K.fused_advection_update.launches == launches + len(
+        K.build.batches(3 + ntr))
+    if smooth == "float64":
+        _close(got, run(K.fused_advection_update_plain, torch.float64))
+    else:
+        _bf16_close(got, run(K.fused_advection_update_plain, torch.bfloat16),
+                    run(K.fused_advection_update_plain, torch.float32),
+                    range(3 + ntr))
+
+
+@pytest.mark.parametrize("scheme", sorted(SCHEMES))
+def test_fused_advection_update_tile_edges_centered2(scheme):
+    """Both schemes on the ragged float64 grid with 12 tracers, corrected
+    with G⁻ (Centered(2) takes a ring of 1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    grid, (u, v, w, p), tracers, Gm = _tile_adv_inputs(TILE_N[0],
+                                                       torch.float64, 12, 22)
+    args = (grid, SCHEMES[scheme](), u, v, w, Gm, 0.1, -0.05, p, 0.07)
+    Gk, nk = K.fused_advection_update(*args, tracers=tracers)
+    Gp, np_ = K.fused_advection_update_plain(*args, tracers=tracers)
+    _close(Gk + list(nk.values()), Gp + list(np_.values()))
+
+
+SW_TILE_N = [(45, 61), (9, 130)]
+
+
+def _tile_sw_inputs(n, dtype, ntr, seed, extent=(10.0, 8.0)):
+    grid = ot.RectilinearGrid(size=n, extent=extent, halo=(4, 4, 0),
+                              topology=("periodic", "periodic", "flat"),
+                              dtype=dtype, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = grid.padded_shape
+    # a nearly flat h: the advection, not the head gradient, sets the size
+    # of the momentum tendencies (so the bf16 check can see the smoothness)
+    fields = {n_: o + s * torch.randn(shape, generator=gen, dtype=dtype,
+                                      device="cuda")
+              for n_, s, o in (("uh", 0.1, 0.0), ("vh", 0.1, 0.0),
+                               ("h", 1e-4, 1.0))}
+    for i in range(ntr):
+        fields[f"c{i}"] = torch.rand(shape, generator=gen, dtype=dtype,
+                                     device="cuda")
+    hB = 1e-4 * torch.randn(shape, generator=gen, dtype=dtype, device="cuda")
+    K.periodic_halo_fill(grid, list(fields.values()) + [hB])
+    Gm = torch.randn((len(fields),) + tuple(grid.N), generator=gen,
+                     dtype=dtype, device="cuda")
+    return grid, fields, hB, Gm
+
+
+@pytest.mark.parametrize("with_gm", [False, True], ids=["no_gm", "gm"])
+@pytest.mark.parametrize("f", [0.0, 0.3])
+@pytest.mark.parametrize("ntr", [0, 1, 33])
+@pytest.mark.parametrize("n", SW_TILE_N, ids=str)
+@pytest.mark.parametrize("smooth", ["float64", "bf16"])
+def test_fused_sw_update_tile_edges(smooth, n, ntr, f, with_gm):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dtype = torch.float64 if smooth == "float64" else torch.float32
+    grid, fields, hB, Gm = _tile_sw_inputs(n, dtype, ntr, 23)
+    names = tuple(fields)
+    ints = grid.interior_slices
+
+    def run(fn, sdt):
+        G, new = fn(grid, ot.WENO(5, smoothness_dtype=sdt), 9.81, f, hB,
+                    names, fields, Gm if with_gm else None, 2e-3, -1e-3)
+        return list(G) + [new[n_][ints] for n_ in names]
+
+    launches = K.fused_sw_update.launches
+    got = run(K.fused_sw_update, torch.float64 if smooth == "float64"
+              else torch.bfloat16)
+    assert K.fused_sw_update.launches == launches + len(
+        K.build.batches(len(names)))
+    if smooth == "float64":
+        _close(got, run(K.fused_sw_update_plain, torch.float64))
+    else:
+        _bf16_close(got, run(K.fused_sw_update_plain, torch.bfloat16),
+                    run(K.fused_sw_update_plain, torch.float32),
+                    (0, 1) + tuple(range(3, 3 + ntr)))
+
+
+def test_sharded_sw_stage_tile_grid():
+    """#9 on a 90x122 grid over 2x2 blocks of 45x61: the blocks' 16x32
+    float64 tiles fall differently from the serial grid's, and every face
+    flux takes one code path wherever it lies in a tile, so the sharded
+    stage equals the serial stage bit for bit."""
+    arch = _card_mesh()
+    grid, fields, hB, Gm = _tile_sw_inputs((90, 122), torch.float64, 2, 24,
+                                           extent=(20.0, 16.0))
+    names = tuple(fields)
+    s = ot.WENO(5, smoothness_dtype=torch.float64)
+    args = (grid, s, 9.81, 0.3, hB, names)
+    stage = K.build_sharded_fused_sw_update(*args, arch.mesh)
+    G0, new0 = K.fused_sw_update(*args, fields, None, 2e-3, -1e-3)
+    G1, new1 = stage(fields, None, 2e-3, -1e-3)
+    nlx, nly = 45, 61
+    G1 = [_on(g, grid.device) for g in G1]
+    G1 = torch.cat([torch.cat(G1[2 * i:2 * i + 2], dim=2) for i in range(2)],
+                   dim=1)
+    ints = grid.interior_slices
+    assert torch.equal(G1, G0)
+    for n_ in names:
+        assert torch.equal(new1[n_][ints], new0[n_][ints])
+    Gs = [_on(Gm[:, i * nlx:(i + 1) * nlx, j * nly:(j + 1) * nly], "cuda:0")
+          for i in range(2) for j in range(2)]
+    Gm_full = torch.cat([torch.cat(Gs[2 * i:2 * i + 2], dim=2)
+                         for i in range(2)], dim=1)
+    G2, new2 = stage(fields, Gs, 2e-3, -1e-3)
+    G3, new3 = K.fused_sw_update(*args, fields, Gm_full, 2e-3, -1e-3)
+    G2 = torch.cat([torch.cat(G2[2 * i:2 * i + 2], dim=2) for i in range(2)],
+                   dim=1)
+    assert torch.equal(G2, G3)
+    for n_ in names:
+        assert torch.equal(new2[n_][ints], new3[n_][ints])
