@@ -7,9 +7,10 @@ Phases (each raises on failure; nothing is caught):
 1. Device: require a CUDA card; print its name and `nvidia-smi`'s name and
    power limit.
 2. Build: compile the port's CUDA kernels from the checkout's sources; for
-   the block-tiled kernels (#1, #8) each instantiation's registers and
-   spills from ptxas, and each launch plan's tile, shared memory per block
-   and blocks per SM (the runtime's occupancy query).
+   the block-tiled kernels (#1 and #6, one template; #8; #10) each
+   instantiation's registers and spills from ptxas, and each launch plan's
+   tile, shared memory per block and blocks per SM (the runtime's
+   occupancy query).
 3. Kernels against their plain PyTorch versions on the card, with the bound
    and its reason, and CUDA-event times of kernel and plain version at the
    main paths' shapes:
@@ -22,7 +23,10 @@ Phases (each raises on failure; nothing is caught):
    - the convection path's kernels: the advection tendency (float64 at 32³,
      float32 at 256³, H = (3, 3, 3)), the bounded-z fill (center and z-face
      fields under Flux, Value and Gradient) and the periodic wrap on fields
-     with z halos.
+     with z halos;
+   - the advection tendency in float64 at the tile edges, both layouts, 4
+     and 40 components, and the sharded tendency on a tile grid unlike the
+     serial one (bit for bit).
 4. Flagship path: NonhydrostaticModel on a 256³ grid, WENO(5), float32,
    RK3, set(u=, v=) from a seeded generator, warm-up steps and timed steps.
    Its kernels' launch counters must rise and no plain version may run on
@@ -31,7 +35,8 @@ Phases (each raises on failure; nothing is caught):
    (torch.profiler).
 5. Convection path: Rayleigh–Bénard convection at 256³ (BuoyancyTracer,
    ScalarDiffusivity, Value conditions on b; the padded layout), float32,
-   the same checks, and the phase shares of the step from CUDA events.
+   the same checks, and the phase shares of the step from CUDA events (its
+   device-busy share after phase 14, on the same model).
 6. The goldens of tests/test_regression.py (thermal bubble, Rayleigh–Bénard
    and hydrostatic turbulence), rebuilt in the port, in float64 through the
    kernels, against tests/data/*.npz.
@@ -49,15 +54,18 @@ Phases (each raises on failure; nothing is caught):
    phase shares of the step from CUDA events.
 9. Hydrostatic kernel against its plain version: the fused vector-invariant
    tendency in float64 at 16x12x8 lat-lon (bounded and periodic x; three
-   vector-invariant configurations, with and without ph) and in float32 at
-   512x256x32 on the hydro_row state; CUDA-event times of kernel and plain
-   version.
+   vector-invariant configurations, with and without ph; every Coriolis
+   branch; three tracers; regular RectilinearGrids), at the tile edges
+   (ragged float64 tiles, bounded x and y, 3 and 8 tracers) and in float32
+   at 512x256x32 on the hydro_row state; CUDA-event times of kernel and
+   plain version.
 10. Hydrostatic path: HydrostaticFreeSurfaceModel with bench_extra.py's
    hydro_row at 512x256x32 lat-lon, float32 (WENOVectorInvariant,
    HydrostaticSphericalCoriolis, SplitExplicitFreeSurface(substeps=30), T,
    quasi-AB2, Δt = 120 s): warm-up and timed steps, launch counters (the
    kernel once per step, no plain version on CUDA tensors), finite fields,
-   peak memory and the phase shares of the step from CUDA events.
+   peak memory, the phase shares of the step from CUDA events and the
+   device-busy share.
 11. Whole step, kernel path against plain path: 3 steps in float64 of the
    flagship and of the convection configuration at 32³, of shallow water at
    128² and of the hydro_row at 16x12x8.
@@ -92,7 +100,8 @@ Phases (each raises on failure; nothing is caught):
    conservation; #1 over 15 components on the path's state in float32.
 17. Buoyant z-compact path (tests/test_z_compact.py's model at 256³): the
    tendency route with #6 z-compact, the same checks and Σb conserved; #6
-   z-compact on the path's state in float32.
+   z-compact on the path's state in float32 (its device-busy share after
+   phase 18, on the same model).
 18. The same path on the 2x2 mesh of the card from its initial state: #7
    on z-compact blocks, equal to the serial path after the same steps (bound
    0), and the sharded tendency against its plain route on the path's state.
@@ -186,17 +195,19 @@ def demangle(names):
 
 def tiled_kernels_report():
     """Registers and spills of each instantiation of the block-tiled #1 and
-    #8 (ptxas -v), and for each launch plan of the paths the tile, the
-    dynamic shared memory per block and the blocks an SM holds at once
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    #6 (one template), #8 and #10 (ptxas -v), and for each launch plan of
+    the paths the tile, the dynamic shared memory per block and the blocks
+    an SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     import ctypes
 
     import oceananigans_tpu_torch as ot
     from oceananigans_tpu_torch.kernels import build
     from oceananigans_tpu_torch.kernels import fused_advection as fa
     from oceananigans_tpu_torch.kernels import fused_shallow_water as fsw
-    entries = ptxas_entries(build.compile_log, ("advection_update_kernel",
-                                                "sw_update_kernel"))
+    from oceananigans_tpu_torch.kernels import fused_vector_invariant as fvi
+    entries = ptxas_entries(build.compile_log, ("advection_kernel",
+                                                "sw_update_kernel",
+                                                "vi_tendency_kernel"))
     names = demangle(list(entries))
     print("block-tiled kernels, ptxas (registers, spill stores / loads in "
           "bytes):")
@@ -207,28 +218,33 @@ def tiled_kernels_report():
     codes = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
     print("block-tiled kernels, launch plans (dynamic shared memory per "
           "block, blocks per SM):")
-    for label, N, dt, sdt, nc in (
-            ("#1 flagship 256^3 float32, 3 components", (256, 256, 256),
-             torch.float32, torch.float32, 3),
-            ("#1 256^3 float32, 15 components", (256, 256, 256),
-             torch.float32, torch.float32, 15),
-            ("#1 256^3 float32 bf16 smoothness, 15 components",
-             (256, 256, 256), torch.float32, torch.bfloat16, 15),
-            ("#1 32^3 float64, 15 components", (32, 32, 32), torch.float64,
-             torch.float64, 15)):
+    kinds = {0: "#1 uncorrected", 1: "#1 corrected", 2: "#6 z-compact",
+             3: "#6 padded"}
+    for label, N, dt, sdt, nc, ks in (
+            ("flagship 256^3 float32, 3 components", (256, 256, 256),
+             torch.float32, torch.float32, 3, (0, 1)),
+            ("256^3 float32, 15 components", (256, 256, 256),
+             torch.float32, torch.float32, 15, (0, 1)),
+            ("256^3 float32 bf16 smoothness, 15 components",
+             (256, 256, 256), torch.float32, torch.bfloat16, 15, (0, 1)),
+            ("32^3 float64, 15 components", (32, 32, 32), torch.float64,
+             torch.float64, 15, (0, 1, 2, 3)),
+            ("256^3 float32, u, v, w, b", (256, 256, 256), torch.float32,
+             torch.float32, 4, (2, 3)),
+            ("256^3 float32 bf16 smoothness, u, v, w, b", (256, 256, 256),
+             torch.float32, torch.bfloat16, 4, (2, 3))):
         grid = ot.RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0),
                                   halo=(4, 4, 0), dtype=dt, device="cuda")
         plan = fa.launch_plan(grid, ot.WENO(5, smoothness_dtype=sdt), dt, nc)
         for a, b, smem in plan["launches"]:
-            for corr in (0, 1):
+            for kind in ks:
                 per_sm = ctypes.c_int(0)
-                build.check(lib.oc_fused_advection_update_blocks_per_sm(
-                    0, codes[dt], codes[sdt], corr, int(b > 3),
+                build.check(lib.oc_advection_blocks_per_sm(
+                    0, codes[dt], codes[sdt], kind, int(b > 3),
                     *plan["tile"], plan["threads"], smem,
                     ctypes.byref(per_sm)), lib)
-                print(f"  {label} (components {a}-{b - 1}, "
-                      f"{'corrected' if corr else 'uncorrected'}): tile "
-                      f"{plan['tile']}, {plan['threads']} threads, "
+                print(f"  {kinds[kind]} {label} (components {a}-{b - 1}): "
+                      f"tile {plan['tile']}, {plan['threads']} threads, "
                       f"{plan['blocks']} blocks, {smem} B shared, "
                       f"{per_sm.value} blocks per SM")
     for label, n, dt, sdt in (
@@ -245,6 +261,22 @@ def tiled_kernels_report():
         print(f"  {label}: tile {plan['tile']}, {plan['threads']} threads, "
               f"{plan['blocks']} blocks, {plan['smem']} B shared, "
               f"{per_sm.value} blocks per SM")
+    for label, dt in (("#10 hydro_row 512x256x32 float32", torch.float32),
+                      ("#10 hydro_row 512x256x32 float64", torch.float64)):
+        grid = ot.LatitudeLongitudeGrid(size=HYDRO_N, longitude=(0, 60),
+                                        latitude=(15, 75), z=(-1800.0, 0.0),
+                                        dtype=dt, device="cuda")
+        vi = ot.WENOVectorInvariant(smoothness_dtype=dt)
+        cfg = fvi.vi_config(grid, vi, ot.Centered(2), 1,
+                            ot.HydrostaticSphericalCoriolis())
+        plan = fvi.launch_plan(grid, cfg, dt)
+        per_sm = ctypes.c_int(0)
+        build.check(lib.oc_vi_blocks_per_sm(
+            codes[dt], codes[dt], cfg["vort"], cfg["kv"], *plan["tile"],
+            plan["threads"], plan["smem"], ctypes.byref(per_sm)), lib)
+        print(f"  {label}: tile {plan['tile']}, reach {plan['reach']}, "
+              f"{plan['threads']} threads, {plan['blocks']} blocks, "
+              f"{plan['smem']} B shared, {per_sm.value} blocks per SM")
 
 
 def busy_share(label, model, dt, steps, step_ms, card):
@@ -485,6 +517,106 @@ def advection_tile_edge_checks():
     torch.cuda.synchronize()
 
 
+def tendency_tile_edge_checks():
+    """#6 against its plain version in float64 (WENO(5) with float64
+    smoothness, and Centered(2)) on the interiors its 8x8x8 float64 tiles
+    do not divide, in both layouts (z-compact, and padded with H = 3 and
+    its z halos filled), with 4 and 40 components (the 40 in two
+    launches); bound 1e-12 relative to each tensor's own max|plain|. Then
+    #7 on a 74x58x19 grid over 2x2 blocks of 37x29, whose tiles fall unlike
+    the serial grid's: equal to the serial #6 bit for bit."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+    ZF = K.ZFill
+
+    def inputs(N, ntr, layout, seed):
+        halo = (4, 4, 0) if layout == "compact" else (3, 3, 3)
+        grid = ot.RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0), halo=halo,
+                                  dtype=torch.float64, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        f = [0.1 * torch.randn(grid.padded_shape, generator=gen,
+                               dtype=torch.float64, device="cuda")
+             for _ in range(3)]
+        f += [torch.rand(grid.padded_shape, generator=gen,
+                         dtype=torch.float64, device="cuda")
+              for _ in range(ntr)]
+        K.periodic_halo_fill(grid, f)
+        if layout == "compact":
+            f[2][..., 0] = 0
+        else:
+            K.bounded_z_fill(grid, f, [ZF(False, (0, 0.0), (0, 0.0))] * 2
+                             + [ZF(True, (1, 0.0), (1, 0.0))]
+                             + [ZF(False, (2, 0.5), (2, -0.5))] * ntr)
+        return grid, f
+
+    for layout in ("compact", "padded"):
+        for N in ADVECTION_TILE_EDGES:
+            worst = 0.0
+            for ntr in (1, 37):
+                grid, f = inputs(N, ntr, layout, 31)
+                for s in (ot.WENO(5, smoothness_dtype=torch.float64),
+                          ot.Centered(2)):
+                    err, rel = worst_rel(
+                        list(K.fused_advection_tendency(grid, s, f)),
+                        list(K.fused_advection_tendency_plain(grid, s, f)))
+                    assert rel <= 1e-12, ("fused_advection_tendency tile "
+                                          "edges", layout, N, ntr, s, rel)
+                    worst = max(worst, rel)
+            print(f"  fused_advection_tendency tile edges {layout} {N} "
+                  f"float64, 4 and 40 components, WENO(5) and Centered(2): "
+                  f"worst rel {worst:.3e}")
+        grid, f = inputs((74, 58, 19), 2, layout, 32)
+        s = ot.WENO(5, smoothness_dtype=torch.float64)
+        G = K.build_sharded_fused_advection(grid, s, card_mesh().mesh)(f)
+        assert torch.equal(G, K.fused_advection_tendency(grid, s, f)), \
+            ("sharded tendency on another tile grid", layout)
+        print(f"  sharded tendency {layout} 74x58x19 on 2x2 blocks of "
+              f"37x29: equal to serial bit for bit")
+    torch.cuda.synchronize()
+
+
+def vi_tile_edge_checks():
+    """#10 against its plain version in float64 on interiors its 8x8x8
+    float64 tiles do not divide, over the interior and the boundary-face
+    rows: a bounded-x-and-y RectilinearGrid and a periodic-x one (FPlane,
+    ph), WENOVectorInvariant() and VectorInvariant(), 3 and 8 tracers;
+    bound 1e-12 relative to each output's own max|plain|."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+    f64 = torch.float64
+    configs = {"WENOVectorInvariant()": (
+        lambda: ot.WENOVectorInvariant(smoothness_dtype=f64),
+        lambda: ot.WENO(5, smoothness_dtype=f64)),
+        "VectorInvariant()": (ot.VectorInvariant, lambda: ot.Centered(2))}
+    for N in ((19, 13, 11), (9, 7, 7)):
+        for topo in (("bounded", "bounded", "bounded"),
+                     ("periodic", "bounded", "bounded")):
+            worst = 0.0
+            for label, (mvi, mts) in configs.items():
+                for ntr in (3, 8):
+                    names = tuple(f"c{i}" for i in range(ntr))
+                    grid = ot.RectilinearGrid(
+                        size=N, extent=(4e5, 2.4e5, 1800.0), halo=(6, 6, 6),
+                        topology=topo, dtype=f64, device="cuda")
+                    grid, f = hydro_kernel_inputs(None, seed=6, grid=grid,
+                                                  tracers=names)
+                    args = (grid, mvi(), mts(), names, ot.FPlane(f=1e-4),
+                            f["u"], f["v"], f["w"], {n: f[n] for n in names},
+                            f["ph"])
+                    Gk = K.fused_vi_tendency(*args)
+                    Gp = K.fused_vi_tendency_plain(*args)
+                    err, rel = worst_rel(
+                        [Gk[0], Gk[1]] + [Gk[2][n] for n in names],
+                        [Gp[0], Gp[1]] + [Gp[2][n] for n in names])
+                    assert rel <= 1e-12, ("fused_vi_tendency tile edges", N,
+                                          topo, label, ntr, rel)
+                    worst = max(worst, rel)
+            print(f"  fused_vi_tendency tile edges {N} {topo[0]} x, bounded "
+                  f"y float64, two configurations, 3 and 8 tracers: worst "
+                  f"rel {worst:.3e}")
+    torch.cuda.synchronize()
+
+
 # -- bounds ---------------------------------------------------------------------
 # The least time the card could take for a kernel's work: the larger of the
 # bytes it must move (each input read once, each output written once) over
@@ -504,10 +636,9 @@ FP32_FLOP_PER_S = 67e12
 # fluxes plus 3 differences, 2 sums, a division and a sign: 3 x (11 + 108 +
 # 1) + 7 = 367. A tracer component-cell reads the face velocity (1 product
 # for A·u): 3 x (1 + 108 + 1) + 7 = 337. The near-wall cells with lower
-# orders (6 of 256 z levels) are counted at the full cost. The tendency
-# kernel (#6) computes every face flux twice, once for each cell beside it;
-# the block-tiled #1 and #8 compute each once, and the faces on a tile's
-# edge once more in the neighbouring block.
+# orders (6 of 256 z levels) are counted at the full cost. The block-tiled
+# #1, #6 and #8 compute each face flux once, and the faces on a tile's edge
+# once more in the neighbouring block.
 WENO_MOMENTUM_FLOP = 3 * (11 + 108 + 1) + 7
 WENO_TRACER_FLOP = 3 * (1 + 108 + 1) + 7
 UPDATE_FLOP = 4          # γΔt·G + ζΔt·G⁻ added to q
@@ -701,6 +832,7 @@ def convection_kernels_phase():
             out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
             print(f"  time {name} at {grid.padded_shape} (4 fields): kernel "
                   f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+    tendency_tile_edge_checks()
     return out
 
 
@@ -1479,7 +1611,6 @@ def weno_flop(K, n_smooth):
 #   product 1), three differences, two sums, a division and a sign: 22.
 VI_DERIVED_FLOP = 39
 VI_TRACER_FLOP = 3 * 5 + 3 + 2 + 2
-VI_SCRATCH = 13      # derived fields this design keeps for the hydro_row
 
 
 def vi_momentum_flop():
@@ -1491,11 +1622,8 @@ def vi_momentum_flop():
 def hydro_bounds(N, H, esize, n_tracers=1):
     """Bounds of the hydrostatic path's kernels at interior N, halo H. The
     fused VI tendency: read u, v, w and the tracers padded, write Gu, Gv and
-    the Gc (the interiors); the operations above. Its scratch is a cost of
-    this design, not of the function, so it is left out of the bound and
-    given apart as ``vi_scratch_ms`` (each derived field written and read
-    once). The bounded-z fill of u, v, T and w: read and write each z-halo
-    element once."""
+    the Gc (the interiors); the operations above. The bounded-z fill of u,
+    v, T and w: read and write each z-halo element once."""
     cells = N[0] * N[1] * N[2]
     PX, PY, PZ = (n + 2 * h for n, h in zip(N, H))
     padded = PX * PY * PZ
@@ -1505,8 +1633,7 @@ def hydro_bounds(N, H, esize, n_tracers=1):
     zfix = 2 * H[2] * PX * PY
     return {"fused_vi_tendency": bound(nbytes, flop),
             "bounded_z_fill_hydro": bound(esize * (3 + n_tracers) * 2 * zfix,
-                                          0),
-            "vi_scratch_ms": bound(esize * 2 * VI_SCRATCH * padded, 0)[0]}
+                                          0)}
 
 
 def hydro_model(N, dtype, device, seed=0, smoothness=torch.float32,
@@ -1644,6 +1771,7 @@ def hydro_kernels_phase():
         print(f"  fused_vi_tendency 16x12x8 float64 {label}: max abs "
               f"{err:.3e}, rel {rel:.3e}")
         assert rel <= 1e-12, ("fused_vi_tendency", label, rel)
+    vi_tile_edge_checks()
     one_axis = {
         "periodic x, bounded y (lat-lon 0-360°)": ot.LatitudeLongitudeGrid(
             size=(16, 12, 8), longitude=(0.0, 360.0), latitude=(15, 75),
@@ -1821,6 +1949,7 @@ def hydro_path_phase(card, model):
     per_step = {k: launches[k] / steps for k in HYDRO_KERNELS}
     print(f"launches per step: {per_step}")
     hydro_phase_shares(model, dt, 3, card)
+    busy_share("hydrostatic path", model, dt, 3, step_ms, card)
     return launches, step_ms
 
 
@@ -2693,7 +2822,7 @@ def buoyant_path_phase(card):
     print(f"  time fused_advection_tendency z-compact at {grid.padded_shape} "
           f"(4 fields): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
     return launches, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms), \
-        model, state0
+        model, state0, step_ms
 
 
 def sharded_buoyant_path_phase(card, n, serial, state0):
@@ -3143,7 +3272,7 @@ KERNEL_SOURCES = {
         "oceananigans_tpu_torch/csrc/halo_fill.cu",
         "oceananigans_tpu/kernels/pallas_fill.py:265"),
     "fused_advection_tendency": (
-        "oceananigans_tpu_torch/csrc/advection_tendency.cu",
+        "oceananigans_tpu_torch/csrc/fused_advection.cu",
         "oceananigans_tpu/kernels/fused_advection.py:149"),
     "bounded_z_fill": (
         "oceananigans_tpu_torch/csrc/halo_fill.cu",
@@ -3167,7 +3296,7 @@ KERNEL_SOURCES = {
         "oceananigans_tpu_torch/csrc/fused_advection.cu",
         "oceananigans_tpu/kernels/fused_advection.py:269"),
     "fused_advection_tendency_compact": (
-        "oceananigans_tpu_torch/csrc/advection_tendency.cu",
+        "oceananigans_tpu_torch/csrc/fused_advection.cu",
         "oceananigans_tpu/kernels/fused_advection.py:149"),
     "build_sharded_fused_advection_compact": (
         "oceananigans_tpu_torch/kernels/fused_advection.py",
@@ -3203,7 +3332,7 @@ def main():
     bounds = flagship_bounds((256, 256, 256), (4, 4, 0), 4)
     bounds.update(convection_bounds((256, 256, 256), (3, 3, 3), 4))
     flagship_launches, _ = flagship_path_phase(card)
-    convection_launches, _, conv_serial, conv_state0 = \
+    convection_launches, conv_step_ms, conv_serial, conv_state0 = \
         convection_path_phase(card)
     print("shallow-water kernels against plain versions:")
     n_sw = 16384
@@ -3224,6 +3353,7 @@ def main():
     torch.cuda.empty_cache()
     sharded_conv_launches, measured["build_sharded_fused_advection"] = \
         sharded_convection_path_phase(card, 256, conv_serial, conv_state0)
+    busy_share("convection path", conv_serial, 1e-3, 3, conv_step_ms, card)
     del conv_serial, conv_state0
     torch.cuda.empty_cache()
     print("z-compact kernels with tracers, and the lifted caps, against plain "
@@ -3242,10 +3372,11 @@ def main():
     del weno_states
     torch.cuda.empty_cache()
     buoyant_launches, measured["fused_advection_tendency_compact"], \
-        b_serial, b_state0 = buoyant_path_phase(card)
+        b_serial, b_state0, b_step_ms = buoyant_path_phase(card)
     torch.cuda.empty_cache()
     sharded_b_launches, measured["build_sharded_fused_advection_compact"] = \
         sharded_buoyant_path_phase(card, 256, b_serial, b_state0)
+    busy_share("buoyant z-compact path", b_serial, 1e-3, 3, b_step_ms, card)
     del b_serial, b_state0
     torch.cuda.empty_cache()
     bounds.update(compact_bounds((256, 256, 256), (4, 4, 0), 4, N_TRACERS))
@@ -3332,9 +3463,6 @@ def main():
           f"versions (max abs): #6 padded "
           f"{measured['fused_advection_tendency_bf16']['max_abs_err']:.3e}, "
           f"#8 {measured['fused_sw_update_bf16']['max_abs_err']:.3e}")
-    print(f"fused_vi_tendency design scratch ({VI_SCRATCH} derived fields "
-          f"written and read once, not in its bound): "
-          f"{bounds['vi_scratch_ms']:.4f} ms at 3.35 TB/s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

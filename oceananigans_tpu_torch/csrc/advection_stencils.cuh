@@ -1,9 +1,9 @@
-// Flux-form advection stencils shared by the advection kernels
-// (advection_tendency.cu, fused_advection.cu): G = -∇·(𝐯q) at one cell for
-// u at (f, c, c), v at (c, f, c), w at (c, c, f) and a tracer at (c, c, c),
+// Flux-form advection stencils of the block-tiled advection kernels
+// (fused_advection.cu: the RK3 stage update #1 and the tendency #6): the
+// flux of -∇·(𝐯q) through one face at a time (face_flux_x/y/z) for u at
+// (f, c, c), v at (c, f, c), w at (c, c, f) and a tracer at (c, c, c),
 // written once against a read policy that says where the stencil's values
-// come from; and the same stencils one face flux at a time (face_flux_x/y/z,
-// the block-tiled fused_advection.cu).
+// come from.
 //
 // The stencils are those of oceananigans_tpu/advection/fluxes.py div_Uu /
 // div_Uv / div_Uw / div_Uc: advecting velocities by the scheme's symmetric
@@ -15,9 +15,12 @@
 // WENO(5) and Centered(2) (SCH, a compile-time choice); every coefficient
 // comes from the table of kernels/fused_advection.py coefficient_table.
 //
-// Read policies (R):
+// Read policies (R) of a kernel's staging, which fills a block's shared
+// boxes (staged, tracer_at, in_place, at_z):
 // - PaddedRead: padded fields whose halos, z included, were filled
-//   beforehand; every read takes the halo values as they are.
+//   beforehand; every read takes the halo values as they are, and a z index
+//   outside the padded array (never read by a stencil when Hz is at least
+//   the reach) stages 0.
 // - CompactRead: the z-compact layout (no z halo). z reads outside [0, Nz)
 //   go through the boundary mirrors the z halo would have carried (the
 //   oceananigans_tpu/operators/shifts.py shift_zbc kinds): even for u, v and
@@ -33,11 +36,11 @@
 //   one FMA: the bfloat16-smoothness instantiation takes it, since a
 //   corrected velocity one ulp away can move a bfloat16 rounding of the
 //   smoothness downstream.
-// - SharedRead: a block's tile in shared memory (fused_advection.cu). Its
-//   boxes hold u, v, w and the advected tracer over the tile plus the
-//   stencil's reach, staged through CompactRead (corrected, z mirrors), so
-//   a read, at padded (i, j) and z index k, is one shared-memory load of
-//   the value CompactRead's u_z, v_z, w_z or c_z gives there.
+// - SharedRead: a block's tile in shared memory, what the face fluxes read.
+//   Its boxes hold u, v, w and the advected tracer over the tile plus the
+//   stencil's reach, staged through one of the two policies above, so a
+//   read, at padded (i, j) and z index k, is one shared-memory load of the
+//   value the staging policy gives there; kWalls is the staging policy's.
 #pragma once
 
 #include <type_traits>
@@ -48,25 +51,31 @@
 namespace oc {
 
 // ---- read policies ------------------------------------------------------------
-// u, v, w, c: reads at padded (i, j) and z index 0 <= k < Nz (PaddedRead also
-// takes its z halo); the _z variants take any z index a z stencil reaches.
+// Positions are padded x, padded y and the z index (0 <= k < Nz inside).
 
 template <typename T>
 struct PaddedRead {
   static constexpr bool kWalls = false;
   const T* vel[3];   // u, v, w: padded, halos filled
-  Geom g;            // Hz >= 1
+  Geom g;            // Hz >= the reach
 
-  __device__ __forceinline__ T c(const T* a, int i, int j, int k) const {
-    return a[g.at(i, j, k + g.Hz)];
+  // the staging: velocity d (0 u, 1 v, 2 w) at z index k, 0 outside the
+  // padded array; the offset of a tracer's value at z index k (-1: stage 0);
+  // whether z indices [zs, ze) are read in place; the offset of (i, j, k)
+  __device__ __forceinline__ T staged(int d, int i, int j, int k) const {
+    const int kk = k + g.Hz;
+    return kk >= 0 && kk < g.PZ() ? vel[d][g.at(i, j, kk)] : T(0);
   }
-  __device__ __forceinline__ T u(int i, int j, int k) const { return c(vel[0], i, j, k); }
-  __device__ __forceinline__ T v(int i, int j, int k) const { return c(vel[1], i, j, k); }
-  __device__ __forceinline__ T w(int i, int j, int k) const { return c(vel[2], i, j, k); }
-  __device__ __forceinline__ T u_z(int i, int j, int k) const { return u(i, j, k); }
-  __device__ __forceinline__ T v_z(int i, int j, int k) const { return v(i, j, k); }
-  __device__ __forceinline__ T w_z(int i, int j, int k) const { return w(i, j, k); }
-  __device__ __forceinline__ T c_z(const T* a, int i, int j, int k) const { return c(a, i, j, k); }
+  __device__ __forceinline__ long long tracer_at(int i, int j, int k) const {
+    const int kk = k + g.Hz;
+    return kk >= 0 && kk < g.PZ() ? g.at(i, j, kk) : -1;
+  }
+  __device__ __forceinline__ bool in_place(int zs, int ze) const {
+    return zs + g.Hz >= 0 && ze + g.Hz <= g.PZ();
+  }
+  __device__ __forceinline__ long long at_z(int i, int j, int k) const {
+    return g.at(i, j, k + g.Hz);
+  }
 };
 
 template <typename T, bool kCorr, bool kRn = false>
@@ -78,9 +87,6 @@ struct CompactRead {
   T cx, cy, cz;      // Δt_prev/Δx, Δt_prev/Δy, Δt_prev/Δz (kCorr)
   Geom g;            // Hz = 0
 
-  __device__ __forceinline__ T c(const T* a, int i, int j, int k) const {
-    return a[g.at(i, j, k)];
-  }
   // q* − f·(p[at] − p[below])
   __device__ __forceinline__ T corrected(T q, T f, long long at, long long below) const {
     if constexpr (kRn)
@@ -114,22 +120,36 @@ struct CompactRead {
   __device__ __forceinline__ int even(int k) const {
     return k < 0 ? -k - 1 : (k >= g.Nz ? 2 * g.Nz - 1 - k : k);
   }
-  __device__ __forceinline__ T u_z(int i, int j, int k) const { return u(i, j, even(k)); }
-  __device__ __forceinline__ T v_z(int i, int j, int k) const { return v(i, j, even(k)); }
   __device__ __forceinline__ T w_z(int i, int j, int k) const {
     const int N = g.Nz;
     if (k < 0) return -k < N ? -w(i, j, -k) : T(0);
     if (k >= N) return k == N ? T(0) : -w(i, j, 2 * N - k);
     return w(i, j, k);
   }
-  __device__ __forceinline__ T c_z(const T* a, int i, int j, int k) const {
-    return c(a, i, j, even(k));
+
+  // the staging, as PaddedRead's: the corrected velocities through the z
+  // mirrors (0 where a mirror leaves the column: Nz below the reach, never
+  // read), a tracer through the even mirror
+  __device__ __forceinline__ T staged(int d, int i, int j, int k) const {
+    if (d == 2) return k <= 2 * g.Nz ? w_z(i, j, k) : T(0);
+    const int e = even(k);
+    return e < 0 || e >= g.Nz ? T(0) : d == 0 ? u(i, j, e) : v(i, j, e);
+  }
+  __device__ __forceinline__ long long tracer_at(int i, int j, int k) const {
+    const int e = even(k);
+    return e < 0 || e >= g.Nz ? -1 : g.at(i, j, e);
+  }
+  __device__ __forceinline__ bool in_place(int zs, int ze) const {
+    return zs >= 0 && ze <= g.Nz;
+  }
+  __device__ __forceinline__ long long at_z(int i, int j, int k) const {
+    return g.at(i, j, k);
   }
 };
 
-template <typename T>
+template <typename T, bool kWalls_>
 struct SharedRead {
-  static constexpr bool kWalls = true;
+  static constexpr bool kWalls = kWalls_;
   const T* vel[3];   // the staged u, v, w boxes
   int ox, oy, oz;    // padded x, padded y and z index of a box's first cell
   int sx, sy;        // box strides along x and y; z is contiguous
@@ -201,143 +221,9 @@ __device__ __forceinline__ T recon_z(const Stencil<T, S, R>& P, int kk, int beta
   }
 }
 
-// ---- tendencies ------------------------------------------------------------------
-
-// G_u at padded (i, j), z index k: -∇·(𝐯u) at (f, c, c).
-template <int SCH, typename T, typename S, typename R>
-__device__ T tendency_u(const Stencil<T, S, R>& P, int i, int j, int k) {
-  const R& r = P.rd;
-  T F[2];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {          // x: centers i-1, i
-    const int c = i - 1 + m;
-    const T ut = symmetric<SCH>(P.tt, 1, [&](int o) { return P.Ax * r.u(c + o, j, k); });
-    F[m] = ut * upwind<SCH>(P.tt, P.ts, 1, ut, [&](int o) { return r.u(c + o, j, k); });
-  }
-  const T tx = F[1] - F[0];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {          // y: (f, f, c) faces j, j+1
-    const int jj = j + m;
-    const T vt = symmetric<SCH>(P.tt, 0, [&](int o) { return P.Ay * r.v(i + o, jj, k); });
-    F[m] = vt * upwind<SCH>(P.tt, P.ts, 0, vt, [&](int o) { return r.u(i, jj + o, k); });
-  }
-  const T ty = F[1] - F[0];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {          // z: (f, c, f) faces k, k+1
-    const int kk = k + m;
-    if (R::kWalls && kk == r.g.Nz) { F[m] = T(0); continue; }
-    const T wt = symmetric<SCH>(P.tt, 0, [&](int o) { return P.Az * r.w(i + o, j, kk); });
-    F[m] = wt * recon_z<SCH>(P, kk, 0, wt, [&](int kz) { return r.u_z(i, j, kz); });
-  }
-  const T tz = F[1] - F[0];
-  return -(((tx + ty) + tz) / P.V);
-}
-
-// G_v: -∇·(𝐯v) at (c, f, c).
-template <int SCH, typename T, typename S, typename R>
-__device__ T tendency_v(const Stencil<T, S, R>& P, int i, int j, int k) {
-  const R& r = P.rd;
-  T F[2];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {          // x: (f, f, c) faces i, i+1
-    const int ii = i + m;
-    const T ut = symmetric<SCH>(P.tt, 0, [&](int o) { return P.Ax * r.u(ii, j + o, k); });
-    F[m] = ut * upwind<SCH>(P.tt, P.ts, 0, ut, [&](int o) { return r.v(ii + o, j, k); });
-  }
-  const T tx = F[1] - F[0];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {          // y: centers j-1, j
-    const int c = j - 1 + m;
-    const T vt = symmetric<SCH>(P.tt, 1, [&](int o) { return P.Ay * r.v(i, c + o, k); });
-    F[m] = vt * upwind<SCH>(P.tt, P.ts, 1, vt, [&](int o) { return r.v(i, c + o, k); });
-  }
-  const T ty = F[1] - F[0];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {          // z: (c, f, f) faces k, k+1
-    const int kk = k + m;
-    if (R::kWalls && kk == r.g.Nz) { F[m] = T(0); continue; }
-    const T wt = symmetric<SCH>(P.tt, 0, [&](int o) { return P.Az * r.w(i, j + o, kk); });
-    F[m] = wt * recon_z<SCH>(P, kk, 0, wt, [&](int kz) { return r.v_z(i, j, kz); });
-  }
-  const T tz = F[1] - F[0];
-  return -(((tx + ty) + tz) / P.V);
-}
-
-// G_w: -∇·(𝐯w) at (c, c, f).
-template <int SCH, typename T, typename S, typename R>
-__device__ T tendency_w(const Stencil<T, S, R>& P, int i, int j, int k) {
-  const R& r = P.rd;
-  T F[2];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {          // x: (f, c, f) faces i, i+1; u in z
-    const int ii = i + m;
-    const T ut = interp_z<SCH>(P, k, 0, [&](int kz) { return P.Ax * r.u_z(ii, j, kz); });
-    F[m] = ut * upwind<SCH>(P.tt, P.ts, 0, ut, [&](int o) { return r.w(ii + o, j, k); });
-  }
-  const T tx = F[1] - F[0];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {          // y: (c, f, f) faces j, j+1; v in z
-    const int jj = j + m;
-    const T vt = interp_z<SCH>(P, k, 0, [&](int kz) { return P.Ay * r.v_z(i, jj, kz); });
-    F[m] = vt * upwind<SCH>(P.tt, P.ts, 0, vt, [&](int o) { return r.w(i, jj + o, k); });
-  }
-  const T ty = F[1] - F[0];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {          // z: centers k-1, k; none below the bottom face
-    const int kk = k - 1 + m;
-    if (R::kWalls && kk < 0) { F[m] = T(0); continue; }
-    const T wt = interp_z<SCH>(P, kk, 1, [&](int kz) { return P.Az * r.w_z(i, j, kz); });
-    F[m] = wt * recon_z<SCH>(P, kk, 1, wt, [&](int kz) { return r.w_z(i, j, kz); });
-  }
-  const T tz = F[1] - F[0];
-  return -(((tx + ty) + tz) / P.V);
-}
-
-// G_c: -∇·(𝐯c) at (c, c, c) for the tracer `a`; the advecting velocity is
-// the face velocity.
-template <int SCH, typename T, typename S, typename R>
-__device__ T tendency_c(const Stencil<T, S, R>& P, const T* a, int i, int j, int k) {
-  const R& r = P.rd;
-  T F[2];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {          // x: faces i, i+1
-    const int ii = i + m;
-    const T vel = r.u(ii, j, k);
-    F[m] = (P.Ax * vel) * upwind<SCH>(P.tt, P.ts, 0, vel, [&](int o) { return r.c(a, ii + o, j, k); });
-  }
-  const T tx = F[1] - F[0];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {          // y: faces j, j+1
-    const int jj = j + m;
-    const T vel = r.v(i, jj, k);
-    F[m] = (P.Ay * vel) * upwind<SCH>(P.tt, P.ts, 0, vel, [&](int o) { return r.c(a, i, jj + o, k); });
-  }
-  const T ty = F[1] - F[0];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {          // z: faces k, k+1
-    const int kk = k + m;
-    if (R::kWalls && kk == r.g.Nz) { F[m] = T(0); continue; }
-    const T vel = r.w(i, j, kk);
-    F[m] = (P.Az * vel) * recon_z<SCH>(P, kk, 0, vel, [&](int kz) { return r.c_z(a, i, j, kz); });
-  }
-  const T tz = F[1] - F[0];
-  return -(((tx + ty) + tz) / P.V);
-}
-
-// G of component `comp` (0 u, 1 v, 2 w, 3 and up the tracer `a`).
-template <int SCH, typename T, typename S, typename R>
-__device__ __forceinline__ T tendency(const Stencil<T, S, R>& P, int comp, const T* a, int i,
-                                      int j, int k) {
-  if (comp == 0) return tendency_u<SCH>(P, i, j, k);
-  if (comp == 1) return tendency_v<SCH>(P, i, j, k);
-  if (comp == 2) return tendency_w<SCH>(P, i, j, k);
-  return tendency_c<SCH>(P, a, i, j, k);
-}
-
 // ---- face fluxes, each once ---------------------------------------------------------
 //
-// The flux of -∇·(𝐯q) through one face, the expression tendency_u, _v, _w
-// and _c form for it (their F[m]), for component `comp` (0 u, 1 v, 2 w, 3
+// The flux of -∇·(𝐯q) through one face, for component `comp` (0 u, 1 v, 2 w, 3
 // and up the tracer whose values `a` points to, read as r.c(a, ...)). P
 // gives the metrics, the tables and Nz; Q the reads. Positions are padded x,
 // padded y and the z index of the face or centre the flux goes through:

@@ -31,41 +31,52 @@
 // function needs about 1,800 floating-point operations per cell (chip_smoke.py
 // counts them: each derived field, face flux and reconstruction once), 0.114
 // ms at the float32 rate; its compulsory bytes (u, v, w, T in; Gu, Gv, G_T
-// out) take 0.045 ms at 3.35 TB/s (H100 SXM). The scratch below is this
-// design's own traffic (0.19 ms more if written and read once).
-// Design: the simplest correct form. One call, two launches: vi_derive writes
-// the derived fields once per padded cell into scratch arrays (ζ, û, v̂, ℑy u,
-// ℑx v, δx(u²/2), δy(v²/2), δy(u²/2), δx(v²/2), ℑx u, ℑy v, δx(Ax u),
-// δy(Ay v), or K), so that no reconstruction re-forms a derived value per
-// stencil read; vi_assemble takes one thread per (component, output cell), z
-// fastest, the component uniform per block, and reads its stencils through
-// L1/L2. The reconstructions are one non-inlined function per field type,
-// with the WENO orders inlined in it, to bound the code size. Coefficients
-// live in constant memory (VITab), uploaded once per device by
-// oc_vi_set_tables. Metrics are per-y rows in the field type. Divisions are
-// exact. Offsets are 64-bit.
+// out) take 0.045 ms at 3.35 TB/s (H100 SXM).
 //
-// ptxas (sm_90a, -O3, on an H100 build): vi_assemble<float, float>
-// 118 registers, <double, double> 192, <float, double> 160, <double, float>
-// 156; vi_derive 32 (float) and 34 (double); no spills, no stack frame in
-// any of them. At 512x256x32 float32 the call takes about 3.6 ms against
-// its 0.114 ms bound (PERF.md).
+// Design: one launch, one block per TX × TY × TZ tile of output cells (the
+// interior plus the boundary-face rows; z fastest across threads, a ragged
+// edge masked), and no device-memory scratch. The block stages u and v over
+// the tile plus a reach R = max(WENO vorticity buffer, 3) + 1 along x and y
+// (zeros outside the padded array), and the tile's metric rows, into shared
+// memory; then it works through the TPU function's four phases in turn,
+// each forming its derived fields once over the box less one cell a side
+// into one work buffer that the next phase reuses (tiles.cuh's loops,
+// strided by the block's thread count, separated by __syncthreads()):
+//   vorticity   ζ (and ℑy u, ℑx v for WENO), then per u and v point the
+//               vorticity flux into the per-cell sums Gu, Gv;
+//   Bernoulli   for u, then for v, the ½u² and ½v² differences and ℑx u,
+//               ℑy v (or K), and each point's head;
+//   vertical    w over the tile plus 2 and u, v over the tile's columns
+//               plus 3 along z, each z face flux of u and v once, then
+//               δx(Ax u), δy(Ay v), Φᵟ and the flux differences;
+//   forces      Coriolis and −δph (ph staged over the tile plus one), Gu and
+//               Gv written; then each tracer staged over the tile plus 3
+//               and each of its face fluxes formed once, and Gc from the
+//               differences.
+// The reconstructions are one non-inlined function per field type, with the
+// WENO orders inlined in it, reading each stencil's cells in place from a
+// shared-memory box by the line's stride (holding a WENO-9's 27 cells and
+// smoothness operands in registers left room for one block an SM). Coefficients live in constant memory (VITab), uploaded once per
+// device by oc_vi_set_tables. Metrics are per-y rows in the field type.
+// Divisions are exact. The tile, the block count and the dynamic shared
+// memory come from kernels/fused_vector_invariant.py launch_plan; the C
+// entry recomputes and checks them. Registers and spills: `-Xptxas -v`
+// (chip_smoke.py prints them).
 #include "common.cuh"
+#include "tiles.cuh"
 
 namespace {
 
 constexpr int kMaxTracers = 8;
-constexpr int kNumScratch = 14;
+constexpr int kThreads = 256;  // the most threads a block takes
+constexpr int kInFlight = 4;   // staging loads in flight a thread
+constexpr int kRz = 3;         // z reach of the WENO-5 vertical and tracer reconstructions
+constexpr int kRc = 3;         // horizontal reach of a tracer box
 
 // Metric rows, as kernels/fused_vector_invariant.py ROWS orders them.
 enum Row {
   kDxFCC, kDxCFC, kDyFCC, kDyCFC, kAzFFC, kAzFCC, kAzCFC, kAzCCF, kAxFCC, kAyCFC,
   kVFCC, kVCFC, kVCCC, kF, kNumRows
-};
-
-// Scratch arrays, as SCRATCH orders them.
-enum Scr {
-  sZeta, sVhat, sUhat, sSu, sSv, sDu2, sDv2, sDu2y, sDv2x, sIxu, sIyv, sDU, sDV, sK
 };
 
 // Coefficients for WENO buffers k = 2..5 (index k-2), zero-padded to 5.
@@ -91,12 +102,62 @@ template <> __device__ __forceinline__ const VITab<double>& vtab<double>() { ret
 __device__ __forceinline__ float absval(float x) { return fabsf(x); }
 __device__ __forceinline__ double absval(double x) { return fabs(x); }
 
+// Element offsets of a block's shared arrays for a TX × TY × TZ tile and a
+// horizontal reach R; kernels/fused_vector_invariant.py smem_bytes computes
+// the same total. Box coordinates (A, B, c) count from (i0 - R, j0 - R, k0),
+// the tile's first output cell less the reach.
+struct Layout {
+  int BY, sx, sy;      // box strides: (TY + 2R)·TZ along A, TZ along B
+  int box;             // one box: u, v, or a derived field, (TX + 2R)(TY + 2R) TZ
+  int wby, wbz, wsz;   // the w box from (i0 - 2, j0 - 2, k0): (TX + 3)(TY + 3)(TZ + 1)
+  int col, fz;         // a z column box TX·TY·(TZ + 2kRz); z face fluxes TX·TY·(TZ + 1)
+  int phb;             // the ph box from (i0 - 1, j0 - 1, k0): (TX + 1)(TY + 1) TZ
+  int tby, tbz, tb;    // a tracer box from (i0 - kRc, j0 - kRc, k0 - kRz)
+  int tfx, tfy;        // tracer fluxes (TX + 1)·TY·TZ, TX·(TY + 1)·TZ (and fz)
+  int U, V, acc[2], rows, work, total;
+
+  __host__ __device__ Layout(int TX, int TY, int TZ, int R) {
+    BY = TY + 2 * R;
+    sy = TZ;
+    sx = BY * TZ;
+    box = oc::align_elems((TX + 2 * R) * BY * TZ);
+    wby = TY + 3;
+    wbz = TZ + 1;
+    wsz = oc::align_elems((TX + 3) * wby * wbz);
+    col = oc::align_elems(TX * TY * (TZ + 2 * kRz));
+    fz = oc::align_elems(TX * TY * (TZ + 1));
+    phb = oc::align_elems((TX + 1) * (TY + 1) * TZ);
+    tby = TY + 2 * kRc;
+    tbz = TZ + 2 * kRz;
+    tb = oc::align_elems((TX + 2 * kRc) * tby * tbz);
+    tfx = oc::align_elems((TX + 1) * TY * TZ);
+    tfy = oc::align_elems(TX * (TY + 1) * TZ);
+    const int cells = oc::align_elems(TX * TY * TZ);
+    int o = 0;
+    U = o; o += box;
+    V = o; o += box;
+    acc[0] = o; o += cells;
+    acc[1] = o; o += cells;
+    rows = o; o += oc::align_elems(kNumRows * BY);
+    work = o;
+    // the work buffer holds, phase by phase: ζ, ℑy u, ℑx v (three boxes);
+    // three Bernoulli fields; w, the z face fluxes of u and v, then the u
+    // and v columns or δx(Ax u) and δy(Ay v); w and ph; w, a tracer box and
+    // its fluxes
+    const int c2 = 2 * col > 2 * box ? 2 * col : 2 * box;
+    int need = 3 * box;
+    need = need > wsz + 2 * fz + c2 ? need : wsz + 2 * fz + c2;
+    need = need > wsz + phb ? need : wsz + phb;
+    need = need > wsz + tb + tfx + tfy + fz ? need : wsz + tb + tfx + tfy + fz;
+    total = o + need;
+  }
+};
+
 template <typename T>
 struct Params {
   const T* u; const T* v; const T* w; const T* ph;
   const T* c[kMaxTracers];
-  T* G[2 + kMaxTracers];        // Gu, Gv, Gc...
-  T* s[kNumScratch];            // scratch, padded (null when not needed)
+  T* G[2 + kMaxTracers];        // Gu, Gv, Gc... (padded)
   const T* rows;                // kNumRows x PY
   oc::Geom g;
   int bx, by;                   // bounded x / y
@@ -105,100 +166,66 @@ struct Params {
   int cor;                      // 0 none, 1 FPlane, 2 spherical energy, 3 spherical enstrophy
   int tsch;                     // tracers: 0 Centered(2), 1 WENO(5)
   int ntr, with_ph;
-  T dzc, dzf;                   // Δz at centers and z faces (regular z)
+  T dzf;                        // Δz at z faces (regular z)
+  int TX, TY, TZ, R;            // the tile and the reach
+  int tiles_y, tiles_z;         // tiles along y and z
 };
 
-template <typename T>
-__device__ __forceinline__ bool inb(const Params<T>& P, int i, int j, int k) {
-  return (unsigned)i < (unsigned)P.g.PX() && (unsigned)j < (unsigned)P.g.PY() &&
-         (unsigned)k < (unsigned)P.g.PZ();
-}
+// -- reconstructions -------------------------------------------------------------
 
-// a at padded (i, j, k), 0 outside the padded array.
-template <typename T>
-__device__ __forceinline__ T rd(const Params<T>& P, const T* a, int i, int j, int k) {
-  return inb(P, i, j, k) ? a[P.g.at(i, j, k)] : T(0);
-}
+// How a reconstruction's smoothness is formed: from the reconstructed line
+// itself, from one line s1, from s1 and s2 summed as indicators, or from
+// the line s1 + s2.
+enum Smooth { kSelf, kOne, kTwo, kSum };
 
-template <typename T>
-__device__ __forceinline__ T row(const Params<T>& P, int r, int j) {
-  return P.rows[(long long)r * P.g.PY() + j];
-}
-
-// metric row r times a at (i, j, k), 0 outside: a shifted read of the
-// plain version's product tensor.
-template <typename T>
-__device__ __forceinline__ T mrd(const Params<T>& P, int r, const T* a, int i, int j, int k) {
-  return inb(P, i, j, k) ? row(P, r, j) * a[P.g.at(i, j, k)] : T(0);
-}
-
-// -- lines and reconstructions -------------------------------------------------
-
-// One array (or the sum of two) along one axis from a position: get(o) reads
-// offset o, 0 outside the padded array.
-template <typename T>
-struct Line {
-  const T* a;
-  const T* b;          // added to a when not null
-  long long base, stride;
-  int p, n;            // position along the axis and its padded extent
-  __device__ __forceinline__ T get(int o) const {
-    const int q = p + o;
-    if ((unsigned)q >= (unsigned)n) return T(0);
-    const long long at = base + (long long)o * stride;
-    return b ? a[at] + b[at] : a[at];
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ Line<T> line(const Params<T>& P, const T* a, const T* b, int axis,
-                                        int i, int j, int k) {
-  Line<T> L;
-  L.a = a;
-  L.b = b;
-  L.base = P.g.at(i, j, k);
-  if (axis == 0) { L.stride = (long long)P.g.PY() * P.g.PZ(); L.p = i; L.n = P.g.PX(); }
-  else if (axis == 1) { L.stride = P.g.PZ(); L.p = j; L.n = P.g.PY(); }
-  else { L.stride = 1; L.p = k; L.n = P.g.PZ(); }
-  return L;
-}
-
-// β = Σ_m (Σ_j fac[m][j]·v[j])² in S over the K cells v.
-template <int K, typename S, typename T>
-__device__ __forceinline__ S smoothness(int s, const T* v) {
+// β = Σ_m (Σ_j fac[m][j]·q(j))² in S over the K cells q(0 .. K-1).
+template <int K, typename S, typename Q>
+__device__ __forceinline__ S smoothness(int s, Q q) {
   const VITab<S>& ts = vtab<S>();
+  S v[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) v[j] = (S)q(j);
   S beta = S(0);
 #pragma unroll
   for (int m = 0; m < K; ++m) {
-    S lin = ts.fac[K - 2][s][m][0] * (S)v[0];
+    S lin = ts.fac[K - 2][s][m][0] * v[0];
 #pragma unroll
-    for (int j = 1; j < K; ++j) lin = lin + ts.fac[K - 2][s][m][j] * (S)v[j];
+    for (int j = 1; j < K; ++j) lin = lin + ts.fac[K - 2][s][m][j] * v[j];
     beta = m == 0 ? lin * lin : beta + lin * lin;
   }
   return beta;
 }
 
-// WENO of buffer K on the 2K-1 selected cells c (left-biased orientation),
-// the smoothness from c itself (nsm = 0) or summed over s1 (and s2).
+// WENO of buffer K on the 2K-1 upwind-selected cells of the line through v
+// with stride st in a shared box (v at the reconstruction point), read in
+// place stencil by stencil: cell n of the left-biased orientation sits at
+// offset β-K+n when pos, β+K-1-n when not; the smoothness of the line
+// itself or of s1 (and s2, or s1 + s2) at the same offsets.
 template <int K, typename T, typename S>
-__device__ __forceinline__ T weno(const T* c, int nsm, const T* s1, const T* s2) {
+__device__ __forceinline__ T weno_line(int beta, bool pos, const T* v, int st, int nsm,
+                                       const T* s1, const T* s2) {
   const VITab<T>& tt = vtab<T>();
   const VITab<S>& ts = vtab<S>();
+  const int first = (pos ? beta - K : beta + K - 1) * st;   // cell 0
+  const int step = pos ? st : -st;
+  auto cell = [&](const T* a, int n) { return a[first + n * step]; };
   T p[K];
   S b[K];
 #pragma unroll
   for (int s = 0; s < K; ++s) {
     const int o = K - 1 - s;
-    T acc = tt.coef[K - 2][s][0] * c[o];
+    T acc = tt.coef[K - 2][s][0] * cell(v, o);
 #pragma unroll
-    for (int j = 1; j < K; ++j) acc = acc + tt.coef[K - 2][s][j] * c[o + j];
+    for (int j = 1; j < K; ++j) acc = acc + tt.coef[K - 2][s][j] * cell(v, o + j);
     p[s] = acc;
-    if (nsm == 0) {
-      b[s] = smoothness<K, S>(s, c + o);
+    if (nsm == kSelf) {
+      b[s] = smoothness<K, S>(s, [&](int j) { return cell(v, o + j); });
+    } else if (nsm == kSum) {
+      b[s] = smoothness<K, S>(s, [&](int j) { return cell(s1, o + j) + cell(s2, o + j); });
     } else {
-      S beta = smoothness<K, S>(s, s1 + o);
-      if (nsm > 1) beta = beta + smoothness<K, S>(s, s2 + o);
-      b[s] = beta;
+      S beta_s = smoothness<K, S>(s, [&](int j) { return cell(s1, o + j); });
+      if (nsm == kTwo) beta_s = beta_s + smoothness<K, S>(s, [&](int j) { return cell(s2, o + j); });
+      b[s] = beta_s;
     }
   }
   S tau = b[0];
@@ -218,32 +245,19 @@ __device__ __forceinline__ T weno(const T* c, int nsm, const T* s1, const T* s2)
   return num / den;
 }
 
-template <int K, typename T, typename S>
-__device__ __forceinline__ T weno_line(int beta, bool pos, const Line<T>& v, int nsm,
-                                       const Line<T>& s1, const Line<T>& s2) {
-  T c[2 * K - 1], a1[2 * K - 1], a2[2 * K - 1];
-#pragma unroll
-  for (int n = 0; n < 2 * K - 1; ++n) {
-    const int o = beta - K + n;
-    const int so = pos ? o : 2 * beta - 1 - o;
-    c[n] = v.get(so);
-    if (nsm > 0) a1[n] = s1.get(so);
-    if (nsm > 1) a2[n] = s2.get(so);
-  }
-  return weno<K, T, S>(c, nsm, a1, a2);
-}
-
-// The upwind reconstruction of v at buffer K (1: UpwindBiased(1)), selected
-// by pos (the advecting velocity > 0), with nsm smoothness lines.
+// The upwind reconstruction at buffer K (1: UpwindBiased(1)) of the line
+// through v with stride st in a shared box (v at the reconstruction point),
+// selected by pos (the advecting velocity > 0); the smoothness lines s1, s2
+// share v's stride.
 template <typename T, typename S>
-__device__ __noinline__ T recon(int K, int beta, bool pos, Line<T> v, int nsm, Line<T> s1,
-                                Line<T> s2) {
+__device__ __noinline__ T recon(int K, int beta, bool pos, const T* v, int st, int nsm,
+                                const T* s1, const T* s2) {
   switch (K) {
-    case 5: return weno_line<5, T, S>(beta, pos, v, nsm, s1, s2);
-    case 4: return weno_line<4, T, S>(beta, pos, v, nsm, s1, s2);
-    case 3: return weno_line<3, T, S>(beta, pos, v, nsm, s1, s2);
-    case 2: return weno_line<2, T, S>(beta, pos, v, nsm, s1, s2);
-    default: return pos ? v.get(beta - 1) : v.get(beta);
+    case 5: return weno_line<5, T, S>(beta, pos, v, st, nsm, s1, s2);
+    case 4: return weno_line<4, T, S>(beta, pos, v, st, nsm, s1, s2);
+    case 3: return weno_line<3, T, S>(beta, pos, v, st, nsm, s1, s2);
+    case 2: return weno_line<2, T, S>(beta, pos, v, st, nsm, s1, s2);
+    default: return pos ? v[(beta - 1) * st] : v[beta * st];
   }
 }
 
@@ -266,368 +280,551 @@ __device__ __forceinline__ T sym(bool c4, int beta, F a) {
   return tt.c2[0] * a(beta - 1) + tt.c2[1] * a(beta);
 }
 
-// -- launch 1: derived fields ---------------------------------------------------
+// -- the kernel ------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(256) vi_derive(const __grid_constant__ Params<T> P) {
-  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long total = (long long)P.g.PX() * P.g.PY() * P.g.PZ();
-  if (n >= total) return;
-  const int PZ = P.g.PZ(), PY = P.g.PY();
-  const int k = (int)(n % PZ);
-  const int j = (int)((n / PZ) % PY);
-  const int i = (int)(n / ((long long)PZ * PY));
-  const T *u = P.u, *v = P.v;
-  // ζ = (δx(Δy v) - δy(Δx u)) / Az at ffc
+template <typename T, typename S>
+__global__ void __launch_bounds__(kThreads) vi_tendency_kernel(const __grid_constant__ Params<T> P) {
+  extern __shared__ __align__(16) unsigned char oc_smem[];
+  T* const sm = reinterpret_cast<T*>(oc_smem);
+  const oc::Geom& g = P.g;
+  const int TY = P.TY, TZ = P.TZ, R = P.R;
+  const Layout L(P.TX, TY, TZ, R);
+  int t = blockIdx.x;
+  const int bz = t % P.tiles_z;
+  t /= P.tiles_z;
+  const int ty = t % P.tiles_y, tx = t / P.tiles_y;
+  const int x0 = tx * P.TX, y0 = ty * TY, z0 = bz * TZ;   // the tile's first output cell
+  const int ex = oc::imin(P.TX, g.Nx + P.bx - x0), ey = oc::imin(TY, g.Ny + P.by - y0),
+            ez = oc::imin(TZ, g.Nz - z0);
+  const int i0 = x0 + g.Hx, j0 = y0 + g.Hy, k0 = z0 + g.Hz;   // padded
+  const int PX = g.PX(), PY = g.PY(), PZ = g.PZ();
+  const int bxe = ex + 2 * R, bye = ey + 2 * R;           // the box's extents
+  T* const U = sm + L.U;
+  T* const V = sm + L.V;
+  T* const acc_u = sm + L.acc[0];
+  T* const acc_v = sm + L.acc[1];
+  T* const rows = sm + L.rows;
+  T* const work = sm + L.work;
+
+  // box coordinates (A, B, c) and the padded array
+  auto inb = [&](int A, int B) {
+    return (unsigned)(i0 - R + A) < (unsigned)PX && (unsigned)(j0 - R + B) < (unsigned)PY;
+  };
+  auto at = [&](int A, int B, int c) { return (A * L.BY + B) * TZ + c; };
+  auto row = [&](int r, int B) { return rows[r * L.BY + B]; };
+  // metric row r times u or v at (A, B, c), 0 outside the padded array: a
+  // shifted read of the plain version's product tensor
+  auto mU = [&](int r, int A, int B, int c) { return inb(A, B) ? row(r, B) * U[at(A, B, c)] : T(0); };
+  auto mV = [&](int r, int A, int B, int c) { return inb(A, B) ? row(r, B) * V[at(A, B, c)] : T(0); };
+  // the padded index of box coordinates
+  auto pi = [&](int A) { return i0 - R + A; };
+  auto pj = [&](int B) { return j0 - R + B; };
+
+  // staging: u and v over the box, the metric rows over its y
+  for (int d = 0; d < 2; ++d) {
+    const T* const src = d == 0 ? P.u : P.v;
+    oc::stage_box<kInFlight>(d == 0 ? U : V, bxe * bye * ez, bye, ez,
+                             [&](int A, int B, int c, int& slot) {
+                               slot = at(A, B, c);
+                               return inb(A, B) ? src[g.at(pi(A), pj(B), k0 + c)] : T(0);
+                             });
+  }
+  oc::for_rect(kNumRows * bye, bye, [&](int r, int B) {
+    const int j = pj(B);
+    rows[r * L.BY + B] = (unsigned)j < (unsigned)PY ? P.rows[(long long)r * PY + j] : T(0);
+  });
+  __syncthreads();
+
+  // the derived fields' region: the box less one cell a side; the output
+  // cells (a, b, c) at box (R + a, R + b, c), accumulator slot m
+  const int nD = (bxe - 2) * (bye - 2) * ez;
+  auto for_derived = [&](auto body) {
+    oc::for_box(nD, bye - 2, ez, [&](int a, int b, int c) { body(a + 1, b + 1, c); });
+  };
+  auto for_cells = [&](auto body) {
+    oc::for_box(ex * ey * ez, ey, ez, [&](int a, int b, int c) {
+      body(a, b, c, R + a, R + b, (a * TY + b) * TZ + c);
+    });
+  };
+  const int nx_u = g.Nx + P.bx, ny_u = g.Ny, nx_v = g.Nx, ny_v = g.Ny + P.by;
+  auto has_u = [&](int a, int b) { return x0 + a < nx_u && y0 + b < ny_u; };
+  auto has_v = [&](int a, int b) { return x0 + a < nx_v && y0 + b < ny_v; };
+
+  // v̂ = ℑx(ℑy(Δx v)) / Δx at fcc; û = ℑy(ℑx(Δy u)) / Δy at cfc
+  auto iyc = [&](int A, int B, int c) {
+    return inb(A, B) ? T(0.5) * (mV(kDxCFC, A, B + 1, c) + mV(kDxCFC, A, B, c)) : T(0);
+  };
+  auto ixc = [&](int A, int B, int c) {
+    return inb(A, B) ? T(0.5) * (mU(kDyFCC, A + 1, B, c) + mU(kDyFCC, A, B, c)) : T(0);
+  };
+  auto vhat = [&](int A, int B, int c) {
+    return (T(0.5) * (iyc(A, B, c) + iyc(A - 1, B, c))) / row(kDxFCC, B);
+  };
+  auto uhat = [&](int A, int B, int c) {
+    return (T(0.5) * (ixc(A, B, c) + ixc(A, B - 1, c))) / row(kDyCFC, B);
+  };
+
+  // -- phase 1: the vorticity flux ---------------------------------------------
   {
-    const T dxa = mrd(P, kDyCFC, v, i, j, k) - mrd(P, kDyCFC, v, i - 1, j, k);
-    const T dyb = mrd(P, kDxFCC, u, i, j, k) - mrd(P, kDxFCC, u, i, j - 1, k);
-    P.s[sZeta][n] = (dxa - dyb) / row(P, kAzFFC, j);
+    T* const zeta = work;
+    T* const su = work + L.box;
+    T* const sv = work + 2 * L.box;
+    const bool weno_vort = P.vort == 2;
+    for_derived([&](int A, int B, int c) {
+      const int n = at(A, B, c);
+      T z = T(0), a1 = T(0), a2 = T(0);
+      if (inb(A, B)) {
+        // ζ = (δx(Δy v) - δy(Δx u)) / Az at ffc
+        const T dxa = mV(kDyCFC, A, B, c) - mV(kDyCFC, A - 1, B, c);
+        const T dyb = mU(kDxFCC, A, B, c) - mU(kDxFCC, A, B - 1, c);
+        z = (dxa - dyb) / row(kAzFFC, B);
+        a1 = T(0.5) * (U[n] + U[at(A, B - 1, c)]);
+        a2 = T(0.5) * (V[n] + V[at(A - 1, B, c)]);
+      }
+      zeta[n] = z;
+      if (weno_vort) {
+        su[n] = a1;
+        sv[n] = a2;
+      }
+    });
+    __syncthreads();
+    for_cells([&](int a, int b, int c, int A, int B, int m) {
+      const int n = at(A, B, c);
+      if (has_u(a, b)) {
+        T Gh;
+        if (P.vort == 0) {
+          const T iyz = T(0.5) * (zeta[at(A, B + 1, c)] + zeta[n]);
+          Gh = -((-iyz) * vhat(A, B, c));
+        } else if (P.vort == 1) {
+          // ℑy(ζ ℑx(Δx v)) / Δx
+          auto zvx = [&](int BB) {
+            if (!inb(A, BB)) return T(0);
+            const T vx = T(0.5) * (mV(kDxCFC, A, BB, c) + mV(kDxCFC, A - 1, BB, c));
+            return zeta[at(A, BB, c)] * vx;
+          };
+          Gh = -((-(T(0.5) * (zvx(B + 1) + zvx(B)))) / row(kDxFCC, B));
+        } else {
+          const T vh = vhat(A, B, c);
+          const int K = cascade(P.kv, P.by, pj(B), g.Hy, g.Ny, 1);
+          const T r = recon<T, S>(K, 1, vh > T(0), zeta + n, L.sy, kTwo, su + n, sv + n);
+          Gh = -((-vh) * r);
+        }
+        acc_u[m] = Gh;
+      }
+      if (has_v(a, b)) {
+        T Gh;
+        if (P.vort == 0) {
+          const T ixz = T(0.5) * (zeta[at(A + 1, B, c)] + zeta[n]);
+          Gh = -(ixz * uhat(A, B, c));
+        } else if (P.vort == 1) {
+          // ℑx(ζ ℑy(Δy u)) / Δy
+          auto zuy = [&](int AA) {
+            if (!inb(AA, B)) return T(0);
+            const T uy = T(0.5) * (mU(kDyFCC, AA, B, c) + mU(kDyFCC, AA, B - 1, c));
+            return zeta[at(AA, B, c)] * uy;
+          };
+          Gh = -((T(0.5) * (zuy(A + 1) + zuy(A))) / row(kDyCFC, B));
+        } else {
+          const T uh = uhat(A, B, c);
+          const int K = cascade(P.kv, P.bx, pi(A), g.Hx, g.Nx, 1);
+          const T r = recon<T, S>(K, 1, uh > T(0), zeta + n, L.sx, kTwo, su + n, sv + n);
+          Gh = -(uh * r);
+        }
+        acc_v[m] = Gh;
+      }
+    });
+    __syncthreads();
   }
-  if (P.s[sVhat]) {
-    // v̂ = ℑx(ℑy(Δx v)) / Δx at fcc; û = ℑy(ℑx(Δy u)) / Δy at cfc
-    auto iyc = [&](int ii) {
-      return inb(P, ii, j, k)
-                 ? T(0.5) * (mrd(P, kDxCFC, v, ii, j + 1, k) + mrd(P, kDxCFC, v, ii, j, k))
-                 : T(0);
-    };
-    P.s[sVhat][n] = (T(0.5) * (iyc(i) + iyc(i - 1))) / row(P, kDxFCC, j);
-    auto ixc = [&](int jj) {
-      return inb(P, i, jj, k)
-                 ? T(0.5) * (mrd(P, kDyFCC, u, i + 1, jj, k) + mrd(P, kDyFCC, u, i, jj, k))
-                 : T(0);
-    };
-    P.s[sUhat][n] = (T(0.5) * (ixc(j) + ixc(j - 1))) / row(P, kDyCFC, j);
-  }
-  if (P.s[sSu]) {
-    P.s[sSu][n] = T(0.5) * (rd(P, u, i, j, k) + rd(P, u, i, j - 1, k));
-    P.s[sSv][n] = T(0.5) * (rd(P, v, i, j, k) + rd(P, v, i - 1, j, k));
-  }
+
+  // -- phase 2: the Bernoulli head, for u then for v ---------------------------------
+  auto hu = [&](int A, int B, int c) {
+    const T x = U[at(A, B, c)];
+    return (T(0.5) * x) * x;
+  };
+  auto hv = [&](int A, int B, int c) {
+    const T x = V[at(A, B, c)];
+    return (T(0.5) * x) * x;
+  };
   if (P.upw) {
-    auto hu = [&](int ii, int jj) {
-      const T a = rd(P, u, ii, jj, k);
-      return (T(0.5) * a) * a;
-    };
-    auto hv = [&](int ii, int jj) {
-      const T a = rd(P, v, ii, jj, k);
-      return (T(0.5) * a) * a;
-    };
-    P.s[sDu2][n] = hu(i + 1, j) - hu(i, j);
-    P.s[sDv2][n] = hv(i, j + 1) - hv(i, j);
-    P.s[sDu2y][n] = hu(i, j) - hu(i, j - 1);
-    P.s[sDv2x][n] = hv(i, j) - hv(i - 1, j);
-    P.s[sIxu][n] = T(0.5) * (rd(P, u, i + 1, j, k) + rd(P, u, i, j, k));
-    P.s[sIyv][n] = T(0.5) * (rd(P, v, i, j + 1, k) + rd(P, v, i, j, k));
-    P.s[sDU][n] = mrd(P, kAxFCC, u, i + 1, j, k) - mrd(P, kAxFCC, u, i, j, k);
-    P.s[sDV][n] = mrd(P, kAyCFC, v, i, j + 1, k) - mrd(P, kAyCFC, v, i, j, k);
+    T* const f0 = work;
+    T* const f1 = work + L.box;
+    T* const f2 = work + 2 * L.box;
+    // u: δx(u²/2) (f0), ℑx u (f1), δx(v²/2) at ffc (f2)
+    for_derived([&](int A, int B, int c) {
+      const int n = at(A, B, c);
+      const bool in = inb(A, B);
+      f0[n] = in ? hu(A + 1, B, c) - hu(A, B, c) : T(0);
+      f1[n] = in ? T(0.5) * (U[at(A + 1, B, c)] + U[n]) : T(0);
+      f2[n] = in ? hv(A, B, c) - hv(A - 1, B, c) : T(0);
+    });
+    __syncthreads();
+    for_cells([&](int a, int b, int c, int A, int B, int m) {
+      if (!has_u(a, b)) return;
+      const int i = pi(A), j = pj(B);
+      const bool c4y = !P.by || (j >= g.Hy + 2 - 1 && j <= g.Hy + g.Ny - 2);
+      const T dKvs = sym<T>(c4y, 1, [&](int o) { return f2[at(A, B + o, c)]; });
+      const T uc = U[at(A, B, c)];
+      const int K = cascade(3, P.bx, i, g.Hx, g.Nx, 0);
+      const int n = at(A, B, c);
+      const T dKur = recon<T, S>(K, 0, uc > T(0), f0 + n, L.sx, kOne, f1 + n, nullptr);
+      acc_u[m] = acc_u[m] + -((dKur + dKvs) / row(kDxFCC, B));
+    });
+    __syncthreads();
+    // v: δy(v²/2) (f0), ℑy v (f1), δy(u²/2) at ffc (f2)
+    for_derived([&](int A, int B, int c) {
+      const int n = at(A, B, c);
+      const bool in = inb(A, B);
+      f0[n] = in ? hv(A, B + 1, c) - hv(A, B, c) : T(0);
+      f1[n] = in ? T(0.5) * (V[at(A, B + 1, c)] + V[n]) : T(0);
+      f2[n] = in ? hu(A, B, c) - hu(A, B - 1, c) : T(0);
+    });
+    __syncthreads();
+    for_cells([&](int a, int b, int c, int A, int B, int m) {
+      if (!has_v(a, b)) return;
+      const int i = pi(A), j = pj(B);
+      const bool c4x = !P.bx || (i >= g.Hx + 2 - 1 && i <= g.Hx + g.Nx - 2);
+      const T dKus = sym<T>(c4x, 1, [&](int o) { return f2[at(A + o, B, c)]; });
+      const T vc = V[at(A, B, c)];
+      const int K = cascade(3, P.by, j, g.Hy, g.Ny, 0);
+      const int n = at(A, B, c);
+      const T dKvr = recon<T, S>(K, 0, vc > T(0), f0 + n, L.sy, kOne, f1 + n, nullptr);
+      acc_v[m] = acc_v[m] + -((dKvr + dKus) / row(kDyCFC, B));
+    });
   } else {
     // K = (ℑx(u²) + ℑy(v²)) / 2 at ccc
-    auto sq = [&](const T* a, int ii, int jj) {
-      const T x = rd(P, a, ii, jj, k);
-      return x * x;
-    };
-    const T ixuu = T(0.5) * (sq(u, i + 1, j) + sq(u, i, j));
-    const T iyvv = T(0.5) * (sq(v, i, j + 1) + sq(v, i, j));
-    P.s[sK][n] = T(0.5) * (ixuu + iyvv);
+    T* const Kf = work;
+    for_derived([&](int A, int B, int c) {
+      T k = T(0);
+      if (inb(A, B)) {
+        auto sq = [](T x) { return x * x; };
+        const T ixuu = T(0.5) * (sq(U[at(A + 1, B, c)]) + sq(U[at(A, B, c)]));
+        const T iyvv = T(0.5) * (sq(V[at(A, B + 1, c)]) + sq(V[at(A, B, c)]));
+        k = T(0.5) * (ixuu + iyvv);
+      }
+      Kf[at(A, B, c)] = k;
+    });
+    __syncthreads();
+    for_cells([&](int a, int b, int c, int A, int B, int m) {
+      const T k = Kf[at(A, B, c)];
+      if (has_u(a, b))
+        acc_u[m] = acc_u[m] + -((k - Kf[at(A - 1, B, c)]) / row(kDxFCC, B));
+      if (has_v(a, b))
+        acc_v[m] = acc_v[m] + -((k - Kf[at(A, B - 1, c)]) / row(kDyCFC, B));
+    });
   }
-}
+  __syncthreads();
 
-// -- launch 2: the tendencies ---------------------------------------------------
+  // -- phase 3: vertical advection -------------------------------------------------
+  // w from (i0 - 2, j0 - 2, k0) over (ex + 3)(ey + 3)(ez + 1), kept through
+  // phase 4; W(A, B, c) reads it at box coordinates, c the z face
+  T* const wbox = work;
+  auto wat = [&](int A, int B, int c) { return ((A - R + 2) * L.wby + (B - R + 2)) * L.wbz + c; };
+  auto W = [&](int A, int B, int c) { return wbox[wat(A, B, c)]; };
+  auto inz = [&](int c) { return k0 + c < PZ; };
+  oc::stage_box<kInFlight>(wbox, (ex + 3) * (ey + 3) * (ez + 1), ey + 3, ez + 1,
+                           [&](int a, int b, int c, int& slot) {
+                             slot = (a * L.wby + b) * L.wbz + c;
+                             const int i = i0 - 2 + a, j = j0 - 2 + b, k = k0 + c;
+                             return (unsigned)i < (unsigned)PX && (unsigned)j < (unsigned)PY &&
+                                            k < PZ
+                                        ? P.w[g.at(i, j, k)]
+                                        : T(0);
+                           });
+  // Az·w at (A, B, face c), 0 outside the padded array
+  auto mW = [&](int A, int B, int c) {
+    return inb(A, B) && inz(c) ? row(kAzCCF, B) * W(A, B, c) : T(0);
+  };
+  T* const Fzu = work + L.wsz;
+  T* const Fzv = Fzu + L.fz;
+  T* const rest = Fzv + L.fz;
+  {
+    // u and v over the tile's columns, z from k0 - kRz
+    T* const ucol = rest;
+    T* const vcol = rest + L.col;
+    const int cz = TZ + 2 * kRz, ncol = ex * ey * (ez + 2 * kRz);
+    for (int d = 0; d < 2; ++d) {
+      const T* const src = d == 0 ? P.u : P.v;
+      oc::stage_box<kInFlight>(d == 0 ? ucol : vcol, ncol, ey, ez + 2 * kRz,
+                               [&](int a, int b, int c, int& slot) {
+                                 slot = (a * TY + b) * cz + c;
+                                 const int k = k0 - kRz + c;
+                                 return (unsigned)k < (unsigned)PZ
+                                            ? src[g.at(i0 + a, j0 + b, k)]
+                                            : T(0);
+                               });
+    }
+    __syncthreads();
+    // each z face flux of u and v once: faces k0 .. k0 + ez
+    oc::for_box(ex * ey * (ez + 1), ey, ez + 1, [&](int a, int b, int c) {
+      const int A = R + a, B = R + b, f = (a * TY + b) * (TZ + 1) + c;
+      const int i = pi(A), j = pj(B), kk = k0 + c;
+      const T* const uc = ucol + (a * TY + b) * cz + c + kRz;
+      const T* const vc = vcol + (a * TY + b) * cz + c + kRz;
+      T fu = T(0), fv = T(0);
+      if (inz(c)) {
+        if (P.upw) {
+          // ŵ = WENO(5).symmetric_x(Az w) at fcf (Centered(4) off the x walls),
+          // times the z reconstruction of u; likewise for v
+          const int Kz = cascade(3, true, kk, g.Hz, g.Nz, 0);
+          if (has_u(a, b)) {
+            const bool w4 = !P.bx || (i >= g.Hx + 3 && i <= g.Hx + g.Nx - 3);
+            const T wh = sym<T>(w4, 0, [&](int o) { return mW(A + o, B, c); });
+            fu = wh * recon<T, S>(Kz, 0, wh > T(0), uc, 1, kSelf, nullptr, nullptr);
+          }
+          if (has_v(a, b)) {
+            const bool w4 = !P.by || (j >= g.Hy + 3 && j <= g.Hy + g.Ny - 3);
+            const T wh = sym<T>(w4, 0, [&](int o) { return mW(A, B + o, c); });
+            fv = wh * recon<T, S>(Kz, 0, wh > T(0), vc, 1, kSelf, nullptr, nullptr);
+          }
+        } else {
+          // ℑx(Az w)·δz(u)/Δz at fcf; ℑy(Az w)·δz(v)/Δz at cff
+          const T ixa = T(0.5) * (mW(A, B, c) + mW(A - 1, B, c));
+          fu = ixa * ((uc[0] - uc[-1]) / P.dzf);
+          const T iya = T(0.5) * (mW(A, B, c) + mW(A, B - 1, c));
+          fv = iya * ((vc[0] - vc[-1]) / P.dzf);
+        }
+      }
+      Fzu[f] = fu;
+      Fzv[f] = fv;
+    });
+    __syncthreads();
+  }
+  if (P.upw) {
+    // δx(Ax u) and δy(Ay v); Φᵟ = u (ℑ(δy(Ay v)) + the WENO-5 of δx(Ax u)
+    // with the smoothness of δx(Ax u) + δy(Ay v)), and likewise for v
+    T* const dU = rest;
+    T* const dV = rest + L.box;
+    for_derived([&](int A, int B, int c) {
+      const int n = at(A, B, c);
+      const bool in = inb(A, B);
+      dU[n] = in ? mU(kAxFCC, A + 1, B, c) - mU(kAxFCC, A, B, c) : T(0);
+      dV[n] = in ? mV(kAyCFC, A, B + 1, c) - mV(kAyCFC, A, B, c) : T(0);
+    });
+    __syncthreads();
+    for_cells([&](int a, int b, int c, int A, int B, int m) {
+      const int i = pi(A), j = pj(B), n = at(A, B, c), f = (a * TY + b) * (TZ + 1) + c;
+      if (has_u(a, b)) {
+        const T uc = U[n];
+        const bool c4x = !P.bx || (i >= g.Hx + 2 && i <= g.Hx + g.Nx - 2);
+        const T dvs = sym<T>(c4x, 0, [&](int o) { return dV[at(A + o, B, c)]; });
+        const int K = cascade(3, P.bx, i, g.Hx, g.Nx, 0);
+        const T rdiv = recon<T, S>(K, 0, uc > T(0), dU + n, L.sx, kSum, dU + n, dV + n);
+        const T phi = uc * (dvs + rdiv);
+        const T az = Fzu[f + 1] - Fzu[f];
+        acc_u[m] = acc_u[m] + -((phi + az) / row(kVFCC, B));
+      }
+      if (has_v(a, b)) {
+        const T vc = V[n];
+        const bool c4y = !P.by || (j >= g.Hy + 2 && j <= g.Hy + g.Ny - 2);
+        const T dus = sym<T>(c4y, 0, [&](int o) { return dU[at(A, B + o, c)]; });
+        const int K = cascade(3, P.by, j, g.Hy, g.Ny, 0);
+        const T rdiv = recon<T, S>(K, 0, vc > T(0), dV + n, L.sy, kSum, dU + n, dV + n);
+        const T phi = vc * (dus + rdiv);
+        const T az = Fzv[f + 1] - Fzv[f];
+        acc_v[m] = acc_v[m] + -((phi + az) / row(kVCFC, B));
+      }
+    });
+  } else {
+    for_cells([&](int a, int b, int c, int A, int B, int m) {
+      const int f = (a * TY + b) * (TZ + 1) + c;
+      if (has_u(a, b))
+        acc_u[m] = acc_u[m] + -((T(0.5) * (Fzu[f + 1] + Fzu[f])) / row(kAzFCC, B));
+      if (has_v(a, b))
+        acc_v[m] = acc_v[m] + -((T(0.5) * (Fzv[f + 1] + Fzv[f])) / row(kAzCFC, B));
+    });
+  }
+  __syncthreads();
 
-template <typename T, typename S>
-__device__ T tendency_u(const Params<T>& P, int i, int j, int k) {
-  const oc::Geom& g = P.g;
-  const T *u = P.u, *v = P.v, *w = P.w;
-  const T dx_fcc = row(P, kDxFCC, j);
-  const Line<T> none{};
-  // vorticity flux
-  T Gh;
-  if (P.vort == 0) {
-    const T iyz = T(0.5) * (rd(P, P.s[sZeta], i, j + 1, k) + rd(P, P.s[sZeta], i, j, k));
-    Gh = -((-iyz) * P.s[sVhat][g.at(i, j, k)]);
-  } else if (P.vort == 1) {
-    // ℑy(ζ ℑx(Δx v)) / Δx
-    auto zvx = [&](int jj) {
-      if (!inb(P, i, jj, k)) return T(0);
-      const T vx = T(0.5) * (mrd(P, kDxCFC, v, i, jj, k) + mrd(P, kDxCFC, v, i - 1, jj, k));
-      return P.s[sZeta][g.at(i, jj, k)] * vx;
-    };
-    Gh = -((-(T(0.5) * (zvx(j + 1) + zvx(j)))) / dx_fcc);
-  } else {
-    const T vh = P.s[sVhat][g.at(i, j, k)];
-    const int K = cascade(P.kv, P.by, j, g.Hy, g.Ny, 1);
-    const T r = recon<T, S>(K, 1, vh > T(0), line(P, P.s[sZeta], (const T*)nullptr, 1, i, j, k), 2,
-                            line(P, P.s[sSu], (const T*)nullptr, 1, i, j, k),
-                            line(P, P.s[sSv], (const T*)nullptr, 1, i, j, k));
-    Gh = -((-vh) * r);
-  }
-  // Bernoulli head
-  T Gb;
-  if (!P.upw) {
-    Gb = -((rd(P, P.s[sK], i, j, k) - rd(P, P.s[sK], i - 1, j, k)) / dx_fcc);
-  } else {
-    const T* dv2x = P.s[sDv2x];
-    const bool c4y = !P.by || (j >= g.Hy + 2 - 1 && j <= g.Hy + g.Ny - 2);
-    const T dKvs = sym<T>(c4y, 1, [&](int o) { return rd(P, dv2x, i, j + o, k); });
-    const T uc = u[g.at(i, j, k)];
-    const int K = cascade(3, P.bx, i, g.Hx, g.Nx, 0);
-    const T dKur = recon<T, S>(K, 0, uc > T(0), line(P, P.s[sDu2], (const T*)nullptr, 0, i, j, k),
-                               1, line(P, P.s[sIxu], (const T*)nullptr, 0, i, j, k), none);
-    Gb = -((dKur + dKvs) / dx_fcc);
-  }
-  // vertical advection
-  T Gz;
-  if (!P.upw) {
-    auto azw = [&](int ii, int kk) { return mrd(P, kAzCCF, w, ii, j, kk); };
-    auto prod = [&](int kk) {
-      if (!inb(P, i, j, kk)) return T(0);
-      const T ixa = T(0.5) * (azw(i, kk) + azw(i - 1, kk));
-      const T dzu = (rd(P, u, i, j, kk) - rd(P, u, i, j, kk - 1)) / P.dzf;
-      return ixa * dzu;
-    };
-    Gz = -((T(0.5) * (prod(k + 1) + prod(k))) / row(P, kAzFCC, j));
-  } else {
-    const T uc = u[g.at(i, j, k)];
-    const T* dV = P.s[sDV];
-    const bool c4x = !P.bx || (i >= g.Hx + 2 && i <= g.Hx + g.Nx - 2);
-    const T dvs = sym<T>(c4x, 0, [&](int o) { return rd(P, dV, i + o, j, k); });
-    const int K = cascade(3, P.bx, i, g.Hx, g.Nx, 0);
-    const T rdiv = recon<T, S>(K, 0, uc > T(0), line(P, P.s[sDU], (const T*)nullptr, 0, i, j, k), 1,
-                               line(P, P.s[sDU], P.s[sDV], 0, i, j, k), none);
-    const T phi = uc * (dvs + rdiv);
-    // ŵ = WENO(5).symmetric_x(Az w) at fcf: Centered(4) off the x walls
-    const bool w4 = !P.bx || (i >= g.Hx + 3 && i <= g.Hx + g.Nx - 3);
-    auto flux = [&](int kk) {
-      if (!inb(P, i, j, kk)) return T(0);
-      const T wh = sym<T>(w4, 0, [&](int o) { return mrd(P, kAzCCF, w, i + o, j, kk); });
-      const int Kz = cascade(3, true, kk, g.Hz, g.Nz, 0);
-      const Line<T> none2{};
-      return wh * recon<T, S>(Kz, 0, wh > T(0), line(P, u, (const T*)nullptr, 2, i, j, kk), 0, none2,
-                              none2);
-    };
-    const T az = flux(k + 1) - flux(k);
-    Gz = -((phi + az) / row(P, kVFCC, j));
-  }
-  T G = (Gh + Gb) + Gz;
-  // forces
-  bool have_f = false;
-  T Gf = T(0);
-  if (P.cor == 1) {
-    // FPlane: -f ℑx(ℑy v)
-    auto iyv = [&](int ii) {
-      return inb(P, ii, j, k) ? T(0.5) * (rd(P, v, ii, j + 1, k) + rd(P, v, ii, j, k)) : T(0);
-    };
-    Gf = -((-row(P, kF, j)) * (T(0.5) * (iyv(i) + iyv(i - 1))));
-    have_f = true;
-  } else if (P.cor == 2) {
-    auto fvx = [&](int jj) {
-      if (!inb(P, i, jj, k)) return T(0);
-      const T vx = T(0.5) * (mrd(P, kDxCFC, v, i, jj, k) + mrd(P, kDxCFC, v, i - 1, jj, k));
-      return row(P, kF, jj) * vx;
-    };
-    Gf = -((-(T(0.5) * (fvx(j + 1) + fvx(j)))) / dx_fcc);
-    have_f = true;
-  } else if (P.cor == 3) {
-    const T f1 = j + 1 < g.PY() ? row(P, kF, j + 1) : T(0);
-    const T iyf = T(0.5) * (f1 + row(P, kF, j));
-    auto iyc = [&](int ii) {
-      return inb(P, ii, j, k)
-                 ? T(0.5) * (mrd(P, kDxCFC, v, ii, j + 1, k) + mrd(P, kDxCFC, v, ii, j, k))
-                 : T(0);
-    };
-    Gf = -(((-iyf) * (T(0.5) * (iyc(i) + iyc(i - 1)))) / dx_fcc);
-    have_f = true;
-  }
+  // -- phase 4: forces, then the tracers ------------------------------------------------
+  T* const phb = work + L.wsz;   // ph from (i0 - 1, j0 - 1, k0)
+  auto PH = [&](int A, int B, int c) {
+    return phb[((A - R + 1) * (TY + 1) + (B - R + 1)) * TZ + c];
+  };
   if (P.with_ph) {
-    const T Gp = -((rd(P, P.ph, i, j, k) - rd(P, P.ph, i - 1, j, k)) / dx_fcc);
-    Gf = have_f ? Gf + Gp : Gp;
+    oc::stage_box<kInFlight>(phb, (ex + 1) * (ey + 1) * ez, ey + 1, ez,
+                             [&](int a, int b, int c, int& slot) {
+                               slot = (a * (TY + 1) + b) * TZ + c;
+                               const int i = i0 - 1 + a, j = j0 - 1 + b;
+                               return (unsigned)i < (unsigned)PX && (unsigned)j < (unsigned)PY
+                                          ? P.ph[g.at(i, j, k0 + c)]
+                                          : T(0);
+                             });
+    __syncthreads();
   }
-  return G + Gf;
-}
+  for_cells([&](int a, int b, int c, int A, int B, int m) {
+    const long long out = g.at(pi(A), pj(B), k0 + c);
+    if (has_u(a, b)) {
+      bool have_f = false;
+      T Gf = T(0);
+      if (P.cor == 1) {
+        // FPlane: -f ℑx(ℑy v)
+        auto iyv = [&](int AA) {
+          return inb(AA, B) ? T(0.5) * (V[at(AA, B + 1, c)] + V[at(AA, B, c)]) : T(0);
+        };
+        Gf = -((-row(kF, B)) * (T(0.5) * (iyv(A) + iyv(A - 1))));
+        have_f = true;
+      } else if (P.cor == 2) {
+        auto fvx = [&](int BB) {
+          if (!inb(A, BB)) return T(0);
+          const T vx = T(0.5) * (mV(kDxCFC, A, BB, c) + mV(kDxCFC, A - 1, BB, c));
+          return row(kF, BB) * vx;
+        };
+        Gf = -((-(T(0.5) * (fvx(B + 1) + fvx(B)))) / row(kDxFCC, B));
+        have_f = true;
+      } else if (P.cor == 3) {
+        const T iyf = T(0.5) * (row(kF, B + 1) + row(kF, B));
+        Gf = -(((-iyf) * (T(0.5) * (iyc(A, B, c) + iyc(A - 1, B, c)))) / row(kDxFCC, B));
+        have_f = true;
+      }
+      if (P.with_ph) {
+        const T Gp = -((PH(A, B, c) - PH(A - 1, B, c)) / row(kDxFCC, B));
+        Gf = have_f ? Gf + Gp : Gp;
+      }
+      P.G[0][out] = acc_u[m] + Gf;
+    }
+    if (has_v(a, b)) {
+      bool have_f = false;
+      T Gf = T(0);
+      if (P.cor == 1) {
+        auto ixu = [&](int BB) {
+          return inb(A, BB) ? T(0.5) * (U[at(A + 1, BB, c)] + U[at(A, BB, c)]) : T(0);
+        };
+        Gf = -(row(kF, B) * (T(0.5) * (ixu(B) + ixu(B - 1))));
+        have_f = true;
+      } else if (P.cor == 2) {
+        auto fuy = [&](int AA) {
+          if (!inb(AA, B)) return T(0);
+          const T uy = T(0.5) * (mU(kDyFCC, AA, B, c) + mU(kDyFCC, AA, B - 1, c));
+          return row(kF, B) * uy;
+        };
+        Gf = -((T(0.5) * (fuy(A + 1) + fuy(A))) / row(kDyCFC, B));
+        have_f = true;
+      } else if (P.cor == 3) {
+        Gf = -((row(kF, B) * (T(0.5) * (ixc(A, B, c) + ixc(A, B - 1, c)))) / row(kDyCFC, B));
+        have_f = true;
+      }
+      if (P.with_ph) {
+        const T Gp = -((PH(A, B, c) - PH(A, B - 1, c)) / row(kDyCFC, B));
+        Gf = have_f ? Gf + Gp : Gp;
+      }
+      P.G[1][out] = acc_v[m] + Gf;
+    }
+  });
 
-template <typename T, typename S>
-__device__ T tendency_v(const Params<T>& P, int i, int j, int k) {
-  const oc::Geom& g = P.g;
-  const T *u = P.u, *v = P.v, *w = P.w;
-  const T dy_cfc = row(P, kDyCFC, j);
-  const Line<T> none{};
-  T Gh;
-  if (P.vort == 0) {
-    const T ixz = T(0.5) * (rd(P, P.s[sZeta], i + 1, j, k) + rd(P, P.s[sZeta], i, j, k));
-    Gh = -(ixz * P.s[sUhat][g.at(i, j, k)]);
-  } else if (P.vort == 1) {
-    // ℑx(ζ ℑy(Δy u)) / Δy
-    auto zuy = [&](int ii) {
-      if (!inb(P, ii, j, k)) return T(0);
-      const T uy = T(0.5) * (mrd(P, kDyFCC, u, ii, j, k) + mrd(P, kDyFCC, u, ii, j - 1, k));
-      return P.s[sZeta][g.at(ii, j, k)] * uy;
-    };
-    Gh = -((T(0.5) * (zuy(i + 1) + zuy(i))) / dy_cfc);
-  } else {
-    const T uh = P.s[sUhat][g.at(i, j, k)];
-    const int K = cascade(P.kv, P.bx, i, g.Hx, g.Nx, 1);
-    const T r = recon<T, S>(K, 1, uh > T(0), line(P, P.s[sZeta], (const T*)nullptr, 0, i, j, k), 2,
-                            line(P, P.s[sSu], (const T*)nullptr, 0, i, j, k),
-                            line(P, P.s[sSv], (const T*)nullptr, 0, i, j, k));
-    Gh = -(uh * r);
-  }
-  T Gb;
-  if (!P.upw) {
-    Gb = -((rd(P, P.s[sK], i, j, k) - rd(P, P.s[sK], i, j - 1, k)) / dy_cfc);
-  } else {
-    const T* du2y = P.s[sDu2y];
-    const bool c4x = !P.bx || (i >= g.Hx + 2 - 1 && i <= g.Hx + g.Nx - 2);
-    const T dKus = sym<T>(c4x, 1, [&](int o) { return rd(P, du2y, i + o, j, k); });
-    const T vc = v[g.at(i, j, k)];
-    const int K = cascade(3, P.by, j, g.Hy, g.Ny, 0);
-    const T dKvr = recon<T, S>(K, 0, vc > T(0), line(P, P.s[sDv2], (const T*)nullptr, 1, i, j, k),
-                               1, line(P, P.s[sIyv], (const T*)nullptr, 1, i, j, k), none);
-    Gb = -((dKvr + dKus) / dy_cfc);
-  }
-  T Gz;
-  if (!P.upw) {
-    auto azw = [&](int jj, int kk) { return mrd(P, kAzCCF, w, i, jj, kk); };
-    auto prod = [&](int kk) {
-      if (!inb(P, i, j, kk)) return T(0);
-      const T iya = T(0.5) * (azw(j, kk) + azw(j - 1, kk));
-      const T dzv = (rd(P, v, i, j, kk) - rd(P, v, i, j, kk - 1)) / P.dzf;
-      return iya * dzv;
-    };
-    Gz = -((T(0.5) * (prod(k + 1) + prod(k))) / row(P, kAzCFC, j));
-  } else {
-    const T vc = v[g.at(i, j, k)];
-    const T* dU = P.s[sDU];
-    const bool c4y = !P.by || (j >= g.Hy + 2 && j <= g.Hy + g.Ny - 2);
-    const T dus = sym<T>(c4y, 0, [&](int o) { return rd(P, dU, i, j + o, k); });
-    const int K = cascade(3, P.by, j, g.Hy, g.Ny, 0);
-    const T rdiv = recon<T, S>(K, 0, vc > T(0), line(P, P.s[sDV], (const T*)nullptr, 1, i, j, k), 1,
-                               line(P, P.s[sDU], P.s[sDV], 1, i, j, k), none);
-    const T phi = vc * (dus + rdiv);
-    const bool w4 = !P.by || (j >= g.Hy + 3 && j <= g.Hy + g.Ny - 3);
-    auto flux = [&](int kk) {
-      if (!inb(P, i, j, kk)) return T(0);
-      const T wh = sym<T>(w4, 0, [&](int o) { return mrd(P, kAzCCF, w, i, j + o, kk); });
-      const int Kz = cascade(3, true, kk, g.Hz, g.Nz, 0);
-      const Line<T> none2{};
-      return wh * recon<T, S>(Kz, 0, wh > T(0), line(P, v, (const T*)nullptr, 2, i, j, kk), 0, none2,
-                              none2);
-    };
-    const T az = flux(k + 1) - flux(k);
-    Gz = -((phi + az) / row(P, kVCFC, j));
-  }
-  T G = (Gh + Gb) + Gz;
-  bool have_f = false;
-  T Gf = T(0);
-  if (P.cor == 1) {
-    auto ixu = [&](int jj) {
-      return inb(P, i, jj, k) ? T(0.5) * (rd(P, u, i + 1, jj, k) + rd(P, u, i, jj, k)) : T(0);
-    };
-    Gf = -(row(P, kF, j) * (T(0.5) * (ixu(j) + ixu(j - 1))));
-    have_f = true;
-  } else if (P.cor == 2) {
-    auto fuy = [&](int ii) {
-      if (!inb(P, ii, j, k)) return T(0);
-      const T uy = T(0.5) * (mrd(P, kDyFCC, u, ii, j, k) + mrd(P, kDyFCC, u, ii, j - 1, k));
-      return row(P, kF, j) * uy;
-    };
-    Gf = -((T(0.5) * (fuy(i + 1) + fuy(i))) / dy_cfc);
-    have_f = true;
-  } else if (P.cor == 3) {
-    auto ixc = [&](int jj) {
-      return inb(P, i, jj, k)
-                 ? T(0.5) * (mrd(P, kDyFCC, u, i + 1, jj, k) + mrd(P, kDyFCC, u, i, jj, k))
-                 : T(0);
-    };
-    Gf = -((row(P, kF, j) * (T(0.5) * (ixc(j) + ixc(j - 1)))) / dy_cfc);
-    have_f = true;
-  }
-  if (P.with_ph) {
-    const T Gp = -((rd(P, P.ph, i, j, k) - rd(P, P.ph, i, j - 1, k)) / dy_cfc);
-    Gf = have_f ? Gf + Gp : Gp;
-  }
-  return G + Gf;
-}
-
-// -∇·(𝐯c) at ccc.
-template <typename T, typename S>
-__device__ T tendency_c(const Params<T>& P, const T* c, int i, int j, int k) {
-  const oc::Geom& g = P.g;
-  const Line<T> none{};
-  auto chat = [&](int axis, int ii, int jj, int kk, T vel) {
-    const Line<T> L = line(P, c, (const T*)nullptr, axis, ii, jj, kk);
-    const bool pos = vel > T(0);
+  // tracers: -∇·(𝐯c), each face flux once
+  T* const cbox = work + L.wsz;
+  T* const Fx = cbox + L.tb;
+  T* const Fy = Fx + L.tfx;
+  T* const Fz = Fy + L.tfy;
+  const int tsx = L.tby * L.tbz, tsy = L.tbz;
+  // the selected value at a face (ii, jj, kk) of the tracer box's line with
+  // stride st through the cell above the face (cell offset 0)
+  auto chat = [&](const T* line, int st, bool pos, int K) {
     if (P.tsch == 0) {
       const VITab<T>& tt = vtab<T>();
-      const T lo = L.get(-1), hi = L.get(0);
+      const T lo = line[-st], hi = line[0];
       return tt.c2[0] * (pos ? lo : hi) + tt.c2[1] * (pos ? hi : lo);
     }
-    const int p = axis == 0 ? ii : (axis == 1 ? jj : kk);
-    const int H = axis == 0 ? g.Hx : (axis == 1 ? g.Hy : g.Hz);
-    const int N = axis == 0 ? g.Nx : (axis == 1 ? g.Ny : g.Nz);
-    const bool bounded = axis == 0 ? P.bx : (axis == 1 ? P.by : true);
-    return recon<T, S>(cascade(3, bounded, p, H, N, 0), 0, pos, L, 0, none, none);
+    return recon<T, S>(K, 0, pos, line, st, kSelf, nullptr, nullptr);
   };
-  auto fx = [&](int ii) {
-    if (!inb(P, ii, j, k)) return T(0);
-    const T vel = P.u[g.at(ii, j, k)];
-    return (row(P, kAxFCC, j) * vel) * chat(0, ii, j, k, vel);
-  };
-  auto fy = [&](int jj) {
-    if (!inb(P, i, jj, k)) return T(0);
-    const T vel = P.v[g.at(i, jj, k)];
-    return (row(P, kAyCFC, jj) * vel) * chat(1, i, jj, k, vel);
-  };
-  auto fz = [&](int kk) {
-    if (!inb(P, i, j, kk)) return T(0);
-    const T vel = P.w[g.at(i, j, kk)];
-    return (row(P, kAzCCF, j) * vel) * chat(2, i, j, kk, vel);
-  };
-  const T total = ((fx(i + 1) - fx(i)) + (fy(j + 1) - fy(j))) + (fz(k + 1) - fz(k));
-  return -(total / row(P, kVCCC, j));
-}
-
-template <typename T, typename S>
-__global__ void __launch_bounds__(256) vi_assemble(const __grid_constant__ Params<T> P) {
-  const oc::Geom& g = P.g;
-  const int NXK = g.Nx + P.bx, NYK = g.Ny + P.by;
-  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= (long long)NXK * NYK * g.Nz) return;
-  const int K = (int)(n % g.Nz);
-  const int J = (int)((n / g.Nz) % NYK);
-  const int I = (int)(n / ((long long)g.Nz * NYK));
-  const int comp = blockIdx.y;
-  if (comp == 0) {
-    if (J >= g.Ny) return;
-  } else if (comp == 1) {
-    if (I >= g.Nx) return;
-  } else if (I >= g.Nx || J >= g.Ny) {
-    return;
+  for (int tr = 0; tr < P.ntr; ++tr) {
+    __syncthreads();   // the previous phase's reads are done
+    const T* const src = P.c[tr];
+    oc::stage_box<kInFlight>(cbox, (ex + 2 * kRc) * (ey + 2 * kRc) * (ez + 2 * kRz),
+                             ey + 2 * kRc, ez + 2 * kRz, [&](int a, int b, int c, int& slot) {
+                               slot = (a * L.tby + b) * L.tbz + c;
+                               const int i = i0 - kRc + a, j = j0 - kRc + b, k = k0 - kRz + c;
+                               return (unsigned)i < (unsigned)PX && (unsigned)j < (unsigned)PY &&
+                                              (unsigned)k < (unsigned)PZ
+                                          ? src[g.at(i, j, k)]
+                                          : T(0);
+                             });
+    __syncthreads();
+    auto cat = [&](int a, int b, int c) { return cbox + ((a + kRc) * L.tby + b + kRc) * L.tbz + c + kRz; };
+    oc::for_box((ex + 1) * ey * ez, ey, ez, [&](int a, int b, int c) {
+      const int A = R + a, B = R + b;
+      T f = T(0);
+      if (inb(A, B)) {
+        const T vel = U[at(A, B, c)];
+        f = (row(kAxFCC, B) * vel) *
+            chat(cat(a, b, c), tsx, vel > T(0), cascade(3, P.bx, pi(A), g.Hx, g.Nx, 0));
+      }
+      Fx[(a * TY + b) * TZ + c] = f;
+    });
+    oc::for_box(ex * (ey + 1) * ez, ey + 1, ez, [&](int a, int b, int c) {
+      const int A = R + a, B = R + b;
+      T f = T(0);
+      if (inb(A, B)) {
+        const T vel = V[at(A, B, c)];
+        f = (row(kAyCFC, B) * vel) *
+            chat(cat(a, b, c), tsy, vel > T(0), cascade(3, P.by, pj(B), g.Hy, g.Ny, 0));
+      }
+      Fy[(a * (TY + 1) + b) * TZ + c] = f;
+    });
+    oc::for_box(ex * ey * (ez + 1), ey, ez + 1, [&](int a, int b, int c) {
+      const int A = R + a, B = R + b;
+      T f = T(0);
+      if (inz(c)) {
+        const T vel = W(A, B, c);
+        f = (row(kAzCCF, B) * vel) *
+            chat(cat(a, b, c), 1, vel > T(0), cascade(3, true, k0 + c, g.Hz, g.Nz, 0));
+      }
+      Fz[(a * TY + b) * (TZ + 1) + c] = f;
+    });
+    __syncthreads();
+    T* const Gc = P.G[2 + tr];
+    for_cells([&](int a, int b, int c, int A, int B, int) {
+      if (x0 + a >= g.Nx || y0 + b >= g.Ny) return;
+      const int x = (a * TY + b) * TZ + c, y = (a * (TY + 1) + b) * TZ + c,
+                z = (a * TY + b) * (TZ + 1) + c;
+      const T total = ((Fx[x + TY * TZ] - Fx[x]) + (Fy[y + TZ] - Fy[y])) + (Fz[z + 1] - Fz[z]);
+      Gc[g.at(pi(A), pj(B), k0 + c)] = -(total / row(kVCCC, B));
+    });
   }
-  const int i = I + g.Hx, j = J + g.Hy, k = K + g.Hz;
-  T G;
-  if (comp == 0)
-    G = tendency_u<T, S>(P, i, j, k);
-  else if (comp == 1)
-    G = tendency_v<T, S>(P, i, j, k);
-  else
-    G = tendency_c<T, S>(P, P.c[comp - 2], i, j, k);
-  P.G[comp][g.at(i, j, k)] = G;
 }
 
+// The reach of a configuration's box: the WENO vorticity buffer or the
+// WENO-5 reach 3, and one more for the derived fields' own stencils.
+int reach_of(int vort, int kv) { return (vort == 2 && kv > 3 ? kv : 3) + 1; }
+
+struct Args {
+  const void* const* in;
+  void* const* out;
+  const void* rows;
+  const int* cf;
+  double dzf;
+  int TX, TY, TZ, threads, blocks, smem;
+  cudaStream_t stream;
+  int* per_sm;   // non-null: report the blocks an SM holds instead of launching
+};
+
 template <typename T, typename S>
-int launch(const void* const* in, void* const* out, void* const* scratch, const void* rows,
-           const int* cf, double dzc, double dzf, cudaStream_t stream) {
+int launch(const Args& a) {
+  const int* cf = a.cf;
+  const oc::Geom g{cf[0], cf[1], cf[2], cf[3], cf[4], cf[5]};
+  const int R = reach_of(cf[8], cf[9]);
+  const int tiles_y = oc::ceil_div(g.Ny + cf[7], a.TY), tiles_z = oc::ceil_div(g.Nz, a.TZ);
+  const long long want = (long long)Layout(a.TX, a.TY, a.TZ, R).total * sizeof(T);
+  if (a.smem != want || a.smem > oc::kMaxSmemBytes ||
+      a.blocks != oc::ceil_div(g.Nx + cf[6], a.TX) * tiles_y * tiles_z)
+    return (int)cudaErrorInvalidValue;
+  auto* kernel = vi_tendency_kernel<T, S>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+  if (e != cudaSuccess) return (int)e;
+  if (a.per_sm != nullptr)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.per_sm, kernel, a.threads,
+                                                              a.smem);
   Params<T> P;
-  P.u = (const T*)in[0];
-  P.v = (const T*)in[1];
-  P.w = (const T*)in[2];
-  P.ph = (const T*)in[3];
+  P.u = (const T*)a.in[0];
+  P.v = (const T*)a.in[1];
+  P.w = (const T*)a.in[2];
+  P.ph = (const T*)a.in[3];
   const int ntr = cf[13];
-  for (int t = 0; t < kMaxTracers; ++t) P.c[t] = t < ntr ? (const T*)in[4 + t] : nullptr;
-  for (int c = 0; c < 2 + kMaxTracers; ++c) P.G[c] = c < 2 + ntr ? (T*)out[c] : nullptr;
-  for (int s = 0; s < kNumScratch; ++s) P.s[s] = (T*)scratch[s];
-  P.rows = (const T*)rows;
-  P.g = oc::Geom{cf[0], cf[1], cf[2], cf[3], cf[4], cf[5]};
+  for (int t = 0; t < kMaxTracers; ++t) P.c[t] = t < ntr ? (const T*)a.in[4 + t] : nullptr;
+  for (int c = 0; c < 2 + kMaxTracers; ++c) P.G[c] = c < 2 + ntr ? (T*)a.out[c] : nullptr;
+  P.rows = (const T*)a.rows;
+  P.g = g;
   P.bx = cf[6];
   P.by = cf[7];
   P.vort = cf[8];
@@ -637,17 +834,26 @@ int launch(const void* const* in, void* const* out, void* const* scratch, const 
   P.tsch = cf[12];
   P.ntr = ntr;
   P.with_ph = cf[14];
-  P.dzc = (T)dzc;
-  P.dzf = (T)dzf;
-  const int threads = 256;
-  const long long padded = (long long)P.g.PX() * P.g.PY() * P.g.PZ();
-  vi_derive<T><<<oc::blocks_for(padded, threads), threads, 0, stream>>>(P);
-  int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  const long long cells = (long long)(P.g.Nx + P.bx) * (P.g.Ny + P.by) * P.g.Nz;
-  dim3 grid(oc::blocks_for(cells, threads), 2 + ntr);
-  vi_assemble<T, S><<<grid, threads, 0, stream>>>(P);
+  P.dzf = (T)a.dzf;
+  P.TX = a.TX;
+  P.TY = a.TY;
+  P.TZ = a.TZ;
+  P.R = R;
+  P.tiles_y = tiles_y;
+  P.tiles_z = tiles_z;
+  kernel<<<a.blocks, a.threads, a.smem, a.stream>>>(P);
   return (int)cudaGetLastError();
+}
+
+int dispatch(int dtype, int sdtype, const Args& a) {
+  if (a.cf[13] < 0 || a.cf[13] > kMaxTracers || a.TX < 1 || a.TY < 1 || a.TZ < 1 ||
+      a.threads < 32 || a.threads > kThreads || a.threads % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == OC_FLOAT32 && sdtype == OC_FLOAT32) return launch<float, float>(a);
+  if (dtype == OC_FLOAT32 && sdtype == OC_FLOAT64) return launch<float, double>(a);
+  if (dtype == OC_FLOAT64 && sdtype == OC_FLOAT32) return launch<double, float>(a);
+  if (dtype == OC_FLOAT64 && sdtype == OC_FLOAT64) return launch<double, double>(a);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -673,25 +879,32 @@ int oc_vi_set_tables(const double* vals, int n) {
 
 // dtype / sdtype: OC_FLOAT32 or OC_FLOAT64 for the fields and the WENO
 // smoothness. in: host array of device pointers u, v, w, ph (or null),
-// tracers; out: Gu, Gv, Gc... (padded, zeroed by the caller); scratch: 14
-// padded device arrays (null where the configuration needs none); rows: the
+// tracers; out: Gu, Gv, Gc... (padded, zeroed by the caller); rows: the
 // (kNumRows, PY) metric rows; cf: Nx, Ny, Nz, Hx, Hy, Hz, bounded x, bounded
 // y, vorticity code, vorticity WENO buffer, upwind code, Coriolis code,
-// tracer scheme code, number of tracers, with_ph.
+// tracer scheme code, number of tracers, with_ph; dzf: Δz at z faces. TX,
+// TY, TZ, threads, blocks, smem: the launch plan of
+// kernels/fused_vector_invariant.py launch_plan (the tile,
+// ceil((Nx + bx)/TX)·ceil((Ny + by)/TY)·ceil(Nz/TZ) blocks and the dynamic
+// shared memory in bytes), refused unless they agree with the tile's
+// layout.
 int oc_fused_vi_tendency(int dtype, int sdtype, const void* const* in, void* const* out,
-                         void* const* scratch, const void* rows, const int* cf, double dzc,
-                         double dzf, void* stream) {
-  if (cf[13] < 0 || cf[13] > kMaxTracers) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == OC_FLOAT32 && sdtype == OC_FLOAT32)
-    return launch<float, float>(in, out, scratch, rows, cf, dzc, dzf, s);
-  if (dtype == OC_FLOAT32 && sdtype == OC_FLOAT64)
-    return launch<float, double>(in, out, scratch, rows, cf, dzc, dzf, s);
-  if (dtype == OC_FLOAT64 && sdtype == OC_FLOAT32)
-    return launch<double, float>(in, out, scratch, rows, cf, dzc, dzf, s);
-  if (dtype == OC_FLOAT64 && sdtype == OC_FLOAT64)
-    return launch<double, double>(in, out, scratch, rows, cf, dzc, dzf, s);
-  return (int)cudaErrorInvalidValue;
+                         const void* rows, const int* cf, double dzf, int TX, int TY,
+                         int TZ, int threads, int blocks, int smem, void* stream) {
+  const Args a{in, out, rows, cf, dzf, TX, TY, TZ, threads, blocks, smem,
+               (cudaStream_t)stream, nullptr};
+  return dispatch(dtype, sdtype, a);
+}
+
+// The blocks of the launch plan's shape that one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *per_sm, for a
+// configuration whose vorticity code and WENO buffer are vort and kv.
+int oc_vi_blocks_per_sm(int dtype, int sdtype, int vort, int kv, int TX, int TY, int TZ,
+                        int threads, int smem, int* per_sm) {
+  const int cf[15] = {TX, TY, TZ, 1, 1, 1, 0, 0, vort, kv, 0, 0, 0, 0, 0};
+  const Args a{nullptr, nullptr, nullptr, cf, 0.0, TX, TY, TZ, threads, 1, smem,
+               nullptr, per_sm};
+  return dispatch(dtype, sdtype, a);
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 // WENO reconstructions, the coefficient table and the periodic-axis
 // interpolation and upwind reconstruction shared by the advection kernels
-// (fused_advection.cu, advection_tendency.cu, fused_shallow_water.cu).
+// (fused_advection.cu, fused_shallow_water.cu).
 //
 // Every stencil coefficient comes from the Python scheme objects
 // (kernels/fused_advection.py coefficient_table) through a table passed by

@@ -52,7 +52,7 @@ SIGNATURES = {
     "oc_bounded_z_fill": [P, I, I, P, P, P, P, P, I, I, I, I, I, I, D, D, P,
                           P, P],
     "oc_advection_tendency": [I, I, I, P, P, I, I, P, I, I, I, I, I, I,
-                              D, D, D, D, P, I, P],
+                              D, D, D, D, P, I, I, I, I, I, I, I, P],
     "oc_fused_divergence": [I, P, P, P, P, I, I, I, I, I, D, D, D, D, P],
     "oc_fused_correct": [I, P, P, P, P, P, P, P, I, I, I, I, I,
                          D, D, D, D, P],
@@ -62,11 +62,11 @@ SIGNATURES = {
     "oc_fused_sw_update": [I, I, I, P, P, P, I, I, P, P, P, I, I, I, I,
                            D, D, D, D, D, D, D, D, D, D, P, I, I, I, I, I, I,
                            P],
-    "oc_fused_advection_update_blocks_per_sm": [I, I, I, I, I, I, I, I, I, I,
-                                                P],
+    "oc_advection_blocks_per_sm": [I, I, I, I, I, I, I, I, I, I, P],
     "oc_fused_sw_update_blocks_per_sm": [I, I, I, I, I, I, I, P],
     "oc_vi_set_tables": [P, I],
-    "oc_fused_vi_tendency": [I, I, P, P, P, P, P, D, D, P],
+    "oc_fused_vi_tendency": [I, I, P, P, P, P, D, I, I, I, I, I, I, P],
+    "oc_vi_blocks_per_sm": [I, I, I, I, I, I, I, I, I, P],
     "oc_mesh_halo_exchange": [P, P, P, I, I, I, I, I, I, I, I, P],
     "oc_weno_microbench": [I, P, P, I, I, D, P],
     "oc_vpu_mix": [I, P, P, I, I, D, P],

@@ -40,9 +40,10 @@ fluxes to G and updates in PyTorch). As in the TPU kernel, the layout
 follows the grid's z halo: padded fields whose halos (z included) were
 filled beforehand, or the z-compact layout (``H[2] == 0``: filled x/y halos,
 the z boundary mirrors inside the reads, zero boundary-face fluxes). Its
-CUDA kernel (``csrc/advection_tendency.cu``) shares the update kernel's
-stencils; it takes one thread per (component, cell), each recomputing the
-two face fluxes it needs per axis, with the stencil reads through L1/L2.
+CUDA kernel is the update kernel's template with the tendency epilogue
+(``csrc/fused_advection.cu``): the same tiles, staging and face fluxes,
+each formed once, G written straight to the output, under the same
+``launch_plan``.
 
 Both kernels take any number of components: the per-component pointers ride
 in the kernel's parameter block, at most ``build.BATCH`` a launch, and a
@@ -77,7 +78,7 @@ OTHER_SCHEMES_ITEM = ("ROADMAP.md queue 2, kernels #1 and #6 (schemes other "
                       "than WENO(5) and Centered(2) in the CUDA advection "
                       "kernels)")
 
-# Scheme codes of csrc/advection_tendency.cu.
+# Scheme codes of csrc/reconstruction.cuh.
 WENO5, CENTERED2 = 0, 1
 
 # Entries of the coefficient table (kTabSize in csrc/reconstruction.cuh).
@@ -125,14 +126,15 @@ def smem_bytes(tile, reach, esize, tracers):
 
 
 def launch_plan(grid, scheme, dtype, n_components):
-    """The launches of ``fused_advection_update`` for ``n_components``
-    components (u, v, w, then the tracers) of ``dtype`` on ``grid``: a dict
-    with ``tile`` (TX, TY, TZ), ``tiles`` (along x, y and z; block n owns
-    tile (tx, ty, tz) with n = (tx·tiles_y + ty)·tiles_z + tz, cells
-    [TX·tx, min(TX·(tx + 1), Nx)) and likewise along y and z), ``blocks``,
-    ``threads`` and ``launches``, one (first, stop, smem) per batch of
-    components (the shared memory in bytes: a batch holding a tracer stages
-    it)."""
+    """The launches of ``fused_advection_update`` and
+    ``fused_advection_tendency`` (one kernel template, one layout) for
+    ``n_components`` components (u, v, w, then the tracers) of ``dtype`` on
+    ``grid``: a dict with ``tile`` (TX, TY, TZ), ``tiles`` (along x, y and
+    z; block n owns tile (tx, ty, tz) with n = (tx·tiles_y + ty)·tiles_z +
+    tz, cells [TX·tx, min(TX·(tx + 1), Nx)) and likewise along y and z),
+    ``blocks``, ``threads`` and ``launches``, one (first, stop, smem) per
+    batch of components (the shared memory in bytes: a batch holding a
+    tracer stages it)."""
     esize = torch.empty((), dtype=dtype).element_size()
     tile = UPDATE_TILES[esize]
     tiles = tuple(-(-n // t) for n, t in zip(grid.N, tile))
@@ -378,6 +380,9 @@ def fused_advection_tendency(grid, scheme, fields):
     if min(Hx, Hy) < scheme.required_halo:
         raise ValueError(f"the tendency kernel needs Hx, Hy >= "
                          f"{scheme.required_halo}")
+    if Hz and Hz < scheme.required_halo:
+        raise ValueError(f"the padded layout needs Hz >= "
+                         f"{scheme.required_halo}")
     check_tensors(grid, fields, grid.padded_shape)
     scode = smoothness_code(scheme, fields[0].dtype)
     table = coefficient_table(scheme)
@@ -387,14 +392,17 @@ def fused_advection_tendency(grid, scheme, fields):
     G = torch.empty((nc, Nx, Ny, Nz), dtype=fields[0].dtype,
                     device=fields[0].device)
     vel = build.pointers(fields[:3])
+    plan = launch_plan(grid, scheme, G.dtype, nc)
     with torch.cuda.device(G.device):
         lib = build.library()
-        for a, b in build.batches(nc):
+        for a, b, smem in plan["launches"]:
             build.check(lib.oc_advection_tendency(
                 code, _DTYPE_CODES[G.dtype], scode, vel,
-                build.pointers(fields[a:b]), b - a, a, build.ptr(G[a]), Nx,
-                Ny, Nz, Hx, Hy, Hz, m["Ax"], m["Ay"], m["Az"], m["V"], table,
-                len(table), build.stream_of(G)), lib)
+                build.pointers(fields[a:b]), b - a, a,
+                build.pointers(G[a:b].unbind(0)), Nx, Ny, Nz, Hx, Hy, Hz,
+                m["Ax"], m["Ay"], m["Az"], m["V"], table, len(table),
+                *plan["tile"], plan["threads"], plan["blocks"], smem,
+                build.stream_of(G)), lib)
             fused_advection_tendency.launches += 1
     return G
 

@@ -32,20 +32,23 @@ Bound on the H100: operations. For the hydro_row configuration at
 512x256x32 the function needs about 1,800 floating-point operations per cell
 (each derived field, face flux and reconstruction once; ``chip_smoke.py``
 counts them), 0.114 ms at the float32 rate; its compulsory bytes (u, v, w
-and T read, Gu, Gv and G_T written) take 0.045 ms at 3.35 TB/s. The
-scratch below is a cost of this design, not of the function: writing and
-reading it once would add 0.19 ms of traffic. Design
-(``csrc/fused_vector_invariant.cu``): one call is two launches. The first writes the derived fields once per padded cell
-into scratch tensors (ζ, û, v̂, the velocity-stencil operands ℑy u and ℑx v,
-the ½u² and ½v² differences, ℑx u, ℑy v, δx(Ax u), δy(Ay v), or K for the
-energy-conserving Bernoulli head); the second reconstructs and assembles,
-one thread per output cell and component, with the metrics read from small
-per-y rows. Divisions are exact.
+and T read, Gu, Gv and G_T written) take 0.045 ms at 3.35 TB/s. Design
+(``csrc/fused_vector_invariant.cu``): one launch, one block per tile of
+output cells, and no scratch tensor. The block stages u and v over the tile
+plus the stencils' reach, and the tile's metric rows, into shared memory,
+then forms each phase's derived fields (ζ and the velocity-stencil
+operands; the ½u² and ½v² differences and ℑx u, ℑy v, or K; δx(Ax u) and
+δy(Ay v)) once into a shared buffer that the next phase reuses, each z face
+flux of the vertical advection and each tracer face flux once, and sums the
+phases per cell in the TPU function's order. ``launch_plan`` gives the
+tile, the block count and the shared memory; the C entry checks them.
+Divisions are exact.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -62,6 +65,7 @@ from ..grids.topology import (BOUNDED, FLAT, LOC_CCC, LOC_CCF, LOC_CFC,
                               LOC_FCC)
 from ..operators.operators import LOC_FFC, ddx, ddy
 from . import build
+from .fused_advection import _align
 from .fused_projection import _DTYPE_CODES
 
 MAX_TRACERS = 8
@@ -72,10 +76,6 @@ ROWS = (("dx", LOC_FCC), ("dx", LOC_CFC), ("dy", LOC_FCC), ("dy", LOC_CFC),
         ("Az", LOC_FFC), ("Az", LOC_FCC), ("Az", LOC_CFC), ("Az", LOC_CCF),
         ("Ax", LOC_FCC), ("Ay", LOC_CFC), ("V", LOC_FCC), ("V", LOC_CFC),
         ("V", LOC_CCC))     # then one more row: the Coriolis f at (f, f)
-
-# Scratch tensors of the derive launch, in the kernel's order.
-SCRATCH = ("zeta", "vhat", "uhat", "su", "sv", "du2", "dv2", "du2y", "dv2x",
-           "ixu", "iyv", "dU", "dV", "K")
 
 VORT_CODES = {ENSTROPHY: 0, ENERGY: 1}
 WENO_VORT = 2
@@ -244,9 +244,12 @@ TABLE_SIZE = 100 + 500 + 20 + 20 + 4 + 2 + 2
 _tables_on = set()          # devices whose constant tables are set
 
 
+@functools.lru_cache(maxsize=16)
 def metric_rows(grid, coriolis, dtype, device):
     """The (len(ROWS) + 1, Ny + 2Hy) metric rows in the field dtype: each
-    metric of ROWS broadcast along the padded y, then f."""
+    metric of ROWS broadcast along the padded y, then f. Built once per
+    grid, Coriolis, dtype and device (grids and Coriolis objects compare by
+    value), since building them copies host arrays to the card."""
     NYP = grid.padded_shape[1]
 
     def row(m):
@@ -261,17 +264,65 @@ def metric_rows(grid, coriolis, dtype, device):
     return torch.stack(rows).contiguous()
 
 
-def _needed_scratch(cfg):
-    need = {"zeta"}
-    if cfg["vort"] != VORT_CODES[ENERGY]:
-        need |= {"vhat", "uhat"}
-    if cfg["vort"] == WENO_VORT:
-        need |= {"su", "sv"}
-    if cfg["upw"]:
-        need |= {"du2", "dv2", "du2y", "dv2x", "ixu", "iyv", "dU", "dV"}
-    else:
-        need |= {"K"}
-    return need
+# Threads a block and the tile of output cells a block owns, by the fields'
+# element size: at float32 a 16 x 8 x 8 tile takes 98.9 KB of shared memory
+# with the WENO-9 vorticity's reach (two blocks an SM), at float64 an
+# 8 x 8 x 8 tile 138.4 KB.
+THREADS = 256
+TILES = {4: (16, 8, 8), 8: (8, 8, 8)}
+# z reach of the vertical and tracer reconstructions and horizontal reach of
+# a tracer box (csrc/fused_vector_invariant.cu kRz, kRc)
+RZ = RC = 3
+
+
+def reach(cfg):
+    """The box's reach along x and y: the WENO vorticity buffer or WENO-5's
+    3, and one more for the derived fields' own stencils."""
+    kv = cfg["kv"] if cfg["vort"] == WENO_VORT else 0
+    return max(kv, 3) + 1
+
+
+def smem_bytes(tile, R, esize):
+    """Dynamic shared memory of one block (csrc/fused_vector_invariant.cu
+    Layout): u and v over the tile plus the reach R, two per-cell sums, the
+    metric rows over the box's y, and a work buffer large enough for each
+    phase in turn (three derived fields; w, the z face fluxes of u and v and
+    two columns or two derived fields; w and ph; w, a tracer box and its
+    fluxes)."""
+    TX, TY, TZ = tile
+    BY = TY + 2 * R
+    box = _align((TX + 2 * R) * BY * TZ)
+    wsz = _align((TX + 3) * (TY + 3) * (TZ + 1))
+    col = _align(TX * TY * (TZ + 2 * RZ))
+    fz = _align(TX * TY * (TZ + 1))
+    phb = _align((TX + 1) * (TY + 1) * TZ)
+    tb = _align((TX + 2 * RC) * (TY + 2 * RC) * (TZ + 2 * RZ))
+    tfx = _align((TX + 1) * TY * TZ)
+    tfy = _align(TX * (TY + 1) * TZ)
+    rows = len(ROWS) + 1           # the metric rows and f
+    persistent = 2 * box + 2 * _align(TX * TY * TZ) + _align(rows * BY)
+    work = max(3 * box, wsz + 2 * fz + 2 * max(col, box), wsz + phb,
+               wsz + tb + tfx + tfy + fz)
+    return esize * (persistent + work)
+
+
+def launch_plan(grid, cfg, dtype):
+    """The launch of ``fused_vi_tendency`` for configuration ``cfg``
+    (``vi_config``) with fields of ``dtype`` on ``grid``: a dict with
+    ``tile`` (TX, TY, TZ), ``tiles`` (along x, y and z over the output
+    region of Nx + bx by Ny + by by Nz cells, bx and by 1 on a bounded axis;
+    block n owns tile (tx, ty, tz) with n = (tx·tiles_y + ty)·tiles_z + tz,
+    cells [TX·tx, min(TX·(tx + 1), Nx + bx)) and likewise along y and z),
+    ``blocks``, ``threads``, ``reach`` and ``smem`` (bytes)."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    tile = TILES[esize]
+    (Nx, Ny, Nz) = grid.N
+    bx = int(grid.topology[0] == BOUNDED)
+    by = int(grid.topology[1] == BOUNDED)
+    tiles = tuple(-(-n // t) for n, t in zip((Nx + bx, Ny + by, Nz), tile))
+    R = reach(cfg)
+    return dict(tile=tile, tiles=tiles, blocks=tiles[0] * tiles[1] * tiles[2],
+                threads=THREADS, reach=R, smem=smem_bytes(tile, R, esize))
 
 
 def fused_vi_tendency(grid, vi, tracer_scheme, names, coriolis, u, v, w,
@@ -299,9 +350,6 @@ def fused_vi_tendency(grid, vi, tracer_scheme, names, coriolis, u, v, w,
                 table.ctypes.data_as(ctypes.c_void_p), len(table)), lib)
             _tables_on.add(dev)
         rows = metric_rows(grid, coriolis, dt, dev)
-        need = _needed_scratch(cfg)
-        scratch = [torch.empty(grid.padded_shape, dtype=dt, device=dev)
-                   if name in need else None for name in SCRATCH]
         Gu, Gv = torch.zeros_like(u), torch.zeros_like(v)
         Gc = [torch.zeros_like(u) for _ in names]
         ptrs = lambda ts: (ctypes.c_void_p * len(ts))(
@@ -314,10 +362,11 @@ def fused_vi_tendency(grid, vi, tracer_scheme, names, coriolis, u, v, w,
             int(grid.topology[1] == BOUNDED), cfg["vort"], cfg["kv"],
             cfg["upw"], cfg["cor"], cfg["tsch"], len(names),
             int(ph is not None))
+        plan = launch_plan(grid, cfg, dt)
         build.check(lib.oc_fused_vi_tendency(
             _DTYPE_CODES[dt], _DTYPE_CODES[cfg["sdtype"]], in_ptrs, out_ptrs,
-            ptrs(scratch), build.ptr(rows), conf,
-            float(grid.dz(LOC_CCC)), float(grid.dz(LOC_CCF)),
+            build.ptr(rows), conf, float(grid.dz(LOC_CCF)), *plan["tile"],
+            plan["threads"], plan["blocks"], plan["smem"],
             build.stream_of(u)), lib)
     fused_vi_tendency.launches += 1
     return Gu, Gv, dict(zip(names, Gc))

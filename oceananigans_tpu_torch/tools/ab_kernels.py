@@ -1,7 +1,8 @@
-"""A/B timing of the advection-update kernel (#1), the z-compact tendency
-kernel (#6), the shallow-water stage (#8) and the flagship step on the
-card, for whichever copy of the package is on PYTHONPATH. Run it for two
-copies in one call, in the order A, B, B, A, and compare the JSON lines:
+"""A/B timing of the advection-update kernel (#1), the advection tendency
+(#6, both layouts), the shallow-water stage (#8), the hydrostatic tendency
+(#10) and five model steps on the card, for whichever copy of the package is
+on PYTHONPATH. Run it for two copies in one call, in the order A, B, B, A,
+and compare the JSON lines:
 
     PYTHONPATH=<copy A> python oceananigans_tpu_torch/tools/ab_kernels.py A
     PYTHONPATH=<copy B> python oceananigans_tpu_torch/tools/ab_kernels.py B
@@ -17,10 +18,25 @@ CUDA-event medians, in ms, at the main paths' shapes:
   - ``update3_c2_corr_gm_ms``, ``update15_c2_corr_gm_ms``: the corrected
     G⁻ variant over 3 and 15 components with Centered(2);
   - ``tendency_compact4_ms``: the z-compact #6 over u, v, w and one tracer;
+- ``tendency_padded4_ms``: the padded #6 over u, v, w and one tracer at 256³
+  (262³ padded, H = 3, z halos filled), WENO(5), float32;
 - ``sw_update_gm_ms``: #8's G⁻ variant at 16384² (16392² padded) float32,
   WENO(5), f = 0, no tracer;
-and ``flagship_step_ms``, the median host-clock flagship RK3 step (10 steps
-after 3 warm-up). Prints one JSON line, with the card's name.
+- ``vi_hydro_ms``: #10 at bench_extra.py's hydro_row shapes (512x256x32
+  lat-lon, H = 6, float32, WENOVectorInvariant(), spherical Coriolis, T),
+  on the state after set() with w from continuity;
+and the median host-clock steps (10 after 3 warm-up): ``flagship_step_ms``
+(256³ RK3), ``convection_step_ms`` (256³ Rayleigh–Bénard: BuoyancyTracer,
+ScalarDiffusivity, the padded layout), ``buoyant_step_ms`` (256³
+BuoyancyTracer on the z-compact layout) and ``hydro_step_ms`` (the
+hydro_row, quasi-AB2, split-explicit with 30 substeps, Δt = 120 s). Prints
+one JSON line, with the card's name.
+
+    python oceananigans_tpu_torch/tools/ab_kernels.py profile-vi
+
+prints the device kernels one hydrostatic-tendency call launches, with
+their median durations over 10 calls (torch.profiler), at the hydro_row
+shapes, without and with ph.
 
     python oceananigans_tpu_torch/tools/ab_kernels.py sweep
 
@@ -93,6 +109,18 @@ def advection(res, n=256):
         grid, c2, u, v, w, Gm, 0.1, -0.05, p, 0.07, tracers=tr), reps=5)
     res["tendency_compact4_ms"] = ev(lambda: K.fused_advection_tendency(
         grid, s, [u, v, w, tr["c0"]]))
+    del f, tr, Gm
+    pgrid = ot.RectilinearGrid(size=(n, n, n), extent=(1.0, 1.0, 1.0),
+                               halo=(3, 3, 3), dtype=torch.float32,
+                               device="cuda")
+    q = [s_ * torch.randn(pgrid.padded_shape, generator=gen, device="cuda")
+         for s_ in (0.1, 0.1, 0.1, 1.0)]
+    K.periodic_halo_fill(pgrid, q)
+    K.bounded_z_fill(pgrid, q, [K.ZFill(False, (0, 0.0), (0, 0.0))] * 2
+                     + [K.ZFill(True, (1, 0.0), (1, 0.0)),
+                        K.ZFill(False, (2, 0.5), (2, -0.5))])
+    res["tendency_padded4_ms"] = ev(lambda: K.fused_advection_tendency(
+        pgrid, s, q))
 
 
 def shallow_water(res, n=16384):
@@ -116,6 +144,20 @@ def shallow_water(res, n=16384):
         -1e-5))
 
 
+def steps(model, dt, warm=3, timed=10):
+    """Median host-clock step of ``model`` in ms."""
+    for _ in range(warm):
+        model.time_step(dt)
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        model.time_step(dt)
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return statistics.median(ts) * 1e3
+
+
 def flagship(res, n=256):
     grid = ot.RectilinearGrid(size=(n, n, n), extent=(1.0, 1.0, 1.0),
                               dtype=torch.float32, device="cuda")
@@ -123,16 +165,95 @@ def flagship(res, n=256):
     rng = np.random.default_rng(0)
     m.set(u=0.1 * rng.standard_normal((n, n, n)).astype(np.float32),
           v=0.1 * rng.standard_normal((n, n, n)).astype(np.float32))
-    for _ in range(3):
-        m.time_step(1e-4)
-    torch.cuda.synchronize()
-    ts = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        m.time_step(1e-4)
+    res["flagship_step_ms"] = steps(m, 1e-4)
+
+
+def convection(res, n=256):
+    grid = ot.RectilinearGrid(size=(n, n, n), extent=(1.0, 1.0, 1.0),
+                              dtype=torch.float32, device="cuda")
+    b_bcs = ot.FieldBoundaryConditions(top=ot.ValueBoundaryCondition(-0.5),
+                                       bottom=ot.ValueBoundaryCondition(0.5))
+    m = ot.NonhydrostaticModel(
+        grid, advection=ot.WENO(5), buoyancy=ot.BuoyancyTracer(),
+        tracers=("b",), closure=ot.ScalarDiffusivity(nu=1e-4,
+                                                     kappa={"b": 1e-4}),
+        boundary_conditions={"b": b_bcs})
+    m.set(b=lambda x, y, z: -z - 0.5, enforce_incompressibility=False)
+    rng = np.random.default_rng(0)
+    m.set(u=1e-3 * rng.standard_normal((n, n, n)))
+    res["convection_step_ms"] = steps(m, 1e-3)
+
+
+def buoyant(res, n=256):
+    grid = ot.RectilinearGrid(size=(n, n, n), extent=(1.0, 1.0, 1.0),
+                              dtype=torch.float32, device="cuda")
+    m = ot.NonhydrostaticModel(grid, advection=ot.WENO(5),
+                               buoyancy=ot.BuoyancyTracer())
+    rng = np.random.default_rng(42)
+    N = (n, n, n)
+    m.set(u=0.1 * rng.standard_normal(N).astype(np.float32),
+          v=0.1 * rng.standard_normal(N).astype(np.float32),
+          b=0.01 * rng.standard_normal(N).astype(np.float32))
+    res["buoyant_step_ms"] = steps(m, 1e-3)
+
+
+def hydro_model(N=(512, 256, 32)):
+    grid = ot.LatitudeLongitudeGrid(size=N, longitude=(0, 60),
+                                    latitude=(15, 75), z=(-1800.0, 0.0),
+                                    dtype=torch.float32, device="cuda")
+    m = ot.HydrostaticFreeSurfaceModel(
+        grid, momentum_advection=ot.WENOVectorInvariant(),
+        coriolis=ot.HydrostaticSphericalCoriolis(),
+        free_surface=ot.SplitExplicitFreeSurface(substeps=30),
+        tracers=("T",))
+    rng = np.random.default_rng(0)
+    m.set(u=0.05 * rng.standard_normal(N).astype(np.float32),
+          T=lambda lam, phi, z: 12 + 8e-3 * z + 2e-2 * phi)
+    return m
+
+
+def vi_args(m, ph=None):
+    fields = m._fill_all(dict(m.state["fields"]))
+    w = m._w_from_continuity(fields["u"], fields["v"])
+    return (m.grid, m.momentum_advection, m.tracer_advection, ("T",),
+            m.coriolis, fields["u"], fields["v"], w, {"T": fields["T"]}, ph)
+
+
+def hydrostatic(res):
+    m = hydro_model()
+    args = vi_args(m)
+    res["vi_hydro_ms"] = ev(lambda: K.fused_vi_tendency(*args))
+    del args
+    res["hydro_step_ms"] = steps(m, 120.0)
+
+
+def profile_vi():
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    m = hydro_model()
+    print(f"device: {torch.cuda.get_device_name(0)}; package {ot.__file__}")
+    for label, ph in (("no ph", None), ("ph", "ph")):
+        args = vi_args(m)
+        if ph:
+            args = args[:-1] + (torch.randn_like(args[8]["T"]),)
+        for _ in range(3):
+            K.fused_vi_tendency(*args)
         torch.cuda.synchronize()
-        ts.append(time.perf_counter() - t0)
-    res["flagship_step_ms"] = statistics.median(ts) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                K.fused_vi_tendency(*args)
+            torch.cuda.synchronize()
+        per = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                per.setdefault(e.name[:70], []).append(
+                    (e.time_range.end - e.time_range.start) / 1e3)
+        for name, ts in sorted(per.items()):
+            print(f"  {label}: {name}: {len(ts)} launches, median "
+                  f"{statistics.median(ts):.4f} ms")
+        print(f"  {label}: the whole call, CUDA events: "
+              f"{ev(lambda: K.fused_vi_tendency(*args)):.4f} ms")
 
 
 def sweep():
@@ -158,9 +279,12 @@ def sweep():
 def main(label):
     if label == "sweep":
         return sweep()
+    if label == "profile-vi":
+        return profile_vi()
     res = {"label": label, "package": ot.__file__,
            "device": torch.cuda.get_device_name(0)}
-    for part in (advection, shallow_water, flagship):
+    for part in (advection, shallow_water, hydrostatic, flagship, convection,
+                 buoyant):
         part(res)
         torch.cuda.empty_cache()
     print(json.dumps(res))

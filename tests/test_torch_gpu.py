@@ -979,3 +979,136 @@ def test_sharded_sw_stage_tile_grid():
     assert torch.equal(G2, G3)
     for n_ in names:
         assert torch.equal(new2[n_][ints], new3[n_][ints])
+
+
+# -- the block-tiled #6 and #10 at the tile edges ------------------------------------
+#
+# #6 shares #1's tiles (8x8x8 at float64, 16x8x8 at float32): in both
+# layouts on the interiors above, across 4 and 40 components (40 in two
+# launches), in float64 (1e-12 relative) and with bfloat16 smoothness (held
+# to a tenth of the bf16-vs-float32 difference); the sharded tendency on a
+# grid whose blocks' tiles fall unlike the serial grid's, bit for bit. #10
+# (8x8x8 at float64 over the interior plus the boundary-face rows) on
+# ragged tiles with bounded x and y, 3 and 8 tracers (1e-12), and in float32
+# (2e-5 relative, the bound chip_smoke.py holds the path's float32 kernel to:
+# a one-ulp change of a float32 smoothness ratio, squared, moves a nonlinear
+# weight by a few ulp).
+
+def _tile_tendency_inputs(n, dtype, ntr, layout, seed):
+    halo = (4, 4, 0) if layout == "compact" else (3, 3, 3)
+    grid = ot.RectilinearGrid(size=n, extent=(1.0, 1.0, 1.0), halo=halo,
+                              dtype=dtype, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f = [0.1 * torch.randn(grid.padded_shape, generator=gen, dtype=dtype,
+                           device="cuda") for _ in range(3)]
+    f += [torch.rand(grid.padded_shape, generator=gen, dtype=dtype,
+                     device="cuda") for _ in range(ntr)]
+    K.periodic_halo_fill(grid, f)
+    if layout == "compact":
+        f[2][..., 0] = 0
+    else:
+        specs = [K.ZFill(False, (0, 0.0), (0, 0.0))] * 2 + [
+            K.ZFill(True, (1, 0.0), (1, 0.0))] + [
+            K.ZFill(False, (2, 0.5), (2, -0.5))] * ntr
+        K.bounded_z_fill(grid, f, specs)
+    return grid, f
+
+
+@pytest.mark.parametrize("ntr", [1, 37])
+@pytest.mark.parametrize("n", TILE_N, ids=str)
+@pytest.mark.parametrize("layout", ["compact", "padded"])
+@pytest.mark.parametrize("smooth", ["float64", "bf16"])
+def test_fused_advection_tendency_tile_edges(smooth, layout, n, ntr):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dtype = torch.float64 if smooth == "float64" else torch.float32
+    grid, f = _tile_tendency_inputs(n, dtype, ntr, layout, 25)
+
+    def run(fn, sdt):
+        return list(fn(grid, ot.WENO(5, smoothness_dtype=sdt), f))
+
+    launches = K.fused_advection_tendency.launches
+    got = run(K.fused_advection_tendency, torch.float64
+              if smooth == "float64" else torch.bfloat16)
+    assert K.fused_advection_tendency.launches == launches + len(
+        K.build.batches(3 + ntr))
+    if smooth == "float64":
+        _close(got, run(K.fused_advection_tendency_plain, torch.float64))
+    else:
+        _bf16_close(got, run(K.fused_advection_tendency_plain,
+                             torch.bfloat16),
+                    run(K.fused_advection_tendency_plain, torch.float32),
+                    range(3 + ntr))
+
+
+@pytest.mark.parametrize("layout", ["compact", "padded"])
+def test_fused_advection_tendency_tile_edges_centered2(layout):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    grid, f = _tile_tendency_inputs(TILE_N[0], torch.float64, 12, layout, 26)
+    s = ot.Centered(2)
+    _close(list(K.fused_advection_tendency(grid, s, f)),
+           list(K.fused_advection_tendency_plain(grid, s, f)))
+
+
+@pytest.mark.parametrize("layout", ["compact", "padded"])
+def test_sharded_tendency_tile_grid(layout):
+    """#7 on a 74x58x19 grid over 2x2 blocks of 37x29: the blocks' 8x8x8
+    float64 tiles fall differently from the serial grid's, and every face
+    flux takes one code path wherever it lies in a tile, so the sharded
+    tendency equals the serial one bit for bit."""
+    arch = _card_mesh()
+    grid, f = _tile_tendency_inputs((74, 58, 19), torch.float64, 2, layout,
+                                    27)
+    s = ot.WENO(5, smoothness_dtype=torch.float64)
+    G = K.build_sharded_fused_advection(grid, s, arch.mesh)(f)
+    assert torch.equal(G, K.fused_advection_tendency(grid, s, f))
+
+
+VI_TILE_N = [(19, 13, 11), (9, 7, 7)]
+
+
+@pytest.mark.parametrize("ntr", [3, 8])
+@pytest.mark.parametrize("topology", [("bounded", "bounded", "bounded"),
+                                      ("periodic", "bounded", "bounded")],
+                         ids=["bounded_xy", "periodic_x"])
+@pytest.mark.parametrize("n", VI_TILE_N, ids=str)
+@pytest.mark.parametrize("config", sorted(VI_CONFIGS))
+def test_fused_vi_tendency_tile_edges(config, n, topology, ntr):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    grid = ot.RectilinearGrid(size=n, extent=(4e5, 2.4e5, 1800.0),
+                              halo=(6, 6, 6), topology=topology,
+                              dtype=torch.float64, device="cuda")
+    names = tuple(f"c{i}" for i in range(ntr))
+    grid, f = _vi_inputs(None, grid=grid, tracers=names)
+    vi, ts = VI_CONFIGS[config]()
+    launches = K.fused_vi_tendency.launches
+    _vi_compare(grid, f, vi, ts, names, ot.FPlane(f=1e-4), True)
+    assert K.fused_vi_tendency.launches == launches + 1
+
+
+def test_fused_vi_tendency_tile_edges_float32():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    grid = ot.LatitudeLongitudeGrid(size=(37, 21, 13), longitude=(0, 60),
+                                    latitude=(15, 75), z=(-1800.0, 0.0),
+                                    halo=(6, 6, 6), dtype=torch.float32,
+                                    device="cuda")
+    grid64, f = _vi_inputs(None, grid=_latlon_like(grid), tracers=("T",))
+    f = {k: a.float() for k, a in f.items()}
+    vi = ot.WENOVectorInvariant()
+    args = (grid, vi, ot.Centered(2), ("T",),
+            ot.HydrostaticSphericalCoriolis(), f["u"], f["v"], f["w"],
+            {"T": f["T"]}, None)
+    Gu, Gv, Gc = K.fused_vi_tendency(*args)
+    Pu, Pv, Pc = K.fused_vi_tendency_plain(*args)
+    for a, b in ((Gu, Pu), (Gv, Pv), (Gc["T"], Pc["T"])):
+        assert (a - b).abs().max().item() <= 2e-5 * b.abs().max().item()
+
+
+def _latlon_like(grid):
+    return ot.LatitudeLongitudeGrid(size=grid.N, longitude=(0, 60),
+                                    latitude=(15, 75), z=(-1800.0, 0.0),
+                                    halo=grid.H, dtype=torch.float64,
+                                    device="cuda")

@@ -1,8 +1,10 @@
 """The launch plans of the block-tiled CUDA kernels, on the CPU.
 
 ``kernels/fused_advection.py`` ``launch_plan`` (#1, the advection + RK3
-update) and ``kernels/fused_shallow_water.py`` ``launch_plan`` (#8, the
-shallow-water stage) give each launch's tile, block count, threads and
+update, and #6, the advection tendency, in either layout),
+``kernels/fused_shallow_water.py`` ``launch_plan`` (#8, the shallow-water
+stage) and ``kernels/fused_vector_invariant.py`` ``launch_plan`` (#10, the
+hydrostatic tendency) give each launch's tile, block count, threads and
 dynamic shared memory; the C entries recompute and check them. For every
 configuration the port launches these kernels with, the plan must:
 - keep a block's dynamic shared memory at or below the H100's 232,448 B,
@@ -13,6 +15,9 @@ configuration the port launches these kernels with, the plan must:
   docstrings);
 - batch the components as ``build.batches`` does, with the tracer box's
   shared memory only in a launch that holds a tracer.
+#10's tiles cover the interior plus, on a bounded x (y), u's (v's)
+boundary-face row, each cell once; at float64 it takes a smaller tile than
+at float32.
 """
 
 import numpy as np
@@ -23,6 +28,7 @@ import oceananigans_tpu_torch as ot
 from oceananigans_tpu_torch.kernels import build
 from oceananigans_tpu_torch.kernels import fused_advection as fa
 from oceananigans_tpu_torch.kernels import fused_shallow_water as fsw
+from oceananigans_tpu_torch.kernels import fused_vector_invariant as fvi
 
 torch.set_num_threads(1)
 
@@ -57,6 +63,31 @@ SHALLOW_WATER = [
     ("256_bf16", (256, 256), torch.float32, "weno5_bf16", 4),
     ("tile_edges_45x61", (45, 61), torch.float64, "weno5", 36),
     ("tile_edges_9x130", (9, 130), torch.float64, "weno5", 4),
+]
+
+
+# (label, size, dtype, scheme, components, halo): #6 as the port launches it,
+# padded (z halo) or z-compact, and on the shards of #7
+TENDENCY = [
+    ("convection", (256, 256, 256), torch.float32, "weno5", 4, (3, 3, 3)),
+    ("convection_shard", (128, 128, 256), torch.float32, "weno5", 4,
+     (3, 3, 3)),
+    ("buoyant_compact", (256, 256, 256), torch.float32, "weno5", 4,
+     (4, 4, 0)),
+    ("buoyant_compact_shard", (128, 128, 256), torch.float32, "weno5", 4,
+     (4, 4, 0)),
+    ("bf16_padded", (256, 256, 256), torch.float32, "weno5_bf16", 4,
+     (3, 3, 3)),
+    ("golden_thermal_bubble", (16, 16, 16), torch.float64, "centered2", 4,
+     (3, 3, 3)),
+    ("golden_rayleigh_benard", (16, 16, 8), torch.float64, "weno5", 4,
+     (3, 3, 3)),
+    ("40_components_padded", (37, 29, 19), torch.float64, "weno5", 40,
+     (3, 3, 3)),
+    ("40_components_compact", (12, 10, 5), torch.float64, "weno5", 40,
+     (4, 4, 0)),
+    ("15_components_float32", (37, 29, 19), torch.float32, "weno5", 15,
+     (4, 4, 0)),
 ]
 
 
@@ -113,6 +144,103 @@ def test_advection_plan(label, size, dtype, scheme, nc):
             assert SM_SMEM // (smem + RESERVED) >= 2
 
 
+@pytest.mark.parametrize("label,size,dtype,scheme,nc,halo", TENDENCY,
+                         ids=[c[0] for c in TENDENCY])
+def test_tendency_plan(label, size, dtype, scheme, nc, halo):
+    """#6 takes #1's plan: the same tile, blocks and layout, in both
+    layouts."""
+    grid = ot.RectilinearGrid(size=size, extent=(1.0, 1.0, 1.0), halo=halo,
+                              dtype=dtype, device="cpu")
+    s = _scheme(scheme)
+    plan = fa.launch_plan(grid, s, dtype, nc)
+    _covers_once(grid.N, plan["tile"], plan["tiles"], plan["blocks"])
+    assert plan["threads"] % 32 == 0 and plan["threads"] <= 256
+    esize = torch.empty((), dtype=dtype).element_size()
+    assert plan["tile"] == fa.UPDATE_TILES[esize]
+    assert [(a, b) for a, b, _ in plan["launches"]] == build.batches(nc)
+    for a, b, smem in plan["launches"]:
+        assert smem <= MAX_SMEM
+        assert smem == fa.smem_bytes(plan["tile"], s.required_halo, esize,
+                                     b > 3)
+        if dtype == torch.float32:
+            assert SM_SMEM // (smem + RESERVED) >= 2
+
+
+def _vi_grid(kind, size, dtype, halo=(6, 6, 6)):
+    if kind == "latlon_bounded_x":
+        return ot.LatitudeLongitudeGrid(size=size, longitude=(0, 60),
+                                        latitude=(15, 75), z=(-1800.0, 0.0),
+                                        halo=halo, dtype=dtype, device="cpu")
+    if kind == "latlon_periodic_x":
+        return ot.LatitudeLongitudeGrid(size=size, longitude=(0, 360),
+                                        latitude=(15, 75), z=(-1800.0, 0.0),
+                                        halo=halo, dtype=dtype, device="cpu")
+    topo = {"rect_bounded_xy": ("bounded", "bounded", "bounded"),
+            "rect_periodic_xy": ("periodic", "periodic", "bounded")}[kind]
+    return ot.RectilinearGrid(size=size, extent=(4e5, 2.4e5, 1800.0),
+                              halo=halo, topology=topo, dtype=dtype,
+                              device="cpu")
+
+
+def _vi_scheme(name, dtype):
+    return {"weno_vi": lambda: (ot.WENOVectorInvariant(smoothness_dtype=dtype),
+                                ot.Centered(2)),
+            "weno5_vi": lambda: (ot.WENOVectorInvariant(
+                order=5, smoothness_dtype=dtype),
+                                 ot.WENO(5, smoothness_dtype=dtype)),
+            "vector_invariant": lambda: (ot.VectorInvariant(),
+                                         ot.Centered(2))}[name]()
+
+
+# (label, grid kind, size, dtype, configuration, tracers): #10 as the port
+# launches it
+VI = [
+    ("hydro_row", "latlon_bounded_x", (512, 256, 32), torch.float32,
+     "weno_vi", 1),
+    ("hydro_row_periodic_x", "latlon_periodic_x", (512, 256, 32),
+     torch.float32, "weno_vi", 1),
+    ("hydro_row_float64", "latlon_bounded_x", (512, 256, 32), torch.float64,
+     "weno_vi", 1),
+    ("golden_hydrostatic_turbulence", "latlon_bounded_x", (16, 12, 4),
+     torch.float64, "vector_invariant", 1),
+    ("checks_16x12x8_weno5", "latlon_periodic_x", (16, 12, 8), torch.float64,
+     "weno5_vi", 3),
+    ("tile_edges_bounded_xy", "rect_bounded_xy", (19, 13, 11), torch.float64,
+     "weno_vi", 8),
+    ("tile_edges_small", "rect_bounded_xy", (9, 7, 7), torch.float64,
+     "vector_invariant", 3),
+    ("tile_edges_periodic", "rect_periodic_xy", (19, 13, 11), torch.float64,
+     "weno_vi", 8),
+    ("tile_edges_float32", "latlon_bounded_x", (37, 21, 13), torch.float32,
+     "weno_vi", 1),
+]
+
+
+@pytest.mark.parametrize("label,kind,size,dtype,config,ntr", VI,
+                         ids=[c[0] for c in VI])
+def test_vi_plan(label, kind, size, dtype, config, ntr):
+    grid = _vi_grid(kind, size, dtype)
+    vi, ts = _vi_scheme(config, dtype)
+    cfg = fvi.vi_config(grid, vi, ts, ntr, ot.FPlane(f=1e-4))
+    plan = fvi.launch_plan(grid, cfg, dtype)
+    bx = int(grid.topology[0] == "bounded")
+    by = int(grid.topology[1] == "bounded")
+    # the interior plus u's and v's boundary-face rows, each cell once
+    region = (grid.N[0] + bx, grid.N[1] + by, grid.N[2])
+    _covers_once(region, plan["tile"], plan["tiles"], plan["blocks"])
+    assert plan["threads"] % 32 == 0 and plan["threads"] <= 256
+    assert plan["smem"] <= MAX_SMEM
+    esize = torch.empty((), dtype=dtype).element_size()
+    assert plan["smem"] == fvi.smem_bytes(plan["tile"], plan["reach"], esize)
+    kv = vi.vorticity_scheme.buffer if cfg["vort"] == fvi.WENO_VORT else 0
+    assert plan["reach"] == max(kv, 3) + 1
+    if dtype == torch.float32:
+        assert SM_SMEM // (plan["smem"] + RESERVED) >= 2
+    else:
+        # float64: a smaller tile than float32's, so the box fits
+        assert np.prod(plan["tile"]) < np.prod(fvi.TILES[4])
+
+
 @pytest.mark.parametrize("label,size,dtype,scheme,nf", SHALLOW_WATER,
                          ids=[c[0] for c in SHALLOW_WATER])
 def test_shallow_water_plan(label, size, dtype, scheme, nf):
@@ -139,3 +267,16 @@ def test_smem_bytes_by_hand():
     assert fa.smem_bytes((16, 8, 8), 3, 4, False) == 4 * (3 * 4312 + 3392)
     assert fsw.smem_bytes((32, 32), 3, 4) == 4 * (5 * 1600 + 2 * 1444 + 1092
                                                  + 4 * 1056)
+
+
+def test_vi_smem_bytes_by_hand():
+    """#10's layout at float32 16x8x8 with WENO-9 vorticity (reach 6): u
+    and v over 28x20x8 = 4480 cells, two per-cell sums of 1024, the 14
+    metric rows over 20 y; the work buffer's largest phase, three derived
+    fields of 4480 (w over 19x11x9 = 1881, rounded to 1884, the two z-flux
+    arrays 2 x 16x8x9 and two derived fields need 13148); at float64 8x8x8
+    (u and v over 20x20x8 = 3200, sums of 512, work 3 x 3200)."""
+    assert fvi.smem_bytes((16, 8, 8), 6, 4) == 4 * (2 * 4480 + 2 * 1024
+                                                   + 280 + 3 * 4480)
+    assert fvi.smem_bytes((8, 8, 8), 6, 8) == 8 * (2 * 3200 + 2 * 512 + 280
+                                                  + 3 * 3200)
