@@ -20,10 +20,13 @@ Phases (each raises on failure; nothing is caught):
      variant;
    - #1 in float64 at the tile edges: interiors (37, 29, 19) and (12, 10,
      5), with 3 and 40 components, each of the four variants;
+   - the fill kernel (#4 and #5, one launch for every axis of a batch of
+     fields) at the flagship's shapes (the periodic wrap of u, v, w, p),
+     with the time of torch.nn.functional.pad(mode="circular");
    - the convection path's kernels: the advection tendency (float64 at 32³,
-     float32 at 256³, H = (3, 3, 3)), the bounded-z fill (center and z-face
-     fields under Flux, Value and Gradient) and the periodic wrap on fields
-     with z halos;
+     float32 at 256³, H = (3, 3, 3)) and the fill on 262³ (every location
+     under every condition combination in float64, 16 fields, and the
+     path's own u, v, w, b in float32);
    - the advection tendency in float64 at the tile edges, both layouts, 4
      and 40 components, and the sharded tendency on a tile grid unlike the
      serial one (bit for bit).
@@ -58,14 +61,18 @@ Phases (each raises on failure; nothing is caught):
    branch; three tracers; regular RectilinearGrids), at the tile edges
    (ragged float64 tiles, bounded x and y, 3 and 8 tracers) and in float32
    at 512x256x32 on the hydro_row state; CUDA-event times of kernel and
-   plain version.
+   plain version; the fill at the path's shapes (524x268x44: every location
+   under every condition combination in float64, the path's u, v, T, w over
+   all three axes and its η, U, V surfaces in float32, halos overwritten
+   with noise first).
 10. Hydrostatic path: HydrostaticFreeSurfaceModel with bench_extra.py's
    hydro_row at 512x256x32 lat-lon, float32 (WENOVectorInvariant,
    HydrostaticSphericalCoriolis, SplitExplicitFreeSurface(substeps=30), T,
    quasi-AB2, Δt = 120 s): warm-up and timed steps, launch counters (the
-   kernel once per step, no plain version on CUDA tensors), finite fields,
-   peak memory, the phase shares of the step from CUDA events and the
-   device-busy share.
+   kernel once per step, the fill kernel, no plain version on CUDA tensors:
+   no plain fill of a bounded axis), finite fields, peak memory, the phase
+   shares of the step from CUDA events, the device-busy share and the
+   device kernels per step.
 11. Whole step, kernel path against plain path: 3 steps in float64 of the
    flagship and of the convection configuration at 32³, of shallow water at
    128² and of the hydro_row at 16x12x8.
@@ -118,7 +125,10 @@ Phases (each raises on failure; nothing is caught):
    a user runs them (the microbench and the mix also on a slab that fills
    every SM), with the card's float32 peak from its SM count and clock.
 
-The line before the last is the JSON list of kernels; the last line is
+Fill times are CUDA events around one call behind a busy card (the device's
+time, ``device_ms``), with the call from an idle card beside them (host
+launch work included, as PR 9's were taken). The line before the last is
+the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. The script exits non-zero, without that line,
 when no CUDA card is available.
 """
@@ -313,6 +323,11 @@ def busy_share(label, model, dt, steps, step_ms, card):
             end = b
     busy_ms = busy / 1e3 / steps
     share = busy_ms / step_ms
+    kernels = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith(("Memcpy", "Memset")))
+    print(f"{label}: device kernels per step {kernels / steps:.1f} "
+          f"(device activities {len(spans) / steps:.1f}, copies and sets "
+          f"included) [{card}]")
     print(f"{label}: device busy {busy_ms:.4f} ms per step over {steps} "
           f"steps ({len(spans)} device activities, torch.profiler): "
           f"{share:.4f} of the {step_ms:.3f} ms median step, "
@@ -396,7 +411,8 @@ def kernels_phase():
       the tail of that distribution); divergence and correction 1e-5
       relative (divergence of fields of size 0.1 with cancellation); the halo
       fill copies, so 0.
-    Returns {kernel: dict(max_abs_err, ms, plain_ms)} at the flagship shapes.
+    Returns {kernel: dict(max_abs_err, ms, plain_ms)} at the flagship shapes
+    (the fill's entry also its call time, library time and bounds).
     """
     import oceananigans_tpu_torch as ot
     from oceananigans_tpu_torch import kernels as K
@@ -457,9 +473,6 @@ def kernels_phase():
             "fused_correct": (
                 lambda: K.fused_correct(grid, p, u, v, w, 0.2),
                 lambda: K.fused_correct_plain(grid, p, u, v, w, 0.2), err_cor),
-            "periodic_halo_fill": (
-                lambda: K.periodic_halo_fill(grid, fields4),
-                lambda: K.periodic_halo_fill_plain(grid, fields4), err_fill),
         }
         for name, (kfn, pfn, err) in timings.items():
             ms = cuda_ms(kfn)
@@ -467,6 +480,9 @@ def kernels_phase():
             out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
             print(f"  time {name} at {grid.padded_shape}: kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms")
+        out["fill_halos"] = time_fill(
+            "flagship u, v, w, p (the wrap)", grid, fields4, None, err_fill)
+        out["fill_halos"]["library_ms"] = circular_pad_ms(grid, fields4)
         # the uncorrected first-stage variant beside the corrected one
         stage1 = (grid, scheme, u, v, w, None, gdt, zdt)
         ms = cuda_ms(lambda: K.fused_advection_update(*stage1))
@@ -544,9 +560,10 @@ def tendency_tile_edge_checks():
         if layout == "compact":
             f[2][..., 0] = 0
         else:
-            K.bounded_z_fill(grid, f, [ZF(False, (0, 0.0), (0, 0.0))] * 2
-                             + [ZF(True, (1, 0.0), (1, 0.0))]
-                             + [ZF(False, (2, 0.5), (2, -0.5))] * ntr)
+            K.bounded_z_fill_plain(grid, f,
+                                   [ZF(False, (0, 0.0), (0, 0.0))] * 2
+                                   + [ZF(True, (1, 0.0), (1, 0.0))]
+                                   + [ZF(False, (2, 0.5), (2, -0.5))] * ntr)
         return grid, f
 
     for layout in ("compact", "padded"):
@@ -651,11 +668,175 @@ def bound(nbytes, flop):
     return (t_bytes, "bytes") if t_bytes >= t_flop else (t_flop, "operations")
 
 
+# -- the fill kernel (#4 and #5) ---------------------------------------------------
+# One launch fills every axis of a batch of fields. Its bound: the distinct
+# slots it writes and the distinct slots it reads, each once, over 3.35
+# TB/s; beside it the floor of the 32-byte DRAM sectors those slots lie in
+# (a z end of a padded row is a few bytes of one or two sectors).
+
+FILL_LOCS = (("c", "c", "c"), ("f", "c", "c"), ("c", "f", "c"),
+             ("c", "c", "f"))
+FILL_SIDES = ("west", "east", "south", "north", "bottom", "top")
+
+
+def rotated_locs_bcs(n):
+    """``n`` (location, conditions): the four locations, each under four
+    rotations of Flux, Open, Value and Gradient over the six sides, with
+    nonzero values: every condition combination the fill takes."""
+    from oceananigans_tpu_torch.boundary_conditions import (
+        BoundaryCondition, FieldBoundaryConditions)
+    from oceananigans_tpu_torch.boundary_conditions import \
+        boundary_condition as bcm
+    classes = (bcm.FLUX, bcm.OPEN, bcm.VALUE, bcm.GRADIENT)
+    return [(FILL_LOCS[k % 4], FieldBoundaryConditions(**{
+        side: BoundaryCondition(classes[(s + (k // 4)) % 4],
+                                0.1 * (s + 1) * (-1) ** s)
+        for s, side in enumerate(FILL_SIDES)})) for k in range(n)]
+
+
+def model_locs_bcs(model, names):
+    """The (location, conditions) of a model's fields."""
+    return [(model.loc(n), model.bcs[n]) for n in names]
+
+
+def fill_check(label, grid, fields, locs_bcs, z=True):
+    """The fill kernel against its plain version on copies of ``fields``:
+    copies, reflections and pins exact; the slots an extrapolation forms
+    within 1e-13 relative in float64 and 1e-6 in float32 (FMA contraction;
+    PyTorch multiplies by the reciprocal of a scalar divisor on the card).
+    Returns the max abs difference."""
+    import oceananigans_tpu_torch.kernels.halo_fill as hf
+    from oceananigans_tpu_torch import kernels as K
+    a = [f.clone() for f in fields]
+    b = [f.clone() for f in fields]
+    K.fill_halos(grid, a, locs_bcs, z=z)
+    K.fill_halos_plain(grid, b, locs_bcs, z=z)
+    tol = 1e-13 if a[0].dtype == torch.float64 else 1e-6
+    masks = (hf.extrapolated_slots(grid, a[0].shape, locs_bcs, z)
+             if locs_bcs is not None else [None] * len(a))
+    err = copies = rel = 0.0
+    for x, y, m in zip(a, b, masks):
+        err = max(err, (x - y).abs().max().item())
+        if m is None or not m.any():
+            copies = max(copies, (x - y).abs().max().item())
+            continue
+        m = m.to(x.device)
+        copies = max(copies, (x[~m] - y[~m]).abs().max().item())
+        rel = max(rel, (x[m] - y[m]).abs().max().item()
+                  / max(y.abs().max().item(), 1e-300))
+    print(f"  fill_halos {label}: {len(a)} fields of {tuple(a[0].shape)} "
+          f"{a[0].dtype}: copied slots max abs {copies:.3e} (bound 0), "
+          f"extrapolated slots rel {rel:.3e} (bound {tol:g})")
+    assert copies == 0.0 and rel <= tol, ("fill_halos", label, copies, rel)
+    torch.cuda.synchronize()
+    return err
+
+
+def fill_sources(codes, N, H, P):
+    """The source slot of each slot along one axis under the fill kernel's
+    map (``map_at`` in csrc/halo_fill.cu); -1 for a pinned face."""
+    import oceananigans_tpu_torch.kernels.halo_fill as hf
+    lo, hi = hf.kept_range(codes, N, H, P)
+    E = H + N
+    src = np.arange(P)
+    for n in list(range(lo)) + list(range(hi, P)):
+        low = n < lo
+        c = codes[0] if low else codes[2]
+        if c == hf.WRAP:
+            src[n] = n + N if low else n - N
+        elif c == hf.MIRROR:
+            src[n] = 2 * H - 1 - n if low else 2 * E - 1 - n
+        elif c in hf.EXTRAPOLATES:
+            src[n] = H if low else E - 1
+        elif c == hf.PINNED and n == (H if low else E):
+            src[n] = -1
+        else:
+            src[n] = 2 * H - n if low else 2 * E - n
+    return src
+
+
+def fill_traffic(grid, shape, esize, locs_bcs=None, n=1, z=True):
+    """(bytes, sector bytes) of one fill: the distinct slots it writes and
+    reads, and the 32-byte sectors they lie in, summed over the fields."""
+    import oceananigans_tpu_torch.kernels.halo_fill as hf
+    geom = hf.axis_geometry(grid, shape)
+    PX, PY, PZ = (g[2] for g in geom)
+    nbytes = sectors = 0
+    for codes in hf.fill_codes(grid, shape, locs_bcs, n, z):
+        (xlo, xhi), (ylo, yhi), (zlo, zhi) = (
+            hf.kept_range(c, g[0], g[1], g[2]) for c, g in zip(codes, geom))
+        sx, sy, sz = (fill_sources(c, g[0], g[1], g[2])
+                      for c, g in zip(codes, geom))
+        # the columns outside the kept x/y box, written whole
+        ix, jy = np.r_[0:xlo, xhi:PX], np.r_[0:ylo, yhi:PY]
+        inner = np.arange(xlo, xhi)
+        i = np.concatenate([np.repeat(ix, PY), np.repeat(inner, len(jy))])
+        j = np.concatenate([np.tile(np.arange(PY), len(ix)),
+                            np.tile(jy, len(inner))])
+        writes = [((i * PY + j) * PZ)[:, None] + np.arange(PZ)[None, :]]
+        ok = (sx[i] >= 0) & (sy[j] >= 0)
+        src_cols = ((sx[i] * PY + sy[j]) * PZ)[ok]
+        reads = [src_cols[:, None] + sz[sz >= 0][None, :]]
+        # the z ends of the columns inside it
+        kz = np.r_[0:zlo, zhi:PZ]
+        if len(kz):
+            cols = ((np.repeat(inner, yhi - ylo) * PY
+                     + np.tile(np.arange(ylo, yhi), len(inner))) * PZ)
+            writes.append(cols[:, None] + kz[None, :])
+            zs = sz[kz]
+            reads.append(cols[:, None] + zs[zs >= 0][None, :])
+        w = np.unique(np.concatenate([x.ravel() for x in writes]))
+        r = np.unique(np.concatenate([x.ravel() for x in reads]))
+        nbytes += esize * (len(w) + len(r))
+        sectors += (len(np.unique(w * esize // 32))
+                    + len(np.unique(r * esize // 32)))
+    return nbytes, 32 * sectors
+
+
+def time_fill(label, grid, fields, locs_bcs, err, z=True):
+    """The fill's device time (a call behind a busy card), its call time
+    from an idle card, its plain version's time, and its byte bound with
+    the sector floor beside it."""
+    from oceananigans_tpu_torch import kernels as K
+    ms = device_ms(lambda: K.fill_halos(grid, fields, locs_bcs, z=z))
+    call_ms = cuda_ms(lambda: K.fill_halos(grid, fields, locs_bcs, z=z))
+    plain_ms = cuda_ms(lambda: K.fill_halos_plain(grid, fields, locs_bcs,
+                                                  z=z), reps=5)
+    esize = fields[0].element_size()
+    nbytes, sector_bytes = fill_traffic(grid, fields[0].shape, esize,
+                                        locs_bcs, len(fields), z)
+    out = dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+               bound=bound(nbytes, 0),
+               sector_ms=sector_bytes / HBM_BYTES_PER_S * 1e3)
+    print(f"  time fill_halos {label} ({len(fields)} fields of "
+          f"{tuple(fields[0].shape)}): kernel {ms:.4f} ms (call from an idle "
+          f"card {call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+          f"{out['bound'][0]:.4f} ms ({nbytes} bytes), sector floor "
+          f"{out['sector_ms']:.4f} ms ({sector_bytes} bytes)")
+    return out
+
+
+def circular_pad_ms(grid, fields):
+    """torch.nn.functional.pad(mode="circular") of the fields' interiors,
+    stacked as channels: the one PyTorch call that computes a periodic x/y
+    fill (out of place); checked against the filled fields."""
+    import torch.nn.functional as F
+    Hx, Hy, _ = grid.H
+    x = torch.stack([f[grid.interior_slices] for f in fields])[None]
+    pad = (0, 0, Hy, Hy, Hx, Hx)
+    got = F.pad(x, pad, mode="circular")[0]
+    assert all(torch.equal(g, f) for g, f in zip(got, fields)), \
+        "circular pad differs from the filled fields"
+    ms = device_ms(lambda: F.pad(x, pad, mode="circular"))
+    print(f"  time torch.nn.functional.pad(mode='circular') of "
+          f"{tuple(x.shape)}: {ms:.4f} ms")
+    return ms
+
+
 def flagship_bounds(N, H, esize):
     """Bounds of the flagship's four kernels at interior N, halo H."""
     cells = N[0] * N[1] * N[2]
     padded = (N[0] + 2 * H[0]) * (N[1] + 2 * H[1]) * N[2]
-    halo = (2 * H[0] * (N[1] + 2 * H[1]) + 2 * N[0] * H[1]) * N[2]
     return {
         # corrected, G⁻ variant: read u, v, w, p padded and G⁻; write G, new
         "fused_advection_update": bound(
@@ -667,8 +848,6 @@ def flagship_bounds(N, H, esize):
         # read p, u, v, w, write u, v, w (padded); 3 x (difference, product,
         # difference) per cell
         "fused_correct": bound(esize * 7 * padded, 9 * cells),
-        # 4 fields: read and write every halo element once
-        "periodic_halo_fill": bound(esize * 4 * 2 * halo, 0),
     }
 
 
@@ -678,14 +857,10 @@ def convection_bounds(N, H, esize, n_tracers=1):
     PX, PY, PZ = (n + 2 * h for n, h in zip(N, H))
     padded = PX * PY * PZ
     nf = 3 + n_tracers
-    wrap = (2 * H[0] * PY + 2 * N[0] * H[1]) * PZ
-    zfix = 2 * H[2] * PX * PY
     return {
         "fused_advection_tendency": bound(
             esize * nf * (padded + cells),
             cells * (3 * WENO_MOMENTUM_FLOP + n_tracers * WENO_TRACER_FLOP)),
-        "bounded_z_fill": bound(esize * nf * 2 * zfix, 0),
-        "periodic_halo_fill_z": bound(esize * nf * 2 * wrap, 0),
     }
 
 
@@ -708,20 +883,18 @@ SW_TRACER_FLOP = 8 + 2 * (1 + 108 + 1) + 6
 
 
 def sw_bounds(n, H, esize, n_tracers=0):
-    """Bounds of the shallow-water path's kernels at interior n², halo H:
-    the stage's G⁻ variant (stages 2 and 3) and the wrap of its fields."""
+    """Bounds of the shallow-water path's stage at interior n², halo H: its
+    G⁻ variant (stages 2 and 3)."""
     nf = 3 + n_tracers
     cells = n * n
     PX, PY = n + 2 * H[0], n + 2 * H[1]
     padded = PX * PY
-    wrap = 2 * H[0] * PY + 2 * n * H[1]
     return {
         # read the fields, hB and G⁻; write G and the new fields
         "fused_sw_update": bound(
             esize * ((nf + 1) * padded + 2 * nf * cells + nf * padded),
             cells * (2 * SW_MOMENTUM_FLOP + SW_H_FLOP
                      + n_tracers * SW_TRACER_FLOP + nf * UPDATE_FLOP)),
-        "periodic_halo_fill_sw": bound(esize * nf * 2 * wrap, 0),
     }
 
 
@@ -747,31 +920,25 @@ def convection_kernels_phase():
       smoothness and for Centered(2); float32 at 256³ with the default
       float32 smoothness, 2e-5 relative (the reasons of the update kernel's
       bound).
-    - bounded-z fill: copied slots exact; extrapolated (Value, Gradient)
-      slots within 1e-13 relative in float64 and 1e-6 in float32 (a few
-      roundings: FMA contraction, and PyTorch multiplies by the reciprocal
-      of a scalar divisor on the card).
-    - periodic wrap on fields with z halos: exact.
+    - the fill (wrap and bounded z in one launch): copied slots exact;
+      extrapolated (Value, Gradient) slots within 1e-13 relative in float64
+      and 1e-6 in float32 (``fill_check``): every location under every
+      condition combination (16 fields) in float64, and the path's own u,
+      v, w, b (b under Value conditions) in float32.
     Returns {kernel: dict(max_abs_err, ms, plain_ms)} at the main path's
     shapes (256³ float32, H = (3, 3, 3), u, v, w and b)."""
     import oceananigans_tpu_torch as ot
     from oceananigans_tpu_torch import kernels as K
-    from oceananigans_tpu_torch.kernels import ZFill
+    from oceananigans_tpu_torch.boundary_conditions import \
+        regularize_field_boundary_conditions as reg
 
     out = {}
-    # every (location, bottom, top) combination the fill takes, per dtype
-    cases = [ZFill(face, (cb, vb), (ct, vt))
-             for face in (False, True)
-             for (cb, vb), (ct, vt) in (((0, 0.0), (0, 0.0)),
-                                        ((2, 0.5), (2, -0.5)),
-                                        ((3, -0.25), (0, 0.3)),
-                                        ((1, 0.0), (3, 0.7)))]
     for N, dtype, schemes, tols in (
             ((32, 32, 32), torch.float64,
              (ot.WENO(5, smoothness_dtype=torch.float64), ot.Centered(2)),
-             dict(adv=1e-12, fill=1e-13)),
+             dict(adv=1e-12)),
             ((256, 256, 256), torch.float32, (ot.WENO(5),),
-             dict(adv=2e-5, fill=1e-6))):
+             dict(adv=2e-5))):
         main = N[0] == 256
         grid, fields, specs = convection_kernel_inputs(N, dtype, seed=2)
         K.bounded_z_fill_plain(grid, fields, specs)
@@ -785,53 +952,45 @@ def convection_kernels_phase():
                   f"max abs {err:.3e}, rel {rel:.3e}")
             assert rel <= tols["adv"], ("fused_advection_tendency", N, rel)
             worst_adv = max(worst_adv, err)
-        worst_fill = 0.0
-        base = torch.randn(grid.padded_shape, dtype=dtype, device="cuda")
-        for spec in cases:
-            a, b = base.clone(), base.clone()
-            K.bounded_z_fill(grid, [a], [spec])
-            K.bounded_z_fill_plain(grid, [b], [spec])
-            err, rel = max_err(a, b)
-            # z-face fields and Flux/Open sides only copy or reflect
-            extrapolates = not spec.face and (spec.bottom[0] >= 2
-                                              or spec.top[0] >= 2)
-            limit = tols["fill"] if extrapolates else 0.0
-            print(f"  bounded_z_fill {N} {dtype} {spec}: max abs {err:.3e}, "
-                  f"rel {rel:.3e} (bound {limit:g})")
-            assert rel <= limit, ("bounded_z_fill", N, spec, rel)
-            worst_fill = max(worst_fill, err)
-        a = torch.randn(grid.padded_shape, dtype=dtype, device="cuda")
-        b = a.clone()
-        K.periodic_halo_fill(grid, [a])
-        K.periodic_halo_fill_plain(grid, [b])
-        err_wrap = (a - b).abs().max().item()
-        print(f"  periodic_halo_fill (z halos) {N} {dtype}: max abs "
-              f"{err_wrap:.3e}")
-        assert err_wrap == 0.0, ("periodic_halo_fill with z halos", err_wrap)
         torch.cuda.synchronize()
         if not main:
             continue
         scheme = schemes[0]
-        copies = [f.clone() for f in fields]
-        timings = {
-            "fused_advection_tendency": (
-                lambda: K.fused_advection_tendency(grid, scheme, fields),
-                lambda: K.fused_advection_tendency_plain(grid, scheme, fields),
-                worst_adv),
-            "bounded_z_fill": (
-                lambda: K.bounded_z_fill(grid, copies, specs),
-                lambda: K.bounded_z_fill_plain(grid, copies, specs),
-                worst_fill),
-            "periodic_halo_fill_z": (
-                lambda: K.periodic_halo_fill(grid, copies),
-                lambda: K.periodic_halo_fill_plain(grid, copies), err_wrap),
-        }
-        for name, (kfn, pfn, err) in timings.items():
-            ms = cuda_ms(kfn)
-            plain_ms = cuda_ms(pfn, reps=5)
-            out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-            print(f"  time {name} at {grid.padded_shape} (4 fields): kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+        ms = cuda_ms(lambda: K.fused_advection_tendency(grid, scheme, fields))
+        plain_ms = cuda_ms(lambda: K.fused_advection_tendency_plain(
+            grid, scheme, fields), reps=5)
+        out["fused_advection_tendency"] = dict(max_abs_err=worst_adv, ms=ms,
+                                               plain_ms=plain_ms)
+        print(f"  time fused_advection_tendency at {grid.padded_shape} (4 "
+              f"fields): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        del fields
+        torch.cuda.empty_cache()
+        # the fill on 262³: every condition combination in float64, then
+        # the path's own fields and conditions in float32
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        combos = rotated_locs_bcs(16)
+        grid64 = ot.RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0),
+                                    halo=(3, 3, 3), dtype=torch.float64,
+                                    device="cuda")
+        fill_check("convection 262^3, every combination", grid64,
+                   [torch.randn(grid.padded_shape, generator=gen,
+                                dtype=torch.float64, device="cuda")
+                    for _ in combos], combos)
+        del grid64
+        torch.cuda.empty_cache()
+        b_bcs = ot.FieldBoundaryConditions(
+            top=ot.ValueBoundaryCondition(-0.5),
+            bottom=ot.ValueBoundaryCondition(0.5))
+        locs = (("f", "c", "c"), ("c", "f", "c"), ("c", "c", "f"),
+                ("c", "c", "c"))
+        path = [(loc, reg(b_bcs if k == 3 else None, grid, loc))
+                for k, loc in enumerate(locs)]
+        fields = [torch.randn(grid.padded_shape, generator=gen, dtype=dtype,
+                              device="cuda") for _ in path]
+        err = fill_check("convection u, v, w, b", grid, fields, path)
+        out["fill_halos_convection"] = time_fill(
+            "convection u, v, w, b (wrap + bounded z)", grid, fields, path,
+            err)
     tendency_tile_edge_checks()
     return out
 
@@ -1003,9 +1162,8 @@ def flagship_path_phase(card):
 
 
 FLAGSHIP_KERNELS = ("fused_advection_update", "fused_divergence",
-                    "fused_correct", "periodic_halo_fill")
-CONVECTION_KERNELS = ("fused_advection_tendency", "bounded_z_fill",
-                      "periodic_halo_fill")
+                    "fused_correct", "fill_halos")
+CONVECTION_KERNELS = ("fused_advection_tendency", "fill_halos")
 
 
 class PhaseTimer:
@@ -1177,8 +1335,7 @@ def plain_kernels():
              (nh, "fused_divergence", K.fused_divergence_plain),
              (nh, "fused_correct", K.fused_correct_plain),
              (nh, "periodic_halo_fill", K.periodic_halo_fill_plain),
-             (hf, "periodic_halo_fill", K.periodic_halo_fill_plain),
-             (hf, "bounded_z_fill", K.bounded_z_fill_plain)]
+             (hf, "fill_halos", K.fill_halos_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -1281,7 +1438,7 @@ def whole_step_phase():
 
 SW_TOPOLOGY = ("periodic", "periodic", "flat")
 SW_NAMES = ("uh", "vh", "h")
-SW_KERNELS = ("fused_sw_update", "periodic_halo_fill")
+SW_KERNELS = ("fused_sw_update", "fill_halos")
 
 
 def sw_kernel_inputs(n, dtype, tracers, seed):
@@ -1384,20 +1541,10 @@ def sw_kernels_phase(n_main):
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (plain peak "
           f"{plain_peak / 2 ** 30:.2f} GiB above its inputs)")
     a = [fields[c] for c in SW_NAMES]
-    b = [t.clone() for t in a]
-    K.periodic_halo_fill(grid, a)
-    K.periodic_halo_fill_plain(grid, b)
-    err_wrap = max((x - y).abs().max().item() for x, y in zip(a, b))
-    print(f"  periodic_halo_fill 3 fields of {grid.padded_shape}: max abs "
-          f"{err_wrap:.3e}")
-    assert err_wrap == 0.0, ("periodic_halo_fill at 16392^2", err_wrap)
-    ms = cuda_ms(lambda: K.periodic_halo_fill(grid, a))
-    plain_ms = cuda_ms(lambda: K.periodic_halo_fill_plain(grid, b), reps=5)
-    out["periodic_halo_fill_sw"] = dict(max_abs_err=err_wrap, ms=ms,
-                                        plain_ms=plain_ms)
-    print(f"  time periodic_halo_fill (3 fields) at {grid.padded_shape}: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    del grid, fields, hB, Gm, a, b
+    err_wrap = fill_check("shallow water uh, vh, h (the wrap)", grid, a, None)
+    out["fill_halos_sw"] = time_fill("shallow water uh, vh, h (the wrap)",
+                                     grid, a, None, err_wrap)
+    del grid, fields, hB, Gm, a
     torch.cuda.empty_cache()
     sw_tile_edge_checks()
     return out
@@ -1563,7 +1710,7 @@ def sw_path_phase(card, n):
 # -- hydrostatic ------------------------------------------------------------------
 
 HYDRO_N = (512, 256, 32)
-HYDRO_KERNELS = ("fused_vi_tendency", "bounded_z_fill")
+HYDRO_KERNELS = ("fused_vi_tendency", "fill_halos")
 
 
 def weno_flop(K, n_smooth):
@@ -1620,20 +1767,16 @@ def vi_momentum_flop():
 
 
 def hydro_bounds(N, H, esize, n_tracers=1):
-    """Bounds of the hydrostatic path's kernels at interior N, halo H. The
-    fused VI tendency: read u, v, w and the tracers padded, write Gu, Gv and
-    the Gc (the interiors); the operations above. The bounded-z fill of u,
-    v, T and w: read and write each z-halo element once."""
+    """Bounds of the hydrostatic path's tendency kernel at interior N, halo
+    H: read u, v, w and the tracers padded, write Gu, Gv and the Gc (the
+    interiors); the operations above."""
     cells = N[0] * N[1] * N[2]
     PX, PY, PZ = (n + 2 * h for n, h in zip(N, H))
     padded = PX * PY * PZ
     nbytes = esize * ((3 + n_tracers) * padded + (2 + n_tracers) * cells)
     flop = cells * (VI_DERIVED_FLOP + 2 * vi_momentum_flop()
                     + n_tracers * VI_TRACER_FLOP)
-    zfix = 2 * H[2] * PX * PY
-    return {"fused_vi_tendency": bound(nbytes, flop),
-            "bounded_z_fill_hydro": bound(esize * (3 + n_tracers) * 2 * zfix,
-                                          0)}
+    return {"fused_vi_tendency": bound(nbytes, flop)}
 
 
 def hydro_model(N, dtype, device, seed=0, smoothness=torch.float32,
@@ -1750,15 +1893,16 @@ def hydro_kernels_phase():
       a few ulp (the JAX packed test holds its float32 kernel to 2e-5);
     - the wrap with one periodic axis (x on the 0-360° lat-lon grid, y on a
       bounded-x RectilinearGrid), 3-D and 2-D surface fields: exact;
-    - the bounded-z fill at the path's shapes, halo and specs (u, v, T, w
-      of the hydro_row, z halos overwritten first): exact where it copies or
-      reflects, 1e-6 relative where it extrapolates in float32 (no side of
-      the hydro_row does).
+    - the fill at the path's shapes (``fill_check``: copied slots exact,
+      extrapolated slots 1e-13 relative in float64, 1e-6 in float32): every
+      location under every condition combination on the bounded
+      524x268x44 lat-lon grid in float64 (16 fields, x, y and z in one
+      launch); the hydro_row's u, v, T, w as the path fills them, and its
+      η, U, V surfaces as the substep loop fills them, in float32, every
+      halo overwritten with noise first.
     Returns ({kernel: dict(max_abs_err, ms, plain_ms)}, the model)."""
     import oceananigans_tpu_torch as ot
     from oceananigans_tpu_torch import kernels as K
-    from oceananigans_tpu_torch.boundary_conditions.fill_halos import \
-        z_fill_spec
     for label, lon, grid, vi, ts, names, coriolis, with_ph in \
             hydro_vi_cases():
         grid, f = hydro_kernel_inputs(lon, seed=5, grid=grid, tracers=names)
@@ -1814,57 +1958,62 @@ def hydro_kernels_phase():
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
     out = {"fused_vi_tendency": dict(max_abs_err=err, ms=ms,
                                      plain_ms=plain_ms)}
-    # the bounded-z fill as the path calls it: u, v, T and w, the model's
-    # halo and z specs, the z halos overwritten with noise first
+    del args
+    # the fill at the path's shapes: every condition combination in float64
     grid = model.grid
-    Hz, Nz = grid.H[2], grid.N[2]
+    grid64 = ot.LatitudeLongitudeGrid(size=HYDRO_N, longitude=(0, 60),
+                                      latitude=(15, 75), z=(-1800.0, 0.0),
+                                      halo=grid.H, dtype=torch.float64,
+                                      device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    combos = rotated_locs_bcs(16)
+    fill_check("hydrostatic 524x268x44, every combination", grid64,
+               [torch.randn(grid64.padded_shape, generator=gen,
+                            dtype=torch.float64, device="cuda")
+                for _ in combos], combos)
+    del grid64
+    torch.cuda.empty_cache()
+
+    def noisy(a):
+        """``a`` with every halo slot overwritten with noise."""
+        b = torch.randn(a.shape, generator=gen, dtype=a.dtype, device="cuda")
+        ints = tuple(slice(h, h + n) if s > 1 else slice(None)
+                     for h, n, s in zip(grid.H, grid.N, a.shape))
+        b[ints] = a[ints]
+        return b
+
+    # u, v, T and w as the path fills them (all three axes), and η, U, V
+    # as the substep loop fills them (x and y)
     names = ("u", "v", "T", "w")
-    base = [fields[n] if n != "w" else w for n in names]
-    specs = [z_fill_spec(model.loc(n), model.bcs[n]) for n in names]
-    noisy = []
-    for a in base:
-        a = a.clone()
-        for sl in (slice(0, Hz), slice(Hz + Nz, 2 * Hz + Nz)):
-            a[:, :, sl] = torch.randn_like(a[:, :, sl])
-        noisy.append(a)
-    got, want = [a.clone() for a in noisy], [a.clone() for a in noisy]
-    K.bounded_z_fill(grid, got, specs)
-    K.bounded_z_fill_plain(grid, want, specs)
-    worst = 0.0
-    for name, spec, a, b in zip(names, specs, got, want):
-        # v is zero after set(): relative to 1 then
-        err = (a - b).abs().max().item()
-        rel = err / (b.abs().max().item() or 1.0)
-        extrapolates = not spec.face and (spec.bottom[0] >= 2
-                                          or spec.top[0] >= 2)
-        limit = 1e-6 if extrapolates else 0.0
-        print(f"  bounded_z_fill {grid.padded_shape} float32 {name} {spec}: "
-              f"max abs {err:.3e}, rel {rel:.3e} (bound {limit:g})")
-        assert rel <= limit, ("bounded_z_fill hydro", name, spec, rel)
-        worst = max(worst, err)
-    ms = cuda_ms(lambda: K.bounded_z_fill(grid, got, specs))
-    plain_ms = cuda_ms(lambda: K.bounded_z_fill_plain(grid, want, specs),
-                       reps=5)
-    print(f"  time bounded_z_fill at {grid.padded_shape} (u, v, T, w): "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    out["bounded_z_fill_hydro"] = dict(max_abs_err=worst, ms=ms,
-                                       plain_ms=plain_ms)
+    path = [noisy(fields[n] if n != "w" else w) for n in names]
+    locs_bcs = model_locs_bcs(model, names)
+    err = fill_check("hydrostatic u, v, T, w", grid, path, locs_bcs)
+    out["fill_halos_bounded"] = time_fill(
+        "hydrostatic u, v, T, w (x, y and z)", grid, path, locs_bcs, err)
+    bt = model.state["barotropic"]
+    surfaces = [noisy(fields["eta"]), noisy(bt["U"]), noisy(bt["V"])]
+    sbcs = [(("c", "c", "c"), model.bcs["eta"]), (("f", "c", "c"),
+                                                   model.bcs["u"]),
+            (("c", "f", "c"), model.bcs["v"])]
+    err = fill_check("hydrostatic η, U, V surfaces", grid, surfaces, sbcs,
+                     z=False)
+    out["fill_halos_surfaces"] = time_fill(
+        "hydrostatic η, U, V surfaces (x and y)", grid, surfaces, sbcs, err,
+        z=False)
     return out, model
 
 
 def hydro_phase_shares(model, dt, steps, card):
     """Per-step CUDA-event times of the hydrostatic step: the fused
-    tendency kernel, the bounded x/y fills (outside the substep loop), the
-    z fills, the split-explicit substep loop (its 2-D fills included), w
-    from continuity (its fills excluded), and the rest."""
-    import oceananigans_tpu_torch.boundary_conditions.fill_halos as fh
+    tendency kernel, the fills (one launch each, outside the substep loop),
+    the split-explicit substep loop (its fills of η, U, V included), w from
+    continuity (its fills excluded), and the rest."""
     import oceananigans_tpu_torch.kernels.halo_fill as hf
     import oceananigans_tpu_torch.models.hydrostatic as hs
     timer = PhaseTimer()
-    saved = (hs.fused_vi_tendency, fh.fill_bounded_axis, hf.bounded_z_fill)
+    saved = (hs.fused_vi_tendency, hf.fill_halos)
     hs.fused_vi_tendency = timer.wrap("kernel", saved[0])
-    fh.fill_bounded_axis = timer.wrap("xy", saved[1])
-    hf.bounded_z_fill = timer.wrap("z", saved[2])
+    hf.fill_halos = timer.wrap("fills", saved[1])
     fs = model.free_surface
     fs.substep = timer.wrap("substep", fs.substep)
     model._w_from_continuity = timer.wrap("w", model._w_from_continuity)
@@ -1874,20 +2023,19 @@ def hydro_phase_shares(model, dt, steps, card):
             model.time_step(dt)
         t = {k: v / steps for k, v in timer.totals().items()}
     finally:
-        hs.fused_vi_tendency, fh.fill_bounded_axis, hf.bounded_z_fill = saved
+        hs.fused_vi_tendency, hf.fill_halos = saved
         del fs.substep
         for name in ("_w_from_continuity", "time_step"):
             delattr(model, name)
     g = t.get
     shares = {
         "fused_vi_tendency kernel": g("kernel", 0.0),
-        "bounded x/y fills (outside the substep loop)":
-            g("xy", 0.0) - g("xy@substep", 0.0),
-        "bounded z fills": g("z", 0.0),
-        "split-explicit substep loop (its 2-D fills included)":
+        "fills (outside the substep loop)":
+            g("fills", 0.0) - g("fills@substep", 0.0),
+        "split-explicit substep loop (its fills included)":
             g("substep", 0.0),
         "w from continuity (its fills excluded)":
-            g("w", 0.0) - g("xy@w", 0.0) - g("z@w", 0.0),
+            g("w", 0.0) - g("fills@w", 0.0),
     }
     shares["rest (hydrostatic pressure, AB2, corrector, allocations, "
            "host gaps)"] = t["step"] - sum(shares.values())
@@ -1895,8 +2043,8 @@ def hydro_phase_shares(model, dt, steps, card):
           f"events) [{card}]:")
     for phase, ms in shares.items():
         print(f"  {phase}: {ms:.4f} ms ({100 * ms / t['step']:.1f}%)")
-    print(f"  (x/y fills inside the substep loop: "
-          f"{g('xy@substep', 0.0):.4f} ms)")
+    print(f"  (fills inside the substep loop: "
+          f"{g('fills@substep', 0.0):.4f} ms)")
     print(f"  step: {t['step']:.4f} ms")
     return shares
 
@@ -1926,7 +2074,8 @@ def hydro_path_phase(card, model):
           f"calls on CUDA: {plain_cuda}")
     assert launches["fused_vi_tendency"] == steps, \
         ("fused_vi_tendency launches", launches["fused_vi_tendency"], steps)
-    assert launches["bounded_z_fill"] > 0
+    assert launches["fill_halos"] > 0
+    assert plain_cuda["fill_bounded_axis"] == 0, "a plain x/y fill ran"
     for name, count in plain_cuda.items():
         assert count == 0, f"plain {name} ran on CUDA tensors"
     peak = torch.cuda.max_memory_allocated()
@@ -2202,7 +2351,7 @@ def sharded_sw_path_phase(card, n, serial, state0):
     stages = 3 * steps
     check_mesh_launches(launches, plain_cuda, {
         "build_sharded_fused_sw_update": stages, "fused_sw_update": 4 * stages,
-        "mesh_halo_exchange": 2 * stages, "periodic_halo_fill": stages})
+        "mesh_halo_exchange": 2 * stages, "fill_halos": stages})
     peak = torch.cuda.max_memory_allocated() - base
     for name in SW_NAMES:
         a = model.field(name).interior
@@ -2281,7 +2430,7 @@ def sharded_convection_path_phase(card, n, serial, state0):
         "build_sharded_fused_advection": stages,
         "fused_advection_tendency": 4 * stages,
         "mesh_halo_exchange": 2 * stages})
-    assert launches["bounded_z_fill"] > 0 and launches["periodic_halo_fill"] > 0
+    assert launches["fill_halos"] > 0
     peak = torch.cuda.max_memory_allocated() - base
     fields = model.state["fields"]
     for name in ("u", "v", "w", "b"):
@@ -2329,8 +2478,8 @@ def sharded_convection_path_phase(card, n, serial, state0):
 
 N_TRACERS = 12
 TRACER_KERNELS = ("fused_advection_update", "fused_divergence",
-                  "fused_correct", "periodic_halo_fill")
-BUOYANT_KERNELS = ("fused_advection_tendency", "periodic_halo_fill",
+                  "fused_correct", "fill_halos")
+BUOYANT_KERNELS = ("fused_advection_tendency", "fill_halos",
                    "fused_divergence", "fused_correct")
 
 
@@ -2514,22 +2663,13 @@ def tracer_kernels_phase():
         print(f"  fused_sw_update 256^2 float64 {N_TRACERS} tracers "
               f"Gm={gm is not None}: max abs {err:.3e}, rel {rel:.3e}")
         assert rel <= 1e-12, ("fused_sw_update, 12 tracers", rel)
-    # a fill of 20 fields
+    # a fill of 20 fields, the wrap alone and with every condition
+    # combination
     base = [torch.randn(pgrid.padded_shape, generator=gen, dtype=torch.float64,
                         device="cuda") for _ in range(20)]
-    a, b = [x.clone() for x in base], [x.clone() for x in base]
-    K.periodic_halo_fill(pgrid, a)
-    K.periodic_halo_fill_plain(pgrid, b)
-    err_wrap = max((x - y).abs().max().item() for x, y in zip(a, b))
-    zspecs = [ZFill(k % 2 == 1, ((0, 0.0), (2, 0.5), (3, -0.25))[k % 3],
-                    ((0, 0.0), (1, 0.0), (2, -0.5))[k % 3]) for k in range(20)]
-    K.bounded_z_fill(pgrid, a, zspecs)
-    K.bounded_z_fill_plain(pgrid, b, zspecs)
-    _, rel_z = worst_rel(a, b)
-    print(f"  periodic_halo_fill of 20 fields: max abs {err_wrap:.3e} (bound "
-          f"0); bounded_z_fill of 20 fields: rel {rel_z:.3e} (bound 1e-13)")
-    assert err_wrap == 0.0 and rel_z <= 1e-13, ("fills of 20", err_wrap, rel_z)
-    torch.cuda.synchronize()
+    fill_check("20 fields, the wrap", pgrid, base, None)
+    fill_check("20 fields, wrap and bounded z", pgrid, base,
+               rotated_locs_bcs(20))
 
 
 def compact_phase_shares(model, dt, steps, card, label):
@@ -2858,7 +2998,7 @@ def sharded_buoyant_path_phase(card, n, serial, state0):
         "build_sharded_fused_advection": stages,
         "fused_advection_tendency": 4 * stages,
         "mesh_halo_exchange": 2 * stages})
-    for name in ("periodic_halo_fill", "fused_divergence", "fused_correct"):
+    for name in ("fill_halos", "fused_divergence", "fused_correct"):
         assert launches[name] > 0, name
     peak = torch.cuda.max_memory_allocated() - base
     for name in model.prognostic_names:
@@ -3268,13 +3408,13 @@ KERNEL_SOURCES = {
     "fused_correct": (
         "oceananigans_tpu_torch/csrc/fused_projection.cu",
         "oceananigans_tpu/kernels/fused_projection.py:160"),
-    "periodic_halo_fill": (
+    "fill_halos": (
         "oceananigans_tpu_torch/csrc/halo_fill.cu",
         "oceananigans_tpu/kernels/pallas_fill.py:265"),
     "fused_advection_tendency": (
         "oceananigans_tpu_torch/csrc/fused_advection.cu",
         "oceananigans_tpu/kernels/fused_advection.py:149"),
-    "bounded_z_fill": (
+    "fill_halos_bounded": (
         "oceananigans_tpu_torch/csrc/halo_fill.cu",
         "oceananigans_tpu/kernels/pallas_fill.py:87"),
     "fused_sw_update": (
@@ -3316,7 +3456,8 @@ KERNEL_SOURCES = {
 }
 
 # the variant rows of a kernel: its counter's name
-COUNTER = {"fused_advection_update_tracers": "fused_advection_update",
+COUNTER = {"fill_halos_bounded": "fill_halos",
+           "fused_advection_update_tracers": "fused_advection_update",
            "fused_advection_tendency_compact": "fused_advection_tendency",
            "build_sharded_fused_advection_compact":
                "build_sharded_fused_advection",
@@ -3410,13 +3551,17 @@ def main():
     bounds.update(probe_bounds(peak["tflops"]))
     bounds["fused_advection_update_bf16"] = \
         bounds["fused_advection_update_tracers"]
+    for fname in ("fill_halos", "fill_halos_bounded"):
+        bounds[fname] = measured[fname]["bound"]
     rows = []
     for kname, (source, replaces) in KERNEL_SOURCES.items():
-        # the wrap's own row is at the flagship's shapes; its launches are
-        # those of the flagship path, where it replaces get_batched_fill
+        # the fill's #4 row is at the flagship's shapes (the wrap, where it
+        # replaces get_batched_fill), its #5 row at the hydrostatic path's
+        # (x, y and z), each with its path's launches
         launches = (flagship_launches if kname in FLAGSHIP_KERNELS
                     else sw_launches if kname == "fused_sw_update"
-                    else hydro_launches if kname == "fused_vi_tendency"
+                    else hydro_launches if kname in ("fused_vi_tendency",
+                                                     "fill_halos_bounded")
                     else sharded_sw_launches if kname in (
                         "build_sharded_fused_sw_update", "mesh_halo_exchange")
                     else sharded_conv_launches
@@ -3432,23 +3577,31 @@ def main():
                     else probe_launches if kname in PROBE_KERNELS
                     else convection_launches)[COUNTER.get(kname, kname)]
         bound_ms, bound_by = bounds[kname]
+        m = measured[kname]
         rows.append(dict(name=kname, route="cuda", source=source,
                          replaces=replaces, launches=launches,
-                         **measured[kname], bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=None))
-    wrap_z = dict(measured["periodic_halo_fill_z"],
-                  launches=convection_launches["periodic_halo_fill"])
-    print(f"periodic_halo_fill on the convection path (z halos, 4 fields of "
-          f"262^3): {wrap_z}, bound {bounds['periodic_halo_fill_z']}")
-    wrap_sw = dict(measured["periodic_halo_fill_sw"],
-                   launches=sw_launches["periodic_halo_fill"])
-    print(f"periodic_halo_fill on the shallow-water path (3 fields of "
-          f"16392^2): {wrap_sw}, bound {bounds['periodic_halo_fill_sw']}")
-    fill_hydro = dict(measured["bounded_z_fill_hydro"],
-                      launches=hydro_launches["bounded_z_fill"])
-    print(f"bounded_z_fill on the hydrostatic path (u, v, T, w of "
-          f"{HYDRO_N}, Hz = {hydro_H[2]}): {fill_hydro}, bound "
-          f"{bounds['bounded_z_fill_hydro']}")
+                         max_abs_err=m["max_abs_err"], ms=m["ms"],
+                         plain_ms=m["plain_ms"], bound_ms=bound_ms,
+                         bound_by=bound_by,
+                         library_ms=m.get("library_ms")))
+    for fname, label, path_launches in (
+            ("fill_halos", "the flagship path (u, v, w, p of 264x264x256, "
+             "the wrap)", flagship_launches),
+            ("fill_halos_convection", "the convection path (u, v, w, b of "
+             "262^3, wrap and bounded z)", convection_launches),
+            ("fill_halos_sw", "the shallow-water path (3 fields of 16392^2)",
+             sw_launches),
+            ("fill_halos_bounded", f"the hydrostatic path (u, v, T, w of "
+             f"{HYDRO_N}, H = {hydro_H}, x, y and z)", hydro_launches),
+            ("fill_halos_surfaces", "the hydrostatic substep loop (η, U, V "
+             "surfaces, x and y)", hydro_launches)):
+        m = measured[fname]
+        print(f"fill_halos on {label}: kernel {m['ms']:.4f} ms (call from an "
+              f"idle card {m['call_ms']:.4f}), plain {m['plain_ms']:.4f} ms, "
+              f"bound {m['bound'][0]:.4f} ms, sector floor "
+              f"{m['sector_ms']:.4f} ms, library "
+              f"{m.get('library_ms')}, max abs err {m['max_abs_err']:.3e}; "
+              f"fill launches on the path {path_launches['fill_halos']}")
     exchange_conv = dict(measured["mesh_halo_exchange_conv"],
                          launches=sharded_conv_launches["mesh_halo_exchange"])
     print(f"mesh_halo_exchange on the sharded convection path (u, v, w, b in "

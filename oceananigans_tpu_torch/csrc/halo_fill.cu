@@ -1,158 +1,288 @@
-// Halo fills, in place: the batched periodic x/y wrap and the bounded-z fill.
+// Halo fills, in place: every halo slot along every axis, and every pinned
+// boundary face, of a batch of padded fields in one launch.
 //
-// oc_halo_fill replaces the TPU kernel oceananigans_tpu/kernels/pallas_fill.py
-// _build_batched (via get_batched_fill), and the wrap half of _build (via
-// get_pallas_fill): strip DMAs that wrap x, then wrap y over the full x
-// extent, so that corners carry the x-wrapped columns, each axis only where
-// its flag says it is periodic (pallas_fill.py:272-273). With both flags,
-// every halo slot (i, j) ends up holding the interior cell (wrap_x(i),
-// wrap_y(j)); with x alone, the x-halo columns copy the wrapped columns over
-// the full y extent (y halos as they stand); with y alone, the y-halo rows
-// copy the wrapped rows over the full x extent (x halos as they stand, filled
-// beforehand by the bounded x fill). One pass over the halo slots of all
-// fields of a batch, over the full padded z (z halos included). Every slot is
-// read from slots the pass does not write, so the in-place update has no
-// race.
+// oc_fill_halos replaces both TPU fill kernels of
+// oceananigans_tpu/kernels/pallas_fill.py: _build_batched (via
+// get_batched_fill, the periodic x/y wrap of a batch of fields) and _build
+// (via get_pallas_fill, the wrap followed by the bounded-z fix), and the
+// bounded x/y fills that the JAX package leaves to XLA. It computes what the
+// reference's x -> y -> z sequence of fills computes
+// (oceananigans_tpu/boundary_conditions/fill_halos.py _fill_axis), corners
+// included.
 //
-// oc_bounded_z_fill replaces the z-fix half of _build (pallas_fill.py:139-201,
-// the pallas_call at :233), whose semantics are those of _fill_axis
-// (boundary_conditions/fill_halos.py:161-278) along a bounded z: per field, a
-// location (center or face in z) and a (classification, scalar value) pair
-// for the bottom and for the top. Center fields: Flux/Open mirror the
-// interior, Value/Gradient extrapolate linearly from the boundary cell.
-// z-face fields: Open/Value pin the boundary face and reflect oddly about
-// it, Flux/Gradient reflect evenly and leave the face as it is. It runs after
-// the wrap over the full padded x and y, so the corner columns carry wrapped
-// values, as the x -> y -> z order of the reference gives.
+// Design: each written slot comes from one read-only slot. Along each axis a
+// fill maps a source slot to each halo slot (kernels/halo_fill.py numbers the
+// maps): a periodic wrap copies wrap(n); a center field under Flux/Open
+// mirrors the interior; under Value/Gradient it extrapolates from the
+// boundary cell c1 alone (c1 - grad·dist); a face field under Open/Value pins
+// its boundary face to v (reading nothing) and reflects oddly (2v - r), under
+// Flux/Gradient it reflects evenly. The x fill runs over the full y and z,
+// the y fill over the full x and z, so after x -> y -> z slot (i, j, k)
+// holds Fz_k(Fy_j(Fx_i(a[sx(i), sy(j), sz(k)]))), where each source index is
+// an interior slot that no map writes and each map is the identity there.
+// One thread forms a slot's final value from one load, applying the three
+// maps in order, in the plain version's arithmetic order; no slot that a
+// thread reads is written in the launch, so the in-place update has no race.
+// The source indices stay interior only when a bounded axis has N >= H + 1
+// and a periodic one N >= H; the wrapper raises otherwise.
 //
-// Bound: pure data movement, launch latency dominates. The wrap moves
-// (2Hx·PY + 2Nx·Hy)·PZ elements each way per field, the z-fill about
-// 2Hz·PX·PY (about 2 MB per float32 field at 262³). Design: one launch for a
-// batch of fields (blockIdx.y = field), one thread per halo element with z
-// fastest across threads. A launch takes at most kMaxFields fields (their
-// pointers and conditions ride in the parameter block); kernels/halo_fill.py
-// launches once per batch of that size, and each field's fill is independent
-// of the others', so the batching changes no value. The z-fill reads interior z slots only and
-// writes halo and boundary-face slots only, so its in-place update has no
-// race either. Copies are exact; an extrapolated slot may differ from the
-// plain PyTorch version by rounding (FMA contraction, and PyTorch's division
-// by a scalar multiplies by its reciprocal on the card).
+// Work: per field, the columns (i, j) outside the unwritten x/y box are
+// written whole, along z, from their source column: a group of threads per
+// column (a warp for a long column, one thread for a 2-D field), 16-byte
+// accesses where a row is 16-byte aligned (the z-compact 256, the hydrostatic
+// 44). The columns inside the box have only their z ends written (a group of
+// up to 2Hz + 1 threads per column, a lane per written slot), a thread the
+// same slot of several columns, all loaded before any is stored, so that
+// loads stay in flight although the stores may not pass them. Index
+// arithmetic is 32-bit; a column's (i, j) is decomposed once per column a
+// thread visits. blockIdx.y is the field, blockIdx.x runs over its
+// whole-column blocks and then its z-end blocks.
+//
+// Bound: pure data movement, each written slot read once and written once.
+// The z ends of an interior column are a few bytes at both ends of a row, so
+// 32-byte DRAM sectors, and not the bytes, set the floor of a bounded-z fill.
+// Copies are exact; an extrapolated slot may differ from the plain PyTorch
+// version by rounding (FMA contraction, and PyTorch's division by a scalar
+// multiplies by its reciprocal on the card).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kMaxFields = 32;   // fields per launch (kernels/build.py BATCH)
-constexpr int kMaxHz = 8;
+constexpr int kMaxFields = 32;  // fields per launch (kernels/build.py BATCH)
+constexpr int kMaxH = 8;        // halo width of a bounded axis
+constexpr int kThreads = 256;
 
-// Boundary classifications, as kernels/halo_fill.py numbers them.
-constexpr int kFlux = 0;
-constexpr int kOpen = 1;
-constexpr int kValue = 2;
-constexpr int kGradient = 3;
+// Side codes, as kernels/halo_fill.py numbers them.
+constexpr int kKeep = 0;      // the axis is not filled
+constexpr int kWrap = 1;      // periodic
+constexpr int kMirror = 2;    // center field, Flux or Open
+constexpr int kValue = 3;     // center field, Value: extrapolate from c1
+constexpr int kGradient = 4;  // center field, Gradient: extrapolate from c1
+constexpr int kPinned = 5;    // face field, Open or Value: pin, reflect oddly
+constexpr int kReflect = 6;   // face field, Flux or Gradient: reflect evenly
 
-struct FieldPtrs {
-  void* p[kMaxFields];
+// What a map does to the value it reads.
+constexpr int kCopy = 0, kPin = 1, kOdd = 2, kValueLo = 3, kValueHi = 4,
+              kGradLo = 5, kGradHi = 6;
+
+struct Axis {
+  int N, H, P;                // interior cells, halo, padded extent
+  double half[2];             // half the spacing of the low / high boundary cell
+  double dist[2][kMaxH];      // low: x[H] - x[m]; high: x[H+N+m] - x[H+N-1]
 };
 
-// Strips: with wrap_x, the two x-halo strips over the full y extent; with
-// wrap_y, the two y-halo strips over the interior x (wrap_x) or the full x
-// extent (no wrap_x). A slot takes the wrapped index along each wrapped axis.
-template <typename T>
-__global__ void halo_wrap_kernel(FieldPtrs ptrs, oc::Geom g, int wrap_x, int wrap_y,
-                                 long long n_halo_cols) {
-  T* a = (T*)ptrs.p[blockIdx.y];
-  const int PZ = g.PZ();
-  long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= n_halo_cols * PZ) return;
-  const int k = (int)(n % PZ);
-  long long c = n / PZ;
-  const int PY = g.PY();
-  const long long xstrip = wrap_x ? (long long)g.Hx * PY : 0;  // columns in one x strip
-  const int ywidth = wrap_x ? g.Nx : g.PX();                     // x extent of a y strip
-  const int yx0 = wrap_x ? g.Hx : 0;
-  const long long ystrip = (long long)ywidth * g.Hy;             // columns in one y strip
-  int i, j;
-  if (c < xstrip) {                    // left x strip, full y extent
-    i = (int)(c / PY); j = (int)(c % PY);
-  } else if (c < 2 * xstrip) {         // right x strip, full y extent
-    c -= xstrip;
-    i = g.Hx + g.Nx + (int)(c / PY); j = (int)(c % PY);
-  } else if (c < 2 * xstrip + ystrip) { // bottom y strip
-    c -= 2 * xstrip;
-    i = yx0 + (int)(c / g.Hy); j = (int)(c % g.Hy);
-  } else {                             // top y strip
-    c -= 2 * xstrip + ystrip;
-    i = yx0 + (int)(c / g.Hy); j = g.Hy + g.Ny + (int)(c % g.Hy);
+struct Field {
+  void* p;
+  signed char code[3][2];     // per axis: low side, high side
+  double v[3][2];             // scalar conditions (0 for none)
+  int whole_blocks, end_blocks;
+};
+
+struct Params {
+  Axis ax[3];
+  Field f[kMaxFields];
+  int nf, elem_size;
+  int whole_shift, end_shift;  // log2 of the threads per column
+  int blocks;                  // gridDim.x
+};
+
+static_assert(sizeof(Params) <= 4096, "kernel parameter block too large");
+
+// The slots [lo, hi) along an axis that its map leaves as they are.
+__host__ __device__ __forceinline__ void kept(const Axis& a, const signed char* c,
+                                              int& lo, int& hi) {
+  if (c[0] == kKeep) {
+    lo = 0;
+    hi = a.P;
+    return;
   }
-  int si = i, sj = j;
-  if (wrap_x) si = i < g.Hx ? i + g.Nx : (i >= g.Hx + g.Nx ? i - g.Nx : i);
-  if (wrap_y) sj = j < g.Hy ? j + g.Ny : (j >= g.Hy + g.Ny ? j - g.Ny : j);
-  a[g.at(i, j, k)] = a[g.at(si, sj, k)];
+  lo = a.H + (c[0] == kPinned);
+  hi = a.H + a.N + (c[1] == kReflect);
 }
 
-struct ZSpec {
-  int face;            // 1 for a z-face field (w), 0 for a center field
-  int cls_b, cls_t;    // bottom / top classification
-  double v_b, v_t;     // bottom / top scalar condition (0 for none)
-};
-
-struct ZFill {
-  void* p[kMaxFields];
-  ZSpec spec[kMaxFields];
-  double half_b, half_t;            // half the boundary-cell spacing
-  double dist_b[kMaxHz];            // z_C[Hz] - z_C[s], bottom halo slot s
-  double dist_t[kMaxHz];            // z_C[Hz+Nz+m] - z_C[Hz+Nz-1]
-};
-
-// Jobs per column: 2Hz + 1. Job s < Hz is bottom slot s; job Hz + m is slot
-// Hz + Nz + m (top halo for centers; for faces m = 0 is the top boundary
-// face); job 2Hz is the bottom boundary face of a z-face field.
 template <typename T>
-__global__ void bounded_z_kernel(const __grid_constant__ ZFill P, oc::Geom g) {
-  const ZSpec s = P.spec[blockIdx.y];
-  const int H = g.Hz, N = g.Nz, jobs = 2 * H + 1;
-  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= (long long)g.PX() * g.PY() * jobs) return;
-  const int job = (int)(n % jobs);
-  T* c = (T*)P.p[blockIdx.y] + (n / jobs) * g.PZ();
-  const bool pin_b = s.cls_b == kOpen || s.cls_b == kValue;
-  const bool pin_t = s.cls_t == kOpen || s.cls_t == kValue;
-  if (!s.face) {
-    if (job == 2 * H) return;
-    if (job < H) {
-      if (s.cls_b == kFlux || s.cls_b == kOpen) {
-        c[job] = c[2 * H - 1 - job];
-      } else {
-        const T c1 = c[H];
-        const T grad = s.cls_b == kGradient ? (T)s.v_b : (c1 - (T)s.v_b) / (T)P.half_b;
-        c[job] = c1 - grad * (T)P.dist_b[job];
+struct Map {
+  int src, op;
+  T v, half, dist;
+};
+
+template <typename T>
+__device__ __forceinline__ Map<T> map_at(const Axis& a, const signed char* c,
+                                         const double* v, int lo, int hi, int n) {
+  Map<T> m{n, kCopy, T(0), T(1), T(0)};
+  if (n >= lo && n < hi) return m;
+  const int H = a.H, E = a.H + a.N;  // E: the first slot past the interior
+  if (n < lo) {
+    switch (c[0]) {
+      case kWrap: m.src = n + a.N; break;
+      case kMirror: m.src = 2 * H - 1 - n; break;
+      case kValue:
+        m = Map<T>{H, kValueLo, (T)v[0], (T)a.half[0], (T)a.dist[0][n]};
+        break;
+      case kGradient: m = Map<T>{H, kGradLo, (T)v[0], T(1), (T)a.dist[0][n]}; break;
+      case kPinned:
+        m = n == H ? Map<T>{n, kPin, (T)v[0], T(1), T(0)}
+                   : Map<T>{2 * H - n, kOdd, (T)(2.0 * v[0]), T(1), T(0)};
+        break;
+      default: m.src = 2 * H - n;  // kReflect
+    }
+  } else {
+    switch (c[1]) {
+      case kWrap: m.src = n - a.N; break;
+      case kMirror: m.src = 2 * E - 1 - n; break;
+      case kValue:
+        m = Map<T>{E - 1, kValueHi, (T)v[1], (T)a.half[1], (T)a.dist[1][n - E]};
+        break;
+      case kGradient:
+        m = Map<T>{E - 1, kGradHi, (T)v[1], T(1), (T)a.dist[1][n - E]};
+        break;
+      case kPinned:
+        m = n == E ? Map<T>{n, kPin, (T)v[1], T(1), T(0)}
+                   : Map<T>{2 * E - n, kOdd, (T)(2.0 * v[1]), T(1), T(0)};
+        break;
+      default: m.src = 2 * E - n;  // kReflect
+    }
+  }
+  return m;
+}
+
+// The plain version's arithmetic: grad = (c1 - v) / half, c1 - grad·dist.
+template <typename T>
+__device__ __forceinline__ T apply(const Map<T>& m, T r) {
+  switch (m.op) {
+    case kPin: return m.v;
+    case kOdd: return m.v - r;
+    case kValueLo: return r - (r - m.v) / m.half * m.dist;
+    case kValueHi: return r + (m.v - r) / m.half * m.dist;
+    case kGradLo: return r - m.v * m.dist;
+    case kGradHi: return r + m.v * m.dist;
+    default: return r;
+  }
+}
+
+template <typename T, int V> struct Vec { using type = T; };
+template <> struct Vec<float, 4> { using type = float4; };
+template <> struct Vec<double, 2> { using type = double2; };
+
+// Column c of a field's whole columns (outside the kept x/y box: the low
+// and high x strips over the full y, then the low and high y strips over the
+// kept x) as (i, j); false past the last one.
+__device__ __forceinline__ bool whole_column(int c, int PX, int PY, int xlo, int xhi,
+                                             int ylo, int yhi, int& i, int& j) {
+  const int low_x = xlo * PY, high_x = (PX - xhi) * PY, nxk = xhi - xlo;
+  if (c < low_x) {
+    i = c / PY; j = c - i * PY;
+    return true;
+  }
+  c -= low_x;
+  if (c < high_x) {
+    i = c / PY; j = c - i * PY; i += xhi;
+    return true;
+  }
+  c -= high_x;
+  if (c < nxk * ylo) {
+    i = c / ylo; j = c - i * ylo; i += xlo;
+    return true;
+  }
+  c -= nxk * ylo;
+  const int w = PY - yhi;
+  if (c < nxk * w) {
+    i = c / w; j = c - i * w; i += xlo; j += yhi;
+    return true;
+  }
+  return false;
+}
+
+// A thread of the z ends loads one slot of this many columns before it uses
+// any of them: a load stalls the thread only where its value is first used,
+// so the batch's loads are in flight together. Its stores follow.
+constexpr int kEndItems = 8;
+
+// V values per access: 16 / sizeof(T) where every row is 16-byte aligned,
+// else 1. Offsets are 32-bit (the wrapper takes fields of < 2^31 values).
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads) fill_halos_kernel(const __grid_constant__ Params P) {
+  using VT = typename Vec<T, V>::type;
+  const Field& f = P.f[blockIdx.y];
+  T* a = (T*)f.p;
+  const Axis &X = P.ax[0], &Y = P.ax[1], &Z = P.ax[2];
+  int xlo, xhi, ylo, yhi, zlo, zhi;
+  kept(X, f.code[0], xlo, xhi);
+  kept(Y, f.code[1], ylo, yhi);
+  kept(Z, f.code[2], zlo, zhi);
+  const int PY = Y.P, PZ = Z.P, nxk = xhi - xlo, nyk = yhi - ylo;
+  int b = blockIdx.x;
+  if (b < f.whole_blocks) {
+    // a whole column: a group of W lanes, each lane its chunks lane,
+    // lane + W, ... (the loads of one column cannot pass its stores, so the
+    // parallelism is across groups)
+    const int shift = P.whole_shift, W = 1 << shift;
+    int i, j;
+    if (!whole_column(b * (kThreads >> shift) + (threadIdx.x >> shift), X.P, PY,
+                      xlo, xhi, ylo, yhi, i, j))
+      return;
+    const Map<T> mx = map_at<T>(X, f.code[0], f.v[0], xlo, xhi, i);
+    const Map<T> my = map_at<T>(Y, f.code[1], f.v[1], ylo, yhi, j);
+    const bool pinned = mx.op == kPin || my.op == kPin;
+    const T* src = a + (mx.src * PY + my.src) * PZ;
+    T* dst = a + (i * PY + j) * PZ;
+    for (int q = threadIdx.x & (W - 1); q < PZ / V; q += W) {
+      const int k0 = q * V;
+      if (V > 1 && !pinned && k0 >= zlo && k0 + V <= zhi) {
+        VT val = *reinterpret_cast<const VT*>(src + k0);
+        T* e = reinterpret_cast<T*>(&val);
+#pragma unroll
+        for (int v = 0; v < V; ++v) e[v] = apply(my, apply(mx, e[v]));
+        *reinterpret_cast<VT*>(dst + k0) = val;
+        continue;
       }
-    } else {
-      const int m = job - H;
-      if (s.cls_t == kFlux || s.cls_t == kOpen) {
-        c[H + N + m] = c[H + N - 1 - m];
-      } else {
-        const T cN = c[H + N - 1];
-        const T grad = s.cls_t == kGradient ? (T)s.v_t : ((T)s.v_t - cN) / (T)P.half_t;
-        c[H + N + m] = cN + grad * (T)P.dist_t[m];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const Map<T> mz = map_at<T>(Z, f.code[2], f.v[2], zlo, zhi, k0 + v);
+        const T r = pinned || mz.op == kPin ? T(0) : src[mz.src];
+        dst[k0 + v] = apply(mz, apply(my, apply(mx, r)));
       }
     }
     return;
   }
-  if (job < H) {
-    const T r = c[2 * H - job];
-    c[job] = pin_b ? (T)(2.0 * s.v_b) - r : r;
-  } else if (job == 2 * H) {
-    if (pin_b) c[H] = (T)s.v_b;
-  } else {
-    const int m = job - H;
-    if (m == 0) {
-      if (pin_t) c[H + N] = (T)s.v_t;
-    } else {
-      const T r = c[H + N - m];
-      c[H + N + m] = pin_t ? (T)(2.0 * s.v_t) - r : r;
-    }
+  // the z ends of the columns inside the kept x/y box: lane t of a group
+  // owns written slot t of each column the group visits, kEndItems columns
+  // G apart
+  b -= f.whole_blocks;
+  if (b >= f.end_blocks) return;
+  const int shift = P.end_shift, G = kThreads >> shift;
+  const int t = threadIdx.x & ((1 << shift) - 1);
+  if (t >= zlo + PZ - zhi) return;
+  const int k = t < zlo ? t : zhi + (t - zlo);
+  const Map<T> mz = map_at<T>(Z, f.code[2], f.v[2], zlo, zhi, k);
+  const int ncols = nxk * nyk;
+  int c = b * G * kEndItems + (threadIdx.x >> shift);
+  int ci = c / nyk, cj = c - ci * nyk;
+  T val[kEndItems];
+  int col[kEndItems];
+#pragma unroll
+  for (int u = 0; u < kEndItems; ++u) {
+    col[u] = c < ncols ? ((xlo + ci) * PY + ylo + cj) * PZ : -1;
+    val[u] = col[u] >= 0 && mz.op != kPin ? a[col[u] + mz.src] : T(0);
+    c += G;
+    for (cj += G; cj >= nyk; cj -= nyk) ++ci;
   }
+#pragma unroll
+  for (int u = 0; u < kEndItems; ++u)
+    if (col[u] >= 0) a[col[u] + k] = apply(mz, val[u]);
+}
+
+int log2_at_least(int n) {
+  int s = 0;
+  while ((1 << s) < n) ++s;
+  return s;
+}
+
+// Blocks for `columns` columns, a block covering (kThreads >> shift) x
+// passes of them.
+int blocks_of(long long columns, int shift, int passes) {
+  const long long per = (long long)(kThreads >> shift) * passes;
+  return (int)((columns + per - 1) / per);
 }
 
 }  // namespace
@@ -163,65 +293,94 @@ const char* oc_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Fill the periodic x/y halos of `nf` padded arrays of one shape in place,
-// over the full padded z; wrap_x / wrap_y (0 or 1) say which axes wrap.
-// `ptrs` is a host array of nf device pointers; elem_size is 4 or 8.
-int oc_halo_fill(void* const* ptrs, int nf, int elem_size, int Nx, int Ny, int Nz,
-                 int Hx, int Hy, int Hz, int wrap_x, int wrap_y, void* stream) {
-  if (nf < 1 || nf > kMaxFields) return (int)cudaErrorInvalidValue;
-  FieldPtrs fp;
-  for (int f = 0; f < kMaxFields; ++f) fp.p[f] = f < nf ? ptrs[f] : nullptr;
-  oc::Geom g{Nx, Ny, Nz, Hx, Hy, Hz};
-  long long cols = (wrap_x ? 2LL * Hx * g.PY() : 0)
-                 + (wrap_y ? 2LL * (wrap_x ? Nx : g.PX()) * Hy : 0);
-  if (cols == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  dim3 grid(oc::blocks_for(cols * g.PZ(), threads), nf);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (elem_size == 4)
-    halo_wrap_kernel<float><<<grid, threads, 0, s>>>(fp, g, wrap_x, wrap_y, cols);
-  else if (elem_size == 8)
-    halo_wrap_kernel<double><<<grid, threads, 0, s>>>(fp, g, wrap_x, wrap_y, cols);
-  else
+int oc_fill_params_size() { return (int)sizeof(Params); }
+
+// Build the parameter block of one launch into `out` (oc_fill_params_size()
+// bytes, pointers left null): nf fields of one padded shape, elem_size 4 or
+// 8. Per axis a (x, y, z): N[a], H[a], P[a]; half[2a + s] and dist[(2a +
+// s)·kMaxH + m] for its low (s = 0) and high (s = 1) side (float64, from the
+// grid's center coordinates). Per field f: codes[6f + 2a + s] and
+// values[6f + 2a + s].
+int oc_fill_plan(void* out, int nf, int elem_size, const int* N, const int* H,
+                 const int* P, const double* half, const double* dist,
+                 const int* codes, const double* values) {
+  if (nf < 1 || nf > kMaxFields || (elem_size != 4 && elem_size != 8) ||
+      (long long)P[0] * P[1] * P[2] >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  Params* p = (Params*)out;
+  memset(p, 0, sizeof(Params));
+  for (int a = 0; a < 3; ++a) {
+    if (H[a] < 0 || H[a] > kMaxH || P[a] != N[a] + 2 * H[a])
+      return (int)cudaErrorInvalidValue;
+    p->ax[a].N = N[a];
+    p->ax[a].H = H[a];
+    p->ax[a].P = P[a];
+    for (int s = 0; s < 2; ++s) {
+      p->ax[a].half[s] = half[2 * a + s];
+      for (int m = 0; m < kMaxH; ++m) p->ax[a].dist[s][m] = dist[(2 * a + s) * kMaxH + m];
+    }
+  }
+  p->nf = nf;
+  p->elem_size = elem_size;
+  const int vec = (P[2] * elem_size) % 16 == 0 ? 16 / elem_size : 1;
+  const int chunks = P[2] / vec;
+  p->whole_shift = log2_at_least(chunks < 32 ? chunks : 32);
+  int end_slots = 0;
+  for (int f = 0; f < nf; ++f) {
+    for (int a = 0; a < 3; ++a)
+      for (int s = 0; s < 2; ++s) {
+        const int c = codes[6 * f + 2 * a + s];
+        // a source index must stay interior (see the design note)
+        if (c < kKeep || c > kReflect || (c != kKeep && H[a] == 0) ||
+            (c == kWrap && N[a] < H[a]) || (c > kWrap && N[a] < H[a] + 1))
+          return (int)cudaErrorInvalidValue;
+        p->f[f].code[a][s] = (signed char)c;
+        p->f[f].v[a][s] = values[6 * f + 2 * a + s];
+      }
+    int zlo, zhi;
+    kept(p->ax[2], p->f[f].code[2], zlo, zhi);
+    if (zlo + P[2] - zhi > end_slots) end_slots = zlo + P[2] - zhi;
+  }
+  p->end_shift = log2_at_least(end_slots > 0 ? end_slots : 1);
+  for (int f = 0; f < nf; ++f) {
+    int lo[3], hi[3];
+    for (int a = 0; a < 3; ++a) kept(p->ax[a], p->f[f].code[a], lo[a], hi[a]);
+    const long long kept_cols = (long long)(hi[0] - lo[0]) * (hi[1] - lo[1]);
+    const long long whole = (long long)P[0] * P[1] - kept_cols;
+    const bool ends = lo[2] > 0 || hi[2] < P[2];
+    p->f[f].whole_blocks = blocks_of(whole, p->whole_shift, 1);
+    p->f[f].end_blocks = ends ? blocks_of(kept_cols, p->end_shift, kEndItems) : 0;
+    const int blocks = p->f[f].whole_blocks + p->f[f].end_blocks;
+    if (blocks > p->blocks) p->blocks = blocks;
+  }
+  return (int)cudaSuccess;
 }
 
-// Fill the bounded-z halos of `nf` padded arrays in place. Per field f:
-// face[f], cls_b[f], cls_t[f] (0 Flux, 1 Open, 2 Value, 3 Gradient) and the
-// scalar conditions v_b[f], v_t[f]. half_b, half_t, dist_b[Hz], dist_t[Hz]
-// are the grid's z distances (float64, from its center coordinates).
-int oc_bounded_z_fill(void* const* ptrs, int nf, int elem_size, const int* face,
-                      const int* cls_b, const int* cls_t, const double* v_b,
-                      const double* v_t, int Nx, int Ny, int Nz, int Hx, int Hy,
-                      int Hz, double half_b, double half_t, const double* dist_b,
-                      const double* dist_t, void* stream) {
-  if (nf < 1 || nf > kMaxFields || Hz < 1 || Hz > kMaxHz || Nz < Hz + 1)
-    return (int)cudaErrorInvalidValue;
-  ZFill P;
-  for (int f = 0; f < kMaxFields; ++f) {
-    const bool on = f < nf;
-    P.p[f] = on ? ptrs[f] : nullptr;
-    P.spec[f] = ZSpec{on ? face[f] : 0, on ? cls_b[f] : 0, on ? cls_t[f] : 0,
-                      on ? v_b[f] : 0.0, on ? v_t[f] : 0.0};
+// Fill the halos of nf fields in place: `params` from oc_fill_plan (a host
+// copy; its pointers are ignored), `ptrs` a host array of nf device pointers.
+int oc_fill_halos(const void* params, void* const* ptrs, int nf, void* stream) {
+  Params p;
+  memcpy(&p, params, sizeof(Params));
+  if (nf != p.nf) return (int)cudaErrorInvalidValue;
+  if (p.blocks == 0) return (int)cudaSuccess;
+  bool aligned = (p.ax[2].P * p.elem_size) % 16 == 0;
+  for (int f = 0; f < nf; ++f) {
+    p.f[f].p = ptrs[f];
+    aligned = aligned && ((uintptr_t)ptrs[f] % 16 == 0);
   }
-  P.half_b = half_b;
-  P.half_t = half_t;
-  for (int m = 0; m < kMaxHz; ++m) {
-    P.dist_b[m] = m < Hz ? dist_b[m] : 0.0;
-    P.dist_t[m] = m < Hz ? dist_t[m] : 0.0;
-  }
-  oc::Geom g{Nx, Ny, Nz, Hx, Hy, Hz};
-  const long long n = (long long)g.PX() * g.PY() * (2 * Hz + 1);
-  const int threads = 256;
-  dim3 grid(oc::blocks_for(n, threads), nf);
+  dim3 grid(p.blocks, nf);
   cudaStream_t s = (cudaStream_t)stream;
-  if (elem_size == 4)
-    bounded_z_kernel<float><<<grid, threads, 0, s>>>(P, g);
-  else if (elem_size == 8)
-    bounded_z_kernel<double><<<grid, threads, 0, s>>>(P, g);
-  else
-    return (int)cudaErrorInvalidValue;
+  if (p.elem_size == 4) {
+    if (aligned)
+      fill_halos_kernel<float, 4><<<grid, kThreads, 0, s>>>(p);
+    else
+      fill_halos_kernel<float, 1><<<grid, kThreads, 0, s>>>(p);
+  } else {
+    if (aligned)
+      fill_halos_kernel<double, 2><<<grid, kThreads, 0, s>>>(p);
+    else
+      fill_halos_kernel<double, 1><<<grid, kThreads, 0, s>>>(p);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -24,19 +24,21 @@ from .fused_shallow_water import (build_sharded_fused_sw_update,
                                   fused_sw_update, fused_sw_update_plain)
 from .fused_vector_invariant import (fused_vi_tendency,
                                      fused_vi_tendency_plain)
-from .halo_fill import (ZFill, bounded_z_fill, bounded_z_fill_plain,
-                        periodic_halo_fill, periodic_halo_fill_plain)
+from .halo_fill import (ZFill, bounded_z_fill_plain, fill_bounded_axis,
+                        fill_halos, fill_halos_plain, periodic_halo_fill,
+                        periodic_halo_fill_plain)
 from .vpu_probes import (bf16_smoothness, bf16_smoothness_plain, vpu_mix,
                          vpu_mix_plain, weno_microbench, weno_microbench_plain)
 
 KERNELS = (fused_advection_update, fused_divergence, fused_correct,
-           periodic_halo_fill, fused_advection_tendency, bounded_z_fill,
+           fill_halos, fused_advection_tendency,
            fused_sw_update, fused_vi_tendency, mesh_halo_exchange,
            build_sharded_fused_sw_update, build_sharded_fused_advection,
            weno_microbench, vpu_mix, bf16_smoothness)
 PLAINS = (fused_advection_update_plain, fused_divergence_plain,
-          fused_correct_plain, periodic_halo_fill_plain,
-          fused_advection_tendency_plain, bounded_z_fill_plain,
+          fused_correct_plain, fill_halos_plain, periodic_halo_fill_plain,
+          fill_bounded_axis, fused_advection_tendency_plain,
+          bounded_z_fill_plain,
           fused_sw_update_plain, fused_vi_tendency_plain, halo_exchange_plain,
           build_sharded_fused_sw_update_plain,
           build_sharded_fused_advection_plain, weno_microbench_plain,
@@ -59,9 +61,9 @@ def counters():
 __all__ = ["fused_advection_update", "fused_advection_update_plain",
            "fused_advection_tendency", "fused_advection_tendency_plain",
            "fused_divergence", "fused_divergence_plain", "fused_correct",
-           "fused_correct_plain", "periodic_halo_fill",
-           "periodic_halo_fill_plain", "bounded_z_fill",
-           "bounded_z_fill_plain", "fused_sw_update", "fused_sw_update_plain",
+           "fused_correct_plain", "fill_halos", "fill_halos_plain",
+           "periodic_halo_fill", "periodic_halo_fill_plain",
+           "fill_bounded_axis", "bounded_z_fill_plain", "fused_sw_update", "fused_sw_update_plain",
            "fused_vi_tendency", "fused_vi_tendency_plain",
            "mesh_halo_exchange", "halo_exchange_plain",
            "build_sharded_fused_sw_update",

@@ -48,9 +48,9 @@ D = ctypes.c_double
 # C entry points: name -> argtypes. Every entry returns the launch's
 # cudaGetLastError() as an int.
 SIGNATURES = {
-    "oc_halo_fill": [P, I, I, I, I, I, I, I, I, I, I, P],
-    "oc_bounded_z_fill": [P, I, I, P, P, P, P, P, I, I, I, I, I, I, D, D, P,
-                          P, P],
+    "oc_fill_params_size": [],
+    "oc_fill_plan": [P, I, I, P, P, P, P, P, P, P],
+    "oc_fill_halos": [P, P, I, P],
     "oc_advection_tendency": [I, I, I, P, P, I, I, P, I, I, I, I, I, I,
                               D, D, D, D, P, I, I, I, I, I, I, I, P],
     "oc_fused_divergence": [I, P, P, P, P, I, I, I, I, I, D, D, D, D, P],

@@ -1,24 +1,35 @@
-"""Halo fills, in place: the batched periodic wrap and the bounded-z fill.
+"""Halo fills, in place: one launch fills every axis of a batch of fields.
 
-``periodic_halo_fill`` replaces the TPU kernel
-``oceananigans_tpu/kernels/pallas_fill.py`` ``_build_batched`` (via
-``get_batched_fill``) and the wrap half of ``_build`` (via
-``get_pallas_fill``): periodic x, then periodic y over the full x extent, so
-that corners carry the x-wrapped columns, over the full padded z; like the
-TPU kernel's per-axis flags, only the axes the grid makes periodic wrap.
+``fill_halos`` replaces both TPU fill kernels of
+``oceananigans_tpu/kernels/pallas_fill.py``: ``_build_batched`` (via
+``get_batched_fill``, the batched periodic x/y wrap) and ``_build`` (via
+``get_pallas_fill``, the wrap followed by the bounded-z fix), and it also
+takes the bounded x/y fills that the JAX package leaves to XLA. It computes
+what the reference's x → y → z sequence of ``_fill_axis`` computes, corners
+included: a periodic axis wraps; a bounded axis, given each field's location
+and boundary conditions, mirrors, extrapolates or pins and reflects
+(``fill_bounded_axis``). Without conditions (``locs_bcs=None``) only the
+periodic axes are filled (``periodic_halo_fill``).
 
-``bounded_z_fill`` replaces the z-fix half of ``_build``: the bounded-z fill
-of ``_fill_axis`` (``boundary_conditions/fill_halos.py``) for a batch of
-fields, each with its z location and a (classification, scalar value) pair
-per side (``ZFill``). It runs after the wrap, over the full padded x and y,
-so corner columns carry wrapped values (the reference's x → y → z order).
+Design (``csrc/halo_fill.cu``): along each axis each fill maps one source
+slot to each halo slot, and each source slot is interior, so one thread
+forms any slot's final value from one load by applying the x, y and z maps
+in order. The side codes below name the maps; ``fill_codes`` assigns them
+and ``axis_geometry`` gives the float64 half spacings and distances the
+extrapolations use. A launch takes a batch of up to ``build.BATCH`` fields of
+one padded shape; its parameter block is built once per (grid, shape, dtype,
+field locations and conditions) and cached, and a call only writes the
+fields' pointers into it. The wrapper raises where one load per slot would
+not hold: a filled bounded axis with N < H + 1 or H > ``MAX_H``, a periodic
+axis with N < H, a periodic z with conditions.
 
-Bound on the H100: data movement only, a few MB per field, so launch latency
-dominates. Design (``csrc/halo_fill.cu``): one launch for a batch of up to
-``build.BATCH`` fields (their pointers ride in the kernel's parameter block;
-more fields take one launch per batch, and no field's fill reads another's),
-one thread per halo element, z fastest across threads; every slot is written
-from the interior cells it images, so the in-place update has no race.
+The plain version ``fill_halos_plain`` is the sequence the kernel replaces:
+``fill_bounded_axis`` along x, ``periodic_halo_fill_plain`` (the periodic
+axes, x then y), ``fill_bounded_axis`` along y, then
+``bounded_z_fill_plain``. CPU tensors take it; CUDA tensors launch the
+kernel. Bound on the H100: data movement only (each written slot read once
+and written once); the z ends of interior columns are a few bytes of each
+row, so 32-byte DRAM sectors set the floor of a bounded-z fill.
 
 The fills update the tensors in place (as the TPU kernels alias their
 outputs to their inputs) and return them.
@@ -27,16 +38,32 @@ outputs to their inputs) and return them.
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from ..boundary_conditions import boundary_condition as bcm
+from ..grids.topology import BOUNDED, CENTER, FACE, PERIODIC
 from . import build
 
-MAX_HZ = 8
+MAX_H = 8
 
-# Boundary classifications as csrc/halo_fill.cu numbers them.
+# Classifications of a ZFill side (bounded_z_fill_plain).
 FLUX, OPEN, VALUE, GRADIENT = 0, 1, 2, 3
+_CLASS_CODES = {bcm.FLUX: FLUX, bcm.OPEN: OPEN, bcm.VALUE: VALUE,
+                bcm.GRADIENT: GRADIENT}
+
+# Side codes of csrc/halo_fill.cu: the map of one side of one axis.
+KEEP = 0                   # not filled
+WRAP = 1                   # periodic
+MIRROR = 2                 # center field, Flux or Open
+EXTRAPOLATE_VALUE = 3      # center field, Value
+EXTRAPOLATE_GRADIENT = 4   # center field, Gradient
+PINNED = 5                 # face field, Open or Value: pin the face, reflect oddly
+REFLECT = 6                # face field, Flux or Gradient: reflect evenly
+EXTRAPOLATES = (EXTRAPOLATE_VALUE, EXTRAPOLATE_GRADIENT)
 
 
 class ZFill(NamedTuple):
@@ -53,31 +80,28 @@ def _geometry(grid):
     return Nx, Ny, Nz, Hx, Hy, Hz
 
 
-def _check_batch(grid, fields, shape=None):
-    shape = grid.padded_shape if shape is None else shape
-    dev, dt = fields[0].device, fields[0].dtype
-    if dt not in (torch.float32, torch.float64):
-        raise TypeError(f"unsupported dtype {dt}")
-    if dev.type != "cuda":
-        raise ValueError(f"no halo-fill kernel for device {dev}")
-    for a in fields:
-        if a.device != dev or a.dtype != dt:
-            raise ValueError("all fields must share one device and dtype")
-        if tuple(a.shape) != shape:
-            raise ValueError(f"field shape {tuple(a.shape)} != padded {shape}")
-        if not a.is_contiguous():
-            raise ValueError("fields must be contiguous")
+def _value(bc):
+    return 0.0 if bc is None or bc.condition is None else float(bc.condition)
 
 
-def _on_cpu(fields):
-    return all(a.device.type == "cpu" for a in fields)
+def _classification(bc):
+    return bcm.FLUX if bc is None else bc.classification
 
 
-# -- periodic wrap ------------------------------------------------------------
+def z_fill_spec(loc, bcs):
+    """The bounded-z fill of one field (``ZFill``): its z location and the
+    (classification code, scalar value) of its bottom and top conditions
+    (None counts as Flux with 0)."""
+    def side(bc):
+        return (_CLASS_CODES[_classification(bc)], _value(bc))
+
+    return ZFill(loc[2] == FACE, side(bcs.bottom), side(bcs.top))
+
+
+# -- the plain versions ---------------------------------------------------------
 
 def wrap_axes(grid):
     """(wrap_x, wrap_y): which of x and y are periodic with a halo."""
-    from ..grids.topology import PERIODIC
     return tuple(grid.topology[a] == PERIODIC and grid.H[a] > 0
                  for a in (0, 1))
 
@@ -91,7 +115,7 @@ def _z_extent(grid, a):
 
 
 def periodic_halo_fill_plain(grid, fields):
-    """Plain PyTorch version: wrap x (over the full y extent), then wrap y
+    """Plain PyTorch version of the wrap: x (over the full y extent), then y
     over the full x extent, each axis only if it is periodic (every z slot,
     z halos included)."""
     Nx, Ny, _, Hx, Hy, _ = _geometry(grid)
@@ -111,40 +135,74 @@ def periodic_halo_fill_plain(grid, fields):
 periodic_halo_fill_plain.cuda_calls = 0
 
 
-def periodic_halo_fill(grid, fields):
-    """Fill the periodic x/y halos of padded tensors in place (the axes the
-    grid's topology makes periodic); returns them. The tensors are the
-    grid's padded shape, or all 2-D surface fields (Nx + 2Hx, Ny + 2Hy, 1).
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    fields = list(fields)
-    wx, wy = wrap_axes(grid)
-    if not fields or not (wx or wy):
-        return fields
-    if _on_cpu(fields):
-        return periodic_halo_fill_plain(grid, fields)
-    Nz, Hz = _z_extent(grid, fields[0])
-    shape = grid.padded_shape[:2] + (Nz + 2 * Hz,)
-    _check_batch(grid, fields, shape)
-    Nx, Ny, _, Hx, Hy, _ = _geometry(grid)
-    if (wx and Nx < Hx) or (wy and Ny < Hy):
-        raise ValueError("the periodic wrap needs N >= H along x and y")
-    with torch.cuda.device(fields[0].device):
-        lib = build.library()
-        for a, b in build.batches(len(fields)):
-            batch = fields[a:b]
-            build.check(lib.oc_halo_fill(build.pointers(batch), len(batch),
-                                         fields[0].element_size(), Nx, Ny, Nz,
-                                         Hx, Hy, Hz, int(wx), int(wy),
-                                         build.stream_of(fields[0])),
-                        lib)
-            periodic_halo_fill.launches += 1
-    return fields
+def fill_bounded_axis(a, grid, loc, bcs, axis):
+    """``_fill_axis`` along a bounded ``axis`` of one padded tensor (3-D, or
+    a 2-D surface field for axis 0 or 1), in place; returns it. Center
+    fields mirror the interior under Flux/Open and extrapolate linearly from
+    the boundary cell under Value/Gradient; the wall-normal face field is
+    pinned at the boundary face under Open/Value and reflected about it."""
+    H, N = grid.H[axis], grid.N[axis]
+    if H == 0:
+        return a
+    if a.is_cuda:
+        fill_bounded_axis.cuda_calls += 1
+    left, right = bcs.pair(axis)
+    cls_l, cls_r = _classification(left), _classification(right)
+
+    def sl(start, stop):
+        return a.narrow(axis, start, stop - start)
+
+    def flipped(start, stop):
+        return torch.flip(sl(start, stop), [axis])
+
+    if loc[axis] == CENTER:
+        xC = grid.coord_padded(axis, CENTER)
+        if cls_l in (bcm.FLUX, bcm.OPEN):
+            sl(0, H).copy_(flipped(H, 2 * H))
+        elif cls_l in (bcm.VALUE, bcm.GRADIENT):
+            vv = _value(left)
+            c1 = sl(H, H + 1).clone()
+            grad = ((c1 - vv) / ((xC[H] - xC[H - 1]) / 2)
+                    if cls_l == bcm.VALUE else vv * torch.ones_like(c1))
+            for m in range(H):
+                sl(m, m + 1).copy_(c1 - grad * (xC[H] - xC[m]))
+        else:
+            raise ValueError(f"unsupported BC {cls_l} for a centered location")
+        if cls_r in (bcm.FLUX, bcm.OPEN):
+            sl(H + N, 2 * H + N).copy_(flipped(N, H + N))
+        elif cls_r in (bcm.VALUE, bcm.GRADIENT):
+            vv = _value(right)
+            cN = sl(H + N - 1, H + N).clone()
+            grad = ((vv - cN) / ((xC[H + N] - xC[H + N - 1]) / 2)
+                    if cls_r == bcm.VALUE else vv * torch.ones_like(cN))
+            for m in range(H):
+                sl(H + N + m, H + N + m + 1).copy_(
+                    cN + grad * (xC[H + N + m] - xC[H + N - 1]))
+        else:
+            raise ValueError(f"unsupported BC {cls_r} for a centered location")
+        return a
+
+    # the wall-normal face field: slot H is the left boundary face, slot H+N
+    # the right one
+    low = flipped(H + 1, 2 * H + 1)
+    high = flipped(N + 1, H + N)
+    if cls_l in (bcm.OPEN, bcm.VALUE):
+        vL = _value(left)
+        sl(0, H).copy_(2 * vL - low)
+        sl(H, H + 1).fill_(vL)
+    else:
+        sl(0, H).copy_(low)
+    if cls_r in (bcm.OPEN, bcm.VALUE):
+        vR = _value(right)
+        sl(H + N, H + N + 1).fill_(vR)
+        sl(H + N + 1, 2 * H + N).copy_(2 * vR - high)
+    else:
+        sl(H + N + 1, 2 * H + N).copy_(high)
+    return a
 
 
-periodic_halo_fill.launches = 0
+fill_bounded_axis.cuda_calls = 0
 
-
-# -- bounded z ----------------------------------------------------------------
 
 def z_distances(grid):
     """Half spacings of the boundary cells and the distances from the
@@ -205,39 +263,253 @@ def bounded_z_fill_plain(grid, fields, specs):
 bounded_z_fill_plain.cuda_calls = 0
 
 
-def bounded_z_fill(grid, fields, specs):
-    """Fill the bounded-z halos of padded tensors in place; returns them.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    fields, specs = list(fields), list(specs)
-    if len(fields) != len(specs):
-        raise ValueError("one ZFill per field")
-    if not fields:
-        return fields
-    Nx, Ny, Nz, Hx, Hy, Hz = _geometry(grid)
-    if not 1 <= Hz <= MAX_HZ or Nz < Hz + 1:
-        raise ValueError(f"the bounded-z fill needs 1 <= Hz <= {MAX_HZ} and "
-                         "Nz > Hz")
-    if _on_cpu(fields):
-        return bounded_z_fill_plain(grid, fields, specs)
-    _check_batch(grid, fields)
-    half_b, half_t, dist_b, dist_t = z_distances(grid)
-    ints = lambda xs: (ctypes.c_int * len(xs))(*xs)
-    dbls = lambda xs: (ctypes.c_double * len(xs))(*xs)
-    with torch.cuda.device(fields[0].device):
-        lib = build.library()
-        for a, b in build.batches(len(fields)):
-            batch, bspecs = fields[a:b], specs[a:b]
-            build.check(lib.oc_bounded_z_fill(
-                build.pointers(batch), len(batch), fields[0].element_size(),
-                ints([int(s.face) for s in bspecs]),
-                ints([s.bottom[0] for s in bspecs]),
-                ints([s.top[0] for s in bspecs]),
-                dbls([float(s.bottom[1]) for s in bspecs]),
-                dbls([float(s.top[1]) for s in bspecs]),
-                Nx, Ny, Nz, Hx, Hy, Hz, half_b, half_t, dbls(dist_b),
-                dbls(dist_t), build.stream_of(fields[0])), lib)
-            bounded_z_fill.launches += 1
+def fill_halos_plain(grid, fields, locs_bcs=None, z=True):
+    """Plain PyTorch version of ``fill_halos``, in the reference's order: a
+    bounded x, the periodic axes (x, then y), a bounded y, then (with ``z``)
+    a bounded z, each bounded axis only when ``locs_bcs`` gives the
+    fields' (location, boundary conditions)."""
+    fields = list(fields)
+    if any(a.is_cuda for a in fields):
+        fill_halos_plain.cuda_calls += 1
+    bounded = [locs_bcs is not None and grid.topology[ax] == BOUNDED
+               and grid.H[ax] > 0 for ax in range(3)]
+    if bounded[0]:
+        for a, (loc, bcs) in zip(fields, locs_bcs):
+            fill_bounded_axis(a, grid, loc, bcs, 0)
+    periodic_halo_fill_plain(grid, fields)
+    if bounded[1]:
+        for a, (loc, bcs) in zip(fields, locs_bcs):
+            fill_bounded_axis(a, grid, loc, bcs, 1)
+    if z and bounded[2] and fields and _z_extent(grid, fields[0])[1] > 0:
+        bounded_z_fill_plain(grid, fields, [z_fill_spec(loc, bcs)
+                                            for loc, bcs in locs_bcs])
     return fields
 
 
-bounded_z_fill.launches = 0
+fill_halos_plain.cuda_calls = 0
+
+
+# -- the kernel's plan ----------------------------------------------------------
+
+def extents(grid, shape):
+    """(N, H) along each axis of a padded tensor of ``shape``: the grid's,
+    with (1, 0) along z for a 2-D surface field."""
+    shape = tuple(shape)
+    padded = grid.padded_shape
+    if len(shape) != 3 or shape[:2] != padded[:2] or \
+            shape[2] not in (padded[2], 1):
+        raise ValueError(f"field shape {shape} is neither the padded shape "
+                         f"{padded} nor its 2-D surface")
+    z = (grid.N[2], grid.H[2]) if shape[2] == padded[2] else (1, 0)
+    return [(grid.N[0], grid.H[0]), (grid.N[1], grid.H[1]), z]
+
+
+def _side_code(bc, face):
+    cls = _classification(bc)
+    if face:
+        return PINNED if cls in (bcm.OPEN, bcm.VALUE) else REFLECT
+    if cls in (bcm.FLUX, bcm.OPEN):
+        return MIRROR
+    if cls == bcm.VALUE:
+        return EXTRAPOLATE_VALUE
+    if cls == bcm.GRADIENT:
+        return EXTRAPOLATE_GRADIENT
+    raise ValueError(f"unsupported BC {cls} for a centered location")
+
+
+def fill_codes(grid, shape, locs_bcs=None, n=1, z=True):
+    """Per field, per axis, (low code, low value, high code, high value):
+    ``locs_bcs`` gives each field's (location, boundary conditions), or None
+    for ``n`` fields whose periodic axes alone are filled. Raises where the
+    kernel's one load per slot would not hold."""
+    ext = extents(grid, shape)
+    out = []
+    for lb in (locs_bcs if locs_bcs is not None else [None] * n):
+        axes = []
+        for ax, (N, H) in enumerate(ext):
+            topo = grid.topology[ax]
+            keep = (KEEP, 0.0, KEEP, 0.0)
+            if H == 0 or (ax == 2 and not z) or topo not in (PERIODIC,
+                                                             BOUNDED):
+                axes.append(keep)
+            elif topo == PERIODIC and ax == 2:
+                if lb is not None:
+                    raise NotImplementedError(
+                        "periodic z halo fills are not ported yet: "
+                        f"{bcm.USER_BCS_ITEM}")
+                axes.append(keep)
+            elif topo == PERIODIC:
+                if N < H:
+                    raise ValueError(f"a periodic halo fill needs N >= H "
+                                     f"along axis {ax} (N={N}, H={H})")
+                axes.append((WRAP, 0.0, WRAP, 0.0))
+            elif lb is None:
+                axes.append(keep)
+            else:
+                if N < H + 1 or H > MAX_H:
+                    raise ValueError(
+                        f"a bounded halo fill needs N >= H + 1 and H <= "
+                        f"{MAX_H} along axis {ax} (N={N}, H={H})")
+                loc, bcs = lb
+                low, high = bcs.pair(ax)
+                face = loc[ax] == FACE
+                axes.append((_side_code(low, face), _value(low),
+                             _side_code(high, face), _value(high)))
+        out.append(axes)
+    return out
+
+
+def axis_geometry(grid, shape):
+    """Per axis (N, H, padded extent, (half_low, half_high),
+    (dist_low[MAX_H], dist_high[MAX_H])): float64 from the grid's center
+    coordinates, as ``fill_bounded_axis`` and ``z_distances`` form them (zero
+    where an axis is not bounded)."""
+    out = []
+    for ax, (N, H) in enumerate(extents(grid, shape)):
+        half, dist = [0.0, 0.0], [[0.0] * MAX_H, [0.0] * MAX_H]
+        if grid.topology[ax] == BOUNDED and 0 < H <= MAX_H and N >= H + 1:
+            xC = np.asarray(grid.coord_padded(ax, CENTER), dtype=np.float64)
+            half = [float(xC[H] - xC[H - 1]) / 2,
+                    float(xC[H + N] - xC[H + N - 1]) / 2]
+            dist[0][:H] = [float(xC[H] - xC[m]) for m in range(H)]
+            dist[1][:H] = [float(xC[H + N + m] - xC[H + N - 1])
+                           for m in range(H)]
+        out.append((N, H, N + 2 * H, half, dist))
+    return out
+
+
+def kept_range(codes, N, H, P):
+    """The slots [lo, hi) along an axis that its map leaves as they are
+    (``kept`` in csrc/halo_fill.cu)."""
+    low, _, high, _ = codes
+    if low == KEEP:
+        return 0, P
+    return H + (low == PINNED), H + N + (high == REFLECT)
+
+
+def extrapolated_slots(grid, shape, locs_bcs, z=True):
+    """Per field, a boolean CPU tensor of ``shape``: the slots whose value
+    involves an extrapolation (Value or Gradient on a center axis), which
+    the kernel forms to roundoff; every other slot it copies exactly."""
+    geom = axis_geometry(grid, shape)
+    out = []
+    for codes in fill_codes(grid, shape, locs_bcs, z=z):
+        masks = []
+        for ax, (N, H, P, _, _) in enumerate(geom):
+            lo, hi = kept_range(codes[ax], N, H, P)
+            m = torch.zeros(P, dtype=torch.bool)
+            m[:lo] = codes[ax][0] in EXTRAPOLATES
+            m[hi:] = codes[ax][2] in EXTRAPOLATES
+            masks.append(m)
+        out.append(masks[0][:, None, None] | masks[1][None, :, None]
+                   | masks[2][None, None, :])
+    return out
+
+
+class _Plan(NamedTuple):
+    batches: list      # (first, stop, parameter block) per launch
+    ptrs: object       # the launch's device pointers, rewritten per call
+
+
+_plans = {}            # id(grid) -> {key: _Plan}, dropped with the grid
+
+
+def _build_plan(grid, shape, dtype, n, locs_bcs, z):
+    codes = fill_codes(grid, shape, locs_bcs, n, z)
+    if all(c[0] == KEEP for f in codes for c in f):
+        return _Plan([], None)
+    geom = axis_geometry(grid, shape)
+    ints = lambda xs: (ctypes.c_int * len(xs))(*xs)
+    dbls = lambda xs: (ctypes.c_double * len(xs))(*xs)
+    N, H, P = (ints([g[i] for g in geom]) for i in range(3))
+    half = dbls([h for g in geom for h in g[3]])
+    dist = dbls([d for g in geom for side in g[4] for d in side])
+    lib = build.library()
+    size = lib.oc_fill_params_size()
+    esize = torch.empty((), dtype=dtype).element_size()
+    batches = []
+    for a, b in build.batches(n):
+        sides = [s for f in codes[a:b] for c in f
+                 for s in ((c[0], c[1]), (c[2], c[3]))]
+        params = ctypes.create_string_buffer(size)
+        build.check(lib.oc_fill_plan(params, b - a, esize, N, H, P, half,
+                                     dist, ints([s[0] for s in sides]),
+                                     dbls([s[1] for s in sides])), lib)
+        batches.append((a, b, params))
+    return _Plan(batches, (ctypes.c_void_p * build.BATCH)())
+
+
+def _plan(grid, fields, locs_bcs, z):
+    per_grid = _plans.get(id(grid))
+    if per_grid is None:
+        per_grid = _plans[id(grid)] = {}
+        weakref.finalize(grid, _plans.pop, id(grid), None)
+    a = fields[0]
+    key = (tuple(a.shape), a.dtype, len(fields), z,
+           None if locs_bcs is None else tuple(locs_bcs))
+    plan = per_grid.get(key)
+    if plan is None:
+        plan = per_grid[key] = _build_plan(grid, tuple(a.shape), a.dtype,
+                                           len(fields), locs_bcs, z)
+    return plan
+
+
+def _check_batch(fields):
+    dev, dt, shape = fields[0].device, fields[0].dtype, fields[0].shape
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"unsupported dtype {dt}")
+    if dev.type != "cuda":
+        raise ValueError(f"no halo-fill kernel for device {dev}")
+    for a in fields:
+        if a.device != dev or a.dtype != dt:
+            raise ValueError("all fields must share one device and dtype")
+        if a.shape != shape:
+            raise ValueError(f"field shapes differ: {tuple(a.shape)} and "
+                             f"{tuple(shape)}")
+        if not a.is_contiguous():
+            raise ValueError("fields must be contiguous")
+    if fields[0].numel() >= 2 ** 31:
+        raise ValueError("the fill kernel takes fields of fewer than 2^31 "
+                         "values (32-bit offsets)")
+
+
+def fill_halos(grid, fields, locs_bcs=None, z=True):
+    """Fill the halos of padded tensors of one shape in place (the grid's
+    padded shape, or all 2-D surface fields (Nx + 2Hx, Ny + 2Hy, 1)); returns
+    them. ``locs_bcs`` gives each field's (location, boundary conditions):
+    with it every periodic and bounded axis is filled (z only with ``z``),
+    without it the periodic axes alone. CPU tensors take the plain version;
+    CUDA tensors launch the kernel, once per ``build.BATCH`` fields."""
+    fields = list(fields)
+    if not fields:
+        return fields
+    if locs_bcs is not None and len(locs_bcs) != len(fields):
+        raise ValueError("one (location, boundary conditions) per field")
+    if all(a.device.type == "cpu" for a in fields):
+        # raise where the kernel would
+        fill_codes(grid, fields[0].shape, locs_bcs, len(fields), z)
+        return fill_halos_plain(grid, fields, locs_bcs, z)
+    _check_batch(fields)
+    plan = _plan(grid, fields, locs_bcs, z)
+    if not plan.batches:
+        return fields
+    with torch.cuda.device(fields[0].device):
+        lib = build.library()
+        stream = build.stream_of(fields[0])
+        for a, b, params in plan.batches:
+            for n, t in enumerate(fields[a:b]):
+                plan.ptrs[n] = t.data_ptr()
+            build.check(lib.oc_fill_halos(params, plan.ptrs, b - a, stream),
+                        lib)
+            fill_halos.launches += 1
+    return fields
+
+
+fill_halos.launches = 0
+
+
+def periodic_halo_fill(grid, fields):
+    """Fill the periodic x/y halos of padded tensors in place (the axes the
+    grid's topology makes periodic, over the full padded z); returns them:
+    ``fill_halos`` without conditions."""
+    return fill_halos(grid, fields)

@@ -134,13 +134,13 @@ class SplitExplicitFreeSurface:
     __hash__ = ExplicitFreeSurface.__hash__
     __eq__ = ExplicitFreeSurface.__eq__
 
-    def substep(self, grid, H_fc, H_cf, eta, U0, V0, GU, GV, dt, fill_eta,
-                fill_U, fill_V):
+    def substep(self, grid, H_fc, H_cf, eta, U0, V0, GU, GV, dt, fill):
         """Run the barotropic substep loop on 2-D (Nx + 2Hx, Ny + 2Hy, 1)
         tensors: ``eta`` the free surface, ``U0``/``V0`` the starting
         transports, ``GU``/``GV`` the depth-integrated slow tendencies,
-        ``H_fc``/``H_cf`` the column depths. ``fill_*`` refresh the 2-D
-        halos in place. Returns the filtered (η, U, V)."""
+        ``H_fc``/``H_cf`` the column depths. ``fill(eta, U, V)`` refreshes
+        the three 2-D fields' halos in place (one fill launch on the card)
+        and returns them. Returns the filtered (η, U, V)."""
         g = self.g
         frac, weights = self.settings(dt)
         dtau = frac * dt
@@ -154,14 +154,14 @@ class SplitExplicitFreeSurface:
                            for ax in (0, 1) if not grid.is_flat(ax))
         K = max(1, min(halos) // 2) if (all_periodic and halos) else 1
         if K > 1:
-            # the constant forcing's halos must be ring-valid too
-            GU = fill_U(GU.clone())
-            GV = fill_V(GV.clone())
+            # the constant forcing's halos must be ring-valid too (η's are
+            # refilled with the values they hold)
+            _, GU, GV = fill(eta, GU.clone(), GV.clone())
         U, V = U0, V0
         eta_f = U_f = V_f = None
         for m, w in enumerate(weights):
             if m % K == 0:
-                eta, U, V = fill_eta(eta), fill_U(U), fill_V(V)
+                eta, U, V = fill(eta, U, V)
             w = float(w)
             div = (dx_c(grid, dy_fc * U) + dy_c(grid, dx_cf * V)) / az_cc
             eta = eta - dtau * div

@@ -398,15 +398,19 @@ class HydrostaticFreeSurfaceModel:
         the depth integrals of the AB2-weighted tendencies; returns the
         filtered (η, U, V), halos filled."""
         fs = self.free_surface
-        fill_eta = lambda a: self._fill_surface(a, LOC_CCC, self.bcs["eta"])
-        fill_U = lambda a: self._fill_surface(a, LOC_FCC, self.bcs["u"])
-        fill_V = lambda a: self._fill_surface(a, LOC_CFC, self.bcs["v"])
+        locs_bcs = [(LOC_CCC, self.bcs["eta"]), (LOC_FCC, self.bcs["u"]),
+                    (LOC_CFC, self.bcs["v"])]
+
+        def fill(eta, U, V):
+            return tuple(fill_surface_halo_regions([eta, U, V], self.grid,
+                                                   locs_bcs))
+
         GU = self._depth_integral(ab2G["u"])
         GV = self._depth_integral(ab2G["v"])
         eta_f, U_f, V_f = fs.substep(
             self.grid, self._H, self._H, fields["eta"], barotropic["U"],
-            barotropic["V"], GU, GV, dt, fill_eta, fill_U, fill_V)
-        return fill_eta(eta_f), fill_U(U_f), fill_V(V_f)
+            barotropic["V"], GU, GV, dt, fill)
+        return fill(eta_f, U_f, V_f)
 
     def __repr__(self):
         return (f"HydrostaticFreeSurfaceModel(grid={self.grid!r}, "

@@ -38,6 +38,20 @@ prints the device kernels one hydrostatic-tendency call launches, with
 their median durations over 10 calls (torch.profiler), at the hydro_row
 shapes, without and with ph.
 
+    PYTHONPATH=<copy> python oceananigans_tpu_torch/tools/ab_kernels.py fill <label>
+
+times the halo fills through the entry points every copy since the port
+began has (``periodic_halo_fill``, ``fill_all_halo_regions``,
+``fill_surface_halo_regions``), at the main paths' shapes: the flagship's
+u, v, w, p (264x264x256, the wrap), the convection path's u, v, w, b (262³,
+wrap and bounded z, b under Value conditions), the hydro_row's u, v, T, w
+(524x268x44, bounded x, y and z) and its η, U, V surfaces, and the
+shallow-water path's three 16392² fields; each as the device time of a
+call behind a busy card (``*_ms``) and as the call from an idle card
+(``*_call_ms``, host launch work included). Then the hydro_row's median
+step, its device-busy share and its device kernels per step
+(torch.profiler over 3 steps), and the convection step. One JSON line.
+
     python oceananigans_tpu_torch/tools/ab_kernels.py sweep
 
 times the block-tiled #1 and #8 of this copy under other launch plans: for
@@ -56,11 +70,43 @@ import torch
 
 import oceananigans_tpu_torch as ot
 from oceananigans_tpu_torch import kernels as K
+from oceananigans_tpu_torch.boundary_conditions import (
+    fill_all_halo_regions, fill_surface_halo_regions,
+    regularize_field_boundary_conditions)
 
 # (float32 tile, threads a block) of the sweep
 ADV_SWEEP = [((16, 8, 8), 256), ((8, 8, 16), 256), ((8, 8, 8), 256),
              ((8, 8, 8), 128), ((16, 16, 4), 256), ((32, 8, 4), 256)]
 SW_SWEEP = [((32, 32), 256)]
+
+
+def convection_locs_bcs(grid):
+    """(location, conditions) of the convection path's u, v, w, b."""
+    b = ot.FieldBoundaryConditions(top=ot.ValueBoundaryCondition(-0.5),
+                                   bottom=ot.ValueBoundaryCondition(0.5))
+    locs = (("f", "c", "c"), ("c", "f", "c"), ("c", "c", "f"),
+            ("c", "c", "c"))
+    return [(loc, regularize_field_boundary_conditions(
+        b if k == 3 else None, grid, loc)) for k, loc in enumerate(locs)]
+
+
+def dev(fn, reps=20, warm=3):
+    """Median CUDA-event time of one call with the card kept busy ahead of
+    it (a spin of about 2 ms), so that the events time the device's work
+    and not the host's launch."""
+    for _ in range(warm):
+        fn()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(4_000_000)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out)
 
 
 def ev(fn, reps=10, warm=2):
@@ -115,10 +161,7 @@ def advection(res, n=256):
                                device="cuda")
     q = [s_ * torch.randn(pgrid.padded_shape, generator=gen, device="cuda")
          for s_ in (0.1, 0.1, 0.1, 1.0)]
-    K.periodic_halo_fill(pgrid, q)
-    K.bounded_z_fill(pgrid, q, [K.ZFill(False, (0, 0.0), (0, 0.0))] * 2
-                     + [K.ZFill(True, (1, 0.0), (1, 0.0)),
-                        K.ZFill(False, (2, 0.5), (2, -0.5))])
+    fill_all_halo_regions(q, pgrid, convection_locs_bcs(pgrid))
     res["tendency_padded4_ms"] = ev(lambda: K.fused_advection_tendency(
         pgrid, s, q))
 
@@ -227,6 +270,81 @@ def hydrostatic(res):
     res["hydro_step_ms"] = steps(m, 120.0)
 
 
+def device_profile(model, dt, steps=3):
+    """(busy ms, device kernels, device activities) per step of ``model``
+    over ``steps`` steps (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            model.time_step(dt)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = sum(1 for e in events
+                  if not e.name.startswith(("Memcpy", "Memset")))
+    busy, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in events):
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return busy / 1e3 / steps, kernels / steps, len(events) / steps
+
+
+def fill(res):
+    def both(key, fn):
+        res[key + "_ms"] = dev(fn)
+        res[key + "_call_ms"] = ev(fn, reps=20)
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    grid = ot.RectilinearGrid(size=(256, 256, 256), extent=(1.0, 1.0, 1.0),
+                              halo=(4, 4, 0), dtype=torch.float32,
+                              device="cuda")
+    f = [torch.randn(grid.padded_shape, generator=gen, device="cuda")
+         for _ in range(4)]
+    both("fill_flagship", lambda: K.periodic_halo_fill(grid, f))
+    pgrid = ot.RectilinearGrid(size=(256, 256, 256), extent=(1.0, 1.0, 1.0),
+                               halo=(3, 3, 3), dtype=torch.float32,
+                               device="cuda")
+    q = [torch.randn(pgrid.padded_shape, generator=gen, device="cuda")
+         for _ in range(4)]
+    lb = convection_locs_bcs(pgrid)
+    both("fill_convection", lambda: fill_all_halo_regions(q, pgrid, lb))
+    del f, q
+    m = hydro_model()
+    fields = dict(m.state["fields"])
+    names = ("u", "v", "T")
+    hf = [fields[n].clone() for n in names] + [m.state["w"].clone()]
+    hlb = [(m.loc(n), m.bcs[n]) for n in names + ("w",)]
+    both("fill_hydro", lambda: fill_all_halo_regions(hf, m.grid, hlb))
+    bt = m.state["barotropic"]
+    sf = [fields["eta"].clone(), bt["U"].clone(), bt["V"].clone()]
+    slb = [(("c", "c", "c"), m.bcs["eta"]), (("f", "c", "c"), m.bcs["u"]),
+           (("c", "f", "c"), m.bcs["v"])]
+    both("fill_surfaces", lambda: fill_surface_halo_regions(sf, m.grid, slb))
+    del hf, sf
+    res["hydro_step_ms"] = steps(m, 120.0)
+    busy, kernels, acts = device_profile(m, 120.0)
+    res["hydro_busy_share"] = busy / res["hydro_step_ms"]
+    res["hydro_kernels_per_step"] = kernels
+    res["hydro_device_activities_per_step"] = acts
+    del m
+    torch.cuda.empty_cache()
+    sgrid = ot.RectilinearGrid(size=(16384, 16384), extent=(1.0, 1.0),
+                               halo=(4, 4, 0),
+                               topology=("periodic", "periodic", "flat"),
+                               dtype=torch.float32, device="cuda")
+    s3 = [torch.randn(sgrid.padded_shape, generator=gen, device="cuda")
+          for _ in range(3)]
+    both("fill_sw", lambda: K.periodic_halo_fill(sgrid, s3))
+    del s3
+    torch.cuda.empty_cache()
+    convection(res)
+
+
 def profile_vi():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -281,6 +399,12 @@ def main(label):
         return sweep()
     if label == "profile-vi":
         return profile_vi()
+    if label == "fill":
+        res = {"label": sys.argv[2] if len(sys.argv) > 2 else "fill",
+               "package": ot.__file__,
+               "device": torch.cuda.get_device_name(0)}
+        fill(res)
+        return print(json.dumps(res))
     res = {"label": label, "package": ot.__file__,
            "device": torch.cuda.get_device_name(0)}
     for part in (advection, shallow_water, hydrostatic, flagship, convection,

@@ -14,9 +14,11 @@ VectorInvariant(); every Coriolis branch; three tracers; a bounded
 RectilinearGrid); bound 1e-12
 relative to max|plain|: the kernels evaluate the same stencils with FMA
 contraction and in another association order, which is roundoff. The halo
-fills copy, so they must agree exactly, except the bounded-z fill's
-Value/Gradient extrapolation: 1e-13 relative (FMA contraction, and PyTorch
-multiplies by the reciprocal of a scalar divisor on the card). The mesh halo
+fill (one launch for every axis of a batch of fields) copies, reflects or
+pins, so it must agree exactly, except on the slots a Value/Gradient
+condition extrapolates: 1e-13 relative in float64 and 1e-6 in float32 (FMA
+contraction, and PyTorch multiplies by the reciprocal of a scalar divisor on
+the card). The mesh halo
 exchange copies (exact); the sharded stages on a 2x2 mesh of the card equal
 the serial kernels exactly (the same kernel on the same operands per cell)
 and match their plain routes to 1e-12."""
@@ -26,6 +28,11 @@ import torch
 
 import oceananigans_tpu_torch as ot
 from oceananigans_tpu_torch import kernels as K
+from oceananigans_tpu_torch.boundary_conditions import (
+    BoundaryCondition, FieldBoundaryConditions,
+    regularize_field_boundary_conditions)
+from oceananigans_tpu_torch.boundary_conditions import boundary_condition as bcm
+from oceananigans_tpu_torch.kernels import halo_fill as hf
 
 torch.set_num_threads(1)
 
@@ -118,18 +125,51 @@ ZCASES = [K.ZFill(face, bottom, top) for face in (False, True)
                               ((3, -0.25), (1, 0.0)))]
 
 
+ZCLASSES = (bcm.FLUX, bcm.OPEN, bcm.VALUE, bcm.GRADIENT)
+
+
+def zfill_locs_bcs(spec):
+    """(location, conditions) of a field whose z fill is ``spec``."""
+    def side(cls_value):
+        return BoundaryCondition(ZCLASSES[cls_value[0]], cls_value[1])
+
+    return (("c", "c", "f" if spec.face else "c"),
+            FieldBoundaryConditions(bottom=side(spec.bottom),
+                                    top=side(spec.top)))
+
+
+def check_fill(grid, fields, locs_bcs, z=True):
+    """The fill kernel against its plain version on copies of ``fields``:
+    exact, except 1e-13 (float64) or 1e-6 (float32) relative on the slots
+    an extrapolation forms; one launch per 32 fields, none where no axis
+    is filled."""
+    a = [f.clone() for f in fields]
+    b = [f.clone() for f in fields]
+    codes = hf.fill_codes(grid, a[0].shape, locs_bcs, len(a), z)
+    fills = any(c[0] != hf.KEEP for f in codes for c in f)
+    before = K.fill_halos.launches
+    K.fill_halos(grid, a, locs_bcs, z=z)
+    assert K.fill_halos.launches == before + fills * ((len(a) + 31) // 32)
+    K.fill_halos_plain(grid, b, locs_bcs, z=z)
+    tol = 1e-13 if a[0].dtype == torch.float64 else 1e-6
+    masks = (hf.extrapolated_slots(grid, a[0].shape, locs_bcs, z)
+             if locs_bcs is not None else [None] * len(a))
+    for x, y, m in zip(a, b, masks):
+        if m is None or not m.any():
+            assert torch.equal(x, y)
+            continue
+        m = m.to(x.device)
+        assert torch.equal(x[~m], y[~m])
+        assert (x[m] - y[m]).abs().max().item() <= \
+            tol * y.abs().max().item()
+
+
 @pytest.mark.parametrize("spec", ZCASES, ids=str)
 def test_bounded_z_fill(zinputs, spec):
+    """The fill kernel on a periodic-x/y, bounded-z grid, each z location
+    and (bottom, top) pair: the wrap and the bounded z in one launch."""
     grid, fields = zinputs
-    a = fields[0].clone()
-    b = a.clone()
-    K.bounded_z_fill(grid, [a], [spec])
-    K.bounded_z_fill_plain(grid, [b], [spec])
-    extrapolates = not spec.face and (spec.bottom[0] >= 2 or spec.top[0] >= 2)
-    if extrapolates:
-        assert (a - b).abs().max().item() <= 1e-13 * b.abs().max().item()
-    else:
-        assert torch.equal(a, b)
+    check_fill(grid, fields[:1], [zfill_locs_bcs(spec)])
 
 
 def test_periodic_halo_fill_z_halos(zinputs):
@@ -550,24 +590,127 @@ def test_fused_sw_update_tracers(sw_inputs):
 
 
 def test_fill_batches(zinputs):
-    """The wrap and the bounded-z fill of 20 fields (one launch takes 32 at
-    most; the batch of 20 in one launch, 40 in two)."""
+    """The wrap alone and the wrap with the bounded-z fill of 20 fields
+    (one launch takes 32 at most; the batch of 20 in one launch, 40 in
+    two)."""
     grid = zinputs[0]
     gen = torch.Generator(device="cuda").manual_seed(11)
     for n in (20, 40):
         a = [torch.randn(grid.padded_shape, generator=gen,
                          dtype=torch.float64, device="cuda") for _ in range(n)]
         b = [x.clone() for x in a]
-        before = K.periodic_halo_fill.launches
+        before = K.fill_halos.launches
         K.periodic_halo_fill(grid, a)
-        assert K.periodic_halo_fill.launches == before + (1 if n <= 32 else 2)
+        assert K.fill_halos.launches == before + (1 if n <= 32 else 2)
         K.periodic_halo_fill_plain(grid, b)
         assert all(torch.equal(x, y) for x, y in zip(a, b))
-        specs = [ZCASES[k % len(ZCASES)] for k in range(n)]
-        K.bounded_z_fill(grid, a, specs)
-        K.bounded_z_fill_plain(grid, b, specs)
-        for x, y in zip(a, b):
-            assert (x - y).abs().max().item() <= 1e-13 * y.abs().max().item()
+        check_fill(grid, a, [zfill_locs_bcs(ZCASES[k % len(ZCASES)])
+                             for k in range(n)])
+
+
+FILL_LOCS = (("c", "c", "c"), ("f", "c", "c"), ("c", "f", "c"),
+             ("c", "c", "f"))
+FILL_SIDES = ("west", "east", "south", "north", "bottom", "top")
+
+
+def rotated_locs_bcs(n):
+    """``n`` (location, conditions): the four locations, each under four
+    rotations of Flux, Open, Value and Gradient over the six sides, with
+    nonzero values."""
+    out = []
+    for k in range(n):
+        loc, r = FILL_LOCS[k % 4], (k // 4) % 4
+        out.append((loc, FieldBoundaryConditions(**{
+            side: BoundaryCondition(ZCLASSES[(s + r) % 4],
+                                    0.1 * (s + 1) * (-1) ** s)
+            for s, side in enumerate(FILL_SIDES)})))
+    return out
+
+
+def fill_grid(kind, topo, size, halo, dtype):
+    if kind == "latlon":
+        lon = (0.0, 360.0) if topo[0] == "P" else (0.0, 60.0)
+        return ot.LatitudeLongitudeGrid(size=size, longitude=lon,
+                                        latitude=(15, 75), z=(-1800.0, 0.0),
+                                        halo=halo, dtype=dtype, device="cuda")
+    return ot.RectilinearGrid(
+        size=size, x=(0.0, 2.0), y=(-1.0, 1.0), z=(-3.0, 0.0), halo=halo,
+        topology=tuple("periodic" if t == "P" else "bounded" for t in topo)
+        + ("bounded",), dtype=dtype, device="cuda")
+
+
+FILL_GRIDS = [("rect", t) for t in ("PP", "PB", "BP", "BB")] \
+    + [("latlon", t) for t in ("PB", "BB")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+@pytest.mark.parametrize("zkind", ["z_halo", "z_compact", "surface"])
+@pytest.mark.parametrize("size", [(4, 3, 4), (9, 7, 6)], ids=str)
+@pytest.mark.parametrize("kind,topo", FILL_GRIDS,
+                         ids=[f"{k}-{t}" for k, t in FILL_GRIDS])
+def test_fill_halos(kind, topo, size, zkind, dtype):
+    """The fill kernel against its plain version at small shapes (N = H + 1
+    and larger): every location under Flux, Open, Value and Gradient on
+    every side, a batch of 40 fields (two launches), every axis, x/y only,
+    and the periodic axes alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    halo = (3, 2, 3 if zkind == "z_halo" else 0)
+    grid = fill_grid(kind, topo, size, halo, dtype)
+    shape = grid.padded_shape[:2] + ((1,) if zkind == "surface"
+                                     else grid.padded_shape[2:])
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    locs_bcs = rotated_locs_bcs(40)
+    fields = [torch.randn(shape, generator=gen, dtype=dtype, device="cuda")
+              for _ in locs_bcs]
+    check_fill(grid, fields, locs_bcs)
+    check_fill(grid, fields[:16], locs_bcs[:16], z=False)
+    check_fill(grid, fields[:16], None)
+
+
+BENCH_FILLS = {
+    # (grid, fields)
+    "flagship_264x264x256": lambda: (ot.RectilinearGrid(
+        size=(256, 256, 256), extent=(1.0, 1.0, 1.0), halo=(4, 4, 0),
+        dtype=torch.float32, device="cuda"), 4),
+    "convection_262^3": lambda: (ot.RectilinearGrid(
+        size=(256, 256, 256), extent=(1.0, 1.0, 1.0), halo=(3, 3, 3),
+        dtype=torch.float64, device="cuda"), 16),
+    "hydrostatic_524x268x44": lambda: (ot.LatitudeLongitudeGrid(
+        size=(512, 256, 32), longitude=(0, 60), latitude=(15, 75),
+        z=(-1800.0, 0.0), halo=(6, 6, 6), dtype=torch.float64,
+        device="cuda"), 16),
+    "shallow_water_3x16392^2": lambda: (ot.RectilinearGrid(
+        size=(16384, 16384), extent=(1.0, 1.0), halo=(4, 4, 0),
+        topology=("periodic", "periodic", "flat"), dtype=torch.float32,
+        device="cuda"), 3),
+}
+
+
+@pytest.mark.parametrize("case", list(BENCH_FILLS))
+def test_fill_halos_bench_shapes(case):
+    """The fill kernel against its plain version at the main paths' shapes:
+    every location under the rotated conditions (the wrap alone where the
+    grid has no bounded halo), and the hydrostatic surfaces."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    grid, n = BENCH_FILLS[case]()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    fields = [torch.randn(grid.padded_shape, generator=gen, dtype=grid.dtype,
+                          device="cuda") for _ in range(n)]
+    bounded = any(t == "bounded" and h > 0
+                  for t, h in zip(grid.topology, grid.H))
+    check_fill(grid, fields, rotated_locs_bcs(n) if bounded else None)
+    if case.startswith("hydrostatic"):
+        del fields
+        surfaces = [torch.randn(grid.padded_shape[:2] + (1,), generator=gen,
+                                dtype=grid.dtype, device="cuda")
+                    for _ in range(3)]
+        locs = (("c", "c", "c"), ("f", "c", "c"), ("c", "f", "c"))
+        check_fill(grid, surfaces, [
+            (loc, regularize_field_boundary_conditions(None, grid, loc))
+            for loc in locs])
 
 
 @pytest.mark.parametrize("case", ["z_compact", "closure"])
@@ -606,8 +749,7 @@ def test_twelve_tracer_model_steps(case):
                         (nh, "fused_divergence", K.fused_divergence_plain),
                         (nh, "fused_correct", K.fused_correct_plain),
                         (nh, "periodic_halo_fill", K.periodic_halo_fill_plain),
-                        (hf, "periodic_halo_fill", K.periodic_halo_fill_plain),
-                        (hf, "bounded_z_fill", K.bounded_z_fill_plain)):
+                        (hf, "fill_halos", K.fill_halos_plain)):
                     stack.enter_context(_patched(mod, name, fn))
             for _ in range(2):
                 m.time_step(1e-3)
@@ -1010,7 +1152,7 @@ def _tile_tendency_inputs(n, dtype, ntr, layout, seed):
         specs = [K.ZFill(False, (0, 0.0), (0, 0.0))] * 2 + [
             K.ZFill(True, (1, 0.0), (1, 0.0))] + [
             K.ZFill(False, (2, 0.5), (2, -0.5))] * ntr
-        K.bounded_z_fill(grid, f, specs)
+        K.bounded_z_fill_plain(grid, f, specs)
     return grid, f
 
 

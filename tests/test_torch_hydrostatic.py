@@ -314,8 +314,8 @@ def test_eligibility():
 @pytest.mark.parametrize("lon", [BOUNDED_X, PERIODIC_X],
                          ids=["bounded_x", "periodic_x"])
 def test_split_explicit_substep(lon):
-    """SplitExplicitFreeSurface.substep with its fill every substep (a
-    bounded y) against JAX: 1e-13."""
+    """SplitExplicitFreeSurface.substep with its fill of η, U and V every
+    substep (a bounded y; one call for the three) against JAX: 1e-13."""
     jg, tg = _grids(lon, jhalo=(4, 4, 4), thalo=(4, 4, 4))
     rng = np.random.default_rng(21)
     shape = tg.padded_shape[:2] + (1,)
@@ -327,9 +327,11 @@ def test_split_explicit_substep(lon):
         return lambda a: j_fill_axes(a, jg, loc, j_reg(None, jg, loc), 0.0,
                                      (0, 1))
 
-    def tfill(loc):
-        bcs = regularize_field_boundary_conditions(None, tg, loc)
-        return lambda a: fill_surface_halo_regions([a], tg, [(loc, bcs)])[0]
+    tlocs_bcs = [(LOCS[n], regularize_field_boundary_conditions(
+        None, tg, LOCS[n])) for n in ("T", "u", "v")]
+
+    def tfill(eta, U, V):
+        return tuple(fill_surface_halo_regions([eta, U, V], tg, tlocs_bcs))
 
     want = jfs.substep(jg, 1800.0, 1800.0, *(jnp.asarray(a) for a in
                                              (eta, U, V, GU, GV)),
@@ -337,8 +339,7 @@ def test_split_explicit_substep(lon):
                        jfill(LOCS["u"]), jfill(LOCS["v"]))
     got = tfs.substep(tg, 1800.0, 1800.0, *(torch.as_tensor(a.copy()) for a
                                             in (eta, U, V, GU, GV)),
-                      120.0, tfill(LOCS["T"]), tfill(LOCS["u"]),
-                      tfill(LOCS["v"]))
+                      120.0, tfill)
     ints = (slice(4, 4 + N[0]), slice(4, 4 + N[1]))
     for j, t in zip(want, got):
         assert _rel(t.numpy()[ints], np.asarray(j)[ints]) < 1e-13
