@@ -75,7 +75,13 @@ Phases (each raises on failure; nothing is caught):
    device kernels per step.
 11. Whole step, kernel path against plain path: 3 steps in float64 of the
    flagship and of the convection configuration at 32³, of shallow water at
-   128² and of the hydro_row at 16x12x8.
+   128², of the hydro_row at 16x12x8, of the LES row at 32³ (SmagorinskyLilly,
+   AMD with Cb, Lilly's coefficient) and of its vertically implicit variant;
+   one step of each physics module of the nonhydrostatic model at 32³
+   (dynamic Smagorinsky with Lagrangian and (0, 1) averaging, AMD with
+   conditions on νₑ and κₑ, a vertically implicit diffusivity with a
+   function ν, SeawaterBuoyancy with TEOS-10, a tilted gravity, the non-traditional β-plane, forcing, Stokes drift, background fields,
+   quasi-AB2, a closure tuple).
 12. Mesh pieces against their plain versions, on Distributed(Partition(2,
    2)) naming the card four times: the halo exchange at both sharded paths'
    shapes (exact), over distinct cards when more than one is visible (peer
@@ -124,6 +130,17 @@ Phases (each raises on failure; nothing is caught):
    version, then the three entry points of oceananigans_tpu_torch/tools as
    a user runs them (the microbench and the mix also on a slab that fills
    every SM), with the card's float32 peak from its SM count and clock.
+21. LES path (bench_extra.py's LES row, :259-289): 128³, WENO(5),
+   BuoyancyTracer, float32, Δt = 1e-4, RK3, with SmagorinskyLilly() and then
+   AnisotropicMinimumDissipation() (u and b from a seeded generator), and
+   the same configuration with a vertically implicit
+   VerticalScalarDiffusivity: warm-up and timed steps, launch counters (#6
+   three times a step, the fill kernel, no plain version on CUDA tensors),
+   finite fields, the divergence, Σb conserved, peak memory, the phase
+   shares from CUDA events with the closure's share and the implicit
+   solve's time, the device-busy share and the device kernels per step.
+   The closures and the implicit solve are plain PyTorch (the JAX package
+   computes them in XLA).
 
 Fill times are CUDA events around one call behind a busy card (the device's
 time, ``device_ms``), with the call from an idle card beside them (host
@@ -1352,7 +1369,10 @@ def whole_step_phase():
     configuration at 32³, the z-compact routes at 32³ (WENO(5) with two
     tracers on the fused route; the buoyant model on the tendency route),
     shallow water at 128² (FPlane(0.3), bathymetry, a tracer), the hydro_row
-    at 16x12x8 (v added to u's noise); bound 1e-12 relative to
+    at 16x12x8 (v added to u's noise), the LES row at 32³ with
+    SmagorinskyLilly, AMD(Cb=1) and Lilly's coefficient (a stratified b), its
+    vertically implicit variant; then one step of each physics module's
+    configuration (PHYSICS_TRACERS) at 32³; bound 1e-12 relative to
     max|field|."""
     import oceananigans_tpu_torch as ot
     from oceananigans_tpu_torch.models import NonhydrostaticModel
@@ -1411,19 +1431,46 @@ def whole_step_phase():
         assert m.uses_kernel
         return m
 
-    for label, make, names, dt in (
-            ("flagship", flagship, "uvwp", 1e-3),
-            ("convection", convection, "uvwbp", 1e-3),
-            ("tracers z-compact", tracers_compact, "uvwacp", 1e-3),
-            ("buoyant z-compact", buoyant_compact, "uvwbp", 1e-3),
-            ("shallow water", shallow_water, ("uh", "vh", "h", "c"), 1e-4),
-            ("hydrostatic", hydrostatic, ("u", "v", "T", "eta", "w"),
-             120.0)):
+    def les(closure):
+        def make():
+            m = les_model(32, closure(), torch.float64, "cuda",
+                          smoothness=torch.float64)
+            # a stronger buoyancy than the row's 1e-4 noise, so that 3 steps
+            # exercise Lilly's factor and AMD's buoyancy term
+            z = np.linspace(-1.0, 0.0, 32).reshape(1, 1, -1)
+            m.set(b=0.1 * z + 0.01 * np.random.default_rng(4)
+                  .standard_normal((32, 32, 32)),
+                  enforce_incompressibility=False)
+            return m
+        return make
+
+    runs_3 = [
+        ("flagship", flagship, "uvwp", 1e-3),
+        ("convection", convection, "uvwbp", 1e-3),
+        ("tracers z-compact", tracers_compact, "uvwacp", 1e-3),
+        ("buoyant z-compact", buoyant_compact, "uvwbp", 1e-3),
+        ("shallow water", shallow_water, ("uh", "vh", "h", "c"), 1e-4),
+        ("hydrostatic", hydrostatic, ("u", "v", "T", "eta", "w"), 120.0),
+        ("LES SmagorinskyLilly 32^3", les(ot.SmagorinskyLilly), "uvwbp",
+         1e-3),
+        ("LES AMD(Cb=1) 32^3", les(
+            lambda: ot.AnisotropicMinimumDissipation(Cb=1.0)), "uvwbp", 1e-3),
+        ("LES Smagorinsky(LillyCoefficient) 32^3", les(
+            lambda: ot.Smagorinsky(coefficient=ot.LillyCoefficient())),
+         "uvwbp", 1e-3),
+        ("vertically implicit VerticalScalarDiffusivity 32^3",
+         lambda: vitd_model(32, torch.float64, "cuda",
+                            smoothness=torch.float64), "uvwbp", 1e-3)]
+    runs_1 = [(f"{label} 32^3, one step", functools.partial(
+        physics_model, label), "uvwp" + tracers, 1e-3)
+        for label, tracers in PHYSICS_TRACERS.items()]
+    for (label, make, names, dt), steps in (
+            [(r, 3) for r in runs_3] + [(r, 1) for r in runs_1]):
         runs = []
         for plain in (False, True):
             with plain_kernels() if plain else nullcontext():
                 m = make()
-                for _ in range(3):
+                for _ in range(steps):
                     m.time_step(dt)
             runs.append(m)
         for name in names:
@@ -1432,6 +1479,95 @@ def whole_step_phase():
             print(f"  whole step {label} {name}: max abs {err:.3e}, "
                   f"rel {rel:.3e}")
             assert rel <= 1e-12, ("whole step", label, name, rel)
+
+
+# one configuration of each physics module of the nonhydrostatic model
+# (phase 11): its tracers (each a one-letter field name)
+PHYSICS_TRACERS = {"dynamic Smagorinsky, Lagrangian": "c",
+                   "dynamic Smagorinsky, (0, 1) averaging": "c",
+                   "AMD, conditions on the diffusivities": "b",
+                   "vertically implicit, function ν": "b",
+                   "SeawaterBuoyancy TEOS-10": "TS",
+                   "tilted gravity": "b",
+                   "non-traditional beta-plane": "b", "forcing": "bc",
+                   "Stokes drift": "b", "background fields": "b",
+                   "quasi-AB2": "b", "closure tuple": "c"}
+
+
+def physics_model(label, n=32, dtype=torch.float64, device="cuda"):
+    """The configuration of ``label`` (PHYSICS_TRACERS) at n³ on the LES
+    row's grid, WENO(5) (float64 smoothness), from
+    np.random.default_rng(2)."""
+    import oceananigans_tpu_torch as ot
+
+    def value_bcs(top, bottom):
+        return ot.FieldBoundaryConditions(
+            top=ot.ValueBoundaryCondition(top),
+            bottom=ot.ValueBoundaryCondition(bottom))
+
+    kw = {
+        "dynamic Smagorinsky, Lagrangian": lambda: dict(
+            closure=ot.DynamicSmagorinsky(
+                averaging=ot.LagrangianAveraging())),
+        "dynamic Smagorinsky, (0, 1) averaging": lambda: dict(
+            closure=ot.DynamicSmagorinsky(averaging=(0, 1))),
+        "AMD, conditions on the diffusivities": lambda: dict(
+            buoyancy=ot.BuoyancyTracer(),
+            closure=ot.AnisotropicMinimumDissipation(Cb=1.0),
+            boundary_conditions={"nu_e": value_bcs(0.0, 1e-3),
+                                 "kappa_e": {"b": value_bcs(2e-4, 0.0)}}),
+        "vertically implicit, function ν": lambda: dict(
+            closure=ot.ScalarDiffusivity(
+                ot.VerticallyImplicitTimeDiscretization(),
+                nu=lambda x, y, z, t: 2e-2 * (1.5 + z) + t,
+                kappa={"b": 3e-2}),
+            boundary_conditions={"b": value_bcs(-0.05, 0.05)}),
+        "SeawaterBuoyancy TEOS-10": lambda: dict(
+            buoyancy=ot.SeawaterBuoyancy(ot.TEOS10EquationOfState()),
+            closure=ot.ScalarDiffusivity(nu=1e-4, kappa=1e-4)),
+        "tilted gravity": lambda: dict(buoyancy=ot.BuoyancyForce(
+            ot.BuoyancyTracer(), gravity_unit_vector=(0.2, -0.1, -1.0))),
+        "non-traditional beta-plane": lambda: dict(
+            buoyancy=ot.BuoyancyTracer(), coriolis=ot.NonTraditionalBetaPlane(
+                fz0=0.5, beta=0.2, fy0=0.3, gamma=-0.1, radius=5.0)),
+        "forcing": lambda: dict(forcing={
+            "u": ot.ContinuousForcing(
+                lambda x, y, z, t, b: 0.1 * b * (1 + x) + t,
+                field_dependencies="b"),
+            "b": ot.Relaxation(0.5, mask=ot.GaussianMask(-0.5, 0.2),
+                               target=ot.LinearTarget(gradient=0.1)),
+            "c": (ot.AdvectiveForcing(w=-0.01), ot.DiscreteForcing(
+                lambda grid, fields, t, p: -p * fields["c"],
+                parameters=0.2))}),
+        "Stokes drift": lambda: dict(stokes_drift=ot.StokesDrift(
+            dz_us=lambda x, y, z, t: 0.2 * (1 + z) + t,
+            dy_us=lambda x, y, z, t: 0.05 * x)),
+        "background fields": lambda: dict(
+            buoyancy=ot.BuoyancyTracer(), background_fields={
+                "u": ot.BackgroundField(lambda x, y, z, t: 0.1 * z + t),
+                "b": lambda x, y, z, t: 0.01 * z}),
+        "quasi-AB2": lambda: dict(
+            buoyancy=ot.BuoyancyTracer(),
+            coriolis=ot.ConstantCartesianCoriolis(fx=0.1, fy=0.2, fz=0.4),
+            timestepper="QuasiAdamsBashforth2"),
+        "closure tuple": lambda: dict(closure=(
+            ot.Smagorinsky(), ot.HorizontalScalarDiffusivity(nu=1e-3,
+                                                              kappa=2e-3))),
+    }[label]()
+    grid = ot.RectilinearGrid(size=(n, n, n), extent=(1.0, 1.0, 1.0),
+                              dtype=dtype, device=device)
+    model = ot.NonhydrostaticModel(
+        grid, advection=ot.WENO(5, smoothness_dtype=dtype),
+        tracers=tuple(PHYSICS_TRACERS[label]), **kw)
+    rng = np.random.default_rng(2)
+    z = np.linspace(-1.0, 0.0, n).reshape(1, 1, -1)
+    base = {"T": 10.0 + 2.0 * z, "S": 35.0 - 0.5 * z}
+    values = {c: 0.1 * rng.standard_normal((n, n, n)) for c in "uv"}
+    for name in model.tracer_names:
+        values[name] = base.get(name, 0.1 * z) + 0.01 * rng.standard_normal(
+            (n, n, n))
+    model.set(**values)
+    return model
 
 
 # -- shallow water --------------------------------------------------------------
@@ -3398,6 +3534,184 @@ def probe_path_phase(card):
     return launches, peak
 
 
+# -- the LES path (phase 21) ----------------------------------------------------
+
+LES_N = 128
+LES_KERNELS = ("fused_advection_tendency", "fill_halos")
+
+
+def les_closures():
+    """bench_extra.py's LES row's closures (:259-289), built anew for each
+    model (a model hands its buoyancy to the closure)."""
+    import oceananigans_tpu_torch as ot
+    return {"SmagorinskyLilly": ot.SmagorinskyLilly,
+            "AnisotropicMinimumDissipation":
+                ot.AnisotropicMinimumDissipation}
+
+
+def les_model(n, closure, dtype, device, smoothness=torch.float32, seed=0):
+    """bench_extra.py's LES row (:259-289) at n³: extent 1x1x1, periodic x
+    and y, bounded z, WENO(5), BuoyancyTracer and its tracer b, ``closure``;
+    u = 0.1·N(0, 1), then b = 1e-4·N(0, 1) from
+    np.random.default_rng(seed)."""
+    import oceananigans_tpu_torch as ot
+    grid = ot.RectilinearGrid(size=(n, n, n), extent=(1.0, 1.0, 1.0),
+                              topology=("periodic", "periodic", "bounded"),
+                              dtype=dtype, device=device)
+    model = ot.NonhydrostaticModel(
+        grid, advection=ot.WENO(5, smoothness_dtype=smoothness),
+        tracers=("b",), buoyancy=ot.BuoyancyTracer(), closure=closure)
+    rng = np.random.default_rng(seed)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    model.set(u=0.1 * rng.standard_normal((n, n, n)).astype(npdt),
+              b=1e-4 * rng.standard_normal((n, n, n)).astype(npdt))
+    return model
+
+
+def vitd_model(n, dtype, device, smoothness=torch.float32, seed=0):
+    """The LES row's configuration with a vertically implicit
+    VerticalScalarDiffusivity (ν = κ = 1e-3) in place of the LES closure."""
+    import oceananigans_tpu_torch as ot
+    return les_model(n, ot.VerticalScalarDiffusivity(
+        ot.VerticallyImplicitTimeDiscretization(), nu=1e-3, kappa=1e-3),
+        dtype, device, smoothness=smoothness, seed=seed)
+
+
+def les_phase_shares(model, dt, steps, card, label):
+    """Per-step CUDA-event times of a padded tendency-route step: the
+    advection kernel, the closure (its diffusivities, momentum and tracer
+    terms), the rest of the tendencies (buoyancy, boundary fluxes), the
+    implicit vertical solve, the halo fills, the projection (its fills
+    excluded) and the rest (stage updates, allocations, host gaps)."""
+    import oceananigans_tpu_torch.models.nonhydrostatic as nh
+    timer = PhaseTimer()
+    saved = (nh.fused_advection_tendency, nh.fill_all_halo_regions)
+    nh.fused_advection_tendency = timer.wrap("advection", saved[0])
+    nh.fill_all_halo_regions = timer.wrap("fills", saved[1])
+    closure = model.closure
+    methods = ("compute_diffusivities", "momentum_tendencies",
+               "tracer_tendency")
+    for name in methods:
+        setattr(closure, name, timer.wrap("closure", getattr(closure, name)))
+    wrapped = ("_tendencies", "_implicit_step", "_project", "time_step")
+    for name in wrapped:
+        setattr(model, name, timer.wrap(name.strip("_"), getattr(model,
+                                                                name)))
+    try:
+        for _ in range(steps):
+            model.time_step(dt)
+        t = {k: v / steps for k, v in timer.totals().items()}
+    finally:
+        nh.fused_advection_tendency, nh.fill_all_halo_regions = saved
+        for name in methods:
+            delattr(closure, name)
+        for name in wrapped:
+            delattr(model, name)
+    g = t.get
+    shares = {
+        "advection kernel": g("advection", 0.0),
+        "closure (diffusivities, momentum and tracer terms)":
+            g("closure", 0.0),
+        "rest of the tendencies (buoyancy, boundary fluxes)":
+            g("tendencies", 0.0) - g("advection@tendencies", 0.0)
+            - g("closure@tendencies", 0.0),
+        "implicit vertical solve": g("implicit_step", 0.0),
+        "halo fills": g("fills", 0.0),
+        "projection (divergence, solve, correction)":
+            g("project", 0.0) - g("fills@project", 0.0),
+    }
+    shares["rest (updates, allocations, host gaps)"] = \
+        t["time_step"] - sum(shares.values())
+    print(f"{label} step phases, ms per step over {steps} steps (CUDA "
+          f"events) [{card}]:")
+    for phase, ms in shares.items():
+        print(f"  {phase}: {ms:.4f} ms ({100 * ms / t['time_step']:.1f}%)")
+    print(f"  step: {t['time_step']:.4f} ms")
+    return shares, t["time_step"]
+
+
+def padded_divergence(label, model):
+    """max|∇·u|·Δx/max|u| of a padded-layout model's state."""
+    from oceananigans_tpu_torch.models.nonhydrostatic import \
+        _interior_divergence
+    fields = model.state["fields"]
+    u, v, w = (fields[c] for c in "uvw")
+    model._fill_all(dict(u=u, v=v, w=w))
+    ints = model.grid.interior_slices
+    div = _interior_divergence(model.grid, u, v, w)
+    umax = max(a[ints].abs().max().item() for a in (u, v, w))
+    div_rel = div.abs().max().item() * model.grid.dx(("c", "c", "c")) / umax
+    print(f"  {label}: max|div u|·Δx/max|u| after {model.iteration} steps: "
+          f"{div_rel:.3e}; max|u| {umax:.3e}")
+    assert div_rel < 1e-4, (label, "divergence not at roundoff", div_rel)
+
+
+def les_run(card, label, make, dt):
+    """One LES-row run at 128³ float32: counters reset just before the model
+    is built and read after 3 warm-up and 10 timed steps; #6 three times a
+    step, the fill kernel, no plain version on CUDA tensors; finite fields,
+    the divergence, Σb conserved, peak memory; then the phase shares (3
+    more steps) and the busy share (3 more). Returns the launches and the
+    median step."""
+    from oceananigans_tpu_torch import kernels as K
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_counters()
+    model = make()
+    assert not model._z_compact and model.grid.H == (3, 3, 3)
+    sums0 = tracer_sums(model)
+    times = timed_steps(model, dt)
+    launches, plain_cuda = K.counters()
+    steps = model.iteration
+    print(f"{label} launches over set() and {steps} steps: {launches}; "
+          f"plain calls on CUDA: {plain_cuda}")
+    for name in LES_KERNELS:
+        assert launches[name] > 0, f"kernel {name} never launched on the path"
+    assert launches["fused_advection_tendency"] == 3 * steps, launches
+    for name, count in plain_cuda.items():
+        assert count == 0, f"plain {name} ran on CUDA tensors"
+    peak = torch.cuda.max_memory_allocated()
+    for name in model.state["fields"]:
+        assert torch.isfinite(model.field(name).interior).all().item(), name
+    padded_divergence(label, model)
+    check_conserved(label, model, sums0)
+    step_ms = statistics.median(times) * 1e3
+    n = model.grid.N[0]
+    per_step = {k: launches[k] / steps for k in LES_KERNELS}
+    print(f"{label}: {n}^3 WENO5 BuoyancyTracer float32 RK3 step median "
+          f"{step_ms:.3f} ms over {len(times)} steps (min "
+          f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
+          f"{n ** 3 / (step_ms / 1e3):.4e} cell-updates/s; launches per step "
+          f"(set() included) {per_step}; peak device memory "
+          f"{peak / 2 ** 30:.3f} GiB [{card}]")
+    shares, events_ms = les_phase_shares(model, dt, 3, card, label)
+    closure_ms = shares["closure (diffusivities, momentum and tracer terms)"]
+    print(f"{label}: closure share {closure_ms / events_ms:.4f} of the "
+          f"event-timed step, implicit solve "
+          f"{shares['implicit vertical solve']:.4f} ms per step [{card}]")
+    busy_share(label, model, dt, 3, step_ms, card)
+    return launches, step_ms
+
+
+def les_path_phase(card):
+    """Phase 21: bench_extra.py's 128³ LES row, float32, Δt = 1e-4, with
+    SmagorinskyLilly() and then AnisotropicMinimumDissipation(); then the
+    same configuration with a vertically implicit VerticalScalarDiffusivity
+    (the implicit solve's time)."""
+    out = {}
+    for cname, make_closure in les_closures().items():
+        out[cname] = les_run(
+            card, f"LES path, {cname}",
+            lambda: les_model(LES_N, make_closure(), torch.float32, "cuda"),
+            1e-4)
+    out["vitd"] = les_run(
+        card, "LES configuration, vertically implicit "
+        "VerticalScalarDiffusivity",
+        lambda: vitd_model(LES_N, torch.float32, "cuda"), 1e-4)
+    return out
+
+
 KERNEL_SOURCES = {
     "fused_advection_update": (
         "oceananigans_tpu_torch/csrc/fused_advection.cu",
@@ -3549,6 +3863,12 @@ def main():
     print("vector-unit probes (#12), the entry points:")
     probe_launches, peak = probe_path_phase(card)
     bounds.update(probe_bounds(peak["tflops"]))
+    print("the 128^3 LES row (SmagorinskyLilly, AMD) and a vertically implicit "
+          "diffusivity:")
+    les = les_path_phase(card)
+    for cname, (launches, step_ms) in les.items():
+        print(f"LES {cname}: step {step_ms:.3f} ms; launches "
+              f"{ {k: launches[k] for k in LES_KERNELS} } [{card}]")
     bounds["fused_advection_update_bf16"] = \
         bounds["fused_advection_update_tracers"]
     for fname in ("fill_halos", "fill_halos_bounded"):

@@ -3,9 +3,15 @@
 The JAX package ``oceananigans_tpu`` is the reference; this package mirrors
 its module paths. It covers ``NonhydrostaticModel`` on a regular
 RectilinearGrid with periodic x/y and bounded z: WENO(5) or Centered(2)
-advection, tracers, ``BuoyancyTracer``, an explicit ``ScalarDiffusivity``,
-scalar Value/Gradient/Flux boundary conditions on the z sides, RK3, and the
-FFT/DCT pressure projection; ``ShallowWaterModel`` on a regular
+advection, tracers, ``BuoyancyTracer``, ``SeawaterBuoyancy`` (linear,
+Roquet and TEOS-10 equations of state) and ``BuoyancyForce``, Coriolis, the
+scalar-diffusivity closures (explicit or vertically implicit, constant,
+function, array or discrete-form coefficients, biharmonic and
+horizontal-divergence forms, tuples) and the LES closures (Smagorinsky,
+Lilly, dynamic Smagorinsky with directional or Lagrangian averaging, AMD),
+forcing, Stokes drift, background fields, scalar Value/Gradient/Flux
+conditions on the z sides, RK3 or quasi-AB2, and the FFT/DCT pressure
+projection; ``ShallowWaterModel`` on a regular
 periodic 2D grid in both formulations, with ``FPlane``,
 ``ConstantCartesianCoriolis`` or ``BetaPlane`` rotation, bathymetry and
 tracers; and ``HydrostaticFreeSurfaceModel`` on a ``LatitudeLongitudeGrid``
@@ -26,11 +32,17 @@ Layer map:
     fields/                Field wrapper and set
     advection/             Centered / UpwindBiased / WENO, flux divergences,
                            VectorInvariant, WENOVectorInvariant
-    buoyancy.py            BuoyancyTracer
+    buoyancy.py            BuoyancyTracer, SeawaterBuoyancy, equations of
+                           state, BuoyancyForce
     coriolis.py            FPlane / ConstantCartesianCoriolis / BetaPlane /
+                           NonTraditionalBetaPlane /
                            HydrostaticSphericalCoriolis
-    closures/              ScalarDiffusivity and its diffusion operators
-    solvers/               FFT/DCT Poisson solver
+    closures/              scalar diffusivities, Smagorinsky, AMD and their
+                           diffusion operators
+    forcings/              user forcing (continuous, discrete, relaxation)
+    stokes_drift.py        Craik-Leibovich forcing
+    background_fields.py   background (mean-flow) fields
+    solvers/               FFT/DCT Poisson solver, tridiagonal solver
     timesteppers/          RK3 coefficients, quasi-AB2
     models/                NonhydrostaticModel, ShallowWaterModel,
                            HydrostaticFreeSurfaceModel, free surfaces
@@ -49,10 +61,22 @@ from .boundary_conditions import (FieldBoundaryConditions,
                                   FluxBoundaryCondition,
                                   GradientBoundaryCondition,
                                   ValueBoundaryCondition)
-from .buoyancy import BuoyancyTracer
+from .background_fields import BackgroundField
+from .buoyancy import (BuoyancyForce, BuoyancyTracer, LinearEquationOfState,
+                       NonlinearSeawaterBuoyancy,
+                       RoquetSecondOrderEquationOfState, SeawaterBuoyancy,
+                       TEOS10EquationOfState)
 from .coriolis import (BetaPlane, ConstantCartesianCoriolis, FPlane,
-                       HydrostaticSphericalCoriolis)
-from .closures import ScalarDiffusivity
+                       HydrostaticSphericalCoriolis, NonTraditionalBetaPlane)
+from .closures import (AnisotropicMinimumDissipation, DynamicSmagorinsky,
+                       HorizontalScalarDiffusivity, LagrangianAveraging,
+                       LillyCoefficient, ScalarBiharmonicDiffusivity,
+                       ScalarDiffusivity, Smagorinsky, SmagorinskyLilly,
+                       VerticallyImplicitTimeDiscretization,
+                       VerticalScalarDiffusivity)
+from .forcings import (AdvectiveForcing, ContinuousForcing, DiscreteForcing,
+                       GaussianMask, LinearTarget, Relaxation)
+from .stokes_drift import StokesDrift, UniformStokesDrift
 from .fields import Field
 from .parallel import CPU, GPU, Distributed, Partition
 from .models import (ConservativeFormulation, ExplicitFreeSurface,
@@ -65,7 +89,18 @@ __all__ = ["defaults", "RectilinearGrid", "LatitudeLongitudeGrid",
            "CENTER", "FACE", "Centered", "UpwindBiased", "WENO",
            "FieldBoundaryConditions", "FluxBoundaryCondition",
            "GradientBoundaryCondition", "ValueBoundaryCondition",
-           "BuoyancyTracer", "ScalarDiffusivity", "Field",
+           "BuoyancyTracer", "SeawaterBuoyancy", "LinearEquationOfState",
+           "RoquetSecondOrderEquationOfState", "TEOS10EquationOfState",
+           "NonlinearSeawaterBuoyancy", "BuoyancyForce", "ScalarDiffusivity",
+           "VerticalScalarDiffusivity", "HorizontalScalarDiffusivity",
+           "ScalarBiharmonicDiffusivity",
+           "VerticallyImplicitTimeDiscretization", "Smagorinsky",
+           "SmagorinskyLilly", "LillyCoefficient", "DynamicSmagorinsky",
+           "LagrangianAveraging", "AnisotropicMinimumDissipation",
+           "ContinuousForcing", "DiscreteForcing", "Relaxation",
+           "AdvectiveForcing", "GaussianMask", "LinearTarget",
+           "UniformStokesDrift", "StokesDrift", "BackgroundField",
+           "NonTraditionalBetaPlane", "Field",
            "NonhydrostaticModel", "state_from_jax", "ShallowWaterModel",
            "ConservativeFormulation", "VectorInvariantFormulation",
            "VectorInvariant", "WENOVectorInvariant", "FPlane",

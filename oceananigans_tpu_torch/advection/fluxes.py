@@ -58,54 +58,62 @@ def div_Uc(grid, scheme, u, v, w, c, zbc=None):
     return total / grid.V(LOC_CCC)
 
 
-def div_Uu(grid, scheme, u, v, w, zbc=None, only_axis=None):
-    """∇·(𝐯 u) at fcc."""
+def div_Uu(grid, scheme, u, v, w, zbc=None, only_axis=None,
+           advected=None):
+    """∇·(𝐯 u) at fcc. ``advected``: reconstruct this field instead of u
+    (the background fields' cross terms); (u, v, w) still build the
+    advecting transports."""
     if scheme is None:
         return torch.zeros_like(u)
+    au = u if advected is None else advected
     Ax_u, Ay_v, Az_w = _transports(grid, u, v, w)
     terms = []
     if not grid.is_flat(X) and only_axis in (None, X):
         ut = scheme.symmetric(grid, Ax_u, X, 1)                # fcc → ccc
-        uhat = scheme.biased_by(grid, u, X, 1, ut)
+        uhat = scheme.biased_by(grid, au, X, 1, ut)
         terms.append(_delta_f(grid, ut * uhat, X))             # ccc → fcc
     if not grid.is_flat(Y) and only_axis in (None, Y):
         vt = scheme.symmetric(grid, Ay_v, X, 0)                # cfc → ffc
-        uhat = scheme.biased_by(grid, u, Y, 0, vt)
+        uhat = scheme.biased_by(grid, au, Y, 0, vt)
         terms.append(_delta_c(grid, vt * uhat, Y))             # ffc → fcc
     if not grid.is_flat(Z) and only_axis in (None, Z):
         wt = scheme.symmetric(grid, Az_w, X, 0)                # ccf → fcf
-        uhat = scheme.biased_by(grid, u, Z, 0, wt,
+        uhat = scheme.biased_by(grid, au, Z, 0, wt,
                                 zbc=zbc["u"] if zbc else None)
         terms.append(_delta_c(grid, wt * uhat, Z))             # fcf → fcc
     return _sum_terms(terms, u, grid.V(LOC_FCC))
 
 
-def div_Uv(grid, scheme, u, v, w, zbc=None, only_axis=None):
-    """∇·(𝐯 v) at cfc."""
+def div_Uv(grid, scheme, u, v, w, zbc=None, only_axis=None,
+           advected=None):
+    """∇·(𝐯 v) at cfc; ``advected`` as in :func:`div_Uu`."""
     if scheme is None:
         return torch.zeros_like(v)
+    av = v if advected is None else advected
     Ax_u, Ay_v, Az_w = _transports(grid, u, v, w)
     terms = []
     if not grid.is_flat(X) and only_axis in (None, X):
         ut = scheme.symmetric(grid, Ax_u, Y, 0)                # fcc → ffc
-        vhat = scheme.biased_by(grid, v, X, 0, ut)
+        vhat = scheme.biased_by(grid, av, X, 0, ut)
         terms.append(_delta_c(grid, ut * vhat, X))             # ffc → cfc
     if not grid.is_flat(Y) and only_axis in (None, Y):
         vt = scheme.symmetric(grid, Ay_v, Y, 1)                # cfc → ccc
-        vhat = scheme.biased_by(grid, v, Y, 1, vt)
+        vhat = scheme.biased_by(grid, av, Y, 1, vt)
         terms.append(_delta_f(grid, vt * vhat, Y))             # ccc → cfc
     if not grid.is_flat(Z) and only_axis in (None, Z):
         wt = scheme.symmetric(grid, Az_w, Y, 0)                # ccf → cff
-        vhat = scheme.biased_by(grid, v, Z, 0, wt,
+        vhat = scheme.biased_by(grid, av, Z, 0, wt,
                                 zbc=zbc["v"] if zbc else None)
         terms.append(_delta_c(grid, wt * vhat, Z))             # cff → cfc
     return _sum_terms(terms, v, grid.V(LOC_CFC))
 
 
-def div_Uw(grid, scheme, u, v, w, zbc=None, only_axis=None):
-    """∇·(𝐯 w) at ccf."""
+def div_Uw(grid, scheme, u, v, w, zbc=None, only_axis=None,
+           advected=None):
+    """∇·(𝐯 w) at ccf; ``advected`` as in :func:`div_Uu`."""
     if scheme is None:
         return torch.zeros_like(w)
+    aw = w if advected is None else advected
     Ax_u, Ay_v, Az_w = _transports(grid, u, v, w)
     zw = zbc["w"] if zbc else None
     terms = []
@@ -113,15 +121,15 @@ def div_Uw(grid, scheme, u, v, w, zbc=None, only_axis=None):
         # the advected quantity is w, the z-interpolated advecting velocity u
         ut = scheme.symmetric(grid, Ax_u, Z, 0,
                               zbc=zbc["u"] if zbc else None)   # fcc → fcf
-        what = scheme.biased_by(grid, w, X, 0, ut)
+        what = scheme.biased_by(grid, aw, X, 0, ut)
         terms.append(_delta_c(grid, ut * what, X))             # fcf → ccf
     if not grid.is_flat(Y) and only_axis in (None, Y):
         vt = scheme.symmetric(grid, Ay_v, Z, 0,
                               zbc=zbc["v"] if zbc else None)   # cfc → cff
-        what = scheme.biased_by(grid, w, Y, 0, vt)
+        what = scheme.biased_by(grid, aw, Y, 0, vt)
         terms.append(_delta_c(grid, vt * what, Y))             # cff → ccf
     if not grid.is_flat(Z) and only_axis in (None, Z):
         wt = scheme.symmetric(grid, Az_w, Z, 1, zbc=zw)        # ccf → ccc
-        what = scheme.biased_by(grid, w, Z, 1, wt, zbc=zw)
+        what = scheme.biased_by(grid, aw, Z, 1, wt, zbc=zw)
         terms.append(_delta_f(grid, wt * what, Z))             # ccc → ccf
     return _sum_terms(terms, w, grid.V(LOC_CCF))

@@ -8,16 +8,23 @@ regular grids without immersed boundaries: the closure adds -∂ⱼτᵢⱼ
     tracer flux                q = -κ ∇c
 
 and the strain-rate components at their C-grid locations. Every function
-takes and returns full padded tensors; ν and κ are scalars.
+takes and returns full padded tensors. ν and κ are Python scalars or padded
+tensors: the strain forms take each at the location they name, and
+``div_kappa_grad`` interpolates a cell-centred κ to each flux location.
+``vitd_explicit_z_term`` is the explicit z-flux remainder that a vertically
+implicit closure keeps. Immersed boundaries are not ported, so no flux is
+masked.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..grids.topology import CENTER, FACE
+from ..grids.topology import BOUNDED, CENTER, FACE, PERIODIC
 from ..operators.operators import (LOC_CCC, LOC_CCF, LOC_CFC, LOC_FCC,
-                                   _delta_c, _delta_f, ddx, ddy, ddz, delta)
+                                   _delta_c, _delta_f, ddx, ddy, ddz, delta,
+                                   interp)
 
 X, Y, Z = 0, 1, 2
 LOC_FFC = (FACE, FACE, CENTER)
@@ -39,6 +46,14 @@ def _dd(grid, a, axis, out_loc):
     return (ddx, ddy, ddz)[axis](grid, a, out_loc)
 
 
+def _interp_kappa(grid, kappa, axis, floc):
+    """κ at the flux location: a scalar passes through, a cell-centred
+    tensor is interpolated along ``axis``."""
+    if not isinstance(kappa, torch.Tensor) or kappa.ndim == 0:
+        return kappa
+    return interp(grid, kappa, axis, floc[axis])
+
+
 def div_kappa_grad(grid, q, loc, kappa, axes=(0, 1, 2)):
     """∇·(κ ∇q) at ``loc`` over the selected axes (ADDED to G)."""
     total = None
@@ -47,12 +62,44 @@ def div_kappa_grad(grid, q, loc, kappa, axes=(0, 1, 2)):
             continue
         floc = _flip(loc, axis)
         grad = _dd(grid, q, axis, floc)
-        flux = _area(grid, floc, axis) * kappa * grad
+        k = _interp_kappa(grid, kappa, axis, floc)
+        flux = _area(grid, floc, axis) * k * grad
         term = delta(grid, flux, axis, loc[axis])
         total = term if total is None else total + term
     if total is None:
         return torch.zeros_like(q)
     return total / grid.V(loc)
+
+
+def vitd_explicit_z_term(grid, q, loc, kappa, cross_grad=None):
+    """The explicit z-flux remainder under the vertically implicit time
+    discretization: the implicit tridiagonal solve owns κ ∂z q on the
+    interior z faces and drops the boundary faces, so the explicit tendency
+    keeps the full flux on the two boundary faces (where Value and Gradient
+    conditions act) and ``cross_grad``, the part of the flux the
+    tridiagonal cannot represent (ν ∂x w for the strain form), everywhere.
+
+    Returns the tendency contribution (ADDED to G), or None when z has no
+    halo, is flat or is not bounded; raises on a periodic z."""
+    if not grid.is_flat(Z) and grid.topology[2] == PERIODIC:
+        raise ValueError(
+            "VerticallyImplicitTimeDiscretization needs a Bounded z "
+            "direction; use ExplicitTimeDiscretization on z-periodic grids")
+    if grid.is_flat(Z) or grid.topology[2] != BOUNDED or grid.H[2] < 1:
+        return None
+    floc = _flip(loc, Z)
+    h, n = grid.H[2], grid.N[2]
+    bmask = np.zeros(q.shape[2])
+    bmask[h] = 1.0          # bottom boundary face (face k lies below cell k)
+    bmask[h + n] = 1.0      # top boundary face
+    bmask = torch.as_tensor(bmask.reshape(1, 1, -1), dtype=q.dtype,
+                            device=q.device)
+    grad = _dd(grid, q, Z, floc) * bmask
+    if cross_grad is not None:
+        grad = grad + cross_grad
+    k = _interp_kappa(grid, kappa, Z, floc)
+    flux = _area(grid, floc, Z) * k * grad
+    return delta(grid, flux, Z, loc[2]) / grid.V(loc)
 
 
 # -- strain-rate tensor components --------------------------------------------

@@ -9,7 +9,8 @@ configuration; ``x_f_cross_U`` / ``y_f_cross_U`` / ``z_f_cross_U`` take padded
 velocities (the energy-conserving discretization). The tendency assembly
 subtracts them.
 
-``NonTraditionalBetaPlane`` raises: it is not ported yet.
+``NonTraditionalBetaPlane`` adds the horizontal component of the rotation
+(the non-traditional terms); it serves the nonhydrostatic model.
 """
 
 from __future__ import annotations
@@ -19,10 +20,6 @@ import torch
 
 from .defaults import defaults
 from .operators.operators import ix_c, ix_f, iy_c, iy_f, iz_c, iz_f
-
-HYDROSTATIC_ITEM = ("ROADMAP.md queue 1 item 13 (hydrostatic: the "
-                    "non-traditional β-plane)")
-
 
 def _v_at_fcc(grid, v):
     # (c,f,c) → (f,c,c): interp x to face, y to center
@@ -154,9 +151,62 @@ def constant_f(coriolis):
 
 
 class NonTraditionalBetaPlane:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"NonTraditionalBetaPlane is not ported yet: {HYDROSTATIC_ITEM}")
+    """The full-Coriolis β-plane that keeps the horizontal rotation
+    component (Dellar 2011, §5):
+
+        2Ωʸ(y, z) = fy (1 −  z/R) + γ y
+        2Ωᶻ(y, z) = fz (1 + 2z/R) + β y
+
+    with (fz, fy, β, γ) = (2Ω sin φ, 2Ω cos φ, 2Ω cos φ/R, −4Ω sin φ/R)
+    from ``latitude`` where not given."""
+
+    def __init__(self, fz0=None, beta=None, fy0=None, gamma=None,
+                 rotation_rate=None, latitude=None, radius=None):
+        rr = defaults.rotation_rate if rotation_rate is None else rotation_rate
+        R = defaults.planet_radius if radius is None else radius
+        if latitude is not None:
+            phi = np.deg2rad(latitude)
+            fz0 = 2 * rr * np.sin(phi) if fz0 is None else fz0
+            beta = 2 * rr * np.cos(phi) / R if beta is None else beta
+            fy0 = 2 * rr * np.cos(phi) if fy0 is None else fy0
+            gamma = -4 * rr * np.sin(phi) / R if gamma is None else gamma
+        self.fz0, self.beta = float(fz0), float(beta)
+        self.fy0, self.gamma = float(fy0), float(gamma or 0.0)
+        self.R = float(R)
+
+    def _fp(self):
+        return ("NonTraditionalBetaPlane", self.fz0, self.beta, self.fy0,
+                self.gamma, self.R)
+
+    __hash__ = FPlane.__hash__
+    __eq__ = FPlane.__eq__
+
+    def _yz(self, grid, yloc, zloc):
+        return (grid.coord_padded(1, yloc).reshape(1, -1, 1),
+                grid.coord_padded(2, zloc).reshape(1, 1, -1))
+
+    def _two_Oy(self, grid, yloc, zloc, like):
+        y, z = self._yz(grid, yloc, zloc)
+        return torch.as_tensor(self.fy0 * (1 - z / self.R) + self.gamma * y,
+                               dtype=like.dtype, device=like.device)
+
+    def _two_Oz(self, grid, yloc, zloc, like):
+        y, z = self._yz(grid, yloc, zloc)
+        return torch.as_tensor(
+            self.fz0 * (1 + 2 * z / self.R) + self.beta * y,
+            dtype=like.dtype, device=like.device)
+
+    def x_f_cross_U(self, grid, u, v, w):
+        # ℑx(2Ωʸ ℑz w − 2Ωᶻ ℑy v), the product formed at the cell centres
+        Oy = self._two_Oy(grid, "c", "c", u)
+        Oz = self._two_Oz(grid, "c", "c", u)
+        return ix_f(grid, Oy * iz_c(grid, w) - Oz * iy_c(grid, v))
+
+    def y_f_cross_U(self, grid, u, v, w):
+        return self._two_Oz(grid, "f", "c", u) * _u_at_cfc(grid, u)
+
+    def z_f_cross_U(self, grid, u, v, w):
+        return -self._two_Oy(grid, "c", "f", u) * _u_at_ccf(grid, u)
 
 
 class HydrostaticSphericalCoriolis:

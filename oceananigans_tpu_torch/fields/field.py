@@ -59,6 +59,22 @@ class Field:
                 f"size {self.shape}")
 
 
+def coordinates(grid, loc):
+    """The padded coordinates at ``loc`` as broadcastable tensors of the
+    grid's dtype and device (x, y, z)."""
+    return [torch.as_tensor(broadcastable_1d(grid.coord_padded(ax, loc[ax]),
+                                             ax),
+                            dtype=grid.dtype, device=grid.device)
+            for ax in range(3)]
+
+
+def as_padded(grid, value):
+    """A tensor (or array) broadcast to the padded shape, in the grid's
+    dtype and on its device."""
+    return torch.as_tensor(value, dtype=grid.dtype,
+                           device=grid.device).broadcast_to(grid.padded_shape)
+
+
 def set_on_padded(grid, loc, value):
     """Build a padded data tensor from a scalar / interior array / padded
     array / callable f(x, y, z)."""

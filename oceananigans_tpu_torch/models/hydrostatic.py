@@ -9,18 +9,27 @@ quasi-AB2 step (Euler on the first step and when Δt changes) with an
 count, the barotropic corrector, and (η, U, V) persisted across steps).
 
 The tendency of u, v and the tracers goes through
-``kernels.fused_vi_tendency`` (the port of TPU kernels #10 and #11) unless
-``fused_tendencies`` is ``False``, which takes its plain PyTorch version.
-``True``, ``"packed"`` and ``"auto"`` (the default) are one behaviour,
-accepted for the JAX signature (``"packed"`` names a TPU layout of the same
-function): a configuration the kernel does not cover raises, on any device,
-and on a CUDA grid the kernel launches (a CPU grid runs its plain version).
-``uses_kernel`` says whether a model launches it.
+``kernels.fused_vi_tendency`` (the port of TPU kernels #10 and #11) or its
+plain PyTorch version, by ``fused_tendencies``:
 
-The default departs from the JAX model, where the fused path is opt-in:
-there the TPU kernel lost to XLA at Nz = 32. It is a speed choice, not a
-semantic one: the JAX fused and XLA paths agree to roundoff, and so do the
-port's two paths.
+- ``"auto"`` (the default): on a CUDA grid the kernel where it covers the
+  configuration and the plain version elsewhere; on a CPU grid the plain
+  version. It never raises for coverage, as the JAX "auto" (its XLA path)
+  never does.
+- ``True`` or ``"packed"`` (a TPU layout of the same function): the kernel
+  on a CUDA grid (its plain version on a CPU grid); a configuration the
+  kernel does not cover raises, on any device, as the JAX opt-in does.
+- ``False``: the plain version.
+
+``uses_kernel`` says whether a model launches the kernel. Where the JAX
+"auto" takes XLA, the port's takes the kernel on the card: a speed choice,
+not a semantic one (the JAX fused and XLA paths agree to roundoff, and so
+do the port's two paths).
+
+With no ``free_surface`` the model takes the JAX default:
+``ImplicitFreeSurface()`` on a RectilinearGrid (regular in x and y, as the
+port's always is) and ``SplitExplicitFreeSurface(cfl=0.7)`` elsewhere;
+neither is ported yet, so both raise, naming the free surface chosen.
 
 Against the JAX model: the Hy-to-8 rounding of the halo (a Mosaic tile
 workaround) is dropped, the halo is ``max(grid halo, required)``; z is
@@ -37,6 +46,8 @@ substepping raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -55,7 +66,8 @@ from ..kernels import fused_vi_tendency, fused_vi_tendency_plain
 from ..kernels.fused_vector_invariant import vi_config
 from ..operators.operators import _metric, ddx, ddy, div_xy_ccc, dx_c, dy_c
 from ..timesteppers import QuasiAdamsBashforth2TimeStepper
-from .free_surfaces import ExplicitFreeSurface, SplitExplicitFreeSurface
+from .free_surfaces import (ExplicitFreeSurface, ImplicitFreeSurface,
+                            SplitExplicitFreeSurface)
 
 PROGNOSTIC_LOCS = {"u": LOC_FCC, "v": LOC_CFC}
 
@@ -71,6 +83,25 @@ _NOT_PORTED = {
     "auxiliary_fields": "ROADMAP.md queue 1 item 15 (the long tail)",
     "velocities": _item("prescribed velocities"),
 }
+
+
+def default_free_surface(grid):
+    """The JAX model's default free surface for ``grid``: implicit on a
+    RectilinearGrid regular in x and y, split-explicit with ``cfl=0.7``
+    elsewhere. Neither is ported yet: the error names the one chosen."""
+    from ..grids.rectilinear import RectilinearGrid
+    if isinstance(grid, RectilinearGrid):
+        chosen, make = "ImplicitFreeSurface()", ImplicitFreeSurface
+    else:
+        chosen = "SplitExplicitFreeSurface(cfl=0.7)"
+        make = functools.partial(SplitExplicitFreeSurface, cfl=0.7)
+    try:
+        return make()
+    except NotImplementedError as e:
+        raise NotImplementedError(
+            f"the default free surface on a {type(grid).__name__} is the "
+            f"JAX model's {chosen}: {e}; pass free_surface= explicitly"
+        ) from None
 
 
 class HydrostaticFreeSurfaceModel:
@@ -116,9 +147,7 @@ class HydrostaticFreeSurfaceModel:
         if device is not None or dtype is not None:
             grid = grid.to(device=device, dtype=dtype)
         if free_surface is None:
-            # the JAX default: SplitExplicitFreeSurface(cfl=0.7) (or the
-            # implicit one on a regular RectilinearGrid); neither is ported
-            free_surface = SplitExplicitFreeSurface(cfl=0.7)
+            free_surface = default_free_surface(grid)
         if not isinstance(free_surface, (ExplicitFreeSurface,
                                          SplitExplicitFreeSurface)):
             raise NotImplementedError(
@@ -169,12 +198,7 @@ class HydrostaticFreeSurfaceModel:
         self.bcs["ph"] = regularize_field_boundary_conditions(
             None, self.grid, LOC_CCC)
 
-        if fused_tendencies:
-            # raises for what the kernel does not cover
-            vi_config(self.grid, self.momentum_advection,
-                      self.tracer_advection, len(tracers), coriolis)
-        self.uses_kernel = (bool(fused_tendencies)
-                            and self.grid.device.type == "cuda")
+        self.uses_kernel = self._kernel_route(fused_tendencies, coriolis)
 
         h, n = self.grid.H[2], self.grid.N[2]
         self._dzc = torch.as_tensor(
@@ -196,6 +220,23 @@ class HydrostaticFreeSurfaceModel:
             self.state["barotropic"] = {
                 "U": self._zeros(shape[:2] + (1,)),
                 "V": self._zeros(shape[:2] + (1,))}
+
+    def _kernel_route(self, fused_tendencies, coriolis):
+        """Whether the tendency launches the kernel (module docstring)."""
+        if fused_tendencies is False:
+            return False
+        on_card = self.grid.device.type == "cuda"
+        if fused_tendencies == "auto" and not on_card:
+            return False
+        try:
+            vi_config(self.grid, self.momentum_advection,
+                      self.tracer_advection, len(self.tracer_names),
+                      coriolis)
+        except NotImplementedError:
+            if fused_tendencies == "auto":
+                return False
+            raise
+        return on_card
 
     # -- properties -----------------------------------------------------------
 

@@ -2,37 +2,50 @@
 
 Counterpart of ``oceananigans_tpu/models/nonhydrostatic.py`` on a regular
 RectilinearGrid with periodic x and y and a bounded z: flux-form advection,
-tracers, ``BuoyancyTracer``, an explicit constant ``ScalarDiffusivity``,
-scalar Value/Gradient/Flux conditions on the z sides, RK3 and the FFT/DCT
-pressure projection. Coriolis, forcing, other closures and timesteppers
-raise ``NotImplementedError`` naming their ROADMAP item.
+tracers, buoyancy (``BuoyancyTracer``, ``SeawaterBuoyancy`` with its
+equations of state, ``BuoyancyForce`` for a tilted gravity), Coriolis, the
+closures of ``closures/`` (the scalar-diffusivity family, closure tuples,
+Smagorinsky, Lilly, dynamic Smagorinsky, AMD) with the vertically implicit
+solve, user forcing, Stokes drift, background fields, scalar
+Value/Gradient/Flux conditions on the z sides, RK3 or quasi-AB2, and the
+FFT/DCT pressure projection. Other pressure solvers, biogeochemistry,
+particles and auxiliary fields raise ``NotImplementedError`` naming their
+ROADMAP item.
 
 The layout and the step follow the JAX package's choice (its ``__init__``
 and ``_build_step``, without the TPU's Nz % 128 gate, Hy-to-8 rounding, lane
 tail and tile picks):
 
-- **z-compact** when there is no closure and no user z boundary condition:
-  no z halo (the z boundary conditions live inside the stencil reads) and
-  ``Hx = Hy = required_halo + 1`` (one ring for the deferred correction).
-  Without buoyancy and without a mesh, advection is the only tendency, and
-  each RK3 stage runs the fused advection + stage-update kernel over u, v, w
-  and the tracers, the divergence kernel, the FFT/DCT solve and the
-  halo-fill kernel on the new pressure. With ``fuse_correction`` (the
-  default, as in the JAX package) stages 1 and 2 only solve for p, and the
-  next stage's update kernel applies the correction while it reads the
-  velocities (the tracers are advected by the corrected velocities); stage
-  3 projects with the correction kernel. With buoyancy, or under a mesh,
-  each stage takes the tendency route below on this layout: the wrap of all
-  fields, the z-compact tendency kernel, buoyancy, the update, w's bottom
-  face pinned to 0, and the projection by the divergence kernel, the solve
-  and the correction kernel.
-- **padded** otherwise: every halo ``H = max(grid.H, required_halo)``, z
-  included. Each RK3 stage fills all halos (one periodic-wrap launch and one
-  bounded-z launch for all fields), computes the advective tendencies of
-  u, v, w and the tracers with the tendency kernel, adds buoyancy, closure
-  and boundary fluxes in PyTorch, updates, and projects: fill u, v, w, a
-  plain PyTorch divergence, the solve, the pressure fill, a plain PyTorch
-  correction (the JAX package computes these in XLA too).
+- **z-compact** when there is no closure, forcing, Stokes drift, background
+  field or user z boundary condition: no z halo (the z boundary conditions
+  live inside the stencil reads) and ``Hx = Hy = required_halo + 1`` (one
+  ring for the deferred correction). When advection is the only tendency
+  (no buoyancy, no Coriolis, RK3, no mesh), each RK3 stage runs the fused
+  advection + stage-update kernel over u, v, w and the tracers, the
+  divergence kernel, the FFT/DCT solve and the halo-fill kernel on the new
+  pressure. With ``fuse_correction`` (the default, as in the JAX package)
+  stages 1 and 2 only solve for p, and the next stage's update kernel
+  applies the correction while it reads the velocities (the tracers are
+  advected by the corrected velocities); stage 3 projects with the
+  correction kernel. Otherwise each stage takes the tendency route below on
+  this layout, with w's bottom face pinned to 0 after each update and the
+  projection by the divergence kernel, the solve and the correction kernel.
+- **padded** otherwise: every halo ``H = max(grid.H, required_halo)`` (the
+  advection's or the closure's), z included. Each stage (RK3) or step
+  (quasi-AB2) fills all halos (one fill launch for all fields), computes
+  the tendencies, updates, runs the closure's implicit vertical solve, and
+  projects: fill u, v, w, a plain PyTorch divergence, the solve, the
+  pressure fill, a plain PyTorch correction (the JAX package computes these
+  in XLA too).
+
+The tendencies (``_tendencies``) follow the JAX ``_compute_tendencies``:
+advection (the tendency kernel, or, with background fields, the plain
+perturbation form of the JAX XLA path), Coriolis, buoyancy, Stokes drift,
+the closure's momentum terms, the tracers' advection and closure terms,
+forcing, and the boundary fluxes last. The closure sees the model clock.
+Closure state fields (the Lagrangian dynamic Smagorinsky's JLM and JMM) ride
+in the state's fields, unchanged through the stages (the JAX step gives
+them a zero tendency), and are advanced at the end of each step.
 
 With ``architecture=Distributed(...)`` the state stays global-view on the
 mesh's first device (the grid's device) and the advective tendencies come
@@ -53,14 +66,17 @@ import numpy as np
 import torch
 
 from ..advection import Centered
+from ..advection.fluxes import div_Uc, div_Uu, div_Uv, div_Uw
 from ..advection.schemes import adapt_advection_order
+from ..background_fields import evaluate_background
 from ..boundary_conditions import (apply_flux_bcs, fill_all_halo_regions,
                                    regularize_field_boundary_conditions)
 from ..boundary_conditions.boundary_condition import default_bcs
-from ..buoyancy import BuoyancyTracer
-from ..closures import ScalarDiffusivity
+from ..closures.scalar_diffusivity import (ClosureTuple, _ClosureBase,
+                                           validate_implicit_closure_z_bcs)
 from ..defaults import numpy_dtype
 from ..fields import Field, set_on_padded
+from ..forcings.forcings import regularize_forcing
 from ..grids.topology import (BOUNDED, LOC_CCC, LOC_CCF, LOC_CFC, LOC_FCC,
                               PERIODIC)
 from ..kernels import (build_sharded_fused_advection,
@@ -68,22 +84,37 @@ from ..kernels import (build_sharded_fused_advection,
                        fused_correct, fused_divergence, periodic_halo_fill)
 from ..parallel.distributed import regularize_architecture
 from ..solvers.fft_poisson import FFTPoissonSolver
-from ..timesteppers import RK3_GAMMAS, RK3_ZETAS, RungeKutta3TimeStepper
+from ..solvers.tridiagonal import solve_batched_tridiagonal
+from ..timesteppers import (RK3_GAMMAS, RK3_ZETAS,
+                            QuasiAdamsBashforth2TimeStepper,
+                            RungeKutta3TimeStepper)
 
 PROGNOSTIC_LOCS = {"u": LOC_FCC, "v": LOC_CFC, "w": LOC_CCF}
 
 _NOT_PORTED = {
-    "coriolis": "ROADMAP.md queue 1 item 9 (the rest of NH physics)",
-    "forcing": "ROADMAP.md queue 1 item 9 (the rest of NH physics)",
-    "stokes_drift": "ROADMAP.md queue 1 item 9 (the rest of NH physics)",
-    "background_fields": "ROADMAP.md queue 1 item 9 (the rest of NH physics)",
     "pressure_solver": "ROADMAP.md queue 1 item 11 (other Poisson solvers)",
     "biogeochemistry": "ROADMAP.md queue 1 item 15 (the long tail)",
     "particles": "ROADMAP.md queue 1 item 15 (the long tail)",
     "auxiliary_fields": "ROADMAP.md queue 1 item 15 (the long tail)",
 }
 
-PHYSICS_ITEM = "ROADMAP.md queue 1 item 9 (the rest of NH physics)"
+
+def _timestepper(timestepper):
+    if timestepper in ("RungeKutta3", "rk3") or isinstance(
+            timestepper, RungeKutta3TimeStepper):
+        return RungeKutta3TimeStepper()
+    if timestepper in ("QuasiAdamsBashforth2", "ab2", "qab2"):
+        return QuasiAdamsBashforth2TimeStepper()
+    if isinstance(timestepper, QuasiAdamsBashforth2TimeStepper):
+        return timestepper
+    raise ValueError(f"unknown timestepper {timestepper!r}")
+
+
+def _interior(grid, a):
+    """The interior of a padded (or broadcastable) tensor; scalars pass."""
+    if not isinstance(a, torch.Tensor) or a.ndim == 0:
+        return a
+    return a.broadcast_to(grid.padded_shape)[grid.interior_slices]
 
 
 class NonhydrostaticModel:
@@ -94,61 +125,70 @@ class NonhydrostaticModel:
                  stokes_drift=None, biogeochemistry=None, particles=None,
                  auxiliary_fields=None, fuse_correction=True,
                  architecture=None, device=None, dtype=None):
-        given = dict(coriolis=coriolis, forcing=forcing,
-                     stokes_drift=stokes_drift,
-                     background_fields=background_fields,
-                     pressure_solver=pressure_solver,
+        given = dict(pressure_solver=pressure_solver,
                      biogeochemistry=biogeochemistry, particles=particles,
                      auxiliary_fields=auxiliary_fields)
         for name, value in given.items():
             if value:
                 raise NotImplementedError(
                     f"{name} is not ported yet: {_NOT_PORTED[name]}")
-        if timestepper not in ("RungeKutta3", "rk3") and not isinstance(
-                timestepper, RungeKutta3TimeStepper):
-            raise NotImplementedError(
-                f"timestepper {timestepper!r} is not ported yet: ROADMAP.md "
-                "queue 1 item 9 (quasi-AB2)")
         if not getattr(grid, "all_regular", False) or grid.topology != (
                 PERIODIC, PERIODIC, BOUNDED):
             raise NotImplementedError(
                 "the port's NonhydrostaticModel runs on a regular "
                 "RectilinearGrid with periodic x/y and bounded z: ROADMAP.md "
                 "queue 1 item 11 (other grids and topologies)")
-        if buoyancy is not None and not isinstance(buoyancy, BuoyancyTracer):
+        if isinstance(closure, (tuple, list)):
+            closure = ClosureTuple(*closure)
+        if closure is not None and not isinstance(closure, _ClosureBase):
             raise NotImplementedError(
-                f"buoyancy {buoyancy!r}: only BuoyancyTracer is ported: "
-                f"{PHYSICS_ITEM}")
-        if closure is not None and not isinstance(closure, ScalarDiffusivity):
-            raise NotImplementedError(
-                f"closure {closure!r}: only ScalarDiffusivity is ported: "
-                f"{PHYSICS_ITEM}")
+                f"closure {closure!r} is not a closure of the port's "
+                "closures/ (the others are not ported yet: ROADMAP.md queue "
+                "1 items 13 and 15)")
         if device is not None or dtype is not None:
             grid = grid.to(device=device, dtype=dtype)
         self.architecture = regularize_architecture(architecture)
         if self.architecture is not None:
             self.architecture.place(grid)
-        self.timestepper = RungeKutta3TimeStepper()
+        self.timestepper = _timestepper(timestepper)
         if isinstance(tracers, str):
             tracers = (tracers,)
         tracers = tuple(tracers)
-        if buoyancy is not None:
-            tracers += tuple(n for n in buoyancy.required_tracers
-                             if n not in tracers)
+        for source in (buoyancy, closure):
+            tracers += tuple(n for n in getattr(source, "required_tracers",
+                                                ()) if n not in tracers)
         self.tracer_names = tracers
         self.buoyancy = buoyancy
+        self.coriolis = coriolis
         self.closure = closure
+        self.stokes_drift = stokes_drift
+        # closures that read a buoyancy (Lilly's Smagorinsky, AMD's Cb)
+        # take the model's when given none
+        for c in getattr(closure, "closures", (closure,)) if closure else ():
+            if hasattr(c, "buoyancy") and c.buoyancy is None:
+                c.buoyancy = buoyancy
+        self.forcing = regularize_forcing(forcing)
+        for name, F in self.forcing.items():
+            if hasattr(F, "bind"):
+                F.bind(name, self.loc(name), locs=PROGNOSTIC_LOCS)
+        self.background_fields = dict(background_fields or {})
 
         bcs_in = dict(boundary_conditions or {})
+        diff_bcs = {key: bcs_in.pop(key) for key in ("nu_e", "kappa_e")
+                    if bcs_in.get(key) is not None}
         unknown = set(bcs_in) - set(PROGNOSTIC_LOCS) - set(tracers)
         if unknown:
             raise ValueError(f"boundary conditions for unknown fields {unknown}")
         user_zbcs = any(getattr(b, side, None) is not None
                         for b in bcs_in.values() for side in ("bottom", "top"))
-        self._z_compact = closure is None and not user_zbcs
+        self._z_compact = (closure is None and not self.forcing
+                           and stokes_drift is None
+                           and not self.background_fields and not user_zbcs)
         # advection is the only tendency: the fused update route
-        self._fused_update = (self._z_compact and buoyancy is None
-                              and self.architecture is None)
+        self._fused_update = (
+            self._z_compact and buoyancy is None and coriolis is None
+            and isinstance(self.timestepper, RungeKutta3TimeStepper)
+            and self.architecture is None)
         self.fuse_correction = bool(fuse_correction) and self._fused_update
 
         if advection is None:
@@ -170,6 +210,19 @@ class NonhydrostaticModel:
         if self.grid.N[2] < halo[2] + 1:
             raise ValueError("the bounded-z halo fill needs Nz > Hz")
 
+        if diff_bcs:
+            if closure is None:
+                raise ValueError("diffusivity boundary conditions "
+                                 f"({sorted(diff_bcs)}) need a closure")
+            for key, spec in diff_bcs.items():
+                diff_bcs[key] = (
+                    {n: regularize_field_boundary_conditions(
+                        b, self.grid, LOC_CCC) for n, b in spec.items()}
+                    if isinstance(spec, dict) else
+                    regularize_field_boundary_conditions(spec, self.grid,
+                                                         LOC_CCC))
+            for c in getattr(closure, "closures", (closure,)):
+                c.diffusivity_boundary_conditions = diff_bcs
         self.bcs = {name: regularize_field_boundary_conditions(
             bcs_in.get(name), self.grid, self.loc(name))
             for name in self.prognostic_names}
@@ -179,6 +232,13 @@ class NonhydrostaticModel:
                 "queue 1 item 3 (boundary_conditions/)")
         self.bcs["p"] = regularize_field_boundary_conditions(
             None, self.grid, LOC_CCC)
+        validate_implicit_closure_z_bcs(closure, self.bcs)
+        # closure-owned state (carried in the fields, stepped by the closure)
+        self._closure_state = tuple(getattr(closure, "state_fields", ())
+                                    or ())
+        for name in self._closure_state:
+            self.bcs[name] = regularize_field_boundary_conditions(
+                None, self.grid, LOC_CCC)
         self.pressure_solver = FFTPoissonSolver(self.grid)
         self._sharded_advection = None
         if self.architecture is not None:
@@ -187,10 +247,15 @@ class NonhydrostaticModel:
 
         nt = numpy_dtype(self.grid.dtype)
         self._nt = nt
+        names = self.prognostic_names + self._closure_state
         self.state = dict(
-            fields={n: self._zeros() for n in self.prognostic_names},
+            fields={n: self._zeros() for n in names},
             pressure=self._zeros(),
             clock=dict(time=nt(0), iteration=0, last_dt=nt(np.inf)))
+        if isinstance(self.timestepper, QuasiAdamsBashforth2TimeStepper):
+            self.state["Gm"] = {n: torch.zeros(
+                self.grid.N, dtype=self.grid.dtype, device=self.grid.device)
+                for n in self.prognostic_names}
 
     # -- basic properties -----------------------------------------------------
 
@@ -297,36 +362,124 @@ class NonhydrostaticModel:
             a[ints] -= dtt * grad
         return u, v, w, p
 
-    def _tendencies(self, fields):
-        """The interior-shaped tendencies of every prognostic field:
-        advection (the tendency kernel, sharded under a mesh), buoyancy,
-        closure, boundary fluxes, in the JAX package's order."""
+    def _advection(self, fields, time):
+        """The advective tendencies (interior-shaped) of the prognostic
+        fields: the tendency kernel (sharded under a mesh); with background
+        fields the plain perturbation form of the JAX XLA path, -∇·(𝐔q′)
+        - ∇·(𝐮′q_bg) with 𝐔 = 𝐮′ + 𝐮_bg."""
         grid = self.grid
         names = self.prognostic_names
-        q = [fields[n] for n in names]
-        Gall = (fused_advection_tendency(grid, self.advection, q)
-                if self._sharded_advection is None
-                else self._sharded_advection(q))
-        G = dict(zip(names, Gall.unbind(0)))
-        ints = grid.interior_slices
+        if not self.background_fields:
+            q = [fields[n] for n in names]
+            Gall = (fused_advection_tendency(grid, self.advection, q)
+                    if self._sharded_advection is None
+                    else self._sharded_advection(q))
+            return dict(zip(names, Gall.unbind(0)))
+        bg = {name: evaluate_background(grid, self.loc(name), b, time)
+              for name, b in self.background_fields.items()}
+        adv = self.advection
+        vel = [fields[c] for c in "uvw"]
+        total = [a + bg[c] if c in bg else a for c, a in zip("uvw", vel)]
+        G = {}
+        for c, div in zip("uvw", (div_Uu, div_Uv, div_Uw)):
+            g = -div(grid, adv, *total, advected=fields[c])
+            if c in bg:
+                g = g - div(grid, adv, *vel, advected=bg[c])
+            G[c] = g
+        for name in self.tracer_names:
+            g = -div_Uc(grid, adv, *total, fields[name])
+            if name in bg:
+                g = g - div_Uc(grid, adv, *vel, bg[name])
+            G[name] = g
+        return {n: _interior(grid, g) for n, g in G.items()}
+
+    def _tendencies(self, fields, time):
+        """The interior-shaped tendencies of the prognostic fields and the
+        closure's diffusivities, in the JAX package's order: advection,
+        Coriolis, buoyancy, Stokes drift, the closure's momentum terms, the
+        tracers' closure terms, forcing, boundary fluxes. The closure state
+        has none: it is carried through the stages."""
+        grid = self.grid
+        G = self._advection(fields, time)
+        u, v, w = fields["u"], fields["v"], fields["w"]
+        if self.coriolis is not None:
+            for c, fn in zip("uvw", ("x_f_cross_U", "y_f_cross_U",
+                                     "z_f_cross_U")):
+                G[c] = G[c] - _interior(
+                    grid, getattr(self.coriolis, fn)(grid, u, v, w))
         if self.buoyancy is not None:
-            G["w"] = G["w"] + self.buoyancy.z_buoyancy(grid, fields)[ints]
+            for c, fn in zip("uvw", ("x_buoyancy", "y_buoyancy",
+                                     "z_buoyancy")):
+                term = getattr(self.buoyancy, fn, lambda g, f: None)(
+                    grid, fields)
+                if term is not None:
+                    G[c] = G[c] + _interior(grid, term)
+        if self.stokes_drift is not None:
+            for c, fn in zip("uvw", ("x_tendency", "y_tendency",
+                                     "z_tendency")):
+                G[c] = G[c] + _interior(grid, getattr(self.stokes_drift, fn)(
+                    grid, u, v, w, time))
+        aux = {}
         if self.closure is not None:
-            aux = self.closure.compute_diffusivities(grid, fields, None)
+            aux = self.closure.compute_diffusivities(grid, fields, time)
             mt = self.closure.momentum_tendencies(grid, fields, aux)
             for c in "uvw":
-                G[c] = G[c] + mt[c][ints]
+                G[c] = G[c] + _interior(grid, mt[c])
             for name in self.tracer_names:
-                G[name] = G[name] + self.closure.tracer_tendency(
-                    grid, name, fields, aux)[ints]
-        for name in names:
+                G[name] = G[name] + _interior(
+                    grid, self.closure.tracer_tendency(grid, name, fields,
+                                                       aux))
+        for name, F in self.forcing.items():
+            G[name] = G[name] + _interior(grid, F(grid, fields, time))
+        for name in G:
             apply_flux_bcs(G[name], grid, self.loc(name), self.bcs[name])
-        return G
+        return G, aux
+
+    def _implicit_step(self, fields, aux, dtt):
+        """The closure's vertically implicit diffusion solve, per field."""
+        if self.closure is None:
+            return fields
+        kappas = self.closure.vertical_implicit_kappas(self.grid, fields, aux)
+        out = dict(fields)
+        for name, kz in kappas.items():
+            solve = (implicit_vertical_diffusion_w if name == "w"
+                     else implicit_vertical_diffusion)
+            out[name] = solve(self.grid, fields[name], kz, dtt)
+        return out
+
+    def _update(self, fields, coefficients, dt):
+        """New padded tensors q + Δt·Σ cᵢGᵢ at the interiors, for
+        ``coefficients`` [(cᵢ, Gᵢ)]; the closure state is carried."""
+        ints = self.grid.interior_slices
+        new = {}
+        for name, q in fields.items():
+            if name in self._closure_state:
+                new[name] = q
+                continue
+            inc = None
+            for coef, Gi in coefficients:
+                term = coef * Gi[name]
+                inc = term if inc is None else inc + term
+            new[name] = q.clone()
+            new[name][ints] = q[ints] + float(dt) * inc
+        if self._z_compact:
+            # w's bottom boundary face (the padded layout's fill pins it)
+            new["w"][..., 0] = 0
+        return new
+
+    def _advance_closure_state(self, fields, dt, iteration):
+        if self._closure_state:
+            self._fill_all(fields)
+            fields.update(self.closure.update_state_fields(
+                self.grid, fields, dt, iteration))
+        return fields
 
     def time_step(self, dt):
-        """Advance the model state by one Δt with RK3."""
+        """Advance the model state by one Δt."""
         if self._fused_update:
             return self._step_compact(dt)
+        if isinstance(self.timestepper, QuasiAdamsBashforth2TimeStepper):
+            return self._step_ab2(dt)
         return self._step_tendencies(dt)
 
     def _step_tendencies(self, dt):
@@ -335,29 +488,46 @@ class NonhydrostaticModel:
         fields = dict(self.state["fields"])
         clock = self.state["clock"]
         time = clock["time"]
-        ints = self.grid.interior_slices
         Gm = None
         for gamma, zeta in zip(RK3_GAMMAS, RK3_ZETAS):
             stage_dt = nt(gamma + zeta) * dt
             self._fill_all(fields)
-            G = self._tendencies(fields)
-            new = {}
-            for name, q in fields.items():
-                inc = gamma * G[name]
-                if zeta != 0.0:
-                    inc = inc + zeta * Gm[name]
-                new[name] = q.clone()
-                new[name][ints] = q[ints] + float(dt) * inc
-            if self._z_compact:
-                # w's bottom boundary face (the padded layout's fill pins it)
-                new["w"][..., 0] = 0
+            G, aux = self._tendencies(fields, time)
+            coefficients = [(gamma, G)] + ([(zeta, Gm)] if zeta != 0.0
+                                           else [])
+            new = self._update(fields, coefficients, dt)
+            new = self._implicit_step(new, aux, stage_dt)
             u, v, w, p = self._project(new["u"], new["v"], new["w"], stage_dt)
             new.update(u=u, v=v, w=w)
             fields = new
             Gm = G
             time = time + stage_dt
+        fields = self._advance_closure_state(fields, dt, clock["iteration"])
         self.state = dict(fields=fields, pressure=p,
                           clock=dict(time=time,
+                                     iteration=clock["iteration"] + 1,
+                                     last_dt=dt))
+        return self
+
+    def _step_ab2(self, dt):
+        """Quasi-AB2: Euler (χ = -1/2) on the first step and when Δt
+        changes."""
+        nt = self._nt
+        dt = nt(dt)
+        fields = dict(self.state["fields"])
+        clock = self.state["clock"]
+        euler = clock["iteration"] == 0 or clock["last_dt"] != dt
+        a, b, keep = self.timestepper.coefficients(euler)
+        self._fill_all(fields)
+        G, aux = self._tendencies(fields, clock["time"])
+        Gm = {n: g * keep for n, g in self.state["Gm"].items()}
+        new = self._update(fields, [(a, G), (-b, Gm)], dt)
+        new = self._implicit_step(new, aux, dt)
+        u, v, w, p = self._project(new["u"], new["v"], new["w"], dt)
+        new.update(u=u, v=v, w=w)
+        new = self._advance_closure_state(new, dt, clock["iteration"])
+        self.state = dict(fields=new, pressure=p, Gm=G,
+                          clock=dict(time=clock["time"] + dt,
                                      iteration=clock["iteration"] + 1,
                                      last_dt=dt))
         return self
@@ -399,7 +569,102 @@ class NonhydrostaticModel:
     def __repr__(self):
         return (f"NonhydrostaticModel(grid={self.grid!r}, "
                 f"advection={self.advection!r}, tracers={self.tracer_names}, "
+                f"closure={self.closure!r}, "
                 f"timestepper={self.timestepper.name})")
+
+
+def _vertical_spacings(grid):
+    """Interior Δz at the centres (n,) and at the faces (n + 1,), numpy; the
+    top face n lies in the first halo slot."""
+    h, n = grid.H[2], grid.N[2]
+    npad = grid.padded_shape[2]
+    dzc = np.broadcast_to(np.asarray(grid.dz(LOC_CCC)).reshape(-1),
+                          (npad,))[h:h + n]
+    dzf_all = np.broadcast_to(np.asarray(grid.dz(LOC_CCF)).reshape(-1),
+                              (npad,))
+    dzf = np.empty(n + 1)
+    dzf[:n] = dzf_all[h:h + n]
+    dzf[n] = dzf_all[h + n] if h + n < npad else dzf_all[-1]
+    return dzc, dzf
+
+
+def _set_interior(grid, q, sol):
+    out = q.clone()
+    out[grid.interior_slices] = sol
+    return out
+
+
+def implicit_vertical_diffusion(grid, q, kappa, dtt, damping=None):
+    """Solve (1 + Δt λ - Δt ∂z κ ∂z) q′ = q on the cell-centred z levels
+    with no-flux walls; returns a new padded tensor. ``kappa`` is a scalar
+    or a padded (c, c, f) tensor (κ on the face below each cell), ``damping``
+    an optional rate λ at the cell centres (a scalar or a padded tensor).
+    The operator drops the boundary faces' fluxes: Value and Flux conditions
+    enter explicitly (``vitd_explicit_z_term``, the boundary fluxes)."""
+    if grid.topology[2] == PERIODIC:
+        raise ValueError("the vertically implicit diffusion solve assumes "
+                         "walls; it cannot be used on a z-periodic grid")
+    h, n = grid.H[2], grid.N[2]
+    dzc, dzf = _vertical_spacings(grid)
+    inv_lo = np.zeros(n)            # couples q[k-1] through face k
+    inv_up = np.zeros(n)            # couples q[k+1] through face k+1
+    inv_lo[1:] = 1.0 / (dzc[1:] * dzf[1:n])
+    inv_up[:-1] = 1.0 / (dzc[:-1] * dzf[1:n])
+    kw = dict(dtype=q.dtype, device=q.device)
+    dt_c = torch.tensor(float(dtt), **kw)
+    if isinstance(kappa, torch.Tensor) and kappa.ndim == 3:
+        sx, sy, _ = grid.interior_slices
+        kfaces = kappa[sx, sy, h:h + n + 1].to(q.dtype)
+        lo = -dt_c * torch.as_tensor(inv_lo, **kw) * kfaces[..., :n]
+        up = -dt_c * torch.as_tensor(inv_up, **kw) * kfaces[..., 1:n + 1]
+    else:
+        lo = -dt_c * torch.as_tensor(float(kappa) * inv_lo, **kw)
+        up = -dt_c * torch.as_tensor(float(kappa) * inv_up, **kw)
+    diag = 1.0 - lo - up
+    if damping is not None:
+        lam = (damping[grid.interior_slices]
+               if isinstance(damping, torch.Tensor) and damping.ndim == 3
+               else damping)
+        diag = diag + float(dtt) * lam
+    sol = solve_batched_tridiagonal(lo, diag, up, q[grid.interior_slices])
+    return _set_interior(grid, q, sol)
+
+
+def implicit_vertical_diffusion_w(grid, w, nu, dtt):
+    """Solve (1 - Δt ∂z ν ∂z) w′ = w for the face-located vertical velocity
+    with w = 0 on both boundary faces; returns a new padded tensor. Stored
+    faces are k = 0 … n-1 (face 0, the bottom wall, passes through; the lid
+    face n is 0). ``nu`` is a scalar or a padded tensor read at the cell
+    centres (ν in the cell above face k), as in the JAX package."""
+    h, n = grid.H[2], grid.N[2]
+    dzc, dzf = _vertical_spacings(grid)
+    # face k couples w[k-1] through cell k-1 and w[k+1] through cell k
+    inv_lo = np.zeros(n)
+    inv_up = np.zeros(n)
+    inv_lo[1:] = 1.0 / (dzc[:-1] * dzf[1:n])
+    inv_up[1:] = 1.0 / (dzc[1:] * dzf[1:n])
+    kw = dict(dtype=w.dtype, device=w.device)
+    dt_c = torch.tensor(float(dtt), **kw)
+    if isinstance(nu, torch.Tensor) and nu.ndim == 3:
+        sx, sy, _ = grid.interior_slices
+        nc = nu[sx, sy, h:h + n].to(w.dtype)
+        lo_t = -dt_c * torch.as_tensor(inv_lo, **kw) * torch.cat(
+            [torch.zeros_like(nc[..., :1]), nc[..., :-1]], dim=-1)
+        up_t = -dt_c * torch.as_tensor(inv_up, **kw) * nc
+    else:
+        lo_t = -dt_c * torch.as_tensor(float(nu) * inv_lo, **kw)
+        up_t = -dt_c * torch.as_tensor(float(nu) * inv_up, **kw)
+    # Dirichlet walls: the couplings to the pinned faces stay in the
+    # diagonal and drop out of the off-diagonals; row 0 is the identity
+    diag = 1.0 - lo_t - up_t
+    lo, up, diag = lo_t.clone(), up_t.clone(), diag.clone()
+    lo[..., 1] = 0.0
+    up[..., n - 1] = 0.0
+    diag[..., 0] = 1.0
+    lo[..., 0] = 0.0
+    up[..., 0] = 0.0
+    sol = solve_batched_tridiagonal(lo, diag, up, w[grid.interior_slices])
+    return _set_interior(grid, w, sol)
 
 
 def _shifted(slices, axis, s):
@@ -444,18 +709,24 @@ def state_from_jax(jax_state_numpy, model):
     """Load a JAX model's state into ``model``.
 
     ``jax_state_numpy`` is the JAX ``NonhydrostaticModel.state`` with its
-    arrays converted to numpy: ``fields`` (u, v, w and the tracers),
-    ``pressure`` and ``clock``. The JAX arrays may use another halo layout;
-    their halo widths are read off their shapes, the interiors are written
-    into the port's padded tensors, and the halos are refilled."""
-    fields = {n: padded_from_jax(model.grid, jax_state_numpy["fields"][n])
-              for n in model.prognostic_names}
-    pressure = padded_from_jax(model.grid, jax_state_numpy["pressure"])
+    arrays converted to numpy: ``fields`` (u, v, w, the tracers and the
+    closure's state fields), ``pressure``, ``clock`` and, for quasi-AB2,
+    ``Gm``. The JAX arrays may use another halo layout; their halo widths
+    are read off their shapes, the interiors are written into the port's
+    padded tensors, and the halos are refilled."""
+    grid = model.grid
+    fields = {n: padded_from_jax(grid, jax_state_numpy["fields"][n])
+              for n in model.state["fields"]}
+    pressure = padded_from_jax(grid, jax_state_numpy["pressure"])
     model._fill_all({**fields, "p": pressure})
     jc = jax_state_numpy["clock"]
     nt = model._nt
-    model.state = dict(fields=fields, pressure=pressure,
-                       clock=dict(time=nt(jc["time"]),
-                                  iteration=int(jc["iteration"]),
-                                  last_dt=nt(jc["last_dt"])))
+    state = dict(fields=fields, pressure=pressure,
+                 clock=dict(time=nt(jc["time"]),
+                            iteration=int(jc["iteration"]),
+                            last_dt=nt(jc["last_dt"])))
+    if "Gm" in model.state:
+        state["Gm"] = {n: padded_from_jax(grid, jax_state_numpy["Gm"][n])[
+            grid.interior_slices] for n in model.state["Gm"]}
+    model.state = state
     return model

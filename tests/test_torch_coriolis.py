@@ -26,11 +26,16 @@ CASES = {
     "cartesian_axis": dict(f=1e-4, rotation_axis=(0.0, 1.0, 1.0)),
     "beta": dict(f0=0.3, beta=0.1),
     "beta_latitude": dict(latitude=30.0),
+    "nontraditional": dict(fz0=0.3, beta=0.1, fy0=0.2, gamma=-0.05,
+                           radius=2.0),
+    "nontraditional_latitude": dict(latitude=45.0),
 }
 CLASSES = {"fplane": "FPlane", "fplane_latitude": "FPlane",
            "cartesian": "ConstantCartesianCoriolis",
            "cartesian_axis": "ConstantCartesianCoriolis",
-           "beta": "BetaPlane", "beta_latitude": "BetaPlane"}
+           "beta": "BetaPlane", "beta_latitude": "BetaPlane",
+           "nontraditional": "NonTraditionalBetaPlane",
+           "nontraditional_latitude": "NonTraditionalBetaPlane"}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -61,14 +66,21 @@ def test_constant_f():
 @pytest.mark.parametrize("cls", ["NonTraditionalBetaPlane",
                                  "HydrostaticSphericalCoriolis"])
 def test_hydrostatic_coriolis_raises(cls):
-    """The non-traditional β-plane is not ported; the spherical Coriolis is,
-    and refuses a scheme it does not have, as the JAX one does."""
+    """The fused hydrostatic tendency does not cover the non-traditional
+    β-plane (a nonhydrostatic force): asked for, it raises naming item 13;
+    the spherical Coriolis refuses a scheme it does not have, as the JAX
+    one does."""
     if cls == "HydrostaticSphericalCoriolis":
         with pytest.raises(ValueError):
             tcor.HydrostaticSphericalCoriolis(scheme="active_weighted")
         return
+    import oceananigans_tpu_torch as ot
+    grid = TGrid(dtype=torch.float64, device="cpu", **GRID)
     with pytest.raises(NotImplementedError, match="item 13"):
-        getattr(tcor, cls)(latitude=45.0)
+        ot.HydrostaticFreeSurfaceModel(
+            grid, free_surface=ot.SplitExplicitFreeSurface(substeps=5),
+            coriolis=getattr(tcor, cls)(latitude=45.0),
+            fused_tendencies=True)
 
 
 @pytest.mark.parametrize("scheme", ["energy_conserving",

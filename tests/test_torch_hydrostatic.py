@@ -529,20 +529,70 @@ def test_unported_free_surfaces_and_grids_raise():
 
 
 def test_fused_tendencies_switch():
-    """Every value but False takes the fused tendency and raises for a
-    configuration the kernel does not cover, on any device; a CPU grid runs
-    the plain version, which uses_kernel reports; False is the plain path."""
+    """True and "packed" take the fused tendency and raise for a
+    configuration the kernel does not cover, on any device; "auto" (the
+    default) never raises for coverage and, on a CPU grid, takes the plain
+    version, as the JAX "auto" takes its XLA path; uses_kernel reports the
+    choice (False on a CPU grid); False is the plain path."""
     _, tg = _grids()
     fs = ot.SplitExplicitFreeSurface(substeps=5)
     for value in ("auto", True, "packed", False):
         m = HydrostaticFreeSurfaceModel(tg, free_surface=fs, tracers=("T",),
                                         fused_tendencies=value)
         assert not m.uses_kernel
-    for value in ("auto", True, "packed"):
+    for value in (True, "packed"):
         with pytest.raises(NotImplementedError, match="fused VI kernel"):
             HydrostaticFreeSurfaceModel(tg, free_surface=fs, tracers=("T",),
                                         tracer_advection=ot.Centered(4),
                                         fused_tendencies=value)
-    HydrostaticFreeSurfaceModel(tg, free_surface=fs, tracers=("T",),
-                                tracer_advection=ot.Centered(4),
-                                fused_tendencies=False)
+    for value in ("auto", False):
+        m = HydrostaticFreeSurfaceModel(tg, free_surface=fs, tracers=("T",),
+                                        tracer_advection=ot.Centered(4),
+                                        fused_tendencies=value)
+        assert not m.uses_kernel
+        m.set(T=lambda lam, phi, z: 12 + 2e-2 * phi)
+        m.time_step(120.0)
+        assert torch.isfinite(m.field("T").interior).all()
+
+
+def test_auto_uncovered_against_jax():
+    """A configuration the kernel does not cover (Centered(4) tracer
+    advection) under the default "auto" on both sides: 2 quasi-AB2 steps
+    equal the JAX model's within 1e-10."""
+    built = []
+    for J in (True, False):
+        kw = (dict(dtype=np.float64) if J
+              else dict(dtype=F64, device="cpu"))
+        g = (jo if J else ot).LatitudeLongitudeGrid(
+            size=N, longitude=BOUNDED_X, latitude=LAT, z=Z, **kw)
+        M = JModel if J else HydrostaticFreeSurfaceModel
+        m = M(g, momentum_advection=(JVI if J else ot.VectorInvariant)(),
+              tracer_advection=(JCentered if J else ot.Centered)(4),
+              coriolis=(JHSC if J else ot.HydrostaticSphericalCoriolis)(),
+              free_surface=(JSplit if J else ot.SplitExplicitFreeSurface)(
+                  substeps=10), tracers=("T",))
+        built.append(m)
+    jm, tm = built
+    assert not tm.uses_kernel
+    rng = np.random.default_rng(3)
+    u0, v0 = (0.05 * rng.standard_normal(N) for _ in range(2))
+    for m in built:
+        m.set(u=u0, v=v0, T=lambda lam, phi, z: 12 + 8e-3 * z + 2e-2 * phi)
+    for _ in range(2):
+        jm.time_step(120.0)
+        tm.time_step(120.0)
+    _compare(jm, tm, 1e-10)
+
+
+def test_default_free_surface_follows_jax():
+    """With no free_surface the model takes the JAX default, neither of
+    which is ported yet: ImplicitFreeSurface on a regular RectilinearGrid,
+    SplitExplicitFreeSurface(cfl=0.7) on a lat-lon grid."""
+    _, tg = _grids()
+    rg = ot.RectilinearGrid(size=(8, 8, 4), extent=(1e5, 1e5, 100.0),
+                            topology=("periodic", "bounded", "bounded"),
+                            dtype=F64, device="cpu")
+    with pytest.raises(NotImplementedError, match="ImplicitFreeSurface"):
+        HydrostaticFreeSurfaceModel(rg, tracers=("T",))
+    with pytest.raises(NotImplementedError, match="cfl"):
+        HydrostaticFreeSurfaceModel(tg, tracers=("T",))

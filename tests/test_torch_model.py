@@ -173,9 +173,10 @@ def test_unported_options_raise():
     grid = ot.RectilinearGrid(size=(8, 8, 8), extent=(1.0, 1.0, 1.0),
                               dtype=torch.float64, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NonhydrostaticModel(grid, advection=ot.WENO(5), coriolis=object())
+        NonhydrostaticModel(grid, advection=ot.WENO(5),
+                            biogeochemistry=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NonhydrostaticModel(grid, timestepper="QuasiAdamsBashforth2")
+        NonhydrostaticModel(grid, auxiliary_fields={"a": object()})
     bounded = ot.RectilinearGrid(size=(8, 8, 8), extent=(1.0, 1.0, 1.0),
                                  topology=("bounded", "periodic", "bounded"),
                                  device="cpu")
