@@ -40,9 +40,9 @@ Phases (each raises on failure; nothing is caught):
    ScalarDiffusivity, Value conditions on b; the padded layout), float32,
    the same checks, and the phase shares of the step from CUDA events (its
    device-busy share after phase 14, on the same model).
-6. The goldens of tests/test_regression.py (thermal bubble, Rayleigh–Bénard
-   and hydrostatic turbulence), rebuilt in the port, in float64 through the
-   kernels, against tests/data/*.npz.
+6. The goldens of tests/test_regression.py (thermal bubble, Rayleigh–Bénard,
+   hydrostatic turbulence and ocean_catke_windstress), rebuilt in the port,
+   in float64 through the kernels, against tests/data/*.npz.
 7. Shallow-water kernels against their plain versions: the fused
    shallow-water stage at 256² in float64 (WENO(5) and Centered(2), FPlane,
    bathymetry, a tracer; the first-stage and the G⁻ variants) and at 4096²
@@ -60,8 +60,9 @@ Phases (each raises on failure; nothing is caught):
    vector-invariant configurations, with and without ph; every Coriolis
    branch; three tracers; regular RectilinearGrids), at the tile edges
    (ragged float64 tiles, bounded x and y, 3 and 8 tracers) and in float32
-   at 512x256x32 on the hydro_row state; CUDA-event times of kernel and
-   plain version; the fill at the path's shapes (524x268x44: every location
+   at 512x256x32 on the hydro_row state and on the CATKE ocean row's (T,
+   S, e, pₕ′ from SeawaterBuoyancy); CUDA-event times of kernel and plain
+   version; the fill at the path's shapes (524x268x44: every location
    under every condition combination in float64, the path's u, v, T, w over
    all three axes and its η, U, V surfaces in float32, halos overwritten
    with noise first).
@@ -75,7 +76,8 @@ Phases (each raises on failure; nothing is caught):
    device kernels per step.
 11. Whole step, kernel path against plain path: 3 steps in float64 of the
    flagship and of the convection configuration at 32³, of shallow water at
-   128², of the hydro_row at 16x12x8, of the LES row at 32³ (SmagorinskyLilly,
+   128², of the hydro_row and of the flat-bottom CATKE ocean row at
+   16x12x8 (quasi-AB2 and split RK3), of the LES row at 32³ (SmagorinskyLilly,
    AMD with Cb, Lilly's coefficient) and of its vertically implicit variant;
    one step of each physics module of the nonhydrostatic model at 32³
    (dynamic Smagorinsky with Lagrangian and (0, 1) averaging, AMD with
@@ -141,6 +143,18 @@ Phases (each raises on failure; nothing is caught):
    solve's time, the device-busy share and the device kernels per step.
    The closures and the implicit solve are plain PyTorch (the JAX package
    computes them in XLA).
+22. CATKE ocean row: the ocean_catke_windstress golden's configuration at
+   the hydro_row's size (512x256x32 lat-lon, 0-60°E, 15-75°N, 1800 m,
+   float32): WENOVectorInvariant, WENO(5) tracers, spherical Coriolis,
+   SplitExplicitFreeSurface(cfl=0.7), linear SeawaterBuoyancy, CATKE, T
+   and S, a wind stress and the quadratic bottom drag on u, Δt = 120 s;
+   with a flat bottom (#10) and with an immersed ridge (the plain tendency,
+   as in JAX): warm-up and timed steps, launch counters, finite fields, T
+   conserved over the fluid cells, the solid cells zero, the cfl's substep
+   count, the phase shares from CUDA events (#10 or the plain tendency,
+   CATKE's diffusivities, the implicit solve, step_turbulence, the substep
+   loop, the fills), the device-busy share, the device kernels per step
+   and peak memory.
 
 Fill times are CUDA events around one call behind a busy card (the device's
 time, ``device_ms``), with the call from an idle card beside them (host
@@ -1103,10 +1117,14 @@ def rayleigh_benard_model(dtype, device):
 GOLDENS = {"thermal_bubble": thermal_bubble_model,
            "rayleigh_benard": rayleigh_benard_model,
            "hydrostatic_turbulence": lambda dtype, device:
-           hydrostatic_turbulence_model(dtype, device)}
+           hydrostatic_turbulence_model(dtype, device),
+           # the immersed ridge takes the plain tendency, as in JAX
+           "ocean_catke_windstress": lambda dtype, device:
+           ocean_catke_windstress_model(dtype, device)}
 GOLDEN_KERNELS = {"thermal_bubble": "fused_advection_tendency",
                   "rayleigh_benard": "fused_advection_tendency",
-                  "hydrostatic_turbulence": "fused_vi_tendency"}
+                  "hydrostatic_turbulence": "fused_vi_tendency",
+                  "ocean_catke_windstress": "fill_halos"}
 
 
 def hydrostatic_turbulence_model(dtype, device):
@@ -1311,9 +1329,11 @@ def convection_path_phase(card):
 
 
 def goldens_phase():
-    """tests/test_regression.py's thermal bubble, Rayleigh–Bénard and
-    hydrostatic-turbulence goldens in float64 through the kernels; bound
-    1e-9 relative to max|golden|, the golden's own."""
+    """tests/test_regression.py's thermal bubble, Rayleigh–Bénard,
+    hydrostatic-turbulence and ocean_catke_windstress goldens in float64
+    through the kernels (the last one's immersed ridge through the fill
+    kernel and the plain tendency); bound 1e-9 relative to max|golden|, the
+    golden's own."""
     import os
     from oceananigans_tpu_torch import kernels as K
     data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
@@ -1369,9 +1389,10 @@ def whole_step_phase():
     configuration at 32³, the z-compact routes at 32³ (WENO(5) with two
     tracers on the fused route; the buoyant model on the tendency route),
     shallow water at 128² (FPlane(0.3), bathymetry, a tracer), the hydro_row
-    at 16x12x8 (v added to u's noise), the LES row at 32³ with
-    SmagorinskyLilly, AMD(Cb=1) and Lilly's coefficient (a stratified b), its
-    vertically implicit variant; then one step of each physics module's
+    at 16x12x8 (v added to u's noise), the flat-bottom CATKE ocean row at
+    16x12x8 (v added too), quasi-AB2 and split RK3, the LES row at 32³
+    with SmagorinskyLilly, AMD(Cb=1) and Lilly's coefficient (a stratified
+    b), its vertically implicit variant; then one step of each physics module's
     configuration (PHYSICS_TRACERS) at 32³; bound 1e-12 relative to
     max|field|."""
     import oceananigans_tpu_torch as ot
@@ -1431,6 +1452,16 @@ def whole_step_phase():
         assert m.uses_kernel
         return m
 
+    def ocean(**kw):
+        def make():
+            n = (16, 12, 8)
+            m = ocean_model(n, torch.float64, "cuda",
+                            smoothness=torch.float64, **kw)
+            m.set(v=0.05 * np.random.default_rng(2).standard_normal(n))
+            assert m.uses_kernel
+            return m
+        return make
+
     def les(closure):
         def make():
             m = les_model(32, closure(), torch.float64, "cuda",
@@ -1451,6 +1482,11 @@ def whole_step_phase():
         ("buoyant z-compact", buoyant_compact, "uvwbp", 1e-3),
         ("shallow water", shallow_water, ("uh", "vh", "h", "c"), 1e-4),
         ("hydrostatic", hydrostatic, ("u", "v", "T", "eta", "w"), 120.0),
+        ("CATKE ocean, flat bottom", ocean(),
+         ("u", "v", "T", "S", "e", "eta", "w"), OCEAN_DT),
+        ("CATKE ocean, flat bottom, split RK3", ocean(
+            timestepper="SplitRungeKutta3"),
+         ("u", "v", "T", "S", "e", "eta", "w"), OCEAN_DT),
         ("LES SmagorinskyLilly 32^3", les(ot.SmagorinskyLilly), "uvwbp",
          1e-3),
         ("LES AMD(Cb=1) 32^3", les(
@@ -1939,6 +1975,108 @@ def hydro_model(N, dtype, device, seed=0, smoothness=torch.float32,
     return model
 
 
+OCEAN_DT = 120.0
+
+
+def ocean_drag(x, y, t, u, v):
+    """The quadratic bottom drag of the ocean row and the golden:
+    -2.5e-3·√(u² + v²)·u."""
+    return -2.5e-3 * (u ** 2 + v ** 2) ** 0.5 * u
+
+
+def ocean_ridge(lam, phi):
+    """The ocean row's immersed ridge: the golden's, scaled from its 0-36°
+    strip to the 0-60° one."""
+    return -1800.0 + 900.0 * np.exp(-((lam - 30.0) / 10.0) ** 2)
+
+
+def ocean_model(N, dtype, device, immersed=False, seed=0,
+                smoothness=torch.float32, fused_tendencies="auto",
+                longitude=(0, 60), latitude=(15, 75),
+                momentum_advection=None, free_surface=None,
+                timestepper="QuasiAdamsBashforth2"):
+    """The CATKE ocean row: the ocean_catke_windstress golden's
+    configuration at the hydro_row's size. A lat-lon grid 1800 m deep,
+    WENOVectorInvariant(), tracer_advection=WENO(5),
+    HydrostaticSphericalCoriolis(), SplitExplicitFreeSurface(cfl=0.7),
+    SeawaterBuoyancy(LinearEquationOfState()), CATKEVerticalDiffusivity(),
+    T and S; on u a top flux of -1e-4 and the quadratic bottom drag
+    (field dependencies u, v); T = 12 + 8e-3 z + 2 cos φ, S = 35,
+    u = 0.05·N(0, 1) from np.random.default_rng(seed); with ``immersed``
+    the grid carries ``ocean_ridge`` as a GridFittedBottom;
+    ``momentum_advection``, ``free_surface`` and ``timestepper`` replace
+    the row's."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch.closures import CATKEVerticalDiffusivity
+    from oceananigans_tpu_torch.immersed import (GridFittedBottom,
+                                                 ImmersedBoundaryGrid)
+    grid = ot.LatitudeLongitudeGrid(size=N, longitude=longitude,
+                                    latitude=latitude, z=(-1800.0, 0.0),
+                                    dtype=dtype, device=device)
+    if immersed:
+        grid = ImmersedBoundaryGrid(grid, GridFittedBottom(ocean_ridge))
+    buoyancy = ot.SeawaterBuoyancy(
+        equation_of_state=ot.LinearEquationOfState())
+    model = ot.HydrostaticFreeSurfaceModel(
+        grid, momentum_advection=momentum_advection
+        or ot.WENOVectorInvariant(smoothness_dtype=smoothness),
+        tracer_advection=ot.WENO(5, smoothness_dtype=smoothness),
+        coriolis=ot.HydrostaticSphericalCoriolis(),
+        free_surface=free_surface or ot.SplitExplicitFreeSurface(cfl=0.7),
+        buoyancy=buoyancy, closure=CATKEVerticalDiffusivity(),
+        tracers=("T", "S"), fused_tendencies=fused_tendencies,
+        timestepper=timestepper,
+        boundary_conditions={"u": ot.FieldBoundaryConditions(
+            top=ot.FluxBoundaryCondition(-1e-4),
+            bottom=ot.FluxBoundaryCondition(
+                ocean_drag, field_dependencies=("u", "v")))})
+    rng = np.random.default_rng(seed)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    model.set(T=lambda lam, phi, z: 12 + 8e-3 * z
+              + 2 * np.cos(np.radians(phi)),
+              S=35.0, u=0.05 * rng.standard_normal(N).astype(npdt))
+    return model
+
+
+def ocean_catke_windstress_model(dtype, device):
+    """tests/test_regression.py ocean_catke_windstress_model in the port: a
+    12x10x6 lat-lon strip (0-36°E, 20-60°N, 1800 m) with an immersed ridge,
+    VectorInvariant(), WENO(5) tracers, spherical Coriolis,
+    SplitExplicitFreeSurface(cfl=0.7, fixed_dt=600, grid=), linear
+    SeawaterBuoyancy, CATKE, T and S, wind stress and the field-dependent
+    drag on u; Δt = 600 s, 8 steps."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch.closures import CATKEVerticalDiffusivity
+    from oceananigans_tpu_torch.immersed import (GridFittedBottom,
+                                                 ImmersedBoundaryGrid)
+    under = ot.LatitudeLongitudeGrid(size=(12, 10, 6), longitude=(0, 36),
+                                     latitude=(20, 60), z=(-1800.0, 0.0),
+                                     dtype=dtype, device=device)
+    grid = ImmersedBoundaryGrid(under, GridFittedBottom(
+        lambda lam, phi: -1800.0 + 900.0 * np.exp(-((lam - 18.0) / 6.0)
+                                                  ** 2)))
+    buoyancy = ot.SeawaterBuoyancy(
+        equation_of_state=ot.LinearEquationOfState())
+    model = ot.HydrostaticFreeSurfaceModel(
+        grid, momentum_advection=ot.VectorInvariant(),
+        tracer_advection=ot.WENO(5, smoothness_dtype=dtype),
+        coriolis=ot.HydrostaticSphericalCoriolis(),
+        free_surface=ot.SplitExplicitFreeSurface(cfl=0.7, fixed_dt=600.0,
+                                                 grid=under),
+        buoyancy=buoyancy,
+        closure=CATKEVerticalDiffusivity(buoyancy=buoyancy),
+        tracers=("T", "S"),
+        boundary_conditions={"u": ot.FieldBoundaryConditions(
+            top=ot.FluxBoundaryCondition(-1e-4),
+            bottom=ot.FluxBoundaryCondition(
+                ocean_drag, field_dependencies=("u", "v")))})
+    rng = np.random.default_rng(3)
+    model.set(T=lambda lam, phi, z: 12 + 8e-3 * z
+              + 2 * np.cos(np.radians(phi)),
+              S=35.0, u=0.05 * rng.standard_normal((12, 10, 6)))
+    return model, 600.0, 8
+
+
 def hydro_kernel_inputs(lon, seed, grid=None, tracers=("c",)):
     """u, v, w, ph and ``tracers`` on ``grid`` (default: a 16x12x8 float64
     lat-lon grid over ``lon`` with H = 6), halos filled with the default
@@ -2027,6 +2165,8 @@ def hydro_kernels_phase():
       float32 rounding with FMA contraction where a one-ulp change of a
       float32 smoothness ratio τ/(β+ε), squared, moves a nonlinear weight by
       a few ulp (the JAX packed test holds its float32 kernel to 2e-5);
+      the same on the CATKE ocean row's state after one step (T, S, e and
+      pₕ′ from SeawaterBuoyancy);
     - the wrap with one periodic axis (x on the 0-360° lat-lon grid, y on a
       bounded-x RectilinearGrid), 3-D and 2-D surface fields: exact;
     - the fill at the path's shapes (``fill_check``: copied slots exact,
@@ -2095,6 +2235,27 @@ def hydro_kernels_phase():
     out = {"fused_vi_tendency": dict(max_abs_err=err, ms=ms,
                                      plain_ms=plain_ms)}
     del args
+    # the CATKE ocean row's own inputs after one step (e is zero at set()):
+    # T, S and e, pₕ′ from SeawaterBuoyancy
+    ocean = ocean_model(HYDRO_N, torch.float32, "cuda")
+    ocean.time_step(OCEAN_DT)
+    ofields = ocean._fill_all(dict(ocean.state["fields"]))
+    ow = ocean._w_from_continuity(ofields["u"], ofields["v"])
+    ph = ocean._hydrostatic_pressure(ofields)
+    names = ocean.tracer_names
+    oargs = (ocean.grid, ocean.momentum_advection, ocean.tracer_advection,
+             names, ocean.coriolis, ofields["u"], ofields["v"], ow,
+             {n: ofields[n] for n in names}, ph)
+    Gk = K.fused_vi_tendency(*oargs)
+    Gp = K.fused_vi_tendency_plain(*oargs)
+    oerr, orel = worst_rel([Gk[0], Gk[1]] + [Gk[2][n] for n in names],
+                           [Gp[0], Gp[1]] + [Gp[2][n] for n in names])
+    print(f"  fused_vi_tendency {HYDRO_N} float32 (CATKE ocean row after "
+          f"one step: tracers {names}, pₕ′ from SeawaterBuoyancy): max abs "
+          f"{oerr:.3e}, rel {orel:.3e} (bound 2e-5)")
+    assert orel <= 2e-5, ("fused_vi_tendency ocean float32", orel)
+    del Gk, Gp, oargs, ocean, ofields, ow, ph
+    torch.cuda.empty_cache()
     # the fill at the path's shapes: every condition combination in float64
     grid = model.grid
     grid64 = ot.LatitudeLongitudeGrid(size=HYDRO_N, longitude=(0, 60),
@@ -3778,6 +3939,180 @@ COUNTER = {"fill_halos_bounded": "fill_halos",
            "fused_advection_update_bf16": "fused_advection_update"}
 
 
+# -- the CATKE ocean row (phase 22) ---------------------------------------------
+
+OCEAN_VARIANTS = {"flat bottom": False, "immersed ridge": True}
+
+
+def ocean_phase_shares(model, dt, steps, card, label):
+    """Per-step CUDA-event times of the ocean step: the tendency (#10, or
+    the plain tendency on the immersed grid), CATKE's diffusivities at the
+    tendencies, the implicit vertical solve of u, v, T and S,
+    step_turbulence (its diffusivity refreshes and e solves included), the
+    split-explicit substep loop (its fills included), the fills outside it
+    and the rest (pₕ′, w, the closure's other terms, the boundary fluxes,
+    AB2, the corrector, the masks, allocations, host gaps)."""
+    import oceananigans_tpu_torch.kernels.halo_fill as hf
+    import oceananigans_tpu_torch.models.hydrostatic as hs
+    timer = PhaseTimer()
+    saved = (hs.fused_vi_tendency, hs.fused_vi_tendency_plain,
+             hf.fill_halos)
+    hs.fused_vi_tendency = timer.wrap("tendency", saved[0])
+    hs.fused_vi_tendency_plain = timer.wrap("tendency", saved[1])
+    hf.fill_halos = timer.wrap("fills", saved[2])
+    closure, fs = model.closure, model.free_surface
+    closure.compute_diffusivities = timer.wrap(
+        "catke", closure.compute_diffusivities)
+    closure.step_turbulence = timer.wrap("turbulence",
+                                         closure.step_turbulence)
+    fs.substep = timer.wrap("substep", fs.substep)
+    model._implicit_solve = timer.wrap("implicit", model._implicit_solve)
+    model.time_step = timer.wrap("step", model.time_step)
+    try:
+        for _ in range(steps):
+            model.time_step(dt)
+        t = {k: v / steps for k, v in timer.totals().items()}
+    finally:
+        hs.fused_vi_tendency, hs.fused_vi_tendency_plain, hf.fill_halos = \
+            saved
+        for obj, names in ((closure, ("compute_diffusivities",
+                                      "step_turbulence")),
+                           (fs, ("substep",)),
+                           (model, ("_implicit_solve", "time_step"))):
+            for name in names:
+                delattr(obj, name)
+    g = t.get
+    tendency = ("fused_vi_tendency kernel (#10)" if model.uses_kernel
+                else "plain vector-invariant tendency")
+    shares = {
+        tendency: g("tendency", 0.0),
+        "CATKE diffusivities at the tendencies":
+            g("catke", 0.0) - g("catke@turbulence", 0.0),
+        "implicit vertical solve (u, v, T, S)": g("implicit", 0.0),
+        "step_turbulence (TKE substeps, their diffusivities and e solves)":
+            g("turbulence", 0.0),
+        "split-explicit substep loop (its fills included)":
+            g("substep", 0.0),
+        "fills (outside the substep loop)":
+            g("fills", 0.0) - g("fills@substep", 0.0),
+    }
+    shares["rest (pₕ′, w, closure terms, boundary fluxes, AB2, corrector, "
+           "masks, allocations, host gaps)"] = \
+        t["step"] - sum(shares.values())
+    print(f"{label} step phases, ms per step over {steps} steps (CUDA "
+          f"events) [{card}]:")
+    for phase, ms in shares.items():
+        print(f"  {phase}: {ms:.4f} ms ({100 * ms / t['step']:.1f}%)")
+    print(f"  step: {t['step']:.4f} ms")
+    return shares
+
+
+def fluid_volume_sum(model, name):
+    """Σ q·V over the fluid cells, in float64."""
+    grid = model.grid
+    V = torch.as_tensor(grid.V(("c", "c", "c")), dtype=torch.float64,
+                        device="cuda")
+    q = model.state["fields"][name].to(torch.float64)
+    if hasattr(grid, "fluid_mask"):
+        q = q * grid.fluid_mask(("c", "c", "c"), torch.float64)
+    ints = grid.interior_slices
+    qv = (q * V)[ints]
+    return qv.sum().item(), qv.abs().sum().item()
+
+
+def ocean_path_phase(card):
+    """Phase 22: the CATKE ocean row at 512x256x32 float32 (``ocean_model``)
+    with a flat bottom (the fused tendency #10) and with the immersed ridge
+    (the plain tendency, as in JAX), Δt = 120 s: counters reset just before
+    3 warm-up and 10 timed steps and read just after; #10 once a step on
+    the flat bottom and never on the ridge, the fill kernel, no plain fill
+    of a bounded axis, no plain tendency on CUDA tensors on the flat bottom;
+    finite fields; |Σ(T·V) − Σ(T₀·V)|/Σ|T₀·V| < 1e-6 over the fluid cells
+    across the timed steps; the ridge's solid cells zero; the cfl's substep
+    count; then the phase shares (3 steps), the device-busy share and the
+    device kernels per step (3 steps), and peak memory."""
+    from oceananigans_tpu_torch import kernels as K
+    dt = OCEAN_DT
+    out = {}
+    for label, immersed in OCEAN_VARIANTS.items():
+        label = f"CATKE ocean row, {label}"
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = ocean_model(HYDRO_N, torch.float32, "cuda",
+                            immersed=immersed)
+        assert model.uses_kernel != immersed, (label, model.uses_kernel)
+        fs = model.free_surface
+        frac, weights = fs.settings(dt)
+        print(f"{label}: SplitExplicitFreeSurface(cfl=0.7) Δτ "
+              f"{fs.substepping.dt_barotropic:.4f} s, {round(2 / frac)} "
+              f"substeps for Δt = {dt} s ({len(weights)} weighted), TKE "
+              f"substeps {model.tke_substeps(dt)} [{card}]")
+        K.reset_counters()
+        for _ in range(3):
+            model.time_step(dt)
+        torch.cuda.synchronize()
+        T0, T0abs = fluid_volume_sum(model, "T")
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            model.time_step(dt)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches, plain_cuda = K.counters()
+        steps = model.iteration
+        print(f"{label} launches over {steps} steps: {launches}; plain "
+              f"calls on CUDA: {plain_cuda}")
+        expect = steps if not immersed else 0
+        assert launches["fused_vi_tendency"] == expect, \
+            (label, launches["fused_vi_tendency"], expect)
+        assert launches["fill_halos"] > 0
+        assert plain_cuda["fill_bounded_axis"] == 0, "a plain x/y fill ran"
+        for name, count in plain_cuda.items():
+            if immersed and name == "fused_vi_tendency_plain":
+                continue
+            assert count == 0, f"plain {name} ran on CUDA tensors"
+        peak = torch.cuda.max_memory_allocated()
+        for name in model.prognostic_names + ("w",):
+            a = model.field(name).interior
+            assert torch.isfinite(a).all().item(), f"{name} is not finite"
+        T1, _ = fluid_volume_sum(model, "T")
+        drift = abs(T1 - T0) / T0abs
+        print(f"{label}: |Σ(T·V) − Σ(T₀·V)|/Σ|T₀·V| over the 10 timed "
+              f"steps {drift:.3e} (bound 1e-6)")
+        assert drift < 1e-6, (label, "T drift", drift)
+        if immersed:
+            grid = model.grid
+            for name in ("T", "S", "e", "u", "v"):
+                loc = model.loc(name)
+                solid = ~grid.fluid_mask(loc, torch.bool)
+                nz = model.state["fields"][name][solid].abs().max().item()
+                assert nz == 0.0, (label, name, "solid cells", nz)
+            print(f"{label}: {int(grid.solid_ccc.sum())} solid cells "
+                  f"(halos included) hold zero in T, S, e, u and v")
+        u = model.field("u").interior
+        e = model.field("e").interior
+        print(f"{label}: max|u| {u.abs().max().item():.4e}, max e "
+              f"{e.max().item():.4e} after {steps} steps")
+        step_ms = statistics.median(times) * 1e3
+        n = HYDRO_N[0] * HYDRO_N[1] * HYDRO_N[2]
+        print(f"{label}: {HYDRO_N[0]}x{HYDRO_N[1]}x{HYDRO_N[2]} lat-lon "
+              f"WENO-VI CATKE split-explicit(cfl=0.7) float32 QAB2 step "
+              f"median {step_ms:.3f} ms over {len(times)} steps (min "
+              f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
+              f"{n / (step_ms / 1e3):.4e} cell-updates/s [{card}]")
+        print(f"{label}: peak device memory (steps): {peak / 2 ** 30:.2f} "
+              f"GiB [{card}]")
+        per_step = {k: launches[k] / steps for k in HYDRO_KERNELS}
+        print(f"{label}: launches per step: {per_step}")
+        ocean_phase_shares(model, dt, 3, card, label)
+        busy_share(label, model, dt, 3, step_ms, card)
+        out[label] = (launches, step_ms)
+        del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     name, card = device_phase()
     build_phase()
@@ -3869,6 +4204,11 @@ def main():
     for cname, (launches, step_ms) in les.items():
         print(f"LES {cname}: step {step_ms:.3f} ms; launches "
               f"{ {k: launches[k] for k in LES_KERNELS} } [{card}]")
+    print("the 512x256x32 CATKE ocean row (flat bottom, immersed ridge):")
+    ocean = ocean_path_phase(card)
+    for cname, (launches, step_ms) in ocean.items():
+        print(f"{cname}: step {step_ms:.3f} ms; launches "
+              f"{ {k: launches[k] for k in HYDRO_KERNELS} } [{card}]")
     bounds["fused_advection_update_bf16"] = \
         bounds["fused_advection_update_tracers"]
     for fname in ("fill_halos", "fill_halos_bounded"):

@@ -15,10 +15,14 @@ projection; ``ShallowWaterModel`` on a regular
 periodic 2D grid in both formulations, with ``FPlane``,
 ``ConstantCartesianCoriolis`` or ``BetaPlane`` rotation, bathymetry and
 tracers; and ``HydrostaticFreeSurfaceModel`` on a ``LatitudeLongitudeGrid``
-(or a regular RectilinearGrid) with bounded or periodic x and y: the
-conserving and WENO vector-invariant momentum advection,
-``HydrostaticSphericalCoriolis``, tracers, ``BuoyancyTracer``, quasi-AB2 and
-the split-explicit or explicit free surface. Its hot paths run hand-written CUDA kernels
+(or a regular RectilinearGrid), with bounded or periodic x and y and
+immersed bottoms (``ImmersedBoundaryGrid``): the conserving and WENO
+vector-invariant momentum advection, ``HydrostaticSphericalCoriolis``,
+tracers, ``BuoyancyTracer`` or ``SeawaterBuoyancy``, the closures (CATKE,
+k-ε, Ri-based, convective adjustment, Leith and the scalar diffusivities),
+forcing, function and field-dependent Flux conditions, quasi-AB2 or the
+split RK3, and the split-explicit (fixed count or ``cfl=``), explicit or
+implicit (FFT or PCG) free surface. Its hot paths run hand-written CUDA kernels
 (``kernels/``, sources in ``csrc/``), each beside a plain PyTorch version
 that serves CPU tensors. Grids live on the CUDA card unless built with
 ``device="cpu"``.
@@ -37,12 +41,15 @@ Layer map:
     coriolis.py            FPlane / ConstantCartesianCoriolis / BetaPlane /
                            NonTraditionalBetaPlane /
                            HydrostaticSphericalCoriolis
-    closures/              scalar diffusivities, Smagorinsky, AMD and their
+    closures/              scalar diffusivities, Smagorinsky, AMD, CATKE,
+                           k-ε, the vertical diffusivities and their
                            diffusion operators
+    immersed.py            immersed bottoms and boundaries
     forcings/              user forcing (continuous, discrete, relaxation)
     stokes_drift.py        Craik-Leibovich forcing
     background_fields.py   background (mean-flow) fields
-    solvers/               FFT/DCT Poisson solver, tridiagonal solver
+    solvers/               FFT/DCT Poisson solver, tridiagonal solver,
+                           conjugate gradients
     timesteppers/          RK3 coefficients, quasi-AB2
     models/                NonhydrostaticModel, ShallowWaterModel,
                            HydrostaticFreeSurfaceModel, free surfaces
@@ -60,6 +67,7 @@ from .advection.vector_invariant import (VectorInvariant,
 from .boundary_conditions import (FieldBoundaryConditions,
                                   FluxBoundaryCondition,
                                   GradientBoundaryCondition,
+                                  ImmersedBoundaryCondition,
                                   ValueBoundaryCondition)
 from .background_fields import BackgroundField
 from .buoyancy import (BuoyancyForce, BuoyancyTracer, LinearEquationOfState,
@@ -68,19 +76,27 @@ from .buoyancy import (BuoyancyForce, BuoyancyTracer, LinearEquationOfState,
                        TEOS10EquationOfState)
 from .coriolis import (BetaPlane, ConstantCartesianCoriolis, FPlane,
                        HydrostaticSphericalCoriolis, NonTraditionalBetaPlane)
-from .closures import (AnisotropicMinimumDissipation, DynamicSmagorinsky,
-                       HorizontalScalarDiffusivity, LagrangianAveraging,
-                       LillyCoefficient, ScalarBiharmonicDiffusivity,
-                       ScalarDiffusivity, Smagorinsky, SmagorinskyLilly,
+from .closures import (AnisotropicMinimumDissipation,
+                       CATKEVerticalDiffusivity,
+                       ConvectiveAdjustmentVerticalDiffusivity,
+                       DynamicSmagorinsky, HorizontalScalarDiffusivity,
+                       LagrangianAveraging, LillyCoefficient,
+                       RiBasedVerticalDiffusivity,
+                       ScalarBiharmonicDiffusivity, ScalarDiffusivity,
+                       Smagorinsky, SmagorinskyLilly,
+                       TKEDissipationVerticalDiffusivity, TwoDimensionalLeith,
                        VerticallyImplicitTimeDiscretization,
                        VerticalScalarDiffusivity)
+from .immersed import (GridFittedBottom, GridFittedBoundary,
+                       ImmersedBoundaryGrid, PartialCellBottom)
 from .forcings import (AdvectiveForcing, ContinuousForcing, DiscreteForcing,
                        GaussianMask, LinearTarget, Relaxation)
 from .stokes_drift import StokesDrift, UniformStokesDrift
 from .fields import Field
 from .parallel import CPU, GPU, Distributed, Partition
 from .models import (ConservativeFormulation, ExplicitFreeSurface,
-                     HydrostaticFreeSurfaceModel, NonhydrostaticModel,
+                     HydrostaticFreeSurfaceModel, ImplicitFreeSurface,
+                     NonhydrostaticModel,
                      ShallowWaterModel, SplitExplicitFreeSurface,
                      VectorInvariantFormulation, state_from_jax)
 
@@ -106,5 +122,10 @@ __all__ = ["defaults", "RectilinearGrid", "LatitudeLongitudeGrid",
            "VectorInvariant", "WENOVectorInvariant", "FPlane",
            "ConstantCartesianCoriolis", "BetaPlane",
            "HydrostaticSphericalCoriolis", "HydrostaticFreeSurfaceModel",
-           "SplitExplicitFreeSurface", "ExplicitFreeSurface", "CPU", "GPU",
-           "Distributed", "Partition"]
+           "SplitExplicitFreeSurface", "ExplicitFreeSurface",
+           "ImplicitFreeSurface", "CPU", "GPU", "Distributed", "Partition",
+           "ImmersedBoundaryCondition", "ImmersedBoundaryGrid",
+           "GridFittedBottom", "PartialCellBottom", "GridFittedBoundary",
+           "CATKEVerticalDiffusivity", "TKEDissipationVerticalDiffusivity",
+           "RiBasedVerticalDiffusivity",
+           "ConvectiveAdjustmentVerticalDiffusivity", "TwoDimensionalLeith"]

@@ -23,6 +23,7 @@ whatever the field dtype.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..defaults import as_torch_dtype
@@ -107,6 +108,25 @@ def cascade_mask(grid, axis, beta, R, shape, device):
     return (iota >= i0) & (iota <= i1)
 
 
+def immersed_ok(grid, axis, R):
+    """On an immersed grid, True where no solid cell lies within ±R cells
+    along ``axis`` (the order-R scheme applies there; within R of a solid
+    cell the reconstruction cascades to the buffer scheme, down to the
+    2-point stencil that reads no solid value); None on other grids.
+    Cached on the grid as a boolean tensor on its device."""
+    solid = getattr(grid, "solid_ccc", None)
+    if solid is None or grid.is_flat(axis):
+        return None
+    cache = grid.__dict__.setdefault("_imm_adv_masks", {})
+    m = cache.get((axis, R))
+    if m is None:
+        near = solid.copy()
+        for r in range(1, R + 1):
+            near = near | np.roll(solid, r, axis) | np.roll(solid, -r, axis)
+        m = cache[(axis, R)] = torch.as_tensor(~near, device=grid.device)
+    return m
+
+
 def _cascade_select(grid, axis, beta, R, hi, lo):
     return torch.where(cascade_mask(grid, axis, beta, R, hi.shape, hi.device),
                        hi, lo)
@@ -133,10 +153,22 @@ class AdvectionScheme:
         return None
 
     def _cascade(self, grid, axis, beta, hi, lo_eval):
+        """Near the walls of a Bounded direction and near immersed solid
+        cells, the buffer scheme's value replaces ``hi``."""
         bs = self.buffer_scheme()
-        if bs is None or not _axis_bounded(grid, axis):
+        if bs is None:
             return hi
-        return _cascade_select(grid, axis, beta, self.buffer, hi, lo_eval(bs))
+        bounded = _axis_bounded(grid, axis)
+        imask = immersed_ok(grid, axis, self.buffer)
+        if not bounded and imask is None:
+            return hi
+        lo = lo_eval(bs)
+        out = hi
+        if bounded:
+            out = _cascade_select(grid, axis, beta, self.buffer, out, lo)
+        if imask is not None:
+            out = torch.where(imask, out, lo)
+        return out
 
     def biased_by(self, grid, a, axis, beta, q, smooth=None, zbc=None):
         hi = self._biased_by_plain(grid, a, axis, beta, q, smooth=smooth,
@@ -158,11 +190,18 @@ class AdvectionScheme:
                          [_MirroredShiftCache(s, axis, beta, zbc)
                           for s in smooth])
         bs = self.buffer_scheme()
-        if bs is None or not _axis_bounded(grid, axis):
+        bounded = _axis_bounded(grid, axis)
+        imask = immersed_ok(grid, axis, getattr(self, "buffer", 1))
+        if bs is None or (not bounded and imask is None):
             return l, r
         ll, lr = bs.biased_pair(grid, a, axis, beta, smooth=smooth, zbc=zbc)
-        return (_cascade_select(grid, axis, beta, self.buffer, l, ll),
-                _cascade_select(grid, axis, beta, self.buffer, r, lr))
+        if bounded:
+            l = _cascade_select(grid, axis, beta, self.buffer, l, ll)
+            r = _cascade_select(grid, axis, beta, self.buffer, r, lr)
+        if imask is not None:
+            l = torch.where(imask, l, ll)
+            r = torch.where(imask, r, lr)
+        return l, r
 
     def _biased_by_plain(self, grid, a, axis, beta, q, smooth=None,
                          zbc=None):

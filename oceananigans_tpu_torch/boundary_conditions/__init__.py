@@ -1,5 +1,6 @@
 from .boundary_condition import (
-    BoundaryCondition, FieldBoundaryConditions, PeriodicBoundaryCondition,
+    BoundaryCondition, FieldBoundaryConditions, ImmersedBoundaryCondition,
+    PeriodicBoundaryCondition,
     FluxBoundaryCondition, ValueBoundaryCondition, GradientBoundaryCondition,
     ImpenetrableBoundaryCondition, regularize_field_boundary_conditions,
     default_bcs,
@@ -10,6 +11,7 @@ from .fill_halos import (apply_flux_bcs, apply_flux_bcs_padded,
 
 __all__ = [
     "BoundaryCondition", "FieldBoundaryConditions",
+    "ImmersedBoundaryCondition",
     "PeriodicBoundaryCondition", "FluxBoundaryCondition",
     "ValueBoundaryCondition", "GradientBoundaryCondition",
     "ImpenetrableBoundaryCondition", "regularize_field_boundary_conditions",

@@ -5,9 +5,17 @@ A field's conditions default from its grid's topology: periodic on periodic
 sides, impenetrable (Open, value 0) for a wall-normal velocity on a bounded
 side, no-flux for everything else on a bounded side. On any bounded side the
 user may set ``ValueBoundaryCondition``, ``GradientBoundaryCondition`` or
-``FluxBoundaryCondition`` with a scalar (or no) condition. Callable or array
-conditions, field dependencies and Open conditions with a value or a scheme
-are not ported yet and raise.
+``FluxBoundaryCondition`` with a scalar (or no) condition. On the z sides a
+``FluxBoundaryCondition`` may also take a callable ``f(ξ1, ξ2, t, *values)``
+of the two transverse coordinates (broadcastable tensors of the grid's dtype
+and device at the field's location), the time (a Python float) and, with
+``field_dependencies``, the named fields' boundary-cell values at the field's
+location. The ``immersed`` slot of ``FieldBoundaryConditions`` holds an
+``ImmersedBoundaryCondition`` (or one condition for every side) of Flux,
+Value or Gradient conditions applied where a fluid cell touches the solid of
+an immersed grid. Array conditions, callable conditions on the x and y sides
+or of another classification, Open conditions with a value and
+FieldTimeSeries conditions are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -26,14 +34,17 @@ USER_BCS_ITEM = "ROADMAP.md queue 1 item 3 (boundary_conditions/)"
 
 
 class BoundaryCondition:
-    __slots__ = ("classification", "condition")
+    __slots__ = ("classification", "condition", "field_dependencies")
 
-    def __init__(self, classification, condition=None):
+    def __init__(self, classification, condition=None, field_dependencies=()):
         self.classification = classification
         self.condition = condition
+        if isinstance(field_dependencies, str):
+            field_dependencies = (field_dependencies,)
+        self.field_dependencies = tuple(field_dependencies)
 
     def _fp(self):
-        return (self.classification, self.condition)
+        return (self.classification, self.condition, self.field_dependencies)
 
     def __hash__(self):
         return hash(self._fp())
@@ -50,8 +61,12 @@ def PeriodicBoundaryCondition():
     return BoundaryCondition(PERIODIC_BC)
 
 
-def FluxBoundaryCondition(condition=None):
-    return BoundaryCondition(FLUX, condition)
+def FluxBoundaryCondition(condition=None, field_dependencies=()):
+    """``field_dependencies`` names fields whose boundary-cell values, at
+    this field's location, a callable condition receives as trailing
+    arguments: ``f(ξ1, ξ2, t, *values)`` (a quadratic drag, for one)."""
+    return BoundaryCondition(FLUX, condition,
+                             field_dependencies=field_dependencies)
 
 
 def ValueBoundaryCondition(condition=None):
@@ -74,16 +89,52 @@ SIDE_AXIS = {"west": (0, True), "east": (0, False),
              "bottom": (2, True), "top": (2, False)}
 
 
-class FieldBoundaryConditions:
-    """Per-side container (west/east/south/north/bottom/top)."""
+class ImmersedBoundaryCondition:
+    """Per-side conditions at immersed faces (the ``immersed`` slot of
+    ``FieldBoundaryConditions``): each side's Flux, Value or Gradient
+    condition applies where a fluid cell touches the solid from that
+    side."""
 
     __slots__ = _SIDES
 
     def __init__(self, west=None, east=None, south=None, north=None,
                  bottom=None, top=None):
+        for name, bc in zip(_SIDES, (west, east, south, north, bottom, top)):
+            if bc is not None and bc.classification not in (FLUX, VALUE,
+                                                            GRADIENT):
+                raise NotImplementedError(
+                    "immersed boundary conditions must be Flux, Value or "
+                    f"Gradient (got {bc.classification!r} on {name})")
+            setattr(self, name, bc)
+
+    def side(self, name):
+        return getattr(self, name)
+
+    def _fp(self):
+        return ("ImmersedBoundaryCondition",) + tuple(
+            getattr(self, s)._fp() if getattr(self, s) is not None else None
+            for s in self.__slots__)
+
+    def __hash__(self):
+        return hash(self._fp())
+
+    def __eq__(self, o):
+        return (isinstance(o, ImmersedBoundaryCondition)
+                and self._fp() == o._fp())
+
+
+class FieldBoundaryConditions:
+    """Per-side container (west/east/south/north/bottom/top) and the
+    ``immersed`` slot."""
+
+    __slots__ = _SIDES + ("immersed",)
+
+    def __init__(self, west=None, east=None, south=None, north=None,
+                 bottom=None, top=None, immersed=None):
         self.west, self.east = west, east
         self.south, self.north = south, north
         self.bottom, self.top = bottom, top
+        self.immersed = immersed
 
     def side(self, name):
         return getattr(self, name)
@@ -136,10 +187,19 @@ def _check_user_bc(bc, side, axis, grid):
     if topo == FLAT:
         raise ValueError(f"cannot set a BC on {side} of a flat direction")
     cond = bc.condition
-    if cond is not None and (callable(cond) or not np.isscalar(cond)):
+    z_flux_function = (callable(cond) and axis == 2
+                       and bc.classification == FLUX)
+    if cond is not None and not z_flux_function and (
+            callable(cond) or not np.isscalar(cond)):
         raise NotImplementedError(
             f"{side} {bc.classification} BC with a non-scalar condition "
-            f"{cond!r}: only scalar conditions are ported: {USER_BCS_ITEM}")
+            f"{cond!r}: only scalar conditions, and callable Flux conditions "
+            f"on the z sides, are ported: {USER_BCS_ITEM}")
+    if bc.field_dependencies and not z_flux_function:
+        raise NotImplementedError(
+            f"{side} {bc.classification} BC with field dependencies: only a "
+            f"callable Flux condition on a z side takes them: "
+            f"{USER_BCS_ITEM}")
     if bc.classification == OPEN and cond is not None:
         raise NotImplementedError(
             f"{side} Open BC with a value: only the impenetrable (None) Open "
@@ -161,4 +221,11 @@ def regularize_field_boundary_conditions(bcs, grid, loc):
         else:
             _check_user_bc(user, side, axis, grid)
             kw[side] = user
+    kw["immersed"] = bcs.immersed
     return FieldBoundaryConditions(**kw)
+
+
+def FieldTimeSeriesBoundaryCondition(*args, **kwargs):
+    raise NotImplementedError(
+        f"FieldTimeSeries boundary conditions are not ported yet: "
+        f"{USER_BCS_ITEM}")

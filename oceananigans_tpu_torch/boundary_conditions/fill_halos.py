@@ -12,8 +12,10 @@ reflected about it), and its plain version on the CPU. A bounded z with no
 halo (``H[2] == 0``, the z-compact layout) has its boundary values applied
 inside the stencil reads instead. ``apply_flux_bcs`` (interior-shaped
 tendencies) and ``apply_flux_bcs_padded`` (padded tendencies) add the
-boundary-flux divergence of Flux conditions with a scalar value to a
-tendency.
+boundary-flux divergence of Flux conditions (scalars, or callables of the
+transverse coordinates, the time and field dependencies on the z sides) to
+a tendency; ``apply_immersed_flux_bcs`` adds the conditions of an immersed
+grid's ``immersed`` slot.
 
 Every fill updates the tensors in place and returns them. A periodic z
 raises.
@@ -21,7 +23,10 @@ raises.
 
 from __future__ import annotations
 
+import numpy as np
+
 from ..grids.topology import BOUNDED, CENTER, FACE, PERIODIC
+from ..operators.operators import interp_to
 from .boundary_condition import FLUX, SIDE_AXIS, USER_BCS_ITEM
 
 
@@ -68,24 +73,44 @@ def fill_surface_halo_regions(arrays, grid, locs_bcs):
     return fill_halos(grid, arrays, locs_bcs, z=False)
 
 
-def apply_flux_bcs(G, grid, loc, bcs):
-    """Add boundary-flux divergences to an interior-shaped tendency, in place
-    (``G[first] += q·A/V`` on west/south/bottom, ``G[last] -= q·A/V`` on
-    east/north/top, for Flux conditions with a scalar value q); returns G."""
-    for side, (axis, is_left) in SIDE_AXIS.items():
-        if grid.topology[axis] != BOUNDED:
-            continue
-        bc = bcs.side(side)
-        if bc is None or bc.classification != FLUX or bc.condition is None:
-            continue
-        floc = list(loc)
-        floc[axis] = FACE if loc[axis] == CENTER else CENTER
-        A = (grid.Ax, grid.Ay, grid.Az)[axis](tuple(floc))
-        AoV = A / grid.V(loc)
-        sgn = 1.0 if is_left else -1.0
-        boundary = G.narrow(axis, 0 if is_left else grid.N[axis] - 1, 1)
-        boundary += sgn * float(bc.condition) * AoV
-    return G
+def _transverse_coordinates(grid, loc, axis):
+    """The two transverse padded coordinates of the ``axis`` sides at
+    ``loc``, broadcastable tensors of the grid's dtype and device."""
+    import torch
+    from ..grids.base import broadcastable_1d
+    return [torch.as_tensor(broadcastable_1d(grid.coord_padded(ax, loc[ax]),
+                                             ax),
+                            dtype=grid.dtype, device=grid.device)
+            for ax in range(3) if ax != axis]
+
+
+def boundary_flux(bc, grid, loc, axis, is_left, time=0.0, fields=None,
+                  locs=None):
+    """The value of a Flux condition on one side: a scalar, or a callable
+    evaluated on the padded transverse coordinates at ``loc`` with the time
+    and the dependencies' boundary-cell planes (each interpolated to
+    ``loc``, then cut at the boundary cell, as the JAX ``apply_flux_bcs``
+    does). None for a homogeneous condition."""
+    cond = bc.condition
+    if cond is None or not callable(cond):
+        return None if cond is None else float(cond)
+    deps = ()
+    if bc.field_dependencies:
+        if fields is None:
+            raise ValueError("a flux BC with field_dependencies needs the "
+                             "model state; this path did not supply it")
+        H, N = grid.H[axis], grid.N[axis]
+        cell = H if is_left else H + N - 1
+        vals = []
+        for dep in bc.field_dependencies:
+            a = fields[dep]
+            src = (locs or {}).get(dep)
+            if src is not None and tuple(src) != tuple(loc):
+                a = interp_to(grid, a, tuple(src), tuple(loc))
+            vals.append(a.narrow(axis, cell, 1))
+        deps = tuple(vals)
+    return cond(*_transverse_coordinates(grid, loc, axis), float(time),
+                *deps)
 
 
 def _boundary_slice(metric, axis, i):
@@ -96,17 +121,19 @@ def _boundary_slice(metric, axis, i):
     return metric.narrow(axis, i, 1)
 
 
-def apply_flux_bcs_padded(G, grid, loc, bcs):
-    """``apply_flux_bcs`` on a padded tendency, as the JAX function does it:
-    the boundary face's area at the flipped location over the boundary
-    cell's volume, at padded slots H (west/south/bottom) and H+N-1
-    (east/north/top); in place, returns G."""
+def _flux_increments(grid, loc, bcs, time, fields, locs):
+    """(axis, is_left, increment) for each bounded side with a Flux
+    condition: ``±q·A/V`` on the boundary plane, the area of the boundary
+    face at the flipped location over the boundary cell's volume, as the
+    JAX ``apply_flux_bcs`` forms it (a scalar, or a tensor over the padded
+    transverse extents)."""
     for side, (axis, is_left) in SIDE_AXIS.items():
         if grid.topology[axis] != BOUNDED:
             continue
         bc = bcs.side(side)
         if bc is None or bc.classification != FLUX or bc.condition is None:
             continue
+        q = boundary_flux(bc, grid, loc, axis, is_left, time, fields, locs)
         H, N = grid.H[axis], grid.N[axis]
         floc = list(loc)
         floc[axis] = FACE if loc[axis] == CENTER else CENTER
@@ -115,5 +142,117 @@ def apply_flux_bcs_padded(G, grid, loc, bcs):
         AoV = (_boundary_slice(A, axis, H if is_left else H + N)
                / _boundary_slice(grid.V(loc), axis, cell))
         sgn = 1.0 if is_left else -1.0
-        G.narrow(axis, cell, 1).add_(sgn * float(bc.condition) * AoV)
+        yield axis, is_left, sgn * q * AoV
+
+
+def apply_flux_bcs(G, grid, loc, bcs, time=0.0, fields=None, locs=None):
+    """Add boundary-flux divergences to an interior-shaped tendency, in place
+    (``G[first] += q·A/V`` on west/south/bottom, ``G[last] -= q·A/V`` on
+    east/north/top, for Flux conditions); returns G. The increments are
+    formed on the padded plane (``apply_flux_bcs_padded``) and cut to the
+    interior."""
+    for axis, is_left, inc in _flux_increments(grid, loc, bcs, time, fields,
+                                               locs):
+        if not isinstance(inc, (int, float)):
+            inc = _cut_transverse(grid, inc, axis)
+        G.narrow(axis, 0 if is_left else grid.N[axis] - 1, 1).add_(inc)
+    return G
+
+
+def _cut_transverse(grid, a, axis):
+    """The interior of a padded boundary-plane tensor along the two axes
+    transverse to ``axis`` (axes of length 1 pass)."""
+    for ax in range(3):
+        if ax != axis and a.shape[ax] > 1:
+            a = a.narrow(ax, grid.H[ax], grid.N[ax])
+    return a
+
+
+def apply_flux_bcs_padded(G, grid, loc, bcs, time=0.0, fields=None,
+                          locs=None):
+    """``apply_flux_bcs`` on a padded tendency, as the JAX function does it,
+    at padded slots H (west/south/bottom) and H+N-1 (east/north/top); in
+    place, returns G. ``fields`` and ``locs`` (the model's padded state and
+    locations) feed conditions with field dependencies."""
+    for axis, is_left, inc in _flux_increments(grid, loc, bcs, time, fields,
+                                               locs):
+        H, N = grid.H[axis], grid.N[axis]
+        G.narrow(axis, H if is_left else H + N - 1, 1).add_(inc)
+    return G
+
+
+def immersed_diffusivity(closure, name):
+    """The scalar diffusivity that Value and Gradient immersed conditions of
+    field ``name`` use (ν for u, v and w, κ for tracers), summed over a
+    closure tuple; a closure without a scalar one adds 0."""
+    total = 0.0
+    for cl in getattr(closure, "closures", (closure,)):
+        if cl is None:
+            continue
+        if name in ("u", "v", "w"):
+            nu = getattr(cl, "nu", 0.0)
+            if np.isscalar(nu):
+                total += float(nu)
+        else:
+            k = getattr(cl, "kappa", 0.0)
+            if isinstance(k, dict):
+                k = k.get(name, 0.0)
+            if np.isscalar(k):
+                total += float(k)
+    return total
+
+
+def apply_immersed_flux_bcs(G, grid, loc, ibc, time=0.0, c=None, kappa=0.0):
+    """Add the immersed-boundary flux divergences to a padded tendency and
+    return the new tensor: for each side, the flux is deposited into the
+    fluid cells whose neighbour on that side is solid (a positive flux
+    through a cell's west/south/bottom immersed face raises its tendency).
+    Flux conditions deposit the given flux; Value and Gradient conditions a
+    one-sided diffusive flux q = -κ∇c with ∇c the given gradient or
+    ±2(c - c_b)/Δ. ``c`` is the field's padded tensor, ``kappa`` the
+    closure's scalar diffusivity of the field. Conditions are scalars."""
+    import torch
+    from .boundary_condition import (GRADIENT, VALUE,
+                                     ImmersedBoundaryCondition)
+    if not hasattr(ibc, "side"):
+        # one condition in the slot applies on every side
+        ibc = ImmersedBoundaryCondition(west=ibc, east=ibc, south=ibc,
+                                        north=ibc, bottom=ibc, top=ibc)
+    solid = grid.solid_ccc
+    fluid = ~solid
+    kw = dict(dtype=G.dtype, device=G.device)
+    for side, (axis, is_left) in SIDE_AXIS.items():
+        bc = ibc.side(side)
+        if bc is None or bc.condition is None:
+            continue
+        if callable(bc.condition) or not np.isscalar(bc.condition):
+            raise NotImplementedError(
+                f"immersed {side} condition {bc.condition!r}: only scalar "
+                f"conditions are ported: {USER_BCS_ITEM}")
+        val = float(bc.condition)
+        if bc.classification == GRADIENT:
+            q = -kappa * val
+        elif bc.classification == VALUE:
+            if c is None:
+                raise ValueError("Value immersed BCs need the field")
+            D = (grid.dx, grid.dy, grid.dz)[axis](loc)
+            D = D if isinstance(D, float) else torch.as_tensor(D, **kw)
+            grad = (2.0 * (c - val) / D) if is_left \
+                else (2.0 * (val - c) / D)
+            q = -kappa * grad
+        else:
+            q = val
+        off = -1 if is_left else +1
+        mask = fluid & np.roll(solid, -off, axis=axis)
+        floc = list(loc)
+        floc[axis] = FACE if loc[axis] == CENTER else CENTER
+        A = (grid.Ax, grid.Ay, grid.Az)[axis](tuple(floc))
+        A = torch.as_tensor(A, **kw).broadcast_to(G.shape)
+        V = torch.as_tensor(grid.V(loc), **kw).broadcast_to(G.shape)
+        if not is_left:
+            # the east/north/top face of cell j is face j + 1
+            A = torch.roll(A, -1, dims=axis)
+        sgn = 1.0 if is_left else -1.0
+        G = G + torch.where(torch.as_tensor(mask, device=G.device),
+                            sgn * q * (A / V), torch.zeros((), **kw))
     return G

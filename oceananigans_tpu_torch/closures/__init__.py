@@ -1,10 +1,12 @@
-"""Turbulence closures: the scalar-diffusivity family, closure tuples and
-the LES closures (Smagorinsky, Lilly, dynamic, AMD). The vertical
-diffusivities of the hydrostatic model (CATKE, k-ε, Ri-based, convective
-adjustment, two-dimensional Leith) and the isopycnal closures raise
-``NotImplementedError`` naming their ROADMAP item."""
+"""Turbulence closures: the scalar-diffusivity family, closure tuples, the
+LES closures (Smagorinsky, Lilly, dynamic, AMD) and the vertical closures of
+the hydrostatic model (CATKE, k-ε, Ri-based, convective adjustment,
+two-dimensional Leith). The isopycnal closures raise ``NotImplementedError``
+naming their ROADMAP item."""
 
 from .amd import AnisotropicMinimumDissipation
+from .catke import (CATKEEquation, CATKEMixingLength,
+                    CATKEVerticalDiffusivity)
 from .scalar_diffusivity import (HORIZONTAL, ISO, VERTICAL, ClosureTuple,
                                  ExplicitTimeDiscretization, FluxTapering,
                                  HorizontalDivergenceScalarBiharmonicDiffusivity,
@@ -17,12 +19,17 @@ from .scalar_diffusivity import (HORIZONTAL, ISO, VERTICAL, ClosureTuple,
                                  VerticalScalarBiharmonicDiffusivity,
                                  VerticalScalarDiffusivity, diffusivity,
                                  viscosity)
+from .tke_dissipation import (ConstantStabilityFunctions,
+                              TKEDissipationEquations,
+                              TKEDissipationVerticalDiffusivity,
+                              VariableStabilityFunctions)
 from .smagorinsky import (DynamicCoefficient, DynamicSmagorinsky,
                           LagrangianAveraging, LillyCoefficient, Smagorinsky,
                           SmagorinskyLilly)
+from .vertical_diffusivities import (ConvectiveAdjustmentVerticalDiffusivity,
+                                     RiBasedVerticalDiffusivity,
+                                     TwoDimensionalLeith)
 
-_VERTICAL_ITEM = ("ROADMAP.md queue 1 item 13 (hydrostatic: vertical "
-                  "diffusivities and CATKE)")
 _LONG_TAIL_ITEM = "ROADMAP.md queue 1 item 15 (the long tail)"
 
 
@@ -33,15 +40,6 @@ def _not_ported(name, item):
                            "__doc__": f"Not ported yet: {item}."})
 
 
-CATKEVerticalDiffusivity = _not_ported("CATKEVerticalDiffusivity",
-                                       _VERTICAL_ITEM)
-TKEDissipationVerticalDiffusivity = _not_ported(
-    "TKEDissipationVerticalDiffusivity", _VERTICAL_ITEM)
-RiBasedVerticalDiffusivity = _not_ported("RiBasedVerticalDiffusivity",
-                                         _VERTICAL_ITEM)
-ConvectiveAdjustmentVerticalDiffusivity = _not_ported(
-    "ConvectiveAdjustmentVerticalDiffusivity", _VERTICAL_ITEM)
-TwoDimensionalLeith = _not_ported("TwoDimensionalLeith", _VERTICAL_ITEM)
 IsopycnalSkewSymmetricDiffusivity = _not_ported(
     "IsopycnalSkewSymmetricDiffusivity", _LONG_TAIL_ITEM)
 TriadIsopycnalSkewSymmetricDiffusivity = _not_ported(
@@ -60,7 +58,10 @@ __all__ = ["ScalarDiffusivity", "VerticalScalarDiffusivity",
            "SmagorinskyLilly", "LillyCoefficient", "DynamicCoefficient",
            "DynamicSmagorinsky", "LagrangianAveraging",
            "AnisotropicMinimumDissipation", "CATKEVerticalDiffusivity",
-           "TKEDissipationVerticalDiffusivity", "RiBasedVerticalDiffusivity",
+           "CATKEMixingLength", "CATKEEquation",
+           "TKEDissipationVerticalDiffusivity", "TKEDissipationEquations",
+           "VariableStabilityFunctions", "ConstantStabilityFunctions",
+           "RiBasedVerticalDiffusivity",
            "ConvectiveAdjustmentVerticalDiffusivity", "TwoDimensionalLeith",
            "IsopycnalSkewSymmetricDiffusivity",
            "TriadIsopycnalSkewSymmetricDiffusivity"]

@@ -12,8 +12,9 @@ takes and returns full padded tensors. ν and κ are Python scalars or padded
 tensors: the strain forms take each at the location they name, and
 ``div_kappa_grad`` interpolates a cell-centred κ to each flux location.
 ``vitd_explicit_z_term`` is the explicit z-flux remainder that a vertically
-implicit closure keeps. Immersed boundaries are not ported, so no flux is
-masked.
+implicit closure keeps. On an immersed grid every flux is zeroed where its
+location touches a solid cell (``fluid_mask_at``): no diffusive transport
+through or inside the topography.
 """
 
 from __future__ import annotations
@@ -46,6 +47,14 @@ def _dd(grid, a, axis, out_loc):
     return (ddx, ddy, ddz)[axis](grid, a, out_loc)
 
 
+def _fm(grid, floc, flux):
+    """Zero the flux at immersed faces; other grids pass it unchanged."""
+    fmat = getattr(grid, "fluid_mask_at", None)
+    if fmat is None:
+        return flux
+    return flux * fmat(floc, flux.dtype)
+
+
 def _interp_kappa(grid, kappa, axis, floc):
     """κ at the flux location: a scalar passes through, a cell-centred
     tensor is interpolated along ``axis``."""
@@ -63,7 +72,7 @@ def div_kappa_grad(grid, q, loc, kappa, axes=(0, 1, 2)):
         floc = _flip(loc, axis)
         grad = _dd(grid, q, axis, floc)
         k = _interp_kappa(grid, kappa, axis, floc)
-        flux = _area(grid, floc, axis) * k * grad
+        flux = _fm(grid, floc, _area(grid, floc, axis) * k * grad)
         term = delta(grid, flux, axis, loc[axis])
         total = term if total is None else total + term
     if total is None:
@@ -98,7 +107,7 @@ def vitd_explicit_z_term(grid, q, loc, kappa, cross_grad=None):
     if cross_grad is not None:
         grad = grad + cross_grad
     k = _interp_kappa(grid, kappa, Z, floc)
-    flux = _area(grid, floc, Z) * k * grad
+    flux = _fm(grid, floc, _area(grid, floc, Z) * k * grad)
     return delta(grid, flux, Z, loc[2]) / grid.V(loc)
 
 
@@ -141,13 +150,16 @@ def div_2nu_strain_u(grid, u, v, w, nu_ccc, nu_ffc, nu_fcf, axes=(0, 1, 2)):
     """-∂ⱼτ₁ⱼ with τ₁ⱼ = -2νΣ₁ⱼ: the isotropic viscous tendency for u at fcc."""
     terms = []
     if X in axes and not grid.is_flat(X):
-        flux = grid.Ax(LOC_CCC) * 2 * nu_ccc * Sxx_ccc(grid, u)
+        flux = _fm(grid, LOC_CCC,
+                   grid.Ax(LOC_CCC) * 2 * nu_ccc * Sxx_ccc(grid, u))
         terms.append(_delta_f(grid, flux, X))
     if Y in axes and not grid.is_flat(Y):
-        flux = grid.Ay(LOC_FFC) * 2 * nu_ffc * Sxy_ffc(grid, u, v)
+        flux = _fm(grid, LOC_FFC,
+                   grid.Ay(LOC_FFC) * 2 * nu_ffc * Sxy_ffc(grid, u, v))
         terms.append(_delta_c(grid, flux, Y))
     if Z in axes and not grid.is_flat(Z):
-        flux = grid.Az(LOC_FCF) * 2 * nu_fcf * Sxz_fcf(grid, u, w)
+        flux = _fm(grid, LOC_FCF,
+                   grid.Az(LOC_FCF) * 2 * nu_fcf * Sxz_fcf(grid, u, w))
         terms.append(_delta_c(grid, flux, Z))
     return _sum_over_volume(terms, u, grid.V(LOC_FCC))
 
@@ -155,13 +167,16 @@ def div_2nu_strain_u(grid, u, v, w, nu_ccc, nu_ffc, nu_fcf, axes=(0, 1, 2)):
 def div_2nu_strain_v(grid, u, v, w, nu_ccc, nu_ffc, nu_cff, axes=(0, 1, 2)):
     terms = []
     if X in axes and not grid.is_flat(X):
-        flux = grid.Ax(LOC_FFC) * 2 * nu_ffc * Sxy_ffc(grid, u, v)
+        flux = _fm(grid, LOC_FFC,
+                   grid.Ax(LOC_FFC) * 2 * nu_ffc * Sxy_ffc(grid, u, v))
         terms.append(_delta_c(grid, flux, X))
     if Y in axes and not grid.is_flat(Y):
-        flux = grid.Ay(LOC_CCC) * 2 * nu_ccc * Syy_ccc(grid, v)
+        flux = _fm(grid, LOC_CCC,
+                   grid.Ay(LOC_CCC) * 2 * nu_ccc * Syy_ccc(grid, v))
         terms.append(_delta_f(grid, flux, Y))
     if Z in axes and not grid.is_flat(Z):
-        flux = grid.Az(LOC_CFF) * 2 * nu_cff * Syz_cff(grid, v, w)
+        flux = _fm(grid, LOC_CFF,
+                   grid.Az(LOC_CFF) * 2 * nu_cff * Syz_cff(grid, v, w))
         terms.append(_delta_c(grid, flux, Z))
     return _sum_over_volume(terms, v, grid.V(LOC_CFC))
 
@@ -169,12 +184,15 @@ def div_2nu_strain_v(grid, u, v, w, nu_ccc, nu_ffc, nu_cff, axes=(0, 1, 2)):
 def div_2nu_strain_w(grid, u, v, w, nu_ccc, nu_fcf, nu_cff, axes=(0, 1, 2)):
     terms = []
     if X in axes and not grid.is_flat(X):
-        flux = grid.Ax(LOC_FCF) * 2 * nu_fcf * Sxz_fcf(grid, u, w)
+        flux = _fm(grid, LOC_FCF,
+                   grid.Ax(LOC_FCF) * 2 * nu_fcf * Sxz_fcf(grid, u, w))
         terms.append(_delta_c(grid, flux, X))
     if Y in axes and not grid.is_flat(Y):
-        flux = grid.Ay(LOC_CFF) * 2 * nu_cff * Syz_cff(grid, v, w)
+        flux = _fm(grid, LOC_CFF,
+                   grid.Ay(LOC_CFF) * 2 * nu_cff * Syz_cff(grid, v, w))
         terms.append(_delta_c(grid, flux, Y))
     if Z in axes and not grid.is_flat(Z):
-        flux = grid.Az(LOC_CCC) * 2 * nu_ccc * Szz_ccc(grid, w)
+        flux = _fm(grid, LOC_CCC,
+                   grid.Az(LOC_CCC) * 2 * nu_ccc * Szz_ccc(grid, w))
         terms.append(_delta_f(grid, flux, Z))
     return _sum_over_volume(terms, w, grid.V(LOC_CCF))

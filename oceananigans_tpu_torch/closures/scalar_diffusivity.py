@@ -77,8 +77,8 @@ class _ClosureBase:
 
     required_halo = 1
 
-    # True for the always-implicit closures with a 3-D κ (CATKE, k-ε,
-    # Ri-based, convective adjustment), none of which is ported
+    # True for the always-implicit closures with a 3-D κ (CATKE, Ri-based,
+    # convective adjustment)
     implicit_only_z = False
 
 
@@ -429,6 +429,64 @@ class ClosureTuple(_ClosureBase):
             for k, v in c.vertical_implicit_kappas(grid, fields, a).items():
                 combined[k] = combined.get(k, 0.0) + v
         return combined
+
+    def vertical_implicit_damping(self, grid, fields, aux):
+        combined = {}
+        for c, a in zip(self.closures, aux):
+            if hasattr(c, "vertical_implicit_damping"):
+                for k, v in c.vertical_implicit_damping(grid, fields,
+                                                        a).items():
+                    combined[k] = combined.get(k, 0.0) + v
+        return combined
+
+    def clip_fields(self, fields):
+        for c in self.closures:
+            if hasattr(c, "clip_fields"):
+                fields = c.clip_fields(fields)
+        return fields
+
+    # -- a substepped TKE member (CATKE) ------------------------------------
+    # the tuple exposes its member's substepping, so that the model drives
+    # it as it drives the bare closure
+
+    @property
+    def tke_member(self):
+        for c in self.closures:
+            if getattr(c, "substepped_tke", False):
+                return c
+        return None
+
+    @property
+    def substepped_tke(self):
+        return self.tke_member is not None
+
+    @property
+    def substepped_tracers(self):
+        m = self.tke_member
+        return m.substepped_tracers if m is not None else ()
+
+    @property
+    def tke_time_step(self):
+        return self.tke_member.tke_time_step
+
+    def substeps_for(self, dt):
+        return self.tke_member.substeps_for(dt)
+
+    def step_turbulence(self, grid, fields_old, fields_new, slow_G, Gm, dt,
+                        chi0, euler, M, time):
+        return self.tke_member.step_turbulence(
+            grid, fields_old, fields_new, slow_G, Gm, dt, chi0, euler, M,
+            time)
+
+    def tracer_tendency_excluding_tke(self, grid, name, fields, aux):
+        """The slow tendency of a substepped tracer from the other members
+        (the substepped member's terms live in step_turbulence)."""
+        tke = self.tke_member
+        total = torch.zeros_like(fields[name])
+        for c, a in zip(self.closures, aux):
+            if c is not tke:
+                total = total + c.tracer_tendency(grid, name, fields, a)
+        return total
 
 
 class HorizontalDivergenceScalarDiffusivity(_ClosureBase):

@@ -78,3 +78,17 @@ def broadcastable_1d(arr, axis):
     shape = [1, 1, 1]
     shape[axis] = -1
     return np.asarray(arr).reshape(shape)
+
+
+def numpy_metric(grid, name, loc):
+    """Metric ``name`` (dx, dy, dz, Ax, Ay, Az, V) of ``grid`` at ``loc`` in
+    float64 numpy, as the JAX grids form it (a float, or a broadcastable
+    array): the grid's own float64 form where it keeps one, else its value
+    brought to the host."""
+    import torch
+    if hasattr(grid, "metric_numpy") and not hasattr(grid, "solid_ccc"):
+        return grid.metric_numpy(name, loc)
+    m = getattr(grid, name)(loc)
+    if isinstance(m, torch.Tensor):
+        return m.detach().to("cpu", torch.float64).numpy()
+    return m

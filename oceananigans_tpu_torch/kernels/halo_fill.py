@@ -81,7 +81,11 @@ def _geometry(grid):
 
 
 def _value(bc):
-    return 0.0 if bc is None or bc.condition is None else float(bc.condition)
+    """The scalar a fill reads: a Flux condition's value is never read (its
+    fill mirrors or reflects), so a callable Flux condition counts as 0."""
+    if bc is None or bc.condition is None or bc.classification == bcm.FLUX:
+        return 0.0
+    return float(bc.condition)
 
 
 def _classification(bc):

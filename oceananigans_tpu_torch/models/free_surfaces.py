@@ -4,11 +4,15 @@ Counterpart of ``oceananigans_tpu/models/free_surfaces.py``:
 
 - ``ExplicitFreeSurface``: ∂t η = -∇·U, with -g∇η in the momentum
   tendencies;
-- ``SplitExplicitFreeSurface`` with a fixed substep count
-  (``FixedSubstepNumber``): forward-backward substeps of (η, U, V) with Δτ
-  spanning (t, t + 2Δt), Shchepetkin's averaging-shape weights, the slow
-  forcing Gᵁ = ∫G_u dz, and a filtered (η, U, V) returned for the barotropic
-  corrector.
+- ``SplitExplicitFreeSurface``: forward-backward substeps of (η, U, V)
+  with Δτ spanning (t, t + 2Δt), Shchepetkin's averaging-shape weights, the
+  slow forcing Gᵁ = ∫G_u dz, and a filtered (η, U, V) returned for the
+  barotropic corrector. ``substeps=N`` takes a fixed count
+  (``FixedSubstepNumber``); ``cfl=`` takes ``FixedTimeStepSize``: Δτ =
+  cfl·Δs/√(g·Lz) from the grid's minimum spacings, and ceil(2Δt/Δτ) substeps
+  (at least ``MINIMUM_SUBSTEPS``) counted on the host at each step, a plain
+  Python integer; ``cfl=`` with ``fixed_dt=`` and ``grid=`` becomes a fixed
+  count when the surface is built.
 
 The substep loop is a Python loop of small 2-D PyTorch operations (the JAX
 package unrolls it at trace time, or scans it above 64 substeps). The halos
@@ -16,8 +20,9 @@ of (η, U, V) are refilled every substep on a grid with a bounded x or y, and
 every ⌊H/2⌋ substeps on a doubly periodic one (a fill keeps ±1 stencils
 valid for H/2 substeps there), as in JAX.
 
-``ImplicitFreeSurface`` and the CFL-based ``FixedTimeStepSize`` substepping
-(``SplitExplicitFreeSurface(cfl=...)``) are not ported yet and raise.
+- ``ImplicitFreeSurface``: the configuration of a backward-Euler step of
+  the barotropic mode, (1 - gHΔt²∇²)ηⁿ⁺¹ = ηⁿ - Δt∇·∫u* dz, which the model
+  solves by FFT/DCT or by preconditioned conjugate gradients.
 """
 
 from __future__ import annotations
@@ -28,10 +33,6 @@ from ..defaults import defaults
 from ..grids.topology import LOC_CCC, LOC_CFC, LOC_FCC, PERIODIC
 from ..operators.operators import _metric, dx_c, dx_f, dy_c, dy_f
 
-IMPLICIT_ITEM = ("ROADMAP.md queue 1 item 13 (hydrostatic: the implicit free "
-                 "surface, FFT and PCG)")
-FIXED_DT_ITEM = ("ROADMAP.md queue 1 item 13 (hydrostatic: FixedTimeStepSize "
-                 "split-explicit substepping)")
 
 
 def averaging_shape_function(tau, p=2, q=4, r=0.18927):
@@ -71,9 +72,25 @@ class ExplicitFreeSurface:
 
 
 class ImplicitFreeSurface:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"ImplicitFreeSurface is not ported yet: {IMPLICIT_ITEM}")
+    """A backward-Euler step of the barotropic mode, solved by the model:
+    ``solver_method`` "FastFourierTransform" (a regular RectilinearGrid of
+    constant depth), "PreconditionedConjugateGradient" (any grid; the FFT
+    solve preconditions it on a regular RectilinearGrid) or "Default" (the
+    first where it applies, else the second); "HeptadiagonalIterativeSolver"
+    is the same operator and takes the second, as in JAX."""
+
+    def __init__(self, gravitational_acceleration=None,
+                 solver_method="Default"):
+        self.g = (defaults.gravitational_acceleration
+                  if gravitational_acceleration is None
+                  else float(gravitational_acceleration))
+        self.solver_method = solver_method
+
+    def _fp(self):
+        return ("ImplicitFreeSurface", self.g, self.solver_method)
+
+    __hash__ = ExplicitFreeSurface.__hash__
+    __eq__ = ExplicitFreeSurface.__eq__
 
 
 class FixedSubstepNumber:
@@ -91,27 +108,79 @@ class FixedSubstepNumber:
         return ("FixedSubstepNumber", self.substeps)
 
 
+# the averaging weights may be negative over the first substeps, so the
+# count has a floor
+MINIMUM_SUBSTEPS = 5
+
+
+def substeps_for(dt, dt_barotropic):
+    """ceil(2Δt/Δτ), at least ``MINIMUM_SUBSTEPS``."""
+    return max(MINIMUM_SUBSTEPS,
+               int(np.ceil(2.0 * float(dt) / dt_barotropic)))
+
+
 class FixedTimeStepSize:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"FixedTimeStepSize is not ported yet: {FIXED_DT_ITEM}")
+    """Split-explicit substepping with a fixed barotropic Δτ from a
+    gravity-wave CFL: Δτ = cfl·Δs/√(g·Lz), Δs the harmonic combination of
+    the grid's minimum horizontal spacings; ceil(2Δt/Δτ) substeps for each
+    Δt."""
+
+    def __init__(self, cfl, averaging_kernel=averaging_shape_function):
+        self.cfl = float(cfl)
+        self.averaging_kernel = averaging_kernel
+        self.dt_barotropic = None   # set by materialize(grid, g)
+
+    def materialize(self, grid, g):
+        dx2 = 0.0 if grid.is_flat(0) else 1.0 / grid.minimum_spacing(0) ** 2
+        dy2 = 0.0 if grid.is_flat(1) else 1.0 / grid.minimum_spacing(1) ** 2
+        ds = np.sqrt(1.0 / (dx2 + dy2))
+        wave_speed = np.sqrt(g * abs(grid.extent[2]))
+        self.dt_barotropic = float(self.cfl * ds / wave_speed)
+
+    def settings(self, dt):
+        if self.dt_barotropic is None:
+            raise RuntimeError("FixedTimeStepSize.materialize(grid, g) must "
+                               "run before stepping (the model does this)")
+        return weights_from_substeps(
+            substeps_for(dt, self.dt_barotropic), self.averaging_kernel)
+
+    def _fp(self):
+        return ("FixedTimeStepSize", self.cfl)
 
 
 class SplitExplicitFreeSurface:
     """``substeps=N`` (30 by default) takes ``FixedSubstepNumber``; ``cfl=``
-    would take ``FixedTimeStepSize`` and raises."""
+    takes ``FixedTimeStepSize``, resolved against the model's grid by
+    ``materialize``; ``cfl=`` with ``fixed_dt=`` and ``grid=`` becomes a
+    ``FixedSubstepNumber`` at once."""
 
     def __init__(self, gravitational_acceleration=None, substeps=None,
-                 cfl=None, averaging_kernel=averaging_shape_function):
+                 cfl=None, fixed_dt=None, grid=None,
+                 averaging_kernel=averaging_shape_function):
         self.g = (defaults.gravitational_acceleration
                   if gravitational_acceleration is None
                   else float(gravitational_acceleration))
         if cfl is not None and substeps is not None:
             raise ValueError("give either substeps= or cfl=, not both")
-        if cfl is not None:
-            FixedTimeStepSize(cfl)
-        self.substepping = FixedSubstepNumber(
-            30 if substeps is None else substeps, averaging_kernel)
+        self._fixed_dt = fixed_dt
+        if cfl is None:
+            self.substepping = FixedSubstepNumber(
+                30 if substeps is None else substeps, averaging_kernel)
+        else:
+            self.substepping = FixedTimeStepSize(cfl, averaging_kernel)
+            if grid is not None:
+                self.materialize(grid)
+
+    def materialize(self, grid):
+        """Resolve a ``FixedTimeStepSize`` against ``grid`` (the model calls
+        this with its grid); with ``fixed_dt`` it becomes a fixed count."""
+        sub = self.substepping
+        if isinstance(sub, FixedTimeStepSize) and sub.dt_barotropic is None:
+            sub.materialize(grid, self.g)
+            if self._fixed_dt is not None:
+                self.substepping = FixedSubstepNumber(
+                    substeps_for(self._fixed_dt, sub.dt_barotropic),
+                    sub.averaging_kernel)
 
     @property
     def substeps(self):
@@ -134,15 +203,19 @@ class SplitExplicitFreeSurface:
     __hash__ = ExplicitFreeSurface.__hash__
     __eq__ = ExplicitFreeSurface.__eq__
 
-    def substep(self, grid, H_fc, H_cf, eta, U0, V0, GU, GV, dt, fill):
+    def substep(self, grid, H_fc, H_cf, eta, U0, V0, GU, GV, dt, fill,
+                settings=None):
         """Run the barotropic substep loop on 2-D (Nx + 2Hx, Ny + 2Hy, 1)
         tensors: ``eta`` the free surface, ``U0``/``V0`` the starting
         transports, ``GU``/``GV`` the depth-integrated slow tendencies,
-        ``H_fc``/``H_cf`` the column depths. ``fill(eta, U, V)`` refreshes
-        the three 2-D fields' halos in place (one fill launch on the card)
-        and returns them. Returns the filtered (η, U, V)."""
+        ``H_fc``/``H_cf`` the column depths (scalars, or 2-D tensors on an
+        immersed grid). ``fill(eta, U, V)`` refreshes the three 2-D fields'
+        halos in place (one fill launch on the card) and returns them.
+        ``settings`` (fractional step, weights) overrides those of ``dt``
+        (the split RK3 stages take the whole step's). Returns the filtered
+        (η, U, V)."""
         g = self.g
-        frac, weights = self.settings(dt)
+        frac, weights = settings or self.settings(dt)
         dtau = frac * dt
         dy_fc = _metric(grid.dy(LOC_FCC), eta)
         dx_cf = _metric(grid.dx(LOC_CFC), eta)

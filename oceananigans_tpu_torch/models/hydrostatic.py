@@ -2,15 +2,40 @@
 
 Counterpart of ``oceananigans_tpu/models/hydrostatic.py`` for a static z
 coordinate: prognostic u, v, tracers and η; w diagnosed from continuity; the
-hydrostatic pressure anomaly from ``BuoyancyTracer``; vector-invariant
-momentum advection, Coriolis, tracer advection, scalar Flux conditions; the
-quasi-AB2 step (Euler on the first step and when Δt changes) with an
-``ExplicitFreeSurface`` or a ``SplitExplicitFreeSurface`` (a fixed substep
-count, the barotropic corrector, and (η, U, V) persisted across steps).
+hydrostatic pressure anomaly from the buoyancy (``BuoyancyTracer`` or
+``SeawaterBuoyancy`` with any of its equations of state); vector-invariant
+momentum advection, Coriolis, tracer advection; closures (the scalar
+diffusivities, tuples, CATKE, k-ε, the Ri-based and convective-adjustment
+vertical diffusivities, two-dimensional Leith) with the vertically implicit
+solve; forcing; Flux conditions (scalars, functions, field-dependent);
+immersed bottoms (``ImmersedBoundaryGrid``); the quasi-AB2 step (Euler on the
+first step and when Δt changes) or the split RK3 (three Euler stages from
+the step's start); an ``ExplicitFreeSurface``, an ``ImplicitFreeSurface``
+(FFT/DCT on a regular RectilinearGrid of constant depth, preconditioned
+conjugate gradients elsewhere) or a ``SplitExplicitFreeSurface`` (a fixed
+substep count, or ``cfl=`` with the count taken on the host at each step,
+the barotropic corrector, and (η, U, V) persisted across steps).
 
-The tendency of u, v and the tracers goes through
+The step follows the JAX ``_build_step`` (its quasi-AB2 route; the split
+RK3 runs the same pieces once a stage): fill the halos (zeroing the solid
+cells of an immersed grid first), w, the tendencies (advection, Coriolis and ∂ₓ,ᵧ pₕ′; the closure's diffusivities
+and terms; forcing; the boundary and immersed fluxes last), the AB2 update,
+the closure's vertically implicit solve (with CATKE's damping and clip when
+the TKE is not substepped), the free surface and the barotropic corrector,
+the immersed masks, then the substepped TKE (CATKE's e, k-ε's e and ε)
+from the new velocities (``step_turbulence``: they are not advanced as
+ordinary tracers), and w from the new velocities. The two substep counts
+that Δt sets, the split-explicit one under ``cfl=`` and the TKE's
+M = ceil(Δt/Δτ), are plain Python integers taken at each ``time_step``.
+CATKE's surface TKE flux −Cᵂu★·u★³ − CᵂwΔ·max(Jᵇ, 0)·Δz is installed as
+e's top Flux condition, from the momentum top fluxes and Jᵇ (the b top flux, or g(αJᵀ − βJˢ) under a
+linear equation of state; none under a nonlinear one, as in JAX); k-ε's
+friction velocity from the momentum top fluxes.
+
+The tendency of u, v and the tracers' advection goes through
 ``kernels.fused_vi_tendency`` (the port of TPU kernels #10 and #11) or its
-plain PyTorch version, by ``fused_tendencies``:
+plain PyTorch version, by ``fused_tendencies``; the closure, forcing and
+boundary fluxes are added on top, as in JAX:
 
 - ``"auto"`` (the default): on a CUDA grid the kernel where it covers the
   configuration and the plain version elsewhere; on a CPU grid the plain
@@ -18,7 +43,8 @@ plain PyTorch version, by ``fused_tendencies``:
   never does.
 - ``True`` or ``"packed"`` (a TPU layout of the same function): the kernel
   on a CUDA grid (its plain version on a CPU grid); a configuration the
-  kernel does not cover raises, on any device, as the JAX opt-in does.
+  kernel does not cover raises, on any device, as the JAX opt-in does (an
+  ``ImmersedBoundaryGrid`` among them).
 - ``False``: the plain version.
 
 ``uses_kernel`` says whether a model launches the kernel. Where the JAX
@@ -27,27 +53,26 @@ not a semantic one (the JAX fused and XLA paths agree to roundoff, and so
 do the port's two paths).
 
 With no ``free_surface`` the model takes the JAX default:
-``ImplicitFreeSurface()`` on a RectilinearGrid (regular in x and y, as the
-port's always is) and ``SplitExplicitFreeSurface(cfl=0.7)`` elsewhere;
-neither is ported yet, so both raise, naming the free surface chosen.
+``ImplicitFreeSurface()`` on a RectilinearGrid and
+``SplitExplicitFreeSurface(cfl=0.7)`` elsewhere.
 
 Against the JAX model: the Hy-to-8 rounding of the halo (a Mosaic tile
 workaround) is dropped, the halo is ``max(grid halo, required)``; z is
 scanned with ``torch.cumsum`` where the JAX model contracts with a
-triangular matrix (an MXU workaround). As in JAX, the stored u and v after a
-step are the corrected fields before their halo fill (their boundary faces
-carry the step's increment, refilled at the next step's start), and w is
-diagnosed from the filled ones.
+triangular matrix (an MXU workaround); the tendencies' halos are zero where
+the JAX XLA path leaves stencil values. Two readers see that ring: the
+explicit and implicit free surfaces' ∇·∫u dz, for which the port wraps
+∫u dz's periodic halos (the JAX ring holds their images), and the TKE
+substep's N², which reads the AB2-updated tracers' halos in JAX (ROADMAP.md
+queue 3). As in JAX, the stored u and v after a step are the corrected
+fields before their halo fill, and w is diagnosed from the filled ones.
 
-Closures, forcing, biogeochemistry, auxiliary fields, prescribed velocities,
-z-star, ``SplitRungeKutta3``, per-tracer advection schemes, flux-form
-momentum advection, ``ImplicitFreeSurface`` and ``FixedTimeStepSize``
-substepping raise ``NotImplementedError`` naming their ROADMAP item.
+Biogeochemistry, auxiliary fields, prescribed velocities, z-star,
+per-tracer advection schemes and flux-form momentum advection raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 import torch
@@ -58,16 +83,28 @@ from ..boundary_conditions import (apply_flux_bcs_padded,
                                    fill_all_halo_regions,
                                    fill_surface_halo_regions,
                                    regularize_field_boundary_conditions)
-from ..buoyancy import BuoyancyTracer
+from ..boundary_conditions.boundary_condition import (
+    FLUX, BoundaryCondition, FieldBoundaryConditions)
+from ..boundary_conditions.fill_halos import (apply_immersed_flux_bcs,
+                                              immersed_diffusivity)
+from ..buoyancy import BuoyancyTracer, SeawaterBuoyancy
+from ..closures.scalar_diffusivity import (ClosureTuple, _ClosureBase,
+                                           validate_implicit_closure_z_bcs)
 from ..defaults import numpy_dtype
 from ..fields import Field, set_on_padded
+from ..forcings.forcings import regularize_forcing
+from ..grids.base import numpy_metric
 from ..grids.topology import LOC_CCC, LOC_CCF, LOC_CFC, LOC_FCC
-from ..kernels import fused_vi_tendency, fused_vi_tendency_plain
+from ..immersed import ImmersedBoundaryGrid
+from ..kernels import (fused_vi_tendency, fused_vi_tendency_plain,
+                       periodic_halo_fill)
 from ..kernels.fused_vector_invariant import vi_config
 from ..operators.operators import _metric, ddx, ddy, div_xy_ccc, dx_c, dy_c
-from ..timesteppers import QuasiAdamsBashforth2TimeStepper
+from ..timesteppers import (QuasiAdamsBashforth2TimeStepper,
+                            SplitRungeKutta3TimeStepper)
 from .free_surfaces import (ExplicitFreeSurface, ImplicitFreeSurface,
                             SplitExplicitFreeSurface)
+from .nonhydrostatic import _vertical_spacings, implicit_vertical_diffusion
 
 PROGNOSTIC_LOCS = {"u": LOC_FCC, "v": LOC_CFC}
 
@@ -76,32 +113,67 @@ def _item(what):
     return f"ROADMAP.md queue 1 item 13 (hydrostatic: {what})"
 
 
+_LONG_TAIL = "ROADMAP.md queue 1 item 15 (the long tail)"
 _NOT_PORTED = {
-    "closure": _item("vertical diffusivities and CATKE"),
-    "forcing": _item("forcing"),
-    "biogeochemistry": "ROADMAP.md queue 1 item 15 (the long tail)",
-    "auxiliary_fields": "ROADMAP.md queue 1 item 15 (the long tail)",
+    "biogeochemistry": _LONG_TAIL,
+    "auxiliary_fields": _LONG_TAIL,
     "velocities": _item("prescribed velocities"),
 }
 
 
 def default_free_surface(grid):
     """The JAX model's default free surface for ``grid``: implicit on a
-    RectilinearGrid regular in x and y, split-explicit with ``cfl=0.7``
-    elsewhere. Neither is ported yet: the error names the one chosen."""
+    RectilinearGrid (regular in x and y, as the port's always is),
+    split-explicit with ``cfl=0.7`` elsewhere."""
     from ..grids.rectilinear import RectilinearGrid
-    if isinstance(grid, RectilinearGrid):
-        chosen, make = "ImplicitFreeSurface()", ImplicitFreeSurface
-    else:
-        chosen = "SplitExplicitFreeSurface(cfl=0.7)"
-        make = functools.partial(SplitExplicitFreeSurface, cfl=0.7)
-    try:
-        return make()
-    except NotImplementedError as e:
-        raise NotImplementedError(
-            f"the default free surface on a {type(grid).__name__} is the "
-            f"JAX model's {chosen}: {e}; pass free_surface= explicitly"
-        ) from None
+    if type(grid) is RectilinearGrid:
+        return ImplicitFreeSurface()
+    return SplitExplicitFreeSurface(cfl=0.7)
+
+
+def _dz_columns(grid):
+    """Δz at the centres over the interior z as a float64 array: (n,) for a
+    1-D spacing, or the padded-xy (npx, npy, n) block of a partial-cell
+    grid."""
+    h, n = grid.H[2], grid.N[2]
+    dz = np.asarray(numpy_metric(grid, "dz", LOC_CCC), np.float64)
+    if dz.ndim == 3 and (dz.shape[0] > 1 or dz.shape[1] > 1):
+        return np.ascontiguousarray(
+            np.broadcast_to(dz, grid.padded_shape)[:, :, h:h + n])
+    return _vertical_spacings(grid)[0]
+
+
+def immersed_column_geometry(grid):
+    """(H_fc, H_cf, fluid_int, wet_fc, wet_cf) of an immersed grid, float64
+    numpy: the fluid depths of the (f, c) and (c, f) columns (clamped away
+    from 0), the interior-z fluid masks at fcc, cfc and ccc, and the masks
+    of the columns that hold fluid (dry columns, land and solid halo
+    columns, take no barotropic increment: anything divided by the clamped
+    depth there is discarded)."""
+    h, n = grid.H[2], grid.N[2]
+    Lz = grid.extent[2]
+    dz3 = np.broadcast_to(
+        np.asarray(numpy_metric(grid, "dz", LOC_CCC), float),
+        grid.padded_shape)
+
+    def coldepth(solid):
+        d = (dz3 * ~solid)[:, :, h:h + n].sum(2, keepdims=True)
+        return np.maximum(d, 1e-12 * abs(Lz)), d > 0.0
+
+    H_fc, wet_fc = coldepth(grid.solid_fcc)
+    H_cf, wet_cf = coldepth(grid.solid_cfc)
+    sl = (slice(None), slice(None), slice(h, h + n))
+    fluid_int = {LOC_FCC: (~grid.solid_fcc)[sl],
+                 LOC_CFC: (~grid.solid_cfc)[sl],
+                 LOC_CCC: (~grid.solid_ccc)[sl]}
+    return H_fc, H_cf, fluid_int, wet_fc, wet_cf
+
+
+def _positive(x):
+    """max(x, 0) of a tensor or a number."""
+    if isinstance(x, torch.Tensor):
+        return torch.clamp_min(x, 0.0)
+    return max(float(x), 0.0)
 
 
 class HydrostaticFreeSurfaceModel:
@@ -112,8 +184,7 @@ class HydrostaticFreeSurfaceModel:
                  vertical_coordinate="z", biogeochemistry=None,
                  auxiliary_fields=None, fused_tendencies="auto", device=None,
                  dtype=None):
-        given = dict(closure=closure, forcing=forcing,
-                     biogeochemistry=biogeochemistry,
+        given = dict(biogeochemistry=biogeochemistry,
                      auxiliary_fields=auxiliary_fields, velocities=velocities)
         for name, value in given.items():
             if value:
@@ -125,10 +196,13 @@ class HydrostaticFreeSurfaceModel:
             raise NotImplementedError(
                 f"vertical_coordinate={vertical_coordinate!r} is not ported "
                 f"yet: {_item('z-star')}")
-        if timestepper not in ("QuasiAdamsBashforth2", "ab2", "qab2"):
-            raise NotImplementedError(
-                f"timestepper {timestepper!r} is not ported yet: "
-                f"{_item('SplitRungeKutta3')}")
+        if isinstance(timestepper, SplitRungeKutta3TimeStepper) or \
+                timestepper in ("SplitRungeKutta3", "split_rk3"):
+            timestepper = SplitRungeKutta3TimeStepper()
+        elif timestepper in ("QuasiAdamsBashforth2", "ab2", "qab2"):
+            timestepper = QuasiAdamsBashforth2TimeStepper()
+        else:
+            raise ValueError(f"unknown timestepper {timestepper!r}")
         if isinstance(tracer_advection, dict):
             raise NotImplementedError(
                 f"per-tracer advection schemes are not ported yet: "
@@ -138,10 +212,13 @@ class HydrostaticFreeSurfaceModel:
             raise NotImplementedError(
                 f"momentum advection {momentum_advection!r}: only the vector-"
                 f"invariant form is ported: {_item('flux-form momentum')}")
-        if buoyancy is not None and not isinstance(buoyancy, BuoyancyTracer):
+        if isinstance(closure, (tuple, list)):
+            closure = ClosureTuple(*closure)
+        if closure is not None and not isinstance(closure, _ClosureBase):
             raise NotImplementedError(
-                f"buoyancy {buoyancy!r}: only BuoyancyTracer is ported: "
-                f"{_item('SeawaterBuoyancy')}")
+                f"closure {closure!r} is not a closure of the port's "
+                f"closures/ (the others are not ported yet: ROADMAP.md queue "
+                f"1 items 13 and 15)")
         if fused_tendencies not in (True, False, "packed", "auto"):
             raise ValueError(f"fused_tendencies={fused_tendencies!r}")
         if device is not None or dtype is not None:
@@ -149,10 +226,9 @@ class HydrostaticFreeSurfaceModel:
         if free_surface is None:
             free_surface = default_free_surface(grid)
         if not isinstance(free_surface, (ExplicitFreeSurface,
+                                         ImplicitFreeSurface,
                                          SplitExplicitFreeSurface)):
-            raise NotImplementedError(
-                f"free surface {free_surface!r} is not ported yet: "
-                f"{_item('implicit free surface')}")
+            raise ValueError(f"unknown free surface {free_surface!r}")
         self.free_surface = free_surface
         self.momentum_advection = (momentum_advection if momentum_advection
                                    is not None else VectorInvariant())
@@ -161,16 +237,27 @@ class HydrostaticFreeSurfaceModel:
         if isinstance(tracers, str):
             tracers = (tracers,)
         tracers = tuple(tracers)
-        if buoyancy is not None:
-            tracers += tuple(n for n in buoyancy.required_tracers
-                             if n not in tracers)
+        for source in (buoyancy, closure):
+            tracers += tuple(n for n in getattr(source, "required_tracers",
+                                                ()) if n not in tracers)
         self.tracer_names = tracers
         self.buoyancy = buoyancy
         self.coriolis = coriolis
-        self.timestepper = QuasiAdamsBashforth2TimeStepper()
+        self.closure = closure
+        # closures that read a buoyancy take the model's when given none
+        for c in getattr(closure, "closures", (closure,)) if closure else ():
+            if hasattr(c, "buoyancy") and c.buoyancy is None:
+                c.buoyancy = buoyancy
+        self.forcing = regularize_forcing(forcing)
+        for name, F in self.forcing.items():
+            if hasattr(F, "bind"):
+                F.bind(name, self.loc(name), locs=PROGNOSTIC_LOCS)
+        self.timestepper = timestepper
 
         required = max(getattr(self.tracer_advection, "required_halo", 1),
                        self.momentum_advection.required_halo)
+        if closure is not None:
+            required = max(required, closure.required_halo)
         halo = tuple(max(h, required) if not grid.is_flat(i) else 0
                      for i, h in enumerate(grid.H))
         self.grid = grid.with_halo(halo)
@@ -179,12 +266,22 @@ class HydrostaticFreeSurfaceModel:
                              "z direction")
         if self.grid.N[2] < halo[2] + 1:
             raise ValueError("the bounded-z halo fill needs Nz > Hz")
+        if hasattr(self.free_surface, "materialize"):
+            self.free_surface.materialize(self.grid)
 
+        # CATKE's TKE is substepped after each step, not advanced as a
+        # tracer
+        self._substepped_tke = bool(
+            closure is not None and getattr(closure, "substepped_tke", False))
+        self._substepped_names = (tuple(closure.substepped_tracers)
+                                  if self._substepped_tke else ())
         bcs_in = dict(boundary_conditions or {})
         unknown = set(bcs_in) - {"u", "v", "eta"} - set(tracers)
         if unknown:
             raise ValueError(f"boundary conditions for unknown fields "
                              f"{sorted(unknown)}")
+        if self._substepped_tke:
+            bcs_in = self._install_tke_surface_flux(bcs_in)
         self.bcs = {name: regularize_field_boundary_conditions(
             bcs_in.get(name), self.grid, loc)
             for name, loc in PROGNOSTIC_LOCS.items()}
@@ -197,15 +294,36 @@ class HydrostaticFreeSurfaceModel:
             bcs_in.get("eta"), self.grid, LOC_CCC)
         self.bcs["ph"] = regularize_field_boundary_conditions(
             None, self.grid, LOC_CCC)
+        validate_implicit_closure_z_bcs(closure, self.bcs)
 
         self.uses_kernel = self._kernel_route(fused_tendencies, coriolis)
 
+        kw = dict(dtype=self.grid.dtype, device=self.grid.device)
         h, n = self.grid.H[2], self.grid.N[2]
-        self._dzc = torch.as_tensor(
-            np.broadcast_to(np.asarray(self.grid.dz(LOC_CCC), np.float64),
-                            (n,)).copy(), dtype=self.grid.dtype,
-            device=self.grid.device)
-        self._H = abs(self.grid.extent[2])
+        dz = _dz_columns(self.grid)
+        # Δz over the padded columns (depth integrals) and over the interior
+        # ones (w and pₕ′)
+        self._dz_cols = torch.as_tensor(np.array(dz), **kw)
+        self._dz_int = (self._dz_cols if dz.ndim == 1 else
+                        self._dz_cols[self.grid.interior_slices[:2]])
+        self._immersed = isinstance(self.grid, ImmersedBoundaryGrid)
+        Lz = abs(self.grid.extent[2])
+        if self._immersed:
+            H_fc, H_cf, fluid_int, wet_fc, wet_cf = \
+                immersed_column_geometry(self.grid)
+            self._H_fc = torch.as_tensor(H_fc, **kw)
+            self._H_cf = torch.as_tensor(H_cf, **kw)
+            self._fluid_int = {loc: torch.as_tensor(m, **kw)
+                               for loc, m in fluid_int.items()}
+            self._wet_fc = torch.as_tensor(wet_fc, **kw)
+            self._wet_cf = torch.as_tensor(wet_cf, **kw)
+        else:
+            self._H_fc = self._H_cf = Lz
+            self._fluid_int = None
+            self._wet_fc = self._wet_cf = None
+        if isinstance(self.free_surface, ImplicitFreeSurface):
+            self._setup_implicit_free_surface(H_fc if self._immersed else Lz,
+                                              H_cf if self._immersed else Lz)
         self._nt = numpy_dtype(self.grid.dtype)
         nt = self._nt
         shape = self.grid.padded_shape
@@ -220,6 +338,70 @@ class HydrostaticFreeSurfaceModel:
             self.state["barotropic"] = {
                 "U": self._zeros(shape[:2] + (1,)),
                 "V": self._zeros(shape[:2] + (1,))}
+
+    def _setup_implicit_free_surface(self, H_fc, H_cf):
+        """The implicit free surface's solver, chosen as in JAX: the FFT/DCT
+        solve on a regular RectilinearGrid of constant depth, else
+        preconditioned conjugate gradients (the FFT solve preconditions it
+        on a regular RectilinearGrid). ``H_fc``, ``H_cf``: the column depths
+        (float64)."""
+        from ..grids.rectilinear import RectilinearGrid
+        from ..solvers.fft_poisson import poisson_eigenvalues
+        grid = self.grid
+        base = getattr(grid, "underlying_grid", grid)
+        # the port's RectilinearGrid is regular in every direction
+        regular = isinstance(base, RectilinearGrid)
+        fft_capable = regular and not self._immersed
+        method = self.free_surface.solver_method
+        if method in ("Default", None):
+            method = ("FastFourierTransform" if fft_capable
+                      else "PreconditionedConjugateGradient")
+        if method == "HeptadiagonalIterativeSolver":
+            # the same operator: the matrix-free CG applies it
+            method = "PreconditionedConjugateGradient"
+        if method not in ("FastFourierTransform",
+                          "PreconditionedConjugateGradient"):
+            raise ValueError(f"unknown solver_method {method!r}")
+        if method == "FastFourierTransform" and not fft_capable:
+            raise ValueError("the FFT implicit free-surface solver needs a "
+                             "horizontally-regular rectilinear grid with "
+                             "constant depth; use solver_method='Precondition"
+                             "edConjugateGradient'")
+        self._ifs_method = method
+        kw = dict(dtype=grid.dtype, device=grid.device)
+        self._fs_plan = None
+        if method == "FastFourierTransform" or regular:
+            lam = np.zeros((1, 1, 1))
+            self._fs_plan = []
+            for axis in (0, 1):
+                if grid.is_flat(axis):
+                    continue
+                topo = grid.topology[axis]
+                sh = [1, 1, 1]
+                sh[axis] = grid.N[axis]
+                lam = lam + poisson_eigenvalues(
+                    grid.N[axis], grid.extent[axis], topo).reshape(sh)
+                self._fs_plan.append((axis, "fft" if topo == "periodic"
+                                      else "dct"))
+            self._fs_lam = torch.as_tensor(lam, **kw)
+        if method == "PreconditionedConjugateGradient":
+            def m2(name, loc):
+                return np.array(np.broadcast_to(np.asarray(
+                    numpy_metric(grid, name, loc), float),
+                    grid.padded_shape)[:, :, :1])
+
+            # the fluid column's lateral areas: ∫ᶻAx = Δy·H at (f, c),
+            # ∫ᶻAy = Δx·H at (c, f)
+            self._int_Ax = torch.as_tensor(m2("dy", LOC_FCC)
+                                           * np.asarray(H_fc), **kw)
+            self._int_Ay = torch.as_tensor(m2("dx", LOC_CFC)
+                                           * np.asarray(H_cf), **kw)
+            self._az2d = torch.as_tensor(m2("Az", LOC_CCC), **kw)
+            self._pcg_metrics = {key: torch.as_tensor(m2(*key), **kw)
+                                 for key in (("dx", LOC_FCC), ("dy", LOC_CFC),
+                                             ("dy", LOC_FCC),
+                                             ("dx", LOC_CFC))}
+            self._pcg_precondition = regular
 
     def _kernel_route(self, fused_tendencies, coriolis):
         """Whether the tendency launches the kernel (module docstring)."""
@@ -237,6 +419,121 @@ class HydrostaticFreeSurfaceModel:
                 return False
             raise
         return on_card
+
+    def _install_tke_surface_flux(self, bcs_in):
+        """The substepped closure's surface couplings from the user's
+        conditions, as the JAX model derives them. k-ε: the friction
+        velocity u★ = (τx² + τy²)^¼ from the u and v top fluxes. CATKE:
+        ``surface_buoyancy_flux`` Jᵇ from the top flux
+        of b (BuoyancyTracer) or of T and S (SeawaterBuoyancy with a linear
+        equation of state: Jᵇ = g(αJᵀ − βJˢ)) unless given, and e's top
+        Flux condition −Cᵂu★·u★³ − CᵂwΔ·max(Jᵇ, 0)·Δz with
+        u★ = (τx² + τy²)^¼ from the u and v top fluxes, unless the user set
+        one. A callable condition keeps its field dependencies, which the
+        closure and the e condition read at the surface."""
+        def top_flux(name):
+            fb = bcs_in.get(name)
+            bc = getattr(fb, "top", None) if fb is not None else None
+            if bc is None or getattr(bc, "classification", None) != FLUX:
+                return None
+            cond = bc.condition
+            deps = tuple(bc.field_dependencies)
+            if deps and callable(cond):
+                def wrapped(x, y, t, *dep_vals, _c=cond):
+                    return _c(x, y, t, *dep_vals)
+                wrapped.field_dependencies = deps
+                return wrapped
+            return cond
+
+        clo = getattr(self.closure, "tke_member", None) or self.closure
+        if not hasattr(clo, "surface_buoyancy_flux"):
+            # k-ε: the friction velocity u★ = (τx² + τy²)^¼ of its ε
+            # roughness; its surface e and ε flux coefficients are 0 by
+            # default, so no condition is installed
+            tau_x, tau_y = top_flux("u"), top_flux("v")
+            if clo.friction_velocity is None and (tau_x is not None
+                                                  or tau_y is not None):
+                if callable(tau_x) or callable(tau_y):
+                    def ustar_fn(x, y, t, _tx=tau_x, _ty=tau_y):
+                        tx = _tx(x, y, t) if callable(_tx) else (_tx or 0.0)
+                        ty = _ty(x, y, t) if callable(_ty) else (_ty or 0.0)
+                        return (tx * tx + ty * ty) ** 0.25
+                    clo.friction_velocity = ustar_fn
+                else:
+                    tx, ty = tau_x or 0.0, tau_y or 0.0
+                    clo.friction_velocity = (tx * tx + ty * ty) ** 0.25
+            return bcs_in
+        if clo.surface_buoyancy_flux is None:
+            buoy = clo.buoyancy or self.buoyancy
+            Jb = None
+            if isinstance(buoy, BuoyancyTracer):
+                Jb = top_flux("b")
+            elif isinstance(buoy, SeawaterBuoyancy) and hasattr(buoy.eos,
+                                                                "alpha"):
+                JT, JS = top_flux("T"), top_flux("S")
+                if JT is not None or JS is not None:
+                    g, al, be = buoy.g, buoy.eos.alpha, buoy.eos.beta
+
+                    def Jb_fn(x, y, t, _JT=JT, _JS=JS):
+                        jt = (_JT(x, y, t) if callable(_JT)
+                              else (_JT or 0.0))
+                        js = (_JS(x, y, t) if callable(_JS)
+                              else (_JS or 0.0))
+                        return g * (al * jt - be * js)
+
+                    Jb = (g * (al * (JT or 0.0) - be * (JS or 0.0))
+                          if not (callable(JT) or callable(JS)) else Jb_fn)
+            if Jb is not None:
+                clo.surface_buoyancy_flux = Jb
+
+        fb_e = bcs_in.get("e")
+        if fb_e is not None and getattr(fb_e, "top", None) is not None:
+            return bcs_in
+        tau_x, tau_y = top_flux("u"), top_flux("v")
+        Jb = clo.surface_buoyancy_flux
+        if tau_x is None and tau_y is None and Jb is None:
+            return bcs_in
+        h, n = self.grid.H[2], self.grid.N[2]
+        dz_top = float(np.broadcast_to(
+            np.asarray(numpy_metric(self.grid, "dz", LOC_CCC), float),
+            self.grid.padded_shape)[0, 0, h + n - 1])
+        Cwu = clo.tke_equation.Cwu
+        CwD = clo.tke_equation.CwD
+
+        def _deps(q):
+            return (tuple(getattr(q, "field_dependencies", ()))
+                    if callable(q) else ())
+
+        e_deps = _deps(tau_x) + _deps(tau_y) + _deps(Jb)
+
+        def e_top_flux(x, y, t, *dep_vals):
+            k = [0]
+
+            def ev(q):
+                if q is None:
+                    return 0.0
+                if callable(q):
+                    nd = len(_deps(q))
+                    vals = dep_vals[k[0]:k[0] + nd]
+                    k[0] += nd
+                    return q(x, y, t, *vals)
+                return q
+            tx, ty = ev(tau_x), ev(tau_y)
+            ustar = (tx * tx + ty * ty) ** 0.25
+            wD3 = _positive(ev(Jb)) * dz_top
+            return -Cwu * ustar ** 3 - CwD * wD3
+
+        top_bc = BoundaryCondition(FLUX, e_top_flux,
+                                   field_dependencies=e_deps)
+        bcs_in = dict(bcs_in)
+        if fb_e is None:
+            bcs_in["e"] = FieldBoundaryConditions(top=top_bc)
+        else:
+            bcs_in["e"] = FieldBoundaryConditions(
+                west=fb_e.west, east=fb_e.east, south=fb_e.south,
+                north=fb_e.north, bottom=fb_e.bottom, top=top_bc,
+                immersed=fb_e.immersed)
+        return bcs_in
 
     # -- properties -----------------------------------------------------------
 
@@ -276,27 +573,50 @@ class HydrostaticFreeSurfaceModel:
         return torch.zeros(self.grid.padded_shape if shape is None else shape,
                            dtype=self.grid.dtype, device=self.grid.device)
 
-    # -- halo fills -----------------------------------------------------------
+    # -- halo fills and masks -------------------------------------------------
 
     def _fill_surface(self, a, loc, bcs):
         """The x/y halos of a 2-D surface field, in place."""
         return fill_surface_halo_regions([a], self.grid, [(loc, bcs)])[0]
 
     def _fill_all(self, fields):
-        """Fill the halos of ``fields`` ({name: padded tensor}) in place."""
+        """Fill the halos of ``fields`` ({name: padded tensor}) in place;
+        on an immersed grid the prognostic fields' solid cells are zeroed
+        first (into new tensors)."""
         names = [n for n in fields if n != "eta"]
+        if self._immersed:
+            for n in names:
+                if n in self.prognostic_3d:
+                    fields[n] = self.grid.mask_immersed(fields[n],
+                                                        self.loc(n))
         fill_all_halo_regions([fields[n] for n in names], self.grid,
                               [(self.loc(n), self.bcs[n]) for n in names])
         if "eta" in fields:
             self._fill_surface(fields["eta"], LOC_CCC, self.bcs["eta"])
         return fields
 
+    def _mask_state(self, new):
+        """Zero the prognostic fields inside the topography."""
+        if self._immersed:
+            for n in self.prognostic_3d:
+                if n in new:
+                    new[n] = self.grid.mask_immersed(new[n], self.loc(n))
+        return new
+
+    def _mask_kz(self, kz):
+        """No implicit diffusive flux through a face next to a solid
+        cell."""
+        if not self._immersed:
+            return kz
+        return kz * self.grid.fluid_mask(LOC_CCF, self.grid.dtype)
+
     # -- set ------------------------------------------------------------------
 
     def set(self, **values):
         """Set prognostic fields from scalars, arrays or callables of
         (λ, φ, z); η takes a 2-D or (Nx, Ny, 1) array too. Setting u, v or η
-        re-initializes the barotropic transports from ∫u dz, ∫v dz."""
+        re-initializes the barotropic transports from ∫u dz, ∫v dz. On an
+        immersed grid the solid cells are zeroed."""
         fields = dict(self.state["fields"])
         for name, value in values.items():
             if name not in fields:
@@ -319,23 +639,29 @@ class HydrostaticFreeSurfaceModel:
                                                    self.bcs["eta"])
                 continue
             data = set_on_padded(self.grid, self.loc(name), value)
+            if self._immersed:
+                data = self.grid.mask_immersed(data, self.loc(name))
             fill_all_halo_regions([data], self.grid,
                                   [(self.loc(name), self.bcs[name])])
             fields[name] = data
         self.state = {**self.state, "fields": fields}
         if "barotropic" in self.state and {"u", "v", "eta"} & set(values):
-            U = self._fill_surface(self._depth_integral(fields["u"]), LOC_FCC,
-                                   self.bcs["u"])
-            V = self._fill_surface(self._depth_integral(fields["v"]), LOC_CFC,
-                                   self.bcs["v"])
+            U = self._fill_surface(self._depth_integral(fields["u"], LOC_FCC),
+                                   LOC_FCC, self.bcs["u"])
+            V = self._fill_surface(self._depth_integral(fields["v"], LOC_CFC),
+                                   LOC_CFC, self.bcs["v"])
             self.state = {**self.state, "barotropic": {"U": U, "V": V}}
 
     # -- diagnostics ----------------------------------------------------------
 
-    def _depth_integral(self, q):
-        """∫ q dz over the interior z, as a (Nx + 2Hx, Ny + 2Hy, 1) tensor."""
+    def _depth_integral(self, q, loc):
+        """∫ q dz over the fluid column, as a (Nx + 2Hx, Ny + 2Hy, 1)
+        tensor."""
         h, n = self.grid.H[2], self.grid.N[2]
-        return (q[:, :, h:h + n] * self._dzc).sum(2, keepdim=True)
+        integrand = q[:, :, h:h + n] * self._dz_cols
+        if self._immersed:
+            integrand = integrand * self._fluid_int[tuple(loc)]
+        return integrand.sum(2, keepdim=True)
 
     def _w_from_continuity(self, u, v):
         """w at the z faces by integrating continuity up from the bottom;
@@ -343,7 +669,7 @@ class HydrostaticFreeSurfaceModel:
         grid = self.grid
         h, n = grid.H[2], grid.N[2]
         sx, sy = grid.interior_slices[:2]
-        d = div_xy_ccc(grid, u, v)[sx, sy, h:h + n] * self._dzc
+        d = div_xy_ccc(grid, u, v)[sx, sy, h:h + n] * self._dz_int
         w = self._zeros()
         w[sx, sy, h + 1:h + n + 1] = -torch.cumsum(d, dim=2)
         return fill_all_halo_regions([w], grid, [(LOC_CCF, self.bcs["w"])])[0]
@@ -357,7 +683,7 @@ class HydrostaticFreeSurfaceModel:
         h, n = grid.H[2], grid.N[2]
         sx, sy = grid.interior_slices[:2]
         bdz = self.buoyancy.buoyancy_ccc(grid, fields)[sx, sy, h:h + n] \
-            * self._dzc
+            * self._dz_int
         above = torch.flip(torch.cumsum(torch.flip(bdz, [2]), 2), [2]) - bdz
         p = self._zeros()
         p[sx, sy, h:h + n] = -(0.5 * bdz + above)
@@ -366,7 +692,13 @@ class HydrostaticFreeSurfaceModel:
 
     # -- tendencies -----------------------------------------------------------
 
-    def _compute_tendencies(self, fields, w):
+    def _compute_tendencies(self, fields, w, time=0.0):
+        """The padded tendencies of u, v and the tracers and the closure's
+        diffusivities, in the JAX order: advection, Coriolis and ∂ₓ,ᵧ pₕ′
+        (the kernel or its plain version), the explicit free surface's -g∇η,
+        the closure's momentum and tracer terms (a substepped TKE takes
+        only the other members' terms here), forcing, then the boundary and
+        immersed fluxes."""
         grid = self.grid
         u, v = fields["u"], fields["v"]
         ph = self._hydrostatic_pressure(fields)
@@ -379,62 +711,320 @@ class HydrostaticFreeSurfaceModel:
             g = self.free_surface.g
             G["u"] = G["u"] - g * ddx(grid, fields["eta"], LOC_FCC)
             G["v"] = G["v"] - g * ddy(grid, fields["eta"], LOC_CFC)
+        aux = {}
+        if self.closure is not None:
+            cf = dict(fields)
+            cf["w"] = w
+            aux = self.closure.compute_diffusivities(grid, cf, time)
+            mt = self.closure.momentum_tendencies(grid, cf, aux)
+            G["u"] = G["u"] + mt["u"]
+            G["v"] = G["v"] + mt["v"]
+            for name in self.tracer_names:
+                if name in self._substepped_names:
+                    fn = getattr(self.closure,
+                                 "tracer_tendency_excluding_tke", None)
+                    if fn is not None:
+                        G[name] = G[name] + fn(grid, name, cf, aux)
+                else:
+                    G[name] = G[name] + self.closure.tracer_tendency(
+                        grid, name, cf, aux)
+        for name, F in self.forcing.items():
+            G[name] = G[name] + (F(grid, fields, time) if callable(F)
+                                 else F)
+        locs = {n: self.loc(n) for n in fields}
         for name in G:
             apply_flux_bcs_padded(G[name], grid, self.loc(name),
-                                  self.bcs[name])
-        return G
+                                  self.bcs[name], time, fields=fields,
+                                  locs=locs)
+            ibc = getattr(self.bcs[name], "immersed", None)
+            if self._immersed and ibc is not None:
+                G[name] = apply_immersed_flux_bcs(
+                    G[name], grid, self.loc(name), ibc, time,
+                    c=fields[name],
+                    kappa=immersed_diffusivity(self.closure, name))
+        return G, aux
 
     # -- step -----------------------------------------------------------------
 
+    def _implicit_solve(self, new, aux, dt):
+        """The closure's vertically implicit diffusion of the updated
+        fields (the substepped TKE is left to ``step_turbulence``); CATKE
+        run as an ordinary tracer closure adds its damping and the clip."""
+        if self.closure is None:
+            return new
+        kappas = self.closure.vertical_implicit_kappas(self.grid, new, aux)
+        dampings = {}
+        if self._substepped_tke:
+            for nm in self._substepped_names:
+                kappas.pop(nm, None)
+        elif hasattr(self.closure, "vertical_implicit_damping"):
+            dampings = self.closure.vertical_implicit_damping(
+                self.grid, new, aux)
+        for name, kz in kappas.items():
+            if name in new:
+                new[name] = implicit_vertical_diffusion(
+                    self.grid, new[name], self._mask_kz(kz), dt,
+                    damping=dampings.get(name))
+        if hasattr(self.closure, "clip_fields") and not self._substepped_tke:
+            new = self.closure.clip_fields(new)
+        return new
+
+    def tke_substeps(self, dt):
+        """CATKE's substep count M for a step of ``dt`` (1 without a
+        substepped TKE or without ``tke_time_step``)."""
+        if self._substepped_tke and self.closure.tke_time_step is not None:
+            return self.closure.substeps_for(dt)
+        return 1
+
+    def _fill_uv(self, new):
+        """Halo-filled copies of the updated u and v."""
+        uf, vf = new["u"].clone(), new["v"].clone()
+        fill_all_halo_regions([uf, vf], self.grid,
+                              [(LOC_FCC, self.bcs["u"]),
+                               (LOC_CFC, self.bcs["v"])])
+        return uf, vf
+
+    def _stage_free_surface(self, fields0, new, G, dt, barotropic,
+                            settings=None):
+        """The free surface over a (sub)step of ``dt`` from ``fields0``'s η,
+        forced by ``G`` (the AB2-weighted or the stage tendencies); returns
+        (new, the barotropic state)."""
+        fs = self.free_surface
+        if isinstance(fs, SplitExplicitFreeSurface):
+            eta_f, U_f, V_f = self._step_split_explicit(
+                fields0, G, dt, barotropic, settings)
+            du = (U_f - self._depth_integral(new["u"], LOC_FCC)) / self._H_fc
+            dv = (V_f - self._depth_integral(new["v"], LOC_CFC)) / self._H_cf
+            if self._immersed:
+                du = du * self._wet_fc
+                dv = dv * self._wet_cf
+            new["u"] = new["u"] + du
+            new["v"] = new["v"] + dv
+            new["eta"] = eta_f
+            return new, {"U": U_f, "V": V_f}
+        U, V = self._transports(new)
+        if isinstance(fs, ImplicitFreeSurface):
+            return self._implicit_eta_step(fields0["eta"], new, U, V, dt), None
+        grid = self.grid
+        div = (dx_c(grid, _metric(grid.dy(LOC_FCC), U) * U)
+               + dy_c(grid, _metric(grid.dx(LOC_CFC), V) * V)) \
+            / _metric(grid.Az(LOC_CCC), U)
+        new["eta"] = fields0["eta"] - dt * div
+        return new, None
+
     def time_step(self, dt):
-        """Advance the model by one quasi-AB2 step of Δt."""
+        """Advance the model by one step of Δt (quasi-AB2 or split RK3)."""
+        if isinstance(self.timestepper, SplitRungeKutta3TimeStepper):
+            return self._split_rk3_step(dt)
         nt = self._nt
         dt = nt(dt)
         fdt = float(dt)
         state = self.state
         clock = state["clock"]
+        time = float(clock["time"])
         euler = clock["iteration"] == 0 or clock["last_dt"] != dt
         c_new, c_old, keep = self.timestepper.coefficients(euler)
         fields = self._fill_all(dict(state["fields"]))
         w = self._w_from_continuity(fields["u"], fields["v"])
-        G = self._compute_tendencies(fields, w)
+        G, aux = self._compute_tendencies(fields, w, time)
         Gm = state["Gm"]
         ab2G = {n: c_new * G[n] - c_old * Gm[n] * keep
                 for n in self.prognostic_3d}
         new = {n: fields[n] + fdt * ab2G[n] for n in self.prognostic_3d}
-        fs = self.free_surface
+        new = self._implicit_solve(new, aux, fdt)
+        new, bt = self._stage_free_surface(fields, new, ab2G, fdt,
+                                           state.get("barotropic"))
+        new = self._mask_state(new)
+        uf, vf = self._fill_uv(new)
+        if self._substepped_tke:
+            # the TKE from the updated velocities, restarting from the old e
+            fnew = dict(new)
+            fnew.update(u=uf, v=vf,
+                        **{nm: fields[nm] for nm in self._substepped_names})
+            slow = {nm: G[nm] for nm in self._substepped_names}
+            prev = {nm: Gm[nm] for nm in self._substepped_names}
+            upd, Gm_t = self.closure.step_turbulence(
+                self.grid, fields, fnew, slow, prev, fdt,
+                self.timestepper.chi, euler, self.tke_substeps(fdt), time)
+            G = dict(G)
+            for nm, val in upd.items():
+                if self._immersed:
+                    val = self.grid.mask_immersed(val, LOC_CCC)
+                new[nm] = val
+                G[nm] = Gm_t[nm]
+        w_new = self._w_from_continuity(uf, vf)
+        self._advance_state(new, w_new, G, bt, dt)
+        return self
+
+    def _split_rk3_step(self, dt):
+        """Three stages, each an Euler step of Δt/β from the step's start
+        (β = 3, 2, 1): the tendencies of the stage's fields, the implicit
+        solve, the free surface (split-explicit: with the whole step's
+        substep settings) and, for a substepped TKE, one Euler substep of
+        the stage; the masks. The step-start fields keep their halos as
+        stored (the fills work on copies), as in JAX."""
+        nt = self._nt
+        dt = nt(dt)
+        fdt = float(dt)
+        state = self.state
+        time = float(state["clock"]["time"])
+        fields0 = state["fields"]
         bt = state.get("barotropic")
-        if isinstance(fs, SplitExplicitFreeSurface):
-            eta_f, U_f, V_f = self._step_split_explicit(fields, ab2G, fdt, bt)
-            du = (U_f - self._depth_integral(new["u"])) / self._H
-            dv = (V_f - self._depth_integral(new["v"])) / self._H
-            new["u"] = new["u"] + du
-            new["v"] = new["v"] + dv
-            new["eta"] = eta_f
-            bt = {"U": U_f, "V": V_f}
-        else:
-            grid = self.grid
-            U = self._depth_integral(new["u"])
-            V = self._depth_integral(new["v"])
+        settings = (self.free_surface.settings(fdt) if isinstance(
+            self.free_surface, SplitExplicitFreeSurface) else None)
+        fields = fields0
+        G = None
+        for beta in self.timestepper.betas:
+            sdt = fdt / beta
+            ff = self._fill_all({n: a.clone() for n, a in fields.items()})
+            w = self._w_from_continuity(ff["u"], ff["v"])
+            G, aux = self._compute_tendencies(ff, w, time)
+            new = {n: fields0[n] + sdt * G[n] for n in self.prognostic_3d}
+            new = self._implicit_solve(new, aux, sdt)
+            new, bt = self._stage_free_surface(fields0, new, G, sdt, bt,
+                                               settings)
+            if self._substepped_tke:
+                # χ = -1/2: the AB2 combination is an Euler step of the
+                # stage tendency
+                uf, vf = self._fill_uv(new)
+                fnew = dict(new)
+                fnew.update(u=uf, v=vf, **{nm: fields0[nm] for nm in
+                                           self._substepped_names})
+                slow = {nm: G[nm] for nm in self._substepped_names}
+                upd, _ = self.closure.step_turbulence(
+                    self.grid, ff, fnew, slow, slow, sdt, -0.5, True, 1,
+                    time)
+                for nm, val in upd.items():
+                    if self._immersed:
+                        val = self.grid.mask_immersed(val, LOC_CCC)
+                    new[nm] = val
+            fields = self._mask_state(new)
+        uf, vf = self._fill_uv(fields)
+        w_new = self._w_from_continuity(uf, vf)
+        self._advance_state(fields, w_new, G, bt, dt)
+        return self
+
+    def _advance_state(self, fields, w, G, barotropic, dt):
+        clock = self.state["clock"]
+        self.state = dict(fields=fields,
+                          clock=dict(time=self._nt(clock["time"] + dt),
+                                     iteration=clock["iteration"] + 1,
+                                     last_dt=dt),
+                          w=w, Gm=G)
+        if barotropic is not None:
+            self.state["barotropic"] = barotropic
+
+    # -- the implicit free surface --------------------------------------------
+
+    def _transports(self, new):
+        """∫u dz and ∫v dz of the updated velocities, their periodic halos
+        wrapped: the JAX tendencies carry the periodic images in their
+        first halo ring, where the port's are zero, and the divergence at
+        the seam reads that ring."""
+        U = self._depth_integral(new["u"], LOC_FCC)
+        V = self._depth_integral(new["v"], LOC_CFC)
+        return tuple(periodic_halo_fill(self.grid, [U, V]))
+
+    def _transform(self, b, inverse=False):
+        """The FFT (periodic) or DCT-II (bounded) of the 2-D ``b`` along x
+        then y (their inverses in the reverse order)."""
+        from ..solvers.transforms import dct2_matrix, idct2_matrix
+        plan = reversed(self._fs_plan) if inverse else self._fs_plan
+        for axis, kind in plan:
+            if kind == "fft":
+                b = (torch.fft.ifft if inverse else torch.fft.fft)(b, dim=axis)
+                continue
+            M = (idct2_matrix if inverse else dct2_matrix)(b.shape[axis])
+            M = torch.as_tensor(M, dtype=b.dtype, device=b.device)
+            b = torch.movedim(torch.matmul(torch.movedim(b, axis, -1),
+                                           M.transpose(0, 1)), -1, axis)
+        return b
+
+    def _implicit_free_surface_solve(self, eta_rhs, dt, H=None):
+        """(1 + gHΔt²λ) η̂ = η̂* in transform space; ``H`` overrides the
+        column depth (the constant depth of the PCG preconditioner)."""
+        grid = self.grid
+        sx, sy = grid.interior_slices[:2]
+        b = self._transform(eta_rhs[sx, sy, :])
+        g = self.free_surface.g
+        H = self._H_fc if H is None else H
+        b = b / (1.0 + g * H * dt * dt * self._fs_lam.to(eta_rhs.dtype))
+        b = self._transform(b, inverse=True)
+        if b.is_complex():
+            b = b.real
+        eta = torch.zeros_like(eta_rhs)
+        eta[sx, sy, :] = b.to(eta_rhs.dtype)
+        return eta
+
+    def _implicit_pcg_solve(self, eta_n, U, V, dt):
+        """Matrix-free preconditioned CG for the implicit free surface:
+
+            L(η) = δx(∫ᶻAx ∂x η) + δy(∫ᶻAy ∂y η) − Az η/(gΔt²)
+            rhs  = (δx(Δy U★) + δy(Δx V★) − Az ηⁿ/Δt) / (gΔt)
+
+        with the FFT solve of constant depth Lz as the preconditioner on a
+        regular RectilinearGrid."""
+        from ..operators.operators import dx_f, dy_f
+        from ..solvers.conjugate_gradient import conjugate_gradient
+        grid = self.grid
+        g = self.free_surface.g
+        sx, sy = grid.interior_slices[:2]
+        m = self._pcg_metrics
+        dx_fc, dy_cf = m[("dx", LOC_FCC)], m[("dy", LOC_CFC)]
+        dy_fc, dx_cf = m[("dy", LOC_FCC)], m[("dx", LOC_CFC)]
+
+        def embed(e_int):
+            e = torch.zeros_like(eta_n)
+            e[sx, sy, :] = e_int
+            return e
+
+        def L(e_int):
+            eta = self._fill_surface(embed(e_int), LOC_CCC, self.bcs["eta"])
+            fx = self._int_Ax * dx_f(grid, eta) / dx_fc
+            fy = self._int_Ay * dy_f(grid, eta) / dy_cf
+            lap = dx_c(grid, fx) + dy_c(grid, fy)
+            out = lap - self._az2d * eta / (g * dt * dt)
+            return out[sx, sy, :]
+
+        rhs = ((dx_c(grid, dy_fc * U) + dy_c(grid, dx_cf * V)
+                - self._az2d * eta_n / dt) / (g * dt))[sx, sy, :]
+        precond = None
+        if self._pcg_precondition:
+            Lz = abs(grid.extent[2])
+            az = self._az2d[sx, sy, :]
+
+            def precond(r):
+                # L ≈ −Az/(gΔt²)(1 − gH̄Δt²∇²) at the constant depth Lz
+                rr = embed(-(g * dt * dt) * r / az)
+                return self._implicit_free_surface_solve(rr, dt, H=Lz)[
+                    sx, sy, :]
+
+        reltol = 1e-7 if eta_n.dtype == torch.float64 else 1e-5
+        x, _, _ = conjugate_gradient(
+            L, rhs, x0=eta_n[sx, sy, :], preconditioner=precond,
+            reltol=reltol, maxiter=grid.N[0] * grid.N[1])
+        return embed(x)
+
+    def _implicit_eta_step(self, eta_n, new, U, V, dt):
+        """The backward-Euler free-surface step and the barotropic velocity
+        correction u ← u* − Δt g ∂x ηⁿ⁺¹."""
+        grid = self.grid
+        if self._ifs_method == "FastFourierTransform":
             div = (dx_c(grid, _metric(grid.dy(LOC_FCC), U) * U)
                    + dy_c(grid, _metric(grid.dx(LOC_CFC), V) * V)) \
                 / _metric(grid.Az(LOC_CCC), U)
-            new["eta"] = fields["eta"] - fdt * div
-        uf, vf = new["u"].clone(), new["v"].clone()
-        fill_all_halo_regions([uf, vf], self.grid,
-                              [(LOC_FCC, self.bcs["u"]),
-                               (LOC_CFC, self.bcs["v"])])
-        w_new = self._w_from_continuity(uf, vf)
-        self.state = dict(fields=new,
-                          clock=dict(time=nt(clock["time"] + dt),
-                                     iteration=clock["iteration"] + 1,
-                                     last_dt=dt),
-                          w=w_new, Gm=G)
-        if bt is not None:
-            self.state["barotropic"] = bt
-        return self
+            eta = self._implicit_free_surface_solve(eta_n - dt * div, dt)
+        else:
+            eta = self._implicit_pcg_solve(eta_n, U, V, dt)
+        eta = self._fill_surface(eta, LOC_CCC, self.bcs["eta"])
+        g = self.free_surface.g
+        new["u"] = new["u"] - dt * g * ddx(grid, eta, LOC_FCC)
+        new["v"] = new["v"] - dt * g * ddy(grid, eta, LOC_CFC)
+        new["eta"] = eta
+        return new
 
-    def _step_split_explicit(self, fields, ab2G, dt, barotropic):
+    def _step_split_explicit(self, fields, ab2G, dt, barotropic,
+                             settings=None):
         """Substep (η, U, V) from the persisted barotropic state, forced by
         the depth integrals of the AB2-weighted tendencies; returns the
         filtered (η, U, V), halos filled."""
@@ -446,17 +1036,17 @@ class HydrostaticFreeSurfaceModel:
             return tuple(fill_surface_halo_regions([eta, U, V], self.grid,
                                                    locs_bcs))
 
-        GU = self._depth_integral(ab2G["u"])
-        GV = self._depth_integral(ab2G["v"])
+        GU = self._depth_integral(ab2G["u"], LOC_FCC)
+        GV = self._depth_integral(ab2G["v"], LOC_CFC)
         eta_f, U_f, V_f = fs.substep(
-            self.grid, self._H, self._H, fields["eta"], barotropic["U"],
-            barotropic["V"], GU, GV, dt, fill)
+            self.grid, self._H_fc, self._H_cf, fields["eta"],
+            barotropic["U"], barotropic["V"], GU, GV, dt, fill, settings)
         return fill(eta_f, U_f, V_f)
 
     def __repr__(self):
         return (f"HydrostaticFreeSurfaceModel(grid={self.grid!r}, "
                 f"free_surface={type(self.free_surface).__name__}, "
-                f"tracers={self.tracer_names})")
+                f"closure={self.closure!r}, tracers={self.tracer_names})")
 
 
 def state_from_jax(jax_state_numpy, model):

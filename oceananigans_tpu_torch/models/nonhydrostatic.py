@@ -5,8 +5,9 @@ RectilinearGrid with periodic x and y and a bounded z: flux-form advection,
 tracers, buoyancy (``BuoyancyTracer``, ``SeawaterBuoyancy`` with its
 equations of state, ``BuoyancyForce`` for a tilted gravity), Coriolis, the
 closures of ``closures/`` (the scalar-diffusivity family, closure tuples,
-Smagorinsky, Lilly, dynamic Smagorinsky, AMD) with the vertically implicit
-solve, user forcing, Stokes drift, background fields, scalar
+Smagorinsky, Lilly, dynamic Smagorinsky, AMD, and the vertical closures,
+CATKE among them as an ordinary tracer closure with its implicit damping)
+with the vertically implicit solve, user forcing, Stokes drift, background fields, scalar
 Value/Gradient/Flux conditions on the z sides, RK3 or quasi-AB2, and the
 FFT/DCT pressure projection. Other pressure solvers, biogeochemistry,
 particles and auxiliary fields raise ``NotImplementedError`` naming their
@@ -132,6 +133,11 @@ class NonhydrostaticModel:
             if value:
                 raise NotImplementedError(
                     f"{name} is not ported yet: {_NOT_PORTED[name]}")
+        if hasattr(grid, "solid_ccc"):
+            raise NotImplementedError(
+                "the port's NonhydrostaticModel on an ImmersedBoundaryGrid "
+                "(masked advection, the immersed pressure solve) is not "
+                "ported yet: ROADMAP.md queue 1 item 11")
         if not getattr(grid, "all_regular", False) or grid.topology != (
                 PERIODIC, PERIODIC, BOUNDED):
             raise NotImplementedError(
@@ -431,8 +437,10 @@ class NonhydrostaticModel:
                                                        aux))
         for name, F in self.forcing.items():
             G[name] = G[name] + _interior(grid, F(grid, fields, time))
+        locs = {n: self.loc(n) for n in fields}
         for name in G:
-            apply_flux_bcs(G[name], grid, self.loc(name), self.bcs[name])
+            apply_flux_bcs(G[name], grid, self.loc(name), self.bcs[name],
+                           time, fields=fields, locs=locs)
         return G, aux
 
     def _implicit_step(self, fields, aux, dtt):
@@ -440,11 +448,25 @@ class NonhydrostaticModel:
         if self.closure is None:
             return fields
         kappas = self.closure.vertical_implicit_kappas(self.grid, fields, aux)
+        if not kappas:
+            return fields
+        # CATKE, run here as an ordinary tracer closure, damps e implicitly
+        # and floors it
+        dampings = {}
+        if hasattr(self.closure, "vertical_implicit_damping"):
+            dampings = self.closure.vertical_implicit_damping(
+                self.grid, fields, aux)
         out = dict(fields)
         for name, kz in kappas.items():
-            solve = (implicit_vertical_diffusion_w if name == "w"
-                     else implicit_vertical_diffusion)
-            out[name] = solve(self.grid, fields[name], kz, dtt)
+            if name == "w":
+                out[name] = implicit_vertical_diffusion_w(
+                    self.grid, fields[name], kz, dtt)
+            else:
+                out[name] = implicit_vertical_diffusion(
+                    self.grid, fields[name], kz, dtt,
+                    damping=dampings.get(name))
+        if hasattr(self.closure, "clip_fields"):
+            out = self.closure.clip_fields(out)
         return out
 
     def _update(self, fields, coefficients, dt):

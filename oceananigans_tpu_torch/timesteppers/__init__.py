@@ -1,6 +1,8 @@
 from .steppers import (RK3_GAMMAS, RK3_ZETAS,
                        QuasiAdamsBashforth2TimeStepper,
-                       RungeKutta3TimeStepper, stage_update)
+                       RungeKutta3TimeStepper, SplitRungeKutta3TimeStepper,
+                       stage_update)
 
 __all__ = ["RK3_GAMMAS", "RK3_ZETAS", "QuasiAdamsBashforth2TimeStepper",
-           "RungeKutta3TimeStepper", "stage_update"]
+           "RungeKutta3TimeStepper", "SplitRungeKutta3TimeStepper",
+           "stage_update"]

@@ -1,11 +1,12 @@
 """Time steppers: 3rd-order Runge-Kutta (Le & Moin 1991) and
 quasi-Adams-Bashforth-2.
 
-Counterpart of ``oceananigans_tpu/timesteppers/steppers.py`` (without the
-split RK3): RK3 with γ¹=8/15, γ²=5/12, γ³=3/4, ζ²=-17/60, ζ³=-5/12, substep
+Counterpart of ``oceananigans_tpu/timesteppers/steppers.py``: RK3 with γ¹=8/15, γ²=5/12, γ³=3/4, ζ²=-17/60, ζ³=-5/12, substep
 Uᵐ⁺¹ = Uᵐ + Δt(γᵐGᵐ + ζᵐGᵐ⁻¹) with a pressure correction per substep; QAB2
 with Uⁿ⁺¹ = Uⁿ + Δt[(3/2+χ)Gⁿ - (1/2+χ)Gⁿ⁻¹], χ = 0.1 by default and
-χ = -1/2 (forward Euler) on the first step and after Δt changes.
+χ = -1/2 (forward Euler) on the first step and after Δt changes; the split
+RK3 of Knoth and Wensch (2014), each stage an Euler step of Δt/βᵐ from the
+step's start, β = (3, 2, 1).
 """
 
 from __future__ import annotations
@@ -48,3 +49,12 @@ class QuasiAdamsBashforth2TimeStepper:
         does."""
         chi = -0.5 if euler else self.chi
         return 1.5 + chi, 0.5 + chi, 0.0 if euler else 1.0
+
+
+class SplitRungeKutta3TimeStepper:
+    """Each stage an Euler step of Δt/β from the state at the step's start,
+    β = (3, 2, 1)."""
+
+    name = "SplitRungeKutta3"
+    n_stages = 3
+    betas = (3.0, 2.0, 1.0)

@@ -488,15 +488,18 @@ def test_hydrostatic_turbulence_golden(fused):
 # -- what is not ported ---------------------------------------------------------
 
 UNPORTED = {
-    "closure": (dict(closure=object()), "item 13"),
-    "forcing": (dict(forcing={"u": 0.0}), "item 13"),
+    # a closure that is not one of the port's (isopycnal ones among them)
+    "closure": (dict(closure=object()), "items 13 and 15"),
+    "biogeochemistry": (dict(biogeochemistry=object()), "item 15"),
     "zstar": (dict(vertical_coordinate="zstar"), "z-star"),
-    "split_rk3": (dict(timestepper="SplitRungeKutta3"), "SplitRungeKutta3"),
+    "multi_dimensional_stencil": (lambda: dict(
+        momentum_advection=ot.VectorInvariant(multi_dimensional_stencil=True)),
+        "multi-dimensional"),
     "prescribed_velocities": (dict(velocities=object()), "prescribed"),
     "per_tracer_schemes": (dict(tracers=("T",), tracer_advection={
         "T": ot.WENO(5)}), "per-tracer"),
     "flux_form_momentum": (dict(momentum_advection=ot.WENO(5)), "flux-form"),
-    "default_free_surface": (dict(free_surface=None), "FixedTimeStepSize"),
+    "auxiliary_fields": (dict(auxiliary_fields={"a": object()}), "item 15"),
 }
 
 
@@ -504,6 +507,11 @@ UNPORTED = {
 def test_unported_options_raise(case):
     _, tg = _grids()
     kw, match = UNPORTED[case]
+    if callable(kw):
+        # an option whose object raises when it is built
+        with pytest.raises(NotImplementedError, match=match):
+            HydrostaticFreeSurfaceModel(tg, **kw())
+        return
     kw = dict(kw)
     kw.setdefault("free_surface", ot.SplitExplicitFreeSurface(substeps=5))
     if kw["free_surface"] is None:
@@ -513,12 +521,14 @@ def test_unported_options_raise(case):
 
 
 def test_unported_free_surfaces_and_grids_raise():
+    """The polar and stretched lat-lon grids raise; ImplicitFreeSurface and
+    FixedTimeStepSize (the cfl= substepping) build."""
     from oceananigans_tpu_torch.models.free_surfaces import (
         FixedTimeStepSize, ImplicitFreeSurface)
-    with pytest.raises(NotImplementedError, match="implicit free surface"):
-        ImplicitFreeSurface()
-    with pytest.raises(NotImplementedError, match="FixedTimeStepSize"):
-        FixedTimeStepSize(0.7)
+    assert ImplicitFreeSurface().solver_method == "Default"
+    assert FixedTimeStepSize(0.7).dt_barotropic is None
+    fs = ot.SplitExplicitFreeSurface(cfl=0.7)
+    assert isinstance(fs.substepping, FixedTimeStepSize)
     with pytest.raises(NotImplementedError, match="polar"):
         ot.LatitudeLongitudeGrid(size=(8, 8, 4), longitude=(0, 60),
                                  latitude=(-90, 90), z=Z, device="cpu")
@@ -585,14 +595,45 @@ def test_auto_uncovered_against_jax():
 
 
 def test_default_free_surface_follows_jax():
-    """With no free_surface the model takes the JAX default, neither of
-    which is ported yet: ImplicitFreeSurface on a regular RectilinearGrid,
-    SplitExplicitFreeSurface(cfl=0.7) on a lat-lon grid."""
-    _, tg = _grids()
-    rg = ot.RectilinearGrid(size=(8, 8, 4), extent=(1e5, 1e5, 100.0),
-                            topology=("periodic", "bounded", "bounded"),
-                            dtype=F64, device="cpu")
-    with pytest.raises(NotImplementedError, match="ImplicitFreeSurface"):
-        HydrostaticFreeSurfaceModel(rg, tracers=("T",))
-    with pytest.raises(NotImplementedError, match="cfl"):
-        HydrostaticFreeSurfaceModel(tg, tracers=("T",))
+    """With no free_surface the model takes the JAX default:
+    SplitExplicitFreeSurface(cfl=0.7) on a lat-lon grid, ImplicitFreeSurface
+    (by FFT) on a regular RectilinearGrid; 3 steps (Δt 120, 120 and 60 s:
+    an Euler restart) equal the JAX model's within 1e-10 on each."""
+    for grid in ("latlon", "rectilinear"):
+        _default_free_surface_against_jax(grid)
+
+
+def _default_free_surface_against_jax(grid):
+    from oceananigans_tpu_torch.models.free_surfaces import (
+        FixedTimeStepSize, ImplicitFreeSurface)
+    built = []
+    for J in (True, False):
+        kw = (dict(dtype=np.float64) if J
+              else dict(dtype=F64, device="cpu"))
+        lib = jo if J else ot
+        if grid == "latlon":
+            g = lib.LatitudeLongitudeGrid(size=N, longitude=BOUNDED_X,
+                                          latitude=LAT, z=Z, **kw)
+            cor = (JHSC if J else ot.HydrostaticSphericalCoriolis)()
+        else:
+            g = lib.RectilinearGrid(size=N, extent=(1e6, 8e5, 1000.0),
+                                    topology=("periodic", "bounded",
+                                              "bounded"), **kw)
+            cor = lib.FPlane(f=1e-4)
+        M = JModel if J else HydrostaticFreeSurfaceModel
+        built.append(M(g, coriolis=cor, tracers=("T",)))
+    jm, tm = built
+    if grid == "latlon":
+        assert isinstance(tm.free_surface.substepping, FixedTimeStepSize)
+        assert tm.free_surface.substepping.cfl == 0.7
+    else:
+        assert isinstance(tm.free_surface, ImplicitFreeSurface)
+        assert tm._ifs_method == "FastFourierTransform"
+    rng = np.random.default_rng(5)
+    u0, v0 = (0.05 * rng.standard_normal(N) for _ in range(2))
+    for m in built:
+        m.set(u=u0, v=v0, T=lambda x, y, z: 12 + 8e-3 * z + 1e-6 * y)
+    for dt in (120.0, 120.0, 60.0):
+        jm.time_step(dt)
+        tm.time_step(dt)
+    _compare(jm, tm, 1e-10)
