@@ -155,6 +155,39 @@ Phases (each raises on failure; nothing is caught):
    CATKE's diffusivities, the implicit solve, step_turbulence, the substep
    loop, the fills), the device-busy share, the device kernels per step
    and peak memory.
+23. The run loop (every file in a temporary directory):
+   (a) the flagship through ``Simulation.run``: the bare ``time_step``
+   loop against ``Simulation.run`` without writers, alternated three times
+   in the same call; then 20 steps from iteration 0 with
+   ``TimeStepWizard(cfl=0.5)`` every 5 iterations, a progress callback,
+   the default NaN check, a FieldWriter of the surface u and w on
+   ``TimeInterval(5.5e-4)`` (it shrinks Δt), a FieldWriter of u on
+   ``AveragedTimeInterval(1e-3, window=5e-4)``, a NetCDFWriter of a
+   mid-depth slice of u and a Checkpointer every 10 iterations: the
+   launch counters of #1-#4 rise in ``run()`` and no plain version runs
+   on CUDA tensors, the files read back (the port's FieldTimeSeries,
+   scipy) equal the state recorded at their iterations (the averages
+   within 1e-6 of the recorded states' average), a second model picked up
+   from the iteration-10 checkpoint with the first run's Δt sequence
+   equals the first at iteration 20 bit for bit in every state tensor;
+   each write's and checkpoint's time and bytes, the wizard's time a call,
+   the run's wall time and peak memory. At 64³ a no-op tendency hook
+   moves the model from #1 to #6 (counters), its 3 steps equal the
+   hook-free tendency route bit for bit and the fused route within 1e-5.
+   (b) the CATKE ocean row (flat bottom) through ``Simulation.run`` with
+   ``reference_datetime``, a calendar ``stop_time`` (20 steps of 120 s),
+   u's top stress from a FieldTimeSeries (4 snapshots of τx 6 h apart,
+   written with this phase's FieldWriter) through
+   ``FieldTimeSeriesBoundaryCondition``, the wizard capped at 120 s, a
+   NetCDFWriter of the surface T, S and η and a Checkpointer: the series
+   at a mid-snapshot time equals the hand-lerped snapshots bit for bit
+   (and so does the condition's padded plane), #10 launches once a step
+   and the fills rise, no plain version on CUDA tensors, T conserved over
+   the fluid cells (1e-6), the NetCDF file equals the recorded state, the
+   pickup from iteration 10 is bit for bit (the AB2 G⁻, the barotropic
+   state and CATKE's e included); the writes' and checkpoint's times and
+   bytes, the wizard's time, wall time and peak memory, then the loop
+   against the bare step, alternated three times.
 
 Fill times are CUDA events around one call behind a busy card (the device's
 time, ``device_ms``), with the call from an idle card beside them (host
@@ -164,16 +197,20 @@ the JSON list of kernels; the last line is
 when no CUDA card is available.
 """
 
+import datetime
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import torch
+from scipy.io import netcdf_file
 
 
 def device_phase():
@@ -1994,7 +2031,8 @@ def ocean_model(N, dtype, device, immersed=False, seed=0,
                 smoothness=torch.float32, fused_tendencies="auto",
                 longitude=(0, 60), latitude=(15, 75),
                 momentum_advection=None, free_surface=None,
-                timestepper="QuasiAdamsBashforth2"):
+                timestepper="QuasiAdamsBashforth2", top_u=-1e-4,
+                reference_datetime=None):
     """The CATKE ocean row: the ocean_catke_windstress golden's
     configuration at the hydro_row's size. A lat-lon grid 1800 m deep,
     WENOVectorInvariant(), tracer_advection=WENO(5),
@@ -2005,8 +2043,10 @@ def ocean_model(N, dtype, device, immersed=False, seed=0,
     u = 0.05·N(0, 1) from np.random.default_rng(seed); with ``immersed``
     the grid carries ``ocean_ridge`` as a GridFittedBottom;
     ``momentum_advection``, ``free_surface`` and ``timestepper`` replace
-    the row's."""
+    the row's; ``top_u`` (a number or callable for a FluxBoundaryCondition,
+    or a boundary condition) replaces u's top flux."""
     import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch.boundary_conditions import BoundaryCondition
     from oceananigans_tpu_torch.closures import CATKEVerticalDiffusivity
     from oceananigans_tpu_torch.immersed import (GridFittedBottom,
                                                  ImmersedBoundaryGrid)
@@ -2025,9 +2065,10 @@ def ocean_model(N, dtype, device, immersed=False, seed=0,
         free_surface=free_surface or ot.SplitExplicitFreeSurface(cfl=0.7),
         buoyancy=buoyancy, closure=CATKEVerticalDiffusivity(),
         tracers=("T", "S"), fused_tendencies=fused_tendencies,
-        timestepper=timestepper,
+        timestepper=timestepper, reference_datetime=reference_datetime,
         boundary_conditions={"u": ot.FieldBoundaryConditions(
-            top=ot.FluxBoundaryCondition(-1e-4),
+            top=(top_u if isinstance(top_u, BoundaryCondition)
+                 else ot.FluxBoundaryCondition(top_u)),
             bottom=ot.FluxBoundaryCondition(
                 ocean_drag, field_dependencies=("u", "v")))})
     rng = np.random.default_rng(seed)
@@ -2046,6 +2087,7 @@ def ocean_catke_windstress_model(dtype, device):
     SeawaterBuoyancy, CATKE, T and S, wind stress and the field-dependent
     drag on u; Δt = 600 s, 8 steps."""
     import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch.boundary_conditions import BoundaryCondition
     from oceananigans_tpu_torch.closures import CATKEVerticalDiffusivity
     from oceananigans_tpu_torch.immersed import (GridFittedBottom,
                                                  ImmersedBoundaryGrid)
@@ -4113,6 +4155,549 @@ def ocean_path_phase(card):
     return out
 
 
+# -- the run loop (phase 23) ------------------------------------------------------
+
+FLAGSHIP_SIM_DT = 1e-4
+SIM_STEPS = 20
+HOOK_N = 64
+TAU_SNAPSHOTS = 4
+TAU_SPACING = 6 * 3600.0
+SIM_START = datetime.datetime(2024, 1, 1)
+
+
+def flat_state(state, prefix=""):
+    """A model's state as {"fields/u": tensor, "clock/time": scalar, ...}."""
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, dict):
+            out.update(flat_state(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def check_same_state(label, a, b):
+    """Every tensor of two models' states bit for bit (max |a − b| printed)
+    and their clocks equal."""
+    sa, sb = flat_state(a.state), flat_state(b.state)
+    assert set(sa) == set(sb), (label, sorted(set(sa) ^ set(sb)))
+    worst, n = 0.0, 0
+    for key, x in sa.items():
+        y = sb[key]
+        if isinstance(x, torch.Tensor):
+            assert x.shape == y.shape and x.dtype == y.dtype, (label, key)
+            assert torch.isfinite(x).all().item(), (label, key, "not finite")
+            worst = max(worst, (x - y).abs().max().item())
+            assert torch.equal(x, y), (label, key, "differs")
+            n += 1
+        else:
+            assert x == y, (label, key, x, y)
+    print(f"{label}: picked up at iteration 10 and run to "
+          f"{a.iteration}: max |diff| {worst:.1e} over {n} state tensors "
+          f"(bit for bit), clocks equal")
+
+
+class StepClock:
+    """A callback on every iteration: synchronize the card and read the
+    host clock, so that consecutive readings time the loop's steps."""
+
+    def __init__(self):
+        self.stamps = []
+
+    def __call__(self, sim):
+        torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+
+
+def loop_overhead(label, model, dt, steps, card, rounds=3):
+    """Same-call A/B of the bare ``time_step`` loop and ``Simulation.run``
+    with no writers (its default NaN check only), alternated ``rounds``
+    times over ``steps`` steps each: the median step of each side, host
+    clock from one synchronize to the next."""
+    import oceananigans_tpu_torch as ot
+    bare, loop = [], []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            model.time_step(dt)
+            torch.cuda.synchronize()
+            bare.append(time.perf_counter() - t0)
+        sim = ot.Simulation(model, dt=dt,
+                            stop_iteration=model.iteration + steps)
+        clock = StepClock()
+        sim.add_callback(clock, name="clock")
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        sim.run()
+        stamps = [start] + clock.stamps
+        loop.extend(b - a for a, b in zip(stamps, stamps[1:]))
+    b_ms = statistics.median(bare) * 1e3
+    s_ms = statistics.median(loop) * 1e3
+    print(f"{label}: bare time_step loop median {b_ms:.3f} ms (min "
+          f"{min(bare) * 1e3:.3f}, max {max(bare) * 1e3:.3f}), Simulation.run "
+          f"median {s_ms:.3f} ms (min {min(loop) * 1e3:.3f}, max "
+          f"{max(loop) * 1e3:.3f}), difference {s_ms - b_ms:+.3f} ms "
+          f"({100 * (s_ms - b_ms) / b_ms:+.2f}%), {rounds} alternated runs "
+          f"of {steps} steps each [{card}]")
+    return b_ms, s_ms
+
+
+def path_bytes(path):
+    """The bytes of a file, or of every file under a directory."""
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+class WriteLog:
+    """Times a writer's writes (host clock, the card synchronized before and
+    after) and the bytes each adds to its file or directory."""
+
+    def __init__(self):
+        self.ms, self.bytes = {}, {}
+
+    def wrap(self, label, obj, method, path):
+        fn = getattr(obj, method)
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            before = path_bytes(path) if os.path.exists(path) else 0
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.ms.setdefault(label, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            self.bytes.setdefault(label, []).append(path_bytes(path) - before)
+            return out
+        setattr(obj, method, timed)
+
+    def report(self, label, card):
+        for name, ms in self.ms.items():
+            nbytes = self.bytes[name]
+            rate = statistics.median(nbytes) / 1e3 / statistics.median(ms)
+            print(f"{label}: {name}: {len(ms)} calls, median "
+                  f"{statistics.median(ms):.3f} ms (min {min(ms):.3f}, max "
+                  f"{max(ms):.3f}), {statistics.median(nbytes):,.0f} bytes a "
+                  f"call, {rate:.1f} MB/s at the median [{card}]")
+
+
+def timed_wizard(wizard, log):
+    """The wizard as a callback whose calls are timed (host clock, the
+    card's queued work finished first, the wizard's own sync inside)."""
+    def call(sim):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wizard(sim)
+        log.append((time.perf_counter() - t0) * 1e3)
+    return call
+
+
+def expected_average(samples, t_out, window, tol):
+    """The time average over [t_out − window, t_out] of (t, u) samples, as
+    WindowedTimeAverage weighs them: each sample by the time since the
+    previous one inside the window (left Riemann), in float64."""
+    start = t_out - window
+    acc, wsum, last = None, 0.0, None
+    for t, u in samples:
+        if t < start - tol or t > t_out + tol:
+            continue
+        w = max(t - start, 0.0) if last is None or last < start else t - last
+        last = t
+        if w <= 0:
+            continue
+        acc = w * u.double() if acc is None else acc + w * u.double()
+        wsum += w
+    return acc / wsum
+
+
+def flagship_simulation_phase(card, tmp):
+    """Phase 23 (a): the 256³ flagship through Simulation.run (see the
+    module docstring)."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+    from oceananigans_tpu_torch.simulation.output_writers import field_output
+    label = "flagship Simulation"
+    n = 256
+    model = bench_model(n, torch.float32, "cuda")
+    for _ in range(3):
+        model.time_step(FLAGSHIP_SIM_DT)
+    loop_overhead(label, model, FLAGSHIP_SIM_DT, 10, card)
+    del model
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = bench_model(n, torch.float32, "cuda")
+    ints = model.grid.interior_slices
+    sim = ot.Simulation(model, dt=FLAGSHIP_SIM_DT, stop_iteration=SIM_STEPS)
+    wizard_ms = []
+    sim.add_callback(timed_wizard(ot.TimeStepWizard(cfl=0.5), wizard_ms),
+                     ot.IterationInterval(5), name="wizard")
+    sim.add_callback(lambda s: print(
+        f"{label}: iteration {s.model.iteration}, t = {s.model.time:.6e}, "
+        f"Δt = {s.dt:.6e}"), ot.IterationInterval(5), name="progress")
+    # the record the files are checked against, taken from the state
+    u_samples = [(model.time, model.state["fields"]["u"][ints].clone())]
+    slices = {0: model.state["fields"]["u"][ints][:, :, n // 2].clone()}
+    dts = {}
+
+    def record(s):
+        m = s.model
+        dts[m.iteration] = float(m.state["clock"]["last_dt"])
+        u = m.state["fields"]["u"][ints]
+        u_samples.append((m.time, u.clone()))
+        if m.iteration % 5 == 0:
+            slices[m.iteration] = u[:, :, n // 2].clone()
+    sim.add_callback(record, name="record")
+    surface_path = os.path.join(tmp, "flagship_surface")
+    surface = ot.FieldWriter(model, {"u": "u", "w": "w"}, surface_path,
+                             schedule=ot.TimeInterval(5.5e-4),
+                             indices=(slice(None), slice(None), -1))
+    average_path = os.path.join(tmp, "flagship_average")
+    average = ot.FieldWriter(model, {"u": "u"}, average_path,
+                             schedule=ot.AveragedTimeInterval(
+                                 1e-3, window=5e-4))
+    nc_path = os.path.join(tmp, "flagship_slice.nc")
+    netcdf = ot.NetCDFWriter(model, {"u_mid": lambda m: m.field(
+        "u").interior[:, :, n // 2]}, nc_path, schedule=ot.IterationInterval(5))
+    ckpt_dir = os.path.join(tmp, "flagship_checkpoints")
+    checkpointer = ot.Checkpointer(model, ot.IterationInterval(10),
+                                   dir=ckpt_dir)
+    log = WriteLog()
+    written = {}
+
+    def stash_surface(m):
+        # the state at the write, for the read-back check
+        u = m.state["fields"]["u"][ints][:, :, -1].clone()
+        w = field_output(m.field("w"))[:, :, -1].clone()
+        written[m.iteration] = (u, w)
+    orig_surface = surface._write_arrays
+
+    def surface_write(m, arrays):
+        stash_surface(m)
+        return orig_surface(m, arrays)
+    surface._write_arrays = surface_write
+    log.wrap("FieldWriter surface u, w (TimeInterval 5.5e-4)", surface,
+             "_write_arrays", surface_path)
+    log.wrap("FieldWriter u average (AveragedTimeInterval 1e-3, window "
+             "5e-4): the write", average, "_write_arrays", average_path)
+    log.wrap("FieldWriter u average: collect a step", average, "maybe_write",
+             average_path)
+    log.wrap("NetCDFWriter u slice (IterationInterval 5)", netcdf, "write",
+             nc_path)
+    log.wrap("Checkpointer (IterationInterval 10)", checkpointer, "write",
+             ckpt_dir)
+    for name, w in (("surface", surface), ("average", average),
+                    ("netcdf", netcdf), ("checkpointer", checkpointer)):
+        sim.add_output_writer(w, name=name)
+
+    K.reset_counters()
+    t0 = time.perf_counter()
+    sim.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain_cuda = K.counters()
+    netcdf.close()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label} launches over {model.iteration} steps of run(): "
+          f"{launches}; plain calls on CUDA: {plain_cuda}")
+    for name in FLAGSHIP_KERNELS:
+        assert launches[name] > 0, f"kernel {name} never launched in run()"
+    for name, count in plain_cuda.items():
+        assert count == 0, f"plain {name} ran on CUDA tensors"
+    assert model.iteration == SIM_STEPS
+    for key, a in flat_state(model.state).items():
+        if isinstance(a, torch.Tensor):
+            assert torch.isfinite(a).all().item(), f"{key} is not finite"
+    dt_seq = [dts[i] for i in sorted(dts)]
+    print(f"{label}: Δt sequence {dt_seq}")
+    # a float32 clock that missed a schedule time would step the remainder,
+    # tens of picoseconds
+    assert min(dt_seq) > 1e-3 * FLAGSHIP_SIM_DT, "a vanishing aligned Δt"
+    print(f"{label}: run() wall {wall:.3f} s ({sim.run_wall_time:.3f} s "
+          f"inside the loop) for {SIM_STEPS} steps with the writers, peak "
+          f"device memory {peak / 2 ** 30:.2f} GiB [{card}]")
+    print(f"{label}: TimeStepWizard(cfl=0.5) {len(wizard_ms)} calls, median "
+          f"{statistics.median(wizard_ms):.3f} ms (max {max(wizard_ms):.3f}) "
+          f"[{card}]")
+    log.report(label, card)
+
+    # the files read back through the port's own readers
+    fts = {k: ot.FieldTimeSeries(surface_path, k, device="cuda")
+           for k in ("u", "w")}
+    assert fts["u"].iterations == sorted(written), (fts["u"].iterations,
+                                                    sorted(written))
+    for i, it in enumerate(fts["u"].iterations):
+        u, w = written[it]
+        assert torch.equal(fts["u"][i], u) and torch.equal(fts["w"][i], w), it
+        assert not w.any(), "w at the lid is not 0"
+    avg = ot.FieldTimeSeries(average_path, "u", device="cuda")
+    assert len(avg) >= 3, avg.iterations
+    assert torch.equal(avg[0], u_samples[0][1]), "the run-start output"
+    tol = 1e-9 * 1e-3
+    worst = 0.0
+    for i in range(1, len(avg)):
+        want = expected_average(u_samples, avg.times[i], 5e-4, tol)
+        err = ((avg[i].double() - want).abs().max()
+               / want.abs().max()).item()
+        worst = max(worst, err)
+    print(f"{label}: averages at t = {list(avg.times[1:])} against the "
+          f"recorded states: max rel {worst:.3e} (bound 1e-6)")
+    assert worst < 1e-6, ("time average", worst)
+    with netcdf_file(nc_path, "r", mmap=False) as f:
+        data = torch.as_tensor(f.variables["u_mid"][:].astype(np.float32),
+                               device="cuda")
+    assert data.shape[0] == len(slices), (data.shape, sorted(slices))
+    for i, it in enumerate(sorted(slices)):
+        assert torch.equal(data[i], slices[it]), ("netcdf", it)
+    print(f"{label}: the surface FieldWriter ({len(fts['u'])} writes), the "
+          f"averaged FieldWriter ({len(avg)}) and the NetCDF slices "
+          f"({len(slices)}) read back equal to the state")
+
+    # the pickup from the iteration-10 checkpoint, with the same Δt (dts[k]
+    # is the step that ended at iteration k; the wizard's Δt is not in a
+    # checkpoint)
+    model2 = bench_model(n, torch.float32, "cuda", seed=1)
+    sim2 = ot.Simulation(model2, dt=dts[11], stop_iteration=SIM_STEPS)
+    sim2.add_callback(lambda s: setattr(s, "dt", dts.get(
+        s.model.iteration + 1, s.dt)), name="replay")
+    sim2.run(pickup=checkpointer.path(10))
+    check_same_state(label, model, model2)
+    del model, model2, u_samples, slices, written, sim, sim2
+    torch.cuda.empty_cache()
+
+
+def tendency_hook_check(card):
+    """Phase 23 (a): at 64³ a no-op TendencyCallsite hook takes the flagship
+    model from #1 to #6; 3 steps equal the hook-free model on the tendency
+    route bit for bit and the fused route to float32 roundoff."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+    dt = 1e-3
+    hooked = bench_model(HOOK_N, torch.float32, "cuda")
+    sim = ot.Simulation(hooked, dt=dt, stop_iteration=3)
+    sim.add_callback(lambda grid, fields, G, time: G,
+                     callsite=ot.TendencyCallsite)
+    assert not hooked._fused_update
+    K.reset_counters()
+    sim.run()
+    launches, plain_cuda = K.counters()
+    print(f"{HOOK_N}^3 with a tendency hook, launches over 3 steps: "
+          f"{launches}; plain calls on CUDA: {plain_cuda}")
+    assert launches["fused_advection_update"] == 0, "#1 ran with a hook"
+    for name in ("fused_advection_tendency", "fused_divergence",
+                 "fused_correct", "fill_halos"):
+        assert launches[name] > 0, (name, "not launched with a hook")
+    for name, count in plain_cuda.items():
+        assert count == 0, f"plain {name} ran on CUDA tensors"
+    route = bench_model(HOOK_N, torch.float32, "cuda")
+    route._fused_update = route.fuse_correction = False
+    fused = bench_model(HOOK_N, torch.float32, "cuda")
+    for _ in range(3):
+        route.time_step(dt)
+        fused.time_step(dt)
+    worst_route = worst_fused = 0.0
+    for c in ("u", "v", "w"):
+        a = hooked.field(c).interior
+        worst_route = max(worst_route,
+                          (a - route.field(c).interior).abs().max().item())
+        scale = fused.field(c).interior.abs().max().item()
+        worst_fused = max(worst_fused, (a - fused.field(
+            c).interior).abs().max().item() / scale)
+    print(f"{HOOK_N}^3 tendency hook: against the hook-free tendency route "
+          f"max |diff| {worst_route:.3e} (bit for bit), against the fused "
+          f"route max rel {worst_fused:.3e} (bound 1e-5) [{card}]")
+    assert worst_route == 0.0
+    assert worst_fused < 1e-5
+
+
+def tau_snapshots(grid_n, seed=23):
+    """The wind stress τx at 4 times 6 h apart over 512x256: the golden's
+    -1e-4 times a seeded pattern (zonal waves whose phase moves with time
+    and a random amplitude a snapshot), float32."""
+    rng = np.random.default_rng(seed)
+    nx, ny = grid_n[:2]
+    x = np.arange(nx)[:, None] / nx
+    y = np.arange(ny)[None, :] / ny
+    snaps = []
+    for k in range(TAU_SNAPSHOTS):
+        amp = rng.uniform(0.2, 0.5)
+        pattern = 1 + amp * np.sin(2 * np.pi * (2 * x + k / TAU_SNAPSHOTS)) \
+            * np.cos(np.pi * (y - 0.5))
+        snaps.append((-1e-4 * pattern).astype(np.float32))
+    return snaps
+
+
+class SnapshotClock:
+    """A stand-in model for writing a series: a grid, an iteration, a
+    time."""
+
+    def __init__(self, grid):
+        self.grid = grid
+        self.iteration, self.time = 0, 0.0
+
+
+def write_tau_series(path, grid, snaps):
+    import oceananigans_tpu_torch as ot
+    stub = SnapshotClock(grid)
+    writer = ot.FieldWriter(stub, {"tau_x": lambda m: snaps[m.iteration]},
+                            path)
+    for k in range(len(snaps)):
+        stub.iteration, stub.time = k, k * TAU_SPACING
+        writer.write(type("Run", (), {"model": stub})())
+
+
+def ocean_simulation_phase(card, tmp):
+    """Phase 23 (b): the CATKE ocean row through Simulation.run (see the
+    module docstring)."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+    label = "CATKE ocean Simulation"
+    snaps = tau_snapshots(HYDRO_N)
+    tau_path = os.path.join(tmp, "tau")
+    write_tau_series(tau_path, ot.LatitudeLongitudeGrid(
+        size=HYDRO_N, longitude=(0, 60), latitude=(15, 75),
+        z=(-1800.0, 0.0), dtype=torch.float32, device="cuda"), snaps)
+    series = ot.FieldTimeSeries(tau_path, "tau_x", device="cuda")
+    assert len(series) == TAU_SNAPSHOTS
+
+    def make():
+        return ocean_model(HYDRO_N, torch.float32, "cuda",
+                           top_u=ot.FieldTimeSeriesBoundaryCondition(series),
+                           reference_datetime=SIM_START)
+
+    # the interpolated stress at a mid-snapshot time against the snapshots
+    # lerped by hand, and through the boundary condition's padded plane
+    t_mid = 1.3 * TAU_SPACING
+    w = (t_mid - TAU_SPACING) / TAU_SPACING
+    hand = (1 - w) * torch.as_tensor(snaps[1], device="cuda") \
+        + w * torch.as_tensor(snaps[2], device="cuda")
+    assert torch.equal(series.at_time(t_mid), hand), "series interpolation"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = make()
+    cond = model.bcs["u"].top.condition
+    plane = cond.evaluate_padded(model.grid, t_mid)
+    H = model.grid.H
+    assert torch.equal(plane[H[0]:H[0] + HYDRO_N[0], H[1]:H[1] + HYDRO_N[1],
+                             0], hand), "the boundary condition's plane"
+    print(f"{label}: τx at t = {t_mid} s (series, and the condition's padded "
+          f"plane) equals the hand-lerped snapshots bit for bit")
+
+    stop = SIM_START + datetime.timedelta(seconds=SIM_STEPS * OCEAN_DT)
+    sim = ot.Simulation(model, dt=OCEAN_DT, stop_time=stop)
+    wizard_ms = []
+    sim.add_callback(timed_wizard(ot.TimeStepWizard(cfl=0.5,
+                                                    max_dt=OCEAN_DT),
+                                  wizard_ms),
+                     ot.IterationInterval(5), name="wizard")
+    sim.add_callback(lambda s: print(
+        f"{label}: iteration {s.model.iteration}, {s.model.datetime}, "
+        f"Δt = {s.dt}"), ot.IterationInterval(5), name="progress")
+    surfaces, dts = {}, []
+
+    def record(s):
+        m = s.model
+        dts.append(float(m.state["clock"]["last_dt"]))
+        if m.iteration % 5 == 0:
+            surfaces[m.iteration] = surface_planes(m)
+    surfaces[0] = surface_planes(model)
+    sim.add_callback(record, name="record")
+    nc_path = os.path.join(tmp, "ocean_surface.nc")
+    netcdf = ot.NetCDFWriter(
+        model, {"T_surface": lambda m: m.field("T").interior[:, :, -1],
+                "S_surface": lambda m: m.field("S").interior[:, :, -1],
+                "eta": lambda m: m.field("eta").interior[:, :, 0]},
+        nc_path, schedule=ot.TimeInterval(5 * OCEAN_DT))
+    ckpt_dir = os.path.join(tmp, "ocean_checkpoints")
+    checkpointer = ot.Checkpointer(model, ot.IterationInterval(10),
+                                   dir=ckpt_dir)
+    log = WriteLog()
+    log.wrap("NetCDFWriter surface T, S, η (TimeInterval 600 s)", netcdf,
+             "write", nc_path)
+    log.wrap("Checkpointer (IterationInterval 10)", checkpointer, "write",
+             ckpt_dir)
+    sim.add_output_writer(netcdf, name="netcdf")
+    sim.add_output_writer(checkpointer, name="checkpointer")
+
+    K.reset_counters()
+    torch.cuda.synchronize()
+    T0, T0abs = fluid_volume_sum(model, "T")
+    t0 = time.perf_counter()
+    sim.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain_cuda = K.counters()
+    netcdf.close()
+    peak = torch.cuda.max_memory_allocated()
+    steps = model.iteration
+    print(f"{label} launches over {steps} steps of run(): {launches}; plain "
+          f"calls on CUDA: {plain_cuda}")
+    assert steps == SIM_STEPS, steps
+    assert model.datetime == np.datetime64(stop, "ns"), model.datetime
+    # the wizard, capped at the row's Δt, kept it: the pickup replays it
+    assert dts == [OCEAN_DT] * steps, dts
+    assert launches["fused_vi_tendency"] == steps, launches
+    assert launches["fill_halos"] > 0
+    for name, count in plain_cuda.items():
+        assert count == 0, f"plain {name} ran on CUDA tensors"
+    for key, a in flat_state(model.state).items():
+        if isinstance(a, torch.Tensor):
+            assert torch.isfinite(a).all().item(), f"{key} is not finite"
+    T1, _ = fluid_volume_sum(model, "T")
+    drift = abs(T1 - T0) / T0abs
+    print(f"{label}: |Σ(T·V) − Σ(T₀·V)|/Σ|T₀·V| over the {steps} steps "
+          f"{drift:.3e} (bound 1e-6)")
+    assert drift < 1e-6, ("T drift", drift)
+    print(f"{label}: run() wall {wall:.3f} s ({sim.run_wall_time:.3f} s "
+          f"inside the loop) for {steps} steps to {model.datetime}, peak "
+          f"device memory {peak / 2 ** 30:.2f} GiB [{card}]")
+    print(f"{label}: TimeStepWizard(cfl=0.5, max_dt={OCEAN_DT}) "
+          f"{len(wizard_ms)} calls, median {statistics.median(wizard_ms):.3f}"
+          f" ms (max {max(wizard_ms):.3f}) [{card}]")
+    log.report(label, card)
+    with netcdf_file(nc_path, "r", mmap=False) as f:
+        got = {k: torch.as_tensor(f.variables[k][:].astype(np.float32),
+                                  device="cuda")
+               for k in ("T_surface", "S_surface", "eta")}
+        times = list(f.variables["time"][:])
+    assert times == [float(i * OCEAN_DT) for i in sorted(surfaces)], times
+    for i, it in enumerate(sorted(surfaces)):
+        for k, want in zip(("T_surface", "S_surface", "eta"), surfaces[it]):
+            assert torch.equal(got[k][i], want), ("netcdf", k, it)
+    print(f"{label}: the NetCDF surface T, S and η ({len(times)} writes) read "
+          f"back equal to the state")
+
+    model2 = make()
+    sim2 = ot.Simulation(model2, dt=OCEAN_DT, stop_time=stop)
+    sim2.run(pickup=checkpointer.path(10))
+    check_same_state(label, model, model2)
+    del model
+    torch.cuda.empty_cache()
+    loop_overhead(label, model2, OCEAN_DT, 10, card)
+    del model2
+    torch.cuda.empty_cache()
+
+
+def surface_planes(model):
+    """Surface T, S and η of the model's state (copies)."""
+    ints = model.grid.interior_slices
+    f = model.state["fields"]
+    return (f["T"][ints][:, :, -1].clone(), f["S"][ints][:, :, -1].clone(),
+            f["eta"][ints[0], ints[1], 0].clone())
+
+
+def simulation_phase(card):
+    """Phase 23: both full-width rows through Simulation.run, with every
+    file in a temporary directory."""
+    with tempfile.TemporaryDirectory() as tmp:
+        flagship_simulation_phase(card, tmp)
+        tendency_hook_check(card)
+        ocean_simulation_phase(card, tmp)
+
+
 def main():
     name, card = device_phase()
     build_phase()
@@ -4209,6 +4794,9 @@ def main():
     for cname, (launches, step_ms) in ocean.items():
         print(f"{cname}: step {step_ms:.3f} ms; launches "
               f"{ {k: launches[k] for k in HYDRO_KERNELS} } [{card}]")
+    print("the run loop: the flagship and the CATKE ocean row through "
+          "Simulation.run:")
+    simulation_phase(card)
     bounds["fused_advection_update_bf16"] = \
         bounds["fused_advection_update_tracers"]
     for fname in ("fill_halos", "fill_halos_bounded"):

@@ -55,6 +55,12 @@ Layer map:
                            HydrostaticFreeSurfaceModel, free surfaces
     parallel/              device meshes (Distributed, Partition) and the
                            halo exchange between shards
+    simulation/            Simulation (the run loop), callbacks, the NaN
+                           check, the CFL diagnostics and time-step wizard,
+                           output writers (FieldWriter, NetCDF-3; HDF5 and
+                           NetCDF4 where h5py is installed), readers
+                           (FieldTimeSeries), checkpoints
+    utils/                 schedules, calendar clocks, units
     kernels/, csrc/        CUDA kernels and their plain versions
 """
 
@@ -65,6 +71,7 @@ from .advection import Centered, UpwindBiased, WENO
 from .advection.vector_invariant import (VectorInvariant,
                                          WENOVectorInvariant)
 from .boundary_conditions import (FieldBoundaryConditions,
+                                  FieldTimeSeriesBoundaryCondition,
                                   FluxBoundaryCondition,
                                   GradientBoundaryCondition,
                                   ImmersedBoundaryCondition,
@@ -90,15 +97,42 @@ from .closures import (AnisotropicMinimumDissipation,
 from .immersed import (GridFittedBottom, GridFittedBoundary,
                        ImmersedBoundaryGrid, PartialCellBottom)
 from .forcings import (AdvectiveForcing, ContinuousForcing, DiscreteForcing,
-                       GaussianMask, LinearTarget, Relaxation)
+                       FieldTimeSeriesForcing, GaussianMask, LinearTarget,
+                       Relaxation)
 from .stokes_drift import StokesDrift, UniformStokesDrift
-from .fields import Field
+from .fields import (CenterField, Field, TracerFields, VelocityFields,
+                     XFaceField, YFaceField, ZFaceField)
 from .parallel import CPU, GPU, Distributed, Partition
 from .models import (ConservativeFormulation, ExplicitFreeSurface,
                      HydrostaticFreeSurfaceModel, ImplicitFreeSurface,
                      NonhydrostaticModel,
                      ShallowWaterModel, SplitExplicitFreeSurface,
                      VectorInvariantFormulation, state_from_jax)
+from .simulation import Callback, NaNChecker, Simulation
+from .simulation.callsites import (TendencyCallsite, TimeStepCallsite,
+                                   UpdateStateCallsite)
+from .simulation.diagnostics import (CFL, AdvectiveCFL, DiffusiveCFL,
+                                     StateChecker, TimeStepWizard,
+                                     conjure_time_step_wizard)
+from .simulation.output_writers import (AveragedTimeInterval, FieldWriter,
+                                        WindowedTimeAverage)
+from .simulation.netcdf_writer import NetCDFWriter
+from .simulation.netcdf4_writer import NetCDF4Writer
+from .simulation.hdf5_writer import HDF5Writer
+from .simulation.checkpointer import Checkpointer, checkpoint_grid
+from .simulation.output_readers import (FieldDataset, FieldTimeSeries,
+                                        InMemory, OnDisk, written_names)
+from .simulation.variance_dissipation import VarianceDissipation
+from .utils.schedules import (AndSchedule, FileSizeLimit, IterationInterval,
+                              OrSchedule, SpecifiedTimes, TimeInterval,
+                              WallTimeInterval)
+from .utils.pretty import (GiB, KiB, MiB, TiB, day, days, hour, hours,
+                           kilometer, kilometers, meter, meters, minute,
+                           minutes, prettytime, second, seconds, year)
+
+# the JAX package's names of the same writers
+NetCDFOutputWriter = NetCDF4Writer
+JLD2Writer = FieldWriter
 
 __all__ = ["defaults", "RectilinearGrid", "LatitudeLongitudeGrid",
            "PERIODIC", "BOUNDED", "FLAT",
@@ -128,4 +162,20 @@ __all__ = ["defaults", "RectilinearGrid", "LatitudeLongitudeGrid",
            "GridFittedBottom", "PartialCellBottom", "GridFittedBoundary",
            "CATKEVerticalDiffusivity", "TKEDissipationVerticalDiffusivity",
            "RiBasedVerticalDiffusivity",
-           "ConvectiveAdjustmentVerticalDiffusivity", "TwoDimensionalLeith"]
+           "ConvectiveAdjustmentVerticalDiffusivity", "TwoDimensionalLeith",
+           "CenterField", "XFaceField", "YFaceField", "ZFaceField",
+           "VelocityFields", "TracerFields", "FieldTimeSeriesForcing",
+           "FieldTimeSeriesBoundaryCondition", "Simulation", "Callback",
+           "NaNChecker", "TimeStepCallsite", "TendencyCallsite",
+           "UpdateStateCallsite", "CFL", "AdvectiveCFL", "DiffusiveCFL",
+           "StateChecker", "TimeStepWizard", "conjure_time_step_wizard",
+           "FieldWriter", "AveragedTimeInterval", "WindowedTimeAverage",
+           "NetCDFWriter", "NetCDF4Writer", "NetCDFOutputWriter",
+           "HDF5Writer", "JLD2Writer", "Checkpointer", "checkpoint_grid",
+           "FieldTimeSeries", "FieldDataset", "InMemory", "OnDisk",
+           "written_names", "VarianceDissipation", "TimeInterval",
+           "IterationInterval", "WallTimeInterval", "SpecifiedTimes",
+           "FileSizeLimit", "AndSchedule", "OrSchedule", "prettytime",
+           "second", "seconds", "minute", "minutes", "hour", "hours", "day",
+           "days", "year", "meter", "meters", "kilometer", "kilometers",
+           "KiB", "MiB", "GiB", "TiB"]

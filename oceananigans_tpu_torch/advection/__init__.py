@@ -1,7 +1,9 @@
 from .schemes import (AdvectionScheme, Centered, UpwindBiased, WENO,
                       FluxFormAdvection, adapt_advection_order)
-from .fluxes import div_Uc, div_Uu, div_Uv, div_Uw
+from .fluxes import (cell_advection_timescale, div_Uc, div_Uu, div_Uv,
+                     div_Uw)
 
 __all__ = ["AdvectionScheme", "Centered", "UpwindBiased", "WENO",
            "FluxFormAdvection", "adapt_advection_order",
-           "div_Uc", "div_Uu", "div_Uv", "div_Uw"]
+           "cell_advection_timescale", "div_Uc", "div_Uu", "div_Uv",
+           "div_Uw"]

@@ -133,3 +133,17 @@ def div_Uw(grid, scheme, u, v, w, zbc=None, only_axis=None,
         what = scheme.biased_by(grid, aw, Z, 1, wt, zbc=zw)
         terms.append(_delta_f(grid, wt * what, Z))             # ccc → ccf
     return _sum_terms(terms, w, grid.V(LOC_CCF))
+
+
+def cell_advection_timescale(grid, u, v, w):
+    """min over the interior cells of min(Δx/|u|, Δy/|v|, Δz/|w|), a 0-d
+    tensor on the fields' device (one reduction; the CFL diagnostics and
+    the time-step wizard read it)."""
+    eps = 1e-20
+    ints = grid.interior_slices
+    terms = []
+    for axis, (vel, spacing) in enumerate(((u, grid.dx), (v, grid.dy),
+                                           (w, grid.dz))):
+        if not grid.is_flat(axis):
+            terms.append((spacing(LOC_CCC) / (vel.abs() + eps))[ints].min())
+    return torch.stack(terms).min()

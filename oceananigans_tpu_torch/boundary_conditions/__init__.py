@@ -2,6 +2,7 @@ from .boundary_condition import (
     BoundaryCondition, FieldBoundaryConditions, ImmersedBoundaryCondition,
     PeriodicBoundaryCondition,
     FluxBoundaryCondition, ValueBoundaryCondition, GradientBoundaryCondition,
+    FieldTimeSeriesBoundaryCondition,
     ImpenetrableBoundaryCondition, regularize_field_boundary_conditions,
     default_bcs,
 )
@@ -14,6 +15,7 @@ __all__ = [
     "ImmersedBoundaryCondition",
     "PeriodicBoundaryCondition", "FluxBoundaryCondition",
     "ValueBoundaryCondition", "GradientBoundaryCondition",
+    "FieldTimeSeriesBoundaryCondition",
     "ImpenetrableBoundaryCondition", "regularize_field_boundary_conditions",
     "default_bcs", "apply_flux_bcs", "apply_flux_bcs_padded",
     "fill_all_halo_regions", "fill_halo_regions",

@@ -10,12 +10,16 @@ user may set ``ValueBoundaryCondition``, ``GradientBoundaryCondition`` or
 of the two transverse coordinates (broadcastable tensors of the grid's dtype
 and device at the field's location), the time (a Python float) and, with
 ``field_dependencies``, the named fields' boundary-cell values at the field's
-location. The ``immersed`` slot of ``FieldBoundaryConditions`` holds an
+location, or a ``FieldTimeSeriesBoundaryCondition``: a saved series of the
+boundary plane's interior, interpolated in time and padded over the halo
+ring by topology (wrapped on a periodic axis, its edge repeated on a bounded
+one), as the JAX condition is. The ``immersed`` slot of
+``FieldBoundaryConditions`` holds an
 ``ImmersedBoundaryCondition`` (or one condition for every side) of Flux,
 Value or Gradient conditions applied where a fluid cell touches the solid of
-an immersed grid. Array conditions, callable conditions on the x and y sides
-or of another classification, Open conditions with a value and
-FieldTimeSeries conditions are not ported yet and raise.
+an immersed grid. Array conditions, callable or FieldTimeSeries conditions
+on the x and y sides or of another classification, and Open conditions with
+a value are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -187,14 +191,15 @@ def _check_user_bc(bc, side, axis, grid):
     if topo == FLAT:
         raise ValueError(f"cannot set a BC on {side} of a flat direction")
     cond = bc.condition
-    z_flux_function = (callable(cond) and axis == 2
-                       and bc.classification == FLUX)
+    z_flux_function = ((callable(cond) or hasattr(cond, "evaluate_padded"))
+                       and axis == 2 and bc.classification == FLUX)
     if cond is not None and not z_flux_function and (
             callable(cond) or not np.isscalar(cond)):
         raise NotImplementedError(
             f"{side} {bc.classification} BC with a non-scalar condition "
-            f"{cond!r}: only scalar conditions, and callable Flux conditions "
-            f"on the z sides, are ported: {USER_BCS_ITEM}")
+            f"{cond!r}: only scalar conditions, and callable or "
+            f"FieldTimeSeries Flux conditions on the z sides, are ported: "
+            f"{USER_BCS_ITEM}")
     if bc.field_dependencies and not z_flux_function:
         raise NotImplementedError(
             f"{side} {bc.classification} BC with field dependencies: only a "
@@ -225,7 +230,42 @@ def regularize_field_boundary_conditions(bcs, grid, loc):
     return FieldBoundaryConditions(**kw)
 
 
-def FieldTimeSeriesBoundaryCondition(*args, **kwargs):
-    raise NotImplementedError(
-        f"FieldTimeSeries boundary conditions are not ported yet: "
-        f"{USER_BCS_ITEM}")
+def FieldTimeSeriesBoundaryCondition(fts, classification=FLUX,
+                                     field_dependencies=()):
+    """A boundary condition driven by a saved field time series
+    (``simulation.output_readers.FieldTimeSeries``), interpolated in time at
+    each evaluation. The snapshots cover the interior of a z-normal
+    boundary plane, shape ``(Nx, Ny)`` or ``(Nx, Ny, 1)``, on the model's
+    device; the port takes it as a Flux condition on a z side."""
+    return BoundaryCondition(classification,
+                             _FieldTimeSeriesCondition(fts),
+                             field_dependencies=field_dependencies)
+
+
+def _pad_index(n, lo, hi, periodic, device):
+    """Indices of an axis of ``n`` slots padded by ``lo`` and ``hi``: the
+    wrapped ones on a periodic axis, the edge repeated elsewhere."""
+    import torch
+    idx = torch.arange(-lo, n + hi, device=device)
+    return idx.remainder(n) if periodic else idx.clamp(0, n - 1)
+
+
+class _FieldTimeSeriesCondition:
+    """The condition of ``FieldTimeSeriesBoundaryCondition``: the series at
+    the time, over the padded boundary plane."""
+
+    __slots__ = ("fts",)
+
+    def __init__(self, fts):
+        self.fts = fts
+
+    def evaluate_padded(self, grid, time):
+        """The plane (Nx + 2Hx, Ny + 2Hy, 1) at ``time``."""
+        a = self.fts.at_time(float(time))
+        a = a.reshape(a.shape[0], a.shape[1], -1)[..., :1]
+        for ax in range(2):
+            npad = grid.padded_shape[ax] - a.shape[ax]
+            a = a.index_select(ax, _pad_index(
+                a.shape[ax], npad // 2, npad - npad // 2,
+                grid.topology[ax] == PERIODIC, a.device))
+        return a.to(grid.dtype)

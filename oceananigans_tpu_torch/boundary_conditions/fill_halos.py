@@ -86,12 +86,15 @@ def _transverse_coordinates(grid, loc, axis):
 
 def boundary_flux(bc, grid, loc, axis, is_left, time=0.0, fields=None,
                   locs=None):
-    """The value of a Flux condition on one side: a scalar, or a callable
+    """The value of a Flux condition on one side: a scalar, a
+    FieldTimeSeries condition's padded plane at the time, or a callable
     evaluated on the padded transverse coordinates at ``loc`` with the time
     and the dependencies' boundary-cell planes (each interpolated to
     ``loc``, then cut at the boundary cell, as the JAX ``apply_flux_bcs``
     does). None for a homogeneous condition."""
     cond = bc.condition
+    if hasattr(cond, "evaluate_padded"):
+        return cond.evaluate_padded(grid, time)
     if cond is None or not callable(cond):
         return None if cond is None else float(cond)
     deps = ()

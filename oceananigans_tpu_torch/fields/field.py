@@ -4,6 +4,12 @@ Counterpart of ``oceananigans_tpu/fields/field.py``: a grid, a location,
 boundary conditions and one padded data tensor on the grid's device. Models
 carry raw padded tensors in their state and build Fields only at the
 user-facing API boundary.
+
+The reductions (``min``, ``max``, ``mean``, ``sum``, ``prod``, ``norm``) run
+over the interior on the device and return 0-d tensors, as the JAX ones
+return device scalars: reading one on the host is the caller's sync. On an
+immersed grid they skip the solid points; ``condition=`` (a Field, a
+callable of the coordinates or a boolean array) restricts them further.
 """
 
 from __future__ import annotations
@@ -11,9 +17,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..boundary_conditions import regularize_field_boundary_conditions
+from ..boundary_conditions import (fill_halo_regions,
+                                   regularize_field_boundary_conditions)
 from ..grids.base import broadcastable_1d
-from ..grids.topology import BOUNDED, FACE, LOC_CCC, validate_location
+from ..grids.topology import (BOUNDED, FACE, LOC_CCC, LOC_CCF, LOC_CFC,
+                              LOC_FCC, validate_location)
 
 
 class Field:
@@ -54,9 +62,117 @@ class Field:
     def shape(self):
         return tuple(self.interior.shape)
 
+    def view(self, indices):
+        """A window of the interior: ``indices`` is a 3-tuple of slices and
+        integers, e.g. ``(slice(None), slice(None), -1)`` for the surface."""
+        return self.interior[tuple(indices)]
+
+    def nodes(self):
+        """The interior coordinates along each axis at the field's
+        location (numpy)."""
+        return tuple(self.grid.nodes1d(ax, self.loc[ax]) for ax in range(3))
+
+    def set(self, value):
+        """Replace the data by ``value`` (a scalar, an interior or padded
+        array, or a callable of the coordinates) with its halos filled; the
+        tensor the field held is left as it was. Returns the field."""
+        data = set_on_padded(self.grid, self.loc, value)
+        self.data = fill_halo_regions(data, self.grid, self.loc, self.bcs)
+        return self
+
+    def fill_halos(self):
+        """Fill the halos of a copy of the data, which the field then holds
+        (a model's tensor it wrapped is left as it was). Returns the
+        field."""
+        self.data = fill_halo_regions(self.data.clone(), self.grid, self.loc,
+                                      self.bcs)
+        return self
+
+    # -- reductions over the interior ------------------------------------------
+
+    def _reduction_mask(self, condition=None):
+        """The interior boolean mask of a reduction: the fluid points of an
+        immersed grid and ``condition``; None when neither applies."""
+        m = condition_interior(condition, self.grid, self.loc)
+        fm = getattr(self.grid, "fluid_mask_at", None)
+        if fm is not None:
+            # this field's interior on full axes; the grid's on a size-1
+            # axis, which align_reduction_mask collapses
+            sl = list(self.interior_slices)
+            for ax in range(3):
+                if self.data.shape[ax] == 1:
+                    sl[ax] = self.grid.interior_slices[ax]
+            f = fm(self.loc, torch.bool)[tuple(sl)]
+            m = f if m is None else align_reduction_mask(m, f.shape) & f
+        if m is not None:
+            m = align_reduction_mask(m, self.interior.shape)
+        return m
+
+    def _masked(self, condition, fill):
+        x = self.interior
+        m = self._reduction_mask(condition)
+        if m is None:
+            return x, None
+        return torch.where(m, x, torch.as_tensor(fill, dtype=x.dtype,
+                                                 device=x.device)), m
+
+    def min(self, condition=None):
+        return self._masked(condition, float("inf"))[0].min()
+
+    def max(self, condition=None):
+        return self._masked(condition, float("-inf"))[0].max()
+
+    def mean(self, condition=None):
+        x, m = self._masked(condition, 0.0)
+        if m is None:
+            return x.mean()
+        return x.sum() / m.to(x.dtype).sum()
+
+    def sum(self, condition=None):
+        return self._masked(condition, 0.0)[0].sum()
+
+    def prod(self, condition=None):
+        return self._masked(condition, 1.0)[0].prod()
+
+    def norm(self, condition=None):
+        return torch.linalg.vector_norm(self._masked(condition, 0.0)[0])
+
     def __repr__(self):
         return (f"Field{self.loc} on {type(self.grid).__name__}, "
                 f"size {self.shape}")
+
+
+def condition_interior(condition, grid, loc):
+    """The interior boolean mask of a reduction's ``condition``: a Field, a
+    callable of the coordinates (evaluated at ``loc``), or an interior- or
+    padded-shaped array; None for no condition."""
+    if condition is None:
+        return None
+    ii = grid.interior_slices
+    if isinstance(condition, Field):
+        return condition.data[ii].to(torch.bool)
+    if callable(condition):
+        return set_on_padded(grid, loc, condition)[ii].to(torch.bool)
+    c = torch.as_tensor(np.asarray(condition), device=grid.device)
+    if tuple(c.shape) == grid.padded_shape:
+        return c[ii].to(torch.bool)
+    return c.to(torch.bool).broadcast_to(
+        tuple(s.stop - s.start for s in ii))
+
+
+def align_reduction_mask(m, shape):
+    """A full-interior mask fitted to an operand of ``shape``: an axis the
+    operand holds at size 1 collapses with ``any`` (a column takes part if
+    any of its cells does), and an axis one longer (a face in a bounded
+    direction) repeats its last slot."""
+    axes = tuple(ax for ax in range(min(len(shape), m.ndim))
+                 if shape[ax] == 1 and m.shape[ax] != 1)
+    if axes:
+        m = m.any(dim=axes, keepdim=True)
+    for ax in range(min(len(shape), m.ndim)):
+        if shape[ax] - m.shape[ax] == 1:
+            m = torch.cat([m, m.narrow(ax, m.shape[ax] - 1, 1)], dim=ax)
+    return m
 
 
 def coordinates(grid, loc):
@@ -116,3 +232,32 @@ def set_on_padded(grid, loc, value):
     raise ValueError(f"cannot set field of interior shape {int_shape} "
                      f"from array of shape {tuple(value.shape)}")
 
+
+
+# -- constructors ----------------------------------------------------------------
+
+def CenterField(grid, bcs=None):
+    return Field(grid, LOC_CCC, bcs)
+
+
+def XFaceField(grid, bcs=None):
+    return Field(grid, LOC_FCC, bcs)
+
+
+def YFaceField(grid, bcs=None):
+    return Field(grid, LOC_CFC, bcs)
+
+
+def ZFaceField(grid, bcs=None):
+    return Field(grid, LOC_CCF, bcs)
+
+
+def VelocityFields(grid, u_bcs=None, v_bcs=None, w_bcs=None):
+    """u, v and w at (f, c, c), (c, f, c) and (c, c, f)."""
+    return dict(u=XFaceField(grid, u_bcs), v=YFaceField(grid, v_bcs),
+                w=ZFaceField(grid, w_bcs))
+
+
+def TracerFields(grid, names, bcs=None):
+    bcs = bcs or {}
+    return {name: CenterField(grid, bcs.get(name)) for name in names}

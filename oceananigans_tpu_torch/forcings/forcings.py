@@ -11,8 +11,9 @@ padded tensors and returns a padded (or broadcastable) tensor or a scalar.
 Continuous forms, masks and targets are called with the padded coordinates
 as broadcastable tensors of the grid's dtype and device and the time as a
 Python float, so they are written with torch operations (or plain
-arithmetic). ``FieldTimeSeriesForcing`` raises: field time series come with
-the output readers (ROADMAP.md queue 1 item 10).
+arithmetic). ``FieldTimeSeriesForcing`` interpolates a saved
+``FieldTimeSeries`` to the stage's time (the two snapshots picked on the
+host, the interpolation on the device).
 """
 
 from __future__ import annotations
@@ -25,7 +26,6 @@ from ..grids.topology import LOC_CCC, LOC_CCF, LOC_CFC, LOC_FCC
 from ..operators.operators import interp_to
 
 VELOCITY_LOCS = {"u": LOC_FCC, "v": LOC_CFC, "w": LOC_CCF}
-FTS_ITEM = "ROADMAP.md queue 1 item 10 (simulation/: field time series)"
 
 
 class Forcing:
@@ -195,9 +195,25 @@ class AdvectiveForcing(Forcing):
 
 
 class FieldTimeSeriesForcing(Forcing):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"FieldTimeSeriesForcing is not ported yet: {FTS_ITEM}")
+    """Forcing from a saved field time series, linearly interpolated in
+    time at each evaluation. ``fts`` is a
+    ``simulation.output_readers.FieldTimeSeries`` (or anything with
+    ``at_time(t)``) of interior-shaped snapshots on the model's device;
+    ``loc`` defaults to the forced field's location."""
+
+    def __init__(self, fts, loc=None):
+        self.fts = fts
+        self.loc = tuple(loc) if loc is not None else None
+
+    def bind(self, name, loc=None, locs=None):
+        if self.loc is None and loc is not None:
+            self.loc = tuple(loc)
+        return self
+
+    def __call__(self, grid, fields, time):
+        from ..fields.field import set_on_padded
+        return set_on_padded(grid, self.loc or LOC_CCC,
+                             self.fts.at_time(float(time)))
 
 
 class _FieldForcing(Forcing):

@@ -102,6 +102,7 @@ from ..kernels.fused_vector_invariant import vi_config
 from ..operators.operators import _metric, ddx, ddy, div_xy_ccc, dx_c, dy_c
 from ..timesteppers import (QuasiAdamsBashforth2TimeStepper,
                             SplitRungeKutta3TimeStepper)
+from ..utils.dateclock import datetime_of
 from .free_surfaces import (ExplicitFreeSurface, ImplicitFreeSurface,
                             SplitExplicitFreeSurface)
 from .nonhydrostatic import _vertical_spacings, implicit_vertical_diffusion
@@ -182,8 +183,8 @@ class HydrostaticFreeSurfaceModel:
                  closure=None, forcing=None, boundary_conditions=None,
                  velocities=None, timestepper="QuasiAdamsBashforth2",
                  vertical_coordinate="z", biogeochemistry=None,
-                 auxiliary_fields=None, fused_tendencies="auto", device=None,
-                 dtype=None):
+                 auxiliary_fields=None, fused_tendencies="auto",
+                 reference_datetime=None, device=None, dtype=None):
         given = dict(biogeochemistry=biogeochemistry,
                      auxiliary_fields=auxiliary_fields, velocities=velocities)
         for name, value in given.items():
@@ -221,6 +222,9 @@ class HydrostaticFreeSurfaceModel:
                 f"1 items 13 and 15)")
         if fused_tendencies not in (True, False, "packed", "auto"):
             raise ValueError(f"fused_tendencies={fused_tendencies!r}")
+        self.reference_datetime = reference_datetime
+        self._tendency_hooks = []
+        self._state_hooks = []
         if device is not None or dtype is not None:
             grid = grid.to(device=device, dtype=dtype)
         if free_surface is None:
@@ -438,6 +442,12 @@ class HydrostaticFreeSurfaceModel:
                 return None
             cond = bc.condition
             deps = tuple(bc.field_dependencies)
+            if hasattr(cond, "evaluate_padded"):
+                # a FieldTimeSeries condition as a callable of the plane
+                # (the JAX model takes it as a constant and fails on it)
+                def series(x, y, t, _c=cond):
+                    return _c.evaluate_padded(self.grid, t)
+                return series
             if deps and callable(cond):
                 def wrapped(x, y, t, *dep_vals, _c=cond):
                     return _c(x, y, t, *dep_vals)
@@ -553,6 +563,12 @@ class HydrostaticFreeSurfaceModel:
     @property
     def time(self):
         return float(self.state["clock"]["time"])
+
+    @property
+    def datetime(self):
+        """reference_datetime + the model's seconds; None without a
+        reference_datetime."""
+        return datetime_of(self.time, self.reference_datetime)
 
     @property
     def iteration(self):
@@ -742,7 +758,33 @@ class HydrostaticFreeSurfaceModel:
                     G[name], grid, self.loc(name), ibc, time,
                     c=fields[name],
                     kappa=immersed_diffusivity(self.closure, name))
+        for hook in self._tendency_hooks:
+            G = hook(grid, fields, G, float(time))
         return G, aux
+
+    # -- hooks ----------------------------------------------------------------
+
+    def add_tendency_hook(self, fn):
+        """Register ``fn(grid, fields, G, time) -> G``, called on the padded
+        tendencies of u, v and the tracers after the boundary fluxes; the
+        fused tendency kernel stays on (the hook follows it)."""
+        self._tendency_hooks.append(fn)
+        return fn
+
+    def add_state_hook(self, fn):
+        """Register ``fn(grid, fields, time) -> {name: padded tensor}``,
+        whose updates replace fields at the end of every step."""
+        self._state_hooks.append(fn)
+        return fn
+
+    def _run_state_hooks(self):
+        if not self._state_hooks:
+            return
+        fields = dict(self.state["fields"])
+        time = self.time
+        for hook in self._state_hooks:
+            fields.update(hook(self.grid, fields, time))
+        self.state = {**self.state, "fields": fields}
 
     # -- step -----------------------------------------------------------------
 
@@ -815,7 +857,13 @@ class HydrostaticFreeSurfaceModel:
     def time_step(self, dt):
         """Advance the model by one step of Δt (quasi-AB2 or split RK3)."""
         if isinstance(self.timestepper, SplitRungeKutta3TimeStepper):
-            return self._split_rk3_step(dt)
+            self._split_rk3_step(dt)
+        else:
+            self._ab2_step(dt)
+        self._run_state_hooks()
+        return self
+
+    def _ab2_step(self, dt):
         nt = self._nt
         dt = nt(dt)
         fdt = float(dt)

@@ -89,6 +89,7 @@ from ..solvers.tridiagonal import solve_batched_tridiagonal
 from ..timesteppers import (RK3_GAMMAS, RK3_ZETAS,
                             QuasiAdamsBashforth2TimeStepper,
                             RungeKutta3TimeStepper)
+from ..utils.dateclock import datetime_of
 
 PROGNOSTIC_LOCS = {"u": LOC_FCC, "v": LOC_CFC, "w": LOC_CCF}
 
@@ -125,7 +126,8 @@ class NonhydrostaticModel:
                  pressure_solver=None, background_fields=None,
                  stokes_drift=None, biogeochemistry=None, particles=None,
                  auxiliary_fields=None, fuse_correction=True,
-                 architecture=None, device=None, dtype=None):
+                 architecture=None, reference_datetime=None, device=None,
+                 dtype=None):
         given = dict(pressure_solver=pressure_solver,
                      biogeochemistry=biogeochemistry, particles=particles,
                      auxiliary_fields=auxiliary_fields)
@@ -156,6 +158,9 @@ class NonhydrostaticModel:
         self.architecture = regularize_architecture(architecture)
         if self.architecture is not None:
             self.architecture.place(grid)
+        self.reference_datetime = reference_datetime
+        self._tendency_hooks = []
+        self._state_hooks = []
         self.timestepper = _timestepper(timestepper)
         if isinstance(tracers, str):
             tracers = (tracers,)
@@ -283,6 +288,12 @@ class NonhydrostaticModel:
     @property
     def time(self):
         return float(self.state["clock"]["time"])
+
+    @property
+    def datetime(self):
+        """reference_datetime + the model's seconds; None without a
+        reference_datetime."""
+        return datetime_of(self.time, self.reference_datetime)
 
     @property
     def iteration(self):
@@ -441,6 +452,8 @@ class NonhydrostaticModel:
         for name in G:
             apply_flux_bcs(G[name], grid, self.loc(name), self.bcs[name],
                            time, fields=fields, locs=locs)
+        for hook in self._tendency_hooks:
+            G = hook(grid, fields, G, float(time))
         return G, aux
 
     def _implicit_step(self, fields, aux, dtt):
@@ -496,13 +509,44 @@ class NonhydrostaticModel:
                 self.grid, fields, dt, iteration))
         return fields
 
+    # -- hooks ----------------------------------------------------------------
+
+    def add_tendency_hook(self, fn):
+        """Register ``fn(grid, fields, G, time) -> G``, called on the
+        tendencies (``G`` interior-shaped, ``fields`` padded) after the
+        boundary fluxes of every stage. The tendencies then have to exist:
+        the model leaves the fused update route for the tendency route, as
+        the JAX model does."""
+        self._tendency_hooks.append(fn)
+        self._fused_update = False
+        self.fuse_correction = False
+        return fn
+
+    def add_state_hook(self, fn):
+        """Register ``fn(grid, fields, time) -> {name: padded tensor}``,
+        whose updates replace fields at the end of every step."""
+        self._state_hooks.append(fn)
+        return fn
+
+    def _run_state_hooks(self):
+        if not self._state_hooks:
+            return
+        fields = dict(self.state["fields"])
+        time = self.time
+        for hook in self._state_hooks:
+            fields.update(hook(self.grid, fields, time))
+        self.state = {**self.state, "fields": fields}
+
     def time_step(self, dt):
         """Advance the model state by one Δt."""
         if self._fused_update:
-            return self._step_compact(dt)
-        if isinstance(self.timestepper, QuasiAdamsBashforth2TimeStepper):
-            return self._step_ab2(dt)
-        return self._step_tendencies(dt)
+            self._step_compact(dt)
+        elif isinstance(self.timestepper, QuasiAdamsBashforth2TimeStepper):
+            self._step_ab2(dt)
+        else:
+            self._step_tendencies(dt)
+        self._run_state_hooks()
+        return self
 
     def _step_tendencies(self, dt):
         nt = self._nt

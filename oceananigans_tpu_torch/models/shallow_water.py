@@ -60,6 +60,7 @@ from ..kernels.fused_shallow_water import (build_sharded_fused_sw_update,
 from ..operators.operators import ddx, ddy, div_xy_ccc, ix_f, iy_f
 from ..parallel.distributed import regularize_architecture
 from ..timesteppers import RK3_GAMMAS, RK3_ZETAS, stage_update
+from ..utils.dateclock import datetime_of
 from .nonhydrostatic import padded_from_jax
 
 CONSERVATIVE = "conservative"
@@ -84,8 +85,8 @@ class ShallowWaterModel:
     def __init__(self, grid, gravitational_acceleration=None, advection=None,
                  coriolis=None, bathymetry=0.0, tracers=(), forcing=None,
                  boundary_conditions=None, formulation=CONSERVATIVE,
-                 closure=None, fused="auto", architecture=None, device=None,
-                 dtype=None):
+                 closure=None, fused="auto", architecture=None,
+                 reference_datetime=None, device=None, dtype=None):
         for name, value in (("closure", closure), ("forcing", forcing),
                             ("boundary_conditions", boundary_conditions)):
             if value:
@@ -103,6 +104,7 @@ class ShallowWaterModel:
         self.architecture = regularize_architecture(architecture)
         if self.architecture is not None:
             self.architecture.place(grid)
+        self.reference_datetime = reference_datetime
         self.g = (defaults.gravitational_acceleration
                   if gravitational_acceleration is None
                   else float(gravitational_acceleration))
@@ -161,6 +163,12 @@ class ShallowWaterModel:
     @property
     def time(self):
         return float(self.state["clock"]["time"])
+
+    @property
+    def datetime(self):
+        """reference_datetime + the model's seconds; None without a
+        reference_datetime."""
+        return datetime_of(self.time, self.reference_datetime)
 
     @property
     def iteration(self):

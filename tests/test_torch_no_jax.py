@@ -1,7 +1,9 @@
 """The port stands without JAX: importing it loads no ``jax`` module, and no
 source file of the package (nor ``chip_smoke.py``, which drives it on the
 card) imports ``jax``, the JAX package or ``triton``; importing it builds no
-kernel."""
+kernel. ``h5py``, which the card's machine lacks, is imported only inside
+the functions that need it, so importing the port (its ``simulation``
+package included) loads none."""
 
 import ast
 import os
@@ -30,9 +32,20 @@ def test_import_loads_no_jax():
             "oceananigans_tpu_torch.kernels.vpu_probes, "
             "oceananigans_tpu_torch.tools.weno_vpu_microbench, "
             "oceananigans_tpu_torch.tools.vpu_mix_probe, "
-            "oceananigans_tpu_torch.tools.repro_bf16_smoothness, sys; "
+            "oceananigans_tpu_torch.tools.repro_bf16_smoothness, "
+            "oceananigans_tpu_torch.simulation, "
+            "oceananigans_tpu_torch.simulation.checkpointer, "
+            "oceananigans_tpu_torch.simulation.diagnostics, "
+            "oceananigans_tpu_torch.simulation.output_writers, "
+            "oceananigans_tpu_torch.simulation.output_readers, "
+            "oceananigans_tpu_torch.simulation.netcdf_writer, "
+            "oceananigans_tpu_torch.simulation.hdf5_writer, "
+            "oceananigans_tpu_torch.simulation.netcdf4_writer, "
+            "oceananigans_tpu_torch.simulation.variance_dissipation, "
+            "oceananigans_tpu_torch.grids.reconstruction, "
+            "oceananigans_tpu_torch.utils, sys; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'oceananigans_tpu', 'triton')]; "
+            "('jax', 'jaxlib', 'oceananigans_tpu', 'triton', 'h5py')]; "
             "assert not bad, bad; "
             "from oceananigans_tpu_torch.kernels import build; "
             "assert build._lib is None")
@@ -52,3 +65,24 @@ def test_source_imports_no_jax(path):
         else:
             continue
         assert not set(roots) & set(FORBIDDEN), (path.name, roots)
+
+
+def _module_level(node):
+    """The nodes of ``node`` outside function bodies."""
+    for child in ast.iter_child_nodes(node):
+        if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef,
+                              ast.Lambda)):
+            continue
+        yield child
+        yield from _module_level(child)
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_source_imports_h5py_lazily(path):
+    """No import of h5py outside a function (a class body or a try block
+    at module level included)."""
+    for node in _module_level(ast.parse(path.read_text())):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom)
+                 else [])
+        assert not any(n.split(".")[0] == "h5py" for n in names), path.name

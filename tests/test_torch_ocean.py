@@ -254,7 +254,8 @@ def test_flux_conditions(lon):
 def test_flux_conditions_refused():
     """What the port does not take raises naming item 3: a callable Value
     condition, a callable on an x side, field dependencies on a scalar, a
-    FieldTimeSeries condition."""
+    FieldTimeSeries condition on an x side or as a Value condition (the
+    port takes it as a Flux condition on a z side)."""
     from oceananigans_tpu_torch.boundary_conditions.boundary_condition \
         import FieldTimeSeriesBoundaryCondition
     _, tg = _grids()
@@ -262,12 +263,14 @@ def test_flux_conditions_refused():
     cases = [ot.FieldBoundaryConditions(top=ot.ValueBoundaryCondition(f)),
              ot.FieldBoundaryConditions(west=ot.FluxBoundaryCondition(f)),
              ot.FieldBoundaryConditions(top=ot.FluxBoundaryCondition(
-                 1.0, field_dependencies=("u",)))]
+                 1.0, field_dependencies=("u",))),
+             ot.FieldBoundaryConditions(
+                 west=FieldTimeSeriesBoundaryCondition(None)),
+             ot.FieldBoundaryConditions(top=FieldTimeSeriesBoundaryCondition(
+                 None, classification="value"))]
     for bcs in cases:
         with pytest.raises(NotImplementedError, match="item 3"):
             t_reg(bcs, tg, LOCS["T"])
-    with pytest.raises(NotImplementedError, match="item 3"):
-        FieldTimeSeriesBoundaryCondition(None)
 
 
 # -- CATKE ----------------------------------------------------------------------------
