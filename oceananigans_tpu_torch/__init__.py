@@ -15,7 +15,10 @@ projection; ``ShallowWaterModel`` on a regular
 periodic 2D grid in both formulations, with ``FPlane``,
 ``ConstantCartesianCoriolis`` or ``BetaPlane`` rotation, bathymetry and
 tracers; and ``HydrostaticFreeSurfaceModel`` on a ``LatitudeLongitudeGrid``
-(or a regular RectilinearGrid), with bounded or periodic x and y and
+(pole to pole with polar caps), a RectilinearGrid, an
+``OrthogonalSphericalShellGrid``, a ``RotatedLatitudeLongitudeGrid`` or a
+``TripolarGrid`` (the north fold), any of them with stretched coordinates
+(``ExponentialDiscretization`` …), with bounded or periodic x and y and
 immersed bottoms (``ImmersedBoundaryGrid``): the conserving and WENO
 vector-invariant momentum advection, ``HydrostaticSphericalCoriolis``,
 tracers, ``BuoyancyTracer`` or ``SeawaterBuoyancy``, the closures (CATKE,
@@ -30,7 +33,9 @@ that serves CPU tensors. Grids live on the CUDA card unless built with
 Layer map:
 
     grids/                 topology, coordinates, metrics, halos
-                           (RectilinearGrid, LatitudeLongitudeGrid)
+                           (RectilinearGrid, LatitudeLongitudeGrid,
+                           OrthogonalSphericalShellGrid, TripolarGrid,
+                           the stretchings)
     operators/             finite-volume stencil micro-ops
     boundary_conditions/   BCs, halo filling, boundary fluxes
     fields/                Field wrapper and set
@@ -65,8 +70,11 @@ Layer map:
 """
 
 from .defaults import defaults
-from .grids import (RectilinearGrid, LatitudeLongitudeGrid, PERIODIC,
-                    BOUNDED, FLAT, CENTER, FACE)
+from .grids import (RectilinearGrid, LatitudeLongitudeGrid,
+                    OrthogonalSphericalShellGrid, RotatedLatitudeLongitudeGrid,
+                    TripolarGrid, ExponentialDiscretization, LinearStretching,
+                    PowerLawStretching, ReferenceToStretchedDiscretization,
+                    PERIODIC, BOUNDED, FLAT, CENTER, FACE)
 from .advection import Centered, UpwindBiased, WENO
 from .advection.vector_invariant import (VectorInvariant,
                                          WENOVectorInvariant)
@@ -135,6 +143,9 @@ NetCDFOutputWriter = NetCDF4Writer
 JLD2Writer = FieldWriter
 
 __all__ = ["defaults", "RectilinearGrid", "LatitudeLongitudeGrid",
+           "OrthogonalSphericalShellGrid", "RotatedLatitudeLongitudeGrid",
+           "TripolarGrid", "ExponentialDiscretization", "LinearStretching",
+           "PowerLawStretching", "ReferenceToStretchedDiscretization",
            "PERIODIC", "BOUNDED", "FLAT",
            "CENTER", "FACE", "Centered", "UpwindBiased", "WENO",
            "FieldBoundaryConditions", "FluxBoundaryCondition",

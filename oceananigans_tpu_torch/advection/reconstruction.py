@@ -1,14 +1,17 @@
 """Reconstruction coefficient machinery for Centered / UpwindBiased / WENO.
 
-Counterpart of ``oceananigans_tpu/advection/reconstruction.py`` (uniform
-spacing). Every coefficient is derived at scheme-construction time with
-numpy polynomial algebra, in float64:
+Counterpart of ``oceananigans_tpu/advection/reconstruction.py``. Every
+coefficient is derived with numpy polynomial algebra, in float64 (the
+uniform ones when a scheme is built, the nonuniform ones of a stretched axis
+from its face positions when a grid first needs them):
 
 * ENO reconstruction coefficients via the primitive-function trick;
 * optimal ("linear") WENO weights by matching the union-stencil
   reconstruction;
 * Jiang–Shu smoothness indicators as quadratic forms β_s = uᵀ B_s u, factored
-  into sums of squared linear stencils.
+  into sums of squared linear stencils;
+* on a stretched axis, per-slot ENO coefficients (and optimal weights) from
+  the actual face positions (``eno_coefficients_nonuniform``).
 
 Stencil/shift conventions: reconstruction happens at the interface between
 cell L0 and R0. With base offset β (0 for center→face output, 1 for
@@ -162,3 +165,88 @@ def smoothness_value(sc, shifts, factors, compute_dtype=None):
         sq = lin * lin
         beta = sq if beta is None else beta + sq
     return beta
+
+
+# -- stretched (nonuniform) axis coefficients ----------------------------------
+# the same derivation as the uniform path above, with the actual face
+# positions
+
+def _cells_for(faces, beta):
+    """(left_edge, right_edge) arrays of the reconstruction 'cells' for data
+    at centers (beta=0: cell m = [xF[m], xF[m+1]]) or at faces (beta=1: dual
+    cell m = [xC[m-1], xC[m]])."""
+    faces = np.asarray(faces, np.float64)
+    if beta == 0:
+        return faces[:-1], faces[1:]
+    xc = 0.5 * (faces[:-1] + faces[1:])
+    left = np.concatenate([[xc[0] - (xc[1] - xc[0])], xc[:-1]])
+    return left, xc
+
+
+def eno_coefficients_nonuniform(faces, k, s, beta, npad):
+    """Per-output-index ENO coefficients on a nonuniform axis: for output slot
+    i, reconstruct from cells at shifts (beta-1-s+j), evaluating the
+    derivative of the primitive's Lagrange interpolant at the output position
+    (face xF[i] for beta=0, center xC[i] for beta=1). Returns a list of k
+    numpy arrays of length ``npad`` (edge-clamped where stencils exit the
+    padded range — those slots are halo-only)."""
+    faces = np.asarray(faces, np.float64)
+    lo, hi = _cells_for(faces, beta)
+    n_cells = len(lo)
+    xc_eval = 0.5 * (faces[:-1] + faces[1:])
+    out = np.zeros((npad, k))
+    uni = eno_coefficients(k, s)
+    for i in range(npad):
+        cells = [min(max(i + beta - 1 - s + j, 0), n_cells - 1)
+                 for j in range(k)]
+        if len(set(cells)) < k:
+            out[i] = uni     # stencil exits the padded range: halo-only slot
+            continue
+        # strictly increasing edge positions of the union stencil
+        edges = [lo[cells[0]]] + [hi[m] for m in cells]
+        if np.any(np.diff(edges) <= 0):
+            out[i] = uni     # degenerate slots: halo-only
+            continue
+        x_eval = faces[min(i, len(faces) - 1)] if beta == 0 \
+            else xc_eval[min(i, len(xc_eval) - 1)]
+        # primitive-function trick: U(edges) with unit jump in cell j;
+        # normalized exactly-determined Vandermonde solve (stable for any
+        # coordinate magnitude)
+        e = np.asarray(edges)
+        scale = e[-1] - e[0]
+        en = (e - e[0]) / scale
+        xn = (x_eval - e[0]) / scale
+        V = np.vander(en, k + 1, increasing=True)
+        for j in range(k):
+            prim = np.zeros(k + 1)
+            width = edges[j + 1] - edges[j]
+            prim[j + 1:] = 1.0
+            coef = np.linalg.solve(V, prim)
+            dpoly = Polynomial(coef).deriv()
+            out[i, j] = dpoly(xn) / scale * width
+    return [out[:, j].copy() for j in range(k)]
+
+
+def optimal_weights_nonuniform(faces, k, beta, npad):
+    """Per-index optimal WENO weights γ_s(i) matching the (2k-1)-cell
+    union-stencil reconstruction on the nonuniform axis. Falls back to the
+    uniform weights where the least-squares system is degenerate. (The
+    schemes keep the uniform weights on a stretched axis, as the JAX package
+    and the reference do.)"""
+    full = eno_coefficients_nonuniform(faces, 2 * k - 1, k - 1, beta, npad)
+    per_s = [eno_coefficients_nonuniform(faces, k, s, beta, npad)
+             for s in range(k)]
+    uni = optimal_weights(k)
+    gammas = np.zeros((npad, k))
+    for i in range(npad):
+        A = np.zeros((2 * k - 1, k))
+        for s in range(k):
+            for j in range(k):
+                t = k - 1 - s + j
+                A[t, s] = per_s[s][j][i]
+        b = np.asarray([full[j][i] for j in range(2 * k - 1)])
+        g, res, rank, _ = np.linalg.lstsq(A, b, rcond=None)
+        if rank < k or np.any(g <= 0) or abs(g.sum() - 1) > 1e-6:
+            g = np.asarray(uni)
+        gammas[i] = g
+    return [gammas[:, s].copy() for s in range(k)]

@@ -1,6 +1,6 @@
 """Advection schemes: Centered, UpwindBiased, WENO.
 
-Counterpart of ``oceananigans_tpu/advection/schemes.py`` on regular grids.
+Counterpart of ``oceananigans_tpu/advection/schemes.py``.
 Each scheme exposes, over padded tensors,
 
     symmetric(grid, a, axis, beta)            # face value, no bias
@@ -19,16 +19,27 @@ its buffer scheme (WENO9 → WENO7 → WENO5 → WENO3 → UpwindBiased(1);
 Centered(4) → Centered(2)), with masks on the global index. WENO computes
 its smoothness indicators in ``smoothness_dtype`` (float32 by default),
 whatever the field dtype.
+
+On a stretched axis (``grid.regular(axis)`` False: a stretched coordinate;
+the horizontal axes of a shell grid are index-regular) the reconstruction
+coefficients are derived per slot from the face positions
+(``eno_coefficients_nonuniform``), the right-biased stencils get their own
+(the mirror symmetry no longer holds, so ``biased_by`` forms both sides and
+selects), and the optimal weights and smoothness factors stay uniform, as in
+JAX.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from ..defaults import as_torch_dtype
-from .reconstruction import (_ShiftCache, eno_coefficients, left_shifts,
-                             mirror, optimal_weights, smoothness_factors,
+from .reconstruction import (_ShiftCache, eno_coefficients,
+                             eno_coefficients_nonuniform, left_shifts, mirror,
+                             optimal_weights, smoothness_factors,
                              smoothness_value, stencil_value, typed_constants)
 from ..operators.shifts import shift, shift_zbc
 
@@ -68,6 +79,54 @@ class _MirroredShiftCache(_ShiftCache):
 
     def __call__(self, off):
         return super().__call__(2 * self.beta - 1 - off)
+
+
+def _is_stretched(grid, axis):
+    reg = getattr(grid, "regular", None)
+    if reg is None or grid.is_flat(axis):
+        return False
+    return not reg(axis)
+
+
+def _padded_faces(grid, axis):
+    """The npad + 1 face positions along ``axis`` (the last extrapolated)."""
+    f = np.asarray(grid.coord_padded(axis, "f"), np.float64)
+    d = f[-1] - f[-2] if len(f) > 1 else 1.0
+    return np.append(f, f[-1] + d)
+
+
+@functools.lru_cache(maxsize=None)
+def _nonuniform_eno_np(faces_key, nfaces, beta, k, s, mirrored, npad):
+    """The float64 coefficient arrays of ``_nonuniform_eno``, keyed by the
+    face positions."""
+    faces = np.frombuffer(faces_key, np.float64).reshape(nfaces)
+    if not mirrored:
+        return tuple(eno_coefficients_nonuniform(faces, k, s, beta, npad))
+    # the right-biased stencil s covers the cells at the mirrored shifts:
+    # evaluate a reconstruction whose cells are exactly those
+    shifts = mirror(left_shifts(k, s, beta), beta)
+    s_equiv = beta - 1 - min(shifts)
+    cs = eno_coefficients_nonuniform(faces, k, s_equiv, beta, npad)
+    # the cells ascend, the mirrored shifts descend
+    return tuple(reversed(cs))
+
+
+def _nonuniform_eno(grid, axis, beta, k, s, mirrored, like):
+    """Per-slot ENO coefficients of stencil s along a stretched ``axis``
+    (``mirrored``: of the right-biased stencil, paired with the mirrored
+    shifts), as tensors broadcastable along the axis in the dtype and on
+    the device of ``like``; cached on the grid."""
+    key = (axis, beta, k, s, mirrored, like.dtype, str(like.device))
+    cache = grid.__dict__.setdefault("_nonuniform_eno", {})
+    if key not in cache:
+        faces = _padded_faces(grid, axis)
+        cs = _nonuniform_eno_np(faces.tobytes(), faces.size, beta, k, s,
+                                mirrored, grid.padded_shape[axis])
+        view = [1, 1, 1]
+        view[axis] = -1
+        cache[key] = tuple(torch.as_tensor(c.reshape(view), dtype=like.dtype,
+                                           device=like.device) for c in cs)
+    return cache[key]
 
 
 # WENO regularization (reference: weno_interpolants.jl `const ϵ = 1f-8`)
@@ -173,6 +232,9 @@ class AdvectionScheme:
     def biased_by(self, grid, a, axis, beta, q, smooth=None, zbc=None):
         hi = self._biased_by_plain(grid, a, axis, beta, q, smooth=smooth,
                                    zbc=zbc)
+        if not grid.is_flat(axis) and _is_stretched(grid, axis):
+            # biased_pair already cascaded both sides
+            return hi
         return self._cascade(grid, axis, beta, hi,
                              lambda bs: bs.biased_by(grid, a, axis, beta, q,
                                                      smooth=smooth, zbc=zbc))
@@ -188,7 +250,7 @@ class AdvectionScheme:
         r = self._biased(grid, _MirroredShiftCache(a, axis, beta, zbc), axis,
                          beta, None if smooth is None else
                          [_MirroredShiftCache(s, axis, beta, zbc)
-                          for s in smooth])
+                          for s in smooth], mirrored=True)
         bs = self.buffer_scheme()
         bounded = _axis_bounded(grid, axis)
         imask = immersed_ok(grid, axis, getattr(self, "buffer", 1))
@@ -211,6 +273,12 @@ class AdvectionScheme:
         stencils share coefficients and smoothness factors)."""
         if grid.is_flat(axis):
             return a
+        if _is_stretched(grid, axis):
+            # the nonuniform coefficients are not mirror-symmetric: both
+            # sides, then the selection
+            l, r = self.biased_pair(grid, a, axis, beta, smooth=smooth,
+                                    zbc=zbc)
+            return torch.where(q > 0, l, r)
         pos = q > 0
         sel = _SelectedShiftCache(a, axis, pos, beta, zbc)
         scs = (None if smooth is None else
@@ -229,6 +297,12 @@ class Centered(AdvectionScheme):
         self.required_halo = self.buffer
         self._coeffs = eno_coefficients(order, self.buffer - 1)
 
+    def _coeffs_for(self, grid, axis, beta, like):
+        if _is_stretched(grid, axis):
+            return _nonuniform_eno(grid, axis, beta, self.order,
+                                   self.buffer - 1, False, like)
+        return self._coeffs
+
     def buffer_scheme(self):
         if self.order <= 2:
             return None
@@ -241,7 +315,8 @@ class Centered(AdvectionScheme):
             return a
         sc = _ShiftCache(a, axis, zbc)
         shifts = left_shifts(self.order, self.buffer - 1, beta)
-        return stencil_value(sc, shifts, self._coeffs)
+        return stencil_value(sc, shifts, self._coeffs_for(grid, axis, beta,
+                                                          a))
 
     def symmetric(self, grid, a, axis, beta, zbc=None):
         hi = self._symmetric_plain(grid, a, axis, beta, zbc)
@@ -251,9 +326,10 @@ class Centered(AdvectionScheme):
                              lambda bs: bs.symmetric(grid, a, axis, beta,
                                                      zbc=zbc))
 
-    def _biased(self, grid, sc, axis, beta, smooth=None):
+    def _biased(self, grid, sc, axis, beta, smooth=None, mirrored=False):
         shifts = left_shifts(self.order, self.buffer - 1, beta)
-        return stencil_value(sc, shifts, self._coeffs)
+        return stencil_value(sc, shifts, self._coeffs_for(grid, axis, beta,
+                                                          sc(0)))
 
     def biased_pair(self, grid, a, axis, beta, smooth=None, zbc=None):
         # no bias: both sides get the symmetric value
@@ -291,11 +367,14 @@ class UpwindBiased(AdvectionScheme):
                              lambda bs: bs.symmetric(grid, a, axis, beta,
                                                      zbc=zbc))
 
-    def _biased(self, grid, sc, axis, beta, smooth=None):
+    def _biased(self, grid, sc, axis, beta, smooth=None, mirrored=False):
         if grid.is_flat(axis):
             return sc(0)
+        coeffs = (_nonuniform_eno(grid, axis, beta, self.order, self._s,
+                                  mirrored, sc(0))
+                  if _is_stretched(grid, axis) else self._coeffs)
         return stencil_value(sc, left_shifts(self.order, self._s, beta),
-                             self._coeffs)
+                             coeffs)
 
 
 class WENO(AdvectionScheme):
@@ -348,16 +427,19 @@ class WENO(AdvectionScheme):
                              lambda bs: bs.symmetric(grid, a, axis, beta,
                                                      zbc=zbc))
 
-    def _biased(self, grid, sc, axis, beta, smooth=None):
+    def _biased(self, grid, sc, axis, beta, smooth=None, mirrored=False):
         if grid.is_flat(axis):
             return sc(0)
         k = self.buffer
         out_dtype = sc(0).dtype
         sdt = self.smoothness_dtype
+        stretched = _is_stretched(grid, axis)
         ps, betas = [], []
         for s in range(k):
             shifts = left_shifts(k, s, beta)
-            ps.append(stencil_value(sc, shifts, self._coeffs[s]))
+            cs = (_nonuniform_eno(grid, axis, beta, k, s, mirrored, sc(0))
+                  if stretched else self._coeffs[s])
+            ps.append(stencil_value(sc, shifts, cs))
             b = None
             for scm in (sc,) if smooth is None else smooth:
                 bm = smoothness_value(scm, shifts, self._sfactors[s],

@@ -4,7 +4,8 @@ from .boundary_condition import (
     FluxBoundaryCondition, ValueBoundaryCondition, GradientBoundaryCondition,
     FieldTimeSeriesBoundaryCondition,
     ImpenetrableBoundaryCondition, regularize_field_boundary_conditions,
-    default_bcs,
+    default_bcs, PolarBoundaryCondition, PolarValue,
+    ZipperBoundaryCondition,
 )
 from .fill_halos import (apply_flux_bcs, apply_flux_bcs_padded,
                          fill_all_halo_regions, fill_halo_regions,
@@ -17,7 +18,8 @@ __all__ = [
     "ValueBoundaryCondition", "GradientBoundaryCondition",
     "FieldTimeSeriesBoundaryCondition",
     "ImpenetrableBoundaryCondition", "regularize_field_boundary_conditions",
-    "default_bcs", "apply_flux_bcs", "apply_flux_bcs_padded",
+    "default_bcs", "PolarBoundaryCondition", "PolarValue",
+    "ZipperBoundaryCondition", "apply_flux_bcs", "apply_flux_bcs_padded",
     "fill_all_halo_regions", "fill_halo_regions",
     "fill_surface_halo_regions",
 ]

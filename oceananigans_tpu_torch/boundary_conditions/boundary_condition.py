@@ -20,6 +20,14 @@ Value or Gradient conditions applied where a fluid cell touches the solid of
 an immersed grid. Array conditions, callable or FieldTimeSeries conditions
 on the x and y sides or of another classification, and Open conditions with
 a value are not ported yet and raise.
+
+Two conditions come from the grid, not the user, on a side the user leaves
+empty: the tripolar fold (``ZIPPER``, ``ZipperBoundaryCondition``) on the
+north side of a ``TripolarGrid``, with sign −1 for fields at a face in x or
+y and +1 otherwise; and the polar cap (``PolarBoundaryCondition``) on a
+side of a ``LatitudeLongitudeGrid`` that ends at a pole: Value with the
+zonal mean of the boundary row (``PolarValue``) for fields centred in y,
+Open with that mean (the pole face pinned to it) for y-face fields.
 """
 
 from __future__ import annotations
@@ -33,8 +41,32 @@ FLUX = "flux"
 VALUE = "value"
 GRADIENT = "gradient"
 OPEN = "open"
+ZIPPER = "zipper"   # the tripolar north fold; the condition is its sign
 
 USER_BCS_ITEM = "ROADMAP.md queue 1 item 3 (boundary_conditions/)"
+
+
+class PolarValue:
+    """The pole-cap condition: the boundary value is the zonal mean of the
+    field's own boundary row over the interior x, taken anew at every
+    fill."""
+
+    __slots__ = ("side",)
+
+    def __init__(self, side):
+        self.side = side
+
+    def _fp(self):
+        return ("PolarValue", self.side)
+
+    def __hash__(self):
+        return hash(self._fp())
+
+    def __eq__(self, other):
+        return isinstance(other, PolarValue) and self._fp() == other._fp()
+
+    def __repr__(self):
+        return f"PolarValue({self.side!r})"
 
 
 class BoundaryCondition:
@@ -84,6 +116,31 @@ def GradientBoundaryCondition(condition=None):
 def ImpenetrableBoundaryCondition():
     """No-penetration: wall-normal velocity face pinned to zero."""
     return BoundaryCondition(OPEN, None)
+
+
+def ZipperBoundaryCondition(sign=1.0):
+    """The tripolar north fold; ``sign`` is -1 for velocity-like fields and
+    +1 for tracer-like ones."""
+    return BoundaryCondition(ZIPPER, float(sign))
+
+
+def PolarBoundaryCondition(side, loc_y):
+    """The pole cap of a pole-touching lat-lon grid: Value with the zonal
+    mean of the boundary row for a field centred in y, Open (the pole face
+    pinned to the mean) for a y-face field."""
+    return BoundaryCondition(OPEN if loc_y == FACE else VALUE,
+                             PolarValue(side))
+
+
+def _grid_condition(grid, side, loc):
+    """The fold or polar condition that ``grid`` puts on ``side`` of a field
+    at ``loc``, or None."""
+    if side == "north" and getattr(grid, "zipper_north", False):
+        return ZipperBoundaryCondition(
+            -1.0 if FACE in (loc[0], loc[1]) else 1.0)
+    if side in ("south", "north") and getattr(grid, f"polar_{side}", False):
+        return PolarBoundaryCondition(side, loc[1])
+    return None
 
 
 _SIDES = ("west", "east", "south", "north", "bottom", "top")
@@ -176,13 +233,18 @@ def default_bc(topology_axis, loc_axis):
 
 def default_bcs(grid, loc):
     return FieldBoundaryConditions(**{
-        side: default_bc(grid.topology[axis], loc[axis])
+        side: (_grid_condition(grid, side, loc)
+               or default_bc(grid.topology[axis], loc[axis]))
         for side, (axis, _) in SIDE_AXIS.items()})
 
 
 def _check_user_bc(bc, side, axis, grid):
     """Raise unless ``bc`` is a condition the port takes on this side."""
     topo = grid.topology[axis]
+    if bc.classification == ZIPPER or isinstance(bc.condition, PolarValue):
+        if side != "north" and bc.classification == ZIPPER:
+            raise ValueError("a zipper condition folds the north side only")
+        return
     if topo == PERIODIC:
         if bc.classification != PERIODIC_BC:
             raise ValueError(f"cannot set {bc.classification} BC on {side} "
@@ -222,7 +284,8 @@ def regularize_field_boundary_conditions(bcs, grid, loc):
     for side, (axis, _) in SIDE_AXIS.items():
         user = bcs.side(side)
         if user is None:
-            kw[side] = default_bc(grid.topology[axis], loc[axis])
+            kw[side] = (_grid_condition(grid, side, loc)
+                        or default_bc(grid.topology[axis], loc[axis]))
         else:
             _check_user_bc(user, side, axis, grid)
             kw[side] = user

@@ -75,9 +75,13 @@ def fill_surface_halo_regions(arrays, grid, locs_bcs):
 
 def _transverse_coordinates(grid, loc, axis):
     """The two transverse padded coordinates of the ``axis`` sides at
-    ``loc``, broadcastable tensors of the grid's dtype and device."""
+    ``loc``, broadcastable tensors of the grid's dtype and device: on the z
+    sides of a shell grid the true 2-D (λ, φ) nodes, as the JAX ``eval_bc``
+    passes them."""
     import torch
-    from ..grids.base import broadcastable_1d
+    from ..grids.base import broadcastable_1d, horizontal_nodes
+    if axis == 2:
+        return list(horizontal_nodes(grid, loc))
     return [torch.as_tensor(broadcastable_1d(grid.coord_padded(ax, loc[ax]),
                                              ax),
                             dtype=grid.dtype, device=grid.device)

@@ -31,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..grids.base import broadcastable_1d
+from ..grids.base import broadcastable_1d, horizontal_nodes
 from ..grids.topology import LOC_CCC
 from ..operators.operators import (_metric, ddz, iz_c, iz_f, ix_c, ix_f,
                                    iy_c, iy_f)
@@ -82,9 +82,7 @@ def surface_buoyancy_flux(Jb, grid, time, fields=None):
             return 0.0
         h, n = grid.H[2], grid.N[2]
         dep_args = tuple(fields[d][:, :, h + n - 1:h + n] for d in deps)
-    kw = dict(dtype=grid.dtype, device=grid.device)
-    x = torch.as_tensor(broadcastable_1d(grid.coord_padded(0, "c"), 0), **kw)
-    y = torch.as_tensor(broadcastable_1d(grid.coord_padded(1, "c"), 1), **kw)
+    x, y = horizontal_nodes(grid, ("c", "c", "c"))
     return Jb(x, y, float(time), *dep_args)
 
 

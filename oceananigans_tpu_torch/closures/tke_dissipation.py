@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..grids.base import broadcastable_1d, numpy_metric
+from ..grids.base import horizontal_nodes, numpy_metric
 from ..operators.operators import iz_c, iz_f
 from .catke import shear_production
 from .scalar_diffusivity import _ClosureBase
@@ -278,11 +278,8 @@ class TKEDissipationVerticalDiffusivity(_ClosureBase):
     def _friction_velocity(self, grid, time, like):
         ustar = self.friction_velocity
         if callable(ustar):
-            kw = dict(dtype=like.dtype, device=like.device)
-            x1 = torch.as_tensor(broadcastable_1d(grid.coord_padded(0, "c"),
-                                                  0), **kw)
-            x2 = torch.as_tensor(broadcastable_1d(grid.coord_padded(1, "c"),
-                                                  1), **kw)
+            x1, x2 = horizontal_nodes(grid, ("c", "c", "c"), like.dtype,
+                                      like.device)
             ustar = ustar(x1, x2, float(time))
         return ustar
 

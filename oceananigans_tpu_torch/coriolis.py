@@ -210,10 +210,11 @@ class NonTraditionalBetaPlane:
 
 
 class HydrostaticSphericalCoriolis:
-    """f = 2Ω sin(φ) on a spherical grid with a 1-D latitude, at the (f, f)
-    nodes, in the metric-weighted Sadourny forms: ``energy_conserving`` (the
-    default) takes the f-flux of the transport, ℑy(f ℑx(Δx v))/Δx;
-    ``enstrophy_conserving`` takes ℑy(f) ℑx(ℑy(Δx v))/Δx."""
+    """f = 2Ω sin(φ) on a spherical grid, at the (f, f) nodes (the exact
+    2-D nodes of a shell grid), in the metric-weighted Sadourny forms:
+    ``energy_conserving`` (the default) takes the f-flux of the transport,
+    ℑy(f ℑx(Δx v))/Δx; ``enstrophy_conserving`` takes
+    ℑy(f) ℑx(ℑy(Δx v))/Δx."""
 
     def __init__(self, rotation_rate=None, scheme="energy_conserving"):
         self.rotation_rate = (defaults.rotation_rate if rotation_rate is None
@@ -230,14 +231,22 @@ class HydrostaticSphericalCoriolis:
     __eq__ = FPlane.__eq__
 
     def f_ffc_numpy(self, grid):
-        """f at the (f, f) nodes, float64, (1, Ny + 2Hy, 1)."""
+        """f at the (f, f) nodes, float64: (1, Ny + 2Hy, 1) on a grid with a
+        1-D latitude, (Nx + 2Hx, Ny + 2Hy, 1) on a shell grid."""
+        if hasattr(grid, "nodes2d_padded"):
+            _, phi = grid.nodes2d_padded(("f", "f"))
+            return 2 * self.rotation_rate * np.sin(np.deg2rad(phi))[..., None]
         phi = grid.coord_padded(1, "f").reshape(1, -1, 1)
         return 2 * self.rotation_rate * np.sin(np.deg2rad(
             np.clip(phi, -90, 90)))
 
     def _f_ffc(self, grid, like):
-        return torch.as_tensor(self.f_ffc_numpy(grid), dtype=like.dtype,
-                               device=like.device)
+        key = (self.rotation_rate, like.dtype, str(like.device))
+        cache = grid.__dict__.setdefault("_coriolis_f_ffc", {})
+        if key not in cache:
+            cache[key] = torch.as_tensor(self.f_ffc_numpy(grid),
+                                         dtype=like.dtype, device=like.device)
+        return cache[key]
 
     def x_f_cross_U(self, grid, u, v, w):
         from .grids.topology import LOC_CFC, LOC_FCC
@@ -253,14 +262,15 @@ class HydrostaticSphericalCoriolis:
         from .grids.topology import LOC_CFC, LOC_FCC
         from .operators.operators import _metric
         f = self._f_ffc(grid, u)
-        # f is zonally uniform, (1, Ny + 2Hy, 1): its own x interpolation
-        # is skipped (an x shift of a size-1 axis would zero it); the energy
-        # form's outer ℑx acts on the product, which varies in x
+        # a zonally uniform f, (1, Ny + 2Hy, 1), skips its own x
+        # interpolation (an x shift of a size-1 axis would zero it); the
+        # energy form's outer ℑx acts on the product, which varies in x
+        fx = f if f.shape[0] == 1 else ix_c(grid, f)
         dy_fcc = _metric(grid.dy(LOC_FCC), u)
         dy_cfc = _metric(grid.dy(LOC_CFC), u)
         if self.scheme == "energy_conserving":
             return ix_c(grid, f * iy_f(grid, dy_fcc * u)) / dy_cfc
-        return f * iy_f(grid, ix_c(grid, dy_fcc * u)) / dy_cfc
+        return fx * iy_f(grid, ix_c(grid, dy_fcc * u)) / dy_cfc
 
     def z_f_cross_U(self, grid, u, v, w):
         return torch.zeros_like(w)

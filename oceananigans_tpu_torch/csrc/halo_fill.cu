@@ -23,8 +23,29 @@
 // One thread forms a slot's final value from one load, applying the three
 // maps in order, in the plain version's arithmetic order; no slot that a
 // thread reads is written in the launch, so the in-place update has no race.
-// The source indices stay interior only when a bounded axis has N >= H + 1
-// and a periodic one N >= H; the wrapper raises otherwise.
+// The source indices stay unwritten because each axis's map sends every
+// slot it writes to a slot that axis leaves as it is. A periodic axis needs
+// N >= H for that, and the wrapper and oc_fill_plan refuse less. On a
+// bounded axis narrower than its halo needs (N < H for a center field, N <
+// H + 1 for a pinned face field), the far halo slots whose source the axis
+// itself writes keep their value: the axis's map is the identity there
+// (JAX's fill reads that source before it writes it; no stencil of the
+// models reaches that far).
+//
+// Two maps couple x and y. The tripolar north fold (kFold, kFoldFace, on
+// the high y side) reads north halo row j from interior row 2E - 2 - j
+// (2E - 1 - j for a y-face field, E = Hy + Ny) with x reversed over the
+// interior, times the field's sign; an x-face field rolls the reversed index
+// by one and keeps the sign of its wrap element. For a field centred in y
+// the eastern half of the last interior row takes its folded western half.
+// JAX folds the interior x first and wraps x after, so a slot first takes
+// its x map into the interior and then folds: still one interior read. The
+// one column that reads itself (an x-face field's column Nx/2 of that row,
+// Nx even) is filled by one thread, its z ends before its interior; with an
+// odd Nx two columns of that row would swap, so oc_fill_plan refuses it. The
+// polar cap (kPolarValue, kPolarPinned) extrapolates to, or pins to, the
+// zonal mean of the boundary row, which the wrapper computes beforehand into
+// a (field, side, z) table; a slot takes the mean at its z source.
 //
 // Work: per field, the columns (i, j) outside the unwritten x/y box are
 // written whole, along z, from their source column: a group of threads per
@@ -41,9 +62,12 @@
 // Bound: pure data movement, each written slot read once and written once.
 // The z ends of an interior column are a few bytes at both ends of a row, so
 // 32-byte DRAM sectors, and not the bytes, set the floor of a bounded-z fill.
-// Copies are exact; an extrapolated slot may differ from the plain PyTorch
-// version by rounding (FMA contraction, and PyTorch's division by a scalar
-// multiplies by its reciprocal on the card).
+// Every slot equals the plain PyTorch version's bit for bit: an
+// extrapolation rounds its quotient, product and sum one at a time (the
+// products are never contracted into an FMA), as the plain version's
+// separate operations do, and the plain version divides by a tensor on the
+// field's device (PyTorch multiplies by the reciprocal of a scalar divisor
+// on the card).
 #include "common.cuh"
 
 namespace {
@@ -60,10 +84,17 @@ constexpr int kValue = 3;     // center field, Value: extrapolate from c1
 constexpr int kGradient = 4;  // center field, Gradient: extrapolate from c1
 constexpr int kPinned = 5;    // face field, Open or Value: pin, reflect oddly
 constexpr int kReflect = 6;   // face field, Flux or Gradient: reflect evenly
+constexpr int kFold = 7;      // tripolar north fold, field centred in y
+constexpr int kFoldFace = 8;  // tripolar north fold, y-face field
+constexpr int kPolarValue = 9;    // polar cap, center field
+constexpr int kPolarPinned = 10;  // polar cap, face field
+constexpr int kLastCode = kPolarPinned;
 
 // What a map does to the value it reads.
 constexpr int kCopy = 0, kPin = 1, kOdd = 2, kValueLo = 3, kValueHi = 4,
-              kGradLo = 5, kGradHi = 6;
+              kGradLo = 5, kGradHi = 6,
+              kFoldRow = 7,    // read the folded slot, times the sign
+              kSubstRow = 8;   // the last row of a centre-y fold: fold the eastern half
 
 struct Axis {
   int N, H, P;                // interior cells, halo, padded extent
@@ -74,13 +105,16 @@ struct Axis {
 struct Field {
   void* p;
   signed char code[3][2];     // per axis: low side, high side
-  double v[3][2];             // scalar conditions (0 for none)
+  signed char face_x;         // an x-face field (the fold's x reversal)
+  signed char polar;          // a polar cap on a y side
+  double v[3][2];             // scalar conditions (0 for none); a fold's sign
   int whole_blocks, end_blocks;
 };
 
 struct Params {
   Axis ax[3];
   Field f[kMaxFields];
+  const void* means;          // polar caps: [field][side][z] zonal means
   int nf, elem_size;
   int whole_shift, end_shift;  // log2 of the threads per column
   int blocks;                  // gridDim.x
@@ -96,55 +130,109 @@ __host__ __device__ __forceinline__ void kept(const Axis& a, const signed char* 
     hi = a.P;
     return;
   }
-  lo = a.H + (c[0] == kPinned);
-  hi = a.H + a.N + (c[1] == kReflect);
+  lo = a.H + (c[0] == kPinned || c[0] == kPolarPinned);
+  hi = a.H + a.N + (c[1] == kReflect) - (c[1] == kFold);
 }
 
 template <typename T>
 struct Map {
   int src, op;
   T v, half, dist;
+  int polar;  // -1, or the side (0 low, 1 high) whose zonal mean v takes
 };
 
 template <typename T>
-__device__ __forceinline__ Map<T> map_at(const Axis& a, const signed char* c,
-                                         const double* v, int lo, int hi, int n) {
-  Map<T> m{n, kCopy, T(0), T(1), T(0)};
-  if (n >= lo && n < hi) return m;
+__host__ __device__ __forceinline__ Map<T> mk(int src, int op, T v, T half, T dist,
+                                              int polar = -1) {
+  Map<T> m;
+  m.src = src; m.op = op; m.v = v; m.half = half; m.dist = dist; m.polar = polar;
+  return m;
+}
+
+template <typename T>
+__host__ __device__ __forceinline__ Map<T> side_map(const Axis& a, const signed char* c,
+                                                    const double* v, int lo, int hi,
+                                                    int n) {
+  if (n >= lo && n < hi) return mk<T>(n, kCopy, T(0), T(1), T(0));
   const int H = a.H, E = a.H + a.N;  // E: the first slot past the interior
   if (n < lo) {
     switch (c[0]) {
-      case kWrap: m.src = n + a.N; break;
-      case kMirror: m.src = 2 * H - 1 - n; break;
-      case kValue:
-        m = Map<T>{H, kValueLo, (T)v[0], (T)a.half[0], (T)a.dist[0][n]};
-        break;
-      case kGradient: m = Map<T>{H, kGradLo, (T)v[0], T(1), (T)a.dist[0][n]}; break;
+      case kWrap: return mk<T>(n + a.N, kCopy, T(0), T(1), T(0));
+      case kMirror: return mk<T>(2 * H - 1 - n, kCopy, T(0), T(1), T(0));
+      case kValue: return mk<T>(H, kValueLo, (T)v[0], (T)a.half[0], (T)a.dist[0][n]);
+      case kPolarValue:
+        return mk<T>(H, kValueLo, T(0), (T)a.half[0], (T)a.dist[0][n], 0);
+      case kGradient: return mk<T>(H, kGradLo, (T)v[0], T(1), (T)a.dist[0][n]);
       case kPinned:
-        m = n == H ? Map<T>{n, kPin, (T)v[0], T(1), T(0)}
-                   : Map<T>{2 * H - n, kOdd, (T)(2.0 * v[0]), T(1), T(0)};
-        break;
-      default: m.src = 2 * H - n;  // kReflect
+        return n == H ? mk<T>(n, kPin, (T)v[0], T(1), T(0))
+                      : mk<T>(2 * H - n, kOdd, (T)(2.0 * v[0]), T(1), T(0));
+      case kPolarPinned:
+        return n == H ? mk<T>(n, kPin, T(0), T(1), T(0), 0)
+                      : mk<T>(2 * H - n, kOdd, T(0), T(1), T(0), 0);
+      default: return mk<T>(2 * H - n, kCopy, T(0), T(1), T(0));  // kReflect
     }
-  } else {
-    switch (c[1]) {
-      case kWrap: m.src = n - a.N; break;
-      case kMirror: m.src = 2 * E - 1 - n; break;
-      case kValue:
-        m = Map<T>{E - 1, kValueHi, (T)v[1], (T)a.half[1], (T)a.dist[1][n - E]};
-        break;
-      case kGradient:
-        m = Map<T>{E - 1, kGradHi, (T)v[1], T(1), (T)a.dist[1][n - E]};
-        break;
-      case kPinned:
-        m = n == E ? Map<T>{n, kPin, (T)v[1], T(1), T(0)}
-                   : Map<T>{2 * E - n, kOdd, (T)(2.0 * v[1]), T(1), T(0)};
-        break;
-      default: m.src = 2 * E - n;  // kReflect
-    }
+  }
+  switch (c[1]) {
+    case kWrap: return mk<T>(n - a.N, kCopy, T(0), T(1), T(0));
+    case kMirror: return mk<T>(2 * E - 1 - n, kCopy, T(0), T(1), T(0));
+    case kValue:
+      return mk<T>(E - 1, kValueHi, (T)v[1], (T)a.half[1], (T)a.dist[1][n - E]);
+    case kPolarValue:
+      return mk<T>(E - 1, kValueHi, T(0), (T)a.half[1], (T)a.dist[1][n - E], 1);
+    case kGradient:
+      return mk<T>(E - 1, kGradHi, (T)v[1], T(1), (T)a.dist[1][n - E]);
+    case kPinned:
+      return n == E ? mk<T>(n, kPin, (T)v[1], T(1), T(0))
+                    : mk<T>(2 * E - n, kOdd, (T)(2.0 * v[1]), T(1), T(0));
+    case kPolarPinned:
+      return n == E ? mk<T>(n, kPin, T(0), T(1), T(0), 1)
+                    : mk<T>(2 * E - n, kOdd, T(0), T(1), T(0), 1);
+    case kFold:
+      return n == E - 1 ? mk<T>(n, kSubstRow, (T)v[1], T(1), T(0))
+                        : mk<T>(2 * E - 2 - n, kFoldRow, (T)v[1], T(1), T(0));
+    case kFoldFace: return mk<T>(2 * E - 1 - n, kFoldRow, (T)v[1], T(1), T(0));
+    default: return mk<T>(2 * E - n, kCopy, T(0), T(1), T(0));  // kReflect
+  }
+}
+
+// The map of slot n along an axis: its side's map, or the identity where
+// that reads a slot the axis writes (a bounded axis narrower than its halo
+// needs; the fold's substituted row reads its own slots through the x fold).
+template <typename T>
+__host__ __device__ __forceinline__ Map<T> map_at(const Axis& a, const signed char* c,
+                                                  const double* v, int lo, int hi,
+                                                  int n) {
+  const Map<T> m = side_map<T>(a, c, v, lo, hi, n);
+  if (m.op != kPin && m.op != kSubstRow && (m.src < lo || m.src >= hi))
+    return mk<T>(n, kCopy, T(0), T(1), T(0));
+  return m;
+}
+
+// A polar-cap map takes its value from the zonal mean at z slot kz (twice
+// it for the odd reflection, as 2v - r).
+template <typename T>
+__device__ __forceinline__ Map<T> with_mean(Map<T> m, const T* means, int kz, int PZ) {
+  if (m.polar >= 0) {
+    const T mean = means[m.polar * PZ + kz];
+    m.v = m.op == kOdd ? T(2) * mean : mean;
   }
   return m;
 }
+
+// The fold's x source and factor: x reversed over the interior (rolled by
+// one for an x-face field, whose wrap element i = 0 keeps its sign), times
+// the sign.
+template <typename T>
+__device__ __forceinline__ void fold_x(const Axis& X, bool face_x, T sign, int& sx, T& s) {
+  const int i0 = sx - X.H;
+  const bool wrap_element = face_x && i0 == 0;
+  sx = X.H + (face_x ? (wrap_element ? 0 : X.N - i0) : X.N - 1 - i0);
+  s = wrap_element ? (sign < T(0) ? -sign : sign) : sign;
+}
+
+// A rounded product that the compiler may not contract into an FMA.
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 
 // The plain version's arithmetic: grad = (c1 - v) / half, c1 - grad·dist.
 template <typename T>
@@ -152,10 +240,10 @@ __device__ __forceinline__ T apply(const Map<T>& m, T r) {
   switch (m.op) {
     case kPin: return m.v;
     case kOdd: return m.v - r;
-    case kValueLo: return r - (r - m.v) / m.half * m.dist;
-    case kValueHi: return r + (m.v - r) / m.half * m.dist;
-    case kGradLo: return r - m.v * m.dist;
-    case kGradHi: return r + m.v * m.dist;
+    case kValueLo: return r - mul_rn((r - m.v) / m.half, m.dist);
+    case kValueHi: return r + mul_rn((m.v - r) / m.half, m.dist);
+    case kGradLo: return r - mul_rn(m.v, m.dist);
+    case kGradHi: return r + mul_rn(m.v, m.dist);
     default: return r;
   }
 }
@@ -222,25 +310,49 @@ __global__ void __launch_bounds__(kThreads) fill_halos_kernel(const __grid_const
                       xlo, xhi, ylo, yhi, i, j))
       return;
     const Map<T> mx = map_at<T>(X, f.code[0], f.v[0], xlo, xhi, i);
-    const Map<T> my = map_at<T>(Y, f.code[1], f.v[1], ylo, yhi, j);
+    Map<T> my = map_at<T>(Y, f.code[1], f.v[1], ylo, yhi, j);
+    int sx = mx.src;
+    T s = T(1);
+    const bool fold = my.op == kFoldRow ||
+                      (my.op == kSubstRow && sx - X.H >= X.N / 2);
+    if (fold) fold_x(X, f.face_x, my.v, sx, s);
+    if (my.op == kFoldRow || my.op == kSubstRow) my.op = kCopy;
     const bool pinned = mx.op == kPin || my.op == kPin;
-    const T* src = a + (mx.src * PY + my.src) * PZ;
+    const T* means = f.polar ? (const T*)P.means + blockIdx.y * 2 * PZ : nullptr;
+    const T* src = a + (sx * PY + my.src) * PZ;
     T* dst = a + (i * PY + j) * PZ;
+    if (src == dst && !pinned) {
+      // the column reads itself: one thread, its z ends before its interior
+      // (which it leaves as it is unless the fold changes it)
+      if ((threadIdx.x & (W - 1)) != 0) return;
+      for (int pass = 0; pass < 2; ++pass)
+        for (int k = 0; k < PZ; ++k) {
+          const bool inner = k >= zlo && k < zhi;
+          if (inner != (pass == 1) || (inner && !fold)) continue;
+          const Map<T> mz = map_at<T>(Z, f.code[2], f.v[2], zlo, zhi, k);
+          const T r = mz.op == kPin ? T(0) : src[mz.src] * s;
+          dst[k] = apply(mz, r);
+        }
+      return;
+    }
     for (int q = threadIdx.x & (W - 1); q < PZ / V; q += W) {
       const int k0 = q * V;
-      if (V > 1 && !pinned && k0 >= zlo && k0 + V <= zhi) {
+      if (V > 1 && !pinned && !f.polar && k0 >= zlo && k0 + V <= zhi) {
         VT val = *reinterpret_cast<const VT*>(src + k0);
         T* e = reinterpret_cast<T*>(&val);
 #pragma unroll
-        for (int v = 0; v < V; ++v) e[v] = apply(my, apply(mx, e[v]));
+        for (int v = 0; v < V; ++v)
+          e[v] = apply(my, apply(mx, fold ? e[v] * s : e[v]));
         *reinterpret_cast<VT*>(dst + k0) = val;
         continue;
       }
 #pragma unroll
       for (int v = 0; v < V; ++v) {
         const Map<T> mz = map_at<T>(Z, f.code[2], f.v[2], zlo, zhi, k0 + v);
-        const T r = pinned || mz.op == kPin ? T(0) : src[mz.src];
-        dst[k0 + v] = apply(mz, apply(my, apply(mx, r)));
+        const Map<T> myk = with_mean(my, means, mz.src, PZ);
+        T r = pinned || mz.op == kPin ? T(0) : src[mz.src];
+        if (fold) r = r * s;
+        dst[k0 + v] = apply(mz, apply(myk, apply(mx, r)));
       }
     }
     return;
@@ -255,6 +367,7 @@ __global__ void __launch_bounds__(kThreads) fill_halos_kernel(const __grid_const
   if (t >= zlo + PZ - zhi) return;
   const int k = t < zlo ? t : zhi + (t - zlo);
   const Map<T> mz = map_at<T>(Z, f.code[2], f.v[2], zlo, zhi, k);
+  if (mz.op == kCopy && mz.src == k) return;  // a slot a narrow z keeps
   const int ncols = nxk * nyk;
   int c = b * G * kEndItems + (threadIdx.x >> shift);
   int ci = c / nyk, cj = c - ci * nyk;
@@ -299,11 +412,11 @@ int oc_fill_params_size() { return (int)sizeof(Params); }
 // bytes, pointers left null): nf fields of one padded shape, elem_size 4 or
 // 8. Per axis a (x, y, z): N[a], H[a], P[a]; half[2a + s] and dist[(2a +
 // s)·kMaxH + m] for its low (s = 0) and high (s = 1) side (float64, from the
-// grid's center coordinates). Per field f: codes[6f + 2a + s] and
-// values[6f + 2a + s].
+// grid's center coordinates). Per field f: codes[6f + 2a + s],
+// values[6f + 2a + s] (a fold's sign), and face_x[f] (an x-face field).
 int oc_fill_plan(void* out, int nf, int elem_size, const int* N, const int* H,
                  const int* P, const double* half, const double* dist,
-                 const int* codes, const double* values) {
+                 const int* codes, const double* values, const int* face_x) {
   if (nf < 1 || nf > kMaxFields || (elem_size != 4 && elem_size != 8) ||
       (long long)P[0] * P[1] * P[2] >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
@@ -327,16 +440,28 @@ int oc_fill_plan(void* out, int nf, int elem_size, const int* N, const int* H,
   p->whole_shift = log2_at_least(chunks < 32 ? chunks : 32);
   int end_slots = 0;
   for (int f = 0; f < nf; ++f) {
+    p->f[f].face_x = (signed char)(face_x[f] != 0);
     for (int a = 0; a < 3; ++a)
       for (int s = 0; s < 2; ++s) {
         const int c = codes[6 * f + 2 * a + s];
-        // a source index must stay interior (see the design note)
-        if (c < kKeep || c > kReflect || (c != kKeep && H[a] == 0) ||
-            (c == kWrap && N[a] < H[a]) || (c > kWrap && N[a] < H[a] + 1))
+        const bool fold = c == kFold || c == kFoldFace;
+        const bool polar = c == kPolarValue || c == kPolarPinned;
+        // folds on the north side, polar caps on the y sides only
+        if (c < kKeep || c > kLastCode || (c != kKeep && H[a] == 0) ||
+            (c == kWrap && N[a] < H[a]) || (fold && (a != 1 || s != 1)) ||
+            (polar && a != 1))
           return (int)cudaErrorInvalidValue;
         p->f[f].code[a][s] = (signed char)c;
         p->f[f].v[a][s] = values[6 * f + 2 * a + s];
+        if (polar) p->f[f].polar = 1;
       }
+    const int cy = p->f[f].code[1][1];
+    // an x-face field centred in y with an odd Nx would swap two columns of
+    // the substituted row
+    if ((cy == kFold || cy == kFoldFace) &&
+        (p->f[f].code[0][0] != kWrap || N[0] <= 2 * H[0] ||
+         (cy == kFold && p->f[f].face_x && N[0] % 2)))
+      return (int)cudaErrorInvalidValue;
     int zlo, zhi;
     kept(p->ax[2], p->f[f].code[2], zlo, zhi);
     if (zlo + P[2] - zhi > end_slots) end_slots = zlo + P[2] - zhi;
@@ -358,10 +483,16 @@ int oc_fill_plan(void* out, int nf, int elem_size, const int* N, const int* H,
 
 // Fill the halos of nf fields in place: `params` from oc_fill_plan (a host
 // copy; its pointers are ignored), `ptrs` a host array of nf device pointers.
-int oc_fill_halos(const void* params, void* const* ptrs, int nf, void* stream) {
+// `means`: the polar caps' device table [field][side][z] of the field
+// dtype (kernels/halo_fill.py polar_means), or null without polar caps.
+int oc_fill_halos(const void* params, void* const* ptrs, int nf, const void* means,
+                  void* stream) {
   Params p;
   memcpy(&p, params, sizeof(Params));
   if (nf != p.nf) return (int)cudaErrorInvalidValue;
+  p.means = means;
+  for (int f = 0; f < nf; ++f)
+    if (p.f[f].polar && means == nullptr) return (int)cudaErrorInvalidValue;
   if (p.blocks == 0) return (int)cudaSuccess;
   bool aligned = (p.ax[2].P * p.elem_size) % 16 == 0;
   for (int f = 0; f < nf; ++f) {

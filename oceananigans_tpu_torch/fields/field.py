@@ -19,7 +19,7 @@ import torch
 
 from ..boundary_conditions import (fill_halo_regions,
                                    regularize_field_boundary_conditions)
-from ..grids.base import broadcastable_1d
+from ..grids.base import broadcastable_1d, padded_horizontal_nodes
 from ..grids.topology import (BOUNDED, FACE, LOC_CCC, LOC_CCF, LOC_CFC,
                               LOC_FCC, validate_location)
 
@@ -175,13 +175,19 @@ def align_reduction_mask(m, shape):
     return m
 
 
+def coordinates_numpy(grid, loc):
+    """The padded coordinates at ``loc`` as broadcastable float64 arrays
+    (x, y, z): on a shell grid the true 2-D (λ, φ) nodes, (npx, npy, 1)
+    (the JAX package passes the 1-D centre lines there)."""
+    return list(padded_horizontal_nodes(grid, loc)) + [
+        broadcastable_1d(grid.coord_padded(2, loc[2]), 2)]
+
+
 def coordinates(grid, loc):
     """The padded coordinates at ``loc`` as broadcastable tensors of the
-    grid's dtype and device (x, y, z)."""
-    return [torch.as_tensor(broadcastable_1d(grid.coord_padded(ax, loc[ax]),
-                                             ax),
-                            dtype=grid.dtype, device=grid.device)
-            for ax in range(3)]
+    grid's dtype and device (x, y, z); the true nodes on a shell grid."""
+    return [torch.as_tensor(c, dtype=grid.dtype, device=grid.device)
+            for c in coordinates_numpy(grid, loc)]
 
 
 def as_padded(grid, value):
@@ -197,8 +203,7 @@ def set_on_padded(grid, loc, value):
     shape = grid.padded_shape
     kw = dict(dtype=grid.dtype, device=grid.device)
     if callable(value):
-        coords = [broadcastable_1d(grid.coord_padded(ax, loc[ax]), ax)
-                  for ax in range(3)]
+        coords = coordinates_numpy(grid, loc)
         data = torch.as_tensor(np.asarray(value(*coords)), **kw)
         return data.broadcast_to(shape).contiguous()
     if np.isscalar(value):

@@ -3,7 +3,16 @@ from .topology import (PERIODIC, BOUNDED, FLAT, CENTER, FACE,
 from .base import AbstractGrid
 from .rectilinear import RectilinearGrid
 from .latlon import LatitudeLongitudeGrid
+from .orthogonal_spherical_shell import (OrthogonalSphericalShellGrid,
+                                         RotatedLatitudeLongitudeGrid)
+from .tripolar import TripolarGrid
+from .stretching import (ExponentialDiscretization, LinearStretching,
+                         PowerLawStretching,
+                         ReferenceToStretchedDiscretization)
 
 __all__ = ["PERIODIC", "BOUNDED", "FLAT", "CENTER", "FACE",
            "LOC_CCC", "LOC_FCC", "LOC_CFC", "LOC_CCF",
-           "AbstractGrid", "RectilinearGrid", "LatitudeLongitudeGrid"]
+           "AbstractGrid", "RectilinearGrid", "LatitudeLongitudeGrid",
+           "OrthogonalSphericalShellGrid", "RotatedLatitudeLongitudeGrid",
+           "TripolarGrid", "ExponentialDiscretization", "LinearStretching",
+           "PowerLawStretching", "ReferenceToStretchedDiscretization"]

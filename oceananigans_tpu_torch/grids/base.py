@@ -12,6 +12,7 @@ tensors. A grid also names the ``dtype`` and ``device`` of its fields.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from . import topology as topo
 
@@ -72,6 +73,72 @@ class AbstractGrid:
         return type(self) is type(other) and self._fingerprint() == other._fingerprint()
 
 
+class MetricCache:
+    """Metric accessors from a grid's ``metric_numpy(name, loc)``: a float
+    stays a Python float; an array becomes a tensor of the grid's dtype on
+    its device, formed once and cached in ``self._cache``."""
+
+    def _metric(self, name, loc):
+        key = (name, tuple(loc))
+        if key not in self._cache:
+            m = self.metric_numpy(name, loc)
+            self._cache[key] = (float(m) if np.ndim(m) == 0 else
+                                torch.as_tensor(np.ascontiguousarray(m),
+                                                dtype=self.dtype,
+                                                device=self.device))
+        return self._cache[key]
+
+    def dx(self, loc):
+        return self._metric("dx", loc)
+
+    def dy(self, loc):
+        return self._metric("dy", loc)
+
+    def dz(self, loc):
+        return self._metric("dz", loc)
+
+    def Ax(self, loc):
+        return self._metric("Ax", loc)
+
+    def Ay(self, loc):
+        return self._metric("Ay", loc)
+
+    def Az(self, loc):
+        return self._metric("Az", loc)
+
+    def V(self, loc):
+        return self._metric("V", loc)
+
+
+def padded_horizontal_nodes(grid, loc):
+    """The (x, y) coordinates at ``loc`` over the padded horizontal extent,
+    float64 numpy broadcastable against a padded field: the true 2-D
+    (λ, φ) nodes, (npx, npy, 1), on a grid that has them (a shell grid),
+    else the 1-D padded coordinates."""
+    if hasattr(grid, "nodes2d_padded"):
+        lam, phi = grid.nodes2d_padded(tuple(loc[:2]))
+        return lam[..., None], phi[..., None]
+    return tuple(broadcastable_1d(grid.coord_padded(ax, loc[ax]), ax)
+                 for ax in (0, 1))
+
+
+def horizontal_nodes(grid, loc, dtype=None, device=None):
+    """``padded_horizontal_nodes`` as tensors of the grid's dtype and device
+    (or the given ones)."""
+    kw = dict(dtype=dtype or grid.dtype, device=device or grid.device)
+    return tuple(torch.as_tensor(c, **kw)
+                 for c in padded_horizontal_nodes(grid, loc))
+
+
+def horizontal_nodes_numpy(grid, loc):
+    """``padded_horizontal_nodes`` over the interior: (Nx, Ny) arrays of the
+    true nodes on a shell grid, else (Nx, 1) and (1, Ny)."""
+    ints = [slice(h, h + n) for h, n in zip(grid.H[:2], grid.N[:2])]
+    return tuple(c[tuple(s if c.shape[a] > 1 else slice(None)
+                         for a, s in enumerate(ints))][..., 0]
+                 for c in padded_horizontal_nodes(grid, loc))
+
+
 def broadcastable_1d(arr, axis):
     """Reshape a 1D numpy metric array for broadcasting along ``axis`` of a 3D
     padded tensor."""
@@ -85,7 +152,9 @@ def numpy_metric(grid, name, loc):
     float64 numpy, as the JAX grids form it (a float, or a broadcastable
     array): the grid's own float64 form where it keeps one, else its value
     brought to the host."""
-    import torch
+    if hasattr(grid, "solid_ccc") and getattr(grid, "_dz_eff", None) is None:
+        # an immersed grid without partial cells keeps the underlying metrics
+        return numpy_metric(grid.underlying_grid, name, loc)
     if hasattr(grid, "metric_numpy") and not hasattr(grid, "solid_ccc"):
         return grid.metric_numpy(name, loc)
     m = getattr(grid, name)(loc)

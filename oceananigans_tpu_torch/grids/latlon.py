@@ -1,7 +1,6 @@
 """LatitudeLongitudeGrid: a spherical-shell grid with exact spherical metrics.
 
-Counterpart of ``oceananigans_tpu/grids/latlon.py`` with regular longitude,
-latitude and z:
+Counterpart of ``oceananigans_tpu/grids/latlon.py``:
 
     Δx(λ-loc, φ-loc) = R cos(φ) Δλ          (varies with latitude)
     Δy               = R Δφ
@@ -10,13 +9,16 @@ latitude and z:
 Longitude λ and latitude φ are in degrees, z in meters. The metrics are
 computed in numpy float64 exactly as the JAX grid computes them, then held as
 tensors of the grid's dtype on its device: a metric that varies with
-latitude is a (1, Ny + 2Hy, 1) tensor, a constant one a Python float. No
-metric varies along x.
+latitude is a (1, Ny + 2Hy, 1) tensor, a constant one a Python float. Any
+coordinate may be stretched (N + 1 face positions, a callable of the face
+index, or a discretization of ``grids/stretching.py``); its metrics then
+vary along that axis too.
 
 The default topology is that of the JAX grid: bounded latitude, and a
-longitude that is periodic when it spans 360° and bounded otherwise.
-Stretched coordinates (face arrays) and grids whose latitude touches a pole
-(the polar halo rows) are not ported yet and raise.
+longitude that is periodic when it spans 360° and bounded otherwise. A
+latitude range that ends at a pole sets ``polar_south`` or ``polar_north``:
+the fields' conditions on that side become polar caps
+(``boundary_conditions.PolarBoundaryCondition``).
 """
 
 from __future__ import annotations
@@ -26,17 +28,13 @@ import torch
 
 from ..defaults import as_torch_dtype, defaults, resolve_device
 from . import topology as topo
-from .base import AbstractGrid
-from .rectilinear import _Coordinate, _is_interval
+from .base import AbstractGrid, MetricCache
+from .rectilinear import coordinate, spacing_metric
 
 DEG = np.pi / 180.0
 
-STRETCHED_ITEM = ("ROADMAP.md queue 1 item 13 (hydrostatic: stretched "
-                  "lat-lon coordinates)")
-POLAR_ITEM = "ROADMAP.md queue 1 item 13 (hydrostatic: polar caps)"
 
-
-class LatitudeLongitudeGrid(AbstractGrid):
+class LatitudeLongitudeGrid(MetricCache, AbstractGrid):
     def __init__(self, size=None, longitude=None, latitude=None, z=None,
                  radius=None, topology=None, halo=None, dtype=None,
                  device=None):
@@ -84,31 +82,19 @@ class LatitudeLongitudeGrid(AbstractGrid):
                 halo = tuple(full)
         self.H = tuple(halo)
 
-        def build(axis, spec):
-            if self.topology[axis] == topo.FLAT:
-                return _Coordinate(1, 0, topo.FLAT)
-            if not _is_interval(spec):
-                raise NotImplementedError(
-                    f"stretched coordinate {spec!r} along axis {axis} is not "
-                    f"ported yet: {STRETCHED_ITEM}")
-            return _Coordinate(self.N[axis], self.H[axis],
-                               self.topology[axis], interval=spec)
-
-        self._lam = build(0, longitude)
-        self._phi = build(1, latitude)
-        self._zc = build(2, z)
-        self._coords = [self._lam, self._phi, self._zc]
+        self._coords = [coordinate(self.N[a], self.H[a], self.topology[a],
+                                   spec)
+                        for a, spec in enumerate((longitude, latitude, z))]
+        self._lam, self._phi, self._zc = self._coords
 
         phi_f = np.asarray(self._phi.coord(topo.FACE))
         H1, N1 = self.H[1], self.N[1]
         if np.any(np.abs(phi_f[H1:H1 + N1 + 1]) > 90 + 1e-9):
             raise ValueError("latitude extent exceeds ±90°")
-        if self.topology[1] == topo.BOUNDED and (
-                np.isclose(phi_f[H1], -90.0)
-                or np.isclose(phi_f[H1 + N1], 90.0)):
-            raise NotImplementedError(
-                f"a latitude range that touches a pole is not ported yet: "
-                f"{POLAR_ITEM}")
+        bounded_y = self.topology[1] == topo.BOUNDED
+        self.polar_south = bool(bounded_y and np.isclose(phi_f[H1], -90.0))
+        self.polar_north = bool(bounded_y
+                                and np.isclose(phi_f[H1 + N1], 90.0))
         self._cache = {}
 
     # -- coordinates (degrees for λ and φ) ------------------------------------
@@ -143,11 +129,16 @@ class LatitudeLongitudeGrid(AbstractGrid):
         return tuple(c.extent for c in self._coords)
 
     def regular(self, axis):
-        return True
+        return self._coords[axis].regular
 
     @property
     def all_regular(self):
         return False   # Δx varies with latitude: no FFT along y
+
+    @property
+    def stretched_axes(self):
+        return tuple(i for i in range(3)
+                     if not self._coords[i].regular and not self.is_flat(i))
 
     # -- metrics, float64 numpy as the JAX grid forms them ---------------------
 
@@ -156,16 +147,22 @@ class LatitudeLongitudeGrid(AbstractGrid):
         cos = np.cos(np.clip(phi, -90.0, 90.0) * DEG)
         return np.maximum(cos, 1e-12).reshape(1, -1, 1)
 
+    def _angle_rad(self, axis, loc):
+        """A longitude or latitude spacing in radians: a float, or a
+        broadcastable array on a stretched axis."""
+        return spacing_metric(self._coords[axis], axis, loc) * DEG
+
     def metric_numpy(self, name, loc):
         """The float64 value of metric ``name`` (dx, dy, dz, Ax, Ay, Az, V)
-        at ``loc``: a float, or a (1, Ny + 2Hy, 1) array."""
+        at ``loc``: a float, or a broadcastable array (a (1, Ny + 2Hy, 1)
+        one for a metric that varies with latitude alone)."""
         if name == "dx":
-            return self.radius * self._cosphi(loc[1]) * (
-                self._lam.spacing(loc[0]) * DEG)
+            return self.radius * self._cosphi(loc[1]) * self._angle_rad(
+                0, loc[0])
         if name == "dy":
-            return self.radius * (self._phi.spacing(loc[1]) * DEG)
+            return self.radius * self._angle_rad(1, loc[1])
         if name == "dz":
-            return self._zc.spacing(loc[2])
+            return spacing_metric(self._zc, 2, loc[2])
         if name == "Ax":
             return self.metric_numpy("dy", loc) * self.metric_numpy("dz", loc)
         if name == "Ay":
@@ -184,63 +181,32 @@ class LatitudeLongitudeGrid(AbstractGrid):
             sin_d = np.sin(np.clip(phi_plus, -90, 90) * DEG) \
                 - np.sin(np.clip(phi_minus, -90, 90) * DEG)
             sin_d = np.maximum(sin_d, 1e-15)
-            return (self.radius ** 2 * (self._lam.spacing(loc[0]) * DEG)
+            return (self.radius ** 2 * np.asarray(self._angle_rad(0, loc[0]))
                     * sin_d.reshape(1, -1, 1))
         if name == "V":
             return self.metric_numpy("Az", loc) * np.asarray(
                 self.metric_numpy("dz", loc))
         raise ValueError(f"unknown metric {name!r}")
 
-    def _metric(self, name, loc):
-        key = (name, tuple(loc))
-        if key not in self._cache:
-            m = self.metric_numpy(name, loc)
-            self._cache[key] = (float(m) if np.ndim(m) == 0 else
-                                torch.as_tensor(m, dtype=self.dtype,
-                                                device=self.device))
-        return self._cache[key]
-
-    def dx(self, loc):
-        return self._metric("dx", loc)
-
-    def dy(self, loc):
-        return self._metric("dy", loc)
-
-    def dz(self, loc):
-        return self._metric("dz", loc)
-
-    def Ax(self, loc):
-        return self._metric("Ax", loc)
-
-    def Ay(self, loc):
-        return self._metric("Ay", loc)
-
-    def Az(self, loc):
-        return self._metric("Az", loc)
-
-    def V(self, loc):
-        return self._metric("V", loc)
-
     def minimum_spacing(self, axis):
         if self.is_flat(axis):
             return np.inf
         if axis == 0:
             h, n = self.H[1], self.N[1]
-            return float(np.min(self.metric_numpy("dx", topo.LOC_CCC)
-                                [:, h:h + n, :]))
-        return float((self.metric_numpy("dy", topo.LOC_CCC), self.metric_numpy(
-            "dz", topo.LOC_CCC))[axis - 1])
+            return float(np.min(np.asarray(self.metric_numpy(
+                "dx", topo.LOC_CCC))[:, h:h + n, :]))
+        metric = self.metric_numpy("dy" if axis == 1 else "dz", topo.LOC_CCC)
+        if np.isscalar(metric):
+            return float(metric)
+        h, n = self.H[axis], self.N[axis]
+        return float(np.min(np.asarray(metric).reshape(-1)[h:h + n]))
 
     # -- copies ---------------------------------------------------------------
 
     def _rebuild(self, halo, dtype, device):
-        def spec(c):
-            return (None if c.topology == topo.FLAT
-                    else (c.origin, c.origin + c.extent))
-
         return LatitudeLongitudeGrid(
-            size=self.N, longitude=spec(self._lam), latitude=spec(self._phi),
-            z=spec(self._zc), radius=self.radius, topology=self.topology,
+            size=self.N, longitude=self._lam.spec(),
+            latitude=self._phi.spec(), z=self._zc.spec(), radius=self.radius, topology=self.topology,
             halo=halo, dtype=dtype, device=device)
 
     def with_halo(self, halo):

@@ -1,12 +1,18 @@
-"""RectilinearGrid: Cartesian grid with regular spacing in every direction.
+"""RectilinearGrid: Cartesian grid with regular or stretched spacing.
 
-Counterpart of ``oceananigans_tpu/grids/rectilinear.py``, regular spacing
-only: a stretched axis (face array or callable) raises. Coordinates and
-metrics are numpy float64, as in the JAX package; the grid also carries the
-``dtype`` and ``device`` of the fields built on it.
+Counterpart of ``oceananigans_tpu/grids/rectilinear.py``. Coordinates are
+numpy float64, as in the JAX package; the grid also carries the ``dtype``
+and ``device`` of the fields built on it. A regular axis gives its spacing
+as a Python float; a stretched one (an array of N + 1 face positions, a
+callable of the face index, or a discretization of ``grids/stretching.py``)
+gives a broadcastable tensor of the grid's dtype on its device, formed from
+the float64 metric (``metric_numpy``), with the end spacings extrapolated
+into the halos.
 
     RectilinearGrid(size=(64, 64, 64), extent=(1.0, 2.0, 3.0),
                     dtype=torch.float32)      # z in (-Lz, 0), on the card
+    RectilinearGrid(size=(8, 8, 8), x=(0, 1), y=(0, 1),
+                    z=ExponentialDiscretization(8, -100, 0), device="cpu")
 
 ``device`` defaults to ``"cuda"``; without a card, pass ``device="cpu"``.
 """
@@ -20,21 +26,23 @@ import torch
 
 from ..defaults import as_torch_dtype, resolve_device
 from . import topology as topo
-from .base import AbstractGrid
+from .base import AbstractGrid, MetricCache, broadcastable_1d
 
 _AXES = ("x", "y", "z")
 
-STRETCHED_ITEM = "ROADMAP.md queue 1 item 11 (non-uniform and immersed NH)"
-
 
 class _Coordinate:
-    """One direction's regular discretization, with padded coordinate and
-    spacing arrays covering the halo region."""
+    """One direction's discretization: regular (an interval, a scalar
+    spacing) or stretched (N + 1 face positions, or a callable of the face
+    index), with padded coordinate and spacing arrays covering the halo
+    region; a stretched axis extrapolates its end spacings into the
+    halos."""
 
     __slots__ = ("N", "H", "topology", "regular", "delta", "origin",
                  "xF", "xC", "dC", "dF", "_fp")
 
-    def __init__(self, N, H, topology, interval=None, delta=None):
+    def __init__(self, N, H, topology, interval=None, delta=None,
+                 faces=None):
         self.N = int(N)
         self.H = int(H)
         self.topology = topology
@@ -51,12 +59,30 @@ class _Coordinate:
             return
 
         Npad = self.N + 2 * self.H
-        a, b = float(interval[0]), float(interval[1])
-        self.delta = (b - a) / self.N if delta is None else float(delta)
-        self.origin = a
-        # padded faces: indices -H .. N+H (length Npad + 1)
-        idx = np.arange(-self.H, self.N + self.H + 1, dtype=np.float64)
-        xF = a + idx * self.delta
+        if faces is None:
+            a, b = float(interval[0]), float(interval[1])
+            self.delta = (b - a) / self.N if delta is None else float(delta)
+            self.origin = a
+            # padded faces: indices -H .. N+H (length Npad + 1)
+            idx = np.arange(-self.H, self.N + self.H + 1, dtype=np.float64)
+            xF = a + idx * self.delta
+        else:
+            self.regular = False
+            self.delta = None
+            if callable(faces):
+                f = np.asarray([faces(k) for k in range(self.N + 1)],
+                               dtype=np.float64)
+            else:
+                f = np.asarray(faces, dtype=np.float64)
+            if f.shape != (self.N + 1,):
+                raise ValueError(f"face array must have length N+1="
+                                 f"{self.N + 1}, got {f.shape}")
+            if np.any(np.diff(f) <= 0):
+                raise ValueError("face positions must be strictly increasing")
+            self.origin = float(f[0])
+            dl, dr = f[1] - f[0], f[-1] - f[-2]
+            xF = np.concatenate([f[0] - dl * np.arange(self.H, 0, -1), f,
+                                 f[-1] + dr * np.arange(1, self.H + 1)])
         self.xF = xF
         self.xC = 0.5 * (xF[:-1] + xF[1:])
         self.dC = np.diff(xF)
@@ -65,10 +91,25 @@ class _Coordinate:
         dF[0] = dF[1]
         dF[-1] = dF[-2]
         self.dF = dF
-        self._fp = (self.N, self.H, topology, self.delta, self.origin)
+        self._fp = ((self.N, self.H, topology, self.delta, self.origin)
+                    if self.regular else (self.N, self.H, topology,
+                                          xF.tobytes()))
 
     def spacing(self, loc):
-        return self.delta
+        """A float on a regular axis, else the padded spacings at 'c' (cell
+        widths) or 'f' (centre to centre, Npad entries)."""
+        if self.regular:
+            return self.delta
+        return self.dC if loc == topo.CENTER else self.dF[:-1]
+
+    def spec(self):
+        """The coordinate as a constructor takes it: None (flat), the
+        interval, or the interior face positions."""
+        if self.topology == topo.FLAT:
+            return None
+        if self.regular:
+            return (self.origin, self.origin + self.extent)
+        return self.xF[self.H:self.H + self.N + 1].copy()
 
     def coord(self, loc):
         """Padded coordinates at 'c' or 'f' (length Npad)."""
@@ -86,7 +127,23 @@ def _is_interval(spec):
             and np.isscalar(spec[0]) and np.isscalar(spec[1]))
 
 
-class RectilinearGrid(AbstractGrid):
+def coordinate(N, H, topology, spec):
+    """The ``_Coordinate`` of an interval or a stretched specification."""
+    if topology == topo.FLAT:
+        return _Coordinate(1, 0, topo.FLAT)
+    if _is_interval(spec):
+        return _Coordinate(N, H, topology, interval=spec)
+    return _Coordinate(N, H, topology, faces=spec)
+
+
+def spacing_metric(c, axis, loc):
+    """A coordinate's spacing at ``loc`` as the JAX grids form it: a float,
+    or a float64 array broadcastable along ``axis``."""
+    s = c.spacing(loc)
+    return s if np.isscalar(s) else broadcastable_1d(s, axis)
+
+
+class RectilinearGrid(MetricCache, AbstractGrid):
     def __init__(self, size=None, extent=None, x=None, y=None, z=None,
                  topology=None, halo=None, dtype=None, device=None):
         if topology is None:
@@ -148,29 +205,42 @@ class RectilinearGrid(AbstractGrid):
                 continue
             if spec is None:
                 raise ValueError(f"missing coordinate spec for non-flat direction {ax}")
-            if not _is_interval(spec):
-                raise NotImplementedError(
-                    f"stretched {ax} coordinates are not ported yet: "
-                    f"{STRETCHED_ITEM}")
-            self._coords.append(_Coordinate(self.N[i], self.H[i],
-                                            self.topology[i], interval=spec))
+            self._coords.append(coordinate(self.N[i], self.H[i],
+                                           self.topology[i], spec))
+        self._cache = {}
 
     # -- regularity queries ---------------------------------------------------
 
+    def regular(self, axis):
+        return self._coords[axis].regular
+
     @property
     def all_regular(self):
-        return True
+        return all(c.regular for c in self._coords)
+
+    @property
+    def stretched_axes(self):
+        return tuple(i for i in range(3)
+                     if not self._coords[i].regular and not self.is_flat(i))
 
     # -- metrics --------------------------------------------------------------
 
-    def dx(self, loc):
-        return self._coords[0].spacing(loc[0])
-
-    def dy(self, loc):
-        return self._coords[1].spacing(loc[1])
-
-    def dz(self, loc):
-        return self._coords[2].spacing(loc[2])
+    def metric_numpy(self, name, loc):
+        """The float64 value of metric ``name`` (dx, dy, dz, Ax, Ay, Az, V)
+        at ``loc``: a float, or a broadcastable array on a stretched axis."""
+        if name in ("dx", "dy", "dz"):
+            axis = "xyz".index(name[1])
+            return spacing_metric(self._coords[axis], axis, loc[axis])
+        d = {n: self.metric_numpy(n, loc) for n in ("dx", "dy", "dz")}
+        if name == "Ax":
+            return d["dy"] * d["dz"]
+        if name == "Ay":
+            return d["dx"] * d["dz"]
+        if name == "Az":
+            return d["dx"] * d["dy"]
+        if name == "V":
+            return (d["dx"] * d["dy"]) * d["dz"]
+        raise ValueError(f"unknown metric {name!r}")
 
     # -- coordinates / nodes --------------------------------------------------
 
@@ -187,6 +257,15 @@ class RectilinearGrid(AbstractGrid):
             return c.xF[h:h + n + 1]
         return c.coord(loc)[h:h + n]
 
+    def xnodes(self, loc="c"):
+        return self.nodes1d(0, loc)
+
+    def ynodes(self, loc="c"):
+        return self.nodes1d(1, loc)
+
+    def znodes(self, loc="c"):
+        return self.nodes1d(2, loc)
+
     @property
     def extent(self):
         return tuple(c.extent for c in self._coords)
@@ -195,14 +274,13 @@ class RectilinearGrid(AbstractGrid):
         c = self._coords[axis]
         if c.topology == topo.FLAT:
             return np.inf
-        return c.delta
+        if c.regular:
+            return c.delta
+        h, n = self.H[axis], self.N[axis]
+        return float(np.min(c.dC[h:h + n]))
 
     def _rebuild(self, halo, dtype, device):
-        specs = {}
-        for i, ax in enumerate(_AXES):
-            c = self._coords[i]
-            specs[ax] = (None if c.topology == topo.FLAT
-                         else (c.origin, c.origin + c.extent))
+        specs = {ax: c.spec() for ax, c in zip(_AXES, self._coords)}
         return RectilinearGrid(size=self.N, x=specs["x"], y=specs["y"],
                                z=specs["z"], topology=self.topology,
                                halo=halo, dtype=dtype, device=device)
@@ -219,7 +297,10 @@ class RectilinearGrid(AbstractGrid):
         this grid's). The spacing is copied, not re-derived from an extent,
         so the shard's metrics equal this grid's exactly; its coordinates
         start at this grid's origin (the sharded stages read only metrics)."""
+        if not self.all_regular:
+            raise NotImplementedError("a sharded grid must be regular")
         local = copy.copy(self)
+        local._cache = {}
         local.N = tuple(int(n) for n in size)
         local.device = self.device if device is None else torch.device(device)
         local._coords = [

@@ -18,8 +18,9 @@ the masks and effective spacings the models read are tensors of the grid's
 dtype on its device, made on first use and cached. A bottom height or mask
 given as a callable is evaluated on the interior centre coordinates as
 float64 numpy arrays, as the JAX package evaluates it (write it with numpy
-operations); the halos are then padded by topology (wrapped on a periodic
-axis, extended on a bounded one).
+operations), on a shell grid at the true 2-D (λ, φ) centres; the halos are
+then padded by topology (wrapped on a periodic axis, extended on a bounded
+one).
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .grids.base import AbstractGrid, broadcastable_1d, numpy_metric
+from .grids.base import (AbstractGrid, broadcastable_1d,
+                         horizontal_nodes_numpy, numpy_metric)
 from .grids.topology import CENTER, FACE, LOC_CCC, LOC_CCF, LOC_CFC, LOC_FCC
 
 
@@ -46,12 +48,10 @@ def _pad_columns(grid, a):
 
 
 def _interior_centers_2d(grid):
-    """Interior (x, y) centre coordinates as broadcastable numpy arrays."""
-    x = np.asarray(grid.coord_padded(0, CENTER))[
-        grid.H[0]:grid.H[0] + grid.N[0]].reshape(-1, 1)
-    y = np.asarray(grid.coord_padded(1, CENTER))[
-        grid.H[1]:grid.H[1] + grid.N[1]].reshape(1, -1)
-    return x, y
+    """Interior (x, y) centre coordinates as broadcastable numpy arrays:
+    the true 2-D (λ, φ) centres on a shell grid (the JAX package passes
+    the 1-D centre lines there)."""
+    return horizontal_nodes_numpy(grid, (CENTER, CENTER))
 
 
 def _bottom_padded_2d(grid, b):

@@ -25,8 +25,8 @@ from .fused_shallow_water import (build_sharded_fused_sw_update,
 from .fused_vector_invariant import (fused_vi_tendency,
                                      fused_vi_tendency_plain)
 from .halo_fill import (ZFill, bounded_z_fill_plain, fill_bounded_axis,
-                        fill_halos, fill_halos_plain, periodic_halo_fill,
-                        periodic_halo_fill_plain)
+                        fill_halos, fill_halos_plain, fold_north,
+                        periodic_halo_fill, periodic_halo_fill_plain)
 from .vpu_probes import (bf16_smoothness, bf16_smoothness_plain, vpu_mix,
                          vpu_mix_plain, weno_microbench, weno_microbench_plain)
 
@@ -37,7 +37,7 @@ KERNELS = (fused_advection_update, fused_divergence, fused_correct,
            weno_microbench, vpu_mix, bf16_smoothness)
 PLAINS = (fused_advection_update_plain, fused_divergence_plain,
           fused_correct_plain, fill_halos_plain, periodic_halo_fill_plain,
-          fill_bounded_axis, fused_advection_tendency_plain,
+          fill_bounded_axis, fold_north, fused_advection_tendency_plain,
           bounded_z_fill_plain,
           fused_sw_update_plain, fused_vi_tendency_plain, halo_exchange_plain,
           build_sharded_fused_sw_update_plain,
@@ -48,14 +48,20 @@ PLAINS = (fused_advection_update_plain, fused_divergence_plain,
 def reset_counters():
     for fn in KERNELS:
         fn.launches = 0
+    fill_halos.surface_launches = 0
     for fn in PLAINS:
         fn.cuda_calls = 0
 
 
 def counters():
-    """{kernel name: launches} and {plain name: calls on CUDA tensors}."""
-    return ({fn.__name__: fn.launches for fn in KERNELS},
-            {fn.__name__: fn.cuda_calls for fn in PLAINS})
+    """{kernel name: launches} and {plain name: calls on CUDA tensors}; the
+    fill's launches also split into those on 3-D fields
+    (``fill_halos_3d``) and on 2-D surface fields (``fill_halos_2d``)."""
+    launches = {fn.__name__: fn.launches for fn in KERNELS}
+    launches["fill_halos_2d"] = fill_halos.surface_launches
+    launches["fill_halos_3d"] = fill_halos.launches - \
+        fill_halos.surface_launches
+    return launches, {fn.__name__: fn.cuda_calls for fn in PLAINS}
 
 
 __all__ = ["fused_advection_update", "fused_advection_update_plain",
@@ -63,7 +69,8 @@ __all__ = ["fused_advection_update", "fused_advection_update_plain",
            "fused_divergence", "fused_divergence_plain", "fused_correct",
            "fused_correct_plain", "fill_halos", "fill_halos_plain",
            "periodic_halo_fill", "periodic_halo_fill_plain",
-           "fill_bounded_axis", "bounded_z_fill_plain", "fused_sw_update", "fused_sw_update_plain",
+           "fill_bounded_axis", "fold_north", "bounded_z_fill_plain",
+           "fused_sw_update", "fused_sw_update_plain",
            "fused_vi_tendency", "fused_vi_tendency_plain",
            "mesh_halo_exchange", "halo_exchange_plain",
            "build_sharded_fused_sw_update",

@@ -19,8 +19,9 @@ evolves; every other slot is zero. The four phases of the TPU function
 same order.
 
 Configurations (``vi_config``; anything else raises): a grid whose metrics do not vary along x
-with regular x and z (``LatitudeLongitudeGrid`` or a regular
-``RectilinearGrid``), a bounded z with a halo, bounded or periodic x and y;
+with regular axes (``LatitudeLongitudeGrid`` that does not reach a pole, or
+a regular ``RectilinearGrid``), a bounded z with a halo, bounded or
+periodic x and y;
 vorticity ``ENSTROPHY``, ``ENERGY`` or WENO(5/7/9) with the velocity
 stencil; vertical advection, divergence and kinetic-energy schemes all
 ``ENERGY`` or all WENO(5) with ``ONLY_SELF``; Coriolis None, ``FPlane`` or
@@ -103,6 +104,11 @@ def vi_config(grid, vi, tracer_scheme, n_tracers, coriolis):
     why = []
     if not isinstance(grid, (LatitudeLongitudeGrid, RectilinearGrid)):
         why.append(f"grid type {type(grid).__name__}")
+    if getattr(grid, "polar_south", False) or getattr(grid, "polar_north",
+                                                      False):
+        why.append("a latitude range that ends at a pole (polar caps)")
+    if getattr(grid, "stretched_axes", ()):
+        why.append("stretched axes")
     if grid.topology[2] != BOUNDED or grid.H[2] < 1:
         why.append("z must be bounded with a halo")
     if FLAT in grid.topology[:2]:

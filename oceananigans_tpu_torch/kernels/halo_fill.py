@@ -12,16 +12,39 @@ and boundary conditions, mirrors, extrapolates or pins and reflects
 periodic axes are filled (``periodic_halo_fill``).
 
 Design (``csrc/halo_fill.cu``): along each axis each fill maps one source
-slot to each halo slot, and each source slot is interior, so one thread
-forms any slot's final value from one load by applying the x, y and z maps
-in order. The side codes below name the maps; ``fill_codes`` assigns them
-and ``axis_geometry`` gives the float64 half spacings and distances the
-extrapolations use. A launch takes a batch of up to ``build.BATCH`` fields of
-one padded shape; its parameter block is built once per (grid, shape, dtype,
-field locations and conditions) and cached, and a call only writes the
-fields' pointers into it. The wrapper raises where one load per slot would
-not hold: a filled bounded axis with N < H + 1 or H > ``MAX_H``, a periodic
-axis with N < H, a periodic z with conditions.
+slot to each halo slot, and each source slot is one the launch does not
+write, so one thread forms any slot's final value from one load by applying
+the x, y and z maps in order. The side codes below name the maps;
+``fill_codes`` assigns them and ``axis_geometry`` gives the float64 half
+spacings and distances the extrapolations use. A launch takes a batch of up
+to ``build.BATCH`` fields of one padded shape; its parameter block is built
+once per (grid, shape, dtype, field locations and conditions) and cached,
+and a call only writes the fields' pointers into it. The wrapper raises
+where one load per slot would not hold: a periodic axis with N < H, a
+bounded one with H > ``MAX_H``, a periodic z with conditions. On a bounded
+axis narrower than its halo needs (N < H for a centre field, N < H + 1 for a
+pinned face), the far halo slots whose source that axis itself writes keep
+their value (``narrow_slots``; the JAX fill reads such a source before it
+writes it, and no stencil of the models reads that far), so the kernel and
+``fill_halos_plain`` agree there and the JAX fill may not.
+
+Two codes come from the grid. ``FOLD`` (``FOLD_FACE`` for a y-face field)
+is the tripolar north fold (``ZipperBoundaryCondition``): north halo row
+j = Ny − 1 + m reads interior row Ny − 1 − m (Ny − m for a y-face field,
+whose boundary face Ny is the first folded row) with x reversed (i ↦ Nx − 1
+− i, or Nx − i and the wrap element i = 0 kept for an x-face field) and
+times the sign (not at that wrap element); for a field centred in y the
+eastern half of the last interior row is overwritten by its folded western
+half. The fold couples x and y: as in JAX, whose fill folds the interior x
+first and wraps x after, a slot in an x halo first wraps its x into the
+interior and then folds, so every slot still reads one interior slot. An
+x-face field with an even Nx maps column Nx/2 of the last row onto itself;
+one thread fills that column, its z ends before its interior.
+``POLAR_VALUE`` and ``POLAR_PINNED`` are the polar caps of a pole-touching
+lat-lon grid (``PolarBoundaryCondition``): Value and Open with the zonal
+mean of the boundary row over the interior x, one per field, side and z
+slot (``polar_means``: a PyTorch reduction, as the JAX package takes it in
+XLA), which the kernel reads from a small table.
 
 The plain version ``fill_halos_plain`` is the sequence the kernel replaces:
 ``fill_bounded_axis`` along x, ``periodic_halo_fill_plain`` (the periodic
@@ -63,7 +86,14 @@ EXTRAPOLATE_VALUE = 3      # center field, Value
 EXTRAPOLATE_GRADIENT = 4   # center field, Gradient
 PINNED = 5                 # face field, Open or Value: pin the face, reflect oddly
 REFLECT = 6                # face field, Flux or Gradient: reflect evenly
-EXTRAPOLATES = (EXTRAPOLATE_VALUE, EXTRAPOLATE_GRADIENT)
+FOLD = 7                   # tripolar north fold, field centred in y
+FOLD_FACE = 8              # tripolar north fold, y-face field
+POLAR_VALUE = 9            # polar cap, center field: extrapolate to the mean
+POLAR_PINNED = 10          # polar cap, face field: pin to the mean, reflect
+EXTRAPOLATES = (EXTRAPOLATE_VALUE, EXTRAPOLATE_GRADIENT, POLAR_VALUE)
+FOLDS = (FOLD, FOLD_FACE)
+POLARS = (POLAR_VALUE, POLAR_PINNED)
+PINS = (PINNED, POLAR_PINNED)
 
 
 class ZFill(NamedTuple):
@@ -82,10 +112,36 @@ def _geometry(grid):
 
 def _value(bc):
     """The scalar a fill reads: a Flux condition's value is never read (its
-    fill mirrors or reflects), so a callable Flux condition counts as 0."""
-    if bc is None or bc.condition is None or bc.classification == bcm.FLUX:
+    fill mirrors or reflects), so a callable Flux condition counts as 0; a
+    fold's is its sign; a polar cap's comes from ``polar_means``."""
+    if bc is None or bc.condition is None or bc.classification == bcm.FLUX \
+            or isinstance(bc.condition, bcm.PolarValue):
         return 0.0
     return float(bc.condition)
+
+
+def _is_polar(bc):
+    return bc is not None and isinstance(bc.condition, bcm.PolarValue)
+
+
+def _is_fold(bc):
+    return bc is not None and bc.classification == bcm.ZIPPER
+
+
+def polar_row_means(grid, a):
+    """The zonal means of a field's two boundary rows along y over the
+    interior x, at every z slot, (2, nz): the pole values of the polar caps
+    (the boundary row is the first interior row at the south, the last at
+    the north, for centre and y-face fields alike). One reduction over a
+    view of the two rows."""
+    Hx, Nx = grid.H[0], grid.N[0]
+    Hy, Ny = grid.H[1], grid.N[1]
+    return a[Hx:Hx + Nx, Hy:Hy + Ny:max(Ny - 1, 1)].mean(0)
+
+
+def polar_row_mean(grid, a, is_left):
+    """``polar_row_means`` of one side, (1, 1, nz)."""
+    return polar_row_means(grid, a)[0 if is_left else -1][None, None]
 
 
 def _classification(bc):
@@ -139,19 +195,46 @@ def periodic_halo_fill_plain(grid, fields):
 periodic_halo_fill_plain.cuda_calls = 0
 
 
+def _div(x, d):
+    """x / d, the scalar ``d`` as a tensor of x's dtype on x's device: PyTorch
+    multiplies by the reciprocal of a scalar divisor on the card, which
+    rounds apart from the kernel's division."""
+    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+
+
 def fill_bounded_axis(a, grid, loc, bcs, axis):
     """``_fill_axis`` along a bounded ``axis`` of one padded tensor (3-D, or
     a 2-D surface field for axis 0 or 1), in place; returns it. Center
     fields mirror the interior under Flux/Open and extrapolate linearly from
     the boundary cell under Value/Gradient; the wall-normal face field is
-    pinned at the boundary face under Open/Value and reflected about it."""
+    pinned at the boundary face under Open/Value and reflected about it. A
+    polar cap's value is the zonal mean of the boundary row
+    (``polar_row_mean``); a folded north side (``fold_north``, which runs
+    first) is left as it is, and so are the ``narrow_slots``."""
     H, N = grid.H[axis], grid.N[axis]
     if H == 0:
         return a
     if a.is_cuda:
         fill_bounded_axis.cuda_calls += 1
     left, right = bcs.pair(axis)
+    face = loc[axis] == FACE
+    narrow = narrow_slots((_side_code(left, face), 0.0,
+                           _side_code(right, face), 0.0), N, H)
+    kept = {n: a.narrow(axis, n, 1).clone() for n in narrow}
+    _fill_bounded_sides(a, grid, loc, left, right, axis)
+    for n, old in kept.items():
+        a.narrow(axis, n, 1).copy_(old)
+    return a
+
+
+def _fill_bounded_sides(a, grid, loc, left, right, axis):
+    H, N = grid.H[axis], grid.N[axis]
     cls_l, cls_r = _classification(left), _classification(right)
+    fold = _is_fold(right)
+
+    def value(bc, is_left):
+        return (polar_row_mean(grid, a, is_left) if _is_polar(bc)
+                else _value(bc))
 
     def sl(start, stop):
         return a.narrow(axis, start, stop - start)
@@ -164,20 +247,22 @@ def fill_bounded_axis(a, grid, loc, bcs, axis):
         if cls_l in (bcm.FLUX, bcm.OPEN):
             sl(0, H).copy_(flipped(H, 2 * H))
         elif cls_l in (bcm.VALUE, bcm.GRADIENT):
-            vv = _value(left)
+            vv = value(left, True)
             c1 = sl(H, H + 1).clone()
-            grad = ((c1 - vv) / ((xC[H] - xC[H - 1]) / 2)
+            grad = (_div(c1 - vv, (xC[H] - xC[H - 1]) / 2)
                     if cls_l == bcm.VALUE else vv * torch.ones_like(c1))
             for m in range(H):
                 sl(m, m + 1).copy_(c1 - grad * (xC[H] - xC[m]))
         else:
             raise ValueError(f"unsupported BC {cls_l} for a centered location")
+        if fold:
+            return a            # its north rows were folded first
         if cls_r in (bcm.FLUX, bcm.OPEN):
             sl(H + N, 2 * H + N).copy_(flipped(N, H + N))
         elif cls_r in (bcm.VALUE, bcm.GRADIENT):
-            vv = _value(right)
+            vv = value(right, False)
             cN = sl(H + N - 1, H + N).clone()
-            grad = ((vv - cN) / ((xC[H + N] - xC[H + N - 1]) / 2)
+            grad = (_div(vv - cN, (xC[H + N] - xC[H + N - 1]) / 2)
                     if cls_r == bcm.VALUE else vv * torch.ones_like(cN))
             for m in range(H):
                 sl(H + N + m, H + N + m + 1).copy_(
@@ -188,24 +273,63 @@ def fill_bounded_axis(a, grid, loc, bcs, axis):
 
     # the wall-normal face field: slot H is the left boundary face, slot H+N
     # the right one
+    vL = value(left, True) if cls_l in (bcm.OPEN, bcm.VALUE) else None
+    vR = (value(right, False) if cls_r in (bcm.OPEN, bcm.VALUE)
+          and not fold else None)
+    for v, slot in ((vL, H), (vR, H + N)):
+        if v is not None:
+            sl(slot, slot + 1).copy_(torch.as_tensor(
+                v, dtype=a.dtype).expand_as(sl(slot, slot + 1)))
     low = flipped(H + 1, 2 * H + 1)
     high = flipped(N + 1, H + N)
-    if cls_l in (bcm.OPEN, bcm.VALUE):
-        vL = _value(left)
-        sl(0, H).copy_(2 * vL - low)
-        sl(H, H + 1).fill_(vL)
-    else:
-        sl(0, H).copy_(low)
-    if cls_r in (bcm.OPEN, bcm.VALUE):
-        vR = _value(right)
-        sl(H + N, H + N + 1).fill_(vR)
-        sl(H + N + 1, 2 * H + N).copy_(2 * vR - high)
-    else:
-        sl(H + N + 1, 2 * H + N).copy_(high)
+    sl(0, H).copy_(low if vL is None else 2 * vL - low)
+    if not fold:
+        sl(H + N + 1, 2 * H + N).copy_(high if vR is None else 2 * vR - high)
     return a
 
 
 fill_bounded_axis.cuda_calls = 0
+
+
+def fold_north(a, grid, loc, bcs):
+    """The tripolar north fold of one padded tensor, in place (JAX
+    ``_fill_zipper_north``), over the interior x: north halo row
+    j = Ny − 1 + m takes interior row Ny − 1 − m (Ny − m for a y-face field,
+    from its boundary face Ny on) with x reversed, times the sign of
+    ``bcs.north``; for an x-face field the reversed index rolls by one and
+    the wrap element keeps its sign. For a field centred in y the eastern
+    half of the last interior row takes its folded western half. Rows whose
+    source lies past the south side's reach keep their value
+    (``narrow_slots``)."""
+    if a.is_cuda:
+        fold_north.cuda_calls += 1
+    Hx, Hy = grid.H[0], grid.H[1]
+    Nx, Ny = grid.N[0], grid.N[1]
+    face_x, face_y = loc[0] == FACE, loc[1] == FACE
+    sign = bcs.north.condition
+    narrow = narrow_slots((_side_code(bcs.south, face_y), 0.0,
+                           _side_code(bcs.north, face_y), 0.0), Ny, Hy)
+    orig = a[Hx:Hx + Nx].clone()
+    sgn = torch.full((Nx, 1), float(sign), dtype=a.dtype, device=a.device)
+    if face_x:
+        sgn[0] = abs(float(sign))
+
+    def fold_x(row):
+        flipped = torch.flip(row, [0])
+        return sgn * (torch.roll(flipped, 1, 0) if face_x else flipped)
+
+    out = a[Hx:Hx + Nx]
+    for m in range(1, Hy + 1):
+        src = Hy + Ny - m if face_y else Hy + Ny - 1 - m
+        if Hy + Ny - 1 + m not in narrow:
+            out[:, Hy + Ny - 1 + m] = fold_x(orig[:, src])
+    if not face_y:
+        row = Hy + Ny - 1
+        out[Nx // 2:, row] = fold_x(orig[:, row])[Nx // 2:]
+    return a
+
+
+fold_north.cuda_calls = 0
 
 
 def z_distances(grid):
@@ -234,49 +358,76 @@ def bounded_z_fill_plain(grid, fields, specs):
     for a, spec in zip(fields, specs):
         if a.is_cuda:
             bounded_z_fill_plain.cuda_calls += 1
-        (cb, vb), (ct, vt) = spec.bottom, spec.top
-        if not spec.face:
-            if cb in (FLUX, OPEN):
-                a[..., :H] = torch.flip(a[..., H:2 * H], [-1])
-            else:
-                c1 = a[..., H:H + 1].clone()
-                grad = (c1 - vb) / half_b if cb == VALUE \
-                    else vb * torch.ones_like(c1)
-                for s in range(H):
-                    a[..., s:s + 1] = c1 - grad * dist_b[s]
-            if ct in (FLUX, OPEN):
-                a[..., H + N:] = torch.flip(a[..., N:H + N], [-1])
-            else:
-                cN = a[..., H + N - 1:H + N].clone()
-                grad = (vt - cN) / half_t if ct == VALUE \
-                    else vt * torch.ones_like(cN)
-                for m in range(H):
-                    a[..., H + N + m:H + N + m + 1] = cN + grad * dist_t[m]
-            continue
-        low = torch.flip(a[..., H + 1:2 * H + 1], [-1])
-        a[..., :H] = 2 * vb - low if _pins(cb) else low
-        if _pins(cb):
-            a[..., H] = vb
-        if _pins(ct):
-            a[..., H + N] = vt
-        high = torch.flip(a[..., N + 1:H + N], [-1])
-        a[..., H + N + 1:] = 2 * vt - high if _pins(ct) else high
+        narrow = _zfill_narrow(grid, spec)
+        kept = {n: a[..., n].clone() for n in narrow}
+        _fill_z_sides(a, spec, H, N, half_b, half_t, dist_b, dist_t)
+        for n, old in kept.items():
+            a[..., n] = old
     return fields
+
+
+def _fill_z_sides(a, spec, H, N, half_b, half_t, dist_b, dist_t):
+    (cb, vb), (ct, vt) = spec.bottom, spec.top
+    if not spec.face:
+        if cb in (FLUX, OPEN):
+            a[..., :H] = torch.flip(a[..., H:2 * H], [-1])
+        else:
+            c1 = a[..., H:H + 1].clone()
+            grad = _div(c1 - vb, half_b) if cb == VALUE \
+                else vb * torch.ones_like(c1)
+            for s in range(H):
+                a[..., s:s + 1] = c1 - grad * dist_b[s]
+        if ct in (FLUX, OPEN):
+            a[..., H + N:] = torch.flip(a[..., N:H + N], [-1])
+        else:
+            cN = a[..., H + N - 1:H + N].clone()
+            grad = _div(vt - cN, half_t) if ct == VALUE \
+                else vt * torch.ones_like(cN)
+            for m in range(H):
+                a[..., H + N + m:H + N + m + 1] = cN + grad * dist_t[m]
+        return
+    if _pins(cb):
+        a[..., H] = vb
+    if _pins(ct):
+        a[..., H + N] = vt
+    low = torch.flip(a[..., H + 1:2 * H + 1], [-1])
+    a[..., :H] = 2 * vb - low if _pins(cb) else low
+    high = torch.flip(a[..., N + 1:H + N], [-1])
+    a[..., H + N + 1:] = 2 * vt - high if _pins(ct) else high
+
+
+def _zfill_narrow(grid, spec):
+    """``narrow_slots`` of a bounded-z fill."""
+    code = {FLUX: MIRROR, OPEN: MIRROR, VALUE: EXTRAPOLATE_VALUE,
+            GRADIENT: EXTRAPOLATE_GRADIENT}
+    (cb, _), (ct, _) = spec.bottom, spec.top
+    if spec.face:
+        codes = (PINNED if _pins(cb) else REFLECT, 0.0,
+                 PINNED if _pins(ct) else REFLECT, 0.0)
+    else:
+        codes = (code[cb], 0.0, code[ct], 0.0)
+    return narrow_slots(codes, grid.N[2], grid.H[2])
 
 
 bounded_z_fill_plain.cuda_calls = 0
 
 
 def fill_halos_plain(grid, fields, locs_bcs=None, z=True):
-    """Plain PyTorch version of ``fill_halos``, in the reference's order: a
-    bounded x, the periodic axes (x, then y), a bounded y, then (with ``z``)
-    a bounded z, each bounded axis only when ``locs_bcs`` gives the
-    fields' (location, boundary conditions)."""
+    """Plain PyTorch version of ``fill_halos``, in the reference's order: the
+    tripolar fold, a bounded x, the periodic axes (x, then y), a bounded y,
+    then (with ``z``) a bounded z, each bounded axis only when ``locs_bcs``
+    gives the fields' (location, boundary conditions)."""
     fields = list(fields)
     if any(a.is_cuda for a in fields):
         fill_halos_plain.cuda_calls += 1
     bounded = [locs_bcs is not None and grid.topology[ax] == BOUNDED
                and grid.H[ax] > 0 for ax in range(3)]
+    if bounded[1]:
+        # the fold first, over the interior x, so that the wrap carries the
+        # folded rows into the corners
+        for a, (loc, bcs) in zip(fields, locs_bcs):
+            if _is_fold(bcs.north):
+                fold_north(a, grid, loc, bcs)
     if bounded[0]:
         for a, (loc, bcs) in zip(fields, locs_bcs):
             fill_bounded_axis(a, grid, loc, bcs, 0)
@@ -309,6 +460,10 @@ def extents(grid, shape):
 
 
 def _side_code(bc, face):
+    if _is_fold(bc):
+        return FOLD_FACE if face else FOLD
+    if _is_polar(bc):
+        return POLAR_PINNED if face else POLAR_VALUE
     cls = _classification(bc)
     if face:
         return PINNED if cls in (bcm.OPEN, bcm.VALUE) else REFLECT
@@ -350,17 +505,85 @@ def fill_codes(grid, shape, locs_bcs=None, n=1, z=True):
             elif lb is None:
                 axes.append(keep)
             else:
-                if N < H + 1 or H > MAX_H:
-                    raise ValueError(
-                        f"a bounded halo fill needs N >= H + 1 and H <= "
-                        f"{MAX_H} along axis {ax} (N={N}, H={H})")
                 loc, bcs = lb
                 low, high = bcs.pair(ax)
                 face = loc[ax] == FACE
-                axes.append((_side_code(low, face), _value(low),
-                             _side_code(high, face), _value(high)))
+                codes = (_side_code(low, face), _value(low),
+                         _side_code(high, face), _value(high))
+                if H > MAX_H:
+                    raise ValueError(f"a bounded halo fill needs H <= "
+                                     f"{MAX_H} along axis {ax} (H={H})")
+                axes.append(codes)
+        if axes[1][2] in FOLDS and (
+                axes[0][0] != WRAP or ext[0][0] <= 2 * ext[0][1]
+                or (axes[1][2] == FOLD and lb[0][0] == FACE
+                    and ext[0][0] % 2)):
+            # an x-face field centred in y with an odd Nx would swap two
+            # columns of the substituted row: no single read
+            raise ValueError("the north fold needs a periodic x with "
+                             "Nx > 2Hx, and an even Nx for an x-face "
+                             "field centred in y")
         out.append(axes)
     return out
+
+
+def _side_source(codes, N, H, n):
+    """The slot that slot ``n`` reads under its side's map (None for a
+    pinned face, which reads nothing)."""
+    lo, hi = kept_range(codes, N, H, N + 2 * H)
+    if lo <= n < hi:
+        return n
+    E = H + N
+    if n < lo:
+        c = codes[0]
+        if c == WRAP:
+            return n + N
+        if c == MIRROR:
+            return 2 * H - 1 - n
+        if c in EXTRAPOLATES:
+            return H
+        if c in PINS and n == H:
+            return None
+        return 2 * H - n                     # reflect, or pinned's halo
+    c = codes[2]
+    if c == WRAP:
+        return n - N
+    if c == MIRROR:
+        return 2 * E - 1 - n
+    if c in EXTRAPOLATES:
+        return E - 1
+    if c in PINS and n == E:
+        return None
+    if c == FOLD:
+        return n if n == E - 1 else 2 * E - 2 - n
+    if c == FOLD_FACE:
+        return 2 * E - 1 - n
+    return 2 * E - n
+
+
+def narrow_slots(codes, N, H):
+    """The slots an axis's map leaves as they are although its side would
+    write them: those whose source the axis itself writes (a bounded axis
+    narrower than its halo needs). JAX's fill reads such a source before it
+    writes it; no stencil of the models reaches that far. (The fold's
+    substituted row reads its own slots through the x fold.)"""
+    lo, hi = kept_range(codes, N, H, N + 2 * H)
+    out = []
+    for n in list(range(lo)) + list(range(hi, N + 2 * H)):
+        src = _side_source(codes, N, H, n)
+        if src is None or (codes[2] == FOLD and n == H + N - 1):
+            continue
+        if not lo <= src < hi:
+            out.append(n)
+    return out
+
+
+def source_index(codes, N, H, n):
+    """The slot that slot ``n`` reads along one axis under the kernel's map
+    (``map_at`` in csrc/halo_fill.cu; None for a pinned face)."""
+    if n in narrow_slots(codes, N, H):
+        return n
+    return _side_source(codes, N, H, n)
 
 
 def axis_geometry(grid, shape):
@@ -371,7 +594,7 @@ def axis_geometry(grid, shape):
     out = []
     for ax, (N, H) in enumerate(extents(grid, shape)):
         half, dist = [0.0, 0.0], [[0.0] * MAX_H, [0.0] * MAX_H]
-        if grid.topology[ax] == BOUNDED and 0 < H <= MAX_H and N >= H + 1:
+        if grid.topology[ax] == BOUNDED and 0 < H <= MAX_H:
             xC = np.asarray(grid.coord_padded(ax, CENTER), dtype=np.float64)
             half = [float(xC[H] - xC[H - 1]) / 2,
                     float(xC[H + N] - xC[H + N - 1]) / 2]
@@ -388,7 +611,7 @@ def kept_range(codes, N, H, P):
     low, _, high, _ = codes
     if low == KEEP:
         return 0, P
-    return H + (low == PINNED), H + N + (high == REFLECT)
+    return H + (low in PINS), H + N + (high == REFLECT) - (high == FOLD)
 
 
 def extrapolated_slots(grid, shape, locs_bcs, z=True):
@@ -411,7 +634,7 @@ def extrapolated_slots(grid, shape, locs_bcs, z=True):
 
 
 class _Plan(NamedTuple):
-    batches: list      # (first, stop, parameter block) per launch
+    batches: list      # (first, stop, parameter block, polar fields) per launch
     ptrs: object       # the launch's device pointers, rewritten per call
 
 
@@ -431,6 +654,8 @@ def _build_plan(grid, shape, dtype, n, locs_bcs, z):
     lib = build.library()
     size = lib.oc_fill_params_size()
     esize = torch.empty((), dtype=dtype).element_size()
+    face_x = [int(lb is not None and lb[0][0] == FACE)
+              for lb in (locs_bcs or [None] * n)]
     batches = []
     for a, b in build.batches(n):
         sides = [s for f in codes[a:b] for c in f
@@ -438,8 +663,11 @@ def _build_plan(grid, shape, dtype, n, locs_bcs, z):
         params = ctypes.create_string_buffer(size)
         build.check(lib.oc_fill_plan(params, b - a, esize, N, H, P, half,
                                      dist, ints([s[0] for s in sides]),
-                                     dbls([s[1] for s in sides])), lib)
-        batches.append((a, b, params))
+                                     dbls([s[1] for s in sides]),
+                                     ints(face_x[a:b])), lib)
+        polar = [k for k, f in enumerate(codes[a:b])
+                 if f[1][0] in POLARS or f[1][2] in POLARS]
+        batches.append((a, b, params, polar))
     return _Plan(batches, (ctypes.c_void_p * build.BATCH)())
 
 
@@ -497,19 +725,37 @@ def fill_halos(grid, fields, locs_bcs=None, z=True):
     plan = _plan(grid, fields, locs_bcs, z)
     if not plan.batches:
         return fields
+    surface = fields[0].shape[2] == 1 and grid.padded_shape[2] != 1
     with torch.cuda.device(fields[0].device):
         lib = build.library()
         stream = build.stream_of(fields[0])
-        for a, b, params in plan.batches:
+        for a, b, params, polar in plan.batches:
             for n, t in enumerate(fields[a:b]):
                 plan.ptrs[n] = t.data_ptr()
-            build.check(lib.oc_fill_halos(params, plan.ptrs, b - a, stream),
-                        lib)
+            means = polar_means(grid, fields[a:b], polar)
+            build.check(lib.oc_fill_halos(
+                params, plan.ptrs, b - a,
+                None if means is None else means.data_ptr(), stream), lib)
             fill_halos.launches += 1
+            if surface:
+                fill_halos.surface_launches += 1
     return fields
 
 
+def polar_means(grid, fields, polar):
+    """The polar caps' table of one launch: (fields, 2, nz), the south and
+    north boundary rows' zonal means (``polar_row_mean``) of the fields
+    listed in ``polar``, zero for the others; None without polar caps."""
+    if not polar:
+        return None
+    zero = torch.zeros((2, fields[0].shape[2]), dtype=fields[0].dtype,
+                       device=fields[0].device)
+    return torch.stack([polar_row_means(grid, f) if k in polar else zero
+                        for k, f in enumerate(fields)])
+
+
 fill_halos.launches = 0
+fill_halos.surface_launches = 0    # of them, those on 2-D surface fields
 
 
 def periodic_halo_fill(grid, fields):

@@ -84,7 +84,7 @@ from ..boundary_conditions import (apply_flux_bcs_padded,
                                    fill_surface_halo_regions,
                                    regularize_field_boundary_conditions)
 from ..boundary_conditions.boundary_condition import (
-    FLUX, BoundaryCondition, FieldBoundaryConditions)
+    FLUX, BoundaryCondition, FieldBoundaryConditions, ZipperBoundaryCondition)
 from ..boundary_conditions.fill_halos import (apply_immersed_flux_bcs,
                                               immersed_diffusivity)
 from ..buoyancy import BuoyancyTracer, SeawaterBuoyancy
@@ -124,10 +124,10 @@ _NOT_PORTED = {
 
 def default_free_surface(grid):
     """The JAX model's default free surface for ``grid``: implicit on a
-    RectilinearGrid (regular in x and y, as the port's always is),
-    split-explicit with ``cfl=0.7`` elsewhere."""
+    RectilinearGrid regular in x and y, split-explicit with ``cfl=0.7``
+    elsewhere (lat-lon, shell and tripolar grids among them)."""
     from ..grids.rectilinear import RectilinearGrid
-    if type(grid) is RectilinearGrid:
+    if type(grid) is RectilinearGrid and grid.regular(0) and grid.regular(1):
         return ImplicitFreeSurface()
     return SplitExplicitFreeSurface(cfl=0.7)
 
@@ -268,8 +268,6 @@ class HydrostaticFreeSurfaceModel:
         if not self.grid.is_bounded(2):
             raise ValueError("HydrostaticFreeSurfaceModel needs a Bounded "
                              "z direction")
-        if self.grid.N[2] < halo[2] + 1:
-            raise ValueError("the bounded-z halo fill needs Nz > Hz")
         if hasattr(self.free_surface, "materialize"):
             self.free_surface.materialize(self.grid)
 
@@ -353,8 +351,8 @@ class HydrostaticFreeSurfaceModel:
         from ..solvers.fft_poisson import poisson_eigenvalues
         grid = self.grid
         base = getattr(grid, "underlying_grid", grid)
-        # the port's RectilinearGrid is regular in every direction
-        regular = isinstance(base, RectilinearGrid)
+        regular = (isinstance(base, RectilinearGrid) and base.regular(0)
+                   and base.regular(1))
         fft_capable = regular and not self._immersed
         method = self.free_surface.solver_method
         if method in ("Default", None):
@@ -628,11 +626,38 @@ class HydrostaticFreeSurfaceModel:
 
     # -- set ------------------------------------------------------------------
 
-    def set(self, **values):
+    def set(self, intrinsic_velocities=False, **values):
         """Set prognostic fields from scalars, arrays or callables of
         (λ, φ, z); η takes a 2-D or (Nx, Ny, 1) array too. Setting u, v or η
         re-initializes the barotropic transports from ∫u dz, ∫v dz. On an
-        immersed grid the solid cells are zeroed."""
+        immersed grid the solid cells are zeroed.
+
+        On a shell grid (rotated lat-lon, tripolar) u and v are geographic
+        east and north components unless ``intrinsic_velocities``: they are
+        set at the cell centres (one given alone leaves the other 0),
+        rotated into the grid's directions, halo-filled (with a −1 fold on a
+        tripolar grid: the components are antisymmetric across the fold even
+        at the centres), then interpolated to their faces, as in JAX."""
+        from ..grids.orthogonal_spherical_shell import (
+            OrthogonalSphericalShellGrid, rotate_from_geographic)
+        base = getattr(self.grid, "underlying_grid", self.grid)
+        if (isinstance(base, OrthogonalSphericalShellGrid)
+                and not intrinsic_velocities
+                and ("u" in values or "v" in values)):
+            from ..operators.operators import ix_f, iy_f
+            u_ccc = set_on_padded(self.grid, LOC_CCC, values.pop("u", 0.0))
+            v_ccc = set_on_padded(self.grid, LOC_CCC, values.pop("v", 0.0))
+            ui, vi = rotate_from_geographic(base, u_ccc, v_ccc)
+            cbcs = self.bcs["ph"]
+            if getattr(base, "zipper_north", False):
+                cbcs = regularize_field_boundary_conditions(
+                    FieldBoundaryConditions(
+                        north=ZipperBoundaryCondition(-1.0)),
+                    self.grid, LOC_CCC)
+            fill_all_halo_regions([ui, vi], self.grid,
+                                  [(LOC_CCC, cbcs), (LOC_CCC, cbcs)])
+            values["u"] = ix_f(self.grid, ui)
+            values["v"] = iy_f(self.grid, vi)
         fields = dict(self.state["fields"])
         for name, value in values.items():
             if name not in fields:

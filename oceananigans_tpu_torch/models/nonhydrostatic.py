@@ -78,6 +78,7 @@ from ..closures.scalar_diffusivity import (ClosureTuple, _ClosureBase,
 from ..defaults import numpy_dtype
 from ..fields import Field, set_on_padded
 from ..forcings.forcings import regularize_forcing
+from ..grids.base import numpy_metric
 from ..grids.topology import (BOUNDED, LOC_CCC, LOC_CCF, LOC_CFC, LOC_FCC,
                               PERIODIC)
 from ..kernels import (build_sharded_fused_advection,
@@ -644,10 +645,10 @@ def _vertical_spacings(grid):
     top face n lies in the first halo slot."""
     h, n = grid.H[2], grid.N[2]
     npad = grid.padded_shape[2]
-    dzc = np.broadcast_to(np.asarray(grid.dz(LOC_CCC)).reshape(-1),
-                          (npad,))[h:h + n]
-    dzf_all = np.broadcast_to(np.asarray(grid.dz(LOC_CCF)).reshape(-1),
-                              (npad,))
+    dzc = np.broadcast_to(np.asarray(numpy_metric(grid, "dz", LOC_CCC))
+                          .reshape(-1), (npad,))[h:h + n]
+    dzf_all = np.broadcast_to(np.asarray(numpy_metric(grid, "dz", LOC_CCF))
+                              .reshape(-1), (npad,))
     dzf = np.empty(n + 1)
     dzf[:n] = dzf_all[h:h + n]
     dzf[n] = dzf_all[h + n] if h + n < npad else dzf_all[-1]

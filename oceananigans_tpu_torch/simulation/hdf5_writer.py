@@ -16,7 +16,7 @@ import os
 import numpy as np
 
 from ..utils.schedules import FileSizeLimit
-from .output_writers import fetch_output
+from .output_writers import fetch_output, shell_node_tables
 
 
 def import_h5py(what):
@@ -81,11 +81,15 @@ class HDF5Writer:
                          ("Hy", grid.H[1]), ("Hz", grid.H[2])):
                 g.attrs[k] = v
             g.attrs["topology"] = ",".join(grid.topology)
+            tables = shell_node_tables(grid)
             for ax, nm in enumerate("xyz"):
-                if not grid.is_flat(ax):
+                if not grid.is_flat(ax) and not (tables and ax < 2):
                     key = f"{nm}_faces"
                     if key not in g:
                         g[key] = np.asarray(grid.nodes1d(ax, "f"))
+            for key, table in tables.items():
+                if key not in g:
+                    g[key] = table
 
     # -- writing -----------------------------------------------------------------
 

@@ -20,7 +20,8 @@ import numpy as np
 
 from ..utils.schedules import IterationInterval
 from .hdf5_writer import import_h5py
-from .output_writers import fetch_output_tensor, to_host
+from .output_writers import (fetch_output_tensor, is_shell_grid,
+                             shell_node_tables, to_host)
 
 # the default attributes of the common outputs
 DEFAULT_ATTRIBUTES = {
@@ -125,8 +126,28 @@ class NetCDF4Writer:
             for k, v in self._out_attrs.get(name, {}).items():
                 var.attrs[k] = v
             self._vars[name] = var
+            self._shell_coordinates(spec, sample, space_dims)
 
     # -- construction helpers -------------------------------------------------
+
+    def _shell_coordinates(self, spec, sample, space_dims):
+        """On a shell grid, the 2-D λ and φ (degrees) of the output's
+        staggering, ``lambda_<xy>`` and ``phi_<xy>`` over its (x, y)
+        dimensions."""
+        if len(sample.shape) < 2 or self.indices:
+            return
+        loc = (self.model.loc(spec) if isinstance(spec, str)
+               else getattr(spec, "loc", None)) or ("c", "c")
+        key = f"{loc[0]}{loc[1]}"
+        f = self._f
+        for tname, table in shell_node_tables(self.model.grid,
+                                              sample.shape[:2]).items():
+            if not tname.endswith("_" + key) or tname in f:
+                continue
+            d = f.create_dataset(tname, data=table)
+            d.attrs["units"] = "degrees"
+            for axis in (0, 1):
+                d.dims[axis].attach_scale(f[space_dims[axis]])
 
     def _resolve(self, spec):
         if isinstance(spec, str):
@@ -151,16 +172,22 @@ class NetCDF4Writer:
             lax = loc[axis] if loc is not None and axis < 3 else "c"
             dname = f"{_AXIS[axis % 3]}{'f' if lax == 'f' else 'c'}_{size}"
             if dname not in self._dims_cache:
-                coords = (np.asarray(grid.nodes1d(axis, lax), float)
-                          if axis < 3 else np.arange(size, dtype=float))
+                units = "m"
+                if axis >= 3:
+                    coords = np.arange(size, dtype=float)
+                elif axis < 2 and is_shell_grid(grid):
+                    # a shell grid's horizontal nodes are 2-D (the
+                    # lambda_/phi_ datasets): x and y carry indices
+                    coords, units = np.arange(size, dtype=float), "1"
+                else:
+                    coords = np.asarray(grid.nodes1d(axis, lax), float)
                 if idx is not None and axis < len(idx):
                     coords = coords[idx[axis]]
                 coords = np.asarray(coords, float)
                 if coords.shape[0] < size:
                     coords = np.arange(size, dtype=float)
                 d = self._f.create_dataset(dname, data=coords[:size])
-                # as the JAX writer labels the grids the port has
-                d.attrs["units"] = "m"
+                d.attrs["units"] = units
                 d.attrs["long_name"] = (
                     f"{_AXIS[axis % 3]} location of "
                     f"{'cell faces' if lax == 'f' else 'cell centers'}")

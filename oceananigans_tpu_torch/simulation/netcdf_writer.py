@@ -4,7 +4,9 @@ Counterpart of ``oceananigans_tpu/simulation/netcdf_writer.py``: a NetCDF-3
 (classic) file through ``scipy.io.netcdf_file``, an unlimited time
 dimension, and per output the dimensions (time, x, y, z) with the grid's
 node coordinates at the output's staggering. The same file as the JAX
-writer's for the same outputs."""
+writer's for the same outputs; on a shell grid, whose horizontal nodes are
+2-D, x and y carry their indices and each output's staggering adds the
+variables ``lambda_<xy>`` and ``phi_<xy>`` (degrees, dimensions (x, y))."""
 
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import numpy as np
 from scipy.io import netcdf_file
 
 from ..utils.schedules import IterationInterval
-from .output_writers import fetch_output
+from .output_writers import fetch_output, shell_node_tables
 
 
 class NetCDFWriter:
@@ -60,6 +62,15 @@ class NetCDFWriter:
                     loc = fld[axis]
                 dims = dims + (dim_for(axis, size, loc),)
             self._vars[name] = f.createVariable(name, "f", dims)
+            if len(sample.shape) >= 2:
+                locs = getattr(spec, "loc", None) or (
+                    model.loc(spec) if isinstance(spec, str) else ("c", "c"))
+                key = f"{locs[0]}{locs[1]}"
+                for tname, table in shell_node_tables(
+                        grid, sample.shape[:2]).items():
+                    if tname.endswith("_" + key) and tname not in f.variables:
+                        var = f.createVariable(tname, "d", dims[1:3])
+                        var[:] = table
 
     def _resolve(self, spec):
         if isinstance(spec, str):

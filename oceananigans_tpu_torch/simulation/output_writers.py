@@ -53,6 +53,36 @@ def fetch_output_tensor(output, model):
     return output
 
 
+def is_shell_grid(grid):
+    """Whether the horizontal nodes of ``grid`` (or of the grid under an
+    immersed one) are 2-D: a shell grid."""
+    return hasattr(getattr(grid, "underlying_grid", grid), "nodes2d_padded")
+
+
+def shell_node_tables(grid, sizes=None):
+    """The 2-D (λ, φ) degrees of a shell grid at the four horizontal
+    staggerings, ``{"lambda_cc": (Nx, Ny), "phi_cc": ..., "lambda_fc": ...}``
+    over the interior (N + 1 along a bounded face axis), or {} for a grid
+    whose horizontal coordinates are 1-D. ``sizes`` = (nx, ny) keeps only
+    the staggerings an output of that size can have."""
+    if not is_shell_grid(grid):
+        return {}
+    base = getattr(grid, "underlying_grid", grid)
+    out = {}
+    for lx in "cf":
+        for ly in "cf":
+            n = [base.N[a] + (loc == "f" and base.topology[a] == "bounded")
+                 for a, loc in enumerate((lx, ly))]
+            if sizes is not None and tuple(n) != tuple(sizes):
+                continue
+            lam, phi = base.nodes2d_padded((lx, ly))
+            sl = (slice(base.H[0], base.H[0] + n[0]),
+                  slice(base.H[1], base.H[1] + n[1]))
+            out[f"lambda_{lx}{ly}"] = lam[sl]
+            out[f"phi_{lx}{ly}"] = phi[sl]
+    return out
+
+
 def to_host(a):
     """A tensor, array or number as a numpy array on the host."""
     if isinstance(a, torch.Tensor):
@@ -105,6 +135,10 @@ class FieldWriter:
                     extent=[float(e) for e in getattr(g, "extent", ())])
         with open(os.path.join(self.path, "grid.json"), "w") as f:
             json.dump(meta, f)
+        tables = shell_node_tables(g)
+        if tables:
+            # a shell grid's horizontal coordinates are 2-D
+            np.savez(os.path.join(self.path, "grid_nodes.npz"), **tables)
 
     def _resolve(self, spec):
         if isinstance(spec, str):

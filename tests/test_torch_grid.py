@@ -69,10 +69,22 @@ def test_with_halo_and_device_dtype():
 
 
 def test_stretched_axis_raises():
+    """A stretched z builds, with JAX's coordinates and metrics; the
+    nonhydrostatic model (its FFT pressure solve) raises on it, citing its
+    ROADMAP item."""
     faces = np.linspace(-1.0, 0.0, 9) ** 3
+    t = TGrid(size=(4, 4, 8), x=(0.0, 1.0), y=(0.0, 1.0), z=faces,
+              dtype=torch.float64, device="cpu")
+    j = JGrid(size=(4, 4, 8), x=(0.0, 1.0), y=(0.0, 1.0), z=faces,
+              dtype=np.float64)
+    assert t.stretched_axes == j.stretched_axes == (2,)
+    assert _close(t.coord_padded(2, "f"), j.coord_padded(2, "f"))
+    for loc in (("c", "c", "c"), ("c", "c", "f")):
+        assert _close(t.dz(loc).numpy(), np.asarray(j.dz(loc)))
+        assert _close(t.V(loc).numpy(), np.asarray(j.V(loc)))
+    from oceananigans_tpu_torch.models import NonhydrostaticModel
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TGrid(size=(4, 4, 8), x=(0.0, 1.0), y=(0.0, 1.0), z=faces,
-              device="cpu")
+        NonhydrostaticModel(t)
 
 
 def test_default_device_is_cuda():

@@ -5,16 +5,21 @@ against the sequential fill it replaces.
 - ``evaluate`` mirrors the kernel (``csrc/halo_fill.cu``): per axis it maps
   each slot to a source slot and an operation (``map_at``), then forms every
   slot as Fz(Fy(Fx(a[sx, sy, sz]))) from the untouched input, in the plain
-  version's arithmetic. It takes the codes and the float64 geometry the
-  kernel's parameter block is built from (``fill_codes``,
-  ``axis_geometry``) and is held bit for bit against the sequential plain
-  fill (bounded x, the periodic wrap, bounded y, bounded z), in float32 and
-  float64, over periodic and bounded x and y, a bounded z with a halo, the
-  z-compact Hz = 0 and 2-D surfaces, the four locations, Flux, Open, Value
-  and Gradient on every side with nonzero values, N = H + 1 and larger, on
-  rectilinear and lat-lon grids.
+  version's arithmetic; the tripolar fold couples x and y (a slot first
+  takes its x map into the interior, then folds), and a polar cap takes the
+  zonal mean of the boundary row at its z source. It takes the codes and
+  the float64 geometry the kernel's parameter block is built from
+  (``fill_codes``, ``axis_geometry``) and is held bit for bit against the
+  sequential plain fill (the fold, bounded x, the periodic wrap, bounded
+  y, bounded z), in float32 and float64, over periodic and bounded x and y,
+  a bounded z with a halo, the z-compact Hz = 0 and 2-D surfaces, the four
+  locations, Flux, Open, Value and Gradient on every side with nonzero
+  values, N from below H (the narrow slots that keep their value) to
+  larger than H + 1, on rectilinear and lat-lon grids
+  (``tests/test_torch_global.py`` holds it on the fold and the polar caps).
 - the port's fill against the JAX ``fill_halo_regions`` (its XLA path on
-  the CPU): 1e-14 relative in float64.
+  the CPU): 1e-14 relative in float64; on an axis narrower than its halo
+  needs, the slots where the two differ are exactly the narrow slots.
 - what the kernel refuses raises.
 The CUDA kernel itself is held against the plain fill on the card by
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
@@ -57,43 +62,65 @@ def rotated_bcs(r):
 
 # -- the kernel's maps, slot by slot ---------------------------------------------
 
-COPY, PIN, ODD, VALUE_LO, VALUE_HI, GRAD_LO, GRAD_HI = range(7)
+COPY, PIN, ODD, VALUE_LO, VALUE_HI, GRAD_LO, GRAD_HI, FOLD_ROW, SUBST_ROW = \
+    range(9)
 
 
-def map_at(codes, N, Hh, P, half, dist, n):
-    """(source index, operation, v, half, dist) of slot ``n`` along one axis,
-    as ``map_at`` in csrc/halo_fill.cu."""
+def side_map(codes, N, Hh, P, half, dist, n):
+    """(source index, operation, v, half, dist, polar side) of slot ``n``
+    under its side's map, as ``side_map`` in csrc/halo_fill.cu (v = 0 for a
+    polar cap, whose value comes from the zonal mean)."""
     lo, hi = hf.kept_range(codes, N, Hh, P)
     if lo <= n < hi:
-        return n, COPY, 0.0, 1.0, 0.0
+        return n, COPY, 0.0, 1.0, 0.0, None
     E = Hh + N
     if n < lo:
         c, v = codes[0], codes[1]
         if c == hf.WRAP:
-            return n + N, COPY, 0.0, 1.0, 0.0
+            return n + N, COPY, 0.0, 1.0, 0.0, None
         if c == hf.MIRROR:
-            return 2 * Hh - 1 - n, COPY, 0.0, 1.0, 0.0
-        if c == hf.EXTRAPOLATE_VALUE:
-            return Hh, VALUE_LO, v, half[0], dist[0][n]
+            return 2 * Hh - 1 - n, COPY, 0.0, 1.0, 0.0, None
+        if c in (hf.EXTRAPOLATE_VALUE, hf.POLAR_VALUE):
+            return (Hh, VALUE_LO, v, half[0], dist[0][n],
+                    0 if c == hf.POLAR_VALUE else None)
         if c == hf.EXTRAPOLATE_GRADIENT:
-            return Hh, GRAD_LO, v, 1.0, dist[0][n]
-        if c == hf.PINNED:
-            return ((n, PIN, v, 1.0, 0.0) if n == Hh
-                    else (2 * Hh - n, ODD, 2.0 * v, 1.0, 0.0))
-        return 2 * Hh - n, COPY, 0.0, 1.0, 0.0
+            return Hh, GRAD_LO, v, 1.0, dist[0][n], None
+        if c in hf.PINS:
+            polar = 0 if c == hf.POLAR_PINNED else None
+            return ((n, PIN, v, 1.0, 0.0, polar) if n == Hh
+                    else (2 * Hh - n, ODD, 2.0 * v, 1.0, 0.0, polar))
+        return 2 * Hh - n, COPY, 0.0, 1.0, 0.0, None
     c, v = codes[2], codes[3]
     if c == hf.WRAP:
-        return n - N, COPY, 0.0, 1.0, 0.0
+        return n - N, COPY, 0.0, 1.0, 0.0, None
     if c == hf.MIRROR:
-        return 2 * E - 1 - n, COPY, 0.0, 1.0, 0.0
-    if c == hf.EXTRAPOLATE_VALUE:
-        return E - 1, VALUE_HI, v, half[1], dist[1][n - E]
+        return 2 * E - 1 - n, COPY, 0.0, 1.0, 0.0, None
+    if c in (hf.EXTRAPOLATE_VALUE, hf.POLAR_VALUE):
+        return (E - 1, VALUE_HI, v, half[1], dist[1][n - E],
+                1 if c == hf.POLAR_VALUE else None)
     if c == hf.EXTRAPOLATE_GRADIENT:
-        return E - 1, GRAD_HI, v, 1.0, dist[1][n - E]
-    if c == hf.PINNED:
-        return ((n, PIN, v, 1.0, 0.0) if n == E
-                else (2 * E - n, ODD, 2.0 * v, 1.0, 0.0))
-    return 2 * E - n, COPY, 0.0, 1.0, 0.0
+        return E - 1, GRAD_HI, v, 1.0, dist[1][n - E], None
+    if c in hf.PINS:
+        polar = 1 if c == hf.POLAR_PINNED else None
+        return ((n, PIN, v, 1.0, 0.0, polar) if n == E
+                else (2 * E - n, ODD, 2.0 * v, 1.0, 0.0, polar))
+    if c == hf.FOLD:
+        return ((n, SUBST_ROW, v, 1.0, 0.0, None) if n == E - 1
+                else (2 * E - 2 - n, FOLD_ROW, v, 1.0, 0.0, None))
+    if c == hf.FOLD_FACE:
+        return 2 * E - 1 - n, FOLD_ROW, v, 1.0, 0.0, None
+    return 2 * E - n, COPY, 0.0, 1.0, 0.0, None
+
+
+def map_at(codes, N, Hh, P, half, dist, n):
+    """The kernel's map of slot ``n`` along one axis (``map_at`` in
+    csrc/halo_fill.cu): its side's, or the identity where that reads a slot
+    the axis writes (a bounded axis narrower than its halo needs)."""
+    m = side_map(codes, N, Hh, P, half, dist, n)
+    lo, hi = hf.kept_range(codes, N, Hh, P)
+    if m[1] not in (PIN, SUBST_ROW) and not lo <= m[0] < hi:
+        return n, COPY, 0.0, 1.0, 0.0, None
+    return m
 
 
 def apply(r, op, v, half, dist):
@@ -112,21 +139,50 @@ def apply(r, op, v, half, dist):
 
 def evaluate(grid, a, loc, bcs, z=True):
     """The kernel's result for one field: every slot from one load of the
-    untouched input, the x, y and z maps applied in order."""
+    untouched input, the x, y and z maps applied in order. A fold row reads
+    the folded x of its x source times the sign; a polar cap's v is the
+    zonal mean at the slot's z source."""
     codes = hf.fill_codes(grid, a.shape, [(loc, bcs)], z=z)[0]
-    r, maps = a, []
-    for ax, (N, Hh, P, half, dist) in enumerate(hf.axis_geometry(grid,
-                                                                 a.shape)):
-        src, op, v, hv, dv = zip(*[map_at(codes[ax], N, Hh, P, half, dist, n)
-                                   for n in range(P)])
+    geom = hf.axis_geometry(grid, a.shape)
+    maps = [[map_at(codes[ax], N, Hh, P, half, dist, n) for n in range(P)]
+            for ax, (N, Hh, P, half, dist) in enumerate(geom)]
+    (PX, PY, PZ) = (g[2] for g in geom)
+    Nx, Hx = geom[0][0], geom[0][1]
+    sx = torch.tensor([m[0] for m in maps[0]])[:, None].repeat(1, PY)
+    sy = torch.tensor([m[0] for m in maps[1]])[None, :].repeat(PX, 1)
+    sz = torch.tensor([m[0] for m in maps[2]])
+    sign = torch.ones((PX, PY), dtype=a.dtype)
+    for j, m in enumerate(maps[1]):
+        if m[1] not in (FOLD_ROW, SUBST_ROW):
+            continue
+        for i in range(PX):
+            i0 = int(sx[i, j]) - Hx
+            if m[1] == SUBST_ROW and i0 < Nx // 2:
+                continue
+            wrap = loc[0] == "f" and i0 == 0
+            sx[i, j] = Hx + ((0 if wrap else Nx - i0) if loc[0] == "f"
+                             else Nx - 1 - i0)
+            sign[i, j] = abs(m[2]) if wrap else m[2]
+    r = a[sx[:, :, None], sy[:, :, None], sz[None, None, :]] \
+        * sign[:, :, None]
+    means = torch.cat([hf.polar_row_mean(grid, a, True),
+                       hf.polar_row_mean(grid, a, False)], 1)[0]
+    for ax, ms in enumerate(maps):
         shape = [1, 1, 1]
-        shape[ax] = P
-        r = r.index_select(ax, torch.tensor(src))
-        maps.append([torch.tensor(op).reshape(shape)]
-                    + [torch.tensor(c, dtype=a.dtype).reshape(shape)
-                       for c in (v, hv, dv)])
-    for m in maps:
-        r = apply(r, *m)
+        shape[ax] = len(ms)
+        op = torch.tensor([COPY if m[1] in (FOLD_ROW, SUBST_ROW) else m[1]
+                           for m in ms]).reshape(shape)
+        v, hv, dv = (torch.tensor([m[k] for m in ms],
+                                  dtype=a.dtype).reshape(shape)
+                     for k in (2, 3, 4))
+        if ax == 1 and any(m[5] is not None for m in ms):
+            # the polar caps' v: the mean at each slot's z source
+            v = v.expand(1, PY, PZ).clone()
+            for j, m in enumerate(ms):
+                if m[5] is not None:
+                    mean = means[m[5]][sz]
+                    v[0, j] = 2 * mean if m[1] == ODD else mean
+        r = apply(r, op, v, hv, dv)
     return r
 
 
@@ -151,13 +207,19 @@ ZKINDS = ("z_halo", "z_compact", "surface")
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["float32", "float64"])
-@pytest.mark.parametrize("size", ["n_h_plus_1", "larger"])
+@pytest.mark.parametrize("size", ["n_h_plus_1", "larger", "n_eq_h",
+                                  "n_lt_h"])
 @pytest.mark.parametrize("zkind", ZKINDS)
 @pytest.mark.parametrize("kind,topo", GRIDS, ids=[f"{k}-{t}" for k, t in GRIDS])
 def test_maps_match_sequential_fill(kind, topo, zkind, size, dtype):
     """Each slot from one load through the x, y and z maps equals the
-    sequential plain fill, bit for bit."""
-    N = tuple(h + 1 for h in H) if size == "n_h_plus_1" else (9, 7, 6)
+    sequential plain fill, bit for bit; on a bounded axis narrower than its
+    halo needs (N = H, and N = H - 1) the narrow slots keep their value in
+    both."""
+    N = {"n_h_plus_1": tuple(h + 1 for h in H), "larger": (9, 7, 6),
+         "n_eq_h": H,
+         "n_lt_h": tuple(h if t == "P" else h - 1
+                         for h, t in zip(H, topo + "B"))}[size]
     grid = _grid(kind, topo, N, zkind == "z_halo", dtype)
     shape = grid.padded_shape
     if zkind == "surface":
@@ -269,23 +331,60 @@ def test_fill_against_jax(name, loc):
 
 # -- what the kernel refuses -----------------------------------------------------
 
-@pytest.mark.parametrize("case", ["bounded_x_n_eq_h", "bounded_z_n_eq_h",
+@pytest.mark.parametrize("case", ["bounded_h_gt_max", "fold_bounded_x",
                                   "periodic_y_n_lt_h", "periodic_z"])
 def test_refused(case):
-    """A bounded axis with N <= H, a periodic axis with N < H and a
-    periodic z with conditions raise, on the CPU as on the card."""
-    topology = {"bounded_x_n_eq_h": ("bounded", "periodic", "bounded"),
-                "bounded_z_n_eq_h": ("periodic", "periodic", "bounded"),
+    """A bounded axis with H > MAX_H, a fold without a periodic x, a
+    periodic axis with N < H and a periodic z with conditions raise, on the
+    CPU as on the card."""
+    topology = {"bounded_h_gt_max": ("bounded", "periodic", "bounded"),
+                "fold_bounded_x": ("bounded", "bounded", "bounded"),
                 "periodic_y_n_lt_h": ("periodic", "periodic", "bounded"),
                 "periodic_z": ("periodic", "periodic", "periodic")}[case]
-    size = {"bounded_x_n_eq_h": (3, 8, 8), "bounded_z_n_eq_h": (8, 8, 3),
+    size = {"bounded_h_gt_max": (12, 8, 8), "fold_bounded_x": (8, 8, 8),
             "periodic_y_n_lt_h": (8, 2, 8), "periodic_z": (8, 8, 8)}[case]
+    halo = (9, 3, 3) if case == "bounded_h_gt_max" else (3, 3, 3)
     grid = ot.RectilinearGrid(size=size, extent=(1.0, 1.0, 1.0),
-                              topology=topology, halo=(3, 3, 3),
+                              topology=topology, halo=halo,
                               dtype=torch.float64, device="cpu")
     loc = LOCS["ccc"]
-    bcs = regularize_field_boundary_conditions(None, grid, loc)
+    given = (FieldBoundaryConditions(north=bcm.ZipperBoundaryCondition(1.0))
+             if case == "fold_bounded_x" else None)
+    bcs = regularize_field_boundary_conditions(given, grid, loc)
     a = torch.zeros(grid.padded_shape, dtype=torch.float64)
     error = NotImplementedError if case == "periodic_z" else ValueError
     with pytest.raises(error):
         hf.fill_halos(grid, [a], [(loc, bcs)])
+
+
+@pytest.mark.parametrize("loc", list(LOCS), ids=list(LOCS))
+def test_narrow_axis_against_jax(loc):
+    """On bounded axes narrower than their halos (N = 2, H = 3: the JAX
+    fill takes any N), the port's fill equals the JAX fill_halo_regions
+    (1e-14 relative) outside the narrow slots, where JAX reads a source its
+    fill writes; there the two differ, and the port keeps the slot's own
+    value along that axis."""
+    spec = dict(size=(2, 2, 2), x=(0.0, 1.0), y=(0.0, 2.0), z=(-3.0, 0.0),
+                topology=("bounded",) * 3, halo=(3, 3, 3))
+    jg = jo.RectilinearGrid(dtype=np.float64, **spec)
+    tg = ot.RectilinearGrid(dtype=torch.float64, device="cpu", **spec)
+    lc = LOCS[loc]
+    rng = np.random.default_rng(29)
+    differs = False
+    for r in range(4):
+        a = rng.standard_normal(tg.padded_shape)
+        jb = j_reg(_jax_bcs(r, True, tg.topology), jg, lc)
+        tb = regularize_field_boundary_conditions(
+            _jax_bcs(r, False, tg.topology), tg, lc)
+        want = np.asarray(j_fill(jnp.asarray(a), jg, lc, jb))
+        got = fill_all_halo_regions([torch.as_tensor(a.copy())], tg,
+                                    [(lc, tb)])[0].numpy()
+        codes = hf.fill_codes(tg, a.shape, [(lc, tb)])[0]
+        mask = np.zeros(a.shape, bool)
+        for ax in range(3):
+            for n in hf.narrow_slots(codes[ax], tg.N[ax], tg.H[ax]):
+                mask[(slice(None),) * ax + (n,)] = True
+        assert mask.any()
+        assert np.abs(got - want)[~mask].max() <= 1e-14 * np.abs(want).max()
+        differs |= bool((got != want)[mask].any())
+    assert differs

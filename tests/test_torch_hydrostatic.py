@@ -521,7 +521,9 @@ def test_unported_options_raise(case):
 
 
 def test_unported_free_surfaces_and_grids_raise():
-    """The polar and stretched lat-lon grids raise; ImplicitFreeSurface and
+    """The polar and stretched lat-lon grids build (polar caps, stretched
+    coordinates) and the fused VI kernel refuses them, as JAX's does, so
+    "auto" takes the plain tendency; ImplicitFreeSurface and
     FixedTimeStepSize (the cfl= substepping) build."""
     from oceananigans_tpu_torch.models.free_surfaces import (
         FixedTimeStepSize, ImplicitFreeSurface)
@@ -529,13 +531,19 @@ def test_unported_free_surfaces_and_grids_raise():
     assert FixedTimeStepSize(0.7).dt_barotropic is None
     fs = ot.SplitExplicitFreeSurface(cfl=0.7)
     assert isinstance(fs.substepping, FixedTimeStepSize)
-    with pytest.raises(NotImplementedError, match="polar"):
-        ot.LatitudeLongitudeGrid(size=(8, 8, 4), longitude=(0, 60),
-                                 latitude=(-90, 90), z=Z, device="cpu")
-    with pytest.raises(NotImplementedError, match="stretched"):
-        ot.LatitudeLongitudeGrid(size=(8, 8, 4), longitude=(0, 60),
-                                 latitude=LAT, z=np.linspace(-100, 0, 5),
-                                 device="cpu")
+    polar = ot.LatitudeLongitudeGrid(size=(8, 8, 4), longitude=(0, 60),
+                                     latitude=(-90, 90), z=Z, device="cpu")
+    assert polar.polar_south and polar.polar_north
+    stretched = ot.LatitudeLongitudeGrid(size=(8, 8, 4), longitude=(0, 60),
+                                         latitude=LAT,
+                                         z=np.linspace(-100, 0, 5) ** 3
+                                         / 1e4, device="cpu")
+    assert stretched.stretched_axes == (2,)
+    for grid, why in ((polar, "polar"), (stretched, "stretched")):
+        with pytest.raises(NotImplementedError, match=why):
+            vi_config(grid, ot.VectorInvariant(), ot.Centered(2), 1, None)
+        m = ot.HydrostaticFreeSurfaceModel(grid, tracers=("T",))
+        assert not m.uses_kernel
 
 
 def test_fused_tendencies_switch():

@@ -25,6 +25,9 @@ def test_import_loads_no_jax():
             "oceananigans_tpu_torch.models.hydrostatic, "
             "oceananigans_tpu_torch.models.free_surfaces, "
             "oceananigans_tpu_torch.grids.latlon, "
+            "oceananigans_tpu_torch.grids.orthogonal_spherical_shell, "
+            "oceananigans_tpu_torch.grids.tripolar, "
+            "oceananigans_tpu_torch.grids.stretching, "
             "oceananigans_tpu_torch.kernels.fused_vector_invariant, "
             "oceananigans_tpu_torch.parallel, "
             "oceananigans_tpu_torch.parallel.distributed, "
