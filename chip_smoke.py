@@ -207,6 +207,25 @@ Phases (each raises on failure; nothing is caught):
    against the plain fill (every location, and the piece's state), bit
    for bit.
 
+25. Every scheme of the advection kernels (#1, #6, #8): Centered(2-12),
+   UpwindBiased(1-11) and WENO(3-11), each with its near-wall cascade.
+   Each of the 17 against its plain version at 70x44x36 (no tile divides
+   x, y or z; both z walls; #8 at 70x44): #1's four variants, #6 z-compact
+   and padded and #8 in float64 (bound 1e-12 relative), and #1, #6 in
+   float32 within 2e-5 of each component's term scale, #8 within 1e-5;
+   bf16 smoothness at WENO(7) and WENO(9) (#1 corrected, #6 padded, #8); #7
+   and #9 with WENO(9) on the 2x2 mesh of the card, equal to the serial
+   kernels bit for bit; the launch plans by reach (tile, shared memory,
+   blocks per SM); CUDA-event times of #1 (corrected G⁻, u, v, w) and #6
+   (padded, u, v, w, b) at 256³ for WENO(3, 7, 9, 11), UpwindBiased(3, 5)
+   and Centered(4), and of #8 with WENO(9) at 16384², each beside its plain
+   version and its bound; then the 256³ WENO(9) flagship (z-compact, #1
+   with the deferred correction; 3 warm-up and 20 timed steps: the step
+   median, min and max, the divergence, peak memory, the phase shares, the
+   busy share and the device kernels per step) and the 256³
+   UpwindBiased(5) convection row (the padded layout, 13 steps, Σb
+   conserved to 1e-6, the same reports). Its wall time is printed.
+
 Fill times are CUDA events around one call behind a busy card (the device's
 time, ``device_ms``), with the call from an idle card beside them (host
 launch work included, as PR 9's were taken). The line before the last is
@@ -251,7 +270,10 @@ def build_phase():
     t0 = time.perf_counter()
     build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {build.build_seconds:.1f} s)")
+          f"(nvcc {build.build_seconds:.1f} s; per source, from the start: "
+          + ", ".join(f"{name} {sec:.1f} s" for name, sec in
+                      sorted(build.source_seconds.items(),
+                             key=lambda kv: -kv[1])) + ")")
     for line in build.compile_log.splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print("  " + line.strip())
@@ -331,12 +353,14 @@ def tiled_kernels_report():
              torch.float32, torch.bfloat16, 4, (2, 3))):
         grid = ot.RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0),
                                   halo=(4, 4, 0), dtype=dt, device="cuda")
-        plan = fa.launch_plan(grid, ot.WENO(5, smoothness_dtype=sdt), dt, nc)
+        scheme = ot.WENO(5, smoothness_dtype=sdt)
+        plan = fa.launch_plan(grid, scheme, dt, nc)
         for a, b, smem in plan["launches"]:
             for kind in ks:
                 per_sm = ctypes.c_int(0)
                 build.check(lib.oc_advection_blocks_per_sm(
-                    0, codes[dt], codes[sdt], kind, int(b > 3),
+                    *fa.scheme_code(scheme), codes[dt], codes[sdt], kind,
+                    int(b > 3),
                     *plan["tile"], plan["threads"], smem,
                     ctypes.byref(per_sm)), lib)
                 print(f"  {kinds[kind]} {label} (components {a}-{b - 1}): "
@@ -352,7 +376,8 @@ def tiled_kernels_report():
         plan = fsw.launch_plan(grid, ot.WENO(5), dt, 3)
         per_sm = ctypes.c_int(0)
         build.check(lib.oc_fused_sw_update_blocks_per_sm(
-            0, codes[dt], codes[sdt], *plan["tile"], plan["threads"],
+            *fa.scheme_code(ot.WENO(5)), codes[dt], codes[sdt],
+            *plan["tile"], plan["threads"],
             plan["smem"], ctypes.byref(per_sm)), lib)
         print(f"  {label}: tile {plan['tile']}, {plan['threads']} threads, "
               f"{plan['blocks']} blocks, {plan['smem']} B shared, "
@@ -466,10 +491,10 @@ def max_err(got, want):
     return err, err / scale
 
 
-def kernel_inputs(N, dtype, seed):
+def kernel_inputs(N, dtype, seed, halo=(4, 4, 0)):
     import oceananigans_tpu_torch as ot
     from oceananigans_tpu_torch.kernels import periodic_halo_fill
-    grid = ot.RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0), halo=(4, 4, 0),
+    grid = ot.RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0), halo=halo,
                               dtype=dtype, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -731,20 +756,49 @@ FP32_FLOP_PER_S = 67e12
 
 # Floating-point operations the function needs (an FMA counts 2), each face
 # flux counted once: a face is shared by the two cells beside it, so a cell
-# owns three face fluxes per component, one per axis. A WENO-5
-# reconstruction is 3 stencils x (5 for the value + 21 for the smoothness
-# indicator) + 2 for τ + 3 x 9 for the weights + 1 division = 108; a
-# Centered(4) interpolation of A·q is 4 products + 4 products + 3 sums = 11;
-# a face flux adds 1 product. A momentum component-cell takes three face
-# fluxes plus 3 differences, 2 sums, a division and a sign: 3 x (11 + 108 +
-# 1) + 7 = 367. A tracer component-cell reads the face velocity (1 product
-# for A·u): 3 x (1 + 108 + 1) + 7 = 337. The near-wall cells with lower
-# orders (6 of 256 z levels) are counted at the full cost. The block-tiled
-# #1, #6 and #8 compute each face flux once, and the faces on a tile's edge
-# once more in the neighbouring block.
-WENO_MOMENTUM_FLOP = 3 * (11 + 108 + 1) + 7
-WENO_TRACER_FLOP = 3 * (1 + 108 + 1) + 7
+# owns three face fluxes per component, one per axis (advection_flop). The
+# near-wall cells with lower orders (2K of 256 z levels for a scheme of
+# buffer K) are counted at the full cost. The block-tiled #1, #6 and #8
+# compute each face flux once, and the faces on a tile's edge once more in
+# the neighbouring block.
 UPDATE_FLOP = 4          # γΔt·G + ζΔt·G⁻ added to q
+
+
+def scheme_buffers(scheme):
+    """(K, b): the scheme's buffer and that of its advecting velocity's
+    Centered(2b) (b = K for Centered, max(K - 1, 1) for UpwindBiased and
+    WENO)."""
+    import oceananigans_tpu_torch as ot
+    K = scheme.buffer
+    return K, K if isinstance(scheme, ot.Centered) else max(K - 1, 1)
+
+
+def recon_flop(scheme):
+    """Operations of one advected value at the scheme's own buffer K: a
+    WENO-(2K-1) reconstruction (weno_flop(K, 0)), a selected
+    UpwindBiased(2K-1) value (2K-1 products, 2K-2 sums) or a selected
+    Centered(2K) value (2K products, 2K-1 sums)."""
+    import oceananigans_tpu_torch as ot
+    K, _ = scheme_buffers(scheme)
+    if isinstance(scheme, ot.WENO):
+        return weno_flop(K, 0)
+    cells = 2 * K if isinstance(scheme, ot.Centered) else 2 * K - 1
+    return 2 * cells - 1
+
+
+def advection_flop(scheme, n_momentum, n_tracers):
+    """Operations of the advective tendency per interior cell, each face flux
+    counted once: a momentum component-cell takes three face fluxes, each
+    the Centered(2b) interpolation of A·q (2b products for A·q, 2b products
+    and 2b - 1 sums), the advected value (recon_flop) and the flux product,
+    then 3 differences, 2 sums, a division and a sign (7); a tracer
+    component-cell reads the face velocity (1 product for A·u) in place of
+    the interpolation. WENO(5): 3 x (11 + 85 + 1) + 7 = 298 and 3 x (1 +
+    85 + 1) + 7 = 268."""
+    _, b = scheme_buffers(scheme)
+    recon = recon_flop(scheme)
+    return (n_momentum * (3 * (6 * b - 1 + recon + 1) + 7)
+            + n_tracers * (3 * (1 + recon + 1) + 7))
 
 
 def bound(nbytes, flop):
@@ -935,15 +989,18 @@ def circular_pad_ms(grid, fields):
     return ms
 
 
-def flagship_bounds(N, H, esize):
-    """Bounds of the flagship's four kernels at interior N, halo H."""
+def flagship_bounds(N, H, esize, scheme=None):
+    """Bounds of the flagship's four kernels at interior N, halo H, with the
+    flagship's WENO(5) or ``scheme``."""
+    import oceananigans_tpu_torch as ot
+    scheme = scheme or ot.WENO(5)
     cells = N[0] * N[1] * N[2]
     padded = (N[0] + 2 * H[0]) * (N[1] + 2 * H[1]) * N[2]
     return {
         # corrected, G⁻ variant: read u, v, w, p padded and G⁻; write G, new
         "fused_advection_update": bound(
             esize * (4 * padded + 3 * cells + 3 * cells + 3 * padded),
-            3 * cells * (WENO_MOMENTUM_FLOP + UPDATE_FLOP)),
+            cells * (advection_flop(scheme, 3, 0) + 3 * UPDATE_FLOP)),
         # read u, v, w padded, write rhs; 3 differences, 3 products, 2 sums,
         # 1 product per cell
         "fused_divergence": bound(esize * (3 * padded + cells), 9 * cells),
@@ -953,8 +1010,11 @@ def flagship_bounds(N, H, esize):
     }
 
 
-def convection_bounds(N, H, esize, n_tracers=1):
-    """Bounds of the convection path's kernels at interior N, halo H."""
+def convection_bounds(N, H, esize, n_tracers=1, scheme=None):
+    """Bounds of the convection path's kernels at interior N, halo H, with
+    the path's WENO(5) or ``scheme``."""
+    import oceananigans_tpu_torch as ot
+    scheme = scheme or ot.WENO(5)
     cells = N[0] * N[1] * N[2]
     PX, PY, PZ = (n + 2 * h for n, h in zip(N, H))
     padded = PX * PY * PZ
@@ -962,31 +1022,43 @@ def convection_bounds(N, H, esize, n_tracers=1):
     return {
         "fused_advection_tendency": bound(
             esize * nf * (padded + cells),
-            cells * (3 * WENO_MOMENTUM_FLOP + n_tracers * WENO_TRACER_FLOP)),
+            cells * advection_flop(scheme, 3, n_tracers)),
     }
 
 
 # The fused shallow-water stage, per interior cell: the operations the
 # function needs, each face flux and each derived velocity counted once (the
 # kernel recomputes both, about twice as many). A momentum component has two
-# face fluxes per cell, one per axis, each a Centered(4) interpolation of a
-# transport (4 products + 3 sums = 7), a metric product, a WENO-5
-# reconstruction (108) and the flux product: 117; one velocity u = uh/ℑx(h)
-# (a sum, a product, a division: 3); then 2 differences, a sum and a division
-# (4), the gravity head (4 products, a difference, a division, a difference:
-# 7), the bathymetry term (a sum, 3 products, 2 differences, a division: 7)
-# and the Coriolis term (3 sums, 4 products, a sum: 8): 2 x 117 + 3 + 26 =
-# 263. h: 4 products, 2 differences, a sum, 2 divisions, a negation, a
-# product = 11. A tracer: the divergence of U (8) and two fluxes of
-# (1 + 108 + 1) plus 6: 234.
-SW_MOMENTUM_FLOP = 2 * (7 + 1 + 108 + 1) + 3 + 26
+# face fluxes per cell, one per axis, each a Centered(2b) interpolation of a
+# transport (2b products + 2b - 1 sums: 7 for WENO(5)'s Centered(4)), a
+# metric product, the advected value (recon_flop: 85 for WENO(5)) and the
+# flux product; one velocity u = uh/ℑx(h) (a sum, a product, a division:
+# 3); then 2 differences, a sum and a division (4), the gravity head (4
+# products, a difference, a division, a difference: 7), the bathymetry term
+# (a sum, 3 products, 2 differences, a division: 7) and the Coriolis term (3
+# sums, 4 products, a sum: 8): 2 x (7 + 1 + 85 + 1) + 3 + 26 = 217 at
+# WENO(5). h: 4 products, 2 differences, a sum, 2 divisions, a negation, a
+# product = 11. A tracer: the divergence of U (8) and two fluxes of (1 +
+# the advected value + 1) plus 6.
 SW_H_FLOP = 11
-SW_TRACER_FLOP = 8 + 2 * (1 + 108 + 1) + 6
 
 
-def sw_bounds(n, H, esize, n_tracers=0):
+def sw_flop(scheme, n_tracers):
+    """Operations of the fused shallow-water stage per interior cell, its
+    stage update included (see above)."""
+    _, b = scheme_buffers(scheme)
+    recon = recon_flop(scheme)
+    momentum = 2 * (4 * b - 1 + 1 + recon + 1) + 3 + 26
+    tracer = 8 + 2 * (1 + recon + 1) + 6
+    return (2 * momentum + SW_H_FLOP + n_tracers * tracer
+            + (3 + n_tracers) * UPDATE_FLOP)
+
+
+def sw_bounds(n, H, esize, n_tracers=0, scheme=None):
     """Bounds of the shallow-water path's stage at interior n², halo H: its
-    G⁻ variant (stages 2 and 3)."""
+    G⁻ variant (stages 2 and 3), with the path's WENO(5) or ``scheme``."""
+    import oceananigans_tpu_torch as ot
+    scheme = scheme or ot.WENO(5)
     nf = 3 + n_tracers
     cells = n * n
     PX, PY = n + 2 * H[0], n + 2 * H[1]
@@ -995,8 +1067,7 @@ def sw_bounds(n, H, esize, n_tracers=0):
         # read the fields, hB and G⁻; write G and the new fields
         "fused_sw_update": bound(
             esize * ((nf + 1) * padded + 2 * nf * cells + nf * padded),
-            cells * (2 * SW_MOMENTUM_FLOP + SW_H_FLOP
-                     + n_tracers * SW_TRACER_FLOP + nf * UPDATE_FLOP)),
+            cells * sw_flop(scheme, n_tracers)),
     }
 
 
@@ -1097,15 +1168,16 @@ def convection_kernels_phase():
     return out
 
 
-def bench_model(n, dtype, device, seed=0):
-    """The flagship configuration (bench.py's recipe) on the port."""
+def bench_model(n, dtype, device, seed=0, scheme=None):
+    """The flagship configuration (bench.py's recipe) on the port, with its
+    WENO(5) or ``scheme``."""
     import oceananigans_tpu_torch as ot
     from oceananigans_tpu_torch.models import NonhydrostaticModel
     rng = np.random.default_rng(seed)
     grid = ot.RectilinearGrid(size=(n, n, n), extent=(1.0, 1.0, 1.0),
                               topology=("periodic", "periodic", "bounded"),
                               dtype=dtype, device=device)
-    model = NonhydrostaticModel(grid, advection=ot.WENO(5))
+    model = NonhydrostaticModel(grid, advection=scheme or ot.WENO(5))
     npdt = np.float32 if dtype == torch.float32 else np.float64
     model.set(u=0.1 * rng.standard_normal((n, n, n)).astype(npdt),
               v=0.1 * rng.standard_normal((n, n, n)).astype(npdt))
@@ -1113,20 +1185,21 @@ def bench_model(n, dtype, device, seed=0):
 
 
 def convection_model(N, dtype, device, smoothness=torch.float32, seed=0,
-                     architecture=None, state=None):
+                     architecture=None, state=None, scheme=None):
     """Rayleigh–Bénard convection, the convection path's configuration
     (tests/test_regression.py rayleigh_benard_model at full width): extent
-    1x1x1, WENO(5), BuoyancyTracer, ScalarDiffusivity(ν = κ = 1e-4, Rayleigh
-    number 1e8), b = 0.5 on the bottom and -0.5 on the top, b = -z - 0.5 and
-    u = 1e-3·N(0, 1) from np.random.default_rng(seed); or, given ``state``
-    (a model state on the host), that state instead of set()."""
+    1x1x1, WENO(5) (or ``scheme``), BuoyancyTracer, ScalarDiffusivity(ν = κ
+    = 1e-4, Rayleigh number 1e8), b = 0.5 on the bottom and -0.5 on the
+    top, b = -z - 0.5 and u = 1e-3·N(0, 1) from
+    np.random.default_rng(seed); or, given ``state`` (a model state on the
+    host), that state instead of set()."""
     import oceananigans_tpu_torch as ot
     grid = ot.RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0), dtype=dtype,
                               device=device)
     b_bcs = ot.FieldBoundaryConditions(top=ot.ValueBoundaryCondition(-0.5),
                                        bottom=ot.ValueBoundaryCondition(0.5))
     model = ot.NonhydrostaticModel(
-        grid, advection=ot.WENO(5, smoothness_dtype=smoothness),
+        grid, advection=scheme or ot.WENO(5, smoothness_dtype=smoothness),
         buoyancy=ot.BuoyancyTracer(), tracers=("b",),
         closure=ot.ScalarDiffusivity(nu=1e-4, kappa={"b": 1e-4}),
         boundary_conditions={"b": b_bcs}, architecture=architecture)
@@ -1219,14 +1292,18 @@ def hydrostatic_turbulence_model(dtype, device):
     return model, 600.0, 10
 
 
-def flagship_path_phase(card):
+def flagship_path_phase(card, scheme=None):
+    """The flagship path at 256³ float32 with its WENO(5) or ``scheme``:
+    counters reset just before the model is built and read just after the
+    timed steps; then the phase shares and the busy share."""
     from oceananigans_tpu_torch import kernels as K
     n, dt = 256, 1e-4
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     K.reset_counters()
-    model = bench_model(n, torch.float32, "cuda")
+    model = bench_model(n, torch.float32, "cuda", scheme=scheme)
+    label = scheme_label(model.advection)
     for _ in range(3):
         model.time_step(dt)
     torch.cuda.synchronize()
@@ -1253,17 +1330,18 @@ def flagship_path_phase(card):
     print(f"max|div u|·Δx/max|u| after {model.iteration} steps: {div_rel:.3e}")
     assert div_rel < 1e-4, ("divergence not at roundoff", div_rel)
     step_ms = statistics.median(times) * 1e3
-    print(f"flagship path: 256^3 WENO5 float32 RK3 step median {step_ms:.3f} ms "
-          f"over {len(times)} steps (min {min(times) * 1e3:.3f}, max "
-          f"{max(times) * 1e3:.3f}), {n ** 3 / (step_ms / 1e3):.4e} "
-          f"cell-updates/s [{card}]")
+    print(f"flagship path: 256^3 {label} float32 RK3 step median "
+          f"{step_ms:.3f} ms over {len(times)} steps (min "
+          f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
+          f"{n ** 3 / (step_ms / 1e3):.4e} cell-updates/s [{card}]")
     print(f"flagship peak device memory (model, set() and steps): "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
     rhs = K.fused_divergence(model.grid, u, v, w, 1.0)
     solve_ms = cuda_ms(lambda: model.pressure_solver.solve(rhs))
     print(f"pressure solve (torch.fft + DCT matmul) at 256^3: "
           f"{solve_ms:.4f} ms [{card}]")
-    busy_share("flagship path", model, dt, 3, step_ms, card)
+    compact_phase_shares(model, dt, 3, card, f"flagship {label}")
+    busy_share(f"flagship path {label}", model, dt, 3, step_ms, card)
     return launches, step_ms
 
 
@@ -1348,14 +1426,21 @@ def convection_phase_shares(model, dt, steps, card):
     return shares
 
 
-def convection_path_phase(card):
-    """The convection path at 256³ float32: counters reset just before the
-    model is built and read just after the timed steps."""
+def convection_path_phase(card, scheme=None):
+    """The convection path at 256³ float32 with its WENO(5) or ``scheme``:
+    counters reset just before the model is built and read just after the
+    timed steps. With ``scheme`` also Σb against its initial value
+    (check_conserved)."""
     from oceananigans_tpu_torch import kernels as K
     n, dt = 256, 1e-3
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     K.reset_counters()
-    model = convection_model((n, n, n), torch.float32, "cuda")
+    model = convection_model((n, n, n), torch.float32, "cuda", scheme=scheme)
+    label = scheme_label(model.advection)
     state0 = to_device(model.state, "cpu")
+    sums0 = tracer_sums(model)
     for _ in range(3):
         model.time_step(dt)
     torch.cuda.synchronize()
@@ -1387,7 +1472,9 @@ def convection_path_phase(card):
           f"{div_rel:.3e}; max|u| {umax:.3e}")
     assert div_rel < 1e-4, ("divergence not at roundoff", div_rel)
     step_ms = statistics.median(times) * 1e3
-    print(f"convection path: 256^3 Rayleigh-Benard WENO5 float32 RK3 step "
+    if scheme is not None:
+        check_conserved(f"convection {label}", model, sums0)
+    print(f"convection path: 256^3 Rayleigh-Benard {label} float32 RK3 step "
           f"median {step_ms:.3f} ms over {len(times)} steps (min "
           f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
           f"{n ** 3 / (step_ms / 1e3):.4e} cell-updates/s [{card}]")
@@ -2855,22 +2942,11 @@ BUOYANT_KERNELS = ("fused_advection_tendency", "fill_halos",
                    "fused_divergence", "fused_correct")
 
 
-def advection_flop(weno, n_momentum, n_tracers):
-    """Operations of the advective tendency per interior cell, each face flux
-    counted once (see WENO_MOMENTUM_FLOP), with a WENO-5 reconstruction
-    counted by weno_flop(3, 0) for WENO(5) and a selected Centered(2) value
-    (2 products, a sum) for Centered(2); the advecting velocity of momentum
-    a Centered(4) (11) or Centered(2) (3) interpolation of A·q."""
-    recon = weno_flop(3, 0) if weno else 3
-    interp = 11 if weno else 3
-    return (n_momentum * (3 * (interp + recon + 1) + 7)
-            + n_tracers * (3 * (1 + recon + 1) + 7))
-
-
 def compact_bounds(N, H, esize, n_tracers):
     """Bounds at interior N, halo H = (Hx, Hy, 0), of #1's corrected G⁻
     variant over u, v, w and n_tracers tracers (WENO(5)), and of the
     z-compact #6 (and #7) over u, v, w and n_tracers tracers."""
+    import oceananigans_tpu_torch as ot
     cells = N[0] * N[1] * N[2]
     padded = (N[0] + 2 * H[0]) * (N[1] + 2 * H[1]) * N[2]
     nc = 3 + n_tracers
@@ -2879,11 +2955,11 @@ def compact_bounds(N, H, esize, n_tracers):
         # the correction of u, v, w: 3 x (difference, product, difference)
         "fused_advection_update_tracers": bound(
             esize * ((nc + 1) * padded + 2 * nc * cells + nc * padded),
-            cells * (advection_flop(True, 3, n_tracers) + 9
+            cells * (advection_flop(ot.WENO(5), 3, n_tracers) + 9
                      + nc * UPDATE_FLOP)),
         "fused_advection_tendency_compact": bound(
             esize * nc * (padded + cells),
-            cells * advection_flop(True, 3, n_tracers)),
+            cells * advection_flop(ot.WENO(5), 3, n_tracers)),
     }
 
 
@@ -3548,7 +3624,7 @@ def bf16_tracer_path_phase(card, weno_states):
               f"{100 * shares['advection kernel'] / sum(shares.values()):.1f}%")
         for total, count in zip((launches, plain_cuda), K.counters()):
             for k, c in count.items():
-                total[k] += c
+                total[k] = total.get(k, 0) + c
         steps, f32 = weno_states[ntr]
         assert model.iteration == steps, (model.iteration, steps)
         diffs = {c: (model.field(c).interior.cpu() - f32[c]).abs().max()
@@ -3949,7 +4025,7 @@ def les_path_phase(card):
 
 KERNEL_SOURCES = {
     "fused_advection_update": (
-        "oceananigans_tpu_torch/csrc/fused_advection.cu",
+        "oceananigans_tpu_torch/csrc/advection_kernel.cuh",
         "oceananigans_tpu/kernels/fused_advection.py:269"),
     "fused_divergence": (
         "oceananigans_tpu_torch/csrc/fused_projection.cu",
@@ -3961,13 +4037,13 @@ KERNEL_SOURCES = {
         "oceananigans_tpu_torch/csrc/halo_fill.cu",
         "oceananigans_tpu/kernels/pallas_fill.py:265"),
     "fused_advection_tendency": (
-        "oceananigans_tpu_torch/csrc/fused_advection.cu",
+        "oceananigans_tpu_torch/csrc/advection_kernel.cuh",
         "oceananigans_tpu/kernels/fused_advection.py:149"),
     "fill_halos_bounded": (
         "oceananigans_tpu_torch/csrc/halo_fill.cu",
         "oceananigans_tpu/kernels/pallas_fill.py:87"),
     "fused_sw_update": (
-        "oceananigans_tpu_torch/csrc/fused_shallow_water.cu",
+        "oceananigans_tpu_torch/csrc/sw_kernel.cuh",
         "oceananigans_tpu/kernels/fused_shallow_water.py:43"),
     "fused_vi_tendency": (
         "oceananigans_tpu_torch/csrc/fused_vector_invariant.cu",
@@ -3982,16 +4058,16 @@ KERNEL_SOURCES = {
         "oceananigans_tpu_torch/csrc/halo_exchange.cu",
         "oceananigans_tpu/parallel/halo_exchange.py:25"),
     "fused_advection_update_tracers": (
-        "oceananigans_tpu_torch/csrc/fused_advection.cu",
+        "oceananigans_tpu_torch/csrc/advection_kernel.cuh",
         "oceananigans_tpu/kernels/fused_advection.py:269"),
     "fused_advection_tendency_compact": (
-        "oceananigans_tpu_torch/csrc/fused_advection.cu",
+        "oceananigans_tpu_torch/csrc/advection_kernel.cuh",
         "oceananigans_tpu/kernels/fused_advection.py:149"),
     "build_sharded_fused_advection_compact": (
         "oceananigans_tpu_torch/kernels/fused_advection.py",
         "oceananigans_tpu/kernels/fused_advection.py:795"),
     "fused_advection_update_bf16": (
-        "oceananigans_tpu_torch/csrc/fused_advection.cu",
+        "oceananigans_tpu_torch/csrc/advection_kernel.cuh",
         "oceananigans_tpu/kernels/fused_advection.py:269"),
     "weno_microbench": (
         "oceananigans_tpu_torch/csrc/vpu_probes.cu",
@@ -5045,6 +5121,488 @@ def simulation_phase(card):
         ocean_simulation_phase(card, tmp)
 
 
+# -- every advection scheme in the advection kernels (phase 25) --------------------
+
+SCHEME_CHECK_N = (70, 44, 36)   # no tile divides x, y or z; both z walls
+SCHEME_TIMED = ("WENO(3)", "WENO(7)", "WENO(9)", "WENO(11)", "UpwindBiased(3)",
+                "UpwindBiased(5)", "Centered(4)")
+SCHEME_SW_N = 16384
+
+
+def scheme_label(scheme):
+    """Centered(4), UpwindBiased(5), WENO(9): the scheme by family and order."""
+    return f"{type(scheme).__name__}({scheme.order})"
+
+
+def all_schemes(smoothness=torch.float32):
+    """The 17 schemes the advection kernels take, by label: Centered(2-12),
+    UpwindBiased(1-11), WENO(3-11) (the WENO smoothness in
+    ``smoothness``)."""
+    import oceananigans_tpu_torch as ot
+    out = [ot.Centered(o) for o in range(2, 13, 2)]
+    out += [ot.UpwindBiased(o) for o in range(1, 12, 2)]
+    out += [ot.WENO(o, smoothness_dtype=smoothness) for o in range(3, 12, 2)]
+    return {scheme_label(s): s for s in out}
+
+
+def scheme_inputs(N, dtype, halo, n_tracers, seed):
+    """u, v, w (0.1·N(0, 1)), p (1e-3·N(0, 1)) and n_tracers tracers
+    (uniform on [0, 1)) on a grid of interior N and ``halo``, x and y
+    wrapped; with a z halo, the z halos filled as the convection path's
+    (default conditions for u, v, w, b's Value conditions for the
+    tracers); in the z-compact layout w's bottom face 0. Returns the grid,
+    the fields [u, v, w, tracers...], p and a G⁻ for every field."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+    grid = ot.RectilinearGrid(size=N, extent=(1.0, 2.0, 1.5), halo=halo,
+                              dtype=dtype, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = grid.padded_shape
+    f = [sc * torch.randn(shape, generator=gen, dtype=dtype, device="cuda")
+         for sc in (0.1, 0.1, 0.1)]
+    f += [torch.rand(shape, generator=gen, dtype=dtype, device="cuda")
+          for _ in range(n_tracers)]
+    p = 1e-3 * torch.randn(shape, generator=gen, dtype=dtype, device="cuda")
+    K.periodic_halo_fill(grid, f + [p])
+    if halo[2] == 0:
+        f[2][..., 0] = 0
+    else:
+        ZF = K.ZFill
+        K.bounded_z_fill_plain(grid, f, [ZF(False, (0, 0.0), (0, 0.0))] * 2
+                               + [ZF(True, (1, 0.0), (1, 0.0))]
+                               + [ZF(False, (2, 0.5), (2, -0.5))] * n_tracers)
+    Gm = [torch.randn(N, generator=gen, dtype=dtype, device="cuda")
+          for _ in f]
+    return grid, f, p, Gm
+
+
+def sw_scheme_inputs(n, dtype, H, tracers, seed):
+    """sw_kernel_inputs' fields on an n² grid with H = (H, H, 0)."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch.kernels import periodic_halo_fill
+    grid = ot.RectilinearGrid(size=(n, n), extent=(1.0, 1.0), halo=(H, H, 0),
+                              topology=SW_TOPOLOGY, dtype=dtype, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(shape, scale, offset=0.0):
+        return offset + scale * torch.randn(shape, generator=gen, dtype=dtype,
+                                            device="cuda")
+
+    shape = grid.padded_shape
+    fields = dict(uh=randn(shape, 0.01), vh=randn(shape, 0.01),
+                  h=randn(shape, 0.01, 1.0))
+    fields.update({name: randn(shape, 1.0) for name in tracers})
+    hB = randn(shape, 0.01)
+    periodic_halo_fill(grid, list(fields.values()) + [hB])
+    Gm = randn((len(fields),) + grid.N, 1.0)
+    return grid, fields, hB, Gm
+
+
+def update_scales(grid, scheme, f, p, cdt):
+    """The term scales of #1's corrected variant: those of the corrected
+    velocities and the tracers."""
+    from oceananigans_tpu_torch.kernels.fused_advection import \
+        corrected_velocities
+    return term_scales(grid, scheme, list(corrected_velocities(
+        grid, f[0], f[1], f[2], p, cdt)) + f[3:])
+
+
+def scheme_kernel_checks():
+    """#1 (z-compact: the first-stage variant, G⁻ without and with the
+    deferred correction, and the correction alone), #6 (z-compact and
+    padded) and #8 against their plain versions for each of the 17 schemes,
+    at SCHEME_CHECK_N (x, y and z no tile's multiple, so partial tiles and
+    both z walls with every cascade level) with two tracers, and #8 at
+    70x44 with a tracer:
+    - float64 with float64 smoothness, bound 1e-12 relative to each
+      tensor's max|plain| (the tile-edge checks' bound of phases 3 and 7:
+      FMA contraction and another association order);
+    - float32 with float32 smoothness (#1's first-stage and corrected G⁻
+      variants, #6 in both layouts): G within 2e-5 of each component's term
+      scale (term_scales: a tendency can cancel its terms), #1's new fields
+      within 2e-5 relative, #8 within 1e-5 of each tensor's max|plain| (the
+      float32 bounds of phases 3, 7 and 16)."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+    N = SCHEME_CHECK_N
+    gdt, zdt, cdt = 0.1, -0.05, 0.07
+    for dtype in (torch.float64, torch.float32):
+        f64 = dtype == torch.float64
+        for label, scheme in all_schemes(dtype).items():
+            Kb = scheme.required_halo
+            grid, f, p, Gm = scheme_inputs(N, dtype, (Kb + 1, Kb + 1, 0), 2,
+                                           50)
+            tracers = {"c0": f[3], "c1": f[4]}
+            worst = [0.0, 0.0, 0.0, 0.0]   # #1, #6 compact, #6 padded, #8
+            variants = ((None, None), (Gm, None), (None, p), (Gm, p))
+            for gm, pp in variants if f64 else variants[::3]:
+                args = (grid, scheme, f[0], f[1], f[2], gm, gdt, zdt, pp,
+                        cdt if pp is not None else None)
+                Gk, nk = K.fused_advection_update(*args, tracers=tracers)
+                Gp, np_ = K.fused_advection_update_plain(*args,
+                                                         tracers=tracers)
+                if f64:
+                    _, rel = worst_rel(Gk + list(nk.values()),
+                                       Gp + list(np_.values()))
+                else:
+                    scales = (update_scales(grid, scheme, f, pp, cdt)
+                              if pp is not None
+                              else term_scales(grid, scheme, f))
+                    _, rel = scaled_err(Gk, Gp, scales)
+                    rel = max(rel, worst_rel(list(nk.values()),
+                                             list(np_.values()))[1])
+                worst[0] = max(worst[0], rel)
+            for n, layout in ((1, "compact"), (2, "padded")):
+                halo = (Kb, Kb, 0 if layout == "compact" else Kb)
+                grid, f, _, _ = scheme_inputs(N, dtype, halo, 2, 51)
+                Gk = list(K.fused_advection_tendency(grid, scheme, f))
+                Gp = list(K.fused_advection_tendency_plain(grid, scheme, f))
+                worst[n] = (worst_rel(Gk, Gp)[1] if f64 else
+                            scaled_err(Gk, Gp,
+                                       term_scales(grid, scheme, f))[1])
+            sgrid, sf, hB, sGm = sw_scheme_inputs(N[0], dtype, Kb + 1, ("c",),
+                                                  52)
+            names = SW_NAMES + ("c",)
+            ints = sgrid.interior_slices
+            for gm in (None, sGm):
+                args = (sgrid, scheme, 9.81, 0.3, hB, names, sf, gm, 2e-5,
+                        -1e-5)
+                Gk, nk = K.fused_sw_update(*args)
+                Gp, np_ = K.fused_sw_update_plain(*args)
+                worst[3] = max(worst[3], worst_rel(
+                    list(Gk) + [nk[c][ints] for c in names],
+                    list(Gp) + [np_[c][ints] for c in names])[1])
+            bounds = (1e-12,) * 4 if f64 else (2e-5, 2e-5, 2e-5, 1e-5)
+            print(f"  {label} {str(dtype)[6:]}: #1 {worst[0]:.2e}, #6 "
+                  f"compact {worst[1]:.2e}, padded {worst[2]:.2e}, #8 "
+                  f"{worst[3]:.2e} (bounds {bounds[0]:g}, {bounds[3]:g}; "
+                  f"float32 #1 and #6 of the term scale)")
+            for w, b, what in zip(worst, bounds, ("#1", "#6 compact",
+                                                  "#6 padded", "#8")):
+                assert w <= b, (label, dtype, what, w, b)
+        torch.cuda.synchronize()
+
+
+def scheme_bf16_checks():
+    """WENO(7) and WENO(9) with bfloat16 smoothness (float32 fields) against
+    their plain versions at SCHEME_CHECK_N (#8 at 70x44), as bf16_check
+    holds WENO(5): #1's corrected G⁻ variant (u, v, w, two tracers; G
+    within 2e-5 of each component's term scale), #6 padded (2e-5 of each
+    component's max|plain|) and #8 (1e-5), each bound at most a tenth of
+    the bf16-vs-float32 difference."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+    N = SCHEME_CHECK_N
+    out = 0.0
+    for order in (7, 9):
+        bf = ot.WENO(order, smoothness_dtype=torch.bfloat16)
+        f32 = ot.WENO(order, smoothness_dtype=torch.float32)
+        Kb = bf.required_halo
+        grid, f, p, Gm = scheme_inputs(N, torch.float32, (Kb + 1, Kb + 1, 0),
+                                       2, 53)
+        tracers = {"c0": f[3], "c1": f[4]}
+
+        def upd(fn, scheme):
+            return fn(grid, scheme, f[0], f[1], f[2], Gm, 0.1, -0.05, p, 0.07,
+                      tracers=tracers)[0]
+
+        Gp = upd(K.fused_advection_update_plain, bf)
+        out = max(out, bf16_check(
+            f"fused_advection_update WENO({order}) {N} bf16 smoothness "
+            f"(corrected, G⁻)", upd(K.fused_advection_update, bf), Gp,
+            upd(K.fused_advection_update_plain, f32),
+            update_scales(grid, bf, f, p, 0.07), 2e-5, range(5)))
+        grid, f, _, _ = scheme_inputs(N, torch.float32, (Kb,) * 3, 1, 54)
+        Gp = list(K.fused_advection_tendency_plain(grid, bf, f))
+        out = max(out, bf16_check(
+            f"fused_advection_tendency padded WENO({order}) {N} bf16 "
+            f"smoothness", list(K.fused_advection_tendency(grid, bf, f)), Gp,
+            list(K.fused_advection_tendency_plain(grid, f32, f)),
+            [g.abs().max().item() for g in Gp], 2e-5, range(4)))
+        sgrid, sf, hB, sGm = sw_scheme_inputs(N[0], torch.float32, Kb + 1,
+                                              ("c",), 55)
+        sf["h"] = 1.0 + 1e-4 * (sf["h"] - 1.0) / 0.01
+        names = SW_NAMES + ("c",)
+
+        def sw(fn, scheme):
+            return fn(sgrid, scheme, 9.81, 0.3, hB * 1e-2, names, sf, sGm,
+                      2e-5, -1e-5)[0]
+
+        Gp = sw(K.fused_sw_update_plain, bf)
+        out = max(out, bf16_check(
+            f"fused_sw_update WENO({order}) {N[0]}^2 bf16 smoothness (G)",
+            list(sw(K.fused_sw_update, bf)), list(Gp),
+            list(sw(K.fused_sw_update_plain, f32)),
+            [g.abs().max().item() for g in Gp], 1e-5, (0, 1, 3)))
+    torch.cuda.synchronize()
+    return out
+
+
+def scheme_mesh_checks():
+    """#7 and #9 with WENO(9) (float64 smoothness) on the 2x2 mesh of cuda:0
+    against the serial kernels: #7 in both layouts at SCHEME_CHECK_N (blocks
+    of 35x22, tiles unlike the serial grid's), #9 at 128² with a tracer
+    and bathymetry whose halos are periodic images; bit for bit."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+    mesh = card_mesh().mesh
+    s = ot.WENO(9, smoothness_dtype=torch.float64)
+    for layout in ("compact", "padded"):
+        halo = (5, 5, 0 if layout == "compact" else 5)
+        grid, f, _, _ = scheme_inputs(SCHEME_CHECK_N, torch.float64, halo, 1,
+                                      56)
+        G = K.build_sharded_fused_advection(grid, s, mesh)(f)
+        assert torch.equal(G, K.fused_advection_tendency(grid, s, f)), \
+            ("sharded WENO(9) tendency", layout)
+        print(f"  sharded tendency WENO(9) {layout} {SCHEME_CHECK_N} on 2x2: "
+              f"equal to the serial kernel bit for bit")
+    names = SW_NAMES + ("c",)
+    sgrid, sf, hB, _ = sw_scheme_inputs(128, torch.float64, 6, ("c",), 57)
+    stage = K.build_sharded_fused_sw_update(sgrid, s, 9.81, 0.3, hB, names,
+                                            mesh)
+    G, new = stage(sf, None, 2e-5, -1e-5)
+    Gs, news = K.fused_sw_update(sgrid, s, 9.81, 0.3, hB, names, sf, None,
+                                 2e-5, -1e-5)
+    ints = sgrid.interior_slices
+    same = all(torch.equal(new[c][ints], news[c][ints]) for c in names)
+    for k, (i, j) in enumerate((i, j) for i in range(2) for j in range(2)):
+        same = same and torch.equal(
+            G[k], Gs[:, i * 64:(i + 1) * 64, j * 64:(j + 1) * 64])
+    assert same, "sharded WENO(9) shallow-water stage"
+    print("  sharded shallow-water stage WENO(9) 128^2 on 2x2: equal to the "
+          "serial kernel bit for bit")
+    torch.cuda.synchronize()
+
+
+def scheme_projection_checks(card):
+    """#2 (the divergence), #3 (the correction) and #4 (the periodic fill)
+    against their plain versions in the WENO(9) flagship's layout, H = (6,
+    6, 0): float64 at SCHEME_CHECK_N (bound 1e-12 relative to max|plain|)
+    and float32 at 256³ (the path's shapes: 1e-5), the fill exact in both,
+    as phase 3 holds them at H = (4, 4, 0); with the kernels' times at
+    256³."""
+    from oceananigans_tpu_torch import kernels as K
+    for N, dtype, bound in ((SCHEME_CHECK_N, torch.float64, 1e-12),
+                            ((256, 256, 256), torch.float32, 1e-5)):
+        grid, u, v, w, p, _ = kernel_inputs(N, dtype, 63, halo=(6, 6, 0))
+        _, rel_div = max_err(K.fused_divergence(grid, u, v, w, 3.0),
+                             K.fused_divergence_plain(grid, u, v, w, 3.0))
+        _, rel_cor = max_err(list(K.fused_correct(grid, p, u, v, w, 0.2)),
+                             list(K.fused_correct_plain(grid, p, u, v, w,
+                                                        0.2)))
+        a = torch.randn(grid.padded_shape, dtype=dtype, device="cuda")
+        b = a.clone()
+        K.periodic_halo_fill(grid, [a])
+        K.periodic_halo_fill_plain(grid, [b])
+        err_fill = (a - b).abs().max().item()
+        print(f"  H = (6, 6, 0), {N} {str(dtype)[6:]}: fused_divergence rel "
+              f"{rel_div:.3e}, fused_correct rel {rel_cor:.3e} (bound "
+              f"{bound:g}), periodic_halo_fill max abs {err_fill:.3e} "
+              f"(bound 0)")
+        assert rel_div <= bound, ("fused_divergence at H = 6", N, rel_div)
+        assert rel_cor <= bound, ("fused_correct at H = 6", N, rel_cor)
+        assert err_fill == 0.0, ("periodic_halo_fill at H = 6", N, err_fill)
+        if dtype == torch.float32:
+            ms = [cuda_ms(lambda: K.fused_divergence(grid, u, v, w, 3.0)),
+                  cuda_ms(lambda: K.fused_correct(grid, p, u, v, w, 0.2)),
+                  device_ms(lambda: K.periodic_halo_fill(grid, [u, v, w,
+                                                                p]))]
+            print(f"  time at {grid.padded_shape}: fused_divergence "
+                  f"{ms[0]:.4f} ms, fused_correct {ms[1]:.4f} ms, "
+                  f"periodic_halo_fill of u, v, w, p {ms[2]:.4f} ms (behind "
+                  f"a busy card) [{card}]")
+        del grid, u, v, w, p, a, b
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def scheme_plans_report():
+    """For each reach (buffer K = 1..6, at float32 and float64, with and
+    without tracers): the tile launch_plan picks, its shared memory and the
+    blocks an SM holds (#1 corrected and #6 padded), and #8's at 16384²."""
+    import ctypes
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch.kernels import build
+    from oceananigans_tpu_torch.kernels import fused_advection as fa
+    from oceananigans_tpu_torch.kernels import fused_shallow_water as fsw
+    lib = build.library()
+    codes = {torch.float32: 0, torch.float64: 1}
+    for Kb in range(1, 7):
+        scheme = ot.WENO(2 * Kb - 1) if Kb > 1 else ot.Centered(2)
+        for dt in (torch.float32, torch.float64):
+            grid = ot.RectilinearGrid(size=(256, 256, 256),
+                                      extent=(1.0, 1.0, 1.0),
+                                      halo=(Kb + 1, Kb + 1, 0), dtype=dt,
+                                      device="cuda")
+            for nc in (3, 15):
+                plan = fa.launch_plan(grid, scheme, dt, nc)
+                smem = plan["launches"][0][2]
+                per = []
+                for kind in (1, 3):
+                    per_sm = ctypes.c_int(0)
+                    build.check(lib.oc_advection_blocks_per_sm(
+                        *fa.scheme_code(scheme), codes[dt], codes[dt], kind,
+                        int(nc > 3), *plan["tile"], plan["threads"], smem,
+                        ctypes.byref(per_sm)), lib)
+                    per.append(per_sm.value)
+                print(f"  reach {Kb} ({scheme_label(scheme)}) {str(dt)[6:]} "
+                      f"{nc} components: tile {plan['tile']}, {smem} B "
+                      f"shared, blocks per SM #1 {per[0]}, #6 padded "
+                      f"{per[1]}")
+        grid = ot.RectilinearGrid(size=(SCHEME_SW_N, SCHEME_SW_N),
+                                  extent=(1.0, 1.0), halo=(Kb + 1, Kb + 1, 0),
+                                  topology=SW_TOPOLOGY, dtype=torch.float32,
+                                  device="cuda")
+        plan = fsw.launch_plan(grid, scheme, torch.float32, 3)
+        per_sm = ctypes.c_int(0)
+        build.check(lib.oc_fused_sw_update_blocks_per_sm(
+            *fa.scheme_code(scheme), 0, 0, *plan["tile"], plan["threads"],
+            plan["smem"], ctypes.byref(per_sm)), lib)
+        print(f"  reach {Kb} #8 {SCHEME_SW_N}^2 float32: tile {plan['tile']}, "
+              f"{plan['smem']} B shared, {per_sm.value} blocks per SM")
+
+
+def scheme_times(card):
+    """CUDA-event medians of each kernel beside its plain version at the
+    paths' shapes, float32: #1's corrected G⁻ variant over u, v, w at 256³
+    (H = K + 1, the flagship's layout) and #6 padded over u, v, w, b at
+    256³ (H = K, z halos filled, the convection path's layout) for
+    SCHEME_TIMED, and #8's G⁻ variant at SCHEME_SW_N² (H = 6, f = 0, no
+    tracer) with WENO(9); each with its bound (bytes and operations,
+    flagship_bounds, convection_bounds, sw_bounds) and its max difference
+    from the plain version on the timed inputs (G within 2e-5 of each
+    component's term scale, #8 within 1e-5 of each tensor's max|plain|).
+    Returns {row name: dict(max_abs_err, ms, plain_ms, bound)}."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+    schemes = all_schemes()
+    out = {}
+    N = (256, 256, 256)
+    for label in SCHEME_TIMED:
+        scheme = schemes[label]
+        Kb = scheme.required_halo
+        key = label.lower().replace("(", "").replace(")", "")
+        key = key.replace("upwindbiased", "upwind")
+        grid, f, p, Gm = scheme_inputs(N, torch.float32, (Kb + 1, Kb + 1, 0),
+                                       0, 60)
+        args = (grid, scheme, f[0], f[1], f[2], Gm, 0.1, -0.05, p, 0.07)
+        ms = cuda_ms(lambda: K.fused_advection_update(*args))
+        plain_ms = cuda_ms(lambda: K.fused_advection_update_plain(*args),
+                           reps=3, warmup=1)
+        Gk, _ = K.fused_advection_update(*args)
+        Gp, _ = K.fused_advection_update_plain(*args)
+        err, rel = scaled_err(Gk, Gp, update_scales(grid, scheme, f, p, 0.07))
+        assert rel <= 2e-5, ("#1 at 256^3", label, rel)
+        b = flagship_bounds(N, grid.H, 4, scheme)["fused_advection_update"]
+        out[f"fused_advection_update_{key}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b)
+        print(f"  time fused_advection_update {label} (corrected, G⁻) at "
+              f"{grid.padded_shape}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), G max abs "
+              f"{err:.3e} ({rel:.2e} of the term scale) [{card}]")
+        del grid, f, p, Gm, Gk, Gp, args
+        torch.cuda.empty_cache()
+        grid, f, _, _ = scheme_inputs(N, torch.float32, (Kb,) * 3, 1, 61)
+        ms = cuda_ms(lambda: K.fused_advection_tendency(grid, scheme, f))
+        plain_ms = cuda_ms(
+            lambda: K.fused_advection_tendency_plain(grid, scheme, f),
+            reps=3, warmup=1)
+        Gk = list(K.fused_advection_tendency(grid, scheme, f))
+        Gp = list(K.fused_advection_tendency_plain(grid, scheme, f))
+        err, rel = scaled_err(Gk, Gp, term_scales(grid, scheme, f))
+        assert rel <= 2e-5, ("#6 at 256^3", label, rel)
+        b = convection_bounds(N, grid.H, 4, 1, scheme)[
+            "fused_advection_tendency"]
+        out[f"fused_advection_tendency_{key}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b)
+        print(f"  time fused_advection_tendency padded {label} (u, v, w, b) "
+              f"at {grid.padded_shape}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), max abs "
+              f"{err:.3e} ({rel:.2e} of the term scale) [{card}]")
+        del grid, f, Gk, Gp
+        torch.cuda.empty_cache()
+    scheme = schemes["WENO(9)"]
+    grid, sf, hB, sGm = sw_scheme_inputs(SCHEME_SW_N, torch.float32, 6, (),
+                                         62)
+    args = (grid, scheme, 9.81, 0.0, hB, SW_NAMES, sf, sGm, 2e-5, -1e-5)
+    ms = cuda_ms(lambda: K.fused_sw_update(*args))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    plain_ms = cuda_ms(lambda: K.fused_sw_update_plain(*args), reps=3,
+                       warmup=1)
+    plain_peak = torch.cuda.max_memory_allocated() - base
+    Gk, nk = K.fused_sw_update(*args)
+    Gp, np_ = K.fused_sw_update_plain(*args)
+    ints = grid.interior_slices
+    err, rel = worst_rel(list(Gk) + [nk[c][ints] for c in SW_NAMES],
+                         list(Gp) + [np_[c][ints] for c in SW_NAMES])
+    assert rel <= 1e-5, ("#8 WENO(9) at the path's shape", rel)
+    b = sw_bounds(SCHEME_SW_N, grid.H, 4, 0, scheme)["fused_sw_update"]
+    out["fused_sw_update_weno9"] = dict(max_abs_err=err, ms=ms,
+                                        plain_ms=plain_ms, bound=b)
+    print(f"  time fused_sw_update WENO(9) (G⁻) at {grid.padded_shape}: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (plain peak "
+          f"{plain_peak / 2 ** 30:.2f} GiB above its inputs), bound "
+          f"{b[0]:.4f} ms ({b[1]}), max abs {err:.3e}, rel {rel:.2e} "
+          f"[{card}]")
+    del grid, sf, hB, sGm, Gk, nk, Gp, np_, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def schemes_phase(card):
+    """Phase 25: every scheme of the advection kernels. The kernel checks
+    of the 17 schemes, bf16 smoothness at WENO(7) and WENO(9), #7 and #9
+    with WENO(9) on the 2x2 mesh, #2, #3 and #4 in the WENO(9) flagship's
+    layout (H = 6), the launch plans by reach, the times and
+    bounds at the paths' shapes, then the two paths, each with its counters
+    reset just before its model is built and read just after its timed
+    steps: the 256³ WENO(9) flagship (z-compact, #1 with the deferred
+    correction, 3 warm-up and 20 timed steps) and the 256³ UpwindBiased(5)
+    convection row (padded, #6 and the bounded-z fill, 13 steps, Σb
+    conserved). Returns the rows' measurements and each path's
+    launches."""
+    import oceananigans_tpu_torch as ot
+    t0 = time.perf_counter()
+    print("every scheme, kernels against plain versions (float64 at the "
+          "tile-edge bound, float32 at the term-scale bound):")
+    scheme_kernel_checks()
+    print("bfloat16 smoothness at WENO(7) and WENO(9):")
+    scheme_bf16_checks()
+    print("WENO(9) on the 2x2 mesh of the card:")
+    scheme_mesh_checks()
+    print("the divergence, the correction and the fill in the WENO(9) "
+          "flagship's layout:")
+    scheme_projection_checks(card)
+    print("launch plans by reach:")
+    scheme_plans_report()
+    print("times at the paths' shapes:")
+    out = scheme_times(card)
+    torch.cuda.empty_cache()
+    print("the 256^3 WENO(9) flagship:")
+    flagship, _ = flagship_path_phase(card, scheme=ot.WENO(order=9))
+    assert flagship["fused_advection_update_weno9"] > 0, \
+        "the WENO(9) flagship never launched #1's WENO(9) variant"
+    torch.cuda.empty_cache()
+    print("the 256^3 UpwindBiased(5) convection row:")
+    convection, step_ms, model, _ = convection_path_phase(
+        card, scheme=ot.UpwindBiased(order=5))
+    assert convection["fused_advection_tendency_upwind5"] > 0, \
+        "the UpwindBiased(5) row never launched #6's UpwindBiased(5) variant"
+    busy_share("convection path UpwindBiased(5)", model, 1e-3, 3, step_ms,
+               card)
+    print(f"UpwindBiased(5) convection fill launches on the path: "
+          f"{convection['fill_halos']} ({convection['fill_halos_3d']} on 3-D "
+          f"fields, {convection['fill_halos_2d']} on 2-D surfaces); WENO(9) "
+          f"flagship: {flagship['fill_halos']} ({flagship['fill_halos_3d']} "
+          f"3-D, {flagship['fill_halos_2d']} 2-D)")
+    del model
+    torch.cuda.empty_cache()
+    print(f"phase 25 wall time {time.perf_counter() - t0:.1f} s [{card}]")
+    return out, flagship, convection
+
+
 def main():
     name, card = device_phase()
     build_phase()
@@ -5152,6 +5710,8 @@ def main():
     measured["fill_halos_polar"] = glob["polar"]["3d"]
     global_launches = glob["launches"]
     polar_launches = glob["polar"]["launches"]
+    print("every advection scheme in the advection kernels (phase 25):")
+    scheme_rows, scheme_flagship, scheme_convection = schemes_phase(card)
     bounds["fused_advection_update_bf16"] = \
         bounds["fused_advection_update_tracers"]
     for fname in ("fill_halos", "fill_halos_bounded", "fill_halos_fold",
@@ -5191,6 +5751,23 @@ def main():
                          plain_ms=m["plain_ms"], bound_ms=bound_ms,
                          bound_by=bound_by,
                          library_ms=m.get("library_ms")))
+    # phase 25's rows: each scheme's variant of #1, #6 and #8 at its path's
+    # shape, with that variant's own launches on the path its kernel runs
+    # (#1 on the WENO(9) flagship, #6 on the UpwindBiased(5) convection row,
+    # #8 on the WENO(5) shallow-water path of phase 8): 0 for a variant no
+    # path runs, which only the checks and the times of phase 25 launch
+    for kname, m in scheme_rows.items():
+        kernel = kname.rsplit("_", 1)[0]
+        launches = (scheme_flagship if kernel == "fused_advection_update"
+                    else scheme_convection
+                    if kernel == "fused_advection_tendency"
+                    else sw_launches).get(kname, 0)
+        source, replaces = KERNEL_SOURCES[kernel]
+        rows.append(dict(name=kname, route="cuda", source=source,
+                         replaces=replaces, launches=launches,
+                         max_abs_err=m["max_abs_err"], ms=m["ms"],
+                         plain_ms=m["plain_ms"], bound_ms=m["bound"][0],
+                         bound_by=m["bound"][1], library_ms=None))
     for fname, label, path_launches in (
             ("fill_halos", "the flagship path (u, v, w, p of 264x264x256, "
              "the wrap)", flagship_launches),

@@ -1,19 +1,28 @@
 // Flux-form advection stencils of the block-tiled advection kernels
-// (fused_advection.cu: the RK3 stage update #1 and the tendency #6): the
+// (advection_kernel.cuh: the RK3 stage update #1 and the tendency #6): the
 // flux of -∇·(𝐯q) through one face at a time (face_flux_x/y/z) for u at
 // (f, c, c), v at (c, f, c), w at (c, c, f) and a tracer at (c, c, c),
-// written once against a read policy that says where the stencil's values
-// come from.
+// written once against the block's staged boxes.
 //
 // The stencils are those of oceananigans_tpu/advection/fluxes.py div_Uu /
 // div_Uv / div_Uw / div_Uc: advecting velocities by the scheme's symmetric
 // interpolation of A·q (the face velocity itself for tracers), advected
-// values by the upwind-selected reconstruction. Along the bounded z the order
-// cascades near the walls on the global z index, as the TPU kernels' tile
-// grid keeps z global (WENO5 → WENO3 → UpwindBiased(1) for the advected
-// value, Centered(4) → Centered(2) for the advecting velocity). Schemes:
-// WENO(5) and Centered(2) (SCH, a compile-time choice); every coefficient
-// comes from the table of kernels/fused_advection.py coefficient_table.
+// values by the upwind-selected reconstruction (reconstruction.cuh). Along
+// the bounded z the order cascades near the walls on the global z index, as
+// the TPU kernels' tile grid keeps z global: a scheme of buffer K takes its
+// buffer schemes down to buffer 1 (WENO(9) → 7 → 5 → 3 → UpwindBiased(1),
+// UpwindBiased(5) → 3 → 1, Centered(8) → 6 → 4 → 2), the advecting
+// velocity's interpolation with them. Every scheme of
+// oceananigans_tpu/advection/schemes.py: Centered(2-12), UpwindBiased(1-11)
+// and WENO(3-11); the buffer K and the family are compile-time choices, and
+// every coefficient comes from the table of
+// kernels/fused_advection.py coefficient_table.
+//
+// Each face flux reads one line of a staged box per term: the advecting
+// velocity's line (A·u, A·v or A·w along the interpolated axis) and the
+// advected field's line along the flux's axis, each at a stride of its box,
+// so that a face flux of any momentum component is one interpolation and
+// one reconstruction, and a tracer's one reconstruction.
 //
 // Read policies (R) of a kernel's staging, which fills a block's shared
 // boxes (staged, tracer_at, in_place, at_z):
@@ -26,16 +35,15 @@
 //   oceananigans_tpu/operators/shifts.py shift_zbc kinds): even for u, v and
 //   tracers, a[-1-m] = a[m], a[N+m] = a[N-1-m]; odd about the faces for w,
 //   a[-m] = -a[m], a[N] = 0, a[N+m] = -a[N-m]. The fluxes through the
-//   boundary faces are zero (R::kWalls). With kCorr (the deferred
+//   boundary faces are zero (R::kWalls). Given a pressure p (the deferred
 //   correction of the previous RK3 stage) every velocity read is corrected
-//   on the fly from the pressure p, q = q* − Δt_prev·∂p, with w's bottom
-//   face pinned to 0. kCorr is a compile-time choice, so that a read is a
-//   plain load, or the loads and the correction, with no branch around it.
-//   kRn (float32 fields only) rounds the correction's product and difference
-//   apart, as the plain version does, where nvcc would contract them into
-//   one FMA: the bfloat16-smoothness instantiation takes it, since a
-//   corrected velocity one ulp away can move a bfloat16 rounding of the
-//   smoothness downstream.
+//   on the fly, q = q* − Δt_prev·∂p, with w's bottom face pinned to 0; the
+//   staging reads each velocity once a block, so the choice is a branch
+//   uniform across the launch. kRn (float32 fields only) rounds the
+//   correction's product and difference apart, as the plain version does,
+//   where nvcc would contract them into one FMA: the bfloat16-smoothness
+//   instantiation takes it, since a corrected velocity one ulp away can move
+//   a bfloat16 rounding of the smoothness downstream.
 // - SharedRead: a block's tile in shared memory, what the face fluxes read.
 //   Its boxes hold u, v, w and the advected tracer over the tile plus the
 //   stencil's reach, staged through one of the two policies above, so a
@@ -78,13 +86,13 @@ struct PaddedRead {
   }
 };
 
-template <typename T, bool kCorr, bool kRn = false>
+template <typename T, bool kRn = false>
 struct CompactRead {
   static_assert(!kRn || std::is_same<T, float>::value, "kRn takes float32 fields");
   static constexpr bool kWalls = true;
   const T* vel[3];   // u*, v*, w*: padded in x and y, no z halo
-  const T* p;        // padded pressure of the deferred correction (kCorr)
-  T cx, cy, cz;      // Δt_prev/Δx, Δt_prev/Δy, Δt_prev/Δz (kCorr)
+  const T* p;        // padded pressure of the deferred correction, or null
+  T cx, cy, cz;      // Δt_prev/Δx, Δt_prev/Δy, Δt_prev/Δz (with p)
   Geom g;            // Hz = 0
 
   // q* − f·(p[at] − p[below])
@@ -96,26 +104,17 @@ struct CompactRead {
   }
   __device__ __forceinline__ T u(int i, int j, int k) const {
     const long long at = g.at(i, j, k);
-    if constexpr (kCorr)
-      return corrected(vel[0][at], cx, at, g.at(i - 1, j, k));
-    else
-      return vel[0][at];
+    return p != nullptr ? corrected(vel[0][at], cx, at, g.at(i - 1, j, k)) : vel[0][at];
   }
   __device__ __forceinline__ T v(int i, int j, int k) const {
     const long long at = g.at(i, j, k);
-    if constexpr (kCorr)
-      return corrected(vel[1][at], cy, at, g.at(i, j - 1, k));
-    else
-      return vel[1][at];
+    return p != nullptr ? corrected(vel[1][at], cy, at, g.at(i, j - 1, k)) : vel[1][at];
   }
   __device__ __forceinline__ T w(int i, int j, int k) const {
     const long long at = g.at(i, j, k);
-    if constexpr (kCorr) {
-      if (k == 0) return T(0);
-      return corrected(vel[2][at], cz, at, at - 1);
-    } else {
-      return vel[2][at];
-    }
+    if (p == nullptr) return vel[2][at];
+    if (k == 0) return T(0);
+    return corrected(vel[2][at], cz, at, at - 1);
   }
   __device__ __forceinline__ int even(int k) const {
     return k < 0 ? -k - 1 : (k >= g.Nz ? 2 * g.Nz - 1 - k : k);
@@ -161,72 +160,30 @@ struct SharedRead {
   __device__ __forceinline__ int at_c(int i, int j, int k) const {
     return (i - ox) * csx + (j - oy) * csy + (k - cz);
   }
-  __device__ __forceinline__ T u(int i, int j, int k) const { return vel[0][at(i, j, k)]; }
-  __device__ __forceinline__ T v(int i, int j, int k) const { return vel[1][at(i, j, k)]; }
-  __device__ __forceinline__ T w(int i, int j, int k) const { return vel[2][at(i, j, k)]; }
-  __device__ __forceinline__ T u_z(int i, int j, int k) const { return u(i, j, k); }
-  __device__ __forceinline__ T v_z(int i, int j, int k) const { return v(i, j, k); }
-  __device__ __forceinline__ T w_z(int i, int j, int k) const { return w(i, j, k); }
-  // a: the staged box of the advected tracer
-  __device__ __forceinline__ T c(const T* a, int i, int j, int k) const { return a[at_c(i, j, k)]; }
-  __device__ __forceinline__ T c_z(const T* a, int i, int j, int k) const { return c(a, i, j, k); }
+  // the box of velocity component d (0 u, 1 v, 2 w), chosen by selects:
+  // indexing vel by a runtime d would put the whole struct in local memory
+  __device__ __forceinline__ const T* box(int d) const {
+    return d == 0 ? vel[0] : d == 1 ? vel[1] : vel[2];
+  }
 };
 
-// A read policy with the scalars every stencil takes.
-template <typename T, typename S, typename R>
+// The scalars every stencil takes, with the coefficient table of a kernel
+// of buffer K and family F (kCentered, kUpwind or kWeno), both compile-time
+// choices.
+template <int K, int F, typename T, typename S>
 struct Stencil {
-  R rd;
+  static constexpr int fam = F;
   T Ax, Ay, Az, V;   // face areas and cell volume (regular grid)
-  Tab<T> tt;         // stencil coefficients in the field type
-  Tab<S> ts;         // smoothness factors, weights, ε, saturation
+  int Nz;            // the bounded z's cells (the cascade)
+  Tabs<K, F == kWeno, T, S> tab;
 };
-
-// ---- bounded-z interpolation and reconstruction ----------------------------------
-
-// Symmetric interpolation along z at index kk; `a(kz)` reads A·q at absolute
-// z index kz. WENO(5) cascades Centered(4) → Centered(2) outside [3-β, N-3].
-template <int SCH, typename T, typename S, typename R, typename Read>
-__device__ __forceinline__ T interp_z(const Stencil<T, S, R>& P, int kk, int beta, Read a) {
-  if constexpr (SCH == kWeno5) {
-    if (kk >= 3 - beta && kk <= P.rd.g.Nz - 3)
-      return P.tt.c4[0] * a(kk + beta - 2) + P.tt.c4[1] * a(kk + beta - 1)
-           + P.tt.c4[2] * a(kk + beta) + P.tt.c4[3] * a(kk + beta + 1);
-  }
-  return P.tt.c2[0] * a(kk + beta - 1) + P.tt.c2[1] * a(kk + beta);
-}
-
-// Upwind reconstruction along z at index kk; `q(kz)` reads at absolute z
-// index kz. WENO(5): WENO-5 on [3-β, N-3], WENO-3 on [2-β, N-2],
-// UpwindBiased(1) elsewhere.
-template <int SCH, typename T, typename S, typename R, typename Read>
-__device__ __forceinline__ T recon_z(const Stencil<T, S, R>& P, int kk, int beta, T vel,
-                                     Read q) {
-  const bool pos = vel > T(0);
-  if constexpr (SCH == kCentered2) {
-    return centered2(P.tt, pos, q(kk + beta - 1), q(kk + beta));
-  } else {
-    const int N = P.rd.g.Nz;
-    T c[5];
-    if (kk >= 3 - beta && kk <= N - 3) {
-#pragma unroll
-      for (int n = 0; n < 5; ++n) c[n] = pos ? q(kk + beta - 3 + n) : q(kk + beta + 2 - n);
-      return weno5(c, P.tt, P.ts);
-    }
-    if (kk >= 2 - beta && kk <= N - 2) {
-#pragma unroll
-      for (int n = 1; n < 4; ++n) c[n] = pos ? q(kk + beta - 3 + n) : q(kk + beta + 2 - n);
-      return weno3(c + 1, P.tt, P.ts);
-    }
-    return pos ? q(kk + beta - 1) : q(kk + beta);
-  }
-}
 
 // ---- face fluxes, each once ---------------------------------------------------------
 //
 // The flux of -∇·(𝐯q) through one face, for component `comp` (0 u, 1 v, 2 w, 3
-// and up the tracer whose values `a` points to, read as r.c(a, ...)). P
-// gives the metrics, the tables and Nz; Q the reads. Positions are padded x,
-// padded y and the z index of the face or centre the flux goes through:
+// and up the tracer whose box `a` points to). P gives the metrics and the
+// table; r the staged boxes. Positions are padded x, padded y and the z
+// index of the face or centre the flux goes through:
 //   x: u at the centre i, v at the (f, f, c) face i, w at the (f, c, f) face
 //      i, a tracer at the face i;
 //   y: u at the (f, f, c) face j, v at the centre j, w at the (c, f, f)
@@ -234,63 +191,92 @@ __device__ __forceinline__ T recon_z(const Stencil<T, S, R>& P, int kk, int beta
 //   z: u at the (f, c, f) face k, v at the (c, f, f) face k, w at the
 //      centre k, a tracer at the face k; zero through the top wall (k = Nz)
 //      and, for w, below the bottom face (k < 0).
-template <int SCH, typename T, typename S, typename R, typename Q>
-__device__ __forceinline__ T face_flux_x(const Stencil<T, S, R>& P, const Q& r, int comp,
-                                         const T* a, int i, int j, int k) {
-  if (comp == 0) {
-    const T ut = symmetric<SCH>(P.tt, 1, [&](int o) { return P.Ax * r.u(i + o, j, k); });
-    return ut * upwind<SCH>(P.tt, P.ts, 1, ut, [&](int o) { return r.u(i + o, j, k); });
-  }
-  if (comp == 1) {
-    const T ut = symmetric<SCH>(P.tt, 0, [&](int o) { return P.Ax * r.u(i, j + o, k); });
-    return ut * upwind<SCH>(P.tt, P.ts, 0, ut, [&](int o) { return r.v(i + o, j, k); });
-  }
-  if (comp == 2) {
-    const T ut = interp_z<SCH>(P, k, 0, [&](int kz) { return P.Ax * r.u_z(i, j, kz); });
-    return ut * upwind<SCH>(P.tt, P.ts, 0, ut, [&](int o) { return r.w(i + o, j, k); });
-  }
-  const T vel = r.u(i, j, k);
-  return (P.Ax * vel) * upwind<SCH>(P.tt, P.ts, 0, vel, [&](int o) { return r.c(a, i + o, j, k); });
+// The advecting velocity is the scheme's interpolation of A·u (A·v, A·w)
+// along x or y (periodic: the scheme's own buffer) or along z (the cascade
+// on the z index), or, for a tracer, the face velocity; the advected value
+// is the reconstruction along the flux's axis, selected by its sign.
+
+// A line of a staged box at stride st, through the point at `at`, counted
+// from the reconstruction's orientation β: q(o) reads offset β + o, so that
+// the reconstructions take β = 0 and their offsets are compile-time
+// constants.
+template <typename T>
+struct Line {
+  const T* p;
+  int st;
+  __device__ __forceinline__ Line(const T* at, int st_, int beta)
+      : p(at + beta * st_), st(st_) {}
+  __device__ __forceinline__ T operator()(int o) const { return p[o * st]; }
+};
+
+// The advecting velocity interpolated along z at index kk (the cascade on
+// kk with orientation β) from A times the line through w0.
+template <int K, int F, typename T, typename S>
+__device__ __forceinline__ T interp_z(const Stencil<K, F, T, S>& P, int kk, int beta, T A,
+                                      const T* w0) {
+  const Line<T> l(w0, 1, beta);
+  return symmetric_level<K>(cascade_level(K, kk, beta, P.Nz), P.fam, P.tab, 0,
+                            [&](int o) { return A * l(o); });
 }
 
-template <int SCH, typename T, typename S, typename R, typename Q>
-__device__ __forceinline__ T face_flux_y(const Stencil<T, S, R>& P, const Q& r, int comp,
-                                         const T* a, int i, int j, int k) {
-  if (comp == 0) {
-    const T vt = symmetric<SCH>(P.tt, 0, [&](int o) { return P.Ay * r.v(i + o, j, k); });
-    return vt * upwind<SCH>(P.tt, P.ts, 0, vt, [&](int o) { return r.u(i, j + o, k); });
-  }
-  if (comp == 1) {
-    const T vt = symmetric<SCH>(P.tt, 1, [&](int o) { return P.Ay * r.v(i, j + o, k); });
-    return vt * upwind<SCH>(P.tt, P.ts, 1, vt, [&](int o) { return r.v(i, j + o, k); });
-  }
-  if (comp == 2) {
-    const T vt = interp_z<SCH>(P, k, 0, [&](int kz) { return P.Ay * r.v_z(i, j, kz); });
-    return vt * upwind<SCH>(P.tt, P.ts, 0, vt, [&](int o) { return r.w(i, j + o, k); });
-  }
-  const T vel = r.v(i, j, k);
-  return (P.Ay * vel) * upwind<SCH>(P.tt, P.ts, 0, vel, [&](int o) { return r.c(a, i, j + o, k); });
+// The advecting velocity interpolated along x (comp 0's β = 1) or y from A
+// times the line through v0, for momentum component comp along the flux's
+// axis `along` (0 x, 1 y).
+template <int K, int F, typename T, typename S, typename Q>
+__device__ __forceinline__ T interp_xy(const Stencil<K, F, T, S>& P, const Q& r, int along,
+                                       int beta, T A, const T* v0) {
+  const Line<T> l(v0, along == 0 ? r.sx : r.sy, beta);
+  return symmetric<K>(P.fam, P.tab, 0, [&](int o) { return A * l(o); });
 }
 
-template <int SCH, typename T, typename S, typename R, typename Q>
-__device__ __forceinline__ T face_flux_z(const Stencil<T, S, R>& P, const Q& r, int comp,
+template <int K, int F, typename T, typename S, typename Q>
+__device__ __forceinline__ T face_flux_x(const Stencil<K, F, T, S>& P, const Q& r, int comp,
                                          const T* a, int i, int j, int k) {
-  if (comp == 2) {
-    if (Q::kWalls && k < 0) return T(0);
-    const T wt = interp_z<SCH>(P, k, 1, [&](int kz) { return P.Az * r.w_z(i, j, kz); });
-    return wt * recon_z<SCH>(P, k, 1, wt, [&](int kz) { return r.w_z(i, j, kz); });
+  const int at = r.at(i, j, k);
+  if (comp >= 3) {
+    const T vel = r.vel[0][at];
+    const Line<T> q(a + r.at_c(i, j, k), r.csx, 0);
+    return (P.Ax * vel) * biased<K>(P.fam, P.tab, 0, vel > T(0), q);
   }
-  if (Q::kWalls && k == P.rd.g.Nz) return T(0);
-  if (comp == 0) {
-    const T wt = symmetric<SCH>(P.tt, 0, [&](int o) { return P.Az * r.w(i + o, j, k); });
-    return wt * recon_z<SCH>(P, k, 0, wt, [&](int kz) { return r.u_z(i, j, kz); });
+  const T* u0 = r.vel[0] + at;
+  const T adv = comp == 2 ? interp_z(P, k, 0, P.Ax, u0)
+                          : interp_xy(P, r, comp, comp == 0 ? 1 : 0, P.Ax, u0);
+  const Line<T> q(r.box(comp) + at, r.sx, comp == 0 ? 1 : 0);
+  return adv * biased<K>(P.fam, P.tab, 0, adv > T(0), q);
+}
+
+template <int K, int F, typename T, typename S, typename Q>
+__device__ __forceinline__ T face_flux_y(const Stencil<K, F, T, S>& P, const Q& r, int comp,
+                                         const T* a, int i, int j, int k) {
+  const int at = r.at(i, j, k);
+  if (comp >= 3) {
+    const T vel = r.vel[1][at];
+    const Line<T> q(a + r.at_c(i, j, k), r.csy, 0);
+    return (P.Ay * vel) * biased<K>(P.fam, P.tab, 0, vel > T(0), q);
   }
-  if (comp == 1) {
-    const T wt = symmetric<SCH>(P.tt, 0, [&](int o) { return P.Az * r.w(i, j + o, k); });
-    return wt * recon_z<SCH>(P, k, 0, wt, [&](int kz) { return r.v_z(i, j, kz); });
+  const T* v0 = r.vel[1] + at;
+  const T adv = comp == 2 ? interp_z(P, k, 0, P.Ay, v0)
+                          : interp_xy(P, r, comp, comp == 1 ? 1 : 0, P.Ay, v0);
+  const Line<T> q(r.box(comp) + at, r.sy, comp == 1 ? 1 : 0);
+  return adv * biased<K>(P.fam, P.tab, 0, adv > T(0), q);
+}
+
+template <int K, int F, typename T, typename S, typename Q>
+__device__ __forceinline__ T face_flux_z(const Stencil<K, F, T, S>& P, const Q& r, int comp,
+                                         const T* a, int i, int j, int k) {
+  if (Q::kWalls && (comp == 2 ? k < 0 : k == P.Nz)) return T(0);
+  const int at = r.at(i, j, k);
+  if (comp >= 3) {
+    const T vel = r.vel[2][at];
+    const Line<T> q(a + r.at_c(i, j, k), 1, 0);
+    return (P.Az * vel) *
+           biased_level<K>(cascade_level(K, k, 0, P.Nz), P.fam, P.tab, 0, vel > T(0), q);
   }
-  const T vel = r.w(i, j, k);
-  return (P.Az * vel) * recon_z<SCH>(P, k, 0, vel, [&](int kz) { return r.c_z(a, i, j, kz); });
+  const T* w0 = r.vel[2] + at;
+  const T adv = comp == 2 ? interp_z(P, k, 1, P.Az, w0) : interp_xy(P, r, comp, 0, P.Az, w0);
+  const int beta = comp == 2 ? 1 : 0;
+  const Line<T> q(r.box(comp) + at, 1, beta);
+  return adv * biased_level<K>(cascade_level(K, k, beta, P.Nz), P.fam, P.tab, 0, adv > T(0), q);
 }
 
 // Components one launch takes (kernels/build.py BATCH): the

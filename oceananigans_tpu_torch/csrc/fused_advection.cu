@@ -1,459 +1,46 @@
-// Flux-form advection of momentum and tracers, z-compact or padded, as
-// shared-memory tiles: the RK3 stage update (#1) and the tendency alone
-// (#6), one kernel template whose epilogue (kUpdate) and staging read policy
-// (R) are compile-time choices, so that every face flux of both goes through
-// one code path.
-//
-// #1 replaces oceananigans_tpu/kernels/fused_advection.py
-// _build_update_group (:269, via build_fused_advection_update; the
-// pallas_call at :626), momentum and tracer groups alike, in the z-compact
-// layout:
-//
-//   G   = -∇·(𝐯 q)                          for q = u, v, w and each tracer
-//   new = q + γΔt·G + ζΔt·G⁻                 (ζΔt·G⁻ only when G⁻ is given)
-//
-// With a pressure p (the deferred correction of the previous RK3 stage), u,
-// v and w are corrected, q = q* − Δt_prev·∂p (w's bottom face pinned to 0),
-// and G is the tendency of the corrected fields; the tracers are advected by
-// the corrected velocities and are never corrected themselves. `new` adds the
-// increment to the UNCORRECTED q*, exactly as the TPU kernel does (the
-// carried correction ends up in the next solve's pressure, and the last
-// stage's projection removes it).
-//
-// #6 replaces build_fused_advection (:149, the pallas_call at :232), the
-// tendency the model runs when other tendencies (buoyancy, closure, boundary
-// fluxes) are added to G before the stage update: G = -∇·(𝐯q) for u, v, w
-// and each tracer, written straight to the (components, Nx, Ny, Nz) output,
-// with no stage update, no G⁻ and no periodic images. Two layouts, selected
-// by Hz as the TPU kernel selects them (:166): padded (Hz >= the reach;
-// halos filled beforehand, z included, read as they are: PaddedRead) or
-// z-compact (Hz = 0: the z mirrors and zero boundary-face fluxes of
-// CompactRead, uncorrected). #7 runs #6 once per shard.
-//
-// The stencils (advection_stencils.cuh face_flux_x/y/z) and the near-wall
-// order cascade on the global z index; schemes WENO(5) and Centered(2).
-//
-// Bound: over u, v, w alone, arithmetic: about 370 floating-point operations
-// per component and cell (each face flux once), 0.28 ms at 256³ against the
-// datasheet's 67 Tflop/s, about 0.85 ms at the card's own rate for the WENO-5
-// body with exact divisions (22.7 Tflop/s, the #12 probe on a slab that
-// fills every SM); against 16 B per component of compulsory traffic in
-// float32 for #1 (read q, write G and new, read G⁻), 8 B for #6 (read q,
-// write G). With tracers the bytes bind #1 (1.26 ms for 15 components at
-// 256³). No tensor cores: the WENO weights are nonlinear in the data, and
-// nothing here is a product wgmma could take.
-//
-// Design: one block owns a TX × TY × TZ tile of interior cells (z fastest
-// across threads; a ragged edge is masked, Nz need not be a multiple of TZ)
-// and works through it in phases separated by __syncthreads() (tiles.cuh):
-//   staging     u, v and w over the tile plus the stencil's reach (3 cells
-//               each way for WENO(5)), each value formed once by the read
-//               policy's `staged`: for #1 the deferred correction, w's
-//               pinned bottom face, the even and odd z mirrors and, with
-//               bfloat16 smoothness, the rounded correction (kRn); for the
-//               padded #6 a rectangular window of the filled arrays. Each
-//               stencil read is then one shared-memory load; loads through
-//               registers, kInFlight in flight a thread;
-//   components  u, v, w, then the tracers of the launch, with the velocity
-//               boxes resident throughout. A tracer's box is copied by
-//               cp.async into one of two buffers while the block works on
-//               the component before it, so its loads wait behind
-//               arithmetic; then (#1) the update's device-memory reads (G⁻,
-//               and q* of u, v, w; a tracer's q is in its box) are issued
-//               into registers, each face flux is formed once on each axis
-//               into shared memory (face_flux_x/y/z through SharedRead), and
-//               per cell the differences give G, and for #1 `new` with its
-//               periodic x/y images (store_with_images, in place of the TPU
-//               kernel's strip DMAs).
-// No TMA: a compact box is a strided window with mirrored z rows, not a
-// rectangle of the array, and a padded box's rows (Nz + 2Hz = 262 values at
-// 256³) are not 16-byte aligned. Every face flux goes through one code path
-// wherever it lies in the tile, so #7's shards, whose tiles fall unlike the
-// serial grid's, give the serial result bit for bit; the loops walk their
-// items with carries, no division. The tile, the block count and the
-// dynamic shared memory come from kernels/fused_advection.py launch_plan;
-// the C entries recompute and check them. At float32 a 16 × 8 × 8 tile with
-// 256 threads takes 104.7 KB of shared memory with tracers (two blocks an
-// SM) and 65.3 KB without (three); float64 takes 8 × 8 × 8 (129.9 KB).
-// Registers and spills: `-Xptxas -v` (chip_smoke.py prints them). Divisions
-// are exact `/`.
-//
-// A launch covers a batch of components of (u, v, w, tracers...) (at most
-// kBatch, their pointers in the parameter block); the wrapper launches once
-// per batch. The TPU kernel's groups (momentum, then tracers in batches of
-// 4) are a VMEM workaround; every component's result depends only on its own
-// field and u, v, w, p, so the batching does not change a bit of it.
-#include "advection_stencils.cuh"
-#include "tiles.cuh"
+// The C entries of the flux-form advection kernels #1 (the RK3 stage
+// update) and #6 (the tendency alone): each picks the instantiations of the
+// scheme's buffer K (advection_k1.cu .. advection_k6.cu, the kernel template
+// and its design in advection_kernel.cuh).
+#include "advection_kernel.cuh"
 
 namespace {
 
-using oc::kBatch;
-using oc::kCentered2;
-using oc::kTabSize;
-using oc::kWeno5;
-
-constexpr int kThreads = 256;  // the most threads a block takes
-constexpr int kInFlight = 4;   // staging loads in flight a thread
-constexpr int kCells = 4;      // cells a thread updates from registers read ahead
-
-// the stencil's reach: cells a face flux reads on either side
-template <int SCH>
-constexpr int kReach = SCH == kWeno5 ? 3 : 1;
-
-// Blocks an SM should hold, which caps a thread's registers: Centered(2)'s
-// small boxes let three share an SM; WENO(5) takes two (128 registers; at
-// float64 the shared memory allows only one). Without a cap ptxas gives
-// the bf16-smoothness instantiations 146-158 registers and one block an SM.
-template <int SCH>
-constexpr int kMinBlocks = SCH == kCentered2 ? 3 : 2;
-
-// The read policy of #1's staging: bfloat16 smoothness rounds the correction
-// as the plain version does (CompactRead's kRn).
-template <typename T, typename S, bool C>
-using Read = oc::CompactRead<T, C, std::is_same<S, oc::bf16>::value>;
-
-// A tracer box spans z0 - kTracerZ .. z0 + TZ + kTracerZ - 1 (the reach, at
-// most 3, rounded up to 16 bytes of float32), so that away from the walls
-// its rows are 16-byte aligned copies of the tracer's z columns.
-constexpr int kTracerZ = 4;
-
-// Element offsets of a block's shared arrays for a TX × TY × TZ tile and a
-// stencil reach r; kernels/fused_advection.py smem_bytes computes the same
-// total.
-struct Layout {
-  int sx, sy;            // velocity box strides: (TY + 2r)(TZ + 2r), TZ + 2r
-  int csx, csy;          // tracer box strides: (TY + 2r)(TZ + 2 kTracerZ), TZ + 2 kTracerZ
-  int vel[3], c[2];      // boxes: u, v, w over (TX + 2r)(TY + 2r)(TZ + 2r), two tracers
-  int fx, fy, fz;        // fluxes (TX + 1)·TY·TZ, TX·(TY + 1)·TZ, TX·TY·(TZ + 1)
-  int total;
-
-  __host__ __device__ Layout(int TX, int TY, int TZ, int r, bool tracers) {
-    sy = TZ + 2 * r;
-    sx = (TY + 2 * r) * sy;
-    csy = TZ + 2 * kTracerZ;
-    csx = (TY + 2 * r) * csy;
-    const int box = oc::align_elems((TX + 2 * r) * sx);
-    const int cbox = oc::align_elems((TX + 2 * r) * csx);
-    int o = 0;
-    for (int d = 0; d < 3; ++d) {
-      vel[d] = o;
-      o += box;
-    }
-    for (int d = 0; d < 2; ++d) {
-      c[d] = o;
-      if (tracers) o += cbox;
-    }
-    fx = o; o += oc::align_elems((TX + 1) * TY * TZ);
-    fy = o; o += oc::align_elems(TX * (TY + 1) * TZ);
-    fz = o; o += oc::align_elems(TX * TY * (TZ + 1));
-    total = o;
-  }
-};
-
-template <typename T, typename S, typename R>
-struct Params {
-  oc::Stencil<T, S, R> st;   // u, v, w (#1: u*, v*, w*, p, Δt_prev/Δ): the staging reads
-  const T* q[kBatch];    // the batch's fields (padded; #1: uncorrected q*)
-  const T* gm[kBatch];   // #1: previous-stage tendencies (interior), or null
-  T* G[kBatch];          // tendencies out (interior)
-  T* out[kBatch];        // #1: new fields out (padded, periodic halos written)
-  int nb, first;         // components first .. first + nb - 1: 0 u, 1 v, 2 w, 3+ tracers
-  T gdt, zdt;            // #1: γΔt, ζΔt
-  int TX, TY, TZ;        // the tile
-  int tiles_y, tiles_z;  // tiles along y and z
-};
-
-// kUpdate: #1 (the stage update) or #6 (the tendency); R: the staging's read
-// policy (CompactRead, or PaddedRead for the padded #6).
-template <int SCH, typename T, typename S, typename R, bool kUpdate>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<SCH>)
-advection_kernel(const __grid_constant__ Params<T, S, R> P) {
-  constexpr int r = kReach<SCH>;
-  extern __shared__ __align__(16) unsigned char oc_smem[];
-  T* const sm = reinterpret_cast<T*>(oc_smem);
-  const int last = P.first + P.nb;
-  const int first_tracer = P.first > 3 ? P.first : 3;
-  const Layout L(P.TX, P.TY, P.TZ, r, last > 3);
-  const R& rd = P.st.rd;
-  const oc::Geom& g = rd.g;
-  const int TY = P.TY, TZ = P.TZ;
-  int t = blockIdx.x;
-  const int bz = t % P.tiles_z;
-  t /= P.tiles_z;
-  const int by = t % P.tiles_y, bx = t / P.tiles_y;
-  const int x0 = bx * P.TX, y0 = by * TY, z0 = bz * TZ;   // the tile's first interior cell
-  const int ex = oc::imin(P.TX, g.Nx - x0), ey = oc::imin(TY, g.Ny - y0),
-            ez = oc::imin(TZ, g.Nz - z0);
-  const int i0 = x0 + g.Hx, j0 = y0 + g.Hy;               // padded
-  const oc::SharedRead<T, R::kWalls> sr{{sm + L.vel[0], sm + L.vel[1], sm + L.vel[2]},
-                                        i0 - r, j0 - r, z0 - r, L.sx, L.sy,
-                                        z0 - kTracerZ, L.csx, L.csy};
-  const int wy = ey + 2 * r, wz = ez + 2 * r, nbox = (ex + 2 * r) * wy * wz;
-
-  // a tracer's box, two of them in turn: copies in flight (cp.async) while
-  // the block works on the component before. Where the box's z rows are
-  // read in place and 16-byte aligned, a row is TZ + 2·kTracerZ values of
-  // one z column, copied 16 bytes at a time; elsewhere (by the compact
-  // layout's walls, in a ragged z tile, in the padded layout) one value at a
-  // time through the read policy, a slot it maps to no value (a mirror
-  // outside [0, Nz) when Nz is below the reach, or a z outside the padded
-  // array; never read) holding 0.
-  constexpr int V = 16 / (int)sizeof(T);
-  const int cw = TZ + 2 * kTracerZ;   // a tracer row
-  auto tracer_box = [&](int comp) { return sm + L.c[(comp - first_tracer) & 1]; };
-  auto stage_tracer = [&](int comp) {
-    const T* const q = P.q[comp - P.first];
-    T* const box = tracer_box(comp);
-    const bool rows = rd.in_place(z0 - kTracerZ, z0 + TZ + kTracerZ) && g.PZ() % V == 0 &&
-                      cw % V == 0 && L.csy % V == 0 &&
-                      (uintptr_t)(q + rd.at_z(i0 - r, j0 - r, z0 - kTracerZ)) % 16 == 0;
-    if (rows) {
-      oc::for_box((ex + 2 * r) * wy * (cw / V), wy, cw / V, [&](int a, int b, int v) {
-        const T* src = q + rd.at_z(i0 - r + a, j0 - r + b, z0 - kTracerZ + v * V);
-        oc::copy_async16(box + a * L.csx + b * L.csy + v * V, src);
-      });
-    } else {
-      oc::for_box((ex + 2 * r) * wy * cw, wy, cw, [&](int a, int b, int c) {
-        T* const dst = box + a * L.csx + b * L.csy + c;
-        const long long at = rd.tracer_at(i0 - r + a, j0 - r + b, z0 - kTracerZ + c);
-        if (at < 0)
-          *dst = T(0);
-        else
-          oc::copy_async(dst, q + at);
-      });
-    }
-    oc::copy_async_commit();
-  };
-  if (first_tracer < last) stage_tracer(first_tracer);
-
-  // staging: u, v, w over the tile plus the reach, through the read policy
-  for (int d = 0; d < 3; ++d)
-    oc::stage_box<kInFlight>(sm + L.vel[d], nbox, wy, wz, [&](int a, int b, int c, int& at) {
-      at = a * L.sx + b * L.sy + c;
-      return rd.staged(d, i0 - r + a, j0 - r + b, z0 - r + c);
-    });
-  __syncthreads();
-
-  T *Fx = sm + L.fx, *Fy = sm + L.fy, *Fz = sm + L.fz;
-  const int ncell = ex * ey * ez;
-  for (int comp = P.first; comp < last; ++comp) {
-    const int bi = comp - P.first;
-    if (comp > P.first) __syncthreads();   // the previous component's reads are done
-    const T* box = nullptr;
-    if (comp >= 3) {
-      if (comp + 1 < last) {
-        stage_tracer(comp + 1);
-        oc::copy_async_wait<1>();
-      } else {
-        oc::copy_async_wait<0>();
-      }
-      __syncthreads();
-      box = tracer_box(comp);
-    }
-    auto cell = [&](int a, int b, int c) {
-      return ((long long)(x0 + a) * g.Ny + (y0 + b)) * g.Nz + (z0 + c);
-    };
-    // #1: the update's device-memory reads (G⁻; q* of u, v, w), issued
-    // ahead of the fluxes for the first kCells cells of this thread
-    const T* const gm = P.gm[bi];
-    auto q_of = [&](int a, int b, int c) {
-      return comp < 3 ? P.q[bi][g.at(i0 + a, j0 + b, z0 + c)]
-                      : box[(a + r) * L.csx + (b + r) * L.csy + (c + kTracerZ)];
-    };
-    const oc::Walk w0(threadIdx.x, ey, ez);
-    T gv[kCells], qv[kCells];
-    if constexpr (kUpdate) {
-      oc::Walk w = w0;
-#pragma unroll
-      for (int u = 0; u < kCells; ++u, w.next()) {
-        if ((int)threadIdx.x + u * (int)blockDim.x < ncell) {
-          gv[u] = gm != nullptr ? gm[cell(w.a, w.b, w.c)] : T(0);
-          qv[u] = comp < 3 ? q_of(w.a, w.b, w.c) : T(0);
-        }
-      }
-    }
-    // each face flux once; u's x-, v's y- and w's z-fluxes sit at centres
-    const int cx = comp == 0, cy = comp == 1, cz = comp == 2;
-    oc::for_box((ex + 1) * ey * ez, ey, ez, [&](int a, int b, int c) {
-      Fx[(a * TY + b) * TZ + c] =
-          oc::face_flux_x<SCH>(P.st, sr, comp, box, i0 + a - cx, j0 + b, z0 + c);
-    });
-    oc::for_box(ex * (ey + 1) * ez, ey + 1, ez, [&](int a, int b, int c) {
-      Fy[(a * (TY + 1) + b) * TZ + c] =
-          oc::face_flux_y<SCH>(P.st, sr, comp, box, i0 + a, j0 + b - cy, z0 + c);
-    });
-    oc::for_box(ex * ey * (ez + 1), ey, ez + 1, [&](int a, int b, int c) {
-      Fz[(a * TY + b) * (TZ + 1) + c] =
-          oc::face_flux_z<SCH>(P.st, sr, comp, box, i0 + a, j0 + b, z0 + c - cz);
-    });
-    __syncthreads();
-    // per cell: the differences, G (and #1's stage update)
-    auto tendency = [&](int a, int b, int c) {
-      const T tx = Fx[((a + 1) * TY + b) * TZ + c] - Fx[(a * TY + b) * TZ + c];
-      const T ty = Fy[(a * (TY + 1) + b + 1) * TZ + c] - Fy[(a * (TY + 1) + b) * TZ + c];
-      const T tz = Fz[(a * TY + b) * (TZ + 1) + c + 1] - Fz[(a * TY + b) * (TZ + 1) + c];
-      const T G = -(((tx + ty) + tz) / P.st.V);
-      P.G[bi][cell(a, b, c)] = G;
-      return G;
-    };
-    if constexpr (kUpdate) {
-      auto update = [&](int a, int b, int c, T gmv, T q) {
-        T inc = P.gdt * tendency(a, b, c);
-        if (gm != nullptr) inc = inc + P.zdt * gmv;
-        oc::store_with_images(P.out[bi], g, x0 + a, y0 + b, z0 + c, q + inc);
-      };
-      oc::Walk w = w0;
-      int m = threadIdx.x;
-#pragma unroll
-      for (int u = 0; u < kCells; ++u, m += blockDim.x, w.next())
-        if (m < ncell) update(w.a, w.b, w.c, gv[u], comp < 3 ? qv[u] : q_of(w.a, w.b, w.c));
-      for (; m < ncell; m += blockDim.x, w.next())   // cells past kCells a thread
-        update(w.a, w.b, w.c, gm != nullptr ? gm[cell(w.a, w.b, w.c)] : T(0),
-               q_of(w.a, w.b, w.c));
-    } else {
-      oc::for_box(ncell, ey, ez, [&](int a, int b, int c) { tendency(a, b, c); });
-    }
+int by_buffer(int K, bool update, int fam, int dtype, int sdtype, const oc::AdvectionArgs& a) {
+  switch (K) {
+    case 1: return oc::advection_k1(update, fam, dtype, sdtype, a);
+    case 2: return oc::advection_k2(update, fam, dtype, sdtype, a);
+    case 3: return oc::advection_k3(update, fam, dtype, sdtype, a);
+    case 4: return oc::advection_k4(update, fam, dtype, sdtype, a);
+    case 5: return oc::advection_k5(update, fam, dtype, sdtype, a);
+    case 6: return oc::advection_k6(update, fam, dtype, sdtype, a);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
-struct Args {
-  const void* const* vel;   // u, v, w (#1: u*, v*, w*)
-  const void* p;            // #1: the pressure, or null
-  const void* const* q;
-  const void* const* gm;
-  void* const* G;
-  void* const* out;
-  int nb, first;
-  oc::Geom g;
-  double gdt, zdt, cdt, Ax, Ay, Az, V, inv_dx, inv_dy, inv_dz;
-  const double* coefs;
-  int TX, TY, TZ, threads, blocks, smem;   // the launch plan
-  cudaStream_t stream;
-  int* per_sm;   // non-null: report the blocks an SM holds instead of launching
-};
-
-// Check the launch plan against the tile's layout and the halos, then
-// launch the instantiation (or report its blocks per SM).
-template <int SCH, typename T, typename S, typename R, bool kUpdate>
-int launch_with(const Args& a, R rd) {
-  constexpr int r = kReach<SCH>;
-  const int tiles_y = oc::ceil_div(a.g.Ny, a.TY), tiles_z = oc::ceil_div(a.g.Nz, a.TZ);
-  const long long want =
-      (long long)Layout(a.TX, a.TY, a.TZ, r, a.first + a.nb > 3).total * sizeof(T);
-  const int req = r + (kUpdate && a.p != nullptr ? 1 : 0);
-  if (a.smem != want || a.smem > oc::kMaxSmemBytes || a.g.Hx < req || a.g.Hy < req ||
-      (!R::kWalls && a.g.Hz < r) || a.TX * a.TY * a.TZ > kCells * a.threads ||
-      a.blocks != oc::ceil_div(a.g.Nx, a.TX) * tiles_y * tiles_z)
-    return (int)cudaErrorInvalidValue;
-  auto* kernel = advection_kernel<SCH, T, S, R, kUpdate>;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
-  if (e != cudaSuccess) return (int)e;
-  if (a.per_sm != nullptr)
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.per_sm, kernel, a.threads,
-                                                              a.smem);
-  Params<T, S, R> P;
-  for (int d = 0; d < 3; ++d) rd.vel[d] = (const T*)a.vel[d];
-  rd.g = a.g;
-  P.st.rd = rd;
-  P.st.Ax = (T)a.Ax;
-  P.st.Ay = (T)a.Ay;
-  P.st.Az = (T)a.Az;
-  P.st.V = (T)a.V;
-  P.st.tt = oc::make_tab<T>(a.coefs);
-  P.st.ts = oc::make_tab<S>(a.coefs);
-  for (int c = 0; c < kBatch; ++c) {
-    const bool on = c < a.nb;
-    P.q[c] = on ? (const T*)a.q[c] : nullptr;
-    P.gm[c] = on && a.gm != nullptr ? (const T*)a.gm[c] : nullptr;
-    P.G[c] = on ? (T*)a.G[c] : nullptr;
-    P.out[c] = on && a.out != nullptr ? (T*)a.out[c] : nullptr;
-  }
-  P.nb = a.nb;
-  P.first = a.first;
-  P.gdt = (T)a.gdt;
-  P.zdt = (T)a.zdt;
-  P.TX = a.TX;
-  P.TY = a.TY;
-  P.TZ = a.TZ;
-  P.tiles_y = tiles_y;
-  P.tiles_z = tiles_z;
-  kernel<<<a.blocks, a.threads, a.smem, a.stream>>>(P);
-  return (int)cudaGetLastError();
-}
-
-// #1: the corrected variant when a pressure is given.
-template <int SCH, typename T, typename S>
-int launch_update(const Args& a) {
-  if (a.p == nullptr) return launch_with<SCH, T, S, Read<T, S, false>, true>(a, {});
-  Read<T, S, true> rd{};
-  rd.p = (const T*)a.p;
-  const T c_dt = (T)a.cdt;
-  rd.cx = c_dt * (T)a.inv_dx;
-  rd.cy = c_dt * (T)a.inv_dy;
-  rd.cz = c_dt * (T)a.inv_dz;
-  return launch_with<SCH, T, S, Read<T, S, true>, true>(a, rd);
-}
-
-// #6: the layout follows Hz.
-template <int SCH, typename T, typename S>
-int launch_tendency(const Args& a) {
-  if (a.g.Hz == 0) return launch_with<SCH, T, S, oc::CompactRead<T, false>, false>(a, {});
-  return launch_with<SCH, T, S, oc::PaddedRead<T>, false>(a, {});
-}
-
-template <int SCH, bool kUpdate>
-int dispatch(int dtype, int sdtype, const Args& a) {
-  auto go = [&](auto t, auto s) {
-    using T = decltype(t);
-    using S = decltype(s);
-    if constexpr (kUpdate)
-      return launch_update<SCH, T, S>(a);
-    else
-      return launch_tendency<SCH, T, S>(a);
-  };
-  if constexpr (SCH == kCentered2) {   // no smoothness arithmetic
-    if (dtype == OC_FLOAT32) return go(float(), float());
-    if (dtype == OC_FLOAT64) return go(double(), double());
-  } else {
-    if (dtype == OC_FLOAT32 && sdtype == OC_FLOAT32) return go(float(), float());
-    if (dtype == OC_FLOAT32 && sdtype == OC_FLOAT64) return go(float(), double());
-    if (dtype == OC_FLOAT64 && sdtype == OC_FLOAT32) return go(double(), float());
-    if (dtype == OC_FLOAT64 && sdtype == OC_FLOAT64) return go(double(), double());
-    if (dtype == OC_FLOAT32 && sdtype == OC_BFLOAT16) return go(float(), oc::bf16());
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-template <bool kUpdate>
-int dispatch_scheme(int scheme, int dtype, int sdtype, const Args& a) {
-  if (a.nb < 1 || a.nb > kBatch || a.first < 0 || a.TX < 1 || a.TY < 1 || a.TZ < 1 ||
-      a.threads < 32 || a.threads > kThreads || a.threads % 32 != 0 || a.g.Hz < 0)
-    return (int)cudaErrorInvalidValue;
-  if (scheme == kWeno5) return dispatch<kWeno5, kUpdate>(dtype, sdtype, a);
-  if (scheme == kCentered2) return dispatch<kCentered2, kUpdate>(dtype, sdtype, a);
-  return (int)cudaErrorInvalidValue;
+bool table_ok(int K, int ncoefs) {
+  return K >= 1 && K <= oc::kMaxBuffer && ncoefs == oc::table_size(K);
 }
 
 }  // namespace
 
 extern "C" {
 
-// #1. scheme: 0 WENO(5), 1 Centered(2). dtype: OC_FLOAT32 or OC_FLOAT64 for
-// the fields; sdtype: OC_FLOAT32, OC_FLOAT64 or (with float32 fields)
-// OC_BFLOAT16 for the WENO smoothness arithmetic. vel: host array of the
-// u*, v*, w* device pointers; p: the padded pressure, or null for no
+// #1. fam: 0 Centered, 1 UpwindBiased, 2 WENO; K: the scheme's buffer (its
+// reach: Centered(2K), UpwindBiased(2K-1), WENO(2K-1)). dtype: OC_FLOAT32 or
+// OC_FLOAT64 for the fields; sdtype: OC_FLOAT32, OC_FLOAT64 or (with float32
+// fields) OC_BFLOAT16 for the WENO smoothness arithmetic. vel: host array of
+// the u*, v*, w* device pointers; p: the padded pressure, or null for no
 // correction. q, G, out: host arrays of the batch's nb device pointers
 // (components first .. first+nb-1 of u, v, w, tracers...); gm: such an array
 // of the previous stage's tendencies, or null on the first stage. Scalars
 // arrive as doubles holding field-dtype values; coefs is the host table of
-// Tab (kTabSize float64 values). TX, TY, TZ, threads, blocks, smem: the
-// launch plan of kernels/fused_advection.py launch_plan (the tile, the
-// threads a block, ceil(Nx/TX)·ceil(Ny/TY)·ceil(Nz/TZ) blocks and the
-// dynamic shared memory in bytes), refused unless they agree with the
-// tile's layout.
-int oc_fused_advection_update(int scheme, int dtype, int sdtype, const void* const* vel,
+// reconstruction.cuh (table_size(K) float64 values). TX, TY, TZ, threads,
+// blocks, smem: the launch plan of kernels/fused_advection.py launch_plan
+// (the tile, the threads a block, ceil(Nx/TX)·ceil(Ny/TY)·ceil(Nz/TZ) blocks
+// and the dynamic shared memory in bytes), refused unless they agree with
+// the tile's layout.
+int oc_fused_advection_update(int fam, int K, int dtype, int sdtype, const void* const* vel,
                               const void* p, const void* const* q,
                               const void* const* gm, void* const* G, void* const* out,
                               int nb, int first, int Nx, int Ny, int Nz, int Hx, int Hy,
@@ -462,42 +49,42 @@ int oc_fused_advection_update(int scheme, int dtype, int sdtype, const void* con
                               double inv_dz, const double* coefs, int ncoefs, int TX,
                               int TY, int TZ, int threads, int blocks, int smem,
                               void* stream) {
-  if (ncoefs != kTabSize) return (int)cudaErrorInvalidValue;
-  const Args a{vel, p, q, gm, G, out, nb, first, oc::Geom{Nx, Ny, Nz, Hx, Hy, 0},
-               gdt, zdt, cdt, Ax, Ay, Az, V, inv_dx, inv_dy, inv_dz, coefs,
-               TX, TY, TZ, threads, blocks, smem, (cudaStream_t)stream, nullptr};
-  return dispatch_scheme<true>(scheme, dtype, sdtype, a);
+  if (!table_ok(K, ncoefs)) return (int)cudaErrorInvalidValue;
+  const oc::AdvectionArgs a{vel, p, q, gm, G, out, nb, first, oc::Geom{Nx, Ny, Nz, Hx, Hy, 0},
+                            gdt, zdt, cdt, Ax, Ay, Az, V, inv_dx, inv_dy, inv_dz, coefs,
+                            TX, TY, TZ, threads, blocks, smem, (cudaStream_t)stream, nullptr};
+  return by_buffer(K, true, fam, dtype, sdtype, a);
 }
 
-// #6. scheme, dtype, sdtype, vel, coefs and the launch plan as
+// #6. fam, K, dtype, sdtype, vel, coefs and the launch plan as
 // oc_fused_advection_update's; q: host array of the batch's nb device
 // pointers, components first .. first+nb-1 of (u, v, w, tracers...); G: host
 // array of the nb interior-shaped outputs; Hz = 0 selects the z-compact
 // layout, Hz >= the reach the padded one.
-int oc_advection_tendency(int scheme, int dtype, int sdtype, const void* const* vel,
+int oc_advection_tendency(int fam, int K, int dtype, int sdtype, const void* const* vel,
                           const void* const* q, int nb, int first, void* const* G, int Nx,
                           int Ny, int Nz, int Hx, int Hy, int Hz, double Ax, double Ay,
                           double Az, double V, const double* coefs, int ncoefs, int TX,
                           int TY, int TZ, int threads, int blocks, int smem,
                           void* stream) {
-  if (ncoefs != kTabSize) return (int)cudaErrorInvalidValue;
-  const Args a{vel, nullptr, q, nullptr, G, nullptr, nb, first,
-               oc::Geom{Nx, Ny, Nz, Hx, Hy, Hz}, 0.0, 0.0, 0.0, Ax, Ay, Az, V, 0.0, 0.0,
-               0.0, coefs, TX, TY, TZ, threads, blocks, smem, (cudaStream_t)stream,
-               nullptr};
-  return dispatch_scheme<false>(scheme, dtype, sdtype, a);
+  if (!table_ok(K, ncoefs)) return (int)cudaErrorInvalidValue;
+  const oc::AdvectionArgs a{vel, nullptr, q, nullptr, G, nullptr, nb, first,
+                            oc::Geom{Nx, Ny, Nz, Hx, Hy, Hz}, 0.0, 0.0, 0.0, Ax, Ay, Az, V,
+                            0.0, 0.0, 0.0, coefs, TX, TY, TZ, threads, blocks, smem,
+                            (cudaStream_t)stream, nullptr};
+  return by_buffer(K, false, fam, dtype, sdtype, a);
 }
 
 // The blocks of the launch plan's shape that one SM holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *per_sm, for a
-// launch with or without tracers of kind 0 (#1 uncorrected), 1 (#1
-// corrected), 2 (#6 z-compact) or 3 (#6 padded).
-int oc_advection_blocks_per_sm(int scheme, int dtype, int sdtype, int kind, int tracers,
+// launch of scheme (fam, K) with or without tracers of kind 0 (#1
+// uncorrected), 1 (#1 corrected), 2 (#6 z-compact) or 3 (#6 padded).
+int oc_advection_blocks_per_sm(int fam, int K, int dtype, int sdtype, int kind, int tracers,
                                int TX, int TY, int TZ, int threads, int smem,
                                int* per_sm) {
-  const int H = (scheme == kWeno5 ? 3 : 1) + 1;
+  const int H = K + 1;
   static const char dummy = 0;   // a pressure for the corrected variant
-  Args a{};
+  oc::AdvectionArgs a{};
   a.p = kind == 1 ? &dummy : nullptr;
   a.nb = tracers ? 4 : 3;
   a.g = oc::Geom{TX, TY, TZ, H, H, kind == 3 ? H : 0};
@@ -508,8 +95,7 @@ int oc_advection_blocks_per_sm(int scheme, int dtype, int sdtype, int kind, int 
   a.blocks = 1;
   a.smem = smem;
   a.per_sm = per_sm;
-  return kind < 2 ? dispatch_scheme<true>(scheme, dtype, sdtype, a)
-                  : dispatch_scheme<false>(scheme, dtype, sdtype, a);
+  return by_buffer(K, kind < 2, fam, dtype, sdtype, a);
 }
 
 }  // extern "C"

@@ -63,6 +63,7 @@
 // entry recomputes and checks them. Registers and spills: `-Xptxas -v`
 // (chip_smoke.py prints them).
 #include "common.cuh"
+#include "reconstruction.cuh"
 #include "tiles.cuh"
 
 namespace {
@@ -98,9 +99,6 @@ __constant__ VITab<double> kTabD;
 template <typename R> __device__ __forceinline__ const VITab<R>& vtab();
 template <> __device__ __forceinline__ const VITab<float>& vtab<float>() { return kTabF; }
 template <> __device__ __forceinline__ const VITab<double>& vtab<double>() { return kTabD; }
-
-__device__ __forceinline__ float absval(float x) { return fabsf(x); }
-__device__ __forceinline__ double absval(double x) { return fabs(x); }
 
 // Element offsets of a block's shared arrays for a TX × TY × TZ tile and a
 // horizontal reach R; kernels/fused_vector_invariant.py smem_bytes computes
@@ -178,29 +176,23 @@ struct Params {
 // the line s1 + s2.
 enum Smooth { kSelf, kOne, kTwo, kSum };
 
-// β = Σ_m (Σ_j fac[m][j]·q(j))² in S over the K cells q(0 .. K-1).
+// β of stencil s in S over the K cells q(0 .. K-1) (reconstruction.cuh's
+// smoothness indicator, the factors from VITab).
 template <int K, typename S, typename Q>
 __device__ __forceinline__ S smoothness(int s, Q q) {
   const VITab<S>& ts = vtab<S>();
   S v[K];
 #pragma unroll
   for (int j = 0; j < K; ++j) v[j] = (S)q(j);
-  S beta = S(0);
-#pragma unroll
-  for (int m = 0; m < K; ++m) {
-    S lin = ts.fac[K - 2][s][m][0] * v[0];
-#pragma unroll
-    for (int j = 1; j < K; ++j) lin = lin + ts.fac[K - 2][s][m][j] * v[j];
-    beta = m == 0 ? lin * lin : beta + lin * lin;
-  }
-  return beta;
+  return oc::smoothness_indicator<K>([&](int m, int j) { return ts.fac[K - 2][s][m][j]; }, v);
 }
 
 // WENO of buffer K on the 2K-1 upwind-selected cells of the line through v
 // with stride st in a shared box (v at the reconstruction point), read in
 // place stencil by stencil: cell n of the left-biased orientation sits at
 // offset β-K+n when pos, β+K-1-n when not; the smoothness of the line
-// itself or of s1 (and s2, or s1 + s2) at the same offsets.
+// itself or of s1 (and s2, or s1 + s2) at the same offsets; the weights
+// reconstruction.cuh's WENO-Z.
 template <int K, typename T, typename S>
 __device__ __forceinline__ T weno_line(int beta, bool pos, const T* v, int st, int nsm,
                                        const T* s1, const T* s2) {
@@ -228,21 +220,8 @@ __device__ __forceinline__ T weno_line(int beta, bool pos, const T* v, int st, i
       b[s] = beta_s;
     }
   }
-  S tau = b[0];
-#pragma unroll
-  for (int s = 1; s < K; ++s)
-    if (ts.tau[K - 2][s] != S(0)) tau = tau + ts.tau[K - 2][s] * b[s];
-  tau = absval(tau);
-  T num = T(0), den = T(0);
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    S r = tau / (b[s] + ts.eps);
-    r = r > ts.rmax ? ts.rmax : r;
-    const T alpha = (T)(ts.gam[K - 2][s] * (S(1) + r * r));
-    num = num + alpha * p[s];
-    den = den + alpha;
-  }
-  return num / den;
+  return oc::weno_z<K>(p, b, [&](int s) { return ts.gam[K - 2][s]; },
+                       [&](int s) { return ts.tau[K - 2][s]; }, ts.eps, ts.rmax);
 }
 
 // The upwind reconstruction at buffer K (1: UpwindBiased(1)) of the line
@@ -262,12 +241,10 @@ __device__ __noinline__ T recon(int K, int beta, bool pos, const T* v, int st, i
 }
 
 // The buffer a scheme of buffer Kmax reaches at padded index p along an axis
-// (the near-wall cascade on a bounded axis; 1 = UpwindBiased(1)).
+// (the near-wall cascade on a bounded axis, reconstruction.cuh's
+// cascade_level; 1 = UpwindBiased(1)).
 __device__ __forceinline__ int cascade(int Kmax, bool bounded, int p, int H, int N, int beta) {
-  if (!bounded) return Kmax;
-  for (int R = Kmax; R >= 2; --R)
-    if (p >= H + R - beta && p <= H + N - R) return R;
-  return 1;
+  return bounded ? oc::cascade_level(Kmax, p - H, beta, N) : Kmax;
 }
 
 // Centered(4) where `c4` holds, else Centered(2); a(o) reads offset o.

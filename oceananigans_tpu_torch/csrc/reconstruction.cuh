@@ -1,160 +1,267 @@
-// WENO reconstructions, the coefficient table and the periodic-axis
-// interpolation and upwind reconstruction shared by the advection kernels
-// (fused_advection.cu, fused_shallow_water.cu).
+// The reconstructions of the advection kernels (advection_kernel.cuh: #1
+// and #6; sw_kernel.cuh: #8) for every scheme of
+// oceananigans_tpu/advection/schemes.py: Centered(2B) for B = 1..6,
+// UpwindBiased(2B-1) and WENO(2B-1) (B >= 2), each with its near-wall order
+// cascade, and the coefficient table they read.
 //
-// Every stencil coefficient comes from the Python scheme objects
+// Every coefficient comes from the Python scheme objects
 // (kernels/fused_advection.py coefficient_table) through a table passed by
-// value, so the kernels hold no constants of their own. The reconstructions
-// follow oceananigans_tpu/advection/schemes.py WENO._biased: WENO-Z weights
-// α = γ(1 + (τ/(β+ε))²) with τ/(β+ε) saturated, the smoothness indicators β
-// in the smoothness type S, the stencil values and the weighted sum in the
-// field type T. S is float or double, or bf16 (common.cuh) with float fields:
-// then every smoothness operation rounds to bfloat16 as the plain version
-// does, and τ/(β+ε) is an exact division in bfloat16 (the JAX TPU kernels
-// take it in float32 with the approximate reciprocal instead).
+// value, so the kernels hold no constants of their own. A kernel is
+// instantiated for one buffer K (the scheme's reach) and one family
+// (Centered, UpwindBiased or WENO), both compile-time choices, so the
+// family's branches below fold away; the table holds the scheme's own rows
+// and those of every buffer scheme below it.
+//
+// The reconstructions follow the port's plain versions
+// (advection/schemes.py): a reconstruction at buffer B reads the cells of
+// its line at offsets β-B .. β+B-1 from the reconstruction point, selected
+// by the advecting velocity's sign (cell n at β-B+n when it is > 0, at
+// β+B-1-n when not: the reference's selected-shift evaluation, Centered
+// included). WENO-(2B-1) is WENO-Z: α = γ(1 + (τ/(β+ε))²) with τ = |Σ_s t_s
+// β_s| and τ/(β+ε) saturated, the smoothness indicators β_s in the
+// smoothness type S, the stencil values and the weighted sum in the field
+// type T. S is float or double, or bf16 (common.cuh) with float fields: then
+// every smoothness operation rounds to bfloat16 as the plain version does,
+// and τ/(β+ε) is an exact division in bfloat16 (the JAX TPU kernels take it
+// in float32 with the approximate reciprocal instead).
 #pragma once
 
 #include "common.cuh"
 
 namespace oc {
 
-// Coefficient table, filled from a flat float64 array in this order.
-template <typename R>
-struct Tab {
-  R c4[4];          // Centered(4) symmetric, cells at offsets β-2 .. β+1
-  R c2[2];          // Centered(2) symmetric, cells at offsets β-1, β
-  R w5c[3][3];      // WENO-5 stencil s, cell j (offset β-1-s+j)
-  R w5f[3][3][3];   // WENO-5 smoothness factor m of stencil s, cell j
-  R w5g[3];         // WENO-5 optimal weights
-  R w3c[2][2];      // WENO-3 stencils
-  R w3f[2][2][2];   // WENO-3 smoothness factors
-  R w3g[2];         // WENO-3 optimal weights
-  R eps;            // ε in α = γ(1 + (τ/(β+ε))²)
-  R rmax;           // saturation of τ/(β+ε)
+// Scheme families, as kernels/fused_advection.py numbers them.
+constexpr int kCentered = 0;
+constexpr int kUpwind = 1;
+constexpr int kWeno = 2;
+
+// The deepest buffer a kernel is built for (Centered(12), UpwindBiased(11),
+// WENO(11)).
+constexpr int kMaxBuffer = 6;
+
+// ---- the coefficient table -------------------------------------------------------
+//
+// For a kernel of buffer K, a flat float64 array in this order (offsets in
+// elements), the linear part first:
+//   sym_b   b = 1..K   Centered(2b): 2b coefficients, cells β-b .. β+b-1
+//   ub_k    k = 1..K   UpwindBiased(2k-1): 2k-1 coefficients, cells β-k ..
+//                      β+k-2 of the left-biased orientation
+//   wc_k    k = 2..K   WENO-(2k-1) stencil s, cell j (k × k; offset β-1-s+j)
+// then the smoothness part:
+//   wf_k    k = 2..K   smoothness factor m of stencil s, cell j (k × k × k;
+//                      the rows past a stencil's factors zero)
+//   wg_k    k = 2..K   optimal weights (k)
+//   wt_k    k = 2..K   τ coefficients (k)
+//   ε, the saturation of τ/(β+ε)
+__host__ __device__ constexpr int off_sym(int b) { return b * (b - 1); }
+__host__ __device__ constexpr int off_ub(int K, int k) { return K * (K + 1) + (k - 1) * (k - 1); }
+__host__ __device__ constexpr int off_wc(int K, int k) {
+  int o = K * (K + 1) + K * K;
+  for (int i = 2; i < k; ++i) o += i * i;
+  return o;
+}
+__host__ __device__ constexpr int lin_size(int K) { return off_wc(K, K + 1); }
+__host__ __device__ constexpr int off_wf(int k) {
+  int o = 0;
+  for (int i = 2; i < k; ++i) o += i * i * i;
+  return o;
+}
+__host__ __device__ constexpr int off_wg(int K, int k) {
+  int o = off_wf(K + 1);
+  for (int i = 2; i < k; ++i) o += i;
+  return o;
+}
+__host__ __device__ constexpr int off_wt(int K, int k) {
+  return off_wg(K, K + 1) + off_wg(K, k) - off_wf(K + 1);
+}
+__host__ __device__ constexpr int off_eps(int K) { return off_wt(K, K + 1); }
+__host__ __device__ constexpr int smooth_size(int K) { return off_eps(K) + 2; }
+__host__ __device__ constexpr int table_size(int K) { return lin_size(K) + smooth_size(K); }
+
+template <typename R, int N>
+struct Flat {
+  R v[N];
 };
 
-constexpr int kTabSize = 4 + 2 + 9 + 27 + 3 + 4 + 8 + 2 + 2;
-
+// A table entry in the field or smoothness type. The bfloat16 smoothness
+// entries arrive rounded to bfloat16 (coefficient_table rounds them, as
+// PyTorch and JAX round a constant that meets a bfloat16 array), so their
+// conversion is exact.
 template <typename R>
-Tab<R> make_tab(const double* v) {
-  Tab<R> t;
-  R* dst = reinterpret_cast<R*>(&t);
-  for (int n = 0; n < kTabSize; ++n) dst[n] = (R)v[n];
-  return t;
+inline R from_table(double v) {
+  return (R)v;
 }
-
-// The bfloat16 smoothness table: its entries arrive rounded to bfloat16 (by
-// kernels/fused_advection.py coefficient_table, as PyTorch and JAX round a
-// constant that meets a bfloat16 array), so the conversion is exact.
 template <>
-inline Tab<bf16> make_tab<bf16>(const double* v) {
-  Tab<bf16> t;
-  bf16* dst = reinterpret_cast<bf16*>(&t);
-  for (int n = 0; n < kTabSize; ++n) dst[n] = bf16::from_host(v[n]);
-  return t;
+inline bf16 from_table<bf16>(double v) {
+  return bf16::from_host(v);
 }
 
+// The table of a kernel of buffer K: the linear part in the field type T;
+// for WENO (W) the smoothness part in S (a linear kernel keeps one unused
+// entry).
+template <int K, bool W, typename T, typename S>
+struct Tabs {
+  Flat<T, lin_size(K)> lin;
+  Flat<S, W ? smooth_size(K) : 1> sm;
 
-// WENO-5 on the upwind-selected cells q[0..4] (left-biased orientation:
-// offsets β-3 .. β+1, mirrored when the advecting velocity is not > 0).
-template <typename T, typename S>
-__device__ __forceinline__ T weno5(const T* q, const Tab<T>& tt, const Tab<S>& ts) {
-  T ps[3];
-  S b[3];
-#pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    const T* c = q + 2 - s;
-    ps[s] = tt.w5c[s][0] * c[0] + tt.w5c[s][1] * c[1] + tt.w5c[s][2] * c[2];
-    const S v0 = (S)c[0], v1 = (S)c[1], v2 = (S)c[2];
-    S beta = S(0);
-#pragma unroll
-    for (int m = 0; m < 3; ++m) {
-      const S lin = ts.w5f[s][m][0] * v0 + ts.w5f[s][m][1] * v1 + ts.w5f[s][m][2] * v2;
-      beta = beta + lin * lin;
-    }
-    b[s] = beta;
+  static Tabs make(const double* v) {
+    Tabs t;
+    for (int n = 0; n < lin_size(K); ++n) t.lin.v[n] = from_table<T>(v[n]);
+    for (int n = 0; n < (W ? smooth_size(K) : 1); ++n)
+      t.sm.v[n] = from_table<S>(W ? v[lin_size(K) + n] : 0.0);
+    return t;
   }
-  const S tau = absval(b[0] - b[2]);
+};
+
+// ---- reconstructions on a line --------------------------------------------------
+// `a(o)` / `q(o)` read the line at offset o from the reconstruction point.
+
+// Centered(2B): Σ_n c[n]·a(β-B+n), summed in the plain version's order.
+template <int B, typename T, typename A>
+__device__ __forceinline__ T centered(const T* c, int beta, A a) {
+  T acc = c[0] * a(beta - B);
+#pragma unroll
+  for (int n = 1; n < 2 * B; ++n) acc = acc + c[n] * a(beta - B + n);
+  return acc;
+}
+
+// A linear reconstruction of L cells on the selected cells c: Σ_n coef[n]·c[n].
+template <int L, typename T>
+__device__ __forceinline__ T linear(const T* coef, const T* c) {
+  T acc = coef[0] * c[0];
+#pragma unroll
+  for (int n = 1; n < L; ++n) acc = acc + coef[n] * c[n];
+  return acc;
+}
+
+// ---- WENO-Z, shared with the hydrostatic kernel (fused_vector_invariant.cu) ----------
+
+// The smoothness indicator of one stencil of buffer B in S: Σ_m (Σ_j f(m, j)·v[j])²
+// over its B cells v, f(m, j) the factor of row m and cell j.
+template <int B, typename S, typename F>
+__device__ __forceinline__ S smoothness_indicator(F f, const S* v) {
+  S beta = S(0);
+#pragma unroll
+  for (int m = 0; m < B; ++m) {
+    S lin = f(m, 0) * v[0];
+#pragma unroll
+    for (int j = 1; j < B; ++j) lin = lin + f(m, j) * v[j];
+    beta = m == 0 ? lin * lin : beta + lin * lin;
+  }
+  return beta;
+}
+
+// WENO-Z of the B stencil values p with smoothness indicators b: α_s =
+// γ(s)(1 + (τ/(b_s+ε))²) with τ = |Σ_s t(s) b_s| (the terms of a zero t(s)
+// skipped, as the plain version skips them) and τ/(b_s+ε) saturated at rmax;
+// the weights in S, the weighted sum Σ α_s p_s / Σ α_s in T.
+template <int B, typename T, typename S, typename G, typename Tau>
+__device__ __forceinline__ T weno_z(const T* p, const S* b, G gam, Tau t, S eps, S rmax) {
+  S tau = b[0];
+#pragma unroll
+  for (int s = 1; s < B; ++s)
+    if ((float)t(s) != 0.0f) tau = tau + t(s) * b[s];
+  tau = absval(tau);
   T num = T(0), den = T(0);
 #pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    S r = tau / (b[s] + ts.eps);
-    r = r > ts.rmax ? ts.rmax : r;
-    const T alpha = (T)(ts.w5g[s] * (S(1) + r * r));
-    num = num + alpha * ps[s];
+  for (int s = 0; s < B; ++s) {
+    S r = tau / (b[s] + eps);
+    r = r > rmax ? rmax : r;
+    const T alpha = (T)(gam(s) * (S(1) + r * r));
+    num = num + alpha * p[s];
     den = den + alpha;
   }
   return num / den;
 }
 
-// WENO-3 on q[0..2] (offsets β-2 .. β).
-template <typename T, typename S>
-__device__ __forceinline__ T weno3(const T* q, const Tab<T>& tt, const Tab<S>& ts) {
-  T ps[2];
-  S b[2];
+// WENO-(2B-1) on the selected cells c[0 .. 2B-2]: stencil s takes cells
+// B-1-s .. 2B-2-s.
+template <int B, int K, typename T, typename S>
+__device__ __forceinline__ T weno(const Tabs<K, true, T, S>& tab, const T* c) {
+  const T* wc = tab.lin.v + off_wc(K, B);
+  const S* wf = tab.sm.v + off_wf(B);
+  const S* wg = tab.sm.v + off_wg(K, B);
+  const S* wt = tab.sm.v + off_wt(K, B);
+  T p[B];
+  S b[B];
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const T* c = q + 1 - s;
-    ps[s] = tt.w3c[s][0] * c[0] + tt.w3c[s][1] * c[1];
-    const S v0 = (S)c[0], v1 = (S)c[1];
-    S beta = S(0);
+  for (int s = 0; s < B; ++s) {
+    const int o = B - 1 - s;
+    T acc = wc[s * B] * c[o];
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      const S lin = ts.w3f[s][m][0] * v0 + ts.w3f[s][m][1] * v1;
-      beta = beta + lin * lin;
-    }
-    b[s] = beta;
+    for (int j = 1; j < B; ++j) acc = acc + wc[s * B + j] * c[o + j];
+    p[s] = acc;
+    S v[B];
+#pragma unroll
+    for (int j = 0; j < B; ++j) v[j] = (S)c[o + j];
+    b[s] = smoothness_indicator<B>([&](int m, int j) { return wf[(s * B + m) * B + j]; }, v);
   }
-  const S tau = absval(b[0] - b[1]);
-  T num = T(0), den = T(0);
+  return weno_z<B>(p, b, [&](int s) { return wg[s]; }, [&](int s) { return wt[s]; },
+                   tab.sm.v[off_eps(K)], tab.sm.v[off_eps(K) + 1]);
+}
+
+// The advected value of the scheme at buffer B (B = K: the scheme itself;
+// below it, the buffer schemes of the cascade), selected by pos: WENO
+// (B >= 2), UpwindBiased(2B-1) (WENO's B = 1 is UpwindBiased(1)) or
+// Centered(2B) selected. The 2B cells β-B .. β+B-1 are read whatever the
+// sign (the mirror of that window is the window reversed), so the loads do
+// not wait for the advecting velocity; cell n of the selected orientation
+// is then d[n] when pos, d[2B-1-n] when not.
+template <int B, int K, bool W, typename T, typename S, typename Q>
+__device__ __forceinline__ T biased(int fam, const Tabs<K, W, T, S>& tab, int beta, bool pos,
+                                    Q q) {
+  T d[2 * B], c[2 * B];
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    S r = tau / (b[s] + ts.eps);
-    r = r > ts.rmax ? ts.rmax : r;
-    const T alpha = (T)(ts.w3g[s] * (S(1) + r * r));
-    num = num + alpha * ps[s];
-    den = den + alpha;
-  }
-  return num / den;
-}
-
-// Scheme codes, as kernels/fused_advection.py numbers them.
-constexpr int kWeno5 = 0;
-constexpr int kCentered2 = 1;
-
-// Symmetric interpolation along a periodic axis (the scheme's advecting-
-// velocity stencil: Centered(4) for WENO(5), Centered(2) for itself);
-// `a(o)` reads the interpolated quantity at offset o.
-template <int SCH, typename T, typename Read>
-__device__ __forceinline__ T symmetric(const Tab<T>& tt, int beta, Read a) {
-  if constexpr (SCH == kCentered2)
-    return tt.c2[0] * a(beta - 1) + tt.c2[1] * a(beta);
-  else
-    return tt.c4[0] * a(beta - 2) + tt.c4[1] * a(beta - 1) + tt.c4[2] * a(beta)
-         + tt.c4[3] * a(beta + 1);
-}
-
-// Centered(2) "upwind" value: the selected cells in the left-biased order,
-// as the reference's selected-shift evaluation forms them.
-template <typename T>
-__device__ __forceinline__ T centered2(const Tab<T>& tt, bool pos, T lo, T hi) {
-  return tt.c2[0] * (pos ? lo : hi) + tt.c2[1] * (pos ? hi : lo);
-}
-
-// Upwind reconstruction along a periodic axis, selected by vel > 0; `q(o)`
-// reads the advected field at offset o from the reconstruction point.
-template <int SCH, typename T, typename S, typename Read>
-__device__ __forceinline__ T upwind(const Tab<T>& tt, const Tab<S>& ts, int beta, T vel,
-                                    Read q) {
-  const bool pos = vel > T(0);
-  if constexpr (SCH == kCentered2) {
-    return centered2(tt, pos, q(beta - 1), q(beta));
+  for (int n = 0; n < 2 * B; ++n) d[n] = q(beta - B + n);
+#pragma unroll
+  for (int n = 0; n < 2 * B; ++n) c[n] = pos ? d[n] : d[2 * B - 1 - n];
+  if constexpr (W && B >= 2) {
+    return weno<B>(tab, c);
   } else {
-    T c[5];
-#pragma unroll
-    for (int n = 0; n < 5; ++n) c[n] = pos ? q(beta - 3 + n) : q(beta + 2 - n);
-    return weno5(c, tt, ts);
+    if (!W && fam == kCentered) return linear<2 * B>(tab.lin.v + off_sym(B), c);
+    return linear<2 * B - 1>(tab.lin.v + off_ub(K, B), c);
   }
+}
+
+// The advecting velocity's interpolation at buffer B: the scheme's
+// advecting-velocity scheme, Centered(2B) for Centered and
+// Centered(max(2B-2, 2)) for UpwindBiased and WENO.
+template <int B, int K, bool W, typename T, typename S, typename A>
+__device__ __forceinline__ T symmetric(int fam, const Tabs<K, W, T, S>& tab, int beta, A a) {
+  constexpr int Bv = B > 1 ? B - 1 : 1;
+  if (!W && fam == kCentered) return centered<B>(tab.lin.v + off_sym(B), beta, a);
+  return centered<Bv>(tab.lin.v + off_sym(Bv), beta, a);
+}
+
+// ---- the near-wall cascade along a bounded axis ------------------------------------
+
+// The buffer a scheme of buffer K takes at index kk (0 .. N-1 inside) along
+// a bounded axis of N cells: the largest B >= 2 with B-β <= kk <= N-B, else 1
+// (advection/schemes.py cascade_mask on the global index). The hydrostatic
+// kernel takes it too, with its runtime K.
+__device__ __forceinline__ int cascade_level(int K, int kk, int beta, int N) {
+#pragma unroll
+  for (int B = K; B >= 2; --B)
+    if (kk >= B - beta && kk <= N - B) return B;
+  return 1;
+}
+
+template <int B, int K, bool W, typename T, typename S, typename Q>
+__device__ __forceinline__ T biased_level(int level, int fam, const Tabs<K, W, T, S>& tab,
+                                          int beta, bool pos, Q q) {
+  if constexpr (B > 1) {
+    if (level < B) return biased_level<B - 1>(level, fam, tab, beta, pos, q);
+  }
+  return biased<B>(fam, tab, beta, pos, q);
+}
+
+template <int B, int K, bool W, typename T, typename S, typename A>
+__device__ __forceinline__ T symmetric_level(int level, int fam, const Tabs<K, W, T, S>& tab,
+                                             int beta, A a) {
+  if constexpr (B > 1) {
+    if (level < B) return symmetric_level<B - 1>(level, fam, tab, beta, a);
+  }
+  return symmetric<B>(fam, tab, beta, a);
 }
 
 }  // namespace oc

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels of the port, with their plain PyTorch versions.
 
 Each wrapper takes its plain version for CPU tensors and launches its kernel
-for CUDA tensors; it counts its launches in a ``launches`` attribute, and
+for CUDA tensors; it counts its launches in a ``launches`` attribute (the
+advection kernels #1, #6 and #8 also by scheme variant, in
+``variant_launches``), and
 each plain version counts the calls it served on CUDA tensors in
 ``cuda_calls``. ``vpu_probes`` holds the vector-unit probes, which run
 no model. The sharded stages (``build_sharded_*``) count the calls of
@@ -45,9 +47,17 @@ PLAINS = (fused_advection_update_plain, fused_divergence_plain,
           vpu_mix_plain, bf16_smoothness_plain)
 
 
+# the kernels that also count their launches by scheme variant
+# (``variant_launches``: {``fused_advection.variant_name``: launches})
+VARIANT_KERNELS = (fused_advection_update, fused_advection_tendency,
+                   fused_sw_update)
+
+
 def reset_counters():
     for fn in KERNELS:
         fn.launches = 0
+    for fn in VARIANT_KERNELS:
+        fn.variant_launches = {}
     fill_halos.surface_launches = 0
     for fn in PLAINS:
         fn.cuda_calls = 0
@@ -56,8 +66,13 @@ def reset_counters():
 def counters():
     """{kernel name: launches} and {plain name: calls on CUDA tensors}; the
     fill's launches also split into those on 3-D fields
-    (``fill_halos_3d``) and on 2-D surface fields (``fill_halos_2d``)."""
+    (``fill_halos_3d``) and on 2-D surface fields (``fill_halos_2d``), and
+    the advection kernels' by scheme variant (``fused_advection_update_weno9``:
+    the launches of #1 with WENO(9))."""
     launches = {fn.__name__: fn.launches for fn in KERNELS}
+    for fn in VARIANT_KERNELS:
+        launches.update({f"{fn.__name__}_{name}": n
+                         for name, n in fn.variant_launches.items()})
     launches["fill_halos_2d"] = fill_halos.surface_launches
     launches["fill_halos_3d"] = fill_halos.launches - \
         fill_halos.surface_launches
@@ -79,5 +94,5 @@ __all__ = ["fused_advection_update", "fused_advection_update_plain",
            "build_sharded_fused_advection_plain",
            "weno_microbench", "weno_microbench_plain", "vpu_mix",
            "vpu_mix_plain", "bf16_smoothness", "bf16_smoothness_plain",
-           "ZFill", "KERNELS", "PLAINS",
+           "ZFill", "KERNELS", "PLAINS", "VARIANT_KERNELS",
            "reset_counters", "counters"]

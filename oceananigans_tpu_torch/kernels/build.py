@@ -39,6 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _lib = None
 build_seconds = None        # wall time of this process's build, or 0.0 if reused
+source_seconds = {}         # each source's nvcc wall time in this process's build
 compile_log = ""            # the compilers' output of this process's build
 
 P = ctypes.c_void_p
@@ -51,19 +52,19 @@ SIGNATURES = {
     "oc_fill_params_size": [],
     "oc_fill_plan": [P, I, I, P, P, P, P, P, P, P, P],
     "oc_fill_halos": [P, P, I, P, P],
-    "oc_advection_tendency": [I, I, I, P, P, I, I, P, I, I, I, I, I, I,
+    "oc_advection_tendency": [I, I, I, I, P, P, I, I, P, I, I, I, I, I, I,
                               D, D, D, D, P, I, I, I, I, I, I, I, P],
     "oc_fused_divergence": [I, P, P, P, P, I, I, I, I, I, D, D, D, D, P],
     "oc_fused_correct": [I, P, P, P, P, P, P, P, I, I, I, I, I,
                          D, D, D, D, P],
-    "oc_fused_advection_update": [I, I, I, P, P, P, P, P, P, I, I, I, I, I,
-                                  I, I, D, D, D, D, D, D, D, D, D, D, P, I,
-                                  I, I, I, I, I, I, P],
-    "oc_fused_sw_update": [I, I, I, P, P, P, I, I, P, P, P, I, I, I, I,
+    "oc_fused_advection_update": [I, I, I, I, P, P, P, P, P, P, I, I, I, I,
+                                  I, I, I, D, D, D, D, D, D, D, D, D, D, P,
+                                  I, I, I, I, I, I, I, P],
+    "oc_fused_sw_update": [I, I, I, I, P, P, P, I, I, P, P, P, I, I, I, I,
                            D, D, D, D, D, D, D, D, D, D, P, I, I, I, I, I, I,
                            P],
-    "oc_advection_blocks_per_sm": [I, I, I, I, I, I, I, I, I, I, P],
-    "oc_fused_sw_update_blocks_per_sm": [I, I, I, I, I, I, I, P],
+    "oc_advection_blocks_per_sm": [I, I, I, I, I, I, I, I, I, I, I, P],
+    "oc_fused_sw_update_blocks_per_sm": [I, I, I, I, I, I, I, I, P],
     "oc_vi_set_tables": [P, I],
     "oc_fused_vi_tendency": [I, I, P, P, P, P, D, I, I, I, I, I, I, P],
     "oc_vi_blocks_per_sm": [I, I, I, I, I, I, I, I, I, P],
@@ -100,21 +101,32 @@ def _source_hash(sources):
 
 def _run_all(cmds):
     """Run the commands in parallel; wait for every one; return their
-    output, raising if any failed."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
-    outs = [p.communicate()[0] for p in procs]
-    for cmd, p, text in zip(cmds, procs, outs):
-        if p.returncode != 0:
+    output and each one's wall time from the start, raising if any
+    failed."""
+    t0 = time.perf_counter()
+    done = [None] * len(cmds)
+
+    def run(n):
+        p = subprocess.run(cmds[n], stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+        done[n] = (p.returncode, p.stdout, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=run, args=(n,))
+               for n in range(len(cmds))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for cmd, (rc, text, _) in zip(cmds, done):
+        if rc != 0:
             raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n" + text)
-    return outs
+    return [d[1] for d in done], [d[2] for d in done]
 
 
 def build():
     """Compile the kernels if no library for the current sources exists;
     return the library's path."""
-    global build_seconds, compile_log
+    global build_seconds, compile_log, source_seconds
     sources = sorted(CSRC_DIR.glob("*.cu"))
     key = _source_hash(sources)
     out = BUILD_DIR / f"liboceananigans_kernels_{key}.so"
@@ -127,12 +139,14 @@ def build():
     nvcc = find_nvcc()
     objs = [objdir / (s.stem + ".o") for s in sources]
     t0 = time.perf_counter()
-    logs = _run_all([[nvcc] + list(NVCC_FLAGS) + ["-c", "-o", str(o), str(s)]
-                     for s, o in zip(sources, objs)])
+    logs, seconds = _run_all([[nvcc] + list(NVCC_FLAGS)
+                              + ["-c", "-o", str(o), str(s)]
+                              for s, o in zip(sources, objs)])
+    source_seconds = {s.name: t for s, t in zip(sources, seconds)}
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     logs += _run_all([[nvcc] + list(NVCC_FLAGS[:2]) + ["-shared", "-o",
                                                        str(tmp)]
-                      + [str(o) for o in objs]])
+                      + [str(o) for o in objs]])[0]
     os.replace(tmp, out)
     shutil.rmtree(objdir, ignore_errors=True)
     build_seconds = time.perf_counter() - t0

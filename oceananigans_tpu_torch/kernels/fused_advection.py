@@ -17,21 +17,28 @@ bottom face pinned to 0) and the tracers are advected by the corrected
 velocities, while ``new`` adds the increment to the uncorrected q* (the
 tracers are never corrected), as the TPU kernel does.
 
-Bound on the H100: over u, v, w, arithmetic (about 370 floating-point
-operations per component and cell, each face flux once, against 16 B of
-compulsory traffic per component in float32); with tracers, the bytes.
-Design (``csrc/fused_advection.cu``, face fluxes in
-``csrc/advection_stencils.cuh``): one block per TX × TY × TZ tile of
-interior cells, z fastest across threads; the block stages the corrected
-u, v, w over the tile plus the stencil's reach into shared memory once,
-then for each component of the launch (u, v, w, the tracers, each tracer
-staged in turn) forms each face flux once and each cell's update, with the
-velocities resident throughout. ``launch_plan`` gives the tile, the block
-count and the shared memory; the C entry checks them. Division is exact.
-Schemes: WENO(5) with its near-wall cascade and Centered(2); any other
-raises on the card. The WENO smoothness arithmetic runs in float32 or
-float64, or with float32 fields in bfloat16, rounded operation by
-operation as the plain version rounds it (``smoothness_code``).
+Bound on the H100: over u, v, w, arithmetic (for WENO(5) about 300
+floating-point operations per component and cell, each face flux once, for
+WENO(9) about 1,090, against 16 B of compulsory traffic per component in
+float32); with tracers at WENO(5), the bytes. Design
+(``csrc/advection_kernel.cuh``, face fluxes in
+``csrc/advection_stencils.cuh``, reconstructions in
+``csrc/reconstruction.cuh``): one block per TX × TY × TZ tile of interior
+cells, z fastest across threads; the block stages the corrected u, v, w
+over the tile plus the stencil's reach into shared memory once, then for
+each component of the launch (u, v, w, the tracers, each tracer staged in
+turn) forms each face flux once and each cell's update, with the
+velocities resident throughout. ``launch_plan`` gives the tile (by the
+reach and the element size), the block count and the shared memory; the C
+entry checks them. Division is exact. Schemes: every scheme of
+``advection/schemes.py``, as the TPU kernels take them: Centered(2-12),
+UpwindBiased(1-11) and WENO(3-11), each with its near-wall cascade along
+the bounded z (``scheme_code``; the scheme's buffer K is a compile-time
+choice, one source of instantiations a buffer, ``csrc/advection_k1.cu`` ..
+``advection_k6.cu``); any other scheme raises on the card. The WENO
+smoothness arithmetic runs in float32 or float64, or with float32 fields in
+bfloat16, rounded operation by operation as the plain version rounds it
+(``smoothness_code``).
 
 ``fused_advection_tendency`` replaces ``build_fused_advection``: ``G =
 -∇·(𝐯q)`` for u, v, w and each tracer as one (3 + n_tracers, Nx, Ny, Nz)
@@ -64,7 +71,7 @@ import torch
 from ..advection import (WENO, Centered, UpwindBiased, div_Uc, div_Uu,
                          div_Uv, div_Uw)
 from ..advection.reconstruction import typed_constants
-from ..advection.schemes import WENO_EPSILON, WENO_R_MAX
+from ..advection.schemes import TAU_COEFFS, WENO_EPSILON, WENO_R_MAX
 from ..operators.shifts import shift
 from ..parallel import halo_exchange as hx
 from . import build
@@ -74,30 +81,41 @@ from .halo_fill import periodic_halo_fill_plain
 
 ZBC = {"u": "even", "v": "even", "w": "odd_face", "c": "even"}
 
-OTHER_SCHEMES_ITEM = ("ROADMAP.md queue 2, kernels #1 and #6 (schemes other "
-                      "than WENO(5) and Centered(2) in the CUDA advection "
-                      "kernels)")
+OTHER_SCHEMES_ITEM = ("ROADMAP.md queue 1 item 15 (the long tail: "
+                      "bounds-preserving WENO and a per-axis "
+                      "FluxFormAdvection in the CUDA advection kernels)")
 
-# Scheme codes of csrc/reconstruction.cuh.
-WENO5, CENTERED2 = 0, 1
+# Scheme families of csrc/reconstruction.cuh (kCentered, kUpwind, kWeno).
+CENTERED, UPWIND, WENO_FAMILY = 0, 1, 2
 
-# Entries of the coefficient table (kTabSize in csrc/reconstruction.cuh).
-TAB_SIZE = 4 + 2 + 9 + 27 + 3 + 4 + 8 + 2 + 2
+# The deepest buffer the kernels are built for (kMaxBuffer):
+# Centered(12), UpwindBiased(11), WENO(11).
+MAX_BUFFER = 6
 
 # Codes of the WENO smoothness dtype (OC_FLOAT32, OC_FLOAT64, OC_BFLOAT16 in
 # csrc/common.cuh). The fields' dtype takes fused_projection._DTYPE_CODES,
 # which has no bfloat16.
 _SMOOTHNESS_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
-# Threads a block of the update kernel (csrc/fused_advection.cu kThreads is
-# the most it takes, and a thread updates at most kCells = CELLS_PER_THREAD
-# cells) and the tile of interior cells a block owns, by the fields' element
-# size: at float32 a 16 x 8 x 8 tile takes 104.7 KB of shared memory with
-# tracers (two blocks an SM) and 65.3 KB without (three), at float64 an
-# 8 x 8 x 8 tile 129.9 KB.
+# Threads a block of the update kernel (csrc/advection_kernel.cuh kThreads
+# is the most it takes, and a thread updates at most kCells =
+# CELLS_PER_THREAD cells) and the tiles of interior cells a block may own,
+# largest first, by the fields' element size. ``launch_plan`` takes the
+# first whose shared memory (it grows with the reach, and with tracer
+# boxes) lets TILE_BLOCKS_PER_SM blocks share an SM: at float32 two (a 16 x
+# 8 x 8 tile up to reach 3, 104.7 KB at WENO(5) with tracers), at float64
+# one (8 x 8 x 8, 129.9 KB at WENO(5)).
 UPDATE_THREADS = 256
-UPDATE_TILES = {4: (16, 8, 8), 8: (8, 8, 8)}
+UPDATE_TILES = {4: ((16, 8, 8), (8, 8, 8), (8, 8, 4), (4, 8, 4), (4, 4, 4)),
+                8: ((8, 8, 8), (8, 8, 4), (4, 8, 4), (4, 4, 4))}
+TILE_BLOCKS_PER_SM = {4: 2, 8: 1}
 CELLS_PER_THREAD = 4
+
+# The H100's shared memory: the most a block takes, and an SM's, of which
+# each block reserves 1 KB (csrc/tiles.cuh kMaxSmemBytes).
+MAX_SMEM = 232448
+SM_SMEM = 233472
+SMEM_RESERVED = 1024
 
 
 def _align(n):
@@ -106,39 +124,55 @@ def _align(n):
     return (n + 3) // 4 * 4
 
 
-# A tracer box's rows run TRACER_Z cells past the tile each way along z
-# (csrc/fused_advection.cu kTracerZ), so that they are 16-byte aligned.
-TRACER_Z = 4
+def tracer_z(reach):
+    """Cells a tracer box's rows run past the tile each way along z
+    (csrc/advection_kernel.cuh tracer_z): the reach rounded up to 16 bytes
+    of float32, at least 4, so that the rows are 16-byte aligned."""
+    return 4 if reach <= 4 else -(-reach // 4) * 4
 
 
 def smem_bytes(tile, reach, esize, tracers):
     """Dynamic shared memory of one block of the update kernel
-    (csrc/fused_advection.cu Layout): u, v, w over the tile plus the reach,
-    when the launch holds a tracer two tracer boxes (one filling while the
-    other is read; TRACER_Z cells past the tile along z), and the x-, y- and
-    z-flux arrays."""
+    (csrc/advection_kernel.cuh Layout): u, v, w over the tile plus the
+    reach, when the launch holds a tracer two tracer boxes (one filling
+    while the other is read; ``tracer_z(reach)`` cells past the tile along
+    z), and the x-, y- and z-flux arrays."""
     TX, TY, TZ = tile
     box = _align((TX + 2 * reach) * (TY + 2 * reach) * (TZ + 2 * reach))
-    cbox = _align((TX + 2 * reach) * (TY + 2 * reach) * (TZ + 2 * TRACER_Z))
+    cbox = _align((TX + 2 * reach) * (TY + 2 * reach)
+                  * (TZ + 2 * tracer_z(reach)))
     fluxes = (_align((TX + 1) * TY * TZ) + _align(TX * (TY + 1) * TZ)
               + _align(TX * TY * (TZ + 1)))
     return esize * (3 * box + (2 * cbox if tracers else 0) + fluxes)
+
+
+def pick_tile(reach, esize, tracers):
+    """The first tile of UPDATE_TILES[esize] whose shared memory lets
+    TILE_BLOCKS_PER_SM[esize] blocks share an SM (the last one fits one
+    block at every reach up to MAX_BUFFER)."""
+    per_sm = TILE_BLOCKS_PER_SM[esize]
+    for tile in UPDATE_TILES[esize]:
+        smem = smem_bytes(tile, reach, esize, tracers)
+        if smem <= MAX_SMEM and SM_SMEM // (smem + SMEM_RESERVED) >= per_sm:
+            return tile
+    return UPDATE_TILES[esize][-1]
 
 
 def launch_plan(grid, scheme, dtype, n_components):
     """The launches of ``fused_advection_update`` and
     ``fused_advection_tendency`` (one kernel template, one layout) for
     ``n_components`` components (u, v, w, then the tracers) of ``dtype`` on
-    ``grid``: a dict with ``tile`` (TX, TY, TZ), ``tiles`` (along x, y and
-    z; block n owns tile (tx, ty, tz) with n = (tx·tiles_y + ty)·tiles_z +
-    tz, cells [TX·tx, min(TX·(tx + 1), Nx)) and likewise along y and z),
-    ``blocks``, ``threads`` and ``launches``, one (first, stop, smem) per
-    batch of components (the shared memory in bytes: a batch holding a
-    tracer stages it)."""
+    ``grid``: a dict with ``tile`` (TX, TY, TZ; ``pick_tile`` by the
+    scheme's reach and whether the launches stage tracers), ``tiles``
+    (along x, y and z; block n owns tile (tx, ty, tz) with n = (tx·tiles_y
+    + ty)·tiles_z + tz, cells [TX·tx, min(TX·(tx + 1), Nx)) and likewise
+    along y and z), ``blocks``, ``threads`` and ``launches``, one (first,
+    stop, smem) per batch of components (the shared memory in bytes: a
+    batch holding a tracer stages it)."""
     esize = torch.empty((), dtype=dtype).element_size()
-    tile = UPDATE_TILES[esize]
-    tiles = tuple(-(-n // t) for n, t in zip(grid.N, tile))
     reach = scheme.required_halo
+    tile = pick_tile(reach, esize, n_components > 3)
+    tiles = tuple(-(-n // t) for n, t in zip(grid.N, tile))
     return dict(tile=tile, tiles=tiles,
                 blocks=tiles[0] * tiles[1] * tiles[2],
                 threads=UPDATE_THREADS,
@@ -192,25 +226,45 @@ fused_advection_update_plain.cuda_calls = 0
 
 # -- the CUDA kernel -----------------------------------------------------------
 
-def _padded_factors(factors, k):
-    """k×k smoothness factor rows, missing rows zero and |c| < 1e-14 zeroed
-    (the plain evaluation skips those terms)."""
-    rows = [list(f) for f in factors] + [[0.0] * k] * (k - len(factors))
-    return [0.0 if abs(c) < 1e-14 else c for row in rows for c in row]
-
-
 _tables = {}
 
 
 def scheme_code(scheme):
-    """WENO5 or CENTERED2 for the schemes the kernels take; raises for any
-    other."""
-    if isinstance(scheme, WENO) and scheme.order == 5:
-        return WENO5
-    if isinstance(scheme, Centered) and scheme.order == 2:
-        return CENTERED2
-    raise NotImplementedError(
-        f"no CUDA advection kernel for {scheme!r}: {OTHER_SCHEMES_ITEM}")
+    """(family, K) of a scheme the kernels take: CENTERED, UPWIND or
+    WENO_FAMILY and the scheme's buffer K (its reach, ``required_halo``):
+    Centered(2K) for K = 1..MAX_BUFFER, UpwindBiased(2K-1), WENO(2K-1) for K
+    >= 2. Raises for any other scheme: another class (a per-axis
+    FluxFormAdvection included), a deeper order, or bounds-preserving WENO
+    (which the port's plain WENO also refuses)."""
+    K = getattr(scheme, "buffer", None)
+    if type(scheme) is Centered:
+        family = CENTERED
+    elif type(scheme) is UpwindBiased:
+        family = UPWIND
+    elif type(scheme) is WENO and scheme.bounds is None and K >= 2:
+        family = WENO_FAMILY
+    else:
+        family = None
+    if family is None or not 1 <= K <= MAX_BUFFER:
+        raise NotImplementedError(
+            f"no CUDA advection kernel for {scheme!r}: {OTHER_SCHEMES_ITEM}")
+    return family, K
+
+
+def variant_name(scheme):
+    """The name of a scheme's kernel variant, by family and order:
+    ``centered4``, ``upwind5``, ``weno9``."""
+    family, K = scheme_code(scheme)
+    return (("centered", "upwind", "weno")[family]
+            + str(2 * K if family == CENTERED else 2 * K - 1))
+
+
+def count_launch(kernel, scheme):
+    """One more launch of ``kernel`` (its ``launches``) and of the scheme's
+    variant (its ``variant_launches``, by ``variant_name``)."""
+    kernel.launches += 1
+    name = variant_name(scheme)
+    kernel.variant_launches[name] = kernel.variant_launches.get(name, 0) + 1
 
 
 def smoothness_code(scheme, dtype):
@@ -228,48 +282,91 @@ def smoothness_code(scheme, dtype):
     return _SMOOTHNESS_CODES[sdt]
 
 
+def table_layout(K):
+    """Offsets of the coefficient table of buffer K (csrc/reconstruction.cuh
+    off_sym .. off_eps): ``sym[b]`` (Centered(2b), b = 1..K), ``ub[k]``
+    (UpwindBiased(2k-1), k = 1..K), ``wc[k]``, ``wf[k]``, ``wg[k]``,
+    ``wt[k]`` (WENO-(2k-1), k = 2..K), ``eps`` (ε, then the saturation),
+    ``lin`` (the size of the linear part) and ``size``."""
+    sym = {b: b * (b - 1) for b in range(1, K + 1)}
+    ub = {k: K * (K + 1) + (k - 1) ** 2 for k in range(1, K + 1)}
+    wc, o = {}, K * (K + 1) + K * K
+    for k in range(2, K + 1):
+        wc[k], o = o, o + k * k
+    lin = o
+    wf, o = {}, lin
+    for k in range(2, K + 1):
+        wf[k], o = o, o + k ** 3
+    wg = {}
+    for k in range(2, K + 1):
+        wg[k], o = o, o + k
+    wt = {}
+    for k in range(2, K + 1):
+        wt[k], o = o, o + k
+    return dict(sym=sym, ub=ub, wc=wc, wf=wf, wg=wg, wt=wt, eps=o, lin=lin,
+                size=o + 2)
+
+
+def _padded_factors(factors, k):
+    """k×k smoothness factor rows, missing rows zero and |c| < 1e-14 zeroed
+    (the plain evaluation skips those terms)."""
+    rows = [list(f) for f in factors] + [[0.0] * k] * (k - len(factors))
+    return [0.0 if abs(c) < 1e-14 else c for row in rows for c in row]
+
+
 def coefficient_table(scheme):
-    """The kernels' coefficient table (``Tab`` in csrc/reconstruction.cuh)
-    as a ctypes float64 array: WENO(5) with its cascade, or Centered(2) in
-    the c2 slot (every other entry 0). With bfloat16 smoothness the entries
-    that meet the smoothness arithmetic (factors, optimal weights, ε, the
-    saturation) are rounded to bfloat16 here, as the plain version rounds
-    them (``advection.reconstruction.typed_constants``); the stencil
-    coefficients, read in the field type, are not."""
-    code = scheme_code(scheme)
+    """The kernels' coefficient table (csrc/reconstruction.cuh) for the
+    scheme's buffer K, as a ctypes float64 array in ``table_layout(K)``'s
+    order: the Centered and UpwindBiased rows of every buffer up to K and
+    the WENO rows of buffers 2..K, each from the scheme objects of the
+    scheme's cascade (``buffer_scheme()`` down to buffer 1) and of their
+    advecting-velocity schemes. With bfloat16 smoothness the entries that
+    meet the smoothness arithmetic (factors, optimal weights, τ
+    coefficients, ε, the saturation) are rounded to bfloat16 here, as the
+    plain version rounds them (``advection.reconstruction.typed_constants``);
+    the stencil coefficients, read in the field type, are not."""
+    family, K = scheme_code(scheme)
     key = scheme._fp()
     if key in _tables:
         return _tables[key]
-    if code == CENTERED2:
-        vals = [0.0] * TAB_SIZE
-        vals[4:6] = scheme._coeffs
-    else:
-        w3 = scheme.buffer_scheme()
-        c4 = scheme.advecting_velocity_scheme
-        c2 = c4.buffer_scheme()
-        assert isinstance(w3, WENO) and w3.order == 3
-        assert isinstance(w3.buffer_scheme(), UpwindBiased)
-        assert isinstance(c4, Centered) and c4.order == 4
-        assert isinstance(c2, Centered) and c2.order == 2
-        assert w3.advecting_velocity_scheme._coeffs == c2._coeffs
-        sdt = scheme.smoothness_dtype
+    lay = table_layout(K)
+    vals = [0.0] * lay["size"]
+    sdt = getattr(scheme, "smoothness_dtype", None)
 
-        def smooth(vals):
-            if sdt != torch.bfloat16:
-                return list(vals)
-            return [t.item() for t in typed_constants(tuple(vals), sdt)]
+    def put(at, row, smooth=False):
+        row = list(row)
+        if smooth and sdt == torch.bfloat16:
+            row = [t.item() for t in typed_constants(tuple(row), sdt)]
+        vals[at:at + len(row)] = row
 
-        vals = list(c4._coeffs) + list(c2._coeffs)
-        vals += [c for s in range(3) for c in scheme._coeffs[s]]
-        vals += smooth(c for s in range(3)
-                       for c in _padded_factors(scheme._sfactors[s], 3))
-        vals += smooth(scheme._gammas)
-        vals += [c for s in range(2) for c in w3._coeffs[s]]
-        vals += smooth(c for s in range(2)
-                       for c in _padded_factors(w3._sfactors[s], 2))
-        vals += smooth(w3._gammas)
-        vals += smooth((WENO_EPSILON, WENO_R_MAX))
-    assert len(vals) == TAB_SIZE
+    # the cascade, buffer K down to 1, and the Centered / UpwindBiased rows
+    # of every buffer (a WENO kernel reads the UpwindBiased(1) row at buffer
+    # 1 and the Centered rows of its advecting velocities)
+    chain, s = [], scheme
+    while s is not None:
+        chain.append(s)
+        s = s.buffer_scheme()
+    assert [c.buffer for c in chain] == list(range(K, 0, -1)), chain
+    for b in range(1, K + 1):
+        put(lay["sym"][b], Centered(order=2 * b)._coeffs)
+        put(lay["ub"][b], UpwindBiased(order=2 * b - 1)._coeffs)
+    for c in chain:
+        if isinstance(c, (Centered, UpwindBiased)):
+            row = lay["sym" if isinstance(c, Centered) else "ub"][c.buffer]
+            assert tuple(vals[row:row + len(c._coeffs)]) == tuple(c._coeffs)
+        if not isinstance(c, Centered):
+            v = c.advecting_velocity_scheme
+            row = lay["sym"][v.buffer]
+            assert tuple(vals[row:row + len(v._coeffs)]) == tuple(v._coeffs)
+        if isinstance(c, WENO):
+            k = c.buffer
+            put(lay["wc"][k], [x for st in range(k) for x in c._coeffs[st]])
+            put(lay["wf"][k], [x for st in range(k)
+                               for x in _padded_factors(c._sfactors[st], k)],
+                smooth=True)
+            put(lay["wg"][k], c._gammas, smooth=True)
+            put(lay["wt"][k], TAU_COEFFS[k], smooth=True)
+    put(lay["eps"], (WENO_EPSILON, WENO_R_MAX), smooth=True)
     _tables[key] = (ctypes.c_double * len(vals))(*vals)
     return _tables[key]
 
@@ -289,7 +386,7 @@ def fused_advection_update(grid, scheme, u, v, w, Gm, gamma_dt, zeta_dt,
                                             gamma_dt, zeta_dt, p, corr_dt,
                                             tracers)
     check_fast_layout(grid)
-    code = scheme_code(scheme)
+    fam, K = scheme_code(scheme)
     table = coefficient_table(scheme)
     has_corr = p is not None
     if has_corr and corr_dt is None:
@@ -321,7 +418,8 @@ def fused_advection_update(grid, scheme, u, v, w, Gm, gamma_dt, zeta_dt,
         lib = build.library()
         for a, b, smem in plan["launches"]:
             build.check(lib.oc_fused_advection_update(
-                code, _DTYPE_CODES[u.dtype], scode, vel, build.ptr(p), build.pointers(qs[a:b]),
+                fam, K, _DTYPE_CODES[u.dtype], scode, vel, build.ptr(p),
+                build.pointers(qs[a:b]),
                 build.pointers(Gm[a:b]) if Gm is not None else None,
                 build.pointers(G[a:b]), build.pointers(outs[a:b]), b - a, a,
                 Nx, Ny, Nz, Hx, Hy,
@@ -331,11 +429,12 @@ def fused_advection_update(grid, scheme, u, v, w, Gm, gamma_dt, zeta_dt,
                 1.0 / m["dx"], 1.0 / m["dy"], 1.0 / m["dz"],
                 table, len(table), *plan["tile"], plan["threads"],
                 plan["blocks"], smem, build.stream_of(u)), lib)
-            fused_advection_update.launches += 1
+            count_launch(fused_advection_update, scheme)
     return G, dict(zip(("u", "v", "w") + tuple(tracers), outs))
 
 
 fused_advection_update.launches = 0
+fused_advection_update.variant_launches = {}
 
 
 # -- tendency only ---------------------------------------------------------------
@@ -373,7 +472,7 @@ def fused_advection_tendency(grid, scheme, fields):
         raise NotImplementedError(
             "the tendency kernel takes periodic x/y and a bounded z: "
             "ROADMAP.md queue 1 item 11 (other configurations)")
-    code = scheme_code(scheme)
+    fam, K = scheme_code(scheme)
     if len(fields) < 3:
         raise ValueError("the tendency kernel takes u, v, w and the tracers")
     Hx, Hy, Hz = grid.H
@@ -397,17 +496,18 @@ def fused_advection_tendency(grid, scheme, fields):
         lib = build.library()
         for a, b, smem in plan["launches"]:
             build.check(lib.oc_advection_tendency(
-                code, _DTYPE_CODES[G.dtype], scode, vel,
+                fam, K, _DTYPE_CODES[G.dtype], scode, vel,
                 build.pointers(fields[a:b]), b - a, a,
                 build.pointers(G[a:b].unbind(0)), Nx, Ny, Nz, Hx, Hy, Hz,
                 m["Ax"], m["Ay"], m["Az"], m["V"], table, len(table),
                 *plan["tile"], plan["threads"], plan["blocks"], smem,
                 build.stream_of(G)), lib)
-            fused_advection_tendency.launches += 1
+            count_launch(fused_advection_tendency, scheme)
     return G
 
 
 fused_advection_tendency.launches = 0
+fused_advection_tendency.variant_launches = {}
 
 
 # -- tendency only, under a device mesh ------------------------------------------

@@ -20,13 +20,15 @@ writes G and the new fields, 40-52 B per interior cell and stage in
 float32; it needs about 550 floating-point operations per cell (each face
 flux and each derived velocity u = uh/ℑx(h) once), and at the card's own
 rate for the WENO-5 body with exact divisions those take longer than the
-bytes. Design (``csrc/fused_shallow_water.cu``): one block per TX × TY tile
+bytes. Design (``csrc/sw_kernel.cuh``): one block per TX × TY tile
 of interior cells, y fastest across threads; the block stages uh, vh, h and
 hB with a ring of the scheme's reach plus one into shared memory, forms each
 derived velocity and ½gh² once, each face flux once, then each cell's
 update, and walks the launch's tracers with uh and vh resident.
 ``launch_plan`` gives the tile, the block count and the shared memory; the
-C entry checks them. Division is exact. Schemes: WENO(5) and Centered(2),
+C entry checks them. Division is exact. Schemes: those of the 3-D
+advection kernels (``fused_advection.scheme_code``: Centered(2-12),
+UpwindBiased(1-11), WENO(3-11); the periodic 2-D domain has no cascade),
 the WENO smoothness in float32, float64 or (with float32 fields) bfloat16;
 any other scheme raises on the card. A launch takes at most ``build.BATCH``
 fields (their pointers ride in the kernel's parameter block); more fields
@@ -48,15 +50,17 @@ from ..grids.topology import PERIODIC
 from ..parallel import halo_exchange as hx
 from ..timesteppers import stage_update
 from . import build
-from .fused_advection import coefficient_table, scheme_code, smoothness_code
+from .fused_advection import (coefficient_table, count_launch, scheme_code,
+                             smoothness_code)
 from .fused_projection import _DTYPE_CODES, _metrics, check_tensors
 
 PROGNOSTIC = ("uh", "vh", "h")
 
-# Threads a block (csrc/fused_shallow_water.cu kThreads is the most it takes)
-# and the tile of interior cells a block owns, by the fields' element size:
-# at float32 a 32 x 32 tile takes 64.8 KB of shared memory (three blocks an
-# SM), at float64 a 16 x 32 tile 73.4 KB.
+# Threads a block (csrc/sw_kernel.cuh kThreads is the most it takes) and the
+# tile of interior cells a block owns, by the fields' element size: at
+# float32 a 32 x 32 tile takes 64.8 KB of shared memory at WENO(5) (three
+# blocks an SM) and 79.1 KB at WENO(11) (two), at float64 a 16 x 32 tile
+# 73.4 KB at WENO(5) and 96.5 KB at WENO(11).
 THREADS = 256
 TILES = {4: (32, 32), 8: (16, 32)}
 
@@ -68,8 +72,7 @@ def _align(n):
 
 
 def smem_bytes(tile, reach, esize):
-    """Dynamic shared memory of one block (csrc/fused_shallow_water.cu
-    Layout): five staged fields (uh, vh, h, hB, a tracer) over the tile and
+    """Dynamic shared memory of one block (csrc/sw_kernel.cuh Layout): five staged fields (uh, vh, h, hB, a tracer) over the tile and
     a ring of reach + 1, u and v over the tile and the reach, ½gh², and two
     x- and two y-flux arrays."""
     TX, TY = tile
@@ -144,7 +147,7 @@ def fused_sw_update(grid, scheme, g, f, hB, names, fields, Gm, gamma_dt,
     if q[0].device.type == "cpu":
         return fused_sw_update_plain(grid, scheme, g, f, hB, names, fields,
                                      Gm, gamma_dt, zeta_dt)
-    code = scheme_code(scheme)
+    fam, K = scheme_code(scheme)
     if not sw_eligible(grid):
         raise ValueError("the fused shallow-water stage takes a regular grid "
                          "with periodic x/y and a flat z")
@@ -172,7 +175,7 @@ def fused_sw_update(grid, scheme, g, f, hB, names, fields, Gm, gamma_dt,
         lib = build.library()
         for a, b in plan["batches"]:
             build.check(lib.oc_fused_sw_update(
-                code, _DTYPE_CODES[G.dtype], scode, prog,
+                fam, K, _DTYPE_CODES[G.dtype], scode, prog,
                 build.pointers(q[a:b]), build.pointers(outs[a:b]), b - a, a,
                 build.ptr(hB), build.ptr(Gm), build.ptr(G), Nx, Ny,
                 grid.H[0], grid.H[1], m["dx"], m["dy"], m["Ax"], m["Ay"],
@@ -180,11 +183,12 @@ def fused_sw_update(grid, scheme, g, f, hB, names, fields, Gm, gamma_dt,
                 float(zeta_dt) if Gm is not None else 0.0, table, len(table),
                 *plan["tile"], plan["threads"], plan["blocks"], plan["smem"],
                 build.stream_of(G)), lib)
-            fused_sw_update.launches += 1
+            count_launch(fused_sw_update, scheme)
     return G, dict(zip(names, outs))
 
 
 fused_sw_update.launches = 0
+fused_sw_update.variant_launches = {}
 
 
 # -- under a device mesh -------------------------------------------------------

@@ -379,7 +379,7 @@ def sweep():
     from oceananigans_tpu_torch.kernels import fused_shallow_water as fsw
     dev = torch.cuda.get_device_name(0)
     for tile, threads in ADV_SWEEP:
-        fa.UPDATE_TILES[4], fa.UPDATE_THREADS = tile, threads
+        fa.UPDATE_TILES[4], fa.UPDATE_THREADS = (tile,), threads
         res = {"label": "sweep #1", "tile": tile, "threads": threads,
                "device": dev}
         advection(res)

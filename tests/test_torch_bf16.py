@@ -41,7 +41,7 @@ import oceananigans_tpu_torch as ot
 from oceananigans_tpu_torch.advection.schemes import WENO_EPSILON, WENO_R_MAX
 from oceananigans_tpu_torch.kernels import vpu_probes as V
 from oceananigans_tpu_torch.kernels.fused_advection import (
-    coefficient_table, smoothness_code)
+    coefficient_table, smoothness_code, table_layout)
 from oceananigans_tpu_torch.models import NonhydrostaticModel
 
 torch.set_num_threads(1)
@@ -147,18 +147,22 @@ def test_bf16_coefficient_table():
     arithmetic are torch's and JAX's bfloat16 roundings (so the card's
     conversion of them is exact), the stencil coefficients are not rounded,
     and the float32 table is untouched."""
-    scheme = ot.WENO(5, smoothness_dtype=torch.bfloat16)
-    table = list(coefficient_table(scheme))
-    plain = list(coefficient_table(ot.WENO(5)))
-    smooth = list(range(15, 45)) + list(range(49, 61))   # w5f..w5g, w3f..rmax
-    for n, (t, p) in enumerate(zip(table, plain)):
-        if n in smooth:
-            rounded = torch.tensor(p, dtype=torch.bfloat16)
-            assert t == rounded.item(), (n, t, p)
-            assert t == float(jnp.asarray(p, jnp.bfloat16)), (n, t, p)
-        else:
-            assert t == p, n
-    assert table[59] != WENO_EPSILON and table[60] != WENO_R_MAX
+    for order in (5, 9):
+        scheme = ot.WENO(order, smoothness_dtype=torch.bfloat16)
+        table = list(coefficient_table(scheme))
+        plain = list(coefficient_table(ot.WENO(order)))
+        lay = table_layout(scheme.buffer)
+        # the factors, optimal weights, τ coefficients, ε and the saturation
+        smooth = range(lay["lin"], lay["size"])
+        for n, (t, p) in enumerate(zip(table, plain)):
+            if n in smooth:
+                rounded = torch.tensor(p, dtype=torch.bfloat16)
+                assert t == rounded.item(), (n, t, p)
+                assert t == float(jnp.asarray(p, jnp.bfloat16)), (n, t, p)
+            else:
+                assert t == p, n
+        eps = lay["eps"]
+        assert table[eps] != WENO_EPSILON and table[eps + 1] != WENO_R_MAX
 
 
 def test_probe_constants_round_as_from_float64():

@@ -357,13 +357,21 @@ def test_compact_configurations_step(case):
 
 
 def test_kernel_scheme_tables():
-    """The kernels' coefficient table covers WENO(5) and Centered(2); any
-    other scheme raises naming its ROADMAP item."""
+    """The kernels' coefficient table covers every scheme of the port's
+    advection/schemes.py up to buffer 6 (Centered(2-12), UpwindBiased(1-11),
+    WENO(3-11)), sized for the scheme's buffer; any other scheme raises
+    naming its ROADMAP item."""
+    from oceananigans_tpu_torch.advection import FluxFormAdvection
     from oceananigans_tpu_torch.kernels.fused_advection import (
-        TAB_SIZE, coefficient_table, scheme_code)
-    for scheme in (ot.WENO(5), ot.Centered(2)):
-        assert len(coefficient_table(scheme)) == TAB_SIZE
-    assert list(coefficient_table(ot.Centered(2)))[4:6] == [0.5, 0.5]
-    for scheme in (ot.Centered(4), ot.WENO(3), ot.UpwindBiased(3)):
+        coefficient_table, scheme_code, table_layout)
+    for scheme in ([ot.Centered(o) for o in range(2, 13, 2)]
+                   + [ot.UpwindBiased(o) for o in range(1, 12, 2)]
+                   + [ot.WENO(o) for o in range(3, 12, 2)]):
+        _, K = scheme_code(scheme)
+        assert K == scheme.required_halo
+        assert len(coefficient_table(scheme)) == table_layout(K)["size"]
+    assert list(coefficient_table(ot.Centered(2)))[0:2] == [0.5, 0.5]
+    for scheme in (ot.Centered(14), ot.UpwindBiased(13),
+                   FluxFormAdvection(ot.WENO(5), ot.WENO(5), ot.WENO(3))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             scheme_code(scheme)

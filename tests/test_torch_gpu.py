@@ -7,11 +7,12 @@ The file imports no JAX, so it also runs on a machine without it:
 
 (``--noconftest`` skips ``tests/conftest.py``, which configures JAX.)
 
-Float64 fields with float64 WENO smoothness at (16, 16, 32) (the fused
-hydrostatic tendency at 16x12x8 lat-lon, bounded and periodic x, with and
-without ph, for WENOVectorInvariant(), WENOVectorInvariant(order=5) and
-VectorInvariant(); every Coriolis branch; three tracers; a bounded
-RectilinearGrid); bound 1e-12
+Float64 fields with float64 WENO smoothness at (16, 16, 32) (every scheme
+of the advection kernels, #1, #6 and #8, at (19, 13, 30) and 45 x 61, and
+on a z column of 2K + 1 cells; the fused hydrostatic tendency at 16x12x8
+lat-lon, bounded and periodic x, with and without ph, for
+WENOVectorInvariant(), WENOVectorInvariant(order=5) and VectorInvariant();
+every Coriolis branch; three tracers; a bounded RectilinearGrid); bound 1e-12
 relative to max|plain|: the kernels evaluate the same stencils with FMA
 contraction and in another association order, which is roundoff. The halo
 fill (one launch for every axis of a batch of fields) copies, reflects or
@@ -214,10 +215,128 @@ def test_fused_sw_update(sw_inputs, scheme, with_gm):
 
 
 def test_fused_sw_update_other_scheme_raises(sw_inputs):
+    """A scheme the kernels do not take (a per-axis FluxFormAdvection)
+    raises on the card, naming its ROADMAP item."""
+    from oceananigans_tpu_torch.advection import FluxFormAdvection
     grid, fields, hB, _ = sw_inputs
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        K.fused_sw_update(grid, ot.WENO(3), 9.81, 0.0, hB,
-                          ("uh", "vh", "h", "c"), fields, None, 1e-3, 0.0)
+    s = FluxFormAdvection(ot.WENO(5), ot.WENO(3), ot.WENO(5))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        K.fused_sw_update(grid, s, 9.81, 0.0, hB, ("uh", "vh", "h", "c"),
+                          fields, None, 1e-3, 0.0)
+
+
+# -- every scheme (Centered 2-12, UpwindBiased 1-11, WENO 3-11) --------------
+# #1, #6 and #8 against their plain versions in float64 (float64 smoothness)
+# on interiors no tile divides, with a z of 30 cells (every level of each
+# cascade), and a z-wall case per family on a column of 2K + 1 cells.
+
+ALL_SCHEMES = {
+    **{f"Centered({o})": (lambda o=o: ot.Centered(o))
+       for o in range(2, 13, 2)},
+    **{f"UpwindBiased({o})": (lambda o=o: ot.UpwindBiased(o))
+       for o in range(1, 12, 2)},
+    **{f"WENO({o})": (lambda o=o: ot.WENO(o, smoothness_dtype=torch.float64))
+       for o in range(3, 12, 2)},
+}
+
+
+def _scheme_fields(N, halo, nf, seed):
+    grid = ot.RectilinearGrid(size=N, extent=(1.0, 2.0, 1.5), halo=halo,
+                              dtype=torch.float64, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f = [0.1 * torch.randn(grid.padded_shape, generator=gen,
+                           dtype=torch.float64, device="cuda")
+         for _ in range(nf)]
+    K.periodic_halo_fill(grid, f)
+    return grid, gen, f
+
+
+def _update_close(scheme, N, seed):
+    H = scheme.required_halo + 1
+    grid, gen, f = _scheme_fields(N, (H, H, 0), 6, seed)
+    u, v, w, p, c0, c1 = f
+    w[..., 0] = 0
+    tracers = {"c0": c0, "c1": c1}
+    Gm = [torch.randn(N, generator=gen, dtype=torch.float64, device="cuda")
+          for _ in range(5)]
+    for gm in (None, Gm):
+        for pp in (None, p):
+            args = (grid, scheme, u, v, w, gm, 0.1, -0.05, pp,
+                    0.07 if pp is not None else None)
+            Gk, nk = K.fused_advection_update(*args, tracers=tracers)
+            Gp, np_ = K.fused_advection_update_plain(*args, tracers=tracers)
+            _close(Gk + list(nk.values()), Gp + list(np_.values()))
+
+
+def _tendency_close(scheme, N, layout, seed):
+    H = scheme.required_halo
+    halo = (H, H, 0) if layout == "compact" else (H, H, H)
+    grid, _, f = _scheme_fields(N, halo, 5, seed)
+    if layout == "compact":
+        f[2][..., 0] = 0
+    _close(list(K.fused_advection_tendency(grid, scheme, f)),
+           list(K.fused_advection_tendency_plain(grid, scheme, f)))
+
+
+@pytest.mark.parametrize("name", list(ALL_SCHEMES))
+def test_every_scheme_update(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _update_close(ALL_SCHEMES[name](), (19, 13, 30), 40)
+
+
+@pytest.mark.parametrize("layout", ["compact", "padded"])
+@pytest.mark.parametrize("name", list(ALL_SCHEMES))
+def test_every_scheme_tendency(name, layout):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _tendency_close(ALL_SCHEMES[name](), (19, 13, 30), layout, 41)
+
+
+@pytest.mark.parametrize("name", list(ALL_SCHEMES))
+def test_every_scheme_sw(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    s = ALL_SCHEMES[name]()
+    H = s.required_halo + 1
+    grid = ot.RectilinearGrid(size=(45, 61), extent=(10.0, 8.0),
+                              halo=(H, H, 0),
+                              topology=("periodic", "periodic", "flat"),
+                              dtype=torch.float64, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(42)
+
+    def randn(shape, scale, offset=0.0):
+        return offset + scale * torch.randn(shape, generator=gen,
+                                            dtype=torch.float64, device="cuda")
+
+    shape = grid.padded_shape
+    fields = dict(uh=randn(shape, 0.1), vh=randn(shape, 0.1),
+                  h=randn(shape, 0.05, 1.0), c=randn(shape, 1.0))
+    hB = randn(shape, 0.05)
+    K.periodic_halo_fill(grid, list(fields.values()) + [hB])
+    Gm = randn((4,) + tuple(grid.N), 1.0)
+    for gm in (None, Gm):
+        args = (grid, s, 9.81, 0.3, hB, ("uh", "vh", "h", "c"), fields, gm,
+                2e-3, -1e-3)
+        Gk, nk = K.fused_sw_update(*args)
+        Gp, np_ = K.fused_sw_update_plain(*args)
+        ints = grid.interior_slices
+        _close(list(Gk) + [nk[n][ints] for n in nk],
+               list(Gp) + [np_[n][ints] for n in np_])
+
+
+@pytest.mark.parametrize("name", ["WENO(11)", "UpwindBiased(11)",
+                                  "Centered(12)"])
+def test_cascade_at_the_walls(name):
+    """A column of 2K + 1 cells: every cell within the reach of a wall,
+    each level of the cascade on a few of them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    s = ALL_SCHEMES[name]()
+    N = (9, 8, 2 * s.required_halo + 1)
+    _update_close(s, N, 43)
+    _tendency_close(s, N, "compact", 44)
+    _tendency_close(s, N, "padded", 45)
 
 
 # -- the fused hydrostatic tendency -------------------------------------------------

@@ -50,6 +50,23 @@ ADVECTION = [
     ("bf16_smoothness", (256, 256, 256), torch.float32, "weno5_bf16", 15),
     ("tile_edges_small", (12, 10, 5), torch.float64, "weno5", 40),
     ("tile_edges_ragged", (37, 29, 19), torch.float64, "weno5", 15),
+    # every reach (the tile follows it): the WENO(9) flagship, the checks'
+    # shapes and every family
+    ("weno9_flagship", (256, 256, 256), torch.float32, "weno9", 3),
+    ("weno9_tracers", (256, 256, 256), torch.float32, "weno9", 5),
+    ("weno9_bf16", (256, 256, 256), torch.float32, "weno9_bf16", 15),
+    ("weno11", (256, 256, 256), torch.float32, "weno11", 3),
+    ("weno11_tracers", (256, 256, 256), torch.float32, "weno11", 15),
+    ("weno7", (256, 256, 256), torch.float32, "weno7", 3),
+    ("weno7_tracers", (256, 256, 256), torch.float32, "weno7", 15),
+    ("weno3", (256, 256, 256), torch.float32, "weno3", 3),
+    ("centered4", (256, 256, 256), torch.float32, "centered4", 3),
+    ("centered12_tracers", (70, 44, 36), torch.float32, "centered12", 5),
+    ("upwind5", (256, 256, 256), torch.float32, "upwind5", 3),
+    ("upwind1_float64", (70, 44, 36), torch.float64, "upwind1", 5),
+    ("weno9_float64", (70, 44, 36), torch.float64, "weno9", 5),
+    ("weno11_float64", (70, 44, 36), torch.float64, "weno11", 40),
+    ("centered10_float64", (70, 44, 36), torch.float64, "centered10", 3),
 ]
 
 # (label, size, dtype, scheme, fields): #8 as the port launches it
@@ -63,6 +80,10 @@ SHALLOW_WATER = [
     ("256_bf16", (256, 256), torch.float32, "weno5_bf16", 4),
     ("tile_edges_45x61", (45, 61), torch.float64, "weno5", 36),
     ("tile_edges_9x130", (9, 130), torch.float64, "weno5", 4),
+    ("16384_weno9", (16384, 16384), torch.float32, "weno9", 3),
+    ("16384_weno11", (16384, 16384), torch.float32, "weno11", 3),
+    ("256_upwind11_float64", (256, 256), torch.float64, "upwind11", 4),
+    ("256_centered12_float64", (256, 256), torch.float64, "centered12", 4),
 ]
 
 
@@ -88,13 +109,24 @@ TENDENCY = [
      (4, 4, 0)),
     ("15_components_float32", (37, 29, 19), torch.float32, "weno5", 15,
      (4, 4, 0)),
+    ("upwind5_convection", (256, 256, 256), torch.float32, "upwind5", 4,
+     (3, 3, 3)),
+    ("weno9_padded", (70, 44, 36), torch.float64, "weno9", 4, (5, 5, 5)),
+    ("weno11_compact", (70, 44, 36), torch.float32, "weno11", 4,
+     (6, 6, 0)),
+    ("centered12_shard", (128, 128, 256), torch.float32, "centered12", 4,
+     (6, 6, 0)),
 ]
 
 
 def _scheme(name):
-    return {"weno5": lambda: ot.WENO(5),
-            "weno5_bf16": lambda: ot.WENO(5, smoothness_dtype=torch.bfloat16),
-            "centered2": lambda: ot.Centered(2)}[name]()
+    if name.endswith("_bf16"):
+        return ot.WENO(int(name[4:-5]), smoothness_dtype=torch.bfloat16)
+    for family, cls in (("weno", ot.WENO), ("centered", ot.Centered),
+                        ("upwind", ot.UpwindBiased)):
+        if name.startswith(family):
+            return cls(int(name[len(family):]))
+    raise KeyError(name)
 
 
 def _grid(size, dtype):
@@ -156,7 +188,10 @@ def test_tendency_plan(label, size, dtype, scheme, nc, halo):
     _covers_once(grid.N, plan["tile"], plan["tiles"], plan["blocks"])
     assert plan["threads"] % 32 == 0 and plan["threads"] <= 256
     esize = torch.empty((), dtype=dtype).element_size()
-    assert plan["tile"] == fa.UPDATE_TILES[esize]
+    reach = s.required_halo
+    assert plan["tile"] == fa.pick_tile(reach, esize, nc > 3)
+    if reach <= 3:   # WENO(5)'s tiles, as before the tiles followed the reach
+        assert plan["tile"] == fa.UPDATE_TILES[esize][0]
     assert [(a, b) for a, b, _ in plan["launches"]] == build.batches(nc)
     for a, b, smem in plan["launches"]:
         assert smem <= MAX_SMEM
@@ -267,6 +302,24 @@ def test_smem_bytes_by_hand():
     assert fa.smem_bytes((16, 8, 8), 3, 4, False) == 4 * (3 * 4312 + 3392)
     assert fsw.smem_bytes((32, 32), 3, 4) == 4 * (5 * 1600 + 2 * 1444 + 1092
                                                  + 4 * 1056)
+
+
+def test_smem_bytes_by_reach_by_hand():
+    """The tiles the reach picks, counted by hand: WENO(9) (reach 5) over u,
+    v, w alone at float32 keeps 16x8x8 (boxes of 26x18x18 = 8424 cells,
+    fluxes 3392; 114,656 B, two blocks an SM); with tracers it takes 8x8x4
+    (boxes of 18x18x14 = 4536, tracer boxes z-extended by 8 each way:
+    18x18x20 = 6480; fluxes 9x8x4 + 8x9x4 + 8x8x5 = 896); WENO(11) (reach 6)
+    at float64 with tracers takes 4x8x4 (boxes 16x20x16 = 5120, tracer
+    boxes 16x20x20 = 6400, fluxes 5x8x4 + 4x9x4 + 4x8x5 = 464)."""
+    assert fa.pick_tile(5, 4, False) == (16, 8, 8)
+    assert fa.smem_bytes((16, 8, 8), 5, 4, False) == 4 * (3 * 8424 + 3392)
+    assert fa.pick_tile(5, 4, True) == (8, 8, 4)
+    assert fa.smem_bytes((8, 8, 4), 5, 4, True) == 4 * (3 * 4536 + 2 * 6480
+                                                       + 896)
+    assert fa.pick_tile(6, 8, True) == (4, 8, 4)
+    assert fa.smem_bytes((4, 8, 4), 6, 8, True) == 8 * (3 * 5120 + 2 * 6400
+                                                       + 464)
 
 
 def test_vi_smem_bytes_by_hand():
