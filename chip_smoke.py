@@ -226,6 +226,33 @@ Phases (each raises on failure; nothing is caught):
    UpwindBiased(5) convection row (the padded layout, 13 steps, Σb
    conserved to 1e-6, the same reports). Its wall time is printed.
 
+26. Every configuration of the hydrostatic tendency #10 (the JAX kernel's
+   coverage on lat-lon and rectilinear grids): #10 against its plain
+   version in float64 at 16x12x8 (bound 1e-12 relative) on a stretched z
+   (JAX's test grid and an ExponentialDiscretization) and a stretched y
+   (a lat-lon grid with a latitude array, a RectilinearGrid), with
+   WENOVectorInvariant(order=3, 5, 7, 9, 11), CROSS_AND_SELF,
+   DEFAULT_STENCIL, an UpwindBiased and a Centered VI and mixed vertical,
+   divergence and kinetic-energy schemes, the tracer schemes Centered(4,
+   12), UpwindBiased(1, 3), WENO(7, 9, 11) and a per-axis
+   FluxFormAdvection, 9, 17 and 40 tracers (two launches), and every
+   Coriolis (none, FPlane, BetaPlane, ConstantCartesianCoriolis,
+   NonTraditionalBetaPlane, both spherical forms); bf16 smoothness on
+   float32 fields held as phase 19 holds #1; the tile edges at the new
+   reaches (WENO(11) and CROSS_AND_SELF on a stretched y and z, 3 and 40
+   tracers); then the 512x256x32 stretched-z CATKE ocean row (phase 22's
+   row with ExponentialDiscretization(32, -1800, 0, scale=450) levels)
+   under "auto": #10 against its plain version on the row's state (phase
+   9's float32 bound), timed with its bound; 3 warm-up and 10 timed steps
+   with the counters (#10 once a step in its k5_z variant, no plain
+   tendency on CUDA tensors, the fill kernel), finite fields, T conserved,
+   the step median, min and max, peak memory, the phase shares (CUDA
+   events), the busy share and the device kernels per step; the same row
+   with fused_tendencies=False (the plain route's step in the same call);
+   and #10 alone with WENOVectorInvariant(order=9) and WENO(9) T on the
+   hydro_row's 512x256x32 grid (reach 5 in every direction), checked and
+   timed. Its wall time is printed.
+
 Fill times are CUDA events around one call behind a busy card (the device's
 time, ``device_ms``), with the call from an idle card beside them (host
 launch work included, as PR 9's were taken). The line before the last is
@@ -388,17 +415,33 @@ def tiled_kernels_report():
                                         latitude=(15, 75), z=(-1800.0, 0.0),
                                         dtype=dt, device="cuda")
         vi = ot.WENOVectorInvariant(smoothness_dtype=dt)
-        cfg = fvi.vi_config(grid, vi, ot.Centered(2), 1,
-                            ot.HydrostaticSphericalCoriolis())
-        plan = fvi.launch_plan(grid, cfg, dt)
-        per_sm = ctypes.c_int(0)
-        build.check(lib.oc_vi_blocks_per_sm(
-            codes[dt], codes[dt], cfg["vort"], cfg["kv"], *plan["tile"],
-            plan["threads"], plan["smem"], ctypes.byref(per_sm)), lib)
-        print(f"  {label}: tile {plan['tile']}, reach {plan['reach']}, "
-              f"{plan['threads']} threads, {plan['blocks']} blocks, "
-              f"{plan['smem']} B shared, {per_sm.value} blocks per SM")
+        vi_plan_report(label, grid, vi, ot.Centered(2), 1,
+                       ot.HydrostaticSphericalCoriolis())
 
+
+def vi_plan_report(label, grid, vi, tracer_scheme, n_tracers, coriolis):
+    """Print #10's launch plan for a configuration: its variant, tile,
+    reaches, staged rows, shared memory and the blocks an SM holds
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Returns the plan."""
+    import ctypes
+
+    from oceananigans_tpu_torch.kernels import build
+    from oceananigans_tpu_torch.kernels import fused_vector_invariant as fvi
+    codes = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+    lib = build.library()
+    cfg = fvi.vi_config(grid, vi, tracer_scheme, n_tracers, coriolis)
+    plan = fvi.launch_plan(grid, cfg, grid.dtype)
+    per_sm = ctypes.c_int(0)
+    conf = fvi.conf_array(grid, cfg, plan, min(n_tracers, fvi.TRACER_BATCH),
+                          False, True)
+    build.check(lib.oc_vi_blocks_per_sm(
+        codes[grid.dtype], codes[cfg["sdtype"]], conf, *plan["tile"],
+        plan["threads"], plan["smem"], ctypes.byref(per_sm)), lib)
+    print(f"  {label}: variant {fvi.variant_name(cfg)}, tile {plan['tile']}, "
+          f"reach (R, Rw, Rz, Rc) {plan['reach']}, rows (y, z) "
+          f"{plan['rows']}, {plan['threads']} threads, {plan['blocks']} "
+          f"blocks, {plan['smem']} B shared, {per_sm.value} blocks per SM")
+    return plan
 
 def busy_share(label, model, dt, steps, step_ms, card):
     """The device's busy share over ``steps`` steady steps of ``model``: the
@@ -703,16 +746,20 @@ def tendency_tile_edge_checks():
     torch.cuda.synchronize()
 
 
-def vi_tile_edge_checks():
+def vi_tile_edge_checks(configs=None, tracer_counts=(3, 8), y=None, z=None,
+                        label="two configurations"):
     """#10 against its plain version in float64 on interiors its 8x8x8
     float64 tiles do not divide, over the interior and the boundary-face
     rows: a bounded-x-and-y RectilinearGrid and a periodic-x one (FPlane,
-    ph), WENOVectorInvariant() and VectorInvariant(), 3 and 8 tracers;
-    bound 1e-12 relative to each output's own max|plain|."""
+    ph), by default WENOVectorInvariant() and VectorInvariant() with 3 and 8
+    tracers on regular axes; ``configs`` ({label: (make VI, make tracer
+    scheme)}), ``tracer_counts`` and stretched ``y`` and ``z`` face
+    positions (19 and 12 cells) take others; bound 1e-12 relative to each
+    output's own max|plain|."""
     import oceananigans_tpu_torch as ot
     from oceananigans_tpu_torch import kernels as K
     f64 = torch.float64
-    configs = {"WENOVectorInvariant()": (
+    configs = configs or {"WENOVectorInvariant()": (
         lambda: ot.WENOVectorInvariant(smoothness_dtype=f64),
         lambda: ot.WENO(5, smoothness_dtype=f64)),
         "VectorInvariant()": (ot.VectorInvariant, lambda: ot.Centered(2))}
@@ -720,12 +767,15 @@ def vi_tile_edge_checks():
         for topo in (("bounded", "bounded", "bounded"),
                      ("periodic", "bounded", "bounded")):
             worst = 0.0
-            for label, (mvi, mts) in configs.items():
-                for ntr in (3, 8):
+            for clabel, (mvi, mts) in configs.items():
+                for ntr in tracer_counts:
                     names = tuple(f"c{i}" for i in range(ntr))
                     grid = ot.RectilinearGrid(
-                        size=N, extent=(4e5, 2.4e5, 1800.0), halo=(6, 6, 6),
-                        topology=topo, dtype=f64, device="cuda")
+                        size=N, x=(0.0, 4e5),
+                        y=(0.0, 2.4e5) if y is None else y(N[1]),
+                        z=(-1800.0, 0.0) if z is None else z(N[2]),
+                        halo=(7, 7, 7), topology=topo, dtype=f64,
+                        device="cuda")
                     grid, f = hydro_kernel_inputs(None, seed=6, grid=grid,
                                                   tracers=names)
                     args = (grid, mvi(), mts(), names, ot.FPlane(f=1e-4),
@@ -737,10 +787,10 @@ def vi_tile_edge_checks():
                         [Gk[0], Gk[1]] + [Gk[2][n] for n in names],
                         [Gp[0], Gp[1]] + [Gp[2][n] for n in names])
                     assert rel <= 1e-12, ("fused_vi_tendency tile edges", N,
-                                          topo, label, ntr, rel)
+                                          topo, clabel, ntr, rel)
                     worst = max(worst, rel)
             print(f"  fused_vi_tendency tile edges {N} {topo[0]} x, bounded "
-                  f"y float64, two configurations, 3 and 8 tracers: worst "
+                  f"y float64, {label}, {tracer_counts} tracers: worst "
                   f"rel {worst:.3e}")
     torch.cuda.synchronize()
 
@@ -2066,47 +2116,114 @@ def weno_flop(K, n_smooth):
     return values + smooth + tau + 9 * K + 1
 
 
-# The fused hydrostatic tendency, per interior cell, for the hydro_row
-# configuration (WENO-9 vorticity with the velocity stencil, WENO-5
-# vertical, divergence and Bernoulli schemes, spherical energy-conserving
-# Coriolis, one Centered(2) tracer, no ph): each derived field, face flux
-# and reconstruction once.
+# The fused hydrostatic tendency, per interior cell, by configuration (its
+# sites' families and buffers, ``vi_config``): each derived field, face
+# flux and reconstruction once, whatever implements them.
 # - derived fields: ζ (2 products, 2 differences, a difference, a division:
-#   6), û and v̂ (a product, two means of 2 operations, a division: 6 each),
-#   ℑy u and ℑx v (2 each), u²/2 and v²/2 (2 each), their four differences
-#   (4), ℑx u and ℑy v (2 each), δx(Ax u) and δy(Ay v) (2 each), and
-#   δx(Ax u) + δy(Ay v) (1): 39;
-# - per momentum component: the vorticity reconstruction (WENO-9 over two
-#   smoothness arrays) with its product and sign (2); the Bernoulli head: a
-#   Centered(4) cross term (7), a WENO-5 with one smoothness array, a sum, a
-#   division and a sign (3); the vertical term: Φᵟ (Centered(4), WENO-5 with
-#   one smoothness array, a sum, a product: 7 + 2), one z face flux (A·w 1,
-#   the Centered(4) ŵ 7, a WENO-5, the product 1), its difference, the sum
-#   and the division (3); Coriolis (ℑx(Δx v) 3, the product with f, ℑy 2, a
-#   division, a sign: 7); the three sums of the phases (3);
-# - the tracer: three face fluxes of (A·u 1, a selected Centered(2) 3, the
-#   product 1), three differences, two sums, a division and a sign: 22.
-VI_DERIVED_FLOP = 39
-VI_TRACER_FLOP = 3 * 5 + 3 + 2 + 2
+#   6), û and v̂ (a product, two means of 2 operations, a division: 6 each);
+#   the velocity stencil's ℑy u and ℑx v (2 each); a self-upwinded
+#   Bernoulli head's u²/2 and v²/2 (2 each), their four differences (4) and
+#   ℑx u, ℑy v (2 each), or the energy form's K (7); a scheme's vertical
+#   term's δx(Ax u) and δy(Ay v) (2 each) and their sum (1), two more
+#   products on a stretched z (Ax·Δz, Ay·Δz). The hydro_row's: 39.
+# - per momentum component: the vorticity flux (a scheme's reconstruction
+#   with its product and sign, 2; energy 8; enstrophy 5); the Bernoulli head
+#   (the cross Centered(2b) 4b − 1, the reconstruction with one smoothness
+#   array, a sum, a division and a sign, 3; or the energy form's difference,
+#   division and sign, 3); the vertical term (Φᵟ: the cross Centered, the
+#   reconstruction, a sum and a product, 2, or CROSS_AND_SELF's
+#   reconstruction and product; one z face flux: A·w 1, the symmetric ŵ, the
+#   z reconstruction, the product 1; the difference, the sum and the
+#   division, 3; one more product for V on a stretched z; or the energy
+#   form's ℑx(Az w) 3, δz/Δz 2, the product, ℑz 2, the division and the
+#   sign: 10); Coriolis 7; −δph/Δ and its sum 3 with pₕ′; the three sums of
+#   the phases (3);
+# - per tracer: three face fluxes of (A·u 1, the reconstruction of the
+#   axis's site, the product 1; one more product for Ax, Ay on a stretched
+#   z), three differences, two sums, a division and a sign (7; one more
+#   product for V on a stretched z). Centered(2): 22.
+def vi_recon_flop(cfg, site, n_smooth=0):
+    """Operations of one reconstruction at a site of ``cfg`` at its own
+    buffer K: WENO-(2K-1) (``weno_flop``), a selected UpwindBiased(2K-1)
+    (2K-1 products, 2K-2 sums) or Centered(2K) (2K products, 2K-1 sums)."""
+    from oceananigans_tpu_torch.kernels import fused_vector_invariant as fvi
+    fam, K = cfg["sites"][site]
+    if fam == fvi.WENO_FAMILY:
+        return weno_flop(K, n_smooth)
+    return 2 * (2 * K if fam == fvi.CENTERED else 2 * K - 1) - 1
 
 
-def vi_momentum_flop():
-    return ((weno_flop(5, 2) + 2) + (7 + weno_flop(3, 1) + 3)
-            + (7 + weno_flop(3, 1) + 2 + 1 + 7 + weno_flop(3, 0) + 1 + 3)
-            + 7 + 3)
+def vi_sym_flop(cfg, site):
+    """Operations of a symmetric site's Centered(2b) at its top level."""
+    from oceananigans_tpu_torch.kernels import fused_vector_invariant as fvi
+    return 4 * fvi.sym_buffer(cfg["sites"][site]) - 1
+
+
+def vi_flop(cfg, n_tracers, with_ph=False):
+    """Operations of the hydrostatic tendency per interior cell for the
+    configuration ``cfg`` (``vi_config``) with ``n_tracers`` tracers (the
+    accounting above)."""
+    zs = int(cfg["zs"])
+    two = cfg["vort"] == 2 and cfg["vort_sm"] == 2
+    derived = 6 + 12 + (4 if two else 0)
+    derived += 12 if cfg["ke"] else 7
+    derived += (5 + 2 * zs) if cfg["vert"] else 0
+    per = 0
+    for ax in ("x", "y"):
+        if cfg["vort"] == 2:
+            per += vi_recon_flop(cfg, "vort_" + ax, 2 if two else 0) + 2
+        else:
+            per += 8 if cfg["vort"] == 1 else 5
+        if cfg["ke"]:
+            per += vi_sym_flop(cfg, "kc_" + ax) + vi_recon_flop(
+                cfg, "ke_" + ax, 1) + 3
+        else:
+            per += 3
+        if cfg["vert"]:
+            if cfg["upw"]:
+                per += vi_recon_flop(cfg, "div_" + ax) + 1
+            else:
+                per += vi_sym_flop(cfg, "dc_" + ax) + vi_recon_flop(
+                    cfg, "div_" + ax, 1) + 2
+            per += 1 + vi_sym_flop(cfg, "vs_" + ax) + vi_recon_flop(
+                cfg, "vz") + 1 + 3 + zs
+        else:
+            per += 10
+        per += (7 if cfg["cor"] else 0) + (3 if with_ph else 0) + 3
+    tracer = 0
+    if cfg["tracers"]:
+        tracer = sum(2 + vi_recon_flop(cfg, "t_" + ax)
+                     for ax in ("x", "y", "z")) + 2 * zs + 7 + zs
+    return derived + per + n_tracers * tracer
+
+
+def vi_bound(grid, cfg, n_tracers, with_ph=False):
+    """(bound_ms, bound_by) of the hydrostatic tendency on ``grid``: read u,
+    v, w, the tracers (and pₕ′) padded, write Gu, Gv and the Gc (the
+    interiors); the operations of ``vi_flop``."""
+    cells = grid.N[0] * grid.N[1] * grid.N[2]
+    padded = int(np.prod(grid.padded_shape))
+    esize = torch.empty((), dtype=grid.dtype).element_size()
+    nbytes = esize * ((3 + n_tracers + int(with_ph)) * padded
+                      + (2 + n_tracers) * cells)
+    return bound(nbytes, cells * vi_flop(cfg, n_tracers, with_ph))
 
 
 def hydro_bounds(N, H, esize, n_tracers=1):
     """Bounds of the hydrostatic path's tendency kernel at interior N, halo
-    H: read u, v, w and the tracers padded, write Gu, Gv and the Gc (the
-    interiors); the operations above."""
-    cells = N[0] * N[1] * N[2]
-    PX, PY, PZ = (n + 2 * h for n, h in zip(N, H))
-    padded = PX * PY * PZ
-    nbytes = esize * ((3 + n_tracers) * padded + (2 + n_tracers) * cells)
-    flop = cells * (VI_DERIVED_FLOP + 2 * vi_momentum_flop()
-                    + n_tracers * VI_TRACER_FLOP)
-    return {"fused_vi_tendency": bound(nbytes, flop)}
+    H for the hydro_row configuration (WENO-9 vorticity with the velocity
+    stencil, WENO-5 vertical, divergence and Bernoulli schemes, spherical
+    energy-conserving Coriolis, Centered(2) tracers, no pₕ′; ``vi_bound``)."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch.kernels import fused_vector_invariant as fvi
+    dt = torch.float32 if esize == 4 else torch.float64
+    grid = ot.LatitudeLongitudeGrid(size=N, longitude=(0, 60),
+                                    latitude=(15, 75), z=(-1800.0, 0.0),
+                                    halo=H, dtype=dt, device="cpu")
+    cfg = fvi.vi_config(grid, ot.WENOVectorInvariant(smoothness_dtype=dt),
+                        ot.Centered(2), n_tracers,
+                        ot.HydrostaticSphericalCoriolis())
+    return {"fused_vi_tendency": vi_bound(grid, cfg, n_tracers)}
 
 
 def hydro_model(N, dtype, device, seed=0, smoothness=torch.float32,
@@ -2153,7 +2270,7 @@ def ocean_model(N, dtype, device, immersed=False, seed=0,
                 longitude=(0, 60), latitude=(15, 75),
                 momentum_advection=None, free_surface=None,
                 timestepper="QuasiAdamsBashforth2", top_u=-1e-4,
-                reference_datetime=None):
+                reference_datetime=None, z=(-1800.0, 0.0)):
     """The CATKE ocean row: the ocean_catke_windstress golden's
     configuration at the hydro_row's size. A lat-lon grid 1800 m deep,
     WENOVectorInvariant(), tracer_advection=WENO(5),
@@ -2165,14 +2282,15 @@ def ocean_model(N, dtype, device, immersed=False, seed=0,
     the grid carries ``ocean_ridge`` as a GridFittedBottom;
     ``momentum_advection``, ``free_surface`` and ``timestepper`` replace
     the row's; ``top_u`` (a number or callable for a FluxBoundaryCondition,
-    or a boundary condition) replaces u's top flux."""
+    or a boundary condition) replaces u's top flux; ``z`` the grid's
+    vertical coordinate (the stretched row's ExponentialDiscretization)."""
     import oceananigans_tpu_torch as ot
     from oceananigans_tpu_torch.boundary_conditions import BoundaryCondition
     from oceananigans_tpu_torch.closures import CATKEVerticalDiffusivity
     from oceananigans_tpu_torch.immersed import (GridFittedBottom,
                                                  ImmersedBoundaryGrid)
     grid = ot.LatitudeLongitudeGrid(size=N, longitude=longitude,
-                                    latitude=latitude, z=(-1800.0, 0.0),
+                                    latitude=latitude, z=z,
                                     dtype=dtype, device=device)
     if immersed:
         grid = ImmersedBoundaryGrid(grid, GridFittedBottom(ocean_ridge))
@@ -4046,7 +4164,7 @@ KERNEL_SOURCES = {
         "oceananigans_tpu_torch/csrc/sw_kernel.cuh",
         "oceananigans_tpu/kernels/fused_shallow_water.py:43"),
     "fused_vi_tendency": (
-        "oceananigans_tpu_torch/csrc/fused_vector_invariant.cu",
+        "oceananigans_tpu_torch/csrc/vi_kernel.cuh",
         "oceananigans_tpu/kernels/fused_vector_invariant.py:262"),
     "build_sharded_fused_advection": (
         "oceananigans_tpu_torch/kernels/fused_advection.py",
@@ -5603,6 +5721,414 @@ def schemes_phase(card):
     return out, flagship, convection
 
 
+# -- every configuration of #10 (phase 26) ----------------------------------------
+
+VI_CHECK_N = (16, 12, 8)
+# the stretched row's levels: the tripolar row's stretching (a scale of a
+# quarter of the depth) at the ocean row's depth
+STRETCHED_SCALE = 450.0
+# JAX's stretched-z test grid (tests/test_fused_vector_invariant.py:109-120)
+JAX_TEST_Z = tuple(-500.0 * np.linspace(1, 0, 9) ** 1.5)
+
+
+def stretched_z(nz):
+    import oceananigans_tpu_torch as ot
+    return ot.ExponentialDiscretization(nz, -1800.0, 0.0,
+                                        scale=STRETCHED_SCALE)
+
+
+def vi_coverage_cases():
+    """(label, grid, vi, tracer scheme, tracer names, coriolis, with ph) of
+    the float64 coverage checks at 16x12x8: a stretched z (JAX's test grid
+    and an ExponentialDiscretization) and a stretched y (a RectilinearGrid,
+    and a lat-lon grid with a latitude array); WENOVectorInvariant(order=3,
+    7, 9, 11), CROSS_AND_SELF, DEFAULT_STENCIL, an UpwindBiased and a
+    Centered VI and mixed vertical, divergence and kinetic-energy schemes;
+    the tracer schemes Centered(4), Centered(12), UpwindBiased(1, 3), WENO(7,
+    9, 11) and a per-axis FluxFormAdvection, 9, 17 and 40 tracers (two
+    launches); each Coriolis. Every WENO has float64 smoothness."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch.advection.schemes import FluxFormAdvection
+    f64 = torch.float64
+    sd = dict(smoothness_dtype=f64)
+    hsc = ot.HydrostaticSphericalCoriolis
+    N = VI_CHECK_N
+
+    def ll(lon=(0.0, 60.0), latitude=(15, 75), z=(-1800.0, 0.0)):
+        return ot.LatitudeLongitudeGrid(size=N, longitude=lon,
+                                        latitude=latitude, z=z,
+                                        halo=(7, 7, 7), dtype=f64,
+                                        device="cuda")
+
+    def rect(topo=("bounded", "bounded", "bounded"), y=(0.0, 2.4e5),
+             z=(-1800.0, 0.0)):
+        return ot.RectilinearGrid(size=N, x=(0.0, 4e5), y=y, z=z,
+                                  halo=(7, 7, 7), topology=topo, dtype=f64,
+                                  device="cuda")
+
+    lat = tuple(15 + 60 * np.linspace(0, 1, N[1] + 1) ** 1.3)
+    yf = tuple(2.4e5 * np.linspace(0, 1, N[1] + 1) ** 1.4)
+    grids = {"stretched z (JAX's test grid)": ll(z=JAX_TEST_Z),
+             "stretched z (ExponentialDiscretization)":
+                 ll(z=stretched_z(N[2])),
+             "stretched latitude": ll(latitude=lat),
+             "RectilinearGrid stretched y, periodic x":
+                 rect(("periodic", "bounded", "bounded"), y=yf),
+             "RectilinearGrid stretched y and z": rect(y=yf, z=JAX_TEST_Z)}
+    vis = {
+        "WENOVectorInvariant(order=3)": ot.WENOVectorInvariant(order=3, **sd),
+        "WENOVectorInvariant()": ot.WENOVectorInvariant(**sd),
+        "WENOVectorInvariant(order=7)": ot.WENOVectorInvariant(order=7, **sd),
+        "WENOVectorInvariant(order=9)": ot.WENOVectorInvariant(order=9, **sd),
+        "WENOVectorInvariant(order=11)":
+            ot.WENOVectorInvariant(order=11, **sd),
+        "cross_and_self": ot.WENOVectorInvariant(upwinding="cross_and_self",
+                                                 **sd),
+        "DEFAULT_STENCIL": ot.WENOVectorInvariant(vorticity_stencil="default",
+                                                  **sd),
+        "UpwindBiased VI": ot.VectorInvariant(
+            vorticity_scheme=ot.UpwindBiased(5),
+            vertical_advection_scheme=ot.UpwindBiased(3)),
+        "Centered VI": ot.VectorInvariant(
+            vorticity_scheme=ot.Centered(4),
+            vertical_advection_scheme=ot.Centered(4)),
+        "mixed (WENO(7) ζ, WENO(3) vertical, UpwindBiased(5) divergence, "
+        "WENO(9) Bernoulli)": ot.VectorInvariant(
+            vorticity_scheme=ot.WENO(7, **sd),
+            vertical_advection_scheme=ot.WENO(3, **sd),
+            divergence_scheme=ot.UpwindBiased(5),
+            kinetic_energy_gradient_scheme=ot.WENO(9, **sd)),
+        "VectorInvariant(), WENO(5) Bernoulli only": ot.VectorInvariant(
+            kinetic_energy_gradient_scheme=ot.WENO(5, **sd)),
+    }
+    tracer_schemes = {
+        "Centered(4)": ot.Centered(4), "Centered(12)": ot.Centered(12),
+        "UpwindBiased(1)": ot.UpwindBiased(1),
+        "UpwindBiased(3)": ot.UpwindBiased(3), "WENO(7)": ot.WENO(7, **sd),
+        "WENO(9)": ot.WENO(9, **sd), "WENO(11)": ot.WENO(11, **sd),
+        "FluxFormAdvection(WENO(5), UpwindBiased(3), Centered(4))":
+            FluxFormAdvection(ot.WENO(5, **sd), ot.UpwindBiased(3),
+                                 ot.Centered(4))}
+    coriolis = {"no Coriolis": lambda g: None,
+                "FPlane": lambda g: ot.FPlane(f=1e-4),
+                "BetaPlane": lambda g: ot.BetaPlane(f0=1e-4, beta=1e-11),
+                "ConstantCartesianCoriolis": lambda g:
+                    ot.ConstantCartesianCoriolis(fx=1e-5, fy=2e-5, fz=1e-4),
+                "NonTraditionalBetaPlane": lambda g:
+                    ot.NonTraditionalBetaPlane(fz0=1e-4, beta=1e-11,
+                                               fy0=5e-5, gamma=-1e-11),
+                "spherical energy-conserving": lambda g: hsc(),
+                "spherical enstrophy-conserving": lambda g:
+                    hsc(scheme="enstrophy_conserving")}
+    cases = []
+    for gname, grid in grids.items():
+        planar = isinstance(grid, ot.RectilinearGrid)
+        cor = ot.FPlane(f=1e-4) if planar else hsc()
+        for vname, vi in vis.items():
+            cases.append((f"{gname}, {vname}, WENO(5) tracer", grid, vi,
+                          ot.WENO(5, **sd), ("c",), cor, True))
+        for tname, ts in tracer_schemes.items():
+            cases.append((f"{gname}, WENOVectorInvariant(order=5), {tname} "
+                          f"tracers", grid,
+                          ot.WENOVectorInvariant(order=5, **sd), ts,
+                          ("a", "b"), cor, False))
+        for cname, make in coriolis.items():
+            if planar and cname.startswith("spherical"):
+                continue
+            cases.append((f"{gname}, VectorInvariant(), {cname}", grid,
+                          ot.VectorInvariant(), ot.Centered(2), ("c",),
+                          make(grid), True))
+            cases.append((f"{gname}, WENOVectorInvariant(), {cname}", grid,
+                          ot.WENOVectorInvariant(**sd), ot.WENO(5, **sd),
+                          ("c",), make(grid), False))
+    grid = grids["stretched z (JAX's test grid)"]
+    for ntr in (9, 17, 40):
+        cases.append((f"stretched z, WENOVectorInvariant(), WENO(7), {ntr} "
+                      f"tracers", grid, ot.WENOVectorInvariant(**sd),
+                      ot.WENO(7, **sd), tuple(f"c{i}" for i in range(ntr)),
+                      hsc(), True))
+    return cases
+
+
+def vi_coverage_checks():
+    """#10 against its plain version for every case of
+    ``vi_coverage_cases`` in float64: 1e-12 relative to each output's own
+    max|plain| (FMA contraction and another association order)."""
+    from oceananigans_tpu_torch import kernels as K
+    worst = 0.0
+    for label, grid, vi, ts, names, coriolis, with_ph in vi_coverage_cases():
+        grid, f = hydro_kernel_inputs(None, seed=8, grid=grid, tracers=names)
+        args = (grid, vi, ts, names, coriolis, f["u"], f["v"], f["w"],
+                {n: f[n] for n in names}, f["ph"] if with_ph else None)
+        Gk = K.fused_vi_tendency(*args)
+        Gp = K.fused_vi_tendency_plain(*args)
+        err, rel = worst_rel([Gk[0], Gk[1]] + [Gk[2][n] for n in names],
+                             [Gp[0], Gp[1]] + [Gp[2][n] for n in names])
+        print(f"  fused_vi_tendency {VI_CHECK_N} float64 {label}: max abs "
+              f"{err:.3e}, rel {rel:.3e}")
+        assert rel <= 1e-12, ("fused_vi_tendency coverage", label, rel)
+        worst = max(worst, rel)
+    torch.cuda.synchronize()
+    return worst
+
+
+def vi_bf16_checks():
+    """#10 with bfloat16 smoothness on float32 fields against its plain
+    version, as phase 19 holds #1 (``bf16_check``: 2e-5 of each output's
+    max|plain|, at most a tenth of the bf16-vs-float32 difference) at
+    64x48x16 on the hydro_row's lat-lon grid, regular and stretched z,
+    WENOVectorInvariant() and WENO(5) T and S with pₕ′."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+    worst = 0.0
+    for zlabel, z in (("regular z", (-1800.0, 0.0)),
+                      ("stretched z", stretched_z(16))):
+        grid = ot.LatitudeLongitudeGrid(size=(64, 48, 16), longitude=(0, 60),
+                                        latitude=(15, 75), z=z,
+                                        halo=(7, 7, 7), dtype=torch.float32,
+                                        device="cuda")
+        names = ("T", "S")
+        grid, f = hydro_kernel_inputs(None, seed=9, grid=grid, tracers=names)
+        f = {k: v.to(torch.float32) for k, v in f.items()}
+        hsc = ot.HydrostaticSphericalCoriolis()
+
+        def run(fn, sdt):
+            G = fn(grid, ot.WENOVectorInvariant(smoothness_dtype=sdt),
+                   ot.WENO(5, smoothness_dtype=sdt), names, hsc, f["u"],
+                   f["v"], f["w"], {n: f[n] for n in names}, f["ph"])
+            return [G[0], G[1]] + [G[2][n] for n in names]
+
+        Gk = run(K.fused_vi_tendency, torch.bfloat16)
+        Gp = run(K.fused_vi_tendency_plain, torch.bfloat16)
+        G32 = run(K.fused_vi_tendency_plain, torch.float32)
+        worst = max(worst, bf16_check(
+            f"fused_vi_tendency 64x48x16 float32 bf16 smoothness, {zlabel}",
+            Gk, Gp, G32, [g.abs().max().item() for g in Gp], 2e-5,
+            range(4)))
+    torch.cuda.synchronize()
+    return worst
+
+
+def stretched_row_state(model):
+    """The inputs #10 takes in ``model``'s next step: its fields filled, w
+    from continuity and pₕ′."""
+    fields = model._fill_all(dict(model.state["fields"]))
+    w = model._w_from_continuity(fields["u"], fields["v"])
+    ph = model._hydrostatic_pressure(fields)
+    names = model.tracer_names
+    return (model.grid, model.momentum_advection, model.tracer_advection,
+            names, model.coriolis, fields["u"], fields["v"], w,
+            {n: fields[n] for n in names}, ph)
+
+
+def vi_row_kernel(label, args):
+    """#10 against its plain version on a row's own float32 state (bound 2e-5
+    of each output's max|plain|, phase 9's), the CUDA-event times of kernel
+    and plain version, and the bound: a measured row."""
+    from oceananigans_tpu_torch import kernels as K
+    from oceananigans_tpu_torch.kernels import fused_vector_invariant as fvi
+    grid, vi, ts, names, cor = args[:5]
+    Gk = K.fused_vi_tendency(*args)
+    Gp = K.fused_vi_tendency_plain(*args)
+    err, rel = worst_rel([Gk[0], Gk[1]] + [Gk[2][n] for n in names],
+                         [Gp[0], Gp[1]] + [Gp[2][n] for n in names])
+    print(f"  fused_vi_tendency {label} float32: max abs {err:.3e}, rel "
+          f"{rel:.3e} (bound 2e-5)")
+    assert rel <= 2e-5, ("fused_vi_tendency", label, rel)
+    del Gk, Gp
+    ms = cuda_ms(lambda: K.fused_vi_tendency(*args))
+    plain_ms = cuda_ms(lambda: K.fused_vi_tendency_plain(*args), reps=5)
+    cfg = fvi.vi_config(grid, vi, ts, len(names), cor)
+    b = vi_bound(grid, cfg, len(names), args[-1] is not None)
+    print(f"  time fused_vi_tendency {label} at {grid.padded_shape}: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b[0]:.4f} ms "
+          f"({b[1]}; {vi_flop(cfg, len(names), args[-1] is not None)} "
+          f"operations a cell), variant {fvi.variant_name(cfg)}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b)
+
+
+def stretched_ocean_model(fused_tendencies="auto"):
+    """The stretched CATKE ocean row: ``ocean_model`` at 512x256x32 float32
+    with a flat bottom and 32 levels of ExponentialDiscretization(32, -1800,
+    0, scale=450)."""
+    return ocean_model(HYDRO_N, torch.float32, "cuda",
+                       fused_tendencies=fused_tendencies,
+                       z=stretched_z(HYDRO_N[2]))
+
+
+def stretched_steps(label, model, card, warmup=3, timed=10):
+    """Counters reset just before ``warmup`` + ``timed`` steps of Δt = 120
+    s and read just after; finite fields; T conserved over the cells
+    (1e-6); step median, min and max, peak memory, the phase shares (CUDA
+    events, 3 steps) and the busy share (3 steps). Returns (launches,
+    plain calls on CUDA, the counted steps, step median ms)."""
+    from oceananigans_tpu_torch import kernels as K
+    dt = OCEAN_DT
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_counters()
+    for _ in range(warmup):
+        model.time_step(dt)
+    torch.cuda.synchronize()
+    T0, T0abs = fluid_volume_sum(model, "T")
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        model.time_step(dt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches, plain_cuda = K.counters()
+    steps = model.iteration
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label} launches over {steps} steps: "
+          f"{ {k: v for k, v in launches.items() if v} }; plain calls on "
+          f"CUDA: { {k: v for k, v in plain_cuda.items() if v} }")
+    for name in model.prognostic_names + ("w",):
+        a = model.field(name).interior
+        assert torch.isfinite(a).all().item(), (label, f"{name} is not finite")
+    T1, _ = fluid_volume_sum(model, "T")
+    drift = abs(T1 - T0) / T0abs
+    print(f"{label}: |Σ(T·V) − Σ(T₀·V)|/Σ|T₀·V| over the {timed} timed steps "
+          f"{drift:.3e} (bound 1e-6)")
+    assert drift < 1e-6, (label, "T drift", drift)
+    step_ms = statistics.median(times) * 1e3
+    n = HYDRO_N[0] * HYDRO_N[1] * HYDRO_N[2]
+    print(f"{label}: step median {step_ms:.3f} ms over {timed} steps (min "
+          f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
+          f"{n / (step_ms / 1e3):.4e} cell-updates/s; peak device memory "
+          f"(steps) {peak / 2 ** 30:.2f} GiB [{card}]")
+    ocean_phase_shares(model, dt, 3, card, label)
+    busy_share(label, model, dt, 3, step_ms, card)
+    return launches, plain_cuda, steps, step_ms
+
+
+def stretched_ocean_phase(card):
+    """The 512x256x32 stretched-z CATKE ocean row under "auto": #10 against
+    its plain version on the row's state after one step, timed; then the
+    counters over 13 steps (#10 once a step in its k5_z variant, no plain
+    tendency on CUDA tensors, no plain fill), and the same row with
+    fused_tendencies=False for the plain route's step in the same call."""
+    from oceananigans_tpu_torch.kernels import fused_vector_invariant as fvi
+    label = "stretched CATKE ocean row"
+    model = stretched_ocean_model()
+    assert model.uses_kernel, "the stretched ocean row does not take #10"
+    assert model.grid.stretched_axes == (2,), model.grid.stretched_axes
+    dz = np.asarray(model.grid.dz(("c", "c", "c")).cpu()).reshape(-1)
+    Hz, Nz = model.grid.H[2], model.grid.N[2]
+    print(f"{label}: Δz from {dz[Hz + Nz - 1]:.2f} m at the top to "
+          f"{dz[Hz]:.2f} m at the bottom ({HYDRO_N}, halo {model.grid.H}) "
+          f"[{card}]")
+    vi_plan_report(f"#10 {label} float32", model.grid,
+                   model.momentum_advection, model.tracer_advection,
+                   len(model.tracer_names), model.coriolis)
+    model.time_step(OCEAN_DT)
+    measured = vi_row_kernel(f"{label} (after one step: T, S, e, pₕ′)",
+                             stretched_row_state(model))
+    del model
+    torch.cuda.empty_cache()
+    model = stretched_ocean_model()
+    launches, plain_cuda, steps, step_ms = stretched_steps(f"{label}, #10",
+                                                           model, card)
+    cfg = fvi.vi_config(model.grid, model.momentum_advection,
+                        model.tracer_advection, len(model.tracer_names),
+                        model.coriolis)
+    variant = "fused_vi_tendency_" + fvi.variant_name(cfg)
+    assert variant == "fused_vi_tendency_k5_z", variant
+    assert launches["fused_vi_tendency"] == steps, \
+        (label, launches["fused_vi_tendency"], steps)
+    assert launches[variant] == steps, (label, variant, launches[variant])
+    assert launches["fill_halos"] > 0, (label, "no fill launch")
+    for name, count in plain_cuda.items():
+        assert count == 0, f"plain {name} ran on CUDA tensors ({label})"
+    del model
+    torch.cuda.empty_cache()
+    plain_model = stretched_ocean_model(fused_tendencies=False)
+    assert not plain_model.uses_kernel
+    plain_launches, plain_calls, plain_steps, plain_step_ms = \
+        stretched_steps(f"{label}, plain tendency (fused_tendencies=False)",
+                        plain_model, card)
+    assert plain_launches["fused_vi_tendency"] == 0
+    assert plain_calls["fused_vi_tendency_plain"] == plain_steps
+    print(f"{label}: step {step_ms:.3f} ms on #10 against {plain_step_ms:.3f} "
+          f"ms on the plain tendency ({plain_step_ms / step_ms:.2f}x) "
+          f"[{card}]")
+    del plain_model
+    torch.cuda.empty_cache()
+    return measured, launches, step_ms, plain_step_ms
+
+
+def high_order_vi_phase(card):
+    """#10 alone on ``hydro_model``'s 512x256x32 float32 lat-lon grid with
+    WENOVectorInvariant(order=9) and WENO(9) T: reach 5 in every direction.
+    Checked against its plain version on the state after set() and timed."""
+    import oceananigans_tpu_torch as ot
+    grid = ot.LatitudeLongitudeGrid(size=HYDRO_N, longitude=(0, 60),
+                                    latitude=(15, 75), z=(-1800.0, 0.0),
+                                    dtype=torch.float32, device="cuda")
+    model = ot.HydrostaticFreeSurfaceModel(
+        grid, momentum_advection=ot.WENOVectorInvariant(order=9),
+        tracer_advection=ot.WENO(9),
+        coriolis=ot.HydrostaticSphericalCoriolis(),
+        free_surface=ot.SplitExplicitFreeSurface(substeps=30),
+        tracers=("T",))
+    rng = np.random.default_rng(0)
+    model.set(u=0.05 * rng.standard_normal(HYDRO_N).astype(np.float32),
+              T=lambda lam, phi, z: 12 + 8e-3 * z + 2e-2 * phi)
+    assert model.uses_kernel
+    vi_plan_report("#10 WENOVectorInvariant(order=9), WENO(9) T float32",
+                   model.grid, model.momentum_advection,
+                   model.tracer_advection, 1, model.coriolis)
+    fields = model._fill_all(dict(model.state["fields"]))
+    w = model._w_from_continuity(fields["u"], fields["v"])
+    args = (model.grid, model.momentum_advection, model.tracer_advection,
+            ("T",), model.coriolis, fields["u"], fields["v"], w,
+            {"T": fields["T"]}, None)
+    measured = vi_row_kernel("WENOVectorInvariant(order=9), WENO(9) T "
+                             f"{HYDRO_N} (after set())", args)
+    del model, fields, w, args
+    torch.cuda.empty_cache()
+    return measured
+
+
+def vi_coverage_phase(card):
+    """Phase 26: every configuration of #10. The float64 coverage checks,
+    bf16 smoothness, the tile edges at the new reaches (WENO(11) and a
+    stretched y and z, 3 and 40 tracers), the 512x256x32 stretched CATKE
+    ocean row on #10 and on the plain tendency, and #10 with WENO(9)
+    everywhere on the hydro_row's grid. Returns ({row: measured}, the
+    stretched row's launches)."""
+    import oceananigans_tpu_torch as ot
+    t0 = time.perf_counter()
+    f64 = torch.float64
+    print("every configuration of #10 against its plain version (float64, "
+          "1e-12):")
+    worst = vi_coverage_checks()
+    print(f"  worst rel over the coverage cases {worst:.3e}")
+    print("bf16 smoothness in #10:")
+    vi_bf16_checks()
+    print("#10 at the tile edges at the new reaches:")
+    vi_tile_edge_checks(
+        {"WENOVectorInvariant(order=11), WENO(11)": (
+            lambda: ot.WENOVectorInvariant(order=11, smoothness_dtype=f64),
+            lambda: ot.WENO(11, smoothness_dtype=f64)),
+         "cross_and_self, UpwindBiased(5)": (
+            lambda: ot.WENOVectorInvariant(upwinding="cross_and_self",
+                                           smoothness_dtype=f64),
+            lambda: ot.UpwindBiased(5))},
+        tracer_counts=(3, 40),
+        y=lambda n: tuple(2.4e5 * np.linspace(0, 1, n + 1) ** 1.4),
+        z=lambda n: tuple(-1800.0 * np.linspace(1, 0, n + 1) ** 1.5),
+        label="WENO(11) and cross_and_self on a stretched y and z")
+    out = {}
+    print("the 512x256x32 stretched-z CATKE ocean row:")
+    out["fused_vi_tendency_k5_z"], launches, step_ms, plain_ms = \
+        stretched_ocean_phase(card)
+    print("#10 with WENO(9) everywhere at 512x256x32:")
+    out["fused_vi_tendency_weno9"] = high_order_vi_phase(card)
+    print(f"phase 26 wall time {time.perf_counter() - t0:.1f} s [{card}]")
+    return out, launches
+
+
 def main():
     name, card = device_phase()
     build_phase()
@@ -5712,6 +6238,8 @@ def main():
     polar_launches = glob["polar"]["launches"]
     print("every advection scheme in the advection kernels (phase 25):")
     scheme_rows, scheme_flagship, scheme_convection = schemes_phase(card)
+    print("every configuration of the hydrostatic tendency #10 (phase 26):")
+    vi_rows, stretched_launches = vi_coverage_phase(card)
     bounds["fused_advection_update_bf16"] = \
         bounds["fused_advection_update_tracers"]
     for fname in ("fill_halos", "fill_halos_bounded", "fill_halos_fold",
@@ -5765,6 +6293,17 @@ def main():
         source, replaces = KERNEL_SOURCES[kernel]
         rows.append(dict(name=kname, route="cuda", source=source,
                          replaces=replaces, launches=launches,
+                         max_abs_err=m["max_abs_err"], ms=m["ms"],
+                         plain_ms=m["plain_ms"], bound_ms=m["bound"][0],
+                         bound_by=m["bound"][1], library_ms=None))
+    # phase 26's rows: #10 on the stretched ocean row (its k5_z variant's
+    # launches on that path) and with WENO(9) everywhere (its checks and
+    # times only: no path runs it)
+    for kname, m in vi_rows.items():
+        source, replaces = KERNEL_SOURCES["fused_vi_tendency"]
+        rows.append(dict(name=kname, route="cuda", source=source,
+                         replaces=replaces,
+                         launches=stretched_launches.get(kname, 0),
                          max_abs_err=m["max_abs_err"], ms=m["ms"],
                          plain_ms=m["plain_ms"], bound_ms=m["bound"][0],
                          bound_by=m["bound"][1], library_ms=None))

@@ -134,7 +134,7 @@ __device__ __forceinline__ T linear(const T* coef, const T* c) {
   return acc;
 }
 
-// ---- WENO-Z, shared with the hydrostatic kernel (fused_vector_invariant.cu) ----------
+// ---- WENO-Z, shared with the hydrostatic kernel (vi_kernel.cuh) -------------------
 
 // The smoothness indicator of one stencil of buffer B in S: Σ_m (Σ_j f(m, j)·v[j])²
 // over its B cells v, f(m, j) the factor of row m and cell j.
@@ -238,7 +238,7 @@ __device__ __forceinline__ T symmetric(int fam, const Tabs<K, W, T, S>& tab, int
 // The buffer a scheme of buffer K takes at index kk (0 .. N-1 inside) along
 // a bounded axis of N cells: the largest B >= 2 with B-β <= kk <= N-B, else 1
 // (advection/schemes.py cascade_mask on the global index). The hydrostatic
-// kernel takes it too, with its runtime K.
+// kernel takes its closed form, min(K, kk + β, N - kk) (vi_kernel.cuh level).
 __device__ __forceinline__ int cascade_level(int K, int kk, int beta, int N) {
 #pragma unroll
   for (int B = K; B >= 2; --B)

@@ -1,0 +1,15 @@
+// The fused hydrostatic tendency (#10, vi_kernel.cuh) for configurations
+// whose deepest site has buffer 6: Centered(12), UpwindBiased(11) and WENO(11).
+// One source a buffer, so that kernels/build.py compiles the buffers in
+// parallel; each unit holds its own copy of the constant tables.
+#include "vi_kernel.cuh"
+
+namespace oc {
+namespace vi {
+
+int vi_k6(int dtype, int sdtype, const Args& a) { return dispatch<6>(dtype, sdtype, a); }
+
+int vi_k6_tables(const double* v, const double* vb) { return set_tables(v, vb); }
+
+}  // namespace vi
+}  // namespace oc

@@ -2,8 +2,9 @@
 
 Each wrapper takes its plain version for CPU tensors and launches its kernel
 for CUDA tensors; it counts its launches in a ``launches`` attribute (the
-advection kernels #1, #6 and #8 also by scheme variant, in
-``variant_launches``), and
+advection kernels #1, #6 and #8 by scheme variant, and #10 by the buffer
+it is instantiated for and its stretched axes, in ``variant_launches``),
+and
 each plain version counts the calls it served on CUDA tensors in
 ``cuda_calls``. ``vpu_probes`` holds the vector-unit probes, which run
 no model. The sharded stages (``build_sharded_*``) count the calls of
@@ -50,7 +51,7 @@ PLAINS = (fused_advection_update_plain, fused_divergence_plain,
 # the kernels that also count their launches by scheme variant
 # (``variant_launches``: {``fused_advection.variant_name``: launches})
 VARIANT_KERNELS = (fused_advection_update, fused_advection_tendency,
-                   fused_sw_update)
+                   fused_sw_update, fused_vi_tendency)
 
 
 def reset_counters():
@@ -68,7 +69,9 @@ def counters():
     fill's launches also split into those on 3-D fields
     (``fill_halos_3d``) and on 2-D surface fields (``fill_halos_2d``), and
     the advection kernels' by scheme variant (``fused_advection_update_weno9``:
-    the launches of #1 with WENO(9))."""
+    the launches of #1 with WENO(9)) and #10's by variant
+    (``fused_vi_tendency_k5_z``: its launches at buffer 5 on a stretched
+    z)."""
     launches = {fn.__name__: fn.launches for fn in KERNELS}
     for fn in VARIANT_KERNELS:
         launches.update({f"{fn.__name__}_{name}": n

@@ -65,9 +65,9 @@ SIGNATURES = {
                            P],
     "oc_advection_blocks_per_sm": [I, I, I, I, I, I, I, I, I, I, I, P],
     "oc_fused_sw_update_blocks_per_sm": [I, I, I, I, I, I, I, I, P],
-    "oc_vi_set_tables": [P, I],
-    "oc_fused_vi_tendency": [I, I, P, P, P, P, D, I, I, I, I, I, I, P],
-    "oc_vi_blocks_per_sm": [I, I, I, I, I, I, I, I, I, P],
+    "oc_vi_set_tables": [P, P, I],
+    "oc_fused_vi_tendency": [I, I, P, P, P, P, P, P, I, I, I, I, I, I, P],
+    "oc_vi_blocks_per_sm": [I, I, P, I, I, I, I, I, P],
     "oc_mesh_halo_exchange": [P, P, P, I, I, I, I, I, I, I, I, P],
     "oc_weno_microbench": [I, P, P, I, I, D, P],
     "oc_vpu_mix": [I, P, P, I, I, D, P],

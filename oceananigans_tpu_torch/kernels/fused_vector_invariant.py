@@ -18,32 +18,42 @@ evolves; every other slot is zero. The four phases of the TPU function
 (vorticity, Bernoulli head, vertical, forces and tracers) are summed in the
 same order.
 
-Configurations (``vi_config``; anything else raises): a grid whose metrics do not vary along x
-with regular axes (``LatitudeLongitudeGrid`` that does not reach a pole, or
-a regular ``RectilinearGrid``), a bounded z with a halo, bounded or
-periodic x and y;
-vorticity ``ENSTROPHY``, ``ENERGY`` or WENO(5/7/9) with the velocity
-stencil; vertical advection, divergence and kinetic-energy schemes all
-``ENERGY`` or all WENO(5) with ``ONLY_SELF``; Coriolis None, ``FPlane`` or
-``HydrostaticSphericalCoriolis`` (either scheme); ``Centered(2)`` or WENO(5)
-tracers, at most 8; float32 or float64. Every WENO of a configuration shares
-one smoothness dtype.
+Configurations (``vi_config``) are those the JAX kernel's
+``eligible_hydrostatic`` takes on a ``LatitudeLongitudeGrid`` or a
+``RectilinearGrid``: any ``VectorInvariant`` (the vorticity ENSTROPHY, ENERGY
+or a scheme in either stencil; vertical, divergence and kinetic-energy
+schemes each ENERGY or a scheme; ``ONLY_SELF`` or ``CROSS_AND_SELF``), any
+tracer scheme and count, every Coriolis of ``coriolis.py`` (None, FPlane,
+BetaPlane, ConstantCartesianCoriolis, NonTraditionalBetaPlane,
+HydrostaticSphericalCoriolis in both schemes) and stretched y and z. A
+scheme is Centered(2-12), UpwindBiased(1-11), WENO(3-11) or a per-axis
+``FluxFormAdvection`` of them; each reconstruction and symmetric
+interpolation is a *site* (``SITES``) holding its family and buffer. The
+fields are float32 or float64; every WENO shares one smoothness dtype
+(float32, float64, or bfloat16 with float32 fields). Refused, naming
+ROADMAP item 13, is what JAX refuses (an immersed grid, another grid type,
+metrics that vary along x, a stretched x, polar caps, a flat axis, the
+z-compact layout); the multi-dimensional stencil the port's VectorInvariant
+refuses when built.
 
-Bound on the H100: operations. For the hydro_row configuration at
-512x256x32 the function needs about 1,800 floating-point operations per cell
-(each derived field, face flux and reconstruction once; ``chip_smoke.py``
-counts them), 0.114 ms at the float32 rate; its compulsory bytes (u, v, w
-and T read, Gu, Gv and G_T written) take 0.045 ms at 3.35 TB/s. Design
-(``csrc/fused_vector_invariant.cu``): one launch, one block per tile of
-output cells, and no scratch tensor. The block stages u and v over the tile
-plus the stencils' reach, and the tile's metric rows, into shared memory,
-then forms each phase's derived fields (ζ and the velocity-stencil
-operands; the ½u² and ½v² differences and ℑx u, ℑy v, or K; δx(Ax u) and
-δy(Ay v)) once into a shared buffer that the next phase reuses, each z face
-flux of the vertical advection and each tracer face flux once, and sums the
-phases per cell in the TPU function's order. ``launch_plan`` gives the
-tile, the block count and the shared memory; the C entry checks them.
-Divisions are exact.
+Bound on the H100: operations (``chip_smoke.py`` ``vi_flop`` counts each
+derived field, face flux and reconstruction once, by scheme, buffer and
+tracer count; for the hydro_row configuration at 512x256x32 about 1,800 a
+cell, 0.114 ms at the float32 rate, against 0.045 ms for its compulsory
+bytes at 3.35 TB/s). Design (``csrc/vi_kernel.cuh``): one launch per 32
+tracers (the first also forms Gu and Gv), one block per tile of output
+cells, and no scratch tensor. The block stages u and v over the tile plus
+the stencils' reach, the tile's metric rows (y rows; on a stretched z the
+rows of V, Ax and Ay hold their horizontal factor and a z column of Δz
+multiplies them) and, along a stretched y or z, the per-slot ENO
+coefficients of its sites (``coefficient_rows``), into shared memory, then
+forms each phase's derived fields once into a shared buffer that the next
+phase reuses, each z face flux of the vertical advection and each tracer
+face flux once, and sums the phases per cell in the TPU function's order.
+A uniform axis reads its coefficients from the constant table
+(``coefficient_table``). ``launch_plan`` gives the tile (by the reach, as
+#1's ``pick_tile``), the block count and the shared memory; the C entry
+checks them. Divisions are exact.
 """
 
 from __future__ import annotations
@@ -54,37 +64,80 @@ import functools
 import numpy as np
 import torch
 
-from ..advection.reconstruction import (eno_coefficients, optimal_weights,
-                                        smoothness_factors)
-from ..advection.schemes import (TAU_COEFFS, WENO_EPSILON, WENO_R_MAX,
-                                 Centered, WENO)
-from ..advection.vector_invariant import (ENERGY, ENSTROPHY, ONLY_SELF,
-                                          VELOCITY_STENCIL, VectorInvariant)
 from ..advection.fluxes import div_Uc
-from ..coriolis import FPlane, HydrostaticSphericalCoriolis
+from ..advection.reconstruction import (eno_coefficients, optimal_weights,
+                                        smoothness_factors, typed_constants)
+from ..advection.schemes import (TAU_COEFFS, WENO_EPSILON, WENO_R_MAX,
+                                 AdvectionScheme, Centered,
+                                 FluxFormAdvection, UpwindBiased, WENO,
+                                 _is_stretched, _nonuniform_eno_np,
+                                 _padded_faces)
+from ..advection.vector_invariant import (CROSS_AND_SELF, ENERGY, ENSTROPHY,
+                                          VELOCITY_STENCIL, VectorInvariant)
+from ..coriolis import (BetaPlane, ConstantCartesianCoriolis, FPlane,
+                        HydrostaticSphericalCoriolis, NonTraditionalBetaPlane)
+from ..grids.base import numpy_metric
 from ..grids.topology import (BOUNDED, FLAT, LOC_CCC, LOC_CCF, LOC_CFC,
                               LOC_FCC)
 from ..operators.operators import LOC_FFC, ddx, ddy
 from . import build
-from .fused_advection import _align
+from .fused_advection import (CENTERED, MAX_SMEM, SM_SMEM, SMEM_RESERVED,
+                              UPWIND, WENO_FAMILY, _SMOOTHNESS_CODES, _align,
+                              scheme_code)
 from .fused_projection import _DTYPE_CODES
 
-MAX_TRACERS = 8
+# Tracers one launch takes (csrc/vi_kernel.cuh kBatch); a call with more
+# launches once per 32, the first launch also forming Gu and Gv.
+TRACER_BATCH = 32
 
-# Metric rows (csrc/fused_vector_invariant.cu numbers them in this order):
-# (name, location) per row, each the metric's value along the padded y.
+# Metric rows (csrc/vi_kernel.cuh Row numbers them in this order): (name,
+# location) per row, each the metric's value along the padded y; on a
+# stretched z the rows of Z_FACTORED hold the factor before the z column Δz
+# (at centres) that multiplies them. Then the Coriolis rows: f at y centres
+# and y faces (a plane's, or the sphere's at the (f, f) nodes), and the
+# non-traditional β-plane's γy at centres, βy at centres and at faces.
 ROWS = (("dx", LOC_FCC), ("dx", LOC_CFC), ("dy", LOC_FCC), ("dy", LOC_CFC),
         ("Az", LOC_FFC), ("Az", LOC_FCC), ("Az", LOC_CFC), ("Az", LOC_CCF),
         ("Ax", LOC_FCC), ("Ay", LOC_CFC), ("V", LOC_FCC), ("V", LOC_CFC),
-        ("V", LOC_CCC))     # then one more row: the Coriolis f at (f, f)
+        ("V", LOC_CCC))
+Z_FACTORED = {("Ax", LOC_FCC): ("dy", LOC_FCC), ("Ay", LOC_CFC): ("dx", LOC_CFC),
+              ("V", LOC_FCC): ("Az", LOC_FCC), ("V", LOC_CFC): ("Az", LOC_CFC),
+              ("V", LOC_CCC): ("Az", LOC_CCC)}
+N_CORIOLIS_ROWS = 5
+N_ROWS = len(ROWS) + N_CORIOLIS_ROWS
+# z columns (csrc ZCol): Δz at centres and at faces, the non-traditional
+# β-plane's fy(1 − z/R) and fz(1 + 2z/R) at centres
+N_ZCOLS = 4
 
+# Reconstruction and interpolation sites (csrc Site), each (axis, β, kind):
+# the ζ reconstruction of v (along x) and u (along y); the self-upwinded
+# kinetic-energy gradient of u (x) and v (y) and its cross interpolation
+# δx(v²/2) → fcc... (``kc``); the vertical reconstruction of u and v; the
+# vertical scheme's interpolation of Az·w along x and y (``vs``); the
+# divergence flux's reconstruction along x and y and its cross
+# interpolation (``dc``); the tracer faces along x, y and z.
+SITES = ("vort_x", "vort_y", "ke_x", "ke_y", "kc_x", "kc_y", "vz", "vs_x",
+         "vs_y", "div_x", "div_y", "dc_x", "dc_y", "t_x", "t_y", "t_z")
+SITE_AXIS = dict(zip(SITES, (0, 1, 0, 1, 0, 1, 2, 0, 1, 0, 1, 0, 1, 0, 1, 2)))
+SITE_BETA = dict(zip(SITES, (1, 1, 0, 0, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)))
+SYM_SITES = ("kc_x", "kc_y", "vs_x", "vs_y", "dc_x", "dc_y")
+
+# Vorticity and smoothness codes (csrc): ENSTROPHY, ENERGY or a scheme; the
+# WENO smoothness of the reconstructed line itself or of the velocity
+# stencil's two lines.
 VORT_CODES = {ENSTROPHY: 0, ENERGY: 1}
-WENO_VORT = 2
+VORT_SCHEME = 2
+SMOOTH_SELF, SMOOTH_TWO = 0, 2
 
+# Coriolis codes (csrc): none; a plane f(y) (FPlane, BetaPlane); the sphere's
+# energy- and enstrophy-conserving forms; a constant Cartesian rotation; the
+# non-traditional β-plane.
+COR_NONE, COR_PLANE, COR_SPHERE_ENERGY, COR_SPHERE_ENSTROPHY, \
+    COR_CARTESIAN, COR_NONTRADITIONAL = range(6)
 
-def _weno_order(s):
-    return s.order if isinstance(s, WENO) else None
-
+# The floor of every box reach (WENO-5's), so that the configurations the
+# kernel took before its coverage grew keep their boxes and tiles.
+MIN_REACH = 3
 
 COVERAGE_ITEM = ("ROADMAP.md queue 1 item 13 (hydrostatic: the fused VI "
                  "kernel's coverage)")
@@ -96,80 +149,169 @@ def _uncovered(why):
         + f"; fused_tendencies=False takes the plain path: {COVERAGE_ITEM}")
 
 
+def _on_axis(scheme, axis):
+    """The scheme a reconstruction along ``axis`` takes (a per-axis
+    FluxFormAdvection's own)."""
+    return scheme.schemes[axis] if isinstance(scheme, FluxFormAdvection) \
+        else scheme
+
+
+def _metrics_x_invariant(grid):
+    """True when no metric varies along x (JAX's ``_metrics_x_invariant``)."""
+    locs = (LOC_CCC, LOC_FCC, LOC_CFC, LOC_CCF, LOC_FFC)
+    for loc in locs:
+        for name in ("dx", "dy", "dz", "Az"):
+            m = np.asarray(numpy_metric(grid, name, loc))
+            if m.ndim == 3 and m.shape[0] != 1:
+                return False
+    return True
+
+
+def sym_buffer(code):
+    """The Centered(2b) buffer b of a symmetric site's top level: the
+    scheme's own for Centered, its advecting velocity's (max(K − 1, 1)) for
+    UpwindBiased and WENO."""
+    fam, K = code
+    return K if fam == CENTERED else max(K - 1, 1)
+
+
 def vi_config(grid, vi, tracer_scheme, n_tracers, coriolis):
-    """The kernel's configuration codes, or raise ``NotImplementedError``
-    naming what the kernel does not cover."""
+    """The kernel's configuration, or raise ``NotImplementedError`` naming
+    what it does not cover. A dict: ``vort`` (VORT_CODES or VORT_SCHEME),
+    ``vort_sm``, ``ke`` and ``vert`` (0 the energy forms, 1 a scheme),
+    ``upw`` (1 for CROSS_AND_SELF), ``cor``, ``cor_f`` (the Cartesian (fx,
+    fy, fz)), ``sites`` ({site: (family, buffer)} of the sites the
+    configuration uses), ``tracers`` (False without tracer advection),
+    ``sdtype``, ``KM`` (the buffer the kernel is instantiated for: the
+    deepest site's, at least MIN_REACH), the box
+    reaches ``R``, ``Rw``, ``Rz``, ``Rc`` and the stretched axes ``ys``,
+    ``zs``."""
     from ..grids.latlon import LatitudeLongitudeGrid
     from ..grids.rectilinear import RectilinearGrid
     why = []
     if not isinstance(grid, (LatitudeLongitudeGrid, RectilinearGrid)):
         why.append(f"grid type {type(grid).__name__}")
+        raise _uncovered(why)
     if getattr(grid, "polar_south", False) or getattr(grid, "polar_north",
                                                       False):
         why.append("a latitude range that ends at a pole (polar caps)")
-    if getattr(grid, "stretched_axes", ()):
-        why.append("stretched axes")
-    if grid.topology[2] != BOUNDED or grid.H[2] < 1:
-        why.append("z must be bounded with a halo")
-    if FLAT in grid.topology[:2]:
-        why.append("flat x or y")
+    if FLAT in grid.topology:
+        why.append("a flat axis")
+    elif grid.topology[2] != BOUNDED or grid.H[2] < 1:
+        why.append("z must be bounded with a halo (not the z-compact layout)")
+    if grid.topology[0] != FLAT and not grid.regular(0):
+        why.append("a stretched x")
+    if not why and not _metrics_x_invariant(grid):
+        why.append("metrics that vary along x")
     if not isinstance(vi, VectorInvariant):
         why.append("momentum advection must be a VectorInvariant")
         raise _uncovered(why)
+    if grid.dtype not in _DTYPE_CODES:
+        why.append(f"dtype {grid.dtype}")
+    sites = {}
     smooth = set()
+
+    def code(site, scheme, smoothing=True):
+        try:
+            c = scheme_code(scheme)
+        except NotImplementedError:
+            why.append(f"scheme {scheme!r} at {site}")
+            return
+        sites[site] = c
+        if smoothing and c[0] == WENO_FAMILY:
+            smooth.add(scheme.smoothness_dtype)
+
+    def sym_scheme(s):
+        return s if isinstance(s, AdvectionScheme) else Centered(2)
+
     vs = vi.vorticity_scheme
+    vort_sm = SMOOTH_SELF
     if vs in VORT_CODES:
-        vort, kv = VORT_CODES[vs], 0
-    elif _weno_order(vs) in (5, 7, 9) and \
-            vi.vorticity_stencil == VELOCITY_STENCIL:
-        vort, kv = WENO_VORT, vs.buffer
-        smooth.add(vs.smoothness_dtype)
+        vort = VORT_CODES[vs]
     else:
-        why.append(f"vorticity scheme {vs!r} with stencil "
-                   f"{vi.vorticity_stencil!r}")
-        vort = kv = None
-    others = (vi.vertical_advection_scheme, vi.divergence_scheme,
-              vi.kinetic_energy_gradient_scheme)
-    if all(s == ENERGY for s in others):
-        upw = 0
-    elif all(_weno_order(s) == 5 for s in others) \
-            and vi.upwinding == ONLY_SELF:
-        upw = 1
-        smooth.update(s.smoothness_dtype for s in others)
-    else:
-        why.append("vertical, divergence and kinetic-energy schemes must be "
-                   "all ENERGY or all WENO(5) with ONLY_SELF")
-        upw = None
-    if isinstance(tracer_scheme, Centered) and tracer_scheme.order == 2:
-        tsch = 0
-    elif _weno_order(tracer_scheme) == 5:
-        tsch = 1
-        smooth.add(tracer_scheme.smoothness_dtype)
-    else:
-        why.append(f"tracer scheme {tracer_scheme!r}")
-        tsch = None
-    if n_tracers > MAX_TRACERS:
-        why.append(f"more than {MAX_TRACERS} tracers")
+        vort = VORT_SCHEME
+        if isinstance(vs, WENO) and vi.vorticity_stencil == VELOCITY_STENCIL:
+            vort_sm = SMOOTH_TWO
+        code("vort_x", _on_axis(vs, 0))
+        code("vort_y", _on_axis(vs, 1))
+    ds = vi.divergence_scheme
+    cross = vi.upwinding_cross_scheme
+    ks = vi.kinetic_energy_gradient_scheme
+    ke = int(isinstance(ks, AdvectionScheme))
+    if ke:
+        code("ke_x", _on_axis(ks, 0))
+        code("ke_y", _on_axis(ks, 1))
+        code("kc_x", sym_scheme(_on_axis(cross, 0)), False)
+        code("kc_y", sym_scheme(_on_axis(cross, 1)), False)
+    vas = vi.vertical_advection_scheme
+    vert = int(isinstance(vas, AdvectionScheme))
+    upw = int(vi.upwinding == CROSS_AND_SELF)
+    if vert:
+        code("vz", _on_axis(vas, 2))
+        code("vs_x", _on_axis(vas, 0), False)
+        code("vs_y", _on_axis(vas, 1), False)
+        if not isinstance(ds, AdvectionScheme):
+            why.append("a vertical scheme without a divergence scheme "
+                       "(the plain VI needs one too)")
+        else:
+            code("div_x", _on_axis(ds, 0))
+            code("div_y", _on_axis(ds, 1))
+            if not upw:
+                code("dc_x", sym_scheme(_on_axis(cross, 0)), False)
+                code("dc_y", sym_scheme(_on_axis(cross, 1)), False)
+    tracers = tracer_scheme is not None and n_tracers > 0
+    if tracers:
+        for site, axis in (("t_x", 0), ("t_y", 1), ("t_z", 2)):
+            code(site, _on_axis(tracer_scheme, axis))
+    cor_f = (0.0, 0.0, 0.0)
     if coriolis is None:
-        cor = 0
-    elif isinstance(coriolis, FPlane):
-        cor = 1
-    elif isinstance(coriolis, HydrostaticSphericalCoriolis) and isinstance(
-            grid, LatitudeLongitudeGrid):
-        cor = 2 if coriolis.scheme == "energy_conserving" else 3
+        cor = COR_NONE
+    elif isinstance(coriolis, (FPlane, BetaPlane)):
+        cor = COR_PLANE
+    elif isinstance(coriolis, HydrostaticSphericalCoriolis):
+        cor = (COR_SPHERE_ENERGY if coriolis.scheme == "energy_conserving"
+               else COR_SPHERE_ENSTROPHY)
+    elif isinstance(coriolis, ConstantCartesianCoriolis):
+        cor = COR_CARTESIAN
+        cor_f = (coriolis.fx, coriolis.fy, coriolis.fz)
+    elif isinstance(coriolis, NonTraditionalBetaPlane):
+        cor = COR_NONTRADITIONAL
     else:
         why.append(f"Coriolis {coriolis!r}")
         cor = None
     if len(smooth) > 1:
         why.append("the WENO schemes differ in smoothness dtype")
-    elif smooth and not smooth <= set(_DTYPE_CODES):
-        why.append(f"smoothness dtype {next(iter(smooth))}")
-    if grid.dtype not in _DTYPE_CODES:
-        why.append(f"dtype {grid.dtype}")
+    elif smooth:
+        sdt = next(iter(smooth))
+        if sdt not in _SMOOTHNESS_CODES:
+            why.append(f"smoothness dtype {sdt}")
+        elif sdt == torch.bfloat16 and grid.dtype != torch.float32:
+            why.append("bfloat16 smoothness with fields other than float32")
     if why:
         raise _uncovered(why)
     sdt = smooth.pop() if smooth else grid.dtype
-    return dict(vort=vort, kv=kv, upw=upw, cor=cor, tsch=tsch, sdtype=sdt)
+
+    def K(*names):
+        return max([sites[n][1] for n in names if n in sites] + [MIN_REACH])
+
+    R = K("vort_x", "vort_y", "ke_x", "ke_y", "kc_x", "kc_y", "div_x",
+          "div_y", "dc_x", "dc_y") + 1
+    Rw = max([sym_buffer(sites[n]) for n in ("vs_x", "vs_y") if n in sites]
+             + [2])
+    return dict(vort=vort, vort_sm=vort_sm, ke=ke, vert=vert, upw=upw,
+                cor=cor, cor_f=cor_f, sites=sites, tracers=tracers,
+                sdtype=sdt, KM=K(*sites), R=R, Rw=Rw, Rz=K("vz", "t_z"),
+                Rc=K("t_x", "t_y"), ys=_is_stretched(grid, 1),
+                zs=_is_stretched(grid, 2))
+
+
+def variant_name(cfg):
+    """The kernel variant of a configuration: ``k`` and the buffer it is
+    instantiated for, then ``_y`` / ``_z`` for a stretched y / z and
+    ``_bf16`` for bfloat16 smoothness (``k5``, ``k5_z``, ``k6_y_z``)."""
+    return (f"k{cfg['KM']}" + ("_y" if cfg["ys"] else "")
+            + ("_z" if cfg["zs"] else "")
+            + ("_bf16" if cfg["sdtype"] == torch.bfloat16 else ""))
 
 
 def kept_slices(grid):
@@ -220,19 +362,27 @@ def fused_vi_tendency_plain(grid, vi, tracer_scheme, names, coriolis, u, v,
 fused_vi_tendency_plain.cuda_calls = 0
 
 
-# -- the kernel ------------------------------------------------------------------
+# -- the coefficient tables ------------------------------------------------------
 
-def coefficient_table():
-    """The kernel's constant table (float64, csrc's ``VITab`` order): for
-    WENO buffers k = 2..5 the stencil coefficients, smoothness factors
-    (|c| < 1e-14 set to 0, as the plain version skips them), optimal weights
-    and τ coefficients, zero-padded to 5; then Centered(4), Centered(2), ε
-    and the saturation of τ/(β+ε)."""
-    coef = np.zeros((4, 5, 5))
-    fac = np.zeros((4, 5, 5, 5))
-    gam = np.zeros((4, 5))
-    tau = np.zeros((4, 5))
-    for k in range(2, 6):
+MAX_K = 6
+
+
+def coefficient_table(bf16=False):
+    """The kernel's constant table (float64, csrc's ``VITab`` order) of a
+    uniform axis: for WENO buffers k = 2..6 the stencil coefficients,
+    smoothness factors (|c| < 1e-14 set to 0, as the plain version skips
+    them), optimal weights and τ coefficients, zero-padded to 6; Centered(2b)
+    for b = 1..6 (padded to 12) and UpwindBiased(2k-1) for k = 1..6 (padded
+    to 11); then ε and the saturation of τ/(β+ε). ``bf16``: every entry
+    rounded to bfloat16, as the plain version rounds the constants that
+    meet bfloat16 smoothness (``typed_constants``)."""
+    coef = np.zeros((5, 6, 6))
+    fac = np.zeros((5, 6, 6, 6))
+    gam = np.zeros((5, 6))
+    tau = np.zeros((5, 6))
+    cen = np.zeros((6, 12))
+    ub = np.zeros((6, 11))
+    for k in range(2, MAX_K + 1):
         for s in range(k):
             coef[k - 2, s, :k] = eno_coefficients(k, s)
             for m, f in enumerate(smoothness_factors(k, s)):
@@ -240,95 +390,349 @@ def coefficient_table():
                 fac[k - 2, s, m, :k] = np.where(np.abs(f) < 1e-14, 0.0, f)
         gam[k - 2, :k] = optimal_weights(k)
         tau[k - 2, :k] = TAU_COEFFS[k]
-    return np.concatenate([coef.ravel(), fac.ravel(), gam.ravel(),
-                           tau.ravel(), eno_coefficients(4, 1),
-                           eno_coefficients(2, 0),
-                           [WENO_EPSILON, WENO_R_MAX]])
+    for b in range(1, MAX_K + 1):
+        cen[b - 1, :2 * b] = Centered(order=2 * b)._coeffs
+        ub[b - 1, :2 * b - 1] = UpwindBiased(order=2 * b - 1)._coeffs
+    table = np.concatenate([coef.ravel(), fac.ravel(), gam.ravel(),
+                            tau.ravel(), cen.ravel(), ub.ravel(),
+                            [WENO_EPSILON, WENO_R_MAX]])
+    if bf16:
+        table = np.asarray([t.item() for t in typed_constants(
+            tuple(float(x) for x in table), torch.bfloat16)])
+    return table
 
 
-TABLE_SIZE = 100 + 500 + 20 + 20 + 4 + 2 + 2
+TABLE_SIZE = 180 + 1080 + 30 + 30 + 72 + 66 + 2
 _tables_on = set()          # devices whose constant tables are set
 
 
-@functools.lru_cache(maxsize=16)
-def metric_rows(grid, coriolis, dtype, device):
-    """The (len(ROWS) + 1, Ny + 2Hy) metric rows in the field dtype: each
-    metric of ROWS broadcast along the padded y, then f. Built once per
-    grid, Coriolis, dtype and device (grids and Coriolis objects compare by
-    value), since building them copies host arrays to the card."""
-    NYP = grid.padded_shape[1]
+# Per-slot coefficients of a stretched axis (csrc/vi_kernel.cuh): a site
+# reads an *entry* of rows, one row a coefficient over the padded axis, by
+# its kind and β; an entry holds every level from buffer 1 up, so that one
+# entry of a kind and β serves every site of that kind and β:
+#   WENO:     level 1 (UpwindBiased(1)) left, right; then for k = 2.. the k
+#             stencils × k cells of the left-biased, then of the right-biased
+#             reconstruction
+#   UPWIND:   for k = 1.. UpwindBiased(2k-1)'s 2k-1 cells, left then right
+#   CENTERED: for b = 1.. Centered(2b)'s 2b cells (symmetric)
+def weno_off(k, side):
+    return side if k == 1 else 2 + 2 * sum(i * i for i in range(2, k)) \
+        + side * k * k
 
-    def row(m):
-        t = torch.as_tensor(m, dtype=dtype, device=device)
-        return t.reshape(-1).expand(NYP) if t.numel() == 1 else t.reshape(-1)
 
-    rows = [row(getattr(grid, name)(loc)) for name, loc in ROWS]
-    if isinstance(coriolis, HydrostaticSphericalCoriolis):
-        rows.append(row(coriolis.f_ffc_numpy(grid)))
+def ub_off(k, side):
+    return 2 * (k - 1) ** 2 + side * (2 * k - 1)
+
+
+def cen_off(b):
+    return b * (b - 1)
+
+
+ENTRY_ROWS = {WENO_FAMILY: lambda K: weno_off(K + 1, 0),
+              UPWIND: lambda K: 2 * K * K, CENTERED: lambda K: K * (K + 1)}
+
+
+def site_entry(site, code):
+    """(kind, β, buffer) of the entry a site reads on a stretched axis: its
+    own family for a reconstruction (Centered's is its symmetric
+    interpolation, as the plain version evaluates it there), the Centered
+    rows of its top level for a symmetric interpolation."""
+    if site in SYM_SITES:
+        return CENTERED, SITE_BETA[site], sym_buffer(code)
+    return code[0], SITE_BETA[site], code[1]
+
+
+def stretched_entries(cfg, axis):
+    """{(kind, β): buffer} of the entries the configuration reads along a
+    stretched ``axis`` (empty along a uniform one), and each such site's
+    entry key."""
+    if axis == 0 or not cfg[("ys", "zs")[axis - 1]]:
+        return {}, {}
+    entries, keys = {}, {}
+    for site, code in cfg["sites"].items():
+        if SITE_AXIS[site] != axis:
+            continue
+        kind, beta, K = site_entry(site, code)
+        entries[(kind, beta)] = max(entries.get((kind, beta), 0), K)
+        keys[site] = (kind, beta)
+    return entries, keys
+
+
+def entry_coefficients(faces, npad, kind, beta, K):
+    """The float64 rows of one entry (``weno_off`` .. ``cen_off`` order)
+    from the plain version's per-slot coefficients
+    (``advection.schemes._nonuniform_eno_np``)."""
+    f = (faces.tobytes(), faces.size)
+
+    def eno(k, s, mirrored):
+        return list(_nonuniform_eno_np(*f, beta, k, s, mirrored, npad))
+
+    rows = []
+    if kind == WENO_FAMILY:
+        rows += eno(1, 0, False) + eno(1, 0, True)
+        for k in range(2, K + 1):
+            for mirrored in (False, True):
+                for s in range(k):
+                    rows += eno(k, s, mirrored)
+    elif kind == UPWIND:
+        for k in range(1, K + 1):
+            for mirrored in (False, True):
+                rows += eno(2 * k - 1, k - 1, mirrored)
     else:
-        rows.append(row(coriolis.f if isinstance(coriolis, FPlane) else 0.0))
-    return torch.stack(rows).contiguous()
+        for b in range(1, K + 1):
+            rows += eno(2 * b, b - 1, False)
+    assert len(rows) == ENTRY_ROWS[kind](K), (kind, K, len(rows))
+    return rows
 
 
-# Threads a block and the tile of output cells a block owns, by the fields'
-# element size: at float32 a 16 x 8 x 8 tile takes 98.9 KB of shared memory
-# with the WENO-9 vorticity's reach (two blocks an SM), at float64 an
-# 8 x 8 x 8 tile 138.4 KB.
+def entry_firsts(entries):
+    """{(kind, β): its first row} of ``entries`` ({(kind, β): buffer}) laid
+    out in sorted order, and the rows they take together."""
+    first, row = {}, 0
+    for key in sorted(entries):
+        first[key] = row
+        row += ENTRY_ROWS[key[0]](entries[key])
+    return first, row
+
+
+def coefficient_rows(grid, entries, axis):
+    """The float64 rows of ``entries`` along ``axis``, in
+    ``entry_firsts``' layout."""
+    faces = _padded_faces(grid, axis)
+    npad = grid.padded_shape[axis]
+    rows = []
+    for key in sorted(entries):
+        rows += entry_coefficients(faces, npad, *key, entries[key])
+    assert len(rows) == entry_firsts(entries)[1]
+    return rows
+
+
+def _coriolis_rows(grid, coriolis):
+    """The Coriolis rows (float64, over the padded y): f at y centres and y
+    faces, γy at centres, βy at centres and at faces."""
+    NYP = grid.padded_shape[1]
+    zero = np.zeros(NYP)
+    yc = np.asarray(grid.coord_padded(1, "c"), np.float64)
+    yf = np.asarray(grid.coord_padded(1, "f"), np.float64)
+    if isinstance(coriolis, FPlane):
+        return [zero + coriolis.f, zero + coriolis.f, zero, zero, zero]
+    if isinstance(coriolis, BetaPlane):
+        return [coriolis.f0 + coriolis.beta * yc,
+                coriolis.f0 + coriolis.beta * yf, zero, zero, zero]
+    if isinstance(coriolis, HydrostaticSphericalCoriolis):
+        return [zero, np.asarray(coriolis.f_ffc_numpy(grid)).reshape(-1),
+                zero, zero, zero]
+    if isinstance(coriolis, NonTraditionalBetaPlane):
+        return [zero, zero, coriolis.gamma * yc, coriolis.beta * yc,
+                coriolis.beta * yf]
+    return [zero] * N_CORIOLIS_ROWS
+
+
+def _along(m, axis, n):
+    """A float64 metric (a float or a broadcastable array) as its n values
+    along ``axis``."""
+    m = np.asarray(m, np.float64)
+    if m.ndim == 0:
+        return np.full(n, float(m))
+    if m.shape[axis] == 1:
+        return np.full(n, float(m.reshape(-1)[0]))
+    assert m.size == m.shape[axis], ("a metric that varies along more than "
+                                     "one axis", m.shape)
+    return m.reshape(-1)
+
+
+@functools.lru_cache(maxsize=32)
+def y_rows(grid, coriolis, entries, dtype, device):
+    """The (N_ROWS + coefficient rows, Ny + 2Hy) y rows in the field dtype:
+    each metric of ROWS along the padded y (the horizontal factor of
+    Z_FACTORED on a stretched z), the Coriolis rows, then the per-slot
+    coefficients of ``entries`` (a tuple of ((kind, β), buffer)) along a
+    stretched y. Built once per grid, Coriolis, entries, dtype and device
+    (grids and Coriolis objects compare by value), since building them
+    copies host arrays to the card."""
+    NYP = grid.padded_shape[1]
+    zs = _is_stretched(grid, 2)
+    rows = []
+    for name, loc in ROWS:
+        if zs and (name, loc) in Z_FACTORED:
+            name, loc = Z_FACTORED[(name, loc)]
+        rows.append(_along(numpy_metric(grid, name, loc), 1, NYP))
+    rows += _coriolis_rows(grid, coriolis)
+    if entries:
+        rows += coefficient_rows(grid, dict(entries), 1)
+    return torch.as_tensor(np.stack(rows), dtype=dtype,
+                           device=device).contiguous()
+
+
+@functools.lru_cache(maxsize=32)
+def z_rows(grid, coriolis, entries, dtype, device):
+    """The (N_ZCOLS + coefficient rows, Nz + 2Hz) z columns in the field
+    dtype: Δz at centres and at faces, the non-traditional β-plane's
+    fy(1 − z/R) and fz(1 + 2z/R) at centres, then the per-slot coefficients
+    of ``entries`` along a stretched z."""
+    NZP = grid.padded_shape[2]
+    cols = [_along(numpy_metric(grid, "dz", LOC_CCC), 2, NZP),
+            _along(numpy_metric(grid, "dz", LOC_CCF), 2, NZP)]
+    if isinstance(coriolis, NonTraditionalBetaPlane):
+        zc = np.asarray(grid.coord_padded(2, "c"), np.float64)
+        cols += [coriolis.fy0 * (1 - zc / coriolis.R),
+                 coriolis.fz0 * (1 + 2 * zc / coriolis.R)]
+    else:
+        cols += [np.zeros(NZP)] * 2
+    if entries:
+        cols += coefficient_rows(grid, dict(entries), 2)
+    return torch.as_tensor(np.stack(cols), dtype=dtype,
+                           device=device).contiguous()
+
+
+def site_bases(cfg):
+    """{site: first row of its entry in its axis's coefficient rows} for
+    the sites on a stretched axis, and the (y, z) entries as tuples."""
+    bases, ent = {}, []
+    for axis in (1, 2):
+        entries, keys = stretched_entries(cfg, axis)
+        first, _ = entry_firsts(entries)
+        bases.update({site: first[key] for site, key in keys.items()})
+        ent.append(tuple(sorted(entries.items())))
+    return bases, ent[0], ent[1]
+
+
+# -- the launch -----------------------------------------------------------------
+
 THREADS = 256
-TILES = {4: (16, 8, 8), 8: (8, 8, 8)}
-# z reach of the vertical and tracer reconstructions and horizontal reach of
-# a tracer box (csrc/fused_vector_invariant.cu kRz, kRc)
-RZ = RC = 3
+# Tiles of output cells a block may own, largest first, by the fields'
+# element size: ``pick_tile`` takes the first whose shared memory lets
+# TILE_BLOCKS_PER_SM blocks share an SM (at float32 two: the 16 x 8 x 8
+# tile up to the WENO-9 vorticity's reach with WENO-5 tracers, 98.9 KB; at
+# float64 one: 8 x 8 x 8, 138.4 KB there).
+TILES = {4: ((16, 8, 8), (8, 8, 8), (8, 8, 4), (4, 8, 4), (4, 4, 4)),
+         8: ((8, 8, 8), (8, 8, 4), (4, 8, 4), (4, 4, 4))}
+TILE_BLOCKS_PER_SM = {4: 2, 8: 1}
 
 
-def reach(cfg):
-    """The box's reach along x and y: the WENO vorticity buffer or WENO-5's
-    3, and one more for the derived fields' own stencils."""
-    kv = cfg["kv"] if cfg["vort"] == WENO_VORT else 0
-    return max(kv, 3) + 1
-
-
-def smem_bytes(tile, R, esize):
-    """Dynamic shared memory of one block (csrc/fused_vector_invariant.cu
-    Layout): u and v over the tile plus the reach R, two per-cell sums, the
-    metric rows over the box's y, and a work buffer large enough for each
-    phase in turn (three derived fields; w, the z face fluxes of u and v and
-    two columns or two derived fields; w and ph; w, a tracer box and its
-    fluxes)."""
+def smem_bytes(tile, cfg, esize, n_yrows=N_ROWS, n_zrows=N_ZCOLS):
+    """Dynamic shared memory of one block (csrc/vi_kernel.cuh Layout): u and
+    v over the tile plus the reach R, two per-cell sums, the y rows over the
+    box's y and the z rows over the tile's z faces, and a work buffer large
+    enough for each phase in turn (three derived fields; w, the z face
+    fluxes of u and v and two columns or two derived fields; w and ph; w, a
+    tracer box and its fluxes)."""
     TX, TY, TZ = tile
+    R, Rw, Rz, Rc = cfg["R"], cfg["Rw"], cfg["Rz"], cfg["Rc"]
     BY = TY + 2 * R
     box = _align((TX + 2 * R) * BY * TZ)
-    wsz = _align((TX + 3) * (TY + 3) * (TZ + 1))
-    col = _align(TX * TY * (TZ + 2 * RZ))
+    wsz = _align((TX + 2 * Rw - 1) * (TY + 2 * Rw - 1) * (TZ + 1))
+    col = _align(TX * TY * (TZ + 2 * Rz))
     fz = _align(TX * TY * (TZ + 1))
     phb = _align((TX + 1) * (TY + 1) * TZ)
-    tb = _align((TX + 2 * RC) * (TY + 2 * RC) * (TZ + 2 * RZ))
+    tb = _align((TX + 2 * Rc) * (TY + 2 * Rc) * (TZ + 2 * Rz))
     tfx = _align((TX + 1) * TY * TZ)
     tfy = _align(TX * (TY + 1) * TZ)
-    rows = len(ROWS) + 1           # the metric rows and f
-    persistent = 2 * box + 2 * _align(TX * TY * TZ) + _align(rows * BY)
+    persistent = (2 * box + 2 * _align(TX * TY * TZ) + _align(n_yrows * BY)
+                  + _align(n_zrows * (TZ + 1)))
     work = max(3 * box, wsz + 2 * fz + 2 * max(col, box), wsz + phb,
                wsz + tb + tfx + tfy + fz)
     return esize * (persistent + work)
 
 
+def row_counts(cfg):
+    """(y rows, z rows) the launch stages: the metric rows and z columns
+    and the per-slot coefficient rows of the stretched axes."""
+    _, ye, ze = site_bases(cfg)
+    return (N_ROWS + entry_firsts(dict(ye))[1],
+            N_ZCOLS + entry_firsts(dict(ze))[1])
+
+
+def pick_tile(cfg, esize):
+    """The first tile of TILES[esize] whose shared memory lets
+    TILE_BLOCKS_PER_SM[esize] blocks share an SM (the last one if none)."""
+    per_sm = TILE_BLOCKS_PER_SM[esize]
+    ny, nz = row_counts(cfg)
+    for tile in TILES[esize]:
+        smem = smem_bytes(tile, cfg, esize, ny, nz)
+        if smem <= MAX_SMEM and SM_SMEM // (smem + SMEM_RESERVED) >= per_sm:
+            return tile
+    return TILES[esize][-1]
+
+
 def launch_plan(grid, cfg, dtype):
     """The launch of ``fused_vi_tendency`` for configuration ``cfg``
     (``vi_config``) with fields of ``dtype`` on ``grid``: a dict with
-    ``tile`` (TX, TY, TZ), ``tiles`` (along x, y and z over the output
-    region of Nx + bx by Ny + by by Nz cells, bx and by 1 on a bounded axis;
-    block n owns tile (tx, ty, tz) with n = (tx·tiles_y + ty)·tiles_z + tz,
-    cells [TX·tx, min(TX·(tx + 1), Nx + bx)) and likewise along y and z),
-    ``blocks``, ``threads``, ``reach`` and ``smem`` (bytes)."""
+    ``tile`` (TX, TY, TZ; ``pick_tile``), ``tiles`` (along x, y and z over
+    the output region of Nx + bx by Ny + by by Nz cells, bx and by 1 on a
+    bounded axis; block n owns tile (tx, ty, tz) with n = (tx·tiles_y +
+    ty)·tiles_z + tz, cells [TX·tx, min(TX·(tx + 1), Nx + bx)) and likewise
+    along y and z), ``blocks``, ``threads``, ``reach`` (R, Rw, Rz, Rc), the
+    staged ``rows`` (y, z) and ``smem`` (bytes)."""
     esize = torch.empty((), dtype=dtype).element_size()
-    tile = TILES[esize]
+    tile = pick_tile(cfg, esize)
     (Nx, Ny, Nz) = grid.N
     bx = int(grid.topology[0] == BOUNDED)
     by = int(grid.topology[1] == BOUNDED)
     tiles = tuple(-(-n // t) for n, t in zip((Nx + bx, Ny + by, Nz), tile))
-    R = reach(cfg)
+    ny, nz = row_counts(cfg)
     return dict(tile=tile, tiles=tiles, blocks=tiles[0] * tiles[1] * tiles[2],
-                threads=THREADS, reach=R, smem=smem_bytes(tile, R, esize))
+                threads=THREADS,
+                reach=(cfg["R"], cfg["Rw"], cfg["Rz"], cfg["Rc"]),
+                rows=(ny, nz), smem=smem_bytes(tile, cfg, esize, ny, nz))
+
+
+# The C entry's int configuration (csrc/vi_kernel.cuh Conf): the geometry,
+# the codes, the reaches, then per site its family, buffer and first
+# coefficient row (-1 on a uniform axis).
+CONF_HEAD = 25
+
+
+def conf_array(grid, cfg, plan, n_tr, with_ph, momentum):
+    (Nx, Ny, Nz), (Hx, Hy, Hz) = grid.N, grid.H
+    bases, _, _ = site_bases(cfg)
+    head = [Nx, Ny, Nz, Hx, Hy, Hz, int(grid.topology[0] == BOUNDED),
+            int(grid.topology[1] == BOUNDED), cfg["vort"], cfg["vort_sm"],
+            cfg["ke"], cfg["vert"], cfg["upw"], cfg["cor"], n_tr,
+            int(with_ph), int(momentum), cfg["KM"],
+            *plan["reach"], *plan["rows"], int(cfg["zs"])]
+    assert len(head) == CONF_HEAD
+    fam = [cfg["sites"].get(s, (0, 0))[0] for s in SITES]
+    K = [cfg["sites"].get(s, (0, 0))[1] for s in SITES]
+    base = [bases.get(s, -1) for s in SITES]
+    vals = head + fam + K + base
+    return (ctypes.c_int * len(vals))(*vals)
+
+
+def _set_tables(lib, dev):
+    if dev in _tables_on:
+        return
+    table = coefficient_table()
+    table_bf16 = coefficient_table(bf16=True)
+    build.check(lib.oc_vi_set_tables(
+        table.ctypes.data_as(ctypes.c_void_p),
+        table_bf16.ctypes.data_as(ctypes.c_void_p), len(table)), lib)
+    _tables_on.add(dev)
+
+
+@functools.lru_cache(maxsize=32)
+def launch_setup(grid, vi, tracer_scheme, n_tracers, coriolis, dtype, device,
+                 with_ph):
+    """Everything a call's launches need that depends only on the
+    configuration, formed once per grid, schemes, tracer count, Coriolis,
+    dtype, device and pₕ′ (grids, schemes and Coriolis objects compare by
+    value): ``vi_config``, the launch plan, the y and z rows on the device,
+    and per launch its (first, stop) tracers and int configuration. Raises
+    NotImplementedError for an uncovered configuration (not cached)."""
+    cfg = vi_config(grid, vi, tracer_scheme, n_tracers, coriolis)
+    _, ye, ze = site_bases(cfg)
+    plan = launch_plan(grid, cfg, dtype)
+    n_eff = n_tracers if cfg["tracers"] else 0
+    groups = [(a, min(n_eff, a + TRACER_BATCH))
+              for a in range(0, n_eff, TRACER_BATCH)] or [(0, 0)]
+    confs = [conf_array(grid, cfg, plan, stop - first, with_ph, first == 0)
+             for first, stop in groups]
+    return dict(cfg=cfg, plan=plan, groups=groups, confs=confs,
+                yr=y_rows(grid, coriolis, ye, dtype, device),
+                zr=z_rows(grid, coriolis, ze, dtype, device),
+                cor_f=(ctypes.c_double * 3)(*cfg["cor_f"]),
+                sdtype=_SMOOTHNESS_CODES[cfg["sdtype"]],
+                variant=variant_name(cfg))
 
 
 def fused_vi_tendency(grid, vi, tracer_scheme, names, coriolis, u, v, w,
@@ -336,46 +740,51 @@ def fused_vi_tendency(grid, vi, tracer_scheme, names, coriolis, u, v, w,
     """The hydrostatic tendency ``(Gu, Gv, {name: Gc})`` of padded u, v, w,
     ``tracers`` ({name: padded tensor}, in the order of ``names``) and
     ``ph`` (None without buoyancy), all with filled halos. CPU tensors take
-    the plain version; CUDA tensors launch the kernel, or raise for a
-    configuration it does not cover."""
+    the plain version; CUDA tensors launch the kernel (once per 32 tracers),
+    or raise for a configuration it does not cover."""
     names = tuple(names)
     if u.device.type == "cpu":
         return fused_vi_tendency_plain(grid, vi, tracer_scheme, names,
                                        coriolis, u, v, w, tracers, ph)
-    cfg = vi_config(grid, vi, tracer_scheme, len(names), coriolis)
     ins = [u, v, w] + ([ph] if ph is not None else []) + \
         [tracers[n] for n in names]
     from .fused_projection import check_tensors
     check_tensors(grid, ins, grid.padded_shape)
     dev, dt = u.device, u.dtype
     with torch.cuda.device(dev):
+        setup = launch_setup(grid, vi, tracer_scheme, len(names), coriolis,
+                             dt, dev, ph is not None)
         lib = build.library()
-        if dev not in _tables_on:
-            table = coefficient_table()
-            build.check(lib.oc_vi_set_tables(
-                table.ctypes.data_as(ctypes.c_void_p), len(table)), lib)
-            _tables_on.add(dev)
-        rows = metric_rows(grid, coriolis, dt, dev)
+        _set_tables(lib, dev)
         Gu, Gv = torch.zeros_like(u), torch.zeros_like(v)
         Gc = [torch.zeros_like(u) for _ in names]
-        ptrs = lambda ts: (ctypes.c_void_p * len(ts))(
-            *[t.data_ptr() if t is not None else None for t in ts])
-        in_ptrs = ptrs([u, v, w, ph] + [tracers[n] for n in names])
-        out_ptrs = ptrs([Gu, Gv] + Gc)
-        (Nx, Ny, Nz), (Hx, Hy, Hz) = grid.N, grid.H
-        conf = (ctypes.c_int * 15)(
-            Nx, Ny, Nz, Hx, Hy, Hz, int(grid.topology[0] == BOUNDED),
-            int(grid.topology[1] == BOUNDED), cfg["vort"], cfg["kv"],
-            cfg["upw"], cfg["cor"], cfg["tsch"], len(names),
-            int(ph is not None))
-        plan = launch_plan(grid, cfg, dt)
-        build.check(lib.oc_fused_vi_tendency(
-            _DTYPE_CODES[dt], _DTYPE_CODES[cfg["sdtype"]], in_ptrs, out_ptrs,
-            build.ptr(rows), conf, float(grid.dz(LOC_CCF)), *plan["tile"],
-            plan["threads"], plan["blocks"], plan["smem"],
-            build.stream_of(u)), lib)
-    fused_vi_tendency.launches += 1
+        plan = setup["plan"]
+        for (first, stop), conf in zip(setup["groups"], setup["confs"]):
+            in_ptrs = _pointers([u, v, w, ph]
+                                + [tracers[n] for n in names[first:stop]])
+            out_ptrs = _pointers([Gu, Gv] + Gc[first:stop])
+            build.check(lib.oc_fused_vi_tendency(
+                _DTYPE_CODES[dt], setup["sdtype"], in_ptrs, out_ptrs,
+                build.ptr(setup["yr"]), build.ptr(setup["zr"]), conf,
+                setup["cor_f"], *plan["tile"], plan["threads"],
+                plan["blocks"], plan["smem"], build.stream_of(u)), lib)
+            count_launch(setup["variant"])
     return Gu, Gv, dict(zip(names, Gc))
 
 
+def _pointers(ts):
+    """A host array of device pointers, null for None."""
+    return (ctypes.c_void_p * len(ts))(
+        *[t.data_ptr() if t is not None else None for t in ts])
+
+
+def count_launch(name):
+    """One more launch of #10 (its ``launches``) and of its variant ``name``
+    (its ``variant_launches``, by ``variant_name``)."""
+    fused_vi_tendency.launches += 1
+    fused_vi_tendency.variant_launches[name] = \
+        fused_vi_tendency.variant_launches.get(name, 0) + 1
+
+
 fused_vi_tendency.launches = 0
+fused_vi_tendency.variant_launches = {}

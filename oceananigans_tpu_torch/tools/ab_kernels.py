@@ -52,6 +52,13 @@ call behind a busy card (``*_ms``) and as the call from an idle card
 step, its device-busy share and its device kernels per step
 (torch.profiler over 3 steps), and the convection step. One JSON line.
 
+    PYTHONPATH=<copy> python oceananigans_tpu_torch/tools/ab_kernels.py vi <label>
+
+times #10 alone at the hydro_row shapes (524x268x44 padded, float32), on
+the state after set() with w from continuity, without and with a pₕ′:
+five CUDA-event medians of 10 calls each (``vi_hydro_ms``,
+``vi_hydro_ph_ms``), so that one run shows its own spread. One JSON line.
+
     python oceananigans_tpu_torch/tools/ab_kernels.py sweep
 
 times the block-tiled #1 and #8 of this copy under other launch plans: for
@@ -394,9 +401,23 @@ def sweep():
         torch.cuda.empty_cache()
 
 
+def vi_rounds(res, rounds=5):
+    m = hydro_model()
+    args = vi_args(m)
+    ph_args = args[:-1] + (torch.randn_like(args[8]["T"]),)
+    for key, a in (("vi_hydro_ms", args), ("vi_hydro_ph_ms", ph_args)):
+        res[key] = [ev(lambda: K.fused_vi_tendency(*a)) for _ in range(rounds)]
+
+
 def main(label):
     if label == "sweep":
         return sweep()
+    if label == "vi":
+        res = {"label": sys.argv[2] if len(sys.argv) > 2 else "vi",
+               "package": ot.__file__,
+               "device": torch.cuda.get_device_name(0)}
+        vi_rounds(res)
+        return print(json.dumps(res))
     if label == "profile-vi":
         return profile_vi()
     if label == "fill":

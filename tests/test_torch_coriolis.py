@@ -66,8 +66,9 @@ def test_constant_f():
 @pytest.mark.parametrize("cls", ["NonTraditionalBetaPlane",
                                  "HydrostaticSphericalCoriolis"])
 def test_hydrostatic_coriolis_raises(cls):
-    """The fused hydrostatic tendency does not cover the non-traditional
-    β-plane (a nonhydrostatic force): asked for, it raises naming item 13;
+    """The fused hydrostatic tendency covers the non-traditional β-plane,
+    as the JAX kernel does (fused_tendencies=True builds), and raises,
+    naming item 13, for it on a grid it does not cover (a stretched x);
     the spherical Coriolis refuses a scheme it does not have, as the JAX
     one does."""
     if cls == "HydrostaticSphericalCoriolis":
@@ -75,12 +76,20 @@ def test_hydrostatic_coriolis_raises(cls):
             tcor.HydrostaticSphericalCoriolis(scheme="active_weighted")
         return
     import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch.kernels.fused_vector_invariant import \
+        vi_config
     grid = TGrid(dtype=torch.float64, device="cpu", **GRID)
+    kw = dict(free_surface=ot.SplitExplicitFreeSurface(substeps=5),
+              coriolis=getattr(tcor, cls)(latitude=45.0),
+              fused_tendencies=True)
+    m = ot.HydrostaticFreeSurfaceModel(grid, **kw)
+    vi_config(m.grid, m.momentum_advection, m.tracer_advection, 0,
+              m.coriolis)
+    stretched_x = TGrid(size=(6, 5, 8), x=tuple(np.linspace(0, 1, 7) ** 2),
+                        y=(0.0, 2.0), z=(-0.5, 0.0), halo=(3, 3, 3),
+                        dtype=torch.float64, device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
-        ot.HydrostaticFreeSurfaceModel(
-            grid, free_surface=ot.SplitExplicitFreeSurface(substeps=5),
-            coriolis=getattr(tcor, cls)(latitude=45.0),
-            fused_tendencies=True)
+        ot.HydrostaticFreeSurfaceModel(stretched_x, **kw)
 
 
 @pytest.mark.parametrize("scheme", ["energy_conserving",

@@ -24,6 +24,7 @@ exchange copies (exact); the sharded stages on a 2x2 mesh of the card equal
 the serial kernels exactly (the same kernel on the same operands per cell)
 and match their plain routes to 1e-12."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -452,6 +453,55 @@ def test_fused_vi_tendency_rectilinear(config, topology):
     _vi_compare(grid, f, vi, ts, ("T",), ot.FPlane(f=1e-4), True)
 
 
+def _f64_weno(order):
+    return ot.WENO(order, smoothness_dtype=torch.float64)
+
+
+# the configurations #10 took on with its coverage: (grid z or latitude,
+# VI, tracer scheme, tracers, Coriolis)
+VI_COVERAGE = {
+    "stretched_z": ("z", lambda: ot.WENOVectorInvariant(
+        smoothness_dtype=torch.float64), lambda: _f64_weno(5), 1,
+        ot.HydrostaticSphericalCoriolis),
+    "stretched_latitude_weno7_cross": ("lat", lambda: ot.WENOVectorInvariant(
+        order=7, upwinding="cross_and_self", smoothness_dtype=torch.float64),
+        lambda: ot.UpwindBiased(3), 2, ot.HydrostaticSphericalCoriolis),
+    "weno11_default_stencil": ("flat", lambda: ot.WENOVectorInvariant(
+        order=11, vorticity_stencil="default",
+        smoothness_dtype=torch.float64), lambda: _f64_weno(11), 1,
+        lambda: ot.BetaPlane(f0=1e-4, beta=1e-11)),
+    "upwind_vi_centered12_17_tracers": ("z", lambda: ot.VectorInvariant(
+        vorticity_scheme=ot.UpwindBiased(9),
+        vertical_advection_scheme=ot.UpwindBiased(5)),
+        lambda: ot.Centered(12), 17,
+        lambda: ot.ConstantCartesianCoriolis(fx=1e-5, fy=2e-5, fz=1e-4)),
+    "weno3_nontraditional_40_tracers": ("lat", lambda: ot.WENOVectorInvariant(
+        order=3, smoothness_dtype=torch.float64), lambda: _f64_weno(7), 40,
+        lambda: ot.NonTraditionalBetaPlane(latitude=45.0)),
+}
+
+
+@pytest.mark.parametrize("with_ph", [False, True], ids=["no_ph", "ph"])
+@pytest.mark.parametrize("case", sorted(VI_COVERAGE))
+def test_fused_vi_tendency_coverage(case, with_ph):
+    """#10 on the configurations its coverage added (stretched z and
+    latitude, every scheme order, cross-upwinding, 17 and 40 tracers, the
+    planar and non-traditional Coriolis) against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    kind, make_vi, make_ts, ntr, make_cor = VI_COVERAGE[case]
+    z = tuple(-500.0 * np.linspace(1, 0, VI_N[2] + 1) ** 1.5)
+    lat = tuple(15 + 60 * np.linspace(0, 1, VI_N[1] + 1) ** 1.3)
+    grid = ot.LatitudeLongitudeGrid(
+        size=VI_N, longitude=(0.0, 60.0),
+        latitude=lat if kind == "lat" else (15, 75),
+        z=z if kind == "z" else (-1800.0, 0.0), halo=(7, 7, 7),
+        dtype=torch.float64, device="cuda")
+    names = tuple(f"c{i}" for i in range(ntr))
+    grid, f = _vi_inputs(None, grid=grid, tracers=names)
+    _vi_compare(grid, f, make_vi(), make_ts(), names, make_cor(), with_ph)
+
+
 @pytest.mark.parametrize("surface", [False, True], ids=["3d", "surface"])
 @pytest.mark.parametrize("grid_kind", ["periodic_x_latlon",
                                        "periodic_y_rectilinear"])
@@ -479,10 +529,12 @@ def test_fused_vi_tendency_uncovered_raises():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     grid, f = _vi_inputs((0.0, 60.0))
+    # WENO schemes of two smoothness dtypes: the kernel is built for one
     with pytest.raises(NotImplementedError, match="fused VI kernel"):
-        K.fused_vi_tendency(grid, ot.VectorInvariant(), ot.Centered(4),
-                            ("T",), None, f["u"], f["v"], f["w"],
-                            {"T": f["T"]}, None)
+        K.fused_vi_tendency(grid, ot.WENOVectorInvariant(
+            smoothness_dtype=torch.float32),
+            ot.WENO(5, smoothness_dtype=torch.float64), ("T",), None,
+            f["u"], f["v"], f["w"], {"T": f["T"]}, None)
 
 
 # -- the mesh halo exchange and the sharded stages --------------------------------

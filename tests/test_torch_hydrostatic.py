@@ -68,6 +68,8 @@ LAT = (15, 75)
 Z = (-1800.0, 0.0)
 BOUNDED_X = (0.0, 60.0)
 PERIODIC_X = (0.0, 360.0)
+# a stretched longitude, which the fused VI kernel refuses as JAX's does
+STRETCHED_X = tuple(60.0 * np.linspace(0, 1, N[0] + 1) ** 1.1)
 LOCS = {"u": ("f", "c", "c"), "v": ("c", "f", "c"), "w": ("c", "c", "f"),
         "T": ("c", "c", "c"), "ph": ("c", "c", "c")}
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
@@ -281,29 +283,51 @@ def test_wrapper_on_cpu_is_plain():
 
 
 def test_eligibility():
-    """vi_config takes the covered configurations and raises, naming the
-    ROADMAP item, for the others."""
+    """vi_config takes the configurations the JAX kernel takes on this grid
+    (any scheme, tracer count, upwinding and Coriolis) and raises, naming
+    the ROADMAP item, for what stays uncovered: an immersed grid, a shell
+    grid, a stretched x, and WENO schemes that differ in smoothness dtype
+    (the kernel is built for one)."""
+    from oceananigans_tpu_torch.immersed import (GridFittedBottom,
+                                                 ImmersedBoundaryGrid)
     _, tg = _grids()
     sd = dict(smoothness_dtype=F64)
     hsc = ot.HydrostaticSphericalCoriolis()
     assert vi_config(tg, ot.WENOVectorInvariant(), ot.Centered(2), 1,
                      hsc)["cor"] == 2
     assert vi_config(tg, ot.WENOVectorInvariant(order=5, **sd),
-                     ot.WENO(5, **sd), 8, ot.FPlane(f=1e-4))["kv"] == 3
+                     ot.WENO(5, **sd), 8,
+                     ot.FPlane(f=1e-4))["sites"]["vort_y"] == (2, 3)
     assert vi_config(tg, ot.VectorInvariant(), ot.Centered(2), 0,
                      None)["vort"] == 0
-    uncovered = [
+    covered = [
         (ot.VectorInvariant(), ot.Centered(4), 1, hsc),
         (ot.VectorInvariant(), ot.Centered(2), 9, hsc),
         (ot.WENOVectorInvariant(upwinding="cross_and_self"), ot.Centered(2),
          1, hsc),
-        (ot.WENOVectorInvariant(), ot.WENO(5, **sd), 1, hsc),  # sdtypes differ
         (ot.VectorInvariant(), ot.Centered(2), 1,
          ot.BetaPlane(f0=1e-4, beta=1e-11)),
     ]
+    for args in covered:
+        vi_config(tg, *args)
+    uncovered = [
+        (ImmersedBoundaryGrid(tg, GridFittedBottom(
+            lambda lam, phi: -1000.0 + 0 * lam)), ot.VectorInvariant(),
+         ot.Centered(2), 1, hsc),
+        (ot.TripolarGrid((24, 12, 4), z=(-100.0, 0.0), dtype=F64,
+                         device="cpu"), ot.VectorInvariant(), ot.Centered(2),
+         1, hsc),
+        (ot.LatitudeLongitudeGrid(size=N, longitude=np.linspace(0, 60, 17)
+                                  ** 1.05, latitude=LAT, z=Z, dtype=F64,
+                                  device="cpu"), ot.VectorInvariant(),
+         ot.Centered(2), 1, hsc),
+        (tg, ot.WENOVectorInvariant(), ot.WENO(5, **sd), 1, hsc),
+    ]
     for args in uncovered:
         with pytest.raises(NotImplementedError, match="item 13"):
-            vi_config(tg, *args)
+            vi_config(*args)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        ot.VectorInvariant(multi_dimensional_stencil=True)
     table = coefficient_table()
     assert table.shape == (TABLE_SIZE,) and table[-2:].tolist() == [1e-8,
                                                                     1e12]
@@ -522,8 +546,9 @@ def test_unported_options_raise(case):
 
 def test_unported_free_surfaces_and_grids_raise():
     """The polar and stretched lat-lon grids build (polar caps, stretched
-    coordinates) and the fused VI kernel refuses them, as JAX's does, so
-    "auto" takes the plain tendency; ImplicitFreeSurface and
+    coordinates); the fused VI kernel refuses the polar caps and a stretched
+    longitude, as JAX's does, so "auto" takes the plain tendency there, and
+    takes stretched latitudes and levels; ImplicitFreeSurface and
     FixedTimeStepSize (the cfl= substepping) build."""
     from oceananigans_tpu_torch.models.free_surfaces import (
         FixedTimeStepSize, ImplicitFreeSurface)
@@ -539,32 +564,45 @@ def test_unported_free_surfaces_and_grids_raise():
                                          z=np.linspace(-100, 0, 5) ** 3
                                          / 1e4, device="cpu")
     assert stretched.stretched_axes == (2,)
-    for grid, why in ((polar, "polar"), (stretched, "stretched")):
+    stretched_x = ot.LatitudeLongitudeGrid(
+        size=(8, 8, 4), longitude=np.linspace(0, 60, 9) ** 1.05,
+        latitude=LAT, z=Z, device="cpu")
+    assert stretched_x.stretched_axes == (0,)
+    for grid, why in ((polar, "polar"), (stretched_x, "stretched x")):
         with pytest.raises(NotImplementedError, match=why):
             vi_config(grid, ot.VectorInvariant(), ot.Centered(2), 1, None)
         m = ot.HydrostaticFreeSurfaceModel(grid, tracers=("T",))
         assert not m.uses_kernel
+    assert vi_config(stretched, ot.VectorInvariant(), ot.Centered(2), 1,
+                     None)["zs"]
+    m = ot.HydrostaticFreeSurfaceModel(stretched, tracers=("T",))
+    assert not m.uses_kernel      # "auto" on a CPU grid: the plain version
 
 
 def test_fused_tendencies_switch():
     """True and "packed" take the fused tendency and raise for a
-    configuration the kernel does not cover, on any device; "auto" (the
-    default) never raises for coverage and, on a CPU grid, takes the plain
-    version, as the JAX "auto" takes its XLA path; uses_kernel reports the
-    choice (False on a CPU grid); False is the plain path."""
+    configuration the kernel does not cover (a stretched longitude), on any
+    device; "auto" (the default) never raises for coverage and, on a CPU
+    grid, takes the plain version, as the JAX "auto" takes its XLA path;
+    uses_kernel reports the choice (False on a CPU grid); False is the plain
+    path."""
     _, tg = _grids()
+    sx = ot.LatitudeLongitudeGrid(size=N, longitude=STRETCHED_X,
+                                  latitude=LAT, z=Z, halo=(6, 6, 6),
+                                  dtype=F64, device="cpu")
     fs = ot.SplitExplicitFreeSurface(substeps=5)
     for value in ("auto", True, "packed", False):
         m = HydrostaticFreeSurfaceModel(tg, free_surface=fs, tracers=("T",),
+                                        tracer_advection=ot.Centered(4),
                                         fused_tendencies=value)
         assert not m.uses_kernel
     for value in (True, "packed"):
         with pytest.raises(NotImplementedError, match="fused VI kernel"):
-            HydrostaticFreeSurfaceModel(tg, free_surface=fs, tracers=("T",),
+            HydrostaticFreeSurfaceModel(sx, free_surface=fs, tracers=("T",),
                                         tracer_advection=ot.Centered(4),
                                         fused_tendencies=value)
     for value in ("auto", False):
-        m = HydrostaticFreeSurfaceModel(tg, free_surface=fs, tracers=("T",),
+        m = HydrostaticFreeSurfaceModel(sx, free_surface=fs, tracers=("T",),
                                         tracer_advection=ot.Centered(4),
                                         fused_tendencies=value)
         assert not m.uses_kernel
@@ -574,15 +612,15 @@ def test_fused_tendencies_switch():
 
 
 def test_auto_uncovered_against_jax():
-    """A configuration the kernel does not cover (Centered(4) tracer
-    advection) under the default "auto" on both sides: 2 quasi-AB2 steps
-    equal the JAX model's within 1e-10."""
+    """A configuration the kernel does not cover (a stretched longitude,
+    with Centered(4) tracer advection) under the default "auto" on both
+    sides: 2 quasi-AB2 steps equal the JAX model's within 1e-10."""
     built = []
     for J in (True, False):
         kw = (dict(dtype=np.float64) if J
               else dict(dtype=F64, device="cpu"))
         g = (jo if J else ot).LatitudeLongitudeGrid(
-            size=N, longitude=BOUNDED_X, latitude=LAT, z=Z, **kw)
+            size=N, longitude=STRETCHED_X, latitude=LAT, z=Z, **kw)
         M = JModel if J else HydrostaticFreeSurfaceModel
         m = M(g, momentum_advection=(JVI if J else ot.VectorInvariant)(),
               tracer_advection=(JCentered if J else ot.Centered)(4),
@@ -592,6 +630,9 @@ def test_auto_uncovered_against_jax():
         built.append(m)
     jm, tm = built
     assert not tm.uses_kernel
+    with pytest.raises(NotImplementedError, match="stretched x"):
+        vi_config(tm.grid, tm.momentum_advection, tm.tracer_advection, 1,
+                  tm.coriolis)
     rng = np.random.default_rng(3)
     u0, v0 = (0.05 * rng.standard_normal(N) for _ in range(2))
     for m in built:

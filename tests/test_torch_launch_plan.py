@@ -266,9 +266,10 @@ def test_vi_plan(label, kind, size, dtype, config, ntr):
     assert plan["threads"] % 32 == 0 and plan["threads"] <= 256
     assert plan["smem"] <= MAX_SMEM
     esize = torch.empty((), dtype=dtype).element_size()
-    assert plan["smem"] == fvi.smem_bytes(plan["tile"], plan["reach"], esize)
-    kv = vi.vorticity_scheme.buffer if cfg["vort"] == fvi.WENO_VORT else 0
-    assert plan["reach"] == max(kv, 3) + 1
+    assert plan["smem"] == fvi.smem_bytes(plan["tile"], cfg, esize,
+                                          *plan["rows"])
+    kv = vi.vorticity_scheme.buffer if cfg["vort"] == fvi.VORT_SCHEME else 0
+    assert plan["reach"][0] == max(kv, 3) + 1
     if dtype == torch.float32:
         assert SM_SMEM // (plan["smem"] + RESERVED) >= 2
     else:
@@ -324,12 +325,14 @@ def test_smem_bytes_by_reach_by_hand():
 
 def test_vi_smem_bytes_by_hand():
     """#10's layout at float32 16x8x8 with WENO-9 vorticity (reach 6): u
-    and v over 28x20x8 = 4480 cells, two per-cell sums of 1024, the 14
-    metric rows over 20 y; the work buffer's largest phase, three derived
-    fields of 4480 (w over 19x11x9 = 1881, rounded to 1884, the two z-flux
-    arrays 2 x 16x8x9 and two derived fields need 13148); at float64 8x8x8
-    (u and v over 20x20x8 = 3200, sums of 512, work 3 x 3200)."""
-    assert fvi.smem_bytes((16, 8, 8), 6, 4) == 4 * (2 * 4480 + 2 * 1024
-                                                   + 280 + 3 * 4480)
-    assert fvi.smem_bytes((8, 8, 8), 6, 8) == 8 * (2 * 3200 + 2 * 512 + 280
-                                                  + 3 * 3200)
+    and v over 28x20x8 = 4480 cells, two per-cell sums of 1024, the 18
+    metric and Coriolis rows over 20 y and the 4 z columns over the 9 z
+    faces; the work buffer's largest phase, three derived fields of 4480 (w
+    over 19x11x9 = 1881, rounded to 1884, the two z-flux arrays 2 x 16x8x9
+    and two derived fields need 13148); at float64 8x8x8 (u and v over
+    20x20x8 = 3200, sums of 512, work 3 x 3200)."""
+    cfg = dict(R=6, Rw=2, Rz=3, Rc=3)
+    assert fvi.smem_bytes((16, 8, 8), cfg, 4) == 4 * (2 * 4480 + 2 * 1024
+                                                     + 360 + 36 + 3 * 4480)
+    assert fvi.smem_bytes((8, 8, 8), cfg, 8) == 8 * (2 * 3200 + 2 * 512 + 360
+                                                    + 36 + 3 * 3200)
