@@ -253,6 +253,32 @@ Phases (each raises on failure; nothing is caught):
    hydro_row's 512x256x32 grid (reach 5 in every direction), checked and
    timed. Its wall time is printed.
 
+27. The NonhydrostaticModel on every topology and one stretched axis: #6
+   on a flat z (32x32x1) and a periodic z (32³) against its plain version
+   in float64 for WENO(5), WENO(9), UpwindBiased(5) and Centered(2) with a
+   tracer, and at the tile edges (45x37x1, 19x13x30; 1 and 37 tracers),
+   1e-12; the fill against fill_halos_plain in float64 on (P, P, P), (P,
+   Flat, P), (B, B, B), (B, P, B), (P, Flat, B) and (Flat, Flat, B), every
+   location under every condition, bit for bit; each topology's model
+   (those six, (P, P, Flat), (P, B, B), a stretched x and a stretched z) in
+   float64 on the card against the same model on the CPU over 3 steps at
+   1e-10. Then three rows in float32, each with 3 warm-up and 10 timed
+   steps, the counters (#6 three times a step in its z variant, or not at
+   all on row C; the fill kernel; no plain version on CUDA tensors), finite
+   fields, max|∇·u|·Δx/max|u| < 1e-4, the step median, min and max, peak
+   memory, the phase shares from CUDA events (#6 or the plain flux
+   divergences, the pressure solve and its tridiagonal sweep, the fills,
+   the rest), the busy share and device kernels per step, and the pressure
+   residual of its grid in float64: row A, triply periodic 256³ (WENO(5),
+   H = 3: #6 padded on a periodic z, the fill wrapping x, y and z, the 3-D
+   FFT), with #6 on its state against the plain version within 2e-5 of the
+   term scale and the fill on its u, v, w, p bit for bit, timed beside
+   F.pad(mode="circular"); row B, two-dimensional turbulence 8192² (#6 on a
+   flat z, the 2-D wrap, the 2-D FFT), the same checks; row C, the tilted
+   bottom boundary layer at 2048x1x512 on the example's stretched z (the
+   Fourier-tridiagonal solve, the plain flux divergences, the fill on a
+   bounded z with a flat y, timed). Its wall time is printed.
+
 Fill times are CUDA events around one call behind a busy card (the device's
 time, ``device_ms``), with the call from an idle card beside them (host
 launch work included, as PR 9's were taken). The line before the last is
@@ -836,19 +862,28 @@ def recon_flop(scheme):
     return 2 * cells - 1
 
 
-def advection_flop(scheme, n_momentum, n_tracers):
+def advection_flop(scheme, n_momentum, n_tracers, flat_z=False):
     """Operations of the advective tendency per interior cell, each face flux
-    counted once: a momentum component-cell takes three face fluxes, each
-    the Centered(2b) interpolation of A·q (2b products for A·q, 2b products
-    and 2b - 1 sums), the advected value (recon_flop) and the flux product,
-    then 3 differences, 2 sums, a division and a sign (7); a tracer
+    counted once: a momentum component-cell takes a face flux per axis that
+    is not flat (three; two on a flat z), each the Centered(2b)
+    interpolation of A·q (2b products for A·q, 2b products and 2b - 1
+    sums), the advected value (recon_flop) and the flux product, then the
+    differences, sums, a division and a sign (2 per axis + 1); a tracer
     component-cell reads the face velocity (1 product for A·u) in place of
-    the interpolation. WENO(5): 3 x (11 + 85 + 1) + 7 = 298 and 3 x (1 +
-    85 + 1) + 7 = 268."""
+    the interpolation, and so does w on a flat z, whose interpolation along
+    z is the identity. WENO(5): 3 x (11 + 85 + 1) + 7 = 298 and 3 x (1 +
+    85 + 1) + 7 = 268; on a flat z 2 x 97 + 5 = 199 for u and v and 2 x 87
+    + 5 = 179 for w."""
     _, b = scheme_buffers(scheme)
     recon = recon_flop(scheme)
-    return (n_momentum * (3 * (6 * b - 1 + recon + 1) + 7)
-            + n_tracers * (3 * (1 + recon + 1) + 7))
+    axes = 2 if flat_z else 3
+
+    def cell(interp):
+        return axes * (interp + recon + 1) + 2 * axes + 1
+
+    n_interp = n_momentum - 1 if flat_z else n_momentum
+    return (n_interp * cell(6 * b - 1)
+            + (n_momentum - n_interp + n_tracers) * cell(1))
 
 
 def bound(nbytes, flop):
@@ -3091,7 +3126,7 @@ def term_scales(grid, scheme, fields):
     from oceananigans_tpu_torch.advection import (div_Uc, div_Uu, div_Uv,
                                                   div_Uw)
     from oceananigans_tpu_torch.kernels.fused_advection import ZBC
-    zbc = ZBC if grid.H[2] == 0 else None
+    zbc = ZBC if grid.H[2] == 0 and grid.topology[2] == "bounded" else None
     u, v, w = fields[:3]
     ints = grid.interior_slices
     zero = torch.zeros_like(u)
@@ -3107,9 +3142,11 @@ def term_scales(grid, scheme, fields):
 
 def scaled_err(got, want, scales):
     """(max abs difference, the largest difference over its component's
-    term scale)."""
+    term scale; a component whose terms all vanish, w on a flat z, must
+    agree exactly)."""
     diffs = [(g - w).abs().max().item() for g, w in zip(got, want)]
-    return max(diffs), max(d / s for d, s in zip(diffs, scales))
+    return max(diffs), max(d / s if s else (0.0 if d == 0 else float("inf"))
+                           for d, s in zip(diffs, scales))
 
 
 def tracer_kernel_inputs(N, dtype, n_tracers, seed):
@@ -6129,7 +6166,620 @@ def vi_coverage_phase(card):
     return out, launches
 
 
+# -- every topology and one stretched axis (phase 27) -----------------------------
+
+P_, B_, F_ = "periodic", "bounded", "flat"
+TOPO_A_N = 256                 # row A: triply periodic n³, extent 2π
+TOPO_B_N = 8192                # row B: two-dimensional turbulence n², 2π
+TOPO_C_N = (2048, 512)         # row C: the tilted bottom boundary layer
+TOPO_STEPS = (3, 10)           # warm-up and timed steps of each row
+Z_MODE_SCHEMES = ("WENO(5)", "WENO(9)", "UpwindBiased(5)", "Centered(2)")
+# #6 in float64 on each z mode: the phase's shapes (32x32x1 and 32³) and
+# interiors no tile divides (the flat z's 32x32x1 tile, the periodic z's
+# 8x8x8 float64 tile), the latter with 1 and 37 tracers
+Z_MODE_CHECKS = {"flat": ((P_, P_, F_), ((32, 32, 1), (45, 37, 1))),
+                 "periodic": ((P_, P_, P_), ((32, 32, 32), (19, 13, 30)))}
+# the fill in float64: every location under every condition on the bounded
+# sides, on these topologies
+FILL_TOPOLOGIES = ((P_, P_, P_), (P_, F_, P_), (B_, B_, B_), (B_, P_, B_),
+                   (P_, F_, B_), (F_, F_, B_))
+
+
+def topo_scheme(name, smoothness=torch.float64):
+    import oceananigans_tpu_torch as ot
+    return {"WENO(5)": lambda: ot.WENO(5, smoothness_dtype=smoothness),
+            "WENO(9)": lambda: ot.WENO(9, smoothness_dtype=smoothness),
+            "UpwindBiased(5)": lambda: ot.UpwindBiased(5),
+            "Centered(2)": lambda: ot.Centered(2)}[name]()
+
+
+def topo_grid(topology, n, halo, dtype, device="cuda", extent=(1.0, 2.0, 0.5),
+              **coords):
+    """A RectilinearGrid from the full (x, y, z) size and halo (the flat
+    axes' entries dropped), over ``extent`` or the given coordinates."""
+    import oceananigans_tpu_torch as ot
+    keep = [ax for ax in range(3) if topology[ax] != F_]
+    kw = dict(size=tuple(n[ax] for ax in keep),
+              halo=tuple(halo[ax] for ax in keep), topology=topology,
+              dtype=dtype, device=device)
+    if not coords:
+        kw["extent"] = tuple(extent[ax] for ax in keep)
+    return ot.RectilinearGrid(**kw, **coords)
+
+
+def wrapped_fields(grid, n, dtype, seed, scale=0.1):
+    """``n`` seeded fields on the grid, their periodic halos (z included)
+    filled by the fill kernel."""
+    from oceananigans_tpu_torch import kernels as K
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f = [scale * torch.randn(grid.padded_shape, generator=gen, dtype=dtype,
+                             device="cuda") for _ in range(n)]
+    K.fill_halos(grid, f)
+    return f
+
+
+def z_mode_kernel_checks():
+    """#6 against its plain version in float64 on a flat z and a periodic
+    z, the four schemes with a tracer (1e-12 relative to each component's
+    max|plain|), and on interiors the tiles do not divide with 1 and 37
+    tracers (two launches)."""
+    from oceananigans_tpu_torch import kernels as K
+    f64 = torch.float64
+    worst = 0.0
+    for zmode, (topology, shapes) in Z_MODE_CHECKS.items():
+        for N in shapes:
+            tracer_counts = (1,) if N[0] == 32 else (1, 37)
+            line = 0.0
+            for ntr in tracer_counts:
+                for name in Z_MODE_SCHEMES:
+                    s = topo_scheme(name)
+                    r = s.required_halo
+                    grid = topo_grid(topology, N, (r, r, 0 if zmode == "flat"
+                                                   else r), f64)
+                    f = wrapped_fields(grid, 3 + ntr, f64, seed=41 + ntr)
+                    err, rel = worst_rel(
+                        list(K.fused_advection_tendency(grid, s, f)),
+                        list(K.fused_advection_tendency_plain(grid, s, f)))
+                    assert rel <= 1e-12, ("#6", zmode, N, ntr, name, rel)
+                    line = max(line, rel)
+            worst = max(worst, line)
+            print(f"  fused_advection_tendency {zmode} z {N} float64, "
+                  f"{', '.join(Z_MODE_SCHEMES)}, {tracer_counts} tracers: "
+                  f"worst rel {line:.3e} (bound 1e-12)")
+    torch.cuda.synchronize()
+    return worst
+
+
+def topology_locs_bcs(topology, n):
+    """``n`` (location, conditions): the four locations, each under four
+    rotations of Flux, Open, Value and Gradient over the bounded sides
+    (nonzero values), periodic conditions on the periodic sides."""
+    from oceananigans_tpu_torch.boundary_conditions import (
+        BoundaryCondition, FieldBoundaryConditions)
+    from oceananigans_tpu_torch.boundary_conditions import \
+        boundary_condition as bcm
+    classes = (bcm.FLUX, bcm.OPEN, bcm.VALUE, bcm.GRADIENT)
+    out = []
+    for k in range(n):
+        kw = {}
+        for s, side in enumerate(FILL_SIDES):
+            topo = topology[s // 2]
+            if topo == B_:
+                kw[side] = BoundaryCondition(classes[(s + k // 4) % 4],
+                                             0.1 * (s + 1) * (-1) ** s)
+            elif topo == P_:
+                kw[side] = bcm.PeriodicBoundaryCondition()
+        out.append((FILL_LOCS[k % 4], FieldBoundaryConditions(**kw)))
+    return out
+
+
+def topology_fill_checks():
+    """The fill kernel against fill_halos_plain in float64, bit for bit, on
+    each topology of FILL_TOPOLOGIES (a periodic z wraps in the launch that
+    fills x and y; flat axes have no halo), 16 fields: every location under
+    every condition on the bounded sides; and the wrap alone."""
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    for topology in FILL_TOPOLOGIES:
+        grid = topo_grid(topology, tuple(1 if t == F_ else n for t, n in
+                                         zip(topology, (37, 29, 23))),
+                         (3, 2, 4), torch.float64)
+        lbs = topology_locs_bcs(topology, 16)
+        fields = [torch.randn(grid.padded_shape, generator=gen,
+                              dtype=torch.float64, device="cuda")
+                  for _ in lbs]
+        fill_check(f"{'-'.join(topology)} {grid.N}, every combination", grid,
+                   fields, lbs)
+        fill_check(f"{'-'.join(topology)} {grid.N}, the wrap alone", grid,
+                   fields[:4], None)
+
+
+def topology_models(device, dtype=torch.float64):
+    """The small models of phase 27's card-against-CPU check: each
+    topology the model opens and a stretched x and z, WENO(5) with a tracer
+    (float64 smoothness), u, v, w and c from a seeded generator."""
+    import oceananigans_tpu_torch as ot
+    sx = tuple(np.cumsum(np.r_[0.0, np.random.default_rng(1).uniform(
+        0.5, 1.5, 12)]) / 12)
+    sz = tuple(-1.0 + np.cumsum(np.r_[0.0, np.random.default_rng(2).uniform(
+        0.5, 1.5, 12)]) / 12 * 1.0)
+    configs = {
+        "(P, P, P)": dict(topology=(P_, P_, P_), n=(16, 16, 16)),
+        "(P, P, Flat)": dict(topology=(P_, P_, F_), n=(32, 32, 1)),
+        "(P, Flat, P)": dict(topology=(P_, F_, P_), n=(24, 1, 16)),
+        "(B, B, B)": dict(topology=(B_, B_, B_), n=(12, 10, 8)),
+        "(B, P, B)": dict(topology=(B_, P_, B_), n=(12, 10, 8)),
+        "(P, B, B)": dict(topology=(P_, B_, B_), n=(12, 10, 8)),
+        "(P, Flat, B)": dict(topology=(P_, F_, B_), n=(24, 1, 16)),
+        "(Flat, Flat, B)": dict(topology=(F_, F_, B_), n=(1, 1, 32)),
+        "stretched x (B, P, B)": dict(topology=(B_, P_, B_), n=(12, 10, 8),
+                                      x=sx, y=(0.0, 2.0), z=(-0.5, 0.0)),
+        "stretched z (P, Flat, B)": dict(topology=(P_, F_, B_),
+                                         n=(16, 1, 12), x=(0.0, 1.0), z=sz),
+    }
+    out = {}
+    for label, c in configs.items():
+        c = dict(c)
+        topology, n = c.pop("topology"), c.pop("n")
+        halo = tuple(0 if t == F_ else 3 for t in topology)
+        grid = topo_grid(topology, n, halo, dtype, device, **c)
+        m = ot.NonhydrostaticModel(grid, advection=ot.WENO(
+            5, smoothness_dtype=dtype), tracers=("c",))
+        rng = np.random.default_rng(0)
+        m.set(**{k: 0.1 * rng.standard_normal(n) for k in ("u", "v", "w",
+                                                          "c")})
+        out[label] = m
+    return out
+
+
+def topology_model_checks():
+    """Each small model on the card (float64; #6 where the JAX model takes
+    its kernel, the fill kernel everywhere) over 3 steps against the same
+    model on the CPU (the plain route): 1e-10 relative to each field's
+    largest value, the velocity scale at least for u, v, w and p. No plain
+    version runs on CUDA tensors; #6 launches exactly where its route is
+    taken."""
+    from oceananigans_tpu_torch import kernels as K
+    K.reset_counters()
+    card = topology_models("cuda")
+    cpu = topology_models("cpu")
+    worst = 0.0
+    for label in card:
+        a, b = card[label], cpu[label]
+        K.reset_counters()
+        for _ in range(3):
+            a.time_step(1e-2)
+            b.time_step(1e-2)
+        launches, plain = K.counters()
+        assert all(v == 0 for v in plain.values()), (label, plain)
+        assert launches["fill_halos"] > 0, (label, "no fill launch")
+        assert (launches["fused_advection_tendency"] > 0) == \
+            a._kernel_tendency, (label, launches["fused_advection_tendency"])
+        scale = max(b.field(c).interior.abs().max().item() for c in "uvw")
+        line = 0.0
+        for name in ("u", "v", "w", "c", "p"):
+            x = a.field(name).interior.cpu()
+            y = b.field(name).interior
+            err = (x - y).abs().max().item()
+            ref = y.abs().max().item()
+            if name in "uvwp":
+                ref = max(ref, scale)
+            rel = 0.0 if err == 0 else err / ref
+            assert rel <= 1e-10, (label, name, rel)
+            line = max(line, rel)
+        worst = max(worst, line)
+        variants = {k[len("fused_advection_tendency_"):]: v
+                    for k, v in launches.items()
+                    if k.startswith("fused_advection_tendency_") and v}
+        print(f"  model {label} {a.grid.N} float64, 3 steps on the card "
+              f"against the CPU: worst rel {line:.3e} (bound 1e-10); "
+              f"solver {type(a.pressure_solver).__name__}, #6 "
+              f"{variants or 'not taken (plain flux divergences)'}, fill "
+              f"launches {launches['fill_halos']}")
+    return worst
+
+
+def padded_laplacian(grid, phi_int):
+    """∇²φ over the interior: φ's halos filled with the default conditions
+    (Neumann on bounded axes, periodic wrap), the flux form of the
+    operators; a flat axis adds no term."""
+    from oceananigans_tpu_torch.boundary_conditions import (
+        fill_all_halo_regions, regularize_field_boundary_conditions)
+    from oceananigans_tpu_torch.operators.operators import (ddx, ddy, ddz,
+                                                            dx_c, dy_c, dz_c)
+    ccc = ("c", "c", "c")
+    phi = torch.zeros(grid.padded_shape, dtype=phi_int.dtype,
+                      device=phi_int.device)
+    phi[grid.interior_slices] = phi_int
+    fill_all_halo_regions([phi], grid, [(ccc, regularize_field_boundary_conditions(
+        None, grid, ccc))])
+    total = torch.zeros_like(phi)
+    for ax, (d, delta, A) in enumerate(((ddx, dx_c, grid.Ax),
+                                        (ddy, dy_c, grid.Ay),
+                                        (ddz, dz_c, grid.Az))):
+        if grid.is_flat(ax):
+            continue
+        loc = tuple("f" if a == ax else "c" for a in range(3))
+        total = total + delta(grid, A(loc) * d(grid, phi, loc))
+    V = grid.V(ccc)
+    return (total / V)[grid.interior_slices]
+
+
+def pressure_residual(label, grid):
+    """The model's pressure solver (select_pressure_solver) on the row's
+    grid in float64 on the card: |∇²φ − b| over max|b| for a seeded b with
+    zero volume-weighted mean; bound 1e-8 (roundoff amplified by the
+    eigenvalue range, about (N/π)² = 6.8e6 at 8192²)."""
+    from oceananigans_tpu_torch.models.nonhydrostatic import \
+        select_pressure_solver
+    grid = grid.to(dtype=torch.float64)
+    solver = select_pressure_solver(grid)
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    b = torch.randn(grid.N, generator=gen, dtype=torch.float64, device="cuda")
+    V = torch.as_tensor(grid.V(("c", "c", "c")), dtype=torch.float64,
+                        device="cuda").broadcast_to(grid.padded_shape)[
+                            grid.interior_slices]
+    b = b - (b * V).sum() / V.sum()
+    t0 = time.perf_counter()
+    phi = solver.solve(b)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    res = (padded_laplacian(grid, phi) - b).abs().max().item() \
+        / b.abs().max().item()
+    print(f"  pressure residual {label} {grid.N} float64 "
+          f"({type(solver).__name__}): max|∇²φ − b|/max|b| {res:.3e} (bound "
+          f"1e-8), solve {solve_s * 1e3:.1f} ms with its first call")
+    assert res < 1e-8, (label, "pressure residual", res)
+    del phi, b, V
+    torch.cuda.empty_cache()
+
+
+def topology_phase_shares(model, dt, steps, card, label):
+    """Per-step CUDA-event times of a step's phases: the advection (#6,
+    or the plain flux divergences), the pressure solve (the tridiagonal
+    sweep within it), the halo fills and the rest (the other tendencies,
+    updates, the divergence and correction, allocations, host gaps)."""
+    import oceananigans_tpu_torch.models.nonhydrostatic as nh
+    import oceananigans_tpu_torch.solvers.fourier_tridiagonal as ftm
+    timer = PhaseTimer()
+    saved = (nh.fused_advection_tendency, nh.fill_all_halo_regions,
+             nh.periodic_halo_fill, ftm.solve_batched_tridiagonal)
+    nh.fused_advection_tendency = timer.wrap("#6", saved[0])
+    nh.fill_all_halo_regions = timer.wrap("fills", saved[1])
+    nh.periodic_halo_fill = timer.wrap("fills", saved[2])
+    ftm.solve_batched_tridiagonal = timer.wrap("tridiagonal", saved[3])
+    solver = model.pressure_solver
+    solver.solve = timer.wrap("solve", solver.solve)
+    model._advection = timer.wrap("advection", model._advection)
+    model.time_step = timer.wrap("step", model.time_step)
+    try:
+        for _ in range(steps):
+            model.time_step(dt)
+        t = {k: v / steps for k, v in timer.totals().items()}
+    finally:
+        (nh.fused_advection_tendency, nh.fill_all_halo_regions,
+         nh.periodic_halo_fill, ftm.solve_batched_tridiagonal) = saved
+        del solver.solve, model._advection, model.time_step
+    g = t.get
+    shares = {
+        "#6 (fused_advection_tendency)": g("#6", 0.0),
+        "plain flux divergences": g("advection", 0.0) - g("#6@advection",
+                                                          0.0),
+        "pressure solve": g("solve", 0.0),
+        "halo fills": g("fills", 0.0),
+    }
+    shares["rest (other tendencies, updates, divergence, correction, host "
+           "gaps)"] = t["step"] - sum(shares.values())
+    print(f"{label} step phases, ms per step over {steps} steps (CUDA "
+          f"events) [{card}]:")
+    for phase, ms in shares.items():
+        print(f"  {phase}: {ms:.4f} ms ({100 * ms / t['step']:.1f}%)")
+    if g("tridiagonal") is not None:
+        print(f"    of the solve, the tridiagonal sweep: "
+              f"{g('tridiagonal'):.4f} ms ({100 * g('tridiagonal') / t['step']:.1f}% "
+              f"of the step)")
+    print(f"  step: {t['step']:.4f} ms")
+    return shares, t["step"]
+
+
+def topology_row_a():
+    """Row A: triply periodic n³ over (0, 2π)³, WENO(5), no closure, H = 3;
+    u, v, w from np.random.default_rng(0), projected by set()."""
+    import oceananigans_tpu_torch as ot
+    n = TOPO_A_N
+    grid = ot.RectilinearGrid(size=(n, n, n), extent=(2 * np.pi,) * 3,
+                              topology=(P_, P_, P_), halo=3, dtype=torch.float32,
+                              device="cuda")
+    m = ot.NonhydrostaticModel(grid, advection=ot.WENO(5))
+    rng = np.random.default_rng(0)
+    m.set(**{c: rng.standard_normal((n, n, n), dtype=np.float32)
+             for c in "uvw"})
+    return m
+
+
+def topology_row_b():
+    """Row B: two-dimensional turbulence at n² over (0, 2π)²
+    (examples/two_dimensional_turbulence.py at research size), WENO(5);
+    u, v from np.random.default_rng(0)."""
+    import oceananigans_tpu_torch as ot
+    n = TOPO_B_N
+    grid = ot.RectilinearGrid(size=(n, n), x=(0, 2 * np.pi),
+                              y=(0, 2 * np.pi), topology=(P_, P_, F_),
+                              dtype=torch.float32, device="cuda")
+    m = ot.NonhydrostaticModel(grid, advection=ot.WENO(5))
+    rng = np.random.default_rng(0)
+    m.set(**{c: rng.standard_normal((n, n, 1), dtype=np.float32)
+             for c in "uv"})
+    return m
+
+
+def tilted_faces(nz, Lz=100.0, refinement=1.8, stretching=10.0):
+    """examples/tilted_bottom_boundary_layer.py's z faces (0 at the bottom,
+    refined there)."""
+    h = (nz - np.arange(nz + 1)) / nz
+    zeta = 1 + (h - 1) / refinement
+    Sig = (1 - np.exp(-stretching * h)) / (1 - np.exp(-stretching))
+    return -Lz * (zeta * Sig - 1)
+
+
+def topology_row_c():
+    """Row C: examples/tilted_bottom_boundary_layer.py at nx x 1 x nz (Lx =
+    200, Lz = 100, refinement 1.8, stretching 10): UpwindBiased(5),
+    ScalarDiffusivity(1e-4, 1e-4), ConstantCartesianCoriolis, the tilted
+    BuoyancyForce, background b and v, the quadratic drag on the bottom of
+    u and v, N² on b's bottom; u and w noise from np.random.default_rng(7).
+    Returns (model, Δt: the example's first Δt)."""
+    import oceananigans_tpu_torch as ot
+    nx, nz = TOPO_C_N
+    Lx, Lz = 200.0, 100.0
+    z_faces = tilted_faces(nz, Lz)
+    grid = ot.RectilinearGrid(size=(nx, 1, nz), x=(0, Lx), y=(0, 1.0),
+                              z=tuple(z_faces), topology=(P_, F_, B_),
+                              dtype=torch.float32, device="cuda")
+    zhat = (np.sin(np.radians(3.0)), 0.0, np.cos(np.radians(3.0)))
+    N2, V_inf = 1e-5, 0.1
+    z1 = float(0.5 * (z_faces[0] + z_faces[1]))
+    cD = (0.4 / np.log(z1 / 0.1)) ** 2
+
+    def drag_u(x, y, t, u, v):
+        return -cD * (u ** 2 + (v + V_inf) ** 2) ** 0.5 * u
+
+    def drag_v(x, y, t, u, v):
+        return -cD * (u ** 2 + (v + V_inf) ** 2) ** 0.5 * (v + V_inf)
+
+    bcs = {
+        "u": ot.FieldBoundaryConditions(bottom=ot.FluxBoundaryCondition(
+            drag_u, field_dependencies=("u", "v"))),
+        "v": ot.FieldBoundaryConditions(bottom=ot.FluxBoundaryCondition(
+            drag_v, field_dependencies=("u", "v"))),
+        "b": ot.FieldBoundaryConditions(bottom=ot.GradientBoundaryCondition(
+            -N2 * zhat[2]))}
+    m = ot.NonhydrostaticModel(
+        grid, buoyancy=ot.BuoyancyForce(ot.BuoyancyTracer(),
+                                        gravity_unit_vector=tuple(
+                                            -g for g in zhat)),
+        coriolis=ot.ConstantCartesianCoriolis(f=1e-4, rotation_axis=zhat),
+        closure=ot.ScalarDiffusivity(nu=1e-4, kappa=1e-4),
+        advection=ot.UpwindBiased(5), tracers=("b",),
+        boundary_conditions=bcs,
+        background_fields={
+            "b": ot.BackgroundField(
+                lambda x, y, z, t, p: p["N2"] * (x * p["z1"] + z * p["z3"]),
+                parameters={"N2": N2, "z1": zhat[0], "z3": zhat[2]}),
+            "v": ot.BackgroundField(V_inf)})
+    rng = np.random.default_rng(7)
+
+    def noise(x, y, z):
+        return 1e-3 * rng.standard_normal(np.broadcast_shapes(
+            np.shape(x), np.shape(y), np.shape(z))) * np.exp(
+                -(10 * z) ** 2 / Lz ** 2)
+
+    m.set(u=noise, w=noise)
+    min_dz = float(np.diff(z_faces).min())
+    return m, 0.5 * min(min_dz / V_inf, min_dz ** 2 / 1e-4)
+
+
+def cfl_dt(model, cfl=0.5):
+    """Δt at the given advective CFL of the model's state (regular x)."""
+    umax = max(model.field(c).interior.abs().max().item() for c in "uvw")
+    return cfl * model.grid.minimum_spacing(0) / umax
+
+
+def topology_row(card, label, model, dt, variant):
+    """3 warm-up and 10 timed steps with the counters reset just before and
+    read just after: #6 (``variant``, three launches a step; None: the
+    plain flux divergences), the fill kernel, no plain version on CUDA
+    tensors; finite fields, the divergence; step median, min and max, peak
+    memory, the phase shares, the busy share and device kernels per step.
+    Returns (launches, step median ms)."""
+    from oceananigans_tpu_torch import kernels as K
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_counters()
+    warmup, timed = TOPO_STEPS
+    times = timed_steps(model, dt, warmup, timed)
+    launches, plain = K.counters()
+    steps = warmup + timed
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label} launches over {steps} steps: "
+          f"{ {k: v for k, v in launches.items() if v} }; plain calls on "
+          f"CUDA: { {k: v for k, v in plain.items() if v} }")
+    for name, count in plain.items():
+        assert count == 0, f"plain {name} ran on CUDA tensors ({label})"
+    assert plain["fused_advection_tendency_plain"] == 0
+    assert launches["fill_halos"] > 0, (label, "no fill launch")
+    if variant is None:
+        assert launches["fused_advection_tendency"] == 0, label
+    else:
+        assert launches["fused_advection_tendency"] == 3 * steps, \
+            (label, launches["fused_advection_tendency"])
+        assert launches[f"fused_advection_tendency_{variant}"] == 3 * steps, \
+            (label, variant, launches)
+    for name in model.prognostic_names:
+        assert torch.isfinite(model.field(name).interior).all().item(), \
+            (label, f"{name} is not finite")
+    padded_divergence(label, model)
+    step_ms = statistics.median(times) * 1e3
+    n = int(np.prod(model.grid.N))
+    print(f"{label}: step median {step_ms:.3f} ms over {timed} steps (min "
+          f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), Δt {dt:.4e}, "
+          f"{n / (step_ms / 1e3):.4e} cell-updates/s; peak device memory "
+          f"(steps) {peak / 2 ** 30:.2f} GiB [{card}]")
+    topology_phase_shares(model, dt, 3, card, label)
+    busy_share(label, model, dt, 3, step_ms, card)
+    return launches, step_ms
+
+
+def circular_pad3_ms(grid, fields):
+    """torch.nn.functional.pad(mode="circular") along x, y and z of the
+    fields' interiors stacked as channels: the one PyTorch call that
+    computes the triply periodic wrap (out of place); checked against the
+    filled fields."""
+    import torch.nn.functional as F
+    Hx, Hy, Hz = grid.H
+    x = torch.stack([f[grid.interior_slices] for f in fields])[None]
+    pad = (Hz, Hz, Hy, Hy, Hx, Hx)
+    got = F.pad(x, pad, mode="circular")[0]
+    assert all(torch.equal(g, f) for g, f in zip(got, fields)), \
+        "circular pad differs from the filled fields"
+    ms = device_ms(lambda: F.pad(x, pad, mode="circular"))
+    print(f"  time torch.nn.functional.pad(mode='circular') of "
+          f"{tuple(x.shape)} along x, y and z: {ms:.4f} ms")
+    return ms
+
+
+def row_kernel_check(label, model, variant_label, bound_pair, zmode):
+    """#6 on the row's own state (u, v, w, halos filled) against its plain
+    version in float32, within 2e-5 of each component's term scale (phase
+    25's bound), timed with its bound; then the fill on u, v, w, p bit for
+    bit, timed with its bound and sector floor and F.pad(mode="circular").
+    Returns ({kernel: measured})."""
+    from oceananigans_tpu_torch import kernels as K
+    grid = model.grid
+    fields = dict(model.state["fields"])
+    model._fill_all(fields)
+    f = [fields[c] for c in "uvw"]
+    scheme = model.advection
+    Gk = K.fused_advection_tendency(grid, scheme, f)
+    Gp = K.fused_advection_tendency_plain(grid, scheme, f)
+    scales = term_scales(grid, scheme, f)
+    err, rel = scaled_err(list(Gk), list(Gp), scales)
+    print(f"  fused_advection_tendency {zmode} z on {label}'s state "
+          f"{grid.N} float32: max abs {err:.3e}, over the term scale "
+          f"{rel:.3e} (bound 2e-5)")
+    assert rel <= 2e-5, ("#6", label, rel)
+    del Gk, Gp
+    ms = cuda_ms(lambda: K.fused_advection_tendency(grid, scheme, f))
+    plain_ms = cuda_ms(lambda: K.fused_advection_tendency_plain(
+        grid, scheme, f), reps=3, warmup=1)
+    print(f"  time fused_advection_tendency {zmode} z at "
+          f"{grid.padded_shape} (u, v, w): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_pair[0]:.4f} ms "
+          f"({bound_pair[1]}) [{variant_label}]")
+    out = {f"fused_advection_tendency_z{zmode}": dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=bound_pair,
+        library_ms=None)}
+    names = ["u", "v", "w", "p"]
+    arrays = [fields[c] for c in "uvw"] + [model.state["pressure"]]
+    lbs = model_locs_bcs(model, names[:3]) + [((
+        "c", "c", "c"), model.bcs["p"])]
+    ferr = fill_check(f"{label} u, v, w, p", grid, arrays, lbs)
+    fill = time_fill(f"{label} u, v, w, p ({zmode} z)", grid, arrays, lbs,
+                     ferr)
+    fill["library_ms"] = (circular_pad3_ms(grid, arrays) if zmode ==
+                          "periodic" else circular_pad_ms(grid, arrays))
+    out[f"fill_halos_z{zmode}"] = fill
+    return out
+
+
+# phase 27's kernel rows: (its row, the counter of its launches there, the
+# kernel whose source and TPU kernel it takes)
+TOPOLOGY_ROWS = {
+    "fused_advection_tendency_zperiodic": (
+        "A", "fused_advection_tendency_weno5_zperiodic",
+        "fused_advection_tendency"),
+    "fill_halos_zperiodic": ("A", "fill_halos", "fill_halos"),
+    "fused_advection_tendency_zflat": (
+        "B", "fused_advection_tendency_weno5_zflat",
+        "fused_advection_tendency"),
+    "fill_halos_zflat": ("B", "fill_halos", "fill_halos"),
+    "fill_halos_stretched": ("C", "fill_halos", "fill_halos_bounded"),
+}
+
+
+def topology_phase(card):
+    """Phase 27: the NonhydrostaticModel on every topology and on one
+    stretched axis. Returns ({kernel row: measured}, {row: launches})."""
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    print("#6 on a flat and a periodic z against its plain version (float64, "
+          "1e-12):")
+    z_mode_kernel_checks()
+    print("the fill on every topology against its plain version (float64, "
+          "bit for bit):")
+    topology_fill_checks()
+    print("each topology's model on the card against the CPU (float64, 3 "
+          "steps, 1e-10):")
+    topology_model_checks()
+    torch.cuda.empty_cache()
+
+    label = f"row A, triply periodic {TOPO_A_N}^3 WENO(5)"
+    print(f"{label}:")
+    model = topology_row_a()
+    n = TOPO_A_N
+    bound_a = convection_bounds((n, n, n), (3, 3, 3), 4, n_tracers=0)[
+        "fused_advection_tendency"]
+    out.update(row_kernel_check(label, model, "weno5_zperiodic", bound_a,
+                                "periodic"))
+    pressure_residual(label, model.grid)
+    launches["A"], step_a = topology_row(card, label, model, cfl_dt(model),
+                                         "weno5_zperiodic")
+    del model
+    torch.cuda.empty_cache()
+
+    label = f"row B, two-dimensional turbulence {TOPO_B_N}^2 WENO(5)"
+    print(f"{label}:")
+    model = topology_row_b()
+    n = TOPO_B_N
+    padded = (n + 6) ** 2
+    bound_b = bound(4 * 3 * (padded + n * n),
+                    n * n * advection_flop(model.advection, 3, 0, flat_z=True))
+    out.update(row_kernel_check(label, model, "weno5_zflat", bound_b,
+                                "flat"))
+    pressure_residual(label, model.grid)
+    launches["B"], step_b = topology_row(card, label, model, cfl_dt(model),
+                                         "weno5_zflat")
+    del model
+    torch.cuda.empty_cache()
+
+    label = (f"row C, tilted bottom boundary layer {TOPO_C_N[0]}x1x"
+             f"{TOPO_C_N[1]} stretched z")
+    print(f"{label}:")
+    model, dt = topology_row_c()
+    assert model.grid.stretched_axes == (2,), model.grid.stretched_axes
+    assert not model._kernel_tendency
+    print(f"  Δz from {model.grid.minimum_spacing(2):.4f} m (bottom) up; "
+          f"solver {type(model.pressure_solver).__name__} along z")
+    pressure_residual(label, model.grid)
+    launches["C"], step_c = topology_row(card, label, model, dt, None)
+    fields = dict(model.state["fields"])
+    names = ["u", "v", "w", "b"]
+    arrays = [fields[c] for c in names]
+    lbs = model_locs_bcs(model, names)
+    ferr = fill_check(f"{label} u, v, w, b", model.grid, arrays, lbs)
+    out["fill_halos_stretched"] = time_fill(
+        f"{label} u, v, w, b (bounded z, flat y)", model.grid, arrays, lbs,
+        ferr)
+    del model, fields, arrays
+    torch.cuda.empty_cache()
+    print(f"phase 27 rows: A {step_a:.3f} ms, B {step_b:.3f} ms, C "
+          f"{step_c:.3f} ms a step [{card}]")
+    print(f"phase 27 wall time {time.perf_counter() - t0:.1f} s [{card}]")
+    return out, launches
+
+
+
 def main():
+    t_start = time.perf_counter()
     name, card = device_phase()
     build_phase()
     print("kernels against plain versions:")
@@ -6240,6 +6890,9 @@ def main():
     scheme_rows, scheme_flagship, scheme_convection = schemes_phase(card)
     print("every configuration of the hydrostatic tendency #10 (phase 26):")
     vi_rows, stretched_launches = vi_coverage_phase(card)
+    print("the nonhydrostatic model on every topology and one stretched axis "
+          "(phase 27):")
+    topo_rows, topo_launches = topology_phase(card)
     bounds["fused_advection_update_bf16"] = \
         bounds["fused_advection_update_tracers"]
     for fname in ("fill_halos", "fill_halos_bounded", "fill_halos_fold",
@@ -6307,6 +6960,19 @@ def main():
                          max_abs_err=m["max_abs_err"], ms=m["ms"],
                          plain_ms=m["plain_ms"], bound_ms=m["bound"][0],
                          bound_by=m["bound"][1], library_ms=None))
+    # phase 27's rows: #6 and the fill on row A (periodic z) and row B (flat
+    # z), the fill on row C (bounded z, flat y), each with its row's
+    # launches
+    for kname, (row, counter, kernel) in TOPOLOGY_ROWS.items():
+        m = topo_rows[kname]
+        source, replaces = KERNEL_SOURCES[kernel]
+        rows.append(dict(name=kname, route="cuda", source=source,
+                         replaces=replaces,
+                         launches=topo_launches[row][counter],
+                         max_abs_err=m["max_abs_err"], ms=m["ms"],
+                         plain_ms=m["plain_ms"], bound_ms=m["bound"][0],
+                         bound_by=m["bound"][1],
+                         library_ms=m.get("library_ms")))
     for fname, label, path_launches in (
             ("fill_halos", "the flagship path (u, v, w, p of 264x264x256, "
              "the wrap)", flagship_launches),
@@ -6347,6 +7013,8 @@ def main():
           f"versions (max abs): #6 padded "
           f"{measured['fused_advection_tendency_bf16']['max_abs_err']:.3e}, "
           f"#8 {measured['fused_sw_update_bf16']['max_abs_err']:.3e}")
+    print(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s, "
+          f"the build included [{card}]")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

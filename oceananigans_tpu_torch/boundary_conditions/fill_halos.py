@@ -1,8 +1,8 @@
 """Halo filling and boundary-flux tendencies.
 
 Counterpart of ``oceananigans_tpu/boundary_conditions/fill_halos.py`` for
-periodic, bounded or flat x and y and a bounded (or flat) z, in the
-reference's x → y → z order, so that corners come out as in JAX. Every fill
+periodic, bounded or flat x, y and z, in the reference's x → y → z order,
+so that corners come out as in JAX. Every fill
 goes through ``kernels/halo_fill.py`` ``fill_halos``: one launch for a batch
 of fields on the card, filling every axis (a periodic wrap; on a bounded
 axis ``_fill_axis``: center fields mirror the interior under Flux/Open and
@@ -18,24 +18,16 @@ a tendency; ``apply_immersed_flux_bcs`` adds the conditions of an immersed
 grid's ``immersed`` slot.
 
 Every fill updates the tensors in place and returns them. A periodic z
-raises.
+wraps; conditions other than periodic on it raise (``fill_codes``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..grids.topology import BOUNDED, CENTER, FACE, PERIODIC
+from ..grids.topology import BOUNDED, CENTER, FACE
 from ..operators.operators import interp_to
 from .boundary_condition import FLUX, SIDE_AXIS, USER_BCS_ITEM
-
-
-def check_fillable(grid):
-    """Raise unless the grid's halos are what this module fills: a bounded
-    (or flat) z."""
-    if grid.topology[2] == PERIODIC:
-        raise NotImplementedError(
-            f"periodic z halo fills are not ported yet: {USER_BCS_ITEM}")
 
 
 def _check_conditions(arrays, grid, locs_bcs, axes):
@@ -51,7 +43,6 @@ def fill_all_halo_regions(arrays, grid, locs_bcs=None):
     ``locs_bcs`` gives each tensor's (location, boundary conditions); it is
     needed when the grid has a bounded x or y or a z halo."""
     from ..kernels.halo_fill import fill_halos
-    check_fillable(grid)
     arrays = list(arrays)
     _check_conditions(arrays, grid, locs_bcs, (0, 1, 2))
     return fill_halos(grid, arrays, locs_bcs)

@@ -26,16 +26,22 @@
 // tendency the model runs when other tendencies (buoyancy, closure, boundary
 // fluxes) are added to G before the stage update: G = -∇·(𝐯q) for u, v, w
 // and each tracer, written straight to the (components, Nx, Ny, Nz) output,
-// with no stage update, no G⁻ and no periodic images. Two layouts, selected
-// by Hz as the TPU kernel selects them (:166): padded (Hz >= the reach;
-// halos filled beforehand, z included, read as they are: PaddedRead) or
-// z-compact (Hz = 0: the z mirrors and zero boundary-face fluxes of
-// CompactRead, uncorrected). #7 runs #6 once per shard.
+// with no stage update, no G⁻ and no periodic images. Its z is bounded,
+// periodic or flat (AdvectionArgs::zmode, from the grid's topology, as the
+// TPU kernel's slab grid keeps z's topology, :47 and :166; a compile-time
+// property of the read policy, so that each mode has its own
+// instantiation), in one of three layouts: padded (a bounded or periodic z,
+// Hz >= the reach; halos filled beforehand, z included, read as they are:
+// PaddedRead; the cascade only on a bounded z), z-compact (a bounded z with
+// Hz = 0: the z mirrors and zero boundary-face fluxes of CompactRead,
+// uncorrected) or flat (Nz = 1, Hz = 0: no z flux and no z reach,
+// PaddedRead<T, kZFlat>). #7 runs #6 once per shard.
 //
 // Schemes: every scheme of oceananigans_tpu/advection/schemes.py, as the
 // TPU kernels take them (they call the scheme's reconstruction in their
 // bodies): Centered(2-12), UpwindBiased(1-11), WENO(3-11), with the
-// near-wall order cascade on the global z index (advection_stencils.cuh).
+// near-wall order cascade on the global z index of a bounded z
+// (advection_stencils.cuh).
 //
 // Bound: over u, v, w alone, arithmetic: for WENO(5) about 300
 // floating-point operations per component and cell (each face flux once;
@@ -108,6 +114,7 @@ struct AdvectionArgs {
   int TX, TY, TZ, threads, blocks, smem;   // the launch plan
   cudaStream_t stream;
   int* per_sm;   // non-null: report the blocks an SM holds instead of launching
+  int zmode;     // #6: kZBounded (0, #1's), kZPeriodic or kZFlat: the read policy's
 };
 
 // One function per buffer K (advection_kK.cu): fam kCentered, kUpwind or
@@ -147,20 +154,27 @@ using UpdateRead = oc::CompactRead<T, std::is_same<S, oc::bf16>::value>;
 // rows are 16-byte aligned copies of the tracer's z columns.
 __host__ __device__ constexpr int tracer_z(int r) { return r <= 4 ? 4 : (r + 3) / 4 * 4; }
 
-// Element offsets of a block's shared arrays for a TX × TY × TZ tile and a
-// stencil reach r; kernels/fused_advection.py smem_bytes computes the same
-// total.
+// The reach of the boxes along z: the stencil's r, none on a flat z; and a
+// tracer box's, tracer_z(r) or none.
+__host__ __device__ constexpr int z_reach(int r, bool flat) { return flat ? 0 : r; }
+__host__ __device__ constexpr int tracer_z_reach(int r, bool flat) {
+  return flat ? 0 : tracer_z(r);
+}
+
+// Element offsets of a block's shared arrays for a TX × TY × TZ tile, a
+// stencil reach r and a z reach rz (r, or 0 on a flat z);
+// kernels/fused_advection.py smem_bytes computes the same total.
 struct Layout {
-  int sx, sy;            // velocity box strides: (TY + 2r)(TZ + 2r), TZ + 2r
+  int sx, sy;            // velocity box strides: (TY + 2r)(TZ + 2rz), TZ + 2rz
   int csx, csy;          // tracer box strides: (TY + 2r)(TZ + 2 tz), TZ + 2 tz
-  int vel[3], c[2];      // boxes: u, v, w over (TX + 2r)(TY + 2r)(TZ + 2r), two tracers
+  int vel[3], c[2];      // boxes: u, v, w over (TX + 2r)(TY + 2r)(TZ + 2rz), two tracers
   int fx, fy, fz;        // fluxes (TX + 1)·TY·TZ, TX·(TY + 1)·TZ, TX·TY·(TZ + 1)
   int total;
 
-  __host__ __device__ Layout(int TX, int TY, int TZ, int r, bool tracers) {
-    sy = TZ + 2 * r;
+  __host__ __device__ Layout(int TX, int TY, int TZ, int r, bool tracers, bool flat = false) {
+    sy = TZ + 2 * z_reach(r, flat);
     sx = (TY + 2 * r) * sy;
-    csy = TZ + 2 * tracer_z(r);
+    csy = TZ + 2 * tracer_z_reach(r, flat);
     csx = (TY + 2 * r) * csy;
     const int box = oc::align_elems((TX + 2 * r) * sx);
     const int cbox = oc::align_elems((TX + 2 * r) * csx);
@@ -201,12 +215,14 @@ template <int K, int F, typename T, typename S, typename R, bool kUpdate>
 __global__ void __launch_bounds__(kThreads, (kMinBlocks<K, F, T>))
 advection_kernel(const __grid_constant__ Params<K, F, T, S, R> P) {
   constexpr int r = K;
-  constexpr int tz = tracer_z(r);
+  // the z reaches: r and tracer_z(r), none on a flat z
+  constexpr bool flat = R::kZMode == oc::kZFlat;
+  constexpr int rz = z_reach(r, flat), tz = tracer_z_reach(r, flat);
   extern __shared__ __align__(16) unsigned char oc_smem[];
   T* const sm = reinterpret_cast<T*>(oc_smem);
   const int last = P.first + P.nb;
   const int first_tracer = P.first > 3 ? P.first : 3;
-  const Layout L(P.TX, P.TY, P.TZ, r, last > 3);
+  const Layout L(P.TX, P.TY, P.TZ, r, last > 3, flat);
   const R& rd = P.rd;
   const oc::Geom& g = rd.g;
   const int TY = P.TY, TZ = P.TZ;
@@ -218,10 +234,10 @@ advection_kernel(const __grid_constant__ Params<K, F, T, S, R> P) {
   const int ex = oc::imin(P.TX, g.Nx - x0), ey = oc::imin(TY, g.Ny - y0),
             ez = oc::imin(TZ, g.Nz - z0);
   const int i0 = x0 + g.Hx, j0 = y0 + g.Hy;               // padded
-  const oc::SharedRead<T, R::kWalls> sr{{sm + L.vel[0], sm + L.vel[1], sm + L.vel[2]},
-                                        i0 - r, j0 - r, z0 - r, L.sx, L.sy,
+  const oc::SharedRead<T, R::kWalls, R::kZMode> sr{{sm + L.vel[0], sm + L.vel[1], sm + L.vel[2]},
+                                        i0 - r, j0 - r, z0 - rz, L.sx, L.sy,
                                         z0 - tz, L.csx, L.csy};
-  const int wy = ey + 2 * r, wz = ez + 2 * r, nbox = (ex + 2 * r) * wy * wz;
+  const int wy = ey + 2 * r, wz = ez + 2 * rz, nbox = (ex + 2 * r) * wy * wz;
 
   // a tracer's box, two of them in turn: copies in flight (cp.async) while
   // the block works on the component before. Where the box's z rows are
@@ -267,7 +283,7 @@ advection_kernel(const __grid_constant__ Params<K, F, T, S, R> P) {
     oc::stage_box<kInFlight>(sm + (d == 0 ? L.vel[0] : d == 1 ? L.vel[1] : L.vel[2]), nbox, wy,
                              wz, [&](int a, int b, int c, int& at) {
       at = a * L.sx + b * L.sy + c;
-      return rd.staged(d, i0 - r + a, j0 - r + b, z0 - r + c);
+      return rd.staged(d, i0 - r + a, j0 - r + b, z0 - rz + c);
     });
   __syncthreads();
 
@@ -359,11 +375,17 @@ template <int K, int F, typename T, typename S, typename R, bool kUpdate>
 int launch_with(const oc::AdvectionArgs& a, R rd) {
   constexpr int r = K;
   const int tiles_y = oc::ceil_div(a.g.Ny, a.TY), tiles_z = oc::ceil_div(a.g.Nz, a.TZ);
+  constexpr bool flat = R::kZMode == oc::kZFlat;
   const long long want =
-      (long long)Layout(a.TX, a.TY, a.TZ, r, a.first + a.nb > 3).total * sizeof(T);
+      (long long)Layout(a.TX, a.TY, a.TZ, r, a.first + a.nb > 3, flat).total * sizeof(T);
   const int req = r + (kUpdate && a.p != nullptr ? 1 : 0);
+  // a bounded z takes either layout, a periodic z the padded one, a flat z
+  // one level and no z halo; #1 takes the z-compact bounded z alone
+  const bool z_ok = a.zmode == R::kZMode &&
+                    (flat ? a.g.Nz == 1 && a.g.Hz == 0 : R::kWalls || a.g.Hz >= r);
   if (a.smem != want || a.smem > oc::kMaxSmemBytes || a.g.Hx < req || a.g.Hy < req ||
-      (!R::kWalls && a.g.Hz < r) || a.TX * a.TY * a.TZ > kCells * a.threads ||
+      !z_ok ||
+      a.TX * a.TY * a.TZ > kCells * a.threads ||
       a.blocks != oc::ceil_div(a.g.Nx, a.TX) * tiles_y * tiles_z)
     return (int)cudaErrorInvalidValue;
   auto* kernel = advection_kernel<K, F, T, S, R, kUpdate>;
@@ -417,9 +439,14 @@ int launch_update(const oc::AdvectionArgs& a) {
   return launch_with<K, F, T, S, UpdateRead<T, S>, true>(a, rd);
 }
 
-// #6: the layout follows Hz.
+// #6: the layout follows the z mode and Hz: a bounded z without a halo is
+// z-compact, every other z padded, each z mode its own instantiation.
 template <int K, int F, typename T, typename S>
 int launch_tendency(const oc::AdvectionArgs& a) {
+  if (a.zmode == oc::kZPeriodic)
+    return launch_with<K, F, T, S, oc::PaddedRead<T, oc::kZPeriodic>, false>(a, {});
+  if (a.zmode == oc::kZFlat)
+    return launch_with<K, F, T, S, oc::PaddedRead<T, oc::kZFlat>, false>(a, {});
   if (a.g.Hz == 0) return launch_with<K, F, T, S, oc::CompactRead<T>, false>(a, {});
   return launch_with<K, F, T, S, oc::PaddedRead<T>, false>(a, {});
 }
@@ -430,7 +457,8 @@ int launch_tendency(const oc::AdvectionArgs& a) {
 template <int K>
 int dispatch(bool update, int fam, int dtype, int sdtype, const oc::AdvectionArgs& a) {
   if (a.nb < 1 || a.nb > kBatch || a.first < 0 || a.TX < 1 || a.TY < 1 || a.TZ < 1 ||
-      a.threads < 32 || a.threads > kThreads || a.threads % 32 != 0 || a.g.Hz < 0)
+      a.threads < 32 || a.threads > kThreads || a.threads % 32 != 0 || a.g.Hz < 0 ||
+      a.zmode < oc::kZBounded || a.zmode > oc::kZFlat)
     return (int)cudaErrorInvalidValue;
   auto go = [&](auto f, auto t, auto s) {
     constexpr int F = decltype(f)::value;

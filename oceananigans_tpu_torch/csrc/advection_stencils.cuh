@@ -8,8 +8,10 @@
 // div_Uv / div_Uw / div_Uc: advecting velocities by the scheme's symmetric
 // interpolation of A·q (the face velocity itself for tracers), advected
 // values by the upwind-selected reconstruction (reconstruction.cuh). Along
-// the bounded z the order cascades near the walls on the global z index, as
-// the TPU kernels' tile grid keeps z global: a scheme of buffer K takes its
+// a bounded z the order cascades near the walls on the global z index, as
+// the TPU kernels' tile grid keeps z global (a periodic or flat z has no
+// cascade, as the TPU kernel's slab grid keeps z's topology): a scheme of
+// buffer K takes its
 // buffer schemes down to buffer 1 (WENO(9) → 7 → 5 → 3 → UpwindBiased(1),
 // UpwindBiased(5) → 3 → 1, Centered(8) → 6 → 4 → 2), the advecting
 // velocity's interpolation with them. Every scheme of
@@ -27,9 +29,10 @@
 // Read policies (R) of a kernel's staging, which fills a block's shared
 // boxes (staged, tracer_at, in_place, at_z):
 // - PaddedRead: padded fields whose halos, z included, were filled
-//   beforehand; every read takes the halo values as they are, and a z index
-//   outside the padded array (never read by a stencil when Hz is at least
-//   the reach) stages 0.
+//   beforehand (a bounded or periodic z, Hz at least the reach; or a flat z,
+//   Nz = 1 and Hz = 0, which no stencil reads along); every read takes the
+//   halo values as they are, and a z index outside the padded array (never
+//   read by a stencil) stages 0.
 // - CompactRead: the z-compact layout (no z halo). z reads outside [0, Nz)
 //   go through the boundary mirrors the z halo would have carried (the
 //   oceananigans_tpu/operators/shifts.py shift_zbc kinds): even for u, v and
@@ -58,14 +61,22 @@
 
 namespace oc {
 
+// The z topology of a launch (kernels/fused_advection.py Z_MODES), a
+// compile-time property of the read policy: a bounded z takes the near-wall
+// cascade on the z index (padded or z-compact), a periodic z reads its filled
+// halos and has no cascade, a flat z (Nz = 1, no z halo) has no z flux and no
+// z reach.
+constexpr int kZBounded = 0, kZPeriodic = 1, kZFlat = 2;
+
 // ---- read policies ------------------------------------------------------------
 // Positions are padded x, padded y and the z index (0 <= k < Nz inside).
 
-template <typename T>
+template <typename T, int ZM = kZBounded>
 struct PaddedRead {
   static constexpr bool kWalls = false;
+  static constexpr int kZMode = ZM;
   const T* vel[3];   // u, v, w: padded, halos filled
-  Geom g;            // Hz >= the reach
+  Geom g;            // Hz >= the reach (a flat z: Nz = 1, Hz = 0)
 
   // the staging: velocity d (0 u, 1 v, 2 w) at z index k, 0 outside the
   // padded array; the offset of a tracer's value at z index k (-1: stage 0);
@@ -90,6 +101,7 @@ template <typename T, bool kRn = false>
 struct CompactRead {
   static_assert(!kRn || std::is_same<T, float>::value, "kRn takes float32 fields");
   static constexpr bool kWalls = true;
+  static constexpr int kZMode = kZBounded;
   const T* vel[3];   // u*, v*, w*: padded in x and y, no z halo
   const T* p;        // padded pressure of the deferred correction, or null
   T cx, cy, cz;      // Δt_prev/Δx, Δt_prev/Δy, Δt_prev/Δz (with p)
@@ -146,9 +158,10 @@ struct CompactRead {
   }
 };
 
-template <typename T, bool kWalls_>
+template <typename T, bool kWalls_, int ZM>
 struct SharedRead {
   static constexpr bool kWalls = kWalls_;
+  static constexpr int kZMode = ZM;
   const T* vel[3];   // the staged u, v, w boxes
   int ox, oy, oz;    // padded x, padded y and z index of a box's first cell
   int sx, sy;        // box strides along x and y; z is contiguous
@@ -178,6 +191,16 @@ struct Stencil {
   Tabs<K, F == kWeno, T, S> tab;
 };
 
+// The order level along z at index kk with orientation β: the cascade on a
+// bounded z, the scheme's own buffer on a periodic one.
+template <int ZM, int K, int F, typename T, typename S>
+__device__ __forceinline__ int z_level(const Stencil<K, F, T, S>& P, int kk, int beta) {
+  if constexpr (ZM == kZBounded)
+    return cascade_level(K, kk, beta, P.Nz);
+  else
+    return K;
+}
+
 // ---- face fluxes, each once ---------------------------------------------------------
 //
 // The flux of -∇·(𝐯q) through one face, for component `comp` (0 u, 1 v, 2 w, 3
@@ -190,7 +213,7 @@ struct Stencil {
 //      face j, a tracer at the face j;
 //   z: u at the (f, c, f) face k, v at the (c, f, f) face k, w at the
 //      centre k, a tracer at the face k; zero through the top wall (k = Nz)
-//      and, for w, below the bottom face (k < 0).
+//      and, for w, below the bottom face (k < 0), and zero on a flat z.
 // The advecting velocity is the scheme's interpolation of A·u (A·v, A·w)
 // along x or y (periodic: the scheme's own buffer) or along z (the cascade
 // on the z index), or, for a tracer, the face velocity; the advected value
@@ -210,13 +233,18 @@ struct Line {
 };
 
 // The advecting velocity interpolated along z at index kk (the cascade on
-// kk with orientation β) from A times the line through w0.
-template <int K, int F, typename T, typename S>
+// kk with orientation β) from A times the line through w0; on a flat z the
+// interpolation is the identity, A times the value at w0.
+template <int ZM, int K, int F, typename T, typename S>
 __device__ __forceinline__ T interp_z(const Stencil<K, F, T, S>& P, int kk, int beta, T A,
                                       const T* w0) {
-  const Line<T> l(w0, 1, beta);
-  return symmetric_level<K>(cascade_level(K, kk, beta, P.Nz), P.fam, P.tab, 0,
-                            [&](int o) { return A * l(o); });
+  if constexpr (ZM == kZFlat) {
+    return A * w0[0];
+  } else {
+    const Line<T> l(w0, 1, beta);
+    return symmetric_level<K>(z_level<ZM>(P, kk, beta), P.fam, P.tab, 0,
+                              [&](int o) { return A * l(o); });
+  }
 }
 
 // The advecting velocity interpolated along x (comp 0's β = 1) or y from A
@@ -239,7 +267,7 @@ __device__ __forceinline__ T face_flux_x(const Stencil<K, F, T, S>& P, const Q& 
     return (P.Ax * vel) * biased<K>(P.fam, P.tab, 0, vel > T(0), q);
   }
   const T* u0 = r.vel[0] + at;
-  const T adv = comp == 2 ? interp_z(P, k, 0, P.Ax, u0)
+  const T adv = comp == 2 ? interp_z<Q::kZMode>(P, k, 0, P.Ax, u0)
                           : interp_xy(P, r, comp, comp == 0 ? 1 : 0, P.Ax, u0);
   const Line<T> q(r.box(comp) + at, r.sx, comp == 0 ? 1 : 0);
   return adv * biased<K>(P.fam, P.tab, 0, adv > T(0), q);
@@ -255,7 +283,7 @@ __device__ __forceinline__ T face_flux_y(const Stencil<K, F, T, S>& P, const Q& 
     return (P.Ay * vel) * biased<K>(P.fam, P.tab, 0, vel > T(0), q);
   }
   const T* v0 = r.vel[1] + at;
-  const T adv = comp == 2 ? interp_z(P, k, 0, P.Ay, v0)
+  const T adv = comp == 2 ? interp_z<Q::kZMode>(P, k, 0, P.Ay, v0)
                           : interp_xy(P, r, comp, comp == 1 ? 1 : 0, P.Ay, v0);
   const Line<T> q(r.box(comp) + at, r.sy, comp == 1 ? 1 : 0);
   return adv * biased<K>(P.fam, P.tab, 0, adv > T(0), q);
@@ -264,19 +292,21 @@ __device__ __forceinline__ T face_flux_y(const Stencil<K, F, T, S>& P, const Q& 
 template <int K, int F, typename T, typename S, typename Q>
 __device__ __forceinline__ T face_flux_z(const Stencil<K, F, T, S>& P, const Q& r, int comp,
                                          const T* a, int i, int j, int k) {
+  constexpr int ZM = Q::kZMode;
+  if constexpr (ZM == kZFlat) return T(0);
   if (Q::kWalls && (comp == 2 ? k < 0 : k == P.Nz)) return T(0);
   const int at = r.at(i, j, k);
   if (comp >= 3) {
     const T vel = r.vel[2][at];
     const Line<T> q(a + r.at_c(i, j, k), 1, 0);
-    return (P.Az * vel) *
-           biased_level<K>(cascade_level(K, k, 0, P.Nz), P.fam, P.tab, 0, vel > T(0), q);
+    return (P.Az * vel) * biased_level<K>(z_level<ZM>(P, k, 0), P.fam, P.tab, 0, vel > T(0), q);
   }
   const T* w0 = r.vel[2] + at;
-  const T adv = comp == 2 ? interp_z(P, k, 1, P.Az, w0) : interp_xy(P, r, comp, 0, P.Az, w0);
+  const T adv =
+      comp == 2 ? interp_z<ZM>(P, k, 1, P.Az, w0) : interp_xy(P, r, comp, 0, P.Az, w0);
   const int beta = comp == 2 ? 1 : 0;
   const Line<T> q(r.box(comp) + at, 1, beta);
-  return adv * biased_level<K>(cascade_level(K, k, beta, P.Nz), P.fam, P.tab, 0, adv > T(0), q);
+  return adv * biased_level<K>(z_level<ZM>(P, k, beta), P.fam, P.tab, 0, adv > T(0), q);
 }
 
 // Components one launch takes (kernels/build.py BATCH): the

@@ -59,26 +59,28 @@ int oc_fused_advection_update(int fam, int K, int dtype, int sdtype, const void*
 // #6. fam, K, dtype, sdtype, vel, coefs and the launch plan as
 // oc_fused_advection_update's; q: host array of the batch's nb device
 // pointers, components first .. first+nb-1 of (u, v, w, tracers...); G: host
-// array of the nb interior-shaped outputs; Hz = 0 selects the z-compact
-// layout, Hz >= the reach the padded one.
+// array of the nb interior-shaped outputs. zmode: the z topology, 0 bounded
+// (Hz = 0 selects the z-compact layout, Hz >= the reach the padded one), 1
+// periodic (padded, Hz >= the reach), 2 flat (Nz = 1, Hz = 0).
 int oc_advection_tendency(int fam, int K, int dtype, int sdtype, const void* const* vel,
                           const void* const* q, int nb, int first, void* const* G, int Nx,
-                          int Ny, int Nz, int Hx, int Hy, int Hz, double Ax, double Ay,
-                          double Az, double V, const double* coefs, int ncoefs, int TX,
-                          int TY, int TZ, int threads, int blocks, int smem,
+                          int Ny, int Nz, int Hx, int Hy, int Hz, int zmode, double Ax,
+                          double Ay, double Az, double V, const double* coefs, int ncoefs,
+                          int TX, int TY, int TZ, int threads, int blocks, int smem,
                           void* stream) {
   if (!table_ok(K, ncoefs)) return (int)cudaErrorInvalidValue;
   const oc::AdvectionArgs a{vel, nullptr, q, nullptr, G, nullptr, nb, first,
                             oc::Geom{Nx, Ny, Nz, Hx, Hy, Hz}, 0.0, 0.0, 0.0, Ax, Ay, Az, V,
                             0.0, 0.0, 0.0, coefs, TX, TY, TZ, threads, blocks, smem,
-                            (cudaStream_t)stream, nullptr};
+                            (cudaStream_t)stream, nullptr, zmode};
   return by_buffer(K, false, fam, dtype, sdtype, a);
 }
 
 // The blocks of the launch plan's shape that one SM holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *per_sm, for a
 // launch of scheme (fam, K) with or without tracers of kind 0 (#1
-// uncorrected), 1 (#1 corrected), 2 (#6 z-compact) or 3 (#6 padded).
+// uncorrected), 1 (#1 corrected), 2 (#6 z-compact), 3 (#6 padded), 4 (#6 on a
+// periodic z) or 5 (#6 on a flat z).
 int oc_advection_blocks_per_sm(int fam, int K, int dtype, int sdtype, int kind, int tracers,
                                int TX, int TY, int TZ, int threads, int smem,
                                int* per_sm) {
@@ -87,7 +89,8 @@ int oc_advection_blocks_per_sm(int fam, int K, int dtype, int sdtype, int kind, 
   oc::AdvectionArgs a{};
   a.p = kind == 1 ? &dummy : nullptr;
   a.nb = tracers ? 4 : 3;
-  a.g = oc::Geom{TX, TY, TZ, H, H, kind == 3 ? H : 0};
+  a.g = oc::Geom{TX, TY, kind == 5 ? 1 : TZ, H, H, kind == 3 || kind == 4 ? H : 0};
+  a.zmode = kind == 4 ? oc::kZPeriodic : kind == 5 ? oc::kZFlat : oc::kZBounded;
   a.TX = TX;
   a.TY = TY;
   a.TZ = TZ;

@@ -53,7 +53,7 @@ SIGNATURES = {
     "oc_fill_plan": [P, I, I, P, P, P, P, P, P, P, P],
     "oc_fill_halos": [P, P, I, P, P],
     "oc_advection_tendency": [I, I, I, I, P, P, I, I, P, I, I, I, I, I, I,
-                              D, D, D, D, P, I, I, I, I, I, I, I, P],
+                              I, D, D, D, D, P, I, I, I, I, I, I, I, P],
     "oc_fused_divergence": [I, P, P, P, P, I, I, I, I, I, D, D, D, D, P],
     "oc_fused_correct": [I, P, P, P, P, P, P, P, I, I, I, I, I,
                          D, D, D, D, P],

@@ -43,10 +43,15 @@ bfloat16, rounded operation by operation as the plain version rounds it
 ``fused_advection_tendency`` replaces ``build_fused_advection``: ``G =
 -∇·(𝐯q)`` for u, v, w and each tracer as one (3 + n_tracers, Nx, Ny, Nz)
 tensor, with no stage update (the model adds buoyancy, closure and boundary
-fluxes to G and updates in PyTorch). As in the TPU kernel, the layout
-follows the grid's z halo: padded fields whose halos (z included) were
-filled beforehand, or the z-compact layout (``H[2] == 0``: filled x/y halos,
-the z boundary mirrors inside the reads, zero boundary-face fluxes). Its
+fluxes to G and updates in PyTorch), on the grids the TPU kernel takes
+(``eligible``: a regular grid with periodic x and y, neither flat). As in
+the TPU kernel, the z keeps its topology (``z_mode``) and the layout follows
+it and the z halo: on a bounded z, padded fields whose halos (z included)
+were filled beforehand, with the near-wall cascade, or the z-compact layout
+(``H[2] == 0``: filled x/y halos, the z boundary mirrors inside the reads,
+zero boundary-face fluxes); on a periodic z, padded fields whose filled z
+halos are read as they are, with no cascade; on a flat z (Nz = 1, no z
+halo), no z flux, and the tile is one level deep (``FLAT_TILES``). Its
 CUDA kernel is the update kernel's template with the tendency epilogue
 (``csrc/fused_advection.cu``): the same tiles, staging and face fluxes,
 each formed once, G written straight to the output, under the same
@@ -72,6 +77,7 @@ from ..advection import (WENO, Centered, UpwindBiased, div_Uc, div_Uu,
                          div_Uv, div_Uw)
 from ..advection.reconstruction import typed_constants
 from ..advection.schemes import TAU_COEFFS, WENO_EPSILON, WENO_R_MAX
+from ..grids.topology import BOUNDED, PERIODIC
 from ..operators.shifts import shift
 from ..parallel import halo_exchange as hx
 from . import build
@@ -80,6 +86,10 @@ from .fused_projection import (_DTYPE_CODES, _metrics, check_fast_layout,
 from .halo_fill import periodic_halo_fill_plain
 
 ZBC = {"u": "even", "v": "even", "w": "odd_face", "c": "even"}
+
+MESH_TOPOLOGY_ITEM = ("ROADMAP.md queue 1 item 16 (the sharded tendency "
+                      "route off a regular (periodic, periodic, bounded) "
+                      "grid)")
 
 OTHER_SCHEMES_ITEM = ("ROADMAP.md queue 1 item 15 (the long tail: "
                       "bounds-preserving WENO and a per-axis "
@@ -111,6 +121,18 @@ UPDATE_TILES = {4: ((16, 8, 8), (8, 8, 8), (8, 8, 4), (4, 8, 4), (4, 4, 4)),
 TILE_BLOCKS_PER_SM = {4: 2, 8: 1}
 CELLS_PER_THREAD = 4
 
+# The tiles of #6 on a flat z (one level, no z reach): the same cells a
+# block (at most CELLS_PER_THREAD x UPDATE_THREADS) spread over x and y, so
+# that no thread idles, y fastest across threads (y is the contiguous axis
+# when Nz = 1). A 32 x 32 tile stages (32 + 2r)² cells per velocity, 1.41
+# times its cells at WENO(5) against 16 x 8 x 8's 3.52 with z reach.
+FLAT_TILES = ((32, 32, 1), (16, 32, 1), (16, 16, 1), (8, 16, 1), (8, 8, 1))
+
+# The z modes of #6 (csrc/advection_stencils.cuh kZBounded, kZPeriodic,
+# kZFlat): the kernel's z keeps the grid's topology.
+Z_BOUNDED, Z_PERIODIC, Z_FLAT = 0, 1, 2
+Z_MODE_NAMES = {Z_BOUNDED: "", Z_PERIODIC: "_zperiodic", Z_FLAT: "_zflat"}
+
 # The H100's shared memory: the most a block takes, and an SM's, of which
 # each block reserves 1 KB (csrc/tiles.cuh kMaxSmemBytes).
 MAX_SMEM = 232448
@@ -131,31 +153,33 @@ def tracer_z(reach):
     return 4 if reach <= 4 else -(-reach // 4) * 4
 
 
-def smem_bytes(tile, reach, esize, tracers):
+def smem_bytes(tile, reach, esize, tracers, flat=False):
     """Dynamic shared memory of one block of the update kernel
     (csrc/advection_kernel.cuh Layout): u, v, w over the tile plus the
-    reach, when the launch holds a tracer two tracer boxes (one filling
-    while the other is read; ``tracer_z(reach)`` cells past the tile along
-    z), and the x-, y- and z-flux arrays."""
+    reach (none along a flat z), when the launch holds a tracer two tracer
+    boxes (one filling while the other is read; ``tracer_z(reach)`` cells
+    past the tile along z, none on a flat z), and the x-, y- and z-flux
+    arrays."""
     TX, TY, TZ = tile
-    box = _align((TX + 2 * reach) * (TY + 2 * reach) * (TZ + 2 * reach))
-    cbox = _align((TX + 2 * reach) * (TY + 2 * reach)
-                  * (TZ + 2 * tracer_z(reach)))
+    rz, tz = (0, 0) if flat else (reach, tracer_z(reach))
+    box = _align((TX + 2 * reach) * (TY + 2 * reach) * (TZ + 2 * rz))
+    cbox = _align((TX + 2 * reach) * (TY + 2 * reach) * (TZ + 2 * tz))
     fluxes = (_align((TX + 1) * TY * TZ) + _align(TX * (TY + 1) * TZ)
               + _align(TX * TY * (TZ + 1)))
     return esize * (3 * box + (2 * cbox if tracers else 0) + fluxes)
 
 
-def pick_tile(reach, esize, tracers):
-    """The first tile of UPDATE_TILES[esize] whose shared memory lets
-    TILE_BLOCKS_PER_SM[esize] blocks share an SM (the last one fits one
-    block at every reach up to MAX_BUFFER)."""
+def pick_tile(reach, esize, tracers, flat=False):
+    """The first tile of UPDATE_TILES[esize] (FLAT_TILES on a flat z)
+    whose shared memory lets TILE_BLOCKS_PER_SM[esize] blocks share an SM
+    (the last one fits one block at every reach up to MAX_BUFFER)."""
     per_sm = TILE_BLOCKS_PER_SM[esize]
-    for tile in UPDATE_TILES[esize]:
-        smem = smem_bytes(tile, reach, esize, tracers)
+    tiles = FLAT_TILES if flat else UPDATE_TILES[esize]
+    for tile in tiles:
+        smem = smem_bytes(tile, reach, esize, tracers, flat)
         if smem <= MAX_SMEM and SM_SMEM // (smem + SMEM_RESERVED) >= per_sm:
             return tile
-    return UPDATE_TILES[esize][-1]
+    return tiles[-1]
 
 
 def launch_plan(grid, scheme, dtype, n_components):
@@ -171,13 +195,31 @@ def launch_plan(grid, scheme, dtype, n_components):
     batch holding a tracer stages it)."""
     esize = torch.empty((), dtype=dtype).element_size()
     reach = scheme.required_halo
-    tile = pick_tile(reach, esize, n_components > 3)
+    flat = z_mode(grid) == Z_FLAT
+    tile = pick_tile(reach, esize, n_components > 3, flat)
     tiles = tuple(-(-n // t) for n, t in zip(grid.N, tile))
     return dict(tile=tile, tiles=tiles,
                 blocks=tiles[0] * tiles[1] * tiles[2],
                 threads=UPDATE_THREADS,
-                launches=[(a, b, smem_bytes(tile, reach, esize, b > 3))
+                launches=[(a, b, smem_bytes(tile, reach, esize, b > 3, flat))
                           for a, b in build.batches(n_components)])
+
+
+def kernel_tendency_eligible(grid):
+    """Whether the advection tendency takes the kernel (#6): JAX's
+    ``eligible`` (periodic x and y, neither flat, a regular grid); the z may
+    be bounded (padded or z-compact), periodic or flat."""
+    return (getattr(grid, "all_regular", False)
+            and grid.topology[:2] == (PERIODIC, PERIODIC)
+            and not grid.is_flat(0) and not grid.is_flat(1))
+
+
+def z_mode(grid):
+    """Z_BOUNDED, Z_PERIODIC or Z_FLAT: the z topology the tendency kernel
+    keeps."""
+    if grid.is_flat(2):
+        return Z_FLAT
+    return Z_PERIODIC if grid.topology[2] == PERIODIC else Z_BOUNDED
 
 
 def corrected_velocities(grid, u, v, w, p, corr_dt):
@@ -259,11 +301,12 @@ def variant_name(scheme):
             + str(2 * K if family == CENTERED else 2 * K - 1))
 
 
-def count_launch(kernel, scheme):
+def count_launch(kernel, scheme, zmode=Z_BOUNDED):
     """One more launch of ``kernel`` (its ``launches``) and of the scheme's
-    variant (its ``variant_launches``, by ``variant_name``)."""
+    variant (its ``variant_launches``, by ``variant_name`` and, for a z
+    that is not bounded, ``_zperiodic`` or ``_zflat``)."""
     kernel.launches += 1
-    name = variant_name(scheme)
+    name = variant_name(scheme) + Z_MODE_NAMES[zmode]
     kernel.variant_launches[name] = kernel.variant_launches.get(name, 0) + 1
 
 
@@ -441,12 +484,12 @@ fused_advection_update.variant_launches = {}
 
 def fused_advection_tendency_plain(grid, scheme, fields):
     """Plain PyTorch version: the port's flux functions on the padded
-    tensors (halos read as they are; with no z halo, through the z boundary
-    mirrors), interiors stacked."""
+    tensors (halos read as they are; on a bounded z with no z halo, through
+    the z boundary mirrors; a flat z has no z flux), interiors stacked."""
     if fields[0].is_cuda:
         fused_advection_tendency_plain.cuda_calls += 1
     u, v, w = fields[:3]
-    zbc = ZBC if grid.H[2] == 0 else None
+    zbc = ZBC if z_mode(grid) == Z_BOUNDED and grid.H[2] == 0 else None
     ints = grid.interior_slices
     G = [-div(grid, scheme, u, v, w, zbc=zbc)[ints]
          for div in (div_Uu, div_Uv, div_Uw)]
@@ -460,26 +503,28 @@ fused_advection_tendency_plain.cuda_calls = 0
 
 def fused_advection_tendency(grid, scheme, fields):
     """``G = -∇·(𝐯q)`` at every interior cell for ``fields`` = [u, v, w,
-    tracers...], padded tensors with filled halos (z included; with
-    ``grid.H[2] == 0`` the z-compact layout). Returns one (len(fields), Nx,
+    tracers...], padded tensors with filled halos (z included; on a bounded
+    z with ``grid.H[2] == 0`` the z-compact layout; a flat z has no halo)
+    on a regular grid with periodic x and y. Returns one (len(fields), Nx,
     Ny, Nz) tensor. CPU tensors take the plain version; CUDA tensors launch
     the kernel, once per ``build.BATCH`` components."""
     fields = list(fields)
     if fields[0].device.type == "cpu":
         return fused_advection_tendency_plain(grid, scheme, fields)
-    from ..grids.topology import BOUNDED, PERIODIC
-    if grid.topology != (PERIODIC, PERIODIC, BOUNDED):
-        raise NotImplementedError(
-            "the tendency kernel takes periodic x/y and a bounded z: "
-            "ROADMAP.md queue 1 item 11 (other configurations)")
+    if not kernel_tendency_eligible(grid):
+        raise ValueError(
+            "the tendency kernel takes what the TPU kernel's eligible "
+            "takes: a regular grid with periodic x and y, neither flat "
+            "(the model takes the plain flux divergences elsewhere)")
     fam, K = scheme_code(scheme)
     if len(fields) < 3:
         raise ValueError("the tendency kernel takes u, v, w and the tracers")
     Hx, Hy, Hz = grid.H
+    zmode = z_mode(grid)
     if min(Hx, Hy) < scheme.required_halo:
         raise ValueError(f"the tendency kernel needs Hx, Hy >= "
                          f"{scheme.required_halo}")
-    if Hz and Hz < scheme.required_halo:
+    if (Hz or zmode == Z_PERIODIC) and Hz < scheme.required_halo:
         raise ValueError(f"the padded layout needs Hz >= "
                          f"{scheme.required_halo}")
     check_tensors(grid, fields, grid.padded_shape)
@@ -499,10 +544,10 @@ def fused_advection_tendency(grid, scheme, fields):
                 fam, K, _DTYPE_CODES[G.dtype], scode, vel,
                 build.pointers(fields[a:b]), b - a, a,
                 build.pointers(G[a:b].unbind(0)), Nx, Ny, Nz, Hx, Hy, Hz,
-                m["Ax"], m["Ay"], m["Az"], m["V"], table, len(table),
+                zmode, m["Ax"], m["Ay"], m["Az"], m["V"], table, len(table),
                 *plan["tile"], plan["threads"], plan["blocks"], smem,
                 build.stream_of(G)), lib)
-            count_launch(fused_advection_tendency, scheme)
+            count_launch(fused_advection_tendency, scheme, zmode)
     return G
 
 
@@ -549,6 +594,11 @@ build_sharded_fused_advection_plain.cuda_calls = 0
 
 
 def _build_sharded_tendency(grid, scheme, mesh, plain):
+    if not grid.all_regular or grid.topology != (PERIODIC, PERIODIC,
+                                                 BOUNDED):
+        raise NotImplementedError(
+            f"the sharded tendency on a {grid.topology} grid: "
+            f"{MESH_TOPOLOGY_ITEM}")
     # the routes are looked up at each call, so that a caller can wrap them
     (nlx, nly), periodic, lgrids = hx.shard_grids(grid, mesh, grid.N[2])
     Hx, Hy, _ = grid.H

@@ -51,9 +51,9 @@ def check_fast_layout(grid):
     periodic x/y, no z halo, N >= H along x and y."""
     from ..grids.topology import BOUNDED, PERIODIC
     if grid.topology[:2] != (PERIODIC, PERIODIC) or grid.topology[2] != BOUNDED:
-        raise NotImplementedError(
-            "the fused kernels take periodic x/y and a bounded z: ROADMAP.md "
-            "queue 1 item 11 (other configurations)")
+        raise ValueError(
+            "the z-compact kernels take periodic x/y and a bounded z, as the "
+            "TPU kernels do (the model takes the padded layout elsewhere)")
     if grid.H[2] != 0:
         raise ValueError("the fused kernels take the z-compact layout (H[2] == 0)")
     if grid.N[0] < grid.H[0] or grid.N[1] < grid.H[1]:

@@ -21,7 +21,8 @@ to ``build.BATCH`` fields of one padded shape; its parameter block is built
 once per (grid, shape, dtype, field locations and conditions) and cached,
 and a call only writes the fields' pointers into it. The wrapper raises
 where one load per slot would not hold: a periodic axis with N < H, a
-bounded one with H > ``MAX_H``, a periodic z with conditions. On a bounded
+bounded one with H > ``MAX_H``, conditions other than periodic on a
+periodic z (which wraps like x and y, in the same launch). On a bounded
 axis narrower than its halo needs (N < H for a centre field, N < H + 1 for a
 pinned face), the far halo slots whose source that axis itself writes keep
 their value (``narrow_slots``; the JAX fill reads such a source before it
@@ -48,7 +49,7 @@ XLA), which the kernel reads from a small table.
 
 The plain version ``fill_halos_plain`` is the sequence the kernel replaces:
 ``fill_bounded_axis`` along x, ``periodic_halo_fill_plain`` (the periodic
-axes, x then y), ``fill_bounded_axis`` along y, then
+axes, x then y), ``fill_bounded_axis`` along y, then the periodic z wrap or
 ``bounded_z_fill_plain``. CPU tensors take it; CUDA tensors launch the
 kernel. Bound on the H100: data movement only (each written slot read once
 and written once); the z ends of interior columns are a few bytes of each
@@ -174,10 +175,11 @@ def _z_extent(grid, a):
     return grid.N[2], grid.H[2]
 
 
-def periodic_halo_fill_plain(grid, fields):
+def periodic_halo_fill_plain(grid, fields, z=True):
     """Plain PyTorch version of the wrap: x (over the full y extent), then y
-    over the full x extent, each axis only if it is periodic (every z slot,
-    z halos included)."""
+    over the full x extent, then (with ``z``) z over the full x and y
+    extents, each axis only if it is periodic with a halo (every z slot, z
+    halos included; a 2-D surface field has no z to wrap)."""
     Nx, Ny, _, Hx, Hy, _ = _geometry(grid)
     wx, wy = wrap_axes(grid)
     for a in fields:
@@ -189,7 +191,18 @@ def periodic_halo_fill_plain(grid, fields):
         if wy:
             a[:, :Hy] = a[:, Ny:Ny + Hy]
             a[:, Hy + Ny:] = a[:, Hy:2 * Hy]
+        if z:
+            _wrap_z(grid, a)
     return fields
+
+
+def _wrap_z(grid, a):
+    """The periodic z wrap of one padded tensor, in place (nothing on a z
+    that is not periodic, has no halo, or on a 2-D surface field)."""
+    Nz, Hz = _z_extent(grid, a)
+    if grid.topology[2] == PERIODIC and Hz > 0:
+        a[..., :Hz] = a[..., Nz:Nz + Hz]
+        a[..., Hz + Nz:] = a[..., Hz:2 * Hz]
 
 
 periodic_halo_fill_plain.cuda_calls = 0
@@ -415,8 +428,9 @@ bounded_z_fill_plain.cuda_calls = 0
 def fill_halos_plain(grid, fields, locs_bcs=None, z=True):
     """Plain PyTorch version of ``fill_halos``, in the reference's order: the
     tripolar fold, a bounded x, the periodic axes (x, then y), a bounded y,
-    then (with ``z``) a bounded z, each bounded axis only when ``locs_bcs``
-    gives the fields' (location, boundary conditions)."""
+    then (with ``z``) the periodic z wrap or a bounded z, each bounded axis
+    only when ``locs_bcs`` gives the fields' (location, boundary
+    conditions)."""
     fields = list(fields)
     if any(a.is_cuda for a in fields):
         fill_halos_plain.cuda_calls += 1
@@ -431,10 +445,13 @@ def fill_halos_plain(grid, fields, locs_bcs=None, z=True):
     if bounded[0]:
         for a, (loc, bcs) in zip(fields, locs_bcs):
             fill_bounded_axis(a, grid, loc, bcs, 0)
-    periodic_halo_fill_plain(grid, fields)
+    periodic_halo_fill_plain(grid, fields, z=False)
     if bounded[1]:
         for a, (loc, bcs) in zip(fields, locs_bcs):
             fill_bounded_axis(a, grid, loc, bcs, 1)
+    if z:
+        for a in fields:
+            _wrap_z(grid, a)
     if z and bounded[2] and fields and _z_extent(grid, fields[0])[1] > 0:
         bounded_z_fill_plain(grid, fields, [z_fill_spec(loc, bcs)
                                             for loc, bcs in locs_bcs])
@@ -491,13 +508,13 @@ def fill_codes(grid, shape, locs_bcs=None, n=1, z=True):
             if H == 0 or (ax == 2 and not z) or topo not in (PERIODIC,
                                                              BOUNDED):
                 axes.append(keep)
-            elif topo == PERIODIC and ax == 2:
-                if lb is not None:
-                    raise NotImplementedError(
-                        "periodic z halo fills are not ported yet: "
-                        f"{bcm.USER_BCS_ITEM}")
-                axes.append(keep)
             elif topo == PERIODIC:
+                if lb is not None and ax == 2 and any(
+                        bc is not None and bc.classification != bcm.PERIODIC_BC
+                        for bc in lb[1].pair(2)):
+                    raise NotImplementedError(
+                        "conditions other than periodic on a periodic z are "
+                        f"not ported yet: {bcm.USER_BCS_ITEM}")
                 if N < H:
                     raise ValueError(f"a periodic halo fill needs N >= H "
                                      f"along axis {ax} (N={N}, H={H})")

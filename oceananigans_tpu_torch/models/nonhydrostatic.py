@@ -1,7 +1,8 @@
 """NonhydrostaticModel: incompressible LES/DNS with a 3D pressure projection.
 
-Counterpart of ``oceananigans_tpu/models/nonhydrostatic.py`` on a regular
-RectilinearGrid with periodic x and y and a bounded z: flux-form advection,
+Counterpart of ``oceananigans_tpu/models/nonhydrostatic.py`` on a
+RectilinearGrid of any topology (periodic, bounded or flat x, y and z),
+regular or stretched along one bounded axis: flux-form advection,
 tracers, buoyancy (``BuoyancyTracer``, ``SeawaterBuoyancy`` with its
 equations of state, ``BuoyancyForce`` for a tilted gravity), Coriolis, the
 closures of ``closures/`` (the scalar-diffusivity family, closure tuples,
@@ -9,7 +10,10 @@ Smagorinsky, Lilly, dynamic Smagorinsky, AMD, and the vertical closures,
 CATKE among them as an ordinary tracer closure with its implicit damping)
 with the vertically implicit solve, user forcing, Stokes drift, background fields, scalar
 Value/Gradient/Flux conditions on the z sides, RK3 or quasi-AB2, and the
-FFT/DCT pressure projection. Other pressure solvers, biogeochemistry,
+pressure solver of ``select_pressure_solver``: FFT/DCT on a regular grid,
+Fourier-tridiagonal with one stretched bounded axis. Immersed grids, grids
+stretched along several axes or curvilinear grids (the JAX package's
+conjugate-gradient solvers), a user pressure solver, biogeochemistry,
 particles and auxiliary fields raise ``NotImplementedError`` naming their
 ROADMAP item.
 
@@ -17,8 +21,10 @@ The layout and the step follow the JAX package's choice (its ``__init__``
 and ``_build_step``, without the TPU's Nz % 128 gate, Hy-to-8 rounding, lane
 tail and tile picks):
 
-- **z-compact** when there is no closure, forcing, Stokes drift, background
-  field or user z boundary condition: no z halo (the z boundary conditions
+- **z-compact** on a regular grid with periodic x and y and a bounded z
+  (JAX's ``eligible_zc``) when there is no closure, forcing, Stokes drift,
+  background field or user z boundary condition: no z halo (the z boundary
+  conditions
   live inside the stencil reads) and ``Hx = Hy = required_halo + 1`` (one
   ring for the deferred correction). When advection is the only tendency
   (no buoyancy, no Coriolis, RK3, no mesh), each RK3 stage runs the fused
@@ -32,16 +38,19 @@ tail and tile picks):
   this layout, with w's bottom face pinned to 0 after each update and the
   projection by the divergence kernel, the solve and the correction kernel.
 - **padded** otherwise: every halo ``H = max(grid.H, required_halo)`` (the
-  advection's or the closure's), z included. Each stage (RK3) or step
-  (quasi-AB2) fills all halos (one fill launch for all fields), computes
-  the tendencies, updates, runs the closure's implicit vertical solve, and
-  projects: fill u, v, w, a plain PyTorch divergence, the solve, the
-  pressure fill, a plain PyTorch correction (the JAX package computes these
-  in XLA too).
+  advection's or the closure's) on each axis that is not flat. Each stage
+  (RK3) or step (quasi-AB2) fills all halos (one fill launch for all fields;
+  a periodic axis wraps, z included), computes the tendencies, updates, runs
+  the closure's implicit vertical solve, and projects: fill u, v, w, a plain
+  PyTorch divergence, the solve, the pressure fill, a plain PyTorch
+  correction (the JAX package computes these in XLA too).
 
 The tendencies (``_tendencies``) follow the JAX ``_compute_tendencies``:
-advection (the tendency kernel, or, with background fields, the plain
-perturbation form of the JAX XLA path), Coriolis, buoyancy, Stokes drift,
+advection (the tendency kernel where JAX's ``eligible`` takes its kernel:
+periodic x and y, neither flat, a regular grid, with a bounded, periodic or
+flat z; elsewhere, and with background fields, the plain flux divergences of
+the JAX XLA path, background fields in their perturbation form), Coriolis,
+buoyancy, Stokes drift,
 the closure's momentum terms, the tracers' advection and closure terms,
 forcing, and the boundary fluxes last. The closure sees the model clock.
 Closure state fields (the Lagrangian dynamic Smagorinsky's JLM and JMM) ride
@@ -54,7 +63,9 @@ from the sharded tendency kernel (``build_sharded_fused_advection``:
 per-shard blocks with the full padded z, their x/y halos exchanged, one
 launch of the tendency kernel per shard, in the grid's layout); everything
 else in the step runs on the global view exactly as in the serial tendency
-route, so the sharded model equals the serial one with that route.
+route, so the sharded model equals the serial one with that route. That
+kernel takes a regular (periodic, periodic, bounded) grid only and refuses
+the others (ROADMAP item 16).
 
 The model updates tensors in place where the JAX package returned new
 arrays: the halo fills write into the padded tensors they are given, and the
@@ -84,8 +95,10 @@ from ..grids.topology import (BOUNDED, LOC_CCC, LOC_CCF, LOC_CFC, LOC_FCC,
 from ..kernels import (build_sharded_fused_advection,
                        fused_advection_tendency, fused_advection_update,
                        fused_correct, fused_divergence, periodic_halo_fill)
+from ..kernels.fused_advection import kernel_tendency_eligible
 from ..parallel.distributed import regularize_architecture
 from ..solvers.fft_poisson import FFTPoissonSolver
+from ..solvers.fourier_tridiagonal import FourierTridiagonalPoissonSolver
 from ..solvers.tridiagonal import solve_batched_tridiagonal
 from ..timesteppers import (RK3_GAMMAS, RK3_ZETAS,
                             QuasiAdamsBashforth2TimeStepper,
@@ -94,8 +107,11 @@ from ..utils.dateclock import datetime_of
 
 PROGNOSTIC_LOCS = {"u": LOC_FCC, "v": LOC_CFC, "w": LOC_CCF}
 
+CG_SOLVER_ITEM = ("ROADMAP.md queue 1 item 11c (the conjugate-gradient "
+                  "Poisson solvers of immersed, multiply stretched and "
+                  "curvilinear grids)")
 _NOT_PORTED = {
-    "pressure_solver": "ROADMAP.md queue 1 item 11 (other Poisson solvers)",
+    "pressure_solver": "ROADMAP.md queue 1 item 11c (user Poisson solvers)",
     "biogeochemistry": "ROADMAP.md queue 1 item 15 (the long tail)",
     "particles": "ROADMAP.md queue 1 item 15 (the long tail)",
     "auxiliary_fields": "ROADMAP.md queue 1 item 15 (the long tail)",
@@ -111,6 +127,42 @@ def _timestepper(timestepper):
     if isinstance(timestepper, QuasiAdamsBashforth2TimeStepper):
         return timestepper
     raise ValueError(f"unknown timestepper {timestepper!r}")
+
+
+def select_pressure_solver(grid):
+    """The JAX ``select_pressure_solver``'s choice on a RectilinearGrid: the
+    FFT/DCT solver on a regular grid, the Fourier-tridiagonal solver with
+    one stretched bounded axis (x, y or z). The conjugate-gradient solvers
+    it takes otherwise (immersed, multiply stretched and curvilinear grids)
+    are not ported and raise."""
+    stretched = _pressure_solver_axis(grid)
+    if stretched is None:
+        return FFTPoissonSolver(grid)
+    return FourierTridiagonalPoissonSolver(grid, stretched_axis=stretched)
+
+
+def _pressure_solver_axis(grid):
+    """None for the FFT/DCT solver, the stretched axis for the
+    Fourier-tridiagonal one; raises where the JAX package takes a
+    conjugate-gradient solver."""
+    from ..grids.rectilinear import RectilinearGrid
+    if hasattr(grid, "solid_ccc"):
+        raise NotImplementedError(
+            "the port's NonhydrostaticModel on an ImmersedBoundaryGrid "
+            "(masked advection, the immersed pressure solve) is not ported "
+            f"yet: {CG_SOLVER_ITEM}")
+    if not isinstance(grid, RectilinearGrid):
+        raise NotImplementedError(
+            f"the port's NonhydrostaticModel on a {type(grid).__name__}: "
+            f"{CG_SOLVER_ITEM}")
+    if grid.all_regular:
+        return None
+    stretched = grid.stretched_axes
+    if len(stretched) == 1 and grid.topology[stretched[0]] == BOUNDED:
+        return stretched[0]
+    raise NotImplementedError(
+        f"a grid stretched along axes {stretched} of topology "
+        f"{grid.topology}: {CG_SOLVER_ITEM}")
 
 
 def _interior(grid, a):
@@ -136,17 +188,7 @@ class NonhydrostaticModel:
             if value:
                 raise NotImplementedError(
                     f"{name} is not ported yet: {_NOT_PORTED[name]}")
-        if hasattr(grid, "solid_ccc"):
-            raise NotImplementedError(
-                "the port's NonhydrostaticModel on an ImmersedBoundaryGrid "
-                "(masked advection, the immersed pressure solve) is not "
-                "ported yet: ROADMAP.md queue 1 item 11")
-        if not getattr(grid, "all_regular", False) or grid.topology != (
-                PERIODIC, PERIODIC, BOUNDED):
-            raise NotImplementedError(
-                "the port's NonhydrostaticModel runs on a regular "
-                "RectilinearGrid with periodic x/y and bounded z: ROADMAP.md "
-                "queue 1 item 11 (other grids and topologies)")
+        _pressure_solver_axis(grid)     # raise early for what is refused
         if isinstance(closure, (tuple, list)):
             closure = ClosureTuple(*closure)
         if closure is not None and not isinstance(closure, _ClosureBase):
@@ -193,9 +235,13 @@ class NonhydrostaticModel:
             raise ValueError(f"boundary conditions for unknown fields {unknown}")
         user_zbcs = any(getattr(b, side, None) is not None
                         for b in bcs_in.values() for side in ("bottom", "top"))
-        self._z_compact = (closure is None and not self.forcing
-                           and stokes_drift is None
-                           and not self.background_fields and not user_zbcs)
+        # JAX's eligible_zc, without its Nz % 128 gate
+        self._z_compact = (grid.all_regular and grid.topology == (
+            PERIODIC, PERIODIC, BOUNDED)
+            and closure is None and not self.forcing
+            and stokes_drift is None
+            and not self.background_fields and not user_zbcs)
+        self._kernel_tendency = kernel_tendency_eligible(grid)
         # advection is the only tendency: the fused update route
         self._fused_update = (
             self._z_compact and buoyancy is None and coriolis is None
@@ -215,11 +261,15 @@ class NonhydrostaticModel:
         else:
             if closure is not None:
                 required = max(required, closure.required_halo)
-            halo = tuple(max(h, required) for h in grid.H)
+            halo = tuple(0 if grid.is_flat(ax) else max(h, required)
+                         for ax, h in enumerate(grid.H))
         self.grid = grid.with_halo(halo)
-        if self.grid.N[0] < halo[0] or self.grid.N[1] < halo[1]:
-            raise ValueError("the periodic halos need Nx >= Hx and Ny >= Hy")
-        if self.grid.N[2] < halo[2] + 1:
+        for ax, topo in enumerate(self.grid.topology):
+            if topo == PERIODIC and self.grid.N[ax] < halo[ax]:
+                raise ValueError(f"a periodic halo needs N >= H along axis "
+                                 f"{ax} (N={self.grid.N[ax]}, H={halo[ax]})")
+        if self.grid.topology[2] == BOUNDED and \
+                self.grid.N[2] < halo[2] + 1:
             raise ValueError("the bounded-z halo fill needs Nz > Hz")
 
         if diff_bcs:
@@ -251,7 +301,7 @@ class NonhydrostaticModel:
         for name in self._closure_state:
             self.bcs[name] = regularize_field_boundary_conditions(
                 None, self.grid, LOC_CCC)
-        self.pressure_solver = FFTPoissonSolver(self.grid)
+        self.pressure_solver = select_pressure_solver(self.grid)
         self._sharded_advection = None
         if self.architecture is not None:
             self._sharded_advection = build_sharded_fused_advection(
@@ -375,8 +425,11 @@ class NonhydrostaticModel:
         pi = p[ints]
         for axis, (a, delta) in enumerate(((u, grid.dx), (v, grid.dy),
                                            (w, grid.dz))):
+            if grid.is_flat(axis):
+                continue
             loc = (LOC_FCC, LOC_CFC, LOC_CCF)[axis]
-            grad = (pi - p[_shifted(ints, axis, -1)]) / delta(loc)
+            grad = (pi - p[_shifted(ints, axis, -1)]) / _metric_at(
+                grid, delta(loc), ints)
             a[ints] -= dtt * grad
         return u, v, w, p
 
@@ -387,7 +440,7 @@ class NonhydrostaticModel:
         - ∇·(𝐮′q_bg) with 𝐔 = 𝐮′ + 𝐮_bg."""
         grid = self.grid
         names = self.prognostic_names
-        if not self.background_fields:
+        if not self.background_fields and self._kernel_tendency:
             q = [fields[n] for n in names]
             Gall = (fused_advection_tendency(grid, self.advection, q)
                     if self._sharded_advection is None
@@ -473,8 +526,9 @@ class NonhydrostaticModel:
         out = dict(fields)
         for name, kz in kappas.items():
             if name == "w":
-                out[name] = implicit_vertical_diffusion_w(
-                    self.grid, fields[name], kz, dtt)
+                if not self.grid.is_flat(2):
+                    out[name] = implicit_vertical_diffusion_w(
+                        self.grid, fields[name], kz, dtt)
             else:
                 out[name] = implicit_vertical_diffusion(
                     self.grid, fields[name], kz, dtt,
@@ -740,15 +794,30 @@ def _shifted(slices, axis, s):
     return tuple(out)
 
 
+def _metric_at(grid, m, slices):
+    """A metric (a Python scalar or a padded-broadcastable tensor) at the
+    padded ``slices``."""
+    if not isinstance(m, torch.Tensor) or m.ndim == 0:
+        return m
+    return m.broadcast_to(grid.padded_shape)[slices]
+
+
 def _interior_divergence(grid, u, v, w):
     """divᶜᶜᶜ(u, v, w) = V⁻¹[δxᶜ(Ax u) + δyᶜ(Ay v) + δzᶜ(Az w)] on the
-    interior of padded tensors with filled halos."""
+    interior of padded tensors with filled halos; a flat axis adds no
+    term."""
     ints = grid.interior_slices
-    terms = [A * a[_shifted(ints, axis, 1)] - A * a[ints]
-             for axis, (a, A) in enumerate(((u, grid.Ax(LOC_FCC)),
-                                            (v, grid.Ay(LOC_CFC)),
-                                            (w, grid.Az(LOC_CCF))))]
-    return ((terms[0] + terms[1]) + terms[2]) / grid.V(LOC_CCC)
+    total = None
+    for axis, (a, A) in enumerate(((u, grid.Ax(LOC_FCC)),
+                                   (v, grid.Ay(LOC_CFC)),
+                                   (w, grid.Az(LOC_CCF)))):
+        if grid.is_flat(axis):
+            continue
+        up = _shifted(ints, axis, 1)
+        term = (_metric_at(grid, A, up) * a[up]
+                - _metric_at(grid, A, ints) * a[ints])
+        total = term if total is None else total + term
+    return total / _metric_at(grid, grid.V(LOC_CCC), ints)
 
 
 def padded_from_jax(grid, arr):

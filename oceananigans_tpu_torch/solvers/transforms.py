@@ -1,9 +1,10 @@
-"""Discrete cosine transforms for the eigenfunction Poisson solver.
+"""Discrete cosine transforms for the eigenfunction Poisson solvers.
 
 Counterpart of ``oceananigans_tpu/solvers/transforms.py`` (matmul DCT):
 FFTW REDFT10 (DCT-II) along Bounded dimensions and its exact inverse, as
-float64 numpy matrices. The solver applies them along z with a full-precision
-``torch.matmul``.
+float64 numpy matrices. The solvers apply them along any axis with a
+full-precision ``torch.matmul`` (``apply_matrix_along``, JAX's
+``_apply_matrix_along``; TF32 stays off on the card, ``disable_tf32``).
 """
 
 from __future__ import annotations
@@ -33,3 +34,20 @@ def apply_along_last(a, M):
     """out[..., k] = Σ_n M[k, n] a[..., n]: a matrix along the contiguous
     (last) axis. ``M`` is a tensor in ``a``'s dtype and on its device."""
     return torch.matmul(a, M.transpose(0, 1))
+
+
+def apply_matrix_along(a, M, axis):
+    """out = M @ a along ``axis`` of a real or complex tensor (a complex one
+    takes the real matrix on its real and imaginary parts): the last axis by
+    one matmul, the first as M times ``a`` seen as (N, rest), any other
+    through a move to the last axis and back."""
+    if a.is_complex():
+        return torch.complex(apply_matrix_along(a.real, M, axis),
+                             apply_matrix_along(a.imag, M, axis))
+    axis = axis % a.ndim
+    if axis == a.ndim - 1:
+        return apply_along_last(a, M)
+    if axis == 0:
+        out = torch.matmul(M, a.reshape(a.shape[0], -1))
+        return out.reshape((M.shape[0],) + tuple(a.shape[1:]))
+    return apply_along_last(a.movedim(axis, -1), M).movedim(-1, axis)

@@ -624,13 +624,40 @@ def test_callables_see_true_nodes():
 
 
 def test_nonhydrostatic_refuses_stretched():
-    """The nonhydrostatic model keeps refusing a stretched grid (its FFT
-    pressure solve takes none) and cites ROADMAP item 11."""
-    g = ot.RectilinearGrid(size=(8, 8, 8), x=(0, 1), y=(0, 1),
+    """The nonhydrostatic model on an ExponentialDiscretization z, which it
+    refused until item 11b: it takes the Fourier-tridiagonal pressure solve
+    along z, as the JAX model does, and matches the JAX model over 3 RK3
+    steps from the same state (1e-10 relative, float64)."""
+    from oceananigans_tpu.models import NonhydrostaticModel as JNH
+    from oceananigans_tpu_torch.models import state_from_jax
+    from oceananigans_tpu_torch.solvers import FourierTridiagonalPoissonSolver
+    size = (8, 8, 8)
+    jg = jo.RectilinearGrid(size=size, x=(0, 1), y=(0, 1),
+                            z=jst.ExponentialDiscretization(8, -1.0, 0.0),
+                            dtype=np.float64)
+    g = ot.RectilinearGrid(size=size, x=(0, 1), y=(0, 1),
                            z=tst.ExponentialDiscretization(8, -1.0, 0.0),
                            **CPU)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ot.NonhydrostaticModel(g)
+    jm = JNH(grid=jg, advection=JWENO(5, smoothness_dtype=jnp.float64),
+             tracers=("c",))
+    rng = np.random.default_rng(5)
+    jm.set(u=0.1 * rng.standard_normal(size), v=0.1 * rng.standard_normal(size),
+           c=rng.standard_normal(size))
+    start = {k: ({n: np.asarray(a) for n, a in v.items()}
+                 if isinstance(v, dict) else np.asarray(v))
+             for k, v in jm.state.items()}
+    tm = ot.NonhydrostaticModel(g, advection=ot.WENO(
+        5, smoothness_dtype=F64), tracers=("c",))
+    assert isinstance(tm.pressure_solver, FourierTridiagonalPoissonSolver)
+    assert tm.pressure_solver.s == 2
+    state_from_jax(start, tm)
+    for _ in range(3):
+        jm.time_step(1e-2)
+        tm.time_step(1e-2)
+    for name in ("u", "v", "w", "c", "p"):
+        want = np.asarray(jm.field(name).interior)
+        got = tm.field(name).interior.numpy()
+        assert _rel(got, want) <= MODEL_TOL, name
 
 
 def test_writers_carry_2d_coordinates(tmp_path):

@@ -1482,3 +1482,155 @@ def _latlon_like(grid):
                                     latitude=(15, 75), z=(-1800.0, 0.0),
                                     halo=grid.H, dtype=torch.float64,
                                     device="cuda")
+
+
+# -- #6 on a flat and a periodic z, and the periodic-z fill -------------------
+
+Z_MODE_SCHEMES = {
+    "WENO(5)": lambda: ot.WENO(5, smoothness_dtype=torch.float64),
+    "WENO(9)": lambda: ot.WENO(9, smoothness_dtype=torch.float64),
+    "UpwindBiased(5)": lambda: ot.UpwindBiased(5),
+    "Centered(2)": lambda: ot.Centered(2),
+}
+Z_MODE_GRIDS = {
+    # interiors no flat tile (32 x 32 x 1) or periodic tile (8 x 8 x 8)
+    # divides
+    "flat": (("periodic", "periodic", "flat"), (45, 37, 1)),
+    "periodic": (("periodic", "periodic", "periodic"), (19, 13, 30)),
+}
+
+
+def z_mode_inputs(zmode, scheme, ntr, dtype=torch.float64, seed=5):
+    """u, v, w and ``ntr`` tracers on a grid of the z mode, halos filled
+    (the fill kernel: x, y and, on a periodic z, z wrap)."""
+    topo, N = Z_MODE_GRIDS[zmode]
+    r = scheme.required_halo
+    flat = zmode == "flat"
+    grid = ot.RectilinearGrid(
+        size=N[:2] if flat else N, topology=topo,
+        extent=(1.0, 2.0) if flat else (1.0, 2.0, 0.5),
+        halo=(r, r) if flat else (r, r, r), dtype=dtype, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f = [0.1 * torch.randn(grid.padded_shape, generator=gen, dtype=dtype,
+                           device="cuda") for _ in range(3 + ntr)]
+    K.fill_halos(grid, f)
+    return grid, f
+
+
+@pytest.mark.parametrize("ntr", [1, 37])
+@pytest.mark.parametrize("scheme", sorted(Z_MODE_SCHEMES))
+@pytest.mark.parametrize("zmode", sorted(Z_MODE_GRIDS))
+def test_fused_advection_tendency_z_modes(zmode, scheme, ntr):
+    """#6 on a flat z (no z flux, one-level tiles) and on a periodic z (the
+    padded layout with wrapped z halos, no cascade) against its plain
+    version in float64 at 1e-12, on interiors the tiles do not divide, 4
+    and 40 components (two launches); each launch counted in its z
+    variant."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from oceananigans_tpu_torch.kernels import fused_advection as fa
+    s = Z_MODE_SCHEMES[scheme]()
+    grid, f = z_mode_inputs(zmode, s, ntr)
+    K.reset_counters()
+    got = K.fused_advection_tendency(grid, s, f)
+    want = K.fused_advection_tendency_plain(grid, s, f)
+    for g, w in zip(got, want):
+        scale = max(w.abs().max().item(), 1e-300)
+        assert (g - w).abs().max().item() / scale <= TOL
+    variant = fa.variant_name(s) + "_z" + zmode
+    assert fa.fused_advection_tendency.variant_launches[variant] == \
+        len(fa.launch_plan(grid, s, torch.float64, 3 + ntr)["launches"])
+
+
+def test_fused_advection_tendency_flat_tile():
+    """A flat z takes a one-level tile whose cells fill a block (32 x 32 x 1
+    at float32 and float64), with no z reach in its shared memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from oceananigans_tpu_torch.kernels import fused_advection as fa
+    grid, _ = z_mode_inputs("flat", ot.WENO(5), 0, torch.float32)
+    plan = fa.launch_plan(grid, ot.WENO(5), torch.float32, 3)
+    assert plan["tile"] == (32, 32, 1)
+    assert plan["launches"][0][2] == fa.smem_bytes((32, 32, 1), 3, 4, False,
+                                                   flat=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("topology", [
+    ("periodic", "periodic", "periodic"), ("periodic", "flat", "periodic"),
+    ("bounded", "bounded", "periodic"), ("periodic", "flat", "bounded"),
+    ("flat", "flat", "bounded"), ("bounded", "periodic", "bounded")],
+    ids="-".join)
+def test_fill_halos_periodic_z_and_flat(topology, dtype):
+    """The fill kernel on a periodic z (the z wrap in the same launch as x
+    and y, corners included) and with flat axes, against
+    fill_halos_plain bit for bit: every location under four rotations of
+    the conditions on the bounded sides, and the wrap alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    classes = (bcm.FLUX, bcm.OPEN, bcm.VALUE, bcm.GRADIENT)
+    sides = ("west", "east", "south", "north", "bottom", "top")
+    N = tuple(1 if t == "flat" else n for t, n in zip(topology, (13, 9, 11)))
+    keep = [ax for ax in range(3) if topology[ax] != "flat"]
+    grid = ot.RectilinearGrid(
+        size=tuple(N[ax] for ax in keep), topology=topology,
+        extent=tuple((1.0, 2.0, 0.5)[ax] for ax in keep),
+        halo=tuple((3, 2, 4)[ax] for ax in keep), dtype=dtype,
+        device="cuda")
+    lbs = []
+    for r in range(4):
+        for loc in (("c", "c", "c"), ("f", "c", "c"), ("c", "f", "c"),
+                    ("c", "c", "f")):
+            kw = {}
+            for s, side in enumerate(sides):
+                topo = topology[s // 2]
+                if topo == "bounded":
+                    kw[side] = BoundaryCondition(classes[(s + r) % 4],
+                                                 0.1 * (s + 1) * (-1) ** s)
+                elif topo == "periodic":
+                    kw[side] = bcm.PeriodicBoundaryCondition()
+            lbs.append((loc, FieldBoundaryConditions(**kw)))
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    a = [torch.randn(grid.padded_shape, generator=gen, dtype=dtype,
+                     device="cuda") for _ in lbs]
+    got = K.fill_halos(grid, [x.clone() for x in a], lbs)
+    want = K.fill_halos_plain(grid, [x.clone() for x in a], lbs)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    got = K.fill_halos(grid, [x.clone() for x in a[:3]])
+    want = K.periodic_halo_fill_plain(grid, [x.clone() for x in a[:3]])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("topology", [
+    ("periodic", "periodic", "periodic"), ("periodic", "periodic", "flat")],
+    ids="-".join)
+def test_model_z_modes_card_against_cpu(topology):
+    """The NonhydrostaticModel on a triply periodic and a flat-z grid (#6
+    in its z variant, the fill kernel, the FFT solve on the card) over 3
+    steps in float64 against the same model on the CPU (the plain route):
+    1e-10 relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    flat = topology[2] == "flat"
+    size = (16, 16) if flat else (16, 16, 16)
+    extent = (1.0, 1.0) if flat else (1.0, 1.0, 1.0)
+    rng = np.random.default_rng(3)
+    N = (16, 16, 1) if flat else (16, 16, 16)
+    u0, v0 = 0.1 * rng.standard_normal(N), 0.1 * rng.standard_normal(N)
+    models = []
+    for device in ("cuda", "cpu"):
+        grid = ot.RectilinearGrid(size=size, extent=extent, topology=topology,
+                                  dtype=torch.float64, device=device)
+        m = ot.NonhydrostaticModel(grid, advection=ot.WENO(
+            5, smoothness_dtype=torch.float64), tracers=("c",))
+        m.set(u=u0, v=v0, c=u0)
+        for _ in range(3):
+            m.time_step(1e-2)
+        models.append(m)
+    for name in ("u", "v", "w", "c", "p"):
+        a = models[0].field(name).interior.cpu()
+        b = models[1].field(name).interior
+        scale = max(b.abs().max().item(), 1e-12)
+        assert (a - b).abs().max().item() / scale <= 1e-10, name

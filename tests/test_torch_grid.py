@@ -70,8 +70,10 @@ def test_with_halo_and_device_dtype():
 
 def test_stretched_axis_raises():
     """A stretched z builds, with JAX's coordinates and metrics; the
-    nonhydrostatic model (its FFT pressure solve) raises on it, citing its
-    ROADMAP item."""
+    nonhydrostatic model takes it with the Fourier-tridiagonal pressure
+    solve (since item 11b) and raises, citing ROADMAP item 11c, on a grid
+    stretched along x and z, as JAX's model hands it to its
+    conjugate-gradient solver."""
     faces = np.linspace(-1.0, 0.0, 9) ** 3
     t = TGrid(size=(4, 4, 8), x=(0.0, 1.0), y=(0.0, 1.0), z=faces,
               dtype=torch.float64, device="cpu")
@@ -83,8 +85,15 @@ def test_stretched_axis_raises():
         assert _close(t.dz(loc).numpy(), np.asarray(j.dz(loc)))
         assert _close(t.V(loc).numpy(), np.asarray(j.V(loc)))
     from oceananigans_tpu_torch.models import NonhydrostaticModel
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NonhydrostaticModel(t)
+    from oceananigans_tpu_torch.solvers import FourierTridiagonalPoissonSolver
+    assert isinstance(NonhydrostaticModel(t).pressure_solver,
+                      FourierTridiagonalPoissonSolver)
+    xz = TGrid(size=(8, 4, 8), x=faces + 1.0, y=(0.0, 1.0), z=faces,
+               topology=("bounded", "periodic", "bounded"),
+               dtype=torch.float64, device="cpu")
+    assert xz.stretched_axes == (0, 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 11c"):
+        NonhydrostaticModel(xz)
 
 
 def test_default_device_is_cuda():

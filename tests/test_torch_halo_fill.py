@@ -335,8 +335,9 @@ def test_fill_against_jax(name, loc):
                                   "periodic_y_n_lt_h", "periodic_z"])
 def test_refused(case):
     """A bounded axis with H > MAX_H, a fold without a periodic x, a
-    periodic axis with N < H and a periodic z with conditions raise, on the
-    CPU as on the card."""
+    periodic axis with N < H and a periodic z with conditions other than
+    periodic (item 3) raise, on the CPU as on the card. A periodic z with
+    its periodic conditions wraps (``test_periodic_z_wraps``)."""
     topology = {"bounded_h_gt_max": ("bounded", "periodic", "bounded"),
                 "fold_bounded_x": ("bounded", "bounded", "bounded"),
                 "periodic_y_n_lt_h": ("periodic", "periodic", "bounded"),
@@ -351,9 +352,16 @@ def test_refused(case):
     given = (FieldBoundaryConditions(north=bcm.ZipperBoundaryCondition(1.0))
              if case == "fold_bounded_x" else None)
     bcs = regularize_field_boundary_conditions(given, grid, loc)
+    if case == "periodic_z":
+        # a Flux condition on a periodic z side (regularizing refuses it, so
+        # the conditions are built as they are)
+        bcs = FieldBoundaryConditions(**{
+            side: (BoundaryCondition(bcm.FLUX, 0.5) if side == "bottom"
+                   else bcs.side(side)) for side in SIDES})
     a = torch.zeros(grid.padded_shape, dtype=torch.float64)
     error = NotImplementedError if case == "periodic_z" else ValueError
-    with pytest.raises(error):
+    with pytest.raises(error, match="item 3" if case == "periodic_z"
+                       else None):
         hf.fill_halos(grid, [a], [(loc, bcs)])
 
 
