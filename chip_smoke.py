@@ -924,18 +924,19 @@ def model_locs_bcs(model, names):
     return [(model.loc(n), model.bcs[n]) for n in names]
 
 
-def fill_check(label, grid, fields, locs_bcs, z=True):
-    """The fill kernel against its plain version on copies of ``fields``:
-    every slot bit for bit, the copies, reflections and pins and the slots
-    an extrapolation forms alike (the kernel rounds each operation of an
-    extrapolation as the plain version does), each kind reported apart.
-    Returns the max abs difference."""
+def fill_check(label, grid, fields, locs_bcs, z=True, time_=0.0, dt=None):
+    """The fill kernel against its plain version on copies of ``fields``
+    (plane conditions at ``time_``, the perturbation-advection faces with
+    ``dt``): every slot bit for bit, the copies, reflections and pins and
+    the slots an extrapolation forms alike (the kernel rounds each
+    operation of an extrapolation as the plain version does), each kind
+    reported apart. Returns the max abs difference."""
     import oceananigans_tpu_torch.kernels.halo_fill as hf
     from oceananigans_tpu_torch import kernels as K
     a = [f.clone() for f in fields]
     b = [f.clone() for f in fields]
-    K.fill_halos(grid, a, locs_bcs, z=z)
-    K.fill_halos_plain(grid, b, locs_bcs, z=z)
+    K.fill_halos(grid, a, locs_bcs, z=z, time=time_, dt=dt)
+    K.fill_halos_plain(grid, b, locs_bcs, z=z, time=time_, dt=dt)
     masks = (hf.extrapolated_slots(grid, a[0].shape, locs_bcs, z)
              if locs_bcs is not None else [None] * len(a))
     err = copies = rel = 0.0
@@ -983,7 +984,7 @@ def fold_columns(codes, geom, face_x, i, j, sx):
     return np.where(fold, folded, sx)
 
 
-def fill_traffic(grid, shape, esize, locs_bcs=None, n=1, z=True):
+def fill_traffic(grid, shape, esize, locs_bcs=None, n=1, z=True, pa=False):
     """(bytes, sector bytes) of one fill: the distinct slots it writes and
     reads, and the 32-byte sectors they lie in, summed over the fields (the
     tripolar fold's columns read their folded sources; a column that reads
@@ -993,7 +994,8 @@ def fill_traffic(grid, shape, esize, locs_bcs=None, n=1, z=True):
     PX, PY, PZ = (g[2] for g in geom)
     nbytes = sectors = 0
     lbs = locs_bcs if locs_bcs is not None else [None] * n
-    for codes, lb in zip(hf.fill_codes(grid, shape, locs_bcs, n, z), lbs):
+    for codes, lb in zip(hf.fill_codes(grid, shape, locs_bcs, n, z, pa=pa),
+                         lbs):
         face_x = lb is not None and lb[0][0] == "f"
         (xlo, xhi), (ylo, yhi), (zlo, zhi) = (
             hf.kept_range(c, g[0], g[1], g[2]) for c, g in zip(codes, geom))
@@ -1034,24 +1036,50 @@ def fill_traffic(grid, shape, esize, locs_bcs=None, n=1, z=True):
     return nbytes, 32 * sectors
 
 
-def time_fill(label, grid, fields, locs_bcs, err, z=True):
+def time_fill(label, grid, fields, locs_bcs, err, z=True, time_=0.0,
+              dt=None):
     """The fill's device time (a call behind a busy card), its call time
     from an idle card, its plain version's time, and its byte bound with
-    the sector floor beside it."""
+    the sector floor beside it. A fill that reads planes (plane conditions
+    at ``time_``, the perturbation-advection faces with ``dt``) forms them
+    by plane operations before its launch: its kernel's own device time
+    (torch.profiler) is then the kernel's, the whole call's beside it, and
+    the bound counts each plane read once."""
+    import oceananigans_tpu_torch.kernels.halo_fill as hf
     from oceananigans_tpu_torch import kernels as K
-    ms = device_ms(lambda: K.fill_halos(grid, fields, locs_bcs, z=z))
-    call_ms = cuda_ms(lambda: K.fill_halos(grid, fields, locs_bcs, z=z))
-    plain_ms = cuda_ms(lambda: K.fill_halos_plain(grid, fields, locs_bcs,
-                                                  z=z), reps=5)
+    pa = dt is not None
+    call = lambda: K.fill_halos(grid, fields, locs_bcs, z=z, time=time_,
+                                dt=dt)
+    ms = whole_ms = device_ms(call)
+    call_ms = cuda_ms(call)
+    plain_ms = cuda_ms(lambda: K.fill_halos_plain(
+        grid, fields, locs_bcs, z=z, time=time_, dt=dt), reps=5)
     esize = fields[0].element_size()
     nbytes, sector_bytes = fill_traffic(grid, fields[0].shape, esize,
-                                        locs_bcs, len(fields), z)
-    out = dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-               bound=bound(nbytes, 0),
+                                        locs_bcs, len(fields), z, pa=pa)
+    plane_elems = 0
+    if locs_bcs is not None:
+        codes = hf.fill_codes(grid, fields[0].shape, locs_bcs, len(fields),
+                              z, pa=pa)
+        plane_elems = sum(hf._plane_size(fields[0].shape, ax)
+                          for sides in hf.plane_sides(codes, locs_bcs)
+                          for ax, _ in sides)
+    how = ""
+    if plane_elems:
+        nbytes += esize * plane_elems
+        kernel_ms = profiled_kernel_ms(call, "fill_halos_kernel")
+        if kernel_ms is not None:
+            ms = kernel_ms
+        source = ("torch.profiler" if kernel_ms is not None
+                  else "no profiler device time: the whole call")
+        how = (f" ({source}; {plane_elems} plane values), the whole call "
+               f"{whole_ms:.4f} ms behind a busy card")
+    out = dict(max_abs_err=err, ms=ms, call_ms=call_ms, whole_ms=whole_ms,
+               plain_ms=plain_ms, bound=bound(nbytes, 0),
                sector_ms=sector_bytes / HBM_BYTES_PER_S * 1e3)
     print(f"  time fill_halos {label} ({len(fields)} fields of "
-          f"{tuple(fields[0].shape)}): kernel {ms:.4f} ms (call from an idle "
-          f"card {call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+          f"{tuple(fields[0].shape)}): kernel {ms:.4f} ms{how} (call from "
+          f"an idle card {call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
           f"{out['bound'][0]:.4f} ms ({nbytes} bytes), sector floor "
           f"{out['sector_ms']:.4f} ms ({sector_bytes} bytes)")
     return out
@@ -6778,6 +6806,718 @@ def topology_phase(card):
 
 
 
+# -- phase 28: immersed, multiply stretched and curvilinear grids, open and
+# per-point conditions ----------------------------------------------------------
+
+SEAMOUNT_N = (2048, 512)       # row D: tidal flow over a seamount, nx × nz
+HILL_N = (256, 256, 128)       # row E: stratified flow over a 3-D hill
+CG_STEPS = (3, 5)              # warm-up and timed steps of each row
+CG_TIGHT = 1e-14               # the card-against-CPU models' solver tolerance
+SEAMOUNT_DT = 20.0             # the example's Δt cap
+WITNESS_MAXITER = 20000        # the witnesses' CG iterations at most
+OPEN_TIMESCALES = ((0.0, np.inf), (60.0, 0.5), (np.inf, 0.0), (2.0, 3.0),
+                   (0.0, 0.0), (1.0, np.inf))
+
+
+def open_side_bcs(classes, kinds, N, topology, seed):
+    """The port's FieldBoundaryConditions for phase 28's fill checks: side
+    s takes ``classes[s]`` ("value", "gradient", "open" with
+    PerturbationAdvection of ``OPEN_TIMESCALES[s]``, "flux") with a
+    ``kinds[s]`` condition ("callable" of the transverse coordinates and
+    the time, "array" of the plane's interior, "scalar"); periodic sides
+    keep their defaults."""
+    import oceananigans_tpu_torch as ot
+    rng = np.random.default_rng(seed)
+    sides = {}
+    for s, side in enumerate(FILL_SIDES):
+        if topology[s // 2] != B_:
+            continue
+        k = 0.3 * (s + 1)
+        t_axes = [ax for ax in range(3) if ax != s // 2]
+        cond = {"callable": lambda a, b, t, k=k: k * torch.cos(a)
+                * torch.sin(2 * b) + 0.1 * t,
+                "array": rng.standard_normal(tuple(N[ax] for ax in t_axes)),
+                "scalar": 0.1 * (s + 1) * (-1) ** s}[kinds[s]]
+        if classes[s] == "open":
+            sides[side] = ot.OpenBoundaryCondition(
+                cond, scheme=ot.PerturbationAdvection(*OPEN_TIMESCALES[s]))
+        else:
+            sides[side] = {"value": ot.ValueBoundaryCondition,
+                           "gradient": ot.GradientBoundaryCondition,
+                           "flux": ot.FluxBoundaryCondition}[classes[s]](cond)
+    return ot.FieldBoundaryConditions(**sides)
+
+
+def open_fill_checks():
+    """The fill kernel against fill_halos_plain, bit for bit, on small cases
+    of every new map on every side: planes (callable and array values) under
+    Value, Gradient and Open on x, y and z of the four locations (w's
+    included), the PerturbationAdvection face with Δt (inflow and outflow
+    sides, τ = 0, finite and ∞), array conditions wrapping along a periodic
+    transverse axis, bounded and periodic x and y, N from below H to larger,
+    float32 and float64; 3 fields a launch. Returns the cases checked."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+    from oceananigans_tpu_torch.boundary_conditions import \
+        regularize_field_boundary_conditions
+    K.reset_counters()
+    rng = np.random.default_rng(28)
+    cases = 0
+    for N in ((9, 7, 6), (3, 2, 4)):
+        for topology in ((B_, B_, B_), (P_, B_, B_), (B_, P_, B_),
+                         (P_, P_, B_)):
+            if P_ in topology[:2] and min(N[ax] for ax in range(2)
+                                          if topology[ax] == P_) < 3:
+                continue
+            for dtype in (torch.float32, torch.float64):
+                grid = topo_grid(topology, N, (3, 2, 3), dtype, "cuda",
+                                 extent=(2.0, 2.0, 3.0))
+                for loc in FILL_LOCS:
+                    for cls in ("value", "gradient", "open", "mixed"):
+                        classes = [cls if cls != "mixed" else
+                                   ("value", "gradient", "open",
+                                    "flux")[rng.integers(4)]
+                                   for _ in FILL_SIDES]
+                        kinds = [("callable", "array", "scalar")[
+                            rng.integers(3)] for _ in FILL_SIDES]
+                        bcs = regularize_field_boundary_conditions(
+                            open_side_bcs(classes, kinds, N, topology,
+                                          int(rng.integers(1000))),
+                            grid, loc)
+                        for dt in (None, 0.3):
+                            fields = [torch.randn(grid.padded_shape,
+                                                  dtype=dtype, device="cuda")
+                                      for _ in range(3)]
+                            lbs = [(loc, bcs)] * 3
+                            a = K.fill_halos(grid, [f.clone() for f in fields],
+                                             lbs, time=0.7, dt=dt)
+                            b = K.fill_halos_plain(
+                                grid, [f.clone() for f in fields], lbs,
+                                time=0.7, dt=dt)
+                            for x, y in zip(a, b):
+                                assert torch.equal(x, y), (
+                                    "fill with planes", N, topology, dtype,
+                                    loc, classes, kinds, dt)
+                            cases += 1
+    launches, _ = K.counters()
+    print(f"  fill_halos with planes and the perturbation face against "
+          f"fill_halos_plain: {cases} cases of 3 fields, every slot bit for "
+          f"bit; launches {launches['fill_halos']} (planes "
+          f"{launches['fill_halos_planes']}, perturbation faces "
+          f"{launches['fill_halos_perturbation']})")
+    assert launches["fill_halos_perturbation"] > 0
+    return cases
+
+
+def seamount_model(nx, nz, dtype, device, smoothness=torch.float32,
+                   pressure_solver=None, seed=0):
+    """``examples/tidal_flow_over_seamount.py`` at (nx, nz): 8 km × 200 m,
+    a PartialCellBottom Gaussian seamount, the tide on both x sides as Open
+    + PerturbationAdvection(60, ∞), WENO(5), BuoyancyTracer with N² = 1e-5,
+    the immersed CG with its DCT-x/DCT-z preconditioner (or
+    ``pressure_solver(grid)`` at the model's halos); b = N²z and a seeded
+    u of 0.01 m/s, projected by set()."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch.immersed import (ImmersedBoundaryGrid,
+                                                 PartialCellBottom)
+    Lx, Lz, U0, omega, N2 = 8000.0, 200.0, 0.1, 1.4e-3, 1e-5
+    under = ot.RectilinearGrid(size=(nx, 1, nz), x=(0.0, Lx), z=(-Lz, 0.0),
+                               topology=(B_, F_, B_), dtype=dtype,
+                               device=device)
+    grid = ImmersedBoundaryGrid(under, PartialCellBottom(
+        lambda x, y: -Lz + 100.0 * np.exp(-((x - Lx / 2) / 800.0) ** 2)))
+    pa = ot.PerturbationAdvection(inflow_timescale=60.0,
+                                  outflow_timescale=np.inf)
+
+    def tide(y, z, t):
+        return U0 * np.sin(omega * t) * torch.ones_like(z)
+
+    u_bcs = ot.FieldBoundaryConditions(
+        west=ot.OpenBoundaryCondition(tide, scheme=pa),
+        east=ot.OpenBoundaryCondition(tide, scheme=pa))
+    kw = {} if pressure_solver is None else dict(
+        pressure_solver=pressure_solver(grid.with_halo((3, 0, 3))))
+    m = ot.NonhydrostaticModel(
+        grid, advection=ot.WENO(5, smoothness_dtype=smoothness),
+        buoyancy=ot.BuoyancyTracer(), boundary_conditions={"u": u_bcs}, **kw)
+    rng = np.random.default_rng(seed)
+    m.set(b=lambda x, y, z: N2 * z,
+          u=0.01 * rng.standard_normal((nx, 1, nz)))
+    return m
+
+
+def hill_model(N, dtype, device, smoothness=torch.float32,
+               pressure_solver=None, seed=0):
+    """Row E: periodic x and y over (0, 4000 m)², z in (−200, 0) m, a
+    GridFittedBottom Gaussian hill −200 + 100·exp(−r²/800²) at the centre,
+    WENO(5), BuoyancyTracer with N² = 1e-5, u = 0.1 m/s with a seeded
+    perturbation of 0.01 m/s, the immersed CG with its FFT-x/FFT-y/DCT-z
+    preconditioner (or ``pressure_solver(grid)`` at the model's halos)."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch.immersed import (GridFittedBottom,
+                                                 ImmersedBoundaryGrid)
+    L, Lz, N2 = 4000.0, 200.0, 1e-5
+    under = ot.RectilinearGrid(size=N, x=(0.0, L), y=(0.0, L), z=(-Lz, 0.0),
+                               topology=(P_, P_, B_), dtype=dtype,
+                               device=device)
+    grid = ImmersedBoundaryGrid(under, GridFittedBottom(
+        lambda x, y: -Lz + 100.0 * np.exp(
+            -((x - L / 2) ** 2 + (y - L / 2) ** 2) / 800.0 ** 2)))
+    kw = {} if pressure_solver is None else dict(
+        pressure_solver=pressure_solver(grid.with_halo((3, 3, 3))))
+    m = ot.NonhydrostaticModel(
+        grid, advection=ot.WENO(5, smoothness_dtype=smoothness),
+        buoyancy=ot.BuoyancyTracer(), **kw)
+    rng = np.random.default_rng(seed)
+    m.set(b=lambda x, y, z: N2 * z,
+          u=0.1 + 0.01 * rng.standard_normal(N),
+          v=0.01 * rng.standard_normal(N))
+    return m
+
+
+def tight_immersed_solver(grid):
+    """The immersed CG at ``CG_TIGHT`` on ``grid`` (the model's halos),
+    preconditioned by the underlying grid's FFT solver."""
+    from oceananigans_tpu_torch.boundary_conditions import (
+        fill_all_halo_regions, regularize_field_boundary_conditions)
+    from oceananigans_tpu_torch.solvers import (FFTPoissonSolver,
+                                                make_immersed_poisson_solver)
+    ccc = ("c", "c", "c")
+    bcs = regularize_field_boundary_conditions(None, grid, ccc)
+    under = grid.underlying_grid
+    return make_immersed_poisson_solver(
+        grid, lambda p: fill_all_halo_regions([p], grid, [(ccc, bcs)]),
+        FFTPoissonSolver(under) if under.all_regular else None,
+        reltol=CG_TIGHT, maxiter=800)
+
+
+def tight_variable_solver(grid):
+    """The variable-spacing CG at ``CG_TIGHT`` (1e-12 on a lat-lon grid,
+    whose CG stalls above 1e-13) on ``grid`` (the model's halos)."""
+    from oceananigans_tpu_torch.boundary_conditions import (
+        fill_all_halo_regions, regularize_field_boundary_conditions)
+    from oceananigans_tpu_torch.solvers import \
+        make_variable_spacing_poisson_solver
+    ccc = ("c", "c", "c")
+    bcs = regularize_field_boundary_conditions(None, grid, ccc)
+    return make_variable_spacing_poisson_solver(
+        grid, lambda p: fill_all_halo_regions([p], grid, [(ccc, bcs)]),
+        reltol=1e-12 if hasattr(grid, "radius") else CG_TIGHT, maxiter=3000)
+
+
+def horizontal_convection_model(nx, nz, dtype, device, seed=3):
+    """``examples/horizontal_convection.py`` at (nx, nz), Ra = 1e8: a
+    callable Value condition b = −cos(2πx/Lx) on b's top, WENO(5) (float64
+    smoothness), ScalarDiffusivity; b = 0.1z and a seeded u of 1e-3."""
+    import oceananigans_tpu_torch as ot
+    Lx, H, Ra = 2.0, 1.0, 1e8
+    nu = kappa = float(np.sqrt(Lx ** 3 / Ra))
+    grid = ot.RectilinearGrid(size=(nx, nz), x=(-Lx / 2, Lx / 2), z=(-H, 0),
+                              topology=(B_, F_, B_), dtype=dtype,
+                              device=device)
+    b_bcs = ot.FieldBoundaryConditions(top=ot.ValueBoundaryCondition(
+        lambda x, y, t: -torch.cos(2 * np.pi * x / Lx)))
+    m = ot.NonhydrostaticModel(
+        grid, advection=ot.WENO(5, smoothness_dtype=dtype),
+        buoyancy=ot.BuoyancyTracer(), tracers=("b",),
+        closure=ot.ScalarDiffusivity(nu=nu, kappa={"b": kappa}),
+        boundary_conditions={"b": b_bcs})
+    rng = np.random.default_rng(seed)
+    m.set(u=1e-3 * rng.standard_normal((nx, 1, nz)),
+          b=lambda x, y, z: 0.1 * z)
+    return m
+
+
+def open_channel_model(device):
+    """A (P, B, B) 8×6×8 channel with PerturbationAdvection sides on y and
+    z: v's north Open (a callable of x, z and t; τ 2 and 3) and w's top
+    Open (a callable of x, y and t; τ 0.5 and ∞), both balanced by the
+    mass balance, a callable Value on b's bottom and an array Gradient on
+    its top; Centered(2), ScalarDiffusivity, float64. Its PA faces on y and
+    z are formed from copies filled along the earlier axes."""
+    import oceananigans_tpu_torch as ot
+    rng = np.random.default_rng(9)
+    N = (8, 6, 8)
+    grid = ot.RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0),
+                              topology=(P_, B_, B_), dtype=torch.float64,
+                              device=device)
+    bcs = {"v": ot.FieldBoundaryConditions(north=ot.OpenBoundaryCondition(
+        lambda x, z, t: 0.01 * torch.cos(2 * np.pi * x) * (1 + t) + 0 * z,
+        scheme=ot.PerturbationAdvection(2.0, 3.0))),
+        "w": ot.FieldBoundaryConditions(top=ot.OpenBoundaryCondition(
+            lambda x, y, t: 0.01 * torch.sin(2 * np.pi * x) * (1 + t) + 0 * y,
+            scheme=ot.PerturbationAdvection(0.5, np.inf))),
+        "b": ot.FieldBoundaryConditions(
+            bottom=ot.ValueBoundaryCondition(
+                lambda x, y, t: 0.1 * torch.cos(2 * np.pi * x) + 0 * y),
+            top=ot.GradientBoundaryCondition(
+                0.01 * rng.standard_normal(N[:2])))}
+    m = ot.NonhydrostaticModel(
+        grid, advection=ot.Centered(2), buoyancy=ot.BuoyancyTracer(),
+        tracers=("b",), closure=ot.ScalarDiffusivity(nu=1e-3, kappa=1e-3),
+        boundary_conditions=bcs)
+    m.set(u=0.05 * rng.standard_normal(N), b=lambda x, y, z: 0.2 * z)
+    return m
+
+
+def cg_small_models(device):
+    """Phase 28's card-against-CPU models in float64: the immersed hill at
+    24×20×12, a grid stretched along x, y and z, the lat-lon NH model, the
+    seamount example at 64×16, horizontal_convection at 32×16 and a channel
+    with PerturbationAdvection sides on y and z, each CG model given
+    ``pressure_solver=`` at reltol 1e-14 (1e-12 on the lat-lon grid)."""
+    import oceananigans_tpu_torch as ot
+    f64 = torch.float64
+    faces = np.cumsum(np.r_[0.0, 1.0 + 0.3 * np.sin(np.arange(10))])
+    out = {"immersed hill": (hill_model((24, 20, 12), f64, device, f64,
+                                        tight_immersed_solver), 2.0)}
+    stretched = ot.RectilinearGrid(size=(10, 10, 10), x=tuple(faces),
+                                   y=tuple(faces), z=tuple(faces - faces[-1]),
+                                   topology=(B_, B_, B_), dtype=f64,
+                                   device=device)
+    latlon = ot.LatitudeLongitudeGrid(size=(12, 10, 6), longitude=(0, 60),
+                                      latitude=(10, 50), z=(-100, 0),
+                                      dtype=f64, device=device)
+    for label, grid, dt in (("stretched x, y, z", stretched, 1e-2),
+                            ("lat-lon", latlon, 60.0)):
+        m = ot.NonhydrostaticModel(
+            grid, advection=ot.WENO(5, smoothness_dtype=f64), tracers=("c",),
+            pressure_solver=tight_variable_solver(grid.with_halo((3, 3, 3))))
+        rng = np.random.default_rng(1)
+        m.set(**{k: 0.1 * rng.standard_normal(grid.N) for k in "uvc"})
+        out[label] = (m, dt)
+    out["seamount 64x16"] = (seamount_model(64, 16, f64, device, f64,
+                                            tight_immersed_solver), 20.0)
+    out["horizontal_convection 32x16"] = (
+        horizontal_convection_model(32, 16, f64, device), 1e-2)
+    out["open channel, PA on y and z"] = (open_channel_model(device), 5e-2)
+    return out
+
+
+def cg_model_checks():
+    """Each small model on the card over 3 steps against the same model on
+    the CPU, float64: every field within 1e-12 of its scale (the velocity
+    scale at least for u, v, w and p), an immersed model's p over its fluid
+    cells with their mean removed (the immersed CG, as JAX's, leaves p's
+    constant over the fluid, which no correction reads, where its
+    roundoff puts it); the lat-lon model's fields within 1e-10 (its CG
+    stops at 1e-12 of a Laplacian whose condition number is about 2e7: its
+    u, v and c read 4.04e-12, 4.56e-12 and 1.21e-11, PERF.md).
+    A CG model's divergence at roundoff. No plain version runs on CUDA
+    tensors; the fill kernel launches. Every model is compared before a
+    miss fails the check."""
+    from oceananigans_tpu_torch import kernels as K
+    card = cg_small_models("cuda")
+    cpu = cg_small_models("cpu")
+    worst, misses = 0.0, []
+    for label, (a, dt) in card.items():
+        b = cpu[label][0]
+        bound = 1e-10 if label == "lat-lon" else 1e-12
+        K.reset_counters()
+        for _ in range(3):
+            a.time_step(dt)
+            b.time_step(dt)
+        launches, plain = K.counters()
+        assert all(v == 0 for v in plain.values()), (label, plain)
+        assert launches["fill_halos"] > 0, (label, "no fill launch")
+        scale = max(b.field(c).interior.abs().max().item() for c in "uvw")
+        line, errs = 0.0, {}
+        for name in list(b.state["fields"]) + ["p"]:
+            x = a.field(name).interior.cpu()
+            y = b.field(name).interior
+            if name == "p" and b.immersed:
+                fluid = b.grid.fluid_mask(("c", "c", "c")).bool()[
+                    b.grid.interior_slices]
+                x, y = x[fluid] - x[fluid].mean(), y[fluid] - y[fluid].mean()
+            err = (x - y).abs().max().item()
+            ref = y.abs().max().item()
+            if name in "uvwp":
+                ref = max(ref, scale)
+            rel = 0.0 if err == 0 else err / ref
+            errs[name] = rel
+            if not rel <= bound:
+                misses.append((label, name, rel, bound))
+            line = max(line, rel)
+        worst = max(worst, line)
+        if hasattr(a.pressure_solver, "operator"):
+            # a CG solved to 1e-14 (1e-12): the divergence is at roundoff
+            fluid_divergence(f"model {label}", a, bound_rel=1e-8)
+        print(f"  model {label} {a.grid.N} float64, 3 steps on the card "
+              f"against the CPU: worst rel {line:.3e} (bound {bound:.0e}; "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f"); fill launches {launches['fill_halos']} (planes "
+              f"{launches['fill_halos_planes']}, perturbation faces "
+              f"{launches['fill_halos_perturbation']})")
+    assert not misses, ("card against CPU", misses)
+    return worst
+
+
+def open_radiation_golden():
+    """``tests/test_regression.py``'s open_boundary_radiation channel in
+    float64 on the card, 10 steps, against its golden file: 1e-9."""
+    import oceananigans_tpu_torch as ot
+    U0 = 0.3
+    grid = ot.RectilinearGrid(size=(32, 1, 8), x=(0, 4.0), z=(-1.0, 0.0),
+                              topology=(B_, F_, B_), dtype=torch.float64,
+                              device="cuda")
+    u_bcs = ot.FieldBoundaryConditions(
+        west=ot.OpenBoundaryCondition(U0),
+        east=ot.OpenBoundaryCondition(U0, scheme=ot.PerturbationAdvection(
+            inflow_timescale=0.1)))
+    m = ot.NonhydrostaticModel(grid, advection=ot.Centered(2),
+                               boundary_conditions={"u": u_bcs},
+                               tracers=("c",))
+    m.set(u=U0, c=lambda x, y, z: np.exp(-(x - 1.0) ** 2 / 0.05))
+    for _ in range(10):
+        m.time_step(0.01)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data", "regression_open_boundary_radiation.npz")
+    worst = 0.0
+    with np.load(path) as ref:
+        for field in ref.files:
+            got = m.field(field).interior.cpu().numpy()
+            want = ref[field]
+            err = np.abs(got - want).max() / max(np.abs(want).max(), 1e-12)
+            assert err < 1e-9, ("open_boundary_radiation", field, err)
+            worst = max(worst, err)
+    print(f"  golden open_boundary_radiation on the card (float64, 10 steps): "
+          f"worst rel {worst:.3e} (bound 1e-9)")
+
+
+def cg_dt(model, cap=None, cfl=0.5):
+    """Δt at the advective CFL over every axis that is not flat (each
+    velocity component over its axis's smallest spacing), capped."""
+    dt = np.inf
+    for ax, c in enumerate("uvw"):
+        if model.grid.is_flat(ax):
+            continue
+        umax = model.field(c).interior.abs().max().item()
+        if umax > 0:
+            dt = min(dt, cfl * model.grid.minimum_spacing(ax) / umax)
+    return dt if cap is None else min(dt, cap)
+
+
+def cg_phase_shares(model, dt, steps, card, label):
+    """Per-step CUDA-event times of the step's phases: the CG solve (its
+    fills within it), the plain flux divergences, the fills outside the
+    solve, the open sides' mass balance and the rest (the other tendencies,
+    updates, masks, divergence and correction, host gaps)."""
+    import oceananigans_tpu_torch.models.nonhydrostatic as nh
+    timer = PhaseTimer()
+    saved = nh.fill_all_halo_regions
+    nh.fill_all_halo_regions = timer.wrap("fills", saved)
+    solver = model.pressure_solver
+    solver.solve = timer.wrap("solve", solver.solve)
+    model._advection = timer.wrap("advection", model._advection)
+    model._balance_open_mass = timer.wrap("balance", model._balance_open_mass)
+    model.time_step = timer.wrap("step", model.time_step)
+    try:
+        for _ in range(steps):
+            model.time_step(dt)
+        t = {k: v / steps for k, v in timer.totals().items()}
+    finally:
+        nh.fill_all_halo_regions = saved
+        del solver.solve, model._advection, model._balance_open_mass
+        del model.time_step
+    g = t.get
+    shares = {
+        "CG solve": g("solve", 0.0),
+        "plain flux divergences": g("advection", 0.0),
+        "fills (outside the solve)": g("fills", 0.0) - g("fills@solve", 0.0),
+        "mass balance": g("balance", 0.0),
+    }
+    shares["rest (other tendencies, updates, masks, divergence, correction, "
+           "host gaps)"] = t["step"] - sum(shares.values())
+    print(f"{label} step phases, ms per step over {steps} steps (CUDA "
+          f"events) [{card}]:")
+    for phase, ms in shares.items():
+        print(f"  {phase}: {ms:.4f} ms ({100 * ms / t['step']:.1f}%)")
+    print(f"    of the solve, the p fills: {g('fills@solve', 0.0):.4f} ms")
+    print(f"  step: {t['step']:.4f} ms")
+    return shares, t["step"]
+
+
+def fluid_divergence(label, model, bound_rel=1e-4, required=True):
+    """max|∇·u|·Δx/max|u| over the fluid cells of the model's state (the
+    periodic halos wrapped on copies; the boundary faces as the state holds
+    them), with its bound. ``required``: the bound is asserted; otherwise
+    (a float32 row whose CG, as JAX's, stops at maxiter above its
+    tolerance) whether it is met is printed beside the value, which must be
+    finite."""
+    from oceananigans_tpu_torch.kernels import periodic_halo_fill
+    from oceananigans_tpu_torch.models.nonhydrostatic import \
+        _interior_divergence
+    grid = model.grid
+    u, v, w = (model.state["fields"][c].clone() for c in "uvw")
+    periodic_halo_fill(grid, [u, v, w])
+    ints = grid.interior_slices
+    div = _interior_divergence(grid, u, v, w)
+    if hasattr(grid, "fluid_mask"):
+        div = div[grid.fluid_mask(("c", "c", "c")).bool()[ints]]
+    umax = max(a[ints].abs().max().item() for a in (u, v, w))
+    rel = div.abs().max().item() * grid.minimum_spacing(0) / umax
+    met = rel < bound_rel
+    print(f"  {label}: max|div u|·Δx/max|u| over the fluid cells after "
+          f"{model.iteration} steps: {rel:.3e} (bound {bound_rel:.0e}: "
+          f"{'met' if met else 'NOT met'}); max|u| {umax:.3e}")
+    assert np.isfinite(rel), (label, "divergence", rel)
+    if required:
+        assert met, (label, "divergence", rel)
+    return rel
+
+
+def open_boundary_flux(label, model):
+    """The net volume flux through the open x sides over the boundary flux
+    scale Σ|u·A| (float64 sums of the state's boundary faces), bound 1e-6."""
+    grid = model.grid
+    H, N = grid.H[0], grid.N[0]
+    u = model.state["fields"]["u"].double()
+    A = torch.as_tensor(grid.Ax(("f", "c", "c")), device=u.device).double()
+    A = A.broadcast_to(grid.padded_shape)
+    sl = list(grid.interior_slices)
+    west = sl.copy()
+    west[0] = slice(H, H + 1)
+    east = sl.copy()
+    east[0] = slice(H + N, H + N + 1)
+    qw = (u[tuple(west)] * A[tuple(west)])
+    qe = (u[tuple(east)] * A[tuple(east)])
+    net = (qw.sum() - qe.sum()).item()
+    scale = (qw.abs().sum() + qe.abs().sum()).item()
+    rel = abs(net) / scale
+    print(f"  {label}: net open-boundary volume flux {net:.4e} m³/s over the "
+          f"boundary flux scale {scale:.4e} m³/s: {rel:.3e} (bound 1e-6)")
+    assert rel < 1e-6, (label, "open-boundary flux", rel)
+    return rel
+
+
+def adaptive_steps(model, cap, warmup, timed):
+    """``warmup`` and ``timed`` steps, each of Δt = ``cg_dt`` (min(cap, CFL
+    0.5)) of the state it starts from, taken before its timer starts (a
+    wizard's rule: the rows' vertical velocities grow from their noise).
+    Returns (the timed steps' host-clock seconds, their Δt)."""
+    for _ in range(warmup):
+        model.time_step(cg_dt(model, cap))
+    torch.cuda.synchronize()
+    times, dts = [], []
+    for _ in range(timed):
+        dt = cg_dt(model, cap)
+        t0 = time.perf_counter()
+        model.time_step(dt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        dts.append(dt)
+    return times, dts
+
+
+def cg_row(card, label, model, cap=None):
+    """3 warm-up and ``CG_STEPS[1]`` timed steps of Δt = min(``cap``, CFL
+    0.5) (``adaptive_steps``) with the counters reset just before and read
+    just after: the fill kernel launches (with planes and perturbation
+    faces where the row has them), no plain version on CUDA tensors; CG
+    iterations per solve and host syncs per step; finite fields, the
+    divergence; step median, min and max, peak memory, the phase shares,
+    the busy share and device kernels per step. Returns (launches, step
+    median ms, the last Δt)."""
+    from oceananigans_tpu_torch import kernels as K
+    from oceananigans_tpu_torch.solvers.conjugate_gradient import \
+        conjugate_gradient as cg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_counters()
+    cg.iterations.clear()
+    cg.residuals.clear()
+    syncs0 = cg.syncs
+    warmup, timed = CG_STEPS
+    times, dts = adaptive_steps(model, cap, warmup, timed)
+    launches, plain = K.counters()
+    steps = warmup + timed
+    iters = list(cg.iterations)
+    syncs = (cg.syncs - syncs0) / steps
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label} launches over {steps} steps: "
+          f"{ {k: v for k, v in launches.items() if v} }; plain calls on "
+          f"CUDA: { {k: v for k, v in plain.items() if v} }")
+    for name, count in plain.items():
+        assert count == 0, f"plain {name} ran on CUDA tensors ({label})"
+    assert launches["fill_halos"] > 0, (label, "no fill launch")
+    assert len(iters) == 3 * steps, (label, len(iters))
+    res = list(cg.residuals)
+    print(f"{label}: CG iterations per solve over {len(iters)} solves: min "
+          f"{min(iters)}, median {statistics.median(iters)}, max "
+          f"{max(iters)} (maxiter {model.pressure_solver.maxiter}, reltol "
+          f"{model.pressure_solver.reltol}); final residual over |b| min "
+          f"{min(res):.3e}, median {statistics.median(res):.3e}, max "
+          f"{max(res):.3e}; host syncs per step {syncs:.1f}")
+    for name in model.prognostic_names:
+        assert torch.isfinite(model.field(name).interior).all().item(), \
+            (label, f"{name} is not finite")
+    # the bound holds where the CG reaches its tolerance; a float32 CG that
+    # stops at maxiter (as JAX's) leaves the divergence its residual allows
+    converged = max(iters) < model.pressure_solver.maxiter
+    div = fluid_divergence(label, model, required=converged)
+    step_ms = statistics.median(times) * 1e3
+    n = int(np.prod(model.grid.N))
+    print(f"{label}: step median {step_ms:.3f} ms over {timed} steps (min "
+          f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), Δt "
+          f"{min(dts):.4e}-{max(dts):.4e} s, "
+          f"{n / (step_ms / 1e3):.4e} cell-updates/s; peak device memory "
+          f"(steps) {peak / 2 ** 30:.2f} GiB [{card}]")
+    dt = cg_dt(model, cap)
+    cg_phase_shares(model, dt, 2, card, label)
+    busy_share(label, model, cg_dt(model, cap), 2, step_ms, card)
+    launches["divergence"] = div
+    return launches, step_ms, cg_dt(model, cap)
+
+
+def cg_witness(label, model, cap, steps=2, maxiter=WITNESS_MAXITER):
+    """``steps`` steps of a row's model (Δt = min(``cap``, CFL 0.5)) with
+    its CG as the row takes it, then one with ``maxiter``: each solve's
+    iterations and final residual over ‖b‖, and after each step
+    max|∇·u|·Δx/max|u| on the fluid and max|u|. Whether the CG reaches its
+    tolerance on the row's own right-hand side given the iterations (the
+    partial cells and the open sides' mass balance consistent) and where
+    the row's maxiter leaves it; after a step whose every solve converged
+    the divergence bound (1e-4) is asserted. Returns the divergence after
+    each step."""
+    from oceananigans_tpu_torch.solvers.conjugate_gradient import \
+        conjugate_gradient as cg
+    solver = model.pressure_solver
+    row_maxiter = solver.maxiter
+    out = []
+    try:
+        for k in range(steps + 1):
+            solver.maxiter = row_maxiter if k < steps else maxiter
+            cg.iterations.clear()
+            cg.residuals.clear()
+            t0 = time.perf_counter()
+            model.time_step(cg_dt(model, cap))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            iters, res = list(cg.iterations), list(cg.residuals)
+            print(f"  {label} step {model.iteration} (maxiter "
+                  f"{solver.maxiter}, reltol {solver.reltol}, {wall:.2f} s): "
+                  f"CG iterations {iters}, residual over |b| "
+                  + ", ".join(f"{r:.3e}" for r in res))
+            out.append(fluid_divergence(
+                f"{label} step {model.iteration}", model,
+                required=max(iters) < solver.maxiter))
+    finally:
+        solver.maxiter = row_maxiter
+    return out
+
+
+def profiled_kernel_ms(fn, name, calls=10):
+    """The median device duration of the launches of the kernels whose name
+    holds ``name`` over ``calls`` calls of ``fn`` (torch.profiler), or None
+    where the profiler shows no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ts = [(e.time_range.end - e.time_range.start) / 1e3
+          for e in prof.events()
+          if e.device_type == DeviceType.CUDA and name in e.name]
+    return statistics.median(ts) if ts else None
+
+
+# phase 28's kernel rows: (its row, the counter of its launches there)
+CG_ROWS = {"fill_halos_perturbation": ("D", "fill_halos_perturbation"),
+           "fill_halos_immersed": ("E", "fill_halos")}
+
+
+def cg_phase(card):
+    """Phase 28: the NonhydrostaticModel on immersed, multiply stretched and
+    curvilinear grids, with open and per-point conditions: the fill checks,
+    the small models against the CPU, the golden, rows D and E, and
+    witnesses of the rows' CG (``cg_witness``: row D's float32 state given
+    5000 iterations, each row's seeded state in float64 given
+    ``WITNESS_MAXITER``). Returns ({kernel row: measured}, {row:
+    launches})."""
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    print("the fill with planes and perturbation faces against its plain "
+          "version (bit for bit):")
+    open_fill_checks()
+    print("small models on the card against the CPU (float64, 3 steps, "
+          "solvers at reltol 1e-14, 1e-12):")
+    cg_model_checks()
+    open_radiation_golden()
+    torch.cuda.empty_cache()
+
+    nx, nz = SEAMOUNT_N
+    label = f"row D, tidal flow over a seamount {nx}x1x{nz}"
+    print(f"{label}:")
+    model = seamount_model(nx, nz, torch.float32, "cuda")
+    assert model.immersed and not model._kernel_tendency
+    solver = model.pressure_solver
+    print(f"  partial cells, PerturbationAdvection(60, ∞) on both x sides; "
+          f"solver immersed CG (maxiter {solver.maxiter}, reltol "
+          f"{solver.reltol}), preconditioner "
+          f"{'FFT/DCT' if solver.preconditioner else 'none'}")
+    launches["D"], step_d, dt = cg_row(card, label, model, SEAMOUNT_DT)
+    assert launches["D"]["fill_halos_perturbation"] > 0, "no PA fill launch"
+    assert launches["D"]["fill_halos_planes"] > 0, "no plane fill launch"
+    open_boundary_flux(label, model)
+    fields = dict(model.state["fields"])
+    names = ["u", "v", "w", "b"]
+    arrays = [fields[c].clone() for c in names]
+    lbs = model_locs_bcs(model, names)
+    t_d = model.time
+    ferr = fill_check(f"{label} u, v, w, b", model.grid, arrays, lbs,
+                      time_=t_d, dt=dt / 3)
+    out["fill_halos_perturbation"] = time_fill(
+        f"{label} u, v, w, b (planes, PA faces)", model.grid, arrays, lbs,
+        ferr, time_=t_d, dt=dt / 3)
+    # whether more iterations move the float32 solve off its residual
+    cg_witness("row D float32", model, SEAMOUNT_DT, steps=0, maxiter=5000)
+    del model, fields, arrays
+    torch.cuda.empty_cache()
+    print(f"{label}: the same seeded state in float64 (a witness of the "
+          f"row's solve):")
+    model = seamount_model(nx, nz, torch.float64, "cuda",
+                           smoothness=torch.float64)
+    cg_witness("row D float64", model, SEAMOUNT_DT, steps=1)
+    del model
+    torch.cuda.empty_cache()
+
+    label = f"row E, stratified flow over a hill {HILL_N}"
+    print(f"{label}:")
+    model = hill_model(HILL_N, torch.float32, "cuda")
+    solver = model.pressure_solver
+    print(f"  GridFittedBottom; solver immersed CG (maxiter "
+          f"{solver.maxiter}, reltol {solver.reltol}), preconditioner "
+          f"{'FFT/DCT' if solver.preconditioner else 'none'}")
+    launches["E"], step_e, dt = cg_row(card, label, model)
+    fields = dict(model.state["fields"])
+    names = ["u", "v", "w", "b"]
+    arrays = [fields[c].clone() for c in names] + [
+        model.state["pressure"].clone()]
+    lbs = model_locs_bcs(model, names) + [(("c", "c", "c"), model.bcs["p"])]
+    ferr = fill_check(f"{label} u, v, w, b, p", model.grid, arrays, lbs,
+                      time_=model.time, dt=dt / 3)
+    out["fill_halos_immersed"] = time_fill(
+        f"{label} u, v, w, b, p (wrap, bounded z)", model.grid, arrays, lbs,
+        ferr, time_=model.time, dt=dt / 3)
+    del model, fields, arrays
+    torch.cuda.empty_cache()
+    print(f"{label}: the same seeded state in float64 (a witness of the "
+          f"row's solve):")
+    model = hill_model(HILL_N, torch.float64, "cuda",
+                       smoothness=torch.float64)
+    cg_witness("row E float64", model, None, steps=1)
+    del model
+    torch.cuda.empty_cache()
+    print(f"phase 28 rows: D {step_d:.3f} ms, E {step_e:.3f} ms a step "
+          f"[{card}]")
+    print(f"phase 28 wall time {time.perf_counter() - t0:.1f} s [{card}]")
+    return out, launches
+
+
 def main():
     t_start = time.perf_counter()
     name, card = device_phase()
@@ -6893,6 +7633,9 @@ def main():
     print("the nonhydrostatic model on every topology and one stretched axis "
           "(phase 27):")
     topo_rows, topo_launches = topology_phase(card)
+    print("the nonhydrostatic model on immersed, multiply stretched and "
+          "curvilinear grids with open and per-point conditions (phase 28):")
+    cg_rows, cg_launches = cg_phase(card)
     bounds["fused_advection_update_bf16"] = \
         bounds["fused_advection_update_tracers"]
     for fname in ("fill_halos", "fill_halos_bounded", "fill_halos_fold",
@@ -6973,6 +7716,17 @@ def main():
                          plain_ms=m["plain_ms"], bound_ms=m["bound"][0],
                          bound_by=m["bound"][1],
                          library_ms=m.get("library_ms")))
+    # phase 28's rows: the fill with planes and perturbation faces on row D
+    # (its launches with a PA face), and on row E's immersed hill
+    for kname, (row, counter) in CG_ROWS.items():
+        m = cg_rows[kname]
+        source, replaces = KERNEL_SOURCES["fill_halos_bounded"]
+        rows.append(dict(name=kname, route="cuda", source=source,
+                         replaces=replaces,
+                         launches=cg_launches[row][counter],
+                         max_abs_err=m["max_abs_err"], ms=m["ms"],
+                         plain_ms=m["plain_ms"], bound_ms=m["bound"][0],
+                         bound_by=m["bound"][1], library_ms=None))
     for fname, label, path_launches in (
             ("fill_halos", "the flagship path (u, v, w, p of 264x264x256, "
              "the wrap)", flagship_launches),

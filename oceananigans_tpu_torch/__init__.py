@@ -83,6 +83,8 @@ from .boundary_conditions import (FieldBoundaryConditions,
                                   FluxBoundaryCondition,
                                   GradientBoundaryCondition,
                                   ImmersedBoundaryCondition,
+                                  OpenBoundaryCondition,
+                                  PerturbationAdvection,
                                   ValueBoundaryCondition)
 from .background_fields import BackgroundField
 from .buoyancy import (BuoyancyForce, BuoyancyTracer, LinearEquationOfState,
@@ -176,7 +178,8 @@ __all__ = ["defaults", "RectilinearGrid", "LatitudeLongitudeGrid",
            "ConvectiveAdjustmentVerticalDiffusivity", "TwoDimensionalLeith",
            "CenterField", "XFaceField", "YFaceField", "ZFaceField",
            "VelocityFields", "TracerFields", "FieldTimeSeriesForcing",
-           "FieldTimeSeriesBoundaryCondition", "Simulation", "Callback",
+           "FieldTimeSeriesBoundaryCondition", "OpenBoundaryCondition",
+           "PerturbationAdvection", "Simulation", "Callback",
            "NaNChecker", "TimeStepCallsite", "TendencyCallsite",
            "UpdateStateCallsite", "CFL", "AdvectiveCFL", "DiffusiveCFL",
            "StateChecker", "TimeStepWizard", "conjure_time_step_wizard",

@@ -3,7 +3,8 @@ from .boundary_condition import (
     PeriodicBoundaryCondition,
     FluxBoundaryCondition, ValueBoundaryCondition, GradientBoundaryCondition,
     FieldTimeSeriesBoundaryCondition,
-    ImpenetrableBoundaryCondition, regularize_field_boundary_conditions,
+    ImpenetrableBoundaryCondition, OpenBoundaryCondition,
+    PerturbationAdvection, regularize_field_boundary_conditions,
     default_bcs, PolarBoundaryCondition, PolarValue,
     ZipperBoundaryCondition,
 )
@@ -17,7 +18,8 @@ __all__ = [
     "PeriodicBoundaryCondition", "FluxBoundaryCondition",
     "ValueBoundaryCondition", "GradientBoundaryCondition",
     "FieldTimeSeriesBoundaryCondition",
-    "ImpenetrableBoundaryCondition", "regularize_field_boundary_conditions",
+    "ImpenetrableBoundaryCondition", "OpenBoundaryCondition",
+    "PerturbationAdvection", "regularize_field_boundary_conditions",
     "default_bcs", "PolarBoundaryCondition", "PolarValue",
     "ZipperBoundaryCondition", "apply_flux_bcs", "apply_flux_bcs_padded",
     "fill_all_halo_regions", "fill_halo_regions",

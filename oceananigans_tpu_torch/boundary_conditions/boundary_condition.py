@@ -4,22 +4,26 @@ Counterpart of ``oceananigans_tpu/boundary_conditions/boundary_condition.py``.
 A field's conditions default from its grid's topology: periodic on periodic
 sides, impenetrable (Open, value 0) for a wall-normal velocity on a bounded
 side, no-flux for everything else on a bounded side. On any bounded side the
-user may set ``ValueBoundaryCondition``, ``GradientBoundaryCondition`` or
-``FluxBoundaryCondition`` with a scalar (or no) condition. On the z sides a
-``FluxBoundaryCondition`` may also take a callable ``f(ξ1, ξ2, t, *values)``
-of the two transverse coordinates (broadcastable tensors of the grid's dtype
-and device at the field's location), the time (a Python float) and, with
-``field_dependencies``, the named fields' boundary-cell values at the field's
-location, or a ``FieldTimeSeriesBoundaryCondition``: a saved series of the
-boundary plane's interior, interpolated in time and padded over the halo
-ring by topology (wrapped on a periodic axis, its edge repeated on a bounded
-one), as the JAX condition is. The ``immersed`` slot of
-``FieldBoundaryConditions`` holds an
-``ImmersedBoundaryCondition`` (or one condition for every side) of Flux,
-Value or Gradient conditions applied where a fluid cell touches the solid of
-an immersed grid. Array conditions, callable or FieldTimeSeries conditions
-on the x and y sides or of another classification, and Open conditions with
-a value are not ported yet and raise.
+user may set ``ValueBoundaryCondition``, ``GradientBoundaryCondition``,
+``FluxBoundaryCondition`` or ``OpenBoundaryCondition`` (optionally with the
+``PerturbationAdvection`` scheme) with a condition that is None, a scalar,
+an array over the boundary plane's interior (``(N1, N2)``, the two
+transverse axes in order, padded over the halos by topology: wrapped along a
+periodic axis, its edge repeated along the others) or broadcastable against
+the padded plane, or a callable ``f(ξ1, ξ2, t)`` of the two transverse
+padded coordinates (broadcastable tensors of the grid's dtype and device at
+the field's location) and the time (a Python float). A callable Flux
+condition may name ``field_dependencies``: the named fields' boundary-cell
+values at the field's location follow as trailing arguments. A
+``FieldTimeSeriesBoundaryCondition`` (a saved series of a z-normal boundary
+plane's interior, interpolated in time and padded over the halo ring by
+topology, as the JAX condition is) takes any classification on a z side;
+the JAX condition pads its snapshots as z-normal planes, so the port refuses
+it on an x or y side. The ``immersed`` slot of ``FieldBoundaryConditions``
+holds an ``ImmersedBoundaryCondition`` (or one condition for every side) of
+Flux, Value or Gradient conditions applied where a fluid cell touches the
+solid of an immersed grid; its conditions are scalars (callable immersed
+conditions are not ported: ROADMAP item 3).
 
 Two conditions come from the grid, not the user, on a side the user leaves
 empty: the tripolar fold (``ZIPPER``, ``ZipperBoundaryCondition``) on the
@@ -69,18 +73,57 @@ class PolarValue:
         return f"PolarValue({self.side!r})"
 
 
-class BoundaryCondition:
-    __slots__ = ("classification", "condition", "field_dependencies")
+class PerturbationAdvection:
+    """The open-boundary scheme of the wall-normal velocity: a
+    backward-Euler upwind step of the boundary face toward the exterior
+    value, relaxed with the inflow and outflow timescales (0 pins the face
+    to the exterior value, ∞ does not relax)."""
 
-    def __init__(self, classification, condition=None, field_dependencies=()):
+    __slots__ = ("inflow_timescale", "outflow_timescale")
+
+    def __init__(self, inflow_timescale=0.0, outflow_timescale=np.inf):
+        self.inflow_timescale = float(inflow_timescale)
+        self.outflow_timescale = float(outflow_timescale)
+
+    def _fp(self):
+        return ("PerturbationAdvection", self.inflow_timescale,
+                self.outflow_timescale)
+
+    def __repr__(self):
+        return (f"PerturbationAdvection({self.inflow_timescale}, "
+                f"{self.outflow_timescale})")
+
+
+def _condition_fp(c):
+    """A hashable fingerprint of a condition: the value of a scalar or
+    None, the bytes of an array, the identity of a callable."""
+    if c is None or isinstance(c, (int, float, np.number)):
+        return c
+    if hasattr(c, "_fp"):
+        return c._fp()
+    if callable(c) or hasattr(c, "evaluate_padded"):
+        return ("identity", id(c))
+    a = np.asarray(c.detach().cpu() if hasattr(c, "detach") else c)
+    return ("array", a.shape, a.dtype.str, a.tobytes())
+
+
+class BoundaryCondition:
+    __slots__ = ("classification", "condition", "scheme",
+                 "field_dependencies")
+
+    def __init__(self, classification, condition=None, scheme=None,
+                 field_dependencies=()):
         self.classification = classification
         self.condition = condition
+        self.scheme = scheme
         if isinstance(field_dependencies, str):
             field_dependencies = (field_dependencies,)
         self.field_dependencies = tuple(field_dependencies)
 
     def _fp(self):
-        return (self.classification, self.condition, self.field_dependencies)
+        return (self.classification, _condition_fp(self.condition),
+                None if self.scheme is None else self.scheme._fp(),
+                self.field_dependencies)
 
     def __hash__(self):
         return hash(self._fp())
@@ -111,6 +154,14 @@ def ValueBoundaryCondition(condition=None):
 
 def GradientBoundaryCondition(condition=None):
     return BoundaryCondition(GRADIENT, condition)
+
+
+def OpenBoundaryCondition(condition=None, scheme=None):
+    """Open (cross-boundary flow) condition: a wall-normal velocity's
+    boundary face takes ``condition`` (the exterior value);
+    ``scheme=PerturbationAdvection(...)`` steps it toward that value
+    instead, where the fill is given the stage's Δt."""
+    return BoundaryCondition(OPEN, condition, scheme)
 
 
 def ImpenetrableBoundaryCondition():
@@ -238,6 +289,14 @@ def default_bcs(grid, loc):
         for side, (axis, _) in SIDE_AXIS.items()})
 
 
+def is_plane_condition(cond):
+    """True for a condition that varies over the boundary plane or in time
+    (an array, a callable, a FieldTimeSeries condition); False for None and
+    scalars (and the grid's fold and polar conditions)."""
+    return not (cond is None or isinstance(cond, (int, float, np.number,
+                                                  PolarValue)))
+
+
 def _check_user_bc(bc, side, axis, grid):
     """Raise unless ``bc`` is a condition the port takes on this side."""
     topo = grid.topology[axis]
@@ -252,27 +311,24 @@ def _check_user_bc(bc, side, axis, grid):
         return
     if topo == FLAT:
         raise ValueError(f"cannot set a BC on {side} of a flat direction")
-    cond = bc.condition
-    z_flux_function = ((callable(cond) or hasattr(cond, "evaluate_padded"))
-                       and axis == 2 and bc.classification == FLUX)
-    if cond is not None and not z_flux_function and (
-            callable(cond) or not np.isscalar(cond)):
-        raise NotImplementedError(
-            f"{side} {bc.classification} BC with a non-scalar condition "
-            f"{cond!r}: only scalar conditions, and callable or "
-            f"FieldTimeSeries Flux conditions on the z sides, are ported: "
-            f"{USER_BCS_ITEM}")
-    if bc.field_dependencies and not z_flux_function:
-        raise NotImplementedError(
-            f"{side} {bc.classification} BC with field dependencies: only a "
-            f"callable Flux condition on a z side takes them: "
-            f"{USER_BCS_ITEM}")
-    if bc.classification == OPEN and cond is not None:
-        raise NotImplementedError(
-            f"{side} Open BC with a value: only the impenetrable (None) Open "
-            f"condition is ported: {USER_BCS_ITEM}")
     if bc.classification not in (FLUX, VALUE, GRADIENT, OPEN):
         raise ValueError(f"unknown classification {bc.classification!r}")
+    cond = bc.condition
+    if hasattr(cond, "evaluate_padded") and axis != 2:
+        raise NotImplementedError(
+            f"{side} FieldTimeSeries condition: the JAX condition pads its "
+            "snapshots as z-normal planes (its evaluate_padded), so it "
+            f"takes the bottom and top sides only: {USER_BCS_ITEM}")
+    if bc.field_dependencies and bc.classification != FLUX:
+        raise ValueError(
+            f"{side} {bc.classification} BC with field dependencies: only a "
+            "Flux condition takes them (the fill evaluates conditions "
+            "without the model state; a scalar ignores them)")
+    if bc.scheme is not None and (
+            bc.classification != OPEN
+            or not isinstance(bc.scheme, PerturbationAdvection)):
+        raise ValueError(f"{side}: a scheme belongs to an Open condition "
+                         "and must be PerturbationAdvection")
 
 
 def regularize_field_boundary_conditions(bcs, grid, loc):

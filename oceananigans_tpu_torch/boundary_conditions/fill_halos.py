@@ -8,12 +8,17 @@ of fields on the card, filling every axis (a periodic wrap; on a bounded
 axis ``_fill_axis``: center fields mirror the interior under Flux/Open and
 extrapolate linearly from the boundary cell under Value/Gradient, the
 wall-normal face field is pinned at the boundary face under Open/Value and
-reflected about it), and its plain version on the CPU. A bounded z with no
-halo (``H[2] == 0``, the z-compact layout) has its boundary values applied
-inside the stencil reads instead. ``apply_flux_bcs`` (interior-shaped
-tendencies) and ``apply_flux_bcs_padded`` (padded tendencies) add the
-boundary-flux divergence of Flux conditions (scalars, or callables of the
-transverse coordinates, the time and field dependencies on the z sides) to
+reflected about it, or, given the stage's Δt, stepped by its
+PerturbationAdvection scheme with its halo set to the face), and its plain
+version on the CPU. Conditions are evaluated at the fill's time
+(``boundary_condition_value``, JAX's ``eval_bc``): scalars, arrays of the
+boundary plane's interior padded by topology, callables of the padded
+transverse coordinates and the time, FieldTimeSeries planes. A bounded z
+with no halo (``H[2] == 0``, the z-compact layout) has its boundary values
+applied inside the stencil reads instead. ``apply_flux_bcs``
+(interior-shaped tendencies, or a given padded region) and
+``apply_flux_bcs_padded`` (padded tendencies) add the boundary-flux
+divergence of Flux conditions (with field dependencies for callables) to
 a tendency; ``apply_immersed_flux_bcs`` adds the conditions of an immersed
 grid's ``immersed`` slot.
 
@@ -25,7 +30,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..grids.topology import BOUNDED, CENTER, FACE
+from ..grids.topology import BOUNDED, CENTER, FACE, PERIODIC
 from ..operators.operators import interp_to
 from .boundary_condition import FLUX, SIDE_AXIS, USER_BCS_ITEM
 
@@ -37,23 +42,25 @@ def _check_conditions(arrays, grid, locs_bcs, axes):
                          "and boundary conditions")
 
 
-def fill_all_halo_regions(arrays, grid, locs_bcs=None):
+def fill_all_halo_regions(arrays, grid, locs_bcs=None, time=0.0, dt=None):
     """Refresh the halos of several padded tensors of one shape on one
     grid, in place: one fill launch for all of them, every axis.
     ``locs_bcs`` gives each tensor's (location, boundary conditions); it is
-    needed when the grid has a bounded x or y or a z halo."""
+    needed when the grid has a bounded x or y or a z halo. Conditions are
+    evaluated at ``time``; ``dt`` (the stage's Δt) activates the
+    PerturbationAdvection faces."""
     from ..kernels.halo_fill import fill_halos
     arrays = list(arrays)
     _check_conditions(arrays, grid, locs_bcs, (0, 1, 2))
-    return fill_halos(grid, arrays, locs_bcs)
+    return fill_halos(grid, arrays, locs_bcs, time=time, dt=dt)
 
 
-def fill_halo_regions(a, grid, loc, bcs):
+def fill_halo_regions(a, grid, loc, bcs, time=0.0, dt=None):
     """Refresh all halos of one padded tensor in place; returns it."""
-    return fill_all_halo_regions([a], grid, [(loc, bcs)])[0]
+    return fill_all_halo_regions([a], grid, [(loc, bcs)], time, dt)[0]
 
 
-def fill_surface_halo_regions(arrays, grid, locs_bcs):
+def fill_surface_halo_regions(arrays, grid, locs_bcs, time=0.0):
     """Refresh the x and y halos of padded tensors of one shape (2-D
     surface fields (Nx + 2Hx, Ny + 2Hy, 1), or 3-D ones over their full z)
     in place, one fill launch for all of them (the JAX
@@ -61,7 +68,7 @@ def fill_surface_halo_regions(arrays, grid, locs_bcs):
     from ..kernels.halo_fill import fill_halos
     arrays = list(arrays)
     _check_conditions(arrays, grid, locs_bcs, (0, 1))
-    return fill_halos(grid, arrays, locs_bcs, z=False)
+    return fill_halos(grid, arrays, locs_bcs, z=False, time=time)
 
 
 def _transverse_coordinates(grid, loc, axis):
@@ -79,21 +86,67 @@ def _transverse_coordinates(grid, loc, axis):
             for ax in range(3) if ax != axis]
 
 
-def boundary_flux(bc, grid, loc, axis, is_left, time=0.0, fields=None,
-                  locs=None):
-    """The value of a Flux condition on one side: a scalar, a
-    FieldTimeSeries condition's padded plane at the time, or a callable
-    evaluated on the padded transverse coordinates at ``loc`` with the time
-    and the dependencies' boundary-cell planes (each interpolated to
-    ``loc``, then cut at the boundary cell, as the JAX ``apply_flux_bcs``
-    does). None for a homogeneous condition."""
+_array_planes = {}    # (id(grid), id(condition), axis) -> (condition, tensor)
+
+
+def _array_plane(grid, cond, axis):
+    """An array condition as a tensor broadcastable against the padded
+    boundary plane of ``axis`` (1 along it), in the grid's dtype on its
+    device, as the JAX ``eval_bc`` forms it: an array of the plane's
+    interior (N1, N2) is padded over the transverse halos, wrapped along a
+    periodic axis and its edge repeated along the others; any other array
+    is taken as it is. Cached per grid, condition and axis."""
+    import torch
+    key = (id(grid), id(cond), axis)
+    hit = _array_planes.get(key)
+    if hit is not None and hit[0] is cond:
+        return hit[1]
+    arr = np.asarray(cond.detach().cpu() if hasattr(cond, "detach")
+                     else cond, dtype=np.float64)
+    t_axes = [ax for ax in range(3) if ax != axis]
+    if arr.shape == tuple(grid.N[ax] for ax in t_axes):
+        for d, ax in enumerate(t_axes):
+            pad = [(0, 0), (0, 0)]
+            pad[d] = (grid.H[ax], grid.H[ax])
+            arr = np.pad(arr, pad, mode="wrap" if grid.topology[ax] == PERIODIC
+                         else "edge")
+    out = torch.as_tensor(np.ascontiguousarray(np.expand_dims(arr, axis)),
+                          dtype=grid.dtype, device=grid.device)
+    if hit is None:
+        import weakref
+        weakref.finalize(grid, _array_planes.pop, key, None)
+    _array_planes[key] = (cond, out)
+    return out
+
+
+def boundary_condition_value(bc, grid, loc, axis, time=0.0, dep_values=()):
+    """A side's condition at ``time`` (JAX ``eval_bc``): None for a
+    homogeneous condition, a float for a scalar, else a tensor
+    broadcastable against the padded boundary plane (1 along ``axis``): a
+    FieldTimeSeries condition's padded plane, an array's (``_array_plane``),
+    or a callable evaluated on the padded transverse coordinates at
+    ``loc``, the time and ``dep_values``."""
     cond = bc.condition
+    if cond is None:
+        return None
+    if isinstance(cond, (int, float, np.number)):
+        return float(cond)
     if hasattr(cond, "evaluate_padded"):
         return cond.evaluate_padded(grid, time)
-    if cond is None or not callable(cond):
-        return None if cond is None else float(cond)
+    if callable(cond):
+        return cond(*_transverse_coordinates(grid, loc, axis), float(time),
+                    *dep_values)
+    return _array_plane(grid, cond, axis)
+
+
+def boundary_flux(bc, grid, loc, axis, is_left, time=0.0, fields=None,
+                  locs=None):
+    """The value of a Flux condition on one side (``boundary_condition_value``)
+    with, for a callable, the dependencies' boundary-cell planes (each
+    interpolated to ``loc``, then cut at the boundary cell, as the JAX
+    ``apply_flux_bcs`` does). None for a homogeneous condition."""
     deps = ()
-    if bc.field_dependencies:
+    if bc.field_dependencies and callable(bc.condition):
         if fields is None:
             raise ValueError("a flux BC with field_dependencies needs the "
                              "model state; this path did not supply it")
@@ -107,8 +160,7 @@ def boundary_flux(bc, grid, loc, axis, is_left, time=0.0, fields=None,
                 a = interp_to(grid, a, tuple(src), tuple(loc))
             vals.append(a.narrow(axis, cell, 1))
         deps = tuple(vals)
-    return cond(*_transverse_coordinates(grid, loc, axis), float(time),
-                *deps)
+    return boundary_condition_value(bc, grid, loc, axis, time, deps)
 
 
 def _boundary_slice(metric, axis, i):
@@ -143,26 +195,31 @@ def _flux_increments(grid, loc, bcs, time, fields, locs):
         yield axis, is_left, sgn * q * AoV
 
 
-def apply_flux_bcs(G, grid, loc, bcs, time=0.0, fields=None, locs=None):
-    """Add boundary-flux divergences to an interior-shaped tendency, in place
-    (``G[first] += q·A/V`` on west/south/bottom, ``G[last] -= q·A/V`` on
-    east/north/top, for Flux conditions); returns G. The increments are
-    formed on the padded plane (``apply_flux_bcs_padded``) and cut to the
-    interior."""
+def apply_flux_bcs(G, grid, loc, bcs, time=0.0, fields=None, locs=None,
+                   region=None):
+    """Add boundary-flux divergences to a tendency over the padded
+    ``region`` (slices; the interior by default), in place (``G[first] +=
+    q·A/V`` on west/south/bottom, ``G[last] -= q·A/V`` on east/north/top,
+    for Flux conditions); returns G. The increments are formed on the
+    padded plane (``apply_flux_bcs_padded``) and cut to the region."""
+    region = grid.interior_slices if region is None else region
     for axis, is_left, inc in _flux_increments(grid, loc, bcs, time, fields,
                                                locs):
         if not isinstance(inc, (int, float)):
-            inc = _cut_transverse(grid, inc, axis)
-        G.narrow(axis, 0 if is_left else grid.N[axis] - 1, 1).add_(inc)
+            inc = _cut_transverse(inc, axis, region)
+        H, N = grid.H[axis], grid.N[axis]
+        cell = (H if is_left else H + N - 1) - region[axis].start
+        G.narrow(axis, cell, 1).add_(inc)
     return G
 
 
-def _cut_transverse(grid, a, axis):
-    """The interior of a padded boundary-plane tensor along the two axes
+def _cut_transverse(a, axis, region):
+    """A padded boundary-plane tensor cut to ``region`` along the two axes
     transverse to ``axis`` (axes of length 1 pass)."""
     for ax in range(3):
         if ax != axis and a.shape[ax] > 1:
-            a = a.narrow(ax, grid.H[ax], grid.N[ax])
+            a = a[tuple(region[ax] if d == ax else slice(None)
+                        for d in range(3))]
     return a
 
 

@@ -47,6 +47,20 @@
 // zonal mean of the boundary row, which the wrapper computes beforehand into
 // a (field, side, z) table; a slot takes the mean at its z source.
 //
+// Planes: a side's value may vary over the boundary plane (array, callable
+// and FieldTimeSeries conditions, evaluated per call by the wrapper over the
+// padded transverse extents). kValue, kGradient and kPinned then read the
+// plane in place of the scalar, at the slot's position in the sequential
+// fill: an x side at the slot's y and z sources (the x fill ran over every
+// y and z, and the y and z fills read from those sources), a y side at the
+// slot's x and its z source, a z side at the slot's x and y. kPerturbation
+// (PerturbationAdvection under a fill given the stage's dt) pins the
+// boundary face and every halo slot beyond it to its plane, the face value
+// that the wrapper computes before the launch from the face, the face
+// inside it and the exterior value (the kernel cannot: that face is a slot
+// other blocks write). The planes of a launch are one buffer; each field's
+// side holds its offset there, or -1.
+//
 // Work: per field, the columns (i, j) outside the unwritten x/y box are
 // written whole, along z, from their source column: a group of threads per
 // column (a warp for a long column, one thread for a 2-D field), 16-byte
@@ -88,7 +102,8 @@ constexpr int kFold = 7;      // tripolar north fold, field centred in y
 constexpr int kFoldFace = 8;  // tripolar north fold, y-face field
 constexpr int kPolarValue = 9;    // polar cap, center field
 constexpr int kPolarPinned = 10;  // polar cap, face field
-constexpr int kLastCode = kPolarPinned;
+constexpr int kPerturbation = 11; // face field, PerturbationAdvection: face and halo take the plane
+constexpr int kLastCode = kPerturbation;
 
 // What a map does to the value it reads.
 constexpr int kCopy = 0, kPin = 1, kOdd = 2, kValueLo = 3, kValueHi = 4,
@@ -107,7 +122,9 @@ struct Field {
   signed char code[3][2];     // per axis: low side, high side
   signed char face_x;         // an x-face field (the fold's x reversal)
   signed char polar;          // a polar cap on a y side
+  signed char planes_xy;      // a plane on an x or y side
   double v[3][2];             // scalar conditions (0 for none); a fold's sign
+  int plane[3][2];            // offsets of the sides' planes in the buffer, or -1
   int whole_blocks, end_blocks;
 };
 
@@ -115,6 +132,7 @@ struct Params {
   Axis ax[3];
   Field f[kMaxFields];
   const void* means;          // polar caps: [field][side][z] zonal means
+  const void* planes;         // the planes of the launch's fields
   int nf, elem_size;
   int whole_shift, end_shift;  // log2 of the threads per column
   int blocks;                  // gridDim.x
@@ -130,7 +148,7 @@ __host__ __device__ __forceinline__ void kept(const Axis& a, const signed char* 
     hi = a.P;
     return;
   }
-  lo = a.H + (c[0] == kPinned || c[0] == kPolarPinned);
+  lo = a.H + (c[0] == kPinned || c[0] == kPolarPinned || c[0] == kPerturbation);
   hi = a.H + a.N + (c[1] == kReflect) - (c[1] == kFold);
 }
 
@@ -139,6 +157,7 @@ struct Map {
   int src, op;
   T v, half, dist;
   int polar;  // -1, or the side (0 low, 1 high) whose zonal mean v takes
+  int plane;  // -1, or the offset of the plane v takes
 };
 
 template <typename T>
@@ -146,17 +165,20 @@ __host__ __device__ __forceinline__ Map<T> mk(int src, int op, T v, T half, T di
                                               int polar = -1) {
   Map<T> m;
   m.src = src; m.op = op; m.v = v; m.half = half; m.dist = dist; m.polar = polar;
+  m.plane = -1;
   return m;
 }
 
 template <typename T>
-__host__ __device__ __forceinline__ Map<T> side_map(const Axis& a, const signed char* c,
-                                                    const double* v, int lo, int hi,
-                                                    int n) {
+__host__ __device__ __forceinline__ Map<T> side_map_scalar(const Axis& a,
+                                                           const signed char* c,
+                                                           const double* v, int lo,
+                                                           int hi, int n) {
   if (n >= lo && n < hi) return mk<T>(n, kCopy, T(0), T(1), T(0));
   const int H = a.H, E = a.H + a.N;  // E: the first slot past the interior
   if (n < lo) {
     switch (c[0]) {
+      case kPerturbation: return mk<T>(n, kPin, T(0), T(1), T(0));
       case kWrap: return mk<T>(n + a.N, kCopy, T(0), T(1), T(0));
       case kMirror: return mk<T>(2 * H - 1 - n, kCopy, T(0), T(1), T(0));
       case kValue: return mk<T>(H, kValueLo, (T)v[0], (T)a.half[0], (T)a.dist[0][n]);
@@ -173,6 +195,7 @@ __host__ __device__ __forceinline__ Map<T> side_map(const Axis& a, const signed 
     }
   }
   switch (c[1]) {
+    case kPerturbation: return mk<T>(n, kPin, T(0), T(1), T(0));
     case kWrap: return mk<T>(n - a.N, kCopy, T(0), T(1), T(0));
     case kMirror: return mk<T>(2 * E - 1 - n, kCopy, T(0), T(1), T(0));
     case kValue:
@@ -195,14 +218,28 @@ __host__ __device__ __forceinline__ Map<T> side_map(const Axis& a, const signed 
   }
 }
 
+// The side's map with the offset of the side's plane, where it reads one
+// (kValue, kGradient, kPinned with a plane condition; kPerturbation).
+template <typename T>
+__host__ __device__ __forceinline__ Map<T> side_map(const Axis& a, const signed char* c,
+                                                    const double* v, const int* pl,
+                                                    int lo, int hi, int n) {
+  Map<T> m = side_map_scalar<T>(a, c, v, lo, hi, n);
+  if (m.op != kCopy && m.op != kFoldRow && m.op != kSubstRow && m.polar < 0) {
+    const int s = n < lo ? 0 : 1;
+    if (pl[s] >= 0) m.plane = pl[s];
+  }
+  return m;
+}
+
 // The map of slot n along an axis: its side's map, or the identity where
 // that reads a slot the axis writes (a bounded axis narrower than its halo
 // needs; the fold's substituted row reads its own slots through the x fold).
 template <typename T>
 __host__ __device__ __forceinline__ Map<T> map_at(const Axis& a, const signed char* c,
-                                                  const double* v, int lo, int hi,
-                                                  int n) {
-  const Map<T> m = side_map<T>(a, c, v, lo, hi, n);
+                                                  const double* v, const int* pl,
+                                                  int lo, int hi, int n) {
+  const Map<T> m = side_map<T>(a, c, v, pl, lo, hi, n);
   if (m.op != kPin && m.op != kSubstRow && (m.src < lo || m.src >= hi))
     return mk<T>(n, kCopy, T(0), T(1), T(0));
   return m;
@@ -215,6 +252,17 @@ __device__ __forceinline__ Map<T> with_mean(Map<T> m, const T* means, int kz, in
   if (m.polar >= 0) {
     const T mean = means[m.polar * PZ + kz];
     m.v = m.op == kOdd ? T(2) * mean : mean;
+  }
+  return m;
+}
+
+// A plane map takes its value from the plane at index `at` of its transverse
+// extents (twice it for the odd reflection, as 2v - r).
+template <typename T>
+__device__ __forceinline__ Map<T> with_plane(Map<T> m, const T* planes, int at) {
+  if (m.plane >= 0) {
+    const T v = planes[m.plane + at];
+    m.v = m.op == kOdd ? T(2) * v : v;
   }
   return m;
 }
@@ -299,6 +347,7 @@ __global__ void __launch_bounds__(kThreads) fill_halos_kernel(const __grid_const
   kept(Y, f.code[1], ylo, yhi);
   kept(Z, f.code[2], zlo, zhi);
   const int PY = Y.P, PZ = Z.P, nxk = xhi - xlo, nyk = yhi - ylo;
+  const T* planes = (const T*)P.planes;
   int b = blockIdx.x;
   if (b < f.whole_blocks) {
     // a whole column: a group of W lanes, each lane its chunks lane,
@@ -309,8 +358,8 @@ __global__ void __launch_bounds__(kThreads) fill_halos_kernel(const __grid_const
     if (!whole_column(b * (kThreads >> shift) + (threadIdx.x >> shift), X.P, PY,
                       xlo, xhi, ylo, yhi, i, j))
       return;
-    const Map<T> mx = map_at<T>(X, f.code[0], f.v[0], xlo, xhi, i);
-    Map<T> my = map_at<T>(Y, f.code[1], f.v[1], ylo, yhi, j);
+    const Map<T> mx = map_at<T>(X, f.code[0], f.v[0], f.plane[0], xlo, xhi, i);
+    Map<T> my = map_at<T>(Y, f.code[1], f.v[1], f.plane[1], ylo, yhi, j);
     int sx = mx.src;
     T s = T(1);
     const bool fold = my.op == kFoldRow ||
@@ -329,7 +378,9 @@ __global__ void __launch_bounds__(kThreads) fill_halos_kernel(const __grid_const
         for (int k = 0; k < PZ; ++k) {
           const bool inner = k >= zlo && k < zhi;
           if (inner != (pass == 1) || (inner && !fold)) continue;
-          const Map<T> mz = map_at<T>(Z, f.code[2], f.v[2], zlo, zhi, k);
+          const Map<T> mz = with_plane(
+              map_at<T>(Z, f.code[2], f.v[2], f.plane[2], zlo, zhi, k), planes,
+              i * PY + j);
           const T r = mz.op == kPin ? T(0) : src[mz.src] * s;
           dst[k] = apply(mz, r);
         }
@@ -337,7 +388,8 @@ __global__ void __launch_bounds__(kThreads) fill_halos_kernel(const __grid_const
     }
     for (int q = threadIdx.x & (W - 1); q < PZ / V; q += W) {
       const int k0 = q * V;
-      if (V > 1 && !pinned && !f.polar && k0 >= zlo && k0 + V <= zhi) {
+      if (V > 1 && !pinned && !f.polar && !f.planes_xy && k0 >= zlo &&
+          k0 + V <= zhi) {
         VT val = *reinterpret_cast<const VT*>(src + k0);
         T* e = reinterpret_cast<T*>(&val);
 #pragma unroll
@@ -348,11 +400,15 @@ __global__ void __launch_bounds__(kThreads) fill_halos_kernel(const __grid_const
       }
 #pragma unroll
       for (int v = 0; v < V; ++v) {
-        const Map<T> mz = map_at<T>(Z, f.code[2], f.v[2], zlo, zhi, k0 + v);
-        const Map<T> myk = with_mean(my, means, mz.src, PZ);
+        const Map<T> mz = with_plane(
+            map_at<T>(Z, f.code[2], f.v[2], f.plane[2], zlo, zhi, k0 + v), planes,
+            i * PY + j);
+        const Map<T> myk = with_plane(with_mean(my, means, mz.src, PZ), planes,
+                                      i * PZ + mz.src);
+        const Map<T> mxk = with_plane(mx, planes, my.src * PZ + mz.src);
         T r = pinned || mz.op == kPin ? T(0) : src[mz.src];
         if (fold) r = r * s;
-        dst[k0 + v] = apply(mz, apply(myk, apply(mx, r)));
+        dst[k0 + v] = apply(mz, apply(myk, apply(mxk, r)));
       }
     }
     return;
@@ -366,7 +422,7 @@ __global__ void __launch_bounds__(kThreads) fill_halos_kernel(const __grid_const
   const int t = threadIdx.x & ((1 << shift) - 1);
   if (t >= zlo + PZ - zhi) return;
   const int k = t < zlo ? t : zhi + (t - zlo);
-  const Map<T> mz = map_at<T>(Z, f.code[2], f.v[2], zlo, zhi, k);
+  const Map<T> mz = map_at<T>(Z, f.code[2], f.v[2], f.plane[2], zlo, zhi, k);
   if (mz.op == kCopy && mz.src == k) return;  // a slot a narrow z keeps
   const int ncols = nxk * nyk;
   int c = b * G * kEndItems + (threadIdx.x >> shift);
@@ -382,7 +438,8 @@ __global__ void __launch_bounds__(kThreads) fill_halos_kernel(const __grid_const
   }
 #pragma unroll
   for (int u = 0; u < kEndItems; ++u)
-    if (col[u] >= 0) a[col[u] + k] = apply(mz, val[u]);
+    if (col[u] >= 0)
+      a[col[u] + k] = apply(with_plane(mz, planes, col[u] / PZ), val[u]);
 }
 
 int log2_at_least(int n) {
@@ -413,10 +470,14 @@ int oc_fill_params_size() { return (int)sizeof(Params); }
 // 8. Per axis a (x, y, z): N[a], H[a], P[a]; half[2a + s] and dist[(2a +
 // s)·kMaxH + m] for its low (s = 0) and high (s = 1) side (float64, from the
 // grid's center coordinates). Per field f: codes[6f + 2a + s],
-// values[6f + 2a + s] (a fold's sign), and face_x[f] (an x-face field).
+// values[6f + 2a + s] (a fold's sign), face_x[f] (an x-face field), and
+// plane_offsets[6f + 2a + s]: the offset of the side's plane in the planes
+// buffer (elements; its transverse extents in axis order, contiguous), or
+// -1.
 int oc_fill_plan(void* out, int nf, int elem_size, const int* N, const int* H,
                  const int* P, const double* half, const double* dist,
-                 const int* codes, const double* values, const int* face_x) {
+                 const int* codes, const double* values, const int* face_x,
+                 const int* plane_offsets) {
   if (nf < 1 || nf > kMaxFields || (elem_size != 4 && elem_size != 8) ||
       (long long)P[0] * P[1] * P[2] >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
@@ -451,8 +512,17 @@ int oc_fill_plan(void* out, int nf, int elem_size, const int* N, const int* H,
             (c == kWrap && N[a] < H[a]) || (fold && (a != 1 || s != 1)) ||
             (polar && a != 1))
           return (int)cudaErrorInvalidValue;
+        const int off = plane_offsets[6 * f + 2 * a + s];
+        // a plane belongs to a side whose map reads a value; the
+        // perturbation face always reads one
+        if ((off >= 0 && c != kValue && c != kGradient && c != kPinned &&
+             c != kPerturbation) ||
+            (off < 0 && c == kPerturbation))
+          return (int)cudaErrorInvalidValue;
         p->f[f].code[a][s] = (signed char)c;
         p->f[f].v[a][s] = values[6 * f + 2 * a + s];
+        p->f[f].plane[a][s] = off;
+        if (off >= 0 && a < 2) p->f[f].planes_xy = 1;
         if (polar) p->f[f].polar = 1;
       }
     const int cy = p->f[f].code[1][1];
@@ -484,15 +554,23 @@ int oc_fill_plan(void* out, int nf, int elem_size, const int* N, const int* H,
 // Fill the halos of nf fields in place: `params` from oc_fill_plan (a host
 // copy; its pointers are ignored), `ptrs` a host array of nf device pointers.
 // `means`: the polar caps' device table [field][side][z] of the field
-// dtype (kernels/halo_fill.py polar_means), or null without polar caps.
+// dtype (kernels/halo_fill.py polar_means), or null without polar caps;
+// `planes`: the launch's planes of the field dtype (kernels/halo_fill.py
+// plane_table), or null without them.
 int oc_fill_halos(const void* params, void* const* ptrs, int nf, const void* means,
-                  void* stream) {
+                  const void* planes, void* stream) {
   Params p;
   memcpy(&p, params, sizeof(Params));
   if (nf != p.nf) return (int)cudaErrorInvalidValue;
   p.means = means;
-  for (int f = 0; f < nf; ++f)
+  p.planes = planes;
+  for (int f = 0; f < nf; ++f) {
     if (p.f[f].polar && means == nullptr) return (int)cudaErrorInvalidValue;
+    for (int a = 0; a < 3; ++a)
+      for (int s = 0; s < 2; ++s)
+        if (p.f[f].plane[a][s] >= 0 && planes == nullptr)
+          return (int)cudaErrorInvalidValue;
+  }
   if (p.blocks == 0) return (int)cudaSuccess;
   bool aligned = (p.ax[2].P * p.elem_size) % 16 == 0;
   for (int f = 0; f < nf; ++f) {

@@ -261,6 +261,13 @@ class ImmersedBoundaryGrid(AbstractGrid):
         return torch.where(m, a, torch.as_tensor(value, dtype=a.dtype,
                                                  device=a.device))
 
+    def mask_immersed_(self, a, loc, value=0.0):
+        """Set ``a``'s solid cells at ``loc`` to ``value`` in place; returns
+        it."""
+        solid = self._tensor(("solid",) + tuple(loc),
+                             lambda: ~self._fluid_numpy(loc))
+        return a.masked_fill_(solid, value)
+
     # -- metrics: partial cells change Δz and with it Ax, Ay and V -------------
 
     def _dz_eff_numpy(self, loc):

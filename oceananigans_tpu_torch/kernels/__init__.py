@@ -60,6 +60,7 @@ def reset_counters():
     for fn in VARIANT_KERNELS:
         fn.variant_launches = {}
     fill_halos.surface_launches = 0
+    fill_halos.plane_launches = fill_halos.pa_launches = 0
     for fn in PLAINS:
         fn.cuda_calls = 0
 
@@ -71,7 +72,9 @@ def counters():
     the advection kernels' by scheme variant (``fused_advection_update_weno9``:
     the launches of #1 with WENO(9)) and #10's by variant
     (``fused_vi_tendency_k5_z``: its launches at buffer 5 on a stretched
-    z)."""
+    z); ``fill_halos_planes`` counts the fill launches that read plane
+    conditions, ``fill_halos_perturbation`` those with a
+    PerturbationAdvection face."""
     launches = {fn.__name__: fn.launches for fn in KERNELS}
     for fn in VARIANT_KERNELS:
         launches.update({f"{fn.__name__}_{name}": n
@@ -79,6 +82,8 @@ def counters():
     launches["fill_halos_2d"] = fill_halos.surface_launches
     launches["fill_halos_3d"] = fill_halos.launches - \
         fill_halos.surface_launches
+    launches["fill_halos_planes"] = fill_halos.plane_launches
+    launches["fill_halos_perturbation"] = fill_halos.pa_launches
     return launches, {fn.__name__: fn.cuda_calls for fn in PLAINS}
 
 

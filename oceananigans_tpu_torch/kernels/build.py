@@ -50,8 +50,8 @@ D = ctypes.c_double
 # cudaGetLastError() as an int.
 SIGNATURES = {
     "oc_fill_params_size": [],
-    "oc_fill_plan": [P, I, I, P, P, P, P, P, P, P, P],
-    "oc_fill_halos": [P, P, I, P, P],
+    "oc_fill_plan": [P, I, I, P, P, P, P, P, P, P, P, P],
+    "oc_fill_halos": [P, P, I, P, P, P],
     "oc_advection_tendency": [I, I, I, I, P, P, I, I, P, I, I, I, I, I, I,
                               I, D, D, D, D, P, I, I, I, I, I, I, I, P],
     "oc_fused_divergence": [I, P, P, P, P, I, I, I, I, I, D, D, D, D, P],

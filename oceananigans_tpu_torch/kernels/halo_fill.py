@@ -47,6 +47,26 @@ mean of the boundary row over the interior x, one per field, side and z
 slot (``polar_means``: a PyTorch reduction, as the JAX package takes it in
 XLA), which the kernel reads from a small table.
 
+Boundary values that vary over the boundary plane or in time (array,
+callable and FieldTimeSeries conditions) are *planes*: per call the wrapper
+evaluates each such side's condition at the fill's time over the padded
+transverse extents of the field (``side_planes``), and the Value, Gradient
+and pinned-face maps read the plane at the slot's transverse source in
+place of the scalar: an x side at the slot's y and z sources, a y side at
+its x and the z source, a z side at its x and y (the composition of the
+sequential fills). An Open side with ``PerturbationAdvection`` under a fill
+given the stage's Δt (``dt``) takes the ``PA_FACE`` map: the boundary face
+and every halo slot beyond it take the perturbation-advection face value
+(``pa_face_plane``, JAX's ``pa_face``), a plane computed before the launch
+from the field's boundary face, the face inside it and the exterior value,
+after the fills of the earlier axes (on the card a launch of the kernel
+over those axes alone fills a copy of the field; the plain version fills a
+copy of the two rows along them); computing it inside the launch would
+read a face slot that other blocks write. Without Δt the side is an Open condition with its
+value (a pinned face), as in JAX. The planes of a launch go to the kernel in
+one buffer; their offsets are part of the cached parameter block, their
+values and Δt are not.
+
 The plain version ``fill_halos_plain`` is the sequence the kernel replaces:
 ``fill_bounded_axis`` along x, ``periodic_halo_fill_plain`` (the periodic
 axes, x then y), ``fill_bounded_axis`` along y, then the periodic z wrap or
@@ -74,8 +94,9 @@ from . import build
 
 MAX_H = 8
 
-# Classifications of a ZFill side (bounded_z_fill_plain).
-FLUX, OPEN, VALUE, GRADIENT = 0, 1, 2, 3
+# Classifications of a ZFill side (bounded_z_fill_plain); PERTURBATION is
+# an Open side with PerturbationAdvection under a fill given Δt.
+FLUX, OPEN, VALUE, GRADIENT, PERTURBATION = 0, 1, 2, 3, 4
 _CLASS_CODES = {bcm.FLUX: FLUX, bcm.OPEN: OPEN, bcm.VALUE: VALUE,
                 bcm.GRADIENT: GRADIENT}
 
@@ -91,10 +112,12 @@ FOLD = 7                   # tripolar north fold, field centred in y
 FOLD_FACE = 8              # tripolar north fold, y-face field
 POLAR_VALUE = 9            # polar cap, center field: extrapolate to the mean
 POLAR_PINNED = 10          # polar cap, face field: pin to the mean, reflect
+PA_FACE = 11               # face field, PerturbationAdvection: face and halo take the plane
 EXTRAPOLATES = (EXTRAPOLATE_VALUE, EXTRAPOLATE_GRADIENT, POLAR_VALUE)
 FOLDS = (FOLD, FOLD_FACE)
 POLARS = (POLAR_VALUE, POLAR_PINNED)
-PINS = (PINNED, POLAR_PINNED)
+PINS = (PINNED, POLAR_PINNED, PA_FACE)
+PLANE_CODES = (EXTRAPOLATE_VALUE, EXTRAPOLATE_GRADIENT, PINNED)
 
 
 class ZFill(NamedTuple):
@@ -114,11 +137,19 @@ def _geometry(grid):
 def _value(bc):
     """The scalar a fill reads: a Flux condition's value is never read (its
     fill mirrors or reflects), so a callable Flux condition counts as 0; a
-    fold's is its sign; a polar cap's comes from ``polar_means``."""
-    if bc is None or bc.condition is None or bc.classification == bcm.FLUX \
+    fold's is its sign; a polar cap's comes from ``polar_means``, a plane
+    condition's from its plane (``side_planes``)."""
+    if bc is None or bc.classification == bcm.FLUX or \
+            bcm.is_plane_condition(bc.condition) or bc.condition is None \
             or isinstance(bc.condition, bcm.PolarValue):
         return 0.0
     return float(bc.condition)
+
+
+def _is_pa(bc, pa):
+    """An Open side with PerturbationAdvection in a fill given Δt."""
+    return (pa and bc is not None and bc.classification == bcm.OPEN
+            and isinstance(bc.scheme, bcm.PerturbationAdvection))
 
 
 def _is_polar(bc):
@@ -149,11 +180,14 @@ def _classification(bc):
     return bcm.FLUX if bc is None else bc.classification
 
 
-def z_fill_spec(loc, bcs):
+def z_fill_spec(loc, bcs, pa=False):
     """The bounded-z fill of one field (``ZFill``): its z location and the
     (classification code, scalar value) of its bottom and top conditions
-    (None counts as Flux with 0)."""
+    (None counts as Flux with 0; with ``pa``, a PerturbationAdvection side of
+    a z-face field is ``PERTURBATION``)."""
     def side(bc):
+        if loc[2] == FACE and _is_pa(bc, pa):
+            return (PERTURBATION, 0.0)
         return (_CLASS_CODES[_classification(bc)], _value(bc))
 
     return ZFill(loc[2] == FACE, side(bcs.bottom), side(bcs.top))
@@ -215,15 +249,18 @@ def _div(x, d):
     return x / torch.tensor(d, dtype=x.dtype, device=x.device)
 
 
-def fill_bounded_axis(a, grid, loc, bcs, axis):
+def fill_bounded_axis(a, grid, loc, bcs, axis, planes=None, pa=False):
     """``_fill_axis`` along a bounded ``axis`` of one padded tensor (3-D, or
     a 2-D surface field for axis 0 or 1), in place; returns it. Center
     fields mirror the interior under Flux/Open and extrapolate linearly from
     the boundary cell under Value/Gradient; the wall-normal face field is
-    pinned at the boundary face under Open/Value and reflected about it. A
-    polar cap's value is the zonal mean of the boundary row
-    (``polar_row_mean``); a folded north side (``fold_north``, which runs
-    first) is left as it is, and so are the ``narrow_slots``."""
+    pinned at the boundary face under Open/Value and reflected about it, and
+    with ``pa`` an Open side with PerturbationAdvection sets its face and
+    halo to its plane. ``planes`` ({(axis, side): plane}, ``side_planes``)
+    gives the sides whose value is a plane. A polar cap's value is the zonal
+    mean of the boundary row (``polar_row_mean``); a folded north side
+    (``fold_north``, which runs first) is left as it is, and so are the
+    ``narrow_slots``."""
     H, N = grid.H[axis], grid.N[axis]
     if H == 0:
         return a
@@ -231,21 +268,24 @@ def fill_bounded_axis(a, grid, loc, bcs, axis):
         fill_bounded_axis.cuda_calls += 1
     left, right = bcs.pair(axis)
     face = loc[axis] == FACE
-    narrow = narrow_slots((_side_code(left, face), 0.0,
-                           _side_code(right, face), 0.0), N, H)
+    narrow = narrow_slots((_side_code(left, face, pa), 0.0,
+                           _side_code(right, face, pa), 0.0), N, H)
     kept = {n: a.narrow(axis, n, 1).clone() for n in narrow}
-    _fill_bounded_sides(a, grid, loc, left, right, axis)
+    _fill_bounded_sides(a, grid, loc, left, right, axis, planes or {}, pa)
     for n, old in kept.items():
         a.narrow(axis, n, 1).copy_(old)
     return a
 
 
-def _fill_bounded_sides(a, grid, loc, left, right, axis):
+def _fill_bounded_sides(a, grid, loc, left, right, axis, planes, pa):
     H, N = grid.H[axis], grid.N[axis]
     cls_l, cls_r = _classification(left), _classification(right)
     fold = _is_fold(right)
 
     def value(bc, is_left):
+        plane = planes.get((axis, 0 if is_left else 1))
+        if plane is not None:
+            return plane
         return (polar_row_mean(grid, a, is_left) if _is_polar(bc)
                 else _value(bc))
 
@@ -286,6 +326,7 @@ def _fill_bounded_sides(a, grid, loc, left, right, axis):
 
     # the wall-normal face field: slot H is the left boundary face, slot H+N
     # the right one
+    pa_l, pa_r = _is_pa(left, pa), _is_pa(right, pa) and not fold
     vL = value(left, True) if cls_l in (bcm.OPEN, bcm.VALUE) else None
     vR = (value(right, False) if cls_r in (bcm.OPEN, bcm.VALUE)
           and not fold else None)
@@ -295,8 +336,13 @@ def _fill_bounded_sides(a, grid, loc, left, right, axis):
                 v, dtype=a.dtype).expand_as(sl(slot, slot + 1)))
     low = flipped(H + 1, 2 * H + 1)
     high = flipped(N + 1, H + N)
-    sl(0, H).copy_(low if vL is None else 2 * vL - low)
-    if not fold:
+    if pa_l:
+        sl(0, H).copy_(vL.expand_as(sl(0, H)))
+    else:
+        sl(0, H).copy_(low if vL is None else 2 * vL - low)
+    if pa_r:
+        sl(H + N + 1, 2 * H + N).copy_(vR.expand_as(sl(H + N + 1, 2 * H + N)))
+    elif not fold:
         sl(H + N + 1, 2 * H + N).copy_(high if vR is None else 2 * vR - high)
     return a
 
@@ -360,27 +406,34 @@ def z_distances(grid):
 
 
 def _pins(cls):
-    return cls in (OPEN, VALUE)
+    return cls in (OPEN, VALUE, PERTURBATION)
 
 
-def bounded_z_fill_plain(grid, fields, specs):
+def bounded_z_fill_plain(grid, fields, specs, planes=None):
     """Plain PyTorch version of the bounded-z fill (``_fill_axis`` along z,
-    in place); ``specs`` holds one ``ZFill`` per field."""
+    in place); ``specs`` holds one ``ZFill`` per field, ``planes`` (None, or
+    one {(axis, side): plane} per field) the sides whose value is a plane
+    (a ``PERTURBATION`` side's is its face plane)."""
     H, N = grid.H[2], grid.N[2]
     half_b, half_t, dist_b, dist_t = z_distances(grid)
-    for a, spec in zip(fields, specs):
+    for k, (a, spec) in enumerate(zip(fields, specs)):
         if a.is_cuda:
             bounded_z_fill_plain.cuda_calls += 1
         narrow = _zfill_narrow(grid, spec)
         kept = {n: a[..., n].clone() for n in narrow}
-        _fill_z_sides(a, spec, H, N, half_b, half_t, dist_b, dist_t)
+        own = {} if planes is None else planes[k]
+        _fill_z_sides(a, spec, H, N, half_b, half_t, dist_b, dist_t,
+                      own.get((2, 0)), own.get((2, 1)))
         for n, old in kept.items():
             a[..., n] = old
     return fields
 
 
-def _fill_z_sides(a, spec, H, N, half_b, half_t, dist_b, dist_t):
+def _fill_z_sides(a, spec, H, N, half_b, half_t, dist_b, dist_t, plane_b,
+                  plane_t):
     (cb, vb), (ct, vt) = spec.bottom, spec.top
+    vb = vb if plane_b is None else plane_b
+    vt = vt if plane_t is None else plane_t
     if not spec.face:
         if cb in (FLUX, OPEN):
             a[..., :H] = torch.flip(a[..., H:2 * H], [-1])
@@ -400,13 +453,19 @@ def _fill_z_sides(a, spec, H, N, half_b, half_t, dist_b, dist_t):
                 a[..., H + N + m:H + N + m + 1] = cN + grad * dist_t[m]
         return
     if _pins(cb):
-        a[..., H] = vb
+        a[..., H:H + 1] = vb
     if _pins(ct):
-        a[..., H + N] = vt
+        a[..., H + N:H + N + 1] = vt
     low = torch.flip(a[..., H + 1:2 * H + 1], [-1])
-    a[..., :H] = 2 * vb - low if _pins(cb) else low
+    if cb == PERTURBATION:
+        a[..., :H] = vb
+    else:
+        a[..., :H] = 2 * vb - low if _pins(cb) else low
     high = torch.flip(a[..., N + 1:H + N], [-1])
-    a[..., H + N + 1:] = 2 * vt - high if _pins(ct) else high
+    if ct == PERTURBATION:
+        a[..., H + N + 1:] = vt
+    else:
+        a[..., H + N + 1:] = 2 * vt - high if _pins(ct) else high
 
 
 def _zfill_narrow(grid, spec):
@@ -414,9 +473,13 @@ def _zfill_narrow(grid, spec):
     code = {FLUX: MIRROR, OPEN: MIRROR, VALUE: EXTRAPOLATE_VALUE,
             GRADIENT: EXTRAPOLATE_GRADIENT}
     (cb, _), (ct, _) = spec.bottom, spec.top
+
+    def face_code(c):
+        return PA_FACE if c == PERTURBATION else (PINNED if _pins(c)
+                                                  else REFLECT)
+
     if spec.face:
-        codes = (PINNED if _pins(cb) else REFLECT, 0.0,
-                 PINNED if _pins(ct) else REFLECT, 0.0)
+        codes = (face_code(cb), 0.0, face_code(ct), 0.0)
     else:
         codes = (code[cb], 0.0, code[ct], 0.0)
     return narrow_slots(codes, grid.N[2], grid.H[2])
@@ -425,37 +488,156 @@ def _zfill_narrow(grid, spec):
 bounded_z_fill_plain.cuda_calls = 0
 
 
-def fill_halos_plain(grid, fields, locs_bcs=None, z=True):
+def fill_halos_plain(grid, fields, locs_bcs=None, z=True, time=0.0,
+                     dt=None):
     """Plain PyTorch version of ``fill_halos``, in the reference's order: the
     tripolar fold, a bounded x, the periodic axes (x, then y), a bounded y,
     then (with ``z``) the periodic z wrap or a bounded z, each bounded axis
     only when ``locs_bcs`` gives the fields' (location, boundary
-    conditions)."""
+    conditions). The planes of the sides that read one (``side_planes`` at
+    ``time``, with ``dt`` the perturbation-advection faces) are formed
+    first."""
     fields = list(fields)
     if any(a.is_cuda for a in fields):
         fill_halos_plain.cuda_calls += 1
+    planes = side_planes(grid, fields, locs_bcs, z, time, dt)
+    _fill_sequence(grid, fields, locs_bcs, z, dt is not None, planes)
+    return fields
+
+
+def _fill_sequence(grid, fields, locs_bcs, z, pa, planes, until=3):
+    """The sequential fill of ``fill_halos_plain`` with the given planes,
+    of the axes before ``until`` (a copy of two rows along axis ``until``
+    takes the fills of the axes before it)."""
     bounded = [locs_bcs is not None and grid.topology[ax] == BOUNDED
                and grid.H[ax] > 0 for ax in range(3)]
-    if bounded[1]:
+    if bounded[1] and until >= 2:
         # the fold first, over the interior x, so that the wrap carries the
         # folded rows into the corners
         for a, (loc, bcs) in zip(fields, locs_bcs):
             if _is_fold(bcs.north):
                 fold_north(a, grid, loc, bcs)
-    if bounded[0]:
-        for a, (loc, bcs) in zip(fields, locs_bcs):
-            fill_bounded_axis(a, grid, loc, bcs, 0)
-    periodic_halo_fill_plain(grid, fields, z=False)
-    if bounded[1]:
-        for a, (loc, bcs) in zip(fields, locs_bcs):
-            fill_bounded_axis(a, grid, loc, bcs, 1)
-    if z:
-        for a in fields:
-            _wrap_z(grid, a)
-    if z and bounded[2] and fields and _z_extent(grid, fields[0])[1] > 0:
-        bounded_z_fill_plain(grid, fields, [z_fill_spec(loc, bcs)
-                                            for loc, bcs in locs_bcs])
-    return fields
+    if bounded[0] and until > 0:
+        for a, (loc, bcs), pl in zip(fields, locs_bcs, planes):
+            fill_bounded_axis(a, grid, loc, bcs, 0, pl, pa)
+    if until > 0:
+        periodic_halo_fill_plain(grid, fields, z=False)
+    if bounded[1] and until > 1:
+        for a, (loc, bcs), pl in zip(fields, locs_bcs, planes):
+            fill_bounded_axis(a, grid, loc, bcs, 1, pl, pa)
+    if not z or until < 3:
+        return
+    for a in fields:
+        _wrap_z(grid, a)
+    if bounded[2] and fields and _z_extent(grid, fields[0])[1] > 0:
+        bounded_z_fill_plain(grid, fields, [z_fill_spec(loc, bcs, pa)
+                                            for loc, bcs in locs_bcs],
+                             planes)
+
+
+def boundary_plane(bc, grid, loc, axis, shape, dtype, device, time=0.0):
+    """A side's condition over the boundary plane of a field of ``shape``:
+    a tensor of ``shape`` with 1 along ``axis``, the padded transverse
+    extents along the others, of ``dtype`` on ``device`` (JAX's
+    ``eval_bc``): a scalar everywhere; an array of the plane's interior
+    padded over the halos by topology (wrapped along a periodic transverse
+    axis, its edge repeated along the others), any other array broadcast;
+    a callable of the padded transverse coordinates at ``loc`` and the
+    time; a FieldTimeSeries condition's padded z plane at the time."""
+    from ..boundary_conditions.fill_halos import boundary_condition_value
+    q = boundary_condition_value(bc, grid, loc, axis, time)
+    out_shape = list(shape)
+    out_shape[axis] = 1
+    q = torch.as_tensor(0.0 if q is None else q, dtype=dtype, device=device)
+    return q.broadcast_to(out_shape).contiguous()
+
+
+def pa_face_plane(grid, rows, loc, bc, axis, is_left, ubar, dt):
+    """The perturbation-advection face value of one side (JAX
+    ``pa_face``): ``rows`` holds the boundary face uB and the face inside
+    it uA along ``axis`` (a copy of two slots, filled along the earlier
+    axes: left [uB, uA], right [uA, uB]), ``ubar`` the exterior value's
+    plane. A backward-Euler upwind step toward ubar, relaxed with the
+    inflow or outflow timescale (0 pins the face to ubar, ∞ relaxes
+    nothing)."""
+    H, N = grid.H[axis], grid.N[axis]
+    dX = (grid.dx, grid.dy, grid.dz)[axis](loc)
+    if isinstance(dX, torch.Tensor) and dX.ndim and dX.shape[axis] > 1:
+        dX = dX.narrow(axis, H if is_left else H + N, 1)
+    uB = rows.narrow(axis, 0 if is_left else 1, 1)
+    uA = rows.narrow(axis, 1 if is_left else 0, 1)
+    c = dt / dX * ubar
+    if is_left:
+        U = torch.clamp(c, -1.0, 0.0)
+        outflowing = ubar <= 0
+        num = uB - U * uA
+        den = 1.0 - U
+    else:
+        U = torch.clamp(c, 0.0, 1.0)
+        outflowing = ubar >= 0
+        num = uB + U * uA
+        den = 1.0 + U
+    tin = bc.scheme.inflow_timescale
+    tout = bc.scheme.outflow_timescale
+    inv_in = 0.0 if (tin == 0 or np.isinf(tin)) else 1.0 / tin
+    inv_out = 0.0 if (tout == 0 or np.isinf(tout)) else 1.0 / tout
+    kw = dict(dtype=rows.dtype, device=rows.device)
+    taut = dt * torch.where(outflowing, torch.tensor(inv_out, **kw),
+                            torch.tensor(inv_in, **kw))
+    relaxed = (num + ubar * taut) / (den + taut)
+    pin = torch.where(outflowing, torch.tensor(tout == 0, device=rows.device),
+                      torch.tensor(tin == 0, device=rows.device))
+    return torch.where(pin, ubar, relaxed).contiguous()
+
+
+def side_planes(grid, fields, locs_bcs, z=True, time=0.0, dt=None,
+                kernel=False):
+    """Per field, {(axis, side): plane} for each side whose map reads a
+    plane (``PLANE_CODES`` with an array, callable or FieldTimeSeries
+    condition; ``PA_FACE``), each a contiguous tensor of the field's
+    shape with 1 along ``axis``, in the field's dtype on its device. A
+    ``PA_FACE`` plane is ``pa_face_plane`` of the field's two boundary
+    rows after the fills of the earlier axes, with the exterior value's
+    plane at ``time``: with ``kernel`` the fill kernel fills those axes of
+    a copy of the field, otherwise the plain fill fills them on a copy of
+    the two rows."""
+    fields = list(fields)
+    if locs_bcs is None or not fields:
+        return [{} for _ in fields]
+    pa = dt is not None
+    a0 = fields[0]
+    codes = fill_codes(grid, a0.shape, locs_bcs, len(fields), z, pa=pa)
+    out = []
+    for a, (loc, bcs), fc in zip(fields, locs_bcs, codes):
+        planes = {}
+        pending = []
+        for axis in range(3):
+            for side, bc in enumerate(bcs.pair(axis)):
+                code = fc[axis][2 * side]
+                if code == PA_FACE:
+                    pending.append((axis, side, bc))
+                elif code in PLANE_CODES and bc is not None and \
+                        bcm.is_plane_condition(bc.condition):
+                    planes[(axis, side)] = boundary_plane(
+                        bc, grid, loc, axis, a.shape, a.dtype, a.device,
+                        time)
+        for axis, side, bc in pending:
+            start = grid.H[axis] + (0 if side == 0 else grid.N[axis] - 1)
+            if kernel and axis > 0:
+                rows = _launch(grid, [a.clone()], [(loc, bcs)], False, time,
+                               None, until=axis)[0].narrow(axis, start, 2)
+            else:
+                rows = a.narrow(axis, start, 2).clone()
+                cut = {k: p.narrow(axis, start, 2) if p.shape[axis] > 1
+                       else p for k, p in planes.items() if k[0] < axis}
+                _fill_sequence(grid, [rows], [(loc, bcs)], z, True, [cut],
+                               until=axis)
+            ubar = boundary_plane(bc, grid, loc, axis, a.shape, a.dtype,
+                                  a.device, time)
+            planes[(axis, side)] = pa_face_plane(grid, rows, loc, bc, axis,
+                                                 side == 0, ubar, dt)
+        out.append(planes)
+    return out
 
 
 fill_halos_plain.cuda_calls = 0
@@ -476,13 +658,15 @@ def extents(grid, shape):
     return [(grid.N[0], grid.H[0]), (grid.N[1], grid.H[1]), z]
 
 
-def _side_code(bc, face):
+def _side_code(bc, face, pa=False):
     if _is_fold(bc):
         return FOLD_FACE if face else FOLD
     if _is_polar(bc):
         return POLAR_PINNED if face else POLAR_VALUE
     cls = _classification(bc)
     if face:
+        if _is_pa(bc, pa):
+            return PA_FACE
         return PINNED if cls in (bcm.OPEN, bcm.VALUE) else REFLECT
     if cls in (bcm.FLUX, bcm.OPEN):
         return MIRROR
@@ -493,11 +677,14 @@ def _side_code(bc, face):
     raise ValueError(f"unsupported BC {cls} for a centered location")
 
 
-def fill_codes(grid, shape, locs_bcs=None, n=1, z=True):
+def fill_codes(grid, shape, locs_bcs=None, n=1, z=True, pa=False, until=3):
     """Per field, per axis, (low code, low value, high code, high value):
     ``locs_bcs`` gives each field's (location, boundary conditions), or None
-    for ``n`` fields whose periodic axes alone are filled. Raises where the
-    kernel's one load per slot would not hold."""
+    for ``n`` fields whose periodic axes alone are filled; ``pa``: the fill
+    is given Δt (PerturbationAdvection sides take ``PA_FACE``); the axes
+    from ``until`` on are not filled. A side whose map reads a plane has
+    the value 0. Raises where the kernel's one load per slot would not
+    hold."""
     ext = extents(grid, shape)
     out = []
     for lb in (locs_bcs if locs_bcs is not None else [None] * n):
@@ -505,8 +692,8 @@ def fill_codes(grid, shape, locs_bcs=None, n=1, z=True):
         for ax, (N, H) in enumerate(ext):
             topo = grid.topology[ax]
             keep = (KEEP, 0.0, KEEP, 0.0)
-            if H == 0 or (ax == 2 and not z) or topo not in (PERIODIC,
-                                                             BOUNDED):
+            if H == 0 or (ax == 2 and not z) or ax >= until or \
+                    topo not in (PERIODIC, BOUNDED):
                 axes.append(keep)
             elif topo == PERIODIC:
                 if lb is not None and ax == 2 and any(
@@ -525,8 +712,8 @@ def fill_codes(grid, shape, locs_bcs=None, n=1, z=True):
                 loc, bcs = lb
                 low, high = bcs.pair(ax)
                 face = loc[ax] == FACE
-                codes = (_side_code(low, face), _value(low),
-                         _side_code(high, face), _value(high))
+                codes = (_side_code(low, face, pa), _value(low),
+                         _side_code(high, face, pa), _value(high))
                 if H > MAX_H:
                     raise ValueError(f"a bounded halo fill needs H <= "
                                      f"{MAX_H} along axis {ax} (H={H})")
@@ -559,7 +746,7 @@ def _side_source(codes, N, H, n):
             return 2 * H - 1 - n
         if c in EXTRAPOLATES:
             return H
-        if c in PINS and n == H:
+        if (c in PINS and n == H) or c == PA_FACE:
             return None
         return 2 * H - n                     # reflect, or pinned's halo
     c = codes[2]
@@ -570,6 +757,8 @@ def _side_source(codes, N, H, n):
     if c in EXTRAPOLATES:
         return E - 1
     if c in PINS and n == E:
+        return None
+    if c == PA_FACE:
         return None
     if c == FOLD:
         return n if n == E - 1 else 2 * E - 2 - n
@@ -651,15 +840,39 @@ def extrapolated_slots(grid, shape, locs_bcs, z=True):
 
 
 class _Plan(NamedTuple):
-    batches: list      # (first, stop, parameter block, polar fields) per launch
+    batches: list      # (first, stop, parameter block, polar fields,
+                       #  plane sides, any PA_FACE side)
     ptrs: object       # the launch's device pointers, rewritten per call
 
 
 _plans = {}            # id(grid) -> {key: _Plan}, dropped with the grid
 
 
-def _build_plan(grid, shape, dtype, n, locs_bcs, z):
-    codes = fill_codes(grid, shape, locs_bcs, n, z)
+def plane_sides(codes, locs_bcs):
+    """Per field, the (axis, side) of each side whose map reads a plane,
+    in (axis, side) order: ``PA_FACE``, and ``PLANE_CODES`` with an array,
+    callable or FieldTimeSeries condition (``side_planes`` forms them)."""
+    out = []
+    for fc, lb in zip(codes, locs_bcs or [None] * len(codes)):
+        sides = []
+        for axis in range(3):
+            for side in range(2):
+                code = fc[axis][2 * side]
+                bc = None if lb is None else lb[1].pair(axis)[side]
+                if code == PA_FACE or (code in PLANE_CODES and bc is not None
+                                       and bcm.is_plane_condition(
+                                           bc.condition)):
+                    sides.append((axis, side))
+        out.append(sides)
+    return out
+
+
+def _plane_size(shape, axis):
+    return int(np.prod([n for ax, n in enumerate(shape) if ax != axis]))
+
+
+def _build_plan(grid, shape, dtype, n, locs_bcs, z, pa, until):
+    codes = fill_codes(grid, shape, locs_bcs, n, z, pa=pa, until=until)
     if all(c[0] == KEEP for f in codes for c in f):
         return _Plan([], None)
     geom = axis_geometry(grid, shape)
@@ -673,33 +886,44 @@ def _build_plan(grid, shape, dtype, n, locs_bcs, z):
     esize = torch.empty((), dtype=dtype).element_size()
     face_x = [int(lb is not None and lb[0][0] == FACE)
               for lb in (locs_bcs or [None] * n)]
+    sides_of = plane_sides(codes, locs_bcs)
     batches = []
     for a, b in build.batches(n):
         sides = [s for f in codes[a:b] for c in f
                  for s in ((c[0], c[1]), (c[2], c[3]))]
+        offsets, at = [], 0
+        for k in range(a, b):
+            own = [-1] * 6
+            for axis, side in sides_of[k]:
+                own[2 * axis + side] = at
+                at += _plane_size(shape, axis)
+            offsets += own
         params = ctypes.create_string_buffer(size)
         build.check(lib.oc_fill_plan(params, b - a, esize, N, H, P, half,
                                      dist, ints([s[0] for s in sides]),
                                      dbls([s[1] for s in sides]),
-                                     ints(face_x[a:b])), lib)
+                                     ints(face_x[a:b]), ints(offsets)), lib)
         polar = [k for k, f in enumerate(codes[a:b])
                  if f[1][0] in POLARS or f[1][2] in POLARS]
-        batches.append((a, b, params, polar))
+        pa_batch = any(c in (f[ax][0], f[ax][2]) for f in codes[a:b]
+                       for ax in range(3) for c in (PA_FACE,))
+        batches.append((a, b, params, polar, sides_of[a:b], pa_batch))
     return _Plan(batches, (ctypes.c_void_p * build.BATCH)())
 
 
-def _plan(grid, fields, locs_bcs, z):
+def _plan(grid, fields, locs_bcs, z, pa, until=3):
     per_grid = _plans.get(id(grid))
     if per_grid is None:
         per_grid = _plans[id(grid)] = {}
         weakref.finalize(grid, _plans.pop, id(grid), None)
     a = fields[0]
-    key = (tuple(a.shape), a.dtype, len(fields), z,
+    key = (tuple(a.shape), a.dtype, len(fields), z, pa, until,
            None if locs_bcs is None else tuple(locs_bcs))
     plan = per_grid.get(key)
     if plan is None:
         plan = per_grid[key] = _build_plan(grid, tuple(a.shape), a.dtype,
-                                           len(fields), locs_bcs, z)
+                                           len(fields), locs_bcs, z, pa,
+                                           until)
     return plan
 
 
@@ -722,41 +946,68 @@ def _check_batch(fields):
                          "values (32-bit offsets)")
 
 
-def fill_halos(grid, fields, locs_bcs=None, z=True):
+def fill_halos(grid, fields, locs_bcs=None, z=True, time=0.0, dt=None):
     """Fill the halos of padded tensors of one shape in place (the grid's
     padded shape, or all 2-D surface fields (Nx + 2Hx, Ny + 2Hy, 1)); returns
     them. ``locs_bcs`` gives each field's (location, boundary conditions):
     with it every periodic and bounded axis is filled (z only with ``z``),
-    without it the periodic axes alone. CPU tensors take the plain version;
-    CUDA tensors launch the kernel, once per ``build.BATCH`` fields."""
+    without it the periodic axes alone. Plane conditions are evaluated at
+    ``time``; ``dt`` (the stage's Δt) activates the PerturbationAdvection
+    faces. CPU tensors take the plain version; CUDA tensors launch the
+    kernel, once per ``build.BATCH`` fields."""
     fields = list(fields)
     if not fields:
         return fields
     if locs_bcs is not None and len(locs_bcs) != len(fields):
         raise ValueError("one (location, boundary conditions) per field")
+    pa = dt is not None
     if all(a.device.type == "cpu" for a in fields):
         # raise where the kernel would
-        fill_codes(grid, fields[0].shape, locs_bcs, len(fields), z)
-        return fill_halos_plain(grid, fields, locs_bcs, z)
+        fill_codes(grid, fields[0].shape, locs_bcs, len(fields), z, pa=pa)
+        return fill_halos_plain(grid, fields, locs_bcs, z, time, dt)
+    return _launch(grid, fields, locs_bcs, z, time, dt)
+
+
+def _launch(grid, fields, locs_bcs, z, time, dt, until=3):
+    """The kernel's launches of ``fill_halos`` on CUDA tensors, the axes
+    from ``until`` on left as they are."""
     _check_batch(fields)
-    plan = _plan(grid, fields, locs_bcs, z)
+    plan = _plan(grid, fields, locs_bcs, z, dt is not None, until)
     if not plan.batches:
         return fields
+    planes = None
+    if any(sides for batch in plan.batches for sides in batch[4]):
+        planes = side_planes(grid, fields, locs_bcs, z, time, dt,
+                             kernel=True)
     surface = fields[0].shape[2] == 1 and grid.padded_shape[2] != 1
     with torch.cuda.device(fields[0].device):
         lib = build.library()
         stream = build.stream_of(fields[0])
-        for a, b, params, polar in plan.batches:
+        for a, b, params, polar, sides, pa_batch in plan.batches:
             for n, t in enumerate(fields[a:b]):
                 plan.ptrs[n] = t.data_ptr()
             means = polar_means(grid, fields[a:b], polar)
+            table = plane_table(planes[a:b], sides) if planes else None
             build.check(lib.oc_fill_halos(
                 params, plan.ptrs, b - a,
-                None if means is None else means.data_ptr(), stream), lib)
+                None if means is None else means.data_ptr(),
+                None if table is None else table.data_ptr(), stream), lib)
             fill_halos.launches += 1
             if surface:
                 fill_halos.surface_launches += 1
+            if any(sides):
+                fill_halos.plane_launches += 1
+            if pa_batch:
+                fill_halos.pa_launches += 1
     return fields
+
+
+def plane_table(planes, sides):
+    """The planes of one launch in one buffer, in the order of the plan's
+    offsets (``plane_sides``); None without planes."""
+    flat = [planes[k][s].reshape(-1) for k, own in enumerate(sides)
+            for s in own]
+    return torch.cat(flat) if flat else None
 
 
 def polar_means(grid, fields, polar):
@@ -773,6 +1024,8 @@ def polar_means(grid, fields, polar):
 
 fill_halos.launches = 0
 fill_halos.surface_launches = 0    # of them, those on 2-D surface fields
+fill_halos.plane_launches = 0      # of them, those that read planes
+fill_halos.pa_launches = 0         # of them, those with a PA_FACE side
 
 
 def periodic_halo_fill(grid, fields):

@@ -589,14 +589,17 @@ class HydrostaticFreeSurfaceModel:
 
     # -- halo fills and masks -------------------------------------------------
 
-    def _fill_surface(self, a, loc, bcs):
+    def _fill_surface(self, a, loc, bcs, time=0.0):
         """The x/y halos of a 2-D surface field, in place."""
-        return fill_surface_halo_regions([a], self.grid, [(loc, bcs)])[0]
+        return fill_surface_halo_regions([a], self.grid, [(loc, bcs)],
+                                         time)[0]
 
-    def _fill_all(self, fields):
-        """Fill the halos of ``fields`` ({name: padded tensor}) in place;
-        on an immersed grid the prognostic fields' solid cells are zeroed
-        first (into new tensors)."""
+    def _fill_all(self, fields, time=0.0):
+        """Fill the halos of ``fields`` ({name: padded tensor}) in place,
+        their conditions at ``time`` (no Δt: a PerturbationAdvection side
+        is an Open condition with its value, as in the JAX model); on an
+        immersed grid the prognostic fields' solid cells are zeroed first
+        (into new tensors)."""
         names = [n for n in fields if n != "eta"]
         if self._immersed:
             for n in names:
@@ -604,9 +607,10 @@ class HydrostaticFreeSurfaceModel:
                     fields[n] = self.grid.mask_immersed(fields[n],
                                                         self.loc(n))
         fill_all_halo_regions([fields[n] for n in names], self.grid,
-                              [(self.loc(n), self.bcs[n]) for n in names])
+                              [(self.loc(n), self.bcs[n]) for n in names],
+                              time)
         if "eta" in fields:
-            self._fill_surface(fields["eta"], LOC_CCC, self.bcs["eta"])
+            self._fill_surface(fields["eta"], LOC_CCC, self.bcs["eta"], time)
         return fields
 
     def _mask_state(self, new):
@@ -843,12 +847,12 @@ class HydrostaticFreeSurfaceModel:
             return self.closure.substeps_for(dt)
         return 1
 
-    def _fill_uv(self, new):
+    def _fill_uv(self, new, time=0.0):
         """Halo-filled copies of the updated u and v."""
         uf, vf = new["u"].clone(), new["v"].clone()
         fill_all_halo_regions([uf, vf], self.grid,
                               [(LOC_FCC, self.bcs["u"]),
-                               (LOC_CFC, self.bcs["v"])])
+                               (LOC_CFC, self.bcs["v"])], time)
         return uf, vf
 
     def _stage_free_surface(self, fields0, new, G, dt, barotropic,
@@ -897,7 +901,7 @@ class HydrostaticFreeSurfaceModel:
         time = float(clock["time"])
         euler = clock["iteration"] == 0 or clock["last_dt"] != dt
         c_new, c_old, keep = self.timestepper.coefficients(euler)
-        fields = self._fill_all(dict(state["fields"]))
+        fields = self._fill_all(dict(state["fields"]), time)
         w = self._w_from_continuity(fields["u"], fields["v"])
         G, aux = self._compute_tendencies(fields, w, time)
         Gm = state["Gm"]
@@ -908,7 +912,7 @@ class HydrostaticFreeSurfaceModel:
         new, bt = self._stage_free_surface(fields, new, ab2G, fdt,
                                            state.get("barotropic"))
         new = self._mask_state(new)
-        uf, vf = self._fill_uv(new)
+        uf, vf = self._fill_uv(new, time)
         if self._substepped_tke:
             # the TKE from the updated velocities, restarting from the old e
             fnew = dict(new)
@@ -949,7 +953,8 @@ class HydrostaticFreeSurfaceModel:
         G = None
         for beta in self.timestepper.betas:
             sdt = fdt / beta
-            ff = self._fill_all({n: a.clone() for n, a in fields.items()})
+            ff = self._fill_all({n: a.clone() for n, a in fields.items()},
+                                time)
             w = self._w_from_continuity(ff["u"], ff["v"])
             G, aux = self._compute_tendencies(ff, w, time)
             new = {n: fields0[n] + sdt * G[n] for n in self.prognostic_3d}
@@ -959,7 +964,7 @@ class HydrostaticFreeSurfaceModel:
             if self._substepped_tke:
                 # χ = -1/2: the AB2 combination is an Euler step of the
                 # stage tendency
-                uf, vf = self._fill_uv(new)
+                uf, vf = self._fill_uv(new, time)
                 fnew = dict(new)
                 fnew.update(u=uf, v=vf, **{nm: fields0[nm] for nm in
                                            self._substepped_names})
@@ -972,7 +977,7 @@ class HydrostaticFreeSurfaceModel:
                         val = self.grid.mask_immersed(val, LOC_CCC)
                     new[nm] = val
             fields = self._mask_state(new)
-        uf, vf = self._fill_uv(fields)
+        uf, vf = self._fill_uv(fields, time)
         w_new = self._w_from_continuity(uf, vf)
         self._advance_state(fields, w_new, G, bt, dt)
         return self

@@ -2,20 +2,42 @@
 
 Counterpart of ``oceananigans_tpu/models/nonhydrostatic.py`` on a
 RectilinearGrid of any topology (periodic, bounded or flat x, y and z),
-regular or stretched along one bounded axis: flux-form advection,
+regular or stretched along any axes, on an ``ImmersedBoundaryGrid``
+(``GridFittedBottom``, ``PartialCellBottom``, ``GridFittedBoundary``) and on
+the curvilinear grids the JAX model takes (``LatitudeLongitudeGrid``):
+flux-form advection,
 tracers, buoyancy (``BuoyancyTracer``, ``SeawaterBuoyancy`` with its
 equations of state, ``BuoyancyForce`` for a tilted gravity), Coriolis, the
 closures of ``closures/`` (the scalar-diffusivity family, closure tuples,
 Smagorinsky, Lilly, dynamic Smagorinsky, AMD, and the vertical closures,
 CATKE among them as an ordinary tracer closure with its implicit damping)
-with the vertically implicit solve, user forcing, Stokes drift, background fields, scalar
-Value/Gradient/Flux conditions on the z sides, RK3 or quasi-AB2, and the
-pressure solver of ``select_pressure_solver``: FFT/DCT on a regular grid,
-Fourier-tridiagonal with one stretched bounded axis. Immersed grids, grids
-stretched along several axes or curvilinear grids (the JAX package's
-conjugate-gradient solvers), a user pressure solver, biogeochemistry,
+with the vertically implicit solve, user forcing, Stokes drift, background
+fields, the boundary conditions of ``boundary_conditions/`` on every side of
+every field, w included (Open conditions with a value or with
+``PerturbationAdvection``, and array, callable and FieldTimeSeries values),
+RK3 or quasi-AB2, and the pressure solver of ``select_pressure_solver`` or
+the user's ``pressure_solver=``: FFT/DCT on a regular grid,
+Fourier-tridiagonal with one stretched bounded axis, the conjugate-gradient
+solvers elsewhere (``make_immersed_poisson_solver`` on an immersed grid,
+``make_variable_spacing_poisson_solver`` on a grid stretched along several
+axes or a periodic one and on curvilinear grids). Biogeochemistry,
 particles and auxiliary fields raise ``NotImplementedError`` naming their
 ROADMAP item.
+
+On an immersed grid the model takes the padded layout and the plain flux
+divergences with the near-wall cascade of the schemes (as the JAX model
+takes no kernel there), zeroes every field's solid cells before each fill,
+and u, v and w's around the projection, and adds the immersed boundary
+fluxes. Open sides: every fill of a stage (before the tendencies and in the
+projection) is given the clock time and the stage's Δt, so that a
+PerturbationAdvection face steps toward its exterior value; before the
+divergence, the normal velocity of the PerturbationAdvection sides is
+shifted uniformly so that the net volume flux through the open sides is
+zero (``_balance_open_mass``). A face field whose high boundary face the
+fill does not pin (PerturbationAdvection, or a Flux or Gradient condition
+on the wall-normal velocity) is stepped there too, as the JAX model steps
+its whole padded array: its tendencies and update cover that face
+(``_regions``).
 
 The layout and the step follow the JAX package's choice (its ``__init__``
 and ``_build_step``, without the TPU's Nz % 128 gate, Hy-to-8 rounding, lane
@@ -83,15 +105,19 @@ from ..advection.schemes import adapt_advection_order
 from ..background_fields import evaluate_background
 from ..boundary_conditions import (apply_flux_bcs, fill_all_halo_regions,
                                    regularize_field_boundary_conditions)
-from ..boundary_conditions.boundary_condition import default_bcs
+from ..boundary_conditions.boundary_condition import (OPEN,
+                                                      PerturbationAdvection)
+from ..boundary_conditions.fill_halos import (apply_immersed_flux_bcs,
+                                              immersed_diffusivity)
 from ..closures.scalar_diffusivity import (ClosureTuple, _ClosureBase,
                                            validate_implicit_closure_z_bcs)
 from ..defaults import numpy_dtype
 from ..fields import Field, set_on_padded
 from ..forcings.forcings import regularize_forcing
 from ..grids.base import numpy_metric
-from ..grids.topology import (BOUNDED, LOC_CCC, LOC_CCF, LOC_CFC, LOC_FCC,
-                              PERIODIC)
+from ..grids.topology import (BOUNDED, FACE, LOC_CCC, LOC_CCF, LOC_CFC,
+                              LOC_FCC, PERIODIC)
+from ..immersed import ImmersedBoundaryGrid
 from ..kernels import (build_sharded_fused_advection,
                        fused_advection_tendency, fused_advection_update,
                        fused_correct, fused_divergence, periodic_halo_fill)
@@ -107,11 +133,7 @@ from ..utils.dateclock import datetime_of
 
 PROGNOSTIC_LOCS = {"u": LOC_FCC, "v": LOC_CFC, "w": LOC_CCF}
 
-CG_SOLVER_ITEM = ("ROADMAP.md queue 1 item 11c (the conjugate-gradient "
-                  "Poisson solvers of immersed, multiply stretched and "
-                  "curvilinear grids)")
 _NOT_PORTED = {
-    "pressure_solver": "ROADMAP.md queue 1 item 11c (user Poisson solvers)",
     "biogeochemistry": "ROADMAP.md queue 1 item 15 (the long tail)",
     "particles": "ROADMAP.md queue 1 item 15 (the long tail)",
     "auxiliary_fields": "ROADMAP.md queue 1 item 15 (the long tail)",
@@ -129,47 +151,35 @@ def _timestepper(timestepper):
     raise ValueError(f"unknown timestepper {timestepper!r}")
 
 
-def select_pressure_solver(grid):
-    """The JAX ``select_pressure_solver``'s choice on a RectilinearGrid: the
-    FFT/DCT solver on a regular grid, the Fourier-tridiagonal solver with
-    one stretched bounded axis (x, y or z). The conjugate-gradient solvers
-    it takes otherwise (immersed, multiply stretched and curvilinear grids)
-    are not ported and raise."""
-    stretched = _pressure_solver_axis(grid)
-    if stretched is None:
-        return FFTPoissonSolver(grid)
-    return FourierTridiagonalPoissonSolver(grid, stretched_axis=stretched)
-
-
-def _pressure_solver_axis(grid):
-    """None for the FFT/DCT solver, the stretched axis for the
-    Fourier-tridiagonal one; raises where the JAX package takes a
-    conjugate-gradient solver."""
+def select_pressure_solver(grid, fill_p=None):
+    """The JAX ``select_pressure_solver``'s choice: on an immersed grid the
+    conjugate-gradient solver with the masked Laplacian (preconditioned by
+    the FFT solver of the underlying grid when it is regular); on a grid
+    that is not a RectilinearGrid, and on one stretched along several axes
+    or along a periodic one, the variable-spacing conjugate-gradient solver;
+    the FFT/DCT solver on a regular grid; the Fourier-tridiagonal solver
+    with one stretched bounded axis (x, y or z). ``fill_p`` fills a padded
+    pressure's halos in place (the CG solvers' operator)."""
     from ..grids.rectilinear import RectilinearGrid
-    if hasattr(grid, "solid_ccc"):
-        raise NotImplementedError(
-            "the port's NonhydrostaticModel on an ImmersedBoundaryGrid "
-            "(masked advection, the immersed pressure solve) is not ported "
-            f"yet: {CG_SOLVER_ITEM}")
+    from ..solvers.conjugate_gradient import make_immersed_poisson_solver
+    from ..solvers.fourier_tridiagonal import \
+        make_variable_spacing_poisson_solver
+    if fill_p is None:
+        bcs = regularize_field_boundary_conditions(None, grid, LOC_CCC)
+        fill_p = lambda p: fill_all_halo_regions([p], grid, [(LOC_CCC, bcs)])
+    if isinstance(grid, ImmersedBoundaryGrid):
+        under = grid.underlying_grid
+        fft = FFTPoissonSolver(under) if under.all_regular else None
+        return make_immersed_poisson_solver(grid, fill_p, fft)
     if not isinstance(grid, RectilinearGrid):
-        raise NotImplementedError(
-            f"the port's NonhydrostaticModel on a {type(grid).__name__}: "
-            f"{CG_SOLVER_ITEM}")
+        return make_variable_spacing_poisson_solver(grid, fill_p)
     if grid.all_regular:
-        return None
+        return FFTPoissonSolver(grid)
     stretched = grid.stretched_axes
     if len(stretched) == 1 and grid.topology[stretched[0]] == BOUNDED:
-        return stretched[0]
-    raise NotImplementedError(
-        f"a grid stretched along axes {stretched} of topology "
-        f"{grid.topology}: {CG_SOLVER_ITEM}")
-
-
-def _interior(grid, a):
-    """The interior of a padded (or broadcastable) tensor; scalars pass."""
-    if not isinstance(a, torch.Tensor) or a.ndim == 0:
-        return a
-    return a.broadcast_to(grid.padded_shape)[grid.interior_slices]
+        return FourierTridiagonalPoissonSolver(grid,
+                                               stretched_axis=stretched[0])
+    return make_variable_spacing_poisson_solver(grid, fill_p)
 
 
 class NonhydrostaticModel:
@@ -181,14 +191,12 @@ class NonhydrostaticModel:
                  auxiliary_fields=None, fuse_correction=True,
                  architecture=None, reference_datetime=None, device=None,
                  dtype=None):
-        given = dict(pressure_solver=pressure_solver,
-                     biogeochemistry=biogeochemistry, particles=particles,
+        given = dict(biogeochemistry=biogeochemistry, particles=particles,
                      auxiliary_fields=auxiliary_fields)
         for name, value in given.items():
             if value:
                 raise NotImplementedError(
                     f"{name} is not ported yet: {_NOT_PORTED[name]}")
-        _pressure_solver_axis(grid)     # raise early for what is refused
         if isinstance(closure, (tuple, list)):
             closure = ClosureTuple(*closure)
         if closure is not None and not isinstance(closure, _ClosureBase):
@@ -235,13 +243,17 @@ class NonhydrostaticModel:
             raise ValueError(f"boundary conditions for unknown fields {unknown}")
         user_zbcs = any(getattr(b, side, None) is not None
                         for b in bcs_in.values() for side in ("bottom", "top"))
-        # JAX's eligible_zc, without its Nz % 128 gate
+        self.immersed = isinstance(grid, ImmersedBoundaryGrid)
+        # JAX's eligible_zc, without its Nz % 128 gate; an immersed grid
+        # takes the padded layout (the z-compact route's kernels take no
+        # immersed grid)
         self._z_compact = (grid.all_regular and grid.topology == (
             PERIODIC, PERIODIC, BOUNDED)
             and closure is None and not self.forcing
-            and stokes_drift is None
+            and stokes_drift is None and not self.immersed
             and not self.background_fields and not user_zbcs)
-        self._kernel_tendency = kernel_tendency_eligible(grid)
+        self._kernel_tendency = (kernel_tendency_eligible(grid)
+                                 and not self.immersed)
         # advection is the only tendency: the fused update route
         self._fused_update = (
             self._z_compact and buoyancy is None and coriolis is None
@@ -288,10 +300,12 @@ class NonhydrostaticModel:
         self.bcs = {name: regularize_field_boundary_conditions(
             bcs_in.get(name), self.grid, self.loc(name))
             for name in self.prognostic_names}
-        if self.bcs["w"] != default_bcs(self.grid, LOC_CCF):
-            raise NotImplementedError(
-                "boundary conditions on w are not ported yet: ROADMAP.md "
-                "queue 1 item 3 (boundary_conditions/)")
+        self._regions = {name: self._update_region(name)
+                         for name in self.prognostic_names}
+        if any(r != self.grid.interior_slices
+               for r in self._regions.values()):
+            # the tendency kernel writes the interior alone
+            self._kernel_tendency = False
         self.bcs["p"] = regularize_field_boundary_conditions(
             None, self.grid, LOC_CCC)
         validate_implicit_closure_z_bcs(closure, self.bcs)
@@ -301,7 +315,12 @@ class NonhydrostaticModel:
         for name in self._closure_state:
             self.bcs[name] = regularize_field_boundary_conditions(
                 None, self.grid, LOC_CCC)
-        self.pressure_solver = select_pressure_solver(self.grid)
+        if pressure_solver is None:
+            bcs_p = self.bcs["p"]
+            pressure_solver = select_pressure_solver(
+                self.grid, lambda p: fill_all_halo_regions(
+                    [p], self.grid, [(LOC_CCC, bcs_p)]))
+        self.pressure_solver = pressure_solver
         self._sharded_advection = None
         if self.architecture is not None:
             self._sharded_advection = build_sharded_fused_advection(
@@ -316,7 +335,8 @@ class NonhydrostaticModel:
             clock=dict(time=nt(0), iteration=0, last_dt=nt(np.inf)))
         if isinstance(self.timestepper, QuasiAdamsBashforth2TimeStepper):
             self.state["Gm"] = {n: torch.zeros(
-                self.grid.N, dtype=self.grid.dtype, device=self.grid.device)
+                tuple(s.stop - s.start for s in self._regions[n]),
+                dtype=self.grid.dtype, device=self.grid.device)
                 for n in self.prognostic_names}
 
     # -- basic properties -----------------------------------------------------
@@ -361,38 +381,75 @@ class NonhydrostaticModel:
         return torch.zeros(self.grid.padded_shape, dtype=self.grid.dtype,
                            device=self.grid.device)
 
-    def _fill_all(self, fields):
-        """Fill the halos of ``fields`` ({name: padded tensor}) in place."""
+    def _update_region(self, name):
+        """The padded slices a field's tendency and update cover: the
+        interior, and for a wall-normal velocity whose high boundary face
+        the fill does not pin (PerturbationAdvection, a Flux or Gradient
+        condition) that face too, which the JAX model steps with the rest
+        of its padded array."""
+        from ..kernels.halo_fill import PA_FACE, REFLECT, _side_code
+        grid = self.grid
+        region = list(grid.interior_slices)
+        loc = self.loc(name)
+        for axis in range(3):
+            if loc[axis] != FACE or grid.topology[axis] != BOUNDED or \
+                    grid.H[axis] == 0:
+                continue
+            if _side_code(self.bcs[name].pair(axis)[1], True,
+                          pa=True) in (PA_FACE, REFLECT):
+                H, N = grid.H[axis], grid.N[axis]
+                region[axis] = slice(H, H + N + 1)
+        return tuple(region)
+
+    def _region_of(self, name, a):
+        """A padded (or broadcastable) tensor over the field's update
+        region; scalars pass."""
+        if not isinstance(a, torch.Tensor) or a.ndim == 0:
+            return a
+        return a.broadcast_to(self.grid.padded_shape)[self._regions[name]]
+
+    def _fill_all(self, fields, time=0.0, dt=None):
+        """Fill the halos of ``fields`` ({name: padded tensor}) in place,
+        their conditions at ``time`` (``dt``: the stage's Δt, for the
+        PerturbationAdvection faces); on an immersed grid the solid cells
+        are zeroed first."""
         names = list(fields)
+        if self.immersed:
+            for n in names:
+                if n != "p":
+                    self.grid.mask_immersed_(fields[n], self.loc(n))
         fill_all_halo_regions(
             [fields[n] for n in names], self.grid,
             [(self.loc(n) if n != "p" else LOC_CCC, self.bcs[n])
-             for n in names])
+             for n in names], time=float(time),
+            dt=None if dt is None else float(dt))
         return fields
 
     # -- setting initial conditions -------------------------------------------
 
     def set(self, enforce_incompressibility=True, **values):
         """Set prognostic fields from scalars/arrays/functions, then project
-        the velocities onto their divergence-free part."""
+        the velocities onto their divergence-free part (with Δt = 1, as the
+        JAX model projects)."""
         fields = dict(self.state["fields"])
+        time = self.state["clock"]["time"]
         for name, value in values.items():
             if name not in fields:
                 raise ValueError(f"unknown prognostic field {name!r}")
             fields[name] = set_on_padded(self.grid, self.loc(name), value)
-        self._fill_all({name: fields[name] for name in values})
+        self._fill_all({name: fields[name] for name in values}, time)
         if enforce_incompressibility and any(k in values for k in "uvw"):
             # the padded projection works in place: keep the old state's
             # tensors
             vel = [fields[c] if c in values or self._z_compact
                    else fields[c].clone() for c in "uvw"]
-            u, v, w, _ = self._project(*vel, self._nt(1.0))
+            u, v, w, _ = self._project(*vel, self._nt(1.0), time)
             fields.update(u=u, v=v, w=w)
         self.state = {**self.state, "fields": fields}
 
     # -- step -------------------------------------------------------------------
 
-    def _solve_padded(self, rhs):
+    def _solve_padded(self, rhs, time=0.0):
         """Solve ∇²p = rhs and return p padded, with its halos filled."""
         p_int = self.pressure_solver.solve(rhs)
         p = torch.empty(self.grid.padded_shape, dtype=rhs.dtype,
@@ -401,26 +458,79 @@ class NonhydrostaticModel:
         if self._z_compact:
             periodic_halo_fill(self.grid, [p])
         else:
-            self._fill_all({"p": p})
+            self._fill_all({"p": p}, time)
         return p
 
-    def _project(self, u, v, w, dtt, halos_valid=False):
+    @property
+    def _open_sides(self):
+        """The Open sides of the wall-normal velocities that carry a volume
+        flux: (name, axis, is_left, has the PerturbationAdvection scheme),
+        the scheme's sides and those with a condition (JAX's
+        ``_open_sides``)."""
+        sides = []
+        for name, axis in (("u", 0), ("v", 1), ("w", 2)):
+            if self.grid.topology[axis] != BOUNDED:
+                continue
+            for bc, is_left in zip(self.bcs[name].pair(axis), (True, False)):
+                if bc is not None and bc.classification == OPEN:
+                    scheme = isinstance(bc.scheme, PerturbationAdvection)
+                    if scheme or bc.condition is not None:
+                        sides.append((name, axis, is_left, scheme))
+        return sides
+
+    def _balance_open_mass(self, vel):
+        """Shift the PerturbationAdvection sides' normal velocity uniformly
+        so that the net volume flux through the open sides is zero (JAX's
+        ``_balance_open_mass``: the solvability of the pressure problem);
+        in place. Returns the correction (a 0-d tensor), or None without
+        such sides."""
+        sides = self._open_sides
+        if not any(s[3] for s in sides):
+            return None
+        grid = self.grid
+        areas = (grid.Ax(LOC_FCC), grid.Ay(LOC_CFC), grid.Az(LOC_CCF))
+        total_flux = total_area = 0.0
+        planes = []
+        for name, axis, is_left, scheme in sides:
+            H, N = grid.H[axis], grid.N[axis]
+            sl = list(grid.interior_slices)
+            sl[axis] = slice(H, H + 1) if is_left else slice(H + N,
+                                                             H + N + 1)
+            sl = tuple(sl)
+            A = torch.as_tensor(areas[axis], dtype=grid.dtype,
+                                device=grid.device).broadcast_to(
+                                    grid.padded_shape)[sl]
+            flux = torch.sum(vel[name][sl] * A)
+            total_flux = total_flux + (flux if is_left else -flux)
+            if scheme:
+                total_area = total_area + torch.sum(A)
+                planes.append((name, sl, is_left))
+        corr = total_flux / total_area
+        for name, sl, is_left in planes:
+            vel[name][sl] += -corr if is_left else corr
+        return corr
+
+    def _project(self, u, v, w, dtt, time=0.0, halos_valid=False):
         """Pressure projection: the divergence and correction kernels in the
         z-compact layout (a fill of u, v, w first unless ``halos_valid``; new
-        tensors out); in the padded layout a fill of u, v, w, the plain
-        PyTorch divergence and correction (in place) around the solve."""
+        tensors out); in the padded layout, in place, JAX's order: the solid
+        cells of an immersed grid zeroed, a fill of u, v, w (with Δt, at the
+        clock ``time``), the open sides' mass balance, the plain PyTorch
+        divergence, the solve, the pressure fill, the plain correction, the
+        solid cells zeroed again."""
         if self._z_compact:
             if not halos_valid:
-                self._fill_all(dict(u=u, v=v, w=w))
+                self._fill_all(dict(u=u, v=v, w=w), time, dtt)
             rhs = fused_divergence(self.grid, u, v, w, self._nt(1.0) / dtt)
             p = self._solve_padded(rhs)
             u, v, w = fused_correct(self.grid, p, u, v, w, dtt)
             return u, v, w, p
         grid = self.grid
-        self._fill_all(dict(u=u, v=v, w=w))
+        self._fill_all(dict(u=u, v=v, w=w), time, dtt)
+        self._balance_open_mass(dict(u=u, v=v, w=w))
         dtt = float(dtt)
         rhs = _interior_divergence(grid, u, v, w) / dtt
-        p = self._solve_padded(rhs)
+        p = self._solve_padded(rhs, time)
         ints = grid.interior_slices
         pi = p[ints]
         for axis, (a, delta) in enumerate(((u, grid.dx), (v, grid.dy),
@@ -428,9 +538,14 @@ class NonhydrostaticModel:
             if grid.is_flat(axis):
                 continue
             loc = (LOC_FCC, LOC_CFC, LOC_CCF)[axis]
-            grad = (pi - p[_shifted(ints, axis, -1)]) / _metric_at(
-                grid, delta(loc), ints)
-            a[ints] -= dtt * grad
+            region = self._regions["uvw"[axis]]
+            below = _shifted(region, axis, -1)
+            grad = (p[region] - p[below]) / _metric_at(grid, delta(loc),
+                                                       region)
+            a[region] -= dtt * grad
+        if self.immersed:
+            for name, a in zip("uvw", (u, v, w)):
+                grid.mask_immersed_(a, self.loc(name))
         return u, v, w, p
 
     def _advection(self, fields, time):
@@ -462,50 +577,57 @@ class NonhydrostaticModel:
             if name in bg:
                 g = g - div_Uc(grid, adv, *vel, bg[name])
             G[name] = g
-        return {n: _interior(grid, g) for n, g in G.items()}
+        return {n: self._region_of(n, g) for n, g in G.items()}
 
     def _tendencies(self, fields, time):
-        """The interior-shaped tendencies of the prognostic fields and the
-        closure's diffusivities, in the JAX package's order: advection,
-        Coriolis, buoyancy, Stokes drift, the closure's momentum terms, the
-        tracers' closure terms, forcing, boundary fluxes. The closure state
-        has none: it is carried through the stages."""
+        """The tendencies of the prognostic fields over their update regions
+        (``_region``) and the closure's diffusivities, in the JAX package's
+        order: advection, Coriolis, buoyancy, Stokes drift, the closure's
+        momentum terms, the tracers' closure terms, forcing, boundary fluxes
+        (and the immersed ones). The closure state has none: it is carried
+        through the stages."""
         grid = self.grid
         G = self._advection(fields, time)
         u, v, w = fields["u"], fields["v"], fields["w"]
+        R = self._region_of
         if self.coriolis is not None:
             for c, fn in zip("uvw", ("x_f_cross_U", "y_f_cross_U",
                                      "z_f_cross_U")):
-                G[c] = G[c] - _interior(
-                    grid, getattr(self.coriolis, fn)(grid, u, v, w))
+                G[c] = G[c] - R(c, getattr(self.coriolis, fn)(grid, u, v, w))
         if self.buoyancy is not None:
             for c, fn in zip("uvw", ("x_buoyancy", "y_buoyancy",
                                      "z_buoyancy")):
                 term = getattr(self.buoyancy, fn, lambda g, f: None)(
                     grid, fields)
                 if term is not None:
-                    G[c] = G[c] + _interior(grid, term)
+                    G[c] = G[c] + R(c, term)
         if self.stokes_drift is not None:
             for c, fn in zip("uvw", ("x_tendency", "y_tendency",
                                      "z_tendency")):
-                G[c] = G[c] + _interior(grid, getattr(self.stokes_drift, fn)(
+                G[c] = G[c] + R(c, getattr(self.stokes_drift, fn)(
                     grid, u, v, w, time))
         aux = {}
         if self.closure is not None:
             aux = self.closure.compute_diffusivities(grid, fields, time)
             mt = self.closure.momentum_tendencies(grid, fields, aux)
             for c in "uvw":
-                G[c] = G[c] + _interior(grid, mt[c])
+                G[c] = G[c] + R(c, mt[c])
             for name in self.tracer_names:
-                G[name] = G[name] + _interior(
-                    grid, self.closure.tracer_tendency(grid, name, fields,
-                                                       aux))
+                G[name] = G[name] + R(name, self.closure.tracer_tendency(
+                    grid, name, fields, aux))
         for name, F in self.forcing.items():
-            G[name] = G[name] + _interior(grid, F(grid, fields, time))
+            G[name] = G[name] + R(name, F(grid, fields, time))
         locs = {n: self.loc(n) for n in fields}
         for name in G:
             apply_flux_bcs(G[name], grid, self.loc(name), self.bcs[name],
-                           time, fields=fields, locs=locs)
+                           time, fields=fields, locs=locs,
+                           region=self._regions[name])
+            ibc = self.bcs[name].immersed
+            if self.immersed and ibc is not None:
+                G[name] = G[name] + R(name, apply_immersed_flux_bcs(
+                    torch.zeros_like(fields[name]), grid, self.loc(name),
+                    ibc, time, c=fields[name],
+                    kappa=immersed_diffusivity(self.closure, name)))
         for hook in self._tendency_hooks:
             G = hook(grid, fields, G, float(time))
         return G, aux
@@ -538,9 +660,8 @@ class NonhydrostaticModel:
         return out
 
     def _update(self, fields, coefficients, dt):
-        """New padded tensors q + Δt·Σ cᵢGᵢ at the interiors, for
+        """New padded tensors q + Δt·Σ cᵢGᵢ over the update regions, for
         ``coefficients`` [(cᵢ, Gᵢ)]; the closure state is carried."""
-        ints = self.grid.interior_slices
         new = {}
         for name, q in fields.items():
             if name in self._closure_state:
@@ -550,6 +671,7 @@ class NonhydrostaticModel:
             for coef, Gi in coefficients:
                 term = coef * Gi[name]
                 inc = term if inc is None else inc + term
+            ints = self._regions[name]
             new[name] = q.clone()
             new[name][ints] = q[ints] + float(dt) * inc
         if self._z_compact:
@@ -557,9 +679,9 @@ class NonhydrostaticModel:
             new["w"][..., 0] = 0
         return new
 
-    def _advance_closure_state(self, fields, dt, iteration):
+    def _advance_closure_state(self, fields, dt, iteration, time):
         if self._closure_state:
-            self._fill_all(fields)
+            self._fill_all(fields, time)
             fields.update(self.closure.update_state_fields(
                 self.grid, fields, dt, iteration))
         return fields
@@ -612,18 +734,20 @@ class NonhydrostaticModel:
         Gm = None
         for gamma, zeta in zip(RK3_GAMMAS, RK3_ZETAS):
             stage_dt = nt(gamma + zeta) * dt
-            self._fill_all(fields)
+            self._fill_all(fields, time, stage_dt)
             G, aux = self._tendencies(fields, time)
             coefficients = [(gamma, G)] + ([(zeta, Gm)] if zeta != 0.0
                                            else [])
             new = self._update(fields, coefficients, dt)
             new = self._implicit_step(new, aux, stage_dt)
-            u, v, w, p = self._project(new["u"], new["v"], new["w"], stage_dt)
+            u, v, w, p = self._project(new["u"], new["v"], new["w"], stage_dt,
+                                       time)
             new.update(u=u, v=v, w=w)
             fields = new
             Gm = G
             time = time + stage_dt
-        fields = self._advance_closure_state(fields, dt, clock["iteration"])
+        fields = self._advance_closure_state(fields, dt, clock["iteration"],
+                                             time)
         self.state = dict(fields=fields, pressure=p,
                           clock=dict(time=time,
                                      iteration=clock["iteration"] + 1,
@@ -639,14 +763,16 @@ class NonhydrostaticModel:
         clock = self.state["clock"]
         euler = clock["iteration"] == 0 or clock["last_dt"] != dt
         a, b, keep = self.timestepper.coefficients(euler)
-        self._fill_all(fields)
+        self._fill_all(fields, clock["time"], dt)
         G, aux = self._tendencies(fields, clock["time"])
         Gm = {n: g * keep for n, g in self.state["Gm"].items()}
         new = self._update(fields, [(a, G), (-b, Gm)], dt)
         new = self._implicit_step(new, aux, dt)
-        u, v, w, p = self._project(new["u"], new["v"], new["w"], dt)
+        u, v, w, p = self._project(new["u"], new["v"], new["w"], dt,
+                                   clock["time"])
         new.update(u=u, v=v, w=w)
-        new = self._advance_closure_state(new, dt, clock["iteration"])
+        new = self._advance_closure_state(new, dt, clock["iteration"],
+                                          clock["time"])
         self.state = dict(fields=new, pressure=p, Gm=G,
                           clock=dict(time=clock["time"] + dt,
                                      iteration=clock["iteration"] + 1,
@@ -676,7 +802,7 @@ class NonhydrostaticModel:
                 pend = (p, stage_dt)
             else:
                 u, v, w, p = self._project(new["u"], new["v"], new["w"],
-                                           stage_dt, halos_valid=True)
+                                           stage_dt, time, halos_valid=True)
                 new.update(u=u, v=v, w=w)
                 pend = None
             fields = new
@@ -841,6 +967,18 @@ def padded_from_jax(grid, arr):
     return out
 
 
+def _region_from_jax(grid, arr, region):
+    """The padded ``region`` (slices of ``grid``'s layout) of a numpy array
+    padded in another layout, as a tensor of the grid's dtype and device."""
+    arr = np.asarray(arr)
+    sl = []
+    for axis in range(3):
+        h = (arr.shape[axis] - grid.N[axis]) // 2 - grid.H[axis]
+        sl.append(slice(region[axis].start + h, region[axis].stop + h))
+    return torch.as_tensor(np.ascontiguousarray(arr[tuple(sl)]),
+                           dtype=grid.dtype, device=grid.device)
+
+
 def state_from_jax(jax_state_numpy, model):
     """Load a JAX model's state into ``model``.
 
@@ -851,10 +989,21 @@ def state_from_jax(jax_state_numpy, model):
     are read off their shapes, the interiors are written into the port's
     padded tensors, and the halos are refilled."""
     grid = model.grid
-    fields = {n: padded_from_jax(grid, jax_state_numpy["fields"][n])
+    arrays = jax_state_numpy["fields"]
+    fields = {n: padded_from_jax(grid, arrays[n])
               for n in model.state["fields"]}
     pressure = padded_from_jax(grid, jax_state_numpy["pressure"])
-    model._fill_all({**fields, "p": pressure})
+    model._fill_all({**fields, "p": pressure}, jax_state_numpy["clock"][
+        "time"])
+    regions = getattr(model, "_regions", {})
+    for n, region in regions.items():
+        if region != grid.interior_slices or any(
+                bc is not None and bc.classification == OPEN
+                for bc in (model.bcs[n].pair(a)[0] for a in range(3))):
+            # the boundary faces the JAX state carries (a PA face, or a
+            # face the fill does not pin): copied after the fill, which
+            # would pin them
+            fields[n][region] = _region_from_jax(grid, arrays[n], region)
     jc = jax_state_numpy["clock"]
     nt = model._nt
     state = dict(fields=fields, pressure=pressure,
@@ -862,7 +1011,9 @@ def state_from_jax(jax_state_numpy, model):
                             iteration=int(jc["iteration"]),
                             last_dt=nt(jc["last_dt"])))
     if "Gm" in model.state:
-        state["Gm"] = {n: padded_from_jax(grid, jax_state_numpy["Gm"][n])[
-            grid.interior_slices] for n in model.state["Gm"]}
+        state["Gm"] = {n: _region_from_jax(
+            grid, jax_state_numpy["Gm"][n],
+            regions.get(n, grid.interior_slices)).clone()
+            for n in model.state["Gm"]}
     model.state = state
     return model

@@ -1,16 +1,31 @@
-"""Preconditioned conjugate-gradient solver.
+"""Preconditioned conjugate gradients and the conjugate-gradient Poisson
+solvers.
 
-Counterpart of ``oceananigans_tpu/solvers/conjugate_gradient.py``'s
-``conjugate_gradient``: the same iteration on tensors. The JAX loop is a
+Counterpart of ``oceananigans_tpu/solvers/conjugate_gradient.py``:
+``conjugate_gradient`` is the same iteration on tensors. The JAX loop is a
 ``lax.while_loop`` on the residual norm; here a Python loop reads the norm on
-the host each iteration (one device-to-host copy of a scalar an iteration).
+the host each iteration (one device-to-host copy of a scalar an iteration,
+``conjugate_gradient.syncs`` counts them; ``.iterations`` and
+``.residuals`` keep each solve's iterations and final residual over ‖b‖).
+``ConjugateGradientPoissonSolver`` solves with a user operator;
+``VolumeScaledPoissonSolver`` scales the right-hand side by -V first (the
+variable-spacing solver's); ``make_immersed_poisson_solver`` builds the
+``ImmersedPoissonSolver`` of an ``ImmersedBoundaryGrid``: the finite-volume
+Laplacian in flux form, -Σ δ(A·m·∂p) with the fluid mask m of each face (no flux through the
+topography), identity rows on solid cells, the right-hand side scaled by the
+cell volume V, and the regular-grid FFT solver as the preconditioner when
+the underlying grid is regular. The flux form (no 1/V) keeps the operator
+symmetric in the plain dot product where partial cells make V vary.
 """
 
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
+
+from ..grids.topology import CENTER, FACE, LOC_CCC
 
 
 def conjugate_gradient(A, b, x0=None, preconditioner=None, reltol=1e-7,
@@ -25,14 +40,19 @@ def conjugate_gradient(A, b, x0=None, preconditioner=None, reltol=1e-7,
     def dot(u, v):
         return torch.sum(u * v)
 
+    def norm(r):
+        conjugate_gradient.syncs += 1
+        return math.sqrt(dot(r, r).item())
+
     x = x0
     r = b - A(x0)
     z = M(r)
     p = z
     rz = dot(r, z)
-    tol = max(reltol * math.sqrt(dot(b, b).item()), abstol)
+    bnorm = norm(b)
+    tol = max(reltol * bnorm, abstol)
     it = 0
-    while it < maxiter and math.sqrt(dot(r, r).item()) > tol:
+    while it < maxiter and norm(r) > tol:
         Ap = A(p)
         alpha = rz / dot(p, Ap)
         x = x + alpha * p
@@ -43,4 +63,170 @@ def conjugate_gradient(A, b, x0=None, preconditioner=None, reltol=1e-7,
         p = z + beta * p
         rz = rz_new
         it += 1
-    return x, it, math.sqrt(dot(r, r).item())
+    res = math.sqrt(dot(r, r).item())
+    conjugate_gradient.iterations.append(it)
+    conjugate_gradient.residuals.append(res / bnorm if bnorm else 0.0)
+    return x, it, res
+
+
+conjugate_gradient.syncs = 0        # host reads of a norm
+# the iterations and the final residual norms over ‖b‖ of the latest solves
+# (bounded: a long run solves millions of times)
+conjugate_gradient.iterations = collections.deque(maxlen=4096)
+conjugate_gradient.residuals = collections.deque(maxlen=4096)
+
+
+class ConjugateGradientPoissonSolver:
+    """CG Poisson solve with a user ``operator`` (interior tensor to
+    interior tensor) and an optional ``preconditioner``: the right-hand side
+    and the solution have their means removed (the Neumann
+    compatibility)."""
+
+    def __init__(self, grid, operator, preconditioner=None, reltol=1e-7,
+                 maxiter=200):
+        self.grid = grid
+        self.operator = operator
+        self.preconditioner = preconditioner
+        self.reltol = reltol
+        self.maxiter = maxiter
+
+    def solve(self, b):
+        x = self.iterate(b - torch.mean(b))
+        return x - torch.mean(x)
+
+    def iterate(self, b):
+        """``conjugate_gradient``'s solution of operator(x) = b."""
+        return conjugate_gradient(self.operator, b,
+                                  preconditioner=self.preconditioner,
+                                  reltol=self.reltol, maxiter=self.maxiter)[0]
+
+
+class VolumeScaledPoissonSolver(ConjugateGradientPoissonSolver):
+    """The flux-form solve of ∇²p = b: the right-hand side scaled by -V (a
+    scalar or a tensor over the interior) before the means are removed."""
+
+    def __init__(self, grid, operator, V, preconditioner=None, reltol=1e-7,
+                 maxiter=200):
+        super().__init__(grid, operator, preconditioner, reltol, maxiter)
+        self.V = V
+
+    def solve(self, b):
+        return super().solve(-b * self.V)
+
+
+class ImmersedPoissonSolver(VolumeScaledPoissonSolver):
+    """The immersed solve: b scaled by -V and zero on the ``solid`` cells,
+    whose rows are the identity; no mean is removed (JAX's), as the mean
+    would put a value on the solid rows."""
+
+    def __init__(self, grid, operator, V, solid, preconditioner=None,
+                 reltol=1e-7, maxiter=200):
+        super().__init__(grid, operator, V, preconditioner, reltol, maxiter)
+        self.solid = solid
+
+    def solve(self, b):
+        return self.iterate(torch.where(
+            self.solid, torch.zeros((), dtype=b.dtype, device=b.device),
+            -b * self.V))
+
+
+def _face_loc(axis):
+    return tuple(FACE if a == axis else CENTER for a in range(3))
+
+
+def _region(grid, axis, lo, hi):
+    """The interior slices with ``axis`` running over padded [lo, hi)."""
+    out = list(grid.interior_slices)
+    out[axis] = slice(lo, hi)
+    return tuple(out)
+
+
+def _cut(grid, m, slices):
+    """A metric (a Python scalar or a padded-broadcastable tensor) at the
+    padded ``slices``, contiguous."""
+    if not isinstance(m, torch.Tensor) or m.ndim == 0:
+        return m
+    return m.broadcast_to(grid.padded_shape)[slices].contiguous()
+
+
+class FluxLaplacian:
+    """-Σ δ(A·m·∂p) over the interior of ``grid`` in flux form (no 1/V),
+    as the JAX operators form it: ``(A·m)·(δp/Δ)`` at the N + 1 faces of
+    each axis that is not flat, differenced and summed in axis order.
+    ``masks`` gives each face's fluid mask (None: no mask). ``fill_p``
+    fills the halos of the padded p in place; the padded buffer is kept
+    between calls (its interior rewritten, its halos refilled)."""
+
+    def __init__(self, grid, fill_p, masks=None):
+        self.grid = grid
+        self.fill_p = fill_p
+        self.terms = []
+        for axis in range(3):
+            if grid.is_flat(axis):
+                continue
+            H, N = grid.H[axis], grid.N[axis]
+            loc = _face_loc(axis)
+            faces = _region(grid, axis, H, H + N + 1)
+            A = (grid.Ax, grid.Ay, grid.Az)[axis](loc)
+            if masks is not None:
+                A = A * masks[axis]
+            spacing = (grid.dx, grid.dy, grid.dz)[axis](loc)
+            self.terms.append((axis, _cut(grid, A, faces),
+                               _cut(grid, spacing, faces),
+                               _region(grid, axis, H - 1, H + N)))
+        self._p = None
+
+    def padded(self, p_int):
+        """The padded p with ``p_int`` in its interior and its halos
+        filled."""
+        if self._p is None or self._p.dtype != p_int.dtype:
+            self._p = torch.zeros(self.grid.padded_shape, dtype=p_int.dtype,
+                                  device=p_int.device)
+        self._p[self.grid.interior_slices] = p_int
+        self.fill_p(self._p)
+        return self._p
+
+    def __call__(self, p_int):
+        """-∇·(A m ∇p) of an interior tensor (shape grid.N)."""
+        p = self.padded(p_int)
+        lap = None
+        for axis, Am, spacing, below in self.terms:
+            N = self.grid.N[axis]
+            upper = _region(self.grid, axis, below[axis].start + 1,
+                            below[axis].stop + 1)
+            flux = Am * ((p[upper] - p[below]) / spacing)
+            term = flux.narrow(axis, 1, N) - flux.narrow(axis, 0, N)
+            lap = term if lap is None else lap + term
+        return -lap
+
+
+def fft_preconditioner(fft_solver):
+    """``r ↦ -φ`` with ∇²φ = r / V on the FFT solver's regular grid: the
+    inverse of the flux-form operator's regular-grid twin."""
+    Vr = fft_solver.grid.V(LOC_CCC)
+
+    def precond(r):
+        return -fft_solver.solve(r / Vr)
+
+    return precond
+
+
+def make_immersed_poisson_solver(grid, fill_p, fft_solver=None, reltol=1e-7,
+                                 maxiter=200):
+    """The CG Poisson solver of an ``ImmersedBoundaryGrid`` (the JAX
+    function's): the masked flux-form Laplacian, identity rows on solid
+    cells, b scaled by -V and zero on solid cells; preconditioned by
+    ``fft_solver`` (the underlying regular grid's) when given. ``fill_p``
+    fills a padded pressure's halos in place."""
+    masks = [grid.fluid_mask(_face_loc(axis)) for axis in range(3)]
+    lap = FluxLaplacian(grid, fill_p, masks)
+    ii = grid.interior_slices
+    solid = torch.as_tensor(grid.solid_ccc[ii], device=grid.device)
+    V = _cut(grid, grid.V(LOC_CCC), ii)
+    precond = None if fft_solver is None else fft_preconditioner(fft_solver)
+
+    def operator(p_int):
+        return torch.where(solid, p_int, lap(p_int))
+
+    return ImmersedPoissonSolver(grid, operator, V, solid, precond, reltol,
+                                 maxiter)

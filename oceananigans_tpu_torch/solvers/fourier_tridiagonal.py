@@ -16,8 +16,9 @@ volume mean, weighted by Δs_c, is removed at the end. The transforms follow
 the JAX order: the DCT axes first, then a complex FFT along each periodic
 axis; ``solve_batched_tridiagonal`` runs along the stretched axis, on the
 real and imaginary parts of a complex spectrum. Grids stretched along more
-than one axis take the JAX package's conjugate-gradient solver, which is
-not ported (ROADMAP item 11c): the model refuses them.
+than one axis, or along a periodic one, and curvilinear grids take
+``make_variable_spacing_poisson_solver``, the JAX package's
+conjugate-gradient solver with its FFT preconditioner.
 """
 
 from __future__ import annotations
@@ -121,3 +122,47 @@ class FourierTridiagonalPoissonSolver:
         other = tuple(ax for ax in range(3) if ax != s)
         mean = torch.sum(ph.mean(dim=other) * self._weights)
         return (ph - mean).to(b.dtype).contiguous()
+
+
+def regular_preconditioner_grid(grid):
+    """The regular RectilinearGrid of ``grid``'s size, extent, topology and
+    halo on which the JAX ``make_variable_spacing_poisson_solver`` builds
+    its FFT preconditioner, or None where the JAX construction fails: a grid
+    with a Flat axis (its ``RectilinearGrid(extent=grid.extent)`` takes an
+    extent per non-flat axis and refuses the three it is given). Every other
+    grid, curvilinear ones included (a lat-lon grid's extent is in degrees
+    along x and y, as in JAX), gets one."""
+    from ..grids.rectilinear import RectilinearGrid
+    if any(grid.is_flat(axis) for axis in range(3)):
+        return None
+    return RectilinearGrid(size=grid.N, extent=grid.extent,
+                           topology=grid.topology, halo=grid.H,
+                           dtype=grid.dtype, device=grid.device)
+
+
+def make_variable_spacing_poisson_solver(grid, fill_p=None, reltol=1e-8,
+                                         maxiter=500):
+    """The CG solver of a multiply stretched or curvilinear grid (the JAX
+    function's): the flux-form finite-volume Laplacian without masks
+    (the Neumann fill zeroes the gradient at bounded faces), b scaled by -V
+    with its mean removed, the solution's mean removed, and the FFT
+    preconditioner of ``regular_preconditioner_grid`` where JAX builds it.
+    ``fill_p`` fills a padded pressure's halos in place (by default with
+    the default conditions of a centre field)."""
+    from ..boundary_conditions import (fill_halo_regions,
+                                       regularize_field_boundary_conditions)
+    from ..grids.topology import LOC_CCC
+    from .conjugate_gradient import (FluxLaplacian, VolumeScaledPoissonSolver,
+                                     _cut, fft_preconditioner)
+    from .fft_poisson import FFTPoissonSolver
+
+    if fill_p is None:
+        bcs = regularize_field_boundary_conditions(None, grid, LOC_CCC)
+        fill_p = lambda p: fill_halo_regions(p, grid, LOC_CCC, bcs)
+    lap = FluxLaplacian(grid, fill_p)
+    V = _cut(grid, grid.V(LOC_CCC), grid.interior_slices)
+    reg = regular_preconditioner_grid(grid)
+    precond = None if reg is None else fft_preconditioner(
+        FFTPoissonSolver(reg))
+
+    return VolumeScaledPoissonSolver(grid, lap, V, precond, reltol, maxiter)

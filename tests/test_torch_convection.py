@@ -321,8 +321,9 @@ UNPORTED = {
     "isopycnal": lambda: dict(
         closure=ot.closures.IsopycnalSkewSymmetricDiffusivity(),
         tracers=("b",)),
-    "pressure_solver": lambda: dict(pressure_solver=object()),
     "particles": lambda: dict(particles=object()),
+    "biogeochemistry": lambda: dict(biogeochemistry=object()),
+    "auxiliary_fields": lambda: dict(auxiliary_fields={"a": object()}),
 }
 
 
@@ -331,6 +332,27 @@ def test_unported_options_raise(case):
     grid = _tgrid((8, 8, 8), (3, 3, 3))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NonhydrostaticModel(grid, advection=ot.WENO(5), **UNPORTED[case]())
+
+
+def test_pressure_solver_is_taken():
+    """``pressure_solver=`` (since item 11c): the model projects with the
+    solver it is given, here the FFT solver of its own grid, as with the
+    one it selects."""
+    from oceananigans_tpu_torch.solvers import FFTPoissonSolver
+    grid = _tgrid((8, 8, 8), (3, 3, 3))
+    solver = FFTPoissonSolver(grid)
+    rng = np.random.default_rng(4)
+    u = 0.1 * rng.standard_normal((8, 8, 8))
+    given = NonhydrostaticModel(grid, advection=ot.WENO(5),
+                                pressure_solver=solver, tracers=("c",))
+    chosen = NonhydrostaticModel(grid, advection=ot.WENO(5), tracers=("c",))
+    assert given.pressure_solver is solver
+    for m in (given, chosen):
+        m.set(u=u)
+        m.time_step(1e-2)
+    for name in ("u", "v", "w", "p"):
+        assert torch.equal(given.field(name).interior,
+                           chosen.field(name).interior), name
 
 
 COMPACT = {

@@ -88,12 +88,20 @@ def test_stretched_axis_raises():
     from oceananigans_tpu_torch.solvers import FourierTridiagonalPoissonSolver
     assert isinstance(NonhydrostaticModel(t).pressure_solver,
                       FourierTridiagonalPoissonSolver)
-    xz = TGrid(size=(8, 4, 8), x=faces + 1.0, y=(0.0, 1.0), z=faces,
-               topology=("bounded", "periodic", "bounded"),
-               dtype=torch.float64, device="cpu")
+    spec = dict(size=(8, 4, 8), x=faces + 1.0, y=(0.0, 1.0), z=faces,
+                topology=("bounded", "periodic", "bounded"))
+    xz = TGrid(dtype=torch.float64, device="cpu", **spec)
     assert xz.stretched_axes == (0, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 11c"):
-        NonhydrostaticModel(xz)
+    # since item 11c: the conjugate-gradient solver of JAX's model, whose
+    # solve matches it at 1e-6 (both at their default tolerance)
+    import jax.numpy as jnp
+    from oceananigans_tpu.models import NonhydrostaticModel as JModel
+    b = np.random.default_rng(1).standard_normal((8, 4, 8))
+    want = np.asarray(JModel(grid=JGrid(dtype=np.float64, **spec))
+                      .pressure_solver.solve(jnp.asarray(b)))
+    got = NonhydrostaticModel(xz).pressure_solver.solve(
+        torch.as_tensor(b)).numpy()
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
 
 
 def test_default_device_is_cuda():

@@ -178,11 +178,16 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NonhydrostaticModel(grid, auxiliary_fields={"a": object()})
     # a grid stretched along two axes takes JAX's conjugate-gradient
-    # solver, which waits for item 11c (a bounded x builds since item 11a)
+    # solver, the port's since item 11c: the same solution at 1e-6 (both
+    # at their default tolerance)
     faces = np.cumsum(np.r_[0.0, 1.0 + 0.3 * np.sin(np.arange(8))])
-    stretched = ot.RectilinearGrid(size=(8, 8, 8), x=tuple(faces),
-                                   y=(0.0, 1.0), z=tuple(faces - faces[-1]),
-                                   topology=("bounded", "periodic",
-                                             "bounded"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 11c"):
-        NonhydrostaticModel(stretched)
+    spec = dict(size=(8, 8, 8), x=tuple(faces), y=(0.0, 1.0),
+                z=tuple(faces - faces[-1]),
+                topology=("bounded", "periodic", "bounded"))
+    stretched = ot.RectilinearGrid(dtype=torch.float64, device="cpu", **spec)
+    b = np.random.default_rng(2).standard_normal((8, 8, 8))
+    want = np.asarray(JModel(grid=JGrid(dtype=np.float64, **spec))
+                      .pressure_solver.solve(jnp.asarray(b)))
+    got = NonhydrostaticModel(stretched).pressure_solver.solve(
+        torch.as_tensor(b)).numpy()
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()

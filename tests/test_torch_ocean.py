@@ -45,6 +45,7 @@ import chip_smoke
 import oceananigans_tpu as jo
 import oceananigans_tpu.buoyancy as jb
 import oceananigans_tpu.forcings as jf
+from oceananigans_tpu.advection import Centered as ja_Centered
 from oceananigans_tpu.advection import WENO as JWENO, div_Uc as j_div_Uc
 from oceananigans_tpu.advection.vector_invariant import (
     VectorInvariant as JVI, WENOVectorInvariant as JWVI)
@@ -252,25 +253,49 @@ def test_flux_conditions(lon):
 
 
 def test_flux_conditions_refused():
-    """What the port does not take raises naming item 3: a callable Value
-    condition, a callable on an x side, field dependencies on a scalar, a
-    FieldTimeSeries condition on an x side or as a Value condition (the
-    port takes it as a Flux condition on a z side)."""
+    """Since item 3 a callable Value condition, a callable Flux condition
+    on an x side and a scalar Flux condition with (unused) field
+    dependencies build, and fill or enter the tendency as JAX's do (the
+    fill of T at 1e-14, the flux on u at 1e-12); a FieldTimeSeries
+    condition on an x side still raises naming item 3 (JAX pads its
+    snapshots as z planes)."""
+    from oceananigans_tpu.boundary_conditions import (
+        fill_halo_regions as j_fill)
+    from oceananigans_tpu_torch.boundary_conditions import (
+        fill_halo_regions as t_fill)
     from oceananigans_tpu_torch.boundary_conditions.boundary_condition \
         import FieldTimeSeriesBoundaryCondition
-    _, tg = _grids()
-    f = lambda x, y, t: 0 * x
-    cases = [ot.FieldBoundaryConditions(top=ot.ValueBoundaryCondition(f)),
-             ot.FieldBoundaryConditions(west=ot.FluxBoundaryCondition(f)),
-             ot.FieldBoundaryConditions(top=ot.FluxBoundaryCondition(
-                 1.0, field_dependencies=("u",))),
+    jg, tg = _grids()
+    rng = np.random.default_rng(13)
+    a = rng.standard_normal(jg.padded_shape)
+    jf = lambda x, y, t: 1e-3 * jnp.cos(x) * y + 0 * t
+    tf_ = lambda x, y, t: 1e-3 * torch.cos(x) * y + 0 * t
+    want = j_fill(jnp.asarray(a), jg, LOCS["T"],
+                  j_reg(JFBC(top=JValue(jf)), jg, LOCS["T"]), TIME)
+    got = t_fill(torch.as_tensor(a.copy()), tg, LOCS["T"],
+                 t_reg(ot.FieldBoundaryConditions(
+                     top=ot.ValueBoundaryCondition(tf_)), tg, LOCS["T"]),
+                 TIME)
+    assert _rel(got.numpy(), np.asarray(want)) <= 1e-14
+    arrays = _padded_fields(jg.padded_shape, seed=14)
+    jfields, tfields = _both(arrays)
+    for jb_, tb_ in (
+            (JFBC(west=JFlux(jf), east=JFlux(1e-4, field_dependencies=("u",))),
              ot.FieldBoundaryConditions(
-                 west=FieldTimeSeriesBoundaryCondition(None)),
-             ot.FieldBoundaryConditions(top=FieldTimeSeriesBoundaryCondition(
-                 None, classification="value"))]
-    for bcs in cases:
-        with pytest.raises(NotImplementedError, match="item 3"):
-            t_reg(bcs, tg, LOCS["T"])
+                 west=ot.FluxBoundaryCondition(tf_),
+                 east=ot.FluxBoundaryCondition(
+                     1e-4, field_dependencies=("u",)))),):
+        G = rng.standard_normal(jg.padded_shape)
+        want = j_apply_flux_bcs(jnp.asarray(G), jg, LOCS["T"],
+                                j_reg(jb_, jg, LOCS["T"]), TIME,
+                                fields=jfields, locs=LOCS)
+        got = apply_flux_bcs_padded(torch.as_tensor(G.copy()), tg,
+                                    LOCS["T"], t_reg(tb_, tg, LOCS["T"]),
+                                    TIME, fields=tfields, locs=LOCS)
+        _close(got, want)
+    with pytest.raises(NotImplementedError, match="item 3"):
+        t_reg(ot.FieldBoundaryConditions(
+            west=FieldTimeSeriesBoundaryCondition(None)), tg, LOCS["T"])
 
 
 # -- CATKE ----------------------------------------------------------------------------
@@ -913,14 +938,28 @@ def test_nonhydrostatic_catke_against_jax():
 
 
 def test_nonhydrostatic_immersed_raises():
-    """The NonhydrostaticModel on an ImmersedBoundaryGrid is not ported
-    (item 11) and raises, as the hydrostatic model's fused tendency does
-    when asked for on one."""
-    g = ot.RectilinearGrid(size=(8, 8, 8), extent=(1.0, 1.0, 1.0),
-                           dtype=F64, device="cpu")
+    """The NonhydrostaticModel on an ImmersedBoundaryGrid (since item 11c)
+    takes the immersed conjugate-gradient solver and steps as JAX's model
+    does (3 steps at their default solver tolerance: 1e-6 of the velocity
+    scale); the hydrostatic model's fused tendency still raises when asked
+    for on one."""
+    from oceananigans_tpu.models import NonhydrostaticModel as JNH
+    spec = dict(size=(8, 8, 8), extent=(1.0, 1.0, 1.0), halo=(3, 8, 3))
+    g = ot.RectilinearGrid(dtype=F64, device="cpu", **spec)
     ig = TIBG(g, TGFB(-0.8))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ot.NonhydrostaticModel(ig)
+    tm = ot.NonhydrostaticModel(ig, advection=ot.Centered(2))
+    jm = JNH(grid=JIBG(jo.RectilinearGrid(dtype=np.float64, **spec),
+                       JGFB(-0.8)), advection=ja_Centered(2))
+    u = 0.1 * np.random.default_rng(15).standard_normal((8, 8, 8))
+    jm.set(u=u)
+    tm.set(u=u)
+    for _ in range(3):
+        jm.time_step(1e-2)
+        tm.time_step(1e-2)
+    scale = np.abs(np.asarray(jm.field("u").interior)).max()
+    for name in "uvw":
+        assert np.abs(tm.field(name).interior.numpy() - np.asarray(
+            jm.field(name).interior)).max() <= 1e-6 * scale, name
     lg = TIBG(_grids()[1], TGFB(_ridge))
     with pytest.raises(NotImplementedError, match="ImmersedBoundaryGrid"):
         HydrostaticFreeSurfaceModel(
