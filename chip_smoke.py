@@ -279,6 +279,34 @@ Phases (each raises on failure; nothing is caught):
    Fourier-tridiagonal solve, the plain flux divergences, the fill on a
    bounded z with a flat y, timed). Its wall time is printed.
 
+28. The NonhydrostaticModel on immersed, multiply stretched and curvilinear
+   grids with open and per-point conditions: the fill with planes and
+   perturbation faces against its plain version, small CG and open models
+   on the card against the CPU, the ``open_boundary_radiation`` golden, and
+   rows D (the 2048×1×512 seamount) and E (the 256×256×128 hill) with the
+   CG's iterations and residuals and float64 witnesses of their solves.
+
+29. The rest of the single-grid hydrostatic model: seven small float64
+   models on the card against the CPU over 3 steps at 1e-10 (rows F and
+   G's constructions on z* and z, prescribed velocities under quasi-AB2
+   and the split RK3, per-tracer schemes, the NonhydrostaticModel with
+   the advective GM form), each with the fill kernel and no plain fill;
+   then three float32 rows, each with 3 warm-up and 10 timed steps, the
+   counters (the fill kernel; no plain fill; #10 once a step on row H),
+   finite fields, the step median, min and max, peak memory, the phase
+   shares from CUDA events (the tendency, the closure, z*'s σ work, the
+   substep loop, the implicit solve, step_turbulence, the fills, the
+   rest), the busy share and device kernels per step: row F,
+   ``examples/near_global_ocean.py`` at 1° (360×180×24: CATKE, horizontal
+   ν and triad GM/Redi on the immersed continents, split-explicit with 30
+   substeps, Δt = 1800 s), with the fill against its plain version on its
+   u, v, b, e, timed; row G, ``examples/internal_tide.py`` on z* at
+   2048×1×512 (flux-form WENO(5), Δt = 30 s), the same; row H, the
+   hydrostatic row with the multi-dimensional stencil (H = 8): #10's md
+   variant against its plain version on the row's state (2e-5), timed with
+   its bound, its launch plan, registers and blocks per SM. Its wall time
+   is printed.
+
 Fill times are CUDA events around one call behind a busy card (the device's
 time, ``device_ms``), with the call from an idle card beside them (host
 launch work included, as PR 9's were taken). The line before the last is
@@ -378,7 +406,8 @@ def tiled_kernels_report():
     from oceananigans_tpu_torch.kernels import fused_vector_invariant as fvi
     entries = ptxas_entries(build.compile_log, ("advection_kernel",
                                                 "sw_update_kernel",
-                                                "vi_tendency_kernel"))
+                                                "vi_tendency_kernel",
+                                                "vi_tendency_full_kernel"))
     names = demangle(list(entries))
     print("block-tiled kernels, ptxas (registers, spill stores / loads in "
           "bytes):")
@@ -2205,6 +2234,10 @@ def weno_flop(K, n_smooth):
 #   axis's site, the product 1; one more product for Ax, Ay on a stretched
 #   z), three differences, two sums, a division and a sign (7; one more
 #   product for V on a stretched z). Centered(2): 22.
+# - the multi-dimensional stencil: per momentum component, MD_FILTER_FLOP
+#   for each filtered value (the vorticity reconstruction, the Bernoulli
+#   head's cross interpolation and reconstruction, the ONLY_SELF
+#   divergence flux's sum).
 def vi_recon_flop(cfg, site, n_smooth=0):
     """Operations of one reconstruction at a site of ``cfg`` at its own
     buffer K: WENO-(2K-1) (``weno_flop``), a selected UpwindBiased(2K-1)
@@ -2253,6 +2286,10 @@ def vi_flop(cfg, n_tracers, with_ph=False):
         else:
             per += 10
         per += (7 if cfg["cor"] else 0) + (3 if with_ph else 0) + 3
+        if cfg.get("md"):
+            # the multi-dimensional stencil's filters of this component
+            per += MD_FILTER_FLOP * (int(cfg["vort"] == 2) + 2 * cfg["ke"]
+                                     + int(cfg["vert"] and not cfg["upw"]))
     tracer = 0
     if cfg["tracers"]:
         tracer = sum(2 + vi_recon_flop(cfg, "t_" + ax)
@@ -2290,9 +2327,11 @@ def hydro_bounds(N, H, esize, n_tracers=1):
 
 
 def hydro_model(N, dtype, device, seed=0, smoothness=torch.float32,
-                substeps=30, fused_tendencies="auto"):
+                substeps=30, fused_tendencies="auto",
+                multi_dimensional_stencil=False):
     """bench_extra.py's hydro_row on the port: a lat-lon grid of 60° x 60°
-    (15°N-75°N), 1800 m deep, WENOVectorInvariant(), HydrostaticSpherical-
+    (15°N-75°N), 1800 m deep, WENOVectorInvariant() (with the
+    multi-dimensional stencil on request: H = 8), HydrostaticSpherical-
     Coriolis(), SplitExplicitFreeSurface(substeps=30), tracer T, quasi-AB2;
     u = 0.05·N(0, 1) from np.random.default_rng(seed), T = 12 + 8e-3 z +
     2e-2 φ."""
@@ -2302,7 +2341,8 @@ def hydro_model(N, dtype, device, seed=0, smoothness=torch.float32,
                                     dtype=dtype, device=device)
     model = ot.HydrostaticFreeSurfaceModel(
         grid, momentum_advection=ot.WENOVectorInvariant(
-            smoothness_dtype=smoothness),
+            smoothness_dtype=smoothness,
+            multi_dimensional_stencil=multi_dimensional_stencil),
         coriolis=ot.HydrostaticSphericalCoriolis(),
         free_surface=ot.SplitExplicitFreeSurface(substeps=substeps),
         tracers=("T",), fused_tendencies=fused_tendencies)
@@ -5937,30 +5977,35 @@ def vi_coverage_checks():
     return worst
 
 
-def vi_bf16_checks():
+def vi_bf16_checks(md=False):
     """#10 with bfloat16 smoothness on float32 fields against its plain
     version, as phase 19 holds #1 (``bf16_check``: 2e-5 of each output's
     max|plain|, at most a tenth of the bf16-vs-float32 difference) at
     64x48x16 on the hydro_row's lat-lon grid, regular and stretched z,
-    WENOVectorInvariant() and WENO(5) T and S with pₕ′."""
+    WENOVectorInvariant() and WENO(5) T and S with pₕ′; ``md``: with the
+    multi-dimensional stencil (its family's bf16 variant, H = 8)."""
     import oceananigans_tpu_torch as ot
     from oceananigans_tpu_torch import kernels as K
     worst = 0.0
     for zlabel, z in (("regular z", (-1800.0, 0.0)),
                       ("stretched z", stretched_z(16))):
+        h = 8 if md else 7
         grid = ot.LatitudeLongitudeGrid(size=(64, 48, 16), longitude=(0, 60),
                                         latitude=(15, 75), z=z,
-                                        halo=(7, 7, 7), dtype=torch.float32,
+                                        halo=(h, h, h), dtype=torch.float32,
                                         device="cuda")
+        if md:
+            zlabel += ", multi-dimensional stencil"
         names = ("T", "S")
         grid, f = hydro_kernel_inputs(None, seed=9, grid=grid, tracers=names)
         f = {k: v.to(torch.float32) for k, v in f.items()}
         hsc = ot.HydrostaticSphericalCoriolis()
 
         def run(fn, sdt):
-            G = fn(grid, ot.WENOVectorInvariant(smoothness_dtype=sdt),
-                   ot.WENO(5, smoothness_dtype=sdt), names, hsc, f["u"],
-                   f["v"], f["w"], {n: f[n] for n in names}, f["ph"])
+            vi = ot.WENOVectorInvariant(smoothness_dtype=sdt,
+                                        multi_dimensional_stencil=md)
+            G = fn(grid, vi, ot.WENO(5, smoothness_dtype=sdt), names, hsc,
+                   f["u"], f["v"], f["w"], {n: f[n] for n in names}, f["ph"])
             return [G[0], G[1]] + [G[2][n] for n in names]
 
         Gk = run(K.fused_vi_tendency, torch.bfloat16)
@@ -7518,6 +7563,491 @@ def cg_phase(card):
     return out, launches
 
 
+# -- the rest of the single-grid hydrostatic model (phase 29) -----------------------
+
+NEAR_GLOBAL_N = (360, 180, 24)  # row F: examples/near_global_ocean.py at 1°
+NEAR_GLOBAL_DT = 1800.0
+TIDE_N = (2048, 512)            # row G: examples/internal_tide.py, nx × nz
+# the example's Δt = 300 s at its 256 columns, scaled to 2048 (its
+# first-mode internal-wave CFL c₁Δt/Δx ≈ 0.2 with c₁ = NH/π): 300 s and
+# 60 s grow without bound within 10 and 50 steps at 2048x512, in the JAX
+# package as in the port
+TIDE_DT = 30.0
+TIDE_SMALL_DT = 300.0
+HYDRO29_STEPS = (3, 10)         # warm-up and timed steps of each row
+# operations of one multi-dimensional filter (advection/multidimensional.py):
+# the three smoothness indicators 33, their ε and squares 6, four weighted
+# points of 13 (three weights of a division each, their sum 2, three
+# divisions, the weighted sum 5), the three stencils' values at the three
+# points, 15 a point (the σ± halves of the centre weight the same A2
+# values), the σ-split centre 3, the final combination 6
+MD_FILTER_FLOP = 145
+
+
+def near_global_bottom(lam, phi):
+    """The example's idealized continents (float64 numpy): two meridional
+    barriers rising to land at -60° (north of -55°) and 20° (north of
+    -35°), a 1500 m sill in the gap south of -55°, polar shelves of 500 m
+    poleward of 71°, 3000 m elsewhere."""
+    lam = np.asarray(lam, float)
+    phi = np.asarray(phi, float)
+    depth = np.full(np.broadcast_shapes(lam.shape, phi.shape), -3000.0)
+    barrier1 = (np.abs(lam + 60.0) < 12.0) & (phi > -55.0)
+    barrier2 = (np.abs(lam - 20.0) < 15.0) & (phi > -35.0)
+    depth = np.where(barrier1 | barrier2, 200.0, depth)
+    sill = (np.abs(lam + 60.0) < 12.0) & (phi <= -55.0)
+    depth = np.where(sill, -1500.0, depth)
+    return np.where(np.abs(phi) > 71.0, np.maximum(depth, -500.0), depth)
+
+
+def near_global_model(N, dtype, device, smoothness=torch.float32, seed=0,
+                      substeps=30):
+    """``examples/near_global_ocean.py`` ``build_model`` on the port at N:
+    longitude -180..180, latitude -75..75, 3000 m, the idealized continents
+    as a GridFittedBottom; WENOVectorInvariant(order=5), WENO(5) b,
+    spherical Coriolis, BuoyancyTracer; ClosureTuple(CATKE, horizontal ν =
+    1e5, triad GM/Redi κ = 1000, 1000); SplitExplicitFreeSurface(substeps);
+    the zonal wind stress, quadratic bottom drag and 30-day buoyancy
+    restoring as callable flux conditions. b as the example sets it, u =
+    0.02·N(0, 1) from np.random.default_rng(seed)."""
+    import math
+
+    import oceananigans_tpu_torch as ot
+    H0 = 3000.0
+    grid = ot.LatitudeLongitudeGrid(size=N, longitude=(-180, 180),
+                                    latitude=(-75, 75), z=(-H0, 0.0),
+                                    dtype=dtype, device=device)
+    ibg = ot.ImmersedBoundaryGrid(grid, ot.GridFittedBottom(
+        near_global_bottom))
+    rad = math.pi / 180.0
+    dz_top = H0 / N[2]
+
+    def tau_x(lam, phi, t):
+        return -1.2e-4 * (-torch.cos(3.0 * (phi * rad))) \
+            * torch.cos(phi * rad) ** 2
+
+    def b_flux(lam, phi, t, b):
+        b_star = 6.0e-2 * torch.cos(phi * rad) ** 2
+        return (1.0 / (86400.0 * 30)) * dz_top * (b - b_star)
+
+    u_bcs = ot.FieldBoundaryConditions(
+        top=ot.FluxBoundaryCondition(tau_x),
+        bottom=ot.FluxBoundaryCondition(
+            lambda lam, phi, t, u: -3e-3 * u * abs(u),
+            field_dependencies="u"))
+    b_bcs = ot.FieldBoundaryConditions(
+        top=ot.FluxBoundaryCondition(b_flux, field_dependencies="b"))
+    model = ot.HydrostaticFreeSurfaceModel(
+        ibg, tracers=("b",),
+        momentum_advection=ot.WENOVectorInvariant(
+            order=5, smoothness_dtype=smoothness),
+        tracer_advection=ot.WENO(5, smoothness_dtype=smoothness),
+        coriolis=ot.HydrostaticSphericalCoriolis(),
+        buoyancy=ot.BuoyancyTracer(),
+        closure=(ot.CATKEVerticalDiffusivity(buoyancy=ot.BuoyancyTracer()),
+                 ot.ScalarDiffusivity(nu=1.0e5, formulation="horizontal"),
+                 ot.TriadIsopycnalSkewSymmetricDiffusivity(
+                     kappa_skew=1000.0, kappa_symmetric=1000.0,
+                     buoyancy=ot.BuoyancyTracer())),
+        free_surface=ot.SplitExplicitFreeSurface(substeps=substeps),
+        boundary_conditions={"u": u_bcs, "b": b_bcs})
+    rng = np.random.default_rng(seed)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    model.set(b=lambda lam, phi, z: 6.0e-2 * np.cos(np.deg2rad(phi)) ** 2
+              * np.exp(z / 800.0),
+              u=0.02 * rng.standard_normal(N).astype(npdt))
+    return model
+
+
+def internal_tide_model(nx, nz, dtype, device, vertical_coordinate="zstar",
+                        smoothness=torch.float32, seed=0):
+    """``examples/internal_tide.py`` ``main``'s model on the port at nx × 1 ×
+    nz: periodic x over ±1000 km, flat y, 2 km deep, a PartialCellBottom
+    Gaussian hill (250 m, 20 km), FPlane(latitude=-45), the M2 body force
+    on u, BuoyancyTracer b, WENO(5) flux-form momentum and WENO(5) b, the
+    default free surface (split-explicit with cfl=0.7: the grid is
+    immersed), ``vertical_coordinate``; u = U2 and b = N²z with N² = 1e-4,
+    plus 1e-3 U2·N(0, 1) on u from np.random.default_rng(seed)."""
+    import math
+
+    import oceananigans_tpu_torch as ot
+    H, L, HOUR = 2000.0, 1.0e6, 3600.0
+    under = ot.RectilinearGrid(size=(nx, 1, nz), x=(-L, L), y=(0, 1.0),
+                               z=(-H, 0.0),
+                               topology=("periodic", "flat", "bounded"),
+                               dtype=dtype, device=device)
+    h0, width = 250.0, 2.0e4
+    grid = ot.ImmersedBoundaryGrid(under, ot.PartialCellBottom(
+        lambda x, y: -H + h0 * np.exp(-x ** 2 / (2 * width ** 2))))
+    coriolis = ot.FPlane(latitude=-45.0)
+    omega2 = 2 * math.pi / (12.421 * HOUR)
+    U2 = 0.1 * omega2 * width
+    A2 = U2 * (omega2 ** 2 - coriolis.f ** 2) / omega2
+    forcing = ot.ContinuousForcing(
+        lambda x, y, z, t: A2 * math.sin(omega2 * t), loc=("f", "c", "c"))
+    model = ot.HydrostaticFreeSurfaceModel(
+        grid, coriolis=coriolis, buoyancy=ot.BuoyancyTracer(),
+        tracers=("b",),
+        momentum_advection=ot.WENO(5, smoothness_dtype=smoothness),
+        tracer_advection=ot.WENO(5, smoothness_dtype=smoothness),
+        forcing={"u": forcing}, vertical_coordinate=vertical_coordinate)
+    rng = np.random.default_rng(seed)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    model.set(u=U2 * (1 + 1e-3 * rng.standard_normal((nx, 1, nz))).astype(
+        npdt), b=lambda x, y, z: 1e-4 * z)
+    return model
+
+
+def prescribed_model(device, stepper="QuasiAdamsBashforth2"):
+    """A tracer-only model over prescribed callable velocities (float64,
+    16x8x8, WENO(5) tracers, a vertically implicit diffusivity)."""
+    import oceananigans_tpu_torch as ot
+    grid = ot.RectilinearGrid(size=(16, 8, 8), x=(0, 1e5), y=(0, 5e4),
+                              z=(-1000.0, 0.0),
+                              topology=("periodic", "bounded", "bounded"),
+                              dtype=torch.float64, device=device)
+    vel = ot.PrescribedVelocityFields(
+        u=lambda x, y, z, t: 0.1 * (1 + z / 1000.0) + 0 * x,
+        v=lambda x, y, z, t: 0.05 * (x / 1e5) + 1e-6 * t + 0 * y,
+        w=lambda x, y, z, t: 1e-5 * (x / 1e5) * (z + 1000.0) / 1000.0
+        * (-z) / 1000.0 + 0 * y)
+    model = ot.HydrostaticFreeSurfaceModel(
+        grid, velocities=vel, tracers=("c", "d"), timestepper=stepper,
+        tracer_advection=ot.WENO(5, smoothness_dtype=torch.float64),
+        closure=ot.VerticalScalarDiffusivity(
+            ot.VerticallyImplicitTimeDiscretization(), kappa=1e-3))
+    rng = np.random.default_rng(5)
+    model.set(c=rng.standard_normal((16, 8, 8)),
+              d=lambda x, y, z: np.sin(2 * np.pi * x / 1e5) * z)
+    return model
+
+
+def per_tracer_model(device):
+    """A 12x10x6 lat-lon model whose tracers take WENO(5), Centered(4) and
+    the dict's default UpwindBiased(3) (float64, split RK3)."""
+    import oceananigans_tpu_torch as ot
+    grid = ot.LatitudeLongitudeGrid(size=(12, 10, 6), longitude=(0, 60),
+                                    latitude=(15, 75), z=(-1800.0, 0.0),
+                                    dtype=torch.float64, device=device)
+    model = ot.HydrostaticFreeSurfaceModel(
+        grid, momentum_advection=ot.VectorInvariant(),
+        tracer_advection={"T": ot.WENO(5, smoothness_dtype=torch.float64),
+                          "S": ot.Centered(4),
+                          "default": ot.UpwindBiased(3)},
+        tracers=("T", "S", "c"), timestepper="SplitRungeKutta3",
+        free_surface=ot.SplitExplicitFreeSurface(substeps=10))
+    rng = np.random.default_rng(3)
+    model.set(**{n: rng.standard_normal((12, 10, 6))
+                 for n in ("T", "S", "c")},
+              u=0.1 * rng.standard_normal((12, 10, 6)))
+    return model
+
+
+def gm_nonhydrostatic_model(device):
+    """The NonhydrostaticModel with the advective GM form (float64, 16³,
+    WENO(5), b and a tracer c)."""
+    import oceananigans_tpu_torch as ot
+    grid = ot.RectilinearGrid(size=(16, 16, 16), x=(0, 8e3), y=(0, 8e3),
+                              z=(-400.0, 0.0), dtype=torch.float64,
+                              device=device)
+    model = ot.NonhydrostaticModel(
+        grid, advection=ot.WENO(5, smoothness_dtype=torch.float64),
+        buoyancy=ot.BuoyancyTracer(), tracers=("b", "c"),
+        closure=ot.IsopycnalSkewSymmetricDiffusivity(
+            kappa_redi=20.0, kappa_gm=40.0,
+            skew_flux_formulation="advective"))
+    rng = np.random.default_rng(4)
+    model.set(b=lambda x, y, z: 1e-4 * z + 1e-6 * x + 1e-7 * y,
+              c=rng.standard_normal((16, 16, 16)),
+              u=0.01 * rng.standard_normal((16, 16, 16)))
+    return model
+
+
+HYDRO29_SMALL = {
+    "row F's construction 48x24x8": (
+        lambda d: near_global_model((48, 24, 8), torch.float64, d,
+                                    smoothness=torch.float64),
+        NEAR_GLOBAL_DT),
+    "row G's construction 64x1x32 on z*": (
+        lambda d: internal_tide_model(64, 32, torch.float64, d,
+                                      smoothness=torch.float64),
+        TIDE_SMALL_DT),
+    "row G's construction 64x1x32 on z": (
+        lambda d: internal_tide_model(64, 32, torch.float64, d, "z",
+                                      smoothness=torch.float64),
+        TIDE_SMALL_DT),
+    "prescribed velocities (quasi-AB2)": (prescribed_model, 900.0),
+    "prescribed velocities (split RK3)": (
+        lambda d: prescribed_model(d, "SplitRungeKutta3"), 900.0),
+    "per-tracer schemes": (per_tracer_model, 600.0),
+    "NonhydrostaticModel, advective GM": (gm_nonhydrostatic_model, 10.0),
+}
+
+
+def hydro29_small_checks():
+    """Each small float64 model of HYDRO29_SMALL on the card against the
+    same model on the CPU over 3 steps: every prognostic field and w within
+    1e-10 of its scale; the fill kernel launches on the card and no plain
+    fill runs there."""
+    from oceananigans_tpu_torch import kernels as K
+    for label, (make, dt) in HYDRO29_SMALL.items():
+        K.reset_counters()
+        card_model, cpu_model = make("cuda"), make("cpu")
+        for _ in range(3):
+            card_model.time_step(dt)
+            cpu_model.time_step(dt)
+        launches, plain = K.counters()
+        worst = 0.0
+        for name in tuple(card_model.prognostic_names) + ("w",):
+            a = card_model.field(name).interior.cpu()
+            b = cpu_model.field(name).interior
+            scale = b.abs().max().item()
+            rel = (a - b).abs().max().item() / max(scale, 1e-300)
+            assert rel <= 1e-10, (label, name, rel)
+            worst = max(worst, rel)
+        fills = {k: v for k, v in plain.items() if "fill" in k and v}
+        assert launches["fill_halos"] > 0 and not fills, (label, fills)
+        print(f"  {label}: card against CPU after 3 steps, worst rel "
+              f"{worst:.3e} (bound 1e-10); fill launches "
+              f"{launches['fill_halos']}, no plain fill")
+        del card_model, cpu_model
+    torch.cuda.empty_cache()
+
+
+def hydro29_shares(model, dt, steps, card, label):
+    """Per-step CUDA-event times of a phase-29 step: the closure (its
+    diffusivities and terms at the tendencies), z*'s σ work (σ, the
+    barotropic transports and ∂t_σ), the tendency (#10 or its plain
+    version, which also takes z*, flux-form momentum and per-tracer
+    schemes), the
+    split-explicit substep loop (its fills included), the implicit
+    vertical solve, step_turbulence, the fills outside the substep loop,
+    and the rest (pₕ′, w, forcing, the boundary fluxes, AB2 and the
+    σ-weighted update, the corrector, the masks, allocations, host
+    gaps)."""
+    import oceananigans_tpu_torch.kernels.halo_fill as hf
+    import oceananigans_tpu_torch.models.hydrostatic as hs
+    timer = PhaseTimer()
+    saved = (hs.fused_vi_tendency, hs.fused_vi_tendency_plain,
+             hf.fill_halos)
+    hs.fused_vi_tendency = timer.wrap("tendency", saved[0])
+    hs.fused_vi_tendency_plain = timer.wrap("tendency", saved[1])
+    hf.fill_halos = timer.wrap("fills", saved[2])
+    wrapped = [(model.free_surface, "substep", "substep"),
+               (model, "_implicit_solve", "implicit")]
+    if model.closure is not None:
+        wrapped += [(model.closure, n, "closure") for n in (
+            "compute_diffusivities", "momentum_tendencies",
+            "tracer_tendency", "tracer_tendency_excluding_tke")
+            if hasattr(model.closure, n)]
+        if getattr(model.closure, "substepped_tke", False):
+            wrapped.append((model.closure, "step_turbulence", "turbulence"))
+    if model.vertical_coordinate == "zstar":
+        wrapped += [(model, n, "zstar") for n in (
+            "_sigma_fields", "_zstar_transports", "_grid_motion_rate")]
+    wrapped.append((model, "time_step", "step"))
+    for obj, name, phase in wrapped:
+        setattr(obj, name, timer.wrap(phase, getattr(obj, name)))
+    try:
+        for _ in range(steps):
+            model.time_step(dt)
+        t = {k: v / steps for k, v in timer.totals().items()}
+    finally:
+        hs.fused_vi_tendency, hs.fused_vi_tendency_plain, hf.fill_halos = \
+            saved
+        for obj, name, _ in wrapped:
+            delattr(obj, name)
+    g = t.get
+    tendency = ("fused_vi_tendency kernel (#10)" if model.uses_kernel
+                else "plain tendency (advection, Coriolis, ∂pₕ′)")
+    outside = lambda k: g(k, 0.0) - sum(
+        g(f"{k}@{o}", 0.0) for o in ("turbulence", "substep", "implicit"))
+    shares = {
+        tendency: g("tendency", 0.0),
+        "closure (diffusivities and terms at the tendencies)":
+            outside("closure"),
+        "z* σ work (σ, barotropic transports, ∂t_σ)": outside("zstar"),
+        "split-explicit substep loop (its fills included)":
+            g("substep", 0.0),
+        "implicit vertical solve": g("implicit", 0.0),
+        "step_turbulence (TKE substeps)": g("turbulence", 0.0),
+        "fills (outside the substep loop)":
+            g("fills", 0.0) - g("fills@substep", 0.0)
+            - g("fills@zstar", 0.0),
+    }
+    shares["rest (pₕ′, w, forcing, boundary fluxes, AB2, the σ-weighted "
+           "update, corrector, masks, allocations, host gaps)"] = \
+        t["step"] - sum(shares.values())
+    print(f"{label} step phases, ms per step over {steps} steps (CUDA "
+          f"events) [{card}]:")
+    for phase, ms in shares.items():
+        print(f"  {phase}: {ms:.4f} ms ({100 * ms / t['step']:.1f}%)")
+    print(f"  step: {t['step']:.4f} ms")
+    return shares
+
+
+def hydro29_row(card, label, model, dt, expect_kernel):
+    """``HYDRO29_STEPS`` warm-up and timed steps of Δt with the counters
+    reset just before and read just after: #10 once a step where the row
+    takes it (else the plain tendency once a step), the fill kernel, no
+    other plain function on CUDA tensors; finite fields; the step
+    median, min and max, peak memory, the phase shares (3 steps), the busy
+    share and the device kernels per step (3 steps). Returns (launches,
+    plain calls on CUDA, step median ms)."""
+    from oceananigans_tpu_torch import kernels as K
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_counters()
+    warmup, timed = HYDRO29_STEPS
+    for _ in range(warmup):
+        model.time_step(dt)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        model.time_step(dt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches, plain = K.counters()
+    steps = warmup + timed
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label} launches over {steps} steps: "
+          f"{ {k: v for k, v in launches.items() if v} }; plain calls on "
+          f"CUDA: { {k: v for k, v in plain.items() if v} }")
+    assert launches["fused_vi_tendency"] == (steps if expect_kernel else 0), \
+        (label, launches["fused_vi_tendency"])
+    assert launches["fill_halos"] > 0, (label, "no fill launch")
+    for name, count in plain.items():
+        want = steps if (name == "fused_vi_tendency_plain"
+                         and not expect_kernel) else 0
+        assert count == want, (f"plain {name} ran {count} times on CUDA "
+                               f"tensors, not {want} ({label})")
+    for name in tuple(model.prognostic_names) + ("w",):
+        assert torch.isfinite(model.field(name).interior).all().item(), \
+            (label, f"{name} is not finite")
+    step_ms = statistics.median(times) * 1e3
+    n = int(np.prod(model.grid.N))
+    print(f"{label}: step median {step_ms:.3f} ms over {timed} steps (min "
+          f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), Δt {dt} s, "
+          f"{n / (step_ms / 1e3):.4e} cell-updates/s; peak device memory "
+          f"(steps) {peak / 2 ** 30:.2f} GiB [{card}]")
+    print(f"{label}: launches per step "
+          f"{ {k: v / steps for k, v in launches.items() if v} }")
+    hydro29_shares(model, dt, 3, card, label)
+    busy_share(label, model, dt, 3, step_ms, card)
+    return launches, plain, step_ms
+
+
+def hydro29_fill(label, model, names):
+    """The fill against its plain version on a row's own fields (bit for
+    bit), timed: a measured row."""
+    fields = dict(model.state["fields"])
+    arrays = [fields[n].clone() for n in names]
+    lbs = model_locs_bcs(model, names)
+    err = fill_check(f"{label} {', '.join(names)}", model.grid, arrays, lbs)
+    return time_fill(f"{label} {', '.join(names)}", model.grid, arrays, lbs,
+                     err)
+
+
+def hydro29_phase(card):
+    """Phase 29: the rest of the single-grid hydrostatic model. The small
+    float64 models on the card against the CPU; row F, the near-global
+    ocean at 1° (the plain tendency on its immersed grid, triads and CATKE,
+    the substep loop, the fill on 3-D fields and η, U, V); row G, the
+    internal tide on z* at 2048x1x512 (flux-form momentum, σ updates, the
+    fill on a bounded z with a flat y); row H, the hydro_row with the
+    multi-dimensional stencil (#10's md variant, H = 8). Returns ({kernel
+    row: measured}, {row: launches})."""
+    from oceananigans_tpu_torch.kernels import build
+    from oceananigans_tpu_torch.kernels import fused_vector_invariant as fvi
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    print("small float64 models on the card against the CPU (3 steps, "
+          "1e-10):")
+    hydro29_small_checks()
+
+    label = f"row F, near-global ocean {NEAR_GLOBAL_N}"
+    print(f"{label}:")
+    model = near_global_model(NEAR_GLOBAL_N, torch.float32, "cuda")
+    assert not model.uses_kernel and model._immersed
+    print(f"  halo {model.grid.H}, {int(model.grid.solid_ccc.sum())} solid "
+          f"cells (halos included), closure {model.closure!r}, "
+          f"SplitExplicitFreeSurface(substeps=30), Δt {NEAR_GLOBAL_DT} s")
+    launches["F"], _, step_f = hydro29_row(card, label, model,
+                                           NEAR_GLOBAL_DT, False)
+    b = model.field("b").interior
+    print(f"{label}: max|u| {model.field('u').interior.abs().max().item():.4e}"
+          f", b in [{b.min().item():.4e}, {b.max().item():.4e}], max|η| "
+          f"{model.field('eta').interior.abs().max().item():.4e} after "
+          f"{model.iteration} steps")
+    out["fill_halos_near_global"] = hydro29_fill(label, model,
+                                                 ["u", "v", "b", "e"])
+    del model
+    torch.cuda.empty_cache()
+
+    nx, nz = TIDE_N
+    label = f"row G, internal tide on z* {nx}x1x{nz}"
+    print(f"{label}:")
+    model = internal_tide_model(nx, nz, torch.float32, "cuda")
+    assert not model.uses_kernel and model.vertical_coordinate == "zstar"
+    fs = model.free_surface
+    frac, weights = fs.settings(TIDE_DT)
+    print(f"  halo {model.grid.H}, default free surface "
+          f"{type(fs).__name__}(cfl=0.7): {round(2 / frac)} substeps for Δt "
+          f"= {TIDE_DT} s")
+    launches["G"], _, step_g = hydro29_row(card, label, model, TIDE_DT,
+                                           False)
+    eta_g = model.state["eta_grid"]
+    sig = model._sigma_fields(eta_g)[("c", "c")]
+    w = model.field("w").interior
+    print(f"{label}: σ in [{sig.min().item():.6f}, {sig.max().item():.6f}], "
+          f"max|w| {w.abs().max().item():.4e} after {model.iteration} steps")
+    out["fill_halos_internal_tide"] = hydro29_fill(label, model,
+                                                   ["u", "v", "b"])
+    del model
+    torch.cuda.empty_cache()
+
+    print("bf16 smoothness in #10's multi-dimensional stencil family:")
+    vi_bf16_checks(md=True)
+    label = f"row H, hydro_row with the multi-dimensional stencil {HYDRO_N}"
+    print(f"{label}:")
+    model = hydro_model(HYDRO_N, torch.float32, "cuda",
+                        multi_dimensional_stencil=True)
+    assert model.uses_kernel and model.grid.H[0] == 8, model.grid.H
+    vi_plan_report(f"#10 {label} float32", model.grid,
+                   model.momentum_advection, model.tracer_advection, 1,
+                   model.coriolis)
+    # the stencil's family (MD true: its lean and full variants) at the
+    # configuration's KM
+    entries = ptxas_entries(build.compile_log, ("vi_tendency_kernel",))
+    names = demangle(list(entries))
+    cfg = fvi.vi_config(model.grid, model.momentum_advection,
+                        model.tracer_advection, 1, model.coriolis)
+    for mangled, (regs, st, ld) in entries.items():
+        if any(f"<float, float, {cfg['KM']}, {full}, true>" in names[mangled]
+               for full in ("false", "true")):
+            print(f"  ptxas {names[mangled][:110]}: {regs} registers, "
+                  f"spills {st} / {ld} B")
+    model.time_step(120.0)
+    out["fused_vi_tendency_md"] = vi_row_kernel(
+        f"{label} (after one step: T, no pₕ′)", stretched_row_state(model))
+    del model
+    torch.cuda.empty_cache()
+    model = hydro_model(HYDRO_N, torch.float32, "cuda",
+                        multi_dimensional_stencil=True)
+    launches["H"], _, step_h = hydro29_row(card, label, model, 120.0, True)
+    variant = "fused_vi_tendency_" + fvi.variant_name(cfg)
+    assert variant == "fused_vi_tendency_k5_md", variant
+    assert launches["H"][variant] == launches["H"]["fused_vi_tendency"], \
+        (label, variant, launches["H"][variant])
+    del model
+    torch.cuda.empty_cache()
+    print(f"phase 29 rows: F {step_f:.3f} ms, G {step_g:.3f} ms, H "
+          f"{step_h:.3f} ms a step [{card}]")
+    print(f"phase 29 wall time {time.perf_counter() - t0:.1f} s [{card}]")
+    return out, launches
+
+
 def main():
     t_start = time.perf_counter()
     name, card = device_phase()
@@ -7636,6 +8166,10 @@ def main():
     print("the nonhydrostatic model on immersed, multiply stretched and "
           "curvilinear grids with open and per-point conditions (phase 28):")
     cg_rows, cg_launches = cg_phase(card)
+    print("the rest of the single-grid hydrostatic model: the isopycnal "
+          "closures, z*, flux-form momentum and the multi-dimensional "
+          "stencil (phase 29):")
+    h29_rows, h29_launches = hydro29_phase(card)
     bounds["fused_advection_update_bf16"] = \
         bounds["fused_advection_update_tracers"]
     for fname in ("fill_halos", "fill_halos_bounded", "fill_halos_fold",
@@ -7727,6 +8261,25 @@ def main():
                          max_abs_err=m["max_abs_err"], ms=m["ms"],
                          plain_ms=m["plain_ms"], bound_ms=m["bound"][0],
                          bound_by=m["bound"][1], library_ms=None))
+    # phase 29's rows: #10's multi-dimensional variant on row H, the fill
+    # on row F (periodic x, bounded y and z, η, U, V) and on row G (flat y,
+    # bounded z), each with its row's launches
+    for kname, row, counter, kernel in (
+            ("fused_vi_tendency_md", "H", "fused_vi_tendency",
+             "fused_vi_tendency"),
+            ("fill_halos_near_global", "F", "fill_halos",
+             "fill_halos_bounded"),
+            ("fill_halos_internal_tide", "G", "fill_halos",
+             "fill_halos_bounded")):
+        m = h29_rows[kname]
+        source, replaces = KERNEL_SOURCES[kernel]
+        rows.append(dict(name=kname, route="cuda", source=source,
+                         replaces=replaces,
+                         launches=h29_launches[row][counter],
+                         max_abs_err=m["max_abs_err"], ms=m["ms"],
+                         plain_ms=m["plain_ms"], bound_ms=m["bound"][0],
+                         bound_by=m["bound"][1],
+                         library_ms=m.get("library_ms")))
     for fname, label, path_launches in (
             ("fill_halos", "the flagship path (u, v, w, p of 264x264x256, "
              "the wrap)", flagship_launches),

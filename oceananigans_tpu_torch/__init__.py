@@ -20,12 +20,14 @@ tracers; and ``HydrostaticFreeSurfaceModel`` on a ``LatitudeLongitudeGrid``
 ``TripolarGrid`` (the north fold), any of them with stretched coordinates
 (``ExponentialDiscretization`` …), with bounded or periodic x and y and
 immersed bottoms (``ImmersedBoundaryGrid``): the conserving and WENO
-vector-invariant momentum advection, ``HydrostaticSphericalCoriolis``,
-tracers, ``BuoyancyTracer`` or ``SeawaterBuoyancy``, the closures (CATKE,
-k-ε, Ri-based, convective adjustment, Leith and the scalar diffusivities),
-forcing, function and field-dependent Flux conditions, quasi-AB2 or the
-split RK3, and the split-explicit (fixed count or ``cfl=``), explicit or
-implicit (FFT or PCG) free surface. Its hot paths run hand-written CUDA kernels
+vector-invariant momentum advection (the multi-dimensional stencil too) or
+flux-form momentum, ``HydrostaticSphericalCoriolis``, tracers with one
+scheme or per-tracer schemes, ``BuoyancyTracer`` or ``SeawaterBuoyancy``,
+the closures (CATKE, k-ε, Ri-based, convective adjustment, Leith, the
+scalar diffusivities and the isopycnal GM/Redi closures), forcing, function
+and field-dependent Flux conditions, the z or z* vertical coordinate,
+prescribed velocities, quasi-AB2 or the split RK3, and the split-explicit
+(fixed count or ``cfl=``), explicit or implicit (FFT or PCG) free surface. Its hot paths run hand-written CUDA kernels
 (``kernels/``, sources in ``csrc/``), each beside a plain PyTorch version
 that serves CPU tensors. Grids live on the CUDA card unless built with
 ``device="cpu"``.
@@ -47,8 +49,8 @@ Layer map:
                            NonTraditionalBetaPlane /
                            HydrostaticSphericalCoriolis
     closures/              scalar diffusivities, Smagorinsky, AMD, CATKE,
-                           k-ε, the vertical diffusivities and their
-                           diffusion operators
+                           k-ε, the vertical diffusivities, the isopycnal
+                           closures and their diffusion operators
     immersed.py            immersed bottoms and boundaries
     forcings/              user forcing (continuous, discrete, relaxation)
     stokes_drift.py        Craik-Leibovich forcing
@@ -57,7 +59,7 @@ Layer map:
                            conjugate gradients
     timesteppers/          RK3 coefficients, quasi-AB2
     models/                NonhydrostaticModel, ShallowWaterModel,
-                           HydrostaticFreeSurfaceModel, free surfaces
+                           HydrostaticFreeSurfaceModel, free surfaces, z*
     parallel/              device meshes (Distributed, Partition) and the
                            halo exchange between shards
     simulation/            Simulation (the run loop), callbacks, the NaN
@@ -97,6 +99,8 @@ from .closures import (AnisotropicMinimumDissipation,
                        CATKEVerticalDiffusivity,
                        ConvectiveAdjustmentVerticalDiffusivity,
                        DynamicSmagorinsky, HorizontalScalarDiffusivity,
+                       IsopycnalSkewSymmetricDiffusivity,
+                       TriadIsopycnalSkewSymmetricDiffusivity,
                        LagrangianAveraging, LillyCoefficient,
                        RiBasedVerticalDiffusivity,
                        ScalarBiharmonicDiffusivity, ScalarDiffusivity,
@@ -115,7 +119,8 @@ from .fields import (CenterField, Field, TracerFields, VelocityFields,
 from .parallel import CPU, GPU, Distributed, Partition
 from .models import (ConservativeFormulation, ExplicitFreeSurface,
                      HydrostaticFreeSurfaceModel, ImplicitFreeSurface,
-                     NonhydrostaticModel,
+                     NonhydrostaticModel, PrescribedVelocityFields,
+                     ZCoordinate, ZStarCoordinate,
                      ShallowWaterModel, SplitExplicitFreeSurface,
                      VectorInvariantFormulation, state_from_jax)
 from .simulation import Callback, NaNChecker, Simulation
@@ -170,13 +175,15 @@ __all__ = ["defaults", "RectilinearGrid", "LatitudeLongitudeGrid",
            "ConstantCartesianCoriolis", "BetaPlane",
            "HydrostaticSphericalCoriolis", "HydrostaticFreeSurfaceModel",
            "SplitExplicitFreeSurface", "ExplicitFreeSurface",
+           "PrescribedVelocityFields", "ZCoordinate", "ZStarCoordinate",
            "ImplicitFreeSurface", "CPU", "GPU", "Distributed", "Partition",
            "ImmersedBoundaryCondition", "ImmersedBoundaryGrid",
            "GridFittedBottom", "PartialCellBottom", "GridFittedBoundary",
            "CATKEVerticalDiffusivity", "TKEDissipationVerticalDiffusivity",
            "RiBasedVerticalDiffusivity",
            "ConvectiveAdjustmentVerticalDiffusivity", "TwoDimensionalLeith",
-           "CenterField", "XFaceField", "YFaceField", "ZFaceField",
+           "IsopycnalSkewSymmetricDiffusivity",
+           "TriadIsopycnalSkewSymmetricDiffusivity", "CenterField", "XFaceField", "YFaceField", "ZFaceField",
            "VelocityFields", "TracerFields", "FieldTimeSeriesForcing",
            "FieldTimeSeriesBoundaryCondition", "OpenBoundaryCondition",
            "PerturbationAdvection", "Simulation", "Callback",

@@ -1,7 +1,6 @@
 """Vector-invariant (rotational form) momentum advection.
 
-Counterpart of ``oceananigans_tpu/advection/vector_invariant.py`` on static
-grids (no moving-grid term). The horizontal momentum advection splits into a
+Counterpart of ``oceananigans_tpu/advection/vector_invariant.py``. The horizontal momentum advection splits into a
 vertical-vorticity flux, a kinetic-energy (Bernoulli head) gradient and
 vertical advection:
 
@@ -18,7 +17,16 @@ split into a self-upwinded part and a centered cross part
 (``ONLY_SELF``; ``CROSS_AND_SELF`` upwinds the whole divergence).
 ``WENOVectorInvariant()`` is WENO-9 vorticity with the velocity stencil and
 WENO-5 vertical advection, divergence flux and kinetic-energy gradient, with
-``ONLY_SELF``. The multi-dimensional stencil is not ported yet and raises.
+``ONLY_SELF``.
+
+``multi_dimensional_stencil=True`` filters each horizontal reconstruction
+(the upwinded vorticity, the kinetic-energy gradient's two parts and the
+ONLY_SELF divergence flux) along the other horizontal axis with the
+5-point centred WENO filter of ``multidimensional.centered_weno5_filter``;
+it needs two more halo cells. On a moving (z-star) grid the models pass
+the grid-motion term Az·Δr·∂t_σ (``grid_motion=``), which enters the
+symmetric part of the ONLY_SELF divergence flux and the whole upwinded
+divergence under CROSS_AND_SELF.
 """
 
 from __future__ import annotations
@@ -44,10 +52,6 @@ LOC_FCF = ("f", "c", "f")
 LOC_CFF = ("c", "f", "f")
 LOC_CCF = ("c", "c", "f")
 
-MULTI_D_ITEM = ("ROADMAP.md queue 1 item 13 (hydrostatic: the "
-                "multi-dimensional vector-invariant stencil)")
-
-
 def _sym(scheme, grid, a, axis, beta):
     """Symmetric interpolation by a possibly-upwind scheme's centered
     counterpart; a conserving sentinel takes the 2-point mean."""
@@ -64,10 +68,6 @@ class VectorInvariant:
                  kinetic_energy_gradient_scheme=None,
                  upwinding=ONLY_SELF,
                  multi_dimensional_stencil=False):
-        if multi_dimensional_stencil:
-            raise NotImplementedError(
-                f"the multi-dimensional stencil is not ported yet: "
-                f"{MULTI_D_ITEM}")
         for nm, s in (("vorticity_scheme", vorticity_scheme),
                       ("vertical_advection_scheme", vertical_advection_scheme),
                       ("divergence_scheme", divergence_scheme),
@@ -80,7 +80,7 @@ class VectorInvariant:
                     f"(UpwindBiased/WENO), got {s!r}")
         if upwinding not in (ONLY_SELF, CROSS_AND_SELF):
             raise ValueError(f"unknown upwinding {upwinding!r}")
-        self.multi_dimensional_stencil = False
+        self.multi_dimensional_stencil = bool(multi_dimensional_stencil)
         self.vorticity_scheme = vorticity_scheme
         self.vorticity_stencil = vorticity_stencil
         self.vertical_advection_scheme = vertical_advection_scheme
@@ -99,6 +99,8 @@ class VectorInvariant:
         h = max(halos)
         # ζ needs one halo of its own, so an upwind scheme needs one more
         self.required_halo = h if h == 1 else h + 1
+        if self.multi_dimensional_stencil:
+            self.required_halo += 2   # the tangential 5-point filter
 
     def _fp(self):
         def fp(s):
@@ -107,7 +109,7 @@ class VectorInvariant:
                 self.vorticity_stencil, fp(self.vertical_advection_scheme),
                 fp(self.divergence_scheme),
                 fp(self.kinetic_energy_gradient_scheme), self.upwinding,
-                False)
+                self.multi_dimensional_stencil)
 
     def __hash__(self):
         return hash(self._fp())
@@ -117,6 +119,14 @@ class VectorInvariant:
 
     def __repr__(self):
         return f"VectorInvariant({self.vorticity_scheme})"
+
+    def _md(self, a, interp_axis):
+        """The tangential filter of a reconstruction along ``interp_axis``:
+        along the other horizontal axis, when the stencil is on."""
+        if not self.multi_dimensional_stencil:
+            return a
+        from .multidimensional import centered_weno5_filter
+        return centered_weno5_filter(a, 1 - interp_axis)
 
     # -- horizontal (vorticity) term ------------------------------------------
 
@@ -139,8 +149,10 @@ class VectorInvariant:
         smooth = None
         if self.vorticity_stencil == VELOCITY_STENCIL and isinstance(vs, WENO):
             smooth = [iy_f(grid, u), ix_f(grid, v)]   # both at ffc
-        adv_u = -vhat * vs.biased_by(grid, zeta, Y, 1, vhat, smooth=smooth)
-        adv_v = +uhat * vs.biased_by(grid, zeta, X, 1, uhat, smooth=smooth)
+        adv_u = -vhat * self._md(
+            vs.biased_by(grid, zeta, Y, 1, vhat, smooth=smooth), Y)
+        adv_v = +uhat * self._md(
+            vs.biased_by(grid, zeta, X, 1, uhat, smooth=smooth), X)
         return adv_u, adv_v
 
     # -- Bernoulli head (kinetic-energy gradient) -----------------------------
@@ -157,11 +169,13 @@ class VectorInvariant:
         dv2 = dy_c(grid, 0.5 * v * v)     # ccc
         du2y = dy_f(grid, 0.5 * u * u)    # ffc
         dv2x = dx_f(grid, 0.5 * v * v)    # ffc
-        dKvs = _sym(cross, grid, dv2x, Y, 1)                   # ffc → fcc
-        dKur = ks.biased_by(grid, du2, X, 0, u, smooth=[ix_c(grid, u)])
+        dKvs = self._md(_sym(cross, grid, dv2x, Y, 1), Y)      # ffc → fcc
+        dKur = self._md(ks.biased_by(grid, du2, X, 0, u,
+                                     smooth=[ix_c(grid, u)]), X)
         bern_u = (dKur + dKvs) / _metric(grid.dx(LOC_FCC), u)
-        dKus = _sym(cross, grid, du2y, X, 1)                   # ffc → cfc
-        dKvr = ks.biased_by(grid, dv2, Y, 0, v, smooth=[iy_c(grid, v)])
+        dKus = self._md(_sym(cross, grid, du2y, X, 1), X)      # ffc → cfc
+        dKvr = self._md(ks.biased_by(grid, dv2, Y, 0, v,
+                                     smooth=[iy_c(grid, v)]), Y)
         bern_v = (dKvr + dKus) / _metric(grid.dy(LOC_CFC), v)
         return bern_u, bern_v
 
@@ -174,12 +188,12 @@ class VectorInvariant:
 
     # -- vertical advection + divergence flux ---------------------------------
 
-    def _vertical(self, grid, u, v, w):
+    def _vertical(self, grid, u, v, w, grid_motion=None):
         vas = self.vertical_advection_scheme
         if grid.is_flat(Z):
             if not isinstance(vas, AdvectionScheme):
                 return torch.zeros_like(u), torch.zeros_like(v)
-            adv_u, adv_v = self._divergence_flux(grid, u, v)
+            adv_u, adv_v = self._divergence_flux(grid, u, v, grid_motion)
             return (adv_u / _metric(grid.V(LOC_FCC), u),
                     adv_v / _metric(grid.V(LOC_CFC), v))
         Az_w = _metric(grid.Az(LOC_CCF), w) * w
@@ -191,7 +205,7 @@ class VectorInvariant:
                 / _metric(grid.Az(LOC_CFC), v)
             return adv_u, adv_v
         # upwind: (Φᵟ + δz(Az ŵ û)) / V
-        phi_u, phi_v = self._divergence_flux(grid, u, v)
+        phi_u, phi_v = self._divergence_flux(grid, u, v, grid_motion)
         what_u = _sym(vas, grid, Az_w, X, 0)     # ccf → fcf
         az_u = dz_c(grid, what_u * vas.biased_by(grid, u, Z, 0, what_u))
         what_v = _sym(vas, grid, Az_w, Y, 0)     # ccf → cff
@@ -199,31 +213,35 @@ class VectorInvariant:
         return ((phi_u + az_u) / _metric(grid.V(LOC_FCC), u),
                 (phi_v + az_v) / _metric(grid.V(LOC_CFC), v))
 
-    def _divergence_flux(self, grid, u, v):
-        """The upwinded horizontal-divergence flux Φᵟ at fcc and cfc."""
+    def _divergence_flux(self, grid, u, v, grid_motion=None):
+        """The upwinded horizontal-divergence flux Φᵟ at fcc and cfc;
+        ``grid_motion``: Az·Δr·∂t_σ at ccc on a moving grid."""
         ds = self.divergence_scheme
         cross = self.upwinding_cross_scheme
         dU = dx_c(grid, _metric(grid.Ax(LOC_FCC), u) * u)    # ccc
         dV = dy_c(grid, _metric(grid.Ay(LOC_CFC), v) * v)    # ccc
+        gm = 0.0 if grid_motion is None else grid_motion
         if self.upwinding == CROSS_AND_SELF:
-            div = dU + dV
+            div = dU + dV + gm
             return (u * ds.biased_by(grid, div, X, 0, u),
                     v * ds.biased_by(grid, div, Y, 0, v))
         div_smooth = [dU + dV]
-        dvs = _sym(cross, grid, dV, X, 0)
-        phi_u = u * (dvs + ds.biased_by(grid, dU, X, 0, u, smooth=div_smooth))
-        dus = _sym(cross, grid, dU, Y, 0)
-        phi_v = v * (dus + ds.biased_by(grid, dV, Y, 0, v, smooth=div_smooth))
+        dvs = _sym(cross, grid, dV + gm, X, 0)
+        phi_u = u * self._md(dvs + ds.biased_by(grid, dU, X, 0, u,
+                                                smooth=div_smooth), X)
+        dus = _sym(cross, grid, dU + gm, Y, 0)
+        phi_v = v * self._md(dus + ds.biased_by(grid, dV, Y, 0, v,
+                                                smooth=div_smooth), Y)
         return phi_u, phi_v
 
     # -- assembly --------------------------------------------------------------
 
-    def momentum_tendencies(self, grid, u, v, w):
+    def momentum_tendencies(self, grid, u, v, w, grid_motion=None):
         """(U·∇u, U·∇v): the advection terms to be subtracted from the
-        tendencies."""
+        tendencies; ``grid_motion`` as in ``_divergence_flux``."""
         h_u, h_v = self._horizontal(grid, u, v)
         b_u, b_v = self._bernoulli(grid, u, v)
-        z_u, z_v = self._vertical(grid, u, v, w)
+        z_u, z_v = self._vertical(grid, u, v, w, grid_motion)
         return h_u + b_u + z_u, h_v + b_v + z_v
 
 

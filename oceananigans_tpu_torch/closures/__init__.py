@@ -1,12 +1,14 @@
 """Turbulence closures: the scalar-diffusivity family, closure tuples, the
 LES closures (Smagorinsky, Lilly, dynamic, AMD) and the vertical closures of
 the hydrostatic model (CATKE, k-ε, Ri-based, convective adjustment,
-two-dimensional Leith). The isopycnal closures raise ``NotImplementedError``
-naming their ROADMAP item."""
+two-dimensional Leith) and the isopycnal closures (GM/Redi and its
+triad discretization)."""
 
 from .amd import AnisotropicMinimumDissipation
 from .catke import (CATKEEquation, CATKEMixingLength,
                     CATKEVerticalDiffusivity)
+from .isopycnal import (IsopycnalSkewSymmetricDiffusivity,
+                        TriadIsopycnalSkewSymmetricDiffusivity)
 from .scalar_diffusivity import (HORIZONTAL, ISO, VERTICAL, ClosureTuple,
                                  ExplicitTimeDiscretization, FluxTapering,
                                  HorizontalDivergenceScalarBiharmonicDiffusivity,
@@ -29,21 +31,6 @@ from .smagorinsky import (DynamicCoefficient, DynamicSmagorinsky,
 from .vertical_diffusivities import (ConvectiveAdjustmentVerticalDiffusivity,
                                      RiBasedVerticalDiffusivity,
                                      TwoDimensionalLeith)
-
-_LONG_TAIL_ITEM = "ROADMAP.md queue 1 item 15 (the long tail)"
-
-
-def _not_ported(name, item):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet: {item}")
-    return type(name, (), {"__init__": __init__,
-                           "__doc__": f"Not ported yet: {item}."})
-
-
-IsopycnalSkewSymmetricDiffusivity = _not_ported(
-    "IsopycnalSkewSymmetricDiffusivity", _LONG_TAIL_ITEM)
-TriadIsopycnalSkewSymmetricDiffusivity = _not_ported(
-    "TriadIsopycnalSkewSymmetricDiffusivity", _LONG_TAIL_ITEM)
 
 __all__ = ["ScalarDiffusivity", "VerticalScalarDiffusivity",
            "HorizontalScalarDiffusivity", "ScalarBiharmonicDiffusivity",

@@ -430,6 +430,26 @@ class ClosureTuple(_ClosureBase):
                 combined[k] = combined.get(k, 0.0) + v
         return combined
 
+    # -- the advective GM form of a member ----------------------------------
+    # the tuple carries its members' eddy velocities (the JAX ClosureTuple
+    # has none, so there an advective member loses its skew transport:
+    # ROADMAP.md queue 3)
+
+    @property
+    def has_eddy_velocities(self):
+        return any(getattr(c, "has_eddy_velocities", False)
+                   for c in self.closures)
+
+    def eddy_velocities(self, grid, fields):
+        """The sum of the members' eddy transport velocities."""
+        total = None
+        for c in self.closures:
+            if getattr(c, "has_eddy_velocities", False):
+                e = c.eddy_velocities(grid, fields)
+                total = e if total is None else tuple(
+                    a + b for a, b in zip(total, e))
+        return total
+
     def vertical_implicit_damping(self, grid, fields, aux):
         combined = {}
         for c, a in zip(self.closures, aux):

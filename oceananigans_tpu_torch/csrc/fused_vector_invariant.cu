@@ -1,6 +1,7 @@
 // The C entries of the fused hydrostatic tendency (#10): the kernel template
 // is vi_kernel.cuh, instantiated per deepest buffer in vi_k3.cu .. vi_k6.cu
-// (a configuration whose deepest site has buffer 1 or 2 takes vi_k3).
+// and, with the multi-dimensional stencil, in vi_md_k3.cu .. vi_md_k6.cu (a
+// configuration whose deepest site has buffer 1 or 2 takes the k3 units).
 #include "vi_kernel.cuh"
 
 namespace {
@@ -11,11 +12,13 @@ int by_buffer(int dtype, int sdtype, const Args& a) {
   if (a.cf[oc::vi::cNtr] < 0 || a.cf[oc::vi::cNtr] > oc::vi::kBatch || a.TX < 1 || a.TY < 1 ||
       a.TZ < 1 || a.threads < 32 || a.threads > oc::vi::kThreads || a.threads % 32 != 0)
     return (int)cudaErrorInvalidValue;
+  // the multi-dimensional stencil's family, or the lean and full variants
+  const bool md = a.cf[oc::vi::cMd] != 0;
   switch (a.cf[oc::vi::cKM]) {
-    case 3: return oc::vi::vi_k3(dtype, sdtype, a);
-    case 4: return oc::vi::vi_k4(dtype, sdtype, a);
-    case 5: return oc::vi::vi_k5(dtype, sdtype, a);
-    case 6: return oc::vi::vi_k6(dtype, sdtype, a);
+    case 3: return md ? oc::vi::vi_md_k3(dtype, sdtype, a) : oc::vi::vi_k3(dtype, sdtype, a);
+    case 4: return md ? oc::vi::vi_md_k4(dtype, sdtype, a) : oc::vi::vi_k4(dtype, sdtype, a);
+    case 5: return md ? oc::vi::vi_md_k5(dtype, sdtype, a) : oc::vi::vi_k5(dtype, sdtype, a);
+    case 6: return md ? oc::vi::vi_md_k6(dtype, sdtype, a) : oc::vi::vi_k6(dtype, sdtype, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -30,7 +33,9 @@ extern "C" {
 int oc_vi_set_tables(const double* vals, const double* vals_bf16, int n) {
   if (n != oc::vi::kTableSize) return (int)cudaErrorInvalidValue;
   int (*const setters[])(const double*, const double*) = {
-      oc::vi::vi_k3_tables, oc::vi::vi_k4_tables, oc::vi::vi_k5_tables, oc::vi::vi_k6_tables};
+      oc::vi::vi_k3_tables,    oc::vi::vi_k4_tables,    oc::vi::vi_k5_tables,
+      oc::vi::vi_k6_tables,    oc::vi::vi_md_k3_tables, oc::vi::vi_md_k4_tables,
+      oc::vi::vi_md_k5_tables, oc::vi::vi_md_k6_tables};
   for (auto set : setters) {
     const int e = set(vals, vals_bf16);
     if (e != 0) return e;

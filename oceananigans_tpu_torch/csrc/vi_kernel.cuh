@@ -1,6 +1,7 @@
 // The fused hydrostatic tendency (#10): vector-invariant momentum plus
 // tracers, one template instantiated per deepest buffer KM
-// (vi_k3.cu .. vi_k6.cu), the C entries in fused_vector_invariant.cu.
+// (vi_k3.cu .. vi_k6.cu; with the multi-dimensional stencil vi_md_k3.cu ..
+// vi_md_k6.cu), the C entries in fused_vector_invariant.cu.
 //
 // Replaces oceananigans_tpu/kernels/fused_vector_invariant.py
 // _build_phase_call (via build_fused_hydrostatic_tendency, the pallas_call at
@@ -84,7 +85,25 @@
 // axis are inline. Each buffer builds a lean and a full variant: the lean
 // one, for uniform axes whose symmetric sites stop at Centered(4) (the
 // WENO-5 configurations), holds no per-slot path and two symmetric levels
-// (full_variant chooses). Divisions are exact. The tile,
+// (full_variant chooses).
+//
+// The multi-dimensional stencil (VectorInvariant(multi_dimensional_stencil=
+// True), advection/vector_invariant.py _md) filters the upwinded vorticity,
+// the Bernoulli head's cross interpolation and reconstruction and the
+// ONLY_SELF divergence flux's sum along the other horizontal axis with the
+// 5-point centred WENO filter (md_filter). Each filtered value needs the
+// unfiltered ones 2 cells either side: the box reach R grows by 2
+// (vi_config), and a phase first forms each filtered quantity over the tile
+// plus 2 along its filter's axis into an md buffer, (TX + 4)(TY + 4) TZ,
+// two a phase, then filters per output cell. Float32 row H takes the 8x8x8
+// tile (two blocks an SM; 16x8x8 would need 148,304 B a block). The filter
+// lives in a family of its own (MD: a lean and a full variant with the
+// filter, instantiated in vi_md_k3.cu .. vi_md_k6.cu for the smoothness in
+// the fields' dtype or bfloat16), so that the other variants keep their
+// registers: with the filter behind a runtime flag in the full variant
+// every full configuration took 168 registers and one block an SM (the
+// stretched ocean row's #10 4.29 ms against 3.11), and with it in both
+// variants the lean one spilled. Divisions are exact. The tile,
 // the block count and the dynamic shared memory come from
 // kernels/fused_vector_invariant.py launch_plan; the C entry recomputes and
 // checks them. Registers and spills: `-Xptxas -v` (chip_smoke.py prints
@@ -193,7 +212,7 @@ __host__ __device__ __forceinline__ int cen_off(int b) { return b * (b - 1); }
 // The int configuration of a launch (fused_vector_invariant.py conf_array).
 enum Conf {
   cNx, cNy, cNz, cHx, cHy, cHz, cBx, cBy, cVort, cVortSm, cKe, cVert, cUpw, cCor, cNtr,
-  cWithPh, cMomentum, cKM, cR, cRw, cRz, cRc, cNyRows, cNzRows, cZs, cHead,
+  cWithPh, cMomentum, cKM, cR, cRw, cRz, cRc, cNyRows, cNzRows, cZs, cMd, cHead,
   cFam = cHead, cK = cFam + kNumSites, cBase = cK + kNumSites, cSize = cBase + kNumSites
 };
 
@@ -210,10 +229,12 @@ struct Layout {
   int tby, tbz, tb;    // a tracer box from (i0 - Rc, j0 - Rc, k0 - Rz)
   int tfx, tfy;        // tracer fluxes (TX + 1)·TY·TZ, TX·(TY + 1)·TZ (and fz)
   int zs;              // the z rows' stride: TZ + 1 faces
+  int mdb;             // the multi-dimensional stencil: a reconstruction over the tile
+                       // plus 2 along the filtered axis, (TX + 4)(TY + 4) TZ (0 without it)
   int U, V, acc[2], rows, zrows, work, total;
 
   __host__ __device__ Layout(int TX, int TY, int TZ, int R, int Rw, int Rz, int Rc,
-                             int ny_rows, int nz_rows) {
+                             int ny_rows, int nz_rows, int md) {
     BY = TY + 2 * R;
     sy = TZ;
     sx = BY * TZ;
@@ -230,6 +251,7 @@ struct Layout {
     tfx = align_elems((TX + 1) * TY * TZ);
     tfy = align_elems(TX * (TY + 1) * TZ);
     zs = TZ + 1;
+    mdb = md ? align_elems((TX + 4) * (TY + 4) * TZ) : 0;
     const int cells = align_elems(TX * TY * TZ);
     int o = 0;
     U = o; o += box;
@@ -242,10 +264,11 @@ struct Layout {
     // the work buffer holds, phase by phase: ζ, ℑy u, ℑx v (three boxes);
     // three Bernoulli fields; w, the z face fluxes of u and v, then the u
     // and v columns or the divergence fields; w and ph; w, a tracer box and
-    // its fluxes
+    // its fluxes. The multi-dimensional stencil adds two reconstruction
+    // buffers to the first three phases.
     const int c2 = 2 * col > 2 * box ? 2 * col : 2 * box;
-    int need = 3 * box;
-    need = need > wsz + 2 * fz + c2 ? need : wsz + 2 * fz + c2;
+    int need = 3 * box + 2 * mdb;
+    need = need > wsz + 2 * fz + c2 + 2 * mdb ? need : wsz + 2 * fz + c2 + 2 * mdb;
     need = need > wsz + phb ? need : wsz + phb;
     need = need > wsz + tb + tfx + tfy + fz ? need : wsz + tb + tfx + tfy + fz;
     total = o + need;
@@ -265,6 +288,7 @@ struct Params {
   int ke, vert, upw;            // a scheme for the Bernoulli head / the vertical term; CROSS_AND_SELF
   int cor;                      // Cor
   int ntr, with_ph, momentum;
+  int md;                       // the multi-dimensional stencil
   int zs;                       // stretched z: Ax, Ay, V rows times Δz
   int ny_rows, nz_rows;
   T fx, fy, fz;                 // the Cartesian rotation
@@ -474,15 +498,82 @@ __device__ __forceinline__ int level(int K, bool bounded, int p, int H, int N, i
   return L >= 2 ? L : 1;
 }
 
+// -- the multi-dimensional stencil ---------------------------------------------------
+
+// advection/multidimensional.py FILTER_CONSTANTS, the float64 values of the
+// plain version's constants: the optimal weights G1, G3, G2P, G2M (3 each),
+// the stencils' coefficients A1, A2, A3 (9 each, row-major), σ+, σ-, ε. The
+// float table holds them rounded to float32, as the plain version rounds a
+// Python constant that meets a float32 tensor.
+#define OC_MD_CONSTANTS \
+    0.24484385831693256, 0.6229007633587786, 0.13988896611054838, 0.13988896611054838, \
+    0.6229007633587786, 0.24484385831693256, 0.042056074766355145, 0.9158878504672898, \
+    0.042056074766355145, 0.13432835820895522, 0.7313432835820896, 0.13432835820895522, \
+    -0.16031583397703753, 0.7079300025748168, 0.4523858314022207, 0.2269825006437042, \
+    0.9333333333333333, -0.16031583397703753, 1.614280835264446, -0.8412633359081502, \
+    0.2269825006437042, -0.041666666666666664, 0.08333333333333333, 0.9583333333333334, \
+    -0.041666666666666664, 1.0833333333333333, -0.041666666666666664, 0.9583333333333334, \
+    0.08333333333333333, -0.041666666666666664, 0.2269825006437042, -0.8412633359081502, \
+    1.614280835264446, -0.16031583397703753, 0.9333333333333333, 0.2269825006437042, \
+    0.4523858314022207, 0.7079300025748168, -0.16031583397703753, 2.675, 1.675, 1e-08
+
+namespace {
+
+__constant__ double kMdD[42] = {OC_MD_CONSTANTS};
+__constant__ float kMdF[42] = {OC_MD_CONSTANTS};
+
+template <typename T> __device__ __forceinline__ T md_const(int i);
+template <> __device__ __forceinline__ float md_const<float>(int i) { return kMdF[i]; }
+template <> __device__ __forceinline__ double md_const<double>(int i) { return kMdD[i]; }
+
+}  // namespace
+
+enum { kMdG1 = 0, kMdG3 = 3, kMdG2P = 6, kMdG2M = 9, kMdA1 = 12, kMdA2 = 21, kMdA3 = 30,
+       kMdSigP = 39, kMdSigM = 40, kMdEps = 41 };
+
+// The 5-point centred WENO filter of multidimensional.py
+// centered_weno5_filter at the middle of q[-2 .. 2] (q(o) reads offset o), in
+// the plain version's order of operations.
+template <typename T, typename Q>
+__device__ __forceinline__ T md_filter(Q q) {
+  const T m2 = q(-2), m1 = q(-1), c0 = q(0), p1 = q(1), p2 = q(2);
+  auto K = [](int i) { return md_const<T>(i); };
+  auto beta = [&](T d2, T d1) { return (T)(13.0 / 12.0) * d2 * d2 + T(0.25) * d1 * d1; };
+  const T b0 = beta(m2 - T(2) * m1 + c0, m2 - T(4) * m1 + T(3) * c0);
+  const T b1 = beta(m1 - T(2) * c0 + p1, m1 - p1);
+  const T b2 = beta(c0 - T(2) * p1 + p2, T(3) * c0 - T(4) * p1 + p2);
+  const T eps = K(kMdEps);
+  const T e0 = b0 + eps, e1 = b1 + eps, e2 = b2 + eps;
+  const T i0 = e0 * e0, i1 = e1 * e1, i2 = e2 * e2;
+  // the three stencils' values at the points of A (one row a stencil)
+  auto recon = [&](int A, int st) {
+    const T x0 = st == 0 ? m2 : st == 1 ? m1 : c0;
+    const T x1 = st == 0 ? m1 : st == 1 ? c0 : p1;
+    const T x2 = st == 0 ? c0 : st == 1 ? p1 : p2;
+    return K(A + 3 * st) * x0 + K(A + 3 * st + 1) * x1 + K(A + 3 * st + 2) * x2;
+  };
+  auto point = [&](int G, int A) {
+    const T a0 = K(G) / i0, a1 = K(G + 1) / i1, a2 = K(G + 2) / i2;
+    const T s = a0 + a1 + a2;
+    return (a0 / s) * recon(A, 0) + (a1 / s) * recon(A, 1) + (a2 / s) * recon(A, 2);
+  };
+  const T q1 = point(kMdG1, kMdA1), q3 = point(kMdG3, kMdA3);
+  const T q2 = K(kMdSigP) * point(kMdG2P, kMdA2) - K(kMdSigM) * point(kMdG2M, kMdA2);
+  return q1 / T(6) + T(2) * q2 / T(3) + q3 / T(6);
+}
+
 // -- the kernel ------------------------------------------------------------------
 
-template <typename T, typename S, int KM, bool FULL>
-__global__ void __launch_bounds__(kThreads) vi_tendency_kernel(const __grid_constant__ Params<T> P) {
+// The kernel's body. MD: the multi-dimensional stencil's family
+// (vi_md_k3.cu .. vi_md_k6.cu); the other instantiations hold no filter code.
+template <typename T, typename S, int KM, bool FULL, bool MD>
+__device__ __forceinline__ void vi_tendency(const Params<T>& P) {
   extern __shared__ __align__(16) unsigned char oc_smem[];
   T* const sm = reinterpret_cast<T*>(oc_smem);
   const Geom& g = P.g;
   const int TY = P.TY, TZ = P.TZ, R = P.R, Rw = P.Rw, Rz = P.Rz, Rc = P.Rc;
-  const Layout L(P.TX, TY, TZ, R, Rw, Rz, Rc, P.ny_rows, P.nz_rows);
+  const bool md = MD && P.md;
+  const Layout L(P.TX, TY, TZ, R, Rw, Rz, Rc, P.ny_rows, P.nz_rows, md);
   int t = blockIdx.x;
   const int bz = t % P.tiles_z;
   t /= P.tiles_z;
@@ -581,11 +672,31 @@ __global__ void __launch_bounds__(kThreads) vi_tendency_kernel(const __grid_cons
     return (T(0.5) * (ixc(A, B, c) + ixc(A, B - 1, c))) / row(kDyCFC, B);
   };
 
+  // the multi-dimensional stencil: a filtered reconstruction is formed
+  // unfiltered over the tile plus 2 along the axis it is filtered on (0
+  // outside the padded array, as the plain version's shifts read), into an
+  // md buffer at (a + 2, b + 2, c), then filtered per output cell
+  auto mdat = [&](int a, int b, int c) { return ((a + 2) * (TY + 4) + b + 2) * TZ + c; };
+  auto for_md_x = [&](auto body) {
+    for_box((ex + 4) * ey * ez, ey, ez, [&](int a, int b, int c) { body(a - 2, b, c); });
+  };
+  auto for_md_y = [&](auto body) {
+    for_box(ex * (ey + 4) * ez, ey + 4, ez, [&](int a, int b, int c) { body(a, b - 2, c); });
+  };
+  auto filt_x = [&](const T* q, int a, int b, int c) {
+    return md_filter<T>([&](int o) { return q[mdat(a + o, b, c)]; });
+  };
+  auto filt_y = [&](const T* q, int a, int b, int c) {
+    return md_filter<T>([&](int o) { return q[mdat(a, b + o, c)]; });
+  };
+
   if (P.momentum) {
     // -- phase 1: the vorticity flux ---------------------------------------------
     T* const zeta = work;
     T* const su = work + L.box;
     T* const sv = work + 2 * L.box;
+    T* const mdx = work + 3 * L.box;   // md buffers of phases 1 and 2
+    T* const mdy = mdx + L.mdb;
     const bool two = P.vort == 2 && P.vort_sm == kTwo;
     for_derived([&](int A, int B, int c) {
       const int n = at(A, B, c);
@@ -605,6 +716,34 @@ __global__ void __launch_bounds__(kThreads) vi_tendency_kernel(const __grid_cons
       }
     });
     __syncthreads();
+    // the reconstruction of ζ along y at a u point (along x at a v point),
+    // over the tile plus 2 with the stencil; the per-cell path below keeps
+    // its own expression
+    auto vort_u = [&](int A, int B, int c) {
+      const int n = at(A, B, c);
+      const int K = level(KVy, P.by, pj(B), g.Hy, g.Ny, 1);
+      return advected<KM, T, S, FULL>(P.fam[kVortY], K, 1, vhat(A, B, c) > T(0), zeta + n, L.sy,
+                                      P.vort_sm, su + n, sv + n, cfy(kVortY, B), L.BY);
+    };
+    auto vort_v = [&](int A, int B, int c) {
+      const int n = at(A, B, c);
+      const int K = level(KVx, P.bx, pi(A), g.Hx, g.Nx, 1);
+      return advected<KM, T, S, FULL>(P.fam[kVortX], K, 1, uhat(A, B, c) > T(0), zeta + n, L.sx,
+                                      P.vort_sm, su + n, sv + n, nullptr, 0);
+    };
+    const bool md1 = md && P.vort == 2;
+    if (md1) {
+      // u's filtered along x, v's along y
+      for_md_x([&](int a, int b, int c) {
+        const int A = R + a, B = R + b;
+        mdx[mdat(a, b, c)] = inb(A, B) ? vort_u(A, B, c) : T(0);
+      });
+      for_md_y([&](int a, int b, int c) {
+        const int A = R + a, B = R + b;
+        mdy[mdat(a, b, c)] = inb(A, B) ? vort_v(A, B, c) : T(0);
+      });
+      __syncthreads();
+    }
     for_cells([&](int a, int b, int c, int A, int B, int m) {
       const int n = at(A, B, c);
       if (has_u(a, b)) {
@@ -622,9 +761,14 @@ __global__ void __launch_bounds__(kThreads) vi_tendency_kernel(const __grid_cons
           Gh = -((-(T(0.5) * (zvx(B + 1) + zvx(B)))) / row(kDxFCC, B));
         } else {
           const T vh = vhat(A, B, c);
-          const int K = level(KVy, P.by, pj(B), g.Hy, g.Ny, 1);
-          const T r = advected<KM, T, S, FULL>(P.fam[kVortY], K, 1, vh > T(0), zeta + n, L.sy,
-                                      P.vort_sm, su + n, sv + n, cfy(kVortY, B), L.BY);
+          T r;
+          if (md1) {
+            r = filt_x(mdx, a, b, c);
+          } else {
+            const int K = level(KVy, P.by, pj(B), g.Hy, g.Ny, 1);
+            r = advected<KM, T, S, FULL>(P.fam[kVortY], K, 1, vh > T(0), zeta + n, L.sy,
+                                         P.vort_sm, su + n, sv + n, cfy(kVortY, B), L.BY);
+          }
           Gh = -((-vh) * r);
         }
         acc_u[m] = Gh;
@@ -644,9 +788,14 @@ __global__ void __launch_bounds__(kThreads) vi_tendency_kernel(const __grid_cons
           Gh = -((T(0.5) * (zuy(A + 1) + zuy(A))) / row(kDyCFC, B));
         } else {
           const T uh = uhat(A, B, c);
-          const int K = level(KVx, P.bx, pi(A), g.Hx, g.Nx, 1);
-          const T r = advected<KM, T, S, FULL>(P.fam[kVortX], K, 1, uh > T(0), zeta + n, L.sx,
-                                      P.vort_sm, su + n, sv + n, nullptr, 0);
+          T r;
+          if (md1) {
+            r = filt_y(mdy, a, b, c);
+          } else {
+            const int K = level(KVx, P.bx, pi(A), g.Hx, g.Nx, 1);
+            r = advected<KM, T, S, FULL>(P.fam[kVortX], K, 1, uh > T(0), zeta + n, L.sx,
+                                         P.vort_sm, su + n, sv + n, nullptr, 0);
+          }
           Gh = -(uh * r);
         }
         acc_v[m] = Gh;
@@ -676,16 +825,42 @@ __global__ void __launch_bounds__(kThreads) vi_tendency_kernel(const __grid_cons
         f2[n] = in ? hv(A, B, c) - hv(A - 1, B, c) : T(0);
       });
       __syncthreads();
+      // the cross interpolation of δx(v²/2) along y (filtered along x) and
+      // the reconstruction of δx(u²/2) along x (filtered along y)
+      auto ke_u_sym = [&](int A, int B, int c) {
+        return symm<KM, T, FULL>(P.fam[kKcY], level(P.K[kKcY], P.by, pj(B), g.Hy, g.Ny, 1), 1,
+                                 [&](int o) { return f2[at(A, B + o, c)]; }, cfy(kKcY, B), L.BY);
+      };
+      auto ke_u_rec = [&](int A, int B, int c) {
+        const int n = at(A, B, c);
+        const int K = level(P.K[kKeX], P.bx, pi(A), g.Hx, g.Nx, 0);
+        return advected<KM, T, S, FULL>(P.fam[kKeX], K, 0, U[n] > T(0), f0 + n, L.sx, kOne, f1 + n,
+                                        nullptr, nullptr, 0);
+      };
+      if (md) {
+        for_md_x([&](int a, int b, int c) {
+          const int A = R + a, B = R + b;
+          mdx[mdat(a, b, c)] = inb(A, B) ? ke_u_sym(A, B, c) : T(0);
+        });
+        for_md_y([&](int a, int b, int c) {
+          const int A = R + a, B = R + b;
+          mdy[mdat(a, b, c)] = inb(A, B) ? ke_u_rec(A, B, c) : T(0);
+        });
+        __syncthreads();
+      }
       for_cells([&](int a, int b, int c, int A, int B, int m) {
         if (!has_u(a, b)) return;
         const int i = pi(A), j = pj(B), n = at(A, B, c);
-        const T dKvs = symm<KM, T, FULL>(P.fam[kKcY], level(P.K[kKcY], P.by, j, g.Hy, g.Ny, 1), 1,
-                                   [&](int o) { return f2[at(A, B + o, c)]; }, cfy(kKcY, B),
-                                   L.BY);
+        const T dKvs = md ? filt_x(mdx, a, b, c)
+                          : symm<KM, T, FULL>(P.fam[kKcY],
+                                              level(P.K[kKcY], P.by, j, g.Hy, g.Ny, 1), 1,
+                                              [&](int o) { return f2[at(A, B + o, c)]; },
+                                              cfy(kKcY, B), L.BY);
         const T uc = U[n];
         const int K = level(P.K[kKeX], P.bx, i, g.Hx, g.Nx, 0);
-        const T dKur = advected<KM, T, S, FULL>(P.fam[kKeX], K, 0, uc > T(0), f0 + n, L.sx, kOne, f1 + n,
-                                       nullptr, nullptr, 0);
+        const T dKur = md ? filt_y(mdy, a, b, c)
+                          : advected<KM, T, S, FULL>(P.fam[kKeX], K, 0, uc > T(0), f0 + n, L.sx,
+                                                     kOne, f1 + n, nullptr, nullptr, 0);
         acc_u[m] = acc_u[m] + -((dKur + dKvs) / row(kDxFCC, B));
       });
       __syncthreads();
@@ -698,15 +873,42 @@ __global__ void __launch_bounds__(kThreads) vi_tendency_kernel(const __grid_cons
         f2[n] = in ? hu(A, B, c) - hu(A, B - 1, c) : T(0);
       });
       __syncthreads();
+      // the cross interpolation of δy(u²/2) along x (filtered along y) and
+      // the reconstruction of δy(v²/2) along y (filtered along x)
+      auto ke_v_sym = [&](int A, int B, int c) {
+        return symm<KM, T, FULL>(P.fam[kKcX], level(P.K[kKcX], P.bx, pi(A), g.Hx, g.Nx, 1), 1,
+                                 [&](int o) { return f2[at(A + o, B, c)]; }, nullptr, 0);
+      };
+      auto ke_v_rec = [&](int A, int B, int c) {
+        const int n = at(A, B, c);
+        const int K = level(P.K[kKeY], P.by, pj(B), g.Hy, g.Ny, 0);
+        return advected<KM, T, S, FULL>(P.fam[kKeY], K, 0, V[n] > T(0), f0 + n, L.sy, kOne, f1 + n,
+                                        nullptr, cfy(kKeY, B), L.BY);
+      };
+      if (md) {
+        for_md_y([&](int a, int b, int c) {
+          const int A = R + a, B = R + b;
+          mdy[mdat(a, b, c)] = inb(A, B) ? ke_v_sym(A, B, c) : T(0);
+        });
+        for_md_x([&](int a, int b, int c) {
+          const int A = R + a, B = R + b;
+          mdx[mdat(a, b, c)] = inb(A, B) ? ke_v_rec(A, B, c) : T(0);
+        });
+        __syncthreads();
+      }
       for_cells([&](int a, int b, int c, int A, int B, int m) {
         if (!has_v(a, b)) return;
         const int i = pi(A), j = pj(B), n = at(A, B, c);
-        const T dKus = symm<KM, T, FULL>(P.fam[kKcX], level(P.K[kKcX], P.bx, i, g.Hx, g.Nx, 1), 1,
-                                   [&](int o) { return f2[at(A + o, B, c)]; }, nullptr, 0);
+        const T dKus = md ? filt_y(mdy, a, b, c)
+                          : symm<KM, T, FULL>(P.fam[kKcX],
+                                              level(P.K[kKcX], P.bx, i, g.Hx, g.Nx, 1), 1,
+                                              [&](int o) { return f2[at(A + o, B, c)]; },
+                                              nullptr, 0);
         const T vc = V[n];
         const int K = level(P.K[kKeY], P.by, j, g.Hy, g.Ny, 0);
-        const T dKvr = advected<KM, T, S, FULL>(P.fam[kKeY], K, 0, vc > T(0), f0 + n, L.sy, kOne, f1 + n,
-                                       nullptr, cfy(kKeY, B), L.BY);
+        const T dKvr = md ? filt_x(mdx, a, b, c)
+                          : advected<KM, T, S, FULL>(P.fam[kKeY], K, 0, vc > T(0), f0 + n, L.sy,
+                                                     kOne, f1 + n, nullptr, cfy(kKeY, B), L.BY);
         acc_v[m] = acc_v[m] + -((dKvr + dKus) / row(kDyCFC, B));
       });
     } else {
@@ -841,6 +1043,44 @@ __global__ void __launch_bounds__(kThreads) vi_tendency_kernel(const __grid_cons
         }
       });
       __syncthreads();
+      // ONLY_SELF: the cross interpolation plus the reconstruction of the
+      // divergence at a u point (filtered along y) and at a v point
+      // (filtered along x)
+      auto div_u = [&](int A, int B, int c) {
+        const int n = at(A, B, c), i = pi(A);
+        const T dvs = symm<KM, T, FULL>(P.fam[kDcX], level(P.K[kDcX], P.bx, i, g.Hx, g.Nx, 0), 0,
+                                        [&](int o) { return dV[at(A + o, B, c)]; }, nullptr, 0);
+        const T rdiv = advected<KM, T, S, FULL>(P.fam[kDivX],
+                                                level(P.K[kDivX], P.bx, i, g.Hx, g.Nx, 0), 0,
+                                                U[n] > T(0), dU + n, L.sx, kSum, dU + n, dV + n,
+                                                nullptr, 0);
+        return dvs + rdiv;
+      };
+      auto div_v = [&](int A, int B, int c) {
+        const int n = at(A, B, c), j = pj(B);
+        const T dus = symm<KM, T, FULL>(P.fam[kDcY], level(P.K[kDcY], P.by, j, g.Hy, g.Ny, 0), 0,
+                                        [&](int o) { return dU[at(A, B + o, c)]; }, cfy(kDcY, B),
+                                        L.BY);
+        const T rdiv = advected<KM, T, S, FULL>(P.fam[kDivY],
+                                                level(P.K[kDivY], P.by, j, g.Hy, g.Ny, 0), 0,
+                                                V[n] > T(0), dV + n, L.sy, kSum, dU + n, dV + n,
+                                                cfy(kDivY, B), L.BY);
+        return dus + rdiv;
+      };
+      const bool md3 = md && !cross_self;
+      T* const mdx3 = rest + (L.col > L.box ? 2 * L.col : 2 * L.box);
+      T* const mdy3 = mdx3 + L.mdb;
+      if (md3) {
+        for_md_y([&](int a, int b, int c) {
+          const int A = R + a, B = R + b;
+          mdy3[mdat(a, b, c)] = inb(A, B) ? div_u(A, B, c) : T(0);
+        });
+        for_md_x([&](int a, int b, int c) {
+          const int A = R + a, B = R + b;
+          mdx3[mdat(a, b, c)] = inb(A, B) ? div_v(A, B, c) : T(0);
+        });
+        __syncthreads();
+      }
       for_cells([&](int a, int b, int c, int A, int B, int m) {
         const int i = pi(A), j = pj(B), n = at(A, B, c), f = (a * TY + b) * (TZ + 1) + c;
         if (has_u(a, b)) {
@@ -850,6 +1090,8 @@ __global__ void __launch_bounds__(kThreads) vi_tendency_kernel(const __grid_cons
           if (cross_self) {
             phi = uc * advected<KM, T, S, FULL>(P.fam[kDivX], K, 0, uc > T(0), dU + n, L.sx, kSelf,
                                        nullptr, nullptr, nullptr, 0);
+          } else if (md3) {
+            phi = uc * filt_y(mdy3, a, b, c);
           } else {
             const T dvs = symm<KM, T, FULL>(P.fam[kDcX], level(P.K[kDcX], P.bx, i, g.Hx, g.Nx, 0), 0,
                                       [&](int o) { return dV[at(A + o, B, c)]; }, nullptr, 0);
@@ -867,6 +1109,8 @@ __global__ void __launch_bounds__(kThreads) vi_tendency_kernel(const __grid_cons
           if (cross_self) {
             phi = vc * advected<KM, T, S, FULL>(P.fam[kDivY], K, 0, vc > T(0), dU + n, L.sy, kSelf,
                                        nullptr, nullptr, cfy(kDivY, B), L.BY);
+          } else if (md3) {
+            phi = vc * filt_x(mdx3, a, b, c);
           } else {
             const T dus = symm<KM, T, FULL>(P.fam[kDcY], level(P.K[kDcY], P.by, j, g.Hy, g.Ny, 0), 0,
                                       [&](int o) { return dU[at(A, B + o, c)]; }, cfy(kDcY, B),
@@ -1055,6 +1299,31 @@ __global__ void __launch_bounds__(kThreads) vi_tendency_kernel(const __grid_cons
   }
 }
 
+// The kernels: the lean variant and the stencil's family at the registers
+// ptxas takes, the full variant without the stencil held to two blocks an
+// SM (128 registers, as before the stencil's family: left free it takes
+// 166 at float32 and one block an SM, the stretched ocean row's #10 4.21 ms
+// against 3.11).
+template <typename T, typename S, int KM, bool FULL, bool MD>
+__global__ void __launch_bounds__(kThreads) vi_tendency_kernel(const __grid_constant__ Params<T> P) {
+  vi_tendency<T, S, KM, FULL, MD>(P);
+}
+template <typename T, typename S, int KM>
+__global__ void __launch_bounds__(kThreads, 2)
+    vi_tendency_full_kernel(const __grid_constant__ Params<T> P) {
+  vi_tendency<T, S, KM, true, false>(P);
+}
+
+// The kernel a variant launches (only that one is instantiated).
+template <typename T, typename S, int KM, bool FULL, bool MD>
+auto kernel_of() {
+  if constexpr (FULL && !MD) {
+    return vi_tendency_full_kernel<T, S, KM>;
+  } else {
+    return vi_tendency_kernel<T, S, KM, FULL, MD>;
+  }
+}
+
 // -- the launch -------------------------------------------------------------------
 
 struct Args {
@@ -1070,13 +1339,15 @@ struct Args {
 };
 
 // Whether the reaches cover the sites (the box, the w box, the columns and
-// the tracer box): R past every horizontal site's buffer, Rw every symmetric
-// w site's Centered buffer, Rz the z sites', Rc the horizontal tracer sites'.
+// the tracer box): R past every horizontal site's buffer (and 2 more with
+// the multi-dimensional stencil), Rw every symmetric w site's Centered
+// buffer, Rz the z sites', Rc the horizontal tracer sites'.
 inline bool reaches_cover(const int* cf) {
   auto Kof = [&](int s) { return cf[cK + s]; };
+  if (cf[cMd] != 0 && cf[cMd] != 1) return false;
   const int horizontal[] = {kVortX, kVortY, kKeX, kKeY, kKcX, kKcY, kDivX, kDivY, kDcX, kDcY};
   for (int s : horizontal)
-    if (Kof(s) + 1 > cf[cR]) return false;
+    if (Kof(s) + 1 + 2 * cf[cMd] > cf[cR]) return false;
   const int w_sites[] = {kVsX, kVsY};
   for (int s : w_sites) {
     const int b = cf[cFam + s] == kCentered ? Kof(s) : (Kof(s) > 1 ? Kof(s) - 1 : 1);
@@ -1090,20 +1361,20 @@ inline bool reaches_cover(const int* cf) {
   return cf[cRw] >= 2 && cf[cR] >= 2 && cf[cRz] >= 1 && cf[cRc] >= 1;
 }
 
-template <typename T, typename S, int KM, bool FULL>
+template <typename T, typename S, int KM, bool FULL, bool MD>
 int launch(const Args& a) {
   const int* cf = a.cf;
   const Geom g{cf[cNx], cf[cNy], cf[cNz], cf[cHx], cf[cHy], cf[cHz]};
   const int tiles_y = ceil_div(g.Ny + cf[cBy], a.TY), tiles_z = ceil_div(g.Nz, a.TZ);
   const long long want = (long long)Layout(a.TX, a.TY, a.TZ, cf[cR], cf[cRw], cf[cRz], cf[cRc],
-                                           cf[cNyRows], cf[cNzRows])
+                                           cf[cNyRows], cf[cNzRows], cf[cMd])
                              .total *
                          sizeof(T);
   if (a.smem != want || a.smem > kMaxSmemBytes || !reaches_cover(cf) ||
-      cf[cNyRows] < kNumRows || cf[cNzRows] < kNumZCols ||
+      cf[cNyRows] < kNumRows || cf[cNzRows] < kNumZCols || cf[cMd] != (MD ? 1 : 0) ||
       a.blocks != ceil_div(g.Nx + cf[cBx], a.TX) * tiles_y * tiles_z)
     return (int)cudaErrorInvalidValue;
-  auto* kernel = vi_tendency_kernel<T, S, KM, FULL>;
+  auto* kernel = kernel_of<T, S, KM, FULL, MD>();
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
   if (e != cudaSuccess) return (int)e;
@@ -1132,6 +1403,7 @@ int launch(const Args& a) {
   P.ntr = ntr;
   P.with_ph = cf[cWithPh];
   P.momentum = cf[cMomentum];
+  P.md = cf[cMd];
   P.zs = cf[cZs];
   P.ny_rows = cf[cNyRows];
   P.nz_rows = cf[cNzRows];
@@ -1169,23 +1441,30 @@ inline bool full_variant(const int* cf) {
   return full;
 }
 
-template <typename T, typename S, int KM>
+// The lean or full variant, or with the multi-dimensional stencil (MD, the
+// vi_md_k<K>.cu units) the full variant with the filter.
+template <typename T, typename S, int KM, bool MD>
 int launch_variant(const Args& a) {
-  return full_variant(a.cf) ? launch<T, S, KM, true>(a) : launch<T, S, KM, false>(a);
+  return full_variant(a.cf) ? launch<T, S, KM, true, MD>(a) : launch<T, S, KM, false, MD>(a);
 }
 
 // The launch for the fields' and the smoothness' dtype codes at buffer KM.
-template <int KM>
+// The MD family takes the smoothness in the fields' dtype, or bfloat16 with
+// float32 fields (vi_config refuses the other pairs with the stencil).
+template <int KM, bool MD = false>
 int dispatch(int dtype, int sdtype, const Args& a) {
-  if (dtype == OC_FLOAT32 && sdtype == OC_FLOAT32) return launch_variant<float, float, KM>(a);
-  if (dtype == OC_FLOAT32 && sdtype == OC_FLOAT64) return launch_variant<float, double, KM>(a);
-  if (dtype == OC_FLOAT32 && sdtype == OC_BFLOAT16) return launch_variant<float, bf16, KM>(a);
-  if (dtype == OC_FLOAT64 && sdtype == OC_FLOAT32) return launch_variant<double, float, KM>(a);
-  if (dtype == OC_FLOAT64 && sdtype == OC_FLOAT64) return launch_variant<double, double, KM>(a);
+  if (dtype == OC_FLOAT32 && sdtype == OC_FLOAT32) return launch_variant<float, float, KM, MD>(a);
+  if (dtype == OC_FLOAT32 && sdtype == OC_BFLOAT16) return launch_variant<float, bf16, KM, MD>(a);
+  if (dtype == OC_FLOAT64 && sdtype == OC_FLOAT64) return launch_variant<double, double, KM, MD>(a);
+  if constexpr (!MD) {
+    if (dtype == OC_FLOAT32 && sdtype == OC_FLOAT64) return launch_variant<float, double, KM, MD>(a);
+    if (dtype == OC_FLOAT64 && sdtype == OC_FLOAT32) return launch_variant<double, float, KM, MD>(a);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
-// Each vi_k<K>.cu: this buffer's launch and its unit's tables.
+// Each vi_k<K>.cu (vi_md_k<K>.cu: with the multi-dimensional stencil): this
+// buffer's launch and its unit's tables.
 int vi_k3(int dtype, int sdtype, const Args& a);
 int vi_k4(int dtype, int sdtype, const Args& a);
 int vi_k5(int dtype, int sdtype, const Args& a);
@@ -1194,6 +1473,14 @@ int vi_k3_tables(const double* v, const double* vb);
 int vi_k4_tables(const double* v, const double* vb);
 int vi_k5_tables(const double* v, const double* vb);
 int vi_k6_tables(const double* v, const double* vb);
+int vi_md_k3(int dtype, int sdtype, const Args& a);
+int vi_md_k4(int dtype, int sdtype, const Args& a);
+int vi_md_k5(int dtype, int sdtype, const Args& a);
+int vi_md_k6(int dtype, int sdtype, const Args& a);
+int vi_md_k3_tables(const double* v, const double* vb);
+int vi_md_k4_tables(const double* v, const double* vb);
+int vi_md_k5_tables(const double* v, const double* vb);
+int vi_md_k6_tables(const double* v, const double* vb);
 
 }  // namespace vi
 }  // namespace oc

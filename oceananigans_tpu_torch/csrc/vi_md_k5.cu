@@ -1,0 +1,16 @@
+// The fused hydrostatic tendency (#10, vi_kernel.cuh) with the multi-
+// dimensional stencil (the MD family) for configurations whose deepest site
+// has buffer 5: Centered(10), UpwindBiased(9) and WENO(9). A source of its own
+// beside vi_k5.cu, so that kernels/build.py compiles the two in parallel; each
+// unit holds its own copy of the constant tables.
+#include "vi_kernel.cuh"
+
+namespace oc {
+namespace vi {
+
+int vi_md_k5(int dtype, int sdtype, const Args& a) { return dispatch<5, true>(dtype, sdtype, a); }
+
+int vi_md_k5_tables(const double* v, const double* vb) { return set_tables(v, vb); }
+
+}  // namespace vi
+}  // namespace oc

@@ -25,16 +25,20 @@ or a scheme in either stencil; vertical, divergence and kinetic-energy
 schemes each ENERGY or a scheme; ``ONLY_SELF`` or ``CROSS_AND_SELF``), any
 tracer scheme and count, every Coriolis of ``coriolis.py`` (None, FPlane,
 BetaPlane, ConstantCartesianCoriolis, NonTraditionalBetaPlane,
-HydrostaticSphericalCoriolis in both schemes) and stretched y and z. A
+HydrostaticSphericalCoriolis in both schemes), stretched y and z, and the
+multi-dimensional stencil (each filtered reconstruction formed over the tile
+plus 2 along its filter's axis, then the 5-point centred WENO filter,
+``md_filter``; two more cells of box reach). A
 scheme is Centered(2-12), UpwindBiased(1-11), WENO(3-11) or a per-axis
 ``FluxFormAdvection`` of them; each reconstruction and symmetric
 interpolation is a *site* (``SITES``) holding its family and buffer. The
 fields are float32 or float64; every WENO shares one smoothness dtype
 (float32, float64, or bfloat16 with float32 fields). Refused, naming
-ROADMAP item 13, is what JAX refuses (an immersed grid, another grid type,
-metrics that vary along x, a stretched x, polar caps, a flat axis, the
-z-compact layout); the multi-dimensional stencil the port's VectorInvariant
-refuses when built.
+ROADMAP item 13, is what JAX refuses (an immersed grid, another grid type
+(a z* moving grid among them), metrics that vary along x, a stretched x,
+polar caps, a flat axis, the z-compact layout, per-tracer schemes). The
+model keeps from the kernel what JAX's explicit fused path refuses
+(``HydrostaticFreeSurfaceModel._unfused``).
 
 Bound on the H100: operations (``chip_smoke.py`` ``vi_flop`` counts each
 derived field, face flux and reconstruction once, by scheme, buffer and
@@ -64,7 +68,7 @@ import functools
 import numpy as np
 import torch
 
-from ..advection.fluxes import div_Uc
+from ..advection.fluxes import div_Uc, div_Uu, div_Uv
 from ..advection.reconstruction import (eno_coefficients, optimal_weights,
                                         smoothness_factors, typed_constants)
 from ..advection.schemes import (TAU_COEFFS, WENO_EPSILON, WENO_R_MAX,
@@ -208,6 +212,9 @@ def vi_config(grid, vi, tracer_scheme, n_tracers, coriolis):
         raise _uncovered(why)
     if grid.dtype not in _DTYPE_CODES:
         why.append(f"dtype {grid.dtype}")
+    if isinstance(tracer_scheme, dict):
+        why.append("per-tracer advection schemes")
+        raise _uncovered(why)
     sites = {}
     smooth = set()
 
@@ -287,6 +294,10 @@ def vi_config(grid, vi, tracer_scheme, n_tracers, coriolis):
             why.append(f"smoothness dtype {sdt}")
         elif sdt == torch.bfloat16 and grid.dtype != torch.float32:
             why.append("bfloat16 smoothness with fields other than float32")
+        elif vi.multi_dimensional_stencil and sdt not in (grid.dtype,
+                                                           torch.bfloat16):
+            why.append("the multi-dimensional stencil with a smoothness "
+                       "dtype other than the fields' or bfloat16")
     if why:
         raise _uncovered(why)
     sdt = smooth.pop() if smooth else grid.dtype
@@ -294,11 +305,14 @@ def vi_config(grid, vi, tracer_scheme, n_tracers, coriolis):
     def K(*names):
         return max([sites[n][1] for n in names if n in sites] + [MIN_REACH])
 
+    # the multi-dimensional stencil filters each horizontal reconstruction
+    # over ±2 cells along the other horizontal axis: two more cells of box
+    md = int(vi.multi_dimensional_stencil)
     R = K("vort_x", "vort_y", "ke_x", "ke_y", "kc_x", "kc_y", "div_x",
-          "div_y", "dc_x", "dc_y") + 1
+          "div_y", "dc_x", "dc_y") + 1 + 2 * md
     Rw = max([sym_buffer(sites[n]) for n in ("vs_x", "vs_y") if n in sites]
              + [2])
-    return dict(vort=vort, vort_sm=vort_sm, ke=ke, vert=vert, upw=upw,
+    return dict(vort=vort, vort_sm=vort_sm, ke=ke, vert=vert, upw=upw, md=md,
                 cor=cor, cor_f=cor_f, sites=sites, tracers=tracers,
                 sdtype=sdt, KM=K(*sites), R=R, Rw=Rw, Rz=K("vz", "t_z"),
                 Rc=K("t_x", "t_y"), ys=_is_stretched(grid, 1),
@@ -307,11 +321,13 @@ def vi_config(grid, vi, tracer_scheme, n_tracers, coriolis):
 
 def variant_name(cfg):
     """The kernel variant of a configuration: ``k`` and the buffer it is
-    instantiated for, then ``_y`` / ``_z`` for a stretched y / z and
-    ``_bf16`` for bfloat16 smoothness (``k5``, ``k5_z``, ``k6_y_z``)."""
+    instantiated for, then ``_y`` / ``_z`` for a stretched y / z, ``_bf16``
+    for bfloat16 smoothness and ``_md`` for the multi-dimensional stencil's
+    family (``k5``, ``k5_z``, ``k6_y_z``, ``k5_md``)."""
     return (f"k{cfg['KM']}" + ("_y" if cfg["ys"] else "")
             + ("_z" if cfg["zs"] else "")
-            + ("_bf16" if cfg["sdtype"] == torch.bfloat16 else ""))
+            + ("_bf16" if cfg["sdtype"] == torch.bfloat16 else "")
+            + ("_md" if cfg["md"] else ""))
 
 
 def kept_slices(grid):
@@ -333,14 +349,28 @@ def _keep(a, sl):
 
 
 def fused_vi_tendency_plain(grid, vi, tracer_scheme, names, coriolis, u, v,
-                            w, tracers, ph=None):
+                            w, tracers, ph=None, grid_motion=None,
+                            tracer_velocities=None):
     """Plain PyTorch version: the TPU function's four phase bodies with the
-    port's operators on whole padded tensors, cut to the kept regions."""
+    port's operators on whole padded tensors, cut to the kept regions.
+
+    It is also the hydrostatic model's tendency wherever the kernel is off,
+    so it takes what the kernel refuses: ``vi`` a flux-form scheme
+    (-∇·(𝐯u), -∇·(𝐯v) in place of the vector-invariant terms),
+    ``grid_motion`` (z*'s Az·Δr·∂t_σ in the vector invariant's divergence
+    flux), ``tracer_scheme`` a {name: scheme} dict, and
+    ``tracer_velocities``, the (u, v, w) that advect the tracers (with an
+    advective GM closure's eddy velocities)."""
     if u.is_cuda:
         fused_vi_tendency_plain.cuda_calls += 1
-    h_u, h_v = vi._horizontal(grid, u, v)
-    b_u, b_v = vi._bernoulli(grid, u, v)
-    z_u, z_v = vi._vertical(grid, u, v, w)
+    if isinstance(vi, VectorInvariant):
+        h_u, h_v = vi._horizontal(grid, u, v)
+        b_u, b_v = vi._bernoulli(grid, u, v)
+        z_u, z_v = vi._vertical(grid, u, v, w, grid_motion)
+        Gu = (-h_u + -b_u) + -z_u
+        Gv = (-h_v + -b_v) + -z_v
+    else:
+        Gu, Gv = -div_Uu(grid, vi, u, v, w), -div_Uv(grid, vi, u, v, w)
     f_u = f_v = None
     if coriolis is not None:
         f_u = -coriolis.x_f_cross_U(grid, u, v, w)
@@ -349,14 +379,21 @@ def fused_vi_tendency_plain(grid, vi, tracer_scheme, names, coriolis, u, v,
         p_u, p_v = -ddx(grid, ph, LOC_FCC), -ddy(grid, ph, LOC_CFC)
         f_u = p_u if f_u is None else f_u + p_u
         f_v = p_v if f_v is None else f_v + p_v
-    Gu = (-h_u + -b_u) + -z_u
-    Gv = (-h_v + -b_v) + -z_v
     if f_u is not None:
         Gu, Gv = Gu + f_u, Gv + f_v
-    su, sv, sc = kept_slices(grid)
-    Gc = {n: _keep(-div_Uc(grid, tracer_scheme, u, v, w, tracers[n]), sc)
-          for n in names}
+    su, sv, _ = kept_slices(grid)
+    Gc = tracer_advection_plain(grid, tracer_scheme, names,
+                                *(tracer_velocities or (u, v, w)), tracers)
     return _keep(Gu, su), _keep(Gv, sv), Gc
+
+
+def tracer_advection_plain(grid, tracer_scheme, names, u, v, w, tracers):
+    """{name: -∇·(𝐯c)} of ``tracers`` by ``tracer_scheme`` (a scheme, or a
+    {name: scheme} dict), cut to the interior."""
+    sc = grid.interior_slices
+    return {n: _keep(-div_Uc(grid, tracer_scheme[n] if isinstance(
+        tracer_scheme, dict) else tracer_scheme, u, v, w, tracers[n]), sc)
+        for n in names}
 
 
 fused_vi_tendency_plain.cuda_calls = 0
@@ -616,8 +653,11 @@ def smem_bytes(tile, cfg, esize, n_yrows=N_ROWS, n_zrows=N_ZCOLS):
     box's y and the z rows over the tile's z faces, and a work buffer large
     enough for each phase in turn (three derived fields; w, the z face
     fluxes of u and v and two columns or two derived fields; w and ph; w, a
-    tracer box and its fluxes)."""
+    tracer box and its fluxes). The multi-dimensional stencil adds to the
+    first three phases two buffers of a reconstruction over the tile plus 2
+    along x and y."""
     TX, TY, TZ = tile
+    mdb = _align((TX + 4) * (TY + 4) * TZ) if cfg.get("md") else 0
     R, Rw, Rz, Rc = cfg["R"], cfg["Rw"], cfg["Rz"], cfg["Rc"]
     BY = TY + 2 * R
     box = _align((TX + 2 * R) * BY * TZ)
@@ -630,8 +670,8 @@ def smem_bytes(tile, cfg, esize, n_yrows=N_ROWS, n_zrows=N_ZCOLS):
     tfy = _align(TX * (TY + 1) * TZ)
     persistent = (2 * box + 2 * _align(TX * TY * TZ) + _align(n_yrows * BY)
                   + _align(n_zrows * (TZ + 1)))
-    work = max(3 * box, wsz + 2 * fz + 2 * max(col, box), wsz + phb,
-               wsz + tb + tfx + tfy + fz)
+    work = max(3 * box + 2 * mdb, wsz + 2 * fz + 2 * max(col, box) + 2 * mdb,
+               wsz + phb, wsz + tb + tfx + tfy + fz)
     return esize * (persistent + work)
 
 
@@ -678,9 +718,9 @@ def launch_plan(grid, cfg, dtype):
 
 
 # The C entry's int configuration (csrc/vi_kernel.cuh Conf): the geometry,
-# the codes, the reaches, then per site its family, buffer and first
-# coefficient row (-1 on a uniform axis).
-CONF_HEAD = 25
+# the codes, the reaches, the multi-dimensional stencil's flag, then per
+# site its family, buffer and first coefficient row (-1 on a uniform axis).
+CONF_HEAD = 26
 
 
 def conf_array(grid, cfg, plan, n_tr, with_ph, momentum):
@@ -690,7 +730,7 @@ def conf_array(grid, cfg, plan, n_tr, with_ph, momentum):
             int(grid.topology[1] == BOUNDED), cfg["vort"], cfg["vort_sm"],
             cfg["ke"], cfg["vert"], cfg["upw"], cfg["cor"], n_tr,
             int(with_ph), int(momentum), cfg["KM"],
-            *plan["reach"], *plan["rows"], int(cfg["zs"])]
+            *plan["reach"], *plan["rows"], int(cfg["zs"]), cfg["md"]]
     assert len(head) == CONF_HEAD
     fam = [cfg["sites"].get(s, (0, 0))[0] for s in SITES]
     K = [cfg["sites"].get(s, (0, 0))[1] for s in SITES]

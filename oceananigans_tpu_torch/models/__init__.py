@@ -1,13 +1,16 @@
 from .nonhydrostatic import NonhydrostaticModel, state_from_jax
 from .free_surfaces import (ExplicitFreeSurface, ImplicitFreeSurface,
                             SplitExplicitFreeSurface)
-from .hydrostatic import HydrostaticFreeSurfaceModel
+from .hydrostatic import (HydrostaticFreeSurfaceModel,
+                          PrescribedVelocityFields, ZCoordinate,
+                          ZStarCoordinate)
 from .shallow_water import (CONSERVATIVE, VECTOR_INVARIANT,
                             ConservativeFormulation, ShallowWaterModel,
                             VectorInvariantFormulation)
 
 __all__ = ["NonhydrostaticModel", "state_from_jax", "ShallowWaterModel",
-           "HydrostaticFreeSurfaceModel", "ExplicitFreeSurface",
+           "HydrostaticFreeSurfaceModel", "PrescribedVelocityFields",
+           "ZCoordinate", "ZStarCoordinate", "ExplicitFreeSurface",
            "ImplicitFreeSurface", "SplitExplicitFreeSurface",
            "ConservativeFormulation", "VectorInvariantFormulation",
            "CONSERVATIVE", "VECTOR_INVARIANT"]

@@ -1,13 +1,16 @@
 """HydrostaticFreeSurfaceModel: the primitive equations with a free surface.
 
-Counterpart of ``oceananigans_tpu/models/hydrostatic.py`` for a static z
-coordinate: prognostic u, v, tracers and η; w diagnosed from continuity; the
-hydrostatic pressure anomaly from the buoyancy (``BuoyancyTracer`` or
-``SeawaterBuoyancy`` with any of its equations of state); vector-invariant
-momentum advection, Coriolis, tracer advection; closures (the scalar
-diffusivities, tuples, CATKE, k-ε, the Ri-based and convective-adjustment
-vertical diffusivities, two-dimensional Leith) with the vertically implicit
-solve; forcing; Flux conditions (scalars, functions, field-dependent);
+Counterpart of ``oceananigans_tpu/models/hydrostatic.py``: prognostic u,
+v, tracers and η; w diagnosed from continuity; the hydrostatic pressure
+anomaly from the buoyancy (``BuoyancyTracer`` or ``SeawaterBuoyancy`` with
+any of its equations of state); vector-invariant (with the
+multi-dimensional stencil) or flux-form momentum advection, Coriolis,
+tracer advection (one scheme, or a dict of per-tracer schemes with a
+``"default"``); closures (the scalar diffusivities, tuples, CATKE, k-ε, the
+Ri-based and convective-adjustment vertical diffusivities, two-dimensional
+Leith, the isopycnal closures, whose advective GM form adds eddy velocities
+to the tracers' advecting velocities) with the vertically implicit solve;
+forcing; Flux conditions (scalars, functions, field-dependent);
 immersed bottoms (``ImmersedBoundaryGrid``); the quasi-AB2 step (Euler on the
 first step and when Δt changes) or the split RK3 (three Euler stages from
 the step's start); an ``ExplicitFreeSurface``, an ``ImplicitFreeSurface``
@@ -40,7 +43,11 @@ boundary fluxes are added on top, as in JAX:
 - ``"auto"`` (the default): on a CUDA grid the kernel where it covers the
   configuration and the plain version elsewhere; on a CPU grid the plain
   version. It never raises for coverage, as the JAX "auto" (its XLA path)
-  never does.
+  never does. What JAX's explicit fused path refuses (prescribed
+  velocities, z*, eddy-velocity closures, momentum that is not the vector
+  invariant, per-tracer schemes) takes the plain version, which covers
+  them (``_unfused``), and under ``True`` or ``"packed"`` raises a ValueError
+  as JAX's does.
 - ``True`` or ``"packed"`` (a TPU layout of the same function): the kernel
   on a CUDA grid (its plain version on a CPU grid); a configuration the
   kernel does not cover raises, on any device, as the JAX opt-in does (an
@@ -67,9 +74,23 @@ substep's N², which reads the AB2-updated tracers' halos in JAX (ROADMAP.md
 queue 3). As in JAX, the stored u and v after a step are the corrected
 fields before their halo fill, and w is diagnosed from the filled ones.
 
-Biogeochemistry, auxiliary fields, prescribed velocities, z-star,
-per-tracer advection schemes and flux-form momentum advection raise
-``NotImplementedError`` naming their ROADMAP item.
+``vertical_coordinate="zstar"`` (``ZStarCoordinate()``): the grid
+follows the free surface. The tendencies see the σ-scaled metrics of
+``zstar.ZStarGrid``, σ = (H + η_grid)/H at each staggering from its column
+depth (the fluid depth on an immersed grid, σ = 1 on land); the grid's η
+(``eta_grid``, not the barotropic η) is stepped from the barotropic
+transport divergence δh_U by the tracers' own AB2 (``G_sigma`` its memory)
+or from the step's start in each RK3 stage, so that the σ-weighted tracer
+update θⁿ⁺¹ = (σⁿθⁿ + Δt ∂t(σθ))/σⁿ⁺¹ keeps a uniform tracer uniform to
+roundoff; ∂t_σ = -δh_U/H enters w and the vector invariant's divergence
+flux; the barotropic corrector pins σ·∫u dz. The substepped TKE stays
+outside the σ-weighted update, as in JAX.
+
+``velocities=PrescribedVelocityFields(u, v, w)``: the tracer-only mode
+(constants or callables of (x, y, z, t)), quasi-AB2 or the split RK3.
+
+Biogeochemistry and auxiliary fields raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -98,28 +119,80 @@ from ..grids.topology import LOC_CCC, LOC_CCF, LOC_CFC, LOC_FCC
 from ..immersed import ImmersedBoundaryGrid
 from ..kernels import (fused_vi_tendency, fused_vi_tendency_plain,
                        periodic_halo_fill)
-from ..kernels.fused_vector_invariant import vi_config
-from ..operators.operators import _metric, ddx, ddy, div_xy_ccc, dx_c, dy_c
+from ..kernels.fused_vector_invariant import (tracer_advection_plain,
+                                              vi_config)
+from ..operators.operators import (_metric, ddx, ddy, div_xy_ccc, dx_c, dy_c,
+                                   interp)
 from ..timesteppers import (QuasiAdamsBashforth2TimeStepper,
                             SplitRungeKutta3TimeStepper)
 from ..utils.dateclock import datetime_of
 from .free_surfaces import (ExplicitFreeSurface, ImplicitFreeSurface,
                             SplitExplicitFreeSurface)
 from .nonhydrostatic import _vertical_spacings, implicit_vertical_diffusion
+from .zstar import ZStarGrid, sigma_from_eta
 
 PROGNOSTIC_LOCS = {"u": LOC_FCC, "v": LOC_CFC}
-
-
-def _item(what):
-    return f"ROADMAP.md queue 1 item 13 (hydrostatic: {what})"
+ZSTAR_STATE = ("dt_sigma", "eta_grid", "G_sigma")
 
 
 _LONG_TAIL = "ROADMAP.md queue 1 item 15 (the long tail)"
 _NOT_PORTED = {
     "biogeochemistry": _LONG_TAIL,
     "auxiliary_fields": _LONG_TAIL,
-    "velocities": _item("prescribed velocities"),
 }
+
+
+def ZCoordinate():
+    """The static vertical coordinate (``vertical_coordinate=``)."""
+    return "z"
+
+
+def ZStarCoordinate():
+    """The free-surface-following z* coordinate (``vertical_coordinate=``)."""
+    return "zstar"
+
+
+class PrescribedVelocityFields:
+    """Tracer-only mode: u, v and w are prescribed (constants or callables
+    f(x, y, z, t) of broadcastable coordinate tensors and the time as a
+    float) and not stepped."""
+
+    def __init__(self, u=0.0, v=0.0, w=0.0):
+        self.u, self.v, self.w = u, v, w
+
+    def evaluate(self, grid, time):
+        """Padded (u, v, w) at ``time``."""
+        from ..fields.field import coordinates
+
+        def ev(q, loc):
+            if callable(q):
+                out = q(*coordinates(grid, loc), float(time))
+                return torch.as_tensor(out, dtype=grid.dtype,
+                                       device=grid.device).broadcast_to(
+                                           grid.padded_shape).contiguous()
+            return torch.full(grid.padded_shape, float(q), dtype=grid.dtype,
+                              device=grid.device)
+
+        return ev(self.u, LOC_FCC), ev(self.v, LOC_CFC), ev(self.w, LOC_CCF)
+
+
+def zstar_column_geometry(grid, H_fc, H_cf, immersed):
+    """{location: (depth, wet)} at (c, c), (f, c) and (c, f) for σ = (H +
+    η)/H: the grid's depth, or on an immersed grid each staggering's fluid
+    column depth (float64 numpy) and the mask of the columns deeper than
+    1e-9 of the grid's depth (σ = 1 elsewhere)."""
+    Lz = abs(grid.extent[2])
+    if not immersed:
+        return {loc: (Lz, None) for loc in (LOC_CCC, LOC_FCC, LOC_CFC)}
+    h, n = grid.H[2], grid.N[2]
+    dz3 = np.broadcast_to(
+        np.asarray(numpy_metric(grid, "dz", LOC_CCC), float),
+        grid.padded_shape)
+    H_cc = (dz3 * ~grid.solid_ccc)[:, :, h:h + n].sum(2, keepdims=True)
+    thresh = 1e-9 * Lz
+    return {LOC_CCC: (np.maximum(H_cc, thresh), H_cc > thresh),
+            LOC_FCC: (np.asarray(H_fc), np.asarray(H_fc) > thresh),
+            LOC_CFC: (np.asarray(H_cf), np.asarray(H_cf) > thresh)}
 
 
 def default_free_surface(grid):
@@ -186,17 +259,21 @@ class HydrostaticFreeSurfaceModel:
                  auxiliary_fields=None, fused_tendencies="auto",
                  reference_datetime=None, device=None, dtype=None):
         given = dict(biogeochemistry=biogeochemistry,
-                     auxiliary_fields=auxiliary_fields, velocities=velocities)
+                     auxiliary_fields=auxiliary_fields)
         for name, value in given.items():
             if value:
                 raise NotImplementedError(
                     f"{name} is not ported yet: {_NOT_PORTED[name]}")
+        if velocities is not None and not isinstance(
+                velocities, PrescribedVelocityFields):
+            raise ValueError(f"velocities={velocities!r}: a "
+                             f"PrescribedVelocityFields or None")
+        self.prescribed_velocities = velocities
         if callable(vertical_coordinate):
             vertical_coordinate = vertical_coordinate()
-        if vertical_coordinate != "z":
-            raise NotImplementedError(
-                f"vertical_coordinate={vertical_coordinate!r} is not ported "
-                f"yet: {_item('z-star')}")
+        if vertical_coordinate not in ("z", "zstar"):
+            raise ValueError(f"vertical_coordinate={vertical_coordinate!r}")
+        self.vertical_coordinate = vertical_coordinate
         if isinstance(timestepper, SplitRungeKutta3TimeStepper) or \
                 timestepper in ("SplitRungeKutta3", "split_rk3"):
             timestepper = SplitRungeKutta3TimeStepper()
@@ -204,22 +281,19 @@ class HydrostaticFreeSurfaceModel:
             timestepper = QuasiAdamsBashforth2TimeStepper()
         else:
             raise ValueError(f"unknown timestepper {timestepper!r}")
+        # per-tracer schemes: {tracer: scheme}, "default" for the others
+        self._tracer_advection_map = None
         if isinstance(tracer_advection, dict):
-            raise NotImplementedError(
-                f"per-tracer advection schemes are not ported yet: "
-                f"{_item('per-tracer advection')}")
-        if momentum_advection is not None and not isinstance(
-                momentum_advection, VectorInvariant):
-            raise NotImplementedError(
-                f"momentum advection {momentum_advection!r}: only the vector-"
-                f"invariant form is ported: {_item('flux-form momentum')}")
+            self._tracer_advection_map = dict(tracer_advection)
+            tracer_advection = self._tracer_advection_map.get(
+                "default", Centered(2))
         if isinstance(closure, (tuple, list)):
             closure = ClosureTuple(*closure)
         if closure is not None and not isinstance(closure, _ClosureBase):
             raise NotImplementedError(
                 f"closure {closure!r} is not a closure of the port's "
                 f"closures/ (the others are not ported yet: ROADMAP.md queue "
-                f"1 items 13 and 15)")
+                f"1 item 15)")
         if fused_tendencies not in (True, False, "packed", "auto"):
             raise ValueError(f"fused_tendencies={fused_tendencies!r}")
         self.reference_datetime = reference_datetime
@@ -259,7 +333,9 @@ class HydrostaticFreeSurfaceModel:
         self.timestepper = timestepper
 
         required = max(getattr(self.tracer_advection, "required_halo", 1),
-                       self.momentum_advection.required_halo)
+                       getattr(self.momentum_advection, "required_halo", 1))
+        for sch in (self._tracer_advection_map or {}).values():
+            required = max(required, getattr(sch, "required_halo", 1))
         if closure is not None:
             required = max(required, closure.required_halo)
         halo = tuple(max(h, required) if not grid.is_flat(i) else 0
@@ -274,7 +350,8 @@ class HydrostaticFreeSurfaceModel:
         # CATKE's TKE is substepped after each step, not advanced as a
         # tracer
         self._substepped_tke = bool(
-            closure is not None and getattr(closure, "substepped_tke", False))
+            closure is not None and getattr(closure, "substepped_tke", False)
+            and velocities is None)
         self._substepped_names = (tuple(closure.substepped_tracers)
                                   if self._substepped_tke else ())
         bcs_in = dict(boundary_conditions or {})
@@ -326,6 +403,19 @@ class HydrostaticFreeSurfaceModel:
         if isinstance(self.free_surface, ImplicitFreeSurface):
             self._setup_implicit_free_surface(H_fc if self._immersed else Lz,
                                               H_cf if self._immersed else Lz)
+        if vertical_coordinate == "zstar":
+            geo = zstar_column_geometry(
+                self.grid, H_fc if self._immersed else Lz,
+                H_cf if self._immersed else Lz, self._immersed)
+            self._zstar_geo = {
+                loc: (H if isinstance(H, float) else torch.as_tensor(H, **kw),
+                      None if wet is None else torch.as_tensor(
+                          wet, device=self.grid.device))
+                for loc, (H, wet) in geo.items()}
+            # Δr, the static spacing at the centres, padded
+            self._dz_ref = torch.as_tensor(np.array(np.broadcast_to(
+                np.asarray(numpy_metric(self.grid, "dz", LOC_CCC), float),
+                self.grid.padded_shape)), **kw)
         self._nt = numpy_dtype(self.grid.dtype)
         nt = self._nt
         shape = self.grid.padded_shape
@@ -340,6 +430,13 @@ class HydrostaticFreeSurfaceModel:
             self.state["barotropic"] = {
                 "U": self._zeros(shape[:2] + (1,)),
                 "V": self._zeros(shape[:2] + (1,))}
+        if vertical_coordinate == "zstar":
+            # ∂t_σ; the grid's own η (not the barotropic one: it is stepped
+            # by the tracers' AB2 from the barotropic transport divergence
+            # δh_U, so that a uniform tracer stays uniform); G_sigma, the
+            # AB2 memory of δh_U
+            for key in ZSTAR_STATE:
+                self.state[key] = self._zeros(shape[:2] + (1,))
 
     def _setup_implicit_free_surface(self, H_fc, H_cf):
         """The implicit free surface's solver, chosen as in JAX: the FFT/DCT
@@ -405,10 +502,32 @@ class HydrostaticFreeSurfaceModel:
                                              ("dx", LOC_CFC))}
             self._pcg_precondition = regular
 
+    def _unfused(self):
+        """What the JAX fused path refuses and the kernel does not know:
+        the reasons, empty when there are none."""
+        why = []
+        if self.prescribed_velocities is not None:
+            why.append("prescribed velocities")
+        if self.vertical_coordinate != "z":
+            why.append("z* moving coordinate")
+        if getattr(self.closure, "has_eddy_velocities", False):
+            why.append("eddy-velocity (advective GM) closures")
+        if not isinstance(self.momentum_advection, VectorInvariant):
+            why.append("non-vector-invariant momentum advection")
+        if self._tracer_advection_map is not None:
+            why.append("per-tracer advection schemes")
+        return why
+
     def _kernel_route(self, fused_tendencies, coriolis):
         """Whether the tendency launches the kernel (module docstring)."""
         if fused_tendencies is False:
             return False
+        why = self._unfused()
+        if why:
+            if fused_tendencies == "auto":
+                return False
+            raise ValueError("fused_tendencies is not supported with: "
+                             + ", ".join(why))
         on_card = self.grid.device.type == "cuda"
         if fused_tendencies == "auto" and not on_card:
             return False
@@ -547,7 +666,16 @@ class HydrostaticFreeSurfaceModel:
 
     @property
     def prognostic_3d(self):
+        if self.prescribed_velocities is not None:
+            return self.tracer_names
         return ("u", "v") + self.tracer_names
+
+    def tracer_scheme(self, name):
+        """The advection scheme of one tracer."""
+        if self._tracer_advection_map is not None:
+            return self._tracer_advection_map.get(name,
+                                                  self.tracer_advection)
+        return self.tracer_advection
 
     @property
     def prognostic_names(self):
@@ -690,11 +818,19 @@ class HydrostaticFreeSurfaceModel:
                                   [(self.loc(name), self.bcs[name])])
             fields[name] = data
         self.state = {**self.state, "fields": fields}
+        if "eta_grid" in self.state and "eta" in values:
+            # the grid's η starts from the same free surface
+            self.state = {**self.state, "eta_grid": fields["eta"].clone()}
         if "barotropic" in self.state and {"u", "v", "eta"} & set(values):
-            U = self._fill_surface(self._depth_integral(fields["u"], LOC_FCC),
-                                   LOC_FCC, self.bcs["u"])
-            V = self._fill_surface(self._depth_integral(fields["v"], LOC_CFC),
-                                   LOC_CFC, self.bcs["v"])
+            U = self._depth_integral(fields["u"], LOC_FCC)
+            V = self._depth_integral(fields["v"], LOC_CFC)
+            if "eta_grid" in self.state:
+                # z*: the moving-thickness integrals σ·∫u dz
+                sig = self._sigma_fields(self.state["eta_grid"])
+                U = U * sig[("f", "c")]
+                V = V * sig[("c", "f")]
+            U = self._fill_surface(U, LOC_FCC, self.bcs["u"])
+            V = self._fill_surface(V, LOC_CFC, self.bcs["v"])
             self.state = {**self.state, "barotropic": {"U": U, "V": V}}
 
     # -- diagnostics ----------------------------------------------------------
@@ -708,13 +844,25 @@ class HydrostaticFreeSurfaceModel:
             integrand = integrand * self._fluid_int[tuple(loc)]
         return integrand.sum(2, keepdim=True)
 
-    def _w_from_continuity(self, u, v):
+    def _w_from_continuity(self, u, v, dt_sigma=None, sigma=None):
         """w at the z faces by integrating continuity up from the bottom;
-        halos filled."""
+        halos filled. On z* (``sigma``, the per-staggering σ) the horizontal
+        divergence takes the moving face areas and each layer adds
+        -Δr·∂t_σ (``dt_sigma``), over the fluid cells only."""
         grid = self.grid
         h, n = grid.H[2], grid.N[2]
         sx, sy = grid.interior_slices[:2]
-        d = div_xy_ccc(grid, u, v)[sx, sy, h:h + n] * self._dz_int
+        if sigma is None:
+            d = div_xy_ccc(grid, u, v)[sx, sy, h:h + n] * self._dz_int
+        else:
+            # per moving volume; × σΔr restores [δx + δy]/Az
+            d = div_xy_ccc(ZStarGrid(grid, sigma), u, v)[sx, sy, h:h + n] \
+                * self._dz_int * sigma[("c", "c")][sx, sy]
+        if dt_sigma is not None:
+            gm = dt_sigma[sx, sy] * self._dz_int
+            if self._immersed:
+                gm = gm * self._fluid_int[LOC_CCC][sx, sy]
+            d = d + gm
         w = self._zeros()
         w[sx, sy, h + 1:h + n + 1] = -torch.cumsum(d, dim=2)
         return fill_all_halo_regions([w], grid, [(LOC_CCF, self.bcs["w"])])[0]
@@ -735,35 +883,125 @@ class HydrostaticFreeSurfaceModel:
         fill_surface_halo_regions([p], grid, [(LOC_CCC, self.bcs["ph"])])
         return p
 
+    # -- z* -------------------------------------------------------------------
+
+    def _sigma_fields(self, eta):
+        """σ at (c, c), (f, c) and (c, f) from each staggering's depth; land
+        columns keep σ = 1."""
+        out = {}
+        for loc, (H, wet) in self._zstar_geo.items():
+            e = eta
+            if loc[0] == "f":
+                e = interp(self.grid, eta, 0, "f")
+            elif loc[1] == "f":
+                e = interp(self.grid, eta, 1, "f")
+            out[(loc[0], loc[1])] = sigma_from_eta(e, H, wet)
+        return out
+
+    def _barotropic_divergence(self, U, V):
+        """δh_U = [δx(Δy U) + δy(Δx V)]/Az at the centres (padded 2-D)."""
+        g = self.grid
+        return (dx_c(g, _metric(g.dy(LOC_FCC), U) * U)
+                + dy_c(g, _metric(g.dx(LOC_CFC), V) * V)) \
+            / _metric(g.Az(LOC_CCC), U)
+
+    def _grid_motion_rate(self, dhU):
+        """∂t_σ = -δh_U/H over the wet columns, 0 on land."""
+        H, wet = self._zstar_geo[LOC_CCC]
+        r = -dhU / H
+        if wet is not None:
+            r = torch.where(wet, r, torch.zeros_like(r))
+        return r
+
+    def _moving_grid(self, fields):
+        """The σ-scaled grid under z* (σ from the grid's η when the fields
+        carry it), else the static grid."""
+        if self.vertical_coordinate != "zstar":
+            return self.grid
+        eta = fields.get("eta_grid", fields["eta"])
+        return ZStarGrid(self.grid, self._sigma_fields(eta))
+
+    def _zstar_transports(self, u, v, sig, bt, time):
+        """The filled barotropic transports that step the grid's η: the
+        persisted (U, V) of the split-explicit free surface, else σ·∫u dz
+        of the given velocities."""
+        if bt is not None:
+            U, V = bt["U"].clone(), bt["V"].clone()
+        else:
+            U = self._depth_integral(u, LOC_FCC) * sig[("f", "c")]
+            V = self._depth_integral(v, LOC_CFC) * sig[("c", "f")]
+        U = self._fill_surface(U, LOC_FCC, self.bcs["u"], time)
+        V = self._fill_surface(V, LOC_CFC, self.bcs["v"], time)
+        return U, V
+
     # -- tendencies -----------------------------------------------------------
 
-    def _compute_tendencies(self, fields, w, time=0.0):
+    def _grid_motion(self, u, dt_sigma):
+        """z*'s Az·Δr·∂t_σ at ccc in the vector invariant's divergence flux
+        (Δr the static reference spacing; the grid moves over the fluid
+        cells only), or None: a static grid or flux-form momentum."""
+        if dt_sigma is None or not isinstance(self.momentum_advection,
+                                              VectorInvariant):
+            return None
+        gm = _metric(self.grid.Az(LOC_CCC), u) * self._dz_ref * dt_sigma
+        if self._immersed:
+            gm = gm * self.grid.fluid_mask(LOC_CCC, u.dtype)
+        return gm
+
+    def _tracer_schemes(self):
+        """The tracer scheme, or a {name: scheme} dict of per-tracer
+        schemes."""
+        if self._tracer_advection_map is None:
+            return self.tracer_advection
+        return {n: self.tracer_scheme(n) for n in self.tracer_names}
+
+    def _tracer_velocities(self, grid, cf):
+        """The (u, v, w) that advect the tracers: the fields' own plus an
+        advective GM closure's eddy velocities."""
+        u, v, w = cf["u"], cf["v"], cf["w"]
+        if getattr(self.closure, "has_eddy_velocities", False):
+            ue, ve, we = self.closure.eddy_velocities(grid, cf)
+            u, v, w = u + ue, v + ve, w + we
+        return u, v, w
+
+    def _compute_tendencies(self, fields, w, time=0.0, dt_sigma=None):
         """The padded tendencies of u, v and the tracers and the closure's
         diffusivities, in the JAX order: advection, Coriolis and ∂ₓ,ᵧ pₕ′
-        (the kernel or its plain version), the explicit free surface's -g∇η,
-        the closure's momentum and tracer terms (a substepped TKE takes
-        only the other members' terms here), forcing, then the boundary and
+        (the kernel or its plain version, which also takes z*'s moving grid,
+        flux-form momentum, per-tracer schemes and an advective GM
+        closure's eddy velocities), the explicit free surface's -g∇η, the
+        closure's momentum and tracer terms (a substepped TKE takes only
+        the other members' terms here), forcing, then the boundary and
         immersed fluxes."""
-        grid = self.grid
+        grid = self._moving_grid(fields)
         u, v = fields["u"], fields["v"]
         ph = self._hydrostatic_pressure(fields)
-        fn = fused_vi_tendency if self.uses_kernel else fused_vi_tendency_plain
-        Gu, Gv, Gc = fn(grid, self.momentum_advection, self.tracer_advection,
-                        self.tracer_names, self.coriolis, u, v, w,
-                        {n: fields[n] for n in self.tracer_names}, ph)
-        G = {"u": Gu, "v": Gv, **Gc}
+        tracers = {n: fields[n] for n in self.tracer_names}
+        cf = dict(fields)
+        cf["w"] = w
+        if self.uses_kernel:
+            Gu, Gv, Gc = fused_vi_tendency(
+                grid, self.momentum_advection, self.tracer_advection,
+                self.tracer_names, self.coriolis, u, v, w, tracers, ph)
+        else:
+            Gu, Gv, Gc = fused_vi_tendency_plain(
+                grid, self.momentum_advection, self._tracer_schemes(),
+                self.tracer_names, self.coriolis, u, v, w, tracers, ph,
+                grid_motion=self._grid_motion(u, dt_sigma),
+                tracer_velocities=self._tracer_velocities(grid, cf))
+        G = {"u": Gu, "v": Gv}
         if isinstance(self.free_surface, ExplicitFreeSurface):
             g = self.free_surface.g
             G["u"] = G["u"] - g * ddx(grid, fields["eta"], LOC_FCC)
             G["v"] = G["v"] - g * ddy(grid, fields["eta"], LOC_CFC)
         aux = {}
         if self.closure is not None:
-            cf = dict(fields)
-            cf["w"] = w
             aux = self.closure.compute_diffusivities(grid, cf, time)
             mt = self.closure.momentum_tendencies(grid, cf, aux)
             G["u"] = G["u"] + mt["u"]
             G["v"] = G["v"] + mt["v"]
+        G.update(Gc)
+        if self.closure is not None:
             for name in self.tracer_names:
                 if name in self._substepped_names:
                     fn = getattr(self.closure,
@@ -790,6 +1028,37 @@ class HydrostaticFreeSurfaceModel:
         for hook in self._tendency_hooks:
             G = hook(grid, fields, G, float(time))
         return G, aux
+
+    def _prescribed_tendencies(self, fields, time):
+        """The tracer tendencies, diffusivities and w of the prescribed-
+        velocity mode (halos of ``fields`` filled): advection by the
+        prescribed (and eddy) velocities, the closure, forcing and the
+        boundary fluxes."""
+        grid = self.grid
+        u, v, w = self.prescribed_velocities.evaluate(grid, time)
+        cf = dict(fields, u=u, v=v, w=w)
+        aux = {}
+        if self.closure is not None:
+            aux = self.closure.compute_diffusivities(grid, cf, time)
+        tracers = {n: fields[n] for n in self.tracer_names}
+        G = tracer_advection_plain(grid, self._tracer_schemes(),
+                                   self.tracer_names,
+                                   *self._tracer_velocities(grid, cf),
+                                   tracers)
+        if self.closure is not None:
+            for name in self.tracer_names:
+                G[name] = G[name] + self.closure.tracer_tendency(
+                    grid, name, cf, aux)
+        for name, F in self.forcing.items():
+            if name in G:
+                G[name] = G[name] + (F(grid, fields, time) if callable(F)
+                                     else F)
+        locs = {n: self.loc(n) for n in fields}
+        for name in G:
+            apply_flux_bcs_padded(G[name], grid, self.loc(name),
+                                  self.bcs[name], time, fields=fields,
+                                  locs=locs)
+        return G, aux, w
 
     # -- hooks ----------------------------------------------------------------
 
@@ -856,16 +1125,25 @@ class HydrostaticFreeSurfaceModel:
         return uf, vf
 
     def _stage_free_surface(self, fields0, new, G, dt, barotropic,
-                            settings=None):
+                            settings=None, sigma=None):
         """The free surface over a (sub)step of ``dt`` from ``fields0``'s η,
         forced by ``G`` (the AB2-weighted or the stage tendencies); returns
-        (new, the barotropic state)."""
+        (new, the barotropic state). ``sigma``: z*'s σ at the (sub)step's
+        end, under which the corrector pins the moving-thickness integral
+        σ·∫u dz (σ is uniform in the column)."""
         fs = self.free_surface
         if isinstance(fs, SplitExplicitFreeSurface):
             eta_f, U_f, V_f = self._step_split_explicit(
                 fields0, G, dt, barotropic, settings)
-            du = (U_f - self._depth_integral(new["u"], LOC_FCC)) / self._H_fc
-            dv = (V_f - self._depth_integral(new["v"], LOC_CFC)) / self._H_cf
+            Ustar = self._depth_integral(new["u"], LOC_FCC)
+            Vstar = self._depth_integral(new["v"], LOC_CFC)
+            H_fc, H_cf = self._H_fc, self._H_cf
+            if sigma is not None:
+                sfc, scf = sigma[("f", "c")], sigma[("c", "f")]
+                Ustar, Vstar = Ustar * sfc, Vstar * scf
+                H_fc, H_cf = H_fc * sfc, H_cf * scf
+            du = (U_f - Ustar) / H_fc
+            dv = (V_f - Vstar) / H_cf
             if self._immersed:
                 du = du * self._wet_fc
                 dv = dv * self._wet_cf
@@ -875,7 +1153,8 @@ class HydrostaticFreeSurfaceModel:
             return new, {"U": U_f, "V": V_f}
         U, V = self._transports(new)
         if isinstance(fs, ImplicitFreeSurface):
-            return self._implicit_eta_step(fields0["eta"], new, U, V, dt), None
+            return self._implicit_eta_step(fields0["eta"], new, U, V,
+                                           dt), None
         grid = self.grid
         div = (dx_c(grid, _metric(grid.dy(LOC_FCC), U) * U)
                + dy_c(grid, _metric(grid.dx(LOC_CFC), V) * V)) \
@@ -885,7 +1164,11 @@ class HydrostaticFreeSurfaceModel:
 
     def time_step(self, dt):
         """Advance the model by one step of Δt (quasi-AB2 or split RK3)."""
-        if isinstance(self.timestepper, SplitRungeKutta3TimeStepper):
+        rk3 = isinstance(self.timestepper, SplitRungeKutta3TimeStepper)
+        if self.prescribed_velocities is not None:
+            (self._prescribed_rk3_step if rk3
+             else self._prescribed_ab2_step)(dt)
+        elif rk3:
             self._split_rk3_step(dt)
         else:
             self._ab2_step(dt)
@@ -902,17 +1185,55 @@ class HydrostaticFreeSurfaceModel:
         euler = clock["iteration"] == 0 or clock["last_dt"] != dt
         c_new, c_old, keep = self.timestepper.coefficients(euler)
         fields = self._fill_all(dict(state["fields"]), time)
-        w = self._w_from_continuity(fields["u"], fields["v"])
-        G, aux = self._compute_tendencies(fields, w, time)
+        bt = state.get("barotropic")
+        zstar = self.vertical_coordinate == "zstar"
+        sig_n = dt_sigma_n = sig_np1 = None
+        if zstar:
+            # ∂t_σ and the grid-η step from the barotropic transport
+            # divergence δh_U at tendency time
+            eta_g = self._fill_surface(state["eta_grid"].clone(), LOC_CCC,
+                                       self.bcs["eta"], time)
+            sig_n = self._sigma_fields(eta_g)
+            dhU = self._barotropic_divergence(*self._zstar_transports(
+                fields["u"], fields["v"], sig_n, bt, time))
+            dt_sigma_n = self._grid_motion_rate(dhU)
+            fields["eta_grid"] = eta_g
+        w = self._w_from_continuity(fields["u"], fields["v"],
+                                    dt_sigma=dt_sigma_n, sigma=sig_n)
+        G, aux = self._compute_tendencies(fields, w, time,
+                                          dt_sigma=dt_sigma_n)
+        tracers = [n for n in self.tracer_names
+                   if n not in self._substepped_names]
+        if zstar:
+            # σⁿ-scaled tracer tendencies: the AB2 memory carries them at
+            # their own time levels
+            for n in tracers:
+                G[n] = G[n] * sig_n[("c", "c")]
         Gm = state["Gm"]
         ab2G = {n: c_new * G[n] - c_old * Gm[n] * keep
                 for n in self.prognostic_3d}
         new = {n: fields[n] + fdt * ab2G[n] for n in self.prognostic_3d}
+        if zstar:
+            # the grid's η by the same AB2 as the tracers, so that σⁿ⁺¹
+            # telescopes with the σ-weighted update
+            # θⁿ⁺¹ = (σⁿθⁿ + Δt ∂t(σθ)) / σⁿ⁺¹
+            eta_g_new = self._fill_surface(
+                eta_g - fdt * (c_new * dhU - c_old * state["G_sigma"]
+                               * keep), LOC_CCC, self.bcs["eta"], time)
+            sig_np1 = self._sigma_fields(eta_g_new)
+            for n in tracers:
+                new[n] = (sig_n[("c", "c")] * fields[n] + fdt * ab2G[n]) \
+                    / sig_np1[("c", "c")]
         new = self._implicit_solve(new, aux, fdt)
-        new, bt = self._stage_free_surface(fields, new, ab2G, fdt,
-                                           state.get("barotropic"))
+        new, bt = self._stage_free_surface(fields, new, ab2G, fdt, bt,
+                                           sigma=sig_np1)
         new = self._mask_state(new)
         uf, vf = self._fill_uv(new, time)
+        dt_sigma = None
+        if zstar:
+            # ∂t_σ for the next step's diagnostics
+            dt_sigma = self._grid_motion_rate(self._barotropic_divergence(
+                *self._zstar_transports(uf, vf, sig_np1, bt, time)))
         if self._substepped_tke:
             # the TKE from the updated velocities, restarting from the old e
             fnew = dict(new)
@@ -929,8 +1250,12 @@ class HydrostaticFreeSurfaceModel:
                     val = self.grid.mask_immersed(val, LOC_CCC)
                 new[nm] = val
                 G[nm] = Gm_t[nm]
-        w_new = self._w_from_continuity(uf, vf)
+        w_new = self._w_from_continuity(uf, vf, dt_sigma=dt_sigma,
+                                        sigma=sig_np1)
         self._advance_state(new, w_new, G, bt, dt)
+        if zstar:
+            self.state.update(dt_sigma=dt_sigma, eta_grid=eta_g_new,
+                              G_sigma=dhU)
         return self
 
     def _split_rk3_step(self, dt):
@@ -939,7 +1264,8 @@ class HydrostaticFreeSurfaceModel:
         solve, the free surface (split-explicit: with the whole step's
         substep settings) and, for a substepped TKE, one Euler substep of
         the stage; the masks. The step-start fields keep their halos as
-        stored (the fills work on copies), as in JAX."""
+        stored (the fills work on copies), as in JAX. Under z* each stage
+        restarts the grid's η and σθ from the step's start."""
         nt = self._nt
         dt = nt(dt)
         fdt = float(dt)
@@ -949,18 +1275,47 @@ class HydrostaticFreeSurfaceModel:
         bt = state.get("barotropic")
         settings = (self.free_surface.settings(fdt) if isinstance(
             self.free_surface, SplitExplicitFreeSurface) else None)
+        zstar = self.vertical_coordinate == "zstar"
+        tracers = [n for n in self.tracer_names
+                   if n not in self._substepped_names]
+        sig_stage = None
+        if zstar:
+            eta_g0 = self._fill_surface(state["eta_grid"].clone(), LOC_CCC,
+                                        self.bcs["eta"], time)
+            sig0 = self._sigma_fields(eta_g0)
+            sc0 = {n: sig0[("c", "c")] * fields0[n] for n in tracers}
+            eta_g_stage, sig_stage = eta_g0, sig0
+            eta_g_new, dhU = eta_g0, None
         fields = fields0
         G = None
         for beta in self.timestepper.betas:
             sdt = fdt / beta
             ff = self._fill_all({n: a.clone() for n, a in fields.items()},
                                 time)
-            w = self._w_from_continuity(ff["u"], ff["v"])
-            G, aux = self._compute_tendencies(ff, w, time)
+            dt_sig = None
+            if zstar:
+                dhU = self._barotropic_divergence(*self._zstar_transports(
+                    ff["u"], ff["v"], sig_stage, bt, time))
+                dt_sig = self._grid_motion_rate(dhU)
+                ff["eta_grid"] = eta_g_stage
+            w = self._w_from_continuity(ff["u"], ff["v"], dt_sigma=dt_sig,
+                                        sigma=sig_stage)
+            G, aux = self._compute_tendencies(ff, w, time, dt_sigma=dt_sig)
             new = {n: fields0[n] + sdt * G[n] for n in self.prognostic_3d}
+            sig_new = None
+            if zstar:
+                # the grid-η substep from the step's start
+                eta_g_new = self._fill_surface(eta_g0 - sdt * dhU, LOC_CCC,
+                                               self.bcs["eta"], time)
+                sig_new = self._sigma_fields(eta_g_new)
+                for n in tracers:
+                    new[n] = (sc0[n] + sdt * sig_stage[("c", "c")] * G[n]) \
+                        / sig_new[("c", "c")]
             new = self._implicit_solve(new, aux, sdt)
             new, bt = self._stage_free_surface(fields0, new, G, sdt, bt,
-                                               settings)
+                                               settings, sigma=sig_new)
+            if zstar:
+                eta_g_stage, sig_stage = eta_g_new, sig_new
             if self._substepped_tke:
                 # χ = -1/2: the AB2 combination is an Euler step of the
                 # stage tendency
@@ -978,12 +1333,75 @@ class HydrostaticFreeSurfaceModel:
                     new[nm] = val
             fields = self._mask_state(new)
         uf, vf = self._fill_uv(fields, time)
-        w_new = self._w_from_continuity(uf, vf)
+        dt_sigma = None
+        if zstar:
+            dt_sigma = self._grid_motion_rate(self._barotropic_divergence(
+                *self._zstar_transports(uf, vf, sig_stage, bt, time)))
+        w_new = self._w_from_continuity(uf, vf, dt_sigma=dt_sigma,
+                                        sigma=sig_stage)
         self._advance_state(fields, w_new, G, bt, dt)
+        if zstar:
+            self.state.update(dt_sigma=dt_sigma, eta_grid=eta_g_new,
+                              G_sigma=dhU)
+        return self
+
+    def _prescribed_implicit(self, new, aux, dt):
+        """The closure's implicit vertical diffusion of the tracers in the
+        prescribed-velocity mode."""
+        if self.closure is None:
+            return new
+        kappas = self.closure.vertical_implicit_kappas(self.grid, new, aux)
+        for name, kz in kappas.items():
+            if name in new and name != "eta":
+                new[name] = implicit_vertical_diffusion(
+                    self.grid, new[name], self._mask_kz(kz), dt)
+        return new
+
+    def _prescribed_ab2_step(self, dt):
+        """The tracer-only quasi-AB2 step over prescribed velocities."""
+        nt = self._nt
+        dt = nt(dt)
+        fdt = float(dt)
+        state = self.state
+        clock = state["clock"]
+        time = float(clock["time"])
+        euler = clock["iteration"] == 0 or clock["last_dt"] != dt
+        c_new, c_old, keep = self.timestepper.coefficients(euler)
+        fields = self._fill_all(dict(state["fields"]), time)
+        G, aux, w = self._prescribed_tendencies(fields, time)
+        Gm = state["Gm"]
+        new = {n: fields[n] + fdt * (c_new * G[n] - c_old * Gm[n] * keep)
+               for n in self.tracer_names}
+        new["eta"] = fields["eta"]
+        new = self._prescribed_implicit(self._mask_state(new), aux, fdt)
+        self._advance_state(new, w, G, None, dt)
+        return self
+
+    def _prescribed_rk3_step(self, dt):
+        """The tracer-only split RK3 over prescribed velocities: three Euler
+        stages of Δt/β from the step's start."""
+        nt = self._nt
+        dt = nt(dt)
+        fdt = float(dt)
+        time = float(self.state["clock"]["time"])
+        fields0 = self.state["fields"]
+        fields = fields0
+        G = w = None
+        for beta in self.timestepper.betas:
+            sdt = fdt / beta
+            ff = self._fill_all({n: a.clone() for n, a in fields.items()},
+                                time)
+            G, aux, w = self._prescribed_tendencies(ff, time)
+            new = {n: fields0[n] + sdt * G[n] for n in self.tracer_names}
+            new["eta"] = fields0["eta"]
+            fields = self._prescribed_implicit(self._mask_state(new), aux,
+                                               sdt)
+        self._advance_state(fields, w, G, None, dt)
         return self
 
     def _advance_state(self, fields, w, G, barotropic, dt):
         clock = self.state["clock"]
+        old = self.state
         self.state = dict(fields=fields,
                           clock=dict(time=self._nt(clock["time"] + dt),
                                      iteration=clock["iteration"] + 1,
@@ -991,6 +1409,9 @@ class HydrostaticFreeSurfaceModel:
                           w=w, Gm=G)
         if barotropic is not None:
             self.state["barotropic"] = barotropic
+        for key in ZSTAR_STATE:
+            if key in old:
+                self.state[key] = old[key]
 
     # -- the implicit free surface --------------------------------------------
 
@@ -1131,8 +1552,9 @@ def state_from_jax(jax_state_numpy, model):
     """Load a JAX ``HydrostaticFreeSurfaceModel``'s state into ``model``.
 
     ``jax_state_numpy`` is the JAX model's ``state`` with its arrays
-    converted to numpy (``fields``, ``clock``, ``w``, ``Gm`` and, under the
-    split-explicit free surface, ``barotropic``). The JAX arrays may have
+    converted to numpy (``fields``, ``clock``, ``w``, ``Gm``, under the
+    split-explicit free surface ``barotropic``, and under z* ``dt_sigma``,
+    ``eta_grid`` and ``G_sigma``). The JAX arrays may have
     wider halos (the JAX model rounds Hy up to 8): each is cut to the port's
     padded layout, keeping the slots nearest the interior, so the boundary
     faces and every halo the port holds carry the JAX values."""
@@ -1162,8 +1584,12 @@ def state_from_jax(jax_state_numpy, model):
         Gm={n: crop(s["Gm"][n]) for n in model.prognostic_3d})
     if "barotropic" in model.state:
         state["barotropic"] = {k: crop(s["barotropic"][k]) for k in "UV"}
+    for key in ZSTAR_STATE:
+        if key in model.state:
+            state[key] = crop(s[key])
     model.state = state
     return model
 
 
-__all__ = ["HydrostaticFreeSurfaceModel", "state_from_jax"]
+__all__ = ["HydrostaticFreeSurfaceModel", "PrescribedVelocityFields",
+           "ZCoordinate", "ZStarCoordinate", "state_from_jax"]

@@ -252,8 +252,14 @@ class NonhydrostaticModel:
             and closure is None and not self.forcing
             and stokes_drift is None and not self.immersed
             and not self.background_fields and not user_zbcs)
+        # the advective GM form advects the tracers with eddy velocities
+        # added, which the kernel does not know (JAX leaves its fused path
+        # too)
         self._kernel_tendency = (kernel_tendency_eligible(grid)
-                                 and not self.immersed)
+                                 and not self.immersed
+                                 and not getattr(closure,
+                                                 "has_eddy_velocities",
+                                                 False))
         # advection is the only tendency: the fused update route
         self._fused_update = (
             self._z_compact and buoyancy is None and coriolis is None
@@ -572,8 +578,12 @@ class NonhydrostaticModel:
             if c in bg:
                 g = g - div(grid, adv, *vel, advected=bg[c])
             G[c] = g
+        tracer_vel = total
+        if getattr(self.closure, "has_eddy_velocities", False):
+            eddy = self.closure.eddy_velocities(grid, fields)
+            tracer_vel = [a + e for a, e in zip(total, eddy)]
         for name in self.tracer_names:
-            g = -div_Uc(grid, adv, *total, fields[name])
+            g = -div_Uc(grid, adv, *tracer_vel, fields[name])
             if name in bg:
                 g = g - div_Uc(grid, adv, *vel, bg[name])
             G[name] = g

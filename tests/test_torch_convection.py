@@ -317,10 +317,6 @@ def test_goldens(name):
 # -- what is not ported -------------------------------------------------------
 
 UNPORTED = {
-    # the isopycnal closures raise when they are built
-    "isopycnal": lambda: dict(
-        closure=ot.closures.IsopycnalSkewSymmetricDiffusivity(),
-        tracers=("b",)),
     "particles": lambda: dict(particles=object()),
     "biogeochemistry": lambda: dict(biogeochemistry=object()),
     "auxiliary_fields": lambda: dict(auxiliary_fields={"a": object()}),

@@ -502,6 +502,89 @@ def test_fused_vi_tendency_coverage(case, with_ph):
     _vi_compare(grid, f, make_vi(), make_ts(), names, make_cor(), with_ph)
 
 
+# the multi-dimensional stencil: (grid z or latitude, x range, halo, VI,
+# tracer scheme, tracers, Coriolis)
+VI_MD = {
+    "weno9_bounded_x": ("flat", (0.0, 60.0), 8, lambda: ot.WENOVectorInvariant(
+        smoothness_dtype=torch.float64, multi_dimensional_stencil=True),
+        lambda: _f64_weno(5), 1, ot.HydrostaticSphericalCoriolis),
+    "weno9_periodic_x_3_tracers": ("flat", (0.0, 360.0), 8,
+                                   lambda: ot.WENOVectorInvariant(
+                                       smoothness_dtype=torch.float64,
+                                       multi_dimensional_stencil=True),
+                                   lambda: ot.Centered(2), 3,
+                                   ot.HydrostaticSphericalCoriolis),
+    "weno5_cross_stretched_z": ("z", (0.0, 60.0), 6,
+                                lambda: ot.WENOVectorInvariant(
+                                    order=5, upwinding="cross_and_self",
+                                    smoothness_dtype=torch.float64,
+                                    multi_dimensional_stencil=True),
+                                lambda: _f64_weno(5), 2,
+                                lambda: ot.FPlane(f=1e-4)),
+    "weno7_stretched_latitude_34_tracers": (
+        "lat", (0.0, 60.0), 7, lambda: ot.WENOVectorInvariant(
+            order=7, smoothness_dtype=torch.float64,
+            multi_dimensional_stencil=True),
+        lambda: ot.UpwindBiased(3), 34, ot.HydrostaticSphericalCoriolis),
+}
+
+
+@pytest.mark.parametrize("with_ph", [False, True], ids=["no_ph", "ph"])
+@pytest.mark.parametrize("case", sorted(VI_MD))
+def test_fused_vi_tendency_multi_dimensional(case, with_ph):
+    """#10 with the multi-dimensional stencil against its plain version on
+    interiors its tiles do not divide (19 x 13 x 9), bounded and periodic x,
+    both upwindings, stretched z and latitude, 34 tracers (two launches)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    kind, lon, H, make_vi, make_ts, ntr, make_cor = VI_MD[case]
+    n = (19, 13, 9)
+    z = tuple(-500.0 * np.linspace(1, 0, n[2] + 1) ** 1.5)
+    lat = tuple(15 + 60 * np.linspace(0, 1, n[1] + 1) ** 1.3)
+    grid = ot.LatitudeLongitudeGrid(
+        size=n, longitude=lon, latitude=lat if kind == "lat" else (15, 75),
+        z=z if kind == "z" else (-1800.0, 0.0), halo=(H, H, H),
+        dtype=torch.float64, device="cuda")
+    names = tuple(f"c{i}" for i in range(ntr))
+    grid, f = _vi_inputs(None, grid=grid, tracers=names)
+    _vi_compare(grid, f, make_vi(), make_ts(), names, make_cor(), with_ph)
+
+
+@pytest.mark.parametrize("with_ph", [False, True], ids=["no_ph", "ph"])
+@pytest.mark.parametrize("lon", [(0.0, 60.0), (0.0, 360.0)],
+                         ids=["bounded_x", "periodic_x"])
+def test_fused_vi_tendency_multi_dimensional_bf16(lon, with_ph):
+    """The stencil's family with bfloat16 smoothness on float32 fields (the
+    ``k5_bf16_md`` variant, 19 x 13 x 9, H = 8) against its plain version:
+    2e-5 of each output's max|plain| (#10's float32 bound), at most a tenth
+    of the plain version's bf16-vs-float32 difference."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    kw = dict(size=(19, 13, 9), longitude=lon, latitude=(15, 75),
+              z=(-1800.0, 0.0), halo=(8, 8, 8), device="cuda")
+    grid = ot.LatitudeLongitudeGrid(dtype=torch.float32, **kw)
+    names = ("T", "S")
+    _, f = _vi_inputs(None, grid=ot.LatitudeLongitudeGrid(
+        dtype=torch.float64, **kw), tracers=names)
+    f = {k: a.float() for k, a in f.items()}
+    hsc = ot.HydrostaticSphericalCoriolis()
+
+    def run(fn, sdt):
+        vi = ot.WENOVectorInvariant(smoothness_dtype=sdt,
+                                    multi_dimensional_stencil=True)
+        Gu, Gv, Gc = fn(grid, vi, ot.WENO(5, smoothness_dtype=sdt), names,
+                        hsc, f["u"], f["v"], f["w"], {n: f[n] for n in names},
+                        f["ph"] if with_ph else None)
+        return [Gu, Gv] + [Gc[n] for n in names]
+
+    before = K.counters()[0].get("fused_vi_tendency_k5_bf16_md", 0)
+    got = run(K.fused_vi_tendency, torch.bfloat16)
+    assert K.counters()[0]["fused_vi_tendency_k5_bf16_md"] == before + 1
+    _bf16_close(got, run(K.fused_vi_tendency_plain, torch.bfloat16),
+                run(K.fused_vi_tendency_plain, torch.float32), range(4),
+                rel=2e-5)
+
+
 @pytest.mark.parametrize("surface", [False, True], ids=["3d", "surface"])
 @pytest.mark.parametrize("grid_kind", ["periodic_x_latlon",
                                        "periodic_y_rectilinear"])
@@ -1027,11 +1110,11 @@ def _patched(mod, name, fn):
 BF16_REL = 1e-5
 
 
-def _bf16_close(got, want, want_f32, separated):
+def _bf16_close(got, want, want_f32, separated, rel=BF16_REL):
     """``separated``: the indices of the tendencies a WENO reconstruction
     enters."""
     for n, (a, b, c) in enumerate(zip(got, want, want_f32)):
-        bound = BF16_REL * b.abs().max().item()
+        bound = rel * b.abs().max().item()
         if n in separated:
             assert bound <= 0.1 * (b - c).abs().max().item(), ("loose", n)
         assert (a - b).abs().max().item() <= bound, n

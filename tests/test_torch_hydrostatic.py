@@ -326,8 +326,10 @@ def test_eligibility():
     for args in uncovered:
         with pytest.raises(NotImplementedError, match="item 13"):
             vi_config(*args)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ot.VectorInvariant(multi_dimensional_stencil=True)
+    # the multi-dimensional stencil builds, and the kernel takes it
+    md = vi_config(tg, ot.WENOVectorInvariant(multi_dimensional_stencil=True,
+                                              **sd), ot.Centered(2), 1, hsc)
+    assert md["md"] == 1
     table = coefficient_table()
     assert table.shape == (TABLE_SIZE,) and table[-2:].tolist() == [1e-8,
                                                                     1e12]
@@ -512,17 +514,9 @@ def test_hydrostatic_turbulence_golden(fused):
 # -- what is not ported ---------------------------------------------------------
 
 UNPORTED = {
-    # a closure that is not one of the port's (isopycnal ones among them)
-    "closure": (dict(closure=object()), "items 13 and 15"),
+    # a closure that is not one of the port's
+    "closure": (dict(closure=object()), "item 15"),
     "biogeochemistry": (dict(biogeochemistry=object()), "item 15"),
-    "zstar": (dict(vertical_coordinate="zstar"), "z-star"),
-    "multi_dimensional_stencil": (lambda: dict(
-        momentum_advection=ot.VectorInvariant(multi_dimensional_stencil=True)),
-        "multi-dimensional"),
-    "prescribed_velocities": (dict(velocities=object()), "prescribed"),
-    "per_tracer_schemes": (dict(tracers=("T",), tracer_advection={
-        "T": ot.WENO(5)}), "per-tracer"),
-    "flux_form_momentum": (dict(momentum_advection=ot.WENO(5)), "flux-form"),
     "auxiliary_fields": (dict(auxiliary_fields={"a": object()}), "item 15"),
 }
 

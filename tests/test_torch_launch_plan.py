@@ -223,6 +223,9 @@ def _vi_scheme(name, dtype):
             "weno5_vi": lambda: (ot.WENOVectorInvariant(
                 order=5, smoothness_dtype=dtype),
                                  ot.WENO(5, smoothness_dtype=dtype)),
+            "weno_vi_md": lambda: (ot.WENOVectorInvariant(
+                smoothness_dtype=dtype, multi_dimensional_stencil=True),
+                ot.WENO(5, smoothness_dtype=dtype)),
             "vector_invariant": lambda: (ot.VectorInvariant(),
                                          ot.Centered(2))}[name]()
 
@@ -248,6 +251,16 @@ VI = [
      "weno_vi", 8),
     ("tile_edges_float32", "latlon_bounded_x", (37, 21, 13), torch.float32,
      "weno_vi", 1),
+    # the multi-dimensional stencil: two more cells of reach and two
+    # reconstruction buffers
+    ("hydro_row_md", "latlon_bounded_x", (512, 256, 32), torch.float32,
+     "weno_vi_md", 1),
+    ("hydro_row_md_periodic_x", "latlon_periodic_x", (512, 256, 32),
+     torch.float32, "weno_vi_md", 1),
+    ("hydro_row_md_float64", "latlon_bounded_x", (512, 256, 32),
+     torch.float64, "weno_vi_md", 1),
+    ("tile_edges_md", "rect_bounded_xy", (19, 13, 11), torch.float64,
+     "weno_vi_md", 8),
 ]
 
 
@@ -269,7 +282,7 @@ def test_vi_plan(label, kind, size, dtype, config, ntr):
     assert plan["smem"] == fvi.smem_bytes(plan["tile"], cfg, esize,
                                           *plan["rows"])
     kv = vi.vorticity_scheme.buffer if cfg["vort"] == fvi.VORT_SCHEME else 0
-    assert plan["reach"][0] == max(kv, 3) + 1
+    assert plan["reach"][0] == max(kv, 3) + 1 + 2 * cfg["md"]
     if dtype == torch.float32:
         assert SM_SMEM // (plan["smem"] + RESERVED) >= 2
     else:
@@ -336,3 +349,17 @@ def test_vi_smem_bytes_by_hand():
                                                      + 360 + 36 + 3 * 4480)
     assert fvi.smem_bytes((8, 8, 8), cfg, 8) == 8 * (2 * 3200 + 2 * 512 + 360
                                                     + 36 + 3 * 3200)
+
+
+def test_vi_md_smem_bytes_by_hand():
+    """#10 with the multi-dimensional stencil at float32 8x8x8, WENO-9
+    vorticity (reach 6 + 2 = 8): u and v over 24x24x8 = 4608 cells, sums of
+    512, the 18 rows over 24 y and the z columns (36); the largest phase
+    holds three derived fields and two reconstruction buffers of
+    (8 + 4)(8 + 4)8 = 1152. Two blocks share an SM; the 16x8x8 tile would
+    not let them (148,304 B a block)."""
+    cfg = dict(R=8, Rw=2, Rz=3, Rc=3, md=1)
+    assert fvi.smem_bytes((8, 8, 8), cfg, 4) == 4 * (
+        2 * 4608 + 2 * 512 + 432 + 36 + 3 * 4608 + 2 * 1152)
+    assert fvi.smem_bytes((16, 8, 8), cfg, 4) == 148304
+    assert SM_SMEM // (fvi.smem_bytes((8, 8, 8), cfg, 4) + RESERVED) >= 2

@@ -362,16 +362,23 @@ def test_grids_refused():
 
 def test_upwinded_vector_invariant_raises():
     """The upwinded vector-invariant forms are ported (the hydrostatic
-    slice); the multi-dimensional stencil still raises, in both
-    constructors."""
+    slice), and the multi-dimensional stencil builds in both constructors
+    (two more halo cells) and is taken by the fused VI kernel."""
+    from oceananigans_tpu_torch.kernels.fused_vector_invariant import \
+        vi_config
     from oceananigans_tpu_torch.advection.vector_invariant import (
         VectorInvariant, WENOVectorInvariant)
     assert VectorInvariant(vorticity_scheme=ot.WENO(5)).required_halo == 4
     assert WENOVectorInvariant().required_halo == 6
-    with pytest.raises(NotImplementedError, match="item 13"):
-        VectorInvariant(multi_dimensional_stencil=True)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        WENOVectorInvariant(multi_dimensional_stencil=True)
+    assert VectorInvariant(
+        multi_dimensional_stencil=True).required_halo == 3
+    md = WENOVectorInvariant(multi_dimensional_stencil=True,
+                             smoothness_dtype=torch.float64)
+    assert md.required_halo == 8
+    g = ot.LatitudeLongitudeGrid(size=(8, 8, 4), longitude=(0, 60),
+                                 latitude=(10, 50), z=(-1, 0),
+                                 dtype=torch.float64, device="cpu")
+    assert vi_config(g, md, ot.Centered(2), 1, None)["md"] == 1
 
 
 @pytest.mark.parametrize("vorticity", ["enstrophy_conserving",

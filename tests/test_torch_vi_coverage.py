@@ -309,8 +309,13 @@ def test_gate_refuses_what_jax_refuses():
     for label, g in refused.items():
         with pytest.raises(NotImplementedError, match="item 13"):
             fvi.vi_config(g, vi, ts, 1, None)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ot.VectorInvariant(multi_dimensional_stencil=True)
+    # the multi-dimensional stencil builds, and the kernel takes it
+    g = ot.LatitudeLongitudeGrid(size=(8, 8, 4), longitude=(0, 60),
+                                 latitude=(10, 50), z=(-1, 0), dtype=F64,
+                                 device="cpu")
+    assert fvi.vi_config(g, ot.VectorInvariant(
+        vorticity_scheme=ot.WENO(5, smoothness_dtype=F64),
+        multi_dimensional_stencil=True), ts, 1, None)["md"] == 1
     # a model on a refused grid takes the plain tendency under "auto"
     m = HydrostaticFreeSurfaceModel(refused["polar"], tracers=("T",))
     assert not m.uses_kernel
