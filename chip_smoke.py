@@ -8048,6 +8048,458 @@ def hydro29_phase(card):
     return out, launches
 
 
+# -- the cubed sphere and the rest of shallow water (phase 30) ----------------------
+
+CS_ROW_N = (64, 32)       # row I: bench_extra.py cs_row, 6×64×64×32
+CS_ROW_DT = 600.0
+CS_GLOBAL_N = (96, 32)    # row J: examples/global_cubed_sphere_ocean.py at C96
+BICKLEY_N = (1024, 2048)  # row K: examples/shallow_water_bickley_jet.py
+# gravity waves of speed √(gH) = √10 cross Δx = 2π/1024 in 1.9e-3 s
+BICKLEY_DT = 5e-4
+CS_SW_N = 256             # row L: Williamson test case 2 on 6×256×256
+CS30_STEPS = {"I": (3, 20), "J": (2, 5), "K": (3, 20), "L": (3, 20)}
+R_EARTH, OMEGA_EARTH = 6.371e6, 7.292e-5
+
+
+def cs_row_model(N, nz, dtype, device, **kw):
+    """bench_extra.py ``cs_row``'s configuration: 6×N×N×nz to 3000 m, b,
+    rotation, split-explicit with 20 substeps (keywords override)."""
+    import oceananigans_tpu_torch as ot
+    kw = {"free_surface": "split_explicit", "substeps": 20, **kw}
+    if kw["free_surface"] != "split_explicit":
+        kw.pop("substeps")
+    grid = ot.ConformalCubedSphereGrid((N, N, nz), z=(-3000.0, 0.0),
+                                       radius=R_EARTH, dtype=dtype,
+                                       device=device)
+    m = ot.CubedSphereHydrostaticModel(grid, tracers=("b",),
+                                       rotation_rate=OMEGA_EARTH, **kw)
+    m.set(b=lambda lam, phi, z: 1e-5 * z
+          + 1e-4 * np.exp(-(lam ** 2 + phi ** 2) / 0.2))
+    m.set_geographic(u_east=lambda lam, phi: 5.0 * np.cos(phi))
+    return m
+
+
+def cs_global_bottom(lam, phi):
+    """The example's idealized continent and mid-ocean ridge (radians)."""
+    continent = 2800.0 * np.exp(-((lam - 1.2) ** 2 + (phi - 0.3) ** 2) / 0.18)
+    ridge = 1200.0 * np.exp(-(lam + 1.8) ** 2 / 0.05)
+    return -3000.0 + continent + ridge
+
+
+def cs_global_model(N, nz, dtype, device, smoothness=torch.float32):
+    """examples/global_cubed_sphere_ocean.py's configuration: halo 4,
+    WENOVectorInvariant(order=5), WENO(5) tracers b and c, CATKE + GM/Redi
+    triads, the continent-and-ridge GridFittedBottom, wind stress and a
+    buoyancy flux (callables of the panels' (λ°, φ°)), split-explicit with
+    20 substeps; the balanced jet, stratification and a tracer blob."""
+    import oceananigans_tpu_torch as ot
+    H0, U = 3000.0, 5.0
+    grid = ot.ConformalCubedSphereGrid((N, N, nz), z=(-H0, 0.0),
+                                       radius=R_EARTH, halo=4, dtype=dtype,
+                                       device=device)
+    closure = ot.closures.ClosureTuple(
+        ot.CATKEVerticalDiffusivity(buoyancy=ot.BuoyancyTracer()),
+        ot.TriadIsopycnalSkewSymmetricDiffusivity(
+            kappa_skew=1000.0, kappa_symmetric=1000.0,
+            buoyancy=ot.BuoyancyTracer()))
+    bcs = {"u": ot.FieldBoundaryConditions(top=ot.FluxBoundaryCondition(
+        lambda lam, phi, t: -1e-4 * torch.cos(3.0 * phi))),
+        "b": ot.FieldBoundaryConditions(top=ot.FluxBoundaryCondition(
+            lambda lam, phi, t: 3e-9 * torch.cos(phi)))}
+    m = ot.CubedSphereHydrostaticModel(
+        grid, tracers=("b", "c"), rotation_rate=OMEGA_EARTH, gravity=9.81,
+        momentum_advection=ot.WENOVectorInvariant(
+            order=5, smoothness_dtype=smoothness),
+        tracer_advection=ot.WENO(5, smoothness_dtype=smoothness),
+        closure=closure, bottom_height=cs_global_bottom,
+        free_surface="split_explicit", substeps=20, boundary_conditions=bcs)
+    m.set_geographic(u_east=lambda lam, phi: U * np.cos(phi),
+                     v_north=lambda lam, phi: 0.0 * lam)
+    m.set(eta=lambda lam, phi: -(R_EARTH * OMEGA_EARTH * U + 0.5 * U * U)
+          * np.sin(phi) ** 2 / 9.81,
+          b=lambda lam, phi, z: 1e-5 * z + 2e-4
+          * np.exp(-((lam - np.pi / 4) ** 2 + phi ** 2) / 0.1)
+          * np.exp(-((z + H0 / 2) / (H0 / 4)) ** 2),
+          c=lambda lam, phi, z: np.exp(-((lam + np.pi / 2) ** 2
+                                         + phi ** 2) / 0.15))
+    return m
+
+
+def cs_global_dt(N):
+    """The example's Δt: 0.02 Δx_min/U, at most 1200 s."""
+    return min(0.02 * (2 * np.pi * R_EARTH / (4 * N) * 0.6) / 5.0, 1200.0)
+
+
+def bickley_model(nx, ny, dtype, device, smoothness=torch.float32, **kw):
+    """examples/shallow_water_bickley_jet.py's configuration at nx×ny:
+    periodic x on [0, 2π], bounded y on [-10, 10], WENO(5), FPlane(1),
+    g = 1; the balanced jet ū = sech²y, h̄ = 10 - tanh y with seeded
+    noise."""
+    import oceananigans_tpu_torch as ot
+    grid = ot.RectilinearGrid(size=(nx, ny), x=(0, 2 * np.pi), y=(-10, 10),
+                              topology=("periodic", "bounded", "flat"),
+                              dtype=dtype, device=device)
+    m = ot.ShallowWaterModel(grid, coriolis=ot.FPlane(f=1.0),
+                             gravitational_acceleration=1.0,
+                             advection=ot.WENO(5,
+                                               smoothness_dtype=smoothness),
+                             **kw)
+    rng = np.random.default_rng(42)
+    Y = np.broadcast_to(-10 + (np.arange(ny) + 0.5) * 20.0 / ny, (nx, ny))
+    hbar = 10.0 - np.tanh(Y)
+    ubar = 1.0 / np.cosh(Y) ** 2
+    noise = 1e-4 * np.exp(-Y ** 2) * rng.standard_normal((nx, ny))
+    init = dict(uh=(ubar + noise) * hbar, h=hbar)
+    if "c" in m.tracer_names:
+        init["c"] = np.exp(-Y ** 2)
+    m.set(**init)
+    return m
+
+
+def cs_sw_model(N, dtype, device):
+    """Williamson et al. (1992) test case 2 on 6×N×N (U = 2πa/12 days,
+    gh₀ = 2.94e4 m²/s²)."""
+    import oceananigans_tpu_torch as ot
+    a, g = 6.37122e6, 9.80616
+    U, H0 = 2 * np.pi * a / (12 * 86400.0), 2.94e4 / 9.80616
+    grid = ot.ConformalCubedSphereGrid((N, N), radius=a, dtype=dtype,
+                                       device=device)
+    m = ot.CubedSphereShallowWaterModel(grid, gravity=g,
+                                        rotation_rate=OMEGA_EARTH)
+    m.set_geographic(
+        h=lambda lam, phi: H0 - (a * OMEGA_EARTH * U + 0.5 * U ** 2)
+        * np.sin(phi) ** 2 / g,
+        u_east=lambda lam, phi: U * np.cos(phi),
+        v_north=lambda lam, phi: 0.0 * lam)
+    return m
+
+
+def cs_sw_dt(N):
+    a, g, H0 = 6.37122e6, 9.80616, 2.94e4 / 9.80616
+    return 0.3 * (2 * np.pi * a / (4 * N) * 0.6) / np.sqrt(g * H0)
+
+
+def cs30_small_configs():
+    """{label: (a function of the device that makes the model, Δt)} of
+    the float64 card-against-CPU checks."""
+    import oceananigans_tpu_torch as ot
+    f64 = torch.float64
+    out = {}
+    for fs, stepper in (("explicit", "WickerSkamarockRK3"),
+                        ("explicit", "QuasiAdamsBashforth2"),
+                        ("implicit", "WickerSkamarockRK3"),
+                        ("implicit", "QuasiAdamsBashforth2"),
+                        ("split_explicit", "QuasiAdamsBashforth2")):
+        for batch in (True, False):
+            kw = dict(free_surface=fs, timestepper=stepper,
+                      batch_panels=batch)
+            if fs == "implicit":
+                kw["implicit_solver_tol"] = 1e-13
+            label = (f"6x12x12x4 {fs} {stepper} "
+                     f"{'batched' if batch else 'per panel'}")
+            out[label] = (lambda d, _kw=kw: cs_row_model(12, 4, f64, d,
+                                                         **_kw), 600.0)
+    out["6x12x12x4 immersed, CATKE + triads (the example at C12)"] = (
+        lambda d: cs_global_model(12, 4, f64, d, smoothness=f64),
+        cs_global_dt(12))
+    out["6x12x12x4 z*"] = (lambda d: cs_row_model(
+        12, 4, f64, d, vertical_coordinate="zstar"), 600.0)
+    out["shallow water 6x12x12 (TC2)"] = (
+        lambda d: cs_sw_model(12, f64, d), cs_sw_dt(12))
+    forcing = {"uh": ot.ContinuousForcing(
+        lambda x, y, z, t: 1e-3 * torch.sin(x))}
+    bcs = {"c": ot.FieldBoundaryConditions(
+        south=ot.ValueBoundaryCondition(0.5))}
+    out["Bickley jet 64x96, closure, forcing, Value condition"] = (
+        lambda d: bickley_model(64, 96, f64, d, smoothness=f64,
+                                tracers=("c",),
+                                closure=ot.ScalarDiffusivity(nu=1e-3,
+                                                             kappa=1e-3),
+                                forcing=forcing, boundary_conditions=bcs),
+        1e-2)
+    return out
+
+
+def cs30_fields(model):
+    """{name: interior tensor} of a phase-30 model's outputs (w too on the
+    hydrostatic model)."""
+    names = (("u", "v", "eta") + model.tracer_names + ("w",)
+             if hasattr(model, "diagnose_w") else model.prognostic_names)
+    return {n: model.field(n).interior for n in names}
+
+
+def zstar_w_scale(model):
+    """The scale of a z* model's w: its divergence part, the continuity
+    integral without the grid's motion. The grid-relative w is the
+    difference of that part and the motion, about 1e4 times smaller than
+    either on the 6×12×12×4 model (8.7e-8 against 9.0e-4 m/s after 3
+    steps on the CPU), so its roundoff is measured against that part."""
+    L, f = model._L, model.state["fields"]
+    sf = model._filled({n: L(f[n]) for n in ("u", "v", "eta")
+                        + model.tracer_names}, model.state["clock"]["time"])
+    sig = model._sigma_all(model.exchange.centers(
+        L(model.state["eta_grid"])))
+    w = model._P(model._w(sf, sigma=sig))
+    H, N = model.grid.H[0], model.grid.N[0]
+    g0 = model.grid.panel_grids[0]
+    return w[:, H:H + N, H:H + N, g0.H[2]:g0.H[2] + g0.N[2]].abs().max()
+
+
+def cs30_small_checks():
+    """Each small float64 model on the card against the same model on the
+    CPU over 3 steps: every output within 1e-10 of its scale (a z* model's
+    w of its divergence part's, ``zstar_w_scale``); no plain fill on the
+    card, and the fill kernel launched wherever the model fills."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+    for label, (make, dt) in cs30_small_configs().items():
+        K.reset_counters()
+        card_model, cpu_model = make("cuda"), make("cpu")
+        for _ in range(3):
+            card_model.time_step(dt)
+            cpu_model.time_step(dt)
+        launches, plain = K.counters()
+        worst = 0.0
+        card, cpu = cs30_fields(card_model), cs30_fields(cpu_model)
+        for name, b in cpu.items():
+            a = card[name].cpu()
+            scale = b.abs().max().item()
+            if name == "w" and getattr(cpu_model, "vertical_coordinate",
+                                       "z") == "zstar":
+                scale = zstar_w_scale(cpu_model).item()
+                print(f"  {label}: w's scale {b.abs().max().item():.3e}, "
+                      f"its divergence part's {scale:.3e} (the check's)")
+            rel = (a - b).abs().max().item() / max(scale, 1e-300)
+            assert rel <= 1e-10, (label, name, rel)
+            worst = max(worst, rel)
+        fills = {k: v for k, v in plain.items() if "fill" in k and v}
+        assert not fills, (label, fills)
+        # the cubed-sphere shallow water (flat z) fills nothing
+        assert launches["fill_halos"] > 0 or isinstance(
+            card_model, ot.CubedSphereShallowWaterModel), label
+        print(f"  {label}: card against CPU after 3 steps, worst rel "
+              f"{worst:.3e} (bound 1e-10); fill launches "
+              f"{launches['fill_halos']}, no plain fill")
+        del card_model, cpu_model
+    torch.cuda.empty_cache()
+
+
+def cs30_shares(model, dt, steps, card, label):
+    """Per-step CUDA-event times of a phase-30 step's pieces: the tendency
+    (the plain tendency call, its closure part apart), the panel exchange
+    (gathers), the fills (the fill kernel: z halos on the cubed sphere,
+    x and y on the Bickley jet), the split-explicit substep loop (its
+    exchanges included), the implicit solves (vertical diffusion, the
+    CG free surface), the substepped TKE, and the rest."""
+    import oceananigans_tpu_torch.kernels.halo_fill as hf
+    timer = PhaseTimer()
+    saved = hf.fill_halos
+    hf.fill_halos = timer.wrap("fills", saved)
+    tend = "_tendencies" if hasattr(model, "_tendencies") \
+        else "_compute_tendencies"
+    wrapped = [(model, tend, "tendency"), (model, "time_step", "step")]
+    ex = getattr(model.grid, "exchange", None)
+    if ex is not None:
+        wrapped += [(ex, n, "exchange") for n in ("centers", "velocities",
+                                                  "sync")]
+    for name, phase in (("_split_explicit_substep", "substep"),
+                        ("_implicit_all", "implicit"),
+                        ("_implicit_eta_step", "implicit"),
+                        ("_step_turbulence", "turbulence")):
+        if hasattr(model, name):
+            wrapped.append((model, name, phase))
+    closure = getattr(model, "closure", None)
+    if closure is not None:
+        wrapped += [(closure, n, "closure") for n in (
+            "compute_diffusivities", "momentum_tendencies",
+            "tracer_tendency", "tracer_tendency_excluding_tke")
+            if hasattr(closure, n)]
+    for obj, name, phase in wrapped:
+        setattr(obj, name, timer.wrap(phase, getattr(obj, name)))
+    try:
+        for _ in range(steps):
+            model.time_step(dt)
+        t = {k: v / steps for k, v in timer.totals().items()}
+    finally:
+        hf.fill_halos = saved
+        for obj, name, _ in wrapped:
+            delattr(obj, name)
+    g = lambda k: t.get(k, 0.0)  # noqa: E731
+    shares = {
+        "tendency (plain: advection, Coriolis, ∂pₕ′, forcing, fluxes)":
+            g("tendency") - g("closure@tendency") - g("exchange@tendency")
+            - g("fills@tendency"),
+        "closure (diffusivities and terms at the tendencies)":
+            g("closure@tendency"),
+        "panel exchange (outside the substep loop)":
+            g("exchange") - g("exchange@substep"),
+        "fills (the fill kernel)": g("fills") - g("fills@substep"),
+        "split-explicit substep loop (its exchanges included)":
+            g("substep"),
+        "implicit solves (vertical diffusion, CG free surface)":
+            g("implicit") - g("exchange@implicit") - g("fills@implicit"),
+        "step_turbulence (TKE substeps)": g("turbulence")
+            - g("exchange@turbulence") - g("fills@turbulence"),
+    }
+    shares["rest (w, pₕ′, vertex fix, AB2/RK3 updates, corrector, masks, "
+           "allocations, host gaps)"] = t["step"] - sum(shares.values())
+    print(f"{label} step phases, ms per step over {steps} steps (CUDA "
+          f"events) [{card}]:")
+    for phase, ms in shares.items():
+        print(f"  {phase}: {ms:.4f} ms ({100 * ms / t['step']:.1f}%)")
+    print(f"  step: {t['step']:.4f} ms")
+    return shares
+
+
+def cs30_row(card, label, model, dt, steps, expect_fill=True):
+    """Warm-up and timed steps of Δt with the counters reset just before
+    and read just after: the fill kernel launched (where the model fills),
+    no plain fill on CUDA tensors; finite outputs; the step median, min and
+    max, peak memory, launches per step, the shares (3 steps) and the busy
+    share (3 steps). Returns (launches, step median ms)."""
+    from oceananigans_tpu_torch import kernels as K
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_counters()
+    warmup, timed = steps
+    for _ in range(warmup):
+        model.time_step(dt)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        model.time_step(dt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches, plain = K.counters()
+    n = warmup + timed
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label} launches over {n} steps: "
+          f"{ {k: v for k, v in launches.items() if v} }; plain calls on "
+          f"CUDA: { {k: v for k, v in plain.items() if v} }")
+    if expect_fill:
+        assert launches["fill_halos"] > 0, (label, "no fill launch")
+    fills = {k: v for k, v in plain.items() if "fill" in k and v}
+    assert not fills, (label, "plain fill on CUDA tensors", fills)
+    for name, a in cs30_fields(model).items():
+        assert torch.isfinite(a).all().item(), (label, f"{name} not finite")
+    step_ms = statistics.median(times) * 1e3
+    ex = getattr(getattr(model, "grid", None), "exchange", None)
+    print(f"{label}: step median {step_ms:.3f} ms over {timed} steps (min "
+          f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), Δt {dt} s; "
+          f"peak device memory (steps) {peak / 2 ** 30:.2f} GiB [{card}]")
+    print(f"{label}: launches per step "
+          f"{ {k: v / n for k, v in launches.items() if v} }"
+          + (f"; exchange gathers per step {ex.gathers / n:.1f}"
+             if ex is not None else ""))
+    if ex is not None:
+        ex.gathers = 0
+    cs30_shares(model, dt, 3, card, label)
+    busy_share(label, model, dt, 3, step_ms, card)
+    return launches, step_ms
+
+
+def cs30_fill(label, grid, fields, lbs):
+    """The fill against its plain version on a row's own fields (bit for
+    bit), timed, with its bound."""
+    arrays = [f.clone() for f in fields]
+    err = fill_check(label, grid, arrays, lbs)
+    return time_fill(label, grid, arrays, lbs, err)
+
+
+def cs30_phase(card):
+    """Phase 30: the cubed sphere and the rest of shallow water. The small
+    float64 models on the card against the CPU; row I, bench_extra.py's
+    cs_row (6×64×64×32, split-explicit); row J, the global cubed-sphere
+    ocean at C96 with 32 levels; row K, the Bickley jet at 1024×2048
+    (bounded y: the plain tendency, the fill's wrap and bounded y); row L,
+    the cubed-sphere shallow water (TC2) at 6×256×256. Returns ({kernel
+    row: measured}, {row: launches})."""
+    t0 = time.perf_counter()
+    out, launches, steps_ms = {}, {}, {}
+    print("small float64 models on the card against the CPU (3 steps, "
+          "1e-10):")
+    cs30_small_checks()
+
+    def hydro_fill(label, model, names):
+        cp = model._catp
+        fields = [model._c(model.state["fields"][n]) for n in names]
+        return cs30_fill(f"{label} (z halos of the concatenated panels)",
+                         cp.grid, fields,
+                         [(cp.loc(n), cp.bcs[n]) for n in names])
+
+    N, nz = CS_ROW_N
+    label = f"row I, cs_row 6x{N}x{N}x{nz}"
+    print(f"{label}:")
+    model = cs_row_model(N, nz, torch.float32, "cuda")
+    print(f"  halo {model.grid.H}, concatenated grid "
+          f"{model._catp.grid.padded_shape}, {model.timestepper}, "
+          f"SplitExplicitFreeSurface(substeps=20), Δt {CS_ROW_DT} s")
+    launches["I"], steps_ms["I"] = cs30_row(card, label, model, CS_ROW_DT,
+                                            CS30_STEPS["I"])
+    out["fill_halos_cs_row"] = hydro_fill(label, model, ["u", "v", "b"])
+    del model
+    torch.cuda.empty_cache()
+
+    N, nz = CS_GLOBAL_N
+    label = f"row J, global cubed-sphere ocean 6x{N}x{N}x{nz}"
+    print(f"{label}:")
+    model = cs_global_model(N, nz, torch.float32, "cuda")
+    dt = cs_global_dt(N)
+    print(f"  halo {model.grid.H}, {int(model._catp.grid.solid_ccc.sum())} "
+          f"solid cells (halos included), closures "
+          f"{[type(c).__name__ for c in model.closure.closures]}, "
+          f"SplitExplicitFreeSurface(substeps=20), Δt {dt:.1f} s")
+    launches["J"], steps_ms["J"] = cs30_row(card, label, model, dt,
+                                            CS30_STEPS["J"])
+    u = model.field("u").interior
+    e = model.field("e").interior
+    print(f"{label}: max|u| {u.abs().max().item():.4e}, max e "
+          f"{e.max().item():.4e} after {model.iteration} steps")
+    out["fill_halos_cs_global"] = hydro_fill(label, model,
+                                             ["u", "v", "b", "c", "e"])
+    del model
+    torch.cuda.empty_cache()
+
+    nx, ny = BICKLEY_N
+    label = f"row K, Bickley jet {nx}x{ny}"
+    print(f"{label}:")
+    model = bickley_model(nx, ny, torch.float32, "cuda")
+    assert not model.fused
+    print(f"  halo {model.grid.H}, topology {model.grid.topology}, the plain "
+          f"tendency (the fused stage refuses the bounded y), Δt "
+          f"{BICKLEY_DT}")
+    launches["K"], steps_ms["K"] = cs30_row(card, label, model, BICKLEY_DT,
+                                            CS30_STEPS["K"])
+    names = list(model.prognostic_names)
+    out["fill_halos_bickley"] = cs30_fill(
+        f"{label} ({', '.join(names)}: the x wrap and the bounded y)",
+        model.grid, [model.state["fields"][n] for n in names],
+        [(model.loc(n), model.bcs[n]) for n in names])
+    del model
+    torch.cuda.empty_cache()
+
+    label = f"row L, cubed-sphere shallow water 6x{CS_SW_N}x{CS_SW_N}"
+    print(f"{label}:")
+    model = cs_sw_model(CS_SW_N, torch.float32, "cuda")
+    print(f"  halo {model.grid.H}, {model.pv_scheme} PV flux, Wicker-"
+          f"Skamarock RK3, Δt {cs_sw_dt(CS_SW_N):.1f} s")
+    m0 = model.total_mass()
+    launches["L"], steps_ms["L"] = cs30_row(card, label, model,
+                                            cs_sw_dt(CS_SW_N),
+                                            CS30_STEPS["L"],
+                                            expect_fill=False)
+    print(f"{label}: relative mass change "
+          f"{(model.total_mass() - m0) / m0:.3e} after {model.iteration} "
+          f"steps (float32)")
+    del model
+    torch.cuda.empty_cache()
+    print("phase 30 rows: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in steps_ms.items()) + f" a step [{card}]")
+    print(f"phase 30 wall time {time.perf_counter() - t0:.1f} s [{card}]")
+    return out, launches
+
+
 def main():
     t_start = time.perf_counter()
     name, card = device_phase()
@@ -8170,6 +8622,9 @@ def main():
           "closures, z*, flux-form momentum and the multi-dimensional "
           "stencil (phase 29):")
     h29_rows, h29_launches = hydro29_phase(card)
+    print("the cubed sphere (grid, exchange, both models) and the rest of "
+          "shallow water (phase 30):")
+    cs_rows, cs_launches = cs30_phase(card)
     bounds["fused_advection_update_bf16"] = \
         bounds["fused_advection_update_tracers"]
     for fname in ("fill_halos", "fill_halos_bounded", "fill_halos_fold",
@@ -8280,6 +8735,20 @@ def main():
                          plain_ms=m["plain_ms"], bound_ms=m["bound"][0],
                          bound_by=m["bound"][1],
                          library_ms=m.get("library_ms")))
+    # phase 30's rows: the fill on row I's and row J's concatenated panels
+    # (z halos; x and y kept) and on row K's Bickley jet (the wrap of x and
+    # the bounded y), each with its row's launches
+    for kname, row in (("fill_halos_cs_row", "I"),
+                       ("fill_halos_cs_global", "J"),
+                       ("fill_halos_bickley", "K")):
+        m = cs_rows[kname]
+        source, replaces = KERNEL_SOURCES["fill_halos_bounded"]
+        rows.append(dict(name=kname, route="cuda", source=source,
+                         replaces=replaces,
+                         launches=cs_launches[row]["fill_halos"],
+                         max_abs_err=m["max_abs_err"], ms=m["ms"],
+                         plain_ms=m["plain_ms"], bound_ms=m["bound"][0],
+                         bound_by=m["bound"][1], library_ms=None))
     for fname, label, path_launches in (
             ("fill_halos", "the flagship path (u, v, w, p of 264x264x256, "
              "the wrap)", flagship_launches),

@@ -74,7 +74,8 @@ Layer map:
 from .defaults import defaults
 from .grids import (RectilinearGrid, LatitudeLongitudeGrid,
                     OrthogonalSphericalShellGrid, RotatedLatitudeLongitudeGrid,
-                    TripolarGrid, ExponentialDiscretization, LinearStretching,
+                    TripolarGrid, ConformalCubedSphereGrid,
+                    ExponentialDiscretization, LinearStretching,
                     PowerLawStretching, ReferenceToStretchedDiscretization,
                     PERIODIC, BOUNDED, FLAT, CENTER, FACE)
 from .advection import Centered, UpwindBiased, WENO
@@ -117,7 +118,8 @@ from .stokes_drift import StokesDrift, UniformStokesDrift
 from .fields import (CenterField, Field, TracerFields, VelocityFields,
                      XFaceField, YFaceField, ZFaceField)
 from .parallel import CPU, GPU, Distributed, Partition
-from .models import (ConservativeFormulation, ExplicitFreeSurface,
+from .models import (ConservativeFormulation, CubedSphereHydrostaticModel,
+                     CubedSphereShallowWaterModel, ExplicitFreeSurface,
                      HydrostaticFreeSurfaceModel, ImplicitFreeSurface,
                      NonhydrostaticModel, PrescribedVelocityFields,
                      ZCoordinate, ZStarCoordinate,
@@ -151,9 +153,10 @@ JLD2Writer = FieldWriter
 
 __all__ = ["defaults", "RectilinearGrid", "LatitudeLongitudeGrid",
            "OrthogonalSphericalShellGrid", "RotatedLatitudeLongitudeGrid",
-           "TripolarGrid", "ExponentialDiscretization", "LinearStretching",
-           "PowerLawStretching", "ReferenceToStretchedDiscretization",
-           "PERIODIC", "BOUNDED", "FLAT",
+           "TripolarGrid", "ConformalCubedSphereGrid",
+           "ExponentialDiscretization", "LinearStretching",
+           "PowerLawStretching",
+           "ReferenceToStretchedDiscretization", "PERIODIC", "BOUNDED", "FLAT",
            "CENTER", "FACE", "Centered", "UpwindBiased", "WENO",
            "FieldBoundaryConditions", "FluxBoundaryCondition",
            "GradientBoundaryCondition", "ValueBoundaryCondition",
@@ -170,6 +173,7 @@ __all__ = ["defaults", "RectilinearGrid", "LatitudeLongitudeGrid",
            "UniformStokesDrift", "StokesDrift", "BackgroundField",
            "NonTraditionalBetaPlane", "Field",
            "NonhydrostaticModel", "state_from_jax", "ShallowWaterModel",
+           "CubedSphereShallowWaterModel", "CubedSphereHydrostaticModel",
            "ConservativeFormulation", "VectorInvariantFormulation",
            "VectorInvariant", "WENOVectorInvariant", "FPlane",
            "ConstantCartesianCoriolis", "BetaPlane",

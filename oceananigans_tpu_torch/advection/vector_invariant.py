@@ -130,9 +130,11 @@ class VectorInvariant:
 
     # -- horizontal (vorticity) term ------------------------------------------
 
-    def _horizontal(self, grid, u, v):
-        """The vorticity flux terms (to be subtracted) at fcc and cfc."""
-        zeta = zeta3_ffc(grid, u, v)
+    def _horizontal(self, grid, u, v, zeta=None):
+        """The vorticity flux terms (to be subtracted) at fcc and cfc;
+        ``zeta`` replaces the curl of (u, v) when given."""
+        if zeta is None:
+            zeta = zeta3_ffc(grid, u, v)
         dx_cfc = _metric(grid.dx(LOC_CFC), v)
         dx_fcc = _metric(grid.dx(LOC_FCC), u)
         dy_fcc = _metric(grid.dy(LOC_FCC), u)

@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..grids.topology import BOUNDED, FACE, FLAT, PERIODIC
+from ..grids.topology import BOUNDED, FACE, FLAT, FULLY_CONNECTED, PERIODIC
 
 PERIODIC_BC = "periodic"
 FLUX = "flux"
@@ -275,7 +275,7 @@ def default_bc(topology_axis, loc_axis):
     """Default BC for one side of one direction, from topology + location."""
     if topology_axis == PERIODIC:
         return PeriodicBoundaryCondition()
-    if topology_axis == FLAT:
+    if topology_axis in (FLAT, FULLY_CONNECTED):
         return None
     if loc_axis == FACE:
         return ImpenetrableBoundaryCondition()   # wall-normal velocity
@@ -309,8 +309,8 @@ def _check_user_bc(bc, side, axis, grid):
             raise ValueError(f"cannot set {bc.classification} BC on {side} "
                              "of a periodic direction")
         return
-    if topo == FLAT:
-        raise ValueError(f"cannot set a BC on {side} of a flat direction")
+    if topo in (FLAT, FULLY_CONNECTED):
+        raise ValueError(f"cannot set a BC on {side} of a {topo} direction")
     if bc.classification not in (FLUX, VALUE, GRADIENT, OPEN):
         raise ValueError(f"unknown classification {bc.classification!r}")
     cond = bc.condition

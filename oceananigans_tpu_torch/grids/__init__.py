@@ -1,4 +1,5 @@
-from .topology import (PERIODIC, BOUNDED, FLAT, CENTER, FACE,
+from .topology import (PERIODIC, BOUNDED, FLAT, FULLY_CONNECTED, CENTER,
+                       FACE,
                        LOC_CCC, LOC_FCC, LOC_CFC, LOC_CCF)
 from .base import AbstractGrid
 from .rectilinear import RectilinearGrid
@@ -6,13 +7,15 @@ from .latlon import LatitudeLongitudeGrid
 from .orthogonal_spherical_shell import (OrthogonalSphericalShellGrid,
                                          RotatedLatitudeLongitudeGrid)
 from .tripolar import TripolarGrid
+from .cubed_sphere import ConformalCubedSphereGrid
 from .stretching import (ExponentialDiscretization, LinearStretching,
                          PowerLawStretching,
                          ReferenceToStretchedDiscretization)
 
-__all__ = ["PERIODIC", "BOUNDED", "FLAT", "CENTER", "FACE",
-           "LOC_CCC", "LOC_FCC", "LOC_CFC", "LOC_CCF",
+__all__ = ["PERIODIC", "BOUNDED", "FLAT", "FULLY_CONNECTED", "CENTER",
+           "FACE", "LOC_CCC", "LOC_FCC", "LOC_CFC", "LOC_CCF",
            "AbstractGrid", "RectilinearGrid", "LatitudeLongitudeGrid",
            "OrthogonalSphericalShellGrid", "RotatedLatitudeLongitudeGrid",
-           "TripolarGrid", "ExponentialDiscretization", "LinearStretching",
+           "TripolarGrid", "ConformalCubedSphereGrid",
+           "ExponentialDiscretization", "LinearStretching",
            "PowerLawStretching", "ReferenceToStretchedDiscretization"]

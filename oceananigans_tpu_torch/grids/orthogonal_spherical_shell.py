@@ -101,7 +101,13 @@ def _expand_halo(halo, topology):
 class OrthogonalSphericalShellGrid(MetricCache, AbstractGrid):
     def __init__(self, corner_longitude, corner_latitude, z=None, size=None,
                  radius=None, topology=None, halo=None, dtype=None,
-                 device=None):
+                 device=None, corner_halo=0):
+        """``corner_halo=h``: the corner tables are extended, covering the
+        padded horizontal extent (the interior nodes and ``h`` rows of halo
+        nodes on each side, taken from the surrounding mesh, e.g. the
+        neighbouring cubed-sphere panels), so that every metric, lengths
+        and areas at every staggering, is exact in the halos instead of
+        edge-replicated."""
         self.radius = float(radius if radius is not None
                             else defaults.planet_radius)
         self.dtype = as_torch_dtype(dtype)
@@ -109,7 +115,8 @@ class OrthogonalSphericalShellGrid(MetricCache, AbstractGrid):
         lamF = np.asarray(corner_longitude, float)
         phiF = np.asarray(corner_latitude, float)
         nxp1, nyp1 = lamF.shape
-        Nx, Ny = nxp1 - 1, nyp1 - 1
+        ch = self._corner_halo = int(corner_halo)
+        Nx, Ny = nxp1 - 1 - 2 * ch, nyp1 - 1 - 2 * ch
         Nz = 1 if z is None else (size[2] if size else None)
         if z is not None and Nz is None:
             raise ValueError("pass size=(Nx, Ny, Nz) with a vertical spec")
@@ -119,6 +126,8 @@ class OrthogonalSphericalShellGrid(MetricCache, AbstractGrid):
         self.topology = topo.validate_topology(topology)
         self.N = (Nx, Ny, Nz if z is not None else 1)
         self.H = _expand_halo(halo, self.topology)
+        if ch and (self.H[0] != ch or self.H[1] != ch):
+            raise ValueError("corner_halo must equal the horizontal halos")
         self._zc = coordinate(self.N[2], self.H[2], self.topology[2], z)
 
         P = _sph2cart(lamF, phiF)                       # (Nx+1, Ny+1, 3)
@@ -126,7 +135,9 @@ class OrthogonalSphericalShellGrid(MetricCache, AbstractGrid):
         Pym = _midpoint(P[:, :-1], P[:, 1:])            # (f, c) (Nx+1, Ny)
         Pc = _midpoint(Pxm[:, :-1], Pxm[:, 1:])         # (c, c) (Nx, Ny)
         R = self.radius
-        mx, my = Nx, Ny
+        # the metric tables span the corner tables' extent: the interior,
+        # or the padded extent under corner_halo
+        mx, my = nxp1 - 1, nyp1 - 1
         dx_cc = _gc_distance(Pym[:-1, :], Pym[1:, :], R)
         dx_fc = np.empty((mx + 1, my))
         dx_fc[1:-1] = _gc_distance(Pc[:-1, :], Pc[1:, :], R)
@@ -154,8 +165,12 @@ class OrthogonalSphericalShellGrid(MetricCache, AbstractGrid):
         self._dy = {("c", "c"): dy_cc, ("f", "c"): dy_fc,
                     ("c", "f"): dy_cf, ("f", "f"): dy_ff}
         lam_c, phi_c = _cart2sph(Pc)
-        self._lam = {("c", "c"): lam_c, ("f", "f"): lamF}
-        self._phi = {("c", "c"): phi_c, ("f", "f"): phiF}
+        # the coordinate tables keep the interior extent
+        inner = (slice(ch, ch + Nx), slice(ch, ch + Ny))
+        outer = (slice(ch, ch + Nx + 1), slice(ch, ch + Ny + 1))
+        self._lam = {("c", "c"): lam_c[inner], ("f", "f"): lamF[outer]}
+        self._phi = {("c", "c"): phi_c[inner], ("f", "f"): phiF[outer]}
+        self._ext_corners = (lamF, phiF) if ch else None
 
         az_cc = _spherical_quad_area(P[:-1, :-1], P[1:, :-1],
                                      P[1:, 1:], P[:-1, 1:]) * R * R
@@ -168,6 +183,17 @@ class OrthogonalSphericalShellGrid(MetricCache, AbstractGrid):
         az_ff = np.empty((mx + 1, my + 1))
         az_ff[1:-1, :] = 0.5 * (az_cf[:-1, :] + az_cf[1:, :])
         az_ff[0, :], az_ff[-1, :] = az_cf[0, :], az_cf[-1, :]
+        if ch:
+            # at a cube vertex (three panels meet) the diagonal halo quads
+            # and edges are slivers of about zero measure: no stencil that
+            # reaches an interior cell reads them; raise them to the table's
+            # largest value so that whole-array divisions stay finite there
+            for group in (self._dx, self._dy,
+                          {("c", "c"): az_cc, ("f", "c"): az_fc,
+                           ("c", "f"): az_cf, ("f", "f"): az_ff}):
+                for tbl in group.values():
+                    big = tbl.max()
+                    np.copyto(tbl, big, where=tbl < 1e-6 * big)
         self._az = {("c", "c"): az_cc, ("f", "c"): az_fc,
                     ("c", "f"): az_cf, ("f", "f"): az_ff}
         self._pad_cache = {}
@@ -180,6 +206,11 @@ class OrthogonalSphericalShellGrid(MetricCache, AbstractGrid):
         uniform padded layout) and padded over the halos: wrapped on a
         periodic axis, edge-replicated otherwise; (npx, npy, 1)."""
         key = (id(table), lx, ly)
+        if key not in self._pad_cache and self._corner_halo:
+            # the extended tables span the padded extent already; the "+1"
+            # staggered rows are cut to the uniform padded layout
+            npx, npy = self.padded_shape[:2]
+            self._pad_cache[key] = table[(lx, ly)][:npx, :npy, None]
         if key not in self._pad_cache:
             arr = table[(lx, ly)][:self.N[0], :self.N[1]]
             mode_x = "wrap" if self.topology[0] == topo.PERIODIC else "edge"
@@ -233,13 +264,16 @@ class OrthogonalSphericalShellGrid(MetricCache, AbstractGrid):
     def nodes2d_padded(self, loc=("c", "c")):
         """The true (λ, φ) nodes in degrees at any horizontal staggering
         over the padded extent, (npx, npy) float64, from the corners padded
-        by their edge values."""
+        by their edge values (the extended corners under corner_halo)."""
         key = ("nodes2d_padded",) + tuple(loc[:2])
         if key not in self._pad_cache:
             npx, npy = self.padded_shape[:2]
             pad = [(self.H[0],) * 2, (self.H[1],) * 2]
-            P = _sph2cart(np.pad(self._lam[("f", "f")], pad, mode="edge"),
-                          np.pad(self._phi[("f", "f")], pad, mode="edge"))
+            if self._corner_halo:
+                P = _sph2cart(*self._ext_corners)
+            else:
+                P = _sph2cart(np.pad(self._lam[("f", "f")], pad, mode="edge"),
+                              np.pad(self._phi[("f", "f")], pad, mode="edge"))
             Pxm = _midpoint(P[:-1, :], P[1:, :])
             Pym = _midpoint(P[:, :-1], P[:, 1:])
             Pc = _midpoint(Pxm[:, :-1], Pxm[:, 1:])
@@ -294,6 +328,15 @@ class OrthogonalSphericalShellGrid(MetricCache, AbstractGrid):
     # -- copies ---------------------------------------------------------------
 
     def _rebuild(self, halo, dtype, device):
+        if self._corner_halo:
+            if tuple(halo) != self.H:
+                raise ValueError("a panel with exchanged (corner_halo) "
+                                 "metrics cannot change its halo alone; "
+                                 "rebuild the cubed-sphere grid")
+            return OrthogonalSphericalShellGrid(
+                *self._ext_corners, z=self._zc.spec(), size=self.N,
+                radius=self.radius, topology=self.topology, halo=halo,
+                dtype=dtype, device=device, corner_halo=self._corner_halo)
         return OrthogonalSphericalShellGrid(
             self._lam[("f", "f")], self._phi[("f", "f")], z=self._zc.spec(),
             size=self.N, radius=self.radius, topology=self.topology,
@@ -312,10 +355,11 @@ class OrthogonalSphericalShellGrid(MetricCache, AbstractGrid):
         return self._rebuild(self.H, dtype, device)
 
     def _fingerprint(self):
+        lam, phi = (self._ext_corners if self._corner_halo
+                    else (self._lam[("f", "f")], self._phi[("f", "f")]))
         return ("OSSG", self.N, self.H, self.topology, self.radius,
-                str(self.dtype), str(self.device),
-                self._lam[("f", "f")].tobytes(),
-                self._phi[("f", "f")].tobytes(), self._zc._fp)
+                str(self.dtype), str(self.device), self._corner_halo,
+                lam.tobytes(), phi.tobytes(), self._zc._fp)
 
     def __repr__(self):
         return (f"OrthogonalSphericalShellGrid(size={self.N}, halo={self.H}, "

@@ -10,8 +10,12 @@ from __future__ import annotations
 PERIODIC = "periodic"
 BOUNDED = "bounded"
 FLAT = "flat"
+# a cubed-sphere panel's x and y: the halos hold the neighbouring panels'
+# data, written by the panel exchange; stencils treat the axis as unbounded
+# and no fill or boundary condition acts on it
+FULLY_CONNECTED = "fully_connected"
 
-TOPOLOGIES = (PERIODIC, BOUNDED, FLAT)
+TOPOLOGIES = (PERIODIC, BOUNDED, FLAT, FULLY_CONNECTED)
 
 CENTER = "c"
 FACE = "f"

@@ -350,7 +350,7 @@ def _keep(a, sl):
 
 def fused_vi_tendency_plain(grid, vi, tracer_scheme, names, coriolis, u, v,
                             w, tracers, ph=None, grid_motion=None,
-                            tracer_velocities=None):
+                            tracer_velocities=None, zeta=None, cut=True):
     """Plain PyTorch version: the TPU function's four phase bodies with the
     port's operators on whole padded tensors, cut to the kept regions.
 
@@ -360,11 +360,15 @@ def fused_vi_tendency_plain(grid, vi, tracer_scheme, names, coriolis, u, v,
     ``grid_motion`` (z*'s Az·Δr·∂t_σ in the vector invariant's divergence
     flux), ``tracer_scheme`` a {name: scheme} dict, and
     ``tracer_velocities``, the (u, v, w) that advect the tracers (with an
-    advective GM closure's eddy velocities)."""
+    advective GM closure's eddy velocities), and ``zeta``, the vertical
+    vorticity at (f, f, c) in place of the curl of (u, v) (the cubed
+    sphere's, corrected at the cube's vertices). ``cut=False`` keeps the
+    stencil values in every slot, as the JAX XLA path does (the cubed
+    sphere's stored halos carry them, and its substepped TKE reads them)."""
     if u.is_cuda:
         fused_vi_tendency_plain.cuda_calls += 1
     if isinstance(vi, VectorInvariant):
-        h_u, h_v = vi._horizontal(grid, u, v)
+        h_u, h_v = vi._horizontal(grid, u, v, zeta=zeta)
         b_u, b_v = vi._bernoulli(grid, u, v)
         z_u, z_v = vi._vertical(grid, u, v, w, grid_motion)
         Gu = (-h_u + -b_u) + -z_u
@@ -381,19 +385,24 @@ def fused_vi_tendency_plain(grid, vi, tracer_scheme, names, coriolis, u, v,
         f_v = p_v if f_v is None else f_v + p_v
     if f_u is not None:
         Gu, Gv = Gu + f_u, Gv + f_v
-    su, sv, _ = kept_slices(grid)
     Gc = tracer_advection_plain(grid, tracer_scheme, names,
-                                *(tracer_velocities or (u, v, w)), tracers)
+                                *(tracer_velocities or (u, v, w)), tracers,
+                                cut=cut)
+    if not cut:
+        return Gu, Gv, Gc
+    su, sv, _ = kept_slices(grid)
     return _keep(Gu, su), _keep(Gv, sv), Gc
 
 
-def tracer_advection_plain(grid, tracer_scheme, names, u, v, w, tracers):
+def tracer_advection_plain(grid, tracer_scheme, names, u, v, w, tracers,
+                           cut=True):
     """{name: -∇·(𝐯c)} of ``tracers`` by ``tracer_scheme`` (a scheme, or a
-    {name: scheme} dict), cut to the interior."""
+    {name: scheme} dict), cut to the interior (unless ``cut=False``)."""
     sc = grid.interior_slices
-    return {n: _keep(-div_Uc(grid, tracer_scheme[n] if isinstance(
-        tracer_scheme, dict) else tracer_scheme, u, v, w, tracers[n]), sc)
+    out = {n: -div_Uc(grid, tracer_scheme[n] if isinstance(
+        tracer_scheme, dict) else tracer_scheme, u, v, w, tracers[n])
         for n in names}
+    return out if not cut else {n: _keep(a, sc) for n, a in out.items()}
 
 
 fused_vi_tendency_plain.cuda_calls = 0

@@ -7,10 +7,13 @@ from .hydrostatic import (HydrostaticFreeSurfaceModel,
 from .shallow_water import (CONSERVATIVE, VECTOR_INVARIANT,
                             ConservativeFormulation, ShallowWaterModel,
                             VectorInvariantFormulation)
+from .cubed_sphere_shallow_water import CubedSphereShallowWaterModel
+from .cubed_sphere_hydrostatic import CubedSphereHydrostaticModel
 
 __all__ = ["NonhydrostaticModel", "state_from_jax", "ShallowWaterModel",
            "HydrostaticFreeSurfaceModel", "PrescribedVelocityFields",
            "ZCoordinate", "ZStarCoordinate", "ExplicitFreeSurface",
            "ImplicitFreeSurface", "SplitExplicitFreeSurface",
            "ConservativeFormulation", "VectorInvariantFormulation",
-           "CONSERVATIVE", "VECTOR_INVARIANT"]
+           "CONSERVATIVE", "VECTOR_INVARIANT", "CubedSphereShallowWaterModel",
+           "CubedSphereHydrostaticModel"]

@@ -251,6 +251,12 @@ def _positive(x):
 
 
 class HydrostaticFreeSurfaceModel:
+    # the cubed sphere's panel physics (models/cubed_sphere_hydrostatic.py)
+    # sets the vertex-corrected vorticity and keeps the stencil values in
+    # the tendencies' halos
+    _zeta_override = None
+    _cut_tendencies = True
+
     def __init__(self, grid, momentum_advection=None, tracer_advection=None,
                  free_surface=None, tracers=(), buoyancy=None, coriolis=None,
                  closure=None, forcing=None, boundary_conditions=None,
@@ -988,7 +994,8 @@ class HydrostaticFreeSurfaceModel:
                 grid, self.momentum_advection, self._tracer_schemes(),
                 self.tracer_names, self.coriolis, u, v, w, tracers, ph,
                 grid_motion=self._grid_motion(u, dt_sigma),
-                tracer_velocities=self._tracer_velocities(grid, cf))
+                tracer_velocities=self._tracer_velocities(grid, cf),
+                zeta=self._zeta_override, cut=self._cut_tendencies)
         G = {"u": Gu, "v": Gv}
         if isinstance(self.free_surface, ExplicitFreeSurface):
             g = self.free_surface.g

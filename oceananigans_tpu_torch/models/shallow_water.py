@@ -1,8 +1,9 @@
 """ShallowWaterModel.
 
-Counterpart of ``oceananigans_tpu/models/shallow_water.py`` on a regular
-RectilinearGrid with periodic x and y and a flat z. Two formulations: the
-conservative one (prognostic transports uh, vh and height h)
+Counterpart of ``oceananigans_tpu/models/shallow_water.py`` on a
+RectilinearGrid with periodic, bounded or flat x and y and a flat z. Two
+formulations: the conservative one (prognostic transports uh, vh and height
+h)
 
     ∂t uh = -∇·(𝐮 uh) - ∂x(g h²/2) - f×(uh,vh)|x - g h ∂x h_B
     ∂t h  = -∇·(uh, vh)
@@ -12,13 +13,25 @@ and the vector-invariant one (u, v, h)
 
     ∂t u = -(ζ+f) v̂ - ∂x(g(h+h_B) + |u|²/2)
 
-RK3, no elliptic solve. Each RK3 stage fills the periodic halos of every
-field (one launch of the batched wrap) and, where the configuration is
-eligible (conservative, constant f; ``kernels/fused_shallow_water.py``
-``sw_eligible``), runs the fused shallow-water stage: one launch of the
-kernel for the whole tendency and the stage update. Otherwise (the
-vector-invariant formulation, ``BetaPlane``, ``fused=False``) the tendencies
-are plain PyTorch. Closure, forcing and user boundary conditions raise.
+RK3, no elliptic solve. Each RK3 stage fills the halos of every field by
+its boundary conditions at the stage's time (one launch of the fill kernel
+on the card: the periodic wrap, and on a bounded axis each field's
+conditions) and, where the configuration is eligible (conservative,
+periodic x and y, constant f: ``kernels/fused_shallow_water.py``
+``sw_eligible``; and, as in JAX, no closure, forcing or boundary
+conditions), runs the fused shallow-water stage: one launch of the kernel
+for the whole tendency and the stage update. Otherwise (a bounded axis, the
+vector-invariant formulation, ``BetaPlane``, a closure, forcing or user
+conditions, ``fused=False``) the tendencies are plain PyTorch, as JAX's
+``_compute_tendencies``: the advective and pressure terms, the closure's
+diffusivities and its momentum terms (of the velocities u = uh/ℑh, added
+to the transports' tendencies as JAX adds them) and tracer terms, discrete
+and continuous forcing bound to each field's location, then the boundary
+fluxes of the Flux conditions; the stage updates the whole padded fields.
+The vector-invariant form takes the ``VectorInvariant`` set as
+``model.momentum_advection`` (JAX reads it with ``getattr``: the
+upwinded and WENO vector invariants among them), else
+``VectorInvariant()``.
 
 With ``architecture=Distributed(...)`` the state stays global-view on the
 mesh's first device (the grid's device) and each stage runs the sharded
@@ -48,26 +61,26 @@ from ..advection import Centered
 from ..advection.shallow_water import (advective_tracer_tendencies,
                                        conservative_tendencies)
 from ..advection.vector_invariant import VectorInvariant
-from ..boundary_conditions import (fill_all_halo_regions,
+from ..boundary_conditions import (apply_flux_bcs_padded,
+                                   fill_all_halo_regions,
                                    regularize_field_boundary_conditions)
 from ..coriolis import constant_f
 from ..defaults import defaults, numpy_dtype
 from ..fields import Field, set_on_padded
-from ..grids.topology import FLAT, LOC_CCC, LOC_CFC, LOC_FCC, PERIODIC
+from ..forcings.forcings import regularize_forcing
+from ..grids.topology import LOC_CCC, LOC_CFC, LOC_FCC, PERIODIC
 from ..kernels import fused_sw_update
 from ..kernels.fused_shallow_water import (build_sharded_fused_sw_update,
                                            sw_eligible)
 from ..operators.operators import ddx, ddy, div_xy_ccc, ix_f, iy_f
 from ..parallel.distributed import regularize_architecture
-from ..timesteppers import RK3_GAMMAS, RK3_ZETAS, stage_update
+from ..timesteppers import RK3_GAMMAS, RK3_ZETAS
 from ..utils.dateclock import datetime_of
 from .nonhydrostatic import padded_from_jax
 
 CONSERVATIVE = "conservative"
 VECTOR_INVARIANT = "vector_invariant"
 
-REST_ITEM = ("ROADMAP.md queue 1 item 17 (the rest of shallow water: "
-             "closure, forcing, boundary conditions and bounded x/y)")
 MESH_ITEM = ("ROADMAP.md queue 1 item 16 (the GSPMD-only sharded paths: "
              "under a mesh the JAX package partitions this configuration's "
              "plain step with XLA)")
@@ -87,16 +100,8 @@ class ShallowWaterModel:
                  boundary_conditions=None, formulation=CONSERVATIVE,
                  closure=None, fused="auto", architecture=None,
                  reference_datetime=None, device=None, dtype=None):
-        for name, value in (("closure", closure), ("forcing", forcing),
-                            ("boundary_conditions", boundary_conditions)):
-            if value:
-                raise NotImplementedError(
-                    f"{name} is not ported yet: {REST_ITEM}")
         if not grid.is_flat(2):
             raise ValueError("ShallowWaterModel requires a z-Flat grid")
-        if any(grid.topology[a] not in (PERIODIC, FLAT) for a in (0, 1)):
-            raise NotImplementedError(
-                f"bounded x/y are not ported yet: {REST_ITEM}")
         if formulation not in (CONSERVATIVE, VECTOR_INVARIANT):
             raise ValueError(formulation)
         if device is not None or dtype is not None:
@@ -116,11 +121,17 @@ class ShallowWaterModel:
         halo = tuple(max(h, required) if not grid.is_flat(i) else 0
                      for i, h in enumerate(grid.H))
         self.grid = grid.with_halo(halo)
-        if self.grid.N[0] < halo[0] or self.grid.N[1] < halo[1]:
+        if any(self.grid.topology[a] == PERIODIC
+               and self.grid.N[a] < halo[a] for a in (0, 1)):
             raise ValueError("the periodic halos need Nx >= Hx and Ny >= Hy")
         self.coriolis = coriolis
+        self.closure = closure
         self.formulation = formulation
-        eligible = sw_eligible(self.grid, formulation, coriolis)
+        # as JAX's gate: the fused stage takes no closure, forcing or
+        # boundary conditions
+        eligible = (sw_eligible(self.grid, formulation, coriolis)
+                    and closure is None and not forcing
+                    and not boundary_conditions)
         if fused is True and not eligible:
             raise ValueError("model configuration is not eligible for the "
                              "fused shallow-water kernel")
@@ -138,8 +149,18 @@ class ShallowWaterModel:
         self._locs = {self._solution[0]: LOC_FCC, self._solution[1]: LOC_CFC,
                       "h": LOC_CCC}
         self._locs.update({name: LOC_CCC for name in self.tracer_names})
+        self.forcing = regularize_forcing(forcing)
+        for name, F in self.forcing.items():
+            if hasattr(F, "bind"):
+                F.bind(name, self._locs.get(name, LOC_CCC), locs=self._locs)
+        bcs_in = dict(boundary_conditions or {})
+        unknown = set(bcs_in) - set(self._locs)
+        if unknown:
+            raise ValueError(f"boundary conditions for unknown fields "
+                             f"{sorted(unknown)}")
         self.bcs = {name: regularize_field_boundary_conditions(
-            None, self.grid, loc) for name, loc in self._locs.items()}
+            bcs_in.get(name), self.grid, loc)
+            for name, loc in self._locs.items()}
         self.bathymetry = set_on_padded(self.grid, LOC_CCC, bathymetry)
         self._sharded = None
         if self.architecture is not None:
@@ -175,10 +196,11 @@ class ShallowWaterModel:
         return int(self.state["clock"]["iteration"])
 
     def field(self, name):
-        """The field ``name``, its halos refreshed (a step leaves the halo
-        slots of its last stage unwritten; interiors are authoritative)."""
+        """The field ``name``, its halos refreshed at the model's time (a
+        step leaves the halo slots of its last stage unwritten; interiors
+        are authoritative)."""
         data = self.state["fields"][name]
-        fill_all_halo_regions([data], self.grid)
+        self._fill_all({name: data}, self.time)
         return Field(self.grid, self.loc(name), self.bcs[name], data,
                      _regularize=False)
 
@@ -192,7 +214,7 @@ class ShallowWaterModel:
             if name not in fields:
                 raise ValueError(f"unknown prognostic field {name!r}")
             fields[name] = set_on_padded(self.grid, self.loc(name), value)
-        self._fill_all({name: fields[name] for name in values})
+        self._fill_all({name: fields[name] for name in values}, self.time)
         self.state = {**self.state, "fields": fields}
 
     # -- physics --------------------------------------------------------------
@@ -211,30 +233,51 @@ class ShallowWaterModel:
         return (fields["u"] * ix_f(self.grid, h),
                 fields["v"] * iy_f(self.grid, h))
 
-    def _compute_tendencies(self, fields):
-        """The plain PyTorch tendencies of every prognostic field, padded."""
+    def _compute_tendencies(self, fields, time=0.0):
+        """The plain PyTorch tendencies of every prognostic field, padded,
+        in JAX's order: advection, pressure and Coriolis; the closure;
+        forcing; the boundary fluxes."""
         grid = self.grid
+        u, v = self._velocities(fields)
         if self.formulation == CONSERVATIVE:
-            return conservative_tendencies(
+            G = conservative_tendencies(
                 grid, self.advection, self.g, self.coriolis, self.bathymetry,
                 self.tracer_names, fields)
-        g, h, hB = self.g, fields["h"], self.bathymetry
-        u, v = self._velocities(fields)
-        uh, vh = self._transports(fields)
-        vi = VectorInvariant()
-        h_u, h_v = vi._horizontal(grid, u, v)
-        b_u, b_v = vi._bernoulli(grid, u, v)
-        Gu = -(h_u + b_u) - ddx(grid, g * (h + hB), LOC_FCC)
-        Gv = -(h_v + b_v) - ddy(grid, g * (h + hB), LOC_CFC)
-        if self.coriolis is not None:
-            w0 = torch.zeros_like(u)
-            Gu = Gu - self.coriolis.x_f_cross_U(grid, u, v, w0)
-            Gv = Gv - self.coriolis.y_f_cross_U(grid, u, v, w0)
-        G = {"u": Gu, "v": Gv,
-             "h": (-div_xy_ccc(grid, uh, vh) * grid.V(LOC_CCC)
-                   / grid.Az(LOC_CCC))}
-        G.update(advective_tracer_tendencies(
-            grid, self.advection, uh, vh, self.tracer_names, fields))
+        else:
+            g, h, hB = self.g, fields["h"], self.bathymetry
+            uh, vh = self._transports(fields)
+            vi = getattr(self, "momentum_advection", None)
+            if not isinstance(vi, VectorInvariant):
+                vi = VectorInvariant()
+            h_u, h_v = vi._horizontal(grid, u, v)
+            b_u, b_v = vi._bernoulli(grid, u, v)
+            Gu = -(h_u + b_u) - ddx(grid, g * (h + hB), LOC_FCC)
+            Gv = -(h_v + b_v) - ddy(grid, g * (h + hB), LOC_CFC)
+            if self.coriolis is not None:
+                w0 = torch.zeros_like(u)
+                Gu = Gu - self.coriolis.x_f_cross_U(grid, u, v, w0)
+                Gv = Gv - self.coriolis.y_f_cross_U(grid, u, v, w0)
+            G = {"u": Gu, "v": Gv,
+                 "h": (-div_xy_ccc(grid, uh, vh) * grid.V(LOC_CCC)
+                       / grid.Az(LOC_CCC))}
+            G.update(advective_tracer_tendencies(
+                grid, self.advection, uh, vh, self.tracer_names, fields))
+        mom = self._solution[:2]
+        if self.closure is not None:
+            cf = dict(fields, u=u, v=v, w=torch.zeros_like(u))
+            aux = self.closure.compute_diffusivities(grid, cf, time)
+            mt = self.closure.momentum_tendencies(grid, cf, aux)
+            G[mom[0]] = G[mom[0]] + mt["u"]
+            G[mom[1]] = G[mom[1]] + mt["v"]
+            for name in self.tracer_names:
+                G[name] = G[name] + self.closure.tracer_tendency(
+                    grid, name, fields, aux)
+        for name, F in self.forcing.items():
+            G[name] = G[name] + (F(grid, fields, time) if callable(F) else F)
+        for name in G:
+            apply_flux_bcs_padded(G[name], grid, self.loc(name),
+                                  self.bcs[name], time, fields=fields,
+                                  locs=self._locs)
         return G
 
     def _build_sharded(self):
@@ -245,10 +288,12 @@ class ShallowWaterModel:
             self.bathymetry, self.prognostic_names, self.architecture.mesh)
         self._sharded_bathymetry = self.bathymetry
 
-    def _fill_all(self, fields):
-        """Fill the periodic halos of ``fields`` ({name: padded tensor}) in
-        place, one wrap launch for all of them."""
-        fill_all_halo_regions(list(fields.values()), self.grid)
+    def _fill_all(self, fields, time=0.0):
+        """Fill the halos of ``fields`` ({name: padded tensor}) in place by
+        their conditions at ``time``, one fill launch for all of them."""
+        fill_all_halo_regions(list(fields.values()), self.grid,
+                              [(self.loc(n), self.bcs[n]) for n in fields],
+                              float(time))
         return fields
 
     def time_step(self, dt):
@@ -263,14 +308,13 @@ class ShallowWaterModel:
         clock = self.state["clock"]
         self.state = {**self.state, "fields": None}
         time = clock["time"]
-        ints = self.grid.interior_slices
         f = constant_f(self.coriolis)
         if self._sharded is not None \
                 and self._sharded_bathymetry is not self.bathymetry:
             self._build_sharded()
         Gm = None
         for gamma, zeta in zip(RK3_GAMMAS, RK3_ZETAS):
-            self._fill_all(fields)
+            self._fill_all(fields, time)
             if self._sharded is not None:
                 Gm, fields = self._sharded(fields, Gm, nt(gamma) * dt,
                                            nt(zeta) * dt)
@@ -279,10 +323,13 @@ class ShallowWaterModel:
                     self.grid, self.advection, self.g, f, self.bathymetry,
                     names, fields, Gm, nt(gamma) * dt, nt(zeta) * dt)
             else:
-                G = self._compute_tendencies(fields)
-                G = torch.stack([G[name][ints] for name in names])
-                fields = stage_update(self.grid, names, fields, G, Gm,
-                                      nt(gamma) * dt, nt(zeta) * dt)
+                # the whole padded fields, as JAX updates them (a bounded
+                # axis's far boundary face evolves until its fill)
+                G = self._compute_tendencies(fields, time)
+                fields = {n: fields[n] + float(dt) * (
+                    float(gamma) * G[n] if Gm is None
+                    else float(gamma) * G[n] + float(zeta) * Gm[n])
+                    for n in names}
                 Gm = G
             time = time + nt(gamma + zeta) * dt
         self.state = dict(fields=fields,
@@ -308,7 +355,7 @@ def state_from_jax(jax_state_numpy, model, bathymetry=None):
     filled, keeps the JAX values of the slots nearest the interior."""
     fields = {n: padded_from_jax(model.grid, jax_state_numpy["fields"][n])
               for n in model.prognostic_names}
-    model._fill_all(fields)
+    model._fill_all(fields, float(jax_state_numpy["clock"]["time"]))
     if bathymetry is not None:
         model.bathymetry = _crop_padded(model.grid, bathymetry)
     jc = jax_state_numpy["clock"]

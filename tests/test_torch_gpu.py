@@ -1717,3 +1717,110 @@ def test_model_z_modes_card_against_cpu(topology):
         b = models[1].field(name).interior
         scale = max(b.abs().max().item(), 1e-12)
         assert (a - b).abs().max().item() / scale <= 1e-10, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+def test_fill_halos_cubed_sphere(dtype):
+    """The z fill of the cubed sphere's concatenated panels (x and y are
+    FULLY_CONNECTED: kept; the x extent holds every panel's halos) against
+    the plain fill, bit for bit: u, v, w and a tracer with the default z
+    conditions and a tracer with a Value bottom and a Gradient top, one
+    launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from oceananigans_tpu_torch.grids.cubed_sphere import concat_panels_grid
+    cs = ot.ConformalCubedSphereGrid((6, 6, 4), z=(-100.0, 0.0), dtype=dtype,
+                                     device="cuda")
+    grid = concat_panels_grid(cs.panel_grids)
+    assert grid.padded_shape[0] == 6 * cs.panel_grids[0].padded_shape[0]
+    locs = (("f", "c", "c"), ("c", "f", "c"), ("c", "c", "f"),
+            ("c", "c", "c"), ("c", "c", "c"))
+    user = FieldBoundaryConditions(
+        bottom=ot.ValueBoundaryCondition(0.5),
+        top=ot.GradientBoundaryCondition(-0.1))
+    lbs = [(loc, regularize_field_boundary_conditions(
+        user if k == 4 else None, grid, loc)) for k, loc in enumerate(locs)]
+    codes = hf.fill_codes(grid, grid.padded_shape, lbs, len(lbs))
+    assert all(c[0][0] == hf.KEEP and c[1][0] == hf.KEEP for c in codes)
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    fields = [torch.randn(grid.padded_shape, generator=gen, dtype=dtype,
+                          device="cuda") for _ in lbs]
+    check_fill(grid, fields, lbs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+def test_fill_halos_bickley(dtype):
+    """The shallow-water fields of the Bickley jet (periodic x, bounded y,
+    flat z): uh, vh, h and a tracer with the default conditions, and with
+    Value, Gradient and Flux on the bounded sides, against the plain fill
+    (the wrap and the bounded y in one launch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    grid = ot.RectilinearGrid(size=(32, 24), x=(0, 2 * np.pi), y=(-10, 10),
+                              topology=("periodic", "bounded", "flat"),
+                              halo=(4, 4), dtype=dtype, device="cuda")
+    locs = (("f", "c", "c"), ("c", "f", "c"), ("c", "c", "c"),
+            ("c", "c", "c"), ("c", "c", "c"), ("f", "c", "c"))
+    users = {3: FieldBoundaryConditions(
+        south=ot.ValueBoundaryCondition(0.5),
+        north=ot.GradientBoundaryCondition(0.1)),
+        4: FieldBoundaryConditions(north=ot.FluxBoundaryCondition(1e-3)),
+        5: FieldBoundaryConditions(north=ot.ValueBoundaryCondition(0.2))}
+    lbs = [(loc, regularize_field_boundary_conditions(users.get(k), grid,
+                                                      loc))
+           for k, loc in enumerate(locs)]
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    fields = [torch.randn(grid.padded_shape, generator=gen, dtype=dtype,
+                          device="cuda") for _ in lbs]
+    a = [f.clone() for f in fields]
+    b = [f.clone() for f in fields]
+    K.fill_halos(grid, a, lbs)
+    K.fill_halos_plain(grid, b, lbs)
+    masks = hf.extrapolated_slots(grid, grid.padded_shape, lbs)
+    tol = 1e-13 if dtype == torch.float64 else 1e-6
+    for x, y, m in zip(a, b, masks):
+        m = m.to(x.device)
+        assert torch.equal(x[~m], y[~m])
+        if m.any():
+            assert (x[m] - y[m]).abs().max().item() <= \
+                tol * max(y.abs().max().item(), 1.0)
+
+
+def test_cubed_sphere_models_card_against_cpu():
+    """The cubed-sphere hydrostatic model (split-explicit, the fill kernel
+    on its z halos) and shallow-water model, 3 steps in float64 on the card
+    against the same models on the CPU: 1e-10 of each field's scale; no
+    plain fill ran on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    results = {}
+    plain0 = K.fill_halos_plain.cuda_calls
+    for device in ("cuda", "cpu"):
+        g = ot.ConformalCubedSphereGrid((6, 6, 4), z=(-1000.0, 0.0),
+                                        radius=6.371e6, dtype=torch.float64,
+                                        device=device)
+        m = ot.CubedSphereHydrostaticModel(
+            g, tracers=("b",), rotation_rate=7.292e-5,
+            free_surface="split_explicit", substeps=10)
+        m.set(b=lambda lam, phi, z: 2e-5 * z
+              + 1e-4 * np.exp(-(lam ** 2 + phi ** 2) / 0.2))
+        m.set_geographic(u_east=lambda lam, phi: 2.0 * np.cos(phi))
+        sw = ot.CubedSphereShallowWaterModel(
+            ot.ConformalCubedSphereGrid((6, 6), radius=6.371e6,
+                                        dtype=torch.float64, device=device),
+            gravity=9.81, rotation_rate=7.292e-5)
+        sw.set_geographic(h=lambda lam, phi: 1000.0 + 10 * np.sin(phi),
+                          u_east=lambda lam, phi: 5.0 * np.cos(phi))
+        for _ in range(3):
+            m.time_step(300.0)
+            sw.time_step(100.0)
+        results[device] = {n: f.interior.cpu() for n, f in
+                           {**m.fields, **{"sw_" + k: sw.field(k) for k in
+                                           ("h", "u", "v")}}.items()}
+    assert K.fill_halos_plain.cuda_calls == plain0
+    for name, b in results["cpu"].items():
+        a = results["cuda"][name]
+        scale = max(b.abs().max().item(), 1e-12)
+        assert (a - b).abs().max().item() / scale <= 1e-10, name

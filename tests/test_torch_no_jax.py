@@ -27,6 +27,11 @@ def test_import_loads_no_jax():
             "oceananigans_tpu_torch.grids.latlon, "
             "oceananigans_tpu_torch.grids.orthogonal_spherical_shell, "
             "oceananigans_tpu_torch.grids.tripolar, "
+            "oceananigans_tpu_torch.grids.conformal_map, "
+            "oceananigans_tpu_torch.grids.cubed_sphere, "
+            "oceananigans_tpu_torch.models.shallow_water, "
+            "oceananigans_tpu_torch.models.cubed_sphere_shallow_water, "
+            "oceananigans_tpu_torch.models.cubed_sphere_hydrostatic, "
             "oceananigans_tpu_torch.grids.stretching, "
             "oceananigans_tpu_torch.kernels.fused_vector_invariant, "
             "oceananigans_tpu_torch.parallel, "

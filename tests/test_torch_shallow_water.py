@@ -83,7 +83,7 @@ def _rel(got, want):
     return np.max(np.abs(got - want)) / np.max(np.abs(want))
 
 
-# -- the tendencies and the fused stage ----------------------------------------
+# -- the tendencies and the fused stage ---------------------------------------
 
 @pytest.mark.parametrize("scheme", sorted(SCHEMES))
 def test_conservative_tendencies(scheme):
@@ -143,7 +143,7 @@ def test_fused_sw_update_plain(with_gm):
                     np.asarray(jnew[name])[jints]) <= 1e-12, name
 
 
-# -- the model -----------------------------------------------------------------
+# -- the model ----------------------------------------------------------------
 
 def _jax_model(N, scheme, coriolis, hB, fused, **kw):
     return JModel(grid=_jgrid(N), advection=scheme(), coriolis=coriolis,
@@ -323,7 +323,7 @@ def test_state_from_jax():
     _compare(jm, tm, 1e-12)
 
 
-# -- eligibility and what is not ported ----------------------------------------
+# -- eligibility and what is not ported ---------------------------------------
 
 def test_eligibility():
     g = _tgrid((8, 8))
@@ -340,24 +340,183 @@ def test_eligibility():
                              fused=True).fused
 
 
-@pytest.mark.parametrize("kw", [
-    dict(closure=ScalarDiffusivity(nu=1e-3)),
-    dict(forcing={"uh": lambda x, y, z, t: 0.0}),
-    dict(boundary_conditions={"h": ot.FieldBoundaryConditions()}),
-], ids=["closure", "forcing", "boundary_conditions"])
+# -- bounded axes, closures, forcing, conditions (ROADMAP item 17) ------------
+
+BICKLEY = dict(size=(16, 24), x=(0, 2 * np.pi), y=(-10, 10),
+               topology=("periodic", "bounded", "flat"))
+
+
+def _bickley_init(N=(16, 24), seed=11):
+    """The example's balanced Bickley jet (U = H/10 = f = g = 1) with seeded
+    noise, as interiors (x, y centres of BICKLEY)."""
+    rng = np.random.default_rng(seed)
+    yc = -10 + (np.arange(N[1]) + 0.5) * 20.0 / N[1]
+    Y = np.broadcast_to(yc, N)
+    hbar = 10.0 - np.tanh(Y)
+    ubar = 1.0 / np.cosh(Y) ** 2
+    return dict(uh=(ubar + 1e-2 * rng.standard_normal(N)) * hbar, h=hbar,
+                vh=1e-2 * rng.standard_normal(N), c=rng.random(N))
+
+
+def _bickley_models(jkw=None, tkw=None, grid=BICKLEY, steps=3, dt=1e-2):
+    """The JAX and port models of the Bickley jet (WENO(5), FPlane(1),
+    g = 1, tracer c) with extra keywords, 3 steps."""
+    jg = JGrid(dtype=np.float64, **grid)
+    tg = ot.RectilinearGrid(dtype=torch.float64, device="cpu", **grid)
+    common = dict(coriolis=None, gravitational_acceleration=1.0,
+                  tracers=("c",))
+    jm = JModel(grid=jg, advection=JWENO(5, smoothness_dtype=jnp.float64),
+                **{**common, "coriolis": JFPlane(f=1.0), **(jkw or {})})
+    tm = ShallowWaterModel(tg, advection=ot.WENO(
+        5, smoothness_dtype=torch.float64),
+        **{**common, "coriolis": ot.FPlane(f=1.0), **(tkw or {})})
+    init = _bickley_init(grid["size"])
+    if jm.formulation == "vector_invariant":
+        init = dict(u=init["uh"] / init["h"], v=init["vh"] / init["h"],
+                    h=init["h"], c=init["c"])
+    for m in (jm, tm):
+        m.set(**init)
+        for _ in range(steps):
+            m.time_step(dt)
+    return jm, tm
+
+
+def _bickley_compare(jm, tm, tol=1e-12):
+    names = tm.prognostic_names
+    assert not tm.fused
+    _compare(jm, tm, tol, names=names)
+
+
+def test_bickley_jet_matches_jax():
+    """examples/shallow_water_bickley_jet.py's configuration (periodic x,
+    bounded y, flat z; WENO(5)) at 16×24 over 3 steps at 1e-12: neither
+    package takes its fused stage on the bounded y."""
+    jm, tm = _bickley_models()
+    assert jm._fused_update is None
+    _bickley_compare(jm, tm)
+
+
+def _j_closure():
+    from oceananigans_tpu.closures import ScalarDiffusivity as JScalar
+    return JScalar(nu=2e-2, kappa=1e-2)
+
+
+def _forcings(jax_side):
+    from oceananigans_tpu.forcings.forcings import (ContinuousForcing as JCF,
+                                                    DiscreteForcing as JDF)
+    cf = JCF if jax_side else ot.ContinuousForcing
+    df = JDF if jax_side else ot.DiscreteForcing
+    sin = np.sin if jax_side else torch.sin
+    return {"uh": cf(lambda x, y, z, t: 1e-2 * sin(x) * (1.0 + t)),
+            "c": df(lambda grid, fields, t: -0.1 * fields["c"]),
+            "h": cf(lambda x, y, z, t, uh: 1e-3 * uh,
+                    field_dependencies=("uh",))}
+
+
+def _conditions(jax_side):
+    import oceananigans_tpu.boundary_conditions as jbc
+    m = jbc if jax_side else ot
+    return {"c": m.FieldBoundaryConditions(
+                south=m.ValueBoundaryCondition(0.5),
+                north=m.GradientBoundaryCondition(0.1)),
+            "h": m.FieldBoundaryConditions(
+                north=m.FluxBoundaryCondition(1e-3),
+                south=m.FluxBoundaryCondition(
+                    (lambda x, z, t: 1e-3 * np.cos(x)) if jax_side
+                    else (lambda x, z, t: 1e-3 * torch.cos(x)))),
+            "uh": m.FieldBoundaryConditions(
+                north=m.ValueBoundaryCondition(0.2))}
+
+
+@pytest.mark.parametrize("kw", ["closure", "forcing", "boundary_conditions"])
 def test_not_ported_raises(kw):
-    with pytest.raises(NotImplementedError, match="queue 1 item 17"):
-        ShallowWaterModel(_tgrid((8, 8)), **kw)
+    """The closure, forcing and boundary conditions the port once refused,
+    now held against JAX on the Bickley jet at 1e-12 over 3 steps: a
+    ScalarDiffusivity (ν, κ); a continuous forcing of uh (x and t), a
+    discrete one of c and a continuous one of h with a field dependency;
+    Value, Gradient and Flux (scalar and callable) conditions on the bounded
+    sides of c, h and uh. Each turns the fused stage off in both packages,
+    also on a periodic grid."""
+    if kw == "closure":
+        jkw, tkw = dict(closure=_j_closure()), dict(
+            closure=ScalarDiffusivity(nu=2e-2, kappa=1e-2))
+    elif kw == "forcing":
+        jkw, tkw = dict(forcing=_forcings(True)), dict(
+            forcing=_forcings(False))
+    else:
+        jkw, tkw = dict(boundary_conditions=_conditions(True)), dict(
+            boundary_conditions=_conditions(False))
+    jm, tm = _bickley_models(jkw, tkw)
+    _bickley_compare(jm, tm)
+    periodic = dict(BICKLEY, topology=("periodic", "periodic", "flat"))
+    if kw != "boundary_conditions":
+        jm, tm = _bickley_models(jkw, tkw, grid=periodic, steps=1)
+        assert jm._fused_update is None
+        _bickley_compare(jm, tm)
 
 
 def test_grids_refused():
+    """A z that is not flat is refused; a bounded x and y (the fill by each
+    field's conditions, here on a closed basin with a closure) is held
+    against JAX at 1e-12."""
     with pytest.raises(ValueError, match="z-Flat"):
         ShallowWaterModel(ot.RectilinearGrid(size=(8, 8, 8), extent=(1, 1, 1),
                                              device="cpu"))
-    bounded = ot.RectilinearGrid(size=(8, 8), extent=(1, 1), device="cpu",
-                                 topology=("bounded", "periodic", "flat"))
-    with pytest.raises(NotImplementedError, match="bounded x/y"):
-        ShallowWaterModel(bounded)
+    basin = dict(size=(12, 10), x=(0, 5), y=(0, 4),
+                 topology=("bounded", "bounded", "flat"))
+    jm, tm = _bickley_models(dict(closure=_j_closure()), dict(
+        closure=ScalarDiffusivity(nu=2e-2, kappa=1e-2)), grid=basin)
+    _bickley_compare(jm, tm)
+
+
+@pytest.mark.parametrize("momentum", ["default", "upwind", "weno"])
+def test_vector_invariant_momentum_advection(momentum):
+    """The vector-invariant form on the Bickley jet, with the
+    ``momentum_advection`` set on the model as JAX reads it (getattr): the
+    default, the upwinded vorticity VectorInvariant(WENO(5)) and
+    WENOVectorInvariant; 3 steps at 1e-12."""
+    from oceananigans_tpu.advection.vector_invariant import (
+        VectorInvariant as JVI, WENOVectorInvariant as JWVI)
+    from oceananigans_tpu_torch.advection.vector_invariant import \
+        VectorInvariant as TVI
+    grid = dict(BICKLEY, size=(16, 24))
+    jkw = dict(formulation="vector_invariant")
+    tkw = dict(formulation=VECTOR_INVARIANT)
+    if momentum == "default":
+        jm, tm = _bickley_models(jkw, tkw, grid=grid)
+    else:
+        pairs = {
+            "upwind": (lambda: JVI(vorticity_scheme=JWENO(
+                5, smoothness_dtype=jnp.float64)),
+                lambda: TVI(vorticity_scheme=ot.WENO(
+                    5, smoothness_dtype=torch.float64))),
+            "weno": (lambda: JWVI(smoothness_dtype=jnp.float64),
+                     lambda: ot.WENOVectorInvariant(
+                         smoothness_dtype=torch.float64))}
+        jmake, tmake = pairs[momentum]
+        jg = JGrid(dtype=np.float64, halo=(7, 7, 0), **grid)
+        tg = ot.RectilinearGrid(dtype=torch.float64, device="cpu",
+                                halo=(7, 7, 0), **grid)
+        models = []
+        for side, (G_, make) in (("j", (jg, jmake)), ("t", (tg, tmake))):
+            if side == "j":
+                m = JModel(grid=G_, advection=JWENO(
+                    5, smoothness_dtype=jnp.float64), coriolis=JFPlane(f=1.0),
+                    gravitational_acceleration=1.0, tracers=("c",), **jkw)
+            else:
+                m = ShallowWaterModel(G_, advection=ot.WENO(
+                    5, smoothness_dtype=torch.float64),
+                    coriolis=ot.FPlane(f=1.0), gravitational_acceleration=1.0,
+                    tracers=("c",), **tkw)
+            m.momentum_advection = make()
+            init = _bickley_init(grid["size"])
+            m.set(u=init["uh"] / init["h"], v=init["vh"] / init["h"],
+                  h=init["h"], c=init["c"])
+            for _ in range(3):
+                m.time_step(1e-2)
+            models.append(m)
+        jm, tm = models
+    _bickley_compare(jm, tm)
 
 
 def test_upwinded_vector_invariant_raises():
