@@ -315,6 +315,7 @@ the JSON list of kernels; the last line is
 when no CUDA card is available.
 """
 
+import ctypes
 import datetime
 import functools
 import json
@@ -8500,6 +8501,483 @@ def cs30_phase(card):
     return out, launches
 
 
+# -- phase 31: the long tail (operations, the bounded #6, particles, ensembles) --
+
+P31_STEPS = (2, 5)           # warm-up and timed steps of paths (a), (c), (d)
+EXAMPLE_N = 8192             # (a) examples/two_dimensional_turbulence.py, n²
+BOUNDED_N = 256              # (b) the bounded tracer, n³
+BOUNDED_SMALL_N = 24         # (b) the float64 checks, n³
+BOUNDED_STEPS = (5, 15)      # (b) warm-up and timed: 20 steps in all
+BOUNDED_CFL = 0.1            # (b) Σ|u|Δt/Δ over the three axes
+PARTICLES_N = 256            # (c) the flagship, n³
+N_PARTICLES = 2 ** 20        # (c)
+ENSEMBLE_MEMBERS = 4         # (d) members of the 512x256x32 hydrostatic row
+ENSEMBLE_DT = 120.0
+# The limiter's operations per tracer cell and axis, counted from
+# csrc/bounded_limiter.cuh: θ (p̃: 2 products, 2 differences, a division;
+# M and m: 4 comparisons; each ratio: 2 differences, a sum, a division, an
+# absolute value; 2 minima) = 21 beside the cell's two reconstructions, and
+# the face's limited flux (its upwind limited value: a difference, a
+# product, a sum; A·u and the product) = 5. The kernel forms both limited
+# values of a cell (3 more), of which the face's velocity takes one: the
+# bound counts what the function needs.
+LIMITER_FLOP = 21
+LIMITED_FLUX_FLOP = 5
+
+
+def bounded_flop(scheme, n_tracers):
+    """Operations the bounded #6's function needs per interior cell: u, v,
+    w as the unlimited scheme (advection_flop), and per tracer and axis the
+    cell's two reconstructions, its θ (LIMITER_FLOP) and its face's limited
+    flux (LIMITED_FLUX_FLOP), then the differences, sums and the division
+    (2 per axis + 1). WENO(5): 3 x (2 x 85 + 26) + 7 = 595 per tracer
+    cell."""
+    recon = recon_flop(scheme)
+    tracer = 3 * (2 * recon + LIMITER_FLOP + LIMITED_FLUX_FLOP) + 7
+    return advection_flop(scheme, 3, 0) + n_tracers * tracer
+
+
+def bounded_bounds(N, H, esize, scheme, n_tracers=1):
+    """The bounded #6's bound at interior N, halo H: each padded input read
+    once and each interior output written once, and bounded_flop."""
+    cells = N[0] * N[1] * N[2]
+    padded = int(np.prod([n + 2 * h for n, h in zip(N, H)]))
+    nf = 3 + n_tracers
+    return bound(esize * nf * (padded + cells),
+                 cells * bounded_flop(scheme, n_tracers))
+
+
+def p31_run(label, model, dt, card, steps=P31_STEPS, shares=None):
+    """Warm-up and timed steps with the counters reset just before them and
+    read just after: (launches, plain calls on CUDA, step median ms); step
+    median, min and max, peak memory, launches per step; then the step's
+    shares (``shares(model, dt, steps, card, label)``, CUDA events) and the
+    busy share and device kernels per step (torch.profiler)."""
+    from oceananigans_tpu_torch import kernels as K
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_counters()
+    times = timed_steps(model, dt, *steps)
+    launches, plain = K.counters()
+    peak = torch.cuda.max_memory_allocated()
+    n = sum(steps)
+    step_ms = statistics.median(times) * 1e3
+    print(f"{label}: step median {step_ms:.3f} ms over {steps[1]} steps "
+          f"(min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), Δt "
+          f"{dt:.4e}; peak device memory (steps) {peak / 2 ** 30:.2f} GiB "
+          f"[{card}]")
+    print(f"{label}: launches per step "
+          f"{ {k: v / n for k, v in launches.items() if v} }; plain calls "
+          f"on CUDA { {k: v for k, v in plain.items() if v} }")
+    if shares is not None:
+        shares(model, dt, 2, card, label)
+    busy_share(label, model, dt, 2, step_ms, card)
+    return launches, plain, step_ms
+
+
+def example_vorticity(model):
+    """The example's vorticity KernelFunctionOperation at (f, f, c), over
+    the model's u and v as they are when it is built (the example builds it
+    once, so that it reads the initial fields at every write: here it is
+    built at each write)."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch.operators.operators import zeta3_ffc
+    return ot.KernelFunctionOperation(lambda g, u, v: zeta3_ffc(g, u, v),
+                                      model.grid, model.field("u"),
+                                      model.field("v"), loc=("f", "f", "c"))
+
+
+def example_path(card, n=None):
+    """(a) examples/two_dimensional_turbulence.py at n² (WENO(5), #6 on a
+    flat z, the fill's wrap) through Simulation with the TimeStepWizard,
+    its vorticity written by a FieldWriter; an Integral of ½(u² + v²) and
+    an Average over x. Checks: the written and computed vorticity equal
+    zeta3_ffc of the same fields bit for bit; the Integral equals a float64
+    sum to 1e-6; the Average equals the mean over x. Returns the path's
+    launches."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+    from oceananigans_tpu_torch.operators.operators import zeta3_ffc
+    n = n or EXAMPLE_N
+    t0 = time.perf_counter()
+    grid = ot.RectilinearGrid(size=(n, n), x=(0, 2 * np.pi),
+                              y=(0, 2 * np.pi), topology=(P_, P_, F_),
+                              dtype=torch.float32, device="cuda")
+    model = ot.NonhydrostaticModel(grid, advection=ot.WENO(5))
+    rng = np.random.default_rng(123)
+    model.set(u=rng.standard_normal((n, n), dtype=np.float32),
+              v=rng.standard_normal((n, n), dtype=np.float32))
+    steps = sum(P31_STEPS)
+    with tempfile.TemporaryDirectory() as tmp:
+        # the example's Δt = 0.01 is its 128²'s (an advective CFL near
+        # 0.7); at n² the run starts from the wizard's CFL of 0.7
+        sim = ot.Simulation(model, dt=cfl_dt(model, 0.7),
+                            stop_iteration=steps)
+        sim.add_callback(ot.TimeStepWizard(cfl=0.7), ot.IterationInterval(2))
+        path = os.path.join(tmp, "zeta")
+        sim.add_output_writer(ot.FieldWriter(
+            model, {"zeta": lambda m: example_vorticity(m).compute()}, path,
+            schedule=ot.IterationInterval(steps)))
+        torch.cuda.synchronize()
+        K.reset_counters()
+        t1 = time.perf_counter()
+        sim.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        launches, plain = K.counters()
+        written = ot.FieldTimeSeries(path, "zeta", device="cuda")
+        zeta_written = written[-1]
+    print(f"(a) example at {n}²: set-up {t1 - t0:.2f} s, Simulation.run of "
+          f"{steps} steps {run_s:.3f} s, Δt {sim.dt:.4e}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    assert launches["fused_advection_tendency_weno5_zflat"] == 3 * steps, \
+        launches
+    assert launches["fill_halos"] > 0
+    for name, count in plain.items():
+        assert count == 0, f"plain {name} ran on CUDA tensors"
+    u, v = model.state["fields"]["u"], model.state["fields"]["v"]
+    assert torch.isfinite(u).all().item() and torch.isfinite(v).all().item()
+    want = zeta3_ffc(grid, u, v)
+    op = example_vorticity(model)
+    got = op.compute()
+    ffc = got.interior_slices
+    assert torch.equal(got.data[ffc], want[ffc]), "vorticity differs"
+    zw = zeta_written if isinstance(zeta_written, torch.Tensor) \
+        else zeta_written.interior
+    assert torch.equal(zw.reshape(-1), want[ffc].reshape(-1)), \
+        "written vorticity differs"
+    uf, vf = model.field("u"), model.field("v")
+    ke = ot.Integral(0.5 * (uf * uf + vf * vf))
+    avg = ot.Average(uf, dims=0)
+    ke_got = ke.compute().item()
+    # the float64 sum of the same integrand, ½(u² + ℑxℑy(v²)) at (f, c, c)
+    # (the operation interpolates v·v, the second operand, to u's
+    # location), from the same float32 fields
+    from oceananigans_tpu_torch.operators.operators import interp_to
+    v2 = interp_to(grid, v.double() ** 2, ("c", "f", "c"), ("f", "c", "c"))
+    ii = grid.interior_slices
+    ke_want = (0.5 * (u[ii].double() ** 2 + v2[ii])).sum().item() \
+        * grid.dx(("f", "c", "c")) * grid.dy(("f", "c", "c"))
+    ke_rel = abs(ke_got - ke_want) / abs(ke_want)
+    avg_err = (avg.compute() - u[ii].mean(dim=0, keepdim=True)).abs().max() \
+        .item()
+    print(f"(a) Integral of ½(u² + v²): {ke_got:.9e} against the float64 sum "
+          f"{ke_want:.9e}, relative {ke_rel:.3e} (bound 1e-6); Average over "
+          f"x: shape {tuple(avg.compute().shape)}, max abs against the mean "
+          f"{avg_err:.3e}")
+    assert ke_rel <= 1e-6 and avg_err <= 1e-6
+    for name, fn in (("vorticity KernelFunctionOperation", op.compute),
+                     ("Integral", ke.compute), ("Average over x",
+                                                avg.compute)):
+        print(f"(a) time {name}.compute() at {n}²: {cuda_ms(fn):.4f} ms "
+              f"[{card}]")
+    launches, _, step_ms = p31_run("(a) two-dimensional turbulence",
+                                   model, sim.dt, card,
+                                   shares=topology_phase_shares)
+    return launches
+
+
+def bounded_fields(grid, seed=0):
+    """(b)'s initial u, v, w and c as callables: the velocities of a
+    horizontal streamfunction ψ(x, y)·(1 + ½ sin 2πz) and of a vector
+    potential A(y, z) along x, from np.random.default_rng(seed)'s modes
+    (∇·u = 0; w = 0 at the walls), and c a step function: 1 in a box, 0
+    outside."""
+    rng = np.random.default_rng(seed)
+    modes = [(m, k, rng.standard_normal(), rng.uniform(0, 2 * np.pi))
+             for m in range(1, 4) for k in range(1, 4)]
+    amp = 0.05
+
+    def psi_terms(x, y, d):
+        out = 0.0
+        for m, k, a, phase in modes:
+            arg = 2 * np.pi * (m * x + k * y) + phase
+            out = out + a * 2 * np.pi * (k if d == "y" else m) * np.cos(arg)
+        return out
+
+    def u(x, y, z):
+        return amp * psi_terms(x, y, "y") * (1 + 0.5 * np.sin(2 * np.pi * z))
+
+    def v(x, y, z):
+        return (-amp * psi_terms(x, y, "x") * (1 + 0.5 * np.sin(2 * np.pi * z))
+                + amp * np.pi * np.cos(np.pi * z) * np.sin(2 * np.pi * y))
+
+    def w(x, y, z):
+        return -amp * 2 * np.pi * np.sin(np.pi * z) * np.cos(2 * np.pi * y) \
+            + 0 * x
+
+    def c(x, y, z):
+        inside = ((np.abs(x - 0.5) < 0.25) & (np.abs(y - 0.5) < 0.3)
+                  & (z > -0.7) & (z < -0.3))
+        return inside.astype(np.float64)
+
+    return dict(u=u, v=v, w=w, c=c)
+
+
+def bounded_tracer_model(n, dtype, device, topology=(P_, P_, B_),
+                         smoothness=torch.float32):
+    """(b): n³ over (0, 1)² x (-1, 0), WENO(5, bounds=(0, 1)), the tracer c;
+    the padded layout (a bounded scheme keeps the model off the z-compact
+    one). A flat z: n² over (0, 1)², u and v from
+    np.random.default_rng(1) (projected by set()), c a step function."""
+    import oceananigans_tpu_torch as ot
+    flat = topology[2] == F_
+    scheme = ot.WENO(5, smoothness_dtype=smoothness, bounds=(0.0, 1.0))
+    if flat:
+        grid = ot.RectilinearGrid(size=(n, n), x=(0, 1), y=(0, 1),
+                                  topology=topology, dtype=dtype,
+                                  device=device)
+    else:
+        grid = ot.RectilinearGrid(size=(n, n, n), x=(0, 1), y=(0, 1),
+                                  z=(-1, 0), topology=topology, dtype=dtype,
+                                  device=device)
+    model = ot.NonhydrostaticModel(grid, advection=scheme, tracers=("c",))
+    assert not model._z_compact and model._kernel_tendency
+    if flat:
+        rng = np.random.default_rng(1)
+        c = np.zeros((n, n, 1))
+        c[n // 4:3 * n // 4, n // 3:2 * n // 3] = 1.0
+        model.set(u=0.1 * rng.standard_normal((n, n, 1)),
+                  v=0.1 * rng.standard_normal((n, n, 1)), c=c)
+    else:
+        model.set(**bounded_fields(grid))
+    return model
+
+
+def bounded_check(label, model, bound_rel, rel_to="max"):
+    """The bounded #6 against its plain version on the model's state (u, v,
+    w, c, halos filled): (max abs, relative) with the relative error over
+    max|plain| per component (``rel_to="max"``) or over each component's
+    term scale (``"terms"``, float32: term_scales)."""
+    from oceananigans_tpu_torch import kernels as K
+    grid, scheme = model.grid, model.advection
+    fields = dict(model.state["fields"])
+    model._fill_all(fields)
+    f = [fields[c] for c in ("u", "v", "w", "c")]
+    Gk = K.fused_advection_tendency(grid, scheme, f)
+    Gp = K.fused_advection_tendency_plain(grid, scheme, f)
+    assert torch.isfinite(Gk).all().item(), (label, "not finite")
+    errs = [(Gk[k] - Gp[k]).abs().max().item() for k in range(4)]
+    err = max(errs)
+    # (a component that is zero throughout, w on a flat z, by its error)
+    by_max = [e / (Gp[k].abs().max().item() or 1.0)
+              for k, e in enumerate(errs)]
+    if rel_to == "terms":
+        scales = term_scales(grid, scheme, f)
+        by_terms = [e / s for e, s in zip(errs, scales)]
+        rel = max(by_terms)
+    else:
+        rel = max(by_max)
+    print(f"  bounded #6 ({label}, {grid.N}, {grid.topology[2]} z, "
+          f"{grid.dtype}): max abs {err:.3e}, relative {rel:.3e} "
+          f"({'term scale' if rel_to == 'terms' else 'max|plain|'}, bound "
+          f"{bound_rel:g}); u, v, w, c over max|plain| "
+          + ", ".join(f"{r:.3e}" for r in by_max)
+          + ("" if rel_to != "terms" else "; over the term scales "
+             + ", ".join(f"{r:.3e}" for r in by_terms)))
+    assert rel <= bound_rel, (label, rel)
+    return err, f
+
+
+def bounded_path(card, n=None, small=None):
+    """(b) the bounded tracer: the bounded #6 against its plain version on
+    small grids (a bounded, periodic and flat z; float64 at 1e-12, float32
+    and float64 fields with float32 smoothness at 1e-5) and at the path's
+    shape in float32 (1e-5 of the term scales), timed with its bound;
+    then 20 steps with the counters reset just before: three launches of
+    the bounded variant a step, c within [-1e-6, 1 + 1e-6]. Returns
+    (launches, the kernel's measured row)."""
+    from oceananigans_tpu_torch import kernels as K
+    n, small = n or BOUNDED_N, small or BOUNDED_SMALL_N
+    # every instantiation kind of WENO(5) on small grids: a bounded, a
+    # periodic and a flat z; float64 (1e-12), float32 and float64 fields
+    # with WENO's default float32 smoothness (1e-5: the smoothness rounds in
+    # float32), each through a model that takes the kernel
+    for topo in ((P_, P_, B_), (P_, P_, P_), (P_, P_, F_)):
+        for dtype, smooth, tol in ((torch.float64, torch.float64, 1e-12),
+                                   (torch.float32, torch.float32, 1e-5),
+                                   (torch.float64, torch.float32, 1e-5)):
+            m = bounded_tracer_model(small, dtype, "cuda", topology=topo,
+                                     smoothness=smooth)
+            bounded_check(f"{dtype} fields, {smooth} smoothness", m, tol)
+    model = bounded_tracer_model(n, torch.float32, "cuda")
+    err, f = bounded_check("the path's state", model, 1e-5, rel_to="terms")
+    grid, scheme = model.grid, model.advection
+    ms = cuda_ms(lambda: K.fused_advection_tendency(grid, scheme, f))
+    plain_ms = cuda_ms(lambda: K.fused_advection_tendency_plain(
+        grid, scheme, f), reps=3, warmup=1)
+    bnd = bounded_bounds(grid.N, grid.H, 4, scheme)
+    plan = K.fused_advection.launch_plan(grid, scheme, torch.float32, 4)
+    per_sm = ctypes.c_int(0)
+    if grid.device.type == "cuda":
+        from oceananigans_tpu_torch.kernels import build
+        lib = build.library()
+        build.check(lib.oc_advection_bounded_blocks_per_sm(
+            scheme.buffer, 0, 0, 0, 1, *plan["tile"], plan["threads"],
+            plan["launches"][0][2], ctypes.byref(per_sm)), lib)
+        # ptxas's report of the bounded instantiations (the process that
+        # built the library holds it)
+        entries = ptxas_entries(build.compile_log, ("advection_bounded",))
+        for mangled, name in demangle(list(entries)).items():
+            regs, st, ld = entries[mangled]
+            print(f"  {name.split('advection_kernel')[-1][:70]}: {regs} "
+                  f"registers, spills {st} / {ld} B")
+    print(f"  time bounded #6 at {grid.padded_shape} (u, v, w, c): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms "
+          f"({bnd[1]}; {bounded_flop(scheme, 1)} operations a cell); tile "
+          f"{plan['tile']}, {plan['blocks']} blocks, shared memory "
+          f"{plan['launches'][0][2]} B, {per_sm.value} blocks an SM "
+          f"[{card}]")
+    del f
+    umax = max(model.field(c).interior.abs().max().item() for c in "uvw")
+    dt = BOUNDED_CFL / (3 * umax * n)
+    launches, plain, _ = p31_run("(b) bounded tracer", model, dt, card,
+                                 steps=BOUNDED_STEPS,
+                                 shares=topology_phase_shares)
+    steps = sum(BOUNDED_STEPS)
+    assert launches["fused_advection_tendency_weno5_bounded"] == 3 * steps, \
+        launches
+    for name, count in plain.items():
+        assert count == 0, f"plain {name} ran on CUDA tensors"
+    c = model.field("c").interior
+    cmin, cmax = c.min().item(), c.max().item()
+    print(f"(b) after {steps} steps: min c {cmin:.6e}, max c {cmax:.6e} "
+          f"(bounds [0, 1] within 1e-6), total {c.double().sum().item():.9e}")
+    assert cmin >= -1e-6 and cmax <= 1 + 1e-6, (cmin, cmax)
+    padded_divergence("(b) bounded tracer", model)
+    return launches, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound=bnd)
+
+
+def particles_path(card, n=None, n_particles=None):
+    """(c) the 256³ WENO(5) flagship with 2²⁰ LagrangianParticles (the
+    padded route: particles leave the z-compact one, as in JAX), tracking
+    w: the particle step's ms and share of the step; no particle leaves
+    the domain. Returns the path's launches."""
+    import oceananigans_tpu_torch as ot
+    n = n or PARTICLES_N
+    n_particles = n_particles or N_PARTICLES
+    rng = np.random.default_rng(7)
+    parts = ot.LagrangianParticles(
+        x=rng.uniform(0, 1, n_particles), y=rng.uniform(0, 1, n_particles),
+        z=rng.uniform(-1, 0, n_particles), tracked_fields=("w",))
+    grid = ot.RectilinearGrid(size=(n, n, n), extent=(1.0, 1.0, 1.0),
+                              topology=(P_, P_, B_), dtype=torch.float32,
+                              device="cuda")
+    model = ot.NonhydrostaticModel(grid, advection=ot.WENO(5),
+                                   particles=parts)
+    assert not model._z_compact
+    rng = np.random.default_rng(0)
+    model.set(u=0.1 * rng.standard_normal((n, n, n), dtype=np.float32),
+              v=0.1 * rng.standard_normal((n, n, n), dtype=np.float32))
+    dt = cfl_dt(model, 0.5)
+
+    def shares(model, dt, steps, card, label):
+        timer = PhaseTimer()
+        step, particles = model.time_step, model._step_particles
+        model.time_step = timer.wrap("step", step)
+        model._step_particles = timer.wrap("particles", particles)
+        try:
+            for _ in range(steps):
+                model.time_step(dt)
+            t = {k: v / steps for k, v in timer.totals().items()}
+        finally:
+            del model.time_step, model._step_particles
+        print(f"{label}: particle step {t['particles']:.4f} ms of the "
+              f"{t['step']:.4f} ms step ({100 * t['particles'] / t['step']:.1f}"
+              f"%), {n_particles} particles (CUDA events) [{card}]")
+
+    launches, plain, _ = p31_run("(c) flagship with particles", model, dt,
+                                 card, shares=shares)
+    assert launches["fused_advection_tendency_weno5"] == 3 * sum(P31_STEPS)
+    for name, count in plain.items():
+        assert count == 0, f"plain {name} ran on CUDA tensors"
+    p = model.state["particles"]
+    inside = ((p["x"] >= 0) & (p["x"] < 1) & (p["y"] >= 0) & (p["y"] < 1)
+              & (p["z"] >= -1) & (p["z"] <= 0)).all().item()
+    moved = (p["x"] - torch.as_tensor(parts.initial["x"], dtype=p["x"].dtype,
+                                      device=p["x"].device)).abs()
+    moved = torch.minimum(moved, 1 - moved).max().item()   # across the wrap
+    print(f"(c) particles inside the domain: {inside}; largest x move "
+          f"{moved:.4e}; tracked w finite: "
+          f"{torch.isfinite(p['w']).all().item()}")
+    assert inside and torch.isfinite(p["w"]).all().item()
+    return launches
+
+
+def ensemble_path(card, N=None):
+    """(d) an EnsembleModel of 4 members of the 512x256x32 hydrostatic row
+    (#10 and the fill), member m's T shifted by 0.1·m: the ensemble step
+    against 4 solo steps; member 2 against its solo run, bit for bit.
+    Returns the path's launches."""
+    from oceananigans_tpu_torch import kernels as K
+    from oceananigans_tpu_torch.models.ensemble import EnsembleModel
+    N = N or HYDRO_N
+
+    def temperature(m):
+        return lambda lam, phi, z: 12 + 8e-3 * z + 2e-2 * phi + 0.1 * m
+
+    ens = EnsembleModel(hydro_model(N, torch.float32, "cuda"),
+                        ENSEMBLE_MEMBERS)
+    ens.set_all(lambda m: dict(T=temperature(m)))
+
+    def shares(ens, dt, steps, card, label):
+        timer = PhaseTimer()
+        ens.model.time_step = timer.wrap("members", ens.model.time_step)
+        ens.time_step = timer.wrap("step", ens.time_step)
+        try:
+            for _ in range(steps):
+                ens.time_step(dt)
+            t = {k: v / steps for k, v in timer.totals().items()}
+        finally:
+            del ens.model.time_step, ens.time_step
+        print(f"{label}: the members' steps {t['members']:.4f} ms of the "
+              f"{t['step']:.4f} ms ensemble step "
+              f"({100 * t['members'] / t['step']:.1f}%; the rest swaps the "
+              f"members' states) (CUDA events) [{card}]")
+
+    launches, plain, ens_ms = p31_run("(d) ensemble of 4", ens, ENSEMBLE_DT,
+                                      card, shares=shares)
+    steps = ens.member_state(2)["clock"]["iteration"]
+    assert launches["fused_vi_tendency"] == ENSEMBLE_MEMBERS * sum(P31_STEPS)
+    for name, count in plain.items():
+        assert count == 0, f"plain {name} ran on CUDA tensors"
+    solo = hydro_model(N, torch.float32, "cuda")
+    solo.set(T=temperature(2))
+    K.reset_counters()
+    times = timed_steps(solo, ENSEMBLE_DT, 2, steps - 2)
+    solo_ms = statistics.median(times) * 1e3
+    sa, sb = flat_state(ens.member_state(2)), flat_state(solo.state)
+    assert set(sa) == set(sb), sorted(set(sa) ^ set(sb))
+    for key, x in sa.items():
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x, sb[key]), ("(d) member 2", key, "differs")
+        else:
+            assert x == sb[key], ("(d) member 2", key, x, sb[key])
+    same = True
+    hydro_phase_shares(solo, ENSEMBLE_DT, 2, card)
+    print(f"(d) ensemble step {ens_ms:.3f} ms against {ENSEMBLE_MEMBERS} solo "
+          f"steps {ENSEMBLE_MEMBERS * solo_ms:.3f} ms (solo {solo_ms:.3f} "
+          f"ms); member 2 bit for bit: {same} [{card}]")
+    return launches
+
+
+def long_tail_phase(card):
+    """Phase 31: paths (a)-(d). Returns ({path: launches}, the bounded #6's
+    measured row)."""
+    t0 = time.perf_counter()
+    out = {"a": example_path(card)}
+    torch.cuda.empty_cache()
+    out["b"], row = bounded_path(card)
+    torch.cuda.empty_cache()
+    out["c"] = particles_path(card)
+    torch.cuda.empty_cache()
+    out["d"] = ensemble_path(card)
+    torch.cuda.empty_cache()
+    print(f"phase 31 wall time {time.perf_counter() - t0:.1f} s [{card}]")
+    return out, row
+
+
 def main():
     t_start = time.perf_counter()
     name, card = device_phase()
@@ -8625,6 +9103,10 @@ def main():
     print("the cubed sphere (grid, exchange, both models) and the rest of "
           "shallow water (phase 30):")
     cs_rows, cs_launches = cs30_phase(card)
+    print("the long tail: the operations on the two-dimensional turbulence "
+          "example, the bounded tracer, particles and an ensemble (phase "
+          "31):")
+    p31_launches, bounded_row = long_tail_phase(card)
     bounds["fused_advection_update_bf16"] = \
         bounds["fused_advection_update_tracers"]
     for fname in ("fill_halos", "fill_halos_bounded", "fill_halos_fold",
@@ -8749,6 +9231,19 @@ def main():
                          max_abs_err=m["max_abs_err"], ms=m["ms"],
                          plain_ms=m["plain_ms"], bound_ms=m["bound"][0],
                          bound_by=m["bound"][1], library_ms=None))
+    # phase 31's row: the bounded #6 (WENO(5), bounds (0, 1)) on path (b),
+    # with its launches there
+    source, replaces = KERNEL_SOURCES["fused_advection_tendency"]
+    rows.append(dict(name="fused_advection_tendency_weno5_bounded",
+                     route="cuda",
+                     source="oceananigans_tpu_torch/csrc/bounded_limiter.cuh",
+                     replaces=replaces,
+                     launches=p31_launches["b"][
+                         "fused_advection_tendency_weno5_bounded"],
+                     max_abs_err=bounded_row["max_abs_err"],
+                     ms=bounded_row["ms"], plain_ms=bounded_row["plain_ms"],
+                     bound_ms=bounded_row["bound"][0],
+                     bound_by=bounded_row["bound"][1], library_ms=None))
     for fname, label, path_launches in (
             ("fill_halos", "the flagship path (u, v, w, p of 264x264x256, "
              "the wrap)", flagship_launches),

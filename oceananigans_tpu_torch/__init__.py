@@ -67,7 +67,17 @@ Layer map:
                            output writers (FieldWriter, NetCDF-3; HDF5 and
                            NetCDF4 where h5py is installed), readers
                            (FieldTimeSeries), checkpoints
-    utils/                 schedules, calendar clocks, units
+    utils/                 schedules, calendar clocks, units, profiling
+    abstract_operations.py lazy operations, reductions, computed fields
+                           (fields/function_field.py: analytic fields;
+                           fields/regridding.py: conservative regridding;
+                           models/diagnostic_operations.py: forcing,
+                           boundary-condition, buoyancy and pressure fields)
+    particles.py           Lagrangian particles
+    biogeochemistry.py     reactions and drift of biogeochemical tracers
+    models/ensemble.py     independent copies of a model stepped together
+    api.py, logger.py      the free functions and the logger of the JAX
+                           package's flat namespace, which this one mirrors
     kernels/, csrc/        CUDA kernels and their plain versions
 """
 
@@ -75,31 +85,35 @@ from .defaults import defaults
 from .grids import (RectilinearGrid, LatitudeLongitudeGrid,
                     OrthogonalSphericalShellGrid, RotatedLatitudeLongitudeGrid,
                     TripolarGrid, ConformalCubedSphereGrid,
-                    ExponentialDiscretization, LinearStretching,
+                    ConformalCubedSpherePanel, ExponentialDiscretization, LinearStretching,
                     PowerLawStretching, ReferenceToStretchedDiscretization,
                     PERIODIC, BOUNDED, FLAT, CENTER, FACE)
-from .advection import Centered, UpwindBiased, WENO
+from .advection import (Centered, UpwindBiased, WENO, FluxFormAdvection,
+                        cell_advection_timescale)
 from .advection.vector_invariant import (VectorInvariant,
                                          WENOVectorInvariant)
-from .boundary_conditions import (FieldBoundaryConditions,
+from .boundary_conditions import (BoundaryCondition, FieldBoundaryConditions,
                                   FieldTimeSeriesBoundaryCondition,
                                   FluxBoundaryCondition,
                                   GradientBoundaryCondition,
                                   ImmersedBoundaryCondition,
                                   OpenBoundaryCondition,
                                   PerturbationAdvection,
-                                  ValueBoundaryCondition)
+                                  ValueBoundaryCondition, fill_halo_regions)
 from .background_fields import BackgroundField
 from .buoyancy import (BuoyancyForce, BuoyancyTracer, LinearEquationOfState,
                        NonlinearSeawaterBuoyancy,
                        RoquetSecondOrderEquationOfState, SeawaterBuoyancy,
-                       TEOS10EquationOfState)
+                       TEOS10EquationOfState, seawater_density)
 from .coriolis import (BetaPlane, ConstantCartesianCoriolis, FPlane,
                        HydrostaticSphericalCoriolis, NonTraditionalBetaPlane)
 from .closures import (AnisotropicMinimumDissipation,
                        CATKEVerticalDiffusivity,
                        ConvectiveAdjustmentVerticalDiffusivity,
-                       DynamicSmagorinsky, HorizontalScalarDiffusivity,
+                       DynamicCoefficient, DynamicSmagorinsky,
+                       ExplicitTimeDiscretization,
+                       HorizontalScalarBiharmonicDiffusivity,
+                       HorizontalScalarDiffusivity,
                        IsopycnalSkewSymmetricDiffusivity,
                        TriadIsopycnalSkewSymmetricDiffusivity,
                        LagrangianAveraging, LillyCoefficient,
@@ -108,16 +122,28 @@ from .closures import (AnisotropicMinimumDissipation,
                        Smagorinsky, SmagorinskyLilly,
                        TKEDissipationVerticalDiffusivity, TwoDimensionalLeith,
                        VerticallyImplicitTimeDiscretization,
-                       VerticalScalarDiffusivity)
+                       VerticalScalarBiharmonicDiffusivity,
+                       VerticalScalarDiffusivity, diffusivity, viscosity)
 from .immersed import (GridFittedBottom, GridFittedBoundary,
                        ImmersedBoundaryGrid, PartialCellBottom)
 from .forcings import (AdvectiveForcing, ContinuousForcing, DiscreteForcing,
-                       FieldTimeSeriesForcing, GaussianMask, LinearTarget,
+                       FieldTimeSeriesForcing, Forcing, GaussianMask,
+                       LinearTarget, MultipleForcings, PiecewiseLinearMask,
                        Relaxation)
 from .stokes_drift import StokesDrift, UniformStokesDrift
-from .fields import (CenterField, Field, TracerFields, VelocityFields,
-                     XFaceField, YFaceField, ZFaceField)
-from .parallel import CPU, GPU, Distributed, Partition
+from .fields import (CenterField, ConstantField, Field, FunctionField,
+                     GridMetricOperation, OneField, TracerFields,
+                     VelocityFields, XFaceField, YFaceField, ZeroField,
+                     ZFaceField, interpolate)
+from .fields.regridding import regrid_field as regrid
+from .abstract_operations import (Accumulation, Average, ConditionalOperation,
+                                  CumulativeIntegral, Derivative, Integral,
+                                  KernelFunctionOperation, Reduction, at,
+                                  conditional_length, partial_x, partial_y,
+                                  partial_z)
+from .particles import DroguedParticleDynamics, LagrangianParticles
+from .parallel import (CPU, GPU, CubedSpherePartition, Distributed, Equal,
+                       Fractional, Partition, Sizes, XPartition, YPartition)
 from .models import (ConservativeFormulation, CubedSphereHydrostaticModel,
                      CubedSphereShallowWaterModel, ExplicitFreeSurface,
                      HydrostaticFreeSurfaceModel, ImplicitFreeSurface,
@@ -125,6 +151,16 @@ from .models import (ConservativeFormulation, CubedSphereHydrostaticModel,
                      ZCoordinate, ZStarCoordinate,
                      ShallowWaterModel, SplitExplicitFreeSurface,
                      VectorInvariantFormulation, state_from_jax)
+from .models.ensemble import EnsembleModel
+from .models.diagnostic_operations import (BoundaryAdjacentMean,
+                                           BoundaryConditionField,
+                                           BoundaryConditionOperation,
+                                           BuoyancyField, ForcingField,
+                                           ForcingOperation, PressureField)
+from .timesteppers import (Clock, QuasiAdamsBashforth2TimeStepper,
+                           RungeKutta3TimeStepper,
+                           SplitRungeKutta3TimeStepper)
+from .logger import setup_logger as OceananigansLogger
 from .simulation import Callback, NaNChecker, Simulation
 from .simulation.callsites import (TendencyCallsite, TimeStepCallsite,
                                    UpdateStateCallsite)
@@ -147,9 +183,52 @@ from .utils.pretty import (GiB, KiB, MiB, TiB, day, days, hour, hours,
                            kilometer, kilometers, meter, meters, minute,
                            minutes, prettytime, second, seconds, year)
 
+from .api import (nodes, xnodes, ynodes, znodes, rnodes, lambda_nodes,
+                  phi_nodes, xspacings, yspacings, zspacings, rspacings,
+                  lambda_spacings, phi_spacings, lambda_spacing, phi_spacing,
+                  minimum_xspacing, minimum_yspacing, minimum_zspacing,
+                  xspacing, yspacing, zspacing, xarea, yarea, zarea, volume,
+                  interior, compute, time_step, run, iteration, set,
+                  iteration_limit_exceeded, stop_time_exceeded,
+                  wall_time_limit_exceeded)
+
 # the JAX package's names of the same writers
 NetCDFOutputWriter = NetCDF4Writer
 JLD2Writer = FieldWriter
+TEOS10 = TEOS10EquationOfState
+
+
+def Center():
+    """The location marker "c", so that ``xnodes(grid, Center())`` reads as
+    in the JAX package."""
+    return CENTER
+
+
+def Face():
+    return FACE
+
+
+def Periodic():
+    return PERIODIC
+
+
+def Bounded():
+    return BOUNDED
+
+
+def Flat():
+    return FLAT
+
+
+# the Unicode spellings of the curvilinear queries
+λnodes = lambda_nodes
+φnodes = phi_nodes
+λspacings = lambda_spacings
+φspacings = phi_spacings
+λspacing = lambda_spacing
+φspacing = phi_spacing
+
+__version__ = "0.2.0"
 
 __all__ = ["defaults", "RectilinearGrid", "LatitudeLongitudeGrid",
            "OrthogonalSphericalShellGrid", "RotatedLatitudeLongitudeGrid",
@@ -204,3 +283,35 @@ __all__ = ["defaults", "RectilinearGrid", "LatitudeLongitudeGrid",
            "second", "seconds", "minute", "minutes", "hour", "hours", "day",
            "days", "year", "meter", "meters", "kilometer", "kilometers",
            "KiB", "MiB", "GiB", "TiB"]
+
+# the rest of the JAX package's flat namespace
+__all__ += ["Accumulation", "Average", "BoundaryAdjacentMean",
+            "BoundaryCondition", "BoundaryConditionField",
+            "BoundaryConditionOperation", "Bounded", "BuoyancyField",
+            "Center", "Clock", "ConditionalOperation",
+            "ConformalCubedSpherePanel", "ConstantField",
+            "CubedSpherePartition", "CumulativeIntegral", "Derivative",
+            "DroguedParticleDynamics", "DynamicCoefficient", "EnsembleModel",
+            "Equal", "ExplicitTimeDiscretization", "Face", "Flat",
+            "FluxFormAdvection", "Forcing", "ForcingField",
+            "ForcingOperation", "Fractional", "FunctionField",
+            "GridMetricOperation", "HorizontalScalarBiharmonicDiffusivity",
+            "Integral", "KernelFunctionOperation", "LagrangianParticles",
+            "MultipleForcings", "OceananigansLogger", "OneField", "Periodic",
+            "PiecewiseLinearMask", "PressureField",
+            "QuasiAdamsBashforth2TimeStepper", "Reduction",
+            "RungeKutta3TimeStepper", "Sizes", "SplitRungeKutta3TimeStepper",
+            "TEOS10", "VerticalScalarBiharmonicDiffusivity", "XPartition",
+            "YPartition", "ZeroField", "at", "cell_advection_timescale",
+            "compute", "conditional_length", "diffusivity",
+            "fill_halo_regions", "interior", "interpolate", "iteration",
+            "iteration_limit_exceeded", "lambda_nodes", "lambda_spacing",
+            "lambda_spacings", "minimum_xspacing", "minimum_yspacing",
+            "minimum_zspacing", "nodes", "partial_x", "partial_y",
+            "partial_z", "phi_nodes", "phi_spacing", "phi_spacings", "regrid",
+            "rnodes", "rspacings", "run", "seawater_density", "set",
+            "stop_time_exceeded", "time_step", "viscosity", "volume",
+            "wall_time_limit_exceeded", "xarea", "xnodes", "xspacing",
+            "xspacings", "yarea", "ynodes", "yspacing", "yspacings", "zarea",
+            "znodes", "zspacing", "zspacings", "λnodes", "λspacing",
+            "λspacings", "φnodes", "φspacing", "φspacings"]

@@ -1,7 +1,7 @@
 """Advective flux divergences for tracers and momentum (flux form).
 
-Counterpart of ``oceananigans_tpu/advection/fluxes.py`` (no slab trimming,
-no bounds-preserving branch): the advecting velocity is the scheme's
+Counterpart of ``oceananigans_tpu/advection/fluxes.py`` (no slab
+trimming): the advecting velocity is the scheme's
 symmetric interpolation of A·q (the face velocity itself for tracers), the
 advected quantity the upwind reconstruction selected by the advecting
 velocity's sign.
@@ -19,8 +19,14 @@ import torch
 
 from ..operators.operators import (LOC_CCC, LOC_CCF, LOC_CFC, LOC_FCC,
                                    _delta_c, _delta_f)
+from ..operators.shifts import shift
 
 X, Y, Z = 0, 1, 2
+
+# JAX's refusal of the bounds-preserving limiter off the padded layout or
+# per axis (the kernels' wrappers refuse it with the same words)
+BOUNDED_REFUSAL = ("bounds-preserving advection is not supported on the "
+                   "z-compact / per-axis kernel path")
 
 
 def _biased_by(scheme, grid, a, axis, beta, q, zbc=None):
@@ -40,18 +46,74 @@ def _sum_terms(terms, like, V):
     return total / V
 
 
-def div_Uc(grid, scheme, u, v, w, c, zbc=None):
-    """Tracer advective flux divergence ∇·(𝐯 c) at ccc."""
+def div_Uc(grid, scheme, u, v, w, c, zbc=None, only_axis=None):
+    """Tracer advective flux divergence ∇·(𝐯 c) at ccc (``only_axis``: the
+    one flux axis's term). A scheme with ``bounds`` takes the
+    bounds-preserving limiter (``_div_Uc_bounded``), on the padded layout
+    and over all axes at once only, as in the JAX package."""
     if scheme is None:
         return torch.zeros_like(c)
+    if getattr(scheme, "bounds", None) is not None:
+        if zbc is not None or only_axis is not None:
+            # the limiter couples each axis's two reconstructions through
+            # θ; the z-compact layout lacks the parity shifts it needs
+            raise NotImplementedError(BOUNDED_REFUSAL)
+        return _div_Uc_bounded(grid, scheme, u, v, w, c)
+    total = None
+    for axis, vel, A in ((X, u, grid.Ax(LOC_FCC)), (Y, v, grid.Ay(LOC_CFC)),
+                         (Z, w, grid.Az(LOC_CCF))):
+        if grid.is_flat(axis) or only_axis not in (None, axis):
+            continue
+        kind = zbc["c"] if (zbc is not None and axis == Z) else None
+        chat = scheme.biased_by(grid, c, axis, 0, vel, zbc=kind)
+        term = _delta_c(grid, A * vel * chat, axis)
+        total = term if total is None else total + term
+    if total is None:
+        return torch.zeros_like(c)
+    return total / grid.V(LOC_CCC)
+
+
+# The limiter's constants: ω̂ = 5/18 (the reconstruction weight of the end
+# points) and ε₂, which keeps the ratios finite.
+OMEGA_HAT = 5.0 / 18.0
+EPS2 = 1e-20
+
+
+def _div_Uc_bounded(grid, scheme, u, v, w, c):
+    """The bounds-preserving WENO tracer flux divergence: per axis and
+    cell, a factor θ ≤ 1 pulls the cell's two outward reconstructions
+    toward its mean, so that the updated tracer stays inside
+    ``scheme.bounds``. Face i takes θ of cell i - 1 for its left-biased
+    value and θ of cell i for its right-biased one, the upwind one by the
+    face velocity's sign."""
+    lo, hi = scheme.bounds
     total = None
     for axis, vel, A in ((X, u, grid.Ax(LOC_FCC)), (Y, v, grid.Ay(LOC_CFC)),
                          (Z, w, grid.Az(LOC_CCF))):
         if grid.is_flat(axis):
             continue
-        kind = zbc["c"] if (zbc is not None and axis == Z) else None
-        chat = scheme.biased_by(grid, c, axis, 0, vel, zbc=kind)
-        term = _delta_c(grid, A * vel * chat, axis)
+        # both biased reconstructions at every face (face i is the left
+        # face of cell i)
+        cl, cr = scheme.biased_pair(grid, c, axis, 0)
+        # cell i's outward reconstructions: right-biased at its left face,
+        # left-biased at its right face (face i + 1)
+        c_minus_R = cr
+        c_plus_L = shift(cl, +1, axis)
+        p_tilde = (c - OMEGA_HAT * c_minus_R - OMEGA_HAT * c_plus_L) \
+            / (1 - 2 * OMEGA_HAT)
+        M = torch.maximum(torch.maximum(p_tilde, c_plus_L), c_minus_R)
+        m = torch.minimum(torch.minimum(p_tilde, c_plus_L), c_minus_R)
+        theta = torch.minimum(
+            torch.minimum(torch.abs((hi - c) / (M - c + EPS2)),
+                          torch.abs((lo - c) / (m - c + EPS2))),
+            torch.ones_like(c))
+        # the limited face values: the left-biased one belongs to cell
+        # i - 1, the right-biased one to cell i
+        c_prev = shift(c, -1, axis)
+        c_left_lim = shift(theta, -1, axis) * (cl - c_prev) + c_prev
+        c_right_lim = theta * (cr - c) + c
+        flux = A * vel * torch.where(vel > 0, c_left_lim, c_right_lim)
+        term = _delta_c(grid, flux, axis)
         total = term if total is None else total + term
     if total is None:
         return torch.zeros_like(c)

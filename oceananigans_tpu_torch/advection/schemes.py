@@ -382,20 +382,19 @@ class WENO(AdvectionScheme):
 
         α_s = γ_s · (1 + (τ / (β_s + ε))²),   τ = |Σ_s t_s β_s|
 
-    with the smoothness arithmetic in ``smoothness_dtype``."""
+    with the smoothness arithmetic in ``smoothness_dtype``. ``bounds=(lo,
+    hi)`` turns on the bounds-preserving limiter of the tracer flux
+    divergence (``advection/fluxes.py`` ``div_Uc``)."""
 
     def __init__(self, order=5, smoothness_dtype=torch.float32, bounds=None):
         if order % 2 != 1:
             raise ValueError("WENO order must be odd (3, 5, 7, 9, 11)")
-        if bounds is not None:
-            raise NotImplementedError(
-                "bounds-preserving WENO is not ported yet: ROADMAP.md "
-                "queue 1 item 15 (the long tail)")
         self.order = order
         self.buffer = k = (order + 1) // 2
         self.required_halo = self.buffer
         self.smoothness_dtype = as_torch_dtype(smoothness_dtype)
-        self.bounds = None
+        self.bounds = (tuple(float(b) for b in bounds) if bounds is not None
+                       else None)
         self._gammas = optimal_weights(k)
         self._coeffs = [eno_coefficients(k, s) for s in range(k)]
         self._sfactors = [smoothness_factors(k, s) for s in range(k)]
@@ -412,11 +411,13 @@ class WENO(AdvectionScheme):
         return self._buffer_scheme
 
     def _fp(self):
-        return (type(self).__name__, self.order, str(self.smoothness_dtype))
+        return (type(self).__name__, self.order, str(self.smoothness_dtype),
+                self.bounds)
 
     def __repr__(self):
+        bounds = "" if self.bounds is None else f", bounds={self.bounds}"
         return (f"WENO(order={self.order}, "
-                f"smoothness_dtype={self.smoothness_dtype})")
+                f"smoothness_dtype={self.smoothness_dtype}{bounds})")
 
     def symmetric(self, grid, a, axis, beta, zbc=None):
         hi = self.advecting_velocity_scheme._symmetric_plain(
@@ -483,7 +484,8 @@ def adapt_advection_order(advection, grid):
             return Centered(order=max(2, 2 * N))
         if isinstance(scheme, WENO) and 2 * N - 1 >= 3:
             return WENO(order=2 * N - 1,
-                        smoothness_dtype=scheme.smoothness_dtype)
+                        smoothness_dtype=scheme.smoothness_dtype,
+                        bounds=scheme.bounds)
         if isinstance(scheme, (WENO, UpwindBiased)):
             return UpwindBiased(order=max(1, 2 * N - 1))
         return scheme
@@ -505,7 +507,14 @@ class FluxFormAdvection(AdvectionScheme):
                         z if z is not None else x)
         self.order = max(s.order for s in self.schemes)
         self.required_halo = max(s.required_halo for s in self.schemes)
-        self.bounds = None
+        # the members' bounds-preserving limiter carries over: a bounded
+        # WENO that adapt_advection_order wraps keeps its limiter
+        all_bounds = {getattr(s, "bounds", None) for s in self.schemes}
+        all_bounds.discard(None)
+        if len(all_bounds) > 1:
+            raise ValueError("FluxFormAdvection members declare different "
+                             f"bounds: {sorted(all_bounds)}")
+        self.bounds = all_bounds.pop() if all_bounds else None
 
     def _fp(self):
         return ("FluxFormAdvection",) + tuple(s._fp() for s in self.schemes)

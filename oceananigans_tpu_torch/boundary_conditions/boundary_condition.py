@@ -22,8 +22,9 @@ the JAX condition pads its snapshots as z-normal planes, so the port refuses
 it on an x or y side. The ``immersed`` slot of ``FieldBoundaryConditions``
 holds an ``ImmersedBoundaryCondition`` (or one condition for every side) of
 Flux, Value or Gradient conditions applied where a fluid cell touches the
-solid of an immersed grid; its conditions are scalars (callable immersed
-conditions are not ported: ROADMAP item 3).
+solid of an immersed grid; its conditions are scalars, arrays of the
+side's plane or callables of its transverse coordinates and the time, as
+the JAX ``eval_bc`` takes them.
 
 Two conditions come from the grid, not the user, on a side the user leaves
 empty: the tripolar fold (``ZIPPER``, ``ZipperBoundaryCondition``) on the
@@ -47,7 +48,6 @@ GRADIENT = "gradient"
 OPEN = "open"
 ZIPPER = "zipper"   # the tripolar north fold; the condition is its sign
 
-USER_BCS_ITEM = "ROADMAP.md queue 1 item 3 (boundary_conditions/)"
 
 
 class PolarValue:
@@ -316,9 +316,9 @@ def _check_user_bc(bc, side, axis, grid):
     cond = bc.condition
     if hasattr(cond, "evaluate_padded") and axis != 2:
         raise NotImplementedError(
-            f"{side} FieldTimeSeries condition: the JAX condition pads its "
-            "snapshots as z-normal planes (its evaluate_padded), so it "
-            f"takes the bottom and top sides only: {USER_BCS_ITEM}")
+            f"{side} FieldTimeSeries condition: a FieldTimeSeries condition "
+            "pads its snapshots as z-normal planes (evaluate_padded), so it "
+            "takes the bottom and top sides only, as in the JAX package")
     if bc.field_dependencies and bc.classification != FLUX:
         raise ValueError(
             f"{side} {bc.classification} BC with field dependencies: only a "

@@ -32,7 +32,7 @@ import numpy as np
 
 from ..grids.topology import BOUNDED, CENTER, FACE, PERIODIC
 from ..operators.operators import interp_to
-from .boundary_condition import FLUX, SIDE_AXIS, USER_BCS_ITEM
+from .boundary_condition import FLUX, SIDE_AXIS
 
 
 def _check_conditions(arrays, grid, locs_bcs, axes):
@@ -265,7 +265,9 @@ def apply_immersed_flux_bcs(G, grid, loc, ibc, time=0.0, c=None, kappa=0.0):
     Flux conditions deposit the given flux; Value and Gradient conditions a
     one-sided diffusive flux q = -κ∇c with ∇c the given gradient or
     ±2(c - c_b)/Δ. ``c`` is the field's padded tensor, ``kappa`` the
-    closure's scalar diffusivity of the field. Conditions are scalars."""
+    closure's scalar diffusivity of the field. A condition is a scalar, an
+    array of the side's plane or a callable of its transverse coordinates
+    and the time (``boundary_condition_value``)."""
     import torch
     from .boundary_condition import (GRADIENT, VALUE,
                                      ImmersedBoundaryCondition)
@@ -280,11 +282,12 @@ def apply_immersed_flux_bcs(G, grid, loc, ibc, time=0.0, c=None, kappa=0.0):
         bc = ibc.side(side)
         if bc is None or bc.condition is None:
             continue
-        if callable(bc.condition) or not np.isscalar(bc.condition):
-            raise NotImplementedError(
-                f"immersed {side} condition {bc.condition!r}: only scalar "
-                f"conditions are ported: {USER_BCS_ITEM}")
-        val = float(bc.condition)
+        # a scalar, or a plane (1 along the axis) broadcast across the
+        # grid: an array, or a callable of the transverse coordinates and
+        # the time, as the JAX ``eval_bc`` evaluates it
+        val = boundary_condition_value(bc, grid, loc, axis, time)
+        if val is None:
+            continue
         if bc.classification == GRADIENT:
             q = -kappa * val
         elif bc.classification == VALUE:

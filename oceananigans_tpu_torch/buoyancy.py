@@ -268,14 +268,17 @@ class NonlinearSeawaterBuoyancy(SeawaterBuoyancy):
 
 
 def seawater_density(model, eos=None):
-    """The density ρ = ρ₀ + ρ′(T, S, z) of the model's current T and S, as a
-    cell-centred Field. The JAX function returns a lazy operation that its
-    ``compute`` evaluates; this one evaluates when called."""
+    """The density ρ = ρ₀ + ρ′(T, S, z) of the model's T and S as a lazy
+    ``KernelFunctionOperation`` at (c, c, c): ``compute()`` evaluates it at
+    the model's state then."""
+    from .abstract_operations import KernelFunctionOperation
     eos = eos or RoquetSecondOrderEquationOfState()
-    grid = model.grid
-    T, S = model.field("T").data, model.field("S").data
-    rho = eos.rho0 + eos.density_anomaly(T, S, _z_centres(grid, T))
-    return Field(grid, LOC_CCC, data=rho)
+
+    def rho(grid, T, S):
+        return eos.rho0 + eos.density_anomaly(T, S, _z_centres(grid, T))
+
+    return KernelFunctionOperation(rho, model.grid, model.field("T"),
+                                   model.field("S"))
 
 
 class BuoyancyForce:

@@ -95,6 +95,7 @@
 #pragma once
 
 #include "advection_stencils.cuh"
+#include "bounded_limiter.cuh"
 #include "tiles.cuh"
 
 namespace oc {
@@ -115,6 +116,7 @@ struct AdvectionArgs {
   cudaStream_t stream;
   int* per_sm;   // non-null: report the blocks an SM holds instead of launching
   int zmode;     // #6: kZBounded (0, #1's), kZPeriodic or kZFlat: the read policy's
+  double lo, hi; // the bounded #6: the limiter's bounds
 };
 
 // One function per buffer K (advection_kK.cu): fam kCentered, kUpwind or
@@ -125,6 +127,16 @@ int advection_k3(bool update, int fam, int dtype, int sdtype, const AdvectionArg
 int advection_k4(bool update, int fam, int dtype, int sdtype, const AdvectionArgs& a);
 int advection_k5(bool update, int fam, int dtype, int sdtype, const AdvectionArgs& a);
 int advection_k6(bool update, int fam, int dtype, int sdtype, const AdvectionArgs& a);
+
+// The bounded #6 (WENO with the bounds-preserving limiter on its tracers,
+// bounded_limiter.cuh), padded layout: one function per buffer K
+// (advection_bounded_kK.cu; advection_bounded.cu holds the C entries).
+int advection_bounded_k2(int dtype, int sdtype, const AdvectionArgs& a);
+int advection_bounded_k3(int dtype, int sdtype, const AdvectionArgs& a);
+int advection_bounded_k4(int dtype, int sdtype, const AdvectionArgs& a);
+int advection_bounded_k5(int dtype, int sdtype, const AdvectionArgs& a);
+int advection_bounded_k6(int dtype, int sdtype, const AdvectionArgs& a);
+int advection_bounded(int K, int dtype, int sdtype, const AdvectionArgs& a);
 
 }  // namespace oc
 
@@ -161,6 +173,16 @@ __host__ __device__ constexpr int tracer_z_reach(int r, bool flat) {
   return flat ? 0 : tracer_z(r);
 }
 
+// The limited values at the faces of one axis at a time (the bounded #6):
+// the largest of (TX + 1)·TY·TZ, TX·(TY + 1)·TZ and TX·TY·(TZ + 1) (no z
+// axis on a flat z).
+__host__ __device__ inline int limited_elems(int TX, int TY, int TZ, bool flat) {
+  const int x = (TX + 1) * TY * TZ, y = TX * (TY + 1) * TZ;
+  const int xy = x > y ? x : y;
+  const int z = flat ? 0 : TX * TY * (TZ + 1);
+  return xy > z ? xy : z;
+}
+
 // Element offsets of a block's shared arrays for a TX × TY × TZ tile, a
 // stencil reach r and a z reach rz (r, or 0 on a flat z);
 // kernels/fused_advection.py smem_bytes computes the same total.
@@ -169,9 +191,11 @@ struct Layout {
   int csx, csy;          // tracer box strides: (TY + 2r)(TZ + 2 tz), TZ + 2 tz
   int vel[3], c[2];      // boxes: u, v, w over (TX + 2r)(TY + 2r)(TZ + 2rz), two tracers
   int fx, fy, fz;        // fluxes (TX + 1)·TY·TZ, TX·(TY + 1)·TZ, TX·TY·(TZ + 1)
+  int lim;               // the bounded #6 with tracers: limited values (limited_elems)
   int total;
 
-  __host__ __device__ Layout(int TX, int TY, int TZ, int r, bool tracers, bool flat = false) {
+  __host__ __device__ Layout(int TX, int TY, int TZ, int r, bool tracers, bool flat = false,
+                             bool bounded = false) {
     sy = TZ + 2 * z_reach(r, flat);
     sx = (TY + 2 * r) * sy;
     csy = TZ + 2 * tracer_z_reach(r, flat);
@@ -190,6 +214,8 @@ struct Layout {
     fx = o; o += oc::align_elems((TX + 1) * TY * TZ);
     fy = o; o += oc::align_elems(TX * (TY + 1) * TZ);
     fz = o; o += oc::align_elems(TX * TY * (TZ + 1));
+    lim = o;
+    if (bounded && tracers) o += oc::align_elems(limited_elems(TX, TY, TZ, flat));
     total = o;
   }
 };
@@ -206,14 +232,18 @@ struct Params {
   T gdt, zdt;            // #1: γΔt, ζΔt
   int TX, TY, TZ;        // the tile
   int tiles_y, tiles_z;  // tiles along y and z
+  T lo, hi;              // the bounded #6: the limiter's bounds
 };
 
 // kUpdate: #1 (the stage update) or #6 (the tendency); R: the staging's read
 // policy (CompactRead, or PaddedRead for the padded #6); K: the scheme's
-// buffer (its reach); F: its family (kCentered, kUpwind, kWeno).
-template <int K, int F, typename T, typename S, typename R, bool kUpdate>
+// buffer (its reach); F: its family (kCentered, kUpwind, kWeno); kBnd: the
+// bounded #6, whose tracer fluxes take the limiter (bounded_limiter.cuh).
+template <int K, int F, typename T, typename S, typename R, bool kUpdate, bool kBnd = false>
 __global__ void __launch_bounds__(kThreads, (kMinBlocks<K, F, T>))
 advection_kernel(const __grid_constant__ Params<K, F, T, S, R> P) {
+  static_assert(!kBnd || (!kUpdate && !R::kWalls && F == oc::kWeno),
+                "the limiter takes the padded #6 of a WENO scheme");
   constexpr int r = K;
   // the z reaches: r and tracer_z(r), none on a flat z
   constexpr bool flat = R::kZMode == oc::kZFlat;
@@ -222,7 +252,7 @@ advection_kernel(const __grid_constant__ Params<K, F, T, S, R> P) {
   T* const sm = reinterpret_cast<T*>(oc_smem);
   const int last = P.first + P.nb;
   const int first_tracer = P.first > 3 ? P.first : 3;
-  const Layout L(P.TX, P.TY, P.TZ, r, last > 3, flat);
+  const Layout L(P.TX, P.TY, P.TZ, r, last > 3, flat, kBnd);
   const R& rd = P.rd;
   const oc::Geom& g = rd.g;
   const int TY = P.TY, TZ = P.TZ;
@@ -327,18 +357,65 @@ advection_kernel(const __grid_constant__ Params<K, F, T, S, R> P) {
     }
     // each face flux once; u's x-, v's y- and w's z-fluxes sit at centres
     const int cx = comp == 0, cy = comp == 1, cz = comp == 2;
-    oc::for_box((ex + 1) * ey * ez, ey, ez, [&](int a, int b, int c) {
-      Fx[(a * TY + b) * TZ + c] =
-          oc::face_flux_x(P.st, sr, comp, box, i0 + a - cx, j0 + b, z0 + c);
-    });
-    oc::for_box(ex * (ey + 1) * ez, ey + 1, ez, [&](int a, int b, int c) {
-      Fy[(a * (TY + 1) + b) * TZ + c] =
-          oc::face_flux_y(P.st, sr, comp, box, i0 + a, j0 + b - cy, z0 + c);
-    });
-    oc::for_box(ex * ey * (ez + 1), ey, ez + 1, [&](int a, int b, int c) {
-      Fz[(a * TY + b) * (TZ + 1) + c] =
-          oc::face_flux_z(P.st, sr, comp, box, i0 + a, j0 + b, z0 + c - cz);
-    });
+    bool limited = false;
+    if constexpr (kBnd) limited = comp >= 3;
+    if (limited) {
+      // the bounded #6's tracer, an axis at a time: the limited values of
+      // the tile's cells plus one each way, the low face's into the flux
+      // array and the high face's into lim (both by face), then the fluxes
+      constexpr int ZM = R::kZMode;
+      T* const lim = sm + L.lim;
+      oc::for_box((ex + 2) * ey * ez, ey, ez, [&](int a, int b, int c) {
+        const int f = (a * TY + b) * TZ + c;   // cell a - 1's high face
+        oc::limited_values<ZM>(P.st, sr, box, 0, i0 + a - 1, j0 + b, z0 + c, P.lo, P.hi,
+                               a > 0 ? Fx + f - TY * TZ : nullptr, a <= ex ? lim + f : nullptr);
+      });
+      __syncthreads();
+      oc::for_box((ex + 1) * ey * ez, ey, ez, [&](int a, int b, int c) {
+        const int f = (a * TY + b) * TZ + c;
+        Fx[f] = oc::limited_flux(sr, 0, i0 + a, j0 + b, z0 + c, P.st.Ax, lim[f], Fx[f]);
+      });
+      __syncthreads();
+      oc::for_box(ex * (ey + 2) * ez, ey + 2, ez, [&](int a, int b, int c) {
+        const int f = (a * (TY + 1) + b) * TZ + c;
+        oc::limited_values<ZM>(P.st, sr, box, 1, i0 + a, j0 + b - 1, z0 + c, P.lo, P.hi,
+                               b > 0 ? Fy + f - TZ : nullptr, b <= ey ? lim + f : nullptr);
+      });
+      __syncthreads();
+      oc::for_box(ex * (ey + 1) * ez, ey + 1, ez, [&](int a, int b, int c) {
+        const int f = (a * (TY + 1) + b) * TZ + c;
+        Fy[f] = oc::limited_flux(sr, 1, i0 + a, j0 + b, z0 + c, P.st.Ay, lim[f], Fy[f]);
+      });
+      if constexpr (flat) {
+        oc::for_box(ex * ey * (ez + 1), ey, ez + 1,
+                    [&](int a, int b, int c) { Fz[(a * TY + b) * (TZ + 1) + c] = T(0); });
+      } else {
+        __syncthreads();
+        oc::for_box(ex * ey * (ez + 2), ey, ez + 2, [&](int a, int b, int c) {
+          const int f = (a * TY + b) * (TZ + 1) + c;
+          oc::limited_values<ZM>(P.st, sr, box, 2, i0 + a, j0 + b, z0 + c - 1, P.lo, P.hi,
+                                 c > 0 ? Fz + f - 1 : nullptr, c <= ez ? lim + f : nullptr);
+        });
+        __syncthreads();
+        oc::for_box(ex * ey * (ez + 1), ey, ez + 1, [&](int a, int b, int c) {
+          const int f = (a * TY + b) * (TZ + 1) + c;
+          Fz[f] = oc::limited_flux(sr, 2, i0 + a, j0 + b, z0 + c, P.st.Az, lim[f], Fz[f]);
+        });
+      }
+    } else {
+      oc::for_box((ex + 1) * ey * ez, ey, ez, [&](int a, int b, int c) {
+        Fx[(a * TY + b) * TZ + c] =
+            oc::face_flux_x(P.st, sr, comp, box, i0 + a - cx, j0 + b, z0 + c);
+      });
+      oc::for_box(ex * (ey + 1) * ez, ey + 1, ez, [&](int a, int b, int c) {
+        Fy[(a * (TY + 1) + b) * TZ + c] =
+            oc::face_flux_y(P.st, sr, comp, box, i0 + a, j0 + b - cy, z0 + c);
+      });
+      oc::for_box(ex * ey * (ez + 1), ey, ez + 1, [&](int a, int b, int c) {
+        Fz[(a * TY + b) * (TZ + 1) + c] =
+            oc::face_flux_z(P.st, sr, comp, box, i0 + a, j0 + b, z0 + c - cz);
+      });
+    }
     __syncthreads();
     // per cell: the differences, G (and #1's stage update)
     auto tendency = [&](int a, int b, int c) {
@@ -371,13 +448,14 @@ advection_kernel(const __grid_constant__ Params<K, F, T, S, R> P) {
 
 // Check the launch plan against the tile's layout and the halos, then
 // launch the instantiation (or report its blocks per SM).
-template <int K, int F, typename T, typename S, typename R, bool kUpdate>
+template <int K, int F, typename T, typename S, typename R, bool kUpdate, bool kBnd = false>
 int launch_with(const oc::AdvectionArgs& a, R rd) {
   constexpr int r = K;
   const int tiles_y = oc::ceil_div(a.g.Ny, a.TY), tiles_z = oc::ceil_div(a.g.Nz, a.TZ);
   constexpr bool flat = R::kZMode == oc::kZFlat;
   const long long want =
-      (long long)Layout(a.TX, a.TY, a.TZ, r, a.first + a.nb > 3, flat).total * sizeof(T);
+      (long long)Layout(a.TX, a.TY, a.TZ, r, a.first + a.nb > 3, flat, kBnd).total *
+      sizeof(T);
   const int req = r + (kUpdate && a.p != nullptr ? 1 : 0);
   // a bounded z takes either layout, a periodic z the padded one, a flat z
   // one level and no z halo; #1 takes the z-compact bounded z alone
@@ -388,7 +466,7 @@ int launch_with(const oc::AdvectionArgs& a, R rd) {
       a.TX * a.TY * a.TZ > kCells * a.threads ||
       a.blocks != oc::ceil_div(a.g.Nx, a.TX) * tiles_y * tiles_z)
     return (int)cudaErrorInvalidValue;
-  auto* kernel = advection_kernel<K, F, T, S, R, kUpdate>;
+  auto* kernel = advection_kernel<K, F, T, S, R, kUpdate, kBnd>;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
   if (e != cudaSuccess) return (int)e;
@@ -421,6 +499,8 @@ int launch_with(const oc::AdvectionArgs& a, R rd) {
   P.TZ = a.TZ;
   P.tiles_y = tiles_y;
   P.tiles_z = tiles_z;
+  P.lo = (T)a.lo;
+  P.hi = (T)a.hi;
   kernel<<<a.blocks, a.threads, a.smem, a.stream>>>(P);
   return (int)cudaGetLastError();
 }
@@ -482,6 +562,37 @@ int dispatch(bool update, int fam, int dtype, int sdtype, const oc::AdvectionArg
     if (dtype == OC_FLOAT64 && sdtype == OC_FLOAT64) return go(Weno(), double(), double());
     if (dtype == OC_FLOAT32 && sdtype == OC_BFLOAT16) return go(Weno(), float(), oc::bf16());
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The bounded #6 of buffer K: the padded layout of a bounded z (with the
+// cascade), of a periodic z, or a flat z, each its own instantiation; the
+// z-compact layout refused (kernels/fused_advection.py
+// bounded_refusal).
+template <int K, typename T, typename S>
+int launch_bounded(const oc::AdvectionArgs& a) {
+  constexpr int W = oc::kWeno;
+  if (a.zmode == oc::kZPeriodic)
+    return launch_with<K, W, T, S, oc::PaddedRead<T, oc::kZPeriodic>, false, true>(a, {});
+  if (a.zmode == oc::kZFlat)
+    return launch_with<K, W, T, S, oc::PaddedRead<T, oc::kZFlat>, false, true>(a, {});
+  if (a.zmode != oc::kZBounded || a.g.Hz == 0) return (int)cudaErrorInvalidValue;
+  return launch_with<K, W, T, S, oc::PaddedRead<T>, false, true>(a, {});
+}
+
+// The bounded #6's instantiations of buffer K (>= 2): the smoothness in the
+// fields' type, or float32 with float64 fields (WENO's default smoothness),
+// each with the three z modes: nine a buffer, about ten seconds of nvcc
+// each, one source a buffer (the build's time is the chip script's).
+template <int K>
+int dispatch_bounded(int dtype, int sdtype, const oc::AdvectionArgs& a) {
+  if (a.nb < 1 || a.nb > kBatch || a.first < 0 || a.TX < 1 || a.TY < 1 || a.TZ < 1 ||
+      a.threads < 32 || a.threads > kThreads || a.threads % 32 != 0 || a.g.Hz < 0 ||
+      !(a.lo <= a.hi))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == OC_FLOAT32 && sdtype == OC_FLOAT32) return launch_bounded<K, float, float>(a);
+  if (dtype == OC_FLOAT64 && sdtype == OC_FLOAT64) return launch_bounded<K, double, double>(a);
+  if (dtype == OC_FLOAT64 && sdtype == OC_FLOAT32) return launch_bounded<K, double, float>(a);
   return (int)cudaErrorInvalidValue;
 }
 

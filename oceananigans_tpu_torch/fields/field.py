@@ -143,17 +143,21 @@ class Field:
 
 
 def condition_interior(condition, grid, loc):
-    """The interior boolean mask of a reduction's ``condition``: a Field, a
-    callable of the coordinates (evaluated at ``loc``), or an interior- or
-    padded-shaped array; None for no condition."""
+    """The interior boolean mask of a reduction's ``condition``: a Field, an
+    operation (``abstract_operations``), a callable of the coordinates
+    (evaluated at ``loc``), or an interior- or padded-shaped array; None for
+    no condition."""
     if condition is None:
         return None
     ii = grid.interior_slices
+    if hasattr(condition, "materialize"):
+        return condition.materialize()[ii].to(torch.bool)
     if isinstance(condition, Field):
         return condition.data[ii].to(torch.bool)
     if callable(condition):
         return set_on_padded(grid, loc, condition)[ii].to(torch.bool)
-    c = torch.as_tensor(np.asarray(condition), device=grid.device)
+    c = (condition.to(grid.device) if isinstance(condition, torch.Tensor)
+         else torch.as_tensor(np.asarray(condition), device=grid.device))
     if tuple(c.shape) == grid.padded_shape:
         return c[ii].to(torch.bool)
     return c.to(torch.bool).broadcast_to(

@@ -7,7 +7,7 @@ from .latlon import LatitudeLongitudeGrid
 from .orthogonal_spherical_shell import (OrthogonalSphericalShellGrid,
                                          RotatedLatitudeLongitudeGrid)
 from .tripolar import TripolarGrid
-from .cubed_sphere import ConformalCubedSphereGrid
+from .cubed_sphere import ConformalCubedSphereGrid, ConformalCubedSpherePanel
 from .stretching import (ExponentialDiscretization, LinearStretching,
                          PowerLawStretching,
                          ReferenceToStretchedDiscretization)
@@ -17,5 +17,6 @@ __all__ = ["PERIODIC", "BOUNDED", "FLAT", "FULLY_CONNECTED", "CENTER",
            "AbstractGrid", "RectilinearGrid", "LatitudeLongitudeGrid",
            "OrthogonalSphericalShellGrid", "RotatedLatitudeLongitudeGrid",
            "TripolarGrid", "ConformalCubedSphereGrid",
+           "ConformalCubedSpherePanel",
            "ExponentialDiscretization", "LinearStretching",
            "PowerLawStretching", "ReferenceToStretchedDiscretization"]

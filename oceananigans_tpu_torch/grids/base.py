@@ -53,6 +53,32 @@ class AbstractGrid:
         """Cell volume at location ``loc``."""
         return (self.dx(loc) * self.dy(loc)) * self.dz(loc)
 
+    # -- nodes and spacings ---------------------------------------------------
+
+    def nodes(self, loc=topo.LOC_CCC):
+        """The interior coordinates at ``loc`` along each axis (numpy)."""
+        return tuple(self.nodes1d(i, loc[i]) for i in range(3))
+
+    def minimum_spacing(self, axis):
+        """The smallest interior spacing between cell faces along ``axis``
+        (inf on a flat axis)."""
+        if self.is_flat(axis):
+            return np.inf
+        m = (self.dx, self.dy, self.dz)[axis](topo.LOC_CCC)
+        if isinstance(m, float):
+            return m
+        m = torch.as_tensor(m).broadcast_to(self.padded_shape)
+        return float(m[self.interior_slices].min())
+
+    def minimum_xspacing(self):
+        return self.minimum_spacing(0)
+
+    def minimum_yspacing(self):
+        return self.minimum_spacing(1)
+
+    def minimum_zspacing(self):
+        return self.minimum_spacing(2)
+
     # -- topology helpers -----------------------------------------------------
 
     def is_flat(self, axis):

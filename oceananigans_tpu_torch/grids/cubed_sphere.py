@@ -70,6 +70,19 @@ def panel_corner_coordinates(N, panel):
     return _cart2sph(d)
 
 
+def ConformalCubedSpherePanel(size, panel=0, z=None, radius=None, halo=None,
+                              dtype=None, device=None):
+    """One equiangular cube face ``panel`` (0-5) as an
+    OrthogonalSphericalShellGrid of ``size`` (N, N, Nz)."""
+    N = size[0]
+    if size[1] != N:
+        raise ValueError("cubed-sphere panels are square: Nx == Ny")
+    lon, lat = panel_corner_coordinates(N, panel)
+    return OrthogonalSphericalShellGrid(lon, lat, z=z, size=size,
+                                        radius=radius, halo=halo, dtype=dtype,
+                                        device=device)
+
+
 # -- connectivity -------------------------------------------------------------
 
 _SIDES = ("west", "east", "south", "north")

@@ -121,6 +121,14 @@ class LatitudeLongitudeGrid(MetricCache, AbstractGrid):
     lambda_nodes = xnodes
     phi_nodes = ynodes
 
+    def lambda_spacings(self, loc="c"):
+        """The longitude spacings in degrees."""
+        return self._lam.spacing(loc)
+
+    def phi_spacings(self, loc="c"):
+        """The latitude spacings in degrees."""
+        return self._phi.spacing(loc)
+
     def nodes(self, loc=topo.LOC_CCC):
         return tuple(self.nodes1d(i, loc[i]) for i in range(3))
 

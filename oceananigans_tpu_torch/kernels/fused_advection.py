@@ -57,6 +57,17 @@ CUDA kernel is the update kernel's template with the tendency epilogue
 each formed once, G written straight to the output, under the same
 ``launch_plan``.
 
+With a bounds-preserving ``WENO(order, bounds=(lo, hi))`` the padded
+``fused_advection_tendency`` launches its bounded variant
+(``csrc/bounded_limiter.cuh``, the family ``BOUNDED_WENO_FAMILY``): u, v
+and w as the unlimited scheme, each tracer's fluxes limited by θ per cell
+and axis as the JAX ``_div_Uc_bounded`` limits them, the limited face
+values formed over the tile plus one cell each way in shared memory (the
+array of ``limited_elems``); built for a bounded, periodic or flat z, with
+float32 fields and smoothness or float64 fields and float32 or float64
+smoothness (``BOUNDED_PAIRS``). ``bounded_refusal`` says what it does not
+take: the z-compact #6 and #1 refuse the limiter with JAX's reason.
+
 Both kernels take any number of components: the per-component pointers ride
 in the kernel's parameter block, at most ``build.BATCH`` a launch, and a
 call with more launches once per batch. Every component's result depends only on its
@@ -75,6 +86,7 @@ import torch
 
 from ..advection import (WENO, Centered, UpwindBiased, div_Uc, div_Uu,
                          div_Uv, div_Uw)
+from ..advection.fluxes import BOUNDED_REFUSAL
 from ..advection.reconstruction import typed_constants
 from ..advection.schemes import TAU_COEFFS, WENO_EPSILON, WENO_R_MAX
 from ..grids.topology import BOUNDED, PERIODIC
@@ -91,12 +103,21 @@ MESH_TOPOLOGY_ITEM = ("ROADMAP.md queue 1 item 16 (the sharded tendency "
                       "route off a regular (periodic, periodic, bounded) "
                       "grid)")
 
-OTHER_SCHEMES_ITEM = ("ROADMAP.md queue 1 item 15 (the long tail: "
-                      "bounds-preserving WENO and a per-axis "
-                      "FluxFormAdvection in the CUDA advection kernels)")
+OTHER_SCHEMES_ITEM = ("ROADMAP.md queue 1 item 15 (the long tail: a "
+                      "per-axis FluxFormAdvection in the CUDA advection "
+                      "kernels)")
 
-# Scheme families of csrc/reconstruction.cuh (kCentered, kUpwind, kWeno).
-CENTERED, UPWIND, WENO_FAMILY = 0, 1, 2
+# Scheme families of csrc/reconstruction.cuh (kCentered, kUpwind, kWeno),
+# and WENO with the bounds-preserving limiter, which the padded #6 alone
+# takes (csrc/bounded_limiter.cuh).
+CENTERED, UPWIND, WENO_FAMILY, BOUNDED_WENO_FAMILY = 0, 1, 2, 3
+
+# The (fields, smoothness) dtypes of the bounded #6's instantiations
+# (csrc/advection_kernel.cuh dispatch_bounded): WENO's default float32
+# smoothness with either field dtype, and float64 throughout.
+BOUNDED_PAIRS = ((torch.float32, torch.float32),
+                 (torch.float64, torch.float32),
+                 (torch.float64, torch.float64))
 
 # The deepest buffer the kernels are built for (kMaxBuffer):
 # Centered(12), UpwindBiased(11), WENO(11).
@@ -153,30 +174,40 @@ def tracer_z(reach):
     return 4 if reach <= 4 else -(-reach // 4) * 4
 
 
-def smem_bytes(tile, reach, esize, tracers, flat=False):
+def limited_elems(tile, flat=False):
+    """The bounded #6's limited face values (csrc/advection_kernel.cuh
+    limited_elems): the faces of one axis at a time."""
+    TX, TY, TZ = tile
+    return max((TX + 1) * TY * TZ, TX * (TY + 1) * TZ,
+               0 if flat else TX * TY * (TZ + 1))
+
+
+def smem_bytes(tile, reach, esize, tracers, flat=False, bounded=False):
     """Dynamic shared memory of one block of the update kernel
     (csrc/advection_kernel.cuh Layout): u, v, w over the tile plus the
     reach (none along a flat z), when the launch holds a tracer two tracer
     boxes (one filling while the other is read; ``tracer_z(reach)`` cells
-    past the tile along z, none on a flat z), and the x-, y- and z-flux
-    arrays."""
+    past the tile along z, none on a flat z), the x-, y- and z-flux
+    arrays, and for the bounded #6 with tracers the limited face
+    values."""
     TX, TY, TZ = tile
     rz, tz = (0, 0) if flat else (reach, tracer_z(reach))
     box = _align((TX + 2 * reach) * (TY + 2 * reach) * (TZ + 2 * rz))
     cbox = _align((TX + 2 * reach) * (TY + 2 * reach) * (TZ + 2 * tz))
     fluxes = (_align((TX + 1) * TY * TZ) + _align(TX * (TY + 1) * TZ)
               + _align(TX * TY * (TZ + 1)))
-    return esize * (3 * box + (2 * cbox if tracers else 0) + fluxes)
+    lim = _align(limited_elems(tile, flat)) if bounded and tracers else 0
+    return esize * (3 * box + (2 * cbox if tracers else 0) + fluxes + lim)
 
 
-def pick_tile(reach, esize, tracers, flat=False):
+def pick_tile(reach, esize, tracers, flat=False, bounded=False):
     """The first tile of UPDATE_TILES[esize] (FLAT_TILES on a flat z)
     whose shared memory lets TILE_BLOCKS_PER_SM[esize] blocks share an SM
     (the last one fits one block at every reach up to MAX_BUFFER)."""
     per_sm = TILE_BLOCKS_PER_SM[esize]
     tiles = FLAT_TILES if flat else UPDATE_TILES[esize]
     for tile in tiles:
-        smem = smem_bytes(tile, reach, esize, tracers, flat)
+        smem = smem_bytes(tile, reach, esize, tracers, flat, bounded)
         if smem <= MAX_SMEM and SM_SMEM // (smem + SMEM_RESERVED) >= per_sm:
             return tile
     return tiles[-1]
@@ -196,12 +227,14 @@ def launch_plan(grid, scheme, dtype, n_components):
     esize = torch.empty((), dtype=dtype).element_size()
     reach = scheme.required_halo
     flat = z_mode(grid) == Z_FLAT
-    tile = pick_tile(reach, esize, n_components > 3, flat)
+    bounded = getattr(scheme, "bounds", None) is not None
+    tile = pick_tile(reach, esize, n_components > 3, flat, bounded)
     tiles = tuple(-(-n // t) for n, t in zip(grid.N, tile))
     return dict(tile=tile, tiles=tiles,
                 blocks=tiles[0] * tiles[1] * tiles[2],
                 threads=UPDATE_THREADS,
-                launches=[(a, b, smem_bytes(tile, reach, esize, b > 3, flat))
+                launches=[(a, b, smem_bytes(tile, reach, esize, b > 3, flat,
+                                            bounded))
                           for a, b in build.batches(n_components)])
 
 
@@ -212,6 +245,26 @@ def kernel_tendency_eligible(grid):
     return (getattr(grid, "all_regular", False)
             and grid.topology[:2] == (PERIODIC, PERIODIC)
             and not grid.is_flat(0) and not grid.is_flat(1))
+
+
+def bounded_refusal(grid, scheme, dtype):
+    """Why #6 cannot take ``scheme`` with fields of ``dtype`` on ``grid``,
+    or None: the limiter of a bounds-preserving scheme is refused on the
+    z-compact layout with JAX's reason, and the bounded variant is built for
+    the (fields, smoothness) dtypes of BOUNDED_PAIRS on any z of the padded
+    layout. The model and ``fused_advection_tendency`` both ask it."""
+    if getattr(scheme, "bounds", None) is None:
+        return None
+    if z_mode(grid) == Z_BOUNDED and grid.H[2] == 0:
+        return BOUNDED_REFUSAL
+    # (a scheme with no smoothness dtype is no WENO: scheme_code refuses it)
+    sdt = getattr(scheme, "smoothness_dtype", None)
+    if sdt is not None and (dtype, sdt) not in BOUNDED_PAIRS:
+        return (f"the bounded #6 is built for float32 fields with float32 "
+                f"smoothness and float64 fields with float32 or float64 "
+                f"smoothness, not {sdt} smoothness with {dtype} fields "
+                f"(ROADMAP.md queue 2)")
+    return None
 
 
 def z_mode(grid):
@@ -272,19 +325,21 @@ _tables = {}
 
 
 def scheme_code(scheme):
-    """(family, K) of a scheme the kernels take: CENTERED, UPWIND or
-    WENO_FAMILY and the scheme's buffer K (its reach, ``required_halo``):
-    Centered(2K) for K = 1..MAX_BUFFER, UpwindBiased(2K-1), WENO(2K-1) for K
-    >= 2. Raises for any other scheme: another class (a per-axis
-    FluxFormAdvection included), a deeper order, or bounds-preserving WENO
-    (which the port's plain WENO also refuses)."""
+    """(family, K) of a scheme the kernels take: CENTERED, UPWIND,
+    WENO_FAMILY or (bounds-preserving WENO, the padded #6's alone:
+    ``bounded_refusal``) BOUNDED_WENO_FAMILY and the scheme's buffer K (its
+    reach, ``required_halo``): Centered(2K) for K = 1..MAX_BUFFER,
+    UpwindBiased(2K-1), WENO(2K-1) for K >= 2. Raises for any other scheme:
+    another class (a per-axis FluxFormAdvection included) or a deeper
+    order."""
     K = getattr(scheme, "buffer", None)
+    bounded = getattr(scheme, "bounds", None) is not None
     if type(scheme) is Centered:
         family = CENTERED
     elif type(scheme) is UpwindBiased:
         family = UPWIND
-    elif type(scheme) is WENO and scheme.bounds is None and K >= 2:
-        family = WENO_FAMILY
+    elif type(scheme) is WENO and K >= 2:
+        family = BOUNDED_WENO_FAMILY if bounded else WENO_FAMILY
     else:
         family = None
     if family is None or not 1 <= K <= MAX_BUFFER:
@@ -297,8 +352,9 @@ def variant_name(scheme):
     """The name of a scheme's kernel variant, by family and order:
     ``centered4``, ``upwind5``, ``weno9``."""
     family, K = scheme_code(scheme)
-    return (("centered", "upwind", "weno")[family]
-            + str(2 * K if family == CENTERED else 2 * K - 1))
+    return (("centered", "upwind", "weno", "weno")[family]
+            + str(2 * K if family == CENTERED else 2 * K - 1)
+            + ("_bounded" if family == BOUNDED_WENO_FAMILY else ""))
 
 
 def count_launch(kernel, scheme, zmode=Z_BOUNDED):
@@ -428,8 +484,10 @@ def fused_advection_update(grid, scheme, u, v, w, Gm, gamma_dt, zeta_dt,
         return fused_advection_update_plain(grid, scheme, u, v, w, Gm,
                                             gamma_dt, zeta_dt, p, corr_dt,
                                             tracers)
-    check_fast_layout(grid)
+    if getattr(scheme, "bounds", None) is not None:
+        raise NotImplementedError(BOUNDED_REFUSAL)
     fam, K = scheme_code(scheme)
+    check_fast_layout(grid)
     table = coefficient_table(scheme)
     has_corr = p is not None
     if has_corr and corr_dt is None:
@@ -516,11 +574,14 @@ def fused_advection_tendency(grid, scheme, fields):
             "the tendency kernel takes what the TPU kernel's eligible "
             "takes: a regular grid with periodic x and y, neither flat "
             "(the model takes the plain flux divergences elsewhere)")
-    fam, K = scheme_code(scheme)
-    if len(fields) < 3:
-        raise ValueError("the tendency kernel takes u, v, w and the tracers")
     Hx, Hy, Hz = grid.H
     zmode = z_mode(grid)
+    fam, K = scheme_code(scheme)
+    why = bounded_refusal(grid, scheme, fields[0].dtype)
+    if why is not None:
+        raise NotImplementedError(why)
+    if len(fields) < 3:
+        raise ValueError("the tendency kernel takes u, v, w and the tracers")
     if min(Hx, Hy) < scheme.required_halo:
         raise ValueError(f"the tendency kernel needs Hx, Hy >= "
                          f"{scheme.required_halo}")
@@ -540,13 +601,23 @@ def fused_advection_tendency(grid, scheme, fields):
     with torch.cuda.device(G.device):
         lib = build.library()
         for a, b, smem in plan["launches"]:
-            build.check(lib.oc_advection_tendency(
-                fam, K, _DTYPE_CODES[G.dtype], scode, vel,
-                build.pointers(fields[a:b]), b - a, a,
-                build.pointers(G[a:b].unbind(0)), Nx, Ny, Nz, Hx, Hy, Hz,
-                zmode, m["Ax"], m["Ay"], m["Az"], m["V"], table, len(table),
-                *plan["tile"], plan["threads"], plan["blocks"], smem,
-                build.stream_of(G)), lib)
+            if fam == BOUNDED_WENO_FAMILY:
+                lo, hi = scheme.bounds
+                build.check(lib.oc_advection_tendency_bounded(
+                    K, _DTYPE_CODES[G.dtype], scode, vel,
+                    build.pointers(fields[a:b]), b - a, a,
+                    build.pointers(G[a:b].unbind(0)), Nx, Ny, Nz, Hx, Hy, Hz,
+                    zmode, m["Ax"], m["Ay"], m["Az"], m["V"], lo, hi, table,
+                    len(table), *plan["tile"], plan["threads"],
+                    plan["blocks"], smem, build.stream_of(G)), lib)
+            else:
+                build.check(lib.oc_advection_tendency(
+                    fam, K, _DTYPE_CODES[G.dtype], scode, vel,
+                    build.pointers(fields[a:b]), b - a, a,
+                    build.pointers(G[a:b].unbind(0)), Nx, Ny, Nz, Hx, Hy, Hz,
+                    zmode, m["Ax"], m["Ay"], m["Az"], m["V"], table,
+                    len(table), *plan["tile"], plan["threads"],
+                    plan["blocks"], smem, build.stream_of(G)), lib)
             count_launch(fused_advection_tendency, scheme, zmode)
     return G
 

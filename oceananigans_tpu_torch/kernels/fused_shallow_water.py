@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import torch
 
+from ..advection.fluxes import BOUNDED_REFUSAL
 from ..advection.shallow_water import conservative_tendencies
 from ..coriolis import FPlane, constant_f
 from ..grids.topology import PERIODIC
@@ -147,6 +148,8 @@ def fused_sw_update(grid, scheme, g, f, hB, names, fields, Gm, gamma_dt,
     if q[0].device.type == "cpu":
         return fused_sw_update_plain(grid, scheme, g, f, hB, names, fields,
                                      Gm, gamma_dt, zeta_dt)
+    if getattr(scheme, "bounds", None) is not None:
+        raise NotImplementedError(BOUNDED_REFUSAL)
     fam, K = scheme_code(scheme)
     if not sw_eligible(grid):
         raise ValueError("the fused shallow-water stage takes a regular grid "

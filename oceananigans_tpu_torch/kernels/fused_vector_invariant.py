@@ -85,9 +85,9 @@ from ..grids.topology import (BOUNDED, FLAT, LOC_CCC, LOC_CCF, LOC_CFC,
                               LOC_FCC)
 from ..operators.operators import LOC_FFC, ddx, ddy
 from . import build
-from .fused_advection import (CENTERED, MAX_SMEM, SM_SMEM, SMEM_RESERVED,
-                              UPWIND, WENO_FAMILY, _SMOOTHNESS_CODES, _align,
-                              scheme_code)
+from .fused_advection import (BOUNDED_WENO_FAMILY, CENTERED, MAX_SMEM,
+                              SM_SMEM, SMEM_RESERVED, UPWIND, WENO_FAMILY,
+                              _SMOOTHNESS_CODES, _align, scheme_code)
 from .fused_projection import _DTYPE_CODES
 
 # Tracers one launch takes (csrc/vi_kernel.cuh kBatch); a call with more
@@ -222,6 +222,9 @@ def vi_config(grid, vi, tracer_scheme, n_tracers, coriolis):
         try:
             c = scheme_code(scheme)
         except NotImplementedError:
+            c = None
+        if c is None or c[0] == BOUNDED_WENO_FAMILY:
+            # #10 has no bounds-preserving limiter (ROADMAP.md queue 2)
             why.append(f"scheme {scheme!r} at {site}")
             return
         sites[site] = c

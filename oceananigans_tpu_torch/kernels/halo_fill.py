@@ -696,12 +696,8 @@ def fill_codes(grid, shape, locs_bcs=None, n=1, z=True, pa=False, until=3):
                     topo not in (PERIODIC, BOUNDED):
                 axes.append(keep)
             elif topo == PERIODIC:
-                if lb is not None and ax == 2 and any(
-                        bc is not None and bc.classification != bcm.PERIODIC_BC
-                        for bc in lb[1].pair(2)):
-                    raise NotImplementedError(
-                        "conditions other than periodic on a periodic z are "
-                        f"not ported yet: {bcm.USER_BCS_ITEM}")
+                # a periodic axis wraps whatever conditions its sides name,
+                # as the JAX fill does (a model refuses them when built)
                 if N < H:
                     raise ValueError(f"a periodic halo fill needs N >= H "
                                      f"along axis {ax} (N={N}, H={H})")

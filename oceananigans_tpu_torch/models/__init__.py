@@ -9,6 +9,13 @@ from .shallow_water import (CONSERVATIVE, VECTOR_INVARIANT,
                             VectorInvariantFormulation)
 from .cubed_sphere_shallow_water import CubedSphereShallowWaterModel
 from .cubed_sphere_hydrostatic import CubedSphereHydrostaticModel
+from .ensemble import EnsembleModel
+from .diagnostic_operations import (BoundaryAdjacentMean,
+                                    BoundaryConditionField,
+                                    BoundaryConditionOperation,
+                                    BuoyancyField, ForcingField,
+                                    ForcingOperation, PressureField,
+                                    boundary_adjacent_mean)
 
 __all__ = ["NonhydrostaticModel", "state_from_jax", "ShallowWaterModel",
            "HydrostaticFreeSurfaceModel", "PrescribedVelocityFields",
@@ -16,4 +23,7 @@ __all__ = ["NonhydrostaticModel", "state_from_jax", "ShallowWaterModel",
            "ImplicitFreeSurface", "SplitExplicitFreeSurface",
            "ConservativeFormulation", "VectorInvariantFormulation",
            "CONSERVATIVE", "VECTOR_INVARIANT", "CubedSphereShallowWaterModel",
-           "CubedSphereHydrostaticModel"]
+           "CubedSphereHydrostaticModel", "EnsembleModel",
+           "BoundaryAdjacentMean", "BoundaryConditionField",
+           "BoundaryConditionOperation", "BuoyancyField", "ForcingField",
+           "ForcingOperation", "PressureField", "boundary_adjacent_mean"]

@@ -154,6 +154,8 @@ class _PanelPhysics:
     uses_kernel = False
     _cut_tendencies = False
     prescribed_velocities = None
+    biogeochemistry = None
+    auxiliary_fields = {}
     _compute_tendencies = HFSM._compute_tendencies
     _moving_grid = HFSM._moving_grid
     _sigma_fields = HFSM._sigma_fields

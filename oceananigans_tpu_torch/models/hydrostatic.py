@@ -89,8 +89,9 @@ outside the σ-weighted update, as in JAX.
 ``velocities=PrescribedVelocityFields(u, v, w)``: the tracer-only mode
 (constants or callables of (x, y, z, t)), quasi-AB2 or the split RK3.
 
-Biogeochemistry and auxiliary fields raise ``NotImplementedError`` naming
-their ROADMAP item.
+Biogeochemistry (reactions and drift, ``biogeochemistry.py``) adds to the
+tracer tendencies; auxiliary fields are carried on the model and read by
+the forcings.
 """
 
 from __future__ import annotations
@@ -99,6 +100,7 @@ import numpy as np
 import torch
 
 from ..advection import Centered
+from ..biogeochemistry import drift_tendency
 from ..advection.vector_invariant import VectorInvariant
 from ..boundary_conditions import (apply_flux_bcs_padded,
                                    fill_all_halo_regions,
@@ -128,18 +130,12 @@ from ..timesteppers import (QuasiAdamsBashforth2TimeStepper,
 from ..utils.dateclock import datetime_of
 from .free_surfaces import (ExplicitFreeSurface, ImplicitFreeSurface,
                             SplitExplicitFreeSurface)
-from .nonhydrostatic import _vertical_spacings, implicit_vertical_diffusion
+from .nonhydrostatic import (_vertical_spacings, auxiliary_data,
+                             implicit_vertical_diffusion)
 from .zstar import ZStarGrid, sigma_from_eta
 
 PROGNOSTIC_LOCS = {"u": LOC_FCC, "v": LOC_CFC}
 ZSTAR_STATE = ("dt_sigma", "eta_grid", "G_sigma")
-
-
-_LONG_TAIL = "ROADMAP.md queue 1 item 15 (the long tail)"
-_NOT_PORTED = {
-    "biogeochemistry": _LONG_TAIL,
-    "auxiliary_fields": _LONG_TAIL,
-}
 
 
 def ZCoordinate():
@@ -264,12 +260,6 @@ class HydrostaticFreeSurfaceModel:
                  vertical_coordinate="z", biogeochemistry=None,
                  auxiliary_fields=None, fused_tendencies="auto",
                  reference_datetime=None, device=None, dtype=None):
-        given = dict(biogeochemistry=biogeochemistry,
-                     auxiliary_fields=auxiliary_fields)
-        for name, value in given.items():
-            if value:
-                raise NotImplementedError(
-                    f"{name} is not ported yet: {_NOT_PORTED[name]}")
         if velocities is not None and not isinstance(
                 velocities, PrescribedVelocityFields):
             raise ValueError(f"velocities={velocities!r}: a "
@@ -297,9 +287,8 @@ class HydrostaticFreeSurfaceModel:
             closure = ClosureTuple(*closure)
         if closure is not None and not isinstance(closure, _ClosureBase):
             raise NotImplementedError(
-                f"closure {closure!r} is not a closure of the port's "
-                f"closures/ (the others are not ported yet: ROADMAP.md queue "
-                f"1 item 15)")
+                f"closure {closure!r} is not one of the closures of "
+                f"closures/")
         if fused_tendencies not in (True, False, "packed", "auto"):
             raise ValueError(f"fused_tendencies={fused_tendencies!r}")
         self.reference_datetime = reference_datetime
@@ -321,10 +310,15 @@ class HydrostaticFreeSurfaceModel:
         if isinstance(tracers, str):
             tracers = (tracers,)
         tracers = tuple(tracers)
-        for source in (buoyancy, closure):
-            tracers += tuple(n for n in getattr(source, "required_tracers",
-                                                ()) if n not in tracers)
+        for source in (buoyancy, biogeochemistry, closure):
+            for n in getattr(source, "required_tracers", ()):
+                if n not in tracers:
+                    tracers += (n,)
         self.tracer_names = tracers
+        self.biogeochemistry = biogeochemistry
+        # extra Fields carried on the model (``field``, the forcings'
+        # dependencies), not stepped
+        self.auxiliary_fields = dict(auxiliary_fields or {})
         self.buoyancy = buoyancy
         self.coriolis = coriolis
         self.closure = closure
@@ -707,6 +701,8 @@ class HydrostaticFreeSurfaceModel:
         return int(self.state["clock"]["iteration"])
 
     def field(self, name):
+        if name in self.auxiliary_fields:
+            return self.auxiliary_fields[name]
         data = self.state["w"] if name == "w" else self.state["fields"][name]
         return Field(self.grid, self.loc(name), self.bcs[name], data,
                      _regularize=False)
@@ -1018,8 +1014,19 @@ class HydrostaticFreeSurfaceModel:
                 else:
                     G[name] = G[name] + self.closure.tracer_tendency(
                         grid, name, cf, aux)
+        bgc = self.biogeochemistry
+        if bgc is not None:
+            for name in self.tracer_names:
+                G[name] = G[name] + bgc.tracer_tendency(grid, name, fields,
+                                                        time)
+                drift = bgc.drift_velocity(name)
+                if drift is not None:
+                    G[name] = G[name] + drift_tendency(
+                        grid, self.tracer_scheme(name), drift, fields[name])
+        ffields = ({**fields, **self.state["aux"]} if self.auxiliary_fields
+                   else fields)
         for name, F in self.forcing.items():
-            G[name] = G[name] + (F(grid, fields, time) if callable(F)
+            G[name] = G[name] + (F(grid, ffields, time) if callable(F)
                                  else F)
         locs = {n: self.loc(n) for n in fields}
         for name in G:
@@ -1171,6 +1178,10 @@ class HydrostaticFreeSurfaceModel:
 
     def time_step(self, dt):
         """Advance the model by one step of Δt (quasi-AB2 or split RK3)."""
+        if self.auxiliary_fields:
+            # the step reads the auxiliary fields as they are now
+            self.state = dict(self.state, aux=auxiliary_data(
+                self.grid, self.auxiliary_fields))
         rk3 = isinstance(self.timestepper, SplitRungeKutta3TimeStepper)
         if self.prescribed_velocities is not None:
             (self._prescribed_rk3_step if rk3
@@ -1180,6 +1191,8 @@ class HydrostaticFreeSurfaceModel:
         else:
             self._ab2_step(dt)
         self._run_state_hooks()
+        if self.biogeochemistry is not None:
+            self.biogeochemistry.update_state(self)
         return self
 
     def _ab2_step(self, dt):

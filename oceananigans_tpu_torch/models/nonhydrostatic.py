@@ -20,9 +20,10 @@ the user's ``pressure_solver=``: FFT/DCT on a regular grid,
 Fourier-tridiagonal with one stretched bounded axis, the conjugate-gradient
 solvers elsewhere (``make_immersed_poisson_solver`` on an immersed grid,
 ``make_variable_spacing_poisson_solver`` on a grid stretched along several
-axes or a periodic one and on curvilinear grids). Biogeochemistry,
-particles and auxiliary fields raise ``NotImplementedError`` naming their
-ROADMAP item.
+axes or a periodic one and on curvilinear grids), biogeochemistry
+(reactions and drift, ``biogeochemistry.py``), Lagrangian particles
+(``particles.py``, advected at the end of each step) and auxiliary fields
+(read by the forcings).
 
 On an immersed grid the model takes the padded layout and the plain flux
 divergences with the near-wall cascade of the schemes (as the JAX model
@@ -103,6 +104,7 @@ from ..advection import Centered
 from ..advection.fluxes import div_Uc, div_Uu, div_Uv, div_Uw
 from ..advection.schemes import adapt_advection_order
 from ..background_fields import evaluate_background
+from ..biogeochemistry import drift_tendency
 from ..boundary_conditions import (apply_flux_bcs, fill_all_halo_regions,
                                    regularize_field_boundary_conditions)
 from ..boundary_conditions.boundary_condition import (OPEN,
@@ -121,7 +123,8 @@ from ..immersed import ImmersedBoundaryGrid
 from ..kernels import (build_sharded_fused_advection,
                        fused_advection_tendency, fused_advection_update,
                        fused_correct, fused_divergence, periodic_halo_fill)
-from ..kernels.fused_advection import kernel_tendency_eligible
+from ..kernels.fused_advection import (bounded_refusal,
+                                      kernel_tendency_eligible)
 from ..parallel.distributed import regularize_architecture
 from ..solvers.fft_poisson import FFTPoissonSolver
 from ..solvers.fourier_tridiagonal import FourierTridiagonalPoissonSolver
@@ -132,13 +135,6 @@ from ..timesteppers import (RK3_GAMMAS, RK3_ZETAS,
 from ..utils.dateclock import datetime_of
 
 PROGNOSTIC_LOCS = {"u": LOC_FCC, "v": LOC_CFC, "w": LOC_CCF}
-
-_NOT_PORTED = {
-    "biogeochemistry": "ROADMAP.md queue 1 item 15 (the long tail)",
-    "particles": "ROADMAP.md queue 1 item 15 (the long tail)",
-    "auxiliary_fields": "ROADMAP.md queue 1 item 15 (the long tail)",
-}
-
 
 def _timestepper(timestepper):
     if timestepper in ("RungeKutta3", "rk3") or isinstance(
@@ -191,19 +187,12 @@ class NonhydrostaticModel:
                  auxiliary_fields=None, fuse_correction=True,
                  architecture=None, reference_datetime=None, device=None,
                  dtype=None):
-        given = dict(biogeochemistry=biogeochemistry, particles=particles,
-                     auxiliary_fields=auxiliary_fields)
-        for name, value in given.items():
-            if value:
-                raise NotImplementedError(
-                    f"{name} is not ported yet: {_NOT_PORTED[name]}")
         if isinstance(closure, (tuple, list)):
             closure = ClosureTuple(*closure)
         if closure is not None and not isinstance(closure, _ClosureBase):
             raise NotImplementedError(
-                f"closure {closure!r} is not a closure of the port's "
-                "closures/ (the others are not ported yet: ROADMAP.md queue "
-                "1 items 13 and 15)")
+                f"closure {closure!r} is not one of the closures of "
+                "closures/")
         if device is not None or dtype is not None:
             grid = grid.to(device=device, dtype=dtype)
         self.architecture = regularize_architecture(architecture)
@@ -216,10 +205,16 @@ class NonhydrostaticModel:
         if isinstance(tracers, str):
             tracers = (tracers,)
         tracers = tuple(tracers)
-        for source in (buoyancy, closure):
-            tracers += tuple(n for n in getattr(source, "required_tracers",
-                                                ()) if n not in tracers)
+        for source in (buoyancy, biogeochemistry, closure):
+            for n in getattr(source, "required_tracers", ()):
+                if n not in tracers:
+                    tracers += (n,)
         self.tracer_names = tracers
+        self.biogeochemistry = biogeochemistry
+        # extra Fields carried on the model (``field``, the forcings'
+        # dependencies), not stepped
+        self.auxiliary_fields = dict(auxiliary_fields or {})
+        self.particles = particles
         self.buoyancy = buoyancy
         self.coriolis = coriolis
         self.closure = closure
@@ -251,6 +246,8 @@ class NonhydrostaticModel:
             PERIODIC, PERIODIC, BOUNDED)
             and closure is None and not self.forcing
             and stokes_drift is None and not self.immersed
+            and biogeochemistry is None and particles is None
+            and getattr(advection, "bounds", None) is None
             and not self.background_fields and not user_zbcs)
         # the advective GM form advects the tracers with eddy velocities
         # added, which the kernel does not know (JAX leaves its fused path
@@ -312,6 +309,10 @@ class NonhydrostaticModel:
                for r in self._regions.values()):
             # the tendency kernel writes the interior alone
             self._kernel_tendency = False
+        why = bounded_refusal(self.grid, self.advection, self.grid.dtype)
+        if self._kernel_tendency and why and self.grid.device.type == "cuda":
+            # JAX's kernel takes it: refused, not sent to the plain tendency
+            raise NotImplementedError(why)
         self.bcs["p"] = regularize_field_boundary_conditions(
             None, self.grid, LOC_CCC)
         validate_implicit_closure_z_bcs(closure, self.bcs)
@@ -344,6 +345,8 @@ class NonhydrostaticModel:
                 tuple(s.stop - s.start for s in self._regions[n]),
                 dtype=self.grid.dtype, device=self.grid.device)
                 for n in self.prognostic_names}
+        if self.particles is not None:
+            self.state["particles"] = self.particles.initial_state(self.grid)
 
     # -- basic properties -----------------------------------------------------
 
@@ -377,6 +380,8 @@ class NonhydrostaticModel:
         return int(self.state["clock"]["iteration"])
 
     def field(self, name):
+        if name in self.auxiliary_fields:
+            return self.auxiliary_fields[name]
         if name == "p":
             return Field(self.grid, LOC_CCC, self.bcs["p"],
                          self.state["pressure"], _regularize=False)
@@ -522,8 +527,8 @@ class NonhydrostaticModel:
         tensors out); in the padded layout, in place, JAX's order: the solid
         cells of an immersed grid zeroed, a fill of u, v, w (with Δt, at the
         clock ``time``), the open sides' mass balance, the plain PyTorch
-        divergence, the solve, the pressure fill, the plain correction, the
-        solid cells zeroed again."""
+        divergence, the solve, the pressure fill, the plain correction of
+        the whole padded tensors, the solid cells zeroed again."""
         if self._z_compact:
             if not halos_valid:
                 self._fill_all(dict(u=u, v=v, w=w), time, dtt)
@@ -537,18 +542,16 @@ class NonhydrostaticModel:
         dtt = float(dtt)
         rhs = _interior_divergence(grid, u, v, w) / dtt
         p = self._solve_padded(rhs, time)
-        ints = grid.interior_slices
-        pi = p[ints]
+        # the whole padded tensors, halos included, as the JAX step
+        # corrects them (u -= Δt·∂x p, ...): the filled halos then hold the
+        # corrected values; in place, through one scratch tensor
+        d = torch.empty_like(p)
         for axis, (a, delta) in enumerate(((u, grid.dx), (v, grid.dy),
                                            (w, grid.dz))):
-            if grid.is_flat(axis):
-                continue
-            loc = (LOC_FCC, LOC_CFC, LOC_CCF)[axis]
-            region = self._regions["uvw"[axis]]
-            below = _shifted(region, axis, -1)
-            grad = (p[region] - p[below]) / _metric_at(grid, delta(loc),
-                                                       region)
-            a[region] -= dtt * grad
+            if not grid.is_flat(axis):
+                _padded_gradient(d, p, axis, delta((LOC_FCC, LOC_CFC,
+                                                    LOC_CCF)[axis]))
+                a -= d.mul_(dtt)
         if self.immersed:
             for name, a in zip("uvw", (u, v, w)):
                 grid.mask_immersed_(a, self.loc(name))
@@ -625,8 +628,19 @@ class NonhydrostaticModel:
             for name in self.tracer_names:
                 G[name] = G[name] + R(name, self.closure.tracer_tendency(
                     grid, name, fields, aux))
+        bgc = self.biogeochemistry
+        if bgc is not None:
+            for name in self.tracer_names:
+                G[name] = G[name] + R(name, bgc.tracer_tendency(
+                    grid, name, fields, time))
+                drift = bgc.drift_velocity(name)
+                if drift is not None:
+                    G[name] = G[name] + R(name, drift_tendency(
+                        grid, self.advection, drift, fields[name]))
+        ffields = ({**fields, **self.state["aux"]} if self.auxiliary_fields
+                   else fields)
         for name, F in self.forcing.items():
-            G[name] = G[name] + R(name, F(grid, fields, time))
+            G[name] = G[name] + R(name, F(grid, ffields, time))
         locs = {n: self.loc(n) for n in fields}
         for name in G:
             apply_flux_bcs(G[name], grid, self.loc(name), self.bcs[name],
@@ -724,8 +738,26 @@ class NonhydrostaticModel:
             fields.update(hook(self.grid, fields, time))
         self.state = {**self.state, "fields": fields}
 
+    def _step_particles(self, fields, dt):
+        """Advect and track the particles with the step's final fields. The
+        projection corrected the velocities' halos; a tracked tracer's
+        still hold the values of the last stage's start, so it is filled
+        first."""
+        if self.particles is not None:
+            tracked = [n for n in self.particles.tracked_fields
+                       if n in fields and n not in ("u", "v", "w")]
+            if tracked:
+                self._fill_all({n: fields[n] for n in tracked},
+                               self.state["clock"]["time"])
+            self.state["particles"] = self.particles.step(
+                self.grid, fields, self.state["particles"], dt)
+
     def time_step(self, dt):
         """Advance the model state by one Δt."""
+        if self.auxiliary_fields:
+            # the step reads the auxiliary fields as they are now
+            self.state = dict(self.state, aux=auxiliary_data(
+                self.grid, self.auxiliary_fields))
         if self._fused_update:
             self._step_compact(dt)
         elif isinstance(self.timestepper, QuasiAdamsBashforth2TimeStepper):
@@ -733,6 +765,8 @@ class NonhydrostaticModel:
         else:
             self._step_tendencies(dt)
         self._run_state_hooks()
+        if self.biogeochemistry is not None:
+            self.biogeochemistry.update_state(self)
         return self
 
     def _step_tendencies(self, dt):
@@ -758,10 +792,11 @@ class NonhydrostaticModel:
             time = time + stage_dt
         fields = self._advance_closure_state(fields, dt, clock["iteration"],
                                              time)
-        self.state = dict(fields=fields, pressure=p,
+        self.state = dict(self.state, fields=fields, pressure=p,
                           clock=dict(time=time,
                                      iteration=clock["iteration"] + 1,
                                      last_dt=dt))
+        self._step_particles(fields, dt)
         return self
 
     def _step_ab2(self, dt):
@@ -783,10 +818,11 @@ class NonhydrostaticModel:
         new.update(u=u, v=v, w=w)
         new = self._advance_closure_state(new, dt, clock["iteration"],
                                           clock["time"])
-        self.state = dict(fields=new, pressure=p, Gm=G,
+        self.state = dict(self.state, fields=new, pressure=p, Gm=G,
                           clock=dict(time=clock["time"] + dt,
                                      iteration=clock["iteration"] + 1,
                                      last_dt=dt))
+        self._step_particles(new, dt)
         return self
 
     def _step_compact(self, dt):
@@ -817,7 +853,7 @@ class NonhydrostaticModel:
                 pend = None
             fields = new
             time = time + stage_dt
-        self.state = dict(fields=fields, pressure=p,
+        self.state = dict(self.state, fields=fields, pressure=p,
                           clock=dict(time=time,
                                      iteration=clock["iteration"] + 1,
                                      last_dt=dt))
@@ -828,6 +864,32 @@ class NonhydrostaticModel:
                 f"advection={self.advection!r}, tracers={self.tracer_names}, "
                 f"closure={self.closure!r}, "
                 f"timestepper={self.timestepper.name})")
+
+
+def _padded_gradient(out, p, axis, delta):
+    """δp/Δ at the faces below the cells along ``axis`` over the whole
+    padded tensor, into ``out``: out[i] = (p[i] - p[i-1]) / Δ[i], and out[0]
+    = p[0] / Δ[0] (the shift's zero fill), as ``operators.ddx`` forms it,
+    rounded the same way."""
+    n = p.shape[axis]
+    lo, hi, inner = (p.narrow(axis, 0, n - 1), p.narrow(axis, 1, n - 1),
+                     out.narrow(axis, 1, n - 1))
+    if p.requires_grad and torch.is_grad_enabled():
+        inner.copy_(hi - lo)   # autograd takes no out=
+    else:
+        torch.sub(hi, lo, out=inner)
+    out.narrow(axis, 0, 1).copy_(p.narrow(axis, 0, 1))
+    return out.div_(delta if isinstance(delta, (int, float))
+                    else torch.as_tensor(delta, dtype=p.dtype,
+                                         device=p.device))
+
+
+def auxiliary_data(grid, fields):
+    """{name: padded tensor} of a model's auxiliary fields on its grid (a
+    field made before the model widened the halos is placed anew)."""
+    return {n: (f.data if tuple(f.data.shape) == tuple(grid.padded_shape)
+                else set_on_padded(grid, f.loc, f.interior))
+            for n, f in fields.items()}
 
 
 def _vertical_spacings(grid):

@@ -58,3 +58,19 @@ class SplitRungeKutta3TimeStepper:
     name = "SplitRungeKutta3"
     n_stages = 3
     betas = (3.0, 2.0, 1.0)
+
+
+def Clock(time=0.0, iteration=0, last_dt=None, dtype=None):
+    """A model clock, the ``state["clock"]`` entry::
+
+        model.state["clock"] = Clock(time=30.0, iteration=5,
+                                     dtype=model.dtype)
+
+    ``last_dt`` defaults to +inf, so that a quasi-Adams-Bashforth-2 stepper
+    takes its Euler first step; ``dtype`` (the model's field dtype, the
+    package default otherwise) sets the type of the times."""
+    import numpy as np
+    from ..defaults import numpy_dtype
+    nt = numpy_dtype(dtype)
+    return dict(time=nt(time), iteration=int(iteration),
+                last_dt=nt(np.inf if last_dt is None else last_dt))

@@ -59,6 +59,15 @@ the state after set() with w from continuity, without and with a pₕ′:
 five CUDA-event medians of 10 calls each (``vi_hydro_ms``,
 ``vi_hydro_ph_ms``), so that one run shows its own spread. One JSON line.
 
+    PYTHONPATH=<copy> python oceananigans_tpu_torch/tools/ab_kernels.py nh-rows <label>
+
+steps the nonhydrostatic rows A (triply periodic 256³, WENO(5), H = 3, u,
+v, w from np.random.default_rng(0), float32) and B (two-dimensional
+turbulence at 8192², WENO(5), a flat z, u, v from np.random.default_rng(0))
+on the padded layout: for each, the median host-clock step (10 after 3
+warm-up), the peak device memory over those steps, and the device-busy ms
+and device kernels per step (torch.profiler over 3 steps). One JSON line.
+
     python oceananigans_tpu_torch/tools/ab_kernels.py sweep
 
 times the block-tiled #1 and #8 of this copy under other launch plans: for
@@ -401,6 +410,43 @@ def sweep():
         torch.cuda.empty_cache()
 
 
+def nh_row(row):
+    rng = np.random.default_rng(0)
+    if row == "A":
+        n = 256
+        grid = ot.RectilinearGrid(size=(n, n, n), extent=(2 * np.pi,) * 3,
+                                  topology=("periodic",) * 3, halo=3,
+                                  dtype=torch.float32, device="cuda")
+        m = ot.NonhydrostaticModel(grid, advection=ot.WENO(5))
+        m.set(**{c: rng.standard_normal((n, n, n), dtype=np.float32)
+                 for c in "uvw"})
+        return m, 1e-3
+    n = 8192
+    grid = ot.RectilinearGrid(size=(n, n), x=(0, 2 * np.pi),
+                              y=(0, 2 * np.pi),
+                              topology=("periodic", "periodic", "flat"),
+                              dtype=torch.float32, device="cuda")
+    m = ot.NonhydrostaticModel(grid, advection=ot.WENO(5))
+    m.set(**{c: rng.standard_normal((n, n, 1), dtype=np.float32)
+             for c in "uv"})
+    return m, 5e-5
+
+
+def nh_rows(res):
+    for row in "AB":
+        model, dt = nh_row(row)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res[f"row{row}_step_ms"] = steps(model, dt)
+        res[f"row{row}_peak_GiB"] = (torch.cuda.max_memory_allocated()
+                                     / 2 ** 30)
+        busy, kernels, _ = device_profile(model, dt)
+        res[f"row{row}_busy_ms"] = busy
+        res[f"row{row}_kernels_per_step"] = kernels
+        del model
+        torch.cuda.empty_cache()
+
+
 def vi_rounds(res, rounds=5):
     m = hydro_model()
     args = vi_args(m)
@@ -417,6 +463,12 @@ def main(label):
                "package": ot.__file__,
                "device": torch.cuda.get_device_name(0)}
         vi_rounds(res)
+        return print(json.dumps(res))
+    if label == "nh-rows":
+        res = {"label": sys.argv[2] if len(sys.argv) > 2 else "nh-rows",
+               "package": ot.__file__,
+               "device": torch.cuda.get_device_name(0)}
+        nh_rows(res)
         return print(json.dumps(res))
     if label == "profile-vi":
         return profile_vi()

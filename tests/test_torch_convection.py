@@ -46,6 +46,7 @@ from oceananigans_tpu.kernels.pallas_fill import get_pallas_fill
 from oceananigans_tpu.models import NonhydrostaticModel as JModel
 import chip_smoke
 import oceananigans_tpu_torch as ot
+import oceananigans_tpu_torch.biogeochemistry  # noqa: F401
 from oceananigans_tpu_torch import kernels as K
 from oceananigans_tpu_torch.boundary_conditions import (
     apply_flux_bcs, fill_halo_regions, regularize_field_boundary_conditions)
@@ -316,18 +317,35 @@ def test_goldens(name):
 
 # -- what is not ported -------------------------------------------------------
 
+# the options the port refused before item 15, which the model now takes
+# (tests/test_torch_long_tail.py holds them against JAX)
 UNPORTED = {
-    "particles": lambda: dict(particles=object()),
-    "biogeochemistry": lambda: dict(biogeochemistry=object()),
-    "auxiliary_fields": lambda: dict(auxiliary_fields={"a": object()}),
+    "particles": lambda: dict(particles=ot.LagrangianParticles(
+        x=[0.5], y=[0.5], z=[-0.5])),
+    "biogeochemistry": lambda: dict(
+        biogeochemistry=ot.biogeochemistry.SimpleBiogeochemistry(
+            tracers=("P",))),
+    "auxiliary_fields": lambda: dict(auxiliary_fields={"a": None}),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unported_options_raise(case):
+    """Once refused, now taken: the model carries the option, leaves the
+    z-compact route where JAX does, and steps."""
     grid = _tgrid((8, 8, 8), (3, 3, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NonhydrostaticModel(grid, advection=ot.WENO(5), **UNPORTED[case]())
+    kw = UNPORTED[case]()
+    if case == "auxiliary_fields":
+        kw = dict(auxiliary_fields={"a": ot.CenterField(grid).set(1.0)})
+    m = NonhydrostaticModel(grid, advection=ot.WENO(5), **kw)
+    assert m._z_compact == (case == "auxiliary_fields")
+    m.time_step(1e-3)
+    if case == "particles":
+        assert m.state["particles"]["x"].shape == (1,)
+    elif case == "biogeochemistry":
+        assert "P" in m.tracer_names
+    else:
+        assert m.field("a") is kw["auxiliary_fields"]["a"]
 
 
 def test_pressure_solver_is_taken():

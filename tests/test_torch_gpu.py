@@ -1824,3 +1824,136 @@ def test_cubed_sphere_models_card_against_cpu():
         a = results["cuda"][name]
         scale = max(b.abs().max().item(), 1e-12)
         assert (a - b).abs().max().item() / scale <= 1e-10, name
+
+
+# -- the bounded #6 and the ensemble --------------------------------------------
+# The padded tendency with the bounds-preserving limiter
+# (csrc/bounded_limiter.cuh) against its plain version: u, v, w and two
+# step-function tracers on interiors no tile divides, a bounded z (the
+# cascade), a periodic and a flat z, WENO(5) and WENO(9); float64 with
+# float64 smoothness at 1e-12 of max|plain|, and float32 fields, or float64
+# fields with WENO's default float32 smoothness, at 1e-5 of each
+# component's max|plain| (the smoothness arithmetic rounds in float32; the
+# kernels build with -fmad=false and divide exactly). An EnsembleModel's
+# member equals its solo run bit for bit.
+
+BOUNDED_SHAPE = (19, 13, 21)
+
+
+def _bounded_inputs(topology, dtype, seed=5):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    n = 2 if topology[2] == "flat" else 3
+    grid = ot.RectilinearGrid(size=BOUNDED_SHAPE[:n],
+                              extent=(1.0, 2.0, 1.5)[:n], halo=(6,) * n,
+                              topology=topology, dtype=dtype, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    fields = [0.1 * torch.randn(grid.padded_shape, generator=gen,
+                                dtype=dtype, device="cuda")
+              for _ in range(3)]
+    fields += [(torch.rand(grid.padded_shape, generator=gen, dtype=dtype,
+                           device="cuda") > 0.5).to(dtype)
+               for _ in range(2)]
+    locs = ((("f", "c", "c")), ("c", "f", "c"), ("c", "c", "f"),
+            ("c", "c", "c"), ("c", "c", "c"))
+    from oceananigans_tpu_torch.boundary_conditions import \
+        fill_all_halo_regions
+    fill_all_halo_regions(fields, grid, [
+        (loc, regularize_field_boundary_conditions(None, grid, loc))
+        for loc in locs])
+    return grid, fields
+
+
+@pytest.mark.parametrize("order", [5, 9])
+@pytest.mark.parametrize("dtypes", [(torch.float64, torch.float64),
+                                    (torch.float32, torch.float32),
+                                    (torch.float64, torch.float32)],
+                         ids=["float64", "float32", "float64_f32smooth"])
+@pytest.mark.parametrize("topology", [("periodic", "periodic", "bounded"),
+                                      ("periodic", "periodic", "periodic"),
+                                      ("periodic", "periodic", "flat")],
+                         ids=["bounded_z", "periodic_z", "flat_z"])
+def test_bounded_tendency(topology, dtypes, order):
+    dtype, smooth = dtypes
+    grid, fields = _bounded_inputs(topology, dtype)
+    scheme = ot.WENO(order, smoothness_dtype=smooth, bounds=(0.0, 1.0))
+    K.reset_counters()
+    Gk = K.fused_advection_tendency(grid, scheme, fields)
+    launches, _ = K.counters()
+    Gp = K.fused_advection_tendency_plain(grid, scheme, fields)
+    bound = TOL if smooth == torch.float64 else 1e-5
+    for k in range(len(fields)):
+        err = (Gk[k] - Gp[k]).abs().max().item()
+        assert err <= bound * Gp[k].abs().max().item(), (k, err)
+    name = f"fused_advection_tendency_weno{order}_bounded" + {
+        "bounded": "", "periodic": "_zperiodic", "flat": "_zflat"}[
+            topology[2]]
+    assert launches[name] == 1
+
+
+def test_bounded_tendency_refusals():
+    """What the bounded #6 is not built for raises on the card, in the
+    wrapper and in the model (float32 fields with float64 or bfloat16
+    smoothness), and #1 refuses the limiter with JAX's message."""
+    grid, fields = _bounded_inputs(("periodic", "periodic", "bounded"),
+                                   torch.float32)
+    for smooth in (torch.float64, torch.bfloat16):
+        scheme = ot.WENO(5, smoothness_dtype=smooth, bounds=(0.0, 1.0))
+        with pytest.raises(NotImplementedError, match="smoothness"):
+            K.fused_advection_tendency(grid, scheme, fields)
+        with pytest.raises(NotImplementedError, match="smoothness"):
+            ot.NonhydrostaticModel(grid, advection=scheme, tracers=("c",))
+    with pytest.raises(NotImplementedError, match="z-compact"):
+        K.fused_advection_update(grid, ot.WENO(5, bounds=(0.0, 1.0)),
+                                 *fields[:3], None, 0.1, 0.0)
+
+
+def test_bounded_model_takes_the_kernel():
+    """The NH model with WENO's default smoothness on float64 fields and on
+    a flat z launches the bounded #6 on the card, as JAX's model takes its
+    kernel there."""
+    for topology, dtype in ((("periodic", "periodic", "bounded"),
+                             torch.float64),
+                            (("periodic", "periodic", "flat"),
+                             torch.float32)):
+        grid, _ = _bounded_inputs(topology, dtype)
+        model = ot.NonhydrostaticModel(
+            grid, advection=ot.WENO(5, bounds=(0.0, 1.0)), tracers=("c",))
+        assert model._kernel_tendency and not model._z_compact
+        model.set(u=0.1, c=0.5)
+        K.reset_counters()
+        model.time_step(1e-3)
+        launches, plain = K.counters()
+        assert launches["fused_advection_tendency"] == 3, launches
+        assert plain["fused_advection_tendency_plain"] == 0
+
+
+def test_ensemble_member_is_its_solo_run():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from oceananigans_tpu_torch.models.ensemble import EnsembleModel
+    grid = ot.LatitudeLongitudeGrid(size=(32, 24, 8), longitude=(0, 60),
+                                    latitude=(15, 75), z=(-1800.0, 0.0),
+                                    dtype=torch.float32, device="cuda")
+
+    def make(shift):
+        m = ot.HydrostaticFreeSurfaceModel(
+            grid, momentum_advection=ot.WENOVectorInvariant(),
+            coriolis=ot.HydrostaticSphericalCoriolis(),
+            free_surface=ot.SplitExplicitFreeSurface(substeps=10),
+            tracers=("T",))
+        m.set(T=lambda lam, phi, z: 12 + 8e-3 * z + 2e-2 * phi + shift,
+              u=lambda lam, phi, z: 0.05 * np.sin(np.radians(4 * lam)))
+        return m
+
+    ens = EnsembleModel(make(0.0), 3)
+    ens.set_all(lambda m: dict(
+        T=lambda lam, phi, z, m=m: 12 + 8e-3 * z + 2e-2 * phi + 0.1 * m))
+    solo = make(0.2)
+    for _ in range(4):
+        ens.time_step(120.0)
+        solo.time_step(120.0)
+    for name, a in ens.member_state(2)["fields"].items():
+        assert torch.equal(a, solo.state["fields"][name]), name
+    assert not torch.equal(ens.member_state(0)["fields"]["T"],
+                           ens.member_state(2)["fields"]["T"])

@@ -334,10 +334,11 @@ def test_fill_against_jax(name, loc):
 @pytest.mark.parametrize("case", ["bounded_h_gt_max", "fold_bounded_x",
                                   "periodic_y_n_lt_h", "periodic_z"])
 def test_refused(case):
-    """A bounded axis with H > MAX_H, a fold without a periodic x, a
-    periodic axis with N < H and a periodic z with conditions other than
-    periodic (item 3) raise, on the CPU as on the card. A periodic z with
-    its periodic conditions wraps (``test_periodic_z_wraps``)."""
+    """A bounded axis with H > MAX_H, a fold without a periodic x and a
+    periodic axis with N < H raise, on the CPU as on the card. A periodic z
+    with conditions other than periodic, refused before item 3 was closed,
+    wraps as JAX's fill does: the kernel's maps equal the wrap of its
+    periodic conditions (``test_periodic_z_wraps``)."""
     topology = {"bounded_h_gt_max": ("bounded", "periodic", "bounded"),
                 "fold_bounded_x": ("bounded", "bounded", "bounded"),
                 "periodic_y_n_lt_h": ("periodic", "periodic", "bounded"),
@@ -359,9 +360,12 @@ def test_refused(case):
             side: (BoundaryCondition(bcm.FLUX, 0.5) if side == "bottom"
                    else bcs.side(side)) for side in SIDES})
     a = torch.zeros(grid.padded_shape, dtype=torch.float64)
-    error = NotImplementedError if case == "periodic_z" else ValueError
-    with pytest.raises(error, match="item 3" if case == "periodic_z"
-                       else None):
+    if case == "periodic_z":
+        periodic = regularize_field_boundary_conditions(None, grid, loc)
+        assert hf.fill_codes(grid, grid.padded_shape, [(loc, bcs)]) == \
+            hf.fill_codes(grid, grid.padded_shape, [(loc, periodic)])
+        return
+    with pytest.raises(ValueError):
         hf.fill_halos(grid, [a], [(loc, bcs)])
 
 

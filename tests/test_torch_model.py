@@ -172,11 +172,15 @@ def test_halos_and_invariants():
 def test_unported_options_raise():
     grid = ot.RectilinearGrid(size=(8, 8, 8), extent=(1.0, 1.0, 1.0),
                               dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NonhydrostaticModel(grid, advection=ot.WENO(5),
-                            biogeochemistry=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NonhydrostaticModel(grid, auxiliary_fields={"a": object()})
+    # biogeochemistry and auxiliary fields, refused before item 15, are
+    # taken (tests/test_torch_long_tail.py holds them against JAX)
+    from oceananigans_tpu_torch.biogeochemistry import SimpleBiogeochemistry
+    m = NonhydrostaticModel(grid, advection=ot.WENO(5),
+                            biogeochemistry=SimpleBiogeochemistry(("P",)))
+    assert m.tracer_names == ("P",)
+    a = ot.CenterField(grid)
+    assert NonhydrostaticModel(grid, auxiliary_fields={"a": a}).field(
+        "a") is a
     # a grid stretched along two axes takes JAX's conjugate-gradient
     # solver, the port's since item 11c: the same solution at 1e-6 (both
     # at their default tolerance)

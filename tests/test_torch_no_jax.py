@@ -51,6 +51,16 @@ def test_import_loads_no_jax():
             "oceananigans_tpu_torch.simulation.netcdf4_writer, "
             "oceananigans_tpu_torch.simulation.variance_dissipation, "
             "oceananigans_tpu_torch.grids.reconstruction, "
+            "oceananigans_tpu_torch.abstract_operations, "
+            "oceananigans_tpu_torch.api, "
+            "oceananigans_tpu_torch.logger, "
+            "oceananigans_tpu_torch.particles, "
+            "oceananigans_tpu_torch.biogeochemistry, "
+            "oceananigans_tpu_torch.fields.function_field, "
+            "oceananigans_tpu_torch.fields.regridding, "
+            "oceananigans_tpu_torch.models.diagnostic_operations, "
+            "oceananigans_tpu_torch.models.ensemble, "
+            "oceananigans_tpu_torch.utils.profiling, "
             "oceananigans_tpu_torch.utils, sys; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'oceananigans_tpu', 'triton', 'h5py')]; "

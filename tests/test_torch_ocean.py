@@ -257,8 +257,8 @@ def test_flux_conditions_refused():
     on an x side and a scalar Flux condition with (unused) field
     dependencies build, and fill or enter the tendency as JAX's do (the
     fill of T at 1e-14, the flux on u at 1e-12); a FieldTimeSeries
-    condition on an x side still raises naming item 3 (JAX pads its
-    snapshots as z planes)."""
+    condition on an x side still raises, as JAX's cannot take it either
+    (it pads its snapshots as z planes)."""
     from oceananigans_tpu.boundary_conditions import (
         fill_halo_regions as j_fill)
     from oceananigans_tpu_torch.boundary_conditions import (
@@ -293,7 +293,7 @@ def test_flux_conditions_refused():
                                     LOCS["T"], t_reg(tb_, tg, LOCS["T"]),
                                     TIME, fields=tfields, locs=LOCS)
         _close(got, want)
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(NotImplementedError, match="z-normal"):
         t_reg(ot.FieldBoundaryConditions(
             west=FieldTimeSeriesBoundaryCondition(None)), tg, LOCS["T"])
 

@@ -702,9 +702,10 @@ def test_open_boundary_radiation_golden():
 
 def test_refused_conditions_raise():
     """A FieldTimeSeries condition on an x or y side (JAX pads its
-    snapshots as z planes), field dependencies on a Value condition, a
-    scheme on a Flux condition, and a callable immersed condition (item
-    3)."""
+    snapshots as z planes), field dependencies on a Value condition and a
+    scheme on a Flux condition raise; a callable immersed condition,
+    refused before item 3 was closed, deposits its flux (the model's case
+    against JAX is in tests/test_torch_long_tail.py)."""
     from oceananigans_tpu_torch.boundary_conditions.boundary_condition \
         import BoundaryCondition, FieldTimeSeriesBoundaryCondition
     grid = ot.RectilinearGrid(size=(6, 5, 4), extent=(1.0, 1.0, 1.0),
@@ -722,8 +723,8 @@ def test_refused_conditions_raise():
     from oceananigans_tpu_torch.boundary_conditions.fill_halos import \
         apply_immersed_flux_bcs
     ig = TIBG(grid, ot.GridFittedBottom(-0.5))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        apply_immersed_flux_bcs(
-            torch.zeros(grid.padded_shape, dtype=F64), ig, CCC,
-            ot.ImmersedBoundaryCondition(bottom=ot.FluxBoundaryCondition(
-                lambda x, y, t: x)))
+    G = apply_immersed_flux_bcs(
+        torch.zeros(grid.padded_shape, dtype=F64), ig, CCC,
+        ot.ImmersedBoundaryCondition(bottom=ot.FluxBoundaryCondition(
+            lambda x, y, t: 1.0 + x)))
+    assert torch.isfinite(G).all() and G.abs().max() > 0

@@ -454,8 +454,9 @@ def test_sharded_off_periodic_periodic_bounded_raises(topo):
 
 def test_periodic_z_user_condition_raises():
     """Conditions other than periodic on a periodic z: regularizing refuses
-    them (ValueError, as JAX does), and the fill refuses any that reach it
-    (item 3)."""
+    them (ValueError, as JAX does), and the fill wraps any that reach it,
+    as JAX's fill does (tests/test_torch_long_tail.py holds that fill
+    against JAX's)."""
     from oceananigans_tpu_torch.boundary_conditions import (
         BoundaryCondition, FieldBoundaryConditions)
     from oceananigans_tpu_torch.boundary_conditions import \
@@ -471,6 +472,9 @@ def test_periodic_z_user_condition_raises():
         side: (BoundaryCondition(bcm.VALUE, 1.0) if side == "top"
                else bcs.side(side))
         for side in ("west", "east", "south", "north", "bottom", "top")})
-    with pytest.raises(NotImplementedError, match="item 3"):
-        fill_all_halo_regions([torch.zeros(grid.padded_shape, dtype=F64)],
-                              grid, [(CCC, bad)])
+    a = torch.as_tensor(np.random.default_rng(9).standard_normal(
+        grid.padded_shape))
+    b = a.clone()
+    fill_all_halo_regions([a], grid, [(CCC, bad)])
+    fill_all_halo_regions([b], grid, [(CCC, bcs)])
+    assert torch.equal(a, b)
