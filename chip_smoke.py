@@ -87,23 +87,29 @@ Phases (each raises on failure; nothing is caught):
 12. Mesh pieces against their plain versions, on Distributed(Partition(2,
    2)) naming the card four times: the halo exchange at both sharded paths'
    shapes (exact), over distinct cards when more than one is visible (peer
-   copies; otherwise the script says that route did not run), and the
-   float64 sharded stages at small size (shallow water 128² with bathymetry
-   and a tracer, the convection tendency at 32³), kernel route against
-   plain route.
-13. Sharded shallow-water path: the 16384² step on that mesh, from the
-   serial path's initial state (kept on the host): launch counters (the
-   sharded stage 3, #8 12 and the exchange 6 times per step, no plain
-   version on CUDA tensors), finite fields, mass conservation, peak memory,
-   phase shares, the fields against the serial model's after the same 16
-   steps, and the sharded stage against its plain route in float32; then
-   the device's busy share over 3 more steps of the serial model
-   (torch.profiler).
+   copies; otherwise the script says that route did not run), and #9 and
+   #7 on resident blocks in float64 at small size (shallow water 128² with
+   bathymetry and a tracer, the convection tendency at 32³), kernel route
+   against plain route.
+13. Sharded shallow-water path: the 16384² step on that mesh, each shard's
+   blocks resident on it, from the serial path's initial
+   state scattered: launch counters (#9 and #8 once per shard and stage,
+   the exchange twice per stage, no plain version on CUDA tensors), finite
+   fields, mass conservation, step ms, peak memory against the state held,
+   the busy share, device kernels a step and the exchange's share
+   (torch.profiler), the fields against the serial model's after the same
+   16 steps (bit for bit), and #9 against its plain route on the path's
+   blocks in float32; then the device's busy share over 3 more steps of
+   the serial model.
 14. Sharded convection path: the 256³ step on that mesh, with the same
-   checks (the sharded tendency 3, #6 12 and the exchange 6 times per step),
-   the divergence at roundoff, and the sharded tendency against its plain
-   route on the path's own state, bound relative to the size of the flux
-   differences (the term scale).
+   checks (#7 and #6 once per shard and stage, the exchange at every
+   fill), the divergence at roundoff, the fields against the serial
+   model's within 1e-4 (the pencil solver rounds apart from the serial
+   one: the serial model with the pencil as its solver, a twin, against
+   the serial model shows it, and the sharded model against the twin
+   within a tenth of that), and #7 against its plain route on the path's
+   own blocks, bound
+   relative to the size of the flux differences (the term scale).
 15. The z-compact kernels with 12 tracers and the lifted caps against their
    plain versions in float64: #1 (WENO(5) and Centered(2), with and without
    G⁻ and the correction), #6 z-compact, #7 on z-compact blocks, #6 padded,
@@ -117,9 +123,11 @@ Phases (each raises on failure; nothing is caught):
    tendency route with #6 z-compact, the same checks and Σb conserved; #6
    z-compact on the path's state in float32 (its device-busy share after
    phase 18, on the same model).
-18. The same path on the 2x2 mesh of the card from its initial state: #7
-   on z-compact blocks, equal to the serial path after the same steps (bound
-   0), and the sharded tendency against its plain route on the path's state.
+18. The same path on the 2x2 mesh of the card from its initial state,
+   resident blocks: #7 on z-compact blocks, the serial path's fields after
+   the same steps within 1e-5 and the pencil twin as in 14, the profile,
+   and #7 against its plain route
+   on the path's blocks.
 19. bfloat16 WENO smoothness (float32 fields): #6 padded at 256³ and #8 at
    256² with tracers against their plain versions, the bound held to a
    tenth of the bf16-vs-float32 difference; then bench_extra.py's
@@ -307,6 +315,21 @@ Phases (each raises on failure; nothing is caught):
    its bound, its launch plan, registers and blocks per SM. Its wall time
    is printed.
 
+32. Resident blocks and the pencil solvers (item 16a), on a mesh that
+   names cuda:0 four times: (a) the pencil solver on 4 slabs against the
+   serial solvers, float64 at 64³ (DCT z) and 64×64×32 (stretched z)
+   within 1e-12, float32 at 256³ and 256×256×128 against the serial
+   float64 solve (1e-5; on the stretched z also 1.25 times the serial
+   float32 solve's error; a bfloat16-input control reads above it), each
+   solve timed beside the serial one,
+   and its block entry on 2x2 resident blocks; (b) row A (triply periodic
+   256³, WENO(5)) on 2x2 against the serial row over 3 steps (1e-5), #7's
+   zperiodic launches, the profile and #7 against its plain route; (c) row
+   E's hill on 2x2, float64 at 64×64×32 against serial (1e-10, both CGs at
+   1e-13, 3 steps) and float32 at 128×128×64 (one step, each solve's
+   iterations and residual); (d) an auxiliary-field forcing at 64³ whose
+   host update reaches every shard. Its wall time is printed.
+
 Fill times are CUDA events around one call behind a busy card (the device's
 time, ``device_ms``), with the call from an idle card beside them (host
 launch work included, as PR 9's were taken). The line before the last is
@@ -318,6 +341,7 @@ when no CUDA card is available.
 import ctypes
 import datetime
 import functools
+import gc
 import json
 import os
 import statistics
@@ -794,7 +818,9 @@ def tendency_tile_edge_checks():
                   f"worst rel {worst:.3e}")
         grid, f = inputs((74, 58, 19), 2, layout, 32)
         s = ot.WENO(5, smoothness_dtype=torch.float64)
-        G = K.build_sharded_fused_advection(grid, s, card_mesh().mesh)(f)
+        arch = card_mesh()
+        G = stitch(K.build_sharded_fused_advection(grid, s, arch.mesh)(
+            arch.scatter(f, grid.H)), MESH_SHAPE)
         assert torch.equal(G, K.fused_advection_tendency(grid, s, f)), \
             ("sharded tendency on another tile grid", layout)
         print(f"  sharded tendency {layout} 74x58x19 on 2x2 blocks of "
@@ -1328,24 +1354,28 @@ def bench_model(n, dtype, device, seed=0, scheme=None):
 
 
 def convection_model(N, dtype, device, smoothness=torch.float32, seed=0,
-                     architecture=None, state=None, scheme=None):
+                     architecture=None, state=None, scheme=None,
+                     pressure_solver=None):
     """Rayleigh–Bénard convection, the convection path's configuration
     (tests/test_regression.py rayleigh_benard_model at full width): extent
     1x1x1, WENO(5) (or ``scheme``), BuoyancyTracer, ScalarDiffusivity(ν = κ
     = 1e-4, Rayleigh number 1e8), b = 0.5 on the bottom and -0.5 on the
     top, b = -z - 0.5 and u = 1e-3·N(0, 1) from
     np.random.default_rng(seed); or, given ``state`` (a model state on the
-    host), that state instead of set()."""
+    host), that state instead of set(). ``pressure_solver(grid)`` makes the
+    model's pressure solver."""
     import oceananigans_tpu_torch as ot
     grid = ot.RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0), dtype=dtype,
                               device=device)
     b_bcs = ot.FieldBoundaryConditions(top=ot.ValueBoundaryCondition(-0.5),
                                        bottom=ot.ValueBoundaryCondition(0.5))
+    kw = {} if pressure_solver is None else dict(
+        pressure_solver=pressure_solver(grid))
     model = ot.NonhydrostaticModel(
         grid, advection=scheme or ot.WENO(5, smoothness_dtype=smoothness),
         buoyancy=ot.BuoyancyTracer(), tracers=("b",),
         closure=ot.ScalarDiffusivity(nu=1e-4, kappa={"b": 1e-4}),
-        boundary_conditions={"b": b_bcs}, architecture=architecture)
+        boundary_conditions={"b": b_bcs}, architecture=architecture, **kw)
     if state is not None:
         model.state = to_device(state, grid.device)
         return model
@@ -2829,19 +2859,35 @@ def exchange_check(mesh, blocks, halo, nl):
     return err, copies
 
 
+def stitch(parts, S, halo=None):
+    """One tensor on cuda:0 from per-shard tensors in rank order: their
+    interiors (``halo`` (Hx, Hy) given) along the first two axes, or (nf,
+    nlx, nly, nz) tendencies along the next two."""
+    if halo is not None:
+        parts = [p[halo[0]:p.shape[0] - halo[0], halo[1]:p.shape[1] - halo[1]]
+                 for p in parts]
+        ax = (0, 1)
+    else:
+        ax = (1, 2)
+    parts = [p.to("cuda:0") for p in parts]
+    return torch.cat([torch.cat(parts[i * S[1]:(i + 1) * S[1]], dim=ax[1])
+                      for i in range(S[0])], dim=ax[0])
+
+
 def mesh_kernels_phase(n_sw, n_conv):
-    """The mesh paths' new pieces against their plain versions:
+    """The mesh paths' pieces against their plain versions:
     - the exchange (``halo_exchange_local``: the kernel for blocks on one
       card) against ``halo_exchange_plain`` at both paths' shapes: four
       blocks of 8200²x1 (uh, vh, h; H = (4, 4, 0)) and of 134x134x262 (u, v,
       w, b; H = (3, 3, 3), exchanged (3, 3, 0)), float32: exact (copies);
     - over distinct devices when more than one card is visible (peer copies);
-    - the float64 sharded stages at small size, kernel route against plain
-      route: shallow water at 128² (WENO(5) with float64 smoothness,
-      FPlane(0.3), an array bathymetry, a tracer; both stage variants) and
-      the convection tendency at 32³ (WENO(5) with float64 smoothness and
-      Centered(2)); bound 1e-12 relative to each output's max|plain| (the
-      per-shard kernels' FMA contraction and association order).
+    - #9 and #7 on resident blocks (``Distributed.scatter``) in float64 at
+      small size, kernel route against plain route: shallow water at 128²
+      (WENO(5) with float64 smoothness, FPlane(0.3), an array bathymetry, a
+      tracer; both stage variants) and the convection tendency at 32³
+      (WENO(5) with float64 smoothness and Centered(2)); bound 1e-12
+      relative to each output's max|plain| (the per-shard kernels' FMA
+      contraction and association order).
     Returns {name: dict(max_abs_err, ms, plain_ms)} of the exchange at the
     two paths' shapes (one call: the x and the y launch), timed as device
     work: the call's host work (the strip tables, about 0.4 ms) exceeds its
@@ -2850,7 +2896,8 @@ def mesh_kernels_phase(n_sw, n_conv):
     from oceananigans_tpu_torch import kernels as K
     from oceananigans_tpu_torch.parallel import (halo_exchange_local,
                                                  halo_exchange_plain)
-    mesh = card_mesh().mesh
+    arch = card_mesh()
+    mesh = arch.mesh
     out = {}
     for name, n, halo, z, nf in (
             ("mesh_halo_exchange", n_sw, (4, 4, 0), 1, 3),
@@ -2887,7 +2934,7 @@ def mesh_kernels_phase(n_sw, n_conv):
     else:
         print("  the peer-copy route (strips between distinct cards) did not "
               "run: one card is visible")
-    # the float64 sharded stages at small size
+    # #9 and #7 on resident blocks at small size
     grid, fields, hB, Gm = sw_kernel_inputs(128, torch.float64, ("c",), seed=14)
     names = SW_NAMES + ("c",)
     args = (grid, ot.WENO(5, smoothness_dtype=torch.float64), 9.81, 0.3, hB,
@@ -2896,13 +2943,16 @@ def mesh_kernels_phase(n_sw, n_conv):
     plain = K.build_sharded_fused_sw_update_plain(*args)
     gms = [Gm[:, i * 64:(i + 1) * 64, j * 64:(j + 1) * 64].contiguous()
            for i in range(2) for j in range(2)]
-    ints = grid.interior_slices
+    H = grid.H
     for gm in (None, gms):
-        Gk, nk = stage(fields, gm, 2e-5, -1e-5)
-        Gp, np_ = plain(fields, gm, 2e-5, -1e-5)
-        err, rel = worst_rel(Gk + [nk[c][ints] for c in names],
-                             Gp + [np_[c][ints] for c in names])
-        print(f"  sharded shallow-water stage 128^2 float64 on 2x2, "
+        Gk, nk = stage(arch.scatter(fields, H), gm, 2e-5, -1e-5)
+        Gp, np_ = plain(arch.scatter(fields, H), gm, 2e-5, -1e-5)
+        err, rel = worst_rel(
+            [stitch(Gk, MESH_SHAPE)] + [stitch([b[c] for b in nk], MESH_SHAPE,
+                                               H) for c in names],
+            [stitch(Gp, MESH_SHAPE)] + [stitch([b[c] for b in np_],
+                                               MESH_SHAPE, H) for c in names])
+        print(f"  #9 on resident blocks 128^2 float64 on 2x2, "
               f"Gm={gm is not None}: max abs {err:.3e}, rel {rel:.3e}")
         assert rel <= 1e-12, ("sharded shallow-water stage", rel)
     grid, cfields, specs = convection_kernel_inputs((32, 32, 32),
@@ -2910,58 +2960,82 @@ def mesh_kernels_phase(n_sw, n_conv):
     K.bounded_z_fill_plain(grid, cfields, specs)
     K.periodic_halo_fill_plain(grid, cfields)
     for scheme in (ot.WENO(5, smoothness_dtype=torch.float64), ot.Centered(2)):
-        Gk = K.build_sharded_fused_advection(grid, scheme, mesh)(cfields)
-        Gp = K.build_sharded_fused_advection_plain(grid, scheme, mesh)(cfields)
-        err, rel = worst_rel(list(Gk), list(Gp))
-        print(f"  sharded advection tendency 32^3 float64 on 2x2 {scheme!r}: "
+        Gk = K.build_sharded_fused_advection(grid, scheme, mesh)(
+            arch.scatter(cfields, grid.H))
+        Gp = K.build_sharded_fused_advection_plain(grid, scheme, mesh)(
+            arch.scatter(cfields, grid.H))
+        err, rel = worst_rel([stitch(Gk, MESH_SHAPE)],
+                             [stitch(Gp, MESH_SHAPE)])
+        print(f"  #7 on resident blocks 32^3 float64 on 2x2 {scheme!r}: "
               f"max abs {err:.3e}, rel {rel:.3e}")
         assert rel <= 1e-12, ("sharded advection tendency", scheme, rel)
     torch.cuda.synchronize()
     return out
 
 
-def mesh_phase_shares(model, dt, steps, card, label, kernel_module,
-                      kernel_name, fill_module, stage_name):
-    """Per-step CUDA-event times of a sharded step: the per-shard kernel,
-    the cut into blocks, the exchange, the rest of the sharded stage
-    (stitching the interiors back), the global-view fills, and the rest of
-    the step."""
-    import oceananigans_tpu_torch.parallel.halo_exchange as hx
-    timer = PhaseTimer()
-    saved = [(kernel_module, kernel_name), (hx, "scatter_blocks"),
-             (hx, "halo_exchange_local"), (fill_module, "fill_all_halo_regions")]
-    saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
-    for (mod, name, fn), phase in zip(saved, ("kernel", "cut", "exchange",
-                                              "fills")):
-        setattr(mod, name, timer.wrap(phase, fn))
-    stage = getattr(model, stage_name)
-    setattr(model, stage_name, timer.wrap("stage", stage))
-    model.time_step = timer.wrap("step", model.time_step)
-    try:
+def state_bytes(model):
+    """The bytes of the state a sharded model holds: every shard's blocks
+    (fields, pressure and G⁻ where the model keeps them)."""
+    total = 0
+    for m in model._shards:
+        for key in ("fields", "pressure", "Gm"):
+            v = m._state.get(key)
+            for a in (v.values() if isinstance(v, dict) else
+                      () if v is None else (v,)):
+                total += a.numel() * a.element_size()
+    return total
+
+
+def resident_profile(label, model, dt, steps, step_ms, card, kernel_key):
+    """The device's view of ``steps`` steady steps of a sharded model
+    (torch.profiler): the busy share (the union of the device activities
+    per step over the median step ``step_ms``), the device kernels a step,
+    and the shares of the step held by the exchange kernel, by the
+    per-shard stage kernel (names holding ``kernel_key``), by the fill
+    kernel and by the FFTs (names holding "fft"). Returns the shares."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             model.time_step(dt)
-        t = {k: v / steps for k, v in timer.totals().items()}
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
-        setattr(model, stage_name, stage)
-        del model.time_step
-    g = t.get
-    shares = {
-        "per-shard kernel (4 launches per stage)": g("kernel", 0.0),
-        "cut into blocks": g("cut", 0.0),
-        "halo exchange (2 launches per stage)": g("exchange", 0.0),
-        "stitch the interiors back, host gaps of the stage":
-            g("stage", 0.0) - g("kernel", 0.0) - g("cut", 0.0)
-            - g("exchange", 0.0),
-        "global-view halo fills": g("fills", 0.0),
-    }
-    shares["rest of the step"] = t["step"] - sum(shares.values())
-    print(f"{label} step phases, ms per step over {steps} steps (CUDA "
-          f"events) [{card}]:")
-    for phase, ms in shares.items():
-        print(f"  {phase}: {ms:.4f} ms ({100 * ms / t['step']:.2f}%)")
-    print(f"  step: {t['step']:.4f} ms")
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        print(f"{label}: torch.profiler shows no device time [{card}]")
+        return {}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    busy_ms = busy / 1e3 / steps
+    kernels = [e for e in events
+               if not e.name.startswith(("Memcpy", "Memset"))]
+
+    def device_ms_of(*keys):
+        return sum((e.time_range.end - e.time_range.start) for e in kernels
+                   if any(k in e.name.lower() for k in keys)) / 1e3 / steps
+
+    shares = {"exchange": device_ms_of("exchange"),
+              "stage kernel": device_ms_of(kernel_key),
+              "fill": device_ms_of("fill_halos"),
+              "fft": device_ms_of("fft")}
+    print(f"{label}: device kernels per step {len(kernels) / steps:.1f}, "
+          f"device busy {busy_ms:.4f} ms per step: busy share "
+          f"{busy_ms / step_ms:.4f} of the {step_ms:.3f} ms median step "
+          f"(torch.profiler, {steps} steps) [{card}]")
+    print(f"{label}: device time per step by kernel: "
+          + ", ".join(f"{k} {v:.4f} ms ({100 * v / step_ms:.2f}% of the "
+                      f"step)" for k, v in shares.items())
+          + f"; no cut or stitch (resident blocks) [{card}]")
+    shares["busy"] = busy_ms / step_ms
+    shares["kernels"] = len(kernels) / steps
     return shares
 
 
@@ -3000,18 +3074,69 @@ def against_serial(label, sharded, serial, names, bound_rel):
           f"{worst:.3e} (bound {bound_rel:g}); "
           f"{'bit for bit' if worst_abs == 0.0 else 'not bit for bit'}")
     assert worst <= bound_rel, (label, "sharded against serial", worst)
+    return worst
+
+
+def pencil_twin_check(label, sharded, serial, builder, state0, dt, names,
+                      diff):
+    """Where the sharded step rounds apart from the serial one: the serial
+    model rebuilt by ``builder`` from ``state0`` with the pencil solver (its
+    global entry, 4 slabs of cuda:0) as its pressure solver, stepped as
+    often as the sharded model with ``dt``. The sharded model against this
+    twin isolates the decomposition (bound a tenth of ``diff``, the sharded
+    model's difference from the serial one); the twin against the serial
+    model, the pressure solver's transform order."""
+    from oceananigans_tpu_torch.parallel import DistributedFFTPoissonSolver
+    twin = builder(tuple(serial.grid.N), torch.float32, "cuda", state=state0,
+                   pressure_solver=lambda g: DistributedFFTPoissonSolver(
+                       g, [torch.device("cuda", 0)] * 4))
+    for _ in range(sharded.iteration):
+        twin.time_step(dt)
+
+    def worst(a, b):
+        return max((a.field(n).interior - b.field(n).interior).abs().max()
+                   .item() / b.field(n).interior.abs().max().item()
+                   for n in names)
+
+    solver, decomposition = worst(twin, serial), worst(sharded, twin)
+    print(f"{label}: the serial model with the pencil solver against the "
+          f"serial model {solver:.3e}; the sharded model against it "
+          f"{decomposition:.3e}{' (bit for bit)' if decomposition == 0 else ''}"
+          f" (bound {0.1 * diff:.3e}, a tenth of the sharded model's "
+          f"{diff:.3e} from the serial one): the pencil's transform order, "
+          f"not the decomposition, rounds the sharded step apart")
+    assert decomposition <= 0.1 * diff, (label, "decomposition", decomposition)
+    del twin
+
+
+def resident_report(label, model, times, base, card):
+    """Step median, min and max, and peak memory against the state the
+    shards hold."""
+    peak = torch.cuda.max_memory_allocated() - base
+    held = state_bytes(model)
+    step_ms = statistics.median(times) * 1e3
+    n = int(np.prod(model.grid.N))
+    print(f"{label} on a 2x2 mesh of one card (resident blocks): step median "
+          f"{step_ms:.3f} ms over {len(times)} steps (min "
+          f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
+          f"{n / (step_ms / 1e3):.4e} cell-updates/s [{card}]")
+    print(f"{label}: peak device memory (model and steps, above what was "
+          f"held before) {peak / 2 ** 30:.2f} GiB against {held / 2 ** 30:.2f}"
+          f" GiB of state in the shards' blocks [{card}]")
+    return step_ms
 
 
 def sharded_sw_path_phase(card, n, serial, state0):
     """The shallow-water path at n² float32 on the 2x2 mesh of the card, from
-    the serial path's initial state: counters reset after the model is built
-    and read after 3 warm-up and 10 timed steps; then the phase shares (3
-    steps), the fields against the serial model's after the same 16 steps
-    (bound 0: the shards take the global spacing, and with no bathymetry
-    every cell sees the serial operands), and the sharded stage against its
-    plain route on the final state (float32, bound 1e-5 relative, as #8)."""
-    import oceananigans_tpu_torch.kernels.fused_shallow_water as fsw
-    import oceananigans_tpu_torch.models.shallow_water as sw
+    the serial path's initial state scattered into resident blocks:
+    counters reset after the model is built and read after 3 warm-up and
+    10 timed steps (#9 and #8 once per shard and stage, the exchange twice
+    per stage, no plain version on CUDA tensors); finite fields, mass
+    conservation; the device profile (busy share, kernels a step, the
+    exchange's share); the fields against the serial model's after the
+    same 16 steps (bound 0: the shards take the global spacing, and with no
+    bathymetry every cell sees the serial operands); #9 against its plain
+    route on the final blocks (float32, bound 1e-5 relative, as #8)."""
     from oceananigans_tpu_torch import kernels as K
     dt = 1e-5
     torch.cuda.synchronize()
@@ -3020,76 +3145,99 @@ def sharded_sw_path_phase(card, n, serial, state0):
     torch.cuda.reset_peak_memory_stats()
     model = sw_model(n, torch.float32, "cuda", architecture=card_mesh(),
                      state=state0)
-    assert model._sharded is not None
-    ints = model.grid.interior_slices
-    mass0 = model.state["fields"]["h"][ints].double().sum().item()
+    assert model._shards is not None
+    mass0 = model.field("h").interior.double().sum().item()
     K.reset_counters()
     times = timed_steps(model, dt)
     launches, plain_cuda = K.counters()
     steps = model.iteration
     print(f"sharded shallow-water path launches over {steps} steps: "
-          f"{launches}; plain calls on CUDA: {plain_cuda}")
+          f"{ {k: v for k, v in launches.items() if v} }; plain calls on "
+          f"CUDA: { {k: v for k, v in plain_cuda.items() if v} }")
     stages = 3 * steps
     check_mesh_launches(launches, plain_cuda, {
-        "build_sharded_fused_sw_update": stages, "fused_sw_update": 4 * stages,
-        "mesh_halo_exchange": 2 * stages, "fill_halos": stages})
-    peak = torch.cuda.max_memory_allocated() - base
+        "build_sharded_fused_sw_update": 4 * stages,
+        "fused_sw_update": 4 * stages, "mesh_halo_exchange": 2 * stages})
+    step_ms = resident_report("sharded shallow-water path", model, times,
+                              base, card)
     for name in SW_NAMES:
         a = model.field(name).interior
         assert a.shape == (n, n, 1), (name, a.shape)
         assert torch.isfinite(a).all().item(), f"{name} is not finite"
-    mass = model.state["fields"]["h"][ints].double().sum().item()
+    mass = model.field("h").interior.double().sum().item()
     drift = abs(mass - mass0) / mass0
     print(f"sharded shallow water: |Σh − Σh₀|/Σh₀ after {steps} steps: "
           f"{drift:.3e} (bound 1e-9)")
     assert drift < 1e-9, ("mass not conserved", drift)
-    step_ms = statistics.median(times) * 1e3
-    print(f"sharded shallow-water path: {n}^2 WENO5 float32 RK3 on a 2x2 "
-          f"mesh of one card, step median {step_ms:.3f} ms over {len(times)} "
-          f"steps (min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
-          f"{n * n / (step_ms / 1e3):.4e} cell-updates/s [{card}]")
-    print(f"peak device memory (sharded model and steps, above the "
-          f"{base / 2 ** 30:.2f} GiB held before): {peak / 2 ** 30:.2f} GiB")
-    mesh_phase_shares(model, dt, 3, card, "sharded shallow-water", fsw,
-                      "fused_sw_update", sw, "_sharded")
+    resident_profile("sharded shallow-water path", model, dt, 3, step_ms,
+                     card, "sw")
     against_serial("shallow water", model, serial, SW_NAMES, 0.0)
-    # the stage against its plain route on the final state
-    fields = model._fill_all(dict(model.state["fields"]))
+    # #9 against its plain route on the model's own blocks
     args = (model.grid, model.advection, model.g, 0.0, model.bathymetry,
             SW_NAMES, model.architecture.mesh)
     stage = K.build_sharded_fused_sw_update(*args)
     plain = K.build_sharded_fused_sw_update_plain(*args)
-    Gm = stage(fields, None, 2e-5, 0.0)[0]
-    run = (fields, Gm, 2e-5, -1e-5)
+    blocks = [dict(m._state["fields"]) for m in model._shards]
+    Gm = stage(blocks, None, 2e-5, 0.0)[0]
+    run = (blocks, Gm, 2e-5, -1e-5)
+    H = model.grid.H
     Gk, nk = stage(*run)
     Gp, np_ = plain(*run)
-    err, rel = worst_rel(Gk + [nk[c][ints] for c in SW_NAMES],
-                         Gp + [np_[c][ints] for c in SW_NAMES])
-    print(f"  sharded shallow-water stage {n}^2 float32 on 2x2 (G⁻ variant):"
-          f" max abs {err:.3e}, rel {rel:.3e} (bound 1e-5)")
+    err, rel = worst_rel(
+        [stitch(Gk, MESH_SHAPE)] + [stitch([b[c] for b in nk], MESH_SHAPE, H)
+                                    for c in SW_NAMES],
+        [stitch(Gp, MESH_SHAPE)] + [stitch([b[c] for b in np_], MESH_SHAPE, H)
+                                    for c in SW_NAMES])
+    print(f"  #9 on the path's resident blocks {n}^2 float32 on 2x2 (G⁻ "
+          f"variant): max abs {err:.3e}, rel {rel:.3e} (bound 1e-5)")
     assert rel <= 1e-5, ("sharded shallow-water stage float32", rel)
     del Gk, nk, Gp, np_
     torch.cuda.empty_cache()
     ms = cuda_ms(lambda: stage(*run), reps=5)
     plain_ms = cuda_ms(lambda: plain(*run), reps=3, warmup=1)
-    print(f"  time sharded shallow-water stage (G⁻ variant) at {n}^2 on 2x2:"
-          f" kernel route {ms:.4f} ms, plain route {plain_ms:.4f} ms")
+    print(f"  time #9 (G⁻ variant) on the 2x2 blocks of {n}^2: kernel route "
+          f"{ms:.4f} ms, plain route {plain_ms:.4f} ms [{card}]")
     return launches, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def sharded_tendency_check(label, model, n, card):
+    """#7 against its plain route on a sharded model's resident blocks,
+    filled by the model's own fill (bound 2e-5 of each component's term
+    scale), and its times."""
+    from oceananigans_tpu_torch import kernels as K
+    grid, scheme, mesh = model.grid, model.advection, model.architecture.mesh
+    blocks = model._run(lambda m: [m._fill_all(dict(m._state["fields"]))[c]
+                                   for c in m.prognostic_names])
+    stage = K.build_sharded_fused_advection(grid, scheme, mesh)
+    plain = K.build_sharded_fused_advection_plain(grid, scheme, mesh)
+    Gk, Gp = stitch(stage(blocks), MESH_SHAPE), stitch(plain(blocks),
+                                                       MESH_SHAPE)
+    q = [model.field(c).data for c in model.prognostic_names]
+    err, rel = scaled_err(list(Gk), list(Gp), term_scales(grid, scheme, q))
+    print(f"  #7 on the path's resident blocks {label} float32 on 2x2: max "
+          f"abs {err:.3e}, {rel:.3e} of the term scale (bound 2e-5)")
+    assert rel <= 2e-5, (label, "sharded advection tendency float32", rel)
+    del Gk, Gp, q
+    ms = cuda_ms(lambda: stage(blocks))
+    plain_ms = cuda_ms(lambda: plain(blocks), reps=5)
+    print(f"  time #7 on the 2x2 blocks of {label}: kernel route {ms:.4f} "
+          f"ms, plain route {plain_ms:.4f} ms [{card}]")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
 def sharded_convection_path_phase(card, n, serial, state0):
     """The convection path at n³ float32 on the 2x2 mesh of the card, from
-    the serial path's initial state: counters reset after the model is built
-    and read after 3 warm-up and 10 timed steps; finite fields, the
-    divergence at roundoff; the phase shares (3 steps); the fields against
-    the serial model's after the same 16 steps (bound 1e-5 relative); the
-    sharded tendency against its plain route on the path's own state (bound
-    2e-5 of each component's term scale: the b tendency cancels its flux
+    the serial path's initial state scattered into resident blocks:
+    counters reset after the model is built and read after 3 warm-up and
+    10 timed steps (#7 and #6 once per shard and stage, the exchange kernel
+    at every fill); finite fields, the divergence at roundoff; the device
+    profile; the fields against the serial model's after the same 16 steps
+    (bound 1e-4 relative: the pencil solver rounds apart from the serial
+    one, which ``pencil_twin_check`` shows); #7 against its plain route on
+    the path's own blocks (bound 2e-5 of each component's term scale: the
+    b tendency cancels its flux
     differences about 100-fold, so a bound relative to max|G| would measure
     that cancellation)."""
-    import oceananigans_tpu_torch as ot
-    import oceananigans_tpu_torch.kernels.fused_advection as fa
-    import oceananigans_tpu_torch.models.nonhydrostatic as nh
     from oceananigans_tpu_torch import kernels as K
     from oceananigans_tpu_torch.models.nonhydrostatic import \
         _interior_divergence
@@ -3104,16 +3252,19 @@ def sharded_convection_path_phase(card, n, serial, state0):
     times = timed_steps(model, dt)
     launches, plain_cuda = K.counters()
     steps = model.iteration
-    print(f"sharded convection path launches over {steps} steps: {launches}; "
-          f"plain calls on CUDA: {plain_cuda}")
+    print(f"sharded convection path launches over {steps} steps: "
+          f"{ {k: v for k, v in launches.items() if v} }; plain calls on "
+          f"CUDA: { {k: v for k, v in plain_cuda.items() if v} }")
     stages = 3 * steps
     check_mesh_launches(launches, plain_cuda, {
-        "build_sharded_fused_advection": stages,
-        "fused_advection_tendency": 4 * stages,
-        "mesh_halo_exchange": 2 * stages})
+        "build_sharded_fused_advection": 4 * stages,
+        "fused_advection_tendency": 4 * stages})
+    assert launches["mesh_halo_exchange"] >= 2 * stages
     assert launches["fill_halos"] > 0
-    peak = torch.cuda.max_memory_allocated() - base
-    fields = model.state["fields"]
+    step_ms = resident_report("sharded convection path", model, times, base,
+                              card)
+    state = model.state
+    fields = state["fields"]
     for name in ("u", "v", "w", "b"):
         assert torch.isfinite(fields[name]).all().item(), f"{name} not finite"
     ints = model.grid.interior_slices
@@ -3125,34 +3276,20 @@ def sharded_convection_path_phase(card, n, serial, state0):
     print(f"sharded convection: max|div u|·Δx/max|u| after {steps} steps: "
           f"{div_rel:.3e}")
     assert div_rel < 1e-4, ("divergence not at roundoff", div_rel)
-    step_ms = statistics.median(times) * 1e3
-    print(f"sharded convection path: {n}^3 Rayleigh-Benard WENO5 float32 RK3 "
-          f"on a 2x2 mesh of one card, step median {step_ms:.3f} ms over "
-          f"{len(times)} steps (min {min(times) * 1e3:.3f}, max "
-          f"{max(times) * 1e3:.3f}), {n ** 3 / (step_ms / 1e3):.4e} "
-          f"cell-updates/s [{card}]")
-    print(f"peak device memory (sharded model and steps, above the "
-          f"{base / 2 ** 30:.2f} GiB held before): {peak / 2 ** 30:.2f} GiB")
-    mesh_phase_shares(model, dt, 3, card, "sharded convection", fa,
-                      "fused_advection_tendency", nh, "_sharded_advection")
-    against_serial("convection", model, serial, ("u", "v", "w", "b"), 1e-5)
+    del state, fields, u, v, w, div
+    resident_profile("sharded convection path", model, dt, 3, step_ms, card,
+                     "advection")
+    # 1e-4: the pencil solver's float32 rounding (1.4e-6 of max|φ| against
+    # the serial solve's 1.3e-6 at 256³) grows over 48 solves of a small
+    # flow (max|u| 2.5e-3): 1.754e-5 after 16 steps on an H100 80GB HBM3 at
+    # 700 W; the twin shows that the pencil, not the decomposition, makes it
+    diff = against_serial("convection", model, serial, ("u", "v", "w", "b"),
+                          1e-4)
+    pencil_twin_check("convection", model, serial, convection_model, state0,
+                      dt, ("u", "v", "w", "b"), diff)
     del serial
-    fields = model._fill_all(dict(model.state["fields"]))
-    q = [fields[c] for c in model.prognostic_names]
-    grid, scheme, mesh = model.grid, model.advection, model.architecture.mesh
-    stage = K.build_sharded_fused_advection(grid, scheme, mesh)
-    plain = K.build_sharded_fused_advection_plain(grid, scheme, mesh)
-    err, rel = scaled_err(list(stage(q)), list(plain(q)),
-                          term_scales(grid, scheme, q))
-    print(f"  sharded advection tendency {n}^3 float32 on 2x2 on the path's "
-          f"state (u, v, w, b): max abs {err:.3e}, {rel:.3e} of the term "
-          f"scale (bound 2e-5)")
-    assert rel <= 2e-5, ("sharded advection tendency float32", rel)
-    ms = cuda_ms(lambda: stage(q))
-    plain_ms = cuda_ms(lambda: plain(q), reps=5)
-    print(f"  time sharded advection tendency at {n}^3 on 2x2: kernel route "
-          f"{ms:.4f} ms, plain route {plain_ms:.4f} ms")
-    return launches, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    torch.cuda.empty_cache()
+    return launches, sharded_tendency_check(f"{n}^3", model, n, card)
 
 
 # -- tracers and buoyancy on the z-compact layout -----------------------------------
@@ -3257,7 +3394,8 @@ def tracer_kernels_phase():
     import oceananigans_tpu_torch as ot
     from oceananigans_tpu_torch import kernels as K
     from oceananigans_tpu_torch.kernels import ZFill
-    mesh = card_mesh().mesh
+    arch = card_mesh()
+    mesh = arch.mesh
     N = (32, 32, 48)
     grid, (u, v, w), p, tracers, Gm = tracer_kernel_inputs(
         N, torch.float64, N_TRACERS, seed=20)
@@ -3293,10 +3431,12 @@ def tracer_kernels_phase():
         for k, c in enumerate(fields[3:]):
             G1 = K.fused_advection_tendency(grid, scheme, [u, v, w, c])
             assert torch.equal(G1[3], Gk[3 + k]), ("#6 batching", k)
-        Gs = K.build_sharded_fused_advection(grid, scheme, mesh)(fields)
+        Gs = stitch(K.build_sharded_fused_advection(grid, scheme, mesh)(
+            arch.scatter(fields, grid.H)), MESH_SHAPE)
         assert torch.equal(Gs, Gk), ("z-compact #7 against serial #6", scheme)
-        err, rel = worst_rel(list(Gs), list(
-            K.build_sharded_fused_advection_plain(grid, scheme, mesh)(fields)))
+        err, rel = worst_rel(list(Gs), list(stitch(
+            K.build_sharded_fused_advection_plain(grid, scheme, mesh)(
+                arch.scatter(fields, grid.H)), MESH_SHAPE)))
         print(f"  sharded advection tendency z-compact {N} float64 on 2x2 "
               f"{scheme!r}: equal to serial; against plain route max abs "
               f"{err:.3e}, rel {rel:.3e}")
@@ -3552,18 +3692,21 @@ def tracer_path_phase(card):
 
 
 def buoyant_model(N, dtype, device, smoothness=torch.float32, seed=42,
-                  architecture=None, state=None):
+                  architecture=None, state=None, pressure_solver=None):
     """tests/test_z_compact.py's model (:22-29) at N: extent 1x1x1, WENO(5),
     BuoyancyTracer and its tracer b, no closure and no z condition (the
     z-compact layout, tendency route); u, v 0.1·N(0, 1) and b 0.01·N(0, 1)
     from np.random.default_rng(seed); or, given ``state`` (a model state on
-    the host), that state instead of set()."""
+    the host), that state instead of set(). ``pressure_solver(grid)`` makes
+    the model's pressure solver."""
     import oceananigans_tpu_torch as ot
     grid = ot.RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0), dtype=dtype,
                               device=device)
+    kw = {} if pressure_solver is None else dict(
+        pressure_solver=pressure_solver(grid))
     model = ot.NonhydrostaticModel(
         grid, advection=ot.WENO(5, smoothness_dtype=smoothness),
-        buoyancy=ot.BuoyancyTracer(), architecture=architecture)
+        buoyancy=ot.BuoyancyTracer(), architecture=architecture, **kw)
     if state is not None:
         model.state = to_device(state, grid.device)
         return model
@@ -3638,17 +3781,17 @@ def buoyant_path_phase(card):
 
 def sharded_buoyant_path_phase(card, n, serial, state0):
     """The buoyant z-compact path on the 2x2 mesh of the card, from the
-    serial path's initial state: counters reset after the model is built
-    and read after 3 warm-up and 10 timed steps (the sharded tendency 3, #6
-    12 and the exchange 6 times per step, no plain version on CUDA
-    tensors); finite fields, the divergence, Σb conserved, phase shares (3
-    steps); the fields against the serial model's after the same 16 steps,
-    bound 0 (#7 equals #6 bit for bit, and the rest of the step runs the
-    serial step's code on the global view); the sharded tendency against
-    its plain route on the path's state (bound 2e-5 of each component's
-    term scale) and its times."""
-    import oceananigans_tpu_torch.kernels.fused_advection as fa
-    import oceananigans_tpu_torch.models.nonhydrostatic as nh
+    serial path's initial state scattered into resident blocks: counters
+    reset after the model is built and read after 3 warm-up and 10 timed
+    steps (#7 and #6 once per shard and stage, the exchange kernel at every
+    fill, #2 and #3 on each shard's blocks, no plain version on CUDA
+    tensors); finite fields, the divergence, Σb conserved; the device
+    profile; the fields against the serial model's after the same 16
+    steps, bound 1e-5 relative (#7 equals #6 bit for bit, and the pencil
+    solver rounds apart from the serial one, which ``pencil_twin_check``
+    shows); #7 against its plain route on
+    the path's blocks (bound 2e-5 of each component's term scale) and its
+    times."""
     from oceananigans_tpu_torch import kernels as K
     dt = 1e-3
     torch.cuda.synchronize()
@@ -3663,47 +3806,32 @@ def sharded_buoyant_path_phase(card, n, serial, state0):
     launches, plain_cuda = K.counters()
     steps = model.iteration
     print(f"sharded buoyant z-compact path launches over {steps} steps: "
-          f"{launches}; plain calls on CUDA: {plain_cuda}")
+          f"{ {k: v for k, v in launches.items() if v} }; plain calls on "
+          f"CUDA: { {k: v for k, v in plain_cuda.items() if v} }")
     stages = 3 * steps
     check_mesh_launches(launches, plain_cuda, {
-        "build_sharded_fused_advection": stages,
+        "build_sharded_fused_advection": 4 * stages,
         "fused_advection_tendency": 4 * stages,
-        "mesh_halo_exchange": 2 * stages})
-    for name in ("fill_halos", "fused_divergence", "fused_correct"):
-        assert launches[name] > 0, name
-    peak = torch.cuda.max_memory_allocated() - base
+        "fused_divergence": 4 * stages, "fused_correct": 4 * stages})
+    assert launches["mesh_halo_exchange"] >= 2 * stages
+    step_ms = resident_report("sharded buoyant z-compact path", model, times,
+                              base, card)
     for name in model.prognostic_names:
         assert torch.isfinite(model.field(name).interior).all().item(), name
     check_divergence("sharded buoyant z-compact", model)
     check_conserved("sharded buoyant z-compact", model, sums0)
-    step_ms = statistics.median(times) * 1e3
-    print(f"sharded buoyant z-compact path: {n}^3 WENO5 float32 RK3 on a 2x2 "
-          f"mesh of one card, step median {step_ms:.3f} ms over {len(times)} "
-          f"steps (min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
-          f"{n ** 3 / (step_ms / 1e3):.4e} cell-updates/s [{card}]")
-    print(f"peak device memory (sharded model and steps, above the "
-          f"{base / 2 ** 30:.2f} GiB held before): {peak / 2 ** 30:.2f} GiB")
-    mesh_phase_shares(model, dt, 3, card, "sharded buoyant z-compact", fa,
-                      "fused_advection_tendency", nh, "_sharded_advection")
-    against_serial("buoyant z-compact", model, serial, ("u", "v", "w", "b"),
-                   0.0)
-    fields = model._fill_all(dict(model.state["fields"]))
-    q = [fields[c] for c in model.prognostic_names]
-    grid, scheme, mesh = model.grid, model.advection, model.architecture.mesh
+    resident_profile("sharded buoyant z-compact path", model, dt, 3, step_ms,
+                     card, "advection")
+    # 1e-5, as row A's (phase 32): the pencil's float32 rounding over 48
+    # solves, 7.355e-7 on an H100 80GB HBM3 at 700 W
+    diff = against_serial("buoyant z-compact", model, serial,
+                          ("u", "v", "w", "b"), 1e-5)
+    pencil_twin_check("buoyant z-compact", model, serial, buoyant_model,
+                      state0, dt, ("u", "v", "w", "b"), diff)
     del serial
-    stage = K.build_sharded_fused_advection(grid, scheme, mesh)
-    plain = K.build_sharded_fused_advection_plain(grid, scheme, mesh)
-    err, rel = scaled_err(list(stage(q)), list(plain(q)),
-                          term_scales(grid, scheme, q))
-    print(f"  sharded advection tendency z-compact {n}^3 float32 on 2x2 on "
-          f"the path's state: max abs {err:.3e}, {rel:.3e} of the term scale "
-          f"(bound 2e-5)")
-    assert rel <= 2e-5, ("z-compact sharded tendency float32", rel)
-    ms = cuda_ms(lambda: stage(q))
-    plain_ms = cuda_ms(lambda: plain(q), reps=5)
-    print(f"  time sharded advection tendency z-compact at {n}^3 on 2x2: "
-          f"kernel route {ms:.4f} ms, plain route {plain_ms:.4f} ms [{card}]")
-    return launches, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    torch.cuda.empty_cache()
+    return launches, sharded_tendency_check(f"{n}^3 z-compact", model, n,
+                                            card)
 
 
 # -- bfloat16 WENO smoothness (#1, #6, #8) ------------------------------------------
@@ -4225,7 +4353,10 @@ def les_run(card, label, make, dt):
     print(f"{label}: closure share {closure_ms / events_ms:.4f} of the "
           f"event-timed step, implicit solve "
           f"{shares['implicit vertical solve']:.4f} ms per step [{card}]")
-    busy_share(label, model, dt, 3, step_ms, card)
+    # the vertically implicit row's 17,000 kernels a step make its
+    # profiled steps slow: one, to fit phase 32 in the script's time
+    busy_share(label, model, dt, 1 if "implicit" in label else 3, step_ms,
+               card)
     return launches, step_ms
 
 
@@ -4290,6 +4421,9 @@ KERNEL_SOURCES = {
     "build_sharded_fused_advection_compact": (
         "oceananigans_tpu_torch/kernels/fused_advection.py",
         "oceananigans_tpu/kernels/fused_advection.py:795"),
+    "build_sharded_fused_advection_zperiodic": (
+        "oceananigans_tpu_torch/kernels/fused_advection.py",
+        "oceananigans_tpu/kernels/fused_advection.py:795"),
     "fused_advection_update_bf16": (
         "oceananigans_tpu_torch/csrc/advection_kernel.cuh",
         "oceananigans_tpu/kernels/fused_advection.py:269"),
@@ -4322,6 +4456,8 @@ COUNTER = {"fill_halos_bounded": "fill_halos_3d",
            "fused_advection_tendency_compact": "fused_advection_tendency",
            "build_sharded_fused_advection_compact":
                "build_sharded_fused_advection",
+           "build_sharded_fused_advection_zperiodic":
+               "build_sharded_fused_advection_weno5_zperiodic",
            "fused_advection_update_bf16": "fused_advection_update"}
 
 
@@ -5569,13 +5705,15 @@ def scheme_mesh_checks():
     and bathymetry whose halos are periodic images; bit for bit."""
     import oceananigans_tpu_torch as ot
     from oceananigans_tpu_torch import kernels as K
-    mesh = card_mesh().mesh
+    arch = card_mesh()
+    mesh = arch.mesh
     s = ot.WENO(9, smoothness_dtype=torch.float64)
     for layout in ("compact", "padded"):
         halo = (5, 5, 0 if layout == "compact" else 5)
         grid, f, _, _ = scheme_inputs(SCHEME_CHECK_N, torch.float64, halo, 1,
                                       56)
-        G = K.build_sharded_fused_advection(grid, s, mesh)(f)
+        G = stitch(K.build_sharded_fused_advection(grid, s, mesh)(
+            arch.scatter(f, grid.H)), MESH_SHAPE)
         assert torch.equal(G, K.fused_advection_tendency(grid, s, f)), \
             ("sharded WENO(9) tendency", layout)
         print(f"  sharded tendency WENO(9) {layout} {SCHEME_CHECK_N} on 2x2: "
@@ -5584,11 +5722,12 @@ def scheme_mesh_checks():
     sgrid, sf, hB, _ = sw_scheme_inputs(128, torch.float64, 6, ("c",), 57)
     stage = K.build_sharded_fused_sw_update(sgrid, s, 9.81, 0.3, hB, names,
                                             mesh)
-    G, new = stage(sf, None, 2e-5, -1e-5)
+    G, new = stage(arch.scatter(sf, sgrid.H), None, 2e-5, -1e-5)
     Gs, news = K.fused_sw_update(sgrid, s, 9.81, 0.3, hB, names, sf, None,
                                  2e-5, -1e-5)
     ints = sgrid.interior_slices
-    same = all(torch.equal(new[c][ints], news[c][ints]) for c in names)
+    same = all(torch.equal(stitch([b[c] for b in new], MESH_SHAPE, sgrid.H),
+                           news[c][ints]) for c in names)
     for k, (i, j) in enumerate((i, j) for i in range(2) for j in range(2)):
         same = same and torch.equal(
             G[k], Gs[:, i * 64:(i + 1) * 64, j * 64:(j + 1) * 64])
@@ -6555,7 +6694,7 @@ def topology_phase_shares(model, dt, steps, card, label):
     return shares, t["step"]
 
 
-def topology_row_a():
+def topology_row_a(architecture=None):
     """Row A: triply periodic n³ over (0, 2π)³, WENO(5), no closure, H = 3;
     u, v, w from np.random.default_rng(0), projected by set()."""
     import oceananigans_tpu_torch as ot
@@ -6563,7 +6702,8 @@ def topology_row_a():
     grid = ot.RectilinearGrid(size=(n, n, n), extent=(2 * np.pi,) * 3,
                               topology=(P_, P_, P_), halo=3, dtype=torch.float32,
                               device="cuda")
-    m = ot.NonhydrostaticModel(grid, advection=ot.WENO(5))
+    m = ot.NonhydrostaticModel(grid, advection=ot.WENO(5),
+                               architecture=architecture)
     rng = np.random.default_rng(0)
     m.set(**{c: rng.standard_normal((n, n, n), dtype=np.float32)
              for c in "uvw"})
@@ -6993,12 +7133,13 @@ def seamount_model(nx, nz, dtype, device, smoothness=torch.float32,
 
 
 def hill_model(N, dtype, device, smoothness=torch.float32,
-               pressure_solver=None, seed=0):
+               pressure_solver=None, seed=0, architecture=None, initial=True):
     """Row E: periodic x and y over (0, 4000 m)², z in (−200, 0) m, a
     GridFittedBottom Gaussian hill −200 + 100·exp(−r²/800²) at the centre,
     WENO(5), BuoyancyTracer with N² = 1e-5, u = 0.1 m/s with a seeded
     perturbation of 0.01 m/s, the immersed CG with its FFT-x/FFT-y/DCT-z
-    preconditioner (or ``pressure_solver(grid)`` at the model's halos)."""
+    preconditioner (or ``pressure_solver(grid)`` at the model's halos);
+    ``initial=False``: the model as built, its state zero."""
     import oceananigans_tpu_torch as ot
     from oceananigans_tpu_torch.immersed import (GridFittedBottom,
                                                  ImmersedBoundaryGrid)
@@ -7013,7 +7154,9 @@ def hill_model(N, dtype, device, smoothness=torch.float32,
         pressure_solver=pressure_solver(grid.with_halo((3, 3, 3))))
     m = ot.NonhydrostaticModel(
         grid, advection=ot.WENO(5, smoothness_dtype=smoothness),
-        buoyancy=ot.BuoyancyTracer(), **kw)
+        buoyancy=ot.BuoyancyTracer(), architecture=architecture, **kw)
+    if not initial:
+        return m
     rng = np.random.default_rng(seed)
     m.set(b=lambda x, y, z: N2 * z,
           u=0.1 + 0.01 * rng.standard_normal(N),
@@ -7142,11 +7285,12 @@ def cg_small_models(device):
 
 def cg_model_checks():
     """Each small model on the card over 3 steps against the same model on
-    the CPU, float64: every field within 1e-12 of its scale (the velocity
-    scale at least for u, v, w and p), an immersed model's p over its fluid
-    cells with their mean removed (the immersed CG, as JAX's, leaves p's
-    constant over the fluid, which no correction reads, where its
-    roundoff puts it); the lat-lon model's fields within 1e-10 (its CG
+    the CPU, float64: every field within 1e-12 of
+    its scale (the velocity scale at least for u, v, w and p), an immersed
+    model's p over its fluid cells with their mean removed (the immersed
+    CG, as JAX's, leaves p's constant over the fluid, which no correction
+    reads, where its roundoff puts it); the lat-lon model's fields within
+    1e-10 (its CG
     stops at 1e-12 of a Laplacian whose condition number is about 2e7: its
     u, v and c read 4.04e-12, 4.56e-12 and 1.21e-11, PERF.md).
     A CG model's divergence at roundoff. No plain version runs on CUDA
@@ -7159,8 +7303,9 @@ def cg_model_checks():
     for label, (a, dt) in card.items():
         b = cpu[label][0]
         bound = 1e-10 if label == "lat-lon" else 1e-12
+        steps = 3
         K.reset_counters()
-        for _ in range(3):
+        for _ in range(steps):
             a.time_step(dt)
             b.time_step(dt)
         launches, plain = K.counters()
@@ -7188,7 +7333,7 @@ def cg_model_checks():
         if hasattr(a.pressure_solver, "operator"):
             # a CG solved to 1e-14 (1e-12): the divergence is at roundoff
             fluid_divergence(f"model {label}", a, bound_rel=1e-8)
-        print(f"  model {label} {a.grid.N} float64, 3 steps on the card "
+        print(f"  model {label} {a.grid.N} float64, {steps} steps on the card "
               f"against the CPU: worst rel {line:.3e} (bound {bound:.0e}; "
               + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
               + f"); fill launches {launches['fill_halos']} (planes "
@@ -7410,7 +7555,9 @@ def cg_row(card, label, model, cap=None):
           f"(steps) {peak / 2 ** 30:.2f} GiB [{card}]")
     dt = cg_dt(model, cap)
     cg_phase_shares(model, dt, 2, card, label)
-    busy_share(label, model, cg_dt(model, cap), 2, step_ms, card)
+    # one profiled step (two took 24 s on row D and 36 s on row E, the
+    # profiler's own processing, which the hill of phase 32 (c) needs)
+    busy_share(label, model, cg_dt(model, cap), 1, step_ms, card)
     launches["divergence"] = div
     return launches, step_ms, cg_dt(model, cap)
 
@@ -7482,7 +7629,9 @@ def cg_phase(card):
     the small models against the CPU, the golden, rows D and E, and
     witnesses of the rows' CG (``cg_witness``: row D's float32 state given
     5000 iterations, each row's seeded state in float64 given
-    ``WITNESS_MAXITER``). Returns ({kernel row: measured}, {row:
+    ``WITNESS_MAXITER``; row D's witnesses take 1000 and 2000 iterations,
+    to fit phase 32 in the script's time). Returns ({kernel
+    row: measured}, {row:
     launches})."""
     t0 = time.perf_counter()
     out, launches = {}, {}
@@ -7520,14 +7669,14 @@ def cg_phase(card):
         f"{label} u, v, w, b (planes, PA faces)", model.grid, arrays, lbs,
         ferr, time_=t_d, dt=dt / 3)
     # whether more iterations move the float32 solve off its residual
-    cg_witness("row D float32", model, SEAMOUNT_DT, steps=0, maxiter=5000)
+    cg_witness("row D float32", model, SEAMOUNT_DT, steps=0, maxiter=1000)
     del model, fields, arrays
     torch.cuda.empty_cache()
     print(f"{label}: the same seeded state in float64 (a witness of the "
           f"row's solve):")
     model = seamount_model(nx, nz, torch.float64, "cuda",
                            smoothness=torch.float64)
-    cg_witness("row D float64", model, SEAMOUNT_DT, steps=1)
+    cg_witness("row D float64", model, SEAMOUNT_DT, steps=1, maxiter=2000)
     del model
     torch.cuda.empty_cache()
 
@@ -8978,6 +9127,328 @@ def long_tail_phase(card):
     return out, row
 
 
+# -- resident blocks and the pencil solvers (phase 32) ------------------------------
+
+RES_SMALL_N = (64, 64, 64)          # (a) float64 against the serial solver
+RES_PENCIL_N = (256, 256, 256)      # (a) float32 at size, a DCT z
+RES_STRETCHED_N = (256, 256, 128)   # (a) float32 at size, a stretched z
+RES_HILL_SMALL = (64, 64, 32)       # (c) float64, 3 steps against serial
+RES_HILL_N = (128, 128, 64)         # (c) float32, timed
+RES_AUX_N = (64, 64, 64)            # (d)
+RES_STEPS = 3
+RES_HILL_STEPS = 1                  # (c) float32 timed steps
+
+
+def pencil_grid(n, dtype, stretched):
+    """A (periodic, periodic, bounded) grid on the card: the unit cube, or
+    z faces -1 + s^1.5 (JAX's test grid) for a stretched z."""
+    import oceananigans_tpu_torch as ot
+    kw = (dict(x=(0.0, 1.0), y=(0.0, 1.0),
+               z=-1.0 + np.linspace(0.0, 1.0, n[2] + 1) ** 1.5)
+          if stretched else dict(extent=(1.0, 1.0, 1.0)))
+    return ot.RectilinearGrid(size=n, topology=(P_, P_, B_), dtype=dtype,
+                              device="cuda", **kw)
+
+
+def pencil_compare(label, g, stretched, bound_rel, seed=31):
+    """The pencil solver on 4 slabs of the card against the serial solver
+    (FFT/DCT, or Fourier-tridiagonal on a stretched z, compared with the
+    means removed: the serial solver removes its Δz-weighted mean after
+    the pin): max |φ_pencil − φ_serial| over max|φ_serial|, with its bound.
+    A float32 grid holds both against the serial solve in float64 instead:
+    the pencil's error within ``bound_rel`` and, on a stretched z, within
+    1.25 times the serial float32 solve's own (both sweep the same
+    float64-formed coefficients, so the pencil adds no error of its own),
+    beside a control that must fail the bound: the right-hand side rounded
+    to bfloat16 and solved in float64."""
+    from oceananigans_tpu_torch.parallel import DistributedFFTPoissonSolver
+    from oceananigans_tpu_torch.solvers.fft_poisson import FFTPoissonSolver
+    from oceananigans_tpu_torch.solvers.fourier_tridiagonal import \
+        FourierTridiagonalPoissonSolver
+
+    def serial_of(grid):
+        return (FourierTridiagonalPoissonSolver(grid, 2) if stretched
+                else FFTPoissonSolver(grid))
+
+    def centred(a):
+        return a - a.mean() if stretched else a
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b = torch.randn(g.N, generator=gen, dtype=torch.float64, device="cuda")
+    b -= b.mean()
+    serial = serial_of(g)
+    pencil = DistributedFFTPoissonSolver(g, [torch.device("cuda", 0)] * 4)
+    bg = b.to(g.dtype)
+    got = centred(pencil.solve(bg).double())
+    want = centred(serial.solve(bg).double())
+    if g.dtype == torch.float64:
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        print(f"  {label}: pencil ({pencil.z_kind} z, 4 slabs of cuda:0) "
+              f"against the serial solver: {rel:.3e} of max|φ| (bound "
+              f"{bound_rel:g})")
+        assert rel <= bound_rel, (label, "pencil against serial", rel)
+        return serial, pencil, bg
+    exact_solver = serial_of(g.to(dtype=torch.float64))
+    exact = centred(exact_solver.solve(b))
+    scale = exact.abs().max()
+    rel = ((got - exact).abs().max() / scale).item()
+    own = ((want - exact).abs().max() / scale).item()
+    control = ((centred(exact_solver.solve(b.to(torch.bfloat16).double()))
+                - exact).abs().max() / scale).item()
+    tie = 1.25 if stretched else float("inf")
+    print(f"  {label}: pencil ({pencil.z_kind} z, 4 slabs of cuda:0) "
+          f"against the serial float64 solve: {rel:.3e} of max|φ|, "
+          f"{rel / own:.3f} times the serial float32 solve's {own:.3e} "
+          f"(bound {bound_rel:g}"
+          + (", and 1.25 times the serial's" if stretched else "")
+          + f"); control, b rounded to bfloat16 and solved in float64: "
+          f"{control:.3e}")
+    assert rel <= bound_rel and rel <= tie * own, (label, "pencil float32",
+                                                   rel, own)
+    assert control > bound_rel, (label, "control within the bound", control)
+    return serial, pencil, bg
+
+
+def pencil_checks(card):
+    """(a) The pencil solver: float64 at 64³ (DCT z) and 64×64×32 (stretched
+    z) against the serial solvers within 1e-12 of max|φ|; float32 at 256³
+    (DCT z) and 256×256×128 (stretched z) against the serial float64 solve
+    within 1e-5 and 1.25 times the serial float32 solve's error, with the
+    time per solve beside the serial solve's, and the block entry the
+    models call on
+    a 2x2 mesh of resident (128, 128, nz) blocks (re-blocked into 4 x-slabs
+    and back)."""
+    for stretched, n in ((False, RES_SMALL_N),
+                         (True, RES_SMALL_N[:2] + (RES_SMALL_N[2] // 2,))):
+        pencil_compare(f"pencil {n} float64", pencil_grid(
+            n, torch.float64, stretched), stretched, 1e-12)
+    out = {}
+    # float32 against the float64 serial solve: 1e-5 with either z (on an
+    # H100 80GB HBM3 at 700 W the stretched z's serial float32 solve reads
+    # 9.74e-6 of max|φ|, the grid's float32 floor: the sweep of its
+    # near-singular modes amplifies rounding)
+    for stretched, n, bound_rel in ((False, RES_PENCIL_N, 1e-5),
+                                    (True, RES_STRETCHED_N, 1e-5)):
+        label = f"pencil {n} float32"
+        g = pencil_grid(n, torch.float32, stretched)
+        serial, pencil, b = pencil_compare(label, g, stretched, bound_rel)
+        serial_ms = cuda_ms(lambda: serial.solve(b), reps=3, warmup=1)
+        pencil_ms = cuda_ms(lambda: pencil.solve(b), reps=3, warmup=1)
+        arch = card_mesh()
+        from oceananigans_tpu_torch.parallel import \
+            DistributedFFTPoissonSolver
+        blockwise = DistributedFFTPoissonSolver(g, arch)
+        h = (n[0] // 2, n[1] // 2)
+        blocks = [b[i * h[0]:(i + 1) * h[0], j * h[1]:(j + 1) * h[1]]
+                  .contiguous() for i in range(2) for j in range(2)]
+        comm = arch.communicator
+        phi = comm.run(lambda r: blockwise.solve_block(r, blocks[r]))
+        full = stitch(phi, MESH_SHAPE, (0, 0))
+        want = pencil.solve(b)
+        rel = ((full - want).abs().max() / want.abs().max()).item()
+        print(f"  {label}: the block entry on 2x2 resident blocks against "
+              f"the pencil's global entry: {rel:.3e} of max|φ| (bound 0: "
+              f"the same slabs and transforms)")
+        assert rel == 0.0, (label, "block entry", rel)
+        block_ms = cuda_ms(lambda: comm.run(
+            lambda r: blockwise.solve_block(r, blocks[r])), reps=3, warmup=1)
+        print(f"  {label}: time per solve, serial {serial_ms:.4f} ms, pencil "
+              f"on 4 slabs {pencil_ms:.4f} ms, block entry on 2x2 "
+              f"{block_ms:.4f} ms (CUDA events around the call) [{card}]")
+        out[label] = (serial_ms, pencil_ms, block_ms)
+        del serial, pencil, blockwise, b, blocks, phi, full, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def resident_row_a(card):
+    """(b) Row A (triply periodic 256³, WENO(5), float32) on the 2x2 mesh of
+    the card from the serial row's initial state: 3 steps of each with the
+    counters reset before the sharded steps and read after (#7 in its
+    zperiodic variant once per shard and stage, the exchange, the fill's z
+    wrap, no plain version on CUDA tensors), each field against the serial
+    model's within 1e-5 of its max|·| (float32; the pencil solver rounds
+    apart from the serial one), step ms, peak memory against the state
+    held, the device profile and #7 against its plain route on the row's
+    blocks. Returns (launches, #7's measured row)."""
+    from oceananigans_tpu_torch import kernels as K
+    serial = topology_row_a()
+    state0 = to_device(serial.state, "cpu")
+    dt = cfl_dt(serial)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = topology_row_a(card_mesh())
+    model.state = to_device(state0, "cuda")
+    del state0
+    K.reset_counters()
+    times = []
+    for _ in range(RES_STEPS):
+        t0 = time.perf_counter()
+        model.time_step(dt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        serial.time_step(dt)
+    launches, plain_cuda = K.counters()
+    label = "row A, triply periodic 256^3 WENO(5)"
+    print(f"{label} on 2x2 launches over {RES_STEPS} steps: "
+          f"{ {k: v for k, v in launches.items() if v} }; plain calls on "
+          f"CUDA: { {k: v for k, v in plain_cuda.items() if v} }")
+    stages = 3 * RES_STEPS
+    check_mesh_launches(launches, plain_cuda, {
+        "build_sharded_fused_advection": 4 * stages,
+        "build_sharded_fused_advection_weno5_zperiodic": 4 * stages})
+    assert launches["mesh_halo_exchange"] >= 2 * stages
+    assert launches["fill_halos"] > 0
+    step_ms = resident_report(label, model, times, base, card)
+    against_serial(label, model, serial, ("u", "v", "w"), 1e-5)
+    del serial
+    torch.cuda.empty_cache()
+    resident_profile(label, model, dt, 2, step_ms, card, "advection")
+    return launches, sharded_tendency_check("row A 256^3", model,
+                                            RES_PENCIL_N[0], card)
+
+
+def resident_hill(card):
+    """(c) Row E's immersed hill on the 2x2 mesh (the CG with its sums over
+    the mesh and the pencil preconditioner, as JAX's takes the FFT one),
+    each sharded model from its serial twin's state: in float64 at
+    64×64×32, both CGs at reltol 1e-13 (about 538 iterations a solve),
+    3 steps against the serial model within 1e-10 of each field's max|·|,
+    with their wall time;
+    in float32 at 128×128×64, one timed step with each solve's iterations
+    and final residual (a solve that stops at maxiter is marked
+    unconverged, as rows D and E) and the time an iteration (the sharded
+    CG meets 8 times an iteration and reads its norm on the host)."""
+    from oceananigans_tpu_torch import kernels as K
+    from oceananigans_tpu_torch.solvers.conjugate_gradient import \
+        conjugate_gradient as cg
+    serial = hill_model(RES_HILL_SMALL, torch.float64, "cuda",
+                        smoothness=torch.float64)
+    model = hill_model(RES_HILL_SMALL, torch.float64, "cuda",
+                       smoothness=torch.float64, architecture=card_mesh(),
+                       initial=False)
+    model.state = to_device(serial.state, "cuda")
+    # both CGs to 1e-13: at the row's 1e-7 the two stop on either side of
+    # the tolerance as their sums round apart (1e-6 after 3 steps); a fixed
+    # iteration count does not help, since unconverged iterates round apart
+    # too (1e-4 after 64 iterations a solve)
+    for solver in [serial.pressure_solver] + [
+            m.pressure_solver for m in model._shards]:
+        solver.reltol, solver.maxiter = 1e-13, 1000
+    dt = cg_dt(serial)
+    t0 = time.perf_counter()
+    for _ in range(RES_STEPS):
+        serial.time_step(dt)
+    t1 = time.perf_counter()
+    cg.iterations.clear()
+    for _ in range(RES_STEPS):
+        model.time_step(dt)
+    t2 = time.perf_counter()
+    iters = list(cg.iterations)
+    print(f"hill {RES_HILL_SMALL} float64: {RES_STEPS} steps, serial "
+          f"{t1 - t0:.1f} s, on 2x2 {t2 - t1:.1f} s ({sum(iters)} CG "
+          f"iterations, {(t2 - t1) * 1e3 / sum(iters):.3f} ms an iteration) "
+          f"[{card}]")
+    against_serial(f"hill {RES_HILL_SMALL} float64", model, serial,
+                   ("u", "v", "w", "b"), 1e-10)
+    del serial, model
+    torch.cuda.empty_cache()
+    label = f"hill {RES_HILL_N} float32 on 2x2"
+    serial = hill_model(RES_HILL_N, torch.float32, "cuda")
+    model = hill_model(RES_HILL_N, torch.float32, "cuda",
+                       architecture=card_mesh(), initial=False)
+    model.state = to_device(serial.state, "cuda")
+    dt = cg_dt(serial)
+    del serial
+    maxiter = model._shards[0].pressure_solver.maxiter
+    torch.cuda.synchronize()
+    K.reset_counters()
+    cg.iterations.clear()
+    cg.residuals.clear()
+    times = []
+    for _ in range(RES_HILL_STEPS):
+        t0 = time.perf_counter()
+        model.time_step(dt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        dt = cg_dt(model)
+    step_ms = statistics.median(times) * 1e3
+    launches, plain_cuda = K.counters()
+    check_mesh_launches(launches, plain_cuda, {})
+    assert launches["mesh_halo_exchange"] > 0 and launches["fill_halos"] > 0
+    iters, res = list(cg.iterations), list(cg.residuals)
+    assert len(iters) == 3 * RES_HILL_STEPS, (label, len(iters))
+    marks = ["unconverged" if i >= maxiter else "converged" for i in iters]
+    print(f"{label}: CG iterations per solve {iters} (maxiter {maxiter}), "
+          f"final residual over |b| " + ", ".join(f"{r:.3e}" for r in res)
+          + f"; {marks.count('unconverged')} of {len(iters)} solves stopped "
+          f"at maxiter (unconverged, as rows D and E)")
+    for name in model.prognostic_names:
+        assert torch.isfinite(model.field(name).interior).all().item(), name
+    # printed, not asserted: a float32 CG at reltol 1e-7 of |b| leaves
+    # max|∇·u|·Δx/max|u| near 1e-4 serially too (1.3e-4 and 2.2e-4 at
+    # 16×16×8 and 32×32×16 on the CPU, sharded or not)
+    fluid_divergence(label, model, required=False)
+    print(f"{label}: step median {step_ms:.3f} ms over {RES_HILL_STEPS} "
+          f"steps (min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
+          f"{sum(iters)} CG iterations "
+          f"({sum(times) * 1e3 / sum(iters):.3f} ms an iteration) [{card}]")
+    return launches
+
+
+def resident_aux(card):
+    """(d) tests/test_parallel.py:557 at 64³ on the 2x2 mesh: a forcing that
+    reads an auxiliary field; the host's A.set(4.0) between two steps of
+    0.1 reaches every shard on the next step (mean c 0.2, then 0.4 more)."""
+    import oceananigans_tpu_torch as ot
+    grid = ot.RectilinearGrid(size=RES_AUX_N, extent=(1.0, 1.0, 1.0),
+                              dtype=torch.float32, device="cuda")
+    A = ot.CenterField(grid).set(2.0)
+    model = ot.NonhydrostaticModel(
+        grid, advection=None, tracers=("c",),
+        forcing={"c": ot.ContinuousForcing(lambda x, y, z, t, A: A,
+                                           field_dependencies=("A",))},
+        auxiliary_fields={"A": A}, architecture=card_mesh())
+    model.time_step(0.1)
+    c1 = model.field("c").interior.double().mean().item()
+    A.set(4.0)
+    model.time_step(0.1)
+    c2 = model.field("c").interior.double().mean().item()
+    print(f"  auxiliary-field forcing on 2x2 at {RES_AUX_N}: mean c {c1:.7f} "
+          f"after one step (0.2), {c2 - c1:.7f} more after A.set(4.0) (0.4)"
+          f" [{card}]")
+    assert abs(c1 - 0.2) <= 1e-5 * 0.2 and abs(c2 - c1 - 0.4) <= 1e-4 * 0.4
+
+
+def release():
+    """Free what the last phase dropped: the sharded models hold reference
+    cycles (a shard's grid names its shard), which only the collector
+    frees, and their blocks go back to the card with them."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def resident_phase(card):
+    """Phase 32 (item 16a): (a) the pencil solver, (b) row A on the 2x2
+    mesh, (c) row E's hill on it, (d) an auxiliary-field forcing. Returns
+    ({"A": launches, "E": launches}, #7's zperiodic row)."""
+    t0 = time.perf_counter()
+    print("(a) the pencil solver on 4 slabs of the card:")
+    pencil_checks(card)
+    release()
+    print("(b) row A on the 2x2 mesh of the card:")
+    launches_a, row = resident_row_a(card)
+    release()
+    print("(c) row E's immersed hill on the 2x2 mesh of the card:")
+    launches_e = resident_hill(card)
+    release()
+    print("(d) an auxiliary-field forcing on the 2x2 mesh of the card:")
+    resident_aux(card)
+    print(f"phase 32 wall time {time.perf_counter() - t0:.1f} s [{card}]")
+    return {"A": launches_a, "E": launches_e}, row
+
+
 def main():
     t_start = time.perf_counter()
     name, card = device_phase()
@@ -8996,45 +9467,45 @@ def main():
     bounds.update(sw_bounds(n_sw, (4, 4, 0), 4))
     sw_launches, sw_step_ms, sw_serial, sw_state0 = sw_path_phase(card,
                                                                    n_sw)
-    torch.cuda.empty_cache()
+    release()
     print("mesh pieces against plain versions (2x2 mesh of one card):")
     measured.update(mesh_kernels_phase(n_sw, 256))
-    torch.cuda.empty_cache()
+    release()
     sharded_sw_launches, measured["build_sharded_fused_sw_update"] = \
         sharded_sw_path_phase(card, n_sw, sw_serial, sw_state0)
     # the serial model's steady steps, after the sharded path compared
     # with it
     busy_share("shallow-water path", sw_serial, 1e-5, 3, sw_step_ms, card)
     del sw_serial, sw_state0
-    torch.cuda.empty_cache()
+    release()
     sharded_conv_launches, measured["build_sharded_fused_advection"] = \
         sharded_convection_path_phase(card, 256, conv_serial, conv_state0)
     busy_share("convection path", conv_serial, 1e-3, 3, conv_step_ms, card)
     del conv_serial, conv_state0
-    torch.cuda.empty_cache()
+    release()
     print("z-compact kernels with tracers, and the lifted caps, against plain "
           "versions:")
     tracer_kernels_phase()
-    torch.cuda.empty_cache()
+    release()
     tracer_launches, measured["fused_advection_update_tracers"], \
         weno_states = tracer_path_phase(card)
-    torch.cuda.empty_cache()
+    release()
     print("bfloat16 WENO smoothness: kernels against plain versions, and the "
           "256^3 weno5_bf16smooth tracer row:")
     measured.update(bf16_kernels_phase())
-    torch.cuda.empty_cache()
+    release()
     bf16_launches, measured["fused_advection_update_bf16"] = \
         bf16_tracer_path_phase(card, weno_states)
     del weno_states
-    torch.cuda.empty_cache()
+    release()
     buoyant_launches, measured["fused_advection_tendency_compact"], \
         b_serial, b_state0, b_step_ms = buoyant_path_phase(card)
-    torch.cuda.empty_cache()
+    release()
     sharded_b_launches, measured["build_sharded_fused_advection_compact"] = \
         sharded_buoyant_path_phase(card, 256, b_serial, b_state0)
     busy_share("buoyant z-compact path", b_serial, 1e-3, 3, b_step_ms, card)
     del b_serial, b_state0
-    torch.cuda.empty_cache()
+    release()
     bounds.update(compact_bounds((256, 256, 256), (4, 4, 0), 4, N_TRACERS))
     bounds["fused_advection_tendency_compact"] = compact_bounds(
         (256, 256, 256), (4, 4, 0), 4, 1)["fused_advection_tendency_compact"]
@@ -9054,7 +9525,7 @@ def main():
     bounds.update(hydro_bounds(HYDRO_N, hydro_H, 4))
     hydro_launches, _ = hydro_path_phase(card, hmodel)
     del hmodel
-    torch.cuda.empty_cache()
+    release()
     print("goldens on the card:")
     goldens_phase()
     print("whole step, kernels against plain versions:")
@@ -9107,6 +9578,11 @@ def main():
           "example, the bounded tracer, particles and an ensemble (phase "
           "31):")
     p31_launches, bounded_row = long_tail_phase(card)
+    print("resident shard blocks and the pencil solvers (phase 32):")
+    res_launches, measured["build_sharded_fused_advection_zperiodic"] = \
+        resident_phase(card)
+    bounds["build_sharded_fused_advection_zperiodic"] = convection_bounds(
+        RES_PENCIL_N, (3, 3, 3), 4, n_tracers=0)["fused_advection_tendency"]
     bounds["fused_advection_update_bf16"] = \
         bounds["fused_advection_update_tracers"]
     for fname in ("fill_halos", "fill_halos_bounded", "fill_halos_fold",
@@ -9131,6 +9607,8 @@ def main():
                     if kname == "fused_advection_tendency_compact"
                     else sharded_b_launches
                     if kname == "build_sharded_fused_advection_compact"
+                    else res_launches["A"]
+                    if kname == "build_sharded_fused_advection_zperiodic"
                     else bf16_launches
                     if kname == "fused_advection_update_bf16"
                     else probe_launches if kname in PROBE_KERNELS

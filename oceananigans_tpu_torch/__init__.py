@@ -60,8 +60,10 @@ Layer map:
     timesteppers/          RK3 coefficients, quasi-AB2
     models/                NonhydrostaticModel, ShallowWaterModel,
                            HydrostaticFreeSurfaceModel, free surfaces, z*
-    parallel/              device meshes (Distributed, Partition) and the
-                           halo exchange between shards
+    parallel/              device meshes (Distributed, Partition), resident
+                           shard blocks and their meeting points (the halo
+                           exchange, all_to_all, all_reduce), the pencil
+                           Poisson solvers
     simulation/            Simulation (the run loop), callbacks, the NaN
                            check, the CFL diagnostics and time-step wizard,
                            output writers (FieldWriter, NetCDF-3; HDF5 and

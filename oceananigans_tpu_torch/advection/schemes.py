@@ -179,10 +179,18 @@ def immersed_ok(grid, axis, R):
     cache = grid.__dict__.setdefault("_imm_adv_masks", {})
     m = cache.get((axis, R))
     if m is None:
-        near = solid.copy()
-        for r in range(1, R + 1):
-            near = near | np.roll(solid, r, axis) | np.roll(solid, -r, axis)
-        m = cache[(axis, R)] = torch.as_tensor(~near, device=grid.device)
+        parent = getattr(grid, "_parent", None)
+        if parent is not None:
+            # a shard's block: the global grid's mask cut at the block (the
+            # rolls wrap the global padded array, as the serial model's)
+            ok = parent[1](immersed_ok(parent[0], axis, R).cpu().numpy())
+        else:
+            near = solid.copy()
+            for r in range(1, R + 1):
+                near = near | np.roll(solid, r, axis) | np.roll(solid, -r,
+                                                                axis)
+            ok = ~near
+        m = cache[(axis, R)] = torch.as_tensor(ok, device=grid.device)
     return m
 
 

@@ -136,6 +136,26 @@ def coordinate(N, H, topology, spec):
     return _Coordinate(N, H, topology, faces=spec)
 
 
+def _cut_coordinate(c, n, offset):
+    """The coordinate of ``n`` cells of ``c`` starting at its interior cell
+    ``offset``, with ``c``'s halo: its padded arrays cut from ``c``'s."""
+    if c.topology == topo.FLAT or (offset == 0 and n == c.N):
+        return c
+    if offset < 0 or offset + n > c.N:
+        raise ValueError(f"cells {offset}..{offset + n} outside 0..{c.N}")
+    out = copy.copy(c)
+    out.N = n
+    npad = n + 2 * c.H
+    out.xF = c.xF[offset:offset + npad + 1].copy()
+    out.xC = c.xC[offset:offset + npad].copy()
+    out.dC = c.dC[offset:offset + npad].copy()
+    out.dF = c.dF[offset:offset + npad + 1].copy()
+    out.origin = float(out.xF[c.H])
+    out._fp = ((n, c.H, c.topology, c.delta, out.origin) if c.regular
+               else (n, c.H, c.topology, out.xF.tobytes()))
+    return out
+
+
 def spacing_metric(c, axis, loc):
     """A coordinate's spacing at ``loc`` as the JAX grids form it: a float,
     or a float64 array broadcastable along ``axis``."""
@@ -291,23 +311,28 @@ class RectilinearGrid(MetricCache, AbstractGrid):
             return self
         return self._rebuild(halo, self.dtype, self.device)
 
-    def local_grid(self, size, device=None):
-        """One shard's grid: ``size`` = (nx, ny, nz) interior cells with this
-        grid's halo, topology, dtype and spacing, on ``device`` (default:
-        this grid's). The spacing is copied, not re-derived from an extent,
-        so the shard's metrics equal this grid's exactly; its coordinates
-        start at this grid's origin (the sharded stages read only metrics)."""
-        if not self.all_regular:
-            raise NotImplementedError("a sharded grid must be regular")
+    def local_grid(self, size, device=None, offset=(0, 0)):
+        """One shard's grid: ``size`` = (nx, ny, nz) interior cells whose
+        first cell is this grid's interior cell ``offset`` = (ox, oy), with
+        this grid's halo, topology and dtype, on ``device`` (default: this
+        grid's). Its coordinates and spacings are this grid's, cut at the
+        offset, so the shard's nodes and metrics equal this grid's exactly;
+        z is never sharded and is carried whole, stretched or not. A
+        stretched x or y is not sharded (ROADMAP.md item 16b)."""
+        size = tuple(int(n) for n in size)
+        for ax in (0, 1):
+            if not self._coords[ax].regular and size[ax] != self.N[ax]:
+                raise NotImplementedError(
+                    "a sharded stretched horizontal axis: ROADMAP.md queue "
+                    "1 item 16b")
+        if size[2] != self.N[2]:
+            raise ValueError("z is never sharded: the local grid keeps Nz")
         local = copy.copy(self)
         local._cache = {}
-        local.N = tuple(int(n) for n in size)
+        local.N = size
         local.device = self.device if device is None else torch.device(device)
-        local._coords = [
-            c if c.topology == topo.FLAT else _Coordinate(
-                n, c.H, c.topology, (c.origin, c.origin + n * c.delta),
-                delta=c.delta)
-            for c, n in zip(self._coords, local.N)]
+        local._coords = [_cut_coordinate(c, n, o) for c, n, o in zip(
+            self._coords, size, tuple(offset) + (0,))]
         return local
 
     def to(self, device=None, dtype=None):
@@ -323,7 +348,8 @@ class RectilinearGrid(MetricCache, AbstractGrid):
     def _fingerprint(self):
         return ("RectilinearGrid", self.N, self.H, self.topology,
                 str(self.dtype), str(self.device),
-                tuple(c._fp for c in self._coords))
+                tuple(c._fp for c in self._coords),
+                getattr(self, "connected", None))
 
     def __repr__(self):
         topo_s = "×".join(t.capitalize() for t in self.topology)

@@ -246,11 +246,17 @@ class ImmersedBoundaryGrid(AbstractGrid):
         any of the 2^f adjacent centres (f face-located axes) is solid."""
         key = ("at",) + tuple(loc)
         if key not in self.mask:
-            solid = self.solid_ccc
-            for axis in range(3):
-                if loc[axis] == FACE:
-                    solid = solid | np.roll(solid, 1, axis)
-            self.mask[key] = ~solid
+            parent = getattr(self, "_parent", None)
+            if parent is not None:
+                # a shard's block: cut from the global grid's mask
+                parent[0].fluid_mask_at(loc)
+                self.mask[key] = parent[1](parent[0].mask[key])
+            else:
+                solid = self.solid_ccc
+                for axis in range(3):
+                    if loc[axis] == FACE:
+                        solid = solid | np.roll(solid, 1, axis)
+                self.mask[key] = ~solid
         return self._tensor(("mask",) + key, lambda: self.mask[key],
                             dtype or self.dtype)
 
@@ -316,6 +322,35 @@ class ImmersedBoundaryGrid(AbstractGrid):
         return self._underlying.V(loc)
 
     # -- copies ---------------------------------------------------------------
+
+    def block(self, local, offset):
+        """The immersed grid of one shard: ``local`` (the underlying grid's
+        ``local_grid`` at the interior ``offset`` (ox, oy), with this grid's
+        halo) and this grid's masks and partial-cell geometry cut, halos
+        included, from the global padded arrays, so that every slot of the
+        block holds the global grid's geometry there."""
+        ox, oy = offset
+        sx = slice(ox, ox + local.padded_shape[0])
+        sy = slice(oy, oy + local.padded_shape[1])
+
+        def cut(a):
+            return np.ascontiguousarray(a[sx, sy])
+
+        out = ImmersedBoundaryGrid.__new__(ImmersedBoundaryGrid)
+        out._underlying = local
+        out.immersed_boundary = self.immersed_boundary
+        out._dz_eff = (None if self._dz_eff is None else
+                       {k: cut(np.broadcast_to(v, self.padded_shape))
+                        for k, v in self._dz_eff.items()})
+        out.solid_ccc = cut(self.solid_ccc)
+        out.solid_fcc = cut(self.solid_fcc)
+        out.solid_cfc = cut(self.solid_cfc)
+        out.solid_ccf = cut(self.solid_ccf)
+        out.mask = {LOC_CCC: ~out.solid_ccc, LOC_FCC: ~out.solid_fcc,
+                    LOC_CFC: ~out.solid_cfc, LOC_CCF: ~out.solid_ccf}
+        out._tensors = {}
+        out._parent = (self, cut)
+        return out
 
     def with_halo(self, halo):
         if tuple(halo) == tuple(self.H):

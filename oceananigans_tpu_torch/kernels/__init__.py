@@ -7,15 +7,19 @@ it is instantiated for and its stretched axes, in ``variant_launches``),
 and
 each plain version counts the calls it served on CUDA tensors in
 ``cuda_calls``. ``vpu_probes`` holds the vector-unit probes, which run
-no model. The sharded stages (``build_sharded_*``) count the calls of
-the stages they built, and the halo exchange between shards lives in
-``parallel/halo_exchange.py``. The kernels build at first use
+no model. The sharded stages #7 and #9 (``shard_fused_advection`` and
+``shard_fused_sw_update``, each shard's launch on its resident blocks, and
+the whole-mesh ``build_sharded_*``) count their per-shard launches, by
+variant, under ``build_sharded_fused_advection`` and
+``build_sharded_fused_sw_update``; the halo exchange between shards lives
+in ``parallel/halo_exchange.py``. The kernels build at first use
 (``build.py``).
 """
 
 from ..parallel.halo_exchange import halo_exchange_plain, mesh_halo_exchange
 from .fused_advection import (build_sharded_fused_advection,
                               build_sharded_fused_advection_plain,
+                              shard_fused_advection,
                               fused_advection_tendency,
                               fused_advection_tendency_plain,
                               fused_advection_update,
@@ -24,6 +28,7 @@ from .fused_projection import (fused_correct, fused_correct_plain,
                                fused_divergence, fused_divergence_plain)
 from .fused_shallow_water import (build_sharded_fused_sw_update,
                                   build_sharded_fused_sw_update_plain,
+                                  shard_fused_sw_update,
                                   fused_sw_update, fused_sw_update_plain)
 from .fused_vector_invariant import (fused_vi_tendency,
                                      fused_vi_tendency_plain)
@@ -51,7 +56,9 @@ PLAINS = (fused_advection_update_plain, fused_divergence_plain,
 # the kernels that also count their launches by scheme variant
 # (``variant_launches``: {``fused_advection.variant_name``: launches})
 VARIANT_KERNELS = (fused_advection_update, fused_advection_tendency,
-                   fused_sw_update, fused_vi_tendency)
+                   fused_sw_update, fused_vi_tendency,
+                   build_sharded_fused_advection,
+                   build_sharded_fused_sw_update)
 
 
 def reset_counters():
@@ -100,6 +107,7 @@ __all__ = ["fused_advection_update", "fused_advection_update_plain",
            "build_sharded_fused_sw_update_plain",
            "build_sharded_fused_advection",
            "build_sharded_fused_advection_plain",
+           "shard_fused_advection", "shard_fused_sw_update",
            "weno_microbench", "weno_microbench_plain", "vpu_mix",
            "vpu_mix_plain", "bf16_smoothness", "bf16_smoothness_plain",
            "ZFill", "KERNELS", "PLAINS", "VARIANT_KERNELS",

@@ -73,14 +73,16 @@ in the kernel's parameter block, at most ``build.BATCH`` a launch, and a
 call with more launches once per batch. Every component's result depends only on its
 own field and u, v, w (and p), so the batching changes no bit of it.
 
-``build_sharded_fused_advection`` replaces ``build_sharded_fused_advection``
-(#7): the tendency kernel once per shard of a device mesh, on blocks whose
-x/y halos come from the mesh's halo exchange, in either layout.
+``shard_fused_advection`` and ``build_sharded_fused_advection`` replace
+``build_sharded_fused_advection`` (#7): the tendency kernel once per shard
+of a device mesh, on the shard's resident blocks, whose x/y halos come
+from the mesh's halo exchange, in either layout and with any z.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -89,9 +91,9 @@ from ..advection import (WENO, Centered, UpwindBiased, div_Uc, div_Uu,
 from ..advection.fluxes import BOUNDED_REFUSAL
 from ..advection.reconstruction import typed_constants
 from ..advection.schemes import TAU_COEFFS, WENO_EPSILON, WENO_R_MAX
-from ..grids.topology import BOUNDED, PERIODIC
+from ..grids.topology import PERIODIC
 from ..operators.shifts import shift
-from ..parallel import halo_exchange as hx
+from ..parallel.distributed import mesh_shards
 from . import build
 from .fused_projection import (_DTYPE_CODES, _metrics, check_fast_layout,
                                check_tensors, scalar_product)
@@ -99,9 +101,8 @@ from .halo_fill import periodic_halo_fill_plain
 
 ZBC = {"u": "even", "v": "even", "w": "odd_face", "c": "even"}
 
-MESH_TOPOLOGY_ITEM = ("ROADMAP.md queue 1 item 16 (the sharded tendency "
-                      "route off a regular (periodic, periodic, bounded) "
-                      "grid)")
+MESH_TOPOLOGY_ITEM = ("ROADMAP.md queue 1 item 16b (bounded or stretched "
+                      "sharded axes)")
 
 OTHER_SCHEMES_ITEM = ("ROADMAP.md queue 1 item 15 (the long tail: a "
                       "per-axis FluxFormAdvection in the CUDA advection "
@@ -360,10 +361,16 @@ def variant_name(scheme):
 def count_launch(kernel, scheme, zmode=Z_BOUNDED):
     """One more launch of ``kernel`` (its ``launches``) and of the scheme's
     variant (its ``variant_launches``, by ``variant_name`` and, for a z
-    that is not bounded, ``_zperiodic`` or ``_zflat``)."""
-    kernel.launches += 1
+    that is not bounded, ``_zperiodic`` or ``_zflat``); the shards of a
+    device mesh count from their own threads."""
     name = variant_name(scheme) + Z_MODE_NAMES[zmode]
-    kernel.variant_launches[name] = kernel.variant_launches.get(name, 0) + 1
+    with _count_lock:
+        kernel.launches += 1
+        kernel.variant_launches[name] = kernel.variant_launches.get(name,
+                                                                    0) + 1
+
+
+_count_lock = threading.Lock()
 
 
 def smoothness_code(scheme, dtype):
@@ -628,34 +635,60 @@ fused_advection_tendency.variant_launches = {}
 
 # -- tendency only, under a device mesh ------------------------------------------
 
-def build_sharded_fused_advection(grid, scheme, mesh):
-    """The tendency-only advection under an (x, y) device mesh: replaces the
-    TPU kernel ``oceananigans_tpu/kernels/fused_advection.py``
-    ``build_sharded_fused_advection`` (#7, a ``shard_map`` around #6), on the
-    padded layout or the z-compact one (``grid.H[2] == 0``).
+def shard_fused_advection(grid, scheme, fields):
+    """#7 on one shard's resident block: the TPU kernel
+    ``oceananigans_tpu/kernels/fused_advection.py``
+    ``build_sharded_fused_advection`` (a ``shard_map`` around #6 with the
+    ``ppermute`` halo exchange) as each shard of a model on a device mesh
+    runs it: ``fused_advection_tendency`` (#6) on the shard's padded
+    ``fields`` (u, v, w, tracers) on its local grid ``grid``, in either
+    layout, with a bounded, periodic or flat z. The x and y halos must hold
+    the neighbours' values: the shard's fill ends with the halo exchange.
+    The shards' grids take the global spacing exactly, so every block cell
+    sees the operands and metrics the serial kernel sees there and the
+    result equals the serial kernel's bit for bit. Counts its launches on
+    CUDA tensors (by scheme and z variant) in
+    ``build_sharded_fused_advection``'s counters; a CPU block takes the
+    plain version."""
+    refuse_mesh_topology(grid)
+    if fields[0].is_cuda:
+        count_launch(build_sharded_fused_advection, scheme, z_mode(grid))
+        return fused_advection_tendency(grid, scheme, fields)
+    return fused_advection_tendency_plain(grid, scheme, fields)
 
-    Returns ``sharded(fields) -> G``: for ``fields`` = [u, v, w, tracers...],
-    global padded tensors with filled halos (z included, if any), it cuts
-    the interiors into the mesh's (nlx, nly) blocks, each padded by (Hx, Hy)
-    and carrying the full padded z, on its shard's device, fills the blocks'
-    x and y halos from their neighbours (``parallel.halo_exchange_local``),
-    runs ``fused_advection_tendency`` (#6, in the grid's layout) once per
-    shard on the shard's grid, and returns the interiors stitched into one
-    (nf, Nx, Ny, Nz) tensor on the grid's device, as
-    ``fused_advection_tendency`` does. The
-    shards' grids take the global spacing exactly
-    (``RectilinearGrid.local_grid``) and the exchanged halos of periodic x
-    and y are the global wrap's values, so the result equals the serial
-    kernel's bit for bit. Counts its calls on CUDA tensors in
-    ``launches``."""
+
+def refuse_mesh_topology(grid):
+    """#7 takes periodic (or connected) x and y on a regular grid: raise
+    for the others (ROADMAP.md item 16b)."""
+    if not grid.all_regular or grid.topology[:2] != (PERIODIC, PERIODIC):
+        raise NotImplementedError(
+            f"the sharded tendency on a {grid.topology} grid: "
+            f"{MESH_TOPOLOGY_ITEM}")
+
+
+def build_sharded_fused_advection(grid, scheme, mesh):
+    """#7 over a whole device mesh, the JAX call shape: replaces the TPU
+    kernel ``oceananigans_tpu/kernels/fused_advection.py``
+    ``build_sharded_fused_advection`` (a ``shard_map`` around #6), on the
+    padded layout or the z-compact one (``grid.H[2] == 0``), with a
+    bounded, periodic or flat z.
+
+    Returns ``sharded(blocks) -> G``: ``blocks`` holds each shard's list of
+    padded fields [u, v, w, tracers...] (the blocks ``Distributed.scatter``
+    cuts, resident on the shards' devices), in rank order. The call runs on
+    the mesh's communicator what a model's shard runs: each shard
+    (``parallel.distributed.mesh_shards``) exchanges its halos in place
+    and calls ``shard_fused_advection`` on its grid. It returns the list of
+    per-shard (nf, nlx, nly, nz) tendencies on the shards' devices."""
     return _build_sharded_tendency(grid, scheme, mesh, plain=False)
 
 
 build_sharded_fused_advection.launches = 0
+build_sharded_fused_advection.variant_launches = {}
 
 
 def build_sharded_fused_advection_plain(grid, scheme, mesh):
-    """Plain PyTorch version: the same blocks through ``halo_exchange_plain``
+    """Plain PyTorch version: the same shards through the plain exchange
     and ``fused_advection_tendency_plain``. Counts its calls on CUDA tensors
     in ``cuda_calls``."""
     return _build_sharded_tendency(grid, scheme, mesh, plain=True)
@@ -665,36 +698,20 @@ build_sharded_fused_advection_plain.cuda_calls = 0
 
 
 def _build_sharded_tendency(grid, scheme, mesh, plain):
-    if not grid.all_regular or grid.topology != (PERIODIC, PERIODIC,
-                                                 BOUNDED):
-        raise NotImplementedError(
-            f"the sharded tendency on a {grid.topology} grid: "
-            f"{MESH_TOPOLOGY_ITEM}")
-    # the routes are looked up at each call, so that a caller can wrap them
-    (nlx, nly), periodic, lgrids = hx.shard_grids(grid, mesh, grid.N[2])
-    Hx, Hy, _ = grid.H
-    Sx, Sy = mesh.devices.shape
-    shards = [(i, j) for i in range(Sx) for j in range(Sy)]
+    refuse_mesh_topology(grid)
+    shards = mesh_shards(grid, mesh)
 
-    def sharded(fields):
-        fields = list(fields)
-        if fields[0].is_cuda:
-            if plain:
-                build_sharded_fused_advection_plain.cuda_calls += 1
-            else:
-                build_sharded_fused_advection.launches += 1
-        exchange = hx.halo_exchange_plain if plain else hx.halo_exchange_local
-        kernel = fused_advection_tendency_plain if plain \
-            else fused_advection_tendency
-        blocks = exchange(hx.scatter_blocks(grid, mesh, fields), mesh,
-                          (Hx, Hy, 0), (nlx, nly, grid.padded_shape[2]),
-                          periodic)
-        G = torch.empty((len(fields),) + grid.N, dtype=fields[0].dtype,
-                        device=fields[0].device)
-        for i, j in shards:
-            Gs = kernel(lgrids[mesh.devices[i, j]], scheme, blocks[i][j])
-            blocks[i][j] = None
-            G[:, i * nlx:(i + 1) * nlx, j * nly:(j + 1) * nly] = Gs
-        return G
+    def shard_tendency(r, fields):
+        sh = shards[r]
+        sh.exchange(fields, plain=plain)
+        if plain:
+            return fused_advection_tendency_plain(sh.grid, scheme, fields)
+        return shard_fused_advection(sh.grid, scheme, fields)
+
+    def sharded(blocks):
+        blocks = [list(b) for b in blocks]
+        if plain and blocks[0][0].is_cuda:
+            build_sharded_fused_advection_plain.cuda_calls += 1
+        return mesh.communicator.run(lambda r: shard_tendency(r, blocks[r]))
 
     return sharded

@@ -35,9 +35,10 @@ fields (their pointers ride in the kernel's parameter block); more fields
 take one launch per batch, and since every field's result depends only on
 its own values and uh, vh, h, the batching changes no bit of it.
 
-``build_sharded_fused_sw_update`` replaces ``build_sharded_fused_sw_update``
-(#9): the stage once per shard of a device mesh, on blocks whose halos come
-from the mesh's halo exchange.
+``shard_fused_sw_update`` and ``build_sharded_fused_sw_update`` replace
+``build_sharded_fused_sw_update`` (#9): the stage once per shard of a
+device mesh, on the shard's resident blocks, whose halos come from the
+mesh's halo exchange.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ from ..advection.fluxes import BOUNDED_REFUSAL
 from ..advection.shallow_water import conservative_tendencies
 from ..coriolis import FPlane, constant_f
 from ..grids.topology import PERIODIC
-from ..parallel import halo_exchange as hx
+from ..parallel.distributed import cut_block, mesh_shards
 from ..timesteppers import stage_update
 from . import build
 from .fused_advection import (coefficient_table, count_launch, scheme_code,
@@ -196,41 +197,59 @@ fused_sw_update.variant_launches = {}
 
 # -- under a device mesh -------------------------------------------------------
 
-def build_sharded_fused_sw_update(grid, scheme, g, f, hB, names, mesh):
-    """The fused stage under an (x, y) device mesh: replaces the TPU kernel
+def shard_fused_sw_update(grid, scheme, g, f, hB, names, fields, Gm, gamma_dt,
+                          zeta_dt):
+    """#9 on one shard's resident blocks: the TPU kernel
     ``oceananigans_tpu/kernels/fused_shallow_water.py``
-    ``build_sharded_fused_sw_update`` (#9, a ``shard_map`` around #8).
+    ``build_sharded_fused_sw_update`` (a ``shard_map`` around #8) as each
+    shard of a model on a device mesh runs it: ``fused_sw_update`` (#8) on
+    the shard's padded ``fields`` and bathymetry block ``hB`` on its local
+    grid ``grid``, whose x and y halos hold the neighbours' values (the
+    shard's fill ends with the halo exchange). Returns ``(G, new)`` as
+    ``fused_sw_update``: G is the shard's (nf, nlx, nly, 1) tendency, kept
+    for the next stage. The shards' grids take the global Δx and Δy
+    exactly, so with hB's halos the periodic images the stage equals the
+    serial stage bit for bit. Counts its launches on CUDA tensors in
+    ``build_sharded_fused_sw_update``'s counters; CPU blocks take the plain
+    version."""
+    if fields[names[0]].is_cuda:
+        count_launch(build_sharded_fused_sw_update, scheme)
+        return fused_sw_update(grid, scheme, g, f, hB, names, fields, Gm,
+                               gamma_dt, zeta_dt)
+    return fused_sw_update_plain(grid, scheme, g, f, hB, names, fields, Gm,
+                                 gamma_dt, zeta_dt)
 
-    Returns ``fused_update(fields, Gm, gamma_dt, zeta_dt) -> (G, new)``.
-    Each call cuts the interiors of the global padded ``fields`` into the
-    mesh's (nlx, nly) blocks, each padded by (Hx, Hy) on its shard's device,
-    fills the blocks' halos from their neighbours
-    (``parallel.halo_exchange_local``: two launches of the exchange kernel
-    for blocks on one card) and runs ``fused_sw_update`` (#8) once per shard
-    on the shard's grid. ``G`` is the list of per-shard (nf, nlx, nly, 1)
-    tensors, in the mesh's row-major order, kept on their devices and handed
-    back as the next stage's ``Gm``; ``new`` holds global padded tensors on
-    the grid's device with the interiors written and the halos left for the
-    next wrap.
+
+def build_sharded_fused_sw_update(grid, scheme, g, f, hB, names, mesh):
+    """#9 over a whole device mesh, the JAX call shape: replaces the TPU
+    kernel ``oceananigans_tpu/kernels/fused_shallow_water.py``
+    ``build_sharded_fused_sw_update`` (a ``shard_map`` around #8).
+
+    Returns ``fused_update(blocks, Gm, gamma_dt, zeta_dt) -> (G, new)``:
+    ``blocks`` holds each shard's {name: padded block} (resident on its
+    device, as ``Distributed.scatter`` cuts them), in rank order. The call
+    runs on the mesh's communicator what a model's shard runs: each shard
+    (``parallel.distributed.mesh_shards``) exchanges its halos in place
+    (two launches of the exchange kernel for blocks on one card) and calls
+    ``shard_fused_sw_update`` on its grid. ``G`` and ``new`` are the
+    per-shard tendencies and new blocks, in rank order; ``Gm`` is the list
+    of the previous stage's ``G``.
 
     ``hB`` is the global padded bathymetry. As in the JAX package, its
-    blocks take their halos from the exchange, built once here: periodic
+    blocks take their halos from the exchange, made once here: periodic
     images at the global edges, where the serial model reads the halos
     ``set_on_padded`` left (zero for an array). So the sharded stage equals
     the serial one only where hB's halos are periodic images, e.g. with no
-    bathymetry (ROADMAP.md queue 3). The shards' grids take the global Δx
-    and Δy exactly (``RectilinearGrid.local_grid``), so every block cell
-    sees the operands and metrics the serial kernel sees at that cell: with
-    periodic hB halos the sharded stage equals the serial stage bit for
-    bit. Counts its calls on CUDA tensors in ``launches``."""
+    bathymetry (ROADMAP.md queue 3)."""
     return _build_sharded(grid, scheme, g, f, hB, names, mesh, plain=False)
 
 
 build_sharded_fused_sw_update.launches = 0
+build_sharded_fused_sw_update.variant_launches = {}
 
 
 def build_sharded_fused_sw_update_plain(grid, scheme, g, f, hB, names, mesh):
-    """Plain PyTorch version: the same blocks through ``halo_exchange_plain``
+    """Plain PyTorch version: the same shards through the plain exchange
     and ``fused_sw_update_plain``. Counts its calls on CUDA tensors in
     ``cuda_calls``."""
     return _build_sharded(grid, scheme, g, f, hB, names, mesh, plain=True)
@@ -239,42 +258,39 @@ def build_sharded_fused_sw_update_plain(grid, scheme, g, f, hB, names, mesh):
 build_sharded_fused_sw_update_plain.cuda_calls = 0
 
 
+def sharded_bathymetry(shards, hB, plain=False):
+    """The blocks of the global padded bathymetry ``hB`` on ``shards`` (a
+    mesh's ``Shard``s in rank order), their halos exchanged once as JAX's
+    #9 takes them."""
+    comm = shards[0].comm
+    S = comm.mesh.devices.shape
+    H = shards[0].global_grid.H
+    blocks = [cut_block(hB, H, S, *sh.index, sh.device) for sh in shards]
+    comm.run(lambda r: shards[r].exchange([blocks[r]], plain=plain))
+    return blocks
+
+
 def _build_sharded(grid, scheme, g, f, hB, names, mesh, plain):
-    # the routes are looked up at each call, so that a caller can wrap them
     names = tuple(names)
-    (nlx, nly), periodic, lgrids = hx.shard_grids(grid, mesh, 1)
-    Hx, Hy, _ = grid.H
-    Sx, Sy = mesh.devices.shape
-    shards = [(i, j) for i in range(Sx) for j in range(Sy)]
-    halo, local_n = (Hx, Hy, 0), (nlx, nly, 1)
+    if grid.topology[:2] != (PERIODIC, PERIODIC):
+        raise NotImplementedError(
+            f"the sharded stage on a {grid.topology} grid: ROADMAP.md queue "
+            "1 item 16b")
+    shards = mesh_shards(grid, mesh)
+    hb = sharded_bathymetry(shards, hB, plain)
+    kernel = fused_sw_update_plain if plain else shard_fused_sw_update
 
-    def exchange(blocks):
-        fn = hx.halo_exchange_plain if plain else hx.halo_exchange_local
-        return fn(blocks, mesh, halo, local_n, periodic)
+    def shard_stage(r, fields, Gm, gamma_dt, zeta_dt):
+        sh = shards[r]
+        sh.exchange([fields[n] for n in names], plain=plain)
+        return kernel(sh.grid, scheme, g, f, hb[r], names, fields, Gm,
+                      gamma_dt, zeta_dt)
 
-    hb = exchange(hx.scatter_blocks(grid, mesh, [hB]))
-
-    def fused_update(fields, Gm, gamma_dt, zeta_dt):
-        q = [fields[n] for n in names]
-        if q[0].is_cuda:
-            if plain:
-                build_sharded_fused_sw_update_plain.cuda_calls += 1
-            else:
-                build_sharded_fused_sw_update.launches += 1
-        blocks = exchange(hx.scatter_blocks(grid, mesh, q))
-        kernel = fused_sw_update_plain if plain else fused_sw_update
-        new = {n: torch.empty_like(a) for n, a in zip(names, q)}
-        G = []
-        for s, (i, j) in enumerate(shards):
-            dev = mesh.devices[i, j]
-            Gs, news = kernel(lgrids[dev], scheme, g, f, hb[i][j][0], names,
-                              dict(zip(names, blocks[i][j])),
-                              None if Gm is None else Gm[s], gamma_dt, zeta_dt)
-            blocks[i][j] = None           # this shard's inputs are done
-            gx, gy = hx.block_slices(grid, mesh, i, j)
-            for n in names:
-                new[n][gx, gy] = news[n][Hx:Hx + nlx, Hy:Hy + nly]
-            G.append(Gs)
-        return G, new
+    def fused_update(blocks, Gm, gamma_dt, zeta_dt):
+        if plain and blocks[0][names[0]].is_cuda:
+            build_sharded_fused_sw_update_plain.cuda_calls += 1
+        out = mesh.communicator.run(lambda r: shard_stage(
+            r, blocks[r], None if Gm is None else Gm[r], gamma_dt, zeta_dt))
+        return [o[0] for o in out], [o[1] for o in out]
 
     return fused_update

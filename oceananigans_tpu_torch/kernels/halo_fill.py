@@ -75,6 +75,12 @@ kernel. Bound on the H100: data movement only (each written slot read once
 and written once); the z ends of interior columns are a few bytes of each
 row, so 32-byte DRAM sectors set the floor of a bounded-z fill.
 
+On a shard's grid (``parallel/distributed.py`` ``Shard``) the sides of
+the axes connected to other shards keep their values (``KEEP``) and the
+fill ends with the halo exchange of the mesh (``exchange_connected``): the
+z halos are filled first, so the exchanged strips carry them into the x
+and y halos, as the serial fill's x → y → z order puts them there.
+
 The fills update the tensors in place (as the TPU kernels alias their
 outputs to their inputs) and return them.
 """
@@ -196,9 +202,27 @@ def z_fill_spec(loc, bcs, pa=False):
 # -- the plain versions ---------------------------------------------------------
 
 def wrap_axes(grid):
-    """(wrap_x, wrap_y): which of x and y are periodic with a halo."""
+    """(wrap_x, wrap_y): which of x and y are periodic with a halo and not
+    connected to other shards."""
     return tuple(grid.topology[a] == PERIODIC and grid.H[a] > 0
-                 for a in (0, 1))
+                 and not connected(grid, a) for a in (0, 1))
+
+
+def connected(grid, axis):
+    """Whether ``axis`` of a shard's grid is connected to the neighbouring
+    shards: its halos come from the halo exchange, and the fill keeps them
+    (``KEEP``)."""
+    return bool(getattr(grid, "connected", (False,) * 3)[axis])
+
+
+def exchange_connected(grid, fields):
+    """End a fill of a shard's ``fields`` with the halo exchange of its
+    connected axes (every other shard's fill meets it there); nothing on a
+    grid with no connected axis."""
+    shard = getattr(grid, "shard", None)
+    if shard is not None and any(connected(grid, a) for a in (0, 1)):
+        shard.exchange(fields)
+    return fields
 
 
 def _z_extent(grid, a):
@@ -693,7 +717,7 @@ def fill_codes(grid, shape, locs_bcs=None, n=1, z=True, pa=False, until=3):
             topo = grid.topology[ax]
             keep = (KEEP, 0.0, KEEP, 0.0)
             if H == 0 or (ax == 2 and not z) or ax >= until or \
-                    topo not in (PERIODIC, BOUNDED):
+                    topo not in (PERIODIC, BOUNDED) or connected(grid, ax):
                 axes.append(keep)
             elif topo == PERIODIC:
                 # a periodic axis wraps whatever conditions its sides name,
@@ -960,8 +984,10 @@ def fill_halos(grid, fields, locs_bcs=None, z=True, time=0.0, dt=None):
     if all(a.device.type == "cpu" for a in fields):
         # raise where the kernel would
         fill_codes(grid, fields[0].shape, locs_bcs, len(fields), z, pa=pa)
-        return fill_halos_plain(grid, fields, locs_bcs, z, time, dt)
-    return _launch(grid, fields, locs_bcs, z, time, dt)
+        fill_halos_plain(grid, fields, locs_bcs, z, time, dt)
+    else:
+        _launch(grid, fields, locs_bcs, z, time, dt)
+    return exchange_connected(grid, fields)
 
 
 def _launch(grid, fields, locs_bcs, z, time, dt, until=3):

@@ -80,15 +80,28 @@ Closure state fields (the Lagrangian dynamic Smagorinsky's JLM and JMM) ride
 in the state's fields, unchanged through the stages (the JAX step gives
 them a zero tendency), and are advanced at the end of each step.
 
-With ``architecture=Distributed(...)`` the state stays global-view on the
-mesh's first device (the grid's device) and the advective tendencies come
-from the sharded tendency kernel (``build_sharded_fused_advection``:
-per-shard blocks with the full padded z, their x/y halos exchanged, one
-launch of the tendency kernel per shard, in the grid's layout); everything
-else in the step runs on the global view exactly as in the serial tendency
-route, so the sharded model equals the serial one with that route. That
-kernel takes a regular (periodic, periodic, bounded) grid only and refuses
-the others (ROADMAP item 16).
+With ``architecture=Distributed(...)`` the model is a domain decomposition
+(``parallel/distributed.py``): each shard of the mesh holds its padded
+blocks of every prognostic field on its own device for the whole run and
+steps a model of this class on its own local grid (the global grid's nodes
+and metrics cut at the shard's offset, its x and y connected), in threads
+that meet only where the JAX package's collectives meet: every fill ends
+with the halo exchange, the pressure solve is the pencil solver's block
+entry (``parallel/pencil_fft.py``; on an immersed grid the CG solver with
+its dot products summed over the mesh and the pencil solver as its
+preconditioner), and the diagnostics reduce over the shards. The advective
+tendency is #7 on each shard's blocks (``shard_fused_advection``) where the
+serial model takes #6. As in the JAX package the fused update route and
+the fused correction stay off under a mesh. The mesh takes periodic x and
+y with a periodic, bounded, flat or stretched z, either layout, immersed
+bottoms and auxiliary fields; ``model.state`` then returns a gathered copy
+(writes into it do not reach the shards) and ``model.state = ...`` (or
+``arch.shard(...)``) scatters a global-view state into the blocks. It
+refuses, citing ROADMAP item 16b, bounded or stretched x and y, curvilinear
+grids and the CG solvers of multiply stretched ones, particles, Open and
+PerturbationAdvection boundaries and array boundary values. Sharded ≡
+serial holds to rounding: the pencil transforms y and x in complex form
+where the serial solver takes a real FFT along x.
 
 The model updates tensors in place where the JAX package returned new
 arrays: the halo fills write into the padded tensors they are given, and the
@@ -120,12 +133,13 @@ from ..grids.base import numpy_metric
 from ..grids.topology import (BOUNDED, FACE, LOC_CCC, LOC_CCF, LOC_CFC,
                               LOC_FCC, PERIODIC)
 from ..immersed import ImmersedBoundaryGrid
-from ..kernels import (build_sharded_fused_advection,
-                       fused_advection_tendency, fused_advection_update,
+from ..kernels import (fused_advection_tendency, fused_advection_update,
                        fused_correct, fused_divergence, periodic_halo_fill)
 from ..kernels.fused_advection import (bounded_refusal,
                                       kernel_tendency_eligible)
-from ..parallel.distributed import regularize_architecture
+from ..kernels.fused_advection import shard_fused_advection
+from ..kernels.halo_fill import exchange_connected
+from ..parallel.distributed import MESH_ITEM, regularize_architecture
 from ..solvers.fft_poisson import FFTPoissonSolver
 from ..solvers.fourier_tridiagonal import FourierTridiagonalPoissonSolver
 from ..solvers.tridiagonal import solve_batched_tridiagonal
@@ -163,6 +177,16 @@ def select_pressure_solver(grid, fill_p=None):
     if fill_p is None:
         bcs = regularize_field_boundary_conditions(None, grid, LOC_CCC)
         fill_p = lambda p: fill_all_halo_regions([p], grid, [(LOC_CCC, bcs)])
+    shard = getattr(grid, "shard", None)
+    if shard is not None:
+        # a shard's grid: the shard's view of the model's pencil solver,
+        # the CG solver on its block on an immersed grid
+        from ..parallel.pencil_fft import ShardPoissonSolver
+        fft = (None if shard.pencil is None
+               else ShardPoissonSolver(shard.pencil, shard))
+        if isinstance(grid, ImmersedBoundaryGrid):
+            return make_immersed_poisson_solver(grid, fill_p, fft)
+        return fft
     if isinstance(grid, ImmersedBoundaryGrid):
         under = grid.underlying_grid
         fft = FFTPoissonSolver(under) if under.all_regular else None
@@ -178,6 +202,30 @@ def select_pressure_solver(grid, fill_p=None):
     return make_variable_spacing_poisson_solver(grid, fill_p)
 
 
+def mesh_pressure_solver(grid, arch, pressure_solver=None):
+    """The pressure solver of a model on the device mesh ``arch``: the
+    pencil solver (``DistributedFFTPoissonSolver``) of the grid (of the
+    underlying grid of an immersed one, whose shards run the CG solver with
+    it as their preconditioner when that grid is regular, as JAX's
+    ``select_pressure_solver`` takes the FFT preconditioner; None
+    otherwise). A user's ``pressure_solver`` must be a
+    ``DistributedFFTPoissonSolver``. The model refuses the grids that would
+    need the variable-spacing CG (a stretched x or y, curvilinear grids)
+    before it asks (``_refuse_under_mesh``, ROADMAP item 16b)."""
+    from ..parallel.pencil_fft import DistributedFFTPoissonSolver
+    if pressure_solver is not None:
+        if not isinstance(pressure_solver, DistributedFFTPoissonSolver):
+            raise NotImplementedError(
+                f"a user pressure solver other than the pencil solver under "
+                f"a device mesh: {MESH_ITEM}")
+        return pressure_solver
+    immersed = isinstance(grid, ImmersedBoundaryGrid)
+    under = grid.underlying_grid if immersed else grid
+    if immersed and not under.all_regular:
+        return None
+    return DistributedFFTPoissonSolver(under, arch)
+
+
 class NonhydrostaticModel:
     def __init__(self, grid, advection=None, tracers=(), buoyancy=None,
                  coriolis=None, closure=None, forcing=None,
@@ -187,6 +235,18 @@ class NonhydrostaticModel:
                  auxiliary_fields=None, fuse_correction=True,
                  architecture=None, reference_datetime=None, device=None,
                  dtype=None):
+        self._shards = None
+        # the arguments a shard's model is built from (``_build_shards``)
+        shard_kw = dict(advection=advection, tracers=tracers,
+                        buoyancy=buoyancy, coriolis=coriolis,
+                        closure=closure, forcing=forcing,
+                        boundary_conditions=boundary_conditions,
+                        timestepper=timestepper,
+                        background_fields=background_fields,
+                        stokes_drift=stokes_drift,
+                        biogeochemistry=biogeochemistry,
+                        fuse_correction=fuse_correction,
+                        reference_datetime=reference_datetime)
         if isinstance(closure, (tuple, list)):
             closure = ClosureTuple(*closure)
         if closure is not None and not isinstance(closure, _ClosureBase):
@@ -197,7 +257,10 @@ class NonhydrostaticModel:
             grid = grid.to(device=device, dtype=dtype)
         self.architecture = regularize_architecture(architecture)
         if self.architecture is not None:
-            self.architecture.place(grid)
+            self.architecture.place(grid, pencil=True)
+            if particles is not None:
+                raise NotImplementedError(
+                    f"Lagrangian particles under a device mesh: {MESH_ITEM}")
         self.reference_datetime = reference_datetime
         self._tendency_hooks = []
         self._state_hooks = []
@@ -257,11 +320,13 @@ class NonhydrostaticModel:
                                  and not getattr(closure,
                                                  "has_eddy_velocities",
                                                  False))
-        # advection is the only tendency: the fused update route
+        # advection is the only tendency: the fused update route (off under
+        # a mesh, as JAX's gate)
         self._fused_update = (
             self._z_compact and buoyancy is None and coriolis is None
             and isinstance(self.timestepper, RungeKutta3TimeStepper)
-            and self.architecture is None)
+            and self.architecture is None
+            and getattr(grid, "shard", None) is None)
         self.fuse_correction = bool(fuse_correction) and self._fused_update
 
         if advection is None:
@@ -322,16 +387,25 @@ class NonhydrostaticModel:
         for name in self._closure_state:
             self.bcs[name] = regularize_field_boundary_conditions(
                 None, self.grid, LOC_CCC)
-        if pressure_solver is None:
+        if self.architecture is not None:
+            self._refuse_under_mesh()
+            pressure_solver = mesh_pressure_solver(
+                self.grid, self.architecture, pressure_solver)
+        elif pressure_solver is None:
             bcs_p = self.bcs["p"]
             pressure_solver = select_pressure_solver(
                 self.grid, lambda p: fill_all_halo_regions(
                     [p], self.grid, [(LOC_CCC, bcs_p)]))
         self.pressure_solver = pressure_solver
         self._sharded_advection = None
+        if getattr(self.grid, "shard", None) is not None and \
+                self._kernel_tendency:
+            self._sharded_advection = lambda q: shard_fused_advection(
+                self.grid, self.advection, q)
         if self.architecture is not None:
-            self._sharded_advection = build_sharded_fused_advection(
-                self.grid, self.advection, self.architecture.mesh)
+            self._build_shards(shard_kw)
+            self._nt = numpy_dtype(self.grid.dtype)
+            return
 
         nt = numpy_dtype(self.grid.dtype)
         self._nt = nt
@@ -347,6 +421,109 @@ class NonhydrostaticModel:
                 for n in self.prognostic_names}
         if self.particles is not None:
             self.state["particles"] = self.particles.initial_state(self.grid)
+
+    # -- the shards of a model on a device mesh -----------------------------------
+
+    def _refuse_under_mesh(self):
+        """What the mesh does not take yet raises, citing ROADMAP item
+        16b: bounded or stretched x and y, grids that are not rectilinear,
+        Open and PerturbationAdvection sides, array or time-series
+        boundary values."""
+        from ..grids.rectilinear import RectilinearGrid
+        under = getattr(self.grid, "underlying_grid", self.grid)
+        if not isinstance(under, RectilinearGrid):
+            raise NotImplementedError(
+                f"a {type(under).__name__} under a device mesh: {MESH_ITEM}")
+        for ax in (0, 1):
+            if under.topology[ax] != PERIODIC or not under.regular(ax):
+                raise NotImplementedError(
+                    f"a {under.topology[ax]} or stretched sharded axis "
+                    f"{'xy'[ax]}: {MESH_ITEM}")
+        for name, bcs in self.bcs.items():
+            for ax in range(3):
+                for bc in bcs.pair(ax):
+                    if bc is None:
+                        continue
+                    if bc.classification == OPEN and (
+                            bc.scheme is not None
+                            or bc.condition is not None):
+                        raise NotImplementedError(
+                            f"an Open boundary of {name!r} under a device "
+                            f"mesh: {MESH_ITEM}")
+                    c = bc.condition
+                    if hasattr(c, "evaluate_padded") or (
+                            not callable(c) and np.ndim(
+                                c.detach().cpu() if hasattr(c, "detach")
+                                else c) > 0):
+                        raise NotImplementedError(
+                            f"an array or time-series boundary value of "
+                            f"{name!r} under a device mesh: {MESH_ITEM}")
+
+    def _build_shards(self, kw):
+        """One model of this class per shard, on the shard's local grid,
+        with the pencil solver's shard view as its pressure solver."""
+        arch = self.architecture
+        shards = arch.shards(self.grid)
+        for sh in shards:
+            sh.pencil = self.pressure_solver
+        self._comm = arch.communicator
+        self._shards = [NonhydrostaticModel(sh.grid, **kw) for sh in shards]
+        self._sharded_advection = self._shards[0]._sharded_advection
+
+    def _run(self, fn):
+        """``fn(shard_model)`` on every shard, in the shards' threads."""
+        return self._comm.run(lambda r: fn(self._shards[r]))
+
+    @property
+    def state(self):
+        """The model state: fields, pressure, clock (and Gm for quasi-AB2).
+        On a device mesh, a gathered global-view copy on the mesh's first
+        device: writes into it do not reach the shards (assign a state to
+        ``model.state`` to scatter it)."""
+        if self._shards is None:
+            return self._state
+        return self._gathered_state()
+
+    @state.setter
+    def state(self, value):
+        if self._shards is None:
+            self._state = value
+        else:
+            self._scatter_state(value)
+
+    def _gathered_state(self):
+        arch, H = self.architecture, self.grid.H
+        states = [m._state for m in self._shards]
+        out = {}
+        for key, val in states[0].items():
+            if key in ("fields", "pressure", "aux"):
+                out[key] = arch.gather([st[key] for st in states], H)
+            elif key == "Gm":
+                out[key] = arch.gather([st[key] for st in states], (0, 0, 0))
+            elif key == "clock":
+                out[key] = dict(val)
+            else:
+                out[key] = val
+        return out
+
+    def _scatter_state(self, value):
+        arch, H = self.architecture, self.grid.H
+        parts = {}
+        for key, val in value.items():
+            if key in ("fields", "pressure", "aux"):
+                parts[key] = arch.scatter(val, H)
+            elif key == "Gm":
+                parts[key] = arch.scatter(val, (0, 0, 0))
+        for r, m in enumerate(self._shards):
+            st = {k: (parts[k][r] if k in parts else
+                      dict(v) if k == "clock" else v)
+                  for k, v in value.items()}
+            m._state = st
+
+    @property
+    def _clock(self):
+        return (self._shards[0]._state if self._shards is not None
+                else self._state)["clock"]
 
     # -- basic properties -----------------------------------------------------
 
@@ -367,7 +544,7 @@ class NonhydrostaticModel:
 
     @property
     def time(self):
-        return float(self.state["clock"]["time"])
+        return float(self._clock["time"])
 
     @property
     def datetime(self):
@@ -377,16 +554,23 @@ class NonhydrostaticModel:
 
     @property
     def iteration(self):
-        return int(self.state["clock"]["iteration"])
+        return int(self._clock["iteration"])
 
     def field(self, name):
+        """The field ``name`` (an auxiliary field is the user's own); on a
+        device mesh, a gathered copy of the shards' blocks."""
         if name in self.auxiliary_fields:
             return self.auxiliary_fields[name]
-        if name == "p":
-            return Field(self.grid, LOC_CCC, self.bcs["p"],
-                         self.state["pressure"], _regularize=False)
-        return Field(self.grid, self.loc(name), self.bcs[name],
-                     self.state["fields"][name], _regularize=False)
+        if self._shards is not None:
+            key = "pressure" if name == "p" else "fields"
+            data = self.architecture.gather(
+                [m._state[key] if name == "p" else m._state[key][name]
+                 for m in self._shards], self.grid.H)
+        else:
+            data = (self.state["pressure"] if name == "p"
+                    else self.state["fields"][name])
+        loc = LOC_CCC if name == "p" else self.loc(name)
+        return Field(self.grid, loc, self.bcs[name], data, _regularize=False)
 
     def _zeros(self):
         return torch.zeros(self.grid.padded_shape, dtype=self.grid.dtype,
@@ -441,7 +625,20 @@ class NonhydrostaticModel:
     def set(self, enforce_incompressibility=True, **values):
         """Set prognostic fields from scalars/arrays/functions, then project
         the velocities onto their divergence-free part (with Δt = 1, as the
-        JAX model projects)."""
+        JAX model projects). On a device mesh the values are set on the
+        global grid, scattered into the shards' blocks, and each shard
+        fills and projects its blocks."""
+        if self._shards is not None:
+            names = set(self.prognostic_names + self._closure_state)
+            for name in values:
+                if name not in names:
+                    raise ValueError(f"unknown prognostic field {name!r}")
+            blocks = self.architecture.scatter(
+                {n: set_on_padded(self.grid, self.loc(n), v)
+                 for n, v in values.items()}, self.grid.H)
+            self._comm.run(lambda r: self._shards[r].set(
+                enforce_incompressibility, **blocks[r]))
+            return
         fields = dict(self.state["fields"])
         time = self.state["clock"]["time"]
         for name, value in values.items():
@@ -535,6 +732,9 @@ class NonhydrostaticModel:
             rhs = fused_divergence(self.grid, u, v, w, self._nt(1.0) / dtt)
             p = self._solve_padded(rhs)
             u, v, w = fused_correct(self.grid, p, u, v, w, dtt)
+            # the correction wraps its outputs' halos; a shard's come from
+            # its neighbours
+            exchange_connected(self.grid, [u, v, w])
             return u, v, w, p
         grid = self.grid
         self._fill_all(dict(u=u, v=v, w=w), time, dtt)
@@ -637,8 +837,8 @@ class NonhydrostaticModel:
                 if drift is not None:
                     G[name] = G[name] + R(name, drift_tendency(
                         grid, self.advection, drift, fields[name]))
-        ffields = ({**fields, **self.state["aux"]} if self.auxiliary_fields
-                   else fields)
+        aux_data = self.state.get("aux")
+        ffields = {**fields, **aux_data} if aux_data else fields
         for name, F in self.forcing.items():
             G[name] = G[name] + R(name, F(grid, ffields, time))
         locs = {n: self.loc(n) for n in fields}
@@ -717,7 +917,10 @@ class NonhydrostaticModel:
         tendencies (``G`` interior-shaped, ``fields`` padded) after the
         boundary fluxes of every stage. The tendencies then have to exist:
         the model leaves the fused update route for the tendency route, as
-        the JAX model does."""
+        the JAX model does. On a device mesh every shard calls it on its
+        own blocks and grid."""
+        for m in self._shards or ():
+            m.add_tendency_hook(fn)
         self._tendency_hooks.append(fn)
         self._fused_update = False
         self.fuse_correction = False
@@ -725,7 +928,10 @@ class NonhydrostaticModel:
 
     def add_state_hook(self, fn):
         """Register ``fn(grid, fields, time) -> {name: padded tensor}``,
-        whose updates replace fields at the end of every step."""
+        whose updates replace fields at the end of every step (on a device
+        mesh, every shard's, on its own blocks and grid)."""
+        for m in self._shards or ():
+            m.add_state_hook(fn)
         self._state_hooks.append(fn)
         return fn
 
@@ -753,7 +959,17 @@ class NonhydrostaticModel:
                 self.grid, fields, self.state["particles"], dt)
 
     def time_step(self, dt):
-        """Advance the model state by one Δt."""
+        """Advance the model state by one Δt (on a device mesh, every
+        shard's blocks, in the shards' threads; the auxiliary fields as they
+        are now are scattered first)."""
+        if self._shards is not None:
+            if self.auxiliary_fields:
+                aux = self.architecture.scatter(auxiliary_data(
+                    self.grid, self.auxiliary_fields), self.grid.H)
+                for m, a in zip(self._shards, aux):
+                    m._state = dict(m._state, aux=a)
+            self._run(lambda m: m.time_step(dt))
+            return self
         if self.auxiliary_fields:
             # the step reads the auxiliary fields as they are now
             self.state = dict(self.state, aux=auxiliary_data(
@@ -1059,11 +1275,14 @@ def state_from_jax(jax_state_numpy, model):
     closure's state fields), ``pressure``, ``clock`` and, for quasi-AB2,
     ``Gm``. The JAX arrays may use another halo layout; their halo widths
     are read off their shapes, the interiors are written into the port's
-    padded tensors, and the halos are refilled."""
+    padded tensors, and the halos are refilled. A JAX sharded model's
+    gathered state goes into a sharded port model the same way: the global
+    tensors are filled on the global grid and scattered into the shards'
+    blocks."""
     grid = model.grid
     arrays = jax_state_numpy["fields"]
-    fields = {n: padded_from_jax(grid, arrays[n])
-              for n in model.state["fields"]}
+    names = model.prognostic_names + model._closure_state
+    fields = {n: padded_from_jax(grid, arrays[n]) for n in names}
     pressure = padded_from_jax(grid, jax_state_numpy["pressure"])
     model._fill_all({**fields, "p": pressure}, jax_state_numpy["clock"][
         "time"])
@@ -1082,10 +1301,10 @@ def state_from_jax(jax_state_numpy, model):
                  clock=dict(time=nt(jc["time"]),
                             iteration=int(jc["iteration"]),
                             last_dt=nt(jc["last_dt"])))
-    if "Gm" in model.state:
+    if isinstance(model.timestepper, QuasiAdamsBashforth2TimeStepper):
         state["Gm"] = {n: _region_from_jax(
             grid, jax_state_numpy["Gm"][n],
             regions.get(n, grid.interior_slices)).clone()
-            for n in model.state["Gm"]}
+            for n in model.prognostic_names}
     model.state = state
     return model

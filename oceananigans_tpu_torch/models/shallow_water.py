@@ -33,14 +33,22 @@ The vector-invariant form takes the ``VectorInvariant`` set as
 upwinded and WENO vector invariants among them), else
 ``VectorInvariant()``.
 
-With ``architecture=Distributed(...)`` the state stays global-view on the
-mesh's first device (the grid's device) and each stage runs the sharded
-fused stage (``build_sharded_fused_sw_update``): per-shard blocks, their
-halos exchanged, one launch of the kernel per shard. As in the JAX package,
-the bathymetry's blocks take exchanged (periodic) halos there, so with an
-array bathymetry the sharded step differs from the serial one near the
-global edges (ROADMAP.md queue 3). A configuration the fused stage does not
-take raises under a mesh.
+With ``architecture=Distributed(...)`` the model is a domain decomposition
+(``parallel/distributed.py``): each shard of the mesh holds its padded
+blocks of every field on its own device for the whole run and steps a model
+of this class on its own local grid, in threads that meet only in the halo
+exchange that ends every fill. Where the serial model takes the fused stage
+each shard runs #9 on its blocks (``shard_fused_sw_update``); as in the JAX
+package the bathymetry's blocks then take exchanged (periodic) halos, so
+with an array bathymetry the sharded step differs from the serial one near
+the global edges (ROADMAP.md queue 3). The configurations the fused stage
+does not take (a closure, forcing, boundary conditions, ``BetaPlane``, the
+vector-invariant form, ``fused=False``) run the plain tendencies on each
+shard, the bathymetry's blocks cut with the global array's halos, as JAX's
+GSPMD step reads them. The mesh takes periodic x and y; a bounded one
+raises, citing ROADMAP item 16b. ``model.state`` then returns a gathered
+copy (writes into it do not reach the shards); ``model.state = ...`` (or
+``arch.shard(...)``) scatters a global-view state into the blocks.
 
 Against the JAX model: the TPU roundings of the halo (Hx to 8, the padded y
 to 128) are dropped; the halo is the scheme's reach plus one, as the JAX
@@ -70,20 +78,16 @@ from ..fields import Field, set_on_padded
 from ..forcings.forcings import regularize_forcing
 from ..grids.topology import LOC_CCC, LOC_CFC, LOC_FCC, PERIODIC
 from ..kernels import fused_sw_update
-from ..kernels.fused_shallow_water import (build_sharded_fused_sw_update,
-                                           sw_eligible)
+from ..kernels.fused_shallow_water import (shard_fused_sw_update,
+                                           sharded_bathymetry, sw_eligible)
 from ..operators.operators import ddx, ddy, div_xy_ccc, ix_f, iy_f
-from ..parallel.distributed import regularize_architecture
+from ..parallel.distributed import MESH_ITEM, regularize_architecture
 from ..timesteppers import RK3_GAMMAS, RK3_ZETAS
 from ..utils.dateclock import datetime_of
 from .nonhydrostatic import padded_from_jax
 
 CONSERVATIVE = "conservative"
 VECTOR_INVARIANT = "vector_invariant"
-
-MESH_ITEM = ("ROADMAP.md queue 1 item 16 (the GSPMD-only sharded paths: "
-             "under a mesh the JAX package partitions this configuration's "
-             "plain step with XLA)")
 
 
 def ConservativeFormulation():
@@ -100,6 +104,13 @@ class ShallowWaterModel:
                  boundary_conditions=None, formulation=CONSERVATIVE,
                  closure=None, fused="auto", architecture=None,
                  reference_datetime=None, device=None, dtype=None):
+        self._shards = None
+        shard_kw = dict(gravitational_acceleration=gravitational_acceleration,
+                        advection=advection, coriolis=coriolis,
+                        tracers=tracers, forcing=forcing,
+                        boundary_conditions=boundary_conditions,
+                        formulation=formulation, closure=closure,
+                        reference_datetime=reference_datetime)
         if not grid.is_flat(2):
             raise ValueError("ShallowWaterModel requires a z-Flat grid")
         if formulation not in (CONSERVATIVE, VECTOR_INVARIANT):
@@ -109,6 +120,11 @@ class ShallowWaterModel:
         self.architecture = regularize_architecture(architecture)
         if self.architecture is not None:
             self.architecture.place(grid)
+            for ax in (0, 1):
+                if grid.topology[ax] != PERIODIC and not grid.is_flat(ax):
+                    raise NotImplementedError(
+                        f"a {grid.topology[ax]} sharded axis {'xy'[ax]}: "
+                        f"{MESH_ITEM}")
         self.reference_datetime = reference_datetime
         self.g = (defaults.gravitational_acceleration
                   if gravitational_acceleration is None
@@ -136,11 +152,6 @@ class ShallowWaterModel:
             raise ValueError("model configuration is not eligible for the "
                              "fused shallow-water kernel")
         self.fused = fused in (True, "auto") and eligible
-        if self.architecture is not None and not self.fused:
-            raise NotImplementedError(
-                "under a device mesh the port runs only the fused "
-                f"shallow-water stage, which this configuration does not "
-                f"take: {MESH_ITEM}")
         if isinstance(tracers, str):
             tracers = (tracers,)
         self.tracer_names = tuple(tracers)
@@ -162,10 +173,10 @@ class ShallowWaterModel:
             bcs_in.get(name), self.grid, loc)
             for name, loc in self._locs.items()}
         self.bathymetry = set_on_padded(self.grid, LOC_CCC, bathymetry)
-        self._sharded = None
-        if self.architecture is not None:
-            self._build_sharded()
         self._nt = numpy_dtype(self.grid.dtype)
+        if self.architecture is not None:
+            self._build_shards(dict(shard_kw, fused=self.fused))
+            return
         self.state = dict(
             fields={n: torch.zeros(self.grid.padded_shape,
                                    dtype=self.grid.dtype,
@@ -173,6 +184,56 @@ class ShallowWaterModel:
                     for n in self.prognostic_names},
             clock=dict(time=self._nt(0), iteration=0,
                        last_dt=self._nt(np.inf)))
+
+    # -- the shards of a model on a device mesh -----------------------------------
+
+    def _build_shards(self, kw):
+        """One model of this class per shard, on the shard's local grid."""
+        arch = self.architecture
+        shards = arch.shards(self.grid)
+        self._comm = arch.communicator
+        self._shards = [ShallowWaterModel(sh.grid, **kw) for sh in shards]
+        self._scatter_bathymetry()
+
+    def _scatter_bathymetry(self):
+        """The shards' bathymetry blocks: for the fused stage with halos
+        exchanged once (JAX's #9), else cut with the global array's halos
+        (JAX's GSPMD step reads those)."""
+        if self.fused:
+            blocks = sharded_bathymetry([m.grid.shard for m in self._shards],
+                                        self.bathymetry)
+        else:
+            blocks = self.architecture.scatter(self.bathymetry, self.grid.H)
+        for m, b in zip(self._shards, blocks):
+            m.bathymetry = b
+        self._sharded_bathymetry = self.bathymetry
+
+    @property
+    def state(self):
+        """The model state: fields and clock. On a device mesh, a gathered
+        global-view copy on the mesh's first device: writes into it do not
+        reach the shards (assign a state to ``model.state`` to scatter
+        it)."""
+        if self._shards is None:
+            return self._state
+        arch, H = self.architecture, self.grid.H
+        return dict(fields=arch.gather([m._state["fields"]
+                                        for m in self._shards], H),
+                    clock=dict(self._clock))
+
+    @state.setter
+    def state(self, value):
+        if self._shards is None:
+            self._state = value
+            return
+        blocks = self.architecture.scatter(value["fields"], self.grid.H)
+        for m, b in zip(self._shards, blocks):
+            m._state = dict(fields=b, clock=dict(value["clock"]))
+
+    @property
+    def _clock(self):
+        return (self._shards[0]._state if self._shards is not None
+                else self._state)["clock"]
 
     @property
     def prognostic_names(self):
@@ -183,7 +244,7 @@ class ShallowWaterModel:
 
     @property
     def time(self):
-        return float(self.state["clock"]["time"])
+        return float(self._clock["time"])
 
     @property
     def datetime(self):
@@ -193,13 +254,18 @@ class ShallowWaterModel:
 
     @property
     def iteration(self):
-        return int(self.state["clock"]["iteration"])
+        return int(self._clock["iteration"])
 
     def field(self, name):
         """The field ``name``, its halos refreshed at the model's time (a
         step leaves the halo slots of its last stage unwritten; interiors
-        are authoritative)."""
-        data = self.state["fields"][name]
+        are authoritative); on a device mesh a gathered copy of the shards'
+        blocks, filled on the global grid."""
+        if self._shards is not None:
+            data = self.architecture.gather(
+                [m._state["fields"][name] for m in self._shards], self.grid.H)
+        else:
+            data = self.state["fields"][name]
         self._fill_all({name: data}, self.time)
         return Field(self.grid, self.loc(name), self.bcs[name], data,
                      _regularize=False)
@@ -209,6 +275,15 @@ class ShallowWaterModel:
         return {n: self.field(n) for n in self.prognostic_names}
 
     def set(self, **values):
+        if self._shards is not None:
+            for name in values:
+                if name not in self.prognostic_names:
+                    raise ValueError(f"unknown prognostic field {name!r}")
+            blocks = self.architecture.scatter(
+                {n: set_on_padded(self.grid, self.loc(n), v)
+                 for n, v in values.items()}, self.grid.H)
+            self._comm.run(lambda r: self._shards[r].set(**blocks[r]))
+            return
         fields = dict(self.state["fields"])
         for name, value in values.items():
             if name not in fields:
@@ -280,14 +355,6 @@ class ShallowWaterModel:
                                   locs=self._locs)
         return G
 
-    def _build_sharded(self):
-        """The sharded stage for the current bathymetry (its blocks' halos
-        are exchanged once, here)."""
-        self._sharded = build_sharded_fused_sw_update(
-            self.grid, self.advection, self.g, constant_f(self.coriolis),
-            self.bathymetry, self.prognostic_names, self.architecture.mesh)
-        self._sharded_bathymetry = self.bathymetry
-
     def _fill_all(self, fields, time=0.0):
         """Fill the halos of ``fields`` ({name: padded tensor}) in place by
         their conditions at ``time``, one fill launch for all of them."""
@@ -300,7 +367,17 @@ class ShallowWaterModel:
         """Advance the model state by one Δt with RK3. As the JAX step
         donates its state, the step consumes the state's tensors: each stage
         writes new tensors and the previous stage's are released, so at most
-        two sets of fields and two of tendencies are alive."""
+        two sets of fields and two of tendencies are alive. On a device
+        mesh every shard steps its own blocks, in the shards' threads."""
+        if self._shards is not None:
+            if self._sharded_bathymetry is not self.bathymetry:
+                self._scatter_bathymetry()
+            vi = getattr(self, "momentum_advection", None)
+            for m in self._shards:
+                if vi is not None:
+                    m.momentum_advection = vi
+            self._comm.run(lambda r: self._shards[r].time_step(dt))
+            return self
         nt = self._nt
         dt = nt(dt)
         names = self.prognostic_names
@@ -309,17 +386,14 @@ class ShallowWaterModel:
         self.state = {**self.state, "fields": None}
         time = clock["time"]
         f = constant_f(self.coriolis)
-        if self._sharded is not None \
-                and self._sharded_bathymetry is not self.bathymetry:
-            self._build_sharded()
+        # a shard's fused stage is #9 on its blocks
+        stage = (shard_fused_sw_update if getattr(self.grid, "shard", None)
+                 is not None else fused_sw_update)
         Gm = None
         for gamma, zeta in zip(RK3_GAMMAS, RK3_ZETAS):
             self._fill_all(fields, time)
-            if self._sharded is not None:
-                Gm, fields = self._sharded(fields, Gm, nt(gamma) * dt,
-                                           nt(zeta) * dt)
-            elif self.fused:
-                Gm, fields = fused_sw_update(
+            if self.fused:
+                Gm, fields = stage(
                     self.grid, self.advection, self.g, f, self.bathymetry,
                     names, fields, Gm, nt(gamma) * dt, nt(zeta) * dt)
             else:

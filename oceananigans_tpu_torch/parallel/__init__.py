@@ -1,17 +1,19 @@
-"""Device meshes, domain decomposition and the halo exchange between shards.
+"""Device meshes, domain decomposition, the meeting points of the shards,
+the halo exchange between them and the pencil Poisson solvers."""
 
-``DistributedFFTPoissonSolver`` and ``DistributedFourierTridiagonalPoissonSolver``
-of the JAX package (``parallel/pencil_fft.py``) are not ported yet (ROADMAP.md
-queue 1 item 16).
-"""
-
-from .distributed import (CPU, GPU, CubedSpherePartition, Distributed, Equal,
-                          Fractional, Mesh, Partition, Sizes, XPartition,
-                          YPartition)
+from .communicator import Communicator, ShardError
+from .distributed import (CPU, GPU, Blocks, CubedSpherePartition,
+                          Distributed, Equal, Fractional, Mesh, Partition,
+                          Shard, Sizes, XPartition, YPartition)
 from .halo_exchange import (halo_exchange_local, halo_exchange_plain,
                             make_halo_exchange, mesh_halo_exchange)
+from .pencil_fft import (DistributedFFTPoissonSolver,
+                         DistributedFourierTridiagonalPoissonSolver)
 
 __all__ = ["CPU", "GPU", "Distributed", "Partition", "Mesh", "Equal",
            "Fractional", "Sizes", "XPartition", "YPartition",
-           "CubedSpherePartition", "halo_exchange_local", "halo_exchange_plain",
-           "make_halo_exchange", "mesh_halo_exchange"]
+           "CubedSpherePartition", "Blocks", "Shard",
+           "Communicator", "ShardError", "halo_exchange_local",
+           "halo_exchange_plain", "make_halo_exchange", "mesh_halo_exchange",
+           "DistributedFFTPoissonSolver",
+           "DistributedFourierTridiagonalPoissonSolver"]

@@ -1,5 +1,11 @@
 """Halo exchange between the per-shard blocks of a device mesh.
 
+The blocks are resident: each shard's padded blocks live on its device for
+the whole run (``parallel/distributed.py``), and every halo fill of a
+shard's grid ends with this exchange, through the mesh's communicator
+(``parallel/communicator.py`` ``exchange``), which runs it once over every
+shard's fields.
+
 Counterpart of ``oceananigans_tpu/parallel/halo_exchange.py``. Each shard
 holds its own halo-padded local block, laid out [h | n | h] along x and y
 (z, when present, is carried whole). The exchange fills the x halos of every
@@ -208,56 +214,3 @@ def make_halo_exchange(mesh, halo, local_n):
                           for row in blocks], dim=0)
 
     return fn
-
-
-# -- cutting global-view fields into blocks and back ------------------------------
-
-def shard_grids(grid, mesh, nz):
-    """The local interior (nlx, nly) of every shard, the x and y periodic
-    flags of ``grid``, and each mesh device's shard grid
-    (``grid.local_grid((nlx, nly, nz))``: the global spacing exactly)."""
-    from ..grids.topology import PERIODIC
-    Sx, Sy = mesh.devices.shape
-    if grid.N[0] % Sx or grid.N[1] % Sy:
-        raise ValueError(f"interior {grid.N[:2]} must divide the mesh "
-                         f"({Sx}, {Sy})")
-    nl = (grid.N[0] // Sx, grid.N[1] // Sy)
-    periodic = tuple(grid.topology[a] == PERIODIC for a in (0, 1))
-    grids = {dev: grid.local_grid(nl + (nz,), device=dev)
-             for dev in set(mesh.devices.ravel())}
-    return nl, periodic, grids
-
-
-def block_slices(grid, mesh, i, j):
-    """The (x, y) slices of shard (i, j)'s interior in the global padded
-    layout of ``grid``."""
-    Sx, Sy = mesh.devices.shape
-    nlx, nly = grid.N[0] // Sx, grid.N[1] // Sy
-    Hx, Hy = grid.H[0], grid.H[1]
-    return (slice(Hx + i * nlx, Hx + (i + 1) * nlx),
-            slice(Hy + j * nly, Hy + (j + 1) * nly))
-
-
-def scatter_blocks(grid, mesh, fields):
-    """Cut the interiors of the global padded tensors ``fields`` into the
-    mesh's blocks: a (Sx, Sy) nested list of lists of locally padded
-    tensors (x and y halos of the grid's widths, left for the exchange; z
-    carried whole), each on its shard's device."""
-    Sx, Sy = mesh.devices.shape
-    nlx, nly = grid.N[0] // Sx, grid.N[1] // Sy
-    Hx, Hy = grid.H[0], grid.H[1]
-    blocks = []
-    for i in range(Sx):
-        row = []
-        for j in range(Sy):
-            gx, gy = block_slices(grid, mesh, i, j)
-            dev = mesh.devices[i, j]
-            shard = []
-            for a in fields:
-                b = torch.empty((nlx + 2 * Hx, nly + 2 * Hy) + tuple(a.shape[2:]),
-                                dtype=a.dtype, device=dev)
-                b[Hx:Hx + nlx, Hy:Hy + nly] = a[gx, gy]
-                shard.append(b)
-            row.append(shard)
-        blocks.append(row)
-    return blocks

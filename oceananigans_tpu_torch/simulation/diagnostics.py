@@ -5,7 +5,10 @@ time scale is one device reduction (``cell_advection_timescale``); reading
 it on the host is the one deliberate sync of the wizard, one scalar a call,
 as in JAX. Where a model keeps w outside its prognostic fields (the
 hydrostatic model's diagnosed w, ``state["w"]``) the CFL and the wizard read
-it there; the JAX ones look for w among the fields only.
+it there; the JAX ones look for w among the fields only. On a model on a
+device mesh each reduction runs on every shard's blocks and the shards
+combine their results with the mesh's ``all_reduce`` (``over_shards``), so
+that a diagnostic gathers nothing.
 """
 
 from __future__ import annotations
@@ -22,8 +25,28 @@ def _velocities(model):
     return f["u"], f["v"], w
 
 
+def over_shards(model, fn, op):
+    """``fn(model)``, a number or a tensor; on a model on a device mesh,
+    ``fn`` of every shard's model combined by the mesh's ``all_reduce``
+    (``"min"``, ``"max"`` or ``"sum"``, in rank order)."""
+    shards = getattr(model, "_shards", None)
+    if not shards:
+        return fn(model)
+    comm = model.architecture.communicator
+
+    def reduce(rank):
+        v = fn(shards[rank])
+        if not isinstance(v, torch.Tensor):
+            v = torch.tensor(v, dtype=torch.float64,
+                             device=shards[rank].grid.device)
+        return comm.all_reduce(rank, v, op)
+
+    return comm.run(reduce)[0]
+
+
 def _advective_timescale(model):
-    return cell_advection_timescale(model.grid, *_velocities(model))
+    return over_shards(model, lambda m: cell_advection_timescale(
+        m.grid, *_velocities(m)), "min")
 
 
 def _as_float(v):
@@ -99,6 +122,23 @@ def _closure_max_nu(model, closure):
     return vals
 
 
+def _closure_maxima(model, closure):
+    """``_closure_max_nu`` of the model; on a device mesh each shard's
+    maxima reduced over the shards."""
+    shards = getattr(model, "_shards", None)
+    if not shards:
+        return _closure_max_nu(model, closure)
+    pairs = {}
+
+    def maxima(m):
+        pairs[id(m)] = _closure_max_nu(m, closure)
+        return torch.tensor([v for v, _ in pairs[id(m)]] or [0.0],
+                            dtype=torch.float64)
+
+    out = over_shards(model, maxima, "max")
+    return [(float(v), p) for v, (_, p) in zip(out, pairs[id(shards[0])])]
+
+
 def _minimum_spacing(grid):
     return min(grid.minimum_spacing(i) for i in range(3)
                if not grid.is_flat(i))
@@ -115,7 +155,7 @@ class DiffusiveCFL:
         # Δt over the least time scale of every closure component: d²/ν
         # (Laplacian) or d⁴/ν (biharmonic)
         cfl = 0.0
-        for numax, power in _closure_max_nu(model, model.closure):
+        for numax, power in _closure_maxima(model, model.closure):
             cfl = max(cfl, dt * numax / dmin ** power)
         return float(cfl)
 

@@ -43,17 +43,23 @@ class NaNChecker:
         self.fields = fields
 
     def __call__(self, sim):
+        from .diagnostics import over_shards
+        model = sim.model
         names = self.fields
         if names is None:
-            st = sim.model.state
+            # a model on a device mesh: its first shard's state names them
+            st = (model._shards[0].state if getattr(model, "_shards", None)
+                  else model.state)
             avail = st["fields"] if "fields" in st else \
                 {k: v for k, v in st.items() if getattr(v, "ndim", 0) >= 2}
             names = ("u",) if "u" in avail else (next(iter(avail)),)
         for name in names:
             # the interior only: a fused step may leave its halo slots
-            # stale until the next fill
-            data = sim.model.field(name).interior
-            if bool(torch.isnan(data).any()):
+            # stale until the next fill; on a mesh each shard's, the flags
+            # combined over the shards
+            found = over_shards(model, lambda m: torch.isnan(
+                m.field(name).interior).any().to(torch.float64), "max")
+            if bool(found):
                 sim.running = False
                 raise RuntimeError(
                     f"time = {sim.model.time}, iteration = "

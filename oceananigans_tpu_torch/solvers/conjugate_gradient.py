@@ -1,6 +1,14 @@
 """Preconditioned conjugate gradients and the conjugate-gradient Poisson
 solvers.
 
+Under a device mesh each shard runs the iteration on its own block: the
+dot products are sums over the block combined by the mesh's ``all_reduce``
+(``shard``: a ``parallel.distributed.Shard``), so every shard reads the same
+norm on the host and takes the same number of iterations; the operator's
+fill ends with the halo exchange, and the preconditioner is the pencil
+solver's block entry. The first shard alone records the iterations and
+norms.
+
 Counterpart of ``oceananigans_tpu/solvers/conjugate_gradient.py``:
 ``conjugate_gradient`` is the same iteration on tensors. The JAX loop is a
 ``lax.while_loop`` on the residual norm; here a Python loop reads the norm on
@@ -29,19 +37,23 @@ from ..grids.topology import CENTER, FACE, LOC_CCC
 
 
 def conjugate_gradient(A, b, x0=None, preconditioner=None, reltol=1e-7,
-                       abstol=0.0, maxiter=500):
+                       abstol=0.0, maxiter=500, shard=None):
     """Solve A(x) = b. ``A`` and ``preconditioner`` are callables from a
     tensor to a tensor of its shape. Returns (x, iterations, the residual
-    norm as a float)."""
+    norm as a float). With ``shard`` the tensors are the shard's blocks and
+    the dot products are summed over the mesh."""
     if x0 is None:
         x0 = torch.zeros_like(b)
     M = preconditioner if preconditioner is not None else (lambda r: r)
+    leader = shard is None or shard.rank == 0
 
     def dot(u, v):
-        return torch.sum(u * v)
+        local = torch.sum(u * v)
+        return local if shard is None else shard.all_reduce(local)
 
     def norm(r):
-        conjugate_gradient.syncs += 1
+        if leader:
+            conjugate_gradient.syncs += 1
         return math.sqrt(dot(r, r).item())
 
     x = x0
@@ -64,8 +76,9 @@ def conjugate_gradient(A, b, x0=None, preconditioner=None, reltol=1e-7,
         rz = rz_new
         it += 1
     res = math.sqrt(dot(r, r).item())
-    conjugate_gradient.iterations.append(it)
-    conjugate_gradient.residuals.append(res / bnorm if bnorm else 0.0)
+    if leader:
+        conjugate_gradient.iterations.append(it)
+        conjugate_gradient.residuals.append(res / bnorm if bnorm else 0.0)
     return x, it, res
 
 
@@ -83,22 +96,30 @@ class ConjugateGradientPoissonSolver:
     compatibility)."""
 
     def __init__(self, grid, operator, preconditioner=None, reltol=1e-7,
-                 maxiter=200):
+                 maxiter=200, shard=None):
         self.grid = grid
         self.operator = operator
         self.preconditioner = preconditioner
         self.reltol = reltol
         self.maxiter = maxiter
+        self.shard = shard
+
+    def _mean(self, x):
+        if self.shard is None:
+            return torch.mean(x)
+        return self.shard.all_reduce(torch.sum(x)) / (
+            x.numel() * self.shard.comm.size)
 
     def solve(self, b):
-        x = self.iterate(b - torch.mean(b))
-        return x - torch.mean(x)
+        x = self.iterate(b - self._mean(b))
+        return x - self._mean(x)
 
     def iterate(self, b):
         """``conjugate_gradient``'s solution of operator(x) = b."""
         return conjugate_gradient(self.operator, b,
                                   preconditioner=self.preconditioner,
-                                  reltol=self.reltol, maxiter=self.maxiter)[0]
+                                  reltol=self.reltol, maxiter=self.maxiter,
+                                  shard=self.shard)[0]
 
 
 class VolumeScaledPoissonSolver(ConjugateGradientPoissonSolver):
@@ -106,8 +127,9 @@ class VolumeScaledPoissonSolver(ConjugateGradientPoissonSolver):
     scalar or a tensor over the interior) before the means are removed."""
 
     def __init__(self, grid, operator, V, preconditioner=None, reltol=1e-7,
-                 maxiter=200):
-        super().__init__(grid, operator, preconditioner, reltol, maxiter)
+                 maxiter=200, shard=None):
+        super().__init__(grid, operator, preconditioner, reltol, maxiter,
+                         shard)
         self.V = V
 
     def solve(self, b):
@@ -120,8 +142,9 @@ class ImmersedPoissonSolver(VolumeScaledPoissonSolver):
     would put a value on the solid rows."""
 
     def __init__(self, grid, operator, V, solid, preconditioner=None,
-                 reltol=1e-7, maxiter=200):
-        super().__init__(grid, operator, V, preconditioner, reltol, maxiter)
+                 reltol=1e-7, maxiter=200, shard=None):
+        super().__init__(grid, operator, V, preconditioner, reltol, maxiter,
+                         shard)
         self.solid = solid
 
     def solve(self, b):
@@ -217,7 +240,9 @@ def make_immersed_poisson_solver(grid, fill_p, fft_solver=None, reltol=1e-7,
     function's): the masked flux-form Laplacian, identity rows on solid
     cells, b scaled by -V and zero on solid cells; preconditioned by
     ``fft_solver`` (the underlying regular grid's) when given. ``fill_p``
-    fills a padded pressure's halos in place."""
+    fills a padded pressure's halos in place. On a shard's grid the dot
+    products are summed over the mesh and ``fft_solver`` is the shard's
+    view of the pencil solver."""
     masks = [grid.fluid_mask(_face_loc(axis)) for axis in range(3)]
     lap = FluxLaplacian(grid, fill_p, masks)
     ii = grid.interior_slices
@@ -229,4 +254,4 @@ def make_immersed_poisson_solver(grid, fill_p, fft_solver=None, reltol=1e-7,
         return torch.where(solid, p_int, lap(p_int))
 
     return ImmersedPoissonSolver(grid, operator, V, solid, precond, reltol,
-                                 maxiter)
+                                 maxiter, getattr(grid, "shard", None))

@@ -672,11 +672,26 @@ def test_mesh_halo_exchange(shape, halo, z, spread):
                 assert torch.equal(_on(a, "cuda:0"), a2)
 
 
+def _stitch(parts, S, halo=None):
+    """One tensor on cuda:0 from per-shard tensors in rank order (their
+    interiors when ``halo`` (Hx, Hy) is given), along the last three axes
+    of (nf, nlx, nly, nz) tendencies or the first two of padded blocks."""
+    if halo is not None:
+        parts = [p[halo[0]:p.shape[0] - halo[0], halo[1]:p.shape[1] - halo[1]]
+                 for p in parts]
+        ax = (0, 1)
+    else:
+        ax = (1, 2)
+    parts = [_on(p, "cuda:0") for p in parts]
+    return torch.cat([torch.cat(parts[i * S[1]:(i + 1) * S[1]], dim=ax[1])
+                      for i in range(S[0])], dim=ax[0])
+
+
 @pytest.mark.parametrize("spread", ["card", "cards"])
 def test_sharded_sw_stage(sw_inputs, spread):
-    """The sharded stage on a 2x2 mesh equals the serial stage on the same
-    inputs (hB's halos wrapped, as the exchange gives them), and its kernel
-    route matches its plain route."""
+    """The sharded stage on the resident blocks of a 2x2 mesh equals the
+    serial stage on the same inputs (hB's halos wrapped, as the exchange
+    gives them), and its kernel route matches its plain route."""
     grid, fields, hB, Gm = sw_inputs
     arch = _card_mesh(spread=spread)
     devs = arch.mesh.devices.ravel()
@@ -687,28 +702,30 @@ def test_sharded_sw_stage(sw_inputs, spread):
     plain = K.build_sharded_fused_sw_update_plain(*args, arch.mesh)
     G0, new0 = K.fused_sw_update(*args, fields, None, 2e-3, -1e-3)
     launches = K.fused_sw_update.launches
-    G1, new1 = stage(fields, None, 2e-3, -1e-3)
+    sharded = K.build_sharded_fused_sw_update.launches
+    G1, new1 = stage(arch.scatter(fields, grid.H), None, 2e-3, -1e-3)
     assert K.fused_sw_update.launches == launches + 4
+    assert K.build_sharded_fused_sw_update.launches == sharded + 4
     assert [g.device for g in G1] == list(devs)
-    nlx, nly = grid.N[0] // 2, grid.N[1] // 2
-    G1 = [_on(g, grid.device) for g in G1]
-    G1 = torch.cat([torch.cat(G1[2 * i:2 * i + 2], dim=2) for i in range(2)],
-                   dim=1)
     ints = grid.interior_slices
-    assert torch.equal(G1, G0)
+    assert torch.equal(_stitch(G1, (2, 2)), G0)
     for n in names:
-        assert torch.equal(new1[n][ints], new0[n][ints])
+        assert torch.equal(_stitch([b[n] for b in new1], (2, 2), grid.H),
+                           new0[n][ints])
+    nlx, nly = grid.N[0] // 2, grid.N[1] // 2
     Gs = [_on(Gm[:, :nlx, :nly], d) for d in devs]
-    Gk, nk = stage(fields, Gs, 2e-3, -1e-3)
-    Gp, np_ = plain(fields, Gs, 2e-3, -1e-3)
-    _close(Gk + [nk[n][ints] for n in names],
-           Gp + [np_[n][ints] for n in names])
+    Gk, nk = stage(arch.scatter(fields, grid.H), Gs, 2e-3, -1e-3)
+    Gp, np_ = plain(arch.scatter(fields, grid.H), Gs, 2e-3, -1e-3)
+    _close([_stitch(Gk, (2, 2))] + [_stitch([b[n] for b in nk], (2, 2),
+                                            grid.H) for n in names],
+           [_stitch(Gp, (2, 2))] + [_stitch([b[n] for b in np_], (2, 2),
+                                            grid.H) for n in names])
 
 
 @pytest.mark.parametrize("spread", ["card", "cards"])
 def test_sharded_advection_stage(zinputs, spread):
-    """The sharded tendency stage equals the serial kernel and matches its
-    plain route."""
+    """The sharded tendency stage on resident blocks equals the serial
+    kernel and matches its plain route."""
     grid, fields = zinputs
     arch = _card_mesh(spread=spread)
     fields = K.periodic_halo_fill(grid, [f.clone() for f in fields])
@@ -716,10 +733,106 @@ def test_sharded_advection_stage(zinputs, spread):
     stage = K.build_sharded_fused_advection(grid, s, arch.mesh)
     plain = K.build_sharded_fused_advection_plain(grid, s, arch.mesh)
     launches = K.fused_advection_tendency.launches
-    G = stage(fields)
+    G = stage(arch.scatter(fields, grid.H))
     assert K.fused_advection_tendency.launches == launches + 4
+    G = _stitch(G, (2, 2))
     assert torch.equal(G, K.fused_advection_tendency(grid, s, fields))
-    _close([G], [plain(fields)])
+    _close([G], [_stitch(plain(arch.scatter(fields, grid.H)), (2, 2))])
+
+
+@pytest.mark.parametrize("topology", [("periodic",) * 3,
+                                      ("periodic", "periodic", "bounded")],
+                         ids=["ppp", "ppb"])
+def test_resident_nh_model(topology):
+    """The NH model on the resident blocks of a 2x2 mesh of cuda:0 (#7 per
+    shard, the exchange kernel, the pencil solver) against the same model
+    on a 2x2 CPU mesh (the plain versions): 1e-12 after 2 steps in
+    float64; #7 launches once per shard and stage."""
+    arch = _card_mesh()
+    n = (32, 32, 16)
+
+    def model(device, mesh):
+        grid = ot.RectilinearGrid(size=n, extent=(1.0, 1.0, 1.0),
+                                  topology=topology, dtype=torch.float64,
+                                  device=device)
+        m = ot.NonhydrostaticModel(
+            grid, advection=ot.WENO(5, smoothness_dtype=torch.float64),
+            buoyancy=ot.BuoyancyTracer(), tracers=("b",), architecture=mesh)
+        m.set(u=lambda x, y, z: 0.1 * np.sin(2 * np.pi * y),
+              v=lambda x, y, z: 0.1 * np.cos(2 * np.pi * x),
+              b=lambda x, y, z: 0.01 * np.sin(2 * np.pi * (x + y)))
+        return m
+
+    card = model("cuda", arch)
+    cpu = model("cpu", ot.Distributed(ot.Partition(2, 2),
+                                      devices=["cpu"] * 4))
+    before = K.build_sharded_fused_advection.launches
+    for _ in range(2):
+        card.time_step(1e-3)
+        cpu.time_step(1e-3)
+    assert K.build_sharded_fused_advection.launches == before + 2 * 3 * 4
+    for name in ("u", "v", "w", "b"):
+        a = card.field(name).interior.cpu()
+        b = cpu.field(name).interior
+        assert (a - b).abs().max() <= 1e-12 * b.abs().max(), name
+
+
+def test_resident_sw_model():
+    """The fused shallow-water model on the resident blocks of a 2x2 mesh
+    of cuda:0 (#9 per shard) equals the serial model on the card bit for
+    bit (no bathymetry), 3 steps; #9 launches once per shard and stage."""
+    arch = _card_mesh()
+
+    def model(mesh):
+        grid = ot.RectilinearGrid(size=(64, 48), extent=(10.0, 8.0),
+                                  topology=("periodic", "periodic", "flat"),
+                                  dtype=torch.float64, device="cuda")
+        m = ot.ShallowWaterModel(
+            grid, advection=ot.WENO(5, smoothness_dtype=torch.float64),
+            coriolis=ot.FPlane(f=0.3), tracers=("c",), architecture=mesh)
+        rng = np.random.default_rng(0)
+        m.set(h=1.0 + 0.05 * rng.standard_normal((64, 48)),
+              uh=0.1 * rng.standard_normal((64, 48)),
+              vh=0.1 * rng.standard_normal((64, 48)),
+              c=rng.random((64, 48)))
+        return m
+
+    sharded, serial = model(arch), model(None)
+    before = K.build_sharded_fused_sw_update.launches
+    for _ in range(3):
+        sharded.time_step(1e-3)
+        serial.time_step(1e-3)
+    assert K.build_sharded_fused_sw_update.launches == before + 3 * 3 * 4
+    for name in ("uh", "vh", "h", "c"):
+        assert torch.equal(sharded.field(name).interior,
+                           serial.field(name).interior), name
+
+
+@pytest.mark.parametrize("z", ["dct", "stretched"])
+def test_pencil_on_the_card(z):
+    """The pencil solver on 4 slabs of cuda:0 against the serial solver on
+    the card: 1e-12 of max|φ| in float64 (means removed on the stretched
+    z, whose singular modes the two pin differently)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from oceananigans_tpu_torch.parallel import DistributedFFTPoissonSolver
+    from oceananigans_tpu_torch.solvers.fft_poisson import FFTPoissonSolver
+    from oceananigans_tpu_torch.solvers.fourier_tridiagonal import \
+        FourierTridiagonalPoissonSolver
+    kw = (dict(extent=(1.0, 2.0, 1.0)) if z == "dct" else
+          dict(x=(0, 1), y=(0, 2), z=-1.0 + np.linspace(0, 1, 33) ** 1.5))
+    grid = ot.RectilinearGrid(size=(64, 32, 32), dtype=torch.float64,
+                              device="cuda", **kw)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b = torch.randn(grid.N, generator=gen, dtype=torch.float64,
+                    device="cuda")
+    b -= b.mean()
+    serial = (FFTPoissonSolver(grid) if z == "dct" else
+              FourierTridiagonalPoissonSolver(grid, 2)).solve(b)
+    got = DistributedFFTPoissonSolver(grid, ["cuda:0"] * 4).solve(b)
+    if z == "stretched":
+        got, serial = got - got.mean(), serial - serial.mean()
+    assert (got - serial).abs().max() <= 1e-12 * serial.abs().max()
 
 
 # -- tracers on the z-compact layout, and no caps on field counts ------------------
@@ -806,10 +919,11 @@ def test_sharded_advection_stage_compact(tracer_inputs, spread):
     arch = _card_mesh(spread=spread)
     fields = [u, v, w] + list(tracers.values())
     s = ot.WENO(5, smoothness_dtype=torch.float64)
-    G = K.build_sharded_fused_advection(grid, s, arch.mesh)(fields)
+    G = _stitch(K.build_sharded_fused_advection(grid, s, arch.mesh)(
+        arch.scatter(fields, grid.H)), (2, 2))
     assert torch.equal(G, K.fused_advection_tendency(grid, s, fields))
-    _close([G], [K.build_sharded_fused_advection_plain(grid, s,
-                                                       arch.mesh)(fields)])
+    _close([G], [_stitch(K.build_sharded_fused_advection_plain(
+        grid, s, arch.mesh)(arch.scatter(fields, grid.H)), (2, 2))])
 
 
 def test_fused_sw_update_tracers(sw_inputs):
@@ -1412,26 +1526,22 @@ def test_sharded_sw_stage_tile_grid():
     args = (grid, s, 9.81, 0.3, hB, names)
     stage = K.build_sharded_fused_sw_update(*args, arch.mesh)
     G0, new0 = K.fused_sw_update(*args, fields, None, 2e-3, -1e-3)
-    G1, new1 = stage(fields, None, 2e-3, -1e-3)
+    G1, new1 = stage(arch.scatter(fields, grid.H), None, 2e-3, -1e-3)
     nlx, nly = 45, 61
-    G1 = [_on(g, grid.device) for g in G1]
-    G1 = torch.cat([torch.cat(G1[2 * i:2 * i + 2], dim=2) for i in range(2)],
-                   dim=1)
     ints = grid.interior_slices
-    assert torch.equal(G1, G0)
+    assert torch.equal(_stitch(G1, (2, 2)), G0)
     for n_ in names:
-        assert torch.equal(new1[n_][ints], new0[n_][ints])
+        assert torch.equal(_stitch([b[n_] for b in new1], (2, 2), grid.H),
+                           new0[n_][ints])
     Gs = [_on(Gm[:, i * nlx:(i + 1) * nlx, j * nly:(j + 1) * nly], "cuda:0")
           for i in range(2) for j in range(2)]
-    Gm_full = torch.cat([torch.cat(Gs[2 * i:2 * i + 2], dim=2)
-                         for i in range(2)], dim=1)
-    G2, new2 = stage(fields, Gs, 2e-3, -1e-3)
+    Gm_full = _stitch(Gs, (2, 2))
+    G2, new2 = stage(arch.scatter(fields, grid.H), Gs, 2e-3, -1e-3)
     G3, new3 = K.fused_sw_update(*args, fields, Gm_full, 2e-3, -1e-3)
-    G2 = torch.cat([torch.cat(G2[2 * i:2 * i + 2], dim=2) for i in range(2)],
-                   dim=1)
-    assert torch.equal(G2, G3)
+    assert torch.equal(_stitch(G2, (2, 2)), G3)
     for n_ in names:
-        assert torch.equal(new2[n_][ints], new3[n_][ints])
+        assert torch.equal(_stitch([b[n_] for b in new2], (2, 2), grid.H),
+                           new3[n_][ints])
 
 
 # -- the block-tiled #6 and #10 at the tile edges ------------------------------------
@@ -1514,7 +1624,8 @@ def test_sharded_tendency_tile_grid(layout):
     grid, f = _tile_tendency_inputs((74, 58, 19), torch.float64, 2, layout,
                                     27)
     s = ot.WENO(5, smoothness_dtype=torch.float64)
-    G = K.build_sharded_fused_advection(grid, s, arch.mesh)(f)
+    G = _stitch(K.build_sharded_fused_advection(grid, s, arch.mesh)(
+        arch.scatter(f, grid.H)), (2, 2))
     assert torch.equal(G, K.fused_advection_tendency(grid, s, f))
 
 

@@ -37,6 +37,8 @@ def test_import_loads_no_jax():
             "oceananigans_tpu_torch.parallel, "
             "oceananigans_tpu_torch.parallel.distributed, "
             "oceananigans_tpu_torch.parallel.halo_exchange, "
+            "oceananigans_tpu_torch.parallel.communicator, "
+            "oceananigans_tpu_torch.parallel.pencil_fft, "
             "oceananigans_tpu_torch.kernels.vpu_probes, "
             "oceananigans_tpu_torch.tools.weno_vpu_microbench, "
             "oceananigans_tpu_torch.tools.vpu_mix_probe, "

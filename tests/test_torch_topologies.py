@@ -441,15 +441,26 @@ def test_example_against_jax(name):
 @pytest.mark.parametrize("topo", [(P, P, P), (B, P, B), (P, P, F)],
                          ids=["ppp", "bpb", "ppf"])
 def test_sharded_off_periodic_periodic_bounded_raises(topo):
-    """A sharded model and the sharded tendency off a regular (periodic,
-    periodic, bounded) grid cite ROADMAP item 16, as before."""
+    """Under a mesh the model and the sharded tendency (#7) take periodic x
+    and y with a periodic, bounded or flat z, on resident blocks (one step
+    runs; ``tests/test_torch_parallel.py`` holds them against JAX); a
+    bounded x still raises, citing ROADMAP item 16b."""
     grid = ot.RectilinearGrid(dtype=F64, device="cpu",
                               **grid_kw(topo, (8, 8, 8)))
     arch = ot.Distributed(ot.Partition(2, 2), devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        NonhydrostaticModel(grid, advection=ot.WENO(5), architecture=arch)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        fa.build_sharded_fused_advection(grid, ot.WENO(5), arch.mesh)
+    if topo[0] == B:
+        with pytest.raises(NotImplementedError, match="item 16b"):
+            NonhydrostaticModel(grid, advection=ot.WENO(5), architecture=arch)
+        with pytest.raises(NotImplementedError, match="item 16b"):
+            fa.build_sharded_fused_advection(grid, ot.WENO(5), arch.mesh)
+        return
+    m = NonhydrostaticModel(grid, advection=ot.WENO(5), architecture=arch)
+    assert m._sharded_advection is not None
+    assert fa.z_mode(m._shards[0].grid) == fa.z_mode(grid)
+    m.set(u=lambda x, y, z: 0.1 * np.sin(2 * np.pi * x))
+    m.time_step(1e-3)
+    assert np.isfinite(m.field("u").interior.numpy()).all()
+    fa.build_sharded_fused_advection(grid, ot.WENO(5), arch.mesh)
 
 
 def test_periodic_z_user_condition_raises():
