@@ -326,9 +326,24 @@ Phases (each raises on failure; nothing is caught):
    256³, WENO(5)) on 2x2 against the serial row over 3 steps (1e-5), #7's
    zperiodic launches, the profile and #7 against its plain route; (c) row
    E's hill on 2x2, float64 at 64×64×32 against serial (1e-10, both CGs at
-   1e-13, 3 steps) and float32 at 128×128×64 (one step, each solve's
+   1e-13, 1 step) and float32 at 128×128×64 (one step, each solve's
    iterations and residual); (d) an auxiliary-field forcing at 64³ whose
    host update reaches every shard. Its wall time is printed.
+33. Bounded sharded axes and the hydrostatic model on resident blocks (item
+   16b part 1), on the 2x2 mesh of cuda:0, float32, each against the
+   serial model from the same state: (a) the hydro_row 512×256×32 with
+   bounded x and y through JAX's call shape (bit for bit over 3 steps, #10
+   once a shard and step; #10, the fill and the exchange on the blocks
+   against their plain versions); (b) the same row on z* (bit for bit, a
+   uniform tracer within 1e-6); (c) the 1° tripolar row with the fold
+   across the top row (bit for bit over 2 steps; the fold kernel against
+   its plain version); (d) the NH model at 256³ with a bounded y (1e-5,
+   the pencil's transform order, shown by a twin on the pencil solver);
+   (e) the per-axis FluxFormAdvection in #1 and #6 (2048×2048×2 WENO(5),
+   a WENO(3) z) and #8 (16384×4, a WENO(3) y) against their plain
+   versions (1e-5) and on their paths. Each path's step median, busy
+   share, kernels a step, the exchange's share and peak memory against
+   the state held; its wall time is printed.
 
 Fill times are CUDA events around one call behind a busy card (the device's
 time, ``device_ms``), with the call from an idle card beside them (host
@@ -342,6 +357,7 @@ import ctypes
 import datetime
 import functools
 import gc
+import itertools
 import json
 import os
 import statistics
@@ -9132,11 +9148,14 @@ def long_tail_phase(card):
 RES_SMALL_N = (64, 64, 64)          # (a) float64 against the serial solver
 RES_PENCIL_N = (256, 256, 256)      # (a) float32 at size, a DCT z
 RES_STRETCHED_N = (256, 256, 128)   # (a) float32 at size, a stretched z
-RES_HILL_SMALL = (64, 64, 32)       # (c) float64, 3 steps against serial
+RES_HILL_SMALL = (64, 64, 32)       # (c) float64, against serial
 RES_HILL_N = (128, 128, 64)         # (c) float32, timed
 RES_AUX_N = (64, 64, 64)            # (d)
 RES_STEPS = 3
 RES_HILL_STEPS = 1                  # (c) float32 timed steps
+# (c) float64 steps against serial: 1 (3 until phase 33 took the time:
+# 62.1 s on 2x2 for 3 steps)
+RES_HILL64_STEPS = 1
 
 
 def pencil_grid(n, dtype, stretched):
@@ -9314,7 +9333,8 @@ def resident_hill(card):
     the mesh and the pencil preconditioner, as JAX's takes the FFT one),
     each sharded model from its serial twin's state: in float64 at
     64×64×32, both CGs at reltol 1e-13 (about 538 iterations a solve),
-    3 steps against the serial model within 1e-10 of each field's max|·|,
+    ``RES_HILL64_STEPS`` steps against the serial model within 1e-10 of
+    each field's max|·|,
     with their wall time;
     in float32 at 128×128×64, one timed step with each solve's iterations
     and final residual (a solve that stops at maxiter is marked
@@ -9338,15 +9358,15 @@ def resident_hill(card):
         solver.reltol, solver.maxiter = 1e-13, 1000
     dt = cg_dt(serial)
     t0 = time.perf_counter()
-    for _ in range(RES_STEPS):
+    for _ in range(RES_HILL64_STEPS):
         serial.time_step(dt)
     t1 = time.perf_counter()
     cg.iterations.clear()
-    for _ in range(RES_STEPS):
+    for _ in range(RES_HILL64_STEPS):
         model.time_step(dt)
     t2 = time.perf_counter()
     iters = list(cg.iterations)
-    print(f"hill {RES_HILL_SMALL} float64: {RES_STEPS} steps, serial "
+    print(f"hill {RES_HILL_SMALL} float64: {RES_HILL64_STEPS} steps, serial "
           f"{t1 - t0:.1f} s, on 2x2 {t2 - t1:.1f} s ({sum(iters)} CG "
           f"iterations, {(t2 - t1) * 1e3 / sum(iters):.3f} ms an iteration) "
           f"[{card}]")
@@ -9447,6 +9467,558 @@ def resident_phase(card):
     resident_aux(card)
     print(f"phase 32 wall time {time.perf_counter() - t0:.1f} s [{card}]")
     return {"A": launches_a, "E": launches_e}, row
+
+
+# -- bounded sharded axes, the hydrostatic model on resident blocks (33) --
+
+BND_STEPS = 3                 # (a), (b): steps against the serial model
+BND_NH_STEPS = 2              # (d)
+BND_PROFILE_STEPS = 1         # (b)-(d): profiled steps ((a): 2)
+BND_TRIPOLAR_STEPS = 2        # (c)
+BND_NH_N = (256, 256, 256)    # (d) the NH model with a bounded y
+BND_FLUX_N = (2048, 2048, 2)  # (e) WENO(5) with a thin z: WENO(3) along z
+BND_MIX_N = (512, 512, 32)    # (e) WENO(5) across, Centered(2) along z
+BND_SW_N = (16384, 4)         # (e) #8 with a WENO(3) y
+BND_ZSTAR_BOUND = 1e-6        # (b) the uniform tracer, float32
+
+
+def shard_state_bytes(model):
+    """The bytes of every tensor the shards of a sharded model hold."""
+    def size(v):
+        if isinstance(v, torch.Tensor):
+            return v.numel() * v.element_size()
+        if isinstance(v, dict):
+            return sum(size(x) for x in v.values())
+        return 0
+    return sum(size(m._state) for m in model._shards)
+
+
+def bounded_report(label, model, times, base, card):
+    """Step median, min and max, and peak memory against the state the
+    shards hold (every tensor of their states)."""
+    peak = torch.cuda.max_memory_allocated() - base
+    held = shard_state_bytes(model)
+    step_ms = statistics.median(times) * 1e3
+    n = int(np.prod(model.grid.N))
+    print(f"{label} on a 2x2 mesh of one card: step median {step_ms:.3f} ms "
+          f"over {len(times)} steps (min {min(times) * 1e3:.3f}, max "
+          f"{max(times) * 1e3:.3f}), {n / (step_ms / 1e3):.4e} "
+          f"cell-updates/s; peak device memory {peak / 2 ** 30:.2f} GiB "
+          f"against {held / 2 ** 30:.2f} GiB of state in the shards' blocks "
+          f"[{card}]")
+    return step_ms
+
+
+def mesh_path(label, serial, sharded, dt, steps, names, bound_rel, card,
+              kernel_key, expect=None, plain=(), after=None,
+              profile_steps=BND_PROFILE_STEPS):
+    """``steps`` steps of the sharded model (the counters reset just before
+    and read just after, no plain version on CUDA tensors but the ``plain``
+    ones, which the serial model takes too, the launches of ``expect``
+    above 0) and of the serial model from the same state; the
+    fields against the serial model's (``bound_rel`` of max|·|), the step
+    median, peak memory against the state held, ``after(worst)`` (where
+    given), and the device profile of ``profile_steps`` more steps (busy
+    share, kernels a step, the exchange's share).
+    Returns (launches, step ms, the profile's shares, the worst relative
+    difference)."""
+    from oceananigans_tpu_torch import kernels as K
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() - shard_state_bytes(sharded)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_counters()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        sharded.time_step(dt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches, plain_cuda = K.counters()
+    print(f"{label} launches over {steps} steps: "
+          f"{ {k: v for k, v in launches.items() if v} }; plain calls on "
+          f"CUDA: { {k: v for k, v in plain_cuda.items() if v} }")
+    check_mesh_launches(launches, {k: v for k, v in plain_cuda.items()
+                                   if k not in plain}, {})
+    for name in expect or ():
+        assert launches[name] > 0, (label, name, "not launched")
+    step_ms = bounded_report(label, sharded, times, base, card)
+    for _ in range(steps):
+        serial.time_step(dt)
+    for name in names:
+        assert torch.isfinite(sharded.field(name).interior).all().item(), \
+            (label, name)
+    worst = against_serial(label, sharded, serial, names, bound_rel)
+    if after is not None:
+        after(worst)
+    shares = resident_profile(label, sharded, dt, profile_steps, step_ms,
+                              card, kernel_key)
+    return launches, step_ms, shares, worst
+
+
+def zstar_row_model(N, dtype, device):
+    """The hydro_row on z*: ``hydro_model``'s configuration with
+    vertical_coordinate="zstar", tracers T and c (c = 1 everywhere) and
+    η = 0.5 sin(2π λ/60°) m."""
+    import oceananigans_tpu_torch as ot
+    grid = ot.LatitudeLongitudeGrid(size=N, longitude=(0, 60),
+                                    latitude=(15, 75), z=(-1800.0, 0.0),
+                                    dtype=dtype, device=device)
+    model = ot.HydrostaticFreeSurfaceModel(
+        grid, momentum_advection=ot.WENOVectorInvariant(),
+        coriolis=ot.HydrostaticSphericalCoriolis(),
+        free_surface=ot.SplitExplicitFreeSurface(substeps=30),
+        tracers=("T", "c"), vertical_coordinate="zstar")
+    rng = np.random.default_rng(0)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    model.set(u=0.05 * rng.standard_normal(N).astype(npdt),
+              T=lambda lam, phi, z: 12 + 8e-3 * z + 2e-2 * phi, c=1.0,
+              eta=lambda lam, phi, z: 0.5 * np.sin(2 * np.pi * lam / 60.0))
+    return model
+
+
+def bounded_y_model(N, dtype, device, architecture=None, state=None,
+                    pressure_solver=None):
+    """The NH model on ("periodic", "bounded", "bounded") at N, extent
+    1x1x1, WENO(5), no closure: the plain flux divergences (JAX's eligible
+    takes #6 on periodic x and y alone), the FFT along x and the DCT along
+    y and z; u, v 0.1·N(0, 1) from np.random.default_rng(0), projected by
+    set(); or, given ``state``, that state. ``pressure_solver(grid)`` makes
+    the model's pressure solver."""
+    import oceananigans_tpu_torch as ot
+    grid = ot.RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0),
+                              topology=(P_, B_, B_), dtype=dtype,
+                              device=device)
+    kw = {} if pressure_solver is None else dict(
+        pressure_solver=pressure_solver(grid))
+    model = ot.NonhydrostaticModel(grid, advection=ot.WENO(5),
+                                   architecture=architecture, **kw)
+    if state is not None:
+        model.state = to_device(state, grid.device)
+        return model
+    rng = np.random.default_rng(0)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    model.set(u=0.1 * rng.standard_normal(N).astype(npdt),
+              v=0.1 * rng.standard_normal(N).astype(npdt))
+    return model
+
+
+def shard_vi_check(label, model, card):
+    """#10 on shard 0's blocks of the sharded hydro row (its local grid: a
+    wall on the low x and y sides, the high sides connected, the cascade
+    from the global walls) against its plain version on the same blocks:
+    the max abs difference (float32, bound 1e-5 of max|plain|), the times
+    and the bound."""
+    from oceananigans_tpu_torch import kernels as K
+    from oceananigans_tpu_torch.kernels import fused_vector_invariant as fvi
+    m = model._shards[0]
+    g, st = m.grid, m._state
+    args = (g, m.momentum_advection, m.tracer_advection, m.tracer_names,
+            m.coriolis, st["fields"]["u"], st["fields"]["v"], st["w"],
+            {n: st["fields"][n] for n in m.tracer_names}, None)
+    def flat(out):   # (Gu, Gv, {tracer: Gc})
+        return [out[0], out[1]] + [out[2][n] for n in m.tracer_names]
+
+    got = flat(K.fused_vi_tendency(*args))
+    want = flat(K.fused_vi_tendency_plain(*args))
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    scale = max(b.abs().max().item() for b in want)
+    ms = device_ms(lambda: K.fused_vi_tendency(*args))
+    plain_ms = device_ms(lambda: K.fused_vi_tendency_plain(*args), reps=3,
+                         warmup=1)
+    cfg = fvi.vi_config(g, m.momentum_advection, m.tracer_advection,
+                        len(m.tracer_names), m.coriolis)
+    b = vi_bound(g, cfg, len(m.tracer_names))
+    print(f"  {label}: #10 on shard 0's blocks {tuple(g.padded_shape)} "
+          f"(walls {g.walls[:2]}) against its plain version: max abs "
+          f"{err:.3e} ({err / scale:.3e} of max|plain|, bound 1e-5); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b[0]:.4f} ms "
+          f"({b[1]}) [{card}]")
+    assert err <= 1e-5 * scale, (label, "#10 on the shard", err)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b)
+
+
+def shard_fill_check(label, model, names, card):
+    """The fill kernel on shard 0's blocks (the connected sides kept, the
+    walls filled; no exchange: the kernel's launch alone) against its plain
+    version on copies, bit for bit, with the times and the bound."""
+    import oceananigans_tpu_torch.kernels.halo_fill as hf
+    m = model._shards[0]
+    g, st = m.grid, m._state
+    fields = halo_noise(g, [st["w"] if n == "w" else st["fields"][n]
+                            for n in names], 33)
+    lbs = model_locs_bcs(m, names)
+    a = [f.clone() for f in fields]
+    b = [f.clone() for f in fields]
+    hf._launch(g, a, lbs, True, 0.0, None)
+    hf.fill_halos_plain(g, b, lbs)
+    err = max((x - y).abs().max().item() for x, y in zip(a, b))
+    ms = device_ms(lambda: hf._launch(g, a, lbs, True, 0.0, None))
+    plain_ms = device_ms(lambda: hf.fill_halos_plain(g, b, lbs), reps=3,
+                         warmup=1)
+    esize = a[0].element_size()
+    nbytes, _ = fill_traffic(g, a[0].shape, esize, lbs, len(a))
+    bnd = bound(nbytes, 0)
+    print(f"  {label}: the fill on shard 0's blocks ({len(a)} fields of "
+          f"{tuple(a[0].shape)}, connected sides kept) against its plain "
+          f"version: max abs {err:.3e} (bound 0); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms [{card}]")
+    assert err == 0.0, (label, "fill on the shard", err)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=bnd)
+
+
+def shard_exchange_check(label, model, names, card, fold=False):
+    """The exchange (and with ``fold`` the north fold across the top row)
+    of the sharded model's blocks of ``names`` on the card against the plain
+    copies, exact, with both times and the bound (each halo slot read once
+    and written once)."""
+    from oceananigans_tpu_torch.parallel import halo_exchange as he
+    shards = model._shards
+    S = model.architecture.mesh.devices.shape
+    g = shards[0].grid
+    H, nl = g.H, g.N
+    periodic = g.shard.periodic
+    lbs = model_locs_bcs(shards[0], names)
+    spec = [(float(b.north.condition), l[0] == "f", l[1] == "f")
+            for l, b in lbs] if fold else None
+
+    def blocks():
+        return [[[(m._state["w"] if n == "w" else m._state["fields"][n])
+                  .clone() for n in names]
+                 for m in shards[i * S[1]:(i + 1) * S[1]]]
+                for i in range(S[0])]
+
+    a, b = blocks(), blocks()
+    if fold:
+        top = lambda x: [x[i][S[1] - 1] for i in range(S[0])]
+        he.mesh_fold_exchange(top(a), H, nl, spec)
+        he.fold_plain(top(b), H, nl, spec)
+        ms = device_ms(lambda: he.mesh_fold_exchange(top(a), H, nl, spec))
+        plain_ms = device_ms(lambda: he.fold_plain(top(b), H, nl, spec),
+                             reps=3, warmup=1)
+        first = a[0][0][0]
+        moved = S[0] * len(names) * (first.shape[0] * (H[1] + 1)
+                                     * first.shape[2])
+    else:
+        he.halo_exchange_local(a, model.architecture.mesh, H, nl + (0,),
+                               periodic)
+        he.halo_exchange_plain(b, model.architecture.mesh, H, nl + (0,),
+                               periodic)
+        ms = device_ms(lambda: he.halo_exchange_local(
+            a, model.architecture.mesh, H, nl + (0,), periodic))
+        plain_ms = device_ms(lambda: he.halo_exchange_plain(
+            b, model.architecture.mesh, H, nl + (0,), periodic), reps=3,
+            warmup=1)
+        first = a[0][0][0]
+        strips = sum(len(he._strips([[x] for row in a for x in row],
+                                    S, ax, periodic[ax]))
+                     * (H[ax] * first.shape[1 - ax]) for ax in (0, 1))
+        moved = strips * len(names) * first.shape[2]
+    err = max((x - y).abs().max().item() for ra, rb in zip(a, b)
+              for xa, xb in zip(ra, rb) for x, y in zip(xa, xb))
+    bnd = bound(2 * moved * first.element_size(), 0)
+    what = "the north fold" if fold else "the exchange"
+    print(f"  {label}: {what} of {len(names)} fields on the 2x2 mesh against "
+          f"the plain copies: max abs {err:.3e} (bound 0); kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms [{card}]")
+    assert err == 0.0, (label, what, err)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=bnd)
+
+
+def takes_any_axis(scheme):
+    """Whether #1 and #6 take their per-axis body for ``scheme`` on a
+    bounded z (csrc/reconstruction.cuh ``any_axis``): an axis of another
+    family than the instantiation's, or an x or y of another buffer (a
+    thinner bounded z only caps the cascade, in the uniform body)."""
+    from oceananigans_tpu_torch.kernels import fused_advection as fa
+    F, K = fa.scheme_code(scheme)
+    F = min(F, fa.WENO_FAMILY)
+    for a, (f, k) in enumerate(fa.axis_codes(scheme)):
+        f = min(f, fa.WENO_FAMILY)
+        if F == fa.WENO_FAMILY and f == fa.UPWIND and k == 1:
+            f = fa.WENO_FAMILY
+        if f != F or (k != K and a < 2):
+            return True
+    return False
+
+
+def flux_form_checks(card):
+    """(e) The per-axis scheme in #1, #6 and #8 against their plain
+    versions on the card at the paths' shapes (float32: 1e-5 of max|plain|,
+    with the times and the bounds), then the paths: the NH model (#1 on the
+    fused route; with BuoyancyTracer, #6 on the z-compact route) at
+    2048×2048×2 with WENO(5), which adapt_advection_order makes
+    FluxFormAdvection(WENO(5), WENO(5), WENO(3)) (the uniform body: the
+    thin z only caps the cascade) and at 512×512×32 with
+    FluxFormAdvection(WENO(5), WENO(5), Centered(2)) (the per-axis body),
+    and the shallow-water model at 16384×4 with FluxFormAdvection(WENO(5),
+    WENO(3)) (#8's per-axis body), each 3 steps with the counters reset
+    just before and read just after."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch import kernels as K
+    from oceananigans_tpu_torch.advection import FluxFormAdvection
+    from oceananigans_tpu_torch.kernels import fused_advection as fa
+    out, path = {}, {}
+    configs = (
+        (BND_FLUX_N, lambda: ot.WENO(5), ((2, 3), (2, 3), (2, 2)), False),
+        (BND_MIX_N, lambda: FluxFormAdvection(ot.WENO(5), ot.WENO(5),
+                                              ot.Centered(2)),
+         ((2, 3), (2, 3), (0, 1)), True))
+    for (n, advection, codes, per_axis), buoyant in itertools.product(
+            configs, (False, True)):
+        grid = ot.RectilinearGrid(size=n, extent=(1.0, 1.0, 0.01),
+                                  dtype=torch.float32, device="cuda")
+        model = ot.NonhydrostaticModel(
+            grid, advection=advection(),
+            buoyancy=ot.BuoyancyTracer() if buoyant else None)
+        scheme = model.advection
+        assert isinstance(scheme, FluxFormAdvection), scheme
+        assert fa.axis_codes(scheme) == codes
+        assert takes_any_axis(scheme) == per_axis, scheme
+        rng = np.random.default_rng(5)
+        init = {c: 0.1 * rng.standard_normal(n).astype(np.float32)
+                for c in "uv"}
+        if buoyant:
+            init["b"] = 0.01 * rng.standard_normal(n).astype(np.float32)
+        model.set(**init)
+        g = model.grid
+        fields = [model.state["fields"][c] for c in model.prognostic_names]
+        kname = ("fused_advection_tendency" if buoyant
+                 else "fused_advection_update")
+        if buoyant:
+            args = (g, scheme, fields)
+            got = [K.fused_advection_tendency(*args)]
+            want = [K.fused_advection_tendency_plain(*args)]
+            run = lambda: K.fused_advection_tendency(*args)
+            plain = lambda: K.fused_advection_tendency_plain(*args)
+            b = per_axis_bound(scheme, n, g.H, 4, update=False)
+        else:
+            u, v, w = fields
+            args = (g, scheme, u, v, w, None, 1e-3, 0.0)
+            got = K.fused_advection_update(*args)[0]
+            want = K.fused_advection_update_plain(*args)[0]
+            run = lambda: K.fused_advection_update(*args)
+            plain = lambda: K.fused_advection_update_plain(*args)
+            b = per_axis_bound(scheme, n, g.H, 4, update=True)
+        err = max((x - y).abs().max().item() for x, y in zip(got, want))
+        scale = max(y.abs().max().item() for y in want)
+        ms = device_ms(run)
+        plain_ms = device_ms(plain, reps=3, warmup=1)
+        row = f"{kname}_{fa.variant_name(scheme)}"
+        print(f"  {row} at {n}: against its plain version max abs "
+              f"{err:.3e} ({err / scale:.3e} of max|plain|, bound 1e-5); "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{b[0]:.4f} ms ({b[1]}) [{card}]")
+        assert err <= 1e-5 * scale, (row, err)
+        out[row] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b)
+        dt = 0.2 * g.minimum_spacing(0) / 0.5
+        K.reset_counters()
+        for _ in range(3):
+            model.time_step(dt)
+        torch.cuda.synchronize()
+        launches, plain_cuda = K.counters()
+        check_mesh_launches(launches, plain_cuda, {})
+        path[row] = launches.get(row, 0)
+        print(f"  the {n} {'buoyant ' if buoyant else ''}path "
+              f"({'per-axis' if per_axis else 'uniform'} body) over 3 "
+              f"steps: {path[row]} launches of {row} "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        assert path[row] > 0, (row, "not launched on its path")
+        for c in model.prognostic_names:
+            assert torch.isfinite(model.field(c).interior).all().item(), c
+        del model, fields, args, got, want
+        release()
+    scheme = FluxFormAdvection(ot.WENO(5), ot.WENO(3), ot.WENO(5))
+    assert takes_any_axis(scheme)
+    sw = sw_thin_model(BND_SW_N, scheme)
+    g = sw.grid
+    names = sw.prognostic_names
+    fields = dict(sw.state["fields"])
+    args = (g, scheme, sw.g, 0.0, sw.bathymetry, names, fields, None, 1e-3,
+            0.0)
+    got = K.fused_sw_update(*args)[0]
+    want = K.fused_sw_update_plain(*args)[0]
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    ms = device_ms(lambda: K.fused_sw_update(*args))
+    plain_ms = device_ms(lambda: K.fused_sw_update_plain(*args), reps=3,
+                         warmup=1)
+    b = per_axis_sw_bound(scheme, BND_SW_N, g.H, 4)
+    row = f"fused_sw_update_{fa.variant_name(scheme)}"
+    print(f"  {row} at {BND_SW_N}: against its plain version max abs "
+          f"{err:.3e} ({err / scale:.3e} of max|plain|, bound 1e-5); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b[0]:.4f} ms "
+          f"({b[1]}) [{card}]")
+    assert err <= 1e-5 * scale, (row, err)
+    out[row] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b)
+    K.reset_counters()
+    for _ in range(3):
+        sw.time_step(1e-4)
+    torch.cuda.synchronize()
+    launches, plain_cuda = K.counters()
+    check_mesh_launches(launches, plain_cuda, {})
+    path[row] = launches.get(row, 0)
+    print(f"  the {BND_SW_N} shallow-water path over 3 steps: {path[row]} "
+          f"launches of {row}")
+    assert path[row] > 0, (row, "not launched on its path")
+    del sw, fields, args
+    release()
+    return out, path
+
+
+def per_axis_flop(scheme, n_momentum, n_tracers):
+    """``advection_flop`` of a FluxFormAdvection: the interpolation along a
+    momentum component's own axis with that axis's scheme, the advected
+    value along each flux axis with that axis's."""
+    members = scheme.schemes
+    total = 0
+    for c in range(n_momentum):
+        b = scheme_buffers(members[c])[1]
+        total += sum(6 * b - 1 + recon_flop(members[a]) + 1
+                     for a in range(3)) + 7
+    total += n_tracers * (sum(1 + recon_flop(members[a]) + 1
+                              for a in range(3)) + 7)
+    return total
+
+
+def per_axis_bound(scheme, N, H, esize, update):
+    """The bound of #1 (``update``: read u, v, w padded, write G and the
+    new fields, no G⁻ and no correction) or of the z-compact #6 over u, v,
+    w and one tracer, with a per-axis scheme."""
+    cells = N[0] * N[1] * N[2]
+    padded = (N[0] + 2 * H[0]) * (N[1] + 2 * H[1]) * N[2]
+    if update:
+        return bound(esize * (6 * padded + 3 * cells),
+                     cells * (per_axis_flop(scheme, 3, 0) + 3 * UPDATE_FLOP))
+    return bound(esize * 4 * (padded + cells),
+                 cells * per_axis_flop(scheme, 3, 1))
+
+
+def per_axis_sw_bound(scheme, n, H, esize):
+    """The bound of #8's first stage (no G⁻) at n = (nx, ny) with a
+    per-axis scheme: read uh, vh, h and hB, write G and the new fields;
+    ``sw_flop``'s accounting with each axis's scheme."""
+    cells = n[0] * n[1]
+    padded = (n[0] + 2 * H[0]) * (n[1] + 2 * H[1])
+    members = scheme.schemes
+    momentum = sum(4 * scheme_buffers(members[a])[1] - 1 + 1
+                   + recon_flop(members[a]) + 1 for a in (0, 1)) + 3 + 26
+    flop = 2 * momentum + SW_H_FLOP + 3 * UPDATE_FLOP
+    return bound(esize * (4 * padded + 3 * cells + 3 * padded), cells * flop)
+
+
+def sw_thin_model(n, scheme):
+    """The shallow-water row at n = (nx, ny) (bench_extra.py's
+    configuration, extent 1x1) with ``scheme``: h = 1 + 0.01·N(0, 1), uh
+    and vh 0.01·N(0, 1) from np.random.default_rng(0)."""
+    import oceananigans_tpu_torch as ot
+    grid = ot.RectilinearGrid(size=n, extent=(1.0, 1.0),
+                              topology=SW_TOPOLOGY, dtype=torch.float32,
+                              device="cuda")
+    model = ot.ShallowWaterModel(grid, advection=scheme,
+                                 gravitational_acceleration=9.81)
+    assert model.fused
+    rng = np.random.default_rng(0)
+    model.set(h=1.0 + 0.01 * rng.standard_normal(n))
+    model.set(uh=0.01 * rng.standard_normal(n))
+    model.set(vh=0.01 * rng.standard_normal(n))
+    return model
+
+
+def bounded_mesh_phase(card):
+    """Phase 33 (item 16b part 1) on a 2x2 mesh of the card, float32: (a)
+    the hydro_row (512×256×32 lat-lon, bounded x and y, WENO-VI,
+    split-explicit with 30 substeps) through JAX's call shape ``m.state =
+    arch.shard(m.state)``, against the serial model from the same state
+    (bit for bit: no reduction crosses the shards), #10 on every shard's
+    blocks; (b) the same row on z* with a uniform tracer; (c) the 1°
+    tripolar row (phase 24's configuration) with the fold across the top
+    row of shards; (d) the NH model at 256³ with a bounded y (the pencil's
+    DCT along y); (e) the per-axis scheme in #1, #6 and #8. Returns
+    ({path: launches}, {kernel row: measured})."""
+    import oceananigans_tpu_torch as ot
+    t0 = time.perf_counter()
+    launches, rows = {}, {}
+    # (a)
+    label = f"(a) hydro_row {HYDRO_N} bounded x and y"
+    serial = hydro_model(HYDRO_N, torch.float32, "cuda")
+    sharded = hydro_model(HYDRO_N, torch.float32, "cuda")
+    sharded.state = card_mesh().shard(serial.state)
+    assert all(m.uses_kernel for m in sharded._shards)
+    la, _, _, worst = mesh_path(
+        label, serial, sharded, 120.0, BND_STEPS, ("u", "v", "T", "eta", "w"),
+        0.0, card, "vi_tendency", expect=("fused_vi_tendency",
+                                          "mesh_halo_exchange", "fill_halos"),
+        profile_steps=2)
+    print(f"{label}: #10's launches on the shards by variant "
+          f"{ {k: v for k, v in la.items() if k.startswith('fused_vi')} } "
+          f"over {BND_STEPS} steps ({BND_STEPS * 4} expected: one a shard "
+          f"and step)")
+    assert la["fused_vi_tendency"] == 4 * BND_STEPS
+    launches["a"] = la
+    rows["fused_vi_tendency_shard"] = shard_vi_check(label, sharded, card)
+    rows["fill_halos_shard"] = shard_fill_check(
+        label, sharded, ("u", "v", "T", "w"), card)
+    rows["mesh_halo_exchange_bounded"] = shard_exchange_check(
+        label, sharded, ("u", "v", "T", "w"), card)
+    del serial, sharded
+    release()
+    # (b)
+    label = f"(b) hydro_row {HYDRO_N} on z*"
+    serial = zstar_row_model(HYDRO_N, torch.float32, "cuda")
+    sharded = zstar_row_model(HYDRO_N, torch.float32, "cuda")
+    sharded.state = card_mesh().shard(serial.state)
+    launches["b"], _, _, _ = mesh_path(
+        label, serial, sharded, 120.0, BND_STEPS, ("u", "v", "T", "c", "eta"),
+        0.0, card, "vi_tendency", expect=("mesh_halo_exchange",
+                                          "fill_halos"),
+        plain=("fused_vi_tendency_plain",))
+    c = sharded.field("c").interior
+    spread = (c - 1).abs().max().item()
+    print(f"{label}: the uniform tracer's largest departure from 1 after "
+          f"{sharded.iteration} steps {spread:.3e} (bound "
+          f"{BND_ZSTAR_BOUND:g}, float32) [{card}]")
+    assert spread <= BND_ZSTAR_BOUND, (label, "uniform tracer", spread)
+    del serial, sharded, c
+    release()
+    # (c)
+    label = f"(c) the tripolar row {GLOBAL_N}"
+    serial = global_model(GLOBAL_N, torch.float32, "cuda")
+    sharded = global_model(GLOBAL_N, torch.float32, "cuda")
+    sharded.state = card_mesh().shard(serial.state)
+    launches["c"], _, _, _ = mesh_path(
+        label, serial, sharded, GLOBAL_DT, BND_TRIPOLAR_STEPS,
+        ("u", "v", "T", "S", "e", "eta"), 0.0, card, "fill_halos",
+        expect=("mesh_fold_exchange", "mesh_halo_exchange", "fill_halos"),
+        plain=("fused_vi_tendency_plain",))
+    rows["mesh_fold_exchange"] = shard_exchange_check(
+        label, sharded, ("u", "v", "T", "w"), card, fold=True)
+    del serial, sharded
+    release()
+    # (d)
+    label = f"(d) the NH model {BND_NH_N} with a bounded y"
+    serial = bounded_y_model(BND_NH_N, torch.float32, "cuda")
+    state0 = to_device(serial.state, "cpu")
+    sharded = bounded_y_model(BND_NH_N, torch.float32, "cuda",
+                              architecture=card_mesh())
+    sharded.state = to_device(state0, "cuda")
+    assert sharded.pressure_solver.xy_kind == ("fft", "dct")
+    dt = cfl_dt(serial, 0.3)
+    launches["d"], _, _, _ = mesh_path(
+        label, serial, sharded, dt, BND_NH_STEPS, ("u", "v", "w"), 1e-5,
+        card, "fft", expect=("mesh_halo_exchange", "fill_halos"),
+        plain=("fused_advection_tendency_plain",),
+        after=lambda diff: pencil_twin_check(
+            label, sharded, serial, bounded_y_model, state0, dt,
+            ("u", "v", "w"), diff))
+    del serial, sharded, state0
+    release()
+    # (e)
+    print("(e) the per-axis scheme in #1, #6 and #8:")
+    measured, path = flux_form_checks(card)
+    rows.update(measured)
+    launches["e"] = path
+    print(f"phase 33 wall time {time.perf_counter() - t0:.1f} s [{card}]")
+    return launches, rows
 
 
 def main():
@@ -9583,6 +10155,9 @@ def main():
         resident_phase(card)
     bounds["build_sharded_fused_advection_zperiodic"] = convection_bounds(
         RES_PENCIL_N, (3, 3, 3), 4, n_tracers=0)["fused_advection_tendency"]
+    print("bounded sharded axes and the hydrostatic model on resident blocks "
+          "(phase 33):")
+    bnd_launches, bnd_rows = bounded_mesh_phase(card)
     bounds["fused_advection_update_bf16"] = \
         bounds["fused_advection_update_tracers"]
     for fname in ("fill_halos", "fill_halos_bounded", "fill_halos_fold",
@@ -9722,6 +10297,41 @@ def main():
                      ms=bounded_row["ms"], plain_ms=bounded_row["plain_ms"],
                      bound_ms=bounded_row["bound"][0],
                      bound_by=bounded_row["bound"][1], library_ms=None))
+    # phase 33's rows: #10 on the hydro_row's shard blocks, the fill with
+    # the connected sides kept and the exchange of the bounded mesh (path
+    # (a)), the fold across the top row (path (c)) and the per-axis scheme
+    # in #1, #6 and #8 (path (e)), each with its path's launches
+    for kname, kernel, source, path, counter in (
+            ("fused_vi_tendency_shard", "fused_vi_tendency", None, "a",
+             "fused_vi_tendency"),
+            ("fill_halos_shard", "fill_halos_bounded", None, "a",
+             "fill_halos"),
+            ("mesh_halo_exchange_bounded", "mesh_halo_exchange", None, "a",
+             "mesh_halo_exchange"),
+            ("mesh_fold_exchange", "fill_halos_bounded",
+             "oceananigans_tpu_torch/csrc/halo_exchange.cu", "c",
+             "mesh_fold_exchange")):
+        m = bnd_rows[kname]
+        src, replaces = KERNEL_SOURCES[kernel]
+        rows.append(dict(name=kname, route="cuda", source=source or src,
+                         replaces=replaces,
+                         launches=bnd_launches[path][counter],
+                         max_abs_err=m["max_abs_err"], ms=m["ms"],
+                         plain_ms=m["plain_ms"], bound_ms=m["bound"][0],
+                         bound_by=m["bound"][1], library_ms=None))
+    for kname, m in bnd_rows.items():
+        kernel = next((k for k in ("fused_advection_update",
+                                   "fused_advection_tendency",
+                                   "fused_sw_update")
+                       if kname.startswith(k + "_")), None)
+        if kernel is None:
+            continue
+        source, replaces = KERNEL_SOURCES[kernel]
+        rows.append(dict(name=kname, route="cuda", source=source,
+                         replaces=replaces, launches=bnd_launches["e"][kname],
+                         max_abs_err=m["max_abs_err"], ms=m["ms"],
+                         plain_ms=m["plain_ms"], bound_ms=m["bound"][0],
+                         bound_by=m["bound"][1], library_ms=None))
     for fname, label, path_launches in (
             ("fill_halos", "the flagship path (u, v, w, p of 264x264x256, "
              "the wrap)", flagship_launches),

@@ -157,10 +157,13 @@ def _axis_bounded(grid, axis):
 def cascade_mask(grid, axis, beta, R, shape, device):
     """True where the order-R scheme applies along a Bounded ``axis``: faces
     i ∈ [R+1, N+1−R] and centers i ∈ [R, N+1−R] (1-based), i.e. padded slots
-    [H+R−β, H+N−R]."""
-    H, N = grid.H[axis], grid.N[axis]
-    i0 = H + R - beta
-    i1 = H + N - R
+    [H+R−β, H+N−R]; on a shard's grid i and N are the global grid's
+    (``global_extent``: the walls are the global grid's)."""
+    from ..grids.topology import global_extent
+    H = grid.H[axis]
+    offset, N = global_extent(grid, axis)
+    i0 = H + R - beta - offset
+    i1 = H + N - R - offset
     view = [1, 1, 1]
     view[axis] = shape[axis]
     iota = torch.arange(shape[axis], device=device).reshape(view)
@@ -498,9 +501,12 @@ def adapt_advection_order(advection, grid):
             return UpwindBiased(order=max(1, 2 * N - 1))
         return scheme
 
+    from ..grids.topology import global_extent
     per_axis = (advection.schemes if isinstance(advection, FluxFormAdvection)
                 else (advection,) * 3)
-    new = tuple(s if grid.is_flat(ax) else adapt_one(s, grid.N[ax])
+    # a shard's grid adapts to the global grid's N
+    new = tuple(s if grid.is_flat(ax) else
+                adapt_one(s, global_extent(grid, ax)[1])
                 for ax, s in enumerate(per_axis))
     if all(n is o for n, o in zip(new, per_axis)):
         return advection

@@ -34,7 +34,7 @@ int oc_advection_tendency_bounded(int K, int dtype, int sdtype, const void* cons
                                   double Ax, double Ay, double Az, double V, double lo,
                                   double hi, const double* coefs, int ncoefs, int TX, int TY,
                                   int TZ, int threads, int blocks, int smem, void* stream) {
-  if (K < 2 || K > oc::kMaxBuffer || ncoefs != oc::table_size(K))
+  if (K < 2 || K > oc::kMaxBuffer || ncoefs != oc::coefs_size(K))
     return (int)cudaErrorInvalidValue;
   oc::AdvectionArgs a{vel, nullptr, q, nullptr, G, nullptr, nb, first,
                       oc::Geom{Nx, Ny, Nz, Hx, Hy, Hz}, 0.0, 0.0, 0.0, Ax, Ay, Az, V,

@@ -402,6 +402,21 @@ advection_kernel(const __grid_constant__ Params<K, F, T, S, R> P) {
           Fz[f] = oc::limited_flux(sr, 2, i0 + a, j0 + b, z0 + c, P.st.Az, lim[f], Fz[f]);
         });
       }
+    } else if (P.st.any) {
+      // a FluxFormAdvection whose axes are not all the instantiation's:
+      // each axis's family and buffer at run time
+      oc::for_box((ex + 1) * ey * ez, ey, ez, [&](int a, int b, int c) {
+        Fx[(a * TY + b) * TZ + c] =
+            oc::face_flux_x<true>(P.st, sr, comp, box, i0 + a - cx, j0 + b, z0 + c);
+      });
+      oc::for_box(ex * (ey + 1) * ez, ey + 1, ez, [&](int a, int b, int c) {
+        Fy[(a * (TY + 1) + b) * TZ + c] =
+            oc::face_flux_y<true>(P.st, sr, comp, box, i0 + a, j0 + b - cy, z0 + c);
+      });
+      oc::for_box(ex * ey * (ez + 1), ey, ez + 1, [&](int a, int b, int c) {
+        Fz[(a * TY + b) * (TZ + 1) + c] =
+            oc::face_flux_z<true>(P.st, sr, comp, box, i0 + a, j0 + b, z0 + c - cz);
+      });
     } else {
       oc::for_box((ex + 1) * ey * ez, ey, ez, [&](int a, int b, int c) {
         Fx[(a * TY + b) * TZ + c] =
@@ -483,6 +498,9 @@ int launch_with(const oc::AdvectionArgs& a, R rd) {
   P.st.V = (T)a.V;
   P.st.Nz = a.g.Nz;
   P.st.tab = oc::Tabs<K, F == oc::kWeno, T, S>::make(a.coefs);
+  if (!oc::axis_codes(a.coefs, K, F == oc::kWeno, P.st.af, P.st.ak))
+    return (int)cudaErrorInvalidValue;
+  P.st.any = oc::any_axis(F, K, P.st.af, P.st.ak, R::kZMode == oc::kZBounded);
   for (int c = 0; c < kBatch; ++c) {
     const bool on = c < a.nb;
     P.q[c] = on ? (const T*)a.q[c] : nullptr;

@@ -18,7 +18,11 @@
 // oceananigans_tpu/advection/schemes.py: Centered(2-12), UpwindBiased(1-11)
 // and WENO(3-11); the buffer K and the family are compile-time choices, and
 // every coefficient comes from the table of
-// kernels/fused_advection.py coefficient_table.
+// kernels/fused_advection.py coefficient_table. A FluxFormAdvection takes
+// its deepest axis's instantiation: a thinner bounded z of its family caps
+// the cascade (the flux functions as they are), any other axis of another
+// family or buffer sends the launch through the kAny flux functions, every
+// axis at run time (reconstruction.cuh biased_any).
 //
 // Each face flux reads one line of a staged box per term: the advecting
 // velocity's line (A·u, A·v or A·w along the interpolated axis) and the
@@ -189,16 +193,35 @@ struct Stencil {
   T Ax, Ay, Az, V;   // face areas and cell volume (regular grid)
   int Nz;            // the bounded z's cells (the cascade)
   Tabs<K, F == kWeno, T, S> tab;
+  int af[3], ak[3];  // each axis's family and buffer (a FluxFormAdvection's)
+  int any;           // an axis that is not (F, K), bar a bounded z's
+                     // buffer: the launch takes the per-axis fluxes
 };
 
+// An axis's family and buffer, x or y by a select (indexing by a runtime
+// axis would put the struct in local memory).
+template <int K, int F, typename T, typename S>
+__device__ __forceinline__ int axis_fam(const Stencil<K, F, T, S>& P, int ax) {
+  return ax == 0 ? P.af[0] : ax == 1 ? P.af[1] : P.af[2];
+}
+template <int K, int F, typename T, typename S>
+__device__ __forceinline__ int axis_buf(const Stencil<K, F, T, S>& P, int ax) {
+  return ax == 0 ? P.ak[0] : ax == 1 ? P.ak[1] : P.ak[2];
+}
+
 // The order level along z at index kk with orientation β: the cascade on a
-// bounded z, the scheme's own buffer on a periodic one.
-template <int ZM, int K, int F, typename T, typename S>
+// bounded z (capped at z's buffer, which a FluxFormAdvection's thin z
+// lowers: min(cascade_level(K), Kz) is cascade_level(Kz), the cascade's
+// condition holding for every buffer below one it holds for), the scheme's
+// own buffer on a periodic one; kAny: z's buffer at run time there too.
+template <int ZM, bool kAny = false, int K, int F, typename T, typename S>
 __device__ __forceinline__ int z_level(const Stencil<K, F, T, S>& P, int kk, int beta) {
-  if constexpr (ZM == kZBounded)
-    return cascade_level(K, kk, beta, P.Nz);
-  else
-    return K;
+  if constexpr (ZM == kZBounded) {
+    const int L = cascade_level(K, kk, beta, P.Nz);
+    return L < P.ak[2] ? L : P.ak[2];
+  } else {
+    return kAny ? P.ak[2] : K;
+  }
 }
 
 // ---- face fluxes, each once ---------------------------------------------------------
@@ -234,62 +257,92 @@ struct Line {
 
 // The advecting velocity interpolated along z at index kk (the cascade on
 // kk with orientation β) from A times the line through w0; on a flat z the
-// interpolation is the identity, A times the value at w0.
-template <int ZM, int K, int F, typename T, typename S>
+// interpolation is the identity, A times the value at w0. kAny (here and
+// below): each axis's own family and buffer at run time (a FluxFormAdvection
+// whose axes are not all the instantiation's), else the instantiation's
+// family F and buffer K, a bounded z's cascade capped at z's buffer.
+template <int ZM, bool kAny, int K, int F, typename T, typename S>
 __device__ __forceinline__ T interp_z(const Stencil<K, F, T, S>& P, int kk, int beta, T A,
                                       const T* w0) {
   if constexpr (ZM == kZFlat) {
     return A * w0[0];
   } else {
     const Line<T> l(w0, 1, beta);
-    return symmetric_level<K>(z_level<ZM>(P, kk, beta), P.fam, P.tab, 0,
-                              [&](int o) { return A * l(o); });
+    const auto a = [&](int o) { return A * l(o); };
+    if constexpr (kAny)
+      return symmetric_any(z_level<ZM, true>(P, kk, beta), P.af[2], P.tab, 0, a);
+    else
+      return symmetric_level<K>(z_level<ZM>(P, kk, beta), P.fam, P.tab, 0, a);
   }
 }
 
 // The advecting velocity interpolated along x (comp 0's β = 1) or y from A
 // times the line through v0, for momentum component comp along the flux's
 // axis `along` (0 x, 1 y).
-template <int K, int F, typename T, typename S, typename Q>
+template <bool kAny, int K, int F, typename T, typename S, typename Q>
 __device__ __forceinline__ T interp_xy(const Stencil<K, F, T, S>& P, const Q& r, int along,
                                        int beta, T A, const T* v0) {
   const Line<T> l(v0, along == 0 ? r.sx : r.sy, beta);
-  return symmetric<K>(P.fam, P.tab, 0, [&](int o) { return A * l(o); });
+  const auto a = [&](int o) { return A * l(o); };
+  if constexpr (kAny)
+    return symmetric_any(axis_buf(P, along), axis_fam(P, along), P.tab, 0, a);
+  else
+    return symmetric<K>(P.fam, P.tab, 0, a);
 }
 
-template <int K, int F, typename T, typename S, typename Q>
+// The advected value along x (0) or y (1).
+template <bool kAny, int K, int F, typename T, typename S>
+__device__ __forceinline__ T recon_xy(const Stencil<K, F, T, S>& P, int ax, bool pos,
+                                      const Line<T>& q) {
+  if constexpr (kAny)
+    return biased_any(axis_buf(P, ax), axis_fam(P, ax), P.tab, 0, pos, q);
+  else
+    return biased<K>(P.fam, P.tab, 0, pos, q);
+}
+
+// The advected value along z at level L (z_level's).
+template <bool kAny, int K, int F, typename T, typename S>
+__device__ __forceinline__ T recon_z(const Stencil<K, F, T, S>& P, int L, bool pos,
+                                     const Line<T>& q) {
+  if constexpr (kAny)
+    return biased_any(L, P.af[2], P.tab, 0, pos, q);
+  else
+    return biased_level<K>(L, P.fam, P.tab, 0, pos, q);
+}
+
+template <bool kAny = false, int K, int F, typename T, typename S, typename Q>
 __device__ __forceinline__ T face_flux_x(const Stencil<K, F, T, S>& P, const Q& r, int comp,
                                          const T* a, int i, int j, int k) {
   const int at = r.at(i, j, k);
   if (comp >= 3) {
     const T vel = r.vel[0][at];
     const Line<T> q(a + r.at_c(i, j, k), r.csx, 0);
-    return (P.Ax * vel) * biased<K>(P.fam, P.tab, 0, vel > T(0), q);
+    return (P.Ax * vel) * recon_xy<kAny>(P, 0, vel > T(0), q);
   }
   const T* u0 = r.vel[0] + at;
-  const T adv = comp == 2 ? interp_z<Q::kZMode>(P, k, 0, P.Ax, u0)
-                          : interp_xy(P, r, comp, comp == 0 ? 1 : 0, P.Ax, u0);
+  const T adv = comp == 2 ? interp_z<Q::kZMode, kAny>(P, k, 0, P.Ax, u0)
+                          : interp_xy<kAny>(P, r, comp, comp == 0 ? 1 : 0, P.Ax, u0);
   const Line<T> q(r.box(comp) + at, r.sx, comp == 0 ? 1 : 0);
-  return adv * biased<K>(P.fam, P.tab, 0, adv > T(0), q);
+  return adv * recon_xy<kAny>(P, 0, adv > T(0), q);
 }
 
-template <int K, int F, typename T, typename S, typename Q>
+template <bool kAny = false, int K, int F, typename T, typename S, typename Q>
 __device__ __forceinline__ T face_flux_y(const Stencil<K, F, T, S>& P, const Q& r, int comp,
                                          const T* a, int i, int j, int k) {
   const int at = r.at(i, j, k);
   if (comp >= 3) {
     const T vel = r.vel[1][at];
     const Line<T> q(a + r.at_c(i, j, k), r.csy, 0);
-    return (P.Ay * vel) * biased<K>(P.fam, P.tab, 0, vel > T(0), q);
+    return (P.Ay * vel) * recon_xy<kAny>(P, 1, vel > T(0), q);
   }
   const T* v0 = r.vel[1] + at;
-  const T adv = comp == 2 ? interp_z<Q::kZMode>(P, k, 0, P.Ay, v0)
-                          : interp_xy(P, r, comp, comp == 1 ? 1 : 0, P.Ay, v0);
+  const T adv = comp == 2 ? interp_z<Q::kZMode, kAny>(P, k, 0, P.Ay, v0)
+                          : interp_xy<kAny>(P, r, comp, comp == 1 ? 1 : 0, P.Ay, v0);
   const Line<T> q(r.box(comp) + at, r.sy, comp == 1 ? 1 : 0);
-  return adv * biased<K>(P.fam, P.tab, 0, adv > T(0), q);
+  return adv * recon_xy<kAny>(P, 1, adv > T(0), q);
 }
 
-template <int K, int F, typename T, typename S, typename Q>
+template <bool kAny = false, int K, int F, typename T, typename S, typename Q>
 __device__ __forceinline__ T face_flux_z(const Stencil<K, F, T, S>& P, const Q& r, int comp,
                                          const T* a, int i, int j, int k) {
   constexpr int ZM = Q::kZMode;
@@ -299,14 +352,14 @@ __device__ __forceinline__ T face_flux_z(const Stencil<K, F, T, S>& P, const Q& 
   if (comp >= 3) {
     const T vel = r.vel[2][at];
     const Line<T> q(a + r.at_c(i, j, k), 1, 0);
-    return (P.Az * vel) * biased_level<K>(z_level<ZM>(P, k, 0), P.fam, P.tab, 0, vel > T(0), q);
+    return (P.Az * vel) * recon_z<kAny>(P, z_level<ZM, kAny>(P, k, 0), vel > T(0), q);
   }
   const T* w0 = r.vel[2] + at;
-  const T adv =
-      comp == 2 ? interp_z<ZM>(P, k, 1, P.Az, w0) : interp_xy(P, r, comp, 0, P.Az, w0);
+  const T adv = comp == 2 ? interp_z<ZM, kAny>(P, k, 1, P.Az, w0)
+                          : interp_xy<kAny>(P, r, comp, 0, P.Az, w0);
   const int beta = comp == 2 ? 1 : 0;
   const Line<T> q(r.box(comp) + at, 1, beta);
-  return adv * biased_level<K>(z_level<ZM>(P, k, beta), P.fam, P.tab, 0, adv > T(0), q);
+  return adv * recon_z<kAny>(P, z_level<ZM, kAny>(P, k, beta), adv > T(0), q);
 }
 
 // Components one launch takes (kernels/build.py BATCH): the

@@ -73,10 +73,16 @@ template <int ZM, int K, int F, typename T, typename S>
 __device__ __forceinline__ T bounded_recon(const Stencil<K, F, T, S>& P, int ax, int k, bool pos,
                                            const T* at, int st) {
   const Line<T> q(at, st, 0);
-  if constexpr (ZM != kZFlat) {
-    if (ax == 2) return biased_level<K>(z_level<ZM>(P, k, 0), P.fam, P.tab, 0, pos, q);
+  if (P.any) {
+    if constexpr (ZM != kZFlat) {
+      if (ax == 2) return recon_z<true>(P, z_level<ZM, true>(P, k, 0), pos, q);
+    }
+    return recon_xy<true>(P, ax, pos, q);
   }
-  return biased<K>(P.fam, P.tab, 0, pos, q);
+  if constexpr (ZM != kZFlat) {
+    if (ax == 2) return recon_z<false>(P, z_level<ZM>(P, k, 0), pos, q);
+  }
+  return recon_xy<false>(P, ax, pos, q);
 }
 
 // The stride of a tracer box along axis ax.

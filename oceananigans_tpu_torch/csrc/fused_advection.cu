@@ -19,7 +19,7 @@ int by_buffer(int K, bool update, int fam, int dtype, int sdtype, const oc::Adve
 }
 
 bool table_ok(int K, int ncoefs) {
-  return K >= 1 && K <= oc::kMaxBuffer && ncoefs == oc::table_size(K);
+  return K >= 1 && K <= oc::kMaxBuffer && ncoefs == oc::coefs_size(K);
 }
 
 }  // namespace
@@ -35,7 +35,8 @@ extern "C" {
 // (components first .. first+nb-1 of u, v, w, tracers...); gm: such an array
 // of the previous stage's tendencies, or null on the first stage. Scalars
 // arrive as doubles holding field-dtype values; coefs is the host table of
-// reconstruction.cuh (table_size(K) float64 values). TX, TY, TZ, threads,
+// reconstruction.cuh (coefs_size(K) float64 values: the table, then each
+// axis's family and buffer; K the deepest axis's buffer). TX, TY, TZ, threads,
 // blocks, smem: the launch plan of kernels/fused_advection.py launch_plan
 // (the tile, the threads a block, ceil(Nx/TX)·ceil(Ny/TY)·ceil(Nz/TZ) blocks
 // and the dynamic shared memory in bytes), refused unless they agree with

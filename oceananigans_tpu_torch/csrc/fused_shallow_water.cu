@@ -29,7 +29,8 @@ extern "C" {
 // tracers; padded inputs and outputs); hB: padded bathymetry; Gm: device
 // (nf, Nx, Ny) of all fields or null for the first stage; G: device (nf, Nx,
 // Ny) output of all fields; coefs: the host table of reconstruction.cuh
-// (table_size(K) float64 values); f: the constant Coriolis parameter, 0 for
+// (coefs_size(K) float64 values: the table, then each axis's family and
+// buffer); f: the constant Coriolis parameter, 0 for
 // none. TX, TY, threads, blocks, smem: the launch plan of
 // kernels/fused_shallow_water.py launch_plan (the tile, the threads a block,
 // ceil(Nx/TX)·ceil(Ny/TY) blocks and the dynamic shared memory in bytes),
@@ -42,7 +43,7 @@ int oc_fused_sw_update(int fam, int K, int dtype, int sdtype, const void* const*
                        double f, double gamma_dt, double zeta_dt, const double* coefs,
                        int ncoefs, int TX, int TY, int threads, int blocks, int smem,
                        void* stream) {
-  if (K < 1 || K > oc::kMaxBuffer || ncoefs != oc::table_size(K))
+  if (K < 1 || K > oc::kMaxBuffer || ncoefs != oc::coefs_size(K))
     return (int)cudaErrorInvalidValue;
   const oc::SwArgs a{prog, q, out, nb, first, hB, Gm, G, oc::Geom{Nx, Ny, 1, Hx, Hy, 0},
                      dx, dy, Ax, Ay, Az, V, g_acc, f, gamma_dt, zeta_dt, coefs, TX, TY,

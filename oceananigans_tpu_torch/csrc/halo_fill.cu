@@ -140,16 +140,15 @@ struct Params {
 
 static_assert(sizeof(Params) <= 4096, "kernel parameter block too large");
 
-// The slots [lo, hi) along an axis that its map leaves as they are.
+// The slots [lo, hi) along an axis that its map leaves as they are: a kept
+// side (an axis that is not filled, or a shard's side that the halo
+// exchange fills) leaves its whole halo.
 __host__ __device__ __forceinline__ void kept(const Axis& a, const signed char* c,
                                               int& lo, int& hi) {
-  if (c[0] == kKeep) {
-    lo = 0;
-    hi = a.P;
-    return;
-  }
-  lo = a.H + (c[0] == kPinned || c[0] == kPolarPinned || c[0] == kPerturbation);
-  hi = a.H + a.N + (c[1] == kReflect) - (c[1] == kFold);
+  lo = c[0] == kKeep ? 0
+                     : a.H + (c[0] == kPinned || c[0] == kPolarPinned ||
+                              c[0] == kPerturbation);
+  hi = c[1] == kKeep ? a.P : a.H + a.N + (c[1] == kReflect) - (c[1] == kFold);
 }
 
 template <typename T>

@@ -2,15 +2,21 @@
 // and #6; sw_kernel.cuh: #8) for every scheme of
 // oceananigans_tpu/advection/schemes.py: Centered(2B) for B = 1..6,
 // UpwindBiased(2B-1) and WENO(2B-1) (B >= 2), each with its near-wall order
-// cascade, and the coefficient table they read.
+// cascade, a different one along each axis (a FluxFormAdvection), and the
+// coefficient table they read.
 //
 // Every coefficient comes from the Python scheme objects
 // (kernels/fused_advection.py coefficient_table) through a table passed by
 // value, so the kernels hold no constants of their own. A kernel is
-// instantiated for one buffer K (the scheme's reach) and one family
-// (Centered, UpwindBiased or WENO), both compile-time choices, so the
-// family's branches below fold away; the table holds the scheme's own rows
-// and those of every buffer scheme below it.
+// instantiated for one buffer K (the deepest reach of the scheme's axes)
+// and one family (Centered, UpwindBiased or WENO: WENO when any axis is), both
+// compile-time choices; each axis's family and buffer (at most K) come at
+// run time from the table's last kAxisEntries values, so a FluxFormAdvection
+// takes the instantiation of its deepest axis and no other: a thinner
+// bounded z of the instantiation's family only caps the cascade's level,
+// any other difference runs the launch through biased_any and symmetric_any
+// (loops over the runtime buffer). The table holds the rows of every buffer
+// up to K.
 //
 // The reconstructions follow the port's plain versions
 // (advection/schemes.py): a reconstruction at buffer B reads the cells of
@@ -77,6 +83,37 @@ __host__ __device__ constexpr int off_wt(int K, int k) {
 __host__ __device__ constexpr int off_eps(int K) { return off_wt(K, K + 1); }
 __host__ __device__ constexpr int smooth_size(int K) { return off_eps(K) + 2; }
 __host__ __device__ constexpr int table_size(int K) { return lin_size(K) + smooth_size(K); }
+
+// After the table: each axis's family (x, y, z), then its buffer (x, y, z).
+constexpr int kAxisEntries = 6;
+__host__ __device__ constexpr int coefs_size(int K) { return table_size(K) + kAxisEntries; }
+
+// Whether a launch takes the per-axis code: an axis whose family is not F
+// or (along x and y, and along z unless it is bounded, where the cascade
+// caps it) whose buffer is not K. A WENO kernel's UpwindBiased(1) axis is
+// its family's buffer-1 level (WENO's cascade ends in UpwindBiased(1)), and
+// is encoded so (host side).
+inline bool any_axis(int F, int K, int* fam, const int* buf, bool bounded_z) {
+  for (int a = 0; a < 3; ++a)
+    if (F == kWeno && fam[a] == kUpwind && buf[a] == 1) fam[a] = kWeno;
+  for (int a = 0; a < 3; ++a)
+    if (fam[a] != F || (buf[a] != K && (a < 2 || !bounded_z))) return true;
+  return false;
+}
+
+// The axes' families and buffers from a table of buffer K (host side):
+// false unless each family is one of the kernel's (WENO only in a WENO
+// kernel, W, and with a buffer of 2 or more) and each buffer is 1..K.
+inline bool axis_codes(const double* coefs, int K, bool W, int* fam, int* buf) {
+  for (int a = 0; a < 3; ++a) {
+    fam[a] = (int)coefs[table_size(K) + a];
+    buf[a] = (int)coefs[table_size(K) + 3 + a];
+    if (fam[a] < kCentered || fam[a] > kWeno || buf[a] < 1 || buf[a] > K ||
+        (fam[a] == kWeno && (!W || buf[a] < 2)))
+      return false;
+  }
+  return true;
+}
 
 template <typename R, int N>
 struct Flat {
@@ -221,6 +258,105 @@ __device__ __forceinline__ T biased(int fam, const Tabs<K, W, T, S>& tab, int be
     if (!W && fam == kCentered) return linear<2 * B>(tab.lin.v + off_sym(B), c);
     return linear<2 * B - 1>(tab.lin.v + off_ub(K, B), c);
   }
+}
+
+// The advected value at a buffer Ba <= K and a family fam known only at run
+// time (the axes of a launch whose FluxFormAdvection is not all the
+// instantiation's scheme): the same operations in the same order as
+// biased<Ba> of that family, by loops over Ba that are not unrolled, in a
+// function of its own (one body an instantiation and accessor type; an
+// unrolled body a buffer and family at every call site took the deepest
+// source's nvcc time from about 340 to 478 s on the card's host, and
+// runtime checks inside the unrolled paths slowed #1 by 14% and #8 by 39%).
+// Slower than the unrolled code; only such launches take it.
+template <int K, bool W, typename T, typename S, typename Q>
+__device__ __forceinline__ T biased_any_inline(int Ba, int fam, const Tabs<K, W, T, S>& tab,
+                                               int beta, bool pos, Q q) {
+  T c[2 * K];
+#pragma unroll 1
+  for (int n = 0; n < 2 * Ba; ++n) {
+    const int m = pos ? n : 2 * Ba - 1 - n;
+    c[n] = q(beta - Ba + m);
+  }
+  if constexpr (W) {
+    if (Ba >= 2 && fam == kWeno) {
+      const T* wc = tab.lin.v + off_wc(K, Ba);
+      const S* wf = tab.sm.v + off_wf(Ba);
+      const S* wg = tab.sm.v + off_wg(K, Ba);
+      const S* wt = tab.sm.v + off_wt(K, Ba);
+      T p[K];
+      S b[K];
+#pragma unroll 1
+      for (int s = 0; s < Ba; ++s) {
+        const int o = Ba - 1 - s;
+        T acc = wc[s * Ba] * c[o];
+#pragma unroll 1
+        for (int j = 1; j < Ba; ++j) acc = acc + wc[s * Ba + j] * c[o + j];
+        p[s] = acc;
+        S beta_s = S(0);
+#pragma unroll 1
+        for (int m = 0; m < Ba; ++m) {
+          const S* f = wf + (s * Ba + m) * Ba;
+          S lin = f[0] * (S)c[o];
+#pragma unroll 1
+          for (int j = 1; j < Ba; ++j) lin = lin + f[j] * (S)c[o + j];
+          beta_s = m == 0 ? lin * lin : beta_s + lin * lin;
+        }
+        b[s] = beta_s;
+      }
+      const S eps = tab.sm.v[off_eps(K)], rmax = tab.sm.v[off_eps(K) + 1];
+      S tau = b[0];
+#pragma unroll 1
+      for (int s = 1; s < Ba; ++s)
+        if ((float)wt[s] != 0.0f) tau = tau + wt[s] * b[s];
+      tau = absval(tau);
+      T num = T(0), den = T(0);
+#pragma unroll 1
+      for (int s = 0; s < Ba; ++s) {
+        S r = tau / (b[s] + eps);
+        r = r > rmax ? rmax : r;
+        const T alpha = (T)(wg[s] * (S(1) + r * r));
+        num = num + alpha * p[s];
+        den = den + alpha;
+      }
+      return num / den;
+    }
+  }
+  const bool sym = fam == kCentered;
+  const T* coef = tab.lin.v + (sym ? off_sym(Ba) : off_ub(K, Ba));
+  const int L = sym ? 2 * Ba : 2 * Ba - 1;
+  T acc = coef[0] * c[0];
+#pragma unroll 1
+  for (int n = 1; n < L; ++n) acc = acc + coef[n] * c[n];
+  return acc;
+}
+
+// biased_any_inline as a function of its own, for accessors that hold no
+// reference to the caller's locals (advection_stencils.cuh's Line): one
+// body an instantiation and accessor type. The shallow-water kernel, whose
+// accessors are lambdas over its locals, takes the inline version: a call
+// would put those locals in local memory on every path.
+template <int K, bool W, typename T, typename S, typename Q>
+__device__ __noinline__ T biased_any(int Ba, int fam, const Tabs<K, W, T, S>& tab, int beta,
+                                     bool pos, Q q) {
+  return biased_any_inline(Ba, fam, tab, beta, pos, q);
+}
+
+// The interpolation of an advecting velocity at buffer Ba <= K of family
+// fam known only at run time: symmetric<Ba> of that family (Centered(2Ba)
+// for Centered, Centered(max(2Ba-2, 2)) for UpwindBiased and WENO), by a
+// loop. biased_any and symmetric_any serve a launch whose axes are not all
+// the instantiation's (advection_stencils.cuh kAny, sw_kernel.cuh); every
+// other launch runs the unrolled code above.
+template <int K, bool W, typename T, typename S, typename A>
+__device__ __forceinline__ T symmetric_any(int Ba, int fam, const Tabs<K, W, T, S>& tab, int beta,
+                                           A a) {
+  const int Bv = fam == kCentered ? Ba : (Ba > 1 ? Ba - 1 : 1);
+  const T* c = tab.lin.v + off_sym(Bv);
+  T acc = c[0] * a(beta - Bv);
+#pragma unroll 1
+  for (int n = 1; n < 2 * Bv; ++n) acc = acc + c[n] * a(beta - Bv + n);
+  return acc;
 }
 
 // The advecting velocity's interpolation at buffer B: the scheme's

@@ -71,6 +71,8 @@
 // uh, vh, h, so the batching does not change a bit of it.
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "reconstruction.cuh"
 #include "tiles.cuh"
@@ -164,16 +166,44 @@ struct Params {
   T half_g, g_acc, f;       // g/2, g, Coriolis parameter (0: none)
   T gamma_dt, zeta_dt;
   oc::Tabs<K, F == oc::kWeno, T, S> tab;   // the scheme's coefficient table
+  int af[3], ak[3];         // each axis's family and buffer (a FluxFormAdvection's)
+  int any;                  // x or y not (F, K): the launch takes the per-axis fluxes
   int TX, TY, tiles_y;      // the tile and the number of tiles along y
 };
+
+// The reconstruction and the symmetric interpolation along x (ax 0) or y
+// (ax 1): with kAny that axis's family and buffer at run time, else the
+// instantiation's family F and buffer K.
+template <bool kAny, int K, int F, typename T, typename S, typename Q>
+__device__ __forceinline__ T recon(const Params<K, F, T, S>& P, int ax, int beta, bool pos,
+                                   Q q) {
+  if constexpr (kAny)
+    return oc::biased_any_inline(ax == 0 ? P.ak[0] : P.ak[1], ax == 0 ? P.af[0] : P.af[1],
+                                 P.tab, beta, pos, q);
+  else
+    return oc::biased<K>(P.fam, P.tab, beta, pos, q);
+}
+template <bool kAny, int K, int F, typename T, typename S, typename Q>
+__device__ __forceinline__ T interp(const Params<K, F, T, S>& P, int ax, int beta, Q q) {
+  if constexpr (kAny)
+    return oc::symmetric_any(ax == 0 ? P.ak[0] : P.ak[1], ax == 0 ? P.af[0] : P.af[1], P.tab,
+                             beta, q);
+  else
+    return oc::symmetric<K>(P.fam, P.tab, beta, q);
+}
 
 // A tracer's advected value: a Centered scheme's symmetric value (the plain
 // version's biased_pair gives both sides that), else the reconstruction
 // selected by pos.
-template <int K, int F, typename T, typename S, typename Q>
-__device__ __forceinline__ T tracer_value(const Params<K, F, T, S>& P, bool pos, Q q) {
-  if (F == oc::kCentered) return oc::centered<K>(P.tab.lin.v + oc::off_sym(K), 0, q);
-  return oc::biased<K>(P.fam, P.tab, 0, pos, q);
+template <bool kAny, int K, int F, typename T, typename S, typename Q>
+__device__ __forceinline__ T tracer_value(const Params<K, F, T, S>& P, int ax, bool pos, Q q) {
+  if constexpr (kAny) {
+    if ((ax == 0 ? P.af[0] : P.af[1]) == oc::kCentered) return interp<true>(P, ax, 0, q);
+    return recon<true>(P, ax, 0, pos, q);
+  } else {
+    if (F == oc::kCentered) return oc::centered<K>(P.tab.lin.v + oc::off_sym(K), 0, q);
+    return oc::biased<K>(P.fam, P.tab, 0, pos, q);
+  }
 }
 
 // K: the scheme's buffer (its reach); F: its family.
@@ -231,25 +261,33 @@ sw_update_kernel(const __grid_constant__ Params<K, F, T, S> P) {
       sm[L.hd + a * Wh + b] = (P.half_g * h) * h;
     });
     __syncthreads();
-    // B: each face flux of uh and vh once
-    oc::for_rect(nxf, ey, [&](int a, int b) {
-      const int c = a - 1;                         // uh: the centre c
-      T t = oc::symmetric<K>(P.fam, P.tab, 1, [&](int o) { return UH(c + o, b); });
-      fx0[a * TY + b] = (P.dy * t) * oc::biased<K>(P.fam, P.tab, 1, t > T(0),
-                                                   [&](int o) { return U(c + o, b); });
-      t = oc::symmetric<K>(P.fam, P.tab, 0, [&](int o) { return UH(a, b + o); });   // vh: face a
-      fx1[a * TY + b] = (P.dy * t) * oc::biased<K>(P.fam, P.tab, 0, t > T(0),
-                                                   [&](int o) { return Vv(a + o, b); });
-    });
-    oc::for_rect(nyf, ey + 1, [&](int a, int b) {
-      T t = oc::symmetric<K>(P.fam, P.tab, 0, [&](int o) { return VH(a + o, b); });  // uh: face b
-      fy0[a * Wh + b] = (P.dx * t) * oc::biased<K>(P.fam, P.tab, 0, t > T(0),
-                                                   [&](int o) { return U(a, b + o); });
-      const int c = b - 1;                         // vh: the centre c
-      t = oc::symmetric<K>(P.fam, P.tab, 1, [&](int o) { return VH(a, c + o); });
-      fy1[a * Wh + b] = (P.dx * t) * oc::biased<K>(P.fam, P.tab, 1, t > T(0),
-                                                   [&](int o) { return Vv(a, c + o); });
-    });
+    // B: each face flux of uh and vh once (kAny: a FluxFormAdvection whose
+    // x or y is not the instantiation's, each axis's scheme at run time)
+    const auto momentum_fluxes = [&](auto any) {
+      constexpr bool A = decltype(any)::value;
+      oc::for_rect(nxf, ey, [&](int a, int b) {
+        const int c = a - 1;                       // uh: the centre c
+        T t = interp<A>(P, 0, 1, [&](int o) { return UH(c + o, b); });
+        fx0[a * TY + b] = (P.dy * t) * recon<A>(P, 0, 1, t > T(0),
+                                                [&](int o) { return U(c + o, b); });
+        t = interp<A>(P, 1, 0, [&](int o) { return UH(a, b + o); });   // vh: face a
+        fx1[a * TY + b] = (P.dy * t) * recon<A>(P, 0, 0, t > T(0),
+                                                [&](int o) { return Vv(a + o, b); });
+      });
+      oc::for_rect(nyf, ey + 1, [&](int a, int b) {
+        T t = interp<A>(P, 0, 0, [&](int o) { return VH(a + o, b); });  // uh: face b
+        fy0[a * Wh + b] = (P.dx * t) * recon<A>(P, 1, 0, t > T(0),
+                                                [&](int o) { return U(a, b + o); });
+        const int c = b - 1;                       // vh: the centre c
+        t = interp<A>(P, 1, 1, [&](int o) { return VH(a, c + o); });
+        fy1[a * Wh + b] = (P.dx * t) * recon<A>(P, 1, 1, t > T(0),
+                                                [&](int o) { return Vv(a, c + o); });
+      });
+    };
+    if (P.any)
+      momentum_fluxes(std::true_type());
+    else
+      momentum_fluxes(std::false_type());
     __syncthreads();
   }
 
@@ -311,16 +349,23 @@ sw_update_kernel(const __grid_constant__ Params<K, F, T, S> P) {
     __syncthreads();   // the previous phase has read s_c and the flux arrays
     oc::stage_rows(sm + L.c, Ws, P.q[comp - P.first] + org, PY, rows, width);
     __syncthreads();
-    oc::for_rect(nxf, ey, [&](int a, int b) {
-      const T vel = UH(a, b);
-      fx0[a * TY + b] =
-          (P.dy * vel) * tracer_value(P, vel > T(0), [&](int o) { return C(a + o, b); });
-    });
-    oc::for_rect(nyf, ey + 1, [&](int a, int b) {
-      const T vel = VH(a, b);
-      fy0[a * Wh + b] =
-          (P.dx * vel) * tracer_value(P, vel > T(0), [&](int o) { return C(a, b + o); });
-    });
+    const auto tracer_fluxes = [&](auto any) {
+      constexpr bool A = decltype(any)::value;
+      oc::for_rect(nxf, ey, [&](int a, int b) {
+        const T vel = UH(a, b);
+        fx0[a * TY + b] = (P.dy * vel) *
+                          tracer_value<A>(P, 0, vel > T(0), [&](int o) { return C(a + o, b); });
+      });
+      oc::for_rect(nyf, ey + 1, [&](int a, int b) {
+        const T vel = VH(a, b);
+        fy0[a * Wh + b] = (P.dx * vel) *
+                          tracer_value<A>(P, 1, vel > T(0), [&](int o) { return C(a, b + o); });
+      });
+    };
+    if (P.any)
+      tracer_fluxes(std::true_type());
+    else
+      tracer_fluxes(std::false_type());
     __syncthreads();
     oc::for_rect(ex * ey, ey, [&](int a, int b) {
       const T dU = P.dy * UH(a + 1, b) - P.dy * UH(a, b);
@@ -373,6 +418,15 @@ int launch(const oc::SwArgs& a) {
   P.gamma_dt = (T)a.gamma_dt;
   P.zeta_dt = (T)a.zeta_dt;
   P.tab = oc::Tabs<K, F == oc::kWeno, T, S>::make(a.coefs);
+  if (!oc::axis_codes(a.coefs, K, F == oc::kWeno, P.af, P.ak))
+    return (int)cudaErrorInvalidValue;
+  {
+    // z is flat: only x and y count
+    int fam[3] = {P.af[0], P.af[1], F}, buf[3] = {P.ak[0], P.ak[1], K};
+    P.any = oc::any_axis(F, K, fam, buf, false);
+    P.af[0] = fam[0];
+    P.af[1] = fam[1];
+  }
   P.TX = a.TX;
   P.TY = a.TY;
   P.tiles_y = tiles_y;

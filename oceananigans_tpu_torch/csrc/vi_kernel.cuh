@@ -30,11 +30,14 @@
 // codes. Every read of a shifted position outside the padded array is 0, as
 // the plain version's zero-filled shifts give, so the two agree on every
 // cell they both write: the interiors, and on a bounded x (y) the
-// boundary-face row of u (v). The near-wall order cascade (WENO 11 → 9 → 7
-// → 5 → 3 → UpwindBiased(1), UpwindBiased(2K-1) → ... → UpwindBiased(1),
-// Centered(2K) → ... → Centered(2)) is selected on the global padded index
-// along every bounded axis (reconstruction.cuh cascade_level), as
-// advection/schemes.py _cascade_select does.
+// boundary-face row of u (v) at the high wall (on a shard's block of a
+// device mesh only where that side is the global grid's wall: elsewhere
+// the face is an interior face of the global grid, which the neighbouring
+// shard owns). The near-wall order cascade (WENO 11 → 9 → 7 → 5 → 3 →
+// UpwindBiased(1), UpwindBiased(2K-1) → ... → UpwindBiased(1), Centered(2K)
+// → ... → Centered(2)) is selected on the global index along every bounded
+// axis (reconstruction.cuh cascade_level; a shard's block passes its offset
+// and the global N), as advection/schemes.py _cascade_select does.
 //
 // A stretched y or z (x is never stretched: JAX refuses it) changes the
 // coefficients and the metrics. Coefficients: along a uniform axis every
@@ -212,7 +215,8 @@ __host__ __device__ __forceinline__ int cen_off(int b) { return b * (b - 1); }
 // The int configuration of a launch (fused_vector_invariant.py conf_array).
 enum Conf {
   cNx, cNy, cNz, cHx, cHy, cHz, cBx, cBy, cVort, cVortSm, cKe, cVert, cUpw, cCor, cNtr,
-  cWithPh, cMomentum, cKM, cR, cRw, cRz, cRc, cNyRows, cNzRows, cZs, cMd, cHead,
+  cWithPh, cMomentum, cKM, cR, cRw, cRz, cRc, cNyRows, cNzRows, cZs, cMd, cCx, cCy, cHox,
+  cHoy, cGnx, cGny, cHead,
   cFam = cHead, cK = cFam + kNumSites, cBase = cK + kNumSites, cSize = cBase + kNumSites
 };
 
@@ -283,7 +287,9 @@ struct Params {
   const T* rows;                // ny_rows x PY: the metric and Coriolis rows, then coefficients
   const T* zrows;               // nz_rows x PZ: the z columns, then coefficients
   Geom g;
-  int bx, by;                   // bounded x / y
+  int bx, by;                   // a wall on the high x / y side: its face row is output
+  int cx, cy;                   // a bounded x / y: the near-wall cascade
+  int hox, hoy, gnx, gny;       // the cascade's H - offset and global N (a shard's block)
   int vort, vort_sm;            // 0 enstrophy, 1 energy, 2 a scheme; its smoothness
   int ke, vert, upw;            // a scheme for the Bernoulli head / the vertical term; CROSS_AND_SELF
   int cor;                      // Cor
@@ -490,7 +496,9 @@ __device__ __forceinline__ T symm(int fam, int L, int beta, A a, const T* cf, in
 // The level a site of buffer K takes at padded index p along an axis (the
 // near-wall cascade on a bounded axis): reconstruction.cuh's cascade_level,
 // the largest B >= 2 with B - β <= kk <= N - B (kk = p - H), else 1, in
-// its closed form min(K, kk + β, N - kk), branch-free.
+// its closed form min(K, kk + β, N - kk), branch-free. On a shard's block H
+// is the halo less the block's offset and N the global grid's, so that kk
+// is the global index and the cascade counts from the global walls.
 __device__ __forceinline__ int level(int K, bool bounded, int p, int H, int N, int beta) {
   if (!bounded) return K;
   const int kk = p - H;
@@ -721,13 +729,13 @@ __device__ __forceinline__ void vi_tendency(const Params<T>& P) {
     // its own expression
     auto vort_u = [&](int A, int B, int c) {
       const int n = at(A, B, c);
-      const int K = level(KVy, P.by, pj(B), g.Hy, g.Ny, 1);
+      const int K = level(KVy, P.cy, pj(B), P.hoy, P.gny, 1);
       return advected<KM, T, S, FULL>(P.fam[kVortY], K, 1, vhat(A, B, c) > T(0), zeta + n, L.sy,
                                       P.vort_sm, su + n, sv + n, cfy(kVortY, B), L.BY);
     };
     auto vort_v = [&](int A, int B, int c) {
       const int n = at(A, B, c);
-      const int K = level(KVx, P.bx, pi(A), g.Hx, g.Nx, 1);
+      const int K = level(KVx, P.cx, pi(A), P.hox, P.gnx, 1);
       return advected<KM, T, S, FULL>(P.fam[kVortX], K, 1, uhat(A, B, c) > T(0), zeta + n, L.sx,
                                       P.vort_sm, su + n, sv + n, nullptr, 0);
     };
@@ -765,7 +773,7 @@ __device__ __forceinline__ void vi_tendency(const Params<T>& P) {
           if (md1) {
             r = filt_x(mdx, a, b, c);
           } else {
-            const int K = level(KVy, P.by, pj(B), g.Hy, g.Ny, 1);
+            const int K = level(KVy, P.cy, pj(B), P.hoy, P.gny, 1);
             r = advected<KM, T, S, FULL>(P.fam[kVortY], K, 1, vh > T(0), zeta + n, L.sy,
                                          P.vort_sm, su + n, sv + n, cfy(kVortY, B), L.BY);
           }
@@ -792,7 +800,7 @@ __device__ __forceinline__ void vi_tendency(const Params<T>& P) {
           if (md1) {
             r = filt_y(mdy, a, b, c);
           } else {
-            const int K = level(KVx, P.bx, pi(A), g.Hx, g.Nx, 1);
+            const int K = level(KVx, P.cx, pi(A), P.hox, P.gnx, 1);
             r = advected<KM, T, S, FULL>(P.fam[kVortX], K, 1, uh > T(0), zeta + n, L.sx,
                                          P.vort_sm, su + n, sv + n, nullptr, 0);
           }
@@ -828,12 +836,12 @@ __device__ __forceinline__ void vi_tendency(const Params<T>& P) {
       // the cross interpolation of δx(v²/2) along y (filtered along x) and
       // the reconstruction of δx(u²/2) along x (filtered along y)
       auto ke_u_sym = [&](int A, int B, int c) {
-        return symm<KM, T, FULL>(P.fam[kKcY], level(P.K[kKcY], P.by, pj(B), g.Hy, g.Ny, 1), 1,
+        return symm<KM, T, FULL>(P.fam[kKcY], level(P.K[kKcY], P.cy, pj(B), P.hoy, P.gny, 1), 1,
                                  [&](int o) { return f2[at(A, B + o, c)]; }, cfy(kKcY, B), L.BY);
       };
       auto ke_u_rec = [&](int A, int B, int c) {
         const int n = at(A, B, c);
-        const int K = level(P.K[kKeX], P.bx, pi(A), g.Hx, g.Nx, 0);
+        const int K = level(P.K[kKeX], P.cx, pi(A), P.hox, P.gnx, 0);
         return advected<KM, T, S, FULL>(P.fam[kKeX], K, 0, U[n] > T(0), f0 + n, L.sx, kOne, f1 + n,
                                         nullptr, nullptr, 0);
       };
@@ -853,11 +861,11 @@ __device__ __forceinline__ void vi_tendency(const Params<T>& P) {
         const int i = pi(A), j = pj(B), n = at(A, B, c);
         const T dKvs = md ? filt_x(mdx, a, b, c)
                           : symm<KM, T, FULL>(P.fam[kKcY],
-                                              level(P.K[kKcY], P.by, j, g.Hy, g.Ny, 1), 1,
+                                              level(P.K[kKcY], P.cy, j, P.hoy, P.gny, 1), 1,
                                               [&](int o) { return f2[at(A, B + o, c)]; },
                                               cfy(kKcY, B), L.BY);
         const T uc = U[n];
-        const int K = level(P.K[kKeX], P.bx, i, g.Hx, g.Nx, 0);
+        const int K = level(P.K[kKeX], P.cx, i, P.hox, P.gnx, 0);
         const T dKur = md ? filt_y(mdy, a, b, c)
                           : advected<KM, T, S, FULL>(P.fam[kKeX], K, 0, uc > T(0), f0 + n, L.sx,
                                                      kOne, f1 + n, nullptr, nullptr, 0);
@@ -876,12 +884,12 @@ __device__ __forceinline__ void vi_tendency(const Params<T>& P) {
       // the cross interpolation of δy(u²/2) along x (filtered along y) and
       // the reconstruction of δy(v²/2) along y (filtered along x)
       auto ke_v_sym = [&](int A, int B, int c) {
-        return symm<KM, T, FULL>(P.fam[kKcX], level(P.K[kKcX], P.bx, pi(A), g.Hx, g.Nx, 1), 1,
+        return symm<KM, T, FULL>(P.fam[kKcX], level(P.K[kKcX], P.cx, pi(A), P.hox, P.gnx, 1), 1,
                                  [&](int o) { return f2[at(A + o, B, c)]; }, nullptr, 0);
       };
       auto ke_v_rec = [&](int A, int B, int c) {
         const int n = at(A, B, c);
-        const int K = level(P.K[kKeY], P.by, pj(B), g.Hy, g.Ny, 0);
+        const int K = level(P.K[kKeY], P.cy, pj(B), P.hoy, P.gny, 0);
         return advected<KM, T, S, FULL>(P.fam[kKeY], K, 0, V[n] > T(0), f0 + n, L.sy, kOne, f1 + n,
                                         nullptr, cfy(kKeY, B), L.BY);
       };
@@ -901,11 +909,11 @@ __device__ __forceinline__ void vi_tendency(const Params<T>& P) {
         const int i = pi(A), j = pj(B), n = at(A, B, c);
         const T dKus = md ? filt_y(mdy, a, b, c)
                           : symm<KM, T, FULL>(P.fam[kKcX],
-                                              level(P.K[kKcX], P.bx, i, g.Hx, g.Nx, 1), 1,
+                                              level(P.K[kKcX], P.cx, i, P.hox, P.gnx, 1), 1,
                                               [&](int o) { return f2[at(A + o, B, c)]; },
                                               nullptr, 0);
         const T vc = V[n];
-        const int K = level(P.K[kKeY], P.by, j, g.Hy, g.Ny, 0);
+        const int K = level(P.K[kKeY], P.cy, j, P.hoy, P.gny, 0);
         const T dKvr = md ? filt_x(mdx, a, b, c)
                           : advected<KM, T, S, FULL>(P.fam[kKeY], K, 0, vc > T(0), f0 + n, L.sy,
                                                      kOne, f1 + n, nullptr, cfy(kKeY, B), L.BY);
@@ -992,13 +1000,13 @@ __device__ __forceinline__ void vi_tendency(const Params<T>& P) {
             const int Kz = level(P.K[kVz], true, kk, g.Hz, g.Nz, 0);
             const T* const cz_ = cfz(kVz, c);
             if (has_u(a, b)) {
-              const T wh = symm<KM, T, FULL>(P.fam[kVsX], level(P.K[kVsX], P.bx, i, g.Hx, g.Nx, 0), 0,
+              const T wh = symm<KM, T, FULL>(P.fam[kVsX], level(P.K[kVsX], P.cx, i, P.hox, P.gnx, 0), 0,
                                        [&](int o) { return mW(A + o, B, c); }, nullptr, 0);
               fu = wh * advected<KM, T, S, FULL>(P.fam[kVz], Kz, 0, wh > T(0), uc, 1, kSelf, nullptr,
                                         nullptr, cz_, L.zs);
             }
             if (has_v(a, b)) {
-              const T wh = symm<KM, T, FULL>(P.fam[kVsY], level(P.K[kVsY], P.by, j, g.Hy, g.Ny, 0), 0,
+              const T wh = symm<KM, T, FULL>(P.fam[kVsY], level(P.K[kVsY], P.cy, j, P.hoy, P.gny, 0), 0,
                                        [&](int o) { return mW(A, B + o, c); }, cfy(kVsY, B),
                                        L.BY);
               fv = wh * advected<KM, T, S, FULL>(P.fam[kVz], Kz, 0, wh > T(0), vc, 1, kSelf, nullptr,
@@ -1048,21 +1056,21 @@ __device__ __forceinline__ void vi_tendency(const Params<T>& P) {
       // (filtered along x)
       auto div_u = [&](int A, int B, int c) {
         const int n = at(A, B, c), i = pi(A);
-        const T dvs = symm<KM, T, FULL>(P.fam[kDcX], level(P.K[kDcX], P.bx, i, g.Hx, g.Nx, 0), 0,
+        const T dvs = symm<KM, T, FULL>(P.fam[kDcX], level(P.K[kDcX], P.cx, i, P.hox, P.gnx, 0), 0,
                                         [&](int o) { return dV[at(A + o, B, c)]; }, nullptr, 0);
         const T rdiv = advected<KM, T, S, FULL>(P.fam[kDivX],
-                                                level(P.K[kDivX], P.bx, i, g.Hx, g.Nx, 0), 0,
+                                                level(P.K[kDivX], P.cx, i, P.hox, P.gnx, 0), 0,
                                                 U[n] > T(0), dU + n, L.sx, kSum, dU + n, dV + n,
                                                 nullptr, 0);
         return dvs + rdiv;
       };
       auto div_v = [&](int A, int B, int c) {
         const int n = at(A, B, c), j = pj(B);
-        const T dus = symm<KM, T, FULL>(P.fam[kDcY], level(P.K[kDcY], P.by, j, g.Hy, g.Ny, 0), 0,
+        const T dus = symm<KM, T, FULL>(P.fam[kDcY], level(P.K[kDcY], P.cy, j, P.hoy, P.gny, 0), 0,
                                         [&](int o) { return dU[at(A, B + o, c)]; }, cfy(kDcY, B),
                                         L.BY);
         const T rdiv = advected<KM, T, S, FULL>(P.fam[kDivY],
-                                                level(P.K[kDivY], P.by, j, g.Hy, g.Ny, 0), 0,
+                                                level(P.K[kDivY], P.cy, j, P.hoy, P.gny, 0), 0,
                                                 V[n] > T(0), dV + n, L.sy, kSum, dU + n, dV + n,
                                                 cfy(kDivY, B), L.BY);
         return dus + rdiv;
@@ -1085,7 +1093,7 @@ __device__ __forceinline__ void vi_tendency(const Params<T>& P) {
         const int i = pi(A), j = pj(B), n = at(A, B, c), f = (a * TY + b) * (TZ + 1) + c;
         if (has_u(a, b)) {
           const T uc = U[n];
-          const int K = level(P.K[kDivX], P.bx, i, g.Hx, g.Nx, 0);
+          const int K = level(P.K[kDivX], P.cx, i, P.hox, P.gnx, 0);
           T phi;
           if (cross_self) {
             phi = uc * advected<KM, T, S, FULL>(P.fam[kDivX], K, 0, uc > T(0), dU + n, L.sx, kSelf,
@@ -1093,7 +1101,7 @@ __device__ __forceinline__ void vi_tendency(const Params<T>& P) {
           } else if (md3) {
             phi = uc * filt_y(mdy3, a, b, c);
           } else {
-            const T dvs = symm<KM, T, FULL>(P.fam[kDcX], level(P.K[kDcX], P.bx, i, g.Hx, g.Nx, 0), 0,
+            const T dvs = symm<KM, T, FULL>(P.fam[kDcX], level(P.K[kDcX], P.cx, i, P.hox, P.gnx, 0), 0,
                                       [&](int o) { return dV[at(A + o, B, c)]; }, nullptr, 0);
             const T rdiv = advected<KM, T, S, FULL>(P.fam[kDivX], K, 0, uc > T(0), dU + n, L.sx, kSum,
                                            dU + n, dV + n, nullptr, 0);
@@ -1104,7 +1112,7 @@ __device__ __forceinline__ void vi_tendency(const Params<T>& P) {
         }
         if (has_v(a, b)) {
           const T vc = V[n];
-          const int K = level(P.K[kDivY], P.by, j, g.Hy, g.Ny, 0);
+          const int K = level(P.K[kDivY], P.cy, j, P.hoy, P.gny, 0);
           T phi;
           if (cross_self) {
             phi = vc * advected<KM, T, S, FULL>(P.fam[kDivY], K, 0, vc > T(0), dU + n, L.sy, kSelf,
@@ -1112,7 +1120,7 @@ __device__ __forceinline__ void vi_tendency(const Params<T>& P) {
           } else if (md3) {
             phi = vc * filt_x(mdx3, a, b, c);
           } else {
-            const T dus = symm<KM, T, FULL>(P.fam[kDcY], level(P.K[kDcY], P.by, j, g.Hy, g.Ny, 0), 0,
+            const T dus = symm<KM, T, FULL>(P.fam[kDcY], level(P.K[kDcY], P.cy, j, P.hoy, P.gny, 0), 0,
                                       [&](int o) { return dU[at(A, B + o, c)]; }, cfy(kDcY, B),
                                       L.BY);
             const T rdiv = advected<KM, T, S, FULL>(P.fam[kDivY], K, 0, vc > T(0), dV + n, L.sy, kSum,
@@ -1257,7 +1265,7 @@ __device__ __forceinline__ void vi_tendency(const Params<T>& P) {
       T f = T(0);
       if (inb(A, B)) {
         const T vel = U[at(A, B, c)];
-        const int K = level(P.K[kTx], P.bx, pi(A), g.Hx, g.Nx, 0);
+        const int K = level(P.K[kTx], P.cx, pi(A), P.hox, P.gnx, 0);
         f = (mz(kAxFCC, B, c) * vel) * advected<KM, T, S, FULL>(P.fam[kTx], K, 0, vel > T(0), cat(a, b, c),
                                                        tsx, kSelf, nullptr, nullptr, nullptr, 0);
       }
@@ -1268,7 +1276,7 @@ __device__ __forceinline__ void vi_tendency(const Params<T>& P) {
       T f = T(0);
       if (inb(A, B)) {
         const T vel = V[at(A, B, c)];
-        const int K = level(P.K[kTy], P.by, pj(B), g.Hy, g.Ny, 0);
+        const int K = level(P.K[kTy], P.cy, pj(B), P.hoy, P.gny, 0);
         f = (mz(kAyCFC, B, c) * vel) * advected<KM, T, S, FULL>(P.fam[kTy], K, 0, vel > T(0), cat(a, b, c),
                                                        tsy, kSelf, nullptr, nullptr,
                                                        cfy(kTy, B), L.BY);
@@ -1394,6 +1402,12 @@ int launch(const Args& a) {
   P.g = g;
   P.bx = cf[cBx];
   P.by = cf[cBy];
+  P.cx = cf[cCx];
+  P.cy = cf[cCy];
+  P.hox = cf[cHox];
+  P.hoy = cf[cHoy];
+  P.gnx = cf[cGnx];
+  P.gny = cf[cGny];
   P.vort = cf[cVort];
   P.vort_sm = cf[cVortSm];
   P.ke = cf[cKe];

@@ -23,13 +23,15 @@ the fields' conditions on that side become polar caps
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
 from ..defaults import as_torch_dtype, defaults, resolve_device
 from . import topology as topo
 from .base import AbstractGrid, MetricCache
-from .rectilinear import coordinate, spacing_metric
+from .rectilinear import _cut_coordinate, coordinate, spacing_metric
 
 DEG = np.pi / 180.0
 
@@ -163,7 +165,11 @@ class LatitudeLongitudeGrid(MetricCache, AbstractGrid):
     def metric_numpy(self, name, loc):
         """The float64 value of metric ``name`` (dx, dy, dz, Ax, Ay, Az, V)
         at ``loc``: a float, or a broadcastable array (a (1, Ny + 2Hy, 1)
-        one for a metric that varies with latitude alone)."""
+        one for a metric that varies with latitude alone). A shard's grid
+        (``local_grid``) cuts the global grid's tables at its offset."""
+        parent = getattr(self, "_metric_parent", None)
+        if parent is not None:
+            return self._cut_metric(parent, name, loc)
         if name == "dx":
             return self.radius * self._cosphi(loc[1]) * self._angle_rad(
                 0, loc[0])
@@ -195,6 +201,44 @@ class LatitudeLongitudeGrid(MetricCache, AbstractGrid):
             return self.metric_numpy("Az", loc) * np.asarray(
                 self.metric_numpy("dz", loc))
         raise ValueError(f"unknown metric {name!r}")
+
+    def _cut_metric(self, parent, name, loc):
+        grid, offset = parent
+        m = grid.metric_numpy(name, loc)
+        if np.ndim(m) == 0:
+            return m
+        m = np.asarray(m)
+        sl = tuple(slice(o, o + n + 2 * h) if m.shape[ax] > 1 else slice(None)
+                   for ax, (o, n, h) in enumerate(zip(
+                       tuple(offset) + (0,), self.N, self.H)))
+        return m[sl]
+
+    def local_grid(self, size, device=None, offset=(0, 0)):
+        """One shard's grid: ``size`` = (nx, ny, nz) interior cells whose
+        first cell is this grid's interior cell ``offset`` = (ox, oy), with
+        this grid's halo, topology and dtype, on ``device`` (default: this
+        grid's). Its coordinates are this grid's cut at the offset and its
+        metrics this grid's tables cut there, so every cell of the shard
+        sees this grid's nodes and metrics exactly; z is carried whole. A
+        stretched longitude or latitude is not sharded (ROADMAP.md queue 1
+        item 16b part 2)."""
+        size = tuple(int(n) for n in size)
+        for ax in (0, 1):
+            if not self._coords[ax].regular and size[ax] != self.N[ax]:
+                raise NotImplementedError(
+                    "a sharded stretched horizontal axis: ROADMAP.md queue "
+                    "1 item 16b part 2")
+        if size[2] != self.N[2]:
+            raise ValueError("z is never sharded: the local grid keeps Nz")
+        local = copy.copy(self)
+        local._cache = {}
+        local.N = size
+        local.device = self.device if device is None else torch.device(device)
+        local._coords = [_cut_coordinate(c, n, o) for c, n, o in zip(
+            self._coords, size, tuple(offset) + (0,))]
+        local._lam, local._phi, local._zc = local._coords
+        local._metric_parent = (self, tuple(offset))
+        return local
 
     def minimum_spacing(self, axis):
         if self.is_flat(axis):
@@ -232,7 +276,8 @@ class LatitudeLongitudeGrid(MetricCache, AbstractGrid):
     def _fingerprint(self):
         return ("LatitudeLongitudeGrid", self.N, self.H, self.topology,
                 self.radius, str(self.dtype), str(self.device),
-                tuple(c._fp for c in self._coords))
+                tuple(c._fp for c in self._coords),
+                getattr(self, "connected", None))
 
     def __repr__(self):
         return (f"LatitudeLongitudeGrid(size={self.N}, halo={self.H}, "

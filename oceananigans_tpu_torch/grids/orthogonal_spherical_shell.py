@@ -30,6 +30,8 @@ JAX function extends the edge columns there).
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
@@ -223,7 +225,11 @@ class OrthogonalSphericalShellGrid(MetricCache, AbstractGrid):
     def metric_numpy(self, name, loc):
         """The float64 value of metric ``name`` (dx, dy, dz, Ax, Ay, Az, V)
         at ``loc``: (npx, npy, 1) arrays for the horizontal ones, a float or
-        a (1, 1, npz) array for Δz, their products for the others."""
+        a (1, 1, npz) array for Δz, their products for the others. A
+        shard's grid (``local_grid``) cuts the global grid's tables."""
+        if self._shell_parent is not None and name in ("dx", "dy", "Az"):
+            grid, _ = self._shell_parent
+            return self._cut_xy(grid.metric_numpy(name, loc))
         if name == "dx":
             return self._padded2d(self._dx, loc[0], loc[1])
         if name == "dy":
@@ -247,6 +253,10 @@ class OrthogonalSphericalShellGrid(MetricCache, AbstractGrid):
         2-D longitude (x) or latitude (y) table, as the JAX grid gives."""
         if axis == 2:
             return self._zc.coord(loc)
+        if self._shell_parent is not None:
+            grid, offset = self._shell_parent
+            o, n, h = offset[axis], self.N[axis], self.H[axis]
+            return grid.coord_padded(axis, loc)[o:o + n + 2 * h]
         table = self._lam if axis == 0 else self._phi
         arr = table[("c", "c") if loc == "c" else ("f", "f")]
         line = arr[:, arr.shape[1] // 2] if axis == 0 \
@@ -258,6 +268,11 @@ class OrthogonalSphericalShellGrid(MetricCache, AbstractGrid):
         """The interior (λ, φ) tables in degrees: (c, c) centres or (f, f)
         corners (the corner tables for any other staggering)."""
         key = tuple(loc[:2])
+        if self._shell_parent is not None:
+            grid, (ox, oy) = self._shell_parent
+            e = 1 if key == ("f", "f") else 0
+            return tuple(a[ox:ox + self.N[0] + e, oy:oy + self.N[1] + e]
+                         for a in grid.nodes2d(loc))
         return (self._lam.get(key, self._lam[("c", "c")]),
                 self._phi.get(key, self._phi[("c", "c")]))
 
@@ -266,6 +281,9 @@ class OrthogonalSphericalShellGrid(MetricCache, AbstractGrid):
         over the padded extent, (npx, npy) float64, from the corners padded
         by their edge values (the extended corners under corner_halo)."""
         key = ("nodes2d_padded",) + tuple(loc[:2])
+        if self._shell_parent is not None:
+            return tuple(self._cut_xy(a) for a in
+                         self._shell_parent[0].nodes2d_padded(loc))
         if key not in self._pad_cache:
             npx, npy = self.padded_shape[:2]
             pad = [(self.H[0],) * 2, (self.H[1],) * 2]
@@ -297,8 +315,41 @@ class OrthogonalSphericalShellGrid(MetricCache, AbstractGrid):
             return c.xF[h:h + n + 1]
         return c.coord(loc)[h:h + n]
 
+    def _cut_xy(self, a):
+        """A shard's cut of a padded (npx, npy, ...) table of the global
+        grid."""
+        _, (ox, oy) = self._shell_parent
+        return a[ox:ox + self.N[0] + 2 * self.H[0],
+                 oy:oy + self.N[1] + 2 * self.H[1]]
+
+    def local_grid(self, size, device=None, offset=(0, 0)):
+        """One shard's grid: ``size`` = (nx, ny, nz) interior cells whose
+        first cell is this grid's interior cell ``offset`` = (ox, oy), with
+        this grid's halo, topology and dtype, on ``device``. Its metrics,
+        nodes and rotation angles are this grid's padded tables cut at the
+        offset, so every cell of the shard sees this grid's exactly; z is
+        carried whole."""
+        size = tuple(int(n) for n in size)
+        if size[2] != self.N[2]:
+            raise ValueError("z is never sharded: the local grid keeps Nz")
+        if self._corner_halo:
+            raise NotImplementedError(
+                "a cubed-sphere panel under a device mesh: ROADMAP.md queue "
+                "1 item 16b part 2")
+        local = copy.copy(self)
+        local.N = size
+        local.device = self.device if device is None else torch.device(device)
+        local._cache = {}
+        local._pad_cache = {}
+        local._shell_parent = (self, tuple(offset))
+        return local
+
+    _shell_parent = None
+
     @property
     def extent(self):
+        if self._shell_parent is not None:
+            return self._shell_parent[0].extent
         lamF, phiF = self._lam[("f", "f")], self._phi[("f", "f")]
         return (float(lamF.max() - lamF.min()),
                 float(phiF.max() - phiF.min()), self._zc.extent)
@@ -359,7 +410,9 @@ class OrthogonalSphericalShellGrid(MetricCache, AbstractGrid):
                     else (self._lam[("f", "f")], self._phi[("f", "f")]))
         return ("OSSG", self.N, self.H, self.topology, self.radius,
                 str(self.dtype), str(self.device), self._corner_halo,
-                lam.tobytes(), phi.tobytes(), self._zc._fp)
+                lam.tobytes(), phi.tobytes(), self._zc._fp,
+                None if self._shell_parent is None
+                else self._shell_parent[1], getattr(self, "connected", None))
 
     def __repr__(self):
         return (f"OrthogonalSphericalShellGrid(size={self.N}, halo={self.H}, "
@@ -395,6 +448,9 @@ def rotation_angle_ccc(grid):
     geographic east at the cell centres, float64 (npx, npy, 1): the halo
     columns wrap along a periodic x and extend the edge elsewhere."""
     grid = getattr(grid, "underlying_grid", grid)
+    if grid._shell_parent is not None:
+        return tuple(grid._cut_xy(a)
+                     for a in rotation_angle_ccc(grid._shell_parent[0]))
     P = _sph2cart(grid._lam[("f", "f")], grid._phi[("f", "f")])
     # the cell centre and its +x direction (the mean of the two x edges)
     Pc = _midpoint(_midpoint(P[:-1, :-1], P[:-1, 1:]),

@@ -44,3 +44,38 @@ def validate_location(loc):
         if l not in (CENTER, FACE, None):
             raise ValueError(f"unknown location {l!r}")
     return loc
+
+
+def side_connected(grid, axis):
+    """(low, high): whether each side of ``axis`` of a shard's grid is
+    connected to another shard (its halo comes from the halo exchange and
+    no boundary condition acts on it); (False, False) on any other grid."""
+    c = getattr(grid, "connected", None)
+    return (False, False) if c is None else tuple(c[axis])
+
+
+def wall_sides(grid, axis):
+    """(low, high): whether each side of ``axis`` is a wall of the global
+    grid, where the boundary conditions act: both sides of a bounded axis,
+    but on a shard's grid only the sides that are the global grid's own
+    (the low side of the first shard along the axis, the high side of the
+    last, the tripolar fold of the top row: ``grid.walls``); (False, False)
+    on an axis that is not bounded."""
+    if grid.topology[axis] != BOUNDED:
+        return (False, False)
+    walls = getattr(grid, "walls", None)
+    if walls is not None:
+        return tuple(walls[axis])
+    lo, hi = side_connected(grid, axis)
+    return (not lo, not hi)
+
+
+def global_extent(grid, axis):
+    """(offset, N): the global index of the grid's first interior cell along
+    ``axis`` and the global grid's interior cells there ((0, N) on a grid
+    that is no shard's): the near-wall order cascades count from the
+    global walls."""
+    shard = getattr(grid, "shard", None)
+    if shard is None or axis == 2:
+        return 0, grid.N[axis]
+    return shard.offset[axis], shard.global_grid.N[axis]

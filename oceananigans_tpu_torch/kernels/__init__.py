@@ -16,7 +16,8 @@ in ``parallel/halo_exchange.py``. The kernels build at first use
 (``build.py``).
 """
 
-from ..parallel.halo_exchange import halo_exchange_plain, mesh_halo_exchange
+from ..parallel.halo_exchange import (fold_plain, halo_exchange_plain,
+                                      mesh_fold_exchange, mesh_halo_exchange)
 from .fused_advection import (build_sharded_fused_advection,
                               build_sharded_fused_advection_plain,
                               shard_fused_advection,
@@ -41,13 +42,15 @@ from .vpu_probes import (bf16_smoothness, bf16_smoothness_plain, vpu_mix,
 KERNELS = (fused_advection_update, fused_divergence, fused_correct,
            fill_halos, fused_advection_tendency,
            fused_sw_update, fused_vi_tendency, mesh_halo_exchange,
-           build_sharded_fused_sw_update, build_sharded_fused_advection,
+           mesh_fold_exchange, build_sharded_fused_sw_update,
+           build_sharded_fused_advection,
            weno_microbench, vpu_mix, bf16_smoothness)
 PLAINS = (fused_advection_update_plain, fused_divergence_plain,
           fused_correct_plain, fill_halos_plain, periodic_halo_fill_plain,
           fill_bounded_axis, fold_north, fused_advection_tendency_plain,
           bounded_z_fill_plain,
           fused_sw_update_plain, fused_vi_tendency_plain, halo_exchange_plain,
+          fold_plain,
           build_sharded_fused_sw_update_plain,
           build_sharded_fused_advection_plain, weno_microbench_plain,
           vpu_mix_plain, bf16_smoothness_plain)
@@ -102,7 +105,8 @@ __all__ = ["fused_advection_update", "fused_advection_update_plain",
            "fill_bounded_axis", "fold_north", "bounded_z_fill_plain",
            "fused_sw_update", "fused_sw_update_plain",
            "fused_vi_tendency", "fused_vi_tendency_plain",
-           "mesh_halo_exchange", "halo_exchange_plain",
+           "mesh_halo_exchange", "halo_exchange_plain", "mesh_fold_exchange",
+           "fold_plain",
            "build_sharded_fused_sw_update",
            "build_sharded_fused_sw_update_plain",
            "build_sharded_fused_advection",

@@ -80,6 +80,7 @@ SIGNATURES = {
     "oc_fused_vi_tendency": [I, I, P, P, P, P, P, P, I, I, I, I, I, I, P],
     "oc_vi_blocks_per_sm": [I, I, P, I, I, I, I, I, P],
     "oc_mesh_halo_exchange": [P, P, P, I, I, I, I, I, I, I, I, P],
+    "oc_mesh_fold_exchange": [P, P, P, I, I, I, I, I, I, I, I, I, P],
     "oc_weno_microbench": [I, P, P, I, I, D, P],
     "oc_vpu_mix": [I, P, P, I, I, D, P],
     "oc_bf16_smoothness": [I, P, P, I, I, P],

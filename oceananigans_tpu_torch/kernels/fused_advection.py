@@ -35,7 +35,13 @@ entry checks them. Division is exact. Schemes: every scheme of
 UpwindBiased(1-11) and WENO(3-11), each with its near-wall cascade along
 the bounded z (``scheme_code``; the scheme's buffer K is a compile-time
 choice, one source of instantiations a buffer, ``csrc/advection_k1.cu`` ..
-``advection_k6.cu``); any other scheme raises on the card. The WENO
+``advection_k6.cu``), alone or one per axis in a ``FluxFormAdvection``
+(as ``adapt_advection_order`` builds on an axis thinner than the scheme's
+buffer): the instantiation of the deepest axis, WENO's family when any
+axis is WENO, and each axis's family and buffer at run time after the
+coefficient table (``kernel_coefs``), so no combination adds an
+instantiation; any other scheme raises on the card, naming what the
+kernels are built for. The WENO
 smoothness arithmetic runs in float32 or float64, or with float32 fields in
 bfloat16, rounded operation by operation as the plain version rounds it
 (``smoothness_code``).
@@ -86,8 +92,8 @@ import threading
 
 import torch
 
-from ..advection import (WENO, Centered, UpwindBiased, div_Uc, div_Uu,
-                         div_Uv, div_Uw)
+from ..advection import (WENO, Centered, FluxFormAdvection, UpwindBiased,
+                         div_Uc, div_Uu, div_Uv, div_Uw)
 from ..advection.fluxes import BOUNDED_REFUSAL
 from ..advection.reconstruction import typed_constants
 from ..advection.schemes import TAU_COEFFS, WENO_EPSILON, WENO_R_MAX
@@ -101,12 +107,14 @@ from .halo_fill import periodic_halo_fill_plain
 
 ZBC = {"u": "even", "v": "even", "w": "odd_face", "c": "even"}
 
-MESH_TOPOLOGY_ITEM = ("ROADMAP.md queue 1 item 16b (bounded or stretched "
-                      "sharded axes)")
+MESH_TOPOLOGY_ITEM = ("JAX's #7 takes periodic x and y alone (its "
+                      "eligible): a bounded sharded axis takes the models' "
+                      "plain flux divergences, a stretched one is ROADMAP.md "
+                      "queue 1 item 16b part 2")
 
-OTHER_SCHEMES_ITEM = ("ROADMAP.md queue 1 item 15 (the long tail: a "
-                      "per-axis FluxFormAdvection in the CUDA advection "
-                      "kernels)")
+SCHEMES_BUILT = ("the advection kernels are built for Centered(2-12), "
+                 "UpwindBiased(1-11) and WENO(3-11), alone or one per axis "
+                 "in a FluxFormAdvection")
 
 # Scheme families of csrc/reconstruction.cuh (kCentered, kUpwind, kWeno),
 # and WENO with the bounds-preserving limiter, which the padded #6 alone
@@ -259,7 +267,7 @@ def bounded_refusal(grid, scheme, dtype):
     if z_mode(grid) == Z_BOUNDED and grid.H[2] == 0:
         return BOUNDED_REFUSAL
     # (a scheme with no smoothness dtype is no WENO: scheme_code refuses it)
-    sdt = getattr(scheme, "smoothness_dtype", None)
+    sdt = _smoothness_dtype(scheme)
     if sdt is not None and (dtype, sdt) not in BOUNDED_PAIRS:
         return (f"the bounded #6 is built for float32 fields with float32 "
                 f"smoothness and float64 fields with float32 or float64 "
@@ -325,14 +333,8 @@ fused_advection_update_plain.cuda_calls = 0
 _tables = {}
 
 
-def scheme_code(scheme):
-    """(family, K) of a scheme the kernels take: CENTERED, UPWIND,
-    WENO_FAMILY or (bounds-preserving WENO, the padded #6's alone:
-    ``bounded_refusal``) BOUNDED_WENO_FAMILY and the scheme's buffer K (its
-    reach, ``required_halo``): Centered(2K) for K = 1..MAX_BUFFER,
-    UpwindBiased(2K-1), WENO(2K-1) for K >= 2. Raises for any other scheme:
-    another class (a per-axis FluxFormAdvection included) or a deeper
-    order."""
+def _member_code(scheme):
+    """(family, K) of one scheme (not a FluxFormAdvection)."""
     K = getattr(scheme, "buffer", None)
     bounded = getattr(scheme, "bounds", None) is not None
     if type(scheme) is Centered:
@@ -345,17 +347,70 @@ def scheme_code(scheme):
         family = None
     if family is None or not 1 <= K <= MAX_BUFFER:
         raise NotImplementedError(
-            f"no CUDA advection kernel for {scheme!r}: {OTHER_SCHEMES_ITEM}")
+            f"no CUDA advection kernel for {scheme!r}: {SCHEMES_BUILT}")
     return family, K
+
+
+def _members(scheme):
+    """The schemes along x, y and z."""
+    if isinstance(scheme, FluxFormAdvection):
+        return tuple(scheme.schemes)
+    return (scheme,) * 3
+
+
+def axis_codes(scheme):
+    """Per axis (x, y, z) the (family, K) of its scheme (``scheme_code`` of
+    each member of a FluxFormAdvection; a scheme alone takes every axis)."""
+    return tuple(_member_code(m) for m in _members(scheme))
+
+
+def scheme_code(scheme):
+    """(family, K) of the kernel instantiation a scheme takes: CENTERED,
+    UPWIND, WENO_FAMILY or (bounds-preserving WENO, the padded #6's alone:
+    ``bounded_refusal``) BOUNDED_WENO_FAMILY and the buffer K (the reach,
+    ``required_halo``): Centered(2K) for K = 1..MAX_BUFFER,
+    UpwindBiased(2K-1), WENO(2K-1) for K >= 2. A FluxFormAdvection takes
+    the instantiation of its deepest axis, with WENO's family when any axis
+    is WENO, and its axes' own families and buffers at run time
+    (``kernel_coefs``): no instantiation a combination. Raises for any
+    other class or a deeper order (``SCHEMES_BUILT``), and for WENO axes of
+    two smoothness dtypes."""
+    codes = axis_codes(scheme)
+    K = max(k for _, k in codes)
+    weno = [f for f, _ in codes if f in (WENO_FAMILY, BOUNDED_WENO_FAMILY)]
+    if weno:
+        _smoothness_dtype(scheme)
+        family = (BOUNDED_WENO_FAMILY if BOUNDED_WENO_FAMILY in weno
+                  else WENO_FAMILY)
+    else:
+        family = next(f for f, k in codes if k == K)
+    return family, K
+
+
+def _smoothness_dtype(scheme, default=None):
+    """The smoothness dtype of the scheme's WENO axes (``default`` with
+    none); raises for WENO axes of two dtypes (the kernel is instantiated
+    for one)."""
+    dtypes = {m.smoothness_dtype for m in _members(scheme)
+              if isinstance(m, WENO)}
+    if len(dtypes) > 1:
+        raise NotImplementedError(
+            f"WENO axes of two smoothness dtypes in {scheme!r}: a kernel is "
+            f"instantiated for one")
+    return dtypes.pop() if dtypes else default
 
 
 def variant_name(scheme):
     """The name of a scheme's kernel variant, by family and order:
-    ``centered4``, ``upwind5``, ``weno9``."""
-    family, K = scheme_code(scheme)
-    return (("centered", "upwind", "weno", "weno")[family]
-            + str(2 * K if family == CENTERED else 2 * K - 1)
-            + ("_bounded" if family == BOUNDED_WENO_FAMILY else ""))
+    ``centered4``, ``upwind5``, ``weno9``; a FluxFormAdvection's names its
+    axes' (``weno5_weno5_weno3``)."""
+    codes = axis_codes(scheme)
+    names = [("centered", "upwind", "weno", "weno")[f]
+             + str(2 * k if f == CENTERED else 2 * k - 1) for f, k in codes]
+    name = names[0] if len(set(names)) == 1 and not isinstance(
+        scheme, FluxFormAdvection) else "_".join(names)
+    return name + ("_bounded" if getattr(scheme, "bounds", None) is not None
+                   and scheme_code(scheme)[0] == BOUNDED_WENO_FAMILY else "")
 
 
 def count_launch(kernel, scheme, zmode=Z_BOUNDED):
@@ -377,7 +432,7 @@ def smoothness_code(scheme, dtype):
     """The kernels' code for the scheme's smoothness dtype with fields of
     ``dtype`` (a scheme without one computes in the field dtype); raises
     TypeError for a pair no kernel was built for."""
-    sdt = getattr(scheme, "smoothness_dtype", dtype)
+    sdt = _smoothness_dtype(scheme, dtype)
     if sdt not in _SMOOTHNESS_CODES:
         raise TypeError(f"unsupported smoothness dtype {sdt}")
     if sdt == torch.bfloat16 and dtype != torch.float32:
@@ -437,7 +492,7 @@ def coefficient_table(scheme):
         return _tables[key]
     lay = table_layout(K)
     vals = [0.0] * lay["size"]
-    sdt = getattr(scheme, "smoothness_dtype", None)
+    sdt = _smoothness_dtype(scheme)
 
     def put(at, row, smooth=False):
         row = list(row)
@@ -445,14 +500,22 @@ def coefficient_table(scheme):
             row = [t.item() for t in typed_constants(tuple(row), sdt)]
         vals[at:at + len(row)] = row
 
-    # the cascade, buffer K down to 1, and the Centered / UpwindBiased rows
-    # of every buffer (a WENO kernel reads the UpwindBiased(1) row at buffer
-    # 1 and the Centered rows of its advecting velocities)
-    chain, s = [], scheme
-    while s is not None:
-        chain.append(s)
-        s = s.buffer_scheme()
-    assert [c.buffer for c in chain] == list(range(K, 0, -1)), chain
+    # the cascade of each axis's scheme, its buffer down to 1, and the
+    # Centered / UpwindBiased rows of every buffer (a WENO kernel reads the
+    # UpwindBiased(1) row at buffer 1 and the Centered rows of its advecting
+    # velocities); a FluxFormAdvection's WENO rows come from its deepest
+    # WENO axis's cascade, which holds every shallower WENO axis's
+    def rows_key(c):   # what a scheme's rows depend on (not its bounds)
+        return (type(c).__name__, c.order,
+                str(getattr(c, "smoothness_dtype", None)))
+
+    chain = []
+    for m in sorted(set(_members(scheme)), key=lambda m: -m.buffer):
+        s = m
+        while s is not None:
+            if not any(rows_key(c) == rows_key(s) for c in chain):
+                chain.append(s)
+            s = s.buffer_scheme()
     for b in range(1, K + 1):
         put(lay["sym"][b], Centered(order=2 * b)._coeffs)
         put(lay["ub"][b], UpwindBiased(order=2 * b - 1)._coeffs)
@@ -466,6 +529,11 @@ def coefficient_table(scheme):
             assert tuple(vals[row:row + len(v._coeffs)]) == tuple(v._coeffs)
         if isinstance(c, WENO):
             k = c.buffer
+            if any(isinstance(o, WENO) and o.buffer == k
+                   and rows_key(o) != rows_key(c) for o in chain):
+                raise NotImplementedError(
+                    f"two WENO schemes of buffer {k} in {scheme!r}: the "
+                    f"table holds one")
             put(lay["wc"][k], [x for st in range(k) for x in c._coeffs[st]])
             put(lay["wf"][k], [x for st in range(k)
                                for x in _padded_factors(c._sfactors[st], k)],
@@ -475,6 +543,24 @@ def coefficient_table(scheme):
     put(lay["eps"], (WENO_EPSILON, WENO_R_MAX), smooth=True)
     _tables[key] = (ctypes.c_double * len(vals))(*vals)
     return _tables[key]
+
+
+_coefs = {}
+
+
+def kernel_coefs(scheme):
+    """What a launch reads (csrc/reconstruction.cuh coefs_size): the
+    ``coefficient_table`` of the scheme's instantiation, then each axis's
+    family (the kernels' 0 Centered, 1 UpwindBiased, 2 WENO, the limiter
+    being the instantiation's) and buffer, x, y, z."""
+    key = scheme._fp()
+    if key not in _coefs:
+        table = list(coefficient_table(scheme))
+        codes = axis_codes(scheme)
+        fams = [min(f, WENO_FAMILY) for f, _ in codes]
+        vals = table + fams + [k for _, k in codes]
+        _coefs[key] = (ctypes.c_double * len(vals))(*vals)
+    return _coefs[key]
 
 
 def fused_advection_update(grid, scheme, u, v, w, Gm, gamma_dt, zeta_dt,
@@ -495,7 +581,7 @@ def fused_advection_update(grid, scheme, u, v, w, Gm, gamma_dt, zeta_dt,
         raise NotImplementedError(BOUNDED_REFUSAL)
     fam, K = scheme_code(scheme)
     check_fast_layout(grid)
-    table = coefficient_table(scheme)
+    table = kernel_coefs(scheme)
     has_corr = p is not None
     if has_corr and corr_dt is None:
         raise ValueError("the corrected variant needs p and corr_dt")
@@ -597,7 +683,7 @@ def fused_advection_tendency(grid, scheme, fields):
                          f"{scheme.required_halo}")
     check_tensors(grid, fields, grid.padded_shape)
     scode = smoothness_code(scheme, fields[0].dtype)
-    table = coefficient_table(scheme)
+    table = kernel_coefs(scheme)
     m = _metrics(grid)
     Nx, Ny, Nz = grid.N
     nc = len(fields)

@@ -52,7 +52,7 @@ from ..grids.topology import PERIODIC
 from ..parallel.distributed import cut_block, mesh_shards
 from ..timesteppers import stage_update
 from . import build
-from .fused_advection import (coefficient_table, count_launch, scheme_code,
+from .fused_advection import (count_launch, kernel_coefs, scheme_code,
                              smoothness_code)
 from .fused_projection import _DTYPE_CODES, _metrics, check_tensors
 
@@ -169,7 +169,7 @@ def fused_sw_update(grid, scheme, g, f, hB, names, fields, Gm, gamma_dt,
         if Gm.device != q[0].device:
             raise ValueError("Gm must be on the fields' device")
     scode = smoothness_code(scheme, q[0].dtype)
-    table = coefficient_table(scheme)
+    table = kernel_coefs(scheme)
     m = _metrics(grid)
     G = torch.empty((nf, Nx, Ny, 1), dtype=q[0].dtype, device=q[0].device)
     outs = [torch.empty_like(a) for a in q]

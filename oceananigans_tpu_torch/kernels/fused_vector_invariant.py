@@ -82,7 +82,7 @@ from ..coriolis import (BetaPlane, ConstantCartesianCoriolis, FPlane,
                         HydrostaticSphericalCoriolis, NonTraditionalBetaPlane)
 from ..grids.base import numpy_metric
 from ..grids.topology import (BOUNDED, FLAT, LOC_CCC, LOC_CCF, LOC_CFC,
-                              LOC_FCC)
+                              LOC_FCC, global_extent, wall_sides)
 from ..operators.operators import LOC_FFC, ddx, ddy
 from . import build
 from .fused_advection import (BOUNDED_WENO_FAMILY, CENTERED, MAX_SMEM,
@@ -220,7 +220,9 @@ def vi_config(grid, vi, tracer_scheme, n_tracers, coriolis):
 
     def code(site, scheme, smoothing=True):
         try:
-            c = scheme_code(scheme)
+            # #10 takes one scheme a site: a FluxFormAdvection's axes differ
+            c = (None if isinstance(scheme, FluxFormAdvection)
+                 else scheme_code(scheme))
         except NotImplementedError:
             c = None
         if c is None or c[0] == BOUNDED_WENO_FAMILY:
@@ -333,12 +335,30 @@ def variant_name(cfg):
             + ("_md" if cfg["md"] else ""))
 
 
+def high_walls(grid):
+    """(bx, by): 1 where the high x (y) side is a wall, whose boundary-face
+    row of u (v) the function writes: a bounded axis's, but on a shard's
+    grid only the global grid's own wall (``wall_sides``)."""
+    return tuple(int(wall_sides(grid, ax)[1]) for ax in (0, 1))
+
+
+def cascade_geometry(grid):
+    """Per horizontal axis (bounded, H - offset, global N): the near-wall
+    cascade counts from the global walls (``global_extent``)."""
+    out = []
+    for ax in (0, 1):
+        offset, n = global_extent(grid, ax)
+        out.append((int(grid.topology[ax] == BOUNDED), grid.H[ax] - offset,
+                    n))
+    return out
+
+
 def kept_slices(grid):
     """(Gu, Gv, Gc) regions the function writes: the interiors, plus the
-    boundary-face row of u on a bounded x and of v on a bounded y."""
+    boundary-face row of u on a bounded x and of v on a bounded y (on a
+    shard's grid, at the global grid's walls only)."""
     (Hx, Hy, Hz), (Nx, Ny, Nz) = grid.H, grid.N
-    bx = int(grid.topology[0] == BOUNDED)
-    by = int(grid.topology[1] == BOUNDED)
+    bx, by = high_walls(grid)
     z = slice(Hz, Hz + Nz)
     return ((slice(Hx, Hx + Nx + bx), slice(Hy, Hy + Ny), z),
             (slice(Hx, Hx + Nx), slice(Hy, Hy + Ny + by), z),
@@ -719,8 +739,7 @@ def launch_plan(grid, cfg, dtype):
     esize = torch.empty((), dtype=dtype).element_size()
     tile = pick_tile(cfg, esize)
     (Nx, Ny, Nz) = grid.N
-    bx = int(grid.topology[0] == BOUNDED)
-    by = int(grid.topology[1] == BOUNDED)
+    bx, by = high_walls(grid)
     tiles = tuple(-(-n // t) for n, t in zip((Nx + bx, Ny + by, Nz), tile))
     ny, nz = row_counts(cfg)
     return dict(tile=tile, tiles=tiles, blocks=tiles[0] * tiles[1] * tiles[2],
@@ -732,17 +751,18 @@ def launch_plan(grid, cfg, dtype):
 # The C entry's int configuration (csrc/vi_kernel.cuh Conf): the geometry,
 # the codes, the reaches, the multi-dimensional stencil's flag, then per
 # site its family, buffer and first coefficient row (-1 on a uniform axis).
-CONF_HEAD = 26
+CONF_HEAD = 32
 
 
 def conf_array(grid, cfg, plan, n_tr, with_ph, momentum):
     (Nx, Ny, Nz), (Hx, Hy, Hz) = grid.N, grid.H
     bases, _, _ = site_bases(cfg)
-    head = [Nx, Ny, Nz, Hx, Hy, Hz, int(grid.topology[0] == BOUNDED),
-            int(grid.topology[1] == BOUNDED), cfg["vort"], cfg["vort_sm"],
-            cfg["ke"], cfg["vert"], cfg["upw"], cfg["cor"], n_tr,
-            int(with_ph), int(momentum), cfg["KM"],
-            *plan["reach"], *plan["rows"], int(cfg["zs"]), cfg["md"]]
+    (cx, hox, gnx), (cy, hoy, gny) = cascade_geometry(grid)
+    head = [Nx, Ny, Nz, Hx, Hy, Hz, *high_walls(grid), cfg["vort"],
+            cfg["vort_sm"], cfg["ke"], cfg["vert"], cfg["upw"], cfg["cor"],
+            n_tr, int(with_ph), int(momentum), cfg["KM"],
+            *plan["reach"], *plan["rows"], int(cfg["zs"]), cfg["md"],
+            cx, cy, hox, hoy, gnx, gny]
     assert len(head) == CONF_HEAD
     fam = [cfg["sites"].get(s, (0, 0))[0] for s in SITES]
     K = [cfg["sites"].get(s, (0, 0))[1] for s in SITES]

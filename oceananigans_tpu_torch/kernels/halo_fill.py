@@ -75,11 +75,15 @@ kernel. Bound on the H100: data movement only (each written slot read once
 and written once); the z ends of interior columns are a few bytes of each
 row, so 32-byte DRAM sectors set the floor of a bounded-z fill.
 
-On a shard's grid (``parallel/distributed.py`` ``Shard``) the sides of
-the axes connected to other shards keep their values (``KEEP``) and the
-fill ends with the halo exchange of the mesh (``exchange_connected``): the
-z halos are filled first, so the exchanged strips carry them into the x
-and y halos, as the serial fill's x → y → z order puts them there.
+On a shard's grid (``parallel/distributed.py`` ``Shard``) the sides
+connected to other shards keep their values (``KEEP``, side by side: a
+bounded axis's walls are filled on the edge shards' outer sides only) and
+the fill ends with the halo exchange of the mesh (``exchange_connected``;
+the tripolar fold across the top row of shards is the exchange's): the z
+halos are filled first, so the exchanged strips carry them into the x and
+y halos, as the serial fill's x → y → z order puts them there, and the
+exchange's strips over the full extent of the other axis carry the walls'
+halos into the corners.
 
 The fills update the tensors in place (as the TPU kernels alias their
 outputs to their inputs) and return them.
@@ -95,7 +99,8 @@ import numpy as np
 import torch
 
 from ..boundary_conditions import boundary_condition as bcm
-from ..grids.topology import BOUNDED, CENTER, FACE, PERIODIC
+from ..grids.topology import (BOUNDED, CENTER, FACE, PERIODIC,
+                              side_connected)
 from . import build
 
 MAX_H = 8
@@ -209,19 +214,25 @@ def wrap_axes(grid):
 
 
 def connected(grid, axis):
-    """Whether ``axis`` of a shard's grid is connected to the neighbouring
-    shards: its halos come from the halo exchange, and the fill keeps them
-    (``KEEP``)."""
-    return bool(getattr(grid, "connected", (False,) * 3)[axis])
+    """Whether a side of ``axis`` of a shard's grid is connected to a
+    neighbouring shard: its halo comes from the halo exchange, and the fill
+    keeps it (``KEEP``; ``side_connected`` says which side)."""
+    return any(side_connected(grid, axis))
 
 
-def exchange_connected(grid, fields):
+def exchange_connected(grid, fields, locs_bcs=None):
     """End a fill of a shard's ``fields`` with the halo exchange of its
     connected axes (every other shard's fill meets it there); nothing on a
-    grid with no connected axis."""
+    grid with no connected axis. With ``locs_bcs`` the fields whose north
+    side is a tripolar fold are folded across the top row of shards."""
     shard = getattr(grid, "shard", None)
     if shard is not None and any(connected(grid, a) for a in (0, 1)):
-        shard.exchange(fields)
+        fold = None
+        if locs_bcs is not None and getattr(grid, "zipper_north", False):
+            fold = [(float(bcs.north.condition), loc[0] == FACE,
+                     loc[1] == FACE) if _is_fold(bcs.north) else None
+                    for loc, bcs in locs_bcs]
+        shard.exchange(fields, fold=fold)
     return fields
 
 
@@ -292,16 +303,23 @@ def fill_bounded_axis(a, grid, loc, bcs, axis, planes=None, pa=False):
         fill_bounded_axis.cuda_calls += 1
     left, right = bcs.pair(axis)
     face = loc[axis] == FACE
-    narrow = narrow_slots((_side_code(left, face, pa), 0.0,
-                           _side_code(right, face, pa), 0.0), N, H)
+    keep = side_connected(grid, axis)
+    narrow = narrow_slots(tuple(
+        x for side, bc in enumerate((left, right))
+        for x in ((KEEP if keep[side] else _side_code(bc, face, pa)), 0.0)),
+        N, H)
     kept = {n: a.narrow(axis, n, 1).clone() for n in narrow}
-    _fill_bounded_sides(a, grid, loc, left, right, axis, planes or {}, pa)
+    _fill_bounded_sides(a, grid, loc, left, right, axis, planes or {}, pa,
+                        keep)
     for n, old in kept.items():
         a.narrow(axis, n, 1).copy_(old)
     return a
 
 
-def _fill_bounded_sides(a, grid, loc, left, right, axis, planes, pa):
+def _fill_bounded_sides(a, grid, loc, left, right, axis, planes, pa,
+                        keep=(False, False)):
+    """The two sides of ``fill_bounded_axis``; a side that ``keep`` names
+    (connected to another shard) is left as it is."""
     H, N = grid.H[axis], grid.N[axis]
     cls_l, cls_r = _classification(left), _classification(right)
     fold = _is_fold(right)
@@ -321,7 +339,9 @@ def _fill_bounded_sides(a, grid, loc, left, right, axis, planes, pa):
 
     if loc[axis] == CENTER:
         xC = grid.coord_padded(axis, CENTER)
-        if cls_l in (bcm.FLUX, bcm.OPEN):
+        if keep[0]:
+            pass
+        elif cls_l in (bcm.FLUX, bcm.OPEN):
             sl(0, H).copy_(flipped(H, 2 * H))
         elif cls_l in (bcm.VALUE, bcm.GRADIENT):
             vv = value(left, True)
@@ -332,7 +352,7 @@ def _fill_bounded_sides(a, grid, loc, left, right, axis, planes, pa):
                 sl(m, m + 1).copy_(c1 - grad * (xC[H] - xC[m]))
         else:
             raise ValueError(f"unsupported BC {cls_l} for a centered location")
-        if fold:
+        if fold or keep[1]:
             return a            # its north rows were folded first
         if cls_r in (bcm.FLUX, bcm.OPEN):
             sl(H + N, 2 * H + N).copy_(flipped(N, H + N))
@@ -351,20 +371,25 @@ def _fill_bounded_sides(a, grid, loc, left, right, axis, planes, pa):
     # the wall-normal face field: slot H is the left boundary face, slot H+N
     # the right one
     pa_l, pa_r = _is_pa(left, pa), _is_pa(right, pa) and not fold
-    vL = value(left, True) if cls_l in (bcm.OPEN, bcm.VALUE) else None
+    vL = (value(left, True) if cls_l in (bcm.OPEN, bcm.VALUE)
+          and not keep[0] else None)
     vR = (value(right, False) if cls_r in (bcm.OPEN, bcm.VALUE)
-          and not fold else None)
+          and not fold and not keep[1] else None)
     for v, slot in ((vL, H), (vR, H + N)):
         if v is not None:
             sl(slot, slot + 1).copy_(torch.as_tensor(
                 v, dtype=a.dtype).expand_as(sl(slot, slot + 1)))
     low = flipped(H + 1, 2 * H + 1)
     high = flipped(N + 1, H + N)
-    if pa_l:
+    if keep[0]:
+        pass
+    elif pa_l:
         sl(0, H).copy_(vL.expand_as(sl(0, H)))
     else:
         sl(0, H).copy_(low if vL is None else 2 * vL - low)
-    if pa_r:
+    if keep[1]:
+        pass
+    elif pa_r:
         sl(H + N + 1, 2 * H + N).copy_(vR.expand_as(sl(H + N + 1, 2 * H + N)))
     elif not fold:
         sl(H + N + 1, 2 * H + N).copy_(high if vR is None else 2 * vR - high)
@@ -537,9 +562,9 @@ def _fill_sequence(grid, fields, locs_bcs, z, pa, planes, until=3):
                and grid.H[ax] > 0 for ax in range(3)]
     if bounded[1] and until >= 2:
         # the fold first, over the interior x, so that the wrap carries the
-        # folded rows into the corners
+        # folded rows into the corners (a shard's fold is its exchange's)
         for a, (loc, bcs) in zip(fields, locs_bcs):
-            if _is_fold(bcs.north):
+            if _is_fold(bcs.north) and not side_connected(grid, 1)[1]:
                 fold_north(a, grid, loc, bcs)
     if bounded[0] and until > 0:
         for a, (loc, bcs), pl in zip(fields, locs_bcs, planes):
@@ -717,7 +742,8 @@ def fill_codes(grid, shape, locs_bcs=None, n=1, z=True, pa=False, until=3):
             topo = grid.topology[ax]
             keep = (KEEP, 0.0, KEEP, 0.0)
             if H == 0 or (ax == 2 and not z) or ax >= until or \
-                    topo not in (PERIODIC, BOUNDED) or connected(grid, ax):
+                    topo not in (PERIODIC, BOUNDED) or \
+                    all(side_connected(grid, ax)):
                 axes.append(keep)
             elif topo == PERIODIC:
                 # a periodic axis wraps whatever conditions its sides name,
@@ -734,6 +760,11 @@ def fill_codes(grid, shape, locs_bcs=None, n=1, z=True, pa=False, until=3):
                 face = loc[ax] == FACE
                 codes = (_side_code(low, face, pa), _value(low),
                          _side_code(high, face, pa), _value(high))
+                # a side connected to another shard is the exchange's
+                for side, on in enumerate(side_connected(grid, ax)):
+                    if on:
+                        codes = (codes[:2 * side] + (KEEP, 0.0)
+                                 + codes[2 * side + 2:])
                 if H > MAX_H:
                     raise ValueError(f"a bounded halo fill needs H <= "
                                      f"{MAX_H} along axis {ax} (H={H})")
@@ -835,9 +866,8 @@ def kept_range(codes, N, H, P):
     """The slots [lo, hi) along an axis that its map leaves as they are
     (``kept`` in csrc/halo_fill.cu)."""
     low, _, high, _ = codes
-    if low == KEEP:
-        return 0, P
-    return H + (low in PINS), H + N + (high == REFLECT) - (high == FOLD)
+    return (0 if low == KEEP else H + (low in PINS),
+            P if high == KEEP else H + N + (high == REFLECT) - (high == FOLD))
 
 
 def extrapolated_slots(grid, shape, locs_bcs, z=True):
@@ -891,9 +921,16 @@ def _plane_size(shape, axis):
     return int(np.prod([n for ax, n in enumerate(shape) if ax != axis]))
 
 
+def fills_nothing(codes):
+    """Whether ``fill_codes``' codes keep every side of every axis (no
+    launch): a shard's grid may keep one side of an axis and fill the
+    other."""
+    return all(c[0] == KEEP and c[2] == KEEP for f in codes for c in f)
+
+
 def _build_plan(grid, shape, dtype, n, locs_bcs, z, pa, until):
     codes = fill_codes(grid, shape, locs_bcs, n, z, pa=pa, until=until)
-    if all(c[0] == KEEP for f in codes for c in f):
+    if fills_nothing(codes):
         return _Plan([], None)
     geom = axis_geometry(grid, shape)
     ints = lambda xs: (ctypes.c_int * len(xs))(*xs)
@@ -987,7 +1024,7 @@ def fill_halos(grid, fields, locs_bcs=None, z=True, time=0.0, dt=None):
         fill_halos_plain(grid, fields, locs_bcs, z, time, dt)
     else:
         _launch(grid, fields, locs_bcs, z, time, dt)
-    return exchange_connected(grid, fields)
+    return exchange_connected(grid, fields, locs_bcs)
 
 
 def _launch(grid, fields, locs_bcs, z, time, dt, until=3):

@@ -33,6 +33,7 @@ from ..defaults import defaults, numpy_dtype
 from ..grids.cubed_sphere import concat_panels_grid
 from ..grids.orthogonal_spherical_shell import _spherical_triangle_excess
 from ..grids.topology import LOC_CCC, LOC_CFC, LOC_FCC
+from ..parallel.distributed import MESH_ITEM, MeshModel
 from ..operators.operators import (ddx, ddy, dx_c, dy_c, ix_c, ix_f, iy_c,
                                    iy_f, zeta3_ffc)
 from ..utils.dateclock import datetime_of
@@ -173,13 +174,19 @@ class VertexFix:
         return hff
 
 
-class CubedSphereShallowWaterModel:
+class CubedSphereShallowWaterModel(MeshModel):
     """Rotating shallow water on a ``ConformalCubedSphereGrid``.
 
     ``fields``: ``h`` (the fluid thickness at the centres) and ``u``, ``v``
     (the staggered local components), all (6, NP, NP, 1).
     ``rotation_rate``: Ω about ẑ (f = 2Ω sin φ taken exactly at the (f, f)
     nodes). ``pv_scheme``: "energy_conserving" or "enstrophy_conserving"."""
+
+    def _enter_mesh(self, arch):
+        # the panels are not sharded yet: JAX's call shape raises
+        raise NotImplementedError(
+            f"the cubed-sphere shallow-water model sharded over its panels "
+            f"under a device mesh: {MESH_ITEM} part 2")
 
     def __init__(self, grid, gravity=None, rotation_rate=0.0,
                  pv_scheme="energy_conserving", reference_datetime=None):

@@ -92,6 +92,24 @@ outside the σ-weighted update, as in JAX.
 Biogeochemistry (reactions and drift, ``biogeochemistry.py``) adds to the
 tracer tendencies; auxiliary fields are carried on the model and read by
 the forcings.
+
+On a device mesh (JAX's call shape ``model.state = arch.shard(model.state)``
+with ``arch = Distributed(...)``, or ``architecture=arch`` when built) the
+model is a domain decomposition on resident blocks, as the NH model's
+(``parallel/distributed.py``): one model of this class a shard on its local
+grid (a RectilinearGrid's, a LatitudeLongitudeGrid's or a shell grid's, the
+tripolar one included: nodes, metrics and rotation angles cut from the
+global grid's tables, so every block cell sees the serial operands), in
+threads that meet only in the halo exchange that ends every fill (the
+tripolar fold across the top row of shards included), the implicit free
+surface's pencil solve over x and y (``_implicit_free_surface_solve``) and
+its conjugate gradients' sums, and the reductions of the CFL, the wizard and
+the NaN check. The step assembles no global view; the split-explicit and
+explicit steps equal the serial step bit for bit. The updated tracers that
+the substepped TKE reads unfilled take their neighbours' values across the
+shards' own boundaries (``_exchange_updated``), as the serial model reads
+them. It refuses, citing ROADMAP item 16b part 2, a stretched x or y and
+polar caps.
 """
 
 from __future__ import annotations
@@ -125,6 +143,9 @@ from ..kernels.fused_vector_invariant import (tracer_advection_plain,
                                               vi_config)
 from ..operators.operators import (_metric, ddx, ddy, div_xy_ccc, dx_c, dy_c,
                                    interp)
+from ..parallel.distributed import (MESH_ITEM, MeshModel,
+                                    refuse_boundary_values,
+                                    regularize_architecture)
 from ..timesteppers import (QuasiAdamsBashforth2TimeStepper,
                             SplitRungeKutta3TimeStepper)
 from ..utils.dateclock import datetime_of
@@ -246,7 +267,7 @@ def _positive(x):
     return max(float(x), 0.0)
 
 
-class HydrostaticFreeSurfaceModel:
+class HydrostaticFreeSurfaceModel(MeshModel):
     # the cubed sphere's panel physics (models/cubed_sphere_hydrostatic.py)
     # sets the vertex-corrected vorticity and keeps the stencil values in
     # the tendencies' halos
@@ -259,7 +280,21 @@ class HydrostaticFreeSurfaceModel:
                  velocities=None, timestepper="QuasiAdamsBashforth2",
                  vertical_coordinate="z", biogeochemistry=None,
                  auxiliary_fields=None, fused_tendencies="auto",
-                 reference_datetime=None, device=None, dtype=None):
+                 reference_datetime=None, device=None, dtype=None,
+                 architecture=None):
+        self.architecture = None
+        # the arguments a shard's model is built from (``_enter_mesh``)
+        self._shard_kw = dict(
+            momentum_advection=momentum_advection,
+            tracer_advection=tracer_advection, free_surface=free_surface,
+            tracers=tracers, buoyancy=buoyancy, coriolis=coriolis,
+            closure=closure, forcing=forcing,
+            boundary_conditions=boundary_conditions, velocities=velocities,
+            timestepper=timestepper, vertical_coordinate=vertical_coordinate,
+            biogeochemistry=biogeochemistry,
+            auxiliary_fields=auxiliary_fields,
+            fused_tendencies=fused_tendencies,
+            reference_datetime=reference_datetime)
         if velocities is not None and not isinstance(
                 velocities, PrescribedVelocityFields):
             raise ValueError(f"velocities={velocities!r}: a "
@@ -298,6 +333,7 @@ class HydrostaticFreeSurfaceModel:
             grid = grid.to(device=device, dtype=dtype)
         if free_surface is None:
             free_surface = default_free_surface(grid)
+            self._shard_kw["free_surface"] = free_surface
         if not isinstance(free_surface, (ExplicitFreeSurface,
                                          ImplicitFreeSurface,
                                          SplitExplicitFreeSurface)):
@@ -437,6 +473,57 @@ class HydrostaticFreeSurfaceModel:
             # AB2 memory of δh_U
             for key in ZSTAR_STATE:
                 self.state[key] = self._zeros(shape[:2] + (1,))
+        architecture = regularize_architecture(architecture)
+        if architecture is not None:
+            self._enter_mesh(architecture)
+
+    # -- the shards of a model on a device mesh --------------------------------
+
+    def _refuse_under_mesh(self):
+        """What the mesh does not take yet raises, citing ROADMAP item 16b:
+        a stretched x or y and polar caps (part 2), the boundary conditions
+        of ``refuse_boundary_values``; a grid with no ``local_grid`` (the
+        cubed sphere's panels) raises in ``shard_grid``."""
+        grid = self.grid
+        for ax in (0, 1):
+            if not grid.is_flat(ax) and not grid.regular(ax):
+                raise NotImplementedError(
+                    f"a stretched sharded axis {'xy'[ax]}: {MESH_ITEM} "
+                    f"part 2")
+        if getattr(grid, "polar_south", False) or \
+                getattr(grid, "polar_north", False):
+            raise NotImplementedError(
+                f"polar caps under a device mesh (their zonal means reduce "
+                f"along x): {MESH_ITEM} part 2")
+        refuse_boundary_values(self.bcs)
+
+    def _enter_mesh(self, arch):
+        """Put the model on the device mesh ``arch``: one model of this
+        class per shard, on the shard's local grid, built from this model's
+        arguments; the shards meet in the halo exchange, the pencil solver
+        of the implicit free surface (x and y alone) and the reductions.
+        This model's own state is dropped: assign a state to scatter it."""
+        from ..parallel.pencil_fft import DistributedFFTPoissonSolver
+        self._refuse_under_mesh()
+        fs = self.free_surface
+        pencil = (isinstance(fs, ImplicitFreeSurface) and (
+            self._ifs_method == "FastFourierTransform"
+            or self._pcg_precondition))
+        arch.place(self.grid, pencil=pencil)
+        shards = arch.shards(self.grid)
+        if pencil:
+            solver = DistributedFFTPoissonSolver(self.grid, arch,
+                                                 horizontal=True)
+            for sh in shards:
+                sh.pencil = solver
+        self.architecture = arch
+        self._comm = arch.communicator
+        self._shards = [HydrostaticFreeSurfaceModel(sh.grid, **self._shard_kw)
+                        for sh in shards]
+        for m in self._shards:
+            m._tendency_hooks = list(self._tendency_hooks)
+            m._state_hooks = list(self._state_hooks)
+        self._state = None
 
     def _setup_implicit_free_surface(self, H_fc, H_cf):
         """The implicit free surface's solver, chosen as in JAX: the FFT/DCT
@@ -688,7 +775,7 @@ class HydrostaticFreeSurfaceModel:
 
     @property
     def time(self):
-        return float(self.state["clock"]["time"])
+        return float(self._clock["time"])
 
     @property
     def datetime(self):
@@ -698,12 +785,20 @@ class HydrostaticFreeSurfaceModel:
 
     @property
     def iteration(self):
-        return int(self.state["clock"]["iteration"])
+        return int(self._clock["iteration"])
 
     def field(self, name):
+        """The field ``name`` (an auxiliary field is the user's own); on a
+        device mesh, a gathered copy of the shards' blocks."""
         if name in self.auxiliary_fields:
             return self.auxiliary_fields[name]
-        data = self.state["w"] if name == "w" else self.state["fields"][name]
+        if self._shards is not None:
+            data = self.architecture.gather(
+                [m._state["w"] if name == "w" else m._state["fields"][name]
+                 for m in self._shards], self.grid.H)
+        else:
+            data = (self.state["w"] if name == "w"
+                    else self.state["fields"][name])
         return Field(self.grid, self.loc(name), self.bcs[name], data,
                      _regularize=False)
 
@@ -772,8 +867,21 @@ class HydrostaticFreeSurfaceModel:
         rotated into the grid's directions, halo-filled (with a −1 fold on a
         tripolar grid: the components are antisymmetric across the fold even
         at the centres), then interpolated to their faces, as in JAX."""
+        data = self._set_data(values, intrinsic_velocities)
+        if self._shards is not None:
+            # evaluated on the global grid, then each shard fills its blocks
+            blocks = self.architecture.scatter(data, self.grid.H)
+            self._comm.run(lambda r: self._shards[r]._set_blocks(blocks[r]))
+            return
+        self._set_blocks(data)
+
+    def _set_data(self, values, intrinsic_velocities):
+        """{name: padded tensor} of ``set``'s values on the model's grid
+        before their fills: η as a (Nx + 2Hx, Ny + 2Hy, 1) surface; u and v
+        of a shell grid rotated and interpolated to their faces."""
         from ..grids.orthogonal_spherical_shell import (
             OrthogonalSphericalShellGrid, rotate_from_geographic)
+        values = dict(values)
         base = getattr(self.grid, "underlying_grid", self.grid)
         if (isinstance(base, OrthogonalSphericalShellGrid)
                 and not intrinsic_velocities
@@ -792,9 +900,9 @@ class HydrostaticFreeSurfaceModel:
                                   [(LOC_CCC, cbcs), (LOC_CCC, cbcs)])
             values["u"] = ix_f(self.grid, ui)
             values["v"] = iy_f(self.grid, vi)
-        fields = dict(self.state["fields"])
+        data = {}
         for name, value in values.items():
-            if name not in fields:
+            if name not in self.prognostic_names:
                 raise ValueError(f"unknown prognostic field {name!r}")
             if name == "eta":
                 if not callable(value) and not np.isscalar(value):
@@ -807,18 +915,29 @@ class HydrostaticFreeSurfaceModel:
                         v2 = v2.expand(tuple(v2.shape[:2])
                                        + (self.grid.N[2],))
                     value = v2
-                data = set_on_padded(self.grid, LOC_CCC, value)
-                kz = self.grid.H[2] if data.shape[2] > self.grid.H[2] else 0
-                data = data[:, :, kz:kz + 1].clone()
-                fields["eta"] = self._fill_surface(data, LOC_CCC,
+                eta = set_on_padded(self.grid, LOC_CCC, value)
+                kz = self.grid.H[2] if eta.shape[2] > self.grid.H[2] else 0
+                data["eta"] = eta[:, :, kz:kz + 1].clone()
+                continue
+            data[name] = set_on_padded(self.grid, self.loc(name), value)
+        return data
+
+    def _set_blocks(self, data):
+        """The rest of ``set`` from ``_set_data``'s tensors (on a device mesh
+        each shard's blocks of them): the fills, the immersed masks, the
+        grid's η under z* and the barotropic transports."""
+        values = data
+        fields = dict(self.state["fields"])
+        for name, value in data.items():
+            if name == "eta":
+                fields["eta"] = self._fill_surface(value, LOC_CCC,
                                                    self.bcs["eta"])
                 continue
-            data = set_on_padded(self.grid, self.loc(name), value)
             if self._immersed:
-                data = self.grid.mask_immersed(data, self.loc(name))
-            fill_all_halo_regions([data], self.grid,
+                value = self.grid.mask_immersed(value, self.loc(name))
+            fill_all_halo_regions([value], self.grid,
                                   [(self.loc(name), self.bcs[name])])
-            fields[name] = data
+            fields[name] = value
         self.state = {**self.state, "fields": fields}
         if "eta_grid" in self.state and "eta" in values:
             # the grid's η starts from the same free surface
@@ -1079,13 +1198,19 @@ class HydrostaticFreeSurfaceModel:
     def add_tendency_hook(self, fn):
         """Register ``fn(grid, fields, G, time) -> G``, called on the padded
         tendencies of u, v and the tracers after the boundary fluxes; the
-        fused tendency kernel stays on (the hook follows it)."""
+        fused tendency kernel stays on (the hook follows it). On a device
+        mesh every shard calls it on its own blocks and grid."""
+        for m in self._shards or ():
+            m.add_tendency_hook(fn)
         self._tendency_hooks.append(fn)
         return fn
 
     def add_state_hook(self, fn):
         """Register ``fn(grid, fields, time) -> {name: padded tensor}``,
-        whose updates replace fields at the end of every step."""
+        whose updates replace fields at the end of every step (on a device
+        mesh, every shard's)."""
+        for m in self._shards or ():
+            m.add_state_hook(fn)
         self._state_hooks.append(fn)
         return fn
 
@@ -1122,6 +1247,19 @@ class HydrostaticFreeSurfaceModel:
         if hasattr(self.closure, "clip_fields") and not self._substepped_tke:
             new = self.closure.clip_fields(new)
         return new
+
+    def _exchange_updated(self, fnew):
+        """On a shard's grid, the updated tracers that the substepped TKE
+        reads unfilled (as the serial model reads them: ROADMAP.md queue 3)
+        take their neighbours' updated values across the shards' own
+        boundaries, the global grid's interior; at its walls, its periodic
+        seam and the fold they keep the step's start, as the serial model's
+        halos do."""
+        shard = getattr(self.grid, "shard", None)
+        if shard is not None:
+            shard.exchange([fnew[n] for n in self.tracer_names
+                            if n not in self._substepped_names],
+                           periodic=(False, False))
 
     def tke_substeps(self, dt):
         """CATKE's substep count M for a step of ``dt`` (1 without a
@@ -1177,7 +1315,17 @@ class HydrostaticFreeSurfaceModel:
         return new, None
 
     def time_step(self, dt):
-        """Advance the model by one step of Δt (quasi-AB2 or split RK3)."""
+        """Advance the model by one step of Δt (quasi-AB2 or split RK3; on
+        a device mesh every shard's blocks, in the shards' threads, the
+        auxiliary fields as they are now scattered first)."""
+        if self._shards is not None:
+            if self.auxiliary_fields:
+                aux = self.architecture.scatter(auxiliary_data(
+                    self.grid, self.auxiliary_fields), self.grid.H)
+                for m, a in zip(self._shards, aux):
+                    m._state = dict(m._state, aux=a)
+            self._run(lambda m: m.time_step(dt))
+            return self
         if self.auxiliary_fields:
             # the step reads the auxiliary fields as they are now
             self.state = dict(self.state, aux=auxiliary_data(
@@ -1259,6 +1407,7 @@ class HydrostaticFreeSurfaceModel:
             fnew = dict(new)
             fnew.update(u=uf, v=vf,
                         **{nm: fields[nm] for nm in self._substepped_names})
+            self._exchange_updated(fnew)
             slow = {nm: G[nm] for nm in self._substepped_names}
             prev = {nm: Gm[nm] for nm in self._substepped_names}
             upd, Gm_t = self.closure.step_turbulence(
@@ -1343,6 +1492,7 @@ class HydrostaticFreeSurfaceModel:
                 fnew = dict(new)
                 fnew.update(u=uf, v=vf, **{nm: fields0[nm] for nm in
                                            self._substepped_names})
+                self._exchange_updated(fnew)
                 slow = {nm: G[nm] for nm in self._substepped_names}
                 upd, _ = self.closure.step_turbulence(
                     self.grid, ff, fnew, slow, slow, sdt, -0.5, True, 1,
@@ -1464,11 +1614,19 @@ class HydrostaticFreeSurfaceModel:
         column depth (the constant depth of the PCG preconditioner)."""
         grid = self.grid
         sx, sy = grid.interior_slices[:2]
-        b = self._transform(eta_rhs[sx, sy, :])
         g = self.free_surface.g
         H = self._H_fc if H is None else H
-        b = b / (1.0 + g * H * dt * dt * self._fs_lam.to(eta_rhs.dtype))
-        b = self._transform(b, inverse=True)
+        shard = getattr(grid, "shard", None)
+        if shard is not None:
+            # the pencil over x and y, with this operator's divide
+            c = g * H * dt * dt
+            b = shard.pencil.solve_block(
+                shard.rank, eta_rhs[sx, sy, :].contiguous(),
+                spectral=lambda bh, lam: bh / (1.0 + c * lam))
+        else:
+            b = self._transform(eta_rhs[sx, sy, :])
+            b = b / (1.0 + g * H * dt * dt * self._fs_lam.to(eta_rhs.dtype))
+            b = self._transform(b, inverse=True)
         if b.is_complex():
             b = b.real
         eta = torch.zeros_like(eta_rhs)
@@ -1519,9 +1677,14 @@ class HydrostaticFreeSurfaceModel:
                     sx, sy, :]
 
         reltol = 1e-7 if eta_n.dtype == torch.float64 else 1e-5
+        # on a shard's grid the dot products sum over the mesh, and the
+        # iteration cap is the global grid's
+        shard = getattr(grid, "shard", None)
+        n_xy = (grid.N[0] * grid.N[1] if shard is None else
+                shard.global_grid.N[0] * shard.global_grid.N[1])
         x, _, _ = conjugate_gradient(
             L, rhs, x0=eta_n[sx, sy, :], preconditioner=precond,
-            reltol=reltol, maxiter=grid.N[0] * grid.N[1])
+            reltol=reltol, maxiter=n_xy, shard=shard)
         return embed(x)
 
     def _implicit_eta_step(self, eta_n, new, U, V, dt):

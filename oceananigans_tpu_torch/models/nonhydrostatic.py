@@ -92,12 +92,15 @@ its dot products summed over the mesh and the pencil solver as its
 preconditioner), and the diagnostics reduce over the shards. The advective
 tendency is #7 on each shard's blocks (``shard_fused_advection``) where the
 serial model takes #6. As in the JAX package the fused update route and
-the fused correction stay off under a mesh. The mesh takes periodic x and
-y with a periodic, bounded, flat or stretched z, either layout, immersed
-bottoms and auxiliary fields; ``model.state`` then returns a gathered copy
-(writes into it do not reach the shards) and ``model.state = ...`` (or
+the fused correction stay off under a mesh. The mesh takes periodic or
+bounded x and y (a bounded axis's walls on the edge shards' outer sides,
+the near-wall cascades counted from them, the plain flux divergences as
+JAX's ``eligible`` gives, the pencil's DCT along the axis) with a periodic,
+bounded, flat or stretched z, either layout, immersed bottoms and
+auxiliary fields; ``model.state`` then returns a gathered copy (writes into
+it do not reach the shards) and ``model.state = ...`` (or
 ``arch.shard(...)``) scatters a global-view state into the blocks. It
-refuses, citing ROADMAP item 16b, bounded or stretched x and y, curvilinear
+refuses, citing ROADMAP item 16b, stretched x and y, curvilinear
 grids and the CG solvers of multiply stretched ones, particles, Open and
 PerturbationAdvection boundaries and array boundary values. Sharded ≡
 serial holds to rounding: the pencil transforms y and x in complex form
@@ -131,7 +134,7 @@ from ..fields import Field, set_on_padded
 from ..forcings.forcings import regularize_forcing
 from ..grids.base import numpy_metric
 from ..grids.topology import (BOUNDED, FACE, LOC_CCC, LOC_CCF, LOC_CFC,
-                              LOC_FCC, PERIODIC)
+                              LOC_FCC, PERIODIC, wall_sides)
 from ..immersed import ImmersedBoundaryGrid
 from ..kernels import (fused_advection_tendency, fused_advection_update,
                        fused_correct, fused_divergence, periodic_halo_fill)
@@ -139,7 +142,9 @@ from ..kernels.fused_advection import (bounded_refusal,
                                       kernel_tendency_eligible)
 from ..kernels.fused_advection import shard_fused_advection
 from ..kernels.halo_fill import exchange_connected
-from ..parallel.distributed import MESH_ITEM, regularize_architecture
+from ..parallel.distributed import (MESH_ITEM, MeshModel,
+                                    refuse_boundary_values,
+                                    regularize_architecture)
 from ..solvers.fft_poisson import FFTPoissonSolver
 from ..solvers.fourier_tridiagonal import FourierTridiagonalPoissonSolver
 from ..solvers.tridiagonal import solve_batched_tridiagonal
@@ -226,7 +231,7 @@ def mesh_pressure_solver(grid, arch, pressure_solver=None):
     return DistributedFFTPoissonSolver(under, arch)
 
 
-class NonhydrostaticModel:
+class NonhydrostaticModel(MeshModel):
     def __init__(self, grid, advection=None, tracers=(), buoyancy=None,
                  coriolis=None, closure=None, forcing=None,
                  boundary_conditions=None, timestepper="RungeKutta3",
@@ -235,18 +240,16 @@ class NonhydrostaticModel:
                  auxiliary_fields=None, fuse_correction=True,
                  architecture=None, reference_datetime=None, device=None,
                  dtype=None):
-        self._shards = None
-        # the arguments a shard's model is built from (``_build_shards``)
-        shard_kw = dict(advection=advection, tracers=tracers,
-                        buoyancy=buoyancy, coriolis=coriolis,
-                        closure=closure, forcing=forcing,
-                        boundary_conditions=boundary_conditions,
-                        timestepper=timestepper,
-                        background_fields=background_fields,
-                        stokes_drift=stokes_drift,
-                        biogeochemistry=biogeochemistry,
-                        fuse_correction=fuse_correction,
-                        reference_datetime=reference_datetime)
+        self.architecture = None
+        # the arguments a shard's model is built from (``_enter_mesh``)
+        self._shard_kw = dict(
+            advection=advection, tracers=tracers, buoyancy=buoyancy,
+            coriolis=coriolis, closure=closure, forcing=forcing,
+            boundary_conditions=boundary_conditions, timestepper=timestepper,
+            background_fields=background_fields, stokes_drift=stokes_drift,
+            biogeochemistry=biogeochemistry, fuse_correction=fuse_correction,
+            reference_datetime=reference_datetime)
+        self._user_pressure_solver = pressure_solver
         if isinstance(closure, (tuple, list)):
             closure = ClosureTuple(*closure)
         if closure is not None and not isinstance(closure, _ClosureBase):
@@ -255,12 +258,9 @@ class NonhydrostaticModel:
                 "closures/")
         if device is not None or dtype is not None:
             grid = grid.to(device=device, dtype=dtype)
-        self.architecture = regularize_architecture(architecture)
-        if self.architecture is not None:
-            self.architecture.place(grid, pencil=True)
-            if particles is not None:
-                raise NotImplementedError(
-                    f"Lagrangian particles under a device mesh: {MESH_ITEM}")
+        architecture = regularize_architecture(architecture)
+        if architecture is not None:
+            architecture.place(grid, pencil=True)
         self.reference_datetime = reference_datetime
         self._tendency_hooks = []
         self._state_hooks = []
@@ -325,7 +325,7 @@ class NonhydrostaticModel:
         self._fused_update = (
             self._z_compact and buoyancy is None and coriolis is None
             and isinstance(self.timestepper, RungeKutta3TimeStepper)
-            and self.architecture is None
+            and architecture is None
             and getattr(grid, "shard", None) is None)
         self.fuse_correction = bool(fuse_correction) and self._fused_update
 
@@ -387,11 +387,7 @@ class NonhydrostaticModel:
         for name in self._closure_state:
             self.bcs[name] = regularize_field_boundary_conditions(
                 None, self.grid, LOC_CCC)
-        if self.architecture is not None:
-            self._refuse_under_mesh()
-            pressure_solver = mesh_pressure_solver(
-                self.grid, self.architecture, pressure_solver)
-        elif pressure_solver is None:
+        if architecture is None and pressure_solver is None:
             bcs_p = self.bcs["p"]
             pressure_solver = select_pressure_solver(
                 self.grid, lambda p: fill_all_halo_regions(
@@ -402,9 +398,9 @@ class NonhydrostaticModel:
                 self._kernel_tendency:
             self._sharded_advection = lambda q: shard_fused_advection(
                 self.grid, self.advection, q)
-        if self.architecture is not None:
-            self._build_shards(shard_kw)
+        if architecture is not None:
             self._nt = numpy_dtype(self.grid.dtype)
+            self._enter_mesh(architecture)
             return
 
         nt = numpy_dtype(self.grid.dtype)
@@ -426,104 +422,56 @@ class NonhydrostaticModel:
 
     def _refuse_under_mesh(self):
         """What the mesh does not take yet raises, citing ROADMAP item
-        16b: bounded or stretched x and y, grids that are not rectilinear,
-        Open and PerturbationAdvection sides, array or time-series
-        boundary values."""
+        16b: a flat or stretched x or y, grids that are not rectilinear,
+        and the boundary conditions of ``refuse_boundary_values``."""
         from ..grids.rectilinear import RectilinearGrid
         under = getattr(self.grid, "underlying_grid", self.grid)
         if not isinstance(under, RectilinearGrid):
             raise NotImplementedError(
                 f"a {type(under).__name__} under a device mesh: {MESH_ITEM}")
         for ax in (0, 1):
-            if under.topology[ax] != PERIODIC or not under.regular(ax):
+            if under.is_flat(ax) or not under.regular(ax):
                 raise NotImplementedError(
-                    f"a {under.topology[ax]} or stretched sharded axis "
-                    f"{'xy'[ax]}: {MESH_ITEM}")
-        for name, bcs in self.bcs.items():
-            for ax in range(3):
-                for bc in bcs.pair(ax):
-                    if bc is None:
-                        continue
-                    if bc.classification == OPEN and (
-                            bc.scheme is not None
-                            or bc.condition is not None):
-                        raise NotImplementedError(
-                            f"an Open boundary of {name!r} under a device "
-                            f"mesh: {MESH_ITEM}")
-                    c = bc.condition
-                    if hasattr(c, "evaluate_padded") or (
-                            not callable(c) and np.ndim(
-                                c.detach().cpu() if hasattr(c, "detach")
-                                else c) > 0):
-                        raise NotImplementedError(
-                            f"an array or time-series boundary value of "
-                            f"{name!r} under a device mesh: {MESH_ITEM}")
+                    f"a {'flat' if under.is_flat(ax) else 'stretched'} "
+                    f"sharded axis {'xy'[ax]}: {MESH_ITEM} part 2")
+        refuse_boundary_values(self.bcs)
 
-    def _build_shards(self, kw):
-        """One model of this class per shard, on the shard's local grid,
-        with the pencil solver's shard view as its pressure solver."""
-        arch = self.architecture
+    def _enter_mesh(self, arch):
+        """Put the model on the device mesh ``arch``: one model of this
+        class per shard, on the shard's local grid, built from this model's
+        arguments, with the pencil solver's shard view as its pressure
+        solver (``mesh_pressure_solver``). This model's own state is
+        dropped: assign a state to scatter it."""
+        arch.place(self.grid, pencil=True)
+        if self.particles is not None:
+            raise NotImplementedError(
+                f"Lagrangian particles under a device mesh: {MESH_ITEM}")
+        self.architecture = arch
+        self._refuse_under_mesh()
+        self.pressure_solver = mesh_pressure_solver(
+            self.grid, arch, self._user_pressure_solver)
+        self._fused_update = self.fuse_correction = False
         shards = arch.shards(self.grid)
         for sh in shards:
             sh.pencil = self.pressure_solver
         self._comm = arch.communicator
-        self._shards = [NonhydrostaticModel(sh.grid, **kw) for sh in shards]
+        self._shards = [NonhydrostaticModel(sh.grid, **self._shard_kw)
+                        for sh in shards]
+        for m in self._shards:
+            for fn in self._tendency_hooks:
+                m.add_tendency_hook(fn)
+            for fn in self._state_hooks:
+                m.add_state_hook(fn)
         self._sharded_advection = self._shards[0]._sharded_advection
+        self._state = None
 
-    def _run(self, fn):
-        """``fn(shard_model)`` on every shard, in the shards' threads."""
-        return self._comm.run(lambda r: fn(self._shards[r]))
-
-    @property
-    def state(self):
-        """The model state: fields, pressure, clock (and Gm for quasi-AB2).
-        On a device mesh, a gathered global-view copy on the mesh's first
-        device: writes into it do not reach the shards (assign a state to
-        ``model.state`` to scatter it)."""
-        if self._shards is None:
-            return self._state
-        return self._gathered_state()
-
-    @state.setter
-    def state(self, value):
-        if self._shards is None:
-            self._state = value
-        else:
-            self._scatter_state(value)
-
-    def _gathered_state(self):
-        arch, H = self.architecture, self.grid.H
-        states = [m._state for m in self._shards]
-        out = {}
-        for key, val in states[0].items():
-            if key in ("fields", "pressure", "aux"):
-                out[key] = arch.gather([st[key] for st in states], H)
-            elif key == "Gm":
-                out[key] = arch.gather([st[key] for st in states], (0, 0, 0))
-            elif key == "clock":
-                out[key] = dict(val)
-            else:
-                out[key] = val
-        return out
-
-    def _scatter_state(self, value):
-        arch, H = self.architecture, self.grid.H
-        parts = {}
-        for key, val in value.items():
-            if key in ("fields", "pressure", "aux"):
-                parts[key] = arch.scatter(val, H)
-            elif key == "Gm":
-                parts[key] = arch.scatter(val, (0, 0, 0))
-        for r, m in enumerate(self._shards):
-            st = {k: (parts[k][r] if k in parts else
-                      dict(v) if k == "clock" else v)
-                  for k, v in value.items()}
-            m._state = st
-
-    @property
-    def _clock(self):
-        return (self._shards[0]._state if self._shards is not None
-                else self._state)["clock"]
+    def _block_halo(self, key):
+        """The halos of a state entry's blocks: the grid's for the fields,
+        the pressure and the auxiliary fields, none for the interior-shaped
+        Gm; None (held whole) for the rest."""
+        if key in ("fields", "pressure", "aux"):
+            return self.grid.H
+        return (0, 0, 0) if key == "Gm" else None
 
     # -- basic properties -----------------------------------------------------
 
@@ -587,7 +535,7 @@ class NonhydrostaticModel:
         region = list(grid.interior_slices)
         loc = self.loc(name)
         for axis in range(3):
-            if loc[axis] != FACE or grid.topology[axis] != BOUNDED or \
+            if loc[axis] != FACE or not wall_sides(grid, axis)[1] or \
                     grid.H[axis] == 0:
                 continue
             if _side_code(self.bcs[name].pair(axis)[1], True,

@@ -45,7 +45,9 @@ the global edges (ROADMAP.md queue 3). The configurations the fused stage
 does not take (a closure, forcing, boundary conditions, ``BetaPlane``, the
 vector-invariant form, ``fused=False``) run the plain tendencies on each
 shard, the bathymetry's blocks cut with the global array's halos, as JAX's
-GSPMD step reads them. The mesh takes periodic x and y; a bounded one
+GSPMD step reads them. The mesh takes periodic and bounded x and y (on a
+bounded axis the walls are the edge shards' outer sides, and #9 refuses it
+as JAX's ``sw_eligible`` does: the plain tendencies); a stretched one
 raises, citing ROADMAP item 16b. ``model.state`` then returns a gathered
 copy (writes into it do not reach the shards); ``model.state = ...`` (or
 ``arch.shard(...)``) scatters a global-view state into the blocks.
@@ -81,7 +83,8 @@ from ..kernels import fused_sw_update
 from ..kernels.fused_shallow_water import (shard_fused_sw_update,
                                            sharded_bathymetry, sw_eligible)
 from ..operators.operators import ddx, ddy, div_xy_ccc, ix_f, iy_f
-from ..parallel.distributed import MESH_ITEM, regularize_architecture
+from ..parallel.distributed import (MESH_ITEM, MeshModel,
+                                    regularize_architecture)
 from ..timesteppers import RK3_GAMMAS, RK3_ZETAS
 from ..utils.dateclock import datetime_of
 from .nonhydrostatic import padded_from_jax
@@ -98,33 +101,29 @@ def VectorInvariantFormulation():
     return VECTOR_INVARIANT
 
 
-class ShallowWaterModel:
+class ShallowWaterModel(MeshModel):
     def __init__(self, grid, gravitational_acceleration=None, advection=None,
                  coriolis=None, bathymetry=0.0, tracers=(), forcing=None,
                  boundary_conditions=None, formulation=CONSERVATIVE,
                  closure=None, fused="auto", architecture=None,
                  reference_datetime=None, device=None, dtype=None):
-        self._shards = None
-        shard_kw = dict(gravitational_acceleration=gravitational_acceleration,
-                        advection=advection, coriolis=coriolis,
-                        tracers=tracers, forcing=forcing,
-                        boundary_conditions=boundary_conditions,
-                        formulation=formulation, closure=closure,
-                        reference_datetime=reference_datetime)
+        self.architecture = None
+        # the arguments a shard's model is built from (``_enter_mesh``)
+        self._shard_kw = dict(
+            gravitational_acceleration=gravitational_acceleration,
+            advection=advection, coriolis=coriolis, tracers=tracers,
+            forcing=forcing, boundary_conditions=boundary_conditions,
+            formulation=formulation, closure=closure,
+            reference_datetime=reference_datetime)
         if not grid.is_flat(2):
             raise ValueError("ShallowWaterModel requires a z-Flat grid")
         if formulation not in (CONSERVATIVE, VECTOR_INVARIANT):
             raise ValueError(formulation)
         if device is not None or dtype is not None:
             grid = grid.to(device=device, dtype=dtype)
-        self.architecture = regularize_architecture(architecture)
-        if self.architecture is not None:
-            self.architecture.place(grid)
-            for ax in (0, 1):
-                if grid.topology[ax] != PERIODIC and not grid.is_flat(ax):
-                    raise NotImplementedError(
-                        f"a {grid.topology[ax]} sharded axis {'xy'[ax]}: "
-                        f"{MESH_ITEM}")
+        architecture = regularize_architecture(architecture)
+        if architecture is not None:
+            architecture.place(grid)
         self.reference_datetime = reference_datetime
         self.g = (defaults.gravitational_acceleration
                   if gravitational_acceleration is None
@@ -174,8 +173,8 @@ class ShallowWaterModel:
             for name, loc in self._locs.items()}
         self.bathymetry = set_on_padded(self.grid, LOC_CCC, bathymetry)
         self._nt = numpy_dtype(self.grid.dtype)
-        if self.architecture is not None:
-            self._build_shards(dict(shard_kw, fused=self.fused))
+        if architecture is not None:
+            self._enter_mesh(architecture)
             return
         self.state = dict(
             fields={n: torch.zeros(self.grid.padded_shape,
@@ -187,13 +186,24 @@ class ShallowWaterModel:
 
     # -- the shards of a model on a device mesh -----------------------------------
 
-    def _build_shards(self, kw):
-        """One model of this class per shard, on the shard's local grid."""
-        arch = self.architecture
-        shards = arch.shards(self.grid)
+    def _enter_mesh(self, arch):
+        """Put the model on the device mesh ``arch``: one model of this
+        class per shard, on the shard's local grid, built from this model's
+        arguments. This model's own state is dropped: assign a state to
+        scatter it."""
+        arch.place(self.grid)
+        for ax in (0, 1):
+            if not self.grid.is_flat(ax) and not self.grid.regular(ax):
+                raise NotImplementedError(
+                    f"a stretched sharded axis {'xy'[ax]}: {MESH_ITEM} "
+                    f"part 2")
+        self.architecture = arch
         self._comm = arch.communicator
-        self._shards = [ShallowWaterModel(sh.grid, **kw) for sh in shards]
+        self._shards = [ShallowWaterModel(sh.grid, **self._shard_kw,
+                                          fused=self.fused)
+                        for sh in arch.shards(self.grid)]
         self._scatter_bathymetry()
+        self._state = None
 
     def _scatter_bathymetry(self):
         """The shards' bathymetry blocks: for the fused stage with halos
@@ -207,33 +217,6 @@ class ShallowWaterModel:
         for m, b in zip(self._shards, blocks):
             m.bathymetry = b
         self._sharded_bathymetry = self.bathymetry
-
-    @property
-    def state(self):
-        """The model state: fields and clock. On a device mesh, a gathered
-        global-view copy on the mesh's first device: writes into it do not
-        reach the shards (assign a state to ``model.state`` to scatter
-        it)."""
-        if self._shards is None:
-            return self._state
-        arch, H = self.architecture, self.grid.H
-        return dict(fields=arch.gather([m._state["fields"]
-                                        for m in self._shards], H),
-                    clock=dict(self._clock))
-
-    @state.setter
-    def state(self, value):
-        if self._shards is None:
-            self._state = value
-            return
-        blocks = self.architecture.scatter(value["fields"], self.grid.H)
-        for m, b in zip(self._shards, blocks):
-            m._state = dict(fields=b, clock=dict(value["clock"]))
-
-    @property
-    def _clock(self):
-        return (self._shards[0]._state if self._shards is not None
-                else self._state)["clock"]
 
     @property
     def prognostic_names(self):
@@ -376,7 +359,7 @@ class ShallowWaterModel:
             for m in self._shards:
                 if vi is not None:
                     m.momentum_advection = vi
-            self._comm.run(lambda r: self._shards[r].time_step(dt))
+            self._run(lambda m: m.time_step(dt))
             return self
         nt = self._nt
         dt = nt(dt)

@@ -170,13 +170,18 @@ class Communicator:
             self._take_turn()
         return None if self._results is None else self._results[rank]
 
-    def exchange(self, rank, fields, halo, local_n, plain=False):
+    def exchange(self, rank, fields, halo, local_n, plain=False,
+                 periodic=(True, True), fold=None):
         """Fill the x and y halos of every shard's padded ``fields`` (a list
         of tensors of one shape) from the neighbouring shards' interiors, in
         place: x first, then y over the full x extent (the corners in two
         hops). ``halo`` and ``local_n`` are the blocks' (Hx, Hy, ...) and
-        local interior (nlx, nly, ...). ``plain`` takes the plain copies
-        (``halo_exchange_plain``) on any device."""
+        local interior (nlx, nly, ...); ``periodic`` flags the axes whose
+        last shard wraps to the first (along a bounded one the edge shards'
+        outer sides are walls, which their fills write, and are not
+        exchanged); ``fold``: the tripolar north fold's per-field (sign,
+        x-face, y-face), or None (``halo_exchange_local``). ``plain`` takes
+        the plain copies (``halo_exchange_plain``) on any device."""
         from .halo_exchange import halo_exchange_local, halo_exchange_plain
         S = self.mesh.devices.shape
         route = halo_exchange_plain if plain else halo_exchange_local
@@ -184,7 +189,7 @@ class Communicator:
         def fn(payloads):
             blocks = [[payloads[i * S[1] + j] for j in range(S[1])]
                       for i in range(S[0])]
-            route(blocks, self.mesh, halo, local_n)
+            route(blocks, self.mesh, halo, local_n, periodic, fold)
 
         self._meet(rank, "exchange", fn, list(fields))
         return fields

@@ -9,8 +9,12 @@ holds a ``Mesh``, an (Sx, Sy) array of ``torch.device``s with axis names
 ("x", "y"), and a model built on it holds each shard's padded block of
 every prognostic field on that shard's device for the whole run. Each shard
 steps the model's own code on its own local grid (``shard_grid``: the
-global grid's nodes and metrics cut at the shard's offset, its sharded
-sides marked connected); the shards meet only in the collectives of
+global grid's nodes and metrics cut at the shard's offset; each side of x
+and y marked connected or a wall: a periodic axis's sides are connected, a
+bounded axis's are walls only at the global grid's own walls, the low side
+of the first shard and the high side of the last, and the tripolar fold
+connects the top row of shards across it); the shards meet only in the
+collectives of
 ``parallel/communicator.py``: the halo exchange (which every halo fill of a
 connected grid ends with), the pencil transposes of the pressure solver
 (``parallel/pencil_fft.py``) and reductions.
@@ -33,6 +37,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..grids.topology import BOUNDED, PERIODIC
 
 
 class CPU:
@@ -176,6 +182,15 @@ def _normalize(dev):
     return dev
 
 
+class ShardedState(dict):
+    """A model state from ``Distributed.shard``: a dict of global-view
+    tensors that names the ``architecture`` it is to be scattered over."""
+
+    def __init__(self, state, architecture):
+        super().__init__(state)
+        self.architecture = architecture
+
+
 class Distributed:
     """Device-mesh architecture.
 
@@ -239,8 +254,10 @@ class Distributed:
         tensors and scalars) with its tensors on the mesh's first device,
         for the JAX call shape ``model.state = arch.shard(model.state)``: a
         model on this architecture scatters any state assigned to it into
-        its shards' blocks."""
-        return _map(state, lambda a: a.to(self.device))
+        its shards' blocks, and a model built without an architecture
+        takes this one (a ``ShardedState`` names it; ``MeshModel``)."""
+        return ShardedState(_map(dict(state), lambda a: a.to(self.device)),
+                            self)
 
     def scatter(self, state, halo):
         """Each shard's block of ``state`` (a tensor, or nested dicts, lists
@@ -327,6 +344,113 @@ def regularize_architecture(architecture):
 MESH_ITEM = "ROADMAP.md queue 1 item 16b"
 
 
+def refuse_boundary_values(bcs):
+    """Raise, citing item 16b, for the boundary conditions a shard cannot
+    take from the global model's arguments (``bcs``: {name: the field's
+    conditions}): Open and PerturbationAdvection sides, and array or
+    time-series values, which hold the global grid's planes."""
+    from ..boundary_conditions.boundary_condition import OPEN
+    for name, field_bcs in bcs.items():
+        for ax in range(3):
+            for bc in field_bcs.pair(ax):
+                if bc is None:
+                    continue
+                if bc.classification == OPEN and (
+                        bc.scheme is not None or bc.condition is not None):
+                    raise NotImplementedError(
+                        f"an Open boundary of {name!r} under a device mesh: "
+                        f"{MESH_ITEM}")
+                c = bc.condition
+                if hasattr(c, "evaluate_padded") or (
+                        not callable(c) and np.ndim(
+                            c.detach().cpu() if hasattr(c, "detach")
+                            else c) > 0):
+                    raise NotImplementedError(
+                        f"an array or time-series boundary value of "
+                        f"{name!r} under a device mesh: {MESH_ITEM}")
+
+
+class MeshModel:
+    """The shard plumbing of a model on a device mesh, shared by every
+    model class. Off a mesh ``_shards`` is None and ``state`` is the
+    model's own. On a mesh (``_enter_mesh``) ``_shards`` holds one model of
+    the class per shard, on the shard's local grid, and the shards meet
+    only in the mesh's communicator (``_comm``); ``state`` is then a
+    gathered global view, each entry's blocks cut and put back with the x
+    and y halos of ``_block_halo``. A state from ``Distributed.shard``
+    assigned to a model off a mesh puts the model on that mesh (JAX's call
+    shape ``model.state = arch.shard(model.state)``); a class that cannot
+    be sharded raises there (its ``_enter_mesh``)."""
+
+    _shards = None
+
+    def _run(self, fn):
+        """``fn(shard_model)`` on every shard, in the shards' threads."""
+        return self._comm.run(lambda r: fn(self._shards[r]))
+
+    def _block_halo(self, key):
+        """The x and y halos the blocks of state entry ``key`` are cut
+        with; None for an entry every shard holds whole (the clock)."""
+        return None if key == "clock" else self.grid.H
+
+    @property
+    def state(self):
+        """The model state. On a device mesh, a gathered global-view copy on
+        the mesh's first device: writes into it do not reach the shards
+        (assign a state to ``model.state`` to scatter it)."""
+        if self._shards is None:
+            return self._state
+        states = [m._state for m in self._shards]
+        out = {}
+        for key, val in states[0].items():
+            halo = self._block_halo(key)
+            out[key] = (_whole(val) if halo is None else
+                        self.architecture.gather([st[key] for st in states],
+                                                 halo))
+        return out
+
+    @state.setter
+    def state(self, value):
+        if isinstance(value, ShardedState):
+            self._take_mesh(value.architecture)
+        if self._shards is None:
+            self._state = value
+            return
+        parts = {k: self.architecture.scatter(v, self._block_halo(k))
+                 for k, v in value.items() if self._block_halo(k) is not None}
+        for r, m in enumerate(self._shards):
+            m._state = {k: parts[k][r] if k in parts else _whole(v)
+                        for k, v in value.items()}
+
+    def _take_mesh(self, arch):
+        """A state sharded over ``arch``: a model off a mesh enters it; a
+        model on a mesh must be on the same devices."""
+        if self._shards is None:
+            self._enter_mesh(arch)
+            return
+        mine = self.architecture.mesh.devices
+        if mine.shape != arch.mesh.devices.shape or any(
+                not same_device(a, b) for a, b in
+                zip(mine.ravel(), arch.mesh.devices.ravel())):
+            raise ValueError(f"a state sharded over {arch} given to a model "
+                             f"on {self.architecture}")
+
+    def _enter_mesh(self, arch):
+        raise NotImplementedError(
+            f"a {type(self).__name__} under a device mesh: {MESH_ITEM}")
+
+    @property
+    def _clock(self):
+        return (self._shards[0]._state if self._shards is not None
+                else self._state)["clock"]
+
+
+def _whole(val):
+    """A state entry that every shard holds whole: a dict copied (the
+    clock), anything else shared."""
+    return dict(val) if isinstance(val, dict) else val
+
+
 class Blocks(list):
     """Per-shard blocks in rank order, with the halo (Hx, Hy, ...) they were
     cut with and the mesh's shape."""
@@ -340,9 +464,10 @@ class Blocks(list):
 class Shard:
     """One shard of a global grid on a mesh: its ``rank`` (the mesh's
     row-major order), ``index`` (i, j), the interior ``offset`` of its block
-    in the global grid, its ``device`` and its local ``grid``
-    (``RectilinearGrid.local_grid`` with the sides along the mesh's axes
-    marked connected: the fills keep them and hand them to ``exchange``)."""
+    in the global grid, its ``device`` and its local ``grid`` (the global
+    grid's ``local_grid`` with ``connected``, per axis (low, high), the
+    sides the fills keep and hand to ``exchange``, and ``walls``, the sides
+    that are the global grid's own)."""
 
     def __init__(self, mesh, rank, grid):
         S = mesh.devices.shape
@@ -354,16 +479,24 @@ class Shard:
         self.offset = (self.index[0] * nl[0], self.index[1] * nl[1])
         self.device = mesh.devices[self.index]
         self.global_grid = grid
+        # the axes whose last shard wraps to the first (a bounded axis's
+        # edge shards hold the global walls instead)
+        self.periodic = tuple(grid.topology[ax] == PERIODIC
+                              for ax in (0, 1))
         self.grid = shard_grid(grid, nl, self.offset, self.device, self)
         self.pencil = None      # the model's DistributedFFTPoissonSolver
 
-    def exchange(self, fields, plain=False):
+    def exchange(self, fields, plain=False, fold=None, periodic=None):
         """The halo exchange of this shard's padded ``fields`` (one shape)
         with every other shard's, in place (``plain``: by the plain
-        copies)."""
+        copies; ``fold``: the tripolar north fold's per-field (sign, x-face,
+        y-face) or None, the same on every shard; ``periodic``: the axes
+        that wrap, the global grid's periodic ones by default)."""
         H = self.grid.H
         self.comm.exchange(self.rank, fields, H, self.local_n + (0,),
-                           plain=plain)
+                           plain=plain, fold=fold,
+                           periodic=self.periodic if periodic is None
+                           else periodic)
         return fields
 
     def all_reduce(self, value, op="sum"):
@@ -385,8 +518,9 @@ def mesh_shards(grid, mesh):
 
 def shard_grid(grid, local_n, offset, device, shard):
     """The local grid of ``shard``: ``grid``'s ``local_grid`` at
-    ``offset``, its x and y (where not flat) marked connected, with the
-    shard attached; an ``ImmersedBoundaryGrid`` keeps its immersed boundary,
+    ``offset``, each side of x and y marked connected (``shard_sides``) or
+    a wall of the global grid (``walls``), with the shard attached; an
+    ``ImmersedBoundaryGrid`` keeps its immersed boundary,
     its masks and geometry cut from the global grid's (``block``)."""
     from ..immersed import ImmersedBoundaryGrid
     under = grid.underlying_grid if isinstance(grid, ImmersedBoundaryGrid) \
@@ -396,11 +530,39 @@ def shard_grid(grid, local_n, offset, device, shard):
             f"a {type(under).__name__} under a device mesh: {MESH_ITEM}")
     local = under.local_grid(tuple(local_n) + (grid.N[2],), device=device,
                              offset=offset)
-    local.connected = tuple(not grid.is_flat(ax) for ax in (0, 1)) + (False,)
+    shape = shard.comm.mesh.devices.shape
+    local.connected = shard_sides(grid, shard.index, shape)
+    # the global grid's walls: the sides not connected, and the fold, which
+    # the top row of shards exchanges across but whose boundary faces are
+    # the global grid's own
+    local.walls = tuple(
+        (not lo, not hi or (ax == 1 and shard.index[1] == shape[1] - 1))
+        for ax, (lo, hi) in enumerate(local.connected))
     local.shard = shard
     if isinstance(grid, ImmersedBoundaryGrid):
         return grid.block(local, offset)
     return local
+
+
+def shard_sides(grid, index, shape):
+    """Per axis, (low, high): whether each side of shard ``index`` of a
+    mesh of ``shape`` is connected to another shard. Both sides of a
+    periodic axis are (the last shard's high side to the first's low side);
+    on a bounded axis every side but the global grid's walls, the low side
+    of the first shard and the high side of the last; no side of a flat
+    axis or of z."""
+    out = []
+    for ax in (0, 1):
+        if grid.is_flat(ax):
+            out.append((False, False))
+        elif grid.topology[ax] == BOUNDED:
+            # a tripolar grid's north side: the top shards meet across the
+            # fold
+            fold = ax == 1 and getattr(grid, "zipper_north", False)
+            out.append((index[ax] > 0, fold or index[ax] < shape[ax] - 1))
+        else:
+            out.append((True, True))
+    return tuple(out) + ((False, False),)
 
 
 def _map(tree, fn):
@@ -444,7 +606,7 @@ def cut_block(a, halo, S, i, j, dev):
 def _assemble(parts, halo, S, dev):
     """The global padded tensor of the blocks ``parts`` (rank order): each
     block's interior at its place, the outer halo ring from the edge
-    blocks' halos."""
+    blocks' halos (each slot from one block)."""
     first = parts[0]
     if first.ndim < 2:
         return first.to(dev, copy=True)
@@ -453,16 +615,15 @@ def _assemble(parts, halo, S, dev):
     out = torch.empty((S[0] * nlx + 2 * hx, S[1] * nly + 2 * hy)
                       + tuple(first.shape[2:]), dtype=first.dtype,
                       device=dev)
-    # the edge blocks' whole blocks first (the outer halo ring), then every
-    # interior
+    # each slot from the block that owns it: a block's interior, and at the
+    # mesh's edges its halos there (the outer halo ring, corners included)
     for r, b in enumerate(parts):
         i, j = r // S[1], r % S[1]
-        if i in (0, S[0] - 1) or j in (0, S[1] - 1):
-            out[i * nlx:i * nlx + nlx + 2 * hx,
-                j * nly:j * nly + nly + 2 * hy] = b.to(dev)
-    for r, b in enumerate(parts):
-        i, j = r // S[1], r % S[1]
-        out[hx + i * nlx:hx + (i + 1) * nlx, hy + j * nly:hy + (j + 1) * nly] \
-            = b[hx:hx + nlx, hy:hy + nly].to(dev)
+        x0 = 0 if i == 0 else hx
+        x1 = nlx + (2 * hx if i == S[0] - 1 else hx)
+        y0 = 0 if j == 0 else hy
+        y1 = nly + (2 * hy if j == S[1] - 1 else hy)
+        out[i * nlx + x0:i * nlx + x1, j * nly + y0:j * nly + y1] = \
+            b[x0:x1, y0:y1].to(dev)
     return out
 

@@ -6,8 +6,8 @@ Counterpart of ``oceananigans_tpu/parallel/pencil_fft.py``
 field cut into P x-slabs over a mesh's P devices (P the flattened mesh),
 by the JAX slab algorithm, making one direction local at a time:
 
-    transform(z, y local) → all_to_all y↔x → FFT(x) → zsolve →
-    IFFT(x) → all_to_all x↔y → inverse transforms(y, z)
+    transform(z, y local) → all_to_all y↔x → transform(x) → zsolve →
+    inverse(x) → all_to_all x↔y → inverse transforms(y, z)
 
 ``zsolve`` is the eigen-divide for a flat, periodic or regular bounded z
 (the bounded z by the DCT-II, a full-precision matmul along the local z),
@@ -32,9 +32,13 @@ and re-blocks φ back after (``from_slabs``). The JAX package's
 transposes are XLA collectives, not Pallas kernels; here plain PyTorch
 copies and ``torch.fft`` serve them.
 
-Refusals, as JAX's: x and y must be periodic or flat (a bounded one raises
-``NotImplementedError``), and P must divide Nx and Ny (``ValueError``). A
-stretched x or y raises ``NotImplementedError`` (ROADMAP.md item 16b).
+A bounded x or y takes the serial solver's DCT-II along it (a
+full-precision matmul with ``dct2_matrix``) where the axis is whole: y on
+the x-slabs, x on the transposed slabs. JAX's pencil class takes periodic
+x and y only; JAX's model on such a grid under GSPMD runs its serial
+solver, which this matches to rounding. P must divide Nx and Ny
+(``ValueError``). A stretched x or y raises ``NotImplementedError``
+(ROADMAP.md item 16b).
 """
 
 from __future__ import annotations
@@ -68,22 +72,23 @@ class DistributedFFTPoissonSolver:
     devices of ``mesh`` (a ``Mesh``, a ``Distributed`` architecture or a
     list of devices).
 
-    x and y must be Periodic (or Flat); z may be Periodic, Flat,
-    Bounded-regular (local DCT), or Bounded-stretched (local tridiagonal
-    solve — the distributed Fourier-tridiagonal variant). Nx % P == 0,
-    Ny % P == 0. ``axis_name`` is accepted for the JAX call shape; the
+    x and y may be Periodic (FFT), Bounded (DCT) or Flat; z may be
+    Periodic, Flat, Bounded-regular (local DCT), or Bounded-stretched
+    (local tridiagonal solve — the distributed Fourier-tridiagonal
+    variant); ``horizontal`` solves for (Nx, Ny, 1) fields over x and y
+    alone (the implicit free surface, with its own spectral divide:
+    ``solve_block``'s ``spectral``). Nx % P == 0, Ny % P == 0.
+    ``axis_name`` is accepted for the JAX call shape; the
     slabs run over the whole mesh."""
 
-    def __init__(self, grid, mesh, axis_name="x"):
+    def __init__(self, grid, mesh, axis_name="x", horizontal=False):
         for i in (0, 1):
-            if not (grid.topology[i] == PERIODIC or grid.is_flat(i)):
-                raise NotImplementedError(
-                    "pencil solver requires periodic horizontal dims")
             if not grid.is_flat(i) and not grid.regular(i):
                 raise NotImplementedError(
                     "the pencil solver on a stretched horizontal axis: "
                     "ROADMAP.md queue 1 item 16b")
         self.grid = grid
+        self.horizontal = bool(horizontal)
         self.mesh = _as_mesh(mesh)
         self.axis_name = axis_name
         self.devices = list(self.mesh.devices.ravel())
@@ -95,8 +100,14 @@ class DistributedFFTPoissonSolver:
                 "(reference analogue: distributed_fft_based_poisson_solver.jl"
                 ":80-91 divisibility constraints)")
         self.comm = self.mesh.communicator
+        self.N = (nx, ny, 1 if self.horizontal else nz)
+        # the transform of x and y: "fft" (periodic), "dct" (bounded) or
+        # None (flat)
+        self.xy_kind = tuple(None if grid.is_flat(i) else
+                             "fft" if grid.topology[i] == PERIODIC else "dct"
+                             for i in (0, 1))
 
-        if grid.is_flat(2):
+        if grid.is_flat(2) or self.horizontal:
             self.z_kind = "flat"
         elif grid.topology[2] == PERIODIC:
             self.z_kind = "periodic"
@@ -108,7 +119,7 @@ class DistributedFFTPoissonSolver:
         lam = np.zeros((1, 1, 1))
         for axis in range(3):
             if grid.is_flat(axis) or (axis == 2 and
-                                      self.z_kind == "tridiagonal"):
+                                      self.z_kind in ("tridiagonal", "flat")):
                 continue
             N, L = grid.N[axis], grid.extent[axis]
             topo = PERIODIC if grid.topology[axis] == PERIODIC else BOUNDED
@@ -145,7 +156,7 @@ class DistributedFFTPoissonSolver:
         if lam.shape[1] > 1:
             lam = lam[:, rank * ny:(rank + 1) * ny]
         out = {"lam": torch.as_tensor(np.ascontiguousarray(lam), **kw)}
-        nz = self.grid.N[2]
+        nz = self.N[2]
         if self.z_kind == "dct":
             out["dct"] = torch.as_tensor(dct2_matrix(nz), **kw)
             out["idct"] = torch.as_tensor(idct2_matrix(nz), **kw)
@@ -167,6 +178,11 @@ class DistributedFFTPoissonSolver:
                        dzc=torch.as_tensor(self._dzc, **kw),
                        singular=torch.as_tensor(singular,
                                                 device=device))
+        for i in (0, 1):
+            if self.xy_kind[i] == "dct":
+                n = self.grid.N[i]
+                out[("dct", i)] = torch.as_tensor(dct2_matrix(n), **kw)
+                out[("idct", i)] = torch.as_tensor(idct2_matrix(n), **kw)
         self._consts[key] = out
         return out
 
@@ -186,10 +202,12 @@ class DistributedFFTPoissonSolver:
 
     # -- the slab algorithm --------------------------------------------------
 
-    def solve_slab(self, rank, b):
+    def solve_slab(self, rank, b, spectral=None):
         """φ on slab ``rank``: ``b`` is the (Nx/P, Ny, Nz) interior slab of
         x-cells rank·Nx/P .. (rank + 1)·Nx/P on this shard's device; called
-        from every shard's thread (two ``all_to_all`` meetings)."""
+        from every shard's thread (two ``all_to_all`` meetings).
+        ``spectral(b̂, λ)`` replaces the eigen-divide (λ the Laplacian's
+        positive eigenvalues of the slab, broadcastable)."""
         comm = self.comm
         P = self.P
         nx, ny = self.grid.N[0] // P, self.grid.N[1] // P
@@ -197,33 +215,48 @@ class DistributedFFTPoissonSolver:
         x = b
         if self.z_kind == "dct":
             x = apply_matrix_along(x, c["dct"], 2)
-        bh = torch.fft.fft(x, dim=1)
+        bh = self._along(x, 1, c)
         if self.z_kind == "periodic":
             bh = torch.fft.fft(bh, dim=2)
         # transpose x↔y: gather x, cut y
         got = comm.all_to_all(rank, [bh[:, t * ny:(t + 1) * ny]
                                      for t in range(P)])
-        bh = torch.fft.fft(torch.cat(got, dim=0), dim=0)
-        ph = torch.fft.ifft(self._zsolve(bh, c), dim=0)
+        bh = self._along(torch.cat(got, dim=0), 0, c)
+        ph = (self._zsolve(bh, c) if spectral is None
+              else spectral(bh, c["lam"]))
+        ph = self._along(ph, 0, c, inverse=True)
         # back to x-slabs
         got = comm.all_to_all(rank, [ph[t * nx:(t + 1) * nx]
                                      for t in range(P)])
-        ph = torch.fft.ifft(torch.cat(got, dim=1), dim=1)
+        ph = self._along(torch.cat(got, dim=1), 1, c, inverse=True)
         if self.z_kind == "periodic":
             ph = torch.fft.ifft(ph, dim=2)
-        ph = ph.real
+        if ph.is_complex():
+            ph = ph.real
         if self.z_kind == "dct":
             ph = apply_matrix_along(ph.contiguous(), c["idct"], 2)
         return ph.to(b.dtype).contiguous()
+
+    def _along(self, a, axis, c, inverse=False):
+        """The transform of x (0) or y (1) along ``axis`` of ``a``, whole
+        there: the FFT of a periodic axis, the DCT-II of a bounded one (its
+        inverses with ``inverse``), nothing along a flat one."""
+        kind = self.xy_kind[axis]
+        if kind == "fft":
+            return (torch.fft.ifft if inverse else torch.fft.fft)(a, dim=axis)
+        if kind == "dct":
+            return apply_matrix_along(a.contiguous(), c[(
+                "idct" if inverse else "dct", axis)], axis)
+        return a
 
     def solve(self, b):
         """b: the global interior tensor (Nx, Ny, Nz); returns φ on b's
         device. The slabs go to the mesh's devices and every shard runs
         the slab algorithm."""
         P, w = self.P, self.grid.N[0] // self.P
-        if tuple(b.shape) != tuple(self.grid.N):
-            raise ValueError(f"b has shape {tuple(b.shape)}; the grid's "
-                             f"interior is {self.grid.N}")
+        if tuple(b.shape) != tuple(self.N):
+            raise ValueError(f"b has shape {tuple(b.shape)}; the solver's "
+                             f"interior is {self.N}")
         slabs = [b[s * w:(s + 1) * w].to(d, copy=True) for s, d in
                  enumerate(self.devices)]
         out = self.comm.run(lambda r: self.solve_slab(r, slabs[r]))
@@ -263,12 +296,13 @@ class DistributedFFTPoissonSolver:
         got = comm.all_to_all(rank, pieces)
         return torch.cat([got[i * Sy + k] for k in range(Sy)], dim=0)
 
-    def solve_block(self, rank, b):
+    def solve_block(self, rank, b, spectral=None):
         """φ on shard ``rank``'s (nlx, nly, Nz) interior block of an
         (Sx, Sy) mesh of resident blocks (called from every shard's
-        thread)."""
+        thread); ``spectral`` as ``solve_slab``'s."""
         slab = self.to_slabs(rank, b)
-        return self.from_slabs(rank, self.solve_slab(rank, slab)).contiguous()
+        return self.from_slabs(
+            rank, self.solve_slab(rank, slab, spectral)).contiguous()
 
 
 # reference naming parity (distributed_fft_tridiagonal_solver.jl)

@@ -395,11 +395,13 @@ def test_compact_configurations_step(case):
 def test_kernel_scheme_tables():
     """The kernels' coefficient table covers every scheme of the port's
     advection/schemes.py up to buffer 6 (Centered(2-12), UpwindBiased(1-11),
-    WENO(3-11)), sized for the scheme's buffer; any other scheme raises
-    naming its ROADMAP item."""
+    WENO(3-11)), sized for the scheme's buffer; a FluxFormAdvection takes
+    its deepest axis's instantiation and its axes' families and buffers
+    after the table (``kernel_coefs``); a deeper order raises naming what
+    the kernels are built for."""
     from oceananigans_tpu_torch.advection import FluxFormAdvection
     from oceananigans_tpu_torch.kernels.fused_advection import (
-        coefficient_table, scheme_code, table_layout)
+        coefficient_table, kernel_coefs, scheme_code, table_layout)
     for scheme in ([ot.Centered(o) for o in range(2, 13, 2)]
                    + [ot.UpwindBiased(o) for o in range(1, 12, 2)]
                    + [ot.WENO(o) for o in range(3, 12, 2)]):
@@ -407,7 +409,12 @@ def test_kernel_scheme_tables():
         assert K == scheme.required_halo
         assert len(coefficient_table(scheme)) == table_layout(K)["size"]
     assert list(coefficient_table(ot.Centered(2)))[0:2] == [0.5, 0.5]
+    per_axis = FluxFormAdvection(ot.WENO(5), ot.WENO(5), ot.WENO(3))
+    assert scheme_code(per_axis) == (2, 3)
+    assert list(kernel_coefs(per_axis))[-6:] == [2, 2, 2, 3, 3, 2]
+    assert list(kernel_coefs(per_axis))[:-6] == list(
+        coefficient_table(ot.WENO(5)))
     for scheme in (ot.Centered(14), ot.UpwindBiased(13),
-                   FluxFormAdvection(ot.WENO(5), ot.WENO(5), ot.WENO(3))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+                   FluxFormAdvection(ot.WENO(5), ot.WENO(5), ot.Centered(14))):
+        with pytest.raises(NotImplementedError, match="built for"):
             scheme_code(scheme)

@@ -216,14 +216,25 @@ def test_fused_sw_update(sw_inputs, scheme, with_gm):
 
 
 def test_fused_sw_update_other_scheme_raises(sw_inputs):
-    """A scheme the kernels do not take (a per-axis FluxFormAdvection)
-    raises on the card, naming its ROADMAP item."""
+    """A per-axis FluxFormAdvection, which the kernels refused before item
+    15's rest, runs on the card and matches the plain version; a scheme
+    deeper than the kernels are built for (Centered(14)) raises, naming
+    what they take."""
     from oceananigans_tpu_torch.advection import FluxFormAdvection
     grid, fields, hB, _ = sw_inputs
-    s = FluxFormAdvection(ot.WENO(5), ot.WENO(3), ot.WENO(5))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        K.fused_sw_update(grid, s, 9.81, 0.0, hB, ("uh", "vh", "h", "c"),
-                          fields, None, 1e-3, 0.0)
+    F64 = dict(smoothness_dtype=torch.float64)
+    s = FluxFormAdvection(ot.WENO(5, **F64), ot.WENO(3, **F64),
+                          ot.WENO(5, **F64))
+    args = (grid, s, 9.81, 0.0, hB, ("uh", "vh", "h", "c"), fields, None,
+            1e-3, 0.0)
+    Gk, nk = K.fused_sw_update(*args)
+    Gp, np_ = K.fused_sw_update_plain(*args)
+    ints = grid.interior_slices
+    _close(list(Gk) + [nk[n][ints] for n in nk],
+           list(Gp) + [np_[n][ints] for n in np_])
+    with pytest.raises(NotImplementedError, match="built for"):
+        K.fused_sw_update(grid, ot.Centered(14), 9.81, 0.0, hB,
+                          ("uh", "vh", "h", "c"), fields, None, 1e-3, 0.0)
 
 
 # -- every scheme (Centered 2-12, UpwindBiased 1-11, WENO 3-11) --------------
@@ -2068,3 +2079,250 @@ def test_ensemble_member_is_its_solo_run():
         assert torch.equal(a, solo.state["fields"][name]), name
     assert not torch.equal(ens.member_state(0)["fields"]["T"],
                            ens.member_state(2)["fields"]["T"])
+
+
+# -- the per-axis scheme (a FluxFormAdvection) in #1, #6 and #8 ------------
+
+def _per_axis(kind):
+    from oceananigans_tpu_torch.advection import FluxFormAdvection
+    F64 = dict(smoothness_dtype=torch.float64)
+    return {
+        "thin_z": lambda: FluxFormAdvection(
+            ot.WENO(5, **F64), ot.WENO(5, **F64), ot.WENO(3, **F64)),
+        "mixed": lambda: FluxFormAdvection(
+            ot.Centered(4), ot.UpwindBiased(3), ot.WENO(5, **F64)),
+        "linear": lambda: FluxFormAdvection(
+            ot.UpwindBiased(5), ot.Centered(2), ot.Centered(4)),
+        "deep_y": lambda: FluxFormAdvection(
+            ot.WENO(3, **F64), ot.WENO(9, **F64), ot.UpwindBiased(1)),
+    }[kind]()
+
+
+PER_AXIS = ("thin_z", "mixed", "linear", "deep_y")
+
+
+@pytest.mark.parametrize("kind", PER_AXIS)
+@pytest.mark.parametrize("kernel", ["update", "compact", "padded"])
+def test_per_axis_scheme_advection_kernels(kernel, kind):
+    """#1 (G⁻ and the correction) and #6 (z-compact and padded) with a
+    FluxFormAdvection: the instantiation of the deepest axis, each axis's
+    family and buffer at run time, against the plain versions in float64 at
+    1e-12 on interiors the tiles do not divide, 5 components; each launch
+    counted in the scheme's per-axis variant."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from oceananigans_tpu_torch.kernels import fused_advection as fa
+    s = _per_axis(kind)
+    r = s.required_halo
+    n = (19, 13, 11)
+    padded = kernel == "padded"
+    grid = ot.RectilinearGrid(size=n, extent=(1.0, 2.0, 0.5),
+                              halo=(r + 1, r + 1, r if padded else 0),
+                              dtype=torch.float64, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    f = [0.1 * torch.randn(grid.padded_shape, generator=gen,
+                           dtype=torch.float64, device="cuda")
+         for _ in range(5)]
+    K.fill_halos(grid, f)
+    K.reset_counters()
+    if kernel == "update":
+        p = 0.1 * torch.randn(grid.padded_shape, generator=gen,
+                              dtype=torch.float64, device="cuda")
+        K.fill_halos(grid, [p])
+        Gm = [torch.randn(n, generator=gen, dtype=torch.float64,
+                          device="cuda") for _ in range(5)]
+        tr = {"a": f[3], "b": f[4]}
+        args = (grid, s, f[0], f[1], f[2], Gm, 0.1, -0.05, p, 0.07, tr)
+        Gk, nk = K.fused_advection_update(*args)
+        Gp, np_ = K.fused_advection_update_plain(*args)
+        got, want = Gk + list(nk.values()), Gp + list(np_.values())
+        counted = fa.fused_advection_update.variant_launches
+    else:
+        got = K.fused_advection_tendency(grid, s, f)
+        want = K.fused_advection_tendency_plain(grid, s, f)
+        counted = fa.fused_advection_tendency.variant_launches
+    for g, w in zip(got, want):
+        scale = max(w.abs().max().item(), 1e-300)
+        assert (g - w).abs().max().item() / scale <= TOL
+    assert counted[fa.variant_name(s)] >= 1
+
+
+@pytest.mark.parametrize("kind", PER_AXIS)
+def test_per_axis_scheme_sw_kernel(kind):
+    """#8 with a FluxFormAdvection against its plain version in float64 at
+    1e-12, 45 x 13, two tracers, with G⁻."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from oceananigans_tpu_torch.kernels import fused_advection as fa
+    s = _per_axis(kind)
+    H = s.required_halo + 1
+    grid = ot.RectilinearGrid(size=(45, 13), extent=(1.0, 1.0),
+                              topology=("periodic", "periodic", "flat"),
+                              halo=(H, H), dtype=torch.float64, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    names = ("uh", "vh", "h", "c", "d")
+    fields = {k: 0.01 * torch.randn(grid.padded_shape, generator=gen,
+                                    dtype=torch.float64, device="cuda")
+              for k in names}
+    fields["h"] = fields["h"] + 1.0
+    hB = 0.01 * torch.randn(grid.padded_shape, generator=gen,
+                            dtype=torch.float64, device="cuda")
+    K.fill_halos(grid, list(fields.values()) + [hB])
+    Gm = torch.randn((5, 45, 13, 1), generator=gen, dtype=torch.float64,
+                     device="cuda")
+    K.reset_counters()
+    args = (grid, s, 9.81, 0.3, hB, names, fields, Gm, 0.1, -0.05)
+    Gk, nk = K.fused_sw_update(*args)
+    Gp, np_ = K.fused_sw_update_plain(*args)
+    ints = grid.interior_slices        # the kernel writes the interiors
+    for g, w in zip([Gk] + [nk[n][ints] for n in nk],
+                    [Gp] + [np_[n][ints] for n in np_]):
+        scale = max(w.abs().max().item(), 1e-300)
+        assert (g - w).abs().max().item() / scale <= TOL
+    assert K.fused_sw_update.variant_launches[fa.variant_name(s)] >= 1
+
+
+def test_per_axis_bounded_tendency():
+    """The padded #6's bounded variant with a bounds-preserving
+    FluxFormAdvection (WENO(3) along a 2-cell bounded x, WENO(5) along y
+    and z) against its plain version in float64 at 1e-12."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from oceananigans_tpu_torch.advection import FluxFormAdvection
+    F64 = dict(smoothness_dtype=torch.float64, bounds=(0.0, 1.0))
+    s = FluxFormAdvection(ot.WENO(3, **F64), ot.WENO(5, **F64),
+                          ot.WENO(5, **F64))
+    grid = ot.RectilinearGrid(size=(13, 11, 9), extent=(1.0, 1.0, 1.0),
+                              topology=("periodic", "periodic", "bounded"),
+                              halo=(3, 3, 3), dtype=torch.float64,
+                              device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    f = [0.1 * torch.randn(grid.padded_shape, generator=gen,
+                           dtype=torch.float64, device="cuda")
+         for _ in range(3)]
+    f.append(torch.rand(grid.padded_shape, generator=gen,
+                        dtype=torch.float64, device="cuda"))
+    K.fill_halos(grid, f)
+    got = K.fused_advection_tendency(grid, s, f)
+    want = K.fused_advection_tendency_plain(grid, s, f)
+    for g, w in zip(got, want):
+        scale = max(w.abs().max().item(), 1e-300)
+        assert (g - w).abs().max().item() / scale <= TOL
+
+
+# -- bounded sharded axes: the fill's kept sides, #10 per shard, the exchange
+
+def _latlon_row(dtype, arch=None, zstar=False):
+    grid = ot.LatitudeLongitudeGrid(size=(32, 24, 8), longitude=(0, 60),
+                                    latitude=(15, 75), z=(-1800.0, 0.0),
+                                    dtype=dtype, device="cuda")
+    m = ot.HydrostaticFreeSurfaceModel(
+        grid, momentum_advection=ot.WENOVectorInvariant(
+            smoothness_dtype=dtype),
+        coriolis=ot.HydrostaticSphericalCoriolis(),
+        free_surface=ot.SplitExplicitFreeSurface(substeps=10),
+        tracers=("T", "c"), architecture=arch,
+        vertical_coordinate="zstar" if zstar else "z")
+    rng = np.random.default_rng(11)
+    m.set(u=0.05 * rng.standard_normal((32, 24, 8)),
+          v=0.05 * rng.standard_normal((32, 24, 8)),
+          T=lambda lam, phi, z: 12 + 8e-3 * z + 2e-2 * phi, c=1.0,
+          eta=lambda lam, phi, z: 0.2 * np.sin(np.radians(6 * lam)))
+    return m
+
+
+@pytest.mark.parametrize("zstar", [False, True])
+def test_sharded_hydrostatic_row_on_the_card(zstar):
+    """The hydro_row at 32x24x8 (bounded x and y) on a 2x2 mesh of the card
+    against the serial model on the card, float64, 3 steps: bit for bit
+    (#10 on every shard's blocks with the walls on the edge shards' outer
+    sides and the cascade from the global walls; the fill and the exchange
+    copy); #10 launched once a shard and step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    serial = _latlon_row(torch.float64, zstar=zstar)
+    sharded = _latlon_row(torch.float64, zstar=zstar)
+    sharded.state = _card_mesh().shard(serial.state)
+    assert zstar or all(m.uses_kernel for m in sharded._shards)
+    K.reset_counters()
+    for _ in range(3):
+        serial.time_step(120.0)
+        sharded.time_step(120.0)
+    launches, plain = K.counters()
+    if not zstar:
+        assert launches["fused_vi_tendency"] == 3 * 5
+    assert launches["mesh_halo_exchange"] > 0
+    for name in ("u", "v", "T", "c", "eta"):
+        assert torch.equal(sharded.field(name).interior,
+                           serial.field(name).interior), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fill_on_shard_grids(dtype):
+    """The fill kernel on every shard's grid of a 2x2 mesh over a
+    (bounded, bounded, bounded) lat-lon grid and a (periodic, bounded)
+    tripolar one (the connected sides kept, the walls filled; the fold side
+    of the top row kept) against the plain version on copies, bit for bit,
+    the model's fields and conditions at u, v, T, w and on the 2-D
+    surfaces η, U, V (the corner shard keeps both low sides)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import oceananigans_tpu_torch.kernels.halo_fill as hf
+    grids = [ot.LatitudeLongitudeGrid(
+        size=(32, 24, 8), longitude=(0, 60), latitude=(15, 75),
+        z=(-100.0, 0.0), halo=(3, 3, 3), dtype=dtype, device="cuda"),
+        ot.TripolarGrid(size=(32, 16, 8), z=(-100.0, 0.0), halo=(3, 3, 3),
+                        dtype=dtype, device="cuda")]
+    for grid in grids:
+        m = ot.HydrostaticFreeSurfaceModel(grid, tracers=("T",))
+        for sh in _card_mesh().shards(m.grid):
+            g = sh.grid
+            names = ("u", "v", "T", "w")
+            lbs = [(m.loc(n), m.bcs[n]) for n in names]
+            gen = torch.Generator(device="cuda").manual_seed(sh.rank)
+            f = [torch.randn(g.padded_shape, generator=gen, dtype=dtype,
+                             device="cuda") for _ in names]
+            a = [x.clone() for x in f]
+            b = [x.clone() for x in f]
+            hf._launch(g, a, lbs, True, 0.0, None)
+            hf.fill_halos_plain(g, b, lbs)
+            for x, y in zip(a, b):
+                assert torch.equal(x, y), (type(grid).__name__, sh.rank)
+            surf = [("c", "c", "c"), m.loc("u"), m.loc("v")]
+            lbs = [(loc, m.bcs[n]) for loc, n in zip(surf, ("eta", "u", "v"))]
+            f = [torch.randn(g.padded_shape[:2] + (1,), generator=gen,
+                             dtype=dtype, device="cuda") for _ in lbs]
+            a = [x.clone() for x in f]
+            b = [x.clone() for x in f]
+            hf._launch(g, a, lbs, False, 0.0, None)
+            hf.fill_halos_plain(g, b, lbs, z=False)
+            for x, y in zip(a, b):
+                assert torch.equal(x, y), (type(grid).__name__, sh.rank, 2)
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_exchange_bounded_mesh_and_fold(fold):
+    """The exchange kernel on a 2x2 (and with the fold, 4x2) mesh of the
+    card with a bounded y (no wrap from the last shard to the first), and
+    the north fold across the top row for fields of every staggering and
+    both signs, against the plain copies: exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from oceananigans_tpu_torch.parallel import halo_exchange as he
+    S = (4, 2) if fold else (2, 2)
+    arch = _card_mesh(*S)
+    nl, H = (8, 6, 5), (3, 3, 0)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    shape = (nl[0] + 6, nl[1] + 6, nl[2])
+    blocks = [[[torch.randn(shape, generator=gen, dtype=torch.float64,
+                            device="cuda") for _ in range(4)]
+               for _ in range(S[1])] for _ in range(S[0])]
+    copies = [[[a.clone() for a in b] for b in row] for row in blocks]
+    spec = ([(-1.0, True, False), (-1.0, False, True), (1.0, False, False),
+             (1.0, True, True)] if fold else None)
+    he.halo_exchange_local(blocks, arch.mesh, H, nl, (True, False), spec)
+    he.halo_exchange_plain(copies, arch.mesh, H, nl, (True, False), spec)
+    for row, crow in zip(blocks, copies):
+        for b, cb in zip(row, crow):
+            for a, c in zip(b, cb):
+                assert torch.equal(a, c)

@@ -1,9 +1,9 @@
 """The port stands without JAX: importing it loads no ``jax`` module, and no
-source file of the package (nor ``chip_smoke.py``, which drives it on the
-card) imports ``jax``, the JAX package or ``triton``; importing it builds no
-kernel. ``h5py``, which the card's machine lacks, is imported only inside
-the functions that need it, so importing the port (its ``simulation``
-package included) loads none."""
+source file of the package (nor ``chip_smoke.py`` and ``sw_update_ab.py``,
+which drive it on the card) imports ``jax``, the JAX package or
+``triton``; importing it builds no kernel. ``h5py``, which the card's
+machine lacks, is imported only inside the functions that need it, so
+importing the port (its ``simulation`` package included) loads none."""
 
 import ast
 import os
@@ -15,7 +15,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "oceananigans_tpu_torch"
-SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                            REPO / "sw_update_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "oceananigans_tpu", "triton")
 
 

@@ -225,10 +225,19 @@ def test_halo_exchange_against_jax(shape, halo):
 
 def test_halo_exchange_errors():
     arch = _cpu_mesh()
+    # a bounded y: no strip wraps from the last shard to the first, so the
+    # edge shards' outer y halos keep their values (the walls' fills write
+    # them); every connected side is exchanged
+    blocks = [[torch.full((12, 12, 1), float(2 * i + j)) for j in range(2)]
+              for i in range(2)]
+    tpar.halo_exchange_local(blocks, arch.mesh, (2, 2, 0), (8, 8, 1),
+                             periodic=(True, False))
+    for i in range(2):
+        assert (blocks[i][0][2:10, :2] == 2 * i).all()
+        assert (blocks[i][0][2:10, 10:] == 2 * i + 1).all()
+        assert (blocks[i][1][2:10, :2] == 2 * i).all()
+        assert (blocks[i][1][2:10, 10:] == 2 * i + 1).all()
     blocks = [[torch.zeros(12, 12, 1) for _ in range(2)] for _ in range(2)]
-    with pytest.raises(NotImplementedError, match="periodic axes only"):
-        tpar.halo_exchange_local(blocks, arch.mesh, (2, 2, 0), (8, 8, 1),
-                                 periodic=(True, False))
     narrow = [[torch.zeros(5, 12, 1) for _ in range(2)] for _ in range(2)]
     with pytest.raises(ValueError, match="at least as wide"):
         tpar.halo_exchange_local(narrow, arch.mesh, (2, 2, 0), (1, 8, 1))
@@ -370,7 +379,9 @@ def test_mesh_needs_the_fused_stage():
     """The configurations the fused stage does not take run the plain
     tendencies on every shard under a mesh
     (``test_sharded_plain_shallow_water_against_jax`` holds one against
-    JAX); a bounded y still raises, citing ROADMAP item 16b."""
+    JAX), a bounded y among them (#9 refuses it as JAX's ``sw_eligible``
+    does; ``tests/test_torch_sharded_hydrostatic.py`` holds it against
+    JAX); a stretched sharded y raises, citing ROADMAP item 16b."""
     grid = ot.RectilinearGrid(size=SW_N, extent=(10.0, 10.0),
                               topology=("periodic", "periodic", "flat"),
                               dtype=torch.float64, device="cpu")
@@ -383,8 +394,17 @@ def test_mesh_needs_the_fused_stage():
     bounded = ot.RectilinearGrid(size=SW_N, extent=(10.0, 10.0),
                                  topology=("periodic", "bounded", "flat"),
                                  dtype=torch.float64, device="cpu")
+    m = ot.ShallowWaterModel(bounded, advection=ot.WENO(5),
+                             architecture=_cpu_mesh())
+    assert m._shards is not None and not m.fused
+    assert all(not s.fused for s in m._shards)
+    stretched = ot.RectilinearGrid(
+        size=SW_N, x=(0.0, 10.0),
+        y=10.0 * np.linspace(0, 1, SW_N[1] + 1) ** 1.2,
+        topology=("periodic", "bounded", "flat"), dtype=torch.float64,
+        device="cpu")
     with pytest.raises(NotImplementedError, match="item 16b"):
-        ot.ShallowWaterModel(bounded, advection=ot.WENO(5),
+        ot.ShallowWaterModel(stretched, advection=ot.WENO(5),
                              architecture=_cpu_mesh())
 
 

@@ -355,13 +355,26 @@ def test_sharded_model_is_collected_and_its_threads_end():
     assert not any(t.is_alive() for t in threads)
 
 
+def _cubed_sphere_on_a_mesh(g):
+    m = ot.CubedSphereHydrostaticModel(ot.ConformalCubedSphereGrid(
+        (8, 8, 2), z=(-500.0, 0.0), radius=6.371e6, dtype=torch.float64,
+        device="cpu"), tracers=("b",))
+    m.state = _cpu_mesh().shard(m.state)
+
+
+def _polar_caps_on_a_mesh(g):
+    m = ot.HydrostaticFreeSurfaceModel(ot.LatitudeLongitudeGrid(
+        size=(16, 8, 3), longitude=(0, 360), latitude=(-90, 90),
+        z=(-100.0, 0.0), dtype=torch.float64, device="cpu"), tracers=("T",))
+    m.state = _cpu_mesh().shard(m.state)
+
+
 REFUSED = {
-    "bounded_y_nh": lambda g: ot.NonhydrostaticModel(
-        g(("periodic", "bounded", "bounded")), architecture=_cpu_mesh()),
-    "bounded_y_sw": lambda g: ot.ShallowWaterModel(
-        ot.RectilinearGrid(size=(16, 16), extent=(1.0, 1.0),
-                           topology=("periodic", "bounded", "flat"),
-                           dtype=torch.float64, device="cpu"),
+    "cubed_sphere_panels": _cubed_sphere_on_a_mesh,
+    "polar_caps": _polar_caps_on_a_mesh,
+    "stretched_y_hydrostatic": lambda g: ot.HydrostaticFreeSurfaceModel(
+        ot.RectilinearGrid(size=NH_N, x=(0, 1), y=np.linspace(0, 1, 17) ** 1.2,
+                           z=(-1, 0), dtype=torch.float64, device="cpu"),
         architecture=_cpu_mesh()),
     "particles": lambda g: ot.NonhydrostaticModel(
         g(("periodic", "periodic", "bounded")), architecture=_cpu_mesh(),
@@ -386,6 +399,51 @@ def test_mesh_refusals_cite_16b(case):
                                   device="cpu")
     with pytest.raises(NotImplementedError, match="item 16b"):
         REFUSED[case](grid)
+
+
+BOUNDED_SHARDED = {
+    "bounded_y_nh": lambda g, arch: ot.NonhydrostaticModel(
+        g(("periodic", "bounded", "bounded")), advection=ot.WENO(5),
+        architecture=arch),
+    "bounded_y_sw": lambda g, arch: ot.ShallowWaterModel(
+        ot.RectilinearGrid(size=(16, 16), extent=(1.0, 1.0),
+                           topology=("periodic", "bounded", "flat"),
+                           dtype=torch.float64, device="cpu"),
+        advection=ot.WENO(5), architecture=arch),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BOUNDED_SHARDED))
+def test_bounded_sharded_axis_runs(case):
+    """What PR 22's refusals named now runs: the NH and shallow-water models
+    on a bounded y under a mesh (the walls on the edge shards' outer sides,
+    the plain tendencies, the pencil's DCT along y), 2 steps against the
+    port's serial model (1e-14 of max|·|; JAX's serial models in
+    ``tests/test_torch_sharded_hydrostatic.py``)."""
+    def grid(topo):
+        return ot.RectilinearGrid(size=NH_N, extent=(1.0, 1.0, 1.0),
+                                  topology=topo, dtype=torch.float64,
+                                  device="cpu")
+
+    serial, sharded = (BOUNDED_SHARDED[case](grid, a)
+                       for a in (None, _cpu_mesh()))
+    rng = np.random.default_rng(3)
+    shape = serial.grid.N
+    u0, v0 = (0.1 * rng.standard_normal(shape) for _ in range(2))
+    if case == "bounded_y_sw":
+        serial.set(h=1.0 + 0.1 * rng.uniform(size=shape), uh=u0, vh=v0)
+        names, dt = ("uh", "vh", "h"), 1e-3
+    else:
+        serial.set(u=u0, v=v0)
+        names, dt = ("u", "v", "w"), 1e-3
+    sharded.state = serial.state
+    for _ in range(2):
+        serial.time_step(dt)
+        sharded.time_step(dt)
+    for name in names:
+        a = sharded.field(name).interior.numpy()
+        b = serial.field(name).interior.numpy()
+        assert np.abs(a - b).max() <= 1e-14 * np.abs(b).max(), name
 
 
 def test_sharded_compact_state_keeps_valid_halos():

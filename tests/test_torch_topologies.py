@@ -443,14 +443,20 @@ def test_example_against_jax(name):
 def test_sharded_off_periodic_periodic_bounded_raises(topo):
     """Under a mesh the model and the sharded tendency (#7) take periodic x
     and y with a periodic, bounded or flat z, on resident blocks (one step
-    runs; ``tests/test_torch_parallel.py`` holds them against JAX); a
-    bounded x still raises, citing ROADMAP item 16b."""
+    runs; ``tests/test_torch_parallel.py`` holds them against JAX); on a
+    bounded x the model takes the plain flux divergences on every shard
+    (one step runs; ``tests/test_torch_sharded_hydrostatic.py`` holds a
+    bounded y against JAX) and the whole-mesh #7 still raises, as JAX's
+    takes periodic x and y alone."""
     grid = ot.RectilinearGrid(dtype=F64, device="cpu",
                               **grid_kw(topo, (8, 8, 8)))
     arch = ot.Distributed(ot.Partition(2, 2), devices=["cpu"] * 4)
     if topo[0] == B:
-        with pytest.raises(NotImplementedError, match="item 16b"):
-            NonhydrostaticModel(grid, advection=ot.WENO(5), architecture=arch)
+        m = NonhydrostaticModel(grid, advection=ot.WENO(5), architecture=arch)
+        assert m._sharded_advection is None
+        m.set(u=lambda x, y, z: 0.1 * np.sin(2 * np.pi * y))
+        m.time_step(1e-3)
+        assert np.isfinite(m.field("u").interior.numpy()).all()
         with pytest.raises(NotImplementedError, match="item 16b"):
             fa.build_sharded_fused_advection(grid, ot.WENO(5), arch.mesh)
         return
