@@ -726,7 +726,7 @@ def kernels_phase():
         }
         for name, (kfn, pfn, err) in timings.items():
             ms = cuda_ms(kfn)
-            plain_ms = cuda_ms(pfn, reps=5)
+            plain_ms = cuda_ms(pfn, reps=2, warmup=1)
             out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
             print(f"  time {name} at {grid.padded_shape}: kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms")
@@ -737,7 +737,7 @@ def kernels_phase():
         stage1 = (grid, scheme, u, v, w, None, gdt, zdt)
         ms = cuda_ms(lambda: K.fused_advection_update(*stage1))
         plain_ms = cuda_ms(lambda: K.fused_advection_update_plain(*stage1),
-                           reps=5)
+                           reps=2, warmup=1)
         print(f"  time fused_advection_update (uncorrected, first stage) at "
               f"{grid.padded_shape}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms (corrected G⁻ variant "
@@ -1125,7 +1125,7 @@ def time_fill(label, grid, fields, locs_bcs, err, z=True, time_=0.0,
     ms = whole_ms = device_ms(call)
     call_ms = cuda_ms(call)
     plain_ms = cuda_ms(lambda: K.fill_halos_plain(
-        grid, fields, locs_bcs, z=z, time=time_, dt=dt), reps=5)
+        grid, fields, locs_bcs, z=z, time=time_, dt=dt), reps=2, warmup=1)
     esize = fields[0].element_size()
     nbytes, sector_bytes = fill_traffic(grid, fields[0].shape, esize,
                                         locs_bcs, len(fields), z, pa=pa)
@@ -1316,7 +1316,7 @@ def convection_kernels_phase():
         scheme = schemes[0]
         ms = cuda_ms(lambda: K.fused_advection_tendency(grid, scheme, fields))
         plain_ms = cuda_ms(lambda: K.fused_advection_tendency_plain(
-            grid, scheme, fields), reps=5)
+            grid, scheme, fields), reps=2, warmup=1)
         out["fused_advection_tendency"] = dict(max_abs_err=worst_adv, ms=ms,
                                                plain_ms=plain_ms)
         print(f"  time fused_advection_tendency at {grid.padded_shape} (4 "
@@ -2375,16 +2375,17 @@ def hydro_bounds(N, H, esize, n_tracers=1):
 
 def hydro_model(N, dtype, device, seed=0, smoothness=torch.float32,
                 substeps=30, fused_tendencies="auto",
-                multi_dimensional_stencil=False):
+                multi_dimensional_stencil=False, latitude=(15, 75)):
     """bench_extra.py's hydro_row on the port: a lat-lon grid of 60° x 60°
     (15°N-75°N), 1800 m deep, WENOVectorInvariant() (with the
     multi-dimensional stencil on request: H = 8), HydrostaticSpherical-
     Coriolis(), SplitExplicitFreeSurface(substeps=30), tracer T, quasi-AB2;
     u = 0.05·N(0, 1) from np.random.default_rng(seed), T = 12 + 8e-3 z +
-    2e-2 φ."""
+    2e-2 φ. ``latitude``: the interval, or the Ny + 1 faces of a stretched
+    one."""
     import oceananigans_tpu_torch as ot
     grid = ot.LatitudeLongitudeGrid(size=N, longitude=(0, 60),
-                                    latitude=(15, 75), z=(-1800.0, 0.0),
+                                    latitude=latitude, z=(-1800.0, 0.0),
                                     dtype=dtype, device=device)
     model = ot.HydrostaticFreeSurfaceModel(
         grid, momentum_advection=ot.WENOVectorInvariant(
@@ -2659,7 +2660,8 @@ def hydro_kernels_phase():
     assert rel <= 2e-5, ("fused_vi_tendency float32", rel)
     del Gk, Gp
     ms = cuda_ms(lambda: K.fused_vi_tendency(*args))
-    plain_ms = cuda_ms(lambda: K.fused_vi_tendency_plain(*args), reps=5)
+    plain_ms = cuda_ms(lambda: K.fused_vi_tendency_plain(*args), reps=2,
+                       warmup=1)
     print(f"  time fused_vi_tendency at {model.grid.padded_shape}: kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
     out = {"fused_vi_tendency": dict(max_abs_err=err, ms=ms,
@@ -2927,8 +2929,9 @@ def mesh_kernels_phase(n_sw, n_conv):
         assert err == 0.0, ("halo exchange", shape, err)
         kernel = lambda: halo_exchange_local(blocks, mesh, halo, nl)
         plain = lambda: halo_exchange_plain(copies, mesh, halo, nl)
-        call_ms, plain_call_ms = cuda_ms(kernel), cuda_ms(plain, reps=5)
-        ms, plain_ms = device_ms(kernel), device_ms(plain, reps=5)
+        call_ms = cuda_ms(kernel)
+        plain_call_ms = cuda_ms(plain, reps=2, warmup=1)
+        ms, plain_ms = device_ms(kernel), device_ms(plain, reps=2, warmup=1)
         print(f"  time halo exchange at {shape} x {nf} x 4 blocks, device "
               f"work (card busy ahead): kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms; whole call from an idle card (host "
@@ -3002,13 +3005,17 @@ def state_bytes(model):
     return total
 
 
-def resident_profile(label, model, dt, steps, step_ms, card, kernel_key):
+def resident_profile(label, model, dt, steps, step_ms, card, kernel_key,
+                     exchange_key="exchange"):
     """The device's view of ``steps`` steady steps of a sharded model
     (torch.profiler): the busy share (the union of the device activities
     per step over the median step ``step_ms``), the device kernels a step,
-    and the shares of the step held by the exchange kernel, by the
-    per-shard stage kernel (names holding ``kernel_key``), by the fill
-    kernel and by the FFTs (names holding "fft"). Returns the shares."""
+    and the shares of the step held by the exchange (kernel names holding
+    ``exchange_key``: the exchange kernel of an (x, y) mesh; on a panel
+    mesh "index", the index kernels: the panel exchange's gathers and the
+    vertex vorticity's), by the per-shard stage
+    kernel (names holding ``kernel_key``), by the fill kernel and by the
+    FFTs (names holding "fft"). Returns the shares."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -3038,7 +3045,7 @@ def resident_profile(label, model, dt, steps, step_ms, card, kernel_key):
         return sum((e.time_range.end - e.time_range.start) for e in kernels
                    if any(k in e.name.lower() for k in keys)) / 1e3 / steps
 
-    shares = {"exchange": device_ms_of("exchange"),
+    shares = {"exchange": device_ms_of(exchange_key),
               "stage kernel": device_ms_of(kernel_key),
               "fill": device_ms_of("fill_halos"),
               "fft": device_ms_of("fft")}
@@ -3075,21 +3082,24 @@ def check_mesh_launches(launches, plain_cuda, expect):
         assert count == 0, f"plain {name} ran on CUDA tensors"
 
 
-def against_serial(label, sharded, serial, names, bound_rel):
-    """The worst difference of the sharded model's fields from the serial
-    model's after the same steps, each relative to its max|serial|."""
-    worst_abs, worst = 0.0, 0.0
+def against_serial(label, sharded, serial, names, bound_rel, what="serial"):
+    """The worst difference of the sharded model's fields from the
+    ``what`` model's after the same steps, each relative to its max|·|,
+    and the field where it occurs."""
+    worst_abs, worst, where = 0.0, 0.0, None
     for name in names:
         a, b = sharded.field(name).interior, serial.field(name).interior
         err = (a - b).abs().max().item()
-        rel = err / b.abs().max().item()
-        print(f"  {label} sharded against serial after {sharded.iteration} "
+        rel = err / max(b.abs().max().item(), 1e-30)
+        print(f"  {label} sharded against {what} after {sharded.iteration} "
               f"steps, {name}: max abs {err:.3e}, rel {rel:.3e}")
-        worst_abs, worst = max(worst_abs, err), max(worst, rel)
-    print(f"{label}: sharded against serial, worst relative difference "
-          f"{worst:.3e} (bound {bound_rel:g}); "
+        worst_abs = max(worst_abs, err)
+        if rel >= worst:
+            worst, where = rel, name
+    print(f"{label}: sharded against {what}, worst relative difference "
+          f"{worst:.3e} in {where} (bound {bound_rel:g}); "
           f"{'bit for bit' if worst_abs == 0.0 else 'not bit for bit'}")
-    assert worst <= bound_rel, (label, "sharded against serial", worst)
+    assert worst <= bound_rel, (label, f"sharded against {what}", worst)
     return worst
 
 
@@ -3210,7 +3220,7 @@ def sharded_sw_path_phase(card, n, serial, state0):
     del Gk, nk, Gp, np_
     torch.cuda.empty_cache()
     ms = cuda_ms(lambda: stage(*run), reps=5)
-    plain_ms = cuda_ms(lambda: plain(*run), reps=3, warmup=1)
+    plain_ms = cuda_ms(lambda: plain(*run), reps=2, warmup=1)
     print(f"  time #9 (G⁻ variant) on the 2x2 blocks of {n}^2: kernel route "
           f"{ms:.4f} ms, plain route {plain_ms:.4f} ms [{card}]")
     return launches, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
@@ -3235,7 +3245,7 @@ def sharded_tendency_check(label, model, n, card):
     assert rel <= 2e-5, (label, "sharded advection tendency float32", rel)
     del Gk, Gp, q
     ms = cuda_ms(lambda: stage(blocks))
-    plain_ms = cuda_ms(lambda: plain(blocks), reps=5)
+    plain_ms = cuda_ms(lambda: plain(blocks), reps=2, warmup=1)
     print(f"  time #7 on the 2x2 blocks of {label}: kernel route {ms:.4f} "
           f"ms, plain route {plain_ms:.4f} ms [{card}]")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
@@ -3699,7 +3709,7 @@ def tracer_path_phase(card):
     ms = cuda_ms(lambda: K.fused_advection_update(*args, tracers=tracers),
                  reps=5)
     plain_ms = cuda_ms(lambda: K.fused_advection_update_plain(
-        *args, tracers=tracers), reps=3, warmup=1)
+        *args, tracers=tracers), reps=2, warmup=1)
     print(f"  time fused_advection_update (corrected, G⁻) over u, v, w and "
           f"{N_TRACERS} tracers at {grid.padded_shape}: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms [{card}]")
@@ -3788,7 +3798,7 @@ def buoyant_path_phase(card):
     del Gk, Gp
     ms = cuda_ms(lambda: K.fused_advection_tendency(grid, scheme, q))
     plain_ms = cuda_ms(lambda: K.fused_advection_tendency_plain(
-        grid, scheme, q), reps=5)
+        grid, scheme, q), reps=2, warmup=1)
     print(f"  time fused_advection_tendency z-compact at {grid.padded_shape} "
           f"(4 fields): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
     return launches, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms), \
@@ -4070,7 +4080,7 @@ def bf16_state_checks(model, ntr, card):
         res["ms"] = cuda_ms(lambda: K.fused_advection_update(
             *args, tracers=tracers), reps=5)
         res["plain_ms"] = cuda_ms(lambda: K.fused_advection_update_plain(
-            *args, tracers=tracers), reps=3, warmup=1)
+            *args, tracers=tracers), reps=2, warmup=1)
         print(f"  time fused_advection_update bf16 smoothness (corrected, "
               f"G⁻) over u, v, w and {ntr} tracers at {grid.padded_shape}: "
               f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms "
@@ -4138,7 +4148,7 @@ def probe_kernels_phase(card):
                      for b in V.BODIES))
     out["bf16_smoothness"] = dict(
         ms=cuda_ms(lambda: V.bf16_smoothness(x)),
-        plain_ms=cuda_ms(lambda: V.bf16_smoothness_plain(x), reps=5))
+        plain_ms=cuda_ms(lambda: V.bf16_smoothness_plain(x), reps=2, warmup=1))
     for name, t in out.items():
         t["max_abs_err"] = errs[name]
         print(f"  time {name}: kernel {t['ms']:.4f} ms, plain "
@@ -5867,7 +5877,7 @@ def scheme_times(card):
         args = (grid, scheme, f[0], f[1], f[2], Gm, 0.1, -0.05, p, 0.07)
         ms = cuda_ms(lambda: K.fused_advection_update(*args))
         plain_ms = cuda_ms(lambda: K.fused_advection_update_plain(*args),
-                           reps=3, warmup=1)
+                           reps=2, warmup=1)
         Gk, _ = K.fused_advection_update(*args)
         Gp, _ = K.fused_advection_update_plain(*args)
         err, rel = scaled_err(Gk, Gp, update_scales(grid, scheme, f, p, 0.07))
@@ -5885,7 +5895,7 @@ def scheme_times(card):
         ms = cuda_ms(lambda: K.fused_advection_tendency(grid, scheme, f))
         plain_ms = cuda_ms(
             lambda: K.fused_advection_tendency_plain(grid, scheme, f),
-            reps=3, warmup=1)
+            reps=2, warmup=1)
         Gk = list(K.fused_advection_tendency(grid, scheme, f))
         Gp = list(K.fused_advection_tendency_plain(grid, scheme, f))
         err, rel = scaled_err(Gk, Gp, term_scales(grid, scheme, f))
@@ -6203,7 +6213,8 @@ def vi_row_kernel(label, args):
     assert rel <= 2e-5, ("fused_vi_tendency", label, rel)
     del Gk, Gp
     ms = cuda_ms(lambda: K.fused_vi_tendency(*args))
-    plain_ms = cuda_ms(lambda: K.fused_vi_tendency_plain(*args), reps=5)
+    plain_ms = cuda_ms(lambda: K.fused_vi_tendency_plain(*args), reps=2,
+                       warmup=1)
     cfg = fvi.vi_config(grid, vi, ts, len(names), cor)
     b = vi_bound(grid, cfg, len(names), args[-1] is not None)
     print(f"  time fused_vi_tendency {label} at {grid.padded_shape}: kernel "
@@ -6900,7 +6911,7 @@ def row_kernel_check(label, model, variant_label, bound_pair, zmode):
     del Gk, Gp
     ms = cuda_ms(lambda: K.fused_advection_tendency(grid, scheme, f))
     plain_ms = cuda_ms(lambda: K.fused_advection_tendency_plain(
-        grid, scheme, f), reps=3, warmup=1)
+        grid, scheme, f), reps=2, warmup=1)
     print(f"  time fused_advection_tendency {zmode} z at "
           f"{grid.padded_shape} (u, v, w): kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {bound_pair[0]:.4f} ms "
@@ -7013,10 +7024,11 @@ def topology_phase(card):
 
 SEAMOUNT_N = (2048, 512)       # row D: tidal flow over a seamount, nx × nz
 HILL_N = (256, 256, 128)       # row E: stratified flow over a 3-D hill
-CG_STEPS = (3, 5)              # warm-up and timed steps of each row
+CG_STEPS = (2, 3)              # warm-up and timed steps of each row
 CG_TIGHT = 1e-14               # the card-against-CPU models' solver tolerance
 SEAMOUNT_DT = 20.0             # the example's Δt cap
-WITNESS_MAXITER = 20000        # the witnesses' CG iterations at most
+WITNESS_MAXITER = 2000         # the witnesses' CG iterations at most
+CG_CHECK_STEPS = 1             # the small models' steps, card against CPU
 OPEN_TIMESCALES = ((0.0, np.inf), (60.0, 0.5), (np.inf, 0.0), (2.0, 3.0),
                    (0.0, 0.0), (1.0, np.inf))
 
@@ -7300,8 +7312,8 @@ def cg_small_models(device):
 
 
 def cg_model_checks():
-    """Each small model on the card over 3 steps against the same model on
-    the CPU, float64: every field within 1e-12 of
+    """Each small model on the card over ``CG_CHECK_STEPS`` steps against
+    the same model on the CPU, float64: every field within 1e-12 of
     its scale (the velocity scale at least for u, v, w and p), an immersed
     model's p over its fluid cells with their mean removed (the immersed
     CG, as JAX's, leaves p's constant over the fluid, which no correction
@@ -7319,7 +7331,7 @@ def cg_model_checks():
     for label, (a, dt) in card.items():
         b = cpu[label][0]
         bound = 1e-10 if label == "lat-lon" else 1e-12
-        steps = 3
+        steps = CG_CHECK_STEPS
         K.reset_counters()
         for _ in range(steps):
             a.time_step(dt)
@@ -7643,10 +7655,11 @@ def cg_phase(card):
     """Phase 28: the NonhydrostaticModel on immersed, multiply stretched and
     curvilinear grids, with open and per-point conditions: the fill checks,
     the small models against the CPU, the golden, rows D and E, and
-    witnesses of the rows' CG (``cg_witness``: row D's float32 state given
-    5000 iterations, each row's seeded state in float64 given
-    ``WITNESS_MAXITER``; row D's witnesses take 1000 and 2000 iterations,
-    to fit phase 32 in the script's time). Returns ({kernel
+    witnesses of the rows' CG (``cg_witness``: one step each, row D's
+    float32 state and its seeded state in float64 given 300 iterations
+    (its solve needs more than 20,000, ROADMAP queue 3), row E's seeded
+    state in float64 ``WITNESS_MAXITER``; cut to fit phases 32 and 34 in
+    the script's time). Returns ({kernel
     row: measured}, {row:
     launches})."""
     t0 = time.perf_counter()
@@ -7654,11 +7667,16 @@ def cg_phase(card):
     print("the fill with planes and perturbation faces against its plain "
           "version (bit for bit):")
     open_fill_checks()
-    print("small models on the card against the CPU (float64, 3 steps, "
-          "solvers at reltol 1e-14, 1e-12):")
+    t1 = time.perf_counter()
+    print(f"small models on the card against the CPU (float64, "
+          f"{CG_CHECK_STEPS} steps, solvers at reltol 1e-14, 1e-12):")
     cg_model_checks()
+    t2 = time.perf_counter()
     open_radiation_golden()
     torch.cuda.empty_cache()
+    print(f"phase 28 pieces: the fill checks {t1 - t0:.1f} s, the small "
+          f"models {t2 - t1:.1f} s, the golden "
+          f"{time.perf_counter() - t2:.1f} s")
 
     nx, nz = SEAMOUNT_N
     label = f"row D, tidal flow over a seamount {nx}x1x{nz}"
@@ -7685,14 +7703,14 @@ def cg_phase(card):
         f"{label} u, v, w, b (planes, PA faces)", model.grid, arrays, lbs,
         ferr, time_=t_d, dt=dt / 3)
     # whether more iterations move the float32 solve off its residual
-    cg_witness("row D float32", model, SEAMOUNT_DT, steps=0, maxiter=1000)
+    cg_witness("row D float32", model, SEAMOUNT_DT, steps=0, maxiter=300)
     del model, fields, arrays
     torch.cuda.empty_cache()
     print(f"{label}: the same seeded state in float64 (a witness of the "
           f"row's solve):")
     model = seamount_model(nx, nz, torch.float64, "cuda",
                            smoothness=torch.float64)
-    cg_witness("row D float64", model, SEAMOUNT_DT, steps=1, maxiter=2000)
+    cg_witness("row D float64", model, SEAMOUNT_DT, steps=0, maxiter=300)
     del model
     torch.cuda.empty_cache()
 
@@ -7720,7 +7738,7 @@ def cg_phase(card):
           f"row's solve):")
     model = hill_model(HILL_N, torch.float64, "cuda",
                        smoothness=torch.float64)
-    cg_witness("row E float64", model, None, steps=1)
+    cg_witness("row E float64", model, None, steps=0)
     del model
     torch.cuda.empty_cache()
     print(f"phase 28 rows: D {step_d:.3f} ms, E {step_e:.3f} ms a step "
@@ -8227,16 +8245,17 @@ CS30_STEPS = {"I": (3, 20), "J": (2, 5), "K": (3, 20), "L": (3, 20)}
 R_EARTH, OMEGA_EARTH = 6.371e6, 7.292e-5
 
 
-def cs_row_model(N, nz, dtype, device, **kw):
+def cs_row_model(N, nz, dtype, device, grid=None, **kw):
     """bench_extra.py ``cs_row``'s configuration: 6×N×N×nz to 3000 m, b,
-    rotation, split-explicit with 20 substeps (keywords override)."""
+    rotation, split-explicit with 20 substeps (keywords override; ``grid``
+    a grid of that shape to reuse)."""
     import oceananigans_tpu_torch as ot
     kw = {"free_surface": "split_explicit", "substeps": 20, **kw}
     if kw["free_surface"] != "split_explicit":
         kw.pop("substeps")
-    grid = ot.ConformalCubedSphereGrid((N, N, nz), z=(-3000.0, 0.0),
-                                       radius=R_EARTH, dtype=dtype,
-                                       device=device)
+    grid = grid or ot.ConformalCubedSphereGrid(
+        (N, N, nz), z=(-3000.0, 0.0), radius=R_EARTH, dtype=dtype,
+        device=device)
     m = ot.CubedSphereHydrostaticModel(grid, tracers=("b",),
                                        rotation_rate=OMEGA_EARTH, **kw)
     m.set(b=lambda lam, phi, z: 1e-5 * z
@@ -8252,17 +8271,19 @@ def cs_global_bottom(lam, phi):
     return -3000.0 + continent + ridge
 
 
-def cs_global_model(N, nz, dtype, device, smoothness=torch.float32):
+def cs_global_model(N, nz, dtype, device, smoothness=torch.float32,
+                    batch_panels=True, grid=None):
     """examples/global_cubed_sphere_ocean.py's configuration: halo 4,
     WENOVectorInvariant(order=5), WENO(5) tracers b and c, CATKE + GM/Redi
     triads, the continent-and-ridge GridFittedBottom, wind stress and a
     buoyancy flux (callables of the panels' (λ°, φ°)), split-explicit with
-    20 substeps; the balanced jet, stratification and a tracer blob."""
+    20 substeps; the balanced jet, stratification and a tracer blob
+    (``grid``: a grid of that shape to reuse)."""
     import oceananigans_tpu_torch as ot
     H0, U = 3000.0, 5.0
-    grid = ot.ConformalCubedSphereGrid((N, N, nz), z=(-H0, 0.0),
-                                       radius=R_EARTH, halo=4, dtype=dtype,
-                                       device=device)
+    grid = grid or ot.ConformalCubedSphereGrid(
+        (N, N, nz), z=(-H0, 0.0), radius=R_EARTH, halo=4, dtype=dtype,
+        device=device)
     closure = ot.closures.ClosureTuple(
         ot.CATKEVerticalDiffusivity(buoyancy=ot.BuoyancyTracer()),
         ot.TriadIsopycnalSkewSymmetricDiffusivity(
@@ -8278,7 +8299,8 @@ def cs_global_model(N, nz, dtype, device, smoothness=torch.float32):
             order=5, smoothness_dtype=smoothness),
         tracer_advection=ot.WENO(5, smoothness_dtype=smoothness),
         closure=closure, bottom_height=cs_global_bottom,
-        free_surface="split_explicit", substeps=20, boundary_conditions=bcs)
+        free_surface="split_explicit", substeps=20, boundary_conditions=bcs,
+        batch_panels=batch_panels)
     m.set_geographic(u_east=lambda lam, phi: U * np.cos(phi),
                      v_north=lambda lam, phi: 0.0 * lam)
     m.set(eta=lambda lam, phi: -(R_EARTH * OMEGA_EARTH * U + 0.5 * U * U)
@@ -8322,14 +8344,14 @@ def bickley_model(nx, ny, dtype, device, smoothness=torch.float32, **kw):
     return m
 
 
-def cs_sw_model(N, dtype, device):
+def cs_sw_model(N, dtype, device, grid=None):
     """Williamson et al. (1992) test case 2 on 6×N×N (U = 2πa/12 days,
-    gh₀ = 2.94e4 m²/s²)."""
+    gh₀ = 2.94e4 m²/s²; ``grid``: a grid of that shape to reuse)."""
     import oceananigans_tpu_torch as ot
     a, g = 6.37122e6, 9.80616
     U, H0 = 2 * np.pi * a / (12 * 86400.0), 2.94e4 / 9.80616
-    grid = ot.ConformalCubedSphereGrid((N, N), radius=a, dtype=dtype,
-                                       device=device)
+    grid = grid or ot.ConformalCubedSphereGrid((N, N), radius=a,
+                                               dtype=dtype, device=device)
     m = ot.CubedSphereShallowWaterModel(grid, gravity=g,
                                         rotation_rate=OMEGA_EARTH)
     m.set_geographic(
@@ -8970,7 +8992,7 @@ def bounded_path(card, n=None, small=None):
     grid, scheme = model.grid, model.advection
     ms = cuda_ms(lambda: K.fused_advection_tendency(grid, scheme, f))
     plain_ms = cuda_ms(lambda: K.fused_advection_tendency_plain(
-        grid, scheme, f), reps=3, warmup=1)
+        grid, scheme, f), reps=2, warmup=1)
     bnd = bounded_bounds(grid.N, grid.H, 4, scheme)
     plan = K.fused_advection.launch_plan(grid, scheme, torch.float32, 4)
     per_sm = ctypes.c_int(0)
@@ -9493,14 +9515,15 @@ def shard_state_bytes(model):
     return sum(size(m._state) for m in model._shards)
 
 
-def bounded_report(label, model, times, base, card):
+def bounded_report(label, model, times, base, card,
+                   mesh="a 2x2 mesh of one card"):
     """Step median, min and max, and peak memory against the state the
     shards hold (every tensor of their states)."""
     peak = torch.cuda.max_memory_allocated() - base
     held = shard_state_bytes(model)
     step_ms = statistics.median(times) * 1e3
     n = int(np.prod(model.grid.N))
-    print(f"{label} on a 2x2 mesh of one card: step median {step_ms:.3f} ms "
+    print(f"{label} on {mesh}: step median {step_ms:.3f} ms "
           f"over {len(times)} steps (min {min(times) * 1e3:.3f}, max "
           f"{max(times) * 1e3:.3f}), {n / (step_ms / 1e3):.4e} "
           f"cell-updates/s; peak device memory {peak / 2 ** 30:.2f} GiB "
@@ -9511,22 +9534,25 @@ def bounded_report(label, model, times, base, card):
 
 def mesh_path(label, serial, sharded, dt, steps, names, bound_rel, card,
               kernel_key, expect=None, plain=(), after=None,
-              profile_steps=BND_PROFILE_STEPS):
+              profile_steps=BND_PROFILE_STEPS, mesh="a 2x2 mesh of one card",
+              exchange_key="exchange"):
     """``steps`` steps of the sharded model (the counters reset just before
     and read just after, no plain version on CUDA tensors but the ``plain``
-    ones, which the serial model takes too, the launches of ``expect``
-    above 0) and of the serial model from the same state; the
-    fields against the serial model's (``bound_rel`` of max|·|), the step
-    median, peak memory against the state held, ``after(worst)`` (where
-    given), and the device profile of ``profile_steps`` more steps (busy
-    share, kernels a step, the exchange's share).
-    Returns (launches, step ms, the profile's shares, the worst relative
-    difference)."""
+    ones, which the serial model takes too (None: any but a plain fill),
+    the launches of ``expect`` above 0; the bytes the shards' meetings
+    move a step) and of the serial model from the same state; the fields
+    against the serial model's (``bound_rel`` of max|·|), the step median,
+    peak memory against the state held, ``after(worst)`` (where given),
+    and the device profile of ``profile_steps`` more steps (busy share,
+    kernels a step, the exchange's share). Returns (launches, step ms, the
+    profile's shares, the worst relative difference)."""
     from oceananigans_tpu_torch import kernels as K
+    comm = sharded.architecture.communicator
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated() - shard_state_bytes(sharded)
     torch.cuda.reset_peak_memory_stats()
     K.reset_counters()
+    moved = comm.bytes
     times = []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -9534,14 +9560,18 @@ def mesh_path(label, serial, sharded, dt, steps, names, bound_rel, card,
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches, plain_cuda = K.counters()
+    moved = (comm.bytes - moved) / steps
     print(f"{label} launches over {steps} steps: "
           f"{ {k: v for k, v in launches.items() if v} }; plain calls on "
           f"CUDA: { {k: v for k, v in plain_cuda.items() if v} }")
-    check_mesh_launches(launches, {k: v for k, v in plain_cuda.items()
-                                   if k not in plain}, {})
+    check_mesh_launches(launches, {
+        k: v for k, v in plain_cuda.items()
+        if (k not in plain if plain is not None else "fill" in k)}, {})
     for name in expect or ():
         assert launches[name] > 0, (label, name, "not launched")
-    step_ms = bounded_report(label, sharded, times, base, card)
+    step_ms = bounded_report(label, sharded, times, base, card, mesh)
+    print(f"{label}: the shards' meetings move {moved / 2 ** 20:.3f} MiB a "
+          f"step [{card}]")
     for _ in range(steps):
         serial.time_step(dt)
     for name in names:
@@ -9551,7 +9581,7 @@ def mesh_path(label, serial, sharded, dt, steps, names, bound_rel, card,
     if after is not None:
         after(worst)
     shares = resident_profile(label, sharded, dt, profile_steps, step_ms,
-                              card, kernel_key)
+                              card, kernel_key, exchange_key)
     return launches, step_ms, shares, worst
 
 
@@ -9669,8 +9699,11 @@ def shard_fill_check(label, model, names, card):
 def shard_exchange_check(label, model, names, card, fold=False):
     """The exchange (and with ``fold`` the north fold across the top row)
     of the sharded model's blocks of ``names`` on the card against the plain
-    copies, exact, with both times and the bound (each halo slot read once
-    and written once)."""
+    copies after one call of each, exact, then both times and the bound
+    (each halo slot read once and written once). The fold is not
+    idempotent (the self-mapped slot of an x-face field's last row takes
+    its sign at every call), so the two are compared before they are
+    timed over different numbers of calls."""
     from oceananigans_tpu_torch.parallel import halo_exchange as he
     shards = model._shards
     S = model.architecture.mesh.devices.shape
@@ -9688,13 +9721,19 @@ def shard_exchange_check(label, model, names, card, fold=False):
                 for i in range(S[0])]
 
     a, b = blocks(), blocks()
+
+    def max_diff():
+        return max((x - y).abs().max().item() for ra, rb in zip(a, b)
+                   for xa, xb in zip(ra, rb) for x, y in zip(xa, xb))
+
     if fold:
         top = lambda x: [x[i][S[1] - 1] for i in range(S[0])]
         he.mesh_fold_exchange(top(a), H, nl, spec)
         he.fold_plain(top(b), H, nl, spec)
+        err = max_diff()
         ms = device_ms(lambda: he.mesh_fold_exchange(top(a), H, nl, spec))
         plain_ms = device_ms(lambda: he.fold_plain(top(b), H, nl, spec),
-                             reps=3, warmup=1)
+                             reps=2, warmup=1)
         first = a[0][0][0]
         moved = S[0] * len(names) * (first.shape[0] * (H[1] + 1)
                                      * first.shape[2])
@@ -9703,6 +9742,7 @@ def shard_exchange_check(label, model, names, card, fold=False):
                                periodic)
         he.halo_exchange_plain(b, model.architecture.mesh, H, nl + (0,),
                                periodic)
+        err = max_diff()
         ms = device_ms(lambda: he.halo_exchange_local(
             a, model.architecture.mesh, H, nl + (0,), periodic))
         plain_ms = device_ms(lambda: he.halo_exchange_plain(
@@ -9713,8 +9753,6 @@ def shard_exchange_check(label, model, names, card, fold=False):
                                     S, ax, periodic[ax]))
                      * (H[ax] * first.shape[1 - ax]) for ax in (0, 1))
         moved = strips * len(names) * first.shape[2]
-    err = max((x - y).abs().max().item() for ra, rb in zip(a, b)
-              for xa, xb in zip(ra, rb) for x, y in zip(xa, xb))
     bnd = bound(2 * moved * first.element_size(), 0)
     what = "the north fold" if fold else "the exchange"
     print(f"  {label}: {what} of {len(names)} fields on the 2x2 mesh against "
@@ -9802,7 +9840,7 @@ def flux_form_checks(card):
         err = max((x - y).abs().max().item() for x, y in zip(got, want))
         scale = max(y.abs().max().item() for y in want)
         ms = device_ms(run)
-        plain_ms = device_ms(plain, reps=3, warmup=1)
+        plain_ms = device_ms(plain, reps=2, warmup=1)
         row = f"{kname}_{fa.variant_name(scheme)}"
         print(f"  {row} at {n}: against its plain version max abs "
               f"{err:.3e} ({err / scale:.3e} of max|plain|, bound 1e-5); "
@@ -10021,10 +10059,269 @@ def bounded_mesh_phase(card):
     return launches, rows
 
 
+# -- the cubed sphere over its panels, stretched sharded axes and the last
+#    configurations that refused a mesh (phase 34) --------------------------
+
+P34_STEPS = {"a": 3, "b": 1, "c": 3, "d": 2, "e": 3, "f": 2}
+P34_NH_N = (256, 256, 128)    # (d): tests/test_solvers.py:205 at row size
+P34_PARTICLES = 2 ** 20       # (f): phase 31 (c)'s particles on row A
+# the panel paths' mesh, named in the reports, and the profile's key for
+# their exchange: the index kernels of its gathers and of the vertex fix
+PANELS34 = dict(mesh="6 panel shards of one card", exchange_key="index")
+
+
+def panel_card_mesh(n=6):
+    """Distributed(Mesh([cuda:0] * n, ("panels",))): the cubed sphere's
+    panel mesh of n shards on the one card (JAX's call shape)."""
+    import oceananigans_tpu_torch as ot
+    from oceananigans_tpu_torch.parallel import Mesh
+    devices = np.empty(n, dtype=object)
+    devices[:] = [torch.device("cuda", 0)] * n
+    return ot.Distributed(Mesh(devices, ("panels",)))
+
+
+def panel_exchange_check(label, model, card):
+    """The shards' panel exchange (u and v rotated, b) against the global
+    exchange of the gathered panels: bit for bit; both timed (a meeting of
+    the shards against one gather a field), and the bytes a shard sends."""
+    shards, comm = model._shards, model._comm
+    g = model.grid
+    st = model.state["fields"]
+    want = (g.exchange.centers(st["b"]),) + g.exchange.velocities(st["u"],
+                                                                   st["v"])
+
+    def sharded():
+        return comm.run(lambda r: (shards[r].exchange.centers(
+            shards[r]._state["fields"]["b"]),) + shards[r].exchange.velocities(
+            shards[r]._state["fields"]["u"], shards[r]._state["fields"]["v"]))
+
+    got = sharded()
+    err = max((torch.cat([o[k] for o in got]) - want[k]).abs().max().item()
+              for k in range(3))
+    calls0 = shards[0].exchange.calls
+    bytes0 = shards[0].exchange.bytes
+    ms = device_ms(sharded, reps=5, warmup=1)
+    per_call = (shards[0].exchange.bytes - bytes0) / max(
+        shards[0].exchange.calls - calls0, 1)
+    plain_ms = device_ms(lambda: (g.exchange.centers(st["b"]),
+                                  g.exchange.velocities(st["u"], st["v"])),
+                         reps=2, warmup=1)
+    print(f"  {label}: the panel exchange of b, u and v on "
+          f"{len(shards)} shards against the global exchange of the six "
+          f"panels: max abs {err:.3e} (bound 0); {ms:.4f} ms (one meeting "
+          f"a field kind) against {plain_ms:.4f} ms; shard 0 sends "
+          f"{per_call / 2 ** 10:.1f} KiB an exchange [{card}]")
+    assert err == 0.0, (label, "panel exchange", err)
+
+
+def stretched_x_model(N, dtype, device, architecture=None, state=None,
+                      pressure_solver=None):
+    """tests/test_solvers.py:205's construction at N: x faces the cumulative
+    sum of U(0.5, 1.5) cell widths (np.random.default_rng(3)), y on (0, 2),
+    z on (0, 1.5), (Bounded, Periodic, Bounded); WENO(5) (the plain flux
+    divergences: JAX's eligible refuses a stretched x); u, v 0.1·N(0, 1)
+    from np.random.default_rng(0), projected by set(), or ``state``."""
+    import oceananigans_tpu_torch as ot
+    rng = np.random.default_rng(3)
+    xf = np.cumsum(np.concatenate([[0.0], rng.uniform(0.5, 1.5, N[0])]))
+    grid = ot.RectilinearGrid(size=N, x=xf, y=(0, 2.0), z=(0, 1.5),
+                              topology=(B_, P_, B_), dtype=dtype,
+                              device=device)
+    kw = {} if pressure_solver is None else dict(
+        pressure_solver=pressure_solver(grid))
+    model = ot.NonhydrostaticModel(grid, advection=ot.WENO(5),
+                                   architecture=architecture, **kw)
+    if state is not None:
+        model.state = to_device(state, grid.device)
+        return model
+    rng = np.random.default_rng(0)
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    model.set(u=0.1 * rng.standard_normal(N).astype(npdt),
+              v=0.1 * rng.standard_normal(N).astype(npdt))
+    return model
+
+
+def particles_row_a(architecture=None, n_particles=P34_PARTICLES):
+    """Row A with phase 31 (c)'s particles (uniform over the domain from
+    np.random.default_rng(7), tracking w): the padded route."""
+    import oceananigans_tpu_torch as ot
+    n = TOPO_A_N
+    L = 2 * np.pi
+    rng = np.random.default_rng(7)
+    parts = ot.LagrangianParticles(
+        x=rng.uniform(0, L, n_particles), y=rng.uniform(0, L, n_particles),
+        z=rng.uniform(0, L, n_particles), tracked_fields=("w",))
+    grid = ot.RectilinearGrid(size=(n, n, n), extent=(L,) * 3,
+                              topology=(P_, P_, P_), halo=3,
+                              dtype=torch.float32, device="cuda")
+    m = ot.NonhydrostaticModel(grid, advection=ot.WENO(5), particles=parts,
+                               architecture=architecture)
+    return m
+
+
+def p34_phase(card):
+    """Phase 34 (item 16b part 2), float32, each sharded path from its
+    serial model's state: (a) row I (6×64×64×32, split-explicit with 20
+    substeps) over 6 panel shards against the serial per-panel model (bit
+    for bit expected: no reduction crosses panels) and the batched model;
+    (b) row J at C96×32 over 6 panels against the per-panel model; (c) row
+    L over 6 panels against the serial model; (d) the NH model on a
+    stretched x (the pencil's Thomas sweep along x) on 2×2 against the
+    serial Fourier-tridiagonal model and its twin on the pencil solver;
+    (e) the hydrostatic row on phase 26's stretched latitude on 2×2, #10
+    on every shard; (f) row A with 2²⁰ particles on 2×2. Returns
+    ({path: launches}, {kernel row: measured})."""
+    t0 = time.perf_counter()
+    launches, rows = {}, {}
+    steps = P34_STEPS
+    # (a)
+    N, nz = CS_ROW_N
+    label = f"(a) row I 6x{N}x{N}x{nz} over 6 panel shards"
+    batched = cs_row_model(N, nz, torch.float32, "cuda")
+    serial = cs_row_model(N, nz, torch.float32, "cuda", grid=batched.grid,
+                          batch_panels=False)
+    sharded = cs_row_model(N, nz, torch.float32, "cuda", grid=batched.grid)
+    sharded.state = panel_card_mesh().shard(batched.state)
+    la, _, _, _ = mesh_path(label, serial, sharded, CS_ROW_DT, steps["a"],
+                            ("u", "v", "b", "eta"), 0.0, card, "fill_halos",
+                            expect=("fill_halos",), plain=None,
+                            profile_steps=1, **PANELS34)
+    launches["a"] = la
+    # the profiled step moved the sharded model on
+    while batched.iteration < sharded.iteration:
+        batched.time_step(CS_ROW_DT)
+    against_serial(label, sharded, batched, ("u", "v", "b", "eta"), 1e-5,
+                   "batched")
+    panel_exchange_check(label, sharded, card)
+    sh = sharded._shards[0]
+    cp = sh._catp
+    rows["fill_halos_panel_shard"] = cs30_fill(
+        f"{label}: shard 0's panel (z halos, x and y kept)", cp.grid,
+        [sh._c(sh._state["fields"][n]) for n in ("u", "v", "b")],
+        [(cp.loc(n), cp.bcs[n]) for n in ("u", "v", "b")])
+    del batched, serial, sharded, sh, cp
+    release()
+    # (b)
+    N, nz = CS_GLOBAL_N
+    label = f"(b) row J 6x{N}x{N}x{nz} over 6 panel shards"
+    dt = cs_global_dt(N)
+    serial = cs_global_model(N, nz, torch.float32, "cuda",
+                             batch_panels=False)
+    sharded = cs_global_model(N, nz, torch.float32, "cuda",
+                              grid=serial.grid)
+    sharded.state = panel_card_mesh().shard(serial.state)
+    launches["b"], _, _, _ = mesh_path(
+        label, serial, sharded, dt, steps["b"],
+        ("u", "v", "b", "c", "e", "eta"), 0.0, card, "fill_halos",
+        expect=("fill_halos",), plain=None, profile_steps=1, **PANELS34)
+    del serial, sharded
+    release()
+    # (c)
+    N = CS_SW_N
+    label = f"(c) row L 6x{N}x{N} over 6 panel shards"
+    serial = cs_sw_model(N, torch.float32, "cuda")
+    sharded = cs_sw_model(N, torch.float32, "cuda", grid=serial.grid)
+    sharded.state = panel_card_mesh().shard(serial.state)
+    launches["c"], _, _, _ = mesh_path(
+        label, serial, sharded, cs_sw_dt(N), steps["c"], ("h", "u", "v"),
+        0.0, card, "elementwise", plain=None, profile_steps=1, **PANELS34)
+    m0 = serial.total_mass()
+    drift = abs(sharded.total_mass() - m0) / m0
+    print(f"{label}: mass drift {drift:.3e} over {sharded.iteration} steps "
+          f"(float32) [{card}]")
+    del serial, sharded
+    release()
+    # (d)
+    label = f"(d) the NH model {P34_NH_N} with a stretched x"
+    serial = stretched_x_model(P34_NH_N, torch.float32, "cuda")
+    state0 = to_device(serial.state, "cpu")
+    sharded = stretched_x_model(P34_NH_N, torch.float32, "cuda",
+                                architecture=card_mesh())
+    sharded.state = to_device(state0, "cuda")
+    assert sharded.pressure_solver.s == 0
+    assert type(serial.pressure_solver).__name__ == \
+        "FourierTridiagonalPoissonSolver"
+    dt = cfl_dt(serial, 0.3)
+    launches["d"], _, _, _ = mesh_path(
+        label, serial, sharded, dt, steps["d"], ("u", "v", "w"), 1e-5, card,
+        "fft", expect=("mesh_halo_exchange", "fill_halos"),
+        after=lambda worst: pencil_twin_check(
+            label, sharded, serial, stretched_x_model, state0, dt,
+            ("u", "v", "w"), max(worst, 1e-30)))
+    del serial, sharded, state0
+    release()
+    # (e)
+    lat = 15 + 60 * np.linspace(0, 1, HYDRO_N[1] + 1) ** 1.3
+    label = f"(e) hydro_row {HYDRO_N} on a stretched latitude"
+    serial = hydro_model(HYDRO_N, torch.float32, "cuda", latitude=lat)
+    sharded = hydro_model(HYDRO_N, torch.float32, "cuda", latitude=lat)
+    sharded.state = card_mesh().shard(serial.state)
+    assert all(m.uses_kernel for m in sharded._shards)
+    assert sharded._shards[0].grid.stretched_axes == (1,)
+    la, _, _, _ = mesh_path(
+        label, serial, sharded, 120.0, steps["e"],
+        ("u", "v", "T", "eta", "w"), 0.0, card, "vi_tendency",
+        expect=("fused_vi_tendency", "mesh_halo_exchange", "fill_halos"))
+    print(f"{label}: #10's launches on the shards by variant "
+          f"{ {k: v for k, v in la.items() if k.startswith('fused_vi')} } "
+          f"over {steps['e']} steps")
+    assert la["fused_vi_tendency"] == 4 * steps["e"]
+    launches["e"] = la
+    rows["fused_vi_tendency_shard_stretched_y"] = shard_vi_check(
+        label, sharded, card)
+    del serial, sharded
+    release()
+    # (f)
+    label = f"(f) row A {TOPO_A_N}^3 with {P34_PARTICLES} particles"
+    serial = particles_row_a()
+    rng = np.random.default_rng(0)
+    n = TOPO_A_N
+    serial.set(**{c: rng.standard_normal((n, n, n), dtype=np.float32)
+                  for c in "uvw"})
+    state0 = to_device(serial.state, "cpu")
+    sharded = particles_row_a(card_mesh())
+    sharded.state = to_device(state0, "cuda")
+    del state0
+    dt = cfl_dt(serial)
+
+    def positions(_):
+        worst = 0.0
+        for k in ("x", "y", "z"):
+            a = sharded.state["particles"][k]
+            b = serial.state["particles"][k]
+            d = (a - b).abs() / (2 * np.pi)
+            # across the periodic wrap
+            worst = max(worst, torch.minimum(d, 1 - d).max().item())
+        print(f"{label}: particle positions against the serial model's "
+              f"after {sharded.iteration} steps: largest difference "
+              f"{worst:.3e} of the domain (bound 1e-5, about 20 float32 "
+              f"ulps of a position: the velocities round apart in the "
+              f"pencil) [{card}]")
+        assert worst <= 1e-5, (label, "particles", worst)
+
+    launches["f"], _, _, _ = mesh_path(
+        label, serial, sharded, dt, steps["f"], ("u", "v", "w"), 1e-5, card,
+        "advection", expect=("mesh_halo_exchange", "fill_halos"),
+        after=positions)
+    del serial, sharded
+    release()
+    print(f"phase 34 wall time {time.perf_counter() - t0:.1f} s [{card}]")
+    return launches, rows
+
+
 def main():
     t_start = time.perf_counter()
     name, card = device_phase()
+    laps = [time.perf_counter()]
+
+    def lap(label):
+        """The wall time since the last lap, for the script's budget."""
+        now = time.perf_counter()
+        print(f"chip_smoke.py lap: {label} {now - laps[-1]:.1f} s [{card}]")
+        laps.append(now)
+
     build_phase()
+    lap("the build")
     print("kernels against plain versions:")
     measured = kernels_phase()
     measured.update(convection_kernels_phase())
@@ -10033,12 +10330,14 @@ def main():
     flagship_launches, _ = flagship_path_phase(card)
     convection_launches, conv_step_ms, conv_serial, conv_state0 = \
         convection_path_phase(card)
+    lap("phases 3-5 (the flagship and convection kernels and paths)")
     print("shallow-water kernels against plain versions:")
     n_sw = 16384
     measured.update(sw_kernels_phase(n_sw))
     bounds.update(sw_bounds(n_sw, (4, 4, 0), 4))
     sw_launches, sw_step_ms, sw_serial, sw_state0 = sw_path_phase(card,
                                                                    n_sw)
+    lap("phases 6-7 (shallow water)")
     release()
     print("mesh pieces against plain versions (2x2 mesh of one card):")
     measured.update(mesh_kernels_phase(n_sw, 256))
@@ -10050,11 +10349,13 @@ def main():
     busy_share("shallow-water path", sw_serial, 1e-5, 3, sw_step_ms, card)
     del sw_serial, sw_state0
     release()
+    lap("the mesh pieces and the sharded shallow water")
     sharded_conv_launches, measured["build_sharded_fused_advection"] = \
         sharded_convection_path_phase(card, 256, conv_serial, conv_state0)
     busy_share("convection path", conv_serial, 1e-3, 3, conv_step_ms, card)
     del conv_serial, conv_state0
     release()
+    lap("the sharded convection")
     print("z-compact kernels with tracers, and the lifted caps, against plain "
           "versions:")
     tracer_kernels_phase()
@@ -10062,6 +10363,7 @@ def main():
     tracer_launches, measured["fused_advection_update_tracers"], \
         weno_states = tracer_path_phase(card)
     release()
+    lap("phases 15-16 (tracers)")
     print("bfloat16 WENO smoothness: kernels against plain versions, and the "
           "256^3 weno5_bf16smooth tracer row:")
     measured.update(bf16_kernels_phase())
@@ -10070,6 +10372,7 @@ def main():
         bf16_tracer_path_phase(card, weno_states)
     del weno_states
     release()
+    lap("phase 19 (bf16)")
     buoyant_launches, measured["fused_advection_tendency_compact"], \
         b_serial, b_state0, b_step_ms = buoyant_path_phase(card)
     release()
@@ -10078,6 +10381,7 @@ def main():
     busy_share("buoyant z-compact path", b_serial, 1e-3, 3, b_step_ms, card)
     del b_serial, b_state0
     release()
+    lap("phases 17-18 (buoyant, serial and sharded)")
     bounds.update(compact_bounds((256, 256, 256), (4, 4, 0), 4, N_TRACERS))
     bounds["fused_advection_tendency_compact"] = compact_bounds(
         (256, 256, 256), (4, 4, 0), 4, 1)["fused_advection_tendency_compact"]
@@ -10098,32 +10402,40 @@ def main():
     hydro_launches, _ = hydro_path_phase(card, hmodel)
     del hmodel
     release()
+    lap("phases 9-10 (hydrostatic)")
     print("goldens on the card:")
     goldens_phase()
+    lap("the goldens")
     print("whole step, kernels against plain versions:")
     whole_step_phase()
+    lap("phase 11 (whole steps)")
     print("vector-unit probes (#12) against plain versions:")
     measured.update(probe_kernels_phase(card))
     print("vector-unit probes (#12), the entry points:")
     probe_launches, peak = probe_path_phase(card)
+    lap("phase 20 (probes)")
     bounds.update(probe_bounds(peak["tflops"]))
     print("the 128^3 LES row (SmagorinskyLilly, AMD) and a vertically implicit "
           "diffusivity:")
     les = les_path_phase(card)
+    lap("phase 21 (LES)")
     for cname, (launches, step_ms) in les.items():
         print(f"LES {cname}: step {step_ms:.3f} ms; launches "
               f"{ {k: launches[k] for k in LES_KERNELS} } [{card}]")
     print("the 512x256x32 CATKE ocean row (flat bottom, immersed ridge):")
     ocean = ocean_path_phase(card)
+    lap("phase 22 (ocean)")
     for cname, (launches, step_ms) in ocean.items():
         print(f"{cname}: step {step_ms:.3f} ms; launches "
               f"{ {k: launches[k] for k in HYDRO_KERNELS} } [{card}]")
     print("the run loop: the flagship and the CATKE ocean row through "
           "Simulation.run:")
     simulation_phase(card)
+    lap("phase 23 (Simulation)")
     print("the global tripolar ocean (360x170x32, stretched z, the fold) and "
           "the pole-to-pole piece:")
     glob = global_path_phase(card)
+    lap("phase 24 (global)")
     measured["fill_halos_fold"] = glob["3d"]
     measured["fill_halos_fold_surfaces"] = glob["2d"]
     measured["fill_halos_polar"] = glob["polar"]["3d"]
@@ -10158,6 +10470,10 @@ def main():
     print("bounded sharded axes and the hydrostatic model on resident blocks "
           "(phase 33):")
     bnd_launches, bnd_rows = bounded_mesh_phase(card)
+    release()
+    print("the cubed sphere over its panels, stretched sharded axes and the "
+          "last configurations that refused a mesh (phase 34):")
+    p34_launches, p34_rows = p34_phase(card)
     bounds["fused_advection_update_bf16"] = \
         bounds["fused_advection_update_tracers"]
     for fname in ("fill_halos", "fill_halos_bounded", "fill_halos_fold",
@@ -10316,6 +10632,22 @@ def main():
         rows.append(dict(name=kname, route="cuda", source=source or src,
                          replaces=replaces,
                          launches=bnd_launches[path][counter],
+                         max_abs_err=m["max_abs_err"], ms=m["ms"],
+                         plain_ms=m["plain_ms"], bound_ms=m["bound"][0],
+                         bound_by=m["bound"][1], library_ms=None))
+    # phase 34's rows: #10 on the shard blocks of the stretched-latitude
+    # hydro_row (path (e)) and the fill on a panel shard's block (path (a)),
+    # each with its path's launches
+    for kname, kernel, path, counter in (
+            ("fused_vi_tendency_shard_stretched_y", "fused_vi_tendency", "e",
+             "fused_vi_tendency"),
+            ("fill_halos_panel_shard", "fill_halos_bounded", "a",
+             "fill_halos")):
+        m = p34_rows[kname]
+        source, replaces = KERNEL_SOURCES[kernel]
+        rows.append(dict(name=kname, route="cuda", source=source,
+                         replaces=replaces,
+                         launches=p34_launches[path][counter],
                          max_abs_err=m["max_abs_err"], ms=m["ms"],
                          plain_ms=m["plain_ms"], bound_ms=m["bound"][0],
                          bound_by=m["bound"][1], library_ms=None))

@@ -88,6 +88,19 @@ def _is_stretched(grid, axis):
     return not reg(axis)
 
 
+def shard_cut(grid, axis):
+    """(the global grid, the offset) of a shard's ``grid`` along a sharded
+    ``axis`` (x or y), or None: per-slot tables along a stretched sharded
+    axis are the global grid's cut at the offset, so that the slots near a
+    shard's edges, whose stencils reach past its padded range, read what
+    the serial grid reads."""
+    shard = getattr(grid, "shard", None)
+    if shard is None or axis > 1 or not hasattr(shard, "offset"):
+        return None
+    glob = shard.global_grid
+    return getattr(glob, "underlying_grid", glob), shard.offset[axis]
+
+
 def _padded_faces(grid, axis):
     """The npad + 1 face positions along ``axis`` (the last extrapolated)."""
     f = np.asarray(grid.coord_padded(axis, "f"), np.float64)
@@ -118,6 +131,12 @@ def _nonuniform_eno(grid, axis, beta, k, s, mirrored, like):
     the device of ``like``; cached on the grid."""
     key = (axis, beta, k, s, mirrored, like.dtype, str(like.device))
     cache = grid.__dict__.setdefault("_nonuniform_eno", {})
+    cut = shard_cut(grid, axis)
+    if key not in cache and cut is not None:
+        glob, o = cut
+        n = grid.padded_shape[axis]
+        cache[key] = tuple(c.narrow(axis, o, n) for c in _nonuniform_eno(
+            glob, axis, beta, k, s, mirrored, like))
     if key not in cache:
         faces = _padded_faces(grid, axis)
         cs = _nonuniform_eno_np(faces.tobytes(), faces.size, beta, k, s,

@@ -78,8 +78,11 @@ __global__ void exchange_kernel(const __grid_constant__ Strips S, int axis, int 
 // global column (the periodic images included), so no x halo is read.
 // Reads are of interior slots the launch does not write: the halo rows read
 // rows below the last one, the substituted row reads western columns and
-// writes eastern ones (the self-mapped column Nx/2 of an x-face field is read
-// and written by one thread).
+// writes eastern ones. The one slot of that row that reads itself, an x-face
+// field's column Nx/2, also has periodic images in the neighbours' x halos:
+// the thread of its owner's interior slot reads it once and writes it and
+// every image, and the images' own threads write nothing (an image that read
+// the owner's slot could see it before or after its owner's write).
 constexpr int kMaxFoldBlocks = 256;
 
 struct FoldTable {
@@ -110,6 +113,17 @@ __global__ void fold_kernel(const __grid_constant__ FoldTable F, int Sx, int PY,
   const int drow = last + r;
   const int srow = r == 0 ? last : (face_y ? last + 1 - r : last - r);
   const T* a = (const T*)F.blk[f * Sx + owner];
+  if (r == 0 && s == ig) {
+    if (i != owner || p != sp) return;
+    const T v = sg * a[((long long)sp * PY + srow) * PZ + k];
+    for (int b = 0; b < Sx; ++b)
+      for (int t = -2; t <= 2; ++t) {
+        const int q = s - b * nlx + hx + t * Nx;
+        if (q >= 0 && q < PX)
+          ((T*)F.blk[f * Sx + b])[((long long)q * PY + drow) * PZ + k] = v;
+      }
+    return;
+  }
   T* d = (T*)F.blk[f * Sx + i];
   d[((long long)p * PY + drow) * PZ + k] = sg * a[((long long)sp * PY + srow) * PZ + k];
 }
@@ -129,6 +143,10 @@ int oc_mesh_fold_exchange(void* const* blocks, const double* sign, const int* fa
   if (nf < 1 || nf > kBatch || Sx < 1 || nf * Sx > kMaxFoldBlocks || hy < 1 ||
       nly < hy + 1 || PY != nly + 2 * hy)
     return (int)cudaErrorInvalidValue;
+  // an x-face field centred in y with an odd Nx would swap two columns of
+  // the substituted row (the serial fill's oc_fill_plan refuses it too)
+  for (int f = 0; f < nf; ++f)
+    if (face[f] == 1 && (Sx * nlx) % 2) return (int)cudaErrorInvalidValue;
   FoldTable F;
   for (int n = 0; n < kMaxFoldBlocks; ++n) F.blk[n] = n < nf * Sx ? blocks[n] : nullptr;
   for (int f = 0; f < kBatch; ++f) {

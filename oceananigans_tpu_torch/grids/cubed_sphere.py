@@ -652,6 +652,137 @@ class PanelExchange:
         return self._pair("sync", u, v)
 
 
+class ShardPanelExchange:
+    """``PanelExchange`` on one shard of a panel mesh (``parallel.
+    distributed.PanelShard``): the shard holds k = 6/S consecutive panels,
+    (k, NP, NP, ...) (or the concatenated (k·NP, NP, ...)), and the
+    exchange is one meeting of the shards (the communicator's
+    ``all_to_all``). The global exchange's probed maps are split by
+    destination: each slot of this shard's panels reads one source slot
+    (times ±1), on its own panels or on another shard's. Each shard sends
+    every other shard the slots that its panels read there, and nothing
+    else, gathered into one strip buffer a destination; the receiver
+    gathers its panels from its own tensor and the strips that arrived. No
+    shard holds the six panels. The slots and signs are the global maps',
+    so a shard's panels equal the global exchange's bit for bit.
+
+    ``calls`` counts the exchanges and ``bytes`` the bytes this shard sent
+    (the strips, every field and level)."""
+
+    def __init__(self, exchange, shard):
+        self.global_exchange = exchange
+        self.shard = shard
+        self.NP = exchange.NP
+        S = shard.comm.size
+        self.k = k = 6 // S
+        self.n = k * self.NP * self.NP
+        self._plans = {}
+        self._device_plans = {}
+        self.calls = 0
+        self.bytes = 0
+
+    def _plan(self, kind):
+        """(send, maps): the local slots sent to each rank (None for
+        itself or nothing), and per output field (its index into this
+        shard's tensor followed by the strips received, in rank order;
+        its signs, or None for the centres)."""
+        if kind in self._plans:
+            return self._plans[kind]
+        ex = self.global_exchange
+        if kind not in ex._maps:
+            ex._maps[kind] = ex._probe(kind)
+        maps = ex._maps[kind]
+        pair = not isinstance(maps, np.ndarray)
+        A, k, n6 = self.NP * self.NP, self.k, ex.n
+        S = self.shard.comm.size
+        nf = 2 if pair else 1
+        ln = self.n
+
+        def owner_and_local(src):
+            f, g = src // n6, src % n6
+            q = g // A
+            return q // k, f * ln + g - (q // k) * k * A
+
+        # every rank's needs from every other: its destination slots' sources
+        needs = [[None] * S for _ in range(S)]
+        for dst in range(S):
+            lo, hi = dst * ln, (dst + 1) * ln
+            srcs = np.concatenate([m[lo:hi] for m in
+                                   ([maps] if not pair else
+                                    [src for src, _ in maps])])
+            own, loc = owner_and_local(srcs)
+            for s in range(S):
+                if s != dst:
+                    needs[dst][s] = np.unique(loc[own == s])
+        r = self.shard.rank
+        send = [None if d == r or needs[d][r].size == 0 else needs[d][r]
+                for d in range(S)]
+        lo, hi = r * ln, (r + 1) * ln
+        offsets, off = {}, nf * ln
+        for s in range(S):
+            if s != r:
+                offsets[s] = off
+                off += needs[r][s].size
+        out = []
+        for m in ([maps] if not pair else [src for src, _ in maps]):
+            own, loc = owner_and_local(m[lo:hi])
+            idx = loc.copy()
+            for s, base in offsets.items():
+                sel = own == s
+                idx[sel] = base + np.searchsorted(needs[r][s], loc[sel])
+            out.append(idx)
+        signs = [None] if not pair else [sgn[lo:hi] for _, sgn in maps]
+        plan = (send, list(zip(out, signs)) if pair else [(out[0], None)])
+        self._plans[kind] = plan
+        return plan
+
+    def _device_plan(self, kind, like):
+        key = (kind, like.device, like.dtype)
+        hit = self._device_plans.get(key)
+        if hit is None:
+            send, maps = self._plan(kind)
+            dev = like.device
+            hit = ([None if s is None else torch.as_tensor(s, device=dev)
+                    for s in send],
+                   [(torch.as_tensor(i, device=dev),
+                     None if g is None else torch.as_tensor(
+                         g, dtype=like.dtype, device=dev)[:, None])
+                    for i, g in maps])
+            self._device_plans[key] = hit
+        return hit
+
+    def _run(self, kind, fields):
+        send, maps = self._device_plan(kind, fields[0])
+        shape = fields[0].shape
+        local = torch.cat([a.reshape(self.n, -1) for a in fields]) \
+            if len(fields) > 1 else fields[0].reshape(self.n, -1)
+        pieces = [None if i is None else torch.index_select(local, 0, i)
+                  for i in send]
+        self.calls += 1
+        self.bytes += sum(p.numel() * p.element_size() for p in pieces
+                          if p is not None)
+        if self.shard.comm.size > 1:
+            got = self.shard.comm.all_to_all(self.shard.rank, pieces)
+            ext = torch.cat([local] + [g for g in got if g is not None])
+        else:
+            ext = local
+        self.global_exchange._count(local, len(maps))
+        out = []
+        for idx, sgn in maps:
+            a = torch.index_select(ext, 0, idx)
+            out.append((a if sgn is None else a * sgn).reshape(shape))
+        return out
+
+    def centers(self, a, passes=2):
+        return self._run(f"c{passes}", [a])[0]
+
+    def velocities(self, u, v, passes=2):
+        return tuple(self._run(f"uv{passes}", [u, v]))
+
+    def sync(self, u, v):
+        return tuple(self._run("sync", [u, v]))
+
+
 # -- the panels concatenated as one grid --------------------------------------
 
 class _ConcatBoundary:
@@ -695,7 +826,8 @@ class ConcatPanelsGrid(MetricCache, AbstractGrid):
             raise ValueError("panels must share shape")
         self.NPX = g0.padded_shape[0]
         self.H = g0.H
-        self.N = (6 * self.NPX - 2 * g0.H[0], g0.N[1], g0.N[2])
+        self.N = (len(self._panels) * self.NPX - 2 * g0.H[0], g0.N[1],
+                  g0.N[2])
         self.topology = g0.topology
         self.dtype, self.device = g0.dtype, g0.device
         self.radius = g0.radius
@@ -794,6 +926,7 @@ def concat_panels_grid(panel_grids):
 
 
 __all__ = ["ConformalCubedSphereGrid", "ConcatPanelsGrid", "PanelExchange",
+           "ShardPanelExchange",
            "concat_panels_grid",
            "fill_cubed_sphere_halos", "fill_cubed_sphere_velocity_halos",
            "sync_shared_velocity_faces", "derive_connectivity",

@@ -219,15 +219,10 @@ class LatitudeLongitudeGrid(MetricCache, AbstractGrid):
         this grid's halo, topology and dtype, on ``device`` (default: this
         grid's). Its coordinates are this grid's cut at the offset and its
         metrics this grid's tables cut there, so every cell of the shard
-        sees this grid's nodes and metrics exactly; z is carried whole. A
-        stretched longitude or latitude is not sharded (ROADMAP.md queue 1
-        item 16b part 2)."""
+        sees this grid's nodes and metrics exactly, on a stretched
+        longitude or latitude too; z is carried whole. A polar cap stays
+        only on the shards at its pole (``polar_south``, ``polar_north``)."""
         size = tuple(int(n) for n in size)
-        for ax in (0, 1):
-            if not self._coords[ax].regular and size[ax] != self.N[ax]:
-                raise NotImplementedError(
-                    "a sharded stretched horizontal axis: ROADMAP.md queue "
-                    "1 item 16b part 2")
         if size[2] != self.N[2]:
             raise ValueError("z is never sharded: the local grid keeps Nz")
         local = copy.copy(self)
@@ -238,6 +233,9 @@ class LatitudeLongitudeGrid(MetricCache, AbstractGrid):
             self._coords, size, tuple(offset) + (0,))]
         local._lam, local._phi, local._zc = local._coords
         local._metric_parent = (self, tuple(offset))
+        local.polar_south = self.polar_south and offset[1] == 0
+        local.polar_north = self.polar_north and \
+            offset[1] + size[1] == self.N[1]
         return local
 
     def minimum_spacing(self, axis):

@@ -333,9 +333,10 @@ class OrthogonalSphericalShellGrid(MetricCache, AbstractGrid):
         if size[2] != self.N[2]:
             raise ValueError("z is never sharded: the local grid keeps Nz")
         if self._corner_halo:
-            raise NotImplementedError(
-                "a cubed-sphere panel under a device mesh: ROADMAP.md queue "
-                "1 item 16b part 2")
+            raise ValueError(
+                "a cubed-sphere panel is not cut into (x, y) blocks: the "
+                "cubed sphere shards over its panels (a panel mesh, "
+                "Distributed(Mesh(devices, ('panels',))))")
         local = copy.copy(self)
         local.N = size
         local.device = self.device if device is None else torch.device(device)

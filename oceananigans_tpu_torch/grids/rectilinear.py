@@ -316,15 +316,13 @@ class RectilinearGrid(MetricCache, AbstractGrid):
         first cell is this grid's interior cell ``offset`` = (ox, oy), with
         this grid's halo, topology and dtype, on ``device`` (default: this
         grid's). Its coordinates and spacings are this grid's, cut at the
-        offset, so the shard's nodes and metrics equal this grid's exactly;
-        z is never sharded and is carried whole, stretched or not. A
-        stretched x or y is not sharded (ROADMAP.md item 16b)."""
+        offset, so the shard's nodes and metrics equal this grid's exactly
+        (a stretched x or y too: its padded faces, centres and spacings are
+        cut from this grid's, so the spacings of a connected side's halo and
+        boundary faces are this grid's, not extrapolated from the shard's
+        edge); z is never sharded and is carried whole, stretched or
+        not."""
         size = tuple(int(n) for n in size)
-        for ax in (0, 1):
-            if not self._coords[ax].regular and size[ax] != self.N[ax]:
-                raise NotImplementedError(
-                    "a sharded stretched horizontal axis: ROADMAP.md queue "
-                    "1 item 16b")
         if size[2] != self.N[2]:
             raise ValueError("z is never sharded: the local grid keeps Nz")
         local = copy.copy(self)

@@ -107,10 +107,10 @@ from .halo_fill import periodic_halo_fill_plain
 
 ZBC = {"u": "even", "v": "even", "w": "odd_face", "c": "even"}
 
-MESH_TOPOLOGY_ITEM = ("JAX's #7 takes periodic x and y alone (its "
-                      "eligible): a bounded sharded axis takes the models' "
-                      "plain flux divergences, a stretched one is ROADMAP.md "
-                      "queue 1 item 16b part 2")
+MESH_TOPOLOGY_ITEM = ("JAX's #7 takes regular periodic x and y alone (its "
+                      "eligible, oceananigans_tpu/kernels/fused_advection.py"
+                      ":96-113): a bounded or stretched sharded axis takes "
+                      "the models' plain flux divergences")
 
 SCHEMES_BUILT = ("the advection kernels are built for Centered(2-12), "
                  "UpwindBiased(1-11) and WENO(3-11), alone or one per axis "
@@ -745,7 +745,7 @@ def shard_fused_advection(grid, scheme, fields):
 
 def refuse_mesh_topology(grid):
     """#7 takes periodic (or connected) x and y on a regular grid: raise
-    for the others (ROADMAP.md item 16b)."""
+    for the others, as JAX's ``eligible`` refuses them."""
     if not grid.all_regular or grid.topology[:2] != (PERIODIC, PERIODIC):
         raise NotImplementedError(
             f"the sharded tendency on a {grid.topology} grid: "

@@ -274,8 +274,9 @@ def _build_sharded(grid, scheme, g, f, hB, names, mesh, plain):
     names = tuple(names)
     if grid.topology[:2] != (PERIODIC, PERIODIC):
         raise NotImplementedError(
-            f"the sharded stage on a {grid.topology} grid: ROADMAP.md queue "
-            "1 item 16b")
+            f"the sharded stage on a {grid.topology} grid: JAX's #9 takes "
+            "regular periodic x and y alone (its sw_eligible, "
+            "oceananigans_tpu/kernels/fused_shallow_water.py:31-40)")
     shards = mesh_shards(grid, mesh)
     hb = sharded_bathymetry(shards, hB, plain)
     kernel = fused_sw_update_plain if plain else shard_fused_sw_update

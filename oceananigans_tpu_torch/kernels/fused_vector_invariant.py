@@ -75,7 +75,7 @@ from ..advection.schemes import (TAU_COEFFS, WENO_EPSILON, WENO_R_MAX,
                                  AdvectionScheme, Centered,
                                  FluxFormAdvection, UpwindBiased, WENO,
                                  _is_stretched, _nonuniform_eno_np,
-                                 _padded_faces)
+                                 _padded_faces, shard_cut)
 from ..advection.vector_invariant import (CROSS_AND_SELF, ENERGY, ENSTROPHY,
                                           VELOCITY_STENCIL, VectorInvariant)
 from ..coriolis import (BetaPlane, ConstantCartesianCoriolis, FPlane,
@@ -566,7 +566,13 @@ def entry_firsts(entries):
 
 def coefficient_rows(grid, entries, axis):
     """The float64 rows of ``entries`` along ``axis``, in
-    ``entry_firsts``' layout."""
+    ``entry_firsts``' layout (on a shard's grid, the global grid's cut at
+    its offset: ``shard_cut``)."""
+    cut = shard_cut(grid, axis)
+    if cut is not None:
+        glob, o = cut
+        n = grid.padded_shape[axis]
+        return [r[o:o + n] for r in coefficient_rows(glob, entries, axis)]
     faces = _padded_faces(grid, axis)
     npad = grid.padded_shape[axis]
     rows = []

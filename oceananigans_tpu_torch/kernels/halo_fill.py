@@ -176,10 +176,47 @@ def polar_row_means(grid, a):
     interior x, at every z slot, (2, nz): the pole values of the polar caps
     (the boundary row is the first interior row at the south, the last at
     the north, for centre and y-face fields alike). One reduction over a
-    view of the two rows."""
+    view of the two rows. On a shard's grid, the means over the global x
+    that the fill's meeting formed (``shard_polar_means``)."""
+    held = getattr(grid, "_polar_means", None)
+    if held is not None and id(a) in held:
+        return held[id(a)]
     Hx, Nx = grid.H[0], grid.N[0]
     Hy, Ny = grid.H[1], grid.N[1]
     return a[Hx:Hx + Nx, Hy:Hy + Ny:max(Ny - 1, 1)].mean(0)
+
+
+def shard_polar_means(grid, fields, locs_bcs):
+    """The polar caps' zonal means over the global x on a shard of a
+    pole-touching grid: every shard of the mesh meets here in every fill
+    that fills y (the shards at a pole post their boundary rows' sums over
+    their x, the others zeros; ``all_reduce`` adds them in the mesh's
+    row-major order), and the shards at a pole keep the means for
+    ``polar_row_means`` during the fill. Returns the {id: means} held, or
+    None where the grid is not such a shard."""
+    shard = getattr(grid, "shard", None)
+    if shard is None or locs_bcs is None:
+        return None
+    glob = shard.global_grid
+    glob = getattr(glob, "underlying_grid", glob)
+    if not (getattr(glob, "polar_south", False)
+            or getattr(glob, "polar_north", False)):
+        return None
+    Hx, Nx = grid.H[0], grid.N[0]
+    Hy, Ny = grid.H[1], grid.N[1]
+    sums = []
+    for a, (_, bcs) in zip(fields, locs_bcs):
+        row = torch.zeros((2, a.shape[2]), dtype=a.dtype, device=a.device)
+        for k, (side, bc) in enumerate((("south", bcs.south),
+                                        ("north", bcs.north))):
+            if _is_polar(bc) and getattr(grid, f"polar_{side}", False):
+                y = Hy if k == 0 else Hy + Ny - 1
+                row[k] = a[Hx:Hx + Nx, y].sum(0)
+        sums.append(row)
+    total = shard.all_reduce(torch.stack(sums)) / glob.N[0]
+    held = {id(a): total[k] for k, a in enumerate(fields)}
+    grid._polar_means = held
+    return held
 
 
 def polar_row_mean(grid, a, is_left):
@@ -1018,12 +1055,18 @@ def fill_halos(grid, fields, locs_bcs=None, z=True, time=0.0, dt=None):
     if locs_bcs is not None and len(locs_bcs) != len(fields):
         raise ValueError("one (location, boundary conditions) per field")
     pa = dt is not None
-    if all(a.device.type == "cpu" for a in fields):
-        # raise where the kernel would
-        fill_codes(grid, fields[0].shape, locs_bcs, len(fields), z, pa=pa)
-        fill_halos_plain(grid, fields, locs_bcs, z, time, dt)
-    else:
-        _launch(grid, fields, locs_bcs, z, time, dt)
+    held = shard_polar_means(grid, fields, locs_bcs)
+    try:
+        if all(a.device.type == "cpu" for a in fields):
+            # raise where the kernel would
+            fill_codes(grid, fields[0].shape, locs_bcs, len(fields), z,
+                       pa=pa)
+            fill_halos_plain(grid, fields, locs_bcs, z, time, dt)
+        else:
+            _launch(grid, fields, locs_bcs, z, time, dt)
+    finally:
+        if held is not None:
+            grid._polar_means = None
     return exchange_connected(grid, fields, locs_bcs)
 
 

@@ -41,6 +41,17 @@ path:
   for the split-explicit surface and a substepped TKE) and the
   Wicker-Skamarock RK3 (stages from the step's start, 1/3, 1/2, 1).
 
+On a panel mesh (JAX's call shape ``model.state = arch.shard(model.state)``
+with ``arch = Distributed(Mesh(devices, ("panels",)))``, JAX's
+``P("panels")`` on every 4-D leaf) the model holds one per-panel model a
+shard over its k = 6/S panels (JAX's per-panel build under panel sharding),
+each stepping the code above on its panels' state; the shards meet in the
+panel exchange (``ShardPanelExchange``: each sends only the slots that its
+neighbours' halos read), the vertex vorticity (``ShardVertexFix``) and the
+implicit free surface's dot products, and the step holds no view of the six
+panels. The explicit and split-explicit steps equal the serial per-panel
+model's bit for bit; the implicit one to the rounding of its sums.
+
 State: ``fields`` u, v (the panels' local staggered components), the
 tracers ((6, NP, NP, NZ)) and η ((6, NP, NP, 1)), ``clock``, and as the
 configuration needs them ``Gm`` (AB2), ``barotropic`` (U, V) and the z*
@@ -75,17 +86,17 @@ from ..closures.scalar_diffusivity import (ClosureTuple,
                                            validate_implicit_closure_z_bcs)
 from ..defaults import defaults, numpy_dtype
 from ..forcings.forcings import regularize_forcing
-from ..grids.cubed_sphere import concat_panels_grid
+from ..grids.cubed_sphere import ShardPanelExchange, concat_panels_grid
 from ..grids.topology import LOC_CCC, LOC_CCF, LOC_CFC, LOC_FCC
 from ..immersed import GridFittedBottom, ImmersedBoundaryGrid, \
     PartialCellBottom
-from ..parallel.distributed import MESH_ITEM, MeshModel
+from ..parallel.distributed import MeshModel
 from ..operators.operators import (ddx, ddy, div_xy_ccc, dx_c, dy_c, iz_f,
                                    zeta3_ffc)
 from ..solvers.conjugate_gradient import conjugate_gradient
 from ..utils.dateclock import datetime_of
-from .cubed_sphere_shallow_water import (PanelFieldView, VertexFix,
-                                         _geographic_values,
+from .cubed_sphere_shallow_water import (PanelFieldView, ShardVertexFix,
+                                         VertexFix, _geographic_values,
                                          _vertex_corner_info,
                                          staggered_points_and_bases)
 from .free_surfaces import (ExplicitFreeSurface, ImplicitFreeSurface,
@@ -307,10 +318,22 @@ class CubedSphereHydrostaticModel(MeshModel):
     "QuasiAdamsBashforth2"."""
 
     def _enter_mesh(self, arch):
-        # the panels are not sharded yet: JAX's call shape raises
-        raise NotImplementedError(
-            f"the cubed-sphere hydrostatic model sharded over its panels "
-            f"under a device mesh: {MESH_ITEM} part 2")
+        """Put the model on the panel mesh ``arch`` (JAX's call shape
+        ``model.state = arch.shard(model.state)``): one model a shard over
+        its panels, built from this model's arguments with
+        ``batch_panels=False`` (JAX's per-panel build under panel sharding,
+        ``_state_sharded``); the shards meet in the panel exchange
+        (``ShardPanelExchange``), the vertex vorticity
+        (``ShardVertexFix``) and the reductions of the implicit free
+        surface's CG. This model's own state is dropped: assign a state to
+        scatter it."""
+        shards = arch.panel_shards_of(self.grid)
+        self.architecture = arch
+        self._comm = arch.communicator
+        self._shards = [CubedSphereHydrostaticModel(
+            self.grid, **dict(self._shard_kw, batch_panels=False),
+            _shard=sh) for sh in shards]
+        self._state = None
 
     def __init__(self, grid, tracers=("b",), gravity=None, rotation_rate=0.0,
                  momentum_advection=None, tracer_advection=None,
@@ -319,7 +342,25 @@ class CubedSphereHydrostaticModel(MeshModel):
                  bottom_height=None, free_surface="explicit",
                  implicit_solver_tol=1e-8, substeps=30,
                  timestepper="WickerSkamarockRK3", vertical_coordinate="z",
-                 reference_datetime=None, batch_panels=True):
+                 reference_datetime=None, batch_panels=True, _shard=None):
+        # the arguments a shard's model is built from (``_enter_mesh``)
+        self._shard_kw = dict(
+            tracers=tracers, gravity=gravity, rotation_rate=rotation_rate,
+            momentum_advection=momentum_advection,
+            tracer_advection=tracer_advection, coriolis=coriolis,
+            buoyancy=buoyancy, buoyancy_tracer=buoyancy_tracer,
+            closure=closure, forcing=forcing,
+            boundary_conditions=boundary_conditions,
+            bottom_height=bottom_height, free_surface=free_surface,
+            implicit_solver_tol=implicit_solver_tol, substeps=substeps,
+            timestepper=timestepper,
+            vertical_coordinate=vertical_coordinate,
+            reference_datetime=reference_datetime)
+        self.architecture = None
+        # the panels this model steps: all six, or a panel shard's
+        self._panel_shard = _shard
+        self._ids = tuple(range(6) if _shard is None else _shard.panels)
+        self._k = len(self._ids)
         if grid.panel_grids[0].is_flat(2):
             raise ValueError("CubedSphereHydrostaticModel needs a grid "
                              "built with z=(bottom, top)")
@@ -409,6 +450,7 @@ class CubedSphereHydrostaticModel(MeshModel):
         panel_grids = list(grid.panel_grids)
         if self._immersed:
             panel_grids = self._immersed_panels(bottom_height)
+        panel_grids = [panel_grids[p] for p in self._ids]
 
         bcs_in = dict(boundary_conditions or {})
         if self._substepped_tke:
@@ -419,23 +461,24 @@ class CubedSphereHydrostaticModel(MeshModel):
         self._bcs_in = bcs_in
 
         self.panels = []
-        for p in range(6):
-            bcs = self._panel_bcs(panel_grids[p])
-            if p == 0:
+        for i, g in enumerate(panel_grids):
+            bcs = self._panel_bcs(g)
+            if i == 0:
                 validate_implicit_closure_z_bcs(closure, bcs)
-            self.panels.append(_PanelPhysics(self, panel_grids[p], bcs))
+            self.panels.append(_PanelPhysics(self, g, bcs))
         self._catp = _PanelPhysics(self, concat_panels_grid(panel_grids),
                                    None)
         self._catp.bcs = self._panel_bcs(self._catp.grid)
         self._batch = bool(batch_panels)
-        self.exchange = grid.exchange
+        self.exchange = (grid.exchange if _shard is None
+                         else ShardPanelExchange(grid.exchange, _shard))
 
         g0 = grid.panel_grids[0]
         self._zmask = torch.zeros(ZP, dtype=grid.dtype, device=grid.device)
         self._zmask[g0.H[2]:g0.H[2] + g0.N[2]] = 1.0
         self._nt = numpy_dtype(grid.dtype)
         kw = dict(dtype=grid.dtype, device=grid.device)
-        shape3, shape2 = (6, NP, NP, ZP), (6, NP, NP, 1)
+        shape3, shape2 = (self._k, NP, NP, ZP), (self._k, NP, NP, 1)
         fields = {n: torch.zeros(shape3, **kw)
                   for n in ("u", "v") + self.tracer_names}
         fields["eta"] = torch.zeros(shape2, **kw)
@@ -452,8 +495,11 @@ class CubedSphereHydrostaticModel(MeshModel):
         if vertical_coordinate == "zstar":
             for key in ZSTAR_STATE:
                 self.state[key] = torch.zeros(shape2, **kw)
-        self._geom = staggered_points_and_bases(grid)
         self._vertex = VertexFix(grid, _vertex_corner_info(grid))
+        if _shard is None:
+            self._geom = staggered_points_and_bases(grid)
+        else:
+            self._vertex = ShardVertexFix(self._vertex, _shard, NP)
 
     # -- construction helpers -------------------------------------------------
 
@@ -472,6 +518,9 @@ class CubedSphereHydrostaticModel(MeshModel):
             bottom_height = bottom_height.bottom_height
         out = []
         for p, g in enumerate(grid.panel_grids):
+            if p not in self._ids:
+                out.append(None)
+                continue
             if callable(bottom_height):
                 lam, phi = g.nodes2d_padded(("c", "c"))
                 zb = np.broadcast_to(np.asarray(bottom_height(
@@ -504,11 +553,12 @@ class CubedSphereHydrostaticModel(MeshModel):
     # -- layouts and per-panel maps -------------------------------------------
 
     def _c(self, a):
-        """(6, NP, ...) -> the concatenated (6·NP, ...) view."""
-        return a.reshape((6 * self._NPX,) + a.shape[2:])
+        """(k, NP, ...) -> the concatenated (k·NP, ...) view (k the six
+        panels, or a panel shard's)."""
+        return a.reshape((self._k * self._NPX,) + a.shape[2:])
 
     def _s(self, a):
-        return a.reshape((6, self._NPX) + a.shape[1:])
+        return a.reshape((self._k, self._NPX) + a.shape[1:])
 
     def _map(self, fn, *args):
         """``fn(physics, *args)`` once on the concatenated view (batched)
@@ -516,7 +566,7 @@ class CubedSphereHydrostaticModel(MeshModel):
         if self._batch:
             return fn(self._catp, *args)
         return _stack([fn(self.panels[p], *[_pick(a, p) for a in args])
-                       for p in range(6)])
+                       for p in range(self._k)])
 
     def _L(self, a):
         """A stacked state tensor in the step's layout."""
@@ -675,7 +725,7 @@ class CubedSphereHydrostaticModel(MeshModel):
         if self._batch:
             return one(self._catp, fields, w, zeta, dt_sigma)
         outs = [one(self.panels[p], _pick(fields, p), w[p], zeta[p],
-                    _pick(dt_sigma, p)) for p in range(6)]
+                    _pick(dt_sigma, p)) for p in range(self._k)]
         return (_stack([o[0] for o in outs]), [o[1] for o in outs])
 
     def _w(self, sf, dt_sigma=None, sigma=None):
@@ -789,8 +839,8 @@ class CubedSphereHydrostaticModel(MeshModel):
         Az = self._map(lambda pp, e: pp.grid.Az(LOC_CCC).expand(e.shape),
                        eta0)
         H, N = self.grid.H[0], self.grid.N[0]
-        mask = torch.zeros((6, self._NPX, self._NPX, 1), dtype=torch.bool,
-                           device=eta0.device)
+        mask = torch.zeros((self._k, self._NPX, self._NPX, 1),
+                           dtype=torch.bool, device=eta0.device)
         mask[:, H:H + N, H:H + N] = True
         mask = mask.reshape(eta0.shape)
         zero = torch.zeros((), dtype=eta0.dtype, device=eta0.device)
@@ -810,9 +860,11 @@ class CubedSphereHydrostaticModel(MeshModel):
                                * self._div_transport(gx, gyy,
                                                      per_area=False), zero)
 
+        # on a panel shard the dot products sum over the mesh
         delta, _, _ = conjugate_gradient(A, rhs,
                                          reltol=self.implicit_solver_tol,
-                                         maxiter=200)
+                                         maxiter=200,
+                                         shard=self._panel_shard)
         deltaf = ex.centers(delta)
 
         def correct(pp, u, v, d):
@@ -858,7 +910,7 @@ class CubedSphereHydrostaticModel(MeshModel):
             changed = one(self._catp, st_l, auxs)
         else:
             outs = [one(self.panels[p], _pick(st_l, p), auxs[p])
-                    for p in range(6)]
+                    for p in range(self._k)]
             changed = _stack(outs) if outs[0] else {}
         out = dict(st)
         out.update(changed)
@@ -894,7 +946,11 @@ class CubedSphereHydrostaticModel(MeshModel):
     # -- the step -------------------------------------------------------------
 
     def time_step(self, dt):
-        """Advance by one step of Δt."""
+        """Advance by one step of Δt (on a panel mesh every shard's panels,
+        in the shards' threads)."""
+        if self._shards is not None:
+            self._run(lambda m: m.time_step(dt))
+            return self
         if self.timestepper == "QuasiAdamsBashforth2":
             self._ab2_step(dt)
         else:
@@ -1073,7 +1129,7 @@ class CubedSphereHydrostaticModel(MeshModel):
 
     @property
     def time(self):
-        return float(self.state["clock"]["time"])
+        return float(self._clock["time"])
 
     @property
     def datetime(self):
@@ -1081,7 +1137,7 @@ class CubedSphereHydrostaticModel(MeshModel):
 
     @property
     def iteration(self):
-        return int(self.state["clock"]["iteration"])
+        return int(self._clock["iteration"])
 
     def diagnose_w(self):
         """w (6, NP, NP, NZ) from continuity, as inside the step (the

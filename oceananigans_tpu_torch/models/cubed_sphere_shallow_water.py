@@ -18,8 +18,12 @@ of the three cells (``_vertex_corner_info``, ``VertexFix``).
 The state is ``fields`` h, u and v, (6, NP, NP, 1) tensors (u and v the
 panels' local staggered components), and ``clock``. The tendencies run
 once over the six panels concatenated along x (``ConcatPanelsGrid``), the
-JAX model's per-panel formulas on the (6·NP, NP, 1) view; the exchange is
-the grid's ``PanelExchange``. Where the JAX model evaluates the vertex fix
+JAX model's per-panel formulas on the (6·NP, NP, 1) view, or with
+``batch_panels=False`` panel by panel (bit for bit the same: every slot's
+operands are the same); the exchange is the grid's ``PanelExchange``. On a
+panel mesh (``model.state = arch.shard(model.state)``, as the hydrostatic
+model's) each shard steps its panels per panel and the shards meet in the
+panel exchange and the vertex vorticity. Where the JAX model evaluates the vertex fix
 member by member, the port sums the three members' partial circulations in
 one reduction (roundoff).
 """
@@ -30,10 +34,10 @@ import numpy as np
 import torch
 
 from ..defaults import defaults, numpy_dtype
-from ..grids.cubed_sphere import concat_panels_grid
+from ..grids.cubed_sphere import ShardPanelExchange, concat_panels_grid
 from ..grids.orthogonal_spherical_shell import _spherical_triangle_excess
 from ..grids.topology import LOC_CCC, LOC_CFC, LOC_FCC
-from ..parallel.distributed import MESH_ITEM, MeshModel
+from ..parallel.distributed import MeshModel
 from ..operators.operators import (ddx, ddy, dx_c, dy_c, ix_c, ix_f, iy_c,
                                    iy_f, zeta3_ffc)
 from ..utils.dateclock import datetime_of
@@ -174,6 +178,66 @@ class VertexFix:
         return hff
 
 
+# VertexFix's tables of rows of the concatenated (6·NP, NP, NZ) view
+ROW_TABLES = ("vr", "ur", "sr", "hr1", "hr2", "hr3")
+
+
+class ShardVertexFix:
+    """``VertexFix`` on one shard of a panel mesh, on the concatenated view
+    (k·NP, NP, NZ) of its k panels: the shard computes its own members'
+    partial circulations, the shards meet once (the communicator's
+    ``all_to_all``, every shard's members to every shard: 24 columns in
+    all) and each sums every vertex's three members in the serial order
+    and writes its own corner slots. The thickness reads only the member's
+    own panel (its exchanged halo cells) and needs no meeting."""
+
+    def __init__(self, vertex, shard, NPX):
+        self.shard = shard
+        self.ngroups = vertex.ngroups
+        t = vertex._np
+        p0 = shard.panels.start
+        panel = t["sr"] // NPX
+        own = (panel >= p0) & (panel < shard.panels.stop)
+        self._np = {}
+        for key, val in t.items():
+            if key == "two_A":
+                self._np[key] = val
+                continue
+            # the row tables index the concatenated panels: local rows
+            self._np[key] = val[own] - (p0 * NPX if key in ROW_TABLES
+                                        else 0)
+        # the members in rank order, put back into the serial order
+        S = shard.comm.size
+        k = len(shard.panels)
+        by_rank = np.concatenate([np.nonzero((panel >= r * k)
+                                             & (panel < (r + 1) * k))[0]
+                                  for r in range(S)])
+        self._np["order"] = np.argsort(by_rank)
+        # the vertex of each of this shard's members
+        self._np["group"] = np.nonzero(own)[0] // 3
+        self._dev = {}
+        self.bytes = 0
+
+    _t = VertexFix._t
+
+    def zeta(self, zeta, u, v):
+        t = self._t(u)
+        mine = (t["wv"][:, None] * v[t["vr"], t["vj"]]
+                + t["wu"][:, None] * u[t["ur"], t["uj"]])
+        comm = self.shard.comm
+        if comm.size > 1:
+            got = comm.all_to_all(self.shard.rank, [mine] * comm.size)
+            self.bytes += (comm.size - 1) * mine.numel() * mine.element_size()
+            tot = torch.index_select(torch.cat(got), 0, t["order"])
+        else:
+            tot = mine
+        zv = tot.reshape(self.ngroups, 3, -1).sum(1) / t["two_A"][:, None]
+        zeta[t["sr"], t["sj"]] = zv[t["group"]]
+        return zeta
+
+    thickness = VertexFix.thickness
+
+
 class CubedSphereShallowWaterModel(MeshModel):
     """Rotating shallow water on a ``ConformalCubedSphereGrid``.
 
@@ -183,15 +247,27 @@ class CubedSphereShallowWaterModel(MeshModel):
     nodes). ``pv_scheme``: "energy_conserving" or "enstrophy_conserving"."""
 
     def _enter_mesh(self, arch):
-        # the panels are not sharded yet: JAX's call shape raises
-        raise NotImplementedError(
-            f"the cubed-sphere shallow-water model sharded over its panels "
-            f"under a device mesh: {MESH_ITEM} part 2")
+        """Put the model on the panel mesh ``arch`` (``model.state =
+        arch.shard(model.state)``): one per-panel model a shard over its
+        panels; the shards meet in the panel exchange and the vertex
+        vorticity. This model's own state is dropped: assign a state to
+        scatter it."""
+        shards = arch.panel_shards_of(self.grid)
+        self.architecture = arch
+        self._comm = arch.communicator
+        self._shards = [CubedSphereShallowWaterModel(
+            self.grid, gravity=self.gravity,
+            rotation_rate=self.rotation_rate, pv_scheme=self.pv_scheme,
+            reference_datetime=self.reference_datetime, batch_panels=False,
+            _shard=sh) for sh in shards]
+        self._state = None
 
     def __init__(self, grid, gravity=None, rotation_rate=0.0,
-                 pv_scheme="energy_conserving", reference_datetime=None):
+                 pv_scheme="energy_conserving", reference_datetime=None,
+                 batch_panels=True, _shard=None):
         if pv_scheme not in ("energy_conserving", "enstrophy_conserving"):
             raise ValueError(pv_scheme)
+        self.architecture = None
         self.pv_scheme = pv_scheme
         self.reference_datetime = reference_datetime
         self.grid = grid
@@ -200,20 +276,31 @@ class CubedSphereShallowWaterModel(MeshModel):
         self.rotation_rate = float(rotation_rate)
         H, N = grid.H[0], grid.N[0]
         self._NPX = NP = N + 2 * H
+        # the panels this model steps: all six, or a panel shard's
+        ids = tuple(range(6) if _shard is None else _shard.panels)
+        self._k = len(ids)
+        self._batch = bool(batch_panels)
         kw = dict(dtype=grid.dtype, device=grid.device)
-        self._cat = concat_panels_grid(grid.panel_grids)
+        self._panel_grids = [grid.panel_grids[p] for p in ids]
+        self._cat = concat_panels_grid(self._panel_grids)
         f = np.concatenate([2.0 * self.rotation_rate * ext[:NP, :NP, 2]
-                            for ext in grid.extended_nodes])[..., None]
+                            for ext in (grid.extended_nodes[p]
+                                        for p in ids)])[..., None]
         self._f = torch.as_tensor(f, **kw)
         self._nt = numpy_dtype(grid.dtype)
-        shape = (6, NP, NP, 1)
+        shape = (self._k, NP, NP, 1)
         self.state = dict(
             fields={n: torch.zeros(shape, **kw) for n in ("h", "u", "v")},
             clock=dict(time=self._nt(0), iteration=0,
                        last_dt=self._nt(np.inf)))
-        self._geom = staggered_points_and_bases(grid)
         self._corner_info = _vertex_corner_info(grid)
         self._vertex = VertexFix(grid, self._corner_info)
+        self.exchange = grid.exchange
+        if _shard is None:
+            self._geom = staggered_points_and_bases(grid)
+        else:
+            self._vertex = ShardVertexFix(self._vertex, _shard, NP)
+            self.exchange = ShardPanelExchange(grid.exchange, _shard)
 
     prognostic_names = ("h", "u", "v")
 
@@ -233,24 +320,42 @@ class CubedSphereShallowWaterModel(MeshModel):
     # -- dynamics -------------------------------------------------------------
 
     def _c(self, a):
-        return a.reshape((6 * self._NPX,) + a.shape[2:])
+        return a.reshape((self._k * self._NPX,) + a.shape[2:])
 
     def _s(self, a):
-        return a.reshape((6, self._NPX) + a.shape[1:])
+        return a.reshape((self._k, self._NPX) + a.shape[1:])
 
     def _filled(self, h, u, v):
-        ex = self.grid.exchange
+        ex = self.exchange
         return (ex.centers(h),) + ex.velocities(u, v)
 
+    def _per_panel(self, fn, *args):
+        """``fn(grid, *args)`` on the concatenated view (batched), or on
+        each panel's grid and slices, concatenated (per panel)."""
+        if self._batch:
+            return fn(self._cat, *args)
+        NP = self._NPX
+        outs = [fn(g, *(a[p * NP:(p + 1) * NP] for a in args))
+                for p, g in enumerate(self._panel_grids)]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(z) for z in zip(*outs))
+        return torch.cat(outs)
+
     def _tendencies(self, h, u, v):
-        """(Gh, Gu, Gv) on the concatenated view of filled (h, u, v)."""
-        g = self._cat
-        zeta = self._vertex.zeta(zeta3_ffc(g, u, v), u, v)
-        hff = self._vertex.thickness(iy_f(g, ix_f(g, h)), h)
+        """(Gh, Gu, Gv) on the concatenated view of filled (h, u, v): the
+        vorticity and the corner thickness over the panels, the vertex fix
+        on the concatenated view, the rest per panel or batched."""
+        P = self._per_panel
+        zeta = self._vertex.zeta(P(zeta3_ffc, u, v), u, v)
+        hff = self._vertex.thickness(P(lambda g, a: iy_f(g, ix_f(g, a)), h),
+                                     h)
+        return P(self._rest, h, u, v, zeta, hff, self._f)
+
+    def _rest(self, g, h, u, v, zeta, hff, f):
         Uf = g.dy(LOC_FCC) * ix_f(g, h) * u
         Vf = g.dx(LOC_CFC) * iy_f(g, h) * v
         Gh = -(dx_c(g, Uf) + dy_c(g, Vf)) / g.Az(LOC_CCC)
-        q = (zeta + self._f) / hff
+        q = (zeta + f) / hff
         if self.pv_scheme == "energy_conserving":
             cor_u = +iy_c(g, q * ix_f(g, Vf)) / g.dx(LOC_FCC)
             cor_v = -ix_c(g, q * iy_f(g, Uf)) / g.dy(LOC_CFC)
@@ -261,7 +366,11 @@ class CubedSphereShallowWaterModel(MeshModel):
         return Gh, cor_u - ddx(g, B, LOC_FCC), cor_v - ddy(g, B, LOC_CFC)
 
     def time_step(self, dt):
-        """One Wicker-Skamarock RK3 step; the stored fields are filled."""
+        """One Wicker-Skamarock RK3 step; the stored fields are filled (on
+        a panel mesh every shard's panels, in the shards' threads)."""
+        if self._shards is not None:
+            self._run(lambda m: m.time_step(dt))
+            return self
         nt = self._nt
         dt = nt(dt)
         f0 = self.state["fields"]
@@ -281,7 +390,7 @@ class CubedSphereShallowWaterModel(MeshModel):
 
     @property
     def time(self):
-        return float(self.state["clock"]["time"])
+        return float(self._clock["time"])
 
     @property
     def datetime(self):
@@ -289,7 +398,7 @@ class CubedSphereShallowWaterModel(MeshModel):
 
     @property
     def iteration(self):
-        return int(self.state["clock"]["iteration"])
+        return int(self._clock["iteration"])
 
     def field(self, name):
         """A view whose ``interior`` is the (6, N, N, 1) panel interiors

@@ -108,8 +108,12 @@ the NaN check. The step assembles no global view; the split-explicit and
 explicit steps equal the serial step bit for bit. The updated tracers that
 the substepped TKE reads unfilled take their neighbours' values across the
 shards' own boundaries (``_exchange_updated``), as the serial model reads
-them. It refuses, citing ROADMAP item 16b part 2, a stretched x or y and
-polar caps.
+them. A stretched x or y is cut as the lat-lon tables are (the implicit
+free surface then takes its serial PCG, its sums over the mesh); polar caps
+take their zonal means over the global x (a sum over the mesh in each
+fill, ``kernels/halo_fill.py`` ``shard_polar_means``); array and
+time-series boundary values are cut at each shard's offset
+(``cut_boundary_conditions``).
 """
 
 from __future__ import annotations
@@ -143,8 +147,7 @@ from ..kernels.fused_vector_invariant import (tracer_advection_plain,
                                               vi_config)
 from ..operators.operators import (_metric, ddx, ddy, div_xy_ccc, dx_c, dy_c,
                                    interp)
-from ..parallel.distributed import (MESH_ITEM, MeshModel,
-                                    refuse_boundary_values,
+from ..parallel.distributed import (MeshModel, cut_boundary_conditions,
                                     regularize_architecture)
 from ..timesteppers import (QuasiAdamsBashforth2TimeStepper,
                             SplitRungeKutta3TimeStepper)
@@ -479,24 +482,6 @@ class HydrostaticFreeSurfaceModel(MeshModel):
 
     # -- the shards of a model on a device mesh --------------------------------
 
-    def _refuse_under_mesh(self):
-        """What the mesh does not take yet raises, citing ROADMAP item 16b:
-        a stretched x or y and polar caps (part 2), the boundary conditions
-        of ``refuse_boundary_values``; a grid with no ``local_grid`` (the
-        cubed sphere's panels) raises in ``shard_grid``."""
-        grid = self.grid
-        for ax in (0, 1):
-            if not grid.is_flat(ax) and not grid.regular(ax):
-                raise NotImplementedError(
-                    f"a stretched sharded axis {'xy'[ax]}: {MESH_ITEM} "
-                    f"part 2")
-        if getattr(grid, "polar_south", False) or \
-                getattr(grid, "polar_north", False):
-            raise NotImplementedError(
-                f"polar caps under a device mesh (their zonal means reduce "
-                f"along x): {MESH_ITEM} part 2")
-        refuse_boundary_values(self.bcs)
-
     def _enter_mesh(self, arch):
         """Put the model on the device mesh ``arch``: one model of this
         class per shard, on the shard's local grid, built from this model's
@@ -504,7 +489,6 @@ class HydrostaticFreeSurfaceModel(MeshModel):
         of the implicit free surface (x and y alone) and the reductions.
         This model's own state is dropped: assign a state to scatter it."""
         from ..parallel.pencil_fft import DistributedFFTPoissonSolver
-        self._refuse_under_mesh()
         fs = self.free_surface
         pencil = (isinstance(fs, ImplicitFreeSurface) and (
             self._ifs_method == "FastFourierTransform"
@@ -518,8 +502,10 @@ class HydrostaticFreeSurfaceModel(MeshModel):
                 sh.pencil = solver
         self.architecture = arch
         self._comm = arch.communicator
-        self._shards = [HydrostaticFreeSurfaceModel(sh.grid, **self._shard_kw)
-                        for sh in shards]
+        self._shards = [HydrostaticFreeSurfaceModel(sh.grid, **dict(
+            self._shard_kw, boundary_conditions=cut_boundary_conditions(
+                self._shard_kw["boundary_conditions"], self.grid, sh)))
+            for sh in shards]
         for m in self._shards:
             m._tendency_hooks = list(self._tendency_hooks)
             m._state_hooks = list(self._state_hooks)

@@ -95,16 +95,20 @@ serial model takes #6. As in the JAX package the fused update route and
 the fused correction stay off under a mesh. The mesh takes periodic or
 bounded x and y (a bounded axis's walls on the edge shards' outer sides,
 the near-wall cascades counted from them, the plain flux divergences as
-JAX's ``eligible`` gives, the pencil's DCT along the axis) with a periodic,
-bounded, flat or stretched z, either layout, immersed bottoms and
-auxiliary fields; ``model.state`` then returns a gathered copy (writes into
-it do not reach the shards) and ``model.state = ...`` (or
-``arch.shard(...)``) scatters a global-view state into the blocks. It
-refuses, citing ROADMAP item 16b, stretched x and y, curvilinear
-grids and the CG solvers of multiply stretched ones, particles, Open and
-PerturbationAdvection boundaries and array boundary values. Sharded ≡
-serial holds to rounding: the pencil transforms y and x in complex form
-where the serial solver takes a real FFT along x.
+JAX's ``eligible`` gives, the pencil's DCT along the axis), stretched (the
+pencil's Thomas sweep along it) or flat where the mesh does not split it,
+with a periodic, bounded, flat or stretched z, either layout, immersed
+bottoms and auxiliary fields; a multiply stretched or a lat-lon grid
+takes the variable-spacing CG on every shard (its sums over the mesh, the
+pencil of the regular grid its preconditioner). The particles are
+replicated on every shard and sampled where they lie (``particles.py``);
+Open and PerturbationAdvection sides balance their mass over the mesh, and
+array and time-series boundary values are cut at each shard's offset
+(``cut_boundary_conditions``). ``model.state`` then returns a gathered
+copy (writes into it do not reach the shards) and ``model.state = ...``
+(or ``arch.shard(...)``) scatters a global-view state into the blocks.
+Sharded ≡ serial holds to rounding: the pencil transforms y and x in
+complex form where the serial solver takes a real FFT along x.
 
 The model updates tensors in place where the JAX package returned new
 arrays: the halo fills write into the padded tensors they are given, and the
@@ -134,7 +138,8 @@ from ..fields import Field, set_on_padded
 from ..forcings.forcings import regularize_forcing
 from ..grids.base import numpy_metric
 from ..grids.topology import (BOUNDED, FACE, LOC_CCC, LOC_CCF, LOC_CFC,
-                              LOC_FCC, PERIODIC, wall_sides)
+                              LOC_FCC, PERIODIC, side_connected,
+                              wall_sides)
 from ..immersed import ImmersedBoundaryGrid
 from ..kernels import (fused_advection_tendency, fused_advection_update,
                        fused_correct, fused_divergence, periodic_halo_fill)
@@ -142,8 +147,8 @@ from ..kernels.fused_advection import (bounded_refusal,
                                       kernel_tendency_eligible)
 from ..kernels.fused_advection import shard_fused_advection
 from ..kernels.halo_fill import exchange_connected
-from ..parallel.distributed import (MESH_ITEM, MeshModel,
-                                    refuse_boundary_values,
+from ..parallel.distributed import (MeshModel,
+                                    cut_boundary_conditions,
                                     regularize_architecture)
 from ..solvers.fft_poisson import FFTPoissonSolver
 from ..solvers.fourier_tridiagonal import FourierTridiagonalPoissonSolver
@@ -175,7 +180,6 @@ def select_pressure_solver(grid, fill_p=None):
     the FFT/DCT solver on a regular grid; the Fourier-tridiagonal solver
     with one stretched bounded axis (x, y or z). ``fill_p`` fills a padded
     pressure's halos in place (the CG solvers' operator)."""
-    from ..grids.rectilinear import RectilinearGrid
     from ..solvers.conjugate_gradient import make_immersed_poisson_solver
     from ..solvers.fourier_tridiagonal import \
         make_variable_spacing_poisson_solver
@@ -185,49 +189,69 @@ def select_pressure_solver(grid, fill_p=None):
     shard = getattr(grid, "shard", None)
     if shard is not None:
         # a shard's grid: the shard's view of the model's pencil solver,
-        # the CG solver on its block on an immersed grid
+        # the CG solvers on its block on an immersed grid and on the grids
+        # that take the variable-spacing CG
         from ..parallel.pencil_fft import ShardPoissonSolver
         fft = (None if shard.pencil is None
                else ShardPoissonSolver(shard.pencil, shard))
         if isinstance(grid, ImmersedBoundaryGrid):
             return make_immersed_poisson_solver(grid, fill_p, fft)
+        if needs_variable_spacing_cg(shard.global_grid):
+            return make_variable_spacing_poisson_solver(grid, fill_p,
+                                                        fft_solver=fft)
         return fft
     if isinstance(grid, ImmersedBoundaryGrid):
         under = grid.underlying_grid
         fft = FFTPoissonSolver(under) if under.all_regular else None
         return make_immersed_poisson_solver(grid, fill_p, fft)
-    if not isinstance(grid, RectilinearGrid):
+    if needs_variable_spacing_cg(grid):
         return make_variable_spacing_poisson_solver(grid, fill_p)
     if grid.all_regular:
         return FFTPoissonSolver(grid)
+    return FourierTridiagonalPoissonSolver(
+        grid, stretched_axis=grid.stretched_axes[0])
+
+
+def needs_variable_spacing_cg(grid):
+    """Whether ``select_pressure_solver`` gives ``grid`` (not immersed) the
+    variable-spacing CG: a grid that is not a RectilinearGrid, or one
+    stretched along several axes or along a periodic one."""
+    from ..grids.rectilinear import RectilinearGrid
+    if not isinstance(grid, RectilinearGrid):
+        return True
     stretched = grid.stretched_axes
-    if len(stretched) == 1 and grid.topology[stretched[0]] == BOUNDED:
-        return FourierTridiagonalPoissonSolver(grid,
-                                               stretched_axis=stretched[0])
-    return make_variable_spacing_poisson_solver(grid, fill_p)
+    return len(stretched) > 1 or (len(stretched) == 1 and
+                                  grid.topology[stretched[0]] != BOUNDED)
 
 
 def mesh_pressure_solver(grid, arch, pressure_solver=None):
     """The pressure solver of a model on the device mesh ``arch``: the
-    pencil solver (``DistributedFFTPoissonSolver``) of the grid (of the
-    underlying grid of an immersed one, whose shards run the CG solver with
-    it as their preconditioner when that grid is regular, as JAX's
-    ``select_pressure_solver`` takes the FFT preconditioner; None
-    otherwise). A user's ``pressure_solver`` must be a
-    ``DistributedFFTPoissonSolver``. The model refuses the grids that would
-    need the variable-spacing CG (a stretched x or y, curvilinear grids)
-    before it asks (``_refuse_under_mesh``, ROADMAP item 16b)."""
+    pencil solver (``DistributedFFTPoissonSolver``) of the grid, a
+    stretched x, y or z included (of the underlying grid of an immersed
+    one, whose shards run the CG solver with it as their preconditioner
+    when that grid is regular, as JAX's ``select_pressure_solver`` takes
+    the FFT preconditioner; None otherwise). On a grid that takes the
+    variable-spacing CG (``needs_variable_spacing_cg``: several stretched
+    axes, a lat-lon grid) the shards run that CG with the pencil of the
+    regular grid JAX preconditions it with (``regular_preconditioner_grid``;
+    None where JAX builds none). A user's ``pressure_solver`` must be a
+    ``DistributedFFTPoissonSolver``."""
+    from ..solvers.fourier_tridiagonal import regular_preconditioner_grid
     from ..parallel.pencil_fft import DistributedFFTPoissonSolver
     if pressure_solver is not None:
         if not isinstance(pressure_solver, DistributedFFTPoissonSolver):
             raise NotImplementedError(
-                f"a user pressure solver other than the pencil solver under "
-                f"a device mesh: {MESH_ITEM}")
+                "a user pressure solver other than the pencil solver under "
+                "a device mesh: each shard solves on its own block, which a "
+                "solver of the global interior does not take")
         return pressure_solver
     immersed = isinstance(grid, ImmersedBoundaryGrid)
     under = grid.underlying_grid if immersed else grid
     if immersed and not under.all_regular:
         return None
+    if not immersed and needs_variable_spacing_cg(under):
+        reg = regular_preconditioner_grid(under)
+        return None if reg is None else DistributedFFTPoissonSolver(reg, arch)
     return DistributedFFTPoissonSolver(under, arch)
 
 
@@ -420,34 +444,16 @@ class NonhydrostaticModel(MeshModel):
 
     # -- the shards of a model on a device mesh -----------------------------------
 
-    def _refuse_under_mesh(self):
-        """What the mesh does not take yet raises, citing ROADMAP item
-        16b: a flat or stretched x or y, grids that are not rectilinear,
-        and the boundary conditions of ``refuse_boundary_values``."""
-        from ..grids.rectilinear import RectilinearGrid
-        under = getattr(self.grid, "underlying_grid", self.grid)
-        if not isinstance(under, RectilinearGrid):
-            raise NotImplementedError(
-                f"a {type(under).__name__} under a device mesh: {MESH_ITEM}")
-        for ax in (0, 1):
-            if under.is_flat(ax) or not under.regular(ax):
-                raise NotImplementedError(
-                    f"a {'flat' if under.is_flat(ax) else 'stretched'} "
-                    f"sharded axis {'xy'[ax]}: {MESH_ITEM} part 2")
-        refuse_boundary_values(self.bcs)
-
     def _enter_mesh(self, arch):
         """Put the model on the device mesh ``arch``: one model of this
         class per shard, on the shard's local grid, built from this model's
-        arguments, with the pencil solver's shard view as its pressure
-        solver (``mesh_pressure_solver``). This model's own state is
-        dropped: assign a state to scatter it."""
+        arguments (its boundary planes cut at the shard's offset,
+        ``cut_boundary_conditions``; the particles replicated on every
+        shard), with the pencil solver's shard view as its pressure solver
+        or its CG's preconditioner (``mesh_pressure_solver``). This model's
+        own state is dropped: assign a state to scatter it."""
         arch.place(self.grid, pencil=True)
-        if self.particles is not None:
-            raise NotImplementedError(
-                f"Lagrangian particles under a device mesh: {MESH_ITEM}")
         self.architecture = arch
-        self._refuse_under_mesh()
         self.pressure_solver = mesh_pressure_solver(
             self.grid, arch, self._user_pressure_solver)
         self._fused_update = self.fuse_correction = False
@@ -455,8 +461,11 @@ class NonhydrostaticModel(MeshModel):
         for sh in shards:
             sh.pencil = self.pressure_solver
         self._comm = arch.communicator
-        self._shards = [NonhydrostaticModel(sh.grid, **self._shard_kw)
-                        for sh in shards]
+        self._shards = [NonhydrostaticModel(sh.grid, **dict(
+            self._shard_kw, particles=self.particles,
+            boundary_conditions=cut_boundary_conditions(
+                self._shard_kw["boundary_conditions"], self.grid, sh)))
+            for sh in shards]
         for m in self._shards:
             for fn in self._tendency_hooks:
                 m.add_tendency_hook(fn)
@@ -639,15 +648,21 @@ class NonhydrostaticModel(MeshModel):
         so that the net volume flux through the open sides is zero (JAX's
         ``_balance_open_mass``: the solvability of the pressure problem);
         in place. Returns the correction (a 0-d tensor), or None without
-        such sides."""
+        such sides. On a shard's grid the sides it shares with another
+        shard are not the global grid's and carry nothing; the flux and
+        the area are sums over the mesh (one ``all_reduce``)."""
         sides = self._open_sides
         if not any(s[3] for s in sides):
             return None
         grid = self.grid
+        shard = getattr(grid, "shard", None)
         areas = (grid.Ax(LOC_FCC), grid.Ay(LOC_CFC), grid.Az(LOC_CCF))
-        total_flux = total_area = 0.0
+        zero = torch.zeros((), dtype=grid.dtype, device=grid.device)
+        total_flux = total_area = zero
         planes = []
         for name, axis, is_left, scheme in sides:
+            if axis < 2 and side_connected(grid, axis)[0 if is_left else 1]:
+                continue
             H, N = grid.H[axis], grid.N[axis]
             sl = list(grid.interior_slices)
             sl[axis] = slice(H, H + 1) if is_left else slice(H + N,
@@ -661,6 +676,9 @@ class NonhydrostaticModel(MeshModel):
             if scheme:
                 total_area = total_area + torch.sum(A)
                 planes.append((name, sl, is_left))
+        if shard is not None:
+            total_flux, total_area = shard.all_reduce(
+                torch.stack([total_flux, total_area])).unbind(0)
         corr = total_flux / total_area
         for name, sl, is_left in planes:
             vel[name][sl] += -corr if is_left else corr

@@ -47,8 +47,9 @@ vector-invariant form, ``fused=False``) run the plain tendencies on each
 shard, the bathymetry's blocks cut with the global array's halos, as JAX's
 GSPMD step reads them. The mesh takes periodic and bounded x and y (on a
 bounded axis the walls are the edge shards' outer sides, and #9 refuses it
-as JAX's ``sw_eligible`` does: the plain tendencies); a stretched one
-raises, citing ROADMAP item 16b. ``model.state`` then returns a gathered
+as JAX's ``sw_eligible`` does: the plain tendencies), stretched or not (a
+shard's grid cuts the stretched spacings at its offset; the plain
+tendencies). ``model.state`` then returns a gathered
 copy (writes into it do not reach the shards); ``model.state = ...`` (or
 ``arch.shard(...)``) scatters a global-view state into the blocks.
 
@@ -83,7 +84,7 @@ from ..kernels import fused_sw_update
 from ..kernels.fused_shallow_water import (shard_fused_sw_update,
                                            sharded_bathymetry, sw_eligible)
 from ..operators.operators import ddx, ddy, div_xy_ccc, ix_f, iy_f
-from ..parallel.distributed import (MESH_ITEM, MeshModel,
+from ..parallel.distributed import (MeshModel,
                                     regularize_architecture)
 from ..timesteppers import RK3_GAMMAS, RK3_ZETAS
 from ..utils.dateclock import datetime_of
@@ -192,11 +193,6 @@ class ShallowWaterModel(MeshModel):
         arguments. This model's own state is dropped: assign a state to
         scatter it."""
         arch.place(self.grid)
-        for ax in (0, 1):
-            if not self.grid.is_flat(ax) and not self.grid.regular(ax):
-                raise NotImplementedError(
-                    f"a stretched sharded axis {'xy'[ax]}: {MESH_ITEM} "
-                    f"part 2")
         self.architecture = arch
         self._comm = arch.communicator
         self._shards = [ShallowWaterModel(sh.grid, **self._shard_kw,

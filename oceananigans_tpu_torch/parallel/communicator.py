@@ -16,6 +16,10 @@ the serial model's own code on them; the shards meet only here:
   that a result does not change from run to run), the same value on every
   shard.
 
+``bytes`` counts what the meetings move between shards: the exchange's
+strips, the pieces that ``all_to_all`` sends to other shards and every
+shard's ``all_reduce`` value.
+
 This implementation runs inside one process: one persistent thread per
 shard (``run``), each with its shard's device current, and the meeting
 points are barriers. At a barrier the last shard to arrive runs the
@@ -39,6 +43,7 @@ import threading
 import weakref
 from concurrent.futures import Future
 
+import numpy as np
 import torch
 
 SUM, MAX, MIN = "sum", "max", "min"
@@ -72,6 +77,8 @@ class Communicator:
         self._queues = None
         self._lock = threading.Lock()
         self._turn = threading.Lock()    # held by the one running shard
+        self.bytes = 0
+        self._strip_bytes = {}
 
     # -- running the shards ----------------------------------------------------
 
@@ -190,9 +197,34 @@ class Communicator:
             blocks = [[payloads[i * S[1] + j] for j in range(S[1])]
                       for i in range(S[0])]
             route(blocks, self.mesh, halo, local_n, periodic, fold)
+            self.bytes += self._exchange_bytes(payloads, halo, periodic)
 
         self._meet(rank, "exchange", fn, list(fields))
         return fields
+
+    def _exchange_bytes(self, payloads, halo, periodic):
+        """The bytes of one exchange's strips (cached by shape): along x,
+        H_x padded-y columns a side, along y H_y padded-x rows a side; a
+        bounded axis's outer sides and a one-shard axis move nothing."""
+        first = payloads[0][0]
+        key = (tuple(first.shape), len(payloads[0]), first.element_size(),
+               tuple(halo[:2]), tuple(periodic))
+        hit = self._strip_bytes.get(key)
+        if hit is None:
+            S = self.mesh.devices.shape
+            shape = first.shape
+            z = int(np.prod(shape[2:])) if len(shape) > 2 else 1
+            hit = 0
+            for ax in (0, 1):
+                n = S[ax]
+                if n == 1:
+                    continue
+                sides = 2 * n if periodic[ax] else 2 * (n - 1)
+                strips = sides * S[1 - ax]
+                hit += strips * halo[ax] * shape[1 - ax] * z
+            hit *= len(payloads[0]) * first.element_size()
+            self._strip_bytes[key] = hit
+        return hit
 
     def all_to_all(self, rank, pieces):
         """Send ``pieces[dst]`` (a tensor, or None for nothing) to each shard
@@ -203,6 +235,10 @@ class Communicator:
         devices = self.devices
 
         def fn(payloads):
+            self.bytes += sum(p[dst].numel() * p[dst].element_size()
+                              for src, p in enumerate(payloads)
+                              for dst in range(self.size)
+                              if dst != src and p[dst] is not None)
             return [[None if p[dst] is None else p[dst].to(devices[dst])
                      for p in payloads] for dst in range(self.size)]
 
@@ -220,6 +256,7 @@ class Communicator:
         devices = self.devices
 
         def fn(payloads):
+            self.bytes += sum(p.numel() * p.element_size() for p in payloads)
             total = payloads[0]
             for p in payloads[1:]:
                 total = combine(total, p.to(total.device))

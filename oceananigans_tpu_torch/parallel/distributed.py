@@ -147,10 +147,17 @@ class Partition:
         return f"Partition(x={self.x}, y={self.y})"
 
 
+PANELS = ("panels",)
+PANEL_SHARD_COUNTS = (1, 2, 3, 6)
+
+
 class Mesh:
     """An (Sx, Sy) array of ``torch.device``s (``devices``, a numpy object
     array) with the axis names ("x", "y"). Shard (i, j) holds the block of
-    the i-th x range and the j-th y range."""
+    the i-th x range and the j-th y range. A one-dimensional array named
+    ("panels",) is a cubed sphere's panel mesh (JAX's call shape
+    ``Mesh(devices[:6], ("panels",))``): shard r holds panels
+    r·6/S .. (r + 1)·6/S of every four-dimensional state tensor."""
 
     def __init__(self, devices, axis_names=("x", "y")):
         self.devices = devices
@@ -200,6 +207,9 @@ class Distributed:
         arch = Distributed(Partition(2, 2),
                            devices=[torch.device("cuda:0")] * 4)  # 1 card
         model = ShallowWaterModel(grid, ..., architecture=arch)
+        arch = Distributed(Mesh(np.array([cuda0] * 6, dtype=object),
+                                ("panels",)))  # a cubed sphere's panels
+        cs_model.state = arch.shard(cs_model.state)
 
     ``devices`` defaults to every visible CUDA card; with none it raises, as
     a grid built for the default device does. A list may name a device more
@@ -207,6 +217,10 @@ class Distributed:
     """
 
     def __init__(self, partition=None, devices=None):
+        self.panel_shards = None
+        if isinstance(partition, Mesh):
+            self._take_mesh_of(partition)
+            return
         if devices is None:
             n_cuda = torch.cuda.device_count() if torch.cuda.is_available() \
                 else 0
@@ -233,15 +247,34 @@ class Distributed:
         dev_array[:] = devices[:need]
         self.mesh = Mesh(dev_array.reshape(partition.x, partition.y))
 
+    def _take_mesh_of(self, mesh):
+        """A ``Distributed`` over a cubed sphere's panel mesh, named
+        ("panels",), of 1, 2, 3 or 6 shards (an (x, y) mesh is given by
+        its ``Partition`` and ``devices``)."""
+        if tuple(mesh.axis_names) != PANELS:
+            raise ValueError(f"a mesh named {tuple(mesh.axis_names)}: give "
+                             f"an (x, y) mesh as Partition(x, y) and "
+                             f"devices=, a panel mesh as ('panels',)")
+        dev = np.empty(mesh.devices.size, dtype=object)
+        dev[:] = [_normalize(torch.device(d)) for d in mesh.devices.ravel()]
+        n = dev.size
+        if n not in PANEL_SHARD_COUNTS:
+            raise ValueError(
+                f"a panel mesh of {n} shards: the six panels divide over "
+                f"1, 2, 3 or 6 shards")
+        self.panel_shards = n
+        self.partition = None
+        self.mesh = Mesh(dev, PANELS)
+
     @property
     def device(self):
         """The device that holds the gathered global view: the mesh's
         first."""
-        return self.mesh.devices[0, 0]
+        return self.mesh.devices.ravel()[0]
 
     @property
     def size(self):
-        return self.partition.x * self.partition.y
+        return self.mesh.devices.size
 
     @property
     def communicator(self):
@@ -268,6 +301,8 @@ class Distributed:
         the same halos, cut with them from the global tensor (so its halos
         hold the global view's values), trailing axes whole. Other leaves
         are copied to every shard (tensors moved to its device)."""
+        if self.panel_shards is not None:
+            return self._scatter_panels(state, halo)
         S = self.mesh.devices.shape
         out = Blocks(halo, S)
         for i in range(S[0]):
@@ -286,8 +321,50 @@ class Distributed:
         halo = blocks.halo if halo is None else halo
         S = self.mesh.devices.shape
         dev = self.device
+        if self.panel_shards is not None:
+            return _zip_map(list(blocks), lambda parts: (
+                torch.cat([b.to(dev) for b in parts]) if parts[0].ndim == 4
+                else parts[0].to(dev, copy=True)))
         return _zip_map(list(blocks),
                         lambda parts: _assemble(parts, halo, S, dev))
+
+    def _scatter_panels(self, state, halo):
+        """A panel mesh's blocks: every four-dimensional tensor (6, ...)
+        cut into its shards' panels along the leading axis, other leaves
+        copied to every shard."""
+        n = self.panel_shards
+        k = 6 // n
+        out = Blocks(halo, (n, 1))
+        for r, dev in enumerate(self.mesh.devices.ravel()):
+            def cut(a, r=r, dev=dev):
+                if a.ndim != 4:
+                    return a.to(dev, copy=True)
+                if a.shape[0] != 6:
+                    raise ValueError(f"a panel mesh cuts (6, ...) tensors, "
+                                     f"got {tuple(a.shape)}")
+                return a[r * k:(r + 1) * k].to(
+                    dev, copy=True, memory_format=torch.contiguous_format)
+            out.append(_map(state, cut))
+        return out
+
+    def panel_shards_of(self, grid):
+        """The ``PanelShard`` of every rank of a panel mesh, for a cubed
+        sphere on ``grid``; an (x, y) mesh raises (the cubed sphere shards
+        over its panels), as does a mesh whose devices are not the grid's
+        (the panels' metric tables live on the grid's device: a panel mesh
+        across cards needs them on every card, ROADMAP.md's multi-card
+        note)."""
+        if self.panel_shards is None:
+            raise ValueError(
+                "a cubed sphere shards over its panels: pass Distributed("
+                "Mesh(devices, ('panels',))) with 1, 2, 3 or 6 devices")
+        for d in self.mesh.devices.ravel():
+            if not same_device(d, grid.device):
+                raise NotImplementedError(
+                    f"a panel shard on {d} for a grid on {grid.device}: "
+                    f"{MULTI_CARD}")
+        return [PanelShard(self.mesh, r, 6 // self.panel_shards)
+                for r in range(self.panel_shards)]
 
     def validate_grid(self, grid, pencil=False):
         """The interior must divide the mesh along x and y: the blocks are
@@ -296,6 +373,9 @@ class Distributed:
         solves for a pressure) Nx and Ny must also divide P = Sx·Sy, the
         pencil solver's slabs (JAX's ``pencil_fft.py`` rule, P the flattened
         mesh)."""
+        if self.panel_shards is not None:
+            raise ValueError("a panel mesh shards a cubed sphere's panels; "
+                             "this grid takes Partition(x, y)")
         px, py = self.partition.x, self.partition.y
         nx, ny = grid.N[0], grid.N[1]
         if nx % px or ny % py:
@@ -304,7 +384,15 @@ class Distributed:
                 f"({px}, {py}); choose N so that Nx % {px} == 0 and "
                 f"Ny % {py} == 0")
         P = px * py
-        if pencil and (nx % P or ny % P):
+        if pencil and (grid.is_flat(0) or grid.is_flat(1)):
+            # the pencil's slabs cut the other horizontal axis and z
+            nz = grid.N[2]
+            if (nx * ny) % P or nz % P:
+                raise ValueError(
+                    f"the mesh size {P} must divide N={tuple(grid.N)} along "
+                    f"the axes the pencil's slabs cut (the horizontal axis "
+                    f"that is not flat, and z)")
+        elif pencil and (nx % P or ny % P):
             raise ValueError(
                 f"the mesh size {P} must divide Nx={nx} and Ny={ny} "
                 "(reference analogue: distributed_fft_based_poisson_solver.jl"
@@ -325,9 +413,13 @@ class Distributed:
     def shards(self, grid):
         """The ``Shard`` of every rank, in rank order, for a model on
         ``grid`` (the global grid, its halo final)."""
+        if self.panel_shards is not None:
+            self.validate_grid(grid)
         return mesh_shards(grid, self.mesh)
 
     def __repr__(self):
+        if self.panel_shards is not None:
+            return f"Distributed(panels={self.panel_shards}, {self.mesh})"
         return f"Distributed({self.partition}, {self.mesh})"
 
 
@@ -341,33 +433,117 @@ def regularize_architecture(architecture):
     return architecture
 
 
-MESH_ITEM = "ROADMAP.md queue 1 item 16b"
+MULTI_CARD = ("more than one card per model needs the multi-card transport "
+              "(ROADMAP.md multi-card note, outside item 16b)")
 
 
-def refuse_boundary_values(bcs):
-    """Raise, citing item 16b, for the boundary conditions a shard cannot
-    take from the global model's arguments (``bcs``: {name: the field's
-    conditions}): Open and PerturbationAdvection sides, and array or
-    time-series values, which hold the global grid's planes."""
-    from ..boundary_conditions.boundary_condition import OPEN
-    for name, field_bcs in bcs.items():
-        for ax in range(3):
-            for bc in field_bcs.pair(ax):
-                if bc is None:
-                    continue
-                if bc.classification == OPEN and (
-                        bc.scheme is not None or bc.condition is not None):
-                    raise NotImplementedError(
-                        f"an Open boundary of {name!r} under a device mesh: "
-                        f"{MESH_ITEM}")
-                c = bc.condition
-                if hasattr(c, "evaluate_padded") or (
-                        not callable(c) and np.ndim(
-                            c.detach().cpu() if hasattr(c, "detach")
-                            else c) > 0):
-                    raise NotImplementedError(
-                        f"an array or time-series boundary value of "
-                        f"{name!r} under a device mesh: {MESH_ITEM}")
+def cut_boundary_conditions(bcs, grid, shard):
+    """The user's ``boundary_conditions`` ({name: FieldBoundaryConditions})
+    as shard ``shard`` of the global ``grid`` takes them: every array value
+    becomes the global grid's padded plane (the interior padded as the fill
+    pads it: wrapped along a periodic transverse axis, its edge repeated
+    along the others) cut at the shard's offset, halos included, and every
+    time series is cut so at each snapshot it serves (``_CutSeries``);
+    scalars, callables (of the shard's own coordinates), schemes and the
+    Open sides pass as they are (a side that the shard shares with another
+    is kept by its fills and exchanged)."""
+    from ..boundary_conditions.boundary_condition import (
+        BoundaryCondition, FieldBoundaryConditions, _FieldTimeSeriesCondition)
+    if not bcs:
+        return bcs
+    offset = shard.offset
+    local = shard.grid
+
+    def cut(bc, axis):
+        c = bc.condition
+        if c is None or callable(c) and not hasattr(c, "evaluate_padded") \
+                or isinstance(c, (int, float, np.number)):
+            return bc
+        if isinstance(c, _FieldTimeSeriesCondition):
+            c = _FieldTimeSeriesCondition(_CutSeries(c.fts, grid, local,
+                                                     offset))
+        elif hasattr(c, "evaluate_padded"):
+            return bc
+        else:
+            c = _cut_plane(c, grid, local, axis, offset)
+        return BoundaryCondition(bc.classification, c, bc.scheme,
+                                 bc.field_dependencies)
+
+    out = {}
+    for name, fbcs in bcs.items():
+        if not isinstance(fbcs, FieldBoundaryConditions):
+            out[name] = fbcs
+            continue
+        sides = {}
+        for k, side in enumerate(("west", "east", "south", "north",
+                                  "bottom", "top")):
+            bc = fbcs.side(side)
+            sides[side] = None if bc is None else cut(bc, k // 2)
+        out[name] = FieldBoundaryConditions(immersed=fbcs.immersed, **sides)
+    return out
+
+
+def _pad_plane(arr, grid, axes):
+    """An interior plane (numpy) padded over ``axes`` as the fill pads it:
+    wrapped along a periodic axis, its edge repeated along the others."""
+    for d, ax in enumerate(axes):
+        pad = [(0, 0)] * arr.ndim
+        pad[d] = (grid.H[ax], grid.H[ax])
+        arr = np.pad(arr, pad, mode="wrap" if grid.topology[ax] == PERIODIC
+                     else "edge")
+    return arr
+
+
+def _cut_plane(cond, grid, local, axis, offset):
+    """An array condition of a side normal to ``axis`` on the global
+    ``grid``, as the shard's padded plane (float64 numpy): the global
+    padded plane cut at ``offset`` along the transverse x and y."""
+    arr = np.asarray(cond.detach().cpu() if hasattr(cond, "detach")
+                     else cond, dtype=np.float64)
+    t_axes = [ax for ax in range(3) if ax != axis]
+    if arr.shape == tuple(grid.N[ax] for ax in t_axes):
+        arr = _pad_plane(arr, grid, t_axes)
+    for d, ax in enumerate(t_axes):
+        if ax < 2 and arr.ndim > d and \
+                arr.shape[d] == grid.N[ax] + 2 * grid.H[ax]:
+            n = local.N[ax] + 2 * local.H[ax]
+            arr = np.take(arr, np.arange(offset[ax], offset[ax] + n),
+                          axis=d)
+    return np.ascontiguousarray(arr)
+
+
+class _CutSeries:
+    """A FieldTimeSeries of a z-normal plane as a shard reads it: each
+    snapshot the global plane padded as the fill pads it and cut at the
+    shard's offset (made once a snapshot), interpolated in time as
+    ``FieldTimeSeries.at_time`` interpolates."""
+
+    def __init__(self, fts, grid, local, offset):
+        self.fts = fts
+        self.times = fts.times
+        self._grid, self._local, self._offset = grid, local, offset
+        self._cut = {}
+
+    def __getitem__(self, i):
+        hit = self._cut.get(i)
+        if hit is None:
+            a = self.fts[i]
+            a = a.reshape(a.shape[0], a.shape[1], -1)[..., :1]
+            g, loc = self._grid, self._local
+            for ax in range(2):
+                npad = g.padded_shape[ax] - a.shape[ax]
+                idx = torch.arange(-(npad // 2), a.shape[ax]
+                                   + npad - npad // 2, device=a.device)
+                idx = (idx.remainder(a.shape[ax]) if g.topology[ax] ==
+                       PERIODIC else idx.clamp(0, a.shape[ax] - 1))
+                o = self._offset[ax]
+                a = a.index_select(ax, idx[o:o + loc.padded_shape[ax]])
+            hit = self._cut[i] = a.to(loc.device)
+        return hit
+
+    def at_time(self, t):
+        from ..simulation.output_readers import FieldTimeSeries
+        return FieldTimeSeries.at_time(self, t)
 
 
 class MeshModel:
@@ -437,7 +613,8 @@ class MeshModel:
 
     def _enter_mesh(self, arch):
         raise NotImplementedError(
-            f"a {type(self).__name__} under a device mesh: {MESH_ITEM}")
+            f"a {type(self).__name__} has no shards: each model class "
+            f"gives its own _enter_mesh")
 
     @property
     def _clock(self):
@@ -506,6 +683,25 @@ class Shard:
         return f"Shard(rank={self.rank}, index={self.index})"
 
 
+class PanelShard:
+    """One shard of a cubed sphere over its panels: its ``rank``, the
+    global ``panels`` it holds (a range of k = 6/S), its ``device`` and
+    the mesh's communicator ``comm``."""
+
+    def __init__(self, mesh, rank, k):
+        self.comm = mesh.communicator
+        self.rank = rank
+        self.panels = range(rank * k, (rank + 1) * k)
+        self.device = mesh.devices.ravel()[rank]
+
+    def all_reduce(self, value, op="sum"):
+        return self.comm.all_reduce(self.rank, value, op)
+
+    def __repr__(self):
+        return (f"PanelShard(rank={self.rank}, panels={self.panels.start}.."
+                f"{self.panels.stop - 1})")
+
+
 def mesh_shards(grid, mesh):
     """The ``Shard`` of every rank of ``mesh``, in rank order, for the
     global ``grid``, whose interior must divide the mesh along x and y."""
@@ -526,8 +722,10 @@ def shard_grid(grid, local_n, offset, device, shard):
     under = grid.underlying_grid if isinstance(grid, ImmersedBoundaryGrid) \
         else grid
     if not hasattr(under, "local_grid"):
-        raise NotImplementedError(
-            f"a {type(under).__name__} under a device mesh: {MESH_ITEM}")
+        raise ValueError(
+            f"a {type(under).__name__} has no local grid to cut: the "
+            f"(x, y) mesh takes rectilinear, lat-lon and shell grids (a "
+            f"cubed sphere shards over its panels)")
     local = under.local_grid(tuple(local_n) + (grid.N[2],), device=device,
                              offset=offset)
     shape = shard.comm.mesh.devices.shape

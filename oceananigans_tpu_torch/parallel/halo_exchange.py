@@ -46,6 +46,8 @@ import ctypes
 
 import torch
 
+from .distributed import MULTI_CARD
+
 MAX_STRIPS = 128      # kMaxStrips in csrc/halo_exchange.cu
 
 
@@ -242,9 +244,14 @@ def mesh_fold_exchange(top, halo, local_n, fold):
         for f in idx:
             if fs[f].device != dev or not fs[f].is_contiguous():
                 raise NotImplementedError(
-                    "the north fold across shards on several cards: "
-                    "ROADMAP.md queue 1 item 16b part 2")
+                    f"the north fold across shards on several cards: "
+                    f"{MULTI_CARD}")
     Sx = len(top)
+    if (Sx * local_n[0]) % 2 and any(fold[f][1] and not fold[f][2]
+                                     for f in idx):
+        raise ValueError(
+            f"the fold of an x-face field centred in y needs an even Nx "
+            f"(has {Sx * local_n[0]}): its last row's columns would swap")
     PY = first.shape[1]
     PZ = first.shape[2] if first.dim() == 3 else 1
     with torch.cuda.device(dev):

@@ -37,8 +37,18 @@ full-precision matmul with ``dct2_matrix``) where the axis is whole: y on
 the x-slabs, x on the transposed slabs. JAX's pencil class takes periodic
 x and y only; JAX's model on such a grid under GSPMD runs its serial
 solver, which this matches to rounding. P must divide Nx and Ny
-(``ValueError``). A stretched x or y raises ``NotImplementedError``
-(ROADMAP.md item 16b).
+(``ValueError``).
+
+A stretched bounded x or y (JAX's model runs its serial
+``FourierTridiagonalPoissonSolver`` under GSPMD) takes the batched Thomas
+sweep along it where it is whole: x on the transposed slabs (after the
+transforms of y and z), y on the x-slabs (after the transform of x on the
+transposed slabs: two more transposes). Its coefficients are formed from
+the global spacings in float64 and rounded once; the singular mode's row 0
+is pinned and the Δs-weighted mean removed (a sum over the mesh), as the
+serial solver does: the two agree to rounding. A flat x or y (which the
+mesh does not split) moves the slabs' cuts: the slabs cut the other
+horizontal axis and the transposed slabs cut z (P must divide it).
 """
 
 from __future__ import annotations
@@ -68,25 +78,22 @@ def _as_mesh(mesh):
 
 
 class DistributedFFTPoissonSolver:
-    """Solve ∇²φ = b for an interior field cut into x-slabs over the P
+    """Solve ∇²φ = b for an interior field cut into slabs over the P
     devices of ``mesh`` (a ``Mesh``, a ``Distributed`` architecture or a
     list of devices).
 
-    x and y may be Periodic (FFT), Bounded (DCT) or Flat; z may be
-    Periodic, Flat, Bounded-regular (local DCT), or Bounded-stretched
-    (local tridiagonal solve — the distributed Fourier-tridiagonal
-    variant); ``horizontal`` solves for (Nx, Ny, 1) fields over x and y
-    alone (the implicit free surface, with its own spectral divide:
-    ``solve_block``'s ``spectral``). Nx % P == 0, Ny % P == 0.
-    ``axis_name`` is accepted for the JAX call shape; the
-    slabs run over the whole mesh."""
+    x and y may be Periodic (FFT), Bounded (DCT), Bounded and stretched
+    (the batched Thomas sweep along it) or Flat; z may be Periodic, Flat,
+    Bounded-regular (local DCT), or Bounded-stretched (local tridiagonal
+    solve — the distributed Fourier-tridiagonal variant); at most one axis
+    is stretched. ``horizontal`` solves for (Nx, Ny, 1) fields over x and
+    y alone (the implicit free surface, with its own spectral divide:
+    ``solve_block``'s ``spectral``). The slabs cut x (y where x is flat);
+    the transposed slabs cut y (z where y or x is flat): P divides both.
+    ``axis_name`` is accepted for the JAX call shape; the slabs run over
+    the whole mesh."""
 
     def __init__(self, grid, mesh, axis_name="x", horizontal=False):
-        for i in (0, 1):
-            if not grid.is_flat(i) and not grid.regular(i):
-                raise NotImplementedError(
-                    "the pencil solver on a stretched horizontal axis: "
-                    "ROADMAP.md queue 1 item 16b")
         self.grid = grid
         self.horizontal = bool(horizontal)
         self.mesh = _as_mesh(mesh)
@@ -95,183 +102,240 @@ class DistributedFFTPoissonSolver:
         self.P = len(self.devices)
         nx, ny, nz = grid.N
         if nx % self.P or ny % self.P:
-            raise ValueError(
-                f"the mesh size {self.P} must divide Nx={nx} and Ny={ny} "
-                "(reference analogue: distributed_fft_based_poisson_solver.jl"
-                ":80-91 divisibility constraints)")
+            if not (grid.is_flat(0) or grid.is_flat(1)):
+                raise ValueError(
+                    f"the mesh size {self.P} must divide Nx={nx} and "
+                    f"Ny={ny} (reference analogue: distributed_fft_based_"
+                    f"poisson_solver.jl:80-91 divisibility constraints)")
         self.comm = self.mesh.communicator
         self.N = (nx, ny, 1 if self.horizontal else nz)
-        # the transform of x and y: "fft" (periodic), "dct" (bounded) or
-        # None (flat)
-        self.xy_kind = tuple(None if grid.is_flat(i) else
-                             "fft" if grid.topology[i] == PERIODIC else "dct"
-                             for i in (0, 1))
-
-        if grid.is_flat(2) or self.horizontal:
-            self.z_kind = "flat"
-        elif grid.topology[2] == PERIODIC:
-            self.z_kind = "periodic"
-        elif grid.regular(2):
-            self.z_kind = "dct"
-        else:
-            self.z_kind = "tridiagonal"
+        # the kind of every axis: "fft" (periodic), "dct" (bounded),
+        # "tri" (bounded and stretched: the Thomas sweep) or None (flat)
+        kinds = []
+        for axis in range(3):
+            if grid.is_flat(axis) or (axis == 2 and self.horizontal):
+                kinds.append(None)
+            elif grid.topology[axis] == PERIODIC:
+                if not grid.regular(axis):
+                    raise NotImplementedError(
+                        "the pencil solver on a stretched periodic axis: the "
+                        "variable-spacing CG solves it")
+                kinds.append("fft")
+            else:
+                kinds.append("dct" if grid.regular(axis) else "tri")
+        if kinds.count("tri") > 1:
+            raise NotImplementedError(
+                "the pencil solver on a grid stretched along several axes: "
+                "the variable-spacing CG solves it")
+        self.kinds = tuple(kinds)
+        self.xy_kind = self.kinds[:2]
+        self.z_kind = {None: "flat", "fft": "periodic", "dct": "dct",
+                       "tri": "tridiagonal"}[self.kinds[2]]
+        self.s = kinds.index("tri") if "tri" in kinds else None
+        # the slabs' cut axis a and the transposed slabs' b
+        self.a = 1 if grid.is_flat(0) else 0
+        self.b = 2 if (self.a == 1 or grid.is_flat(1)) else 1
+        for ax in (self.a, self.b):
+            if self.N[ax] % self.P:
+                raise ValueError(
+                    f"the mesh size {self.P} must divide N{'xyz'[ax]}="
+                    f"{self.N[ax]}: the pencil's slabs cut it")
 
         lam = np.zeros((1, 1, 1))
         for axis in range(3):
-            if grid.is_flat(axis) or (axis == 2 and
-                                      self.z_kind in ("tridiagonal", "flat")):
+            if self.kinds[axis] not in ("fft", "dct"):
                 continue
             N, L = grid.N[axis], grid.extent[axis]
-            topo = PERIODIC if grid.topology[axis] == PERIODIC else BOUNDED
+            topo = PERIODIC if self.kinds[axis] == "fft" else BOUNDED
             sh = [1, 1, 1]
             sh[axis] = N
             lam = lam + poisson_eigenvalues(N, L, topo).reshape(sh)
         self.eigenvalues = lam
 
-        if self.z_kind == "tridiagonal":
-            n = grid.N[2]
-            dzc, dzf = stretched_spacings(grid, 2)
-            lower = 1.0 / dzf[:n]
-            upper = 1.0 / dzf[1:n + 1]
+        if self.s is not None:
+            n = grid.N[self.s]
+            dsc, dsf = stretched_spacings(grid, self.s)
+            lower = 1.0 / dsf[:n]
+            upper = 1.0 / dsf[1:n + 1]
             lower[0] = 0.0
             upper[-1] = 0.0
-            self._dzc, self._lower, self._upper = dzc, lower, upper
+            self._dsc, self._lower, self._upper = dsc, lower, upper
         self._consts = {}
         if any(d.type == "cuda" for d in self.devices):
             disable_tf32()
 
     # -- per-shard constants -----------------------------------------------------
 
+    def _cut(self, arr, axis, rank):
+        """``arr`` cut to slab ``rank``'s range along ``axis`` (where it
+        spans the axis)."""
+        if arr.shape[axis] == 1:
+            return arr
+        w = arr.shape[axis] // self.P
+        return np.take(arr, np.arange(rank * w, (rank + 1) * w), axis=axis)
+
     def _constants(self, rank, dtype, device):
-        """The eigenvalues of slab ``rank`` in the transposed (x-local,
-        y-slab) layout and the z operators, as tensors of ``dtype`` on
-        ``device``, made once."""
+        """The eigenvalues of the transformed axes in the layout where the
+        divide or the sweep runs, the DCT matrices and the sweep's
+        coefficients, as tensors of ``dtype`` on ``device``, made once."""
         key = (rank, dtype, str(device))
         out = self._consts.get(key)
         if out is not None:
             return out
         kw = dict(dtype=dtype, device=device)
-        ny = self.grid.N[1] // self.P
-        lam = self.eigenvalues
-        if lam.shape[1] > 1:
-            lam = lam[:, rank * ny:(rank + 1) * ny]
+        lam = self._cut(self.eigenvalues, self._solve_cut(), rank)
         out = {"lam": torch.as_tensor(np.ascontiguousarray(lam), **kw)}
-        nz = self.N[2]
-        if self.z_kind == "dct":
-            out["dct"] = torch.as_tensor(dct2_matrix(nz), **kw)
-            out["idct"] = torch.as_tensor(idct2_matrix(nz), **kw)
-        elif self.z_kind == "tridiagonal":
+        for i in range(3):
+            if self.kinds[i] == "dct":
+                n = self.N[i]
+                out[("dct", i)] = torch.as_tensor(dct2_matrix(n), **kw)
+                out[("idct", i)] = torch.as_tensor(idct2_matrix(n), **kw)
+        if self.s is not None:
             # the coefficients are formed in float64 and rounded once, as
             # the serial FourierTridiagonalPoissonSolver forms them: formed
-            # in float32, -(lower + upper) - Δz·λ rounds twice, and the
+            # in float32, -(lower + upper) - Δs·λ rounds twice, and the
             # sweep of the near-singular modes amplified that to 2.4 times
             # the serial solver's float32 error; row 0 of the singular mode
             # is pinned (φ[0] = 0)
-            singular = lam[..., 0] == 0
-            diag = -(self._lower + self._upper) - self._dzc * lam
-            diag[..., 0] = np.where(singular, 1.0, diag[..., 0])
-            up = np.broadcast_to(self._upper, diag.shape).copy()
-            up[..., 0] = np.where(singular, 0.0, up[..., 0])
+            s = self.s
+            sh = [1, 1, 1]
+            sh[s] = -1
+            lower, upper = self._lower.reshape(sh), self._upper.reshape(sh)
+            dsc = self._dsc.reshape(sh)
+            first = tuple(slice(0, 1) if ax == s else slice(None)
+                          for ax in range(3))
+            singular = lam == 0
+            diag = -(lower + upper) - dsc * lam
+            diag[first] = np.where(singular, 1.0, diag[first])
+            up = np.broadcast_to(upper, diag.shape).copy()
+            up[first] = np.where(singular, 0.0, up[first])
             out.update(diag=torch.as_tensor(diag, **kw),
                        up=torch.as_tensor(up, **kw),
                        lower=torch.as_tensor(self._lower, **kw),
-                       dzc=torch.as_tensor(self._dzc, **kw),
-                       singular=torch.as_tensor(singular,
-                                                device=device))
-        for i in (0, 1):
-            if self.xy_kind[i] == "dct":
-                n = self.grid.N[i]
-                out[("dct", i)] = torch.as_tensor(dct2_matrix(n), **kw)
-                out[("idct", i)] = torch.as_tensor(idct2_matrix(n), **kw)
+                       dsc=torch.as_tensor(dsc, **kw),
+                       keep0=torch.as_tensor(~singular, **kw))
+            if s != 2:
+                w = self._cut((self._dsc / self._dsc.sum()).reshape(sh),
+                              s, rank) if s == self.a else \
+                    (self._dsc / self._dsc.sum()).reshape(sh)
+                out["weights"] = torch.as_tensor(w, **kw)
         self._consts[key] = out
         return out
 
+    def _solve_cut(self):
+        """The axis cut in the layout where the divide or the sweep runs:
+        the transposed slabs' b, or the slabs' a where the sweep runs along
+        b (whole on the slabs)."""
+        return self.a if self.s == self.b else self.b
+
     def _zsolve(self, bh, c):
-        """Eigen-divide (flat, periodic or DCT z) or the vertical
-        tridiagonal solve, in the (x-local, y-slab) layout."""
+        """The eigen-divide, or the Thomas sweep along the stretched axis,
+        of the transformed right-hand side."""
         lam = c["lam"]
-        if self.z_kind != "tridiagonal":
+        if self.s is None:
             zero = lam == 0
             denom = torch.where(zero, torch.ones_like(lam), lam)
             ph = -bh / denom
             return torch.where(zero, torch.zeros_like(ph), ph)
-        rhs = bh * c["dzc"]
-        rhs[..., 0] = torch.where(c["singular"], torch.zeros_like(rhs[..., 0]),
-                                  rhs[..., 0])
-        return solve_batched_tridiagonal(c["lower"], c["diag"], c["up"], rhs)
+        s = self.s
+        rhs = bh * c["dsc"]
+        n = rhs.shape[s]
+        # the pinned singular mode: φ[0] = 0
+        rhs = torch.cat([rhs.narrow(s, 0, 1) * c["keep0"],
+                         rhs.narrow(s, 1, n - 1)], dim=s)
+        return solve_batched_tridiagonal(c["lower"], c["diag"], c["up"], rhs,
+                                         axis=s)
 
     # -- the slab algorithm --------------------------------------------------
 
-    def solve_slab(self, rank, b, spectral=None):
-        """φ on slab ``rank``: ``b`` is the (Nx/P, Ny, Nz) interior slab of
-        x-cells rank·Nx/P .. (rank + 1)·Nx/P on this shard's device; called
-        from every shard's thread (two ``all_to_all`` meetings).
-        ``spectral(b̂, λ)`` replaces the eigen-divide (λ the Laplacian's
-        positive eigenvalues of the slab, broadcastable)."""
-        comm = self.comm
+    def _transpose(self, rank, x, to_b):
+        """Slabs (cut along a) to transposed slabs (cut along b) with
+        ``to_b``, else back: one ``all_to_all`` meeting."""
         P = self.P
-        nx, ny = self.grid.N[0] // P, self.grid.N[1] // P
-        c = self._constants(rank, b.dtype, b.device)
-        x = b
-        if self.z_kind == "dct":
-            x = apply_matrix_along(x, c["dct"], 2)
-        bh = self._along(x, 1, c)
-        if self.z_kind == "periodic":
-            bh = torch.fft.fft(bh, dim=2)
-        # transpose x↔y: gather x, cut y
-        got = comm.all_to_all(rank, [bh[:, t * ny:(t + 1) * ny]
-                                     for t in range(P)])
-        bh = self._along(torch.cat(got, dim=0), 0, c)
-        ph = (self._zsolve(bh, c) if spectral is None
-              else spectral(bh, c["lam"]))
-        ph = self._along(ph, 0, c, inverse=True)
-        # back to x-slabs
-        got = comm.all_to_all(rank, [ph[t * nx:(t + 1) * nx]
-                                     for t in range(P)])
-        ph = self._along(torch.cat(got, dim=1), 1, c, inverse=True)
-        if self.z_kind == "periodic":
-            ph = torch.fft.ifft(ph, dim=2)
-        if ph.is_complex():
-            ph = ph.real
-        if self.z_kind == "dct":
-            ph = apply_matrix_along(ph.contiguous(), c["idct"], 2)
-        return ph.to(b.dtype).contiguous()
+        cut, join = (self.b, self.a) if to_b else (self.a, self.b)
+        w = x.shape[cut] // P
+        got = self.comm.all_to_all(rank, [x.narrow(cut, t * w, w)
+                                          for t in range(P)])
+        return torch.cat(got, dim=join)
 
-    def _along(self, a, axis, c, inverse=False):
-        """The transform of x (0) or y (1) along ``axis`` of ``a``, whole
-        there: the FFT of a periodic axis, the DCT-II of a bounded one (its
-        inverses with ``inverse``), nothing along a flat one."""
-        kind = self.xy_kind[axis]
+    def solve_slab(self, rank, b, spectral=None):
+        """φ on slab ``rank``: ``b`` is the interior slab of cells
+        rank·N/P .. (rank + 1)·N/P along the slabs' cut axis (x, or y
+        where x is flat) on this shard's device; called from every shard's
+        thread (two ``all_to_all`` meetings, four when the sweep runs along
+        the transposed slabs' cut axis). ``spectral(b̂, λ)`` replaces the
+        eigen-divide (λ the Laplacian's positive eigenvalues of the slab,
+        broadcastable). A stretched x or y ends with its Δs-weighted mean
+        removed, as the serial solver's (a sum over the mesh)."""
+        a, bax = self.a, self.b
+        c = self._constants(rank, b.dtype, b.device)
+        # the slabs: every transformed axis but a (z's DCT, the other
+        # horizontal axis, z's FFT: the JAX order)
+        x = self._along(b, 2, c, kinds=("dct",))
+        if a == 0:
+            x = self._along(x, 1, c)
+        x = self._along(x, 2, c, kinds=("fft",))
+        x = self._transpose(rank, x, True)
+        x = self._along(x, a, c)
+        if self.s == bax:
+            # the sweep along b, whole on the slabs
+            x = self._transpose(rank, x, False)
+            x = self._zsolve(x, c)
+            x = self._transpose(rank, x, True)
+        else:
+            x = (self._zsolve(x, c) if spectral is None
+                 else spectral(x, c["lam"]))
+        x = self._along(x, a, c, inverse=True)
+        x = self._transpose(rank, x, False)
+        x = self._along(x, 2, c, inverse=True, kinds=("fft",))
+        if a == 0:
+            x = self._along(x, 1, c, inverse=True)
+        if x.is_complex():
+            x = x.real
+        x = self._along(x.contiguous(), 2, c, inverse=True, kinds=("dct",))
+        if "weights" in c:
+            other = self.N[0] * self.N[1] * self.N[2] // self.N[self.s]
+            mean = self.comm.all_reduce(rank, torch.sum(x * c["weights"]))
+            x = x - mean / other
+        return x.to(b.dtype).contiguous()
+
+    def _along(self, t, axis, c, inverse=False, kinds=("fft", "dct")):
+        """The transform of ``axis`` along it (whole there), if its kind is
+        among ``kinds``: the FFT of a periodic axis, the DCT-II of a
+        bounded one (their inverses with ``inverse``)."""
+        kind = self.kinds[axis]
+        if kind not in kinds:
+            return t
         if kind == "fft":
-            return (torch.fft.ifft if inverse else torch.fft.fft)(a, dim=axis)
-        if kind == "dct":
-            return apply_matrix_along(a.contiguous(), c[(
-                "idct" if inverse else "dct", axis)], axis)
-        return a
+            return (torch.fft.ifft if inverse else torch.fft.fft)(t, dim=axis)
+        return apply_matrix_along(t.contiguous(), c[(
+            "idct" if inverse else "dct", axis)], axis)
 
     def solve(self, b):
         """b: the global interior tensor (Nx, Ny, Nz); returns φ on b's
         device. The slabs go to the mesh's devices and every shard runs
         the slab algorithm."""
-        P, w = self.P, self.grid.N[0] // self.P
+        P, a = self.P, self.a
+        w = self.N[a] // P
         if tuple(b.shape) != tuple(self.N):
             raise ValueError(f"b has shape {tuple(b.shape)}; the solver's "
                              f"interior is {self.N}")
-        slabs = [b[s * w:(s + 1) * w].to(d, copy=True) for s, d in
+        slabs = [b.narrow(a, s * w, w).to(d, copy=True) for s, d in
                  enumerate(self.devices)]
         out = self.comm.run(lambda r: self.solve_slab(r, slabs[r]))
-        return torch.cat([o.to(b.device) for o in out], dim=0)
+        return torch.cat([o.to(b.device) for o in out], dim=a)
 
     # -- resident (Sx, Sy) blocks ------------------------------------------------
 
     def to_slabs(self, rank, block):
-        """The x-slab of shard ``rank`` from the mesh's (nlx, nly, Nz)
+        """The slab of shard ``rank`` from the mesh's (nlx, nly, Nz)
         blocks: slab i·Sy + k takes the k-th x-range of Nx/P cells of every
         block of mesh row i (an all_to_all within each row; nothing moves
-        on an (Sx, 1) mesh)."""
+        on an (Sx, 1) mesh, nor on a (1, Sy) one whose x is flat: its
+        blocks are the y-slabs)."""
         comm = self.comm
         Sx, Sy = comm.mesh.devices.shape
-        if Sy == 1:
+        if Sy == 1 or self.a == 1:
             return block
         i = rank // Sy
         w = block.shape[0] // Sy
@@ -286,7 +350,7 @@ class DistributedFFTPoissonSolver:
         block from the x-slabs of its mesh row."""
         comm = self.comm
         Sx, Sy = comm.mesh.devices.shape
-        if Sy == 1:
+        if Sy == 1 or self.a == 1:
             return slab
         i = rank // Sy
         nly = slab.shape[1] // Sy

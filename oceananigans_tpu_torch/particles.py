@@ -9,6 +9,14 @@ wrap, and on an immersed grid a particle advected into a solid cell
 bounces back into its previous cell. Tracked fields are interpolated at
 their own locations. Everything is vectorized over the particles on the
 grid's device.
+
+On a device mesh the particles are replicated, as the JAX package leaves
+them (not 3-D, so not sharded): every shard holds every position. Each
+shard interpolates the particles inside its block (a particle on a shared
+face belongs to the higher block, so each is counted once), the others
+contribute zeros, and one ``all_reduce`` a sampling adds the shards'
+contributions, so that every shard reads the serial values bit for bit and
+steps the same positions; the walls and the wrap are the global grid's.
 """
 
 from __future__ import annotations
@@ -69,6 +77,37 @@ def interpolate_field(grid, data, loc, x, y, z):
     c0 = c00 * (1 - fy) + c10 * fy
     c1 = c01 * (1 - fy) + c11 * fy
     return c0 * (1 - fz) + c1 * fz
+
+
+def _owned(grid, x, y):
+    """The particles inside the interior block of a shard's ``grid``: each
+    x and y range half open, closed at the global grid's high end."""
+    shard = grid.shard
+    mask = torch.ones_like(x, dtype=torch.bool)
+    for axis, pos in ((0, x), (1, y)):
+        if grid.is_flat(axis):
+            continue
+        H, n = grid.H[axis], grid.N[axis]
+        faces = np.asarray(grid.coord_padded(axis, "f"), np.float64)
+        lo, hi = float(faces[H]), float(faces[H + n])
+        last = shard.offset[axis] + n == shard.global_grid.N[axis]
+        mask = mask & (pos >= lo) & ((pos <= hi) if last else (pos < hi))
+    return mask
+
+
+def sample(grid, items, x, y, z):
+    """``interpolate_field`` of each (padded data, location) of ``items``
+    at the positions; on a shard's grid, each shard's own particles summed
+    over the mesh (one ``all_reduce``)."""
+    vals = [interpolate_field(grid, data, loc, x, y, z)
+            for data, loc in items]
+    shard = getattr(grid, "shard", None)
+    if shard is None or not vals:
+        return vals
+    mask = _owned(grid, x, y)
+    mine = torch.stack([torch.where(mask, v, torch.zeros_like(v))
+                        for v in vals])
+    return list(shard.all_reduce(mine).unbind(0))
 
 
 class LagrangianParticles:
@@ -154,10 +193,18 @@ class LagrangianParticles:
         zs = (torch.as_tensor(self.dynamics.depths, dtype=z.dtype,
                               device=z.device).broadcast_to(z.shape)
               if drogued else z)
-        up = interpolate_field(grid, u, LOC_FCC, x, y, zs)
-        vp = interpolate_field(grid, v, LOC_CFC, x, y, zs)
-        if not drogued:
-            wp = interpolate_field(grid, w, LOC_CCF, x, y, z)
+        shard = getattr(grid, "shard", None)
+        if shard is not None and self.dynamics is not None and not drogued:
+            raise NotImplementedError(
+                "a particle dynamics callable on a device mesh: it reads the "
+                "global fields, which no shard holds")
+        if drogued:
+            up, vp = sample(grid, [(u, LOC_FCC), (v, LOC_CFC)], x, y, zs)
+        else:
+            up, vp, wp = sample(grid, [(u, LOC_FCC), (v, LOC_CFC),
+                                       (w, LOC_CCF)], x, y, z)
+        # the walls, the wrap and the solid cells are the global grid's
+        grid = grid if shard is None else shard.global_grid
         dt = float(dt)
         x = x + dt * up
         y = y + dt * vp
@@ -183,11 +230,11 @@ class LagrangianParticles:
         """The tracked fields interpolated onto the particles, each at its
         own location."""
         out = dict(particles)
-        for name in self.tracked_fields:
-            loc = self._FIELD_LOCS.get(name, LOC_CCC)
-            out[name] = interpolate_field(grid, fields[name], loc,
-                                          particles["x"], particles["y"],
-                                          particles["z"])
+        names = self.tracked_fields
+        vals = sample(grid, [(fields[n], self._FIELD_LOCS.get(n, LOC_CCC))
+                             for n in names],
+                      particles["x"], particles["y"], particles["z"])
+        out.update(zip(names, vals))
         return out
 
     def step(self, grid, fields, particles, dt):

@@ -223,10 +223,11 @@ class FluxLaplacian:
         return -lap
 
 
-def fft_preconditioner(fft_solver):
-    """``r ↦ -φ`` with ∇²φ = r / V on the FFT solver's regular grid: the
-    inverse of the flux-form operator's regular-grid twin."""
-    Vr = fft_solver.grid.V(LOC_CCC)
+def fft_preconditioner(fft_solver, grid=None):
+    """``r ↦ -φ`` with ∇²φ = r / V on the FFT solver's regular grid (or
+    ``grid``): the inverse of the flux-form operator's regular-grid
+    twin."""
+    Vr = (fft_solver.grid if grid is None else grid).V(LOC_CCC)
 
     def precond(r):
         return -fft_solver.solve(r / Vr)

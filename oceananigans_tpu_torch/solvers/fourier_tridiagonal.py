@@ -141,14 +141,17 @@ def regular_preconditioner_grid(grid):
 
 
 def make_variable_spacing_poisson_solver(grid, fill_p=None, reltol=1e-8,
-                                         maxiter=500):
+                                         maxiter=500, fft_solver=None):
     """The CG solver of a multiply stretched or curvilinear grid (the JAX
     function's): the flux-form finite-volume Laplacian without masks
     (the Neumann fill zeroes the gradient at bounded faces), b scaled by -V
     with its mean removed, the solution's mean removed, and the FFT
     preconditioner of ``regular_preconditioner_grid`` where JAX builds it.
     ``fill_p`` fills a padded pressure's halos in place (by default with
-    the default conditions of a centre field)."""
+    the default conditions of a centre field). On a shard's grid the dot
+    products and means are sums over the mesh and ``fft_solver`` (the
+    shard's view of the pencil solver of the regular grid, or None) is the
+    preconditioner's solve."""
     from ..boundary_conditions import (fill_halo_regions,
                                        regularize_field_boundary_conditions)
     from ..grids.topology import LOC_CCC
@@ -161,8 +164,14 @@ def make_variable_spacing_poisson_solver(grid, fill_p=None, reltol=1e-8,
         fill_p = lambda p: fill_halo_regions(p, grid, LOC_CCC, bcs)
     lap = FluxLaplacian(grid, fill_p)
     V = _cut(grid, grid.V(LOC_CCC), grid.interior_slices)
-    reg = regular_preconditioner_grid(grid)
-    precond = None if reg is None else fft_preconditioner(
-        FFTPoissonSolver(reg))
+    shard = getattr(grid, "shard", None)
+    if shard is None:
+        reg = regular_preconditioner_grid(grid)
+        precond = None if reg is None else fft_preconditioner(
+            FFTPoissonSolver(reg))
+    else:
+        precond = None if fft_solver is None else fft_preconditioner(
+            fft_solver, fft_solver.pencil.grid)
 
-    return VolumeScaledPoissonSolver(grid, lap, V, precond, reltol, maxiter)
+    return VolumeScaledPoissonSolver(grid, lap, V, precond, reltol, maxiter,
+                                     shard)

@@ -2326,3 +2326,134 @@ def test_exchange_bounded_mesh_and_fold(fold):
         for b, cb in zip(row, crow):
             for a, c in zip(b, cb):
                 assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("S, nl", [((2, 1), (180, 6)), ((4, 2), (8, 5)),
+                                   ((3, 1), (4, 4))])
+def test_fold_self_mapped_column_and_its_images(S, nl):
+    """The fold's one self-mapped slot (an x-face field centred in y, last
+    row, column Nx/2) has periodic images in the neighbours' x halos: one
+    call of the kernel against one of the plain fold, exact, over 20 fresh
+    draws (an image that read its owner's slot during the launch would
+    see it before or after the owner's write)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from oceananigans_tpu_torch.parallel import halo_exchange as he
+    H = (3, 3)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    shape = (nl[0] + 2 * H[0], nl[1] + 2 * H[1], 32)
+    spec = [(-1.0, True, False), (1.0, True, False), (-1.0, False, False)]
+    for _ in range(20):
+        top = [[torch.randn(shape, generator=gen, device="cuda")
+                for _ in spec] for _ in range(S[0])]
+        want = [[a.clone() for a in t] for t in top]
+        he.mesh_fold_exchange(top, H, nl, spec)
+        he.fold_plain(want, H, nl, spec)
+        for t, w in zip(top, want):
+            for a, c in zip(t, w):
+                assert torch.equal(a, c)
+
+
+# -- the cubed sphere over its panels, a stretched sharded latitude ------------
+
+def _stretched_latlon_row(arch=None):
+    """``_latlon_row`` on phase 26's stretched latitude (15° + 60°·s^1.3)."""
+    lat = 15 + 60 * np.linspace(0, 1, 25) ** 1.3
+    grid = ot.LatitudeLongitudeGrid(size=(32, 24, 8), longitude=(0, 60),
+                                    latitude=lat, z=(-1800.0, 0.0),
+                                    dtype=torch.float64, device="cuda")
+    m = ot.HydrostaticFreeSurfaceModel(
+        grid, momentum_advection=ot.WENOVectorInvariant(
+            smoothness_dtype=torch.float64),
+        coriolis=ot.HydrostaticSphericalCoriolis(),
+        free_surface=ot.SplitExplicitFreeSurface(substeps=10),
+        tracers=("T",), architecture=arch)
+    rng = np.random.default_rng(13)
+    m.set(u=0.05 * rng.standard_normal((32, 24, 8)),
+          T=lambda lam, phi, z: 12 + 8e-3 * z + 2e-2 * phi)
+    return m
+
+
+def test_vi_on_stretched_latitude_shard_blocks():
+    """#10 on every shard's blocks of a stretched latitude (its per-slot
+    rows the global grid's cut at the offset) against its plain version at
+    1e-12, and the sharded row bit for bit with the serial one over 3
+    steps, #10 launched once a shard and step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    serial = _stretched_latlon_row()
+    sharded = _stretched_latlon_row()
+    sharded.state = _card_mesh().shard(serial.state)
+    assert all(m.uses_kernel for m in sharded._shards)
+    K.reset_counters()
+    for _ in range(3):
+        serial.time_step(120.0)
+        sharded.time_step(120.0)
+    launches, _ = K.counters()
+    assert launches["fused_vi_tendency"] == 3 * 5
+    for name in ("u", "v", "T", "eta"):
+        assert torch.equal(sharded.field(name).interior,
+                           serial.field(name).interior), name
+    for m in sharded._shards:
+        st = m._state
+        args = (m.grid, m.momentum_advection, m.tracer_advection,
+                m.tracer_names, m.coriolis, st["fields"]["u"],
+                st["fields"]["v"], st["w"], {"T": st["fields"]["T"]}, None)
+        got = K.fused_vi_tendency(*args)
+        want = K.fused_vi_tendency_plain(*args)
+        for g, w in zip([got[0], got[1], got[2]["T"]],
+                        [want[0], want[1], want[2]["T"]]):
+            scale = max(w.abs().max().item(), 1e-300)
+            assert (g - w).abs().max().item() / scale <= TOL
+
+
+def test_cubed_sphere_on_panel_shards_of_the_card():
+    """The cubed-sphere hydrostatic (6×8×8×2, split-explicit) and
+    shallow-water (6×8×8) models over 6 panel shards of the card against
+    their serial per-panel models on the card, float64, 2 steps: bit for
+    bit (the panel exchange gathers the global maps' slots); the z fill
+    launched on the panel blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from oceananigans_tpu_torch.parallel import Mesh
+    devices = np.empty(6, dtype=object)
+    devices[:] = [torch.device("cuda", 0)] * 6
+    arch = ot.Distributed(Mesh(devices, ("panels",)))
+    g3 = ot.ConformalCubedSphereGrid((8, 8, 2), z=(-500.0, 0.0),
+                                     radius=6.371e6, dtype=torch.float64,
+                                     device="cuda")
+    g2 = ot.ConformalCubedSphereGrid((8, 8), radius=6.371e6,
+                                     dtype=torch.float64, device="cuda")
+
+    def hydro(batch):
+        m = ot.CubedSphereHydrostaticModel(
+            g3, tracers=("b",), rotation_rate=7.292e-5,
+            free_surface="split_explicit", substeps=8, batch_panels=batch)
+        m.set(b=lambda lam, phi, z: 1e-5 * z + 1e-4
+              * np.exp(-(lam ** 2 + phi ** 2) / 0.2))
+        m.set_geographic(u_east=lambda lam, phi: 5.0 * np.cos(phi))
+        return m, 300.0, ("u", "v", "b", "eta")
+
+    def sw(batch):
+        m = ot.CubedSphereShallowWaterModel(g2, gravity=9.81,
+                                            rotation_rate=7.292e-5,
+                                            batch_panels=batch)
+        m.set_geographic(h=lambda lam, phi: 8000.0 - 100 * np.sin(phi) ** 2,
+                         u_east=lambda lam, phi: 20.0 * np.cos(phi))
+        return m, 60.0, ("h", "u", "v")
+
+    for build in (hydro, sw):
+        serial, dt, names = build(False)
+        sharded, _, _ = build(True)
+        sharded.state = arch.shard(sharded.state)
+        K.reset_counters()
+        for _ in range(2):
+            serial.time_step(dt)
+            sharded.time_step(dt)
+        launches, plain = K.counters()
+        assert not {k: v for k, v in plain.items() if "fill" in k and v}
+        if build is hydro:
+            assert launches["fill_halos"] > 0
+        for name in names:
+            assert torch.equal(sharded.field(name).interior,
+                               serial.field(name).interior), name

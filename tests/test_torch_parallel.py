@@ -381,7 +381,10 @@ def test_mesh_needs_the_fused_stage():
     (``test_sharded_plain_shallow_water_against_jax`` holds one against
     JAX), a bounded y among them (#9 refuses it as JAX's ``sw_eligible``
     does; ``tests/test_torch_sharded_hydrostatic.py`` holds it against
-    JAX); a stretched sharded y raises, citing ROADMAP item 16b."""
+    JAX); a stretched sharded y runs the plain tendencies too, each shard
+    on the serial grid's spacings cut at its offset: two steps equal the
+    serial model's bit for bit (``tests/test_torch_mesh_parity.py`` holds
+    one against JAX)."""
     grid = ot.RectilinearGrid(size=SW_N, extent=(10.0, 10.0),
                               topology=("periodic", "periodic", "flat"),
                               dtype=torch.float64, device="cpu")
@@ -403,9 +406,19 @@ def test_mesh_needs_the_fused_stage():
         y=10.0 * np.linspace(0, 1, SW_N[1] + 1) ** 1.2,
         topology=("periodic", "bounded", "flat"), dtype=torch.float64,
         device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        ot.ShallowWaterModel(stretched, advection=ot.WENO(5),
-                             architecture=_cpu_mesh())
+    models = []
+    for arch in (None, _cpu_mesh()):
+        m = ot.ShallowWaterModel(stretched, advection=ot.WENO(5),
+                                 architecture=arch)
+        m.set(h=lambda x, y, z: 1.0 + 0.1 * np.exp(-((x - 5.0) ** 2
+                                                    + (y - 5.0) ** 2)))
+        for _ in range(2):
+            m.time_step(SW_DT)
+        models.append(m)
+    assert models[1]._shards is not None and not models[1].fused
+    for name in ("uh", "vh", "h"):
+        assert torch.equal(models[0].field(name).interior,
+                           models[1].field(name).interior), name
 
 
 def test_sharded_stage_counts_no_launches_on_the_cpu():

@@ -19,8 +19,12 @@ relative to max|reference|:
 - the z-compact state's halos after a step (the divergence read through
   them at roundoff);
 - no global-view tensor inside a step, a shard's exception raised in the
-  caller, a dropped sharded model collected (its shards' threads end), and
-  the refusals citing ROADMAP item 16b.
+  caller, a dropped sharded model collected (its shards' threads end);
+- the six configurations the mesh refused before (``test_mesh_refusals_
+  cite_16b``, now comparisons with JAX's serial model at 1e-11 to 1e-10
+  and the port's at 1e-12 or bit for bit): the cubed sphere over its
+  panels, polar caps, a stretched y hydrostatic model, particles, a
+  stretched x NH model and Open sides.
 """
 
 import jax
@@ -355,50 +359,152 @@ def test_sharded_model_is_collected_and_its_threads_end():
     assert not any(t.is_alive() for t in threads)
 
 
-def _cubed_sphere_on_a_mesh(g):
-    m = ot.CubedSphereHydrostaticModel(ot.ConformalCubedSphereGrid(
-        (8, 8, 2), z=(-500.0, 0.0), radius=6.371e6, dtype=torch.float64,
-        device="cpu"), tracers=("b",))
-    m.state = _cpu_mesh().shard(m.state)
+def _split_explicit_panels():
+    """The cubed sphere over six panel shards: tests/test_parallel.py:317's
+    model with the split-explicit surface."""
+    from tests.test_torch_sharded_panels import _check, _jet, _triple
+    jm, serial, sharded = _triple(
+        lambda J, b: _jet(J, b, "split_explicit"), 2, 300.0)
+    _check(jm, serial, sharded, ("u", "v", "b", "eta"), 1e-11)
 
 
-def _polar_caps_on_a_mesh(g):
-    m = ot.HydrostaticFreeSurfaceModel(ot.LatitudeLongitudeGrid(
-        size=(16, 8, 3), longitude=(0, 360), latitude=(-90, 90),
-        z=(-100.0, 0.0), dtype=torch.float64, device="cpu"), tracers=("T",))
-    m.state = _cpu_mesh().shard(m.state)
+def _polar_caps():
+    """Polar caps on a 2×2 mesh, the zonal means summed over each mesh
+    row of shards: ``tests/test_torch_global.py``'s pole-to-pole model. The
+    south pole face of v is held to that file's ``POLE_FACE_TOL``: its
+    vorticity divides by a polar-cap area some 1e-13 of a normal cell's,
+    which amplifies the roundoff of the zonal sums (over the mesh here, in
+    one reduction in the serial models)."""
+    from tests.test_torch_global import POLE_FACE_TOL
+    from tests.test_torch_mesh_parity import check, interior, lib, triple
+
+    def build(J):
+        L = lib(J)
+        g = L.LatitudeLongitudeGrid(
+            size=(16, 8, 3), longitude=(0, 360), latitude=(-90, 90),
+            z=(-100.0, 0.0), **(dict(dtype=np.float64) if J else
+                                dict(dtype=torch.float64, device="cpu")))
+        m = L.HydrostaticFreeSurfaceModel(
+            grid=g, tracers=("T",), coriolis=L.HydrostaticSphericalCoriolis())
+        u = 0.01 * np.random.default_rng(42).standard_normal((16, 8, 3))
+        m.set(u=u, T=lambda lam, phi, z: 10 + 0.01 * np.cos(np.deg2rad(phi)))
+        return m
+
+    jm, serial, sharded = triple(build, 3, 60.0)
+    check(jm, serial, sharded, ("u", "T", "eta"), 1e-10, 1e-12)
+    v = {k: interior(m, "v") for k, m in
+         (("jax", jm), ("serial", serial), ("sharded", sharded))}
+    scale = np.abs(v["jax"]).max()
+    for ref in ("jax", "serial"):
+        assert np.abs(v["sharded"][:, 0] - v[ref][:, 0]).max() <= \
+            POLE_FACE_TOL * scale, ref
+    assert np.abs(v["sharded"][:, 1:] - v["jax"][:, 1:]).max() <= \
+        1e-10 * scale
+    assert np.abs(v["sharded"][:, 1:] - v["serial"][:, 1:]).max() <= \
+        1e-12 * scale
+
+
+def _stretched_y_hydrostatic():
+    """A stretched sharded y: the implicit free surface's PCG with its sums
+    over the mesh."""
+    from tests.test_torch_mesh_parity import check, lib, triple
+
+    def build(J):
+        L = lib(J)
+        g = L.RectilinearGrid(
+            size=NH_N, x=(0, 1e5), y=1e5 * np.linspace(0, 1, 17) ** 1.2,
+            z=(-100.0, 0.0),
+            **(dict(dtype=np.float64) if J else
+               dict(dtype=torch.float64, device="cpu")))
+        m = L.HydrostaticFreeSurfaceModel(
+            grid=g, tracers=("T",), coriolis=L.FPlane(f=1e-4))
+        rng = np.random.default_rng(9)
+        m.set(u=0.1 * rng.standard_normal(NH_N),
+              T=rng.standard_normal(NH_N))
+        return m
+
+    jm, serial, sharded = triple(build, 3, 50.0)
+    check(jm, serial, sharded, ("u", "v", "T", "eta"), 1e-10, 1e-12)
+
+
+def _particles():
+    """Particles replicated on every shard, sampled where they lie (some
+    on the shards' shared faces), against JAX's and the port's serial
+    positions."""
+    from tests.test_torch_mesh_parity import check, lib, nh, triple
+    rng = np.random.default_rng(10)
+    x, y, z = (rng.uniform(0, 1, 64), rng.uniform(0, 1, 64),
+               rng.uniform(-1, 0, 64))
+    x[:3], y[:3] = [0.5, 0.25, 0.0], [0.5, 0.5, 1.0]
+
+    def build(J):
+        L = lib(J)
+        g = L.RectilinearGrid(
+            size=NH_N, extent=(1.0, 1.0, 1.0),
+            topology=("periodic", "bounded", "bounded"),
+            **(dict(dtype=np.float64) if J else
+               dict(dtype=torch.float64, device="cpu")))
+        return nh(J, g, NH_N, particles=L.LagrangianParticles(
+            x, y, z, tracked_fields=("c",)))
+
+    jm, serial, sharded = triple(build, 2, NH_DT)
+    check(jm, serial, sharded, ("u", "v", "w", "c"), 1e-10, 1e-12)
+    for k in ("x", "y", "z", "c"):
+        got = sharded.state["particles"][k].numpy()
+        assert np.abs(got - serial.state["particles"][k].numpy()).max() \
+            <= 1e-14, k
+        assert np.abs(got - np.asarray(jm.state["particles"][k])).max() \
+            <= 1e-12, k
+    assert all(torch.equal(s._state["particles"]["x"],
+                           sharded._shards[0]._state["particles"]["x"])
+               for s in sharded._shards)
+
+
+def _stretched_x():
+    """tests/test_solvers.py:205's grid: the pencil's Thomas sweep along x
+    on the transposed slabs."""
+    from tests.test_torch_mesh_parity import check, stretched_x, triple
+    jm, serial, sharded = triple(stretched_x, 2, NH_DT)
+    check(jm, serial, sharded, ("u", "v", "w", "c"), 1e-10, 1e-12)
+
+
+def _open():
+    """Open sides with a value on a split bounded x: the edge shards fill
+    them, the others exchange."""
+    from tests.test_torch_mesh_parity import check, lib, nh, triple
+
+    def build(J):
+        L = lib(J)
+        g = L.RectilinearGrid(
+            size=NH_N, extent=(1.0, 1.0, 1.0),
+            topology=("bounded", "periodic", "bounded"),
+            **(dict(dtype=np.float64) if J else
+               dict(dtype=torch.float64, device="cpu")))
+        bcs = {"u": L.FieldBoundaryConditions(
+            west=L.OpenBoundaryCondition(0.05),
+            east=L.OpenBoundaryCondition(0.05))}
+        return nh(J, g, NH_N, seed=11, boundary_conditions=bcs)
+
+    jm, serial, sharded = triple(build, 2, NH_DT)
+    check(jm, serial, sharded, ("u", "v", "w", "c"), 1e-10, 1e-12)
 
 
 REFUSED = {
-    "cubed_sphere_panels": _cubed_sphere_on_a_mesh,
-    "polar_caps": _polar_caps_on_a_mesh,
-    "stretched_y_hydrostatic": lambda g: ot.HydrostaticFreeSurfaceModel(
-        ot.RectilinearGrid(size=NH_N, x=(0, 1), y=np.linspace(0, 1, 17) ** 1.2,
-                           z=(-1, 0), dtype=torch.float64, device="cpu"),
-        architecture=_cpu_mesh()),
-    "particles": lambda g: ot.NonhydrostaticModel(
-        g(("periodic", "periodic", "bounded")), architecture=_cpu_mesh(),
-        particles=ot.LagrangianParticles(np.array([0.5]), np.array([0.5]),
-                                         np.array([-0.5]))),
-    "stretched_x": lambda g: ot.NonhydrostaticModel(
-        ot.RectilinearGrid(size=NH_N, x=np.linspace(0, 1, 17) ** 1.2,
-                           y=(0, 1), z=(-1, 0), dtype=torch.float64,
-                           device="cpu"), architecture=_cpu_mesh()),
-    "open": lambda g: ot.NonhydrostaticModel(
-        g(("periodic", "periodic", "bounded")), architecture=_cpu_mesh(),
-        boundary_conditions={"w": ot.FieldBoundaryConditions(
-            top=ot.OpenBoundaryCondition(0.0))}),
+    "cubed_sphere_panels": _split_explicit_panels,
+    "polar_caps": _polar_caps,
+    "stretched_y_hydrostatic": _stretched_y_hydrostatic,
+    "particles": _particles,
+    "stretched_x": _stretched_x,
+    "open": _open,
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_mesh_refusals_cite_16b(case):
-    def grid(topo):
-        return ot.RectilinearGrid(size=NH_N, extent=(1.0, 1.0, 1.0),
-                                  topology=topo, dtype=torch.float64,
-                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        REFUSED[case](grid)
+    """The six configurations that the mesh refused before, citing ROADMAP
+    item 16b, now run on resident blocks: each against JAX's serial model
+    and the port's serial model."""
+    REFUSED[case]()
 
 
 BOUNDED_SHARDED = {

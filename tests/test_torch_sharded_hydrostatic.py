@@ -430,6 +430,20 @@ def test_no_global_view_in_the_sharded_hydrostatic_step(monkeypatch):
             assert tuple(a.shape[:2]) == tuple(s.grid.padded_shape[:2])
 
 
+def test_fold_kernel_refuses_an_odd_nx_for_an_x_face_field():
+    """An x-face field centred in y folded over an odd Nx would swap two
+    columns of its last row (the serial fill's plan refuses it): the fold
+    kernel's wrapper raises before it builds anything; a y-face field of
+    the same width is not refused by that rule."""
+    from oceananigans_tpu_torch.parallel import halo_exchange as he
+    top = [[torch.zeros(5 + 4, 4 + 4, 2, dtype=torch.float64)]
+           for _ in range(3)]
+    with pytest.raises(ValueError, match="even Nx"):
+        he.mesh_fold_exchange(top, (2, 2), (5, 4), [(-1.0, True, False)])
+    b = [[x.clone() for x in t] for t in top]
+    he.fold_plain(b, (2, 2), (5, 4), [(-1.0, False, True)])
+
+
 def test_every_shard_fills_its_walls():
     """On a 2x2 mesh over a grid with bounded x and y, every shard's fill
     of 3-D fields and of 2-D surfaces writes its walls: the corner shard
@@ -451,45 +465,66 @@ def test_every_shard_fills_its_walls():
 
 
 class _Series:
-    """A series of (Nx, Ny) planes, constant in time: what a
-    FieldTimeSeries boundary condition reads (``at_time``)."""
+    """A series of one (Nx, Ny) snapshot, constant in time: what a
+    FieldTimeSeries boundary condition reads (``times``, the snapshots by
+    index, ``at_time``; JAX's ``traced``)."""
+
+    times = np.array([0.0])
 
     def __init__(self, plane):
         self.plane = plane
 
+    def __getitem__(self, i):
+        return self.plane
+
     def at_time(self, time):
         return self.plane
+
+    traced = at_time
 
 
 @pytest.mark.parametrize("entry", ["shard", "architecture"])
 @pytest.mark.parametrize("value", ["time_series", "array"])
 def test_hydrostatic_mesh_refuses_global_boundary_planes(value, entry):
-    """A FieldTimeSeries or array top flux holds the global grid's plane,
-    which a shard built from the same arguments would read whole: on a mesh
-    the hydrostatic model refuses it, citing item 16b, through either
-    entry; the serial model takes it."""
-    plane = torch.as_tensor(
-        1e-5 * np.random.default_rng(4).standard_normal(N[:2]), **CPU)
-    bc = (ot.FieldTimeSeriesBoundaryCondition(_Series(plane))
-          if value == "time_series" else ot.FluxBoundaryCondition(plane))
+    """A FieldTimeSeries or array top flux holds the global grid's plane:
+    on a mesh (through either entry) each shard takes the plane cut at its
+    offset (a time series at each snapshot it serves), and 3 steps equal
+    the serial model's bit for bit and JAX's to 1e-11."""
+    plane = 1e-5 * np.random.default_rng(4).standard_normal(N[:2])
 
-    def model(arch=None):
-        return ot.HydrostaticFreeSurfaceModel(
-            _rect(False), momentum_advection=_vi(False), tracers=("T",),
-            coriolis=ot.FPlane(f=1e-4),
-            free_surface=ot.SplitExplicitFreeSurface(substeps=8),
-            boundary_conditions={"T": ot.FieldBoundaryConditions(top=bc)},
-            architecture=arch)
+    def bc(J):
+        if value == "array":
+            return (jo.FluxBoundaryCondition if J else
+                    ot.FluxBoundaryCondition)(plane)
+        p = jnp.asarray(plane) if J else torch.as_tensor(plane, **CPU)
+        return (jo.FieldTimeSeriesBoundaryCondition if J else
+                ot.FieldTimeSeriesBoundaryCondition)(_Series(p))
 
-    m = model()
-    m.time_step(50.0)
-    assert torch.isfinite(m.field("T").interior).all()
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        if entry == "shard":
-            m.state = _cpu_mesh().shard(m.state)
-        else:
-            model(_cpu_mesh())
-    assert m._shards is None and m.architecture is None
+    def model(J, arch=None):
+        kw = {} if J else dict(architecture=arch)
+        m = (JModel if J else ot.HydrostaticFreeSurfaceModel)(
+            _rect(J), momentum_advection=_vi(J), tracers=("T",),
+            coriolis=(JFPlane if J else ot.FPlane)(f=1e-4),
+            free_surface=(JSplit if J else ot.SplitExplicitFreeSurface)(
+                substeps=8),
+            boundary_conditions={"T": (jo if J else ot).FieldBoundaryConditions(
+                top=bc(J))}, **kw)
+        m.set(T=lambda x, y, z: 10 + 1e-3 * z,
+              u=0.1 * np.random.default_rng(5).standard_normal(N))
+        return m
+
+    jm, serial = model(True), model(False)
+    if entry == "shard":
+        sharded = model(False)
+        sharded.state = _cpu_mesh().shard(sharded.state)
+    else:
+        sharded = model(False, _cpu_mesh())
+        sharded.state = serial.state
+    assert sharded._shards is not None
+    for _ in range(3):
+        for m in (jm, serial, sharded):
+            m.time_step(50.0)
+    _check(jm, serial, sharded, ("u", "v", "T", "eta"))
 
 
 @pytest.mark.parametrize("kind", ["nh", "sw"])
